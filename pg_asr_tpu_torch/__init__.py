@@ -3,17 +3,24 @@
 The port follows the JAX package's module layout so that every module's
 counterpart is easy to find (``pg_asr_tpu/ops/lstm.py`` <->
 ``pg_asr_tpu_torch/ops/lstm.py``). It imports ``torch`` and never ``jax``;
-the JAX package's jax-free modules (``config``, ``data.*``, ``metrics``,
-``cli.build_parser``) are reused by import, the config and data ones through
-this package's ``config`` and ``data`` modules.
+it imports nothing of the JAX package either, not even its modules that do
+not import JAX: what it needs of them (``config``, ``data``, ``metrics``,
+the CLI's flags) it keeps as its own copies.
 
-Ported so far: batch transcription (``--mode predict``) of the BiLSTM-CTC
-family with greedy decoding. The LSTM recurrence on CUDA tensors runs in a
-hand-written kernel (``csrc/lstm_fwd.cu``); on CPU tensors it runs the plain
-PyTorch version of the same function.
+Ported so far: training (``--mode train``) and batch transcription
+(``--mode predict``, greedy) of the BiLSTM-CTC family. On CUDA tensors the
+LSTM recurrence runs in hand-written kernels (``csrc/lstm_fwd.cu``, forward
+in its inference and residual forms; ``csrc/lstm_bwd.cu``, its gradient);
+on CPU tensors it runs the plain PyTorch versions of the same functions.
 """
 
 import torch
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to pg_asr_tpu_torch (see ROADMAP.md); "
+        "use the JAX package (main.py) for it")
 
 
 def resolve_device(name: str) -> torch.device:

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds). The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The
 library is keyed on a hash of the sources and the compiler flags and lands in
 ``pg_asr_tpu_torch/_build/`` (listed in ``.gitignore``); a second process
 finds it there and skips the build. Nothing here runs at import time.
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,19 +61,28 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cu]
-    try:
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        cu = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in cu]
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, src],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True), src)
+                 for src, o in zip(cu, objs)]
+        failed = []
+        for proc, src in procs:  # wait for every compiler before raising
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

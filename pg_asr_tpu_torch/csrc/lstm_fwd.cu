@@ -1,11 +1,16 @@
 // Masked LSTM forward recurrence of one direction, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel pg_asr_tpu/ops/pallas_lstm.py:_kernel (the
-// inference form of pallas_lstm_scan, train=False). Same contract:
-//   xp   (B, T, 4H)  precomputed x@W + b, float32 or bfloat16, gates i,f,g,o
-//   U    (H, 4H)     recurrent weights, same type as xp
-//   mask (B, T)      float32, > 0 at valid steps
-//   out  (B, T, H)   h_new * mask, in xp's type
+// Replaces the TPU kernel pg_asr_tpu/ops/pallas_lstm.py:_kernel, both its
+// inference form (train=False) and its residual form (train=True, the
+// forward of the custom VJP). Same contract:
+//   xp    (B, T, 4H)  precomputed x@W + b, float32 or bfloat16, gates i,f,g,o
+//   U     (H, 4H)     recurrent weights, same type as xp
+//   mask  (B, T)      float32, > 0 at valid steps
+//   out   (B, T, H)   h_new * mask, in xp's type
+//   hprev (T, B, H)   residual form only: the carry h before step t, in
+//                     xp's type (padded steps included, as in the Pallas body)
+//   cprev (T, B, H)   residual form only: the carry c before step t, float32
+// A null hprev/cprev pointer selects the inference form.
 // Carries h and c are float32. h is rounded to U's type before the product
 // (h.astype(U.dtype) in the Pallas body) and the product accumulates in
 // float32. Where mask == 0 the carry is frozen and the output is zero;
@@ -38,41 +43,21 @@
 // Tensor cores (wgmma), TMA and clusters/DSMEM are left for later work.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-// Error codes of our own; positive codes are cudaError_t values.
-constexpr int kErrUnsupportedH = -1;    // H above 2 x #SMs, or odd and above #SMs
-constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-resident
-constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
-constexpr int kErrDtype = -4;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+using namespace pgasr;
 
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
                 const float* __restrict__ mask, T* __restrict__ out,
-                float* hbuf, int B, int T_len, int H, int reverse) {
+                float* hbuf, T* __restrict__ hprev, float* __restrict__ cprev,
+                int B, int T_len, int H, int reverse) {
   constexpr int C = 4 * NJ;  // gate columns of this block
   constexpr int RB = 8 / NJ; // rows a warp takes at once: RB * C == 32
   static_assert(RB * C == 32, "one partial sum per lane after the reduction");
@@ -176,6 +161,11 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
         const float gg = tanhf(x_g + p_g);
         const float og = sigmoid(x_o + p_o);
         const float c_old = c_s[b_cell * NJ + my_jj];
+        if (hprev != nullptr) {  // residual form: the carry before this step
+          const size_t r = ((size_t)t * B + b_cell) * H + j;
+          hprev[r] = from_f32<T>(h_old);
+          cprev[r] = c_old;
+        }
         const float c_new = fg * c_old + ig * gg;
         const float h_new = og * tanhf(c_new);
         const bool valid = m > 0.0f;
@@ -190,50 +180,43 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
 
 template <typename T, int NJ>
 int launch(const void* xp, const void* U, const float* mask, void* out,
-           float* hbuf, int B, int T_len, int H, int reverse,
-           cudaStream_t stream, int dev, int sms) {
+           float* hbuf, void* hprev, float* cprev, int B, int T_len, int H,
+           int reverse, cudaStream_t stream, int dev, int sms) {
   auto kernel = lstm_fwd_kernel<T, NJ>;
   const size_t smem = sizeof(float) * ((size_t)4 * NJ * H + (size_t)B * NJ);
-  int smem_max = 0, per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(
-      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  if (smem > (size_t)smem_max) return kErrSharedMemory;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return e;
   const int grid = H / NJ;
-  if (grid > per_sm * sms) return kErrGridNotResident;
+  int rc = prepare_cooperative(kernel, smem, grid, dev, sms);
+  if (rc != 0) return rc;
 
   const T* xp_t = static_cast<const T*>(xp);
   const T* u_t = static_cast<const T*>(U);
   T* out_t = static_cast<T*>(out);
-  void* args[] = {(void*)&xp_t, (void*)&u_t, (void*)&mask, (void*)&out_t,
-                  (void*)&hbuf, (void*)&B,   (void*)&T_len, (void*)&H,
-                  (void*)&reverse};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads),
-                                  args, smem, stream);
+  T* hprev_t = static_cast<T*>(hprev);
+  void* args[] = {(void*)&xp_t,  (void*)&u_t,   (void*)&mask,  (void*)&out_t,
+                  (void*)&hbuf,  (void*)&hprev_t, (void*)&cprev, (void*)&B,
+                  (void*)&T_len, (void*)&H,     (void*)&reverse};
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                              dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* xp, const void* U, const float* mask, void* out,
-             float* hbuf, int B, int T_len, int H, int reverse,
-             cudaStream_t stream) {
+             float* hbuf, void* hprev, float* cprev, int B, int T_len, int H,
+             int reverse, cudaStream_t stream) {
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
+  int rc = device_sms(&dev, &sms);
+  if (rc != 0) return rc;
   // fewest units per block such that one block per SM covers all H units:
   // on an H100 (132 SMs) NJ = 1 up to H = 132, NJ = 2 up to H = 264, which
   // holds every hidden size the package configures (64 .. 256)
   if (H <= sms)
-    return launch<T, 1>(xp, U, mask, out, hbuf, B, T_len, H, reverse, stream, dev, sms);
+    return launch<T, 1>(xp, U, mask, out, hbuf, hprev, cprev, B, T_len, H,
+                        reverse, stream, dev, sms);
   if (H % 2 == 0 && H / 2 <= sms)
-    return launch<T, 2>(xp, U, mask, out, hbuf, B, T_len, H, reverse, stream, dev, sms);
+    return launch<T, 2>(xp, U, mask, out, hbuf, hprev, cprev, B, T_len, H,
+                        reverse, stream, dev, sms);
   return kErrUnsupportedH;
 }
 
@@ -241,18 +224,22 @@ int dispatch(const void* xp, const void* U, const float* mask, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xp, U and out share it).
-// Returns 0, a cudaError_t value, or one of the negative codes above.
+// dtype: 0 = float32, 1 = bfloat16 (xp, U, out and hprev share it).
+// hprev/cprev null: the inference form; both set: the residual form.
+// Returns 0, a cudaError_t value, or one of the negative codes of common.cuh.
 int pgasr_lstm_fwd(const void* xp, const void* U, const void* mask, void* out,
-                   void* hbuf, int B, int T_len, int H, int reverse, int dtype,
-                   void* stream) {
+                   void* hbuf, void* hprev, void* cprev, int B, int T_len,
+                   int H, int reverse, int dtype, void* stream) {
   const float* m = static_cast<const float*>(mask);
   float* h = static_cast<float*>(hbuf);
+  float* cp = static_cast<float*>(cprev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((hprev == nullptr) != (cprev == nullptr)) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(xp, U, m, out, h, B, T_len, H, reverse, s);
+    return dispatch<float>(xp, U, m, out, h, hprev, cp, B, T_len, H, reverse, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(xp, U, m, out, h, B, T_len, H, reverse, s);
+    return dispatch<__nv_bfloat16>(xp, U, m, out, h, hprev, cp, B, T_len, H,
+                                   reverse, s);
   return kErrDtype;
 }
 

@@ -23,12 +23,15 @@ def check_family(family: str) -> None:
 
 
 def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True, train: bool = False,
+                     generator=None):
     """CTC-family forward: (B,T,F) feats -> (log_probs (B,T,A), out_mask
-    (B,T) f32, out_lens (B,)). The BiLSTM keeps T."""
+    (B,T) f32, out_lens (B,)). The BiLSTM keeps T. train=True applies
+    dropout with bits from `generator` (a torch.Generator on feats' device)."""
     check_family(cfg.model.family)
     from . import bilstm_ctc
 
     log_probs = bilstm_ctc.apply(params, feats, frame_mask, cfg.model,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel, train=train,
+                                 generator=generator)
     return log_probs, frame_mask.to(torch.float32), frame_lens

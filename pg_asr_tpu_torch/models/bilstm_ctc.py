@@ -3,8 +3,8 @@ pg_asr_tpu/models/bilstm_ctc.py).
 
 Masked per-utterance feature normalization -> Linear(F -> proj) + leaky_relu
 -> N stacked BiLSTM layers (hidden per direction) -> Linear(2H -> A) ->
-log_softmax in float32, alphabet index 0 = blank/pad. Dropout is train-only
-and not part of this inference port.
+log_softmax in float32, alphabet index 0 = blank/pad. In training,
+dropout follows the input projection and every BiLSTM layer but the last.
 
 Parameters are a flat dict of tensors (the state dict that
 ``checkpoint.save_model`` writes), in the JAX package's layouts:
@@ -83,24 +83,60 @@ def linear(params: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params[f"{name}.w"]) + params[f"{name}.b"]
 
 
+def dropout_threshold(rate: float) -> tuple[int, float]:
+    """The JAX package's uint8-threshold rule (pg_asr_tpu/models/
+    bilstm_ctc.py ``_dropout``): drop where a uniform byte is below
+    ``thresh = round(256 * rate)``, clamped to [1, 255] so that a rate in
+    (0, 1) always drops something and keeps something; keep probability is
+    the exact quantised ``1 - thresh / 256``."""
+    thresh = min(max(int(round(rate * 256.0)), 1), 255)
+    return thresh, 1.0 - thresh / 256.0
+
+
+def dropout_from_bits(x: torch.Tensor, rate: float,
+                      bits: torch.Tensor) -> torch.Tensor:
+    """Dropout of x with the given uint8 bits (same shape): kept values are
+    scaled by 1 / keep_p."""
+    thresh, keep_p = dropout_threshold(rate)
+    return torch.where(bits >= thresh, x / keep_p, torch.zeros_like(x))
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator | None, train: bool) -> torch.Tensor:
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+                         generator=generator)
+    return dropout_from_bits(x, rate, bits)
+
+
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
-           cfg: ModelConfig, use_kernel: bool = True) -> torch.Tensor:
-    """Encoder forward: (B, T, F) features -> (B, T, 2H) states."""
+           cfg: ModelConfig, use_kernel: bool = True, train: bool = False,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Encoder forward: (B, T, F) features -> (B, T, 2H) states. In
+    training (train=True with a generator on x's device) dropout draws its
+    bits from `generator`."""
     dtype = torch_dtype(cfg.dtype)
     mask = frame_mask.to(dtype)
     x = normalize_features(feats.to(dtype), mask)
     x = F.leaky_relu(linear(params, "input_proj", x), negative_slope=0.01)
-    for i in range(num_layers(params)):
-        layer = {d: {n: params[f"lstm.{i}.{d}.{n}"] for n in ("W", "U", "b")}
+    x = _dropout(x, cfg.dropout, generator, train)
+    n = num_layers(params)
+    for i in range(n):
+        layer = {d: {k: params[f"lstm.{i}.{d}.{k}"] for k in ("W", "U", "b")}
                  for d in ("fwd", "bwd")}
         x = bilstm_layer(layer, x, mask, use_kernel=use_kernel)
+        if i < n - 1:
+            x = _dropout(x, cfg.dropout, generator, train)
     return x
 
 
 def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
-          cfg: ModelConfig, use_kernel: bool = True) -> torch.Tensor:
+          cfg: ModelConfig, use_kernel: bool = True, train: bool = False,
+          generator: torch.Generator | None = None) -> torch.Tensor:
     """Forward pass: (B, T, F) features -> (B, T, A) CTC log-probs (f32)."""
-    x = encode(params, feats, frame_mask, cfg, use_kernel=use_kernel)
+    x = encode(params, feats, frame_mask, cfg, use_kernel=use_kernel,
+               train=train, generator=generator)
     logits = linear(params, "ctc_head", x)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     return log_probs * frame_mask.to(torch.float32)[:, :, None]

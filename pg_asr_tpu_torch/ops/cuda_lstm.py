@@ -1,12 +1,16 @@
-"""LSTM forward recurrence as a hand-written CUDA kernel (csrc/lstm_fwd.cu).
+"""LSTM recurrence kernels written by hand in CUDA (csrc/lstm_fwd.cu,
+csrc/lstm_bwd.cu) and their wrappers.
 
-Replaces pg_asr_tpu/ops/pallas_lstm.py ``_kernel`` (``pallas_lstm_scan``,
-inference form). ``lstm_scan`` picks by the tensor's device: CPU tensors run
-``lstm_scan_plain``, its plain PyTorch version; CUDA tensors launch the
-kernel or raise. There is no fallback from the kernel to the plain version.
+Replaces pg_asr_tpu/ops/pallas_lstm.py ``_kernel`` (inference form and the
+``train=True`` residual form) and ``_kernel_bwd``. Each wrapper picks by the
+tensor's device: CPU tensors run the plain PyTorch version (ops/lstm.py);
+CUDA tensors launch the kernel or raise. There is no fallback from a kernel
+to its plain version.
 
-``LAUNCHES`` counts kernel launches, so that a run can show its main path
-went through the kernel.
+Launch counts, so that a run can show its main path went through the
+kernels (each wrapper adds one where it launches its kernel, nowhere else):
+``LAUNCHES`` the inference form of lstm_fwd, ``RES_LAUNCHES`` its residual
+form, ``BWD_LAUNCHES`` lstm_bwd.
 """
 
 from __future__ import annotations
@@ -16,11 +20,15 @@ import ctypes
 import torch
 
 from .._build import load_library
-from .lstm import lstm_scan_plain
+from .lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
-__all__ = ["LAUNCHES", "lstm_scan", "lstm_scan_cuda", "lstm_scan_plain"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "RES_LAUNCHES", "lstm_scan",
+           "lstm_scan_bwd", "lstm_scan_bwd_cuda", "lstm_scan_cuda",
+           "lstm_scan_residual", "lstm_scan_residual_cuda"]
 
 LAUNCHES = 0
+RES_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
@@ -38,29 +46,21 @@ def _lib() -> ctypes.CDLL:
     lib = load_library()
     if not _declared:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pgasr_lstm_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       vp]
+        lib.pgasr_lstm_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.pgasr_lstm_fwd.restype = ci
+        lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.pgasr_lstm_bwd.restype = ci
         lib.pgasr_cuda_error_string.argtypes = [ci]
         lib.pgasr_cuda_error_string.restype = ctypes.c_char_p
         _declared = True
     return lib
 
 
-def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
-              reverse: bool = False) -> torch.Tensor:
-    """Masked LSTM recurrence: (B, T, 4H) x-projections -> (B, T, H)."""
-    if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, U, mask, reverse)
-    return lstm_scan_cuda(xp, U, mask, reverse)
-
-
-def lstm_scan_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
-                   reverse: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel. Raises on anything it does not take."""
-    global LAUNCHES
+def _check(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+           name: str) -> tuple[int, int, int]:
+    """Validate the inputs the kernels share; returns (B, T, H)."""
     if xp.device.type != "cuda":
-        raise ValueError(f"lstm_scan_cuda needs CUDA tensors, got {xp.device}")
+        raise ValueError(f"{name} needs CUDA tensors, got {xp.device}")
     if U.device != xp.device or mask.device != xp.device:
         raise ValueError("xp, U and mask must be on the same device")
     if xp.dtype not in _DTYPES or U.dtype != xp.dtype:
@@ -78,18 +78,103 @@ def lstm_scan_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
         raise ValueError("empty batch or sequence")
     if not (xp.is_contiguous() and U.is_contiguous()):
         raise ValueError("xp and U must be contiguous")
+    return B, T, H
+
+
+def _raise_on(rc: int, lib, kernel: str, B: int, T: int, H: int, dtype) -> None:
+    if rc != 0:
+        msg = _ERRORS.get(rc) or lib.pgasr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel (B={B}, T={T}, H={H}, {dtype}): "
+                           f"{msg}")
+
+
+def _forward(xp, U, mask, reverse: bool, residuals: bool):
+    B, T, H = _check(xp, U, mask, "lstm_fwd")
     m = mask.to(torch.float32).contiguous()
     out = torch.empty(B, T, H, dtype=xp.dtype, device=xp.device)
     hbuf = torch.empty(2, B, H, dtype=torch.float32, device=xp.device)
+    hprev = cprev = None
+    if residuals:
+        hprev = torch.empty(T, B, H, dtype=xp.dtype, device=xp.device)
+        cprev = torch.empty(T, B, H, dtype=torch.float32, device=xp.device)
     lib = _lib()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pgasr_lstm_fwd(xp.data_ptr(), U.data_ptr(), m.data_ptr(),
-                                out.data_ptr(), hbuf.data_ptr(), B, T, H,
-                                int(reverse), _DTYPES[xp.dtype], stream)
-    if rc != 0:
-        msg = _ERRORS.get(rc) or lib.pgasr_cuda_error_string(rc).decode()
-        raise RuntimeError(f"lstm_fwd kernel (B={B}, T={T}, H={H}, "
-                           f"{xp.dtype}): {msg}")
+        rc = lib.pgasr_lstm_fwd(
+            xp.data_ptr(), U.data_ptr(), m.data_ptr(), out.data_ptr(),
+            hbuf.data_ptr(), hprev.data_ptr() if residuals else None,
+            cprev.data_ptr() if residuals else None, B, T, H, int(reverse),
+            _DTYPES[xp.dtype], stream)
+    _raise_on(rc, lib, "lstm_fwd", B, T, H, xp.dtype)
+    return out, hprev, cprev
+
+
+def lstm_scan_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """Launch lstm_fwd, inference form. Raises on anything it does not take."""
+    global LAUNCHES
+    out, _, _ = _forward(xp, U, mask, reverse, residuals=False)
     LAUNCHES += 1
     return out
+
+
+def lstm_scan_residual_cuda(xp: torch.Tensor, U: torch.Tensor,
+                            mask: torch.Tensor, reverse: bool = False):
+    """Launch lstm_fwd, residual form -> (out (B,T,H), hprev (T,B,H) in xp's
+    type, cprev (T,B,H) float32)."""
+    global RES_LAUNCHES
+    res = _forward(xp, U, mask, reverse, residuals=True)
+    RES_LAUNCHES += 1
+    return res
+
+
+def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+                       hprev: torch.Tensor, cprev: torch.Tensor,
+                       gy: torch.Tensor, reverse: bool = False):
+    """Launch lstm_bwd -> (dxp (B,T,4H) in xp's type, dU (H,4H) in U's)."""
+    global BWD_LAUNCHES
+    B, T, H = _check(xp, U, mask, "lstm_bwd")
+    for name, t, dtype, shape in (("hprev", hprev, xp.dtype, (T, B, H)),
+                                  ("cprev", cprev, torch.float32, (T, B, H)),
+                                  ("gy", gy, xp.dtype, (B, T, H))):
+        if t.device != xp.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape} on {xp.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    m = mask.to(torch.float32).contiguous()
+    hprev, cprev, gy = hprev.contiguous(), cprev.contiguous(), gy.contiguous()
+    dxp = torch.empty_like(xp)
+    dU = torch.empty_like(U)
+    dbuf = torch.empty(2, B, 4 * H, dtype=U.dtype, device=xp.device)
+    lib = _lib()
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgasr_lstm_bwd(
+            xp.data_ptr(), U.data_ptr(), m.data_ptr(), hprev.data_ptr(),
+            cprev.data_ptr(), gy.data_ptr(), dxp.data_ptr(), dU.data_ptr(),
+            dbuf.data_ptr(), B, T, H, int(reverse), _DTYPES[xp.dtype], stream)
+    _raise_on(rc, lib, "lstm_bwd", B, T, H, xp.dtype)
+    BWD_LAUNCHES += 1
+    return dxp, dU
+
+
+def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+              reverse: bool = False) -> torch.Tensor:
+    """Masked LSTM recurrence, inference form: (B, T, 4H) -> (B, T, H)."""
+    if xp.device.type == "cpu":
+        return lstm_scan_plain(xp, U, mask, reverse)
+    return lstm_scan_cuda(xp, U, mask, reverse)
+
+
+def lstm_scan_residual(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+                       reverse: bool = False):
+    """Residual form -> (out, hprev, cprev), the backward's inputs."""
+    if xp.device.type == "cpu":
+        return lstm_scan_plain(xp, U, mask, reverse, residuals=True)
+    return lstm_scan_residual_cuda(xp, U, mask, reverse)
+
+
+def lstm_scan_bwd(xp, U, mask, hprev, cprev, gy, reverse: bool = False):
+    """Reverse-time gradient -> (dxp, dU)."""
+    if xp.device.type == "cpu":
+        return lstm_scan_bwd_plain(xp, U, mask, hprev, cprev, gy, reverse)
+    return lstm_scan_bwd_cuda(xp, U, mask, hprev, cprev, gy, reverse)

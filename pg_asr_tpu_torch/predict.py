@@ -13,28 +13,23 @@ import os
 
 import torch
 
-from pg_asr_tpu.metrics import evaluate_corpus, save_predictions
-
-from . import resolve_device
+from . import not_ported, resolve_device
 from .checkpoint import checkpoint_path, load_checkpoint
 from .config import Config
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
+from .data.bpe import load_tokenizer
 from .decoding.greedy import greedy_decode, ids_to_strings
+from .metrics import evaluate_corpus, save_predictions
 from .models import acoustic_forward, check_family
 from .models.bilstm_ctc import torch_dtype
 from .ops.features import extract_features
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to pg_asr_tpu_torch (see ROADMAP.md); "
-        "use the JAX package (main.py) for it")
-
-
 def load_model(model_path: str, alphabet: Alphabet,
                config: Config | None = None, which: str = "best",
                device: torch.device | str = "cpu", dtype: str | None = None):
-    """Load params from <model_path>/model_{best,last}.pt onto `device`.
+    """Load params from <model_path>/model_{best,last}.pt onto `device`
+(the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote).
 
     vocab_size and input_dim follow the alphabet and the feature config, as
     in the JAX package; `dtype` overrides the config's compute dtype."""
@@ -56,7 +51,7 @@ def load_model(model_path: str, alphabet: Alphabet,
     check_family(cfg.model.family)
     if which == "avg":
         raise not_ported("--ckpt avg (checkpoint averaging)")
-    state = load_checkpoint(checkpoint_path(model_path, which))
+    state = load_checkpoint(checkpoint_path(model_path, which))["params"]
     dt = torch_dtype(cfg.model.dtype)
     params = {k: v.to(device=device, dtype=dt) for k, v in state.items()}
     return params, cfg
@@ -94,8 +89,6 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         with open(cfg_path) as fo:
             cfg_peek = Config.from_json(fo.read())
     if cfg_peek is not None and cfg_peek.text.units == "bpe":
-        from pg_asr_tpu.data.bpe import load_tokenizer
-
         alphabet = load_tokenizer(os.path.dirname(alphabet_path), "bpe")
     else:
         alphabet = Alphabet.load(alphabet_path)

@@ -13,17 +13,33 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pg_asr_tpu.config import Config as JConfig
 from pg_asr_tpu.config import ModelConfig
 from pg_asr_tpu.decoding import greedy as jax_greedy
 from pg_asr_tpu.models import bilstm_ctc as jax_model
+from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.convert import params_from_jax, params_to_jax
 from pg_asr_tpu_torch.decoding import greedy
 from pg_asr_tpu_torch.models import bilstm_ctc
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (the suite runs in several worker
+    processes), restored afterwards: importing this module changes no
+    process-wide state."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 CFG = ModelConfig(vocab_size=11, input_dim=80, input_proj_dim=32,
                   hidden_size=16, num_layers=2, use_pallas_lstm=False)
+
+
+def _port(model_cfg):
+    """The port's ModelConfig from the JAX one's JSON (one schema)."""
+    return Config.from_json(JConfig(model=model_cfg).to_json()).model
 
 
 def _jax_params(seed=0):
@@ -58,7 +74,7 @@ def test_params_round_trip_is_exact():
 def test_init_params_shapes_and_distributions_match_jax():
     cfg = ModelConfig(vocab_size=11, input_dim=80, input_proj_dim=256,
                       hidden_size=64, num_layers=2)
-    got = bilstm_ctc.init_params(cfg, torch.Generator().manual_seed(0))
+    got = bilstm_ctc.init_params(_port(cfg), torch.Generator().manual_seed(0))
     ref_big = params_from_jax(jax.tree_util.tree_map(
         np.asarray, jax_model.init_params(jax.random.PRNGKey(1), cfg)))
     assert {k: tuple(v.shape) for k, v in got.items()} == {
@@ -79,7 +95,7 @@ def test_apply_matches_jax():
     ref = jax_model.apply(jax.tree_util.tree_map(jnp.asarray, tree),
                           jnp.asarray(feats), jnp.asarray(mask), CFG)
     got = bilstm_ctc.apply(params_from_jax(tree), torch.from_numpy(feats),
-                           torch.from_numpy(mask), CFG)
+                           torch.from_numpy(mask), _port(CFG))
     assert got.shape == (4, 30, CFG.vocab_size) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)
@@ -123,11 +139,13 @@ def test_greedy_ties_take_the_first_maximum():
 
 
 def test_ids_to_strings():
-    from pg_asr_tpu.data.text import Alphabet
+    from pg_asr_tpu.data.text import Alphabet as JAlphabet
+    from pg_asr_tpu_torch.data import Alphabet
 
-    alpha = Alphabet.from_symbols("ab c")
     labels = torch.tensor([[1, 2, 3, 4], [4, 0, 0, 0]], dtype=torch.int32)
     lens = torch.tensor([4, 1], dtype=torch.int32)
-    assert greedy.ids_to_strings(labels, lens, alpha) == \
-        jax_greedy.ids_to_strings(labels.numpy(), lens.numpy(), alpha) == \
+    assert greedy.ids_to_strings(labels, lens,
+                                 Alphabet.from_symbols("ab c")) == \
+        jax_greedy.ids_to_strings(labels.numpy(), lens.numpy(),
+                                  JAlphabet.from_symbols("ab c")) == \
         ["ab c", "c"]

@@ -15,11 +15,22 @@ import torch
 
 import jax.numpy as jnp
 
+from pg_asr_tpu.config import Config as JConfig
 from pg_asr_tpu.config import FeatureConfig
 from pg_asr_tpu.ops.features import extract_features as jax_extract
+from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.ops import features as tfeat
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (the suite runs in several worker
+    processes), restored afterwards: importing this module changes no
+    process-wide state."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _waves(dtype, seed=0):
@@ -39,8 +50,9 @@ def test_features_match_jax(kind, dtype):
     cfg = FeatureConfig(kind=kind)
     wave, lens = _waves(dtype)
     ref_f, ref_m, ref_l = jax_extract(jnp.asarray(wave), jnp.asarray(lens), cfg)
+    port_cfg = Config.from_json(JConfig(features=cfg).to_json()).features
     got_f, got_m, got_l = tfeat.extract_features(
-        torch.from_numpy(wave), torch.from_numpy(lens), cfg)
+        torch.from_numpy(wave), torch.from_numpy(lens), port_cfg)
     assert got_f.shape == ref_f.shape == (3, 4000 // cfg.hop_length + 1,
                                          cfg.feature_dim)
     assert got_f.dtype == torch.float32

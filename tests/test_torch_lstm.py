@@ -19,7 +19,16 @@ from pg_asr_tpu.ops.pallas_lstm import pallas_lstm_scan
 from pg_asr_tpu_torch.ops import cuda_lstm
 from pg_asr_tpu_torch.ops.lstm import bilstm_layer, lstm_scan_plain
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (the suite runs in several worker
+    processes), restored afterwards: importing this module changes no
+    process-wide state."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 INTERPRET = jax.default_backend() != "tpu"
 LENS = np.array([12, 7, 1, 3])  # ragged, including length 1 and full T

@@ -20,18 +20,29 @@ import torch
 import jax
 
 from pg_asr_tpu.checkpoint import save_checkpoint
-from pg_asr_tpu.config import Config, ModelConfig
+from pg_asr_tpu.config import Config as JConfig
+from pg_asr_tpu.config import ModelConfig
 from pg_asr_tpu.data.dataset import (BatchIterator, load_manifest,
                                      make_synthetic_corpus)
 from pg_asr_tpu.models import bilstm_ctc as jax_model
 from pg_asr_tpu.predict import predict as jax_predict
 from pg_asr_tpu_torch import cli
 from pg_asr_tpu_torch.checkpoint import load_checkpoint, save_model
+from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.convert import params_from_jax
 from pg_asr_tpu_torch.predict import forward, load_model
 from pg_asr_tpu_torch.predict import predict as torch_predict
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (the suite runs in several worker
+    processes), restored afterwards: importing this module changes no
+    process-wide state."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS_SEED, MODEL_SEED, BATCH = 3, 4, 2
@@ -43,16 +54,17 @@ def slice_setup(tmp_path_factory):
     corpus, alphabet = make_synthetic_corpus(
         str(d / "corpus"), n_utts=32, seed=CORPUS_SEED, min_dur=0.3,
         max_dur=1.0)
-    cfg = Config(model=ModelConfig(vocab_size=alphabet.size,
-                                   input_proj_dim=32, hidden_size=16,
-                                   num_layers=2))
+    jcfg = JConfig(model=ModelConfig(vocab_size=alphabet.size,
+                                     input_proj_dim=32, hidden_size=16,
+                                     num_layers=2))
+    cfg = Config.from_json(jcfg.to_json())  # the port's, from the same JSON
     tree = jax.tree_util.tree_map(
         np.asarray, jax_model.init_params(jax.random.PRNGKey(MODEL_SEED),
                                           cfg.model))
     jax_dir, torch_dir = str(d / "jax_model"), str(d / "torch_model")
     os.makedirs(jax_dir)
     with open(os.path.join(jax_dir, "config.json"), "w") as fo:
-        fo.write(cfg.to_json())
+        fo.write(jcfg.to_json())
     save_checkpoint(os.path.join(jax_dir, "model_best.ckpt"),
                     {"params": tree})
     save_model(torch_dir, params_from_jax(tree), cfg)
@@ -92,9 +104,9 @@ def test_predict_matches_jax_package(slice_setup):
 
 def test_checkpoint_round_trip(slice_setup, tmp_path):
     _, _, cfg, _, torch_dir = slice_setup
-    state = load_checkpoint(os.path.join(torch_dir, "model_best.pt"))
+    state = load_checkpoint(os.path.join(torch_dir, "model_best.pt"))["params"]
     save_model(str(tmp_path), state, cfg, which=("last",))
-    again = load_checkpoint(os.path.join(tmp_path, "model_last.pt"))
+    again = load_checkpoint(os.path.join(tmp_path, "model_last.pt"))["params"]
     assert set(again) == set(state)
     for k in state:
         torch.testing.assert_close(again[k], state[k], rtol=0, atol=0)
@@ -134,7 +146,7 @@ def test_cli_unported_family_exits_with_message(slice_setup, tmp_path):
     conformer = cfg.replace(model=cfg.model.__class__(
         **{**cfg.model.__dict__, "family": "conformer"}))
     save_model(str(tmp_path), load_checkpoint(
-        os.path.join(torch_dir, "model_best.pt")), conformer)
+        os.path.join(torch_dir, "model_best.pt"))["params"], conformer)
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "predict", "--test_path", paths["test_path"],
                   "--aud_path", paths["aud_path"], "--alphabet",
@@ -145,7 +157,7 @@ def test_cli_unported_family_exits_with_message(slice_setup, tmp_path):
 
 def test_cli_other_modes_not_ported():
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--mode", "train", "--device", "cpu"])
+        cli.main(["--mode", "finetune_pg", "--device", "cpu"])
 
 
 def _run(code_or_args, **kw):
