@@ -187,7 +187,7 @@ def phase_kernels(dev):
     import torch
 
     from pg_asr_tpu_torch.ops import cuda_lstm
-    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain
+    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
     mask, xp32, U32, gy32, valid = kernel_inputs(dev)
     fwd, res, bwd = [], [], []
@@ -195,11 +195,15 @@ def phase_kernels(dev):
         xp, U, gy = xp32.to(dtype), U32.to(dtype), gy32.to(dtype)
         name = str(dtype).split(".")[1]
         s = xp.element_size()
-        io_fwd = (B * T * 4 * H + H * 4 * H + B * T * H) * s + B * T * 4
+        # bytes: the function needs the per-step inputs (xp; in the
+        # backward also hprev, cprev, gy) on the valid steps only, since a
+        # padded step freezes the carry and writes zeros; it reads U and the
+        # whole mask and writes its outputs at every step (out; hprev, cprev
+        # in the residual form; dxp, dU in the backward)
+        io_fwd = ((valid * 4 * H + H * 4 * H + B * T * H) * s + B * T * 4)
         io_res = io_fwd + B * T * H * (s + 4)
-        # backward: reads xp, U, mask, hprev, cprev, gy; writes dxp, dU
-        io_bwd = ((2 * B * T * 4 * H + 2 * H * 4 * H + 2 * B * T * H) * s
-                  + B * T * 4 + B * T * H * 4)
+        io_bwd = (valid * H * (4 * s + s + 4 + s) + 2 * H * 4 * H * s
+                  + B * T * 4 + B * T * 4 * H * s)
         # operations on the valid steps: the (B,H)x(H,4H) product (2 flops
         # per multiply-add) and ~30 elementwise ops per unit; the backward
         # does three products and ~60 elementwise ops
@@ -211,8 +215,8 @@ def phase_kernels(dev):
             # --- inference form
             bound = BOUNDS[name]
             got = cuda_lstm.lstm_scan_cuda(xp, U, mask, reverse)
-            ref_out, ref_h, ref_c = cuda_lstm.lstm_scan_plain(
-                xp, U, mask, reverse, residuals=True)
+            ref_out, ref_h, ref_c = lstm_scan_plain(xp, U, mask, reverse,
+                                                    residuals=True)
             torch.cuda.synchronize()
             err, mean_err = _errs(got, ref_out)
             check(got.dtype == dtype and got.shape == (B, T, H),
@@ -220,7 +224,7 @@ def phase_kernels(dev):
             check(bool(torch.all(got[mask == 0] == 0)),
                   "kernel output not zero at padded steps")
             k_ms, p_ms = in_turns(
-                lambda: cuda_lstm.lstm_scan_plain(xp, U, mask, reverse),
+                lambda: lstm_scan_plain(xp, U, mask, reverse),
                 lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, reverse), 3, 20)
             b_ms, b_by = bound_ms(f_fwd, io_fwd, name)
             case = {"dtype": name, "reverse": reverse, "max_abs_err": err,
@@ -229,7 +233,7 @@ def phase_kernels(dev):
             ctrl = ""
             if dtype == torch.bfloat16:
                 # control: the plain version with h kept in float32
-                skip = cuda_lstm.lstm_scan_plain(xp, U.float(), mask, reverse)
+                skip = lstm_scan_plain(xp, U.float(), mask, reverse)
                 case["control_mean_abs_err"] = _errs(skip, ref_out)[1]
                 ctrl = (f", control without h rounding: mean "
                         f"{case['control_mean_abs_err']:.3e}")
@@ -257,8 +261,8 @@ def phase_kernels(dev):
             errs = {"out": _errs(out, ref_out), "hprev": _errs(hprev, ref_h),
                     "cprev": _errs(cprev, ref_c)}
             k_ms, p_ms = in_turns(
-                lambda: cuda_lstm.lstm_scan_plain(xp, U, mask, reverse,
-                                                  residuals=True),
+                lambda: lstm_scan_plain(xp, U, mask, reverse,
+                                        residuals=True),
                 lambda: cuda_lstm.lstm_scan_residual_cuda(xp, U, mask,
                                                           reverse), 3, 20)
             b_ms, b_by = bound_ms(f_fwd, io_res, name)

@@ -103,8 +103,11 @@ def dropout_from_bits(x: torch.Tensor, rate: float,
 
 def _dropout(x: torch.Tensor, rate: float,
              generator: torch.Generator | None, train: bool) -> torch.Tensor:
-    if not train or rate <= 0.0 or generator is None:
+    if not train or rate <= 0.0:
         return x
+    if generator is None:
+        raise ValueError(f"dropout {rate} in training needs a generator for "
+                         "its bits")
     bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
                          generator=generator)
     return dropout_from_bits(x, rate, bits)
@@ -114,8 +117,8 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            cfg: ModelConfig, use_kernel: bool = True, train: bool = False,
            generator: torch.Generator | None = None) -> torch.Tensor:
     """Encoder forward: (B, T, F) features -> (B, T, 2H) states. In
-    training (train=True with a generator on x's device) dropout draws its
-    bits from `generator`."""
+    training (train=True) dropout draws its bits from `generator`, on x's
+    device; a dropout rate above 0 without one raises."""
     dtype = torch_dtype(cfg.dtype)
     mask = frame_mask.to(dtype)
     x = normalize_features(feats.to(dtype), mask)

@@ -2,13 +2,13 @@
 csrc/lstm_bwd.cu) and their wrappers.
 
 Replaces pg_asr_tpu/ops/pallas_lstm.py ``_kernel`` (inference form and the
-``train=True`` residual form) and ``_kernel_bwd``. Each wrapper picks by the
-tensor's device: CPU tensors run the plain PyTorch version (ops/lstm.py);
-CUDA tensors launch the kernel or raise. There is no fallback from a kernel
-to its plain version.
+``train=True`` residual form) and ``_kernel_bwd``. Each launcher takes CUDA
+tensors only and launches its kernel or raises; ops/lstm.py chooses between
+a launcher and the plain PyTorch version by the tensor's device. There is
+no fallback from a kernel to its plain version.
 
 Launch counts, so that a run can show its main path went through the
-kernels (each wrapper adds one where it launches its kernel, nowhere else):
+kernels (each launcher adds one where it launches its kernel, nowhere else):
 ``LAUNCHES`` the inference form of lstm_fwd, ``RES_LAUNCHES`` its residual
 form, ``BWD_LAUNCHES`` lstm_bwd.
 """
@@ -20,11 +20,9 @@ import ctypes
 import torch
 
 from .._build import load_library
-from .lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
-__all__ = ["BWD_LAUNCHES", "LAUNCHES", "RES_LAUNCHES", "lstm_scan",
-           "lstm_scan_bwd", "lstm_scan_bwd_cuda", "lstm_scan_cuda",
-           "lstm_scan_residual", "lstm_scan_residual_cuda"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "RES_LAUNCHES", "lstm_scan_bwd_cuda",
+           "lstm_scan_cuda", "lstm_scan_residual_cuda"]
 
 LAUNCHES = 0
 RES_LAUNCHES = 0
@@ -156,25 +154,3 @@ def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
     BWD_LAUNCHES += 1
     return dxp, dU
 
-
-def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
-              reverse: bool = False) -> torch.Tensor:
-    """Masked LSTM recurrence, inference form: (B, T, 4H) -> (B, T, H)."""
-    if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, U, mask, reverse)
-    return lstm_scan_cuda(xp, U, mask, reverse)
-
-
-def lstm_scan_residual(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
-                       reverse: bool = False):
-    """Residual form -> (out, hprev, cprev), the backward's inputs."""
-    if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, U, mask, reverse, residuals=True)
-    return lstm_scan_residual_cuda(xp, U, mask, reverse)
-
-
-def lstm_scan_bwd(xp, U, mask, hprev, cprev, gy, reverse: bool = False):
-    """Reverse-time gradient -> (dxp, dU)."""
-    if xp.device.type == "cpu":
-        return lstm_scan_bwd_plain(xp, U, mask, hprev, cprev, gy, reverse)
-    return lstm_scan_bwd_cuda(xp, U, mask, hprev, cprev, gy, reverse)

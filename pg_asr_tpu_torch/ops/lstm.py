@@ -2,8 +2,10 @@
 
 The input projection x@W + b for all timesteps is hoisted out of the
 recurrence into one ``torch.matmul``; the recurrence itself (h@U + gates,
-masked) runs through ``ops/cuda_lstm``: the hand-written CUDA kernels on
-CUDA tensors, the plain PyTorch versions below on CPU tensors. Under
+masked) runs the hand-written CUDA kernels (``ops/cuda_lstm``) on CUDA
+tensors and the plain PyTorch versions below on CPU tensors, a choice made
+here and nowhere else. ``use_kernel=False`` runs the plain versions on any
+device: the reference a kernel run is held against. Under
 autograd the recurrence is ``LSTMScan``, whose forward keeps the residuals
 (h and c before every step) and whose backward is the reverse-time
 gradient kernel; without autograd (inference, ``torch.no_grad``) the
@@ -17,6 +19,8 @@ package's layout.
 from __future__ import annotations
 
 import torch
+
+from . import cuda_lstm
 
 
 def lstm_scan_plain(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
@@ -113,34 +117,38 @@ def lstm_scan_bwd_plain(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
     return dxp, du.to(U.dtype)
 
 
+def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+              reverse: bool = False, use_kernel: bool = True) -> torch.Tensor:
+    """Masked LSTM recurrence, inference form: (B, T, 4H) -> (B, T, H)."""
+    if use_kernel and xp.is_cuda:
+        return cuda_lstm.lstm_scan_cuda(xp, U, mask, reverse)
+    return lstm_scan_plain(xp, U, mask, reverse)
+
+
 class LSTMScan(torch.autograd.Function):
     """The recurrence under autograd (counterpart of the custom VJP of
     ``pallas_lstm_scan``). Forward: the residual form; backward: the
-    reverse-time gradient. ``use_kernel`` picks the kernels' wrappers
-    (kernel on CUDA tensors, plain version on CPU ones) or, when False, the
-    plain versions on any device (the reference a kernel run is held
-    against)."""
+    reverse-time gradient. Kernels on CUDA tensors unless ``use_kernel`` is
+    False, plain versions otherwise."""
 
     @staticmethod
     def forward(ctx, xp, U, mask, reverse: bool, use_kernel: bool):
-        if use_kernel:
-            from .cuda_lstm import lstm_scan_residual
-
-            out, hprev, cprev = lstm_scan_residual(xp, U, mask, reverse)
+        kernel = use_kernel and xp.is_cuda
+        if kernel:
+            out, hprev, cprev = cuda_lstm.lstm_scan_residual_cuda(
+                xp, U, mask, reverse)
         else:
             out, hprev, cprev = lstm_scan_plain(xp, U, mask, reverse,
                                                 residuals=True)
         ctx.save_for_backward(xp, U, mask, hprev, cprev)
-        ctx.reverse, ctx.use_kernel = reverse, use_kernel
+        ctx.reverse, ctx.kernel = reverse, kernel
         return out
 
     @staticmethod
     def backward(ctx, gy):
         xp, U, mask, hprev, cprev = ctx.saved_tensors
-        if ctx.use_kernel:
-            from .cuda_lstm import lstm_scan_bwd as bwd
-        else:
-            bwd = lstm_scan_bwd_plain
+        bwd = (cuda_lstm.lstm_scan_bwd_cuda if ctx.kernel
+               else lstm_scan_bwd_plain)
         dxp, dU = bwd(xp, U, mask, hprev, cprev, gy.contiguous(), ctx.reverse)
         return dxp, dU, None, None, None
 
@@ -149,18 +157,14 @@ def lstm_layer(params: dict, x: torch.Tensor, mask: torch.Tensor,
                reverse: bool = False, use_kernel: bool = True) -> torch.Tensor:
     """Single-direction LSTM layer. x: (B, T, I) -> (B, T, H).
 
-    use_kernel=False runs the plain versions on any device (the reference a
-    kernel run is held against); the default goes by the tensor's device.
+    Under autograd ``LSTMScan``; otherwise the inference form, which keeps
+    no residuals.
     """
     xp = torch.matmul(x, params["W"]) + params["b"]
     U = params["U"]
     if torch.is_grad_enabled() and (xp.requires_grad or U.requires_grad):
         return LSTMScan.apply(xp, U, mask, reverse, use_kernel)
-    if not use_kernel:
-        return lstm_scan_plain(xp, U, mask, reverse)
-    from .cuda_lstm import lstm_scan
-
-    return lstm_scan(xp, U, mask, reverse)
+    return lstm_scan(xp, U, mask, reverse, use_kernel)
 
 
 def bilstm_layer(params: dict, x: torch.Tensor, mask: torch.Tensor,

@@ -128,8 +128,10 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                  train: bool, generator: torch.Generator | None = None,
                  use_kernel: bool = True) -> torch.Tensor:
     """Scalar CTC loss of one batch (the JAX package's ``compute_loss`` for
-    the CTC family). Features carry no gradient. use_kernel=False is the
-    plain path: the plain LSTM recurrence and the plain CTC recursion."""
+    the CTC family). Features carry no gradient. ``use_kernel`` picks the
+    whole path: True, the LSTM kernels on CUDA tensors and ``F.ctc_loss``;
+    False, the plain reference path on any device, the plain LSTM
+    recurrence and the plain CTC recursion."""
     with torch.no_grad():
         feats, mask, frame_lens = extract_features(wave, num_samples,
                                                    cfg.features)
@@ -144,7 +146,8 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
 def loss_and_grads(params: dict[str, torch.Tensor], batch_arrays, cfg: Config,
                    generator: torch.Generator | None = None,
                    use_kernel: bool = True):
-    """(loss, {name: gradient}) of one training batch."""
+    """(loss, {name: gradient}) of one training batch; ``use_kernel`` as in
+    ``compute_loss``."""
     names = list(params)
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     with torch.enable_grad():

@@ -25,8 +25,8 @@ import torch
 from pg_asr_tpu_torch.config import ModelConfig
 from pg_asr_tpu_torch.models import bilstm_ctc
 from pg_asr_tpu_torch.ops import cuda_lstm
-from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan_bwd_plain,
-                                       lstm_scan_plain)
+from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan,
+                                       lstm_scan_bwd_plain, lstm_scan_plain)
 
 
 @pytest.fixture
@@ -53,7 +53,7 @@ def test_lstm_kernel_matches_plain(cuda, B, T, H, reverse, dtype, atol):
     xp, U = xp.to(cuda, dtype), U.to(cuda, dtype)
     mask = mask.to(cuda, torch.float32)
     before = cuda_lstm.LAUNCHES
-    got = cuda_lstm.lstm_scan(xp, U, mask, reverse)
+    got = lstm_scan(xp, U, mask, reverse)
     torch.cuda.synchronize()
     assert cuda_lstm.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == (B, T, H)
@@ -68,18 +68,18 @@ def test_lstm_kernel_rejects_bad_inputs(cuda):
     U = torch.zeros(16, 64, device=cuda)
     mask = torch.ones(2, 3, device=cuda)
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_scan(xp.double(), U.double(), mask)
+        cuda_lstm.lstm_scan_cuda(xp.double(), U.double(), mask)
     with pytest.raises(ValueError):
-        cuda_lstm.lstm_scan(xp, U[:8], mask)
+        cuda_lstm.lstm_scan_cuda(xp, U[:8], mask)
     with pytest.raises(ValueError):
-        cuda_lstm.lstm_scan(xp.transpose(0, 1), U, mask.T)
+        cuda_lstm.lstm_scan_cuda(xp.transpose(0, 1), U, mask.T)
     # above 2 hidden units per SM's block: refused, not launched
     H = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count + 2
     before = cuda_lstm.LAUNCHES
     with pytest.raises(RuntimeError, match="hidden size"):
-        cuda_lstm.lstm_scan(torch.zeros(1, 2, 4 * H, device=cuda),
-                            torch.zeros(H, 4 * H, device=cuda),
-                            torch.ones(1, 2, device=cuda))
+        cuda_lstm.lstm_scan_cuda(torch.zeros(1, 2, 4 * H, device=cuda),
+                                 torch.zeros(H, 4 * H, device=cuda),
+                                 torch.ones(1, 2, device=cuda))
     assert cuda_lstm.LAUNCHES == before
 
 
@@ -125,7 +125,8 @@ def test_lstm_residual_kernel_matches_plain(cuda, B, T, H, reverse, dtype,
                                             atol):
     xp, U, mask, _ = _case(cuda, B, T, H, dtype, H + T)
     before = cuda_lstm.RES_LAUNCHES
-    out, hprev, cprev = cuda_lstm.lstm_scan_residual(xp, U, mask, reverse)
+    out, hprev, cprev = cuda_lstm.lstm_scan_residual_cuda(xp, U, mask,
+                                                          reverse)
     torch.cuda.synchronize()
     assert cuda_lstm.RES_LAUNCHES == before + 1
     assert hprev.dtype == dtype and cprev.dtype == torch.float32
@@ -152,7 +153,8 @@ def test_lstm_bwd_kernel_matches_plain(cuda, B, T, H, reverse, dtype, rel):
     xp, U, mask, gy = _case(cuda, B, T, H, dtype, 7 * H + T)
     _, hprev, cprev = lstm_scan_plain(xp, U, mask, reverse, residuals=True)
     before = cuda_lstm.BWD_LAUNCHES
-    dxp, dU = cuda_lstm.lstm_scan_bwd(xp, U, mask, hprev, cprev, gy, reverse)
+    dxp, dU = cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, hprev, cprev, gy,
+                                           reverse)
     torch.cuda.synchronize()
     assert cuda_lstm.BWD_LAUNCHES == before + 1
     assert dxp.dtype == dU.dtype == dtype

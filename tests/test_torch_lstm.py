@@ -17,7 +17,8 @@ from pg_asr_tpu.ops.lstm import bilstm_layer as jax_bilstm_layer
 from pg_asr_tpu.ops.lstm import lstm_scan as jax_lstm_scan
 from pg_asr_tpu.ops.pallas_lstm import pallas_lstm_scan
 from pg_asr_tpu_torch.ops import cuda_lstm
-from pg_asr_tpu_torch.ops.lstm import bilstm_layer, lstm_scan_plain
+from pg_asr_tpu_torch.ops.lstm import (bilstm_layer, lstm_scan,
+                                       lstm_scan_plain)
 
 
 @pytest.fixture(autouse=True)
@@ -102,7 +103,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     xp, U, mask = _inputs(3)
     args = (torch.from_numpy(xp), torch.from_numpy(U), torch.from_numpy(mask))
     before = cuda_lstm.LAUNCHES
-    got = cuda_lstm.lstm_scan(*args, reverse=True)
+    got = lstm_scan(*args, reverse=True)
     assert cuda_lstm.LAUNCHES == before
     torch.testing.assert_close(got, lstm_scan_plain(*args, reverse=True),
                                rtol=0, atol=0)

@@ -158,17 +158,18 @@ def test_bf16_matches_pallas_bf16(reverse):
 
 
 def test_bwd_wrappers_take_plain_versions_for_cpu_tensors():
-    """On CPU tensors the residual and backward wrappers are the plain
-    versions and launch nothing; the kernel entry points refuse CPU tensors
+    """On CPU tensors LSTMScan's residual forward and backward are the plain
+    versions and launch nothing; the kernel launchers refuse CPU tensors
     instead of falling back."""
     xp, U, mask, gy = (_t(a) for a in _inputs(4))
     before = (cuda_lstm.RES_LAUNCHES, cuda_lstm.BWD_LAUNCHES)
-    out, hprev, cprev = cuda_lstm.lstm_scan_residual(xp, U, mask, True)
-    dxp, dU = cuda_lstm.lstm_scan_bwd(xp, U, mask, hprev, cprev, gy, True)
+    xp_g, U_g = xp.clone().requires_grad_(True), U.clone().requires_grad_(True)
+    LSTMScan.apply(xp_g, U_g, mask, True, True).backward(gy)
     assert (cuda_lstm.RES_LAUNCHES, cuda_lstm.BWD_LAUNCHES) == before
+    _, hprev, cprev = lstm_scan_plain(xp, U, mask, True, residuals=True)
     ref = lstm_scan_bwd_plain(xp, U, mask, hprev, cprev, gy, True)
-    torch.testing.assert_close(dxp, ref[0], rtol=0, atol=0)
-    torch.testing.assert_close(dU, ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(xp_g.grad, ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(U_g.grad, ref[1], rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_lstm.lstm_scan_residual_cuda(xp, U, mask)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -181,9 +182,13 @@ def test_inference_keeps_the_form_without_residuals(monkeypatch):
     from pg_asr_tpu_torch.ops import lstm as lstm_mod
 
     calls = []
-    real = cuda_lstm.lstm_scan_residual
-    monkeypatch.setattr(cuda_lstm, "lstm_scan_residual",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = lstm_mod.lstm_scan_plain
+
+    def spy(*a, residuals=False, **k):
+        calls.append(residuals)
+        return real(*a, residuals=residuals, **k)
+
+    monkeypatch.setattr(lstm_mod, "lstm_scan_plain", spy)
     rng = np.random.default_rng(5)
     params = {"W": _t(rng.standard_normal((6, 4 * H)) / 4).requires_grad_(),
               "U": _t(rng.standard_normal((H, 4 * H)) / 4).requires_grad_(),
@@ -192,7 +197,7 @@ def test_inference_keeps_the_form_without_residuals(monkeypatch):
     mask = _t(np.ones((B, T)))
     with torch.no_grad():
         y0 = lstm_mod.lstm_layer(params, x, mask)
-    assert calls == [] and not y0.requires_grad
+    assert calls == [False] and not y0.requires_grad
     y1 = lstm_mod.lstm_layer(params, x, mask)
-    assert calls == [1] and y1.requires_grad
+    assert calls == [False, True] and y1.requires_grad
     torch.testing.assert_close(y0, y1.detach(), rtol=0, atol=0)

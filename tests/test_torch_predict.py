@@ -60,7 +60,7 @@ def slice_setup(tmp_path_factory):
     cfg = Config.from_json(jcfg.to_json())  # the port's, from the same JSON
     tree = jax.tree_util.tree_map(
         np.asarray, jax_model.init_params(jax.random.PRNGKey(MODEL_SEED),
-                                          cfg.model))
+                                          jcfg.model))
     jax_dir, torch_dir = str(d / "jax_model"), str(d / "torch_model")
     os.makedirs(jax_dir)
     with open(os.path.join(jax_dir, "config.json"), "w") as fo:

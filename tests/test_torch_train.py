@@ -170,6 +170,10 @@ def test_dropout_threshold_clamp_and_train_only():
     assert bilstm_ctc._dropout(x, 0.0, g, train=True) is x
     y = bilstm_ctc._dropout(x, 0.5, g, train=True)
     assert set(torch.unique(y).tolist()) <= {0.0, 2.0}
+    # training with dropout needs its bits' generator: none is an error,
+    # not a run without dropout
+    with pytest.raises(ValueError, match="generator"):
+        bilstm_ctc._dropout(x, 0.3, None, train=True)
 
 
 # ---------------------------------------------------------------- optimizer
