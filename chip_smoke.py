@@ -15,19 +15,28 @@ the CPU or to a kernel's plain version):
      abs errors against stated bounds, CUDA-event times (kernel and plain
      in turns), the time of cuDNN's nn.LSTM at the same shape as a
      yardstick, and the least time the card could take (bound).
+  3b. beam kernel: ctc_beam vs the plain hash scan on the card at the
+     beam's default batch and width (B=128, T=401, A=28, K=16) on sharp
+     posteriors from a seed with ragged frame lengths, for the default
+     prune (M=6 symbols per frame) and the exact search (M=18): labels,
+     lens, parents and syms identical, nll within a stated bound; the
+     n-best mode likewise; CUDA-event times in turns and the bound.
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
      weights from a seed); checks predicted.txt, CER/WER, that every LSTM
      direction of every batch went through lstm_fwd, and one batch's
      log-probs against the plain recurrence; times the forward at
-     B=64 x 5 s.
+     B=64 x 5 s. Then `--decoder beam` (default batch 128, K=16, prune 6:
+     one batch): the same checks, one ctc_beam launch per batch, and the
+     kernel against the plain scan on that batch's log-probs.
   5. train slice: `--mode train --device cuda` through the CLI, one epoch
      of the synthetic train split (576 utterances, 18 steps at the default
      batch 32) with validation on dev; checks the launch counts of the
      residual forward and the backward (6 per step) and of the inference
      forward (6 per dev batch), the artifacts and finite losses, a resumed
-     second epoch, and `--mode predict` on the trained model; then one
+     second epoch, and `--mode predict` on the trained model, greedy and
+     beam; then one
      batch's loss and every parameter gradient, kernel path vs plain path,
      with dropout 0; then times one full train step at B=64 x 5 s in
      float32 and bfloat16.
@@ -100,6 +109,14 @@ LOGPROB_BOUND = 1e-3
 # max |grad| 1e-3 (float32 sums in other orders through 3 layers, the head,
 # and two CTC implementations: F.ctc_loss vs the plain alpha recursion)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
+# beam search, kernel vs plain scan: the two run the same float32
+# operations in the same order (logaddexp as max + log1p(exp(min - max)),
+# the merge as max + log(sum exp)), so only expf/log1pf of nvcc's and of
+# torch's CUDA build could round apart, by an ulp per operation; over 401
+# frames that bounds the nll's relative error by ~1e-6. Labels, lens,
+# parents and syms must be identical.
+BEAM_NLL_REL = 1e-6
+BEAM_B, BEAM_A, BEAM_K = 128, 28, 16  # the CLI's beam batch, vocab, width
 
 
 def check(cond: bool, msg: str) -> None:
@@ -368,6 +385,101 @@ def phase_library(dev):
     return lib
 
 
+def beam_inputs(dev):
+    """Sharp posteriors (logits x 2) for B=128 utterances of T=401 frames
+    and ragged frame lengths (1, 2 and T among them), from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((BEAM_B, T, BEAM_A)) * 2.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    fl = rng.integers(1, T + 1, BEAM_B).astype(np.int32)
+    fl[:3] = [T, 1, 2]
+    return torch.from_numpy(lp).to(dev), torch.from_numpy(fl).to(dev)
+
+
+def beam_vs_plain(lp, fl, M: int, Lmax: int):
+    """ctc_beam and the plain scan + backtrack on the same inputs: checks
+    labels, lens, parents and syms identical and the nll; returns the
+    kernel's output and the worst nll relative error."""
+    import torch
+
+    from pg_asr_tpu_torch.decoding import beam, cuda_beam
+
+    A = lp.shape[-1]
+    prune = None if M == beam._prune_m(A, BEAM_K, None) else M
+    out = cuda_beam.ctc_beam_cuda(lp, fl, K=BEAM_K, M=M, Lmax=Lmax)
+    lens, scores, parents, syms = beam._scan_hash(
+        lp, fl, K=BEAM_K, A=A, Lmax=Lmax, blank=0, prune=prune)
+    labels, blens, nll = beam._backtrack_batch(parents, syms, lens, scores,
+                                               Lmax)
+    torch.cuda.synchronize()
+    for name, got, want in (("parents", out.parents, parents),
+                            ("syms", out.syms, syms), ("lens", out.lens, lens),
+                            ("labels", out.labels[:, 0], labels),
+                            ("best lens", out.nb_lens[:, 0], blens)):
+        check(torch.equal(got, want),
+              f"ctc_beam M={M}: {name} differ from the plain scan")
+    err = (out.nll[:, 0] - nll).abs()
+    rel = (err / nll.abs().clamp(min=1)).max().item()
+    check(rel <= BEAM_NLL_REL, f"ctc_beam M={M}: nll rel error {rel}")
+    return out, rel, err.max().item()
+
+
+def phase_beam(dev):
+    """ctc_beam vs the plain hash scan at the beam's default batch and
+    width, M=6 (the default prune) and M=18 (the exact search)."""
+    import torch
+
+    from pg_asr_tpu_torch.decoding import beam, cuda_beam
+
+    lp, fl = beam_inputs(dev)
+    A, valid = BEAM_A, int(fl.sum())
+    cases = []
+    for M in (6, beam._prune_m(A, BEAM_K, None)):
+        prune = None if M == beam._prune_m(A, BEAM_K, None) else M
+        out, rel, abs_err = beam_vs_plain(lp, fl, M, T)
+        k_ms, p_ms = in_turns(
+            lambda: beam.beam_decode(lp, fl, max_label_len=T, prune=prune,
+                                     use_kernel=False),
+            lambda: cuda_beam.ctc_beam_cuda(lp, fl, K=BEAM_K, M=M, Lmax=T),
+            1, 20)
+        # bytes: the log-prob rows of the valid frames, the frame lengths,
+        # and every output once: (T, B, K) parents and syms, (B, K) lens and
+        # scores, the (B, Lmax) labels, best lens and nll. Operations per
+        # valid frame of an utterance: the top-M rank over A symbols, the
+        # K x K merge, ~4 per candidate (score, masks) and a top-K pass
+        # over the C = K(1+M) candidates, ~20 per slot for the logaddexps
+        C = BEAM_K * (1 + M)
+        nbytes = (valid * A * 4 + BEAM_B * 4 + 2 * T * BEAM_B * BEAM_K * 4
+                  + 2 * BEAM_B * BEAM_K * 4 + BEAM_B * T * 4 + 2 * BEAM_B * 4)
+        flops = valid * (A * M + BEAM_K * BEAM_K + 5 * C + 20 * BEAM_K)
+        b_ms, b_by = bound_ms(flops, nbytes, "float32")
+        case = {"M": M, "B": BEAM_B, "T": T, "A": A, "K": BEAM_K,
+                "valid_frames": valid, "max_frames": int(fl.max()),
+                "nll_max_rel_err": rel, "nll_max_abs_err": abs_err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "us_per_frame": k_ms * 1e3 / int(fl.max())}
+        cases.append(case)
+        print(f"[kernel] ctc_beam B={BEAM_B} T={T} A={A} K={BEAM_K} M={M}: "
+              f"labels, lens, parents, syms identical to the plain scan; nll "
+              f"rel err {rel:.1e} (bound {BEAM_NLL_REL:.0e}); kernel "
+              f"{k_ms:.3f} ms ({case['us_per_frame']:.2f} us per frame of "
+              f"the longest utterance), plain {p_ms:.3f} ms, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+    # the n-best mode (all K slots, sorted), exact search
+    got = beam.beam_decode_nbest(lp, fl, beam_size=BEAM_K)
+    want = beam.beam_decode_nbest(lp, fl, beam_size=BEAM_K, use_kernel=False)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "ctc_beam n-best differs from the plain version")
+    rel = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1)).max().item()
+    check(rel <= BEAM_NLL_REL, f"ctc_beam n-best nll rel error {rel}")
+    print(f"[kernel] ctc_beam n-best B={BEAM_B} K={BEAM_K}: labels and lens "
+          f"identical, nll rel err {rel:.1e}")
+    return cases
+
+
 def make_corpus(d):
     from pg_asr_tpu_torch.data import make_synthetic_corpus
 
@@ -463,6 +575,59 @@ def phase_predict(dev, corpus, alphabet, d, kernel_cases):
         print(f"[predict] forward B={B} x 5 s (T={T}), {dtype}: with kernel "
               f"{f_k:.2f} ms; the 6 LSTM directions at phase 3's kernel "
               f"times: {lstm:.2f} ms ({lstm / f_k:.0%})")
+
+    beam_launches = run_beam_predict(dev, corpus, model_dir, len(utts))
+    # the beam batch's log-probs: ctc_beam vs the plain scan. Random weights
+    # give nearly flat posteriors, so near-ties abound; the two compute the
+    # same float32 operations in the same order, so they must still agree
+    # exactly on labels, lens, parents and syms.
+    batch = next(iter(BatchIterator(utts, alphabet, BEAM_B, shuffle=False)))
+    lp, _, fl = forward(params_d, torch.from_numpy(batch.wave).to(dev),
+                        torch.from_numpy(batch.num_samples).to(dev), cfg_d)
+    Lmax = min(cfg_d.decode.max_label_len, lp.shape[1])
+    out, rel, _ = beam_vs_plain(lp, fl.to(torch.int32).contiguous(),
+                                cfg_d.decode.beam_prune, Lmax)
+    print(f"[predict] beam batch {tuple(lp.shape)}: ctc_beam (M="
+          f"{cfg_d.decode.beam_prune}) identical to the plain scan, nll rel "
+          f"err {rel:.1e}; mean label length "
+          f"{out.nb_lens.float().mean().item():.1f}")
+    return launches, beam_launches
+
+
+def run_beam_predict(dev, corpus, model_dir, n_utts: int) -> int:
+    """`--mode predict --decoder beam` through the CLI (default batch 128,
+    K=16, prune 6); checks its outputs and that each batch launched ctc_beam
+    once and lstm_fwd 6 times. Returns the ctc_beam launches."""
+    import torch
+
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.ops import cuda_lstm
+
+    n_batches = -(-n_utts // BEAM_B)
+    per_batch = 2 * Config().model.num_layers
+    cuda_lstm.LAUNCHES = cuda_beam.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(["--mode", "predict", "--decoder", "beam",
+                       "--corpus_path", corpus, "--model_path", model_dir,
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, lstm = cuda_beam.LAUNCHES, cuda_lstm.LAUNCHES
+    print(f"[predict] --decoder beam: rc={rc} in {wall:.2f} s (host clock); "
+          f"{n_utts} utterances in {n_batches} batch(es) of <= {BEAM_B}; "
+          f"ctc_beam launches {launches}, lstm_fwd launches {lstm}")
+    check(rc == 0, "beam predict failed")
+    check("CER:" in out and "WER:" in out, "beam predict: CER/WER not printed")
+    with open(os.path.join(model_dir, "predicted.txt")) as fo:
+        rows = fo.read().splitlines()
+    check(len(rows) == n_utts and all("|" in r for r in rows),
+          f"beam predict: predicted.txt has {len(rows)} rows for {n_utts}")
+    check(launches == n_batches,
+          f"ctc_beam launched {launches} times for {n_batches} batches")
+    check(lstm == per_batch * n_batches,
+          f"beam predict: lstm_fwd launched {lstm} times, expected "
+          f"{per_batch} x {n_batches}")
     return launches
 
 
@@ -544,6 +709,7 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
     check(cuda_lstm.LAUNCHES == per * -(-n_test // bs),
           f"predict on the trained model: {cuda_lstm.LAUNCHES} lstm_fwd "
           "launches")
+    counts["ctc_beam"] = run_beam_predict(dev, corpus, model_dir, n_test)
 
     # one batch: loss and every parameter gradient, kernel vs plain path
     params, cfg = load_model(model_dir, alphabet, device=dev)
@@ -601,12 +767,13 @@ def kernels_line(cases, lib, predict_launches, train_counts):
                     and not c["reverse"])
 
     f, r, b = head(cases["fwd"]), head(cases["res"]), head(cases["bwd"])
+    beam = cases["beam"][0]  # M=6, the default prune
     src = "pg_asr_tpu_torch/csrc/"
     return [{
         "name": "lstm_fwd", "route": "cuda", "source": src + "lstm_fwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:80",
-        "launches": predict_launches,
-        "launches_by_path": {"predict": predict_launches,
+        "launches": predict_launches[0],
+        "launches_by_path": {"predict": predict_launches[0],
                              "train": train_counts["lstm_fwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases["fwd"]
                            if c["dtype"] == "float32"),
@@ -632,6 +799,19 @@ def kernels_line(cases, lib, predict_launches, train_counts):
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": lib["bwd_ms"],
         "cases": cases["bwd"],
+    }, {
+        "name": "ctc_beam", "route": "cuda", "source": src + "ctc_beam.cu",
+        "replaces": "pg_asr_tpu/decoding/pallas_beam.py:67",
+        "launches": predict_launches[1],
+        "launches_by_path": {"predict": predict_launches[1],
+                             "train_then_predict": train_counts["ctc_beam"]},
+        "max_abs_err": max(c["nll_max_abs_err"] for c in cases["beam"]),
+        "ms": beam["ms"], "plain_ms": beam["plain_ms"],
+        "bound_ms": beam["bound_ms"], "bound_by": beam["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a CTC prefix beam "
+                        "search",
+        "cases": cases["beam"],
     }]
 
 
@@ -639,6 +819,7 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     cases = phase_kernels(dev)
+    cases["beam"] = phase_beam(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)

@@ -5,6 +5,7 @@
         [--lr_schedule warmup_constant|warmup_cosine] [--dtype float32|bfloat16] \\
         [--seed S] [--device cuda|cuda:N|cpu]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
+        [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--batch_size N] [--dtype ...] [--ckpt best|last] [--device ...]
 
 The flags keep the JAX CLI's names for what is ported; ``--device`` names a
@@ -41,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "without a GPU is an error, never a CPU fallback")
     p.add_argument("--num_epochs", nargs="?", type=int, default=10)
     p.add_argument("--batch_size", nargs="?", type=int, default=None,
-                   help="default 32")
+                   help="default 32; `--mode predict --decoder beam` "
+                        "defaults to 128")
     p.add_argument("--seed", type=int, default=None,
                    help="train: seed of the initial weights, the batch "
                         "order and the dropout bits (default 0)")
@@ -79,6 +81,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alphabet.txt (default <corpus_path>/alphabet.txt)")
     p.add_argument("--decoder", type=str, default="greedy",
                    choices=["greedy", "beam"])
+    p.add_argument("--beam_size", type=int, default=None,
+                   help="predict with --decoder beam: beam width (default "
+                        "16, config decode.beam_size)")
+    p.add_argument("--beam_prune", type=int, default=None,
+                   help="predict with --decoder beam: cap the per-frame "
+                        "candidate symbols to the top-M (default 6, config "
+                        "decode.beam_prune); 0 for the exact search (all "
+                        "beam+2 candidates)")
     p.add_argument("--ckpt", type=str, default="best",
                    choices=("best", "last", "avg"))
     p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3])
@@ -153,12 +163,16 @@ def main(argv=None) -> int:
     alphabet = args.alphabet or os.path.join(corpus, "alphabet.txt")
     from .predict import predict
 
+    # beam eval batches at 128, greedy at 32, as the JAX CLI
+    bs = args.batch_size if args.batch_size is not None else (
+        128 if args.decoder == "beam" else 32)
     try:
         predict(test_path, aud_path, alphabet, args.model_path,
-                batch_size=args.batch_size or 32, decoder=args.decoder,
-                which_ckpt=args.ckpt, device=str(device), dtype=args.dtype,
+                batch_size=bs, decoder=args.decoder, which_ckpt=args.ckpt,
+                device=str(device), dtype=args.dtype,
+                beam_size=args.beam_size, beam_prune=args.beam_prune,
                 lm_order=args.lm_order, timestamps=args.timestamps)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
     return 0
 

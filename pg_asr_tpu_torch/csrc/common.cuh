@@ -1,4 +1,4 @@
-// Helpers shared by the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,7 @@ constexpr int kErrUnsupportedH = -1;    // H above 2 x #SMs, or odd and above #S
 constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-resident
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;
+constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

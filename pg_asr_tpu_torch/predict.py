@@ -2,9 +2,10 @@
 
 Loads model_best (or model_last), decodes every utterance of a test
 manifest, scores CER/WER and writes predicted.txt. Per batch: int16 waves go
-to the device, then features + BiLSTM-CTC forward + greedy decode run there,
-and only the (B, T) label ids come back. Ported: the CTC family with the
-greedy decoder.
+to the device, then features + BiLSTM-CTC forward + decode run there, and
+only the label ids come back. Ported: the CTC family with the greedy decoder
+and the CTC prefix beam search (``decoder="beam"``, one kernel launch per
+batch on CUDA); LM fusion into the beam is not.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .checkpoint import checkpoint_path, load_checkpoint
 from .config import Config
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
+from .decoding.beam import beam_decode
 from .decoding.greedy import greedy_decode, ids_to_strings
 from .metrics import evaluate_corpus, save_predictions
 from .models import acoustic_forward, check_family
@@ -27,7 +29,7 @@ from .ops.features import extract_features
 
 def load_model(model_path: str, alphabet: Alphabet,
                config: Config | None = None, which: str = "best",
-               device: torch.device | str = "cpu", dtype: str | None = None):
+               device: torch.device | str = "cuda", dtype: str | None = None):
     """Load params from <model_path>/model_{best,last}.pt onto `device`
 (the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote).
 
@@ -71,14 +73,25 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
             config: Config | None = None, decoder: str = "greedy",
             which_ckpt: str = "best", limit: int | None = None,
             device: str = "cuda", dtype: str | None = None,
+            beam_size: int | None = None, beam_prune: int | None = None,
             lm_order: int = 0, timestamps: bool = False) -> dict:
-    """Decode a test manifest and report CER/WER (+ predicted.txt dump)."""
-    if decoder == "beam":
-        raise not_ported("--decoder beam (CTC prefix beam search)")
-    if decoder != "greedy":
+    """Decode a test manifest and report CER/WER (+ predicted.txt dump).
+
+    decoder="beam": CTC prefix beam search of width beam_size (default
+    cfg.decode.beam_size) with the per-frame top-M cap beam_prune (default
+    cfg.decode.beam_prune; 0 = the exact search; an explicit value needs
+    decoder="beam" and is >= 2 or 0), as pg_asr_tpu/predict.py."""
+    if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}")
+    if beam_prune is not None:
+        if decoder != "beam":
+            raise ValueError("--beam_prune applies to --decoder beam")
+        if beam_prune != 0 and beam_prune < 2:
+            raise ValueError("--beam_prune must be >= 2 (blank + one "
+                             "symbol), or 0 for the exact search")
     if lm_order:
-        raise not_ported("LM shallow fusion (--lm_order)")
+        raise not_ported("LM shallow fusion into the beam search "
+                         "(--lm_order)")
     if timestamps:
         raise not_ported("--timestamps")
     dev = resolve_device(device)
@@ -94,6 +107,10 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         alphabet = Alphabet.load(alphabet_path)
     params, cfg = load_model(model_path, alphabet, config, which=which_ckpt,
                              device=dev, dtype=dtype)
+    beam_size = beam_size or cfg.decode.beam_size
+    if beam_prune is None:
+        beam_prune = cfg.decode.beam_prune
+    prune = beam_prune or None  # 0 -> the exact search
 
     utts = load_manifest(test_path, aud_path)
     if limit:
@@ -108,8 +125,14 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         # int16 waves go to the device; only the (B, T) label ids come back
         wave = torch.from_numpy(batch.wave).to(dev)
         num_samples = torch.from_numpy(batch.num_samples).to(dev)
-        log_probs, mask, _ = forward(params, wave, num_samples, cfg)
-        labels, lens = greedy_decode(log_probs, mask)
+        log_probs, mask, frame_lens = forward(params, wave, num_samples, cfg)
+        with torch.inference_mode():
+            if decoder == "beam":
+                labels, lens, _ = beam_decode(
+                    log_probs, frame_lens, beam_size=beam_size,
+                    max_label_len=cfg.decode.max_label_len, prune=prune)
+            else:
+                labels, lens = greedy_decode(log_probs, mask)
         predicted.extend(ids_to_strings(labels, lens, alphabet))
         targets.extend(batch.texts)
 

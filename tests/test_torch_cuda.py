@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from pg_asr_tpu_torch.config import ModelConfig
+from pg_asr_tpu_torch.decoding import beam, cuda_beam
 from pg_asr_tpu_torch.models import bilstm_ctc
 from pg_asr_tpu_torch.ops import cuda_lstm
 from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan,
@@ -217,3 +218,88 @@ def test_train_gradients_kernel_match_plain(cuda):
     for k in g_p:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-3,
                                    atol=float(1e-4 * g_p[k].abs().max()))
+
+
+# --- CTC prefix beam search: csrc/ctc_beam.cu vs decoding/beam.py's plain
+# scan. Labels, lens, parents and syms exact; scores and nll rtol 1e-6 (the
+# two compute the same float32 operations in the same order; only expf /
+# log1pf of nvcc's and of torch's CUDA build could round apart, by an ulp).
+# Sharp posteriors (logits x 2) from a numpy seed keep distinct candidates
+# apart by far more than an ulp.
+
+def _beam_case(cuda, B, T, A, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, A)) * 2.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    fl = rng.integers(1, T + 1, B).astype(np.int32)
+    fl[0] = T
+    fl[1:3] = [1, 2]
+    return torch.from_numpy(lp).to(cuda), torch.from_numpy(fl).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune", [None, 6])
+# the beam's default batch and width at 5 s; a small case with K=4, 8
+@pytest.mark.parametrize("B,T,A,K", [(128, 401, 28, 16), (5, 37, 6, 4),
+                                     (4, 50, 12, 8)])
+def test_ctc_beam_kernel_matches_plain(cuda, B, T, A, K, prune):
+    lp, fl = _beam_case(cuda, B, T, A, B + T + K)
+    M = beam._prune_m(A, K, prune)
+    out = cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=M, Lmax=T)
+    lens, scores, parents, syms = beam._scan_hash(lp, fl, K=K, A=A, Lmax=T,
+                                                  blank=0, prune=prune)
+    labels, blens, nll = beam._backtrack_batch(parents, syms, lens, scores, T)
+    torch.cuda.synchronize()
+    for got, want in ((out.parents, parents), (out.syms, syms),
+                      (out.lens, lens), (out.labels[:, 0], labels),
+                      (out.nb_lens[:, 0], blens)):
+        assert torch.equal(got, want)
+    torch.testing.assert_close(out.scores, scores, rtol=1e-6, atol=0)
+    torch.testing.assert_close(out.nll[:, 0], nll, rtol=1e-6, atol=0)
+    assert int(blens.max()) > 0
+
+
+@pytest.mark.cuda
+def test_ctc_beam_nbest_kernel_matches_plain(cuda):
+    """All K slots by score, dead ones (K above the distinct prefixes of a
+    2-frame utterance) included."""
+    lp, fl = _beam_case(cuda, 6, 30, 8, 3)
+    before = cuda_beam.LAUNCHES
+    got = beam.beam_decode_nbest(lp, fl, beam_size=16, max_label_len=40)
+    assert cuda_beam.LAUNCHES == before + 1
+    want = beam.beam_decode_nbest(lp, fl, beam_size=16, max_label_len=40,
+                             use_kernel=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    assert bool((got[2] > 1e29).any())
+
+
+@pytest.mark.cuda
+def test_beam_decode_launches_the_kernel_once(cuda):
+    lp, fl = _beam_case(cuda, 8, 60, 28, 1)
+    before = cuda_beam.LAUNCHES
+    labels, lens, nll = beam.beam_decode(lp.to(torch.bfloat16), fl, prune=6)
+    assert cuda_beam.LAUNCHES == before + 1
+    assert labels.shape == (8, 256) and labels.dtype == torch.int32
+    ref = beam.beam_decode(lp.to(torch.bfloat16), fl, prune=6,
+                           use_kernel=False)
+    assert cuda_beam.LAUNCHES == before + 1
+    assert torch.equal(labels, ref[0]) and torch.equal(lens, ref[1])
+
+
+@pytest.mark.cuda
+def test_ctc_beam_launcher_rejects_bad_inputs(cuda):
+    lp, fl = _beam_case(cuda, 3, 10, 8, 0)
+    before = cuda_beam.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_beam.ctc_beam_cuda(lp.cpu(), fl.cpu(), K=4, M=6, Lmax=10)
+    with pytest.raises(ValueError, match="supports"):
+        cuda_beam.ctc_beam_cuda(lp, fl, K=33, M=8, Lmax=10)
+    with pytest.raises(ValueError, match="supports"):
+        cuda_beam.ctc_beam_cuda(lp, fl, K=4, M=9, Lmax=10)  # M > A
+    with pytest.raises(TypeError):
+        cuda_beam.ctc_beam_cuda(lp.double(), fl, K=4, M=6, Lmax=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_beam.ctc_beam_cuda(lp.repeat(1, 1, 2)[..., ::2], fl, K=4, M=6,
+                                Lmax=10)
+    assert cuda_beam.LAUNCHES == before

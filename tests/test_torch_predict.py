@@ -77,7 +77,7 @@ def slice_setup(tmp_path_factory):
 def test_predict_matches_jax_package(slice_setup):
     paths, alphabet, cfg, jax_dir, torch_dir = slice_setup
     # the margin that makes exact text equality a fair bar
-    params, cfg_t = load_model(torch_dir, alphabet)
+    params, cfg_t = load_model(torch_dir, alphabet, device="cpu")
     utts = load_manifest(paths["test_path"], paths["aud_path"])
     margin = np.inf
     for b in BatchIterator(utts, alphabet, BATCH, shuffle=False):
@@ -126,7 +126,7 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--decoder", "beam"], "beam"),
+    (["--decoder", "beam", "--lm_order", "2"], "beam"),
     (["--ckpt", "avg"], "avg"),
     (["--timestamps"], "timestamps"),
 ])
