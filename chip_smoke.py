@@ -21,6 +21,13 @@ the CPU or to a kernel's plain version):
      prune (M=6 symbols per frame) and the exact search (M=18): labels,
      lens, parents and syms identical, nll within a stated bound; the
      n-best mode likewise; CUDA-event times in turns and the bound.
+  3c. flash-attention kernel: flash_attn vs its plain version
+     (ops/flash_attn.mhsa_plain) on the card at the conformer's attention
+     shape at B=64 x 5 s (H=4, T'=201, dh=64), q, k, v read in place from
+     a fused (B, T', 3, H, dh) projection, float32 and bfloat16, ragged
+     lengths: max abs errors against stated bounds, CUDA-event times in
+     turns, the bound over the pairs the segment mask leaves, and the time
+     of F.scaled_dot_product_attention with the same boolean mask.
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
@@ -40,7 +47,15 @@ the CPU or to a kernel's plain version):
      batch's loss and every parameter gradient, kernel path vs plain path,
      with dropout 0; then times one full train step at B=64 x 5 s in
      float32 and bfloat16.
-  6. prints a JSON line of kernel results, then as the last line
+  6. attention slices: for the conformer-CTC and the transformer-CTC at
+     their full default width (6 layers, d_model 256, 4 heads, random
+     weights from a seed) with flash_attention in config.json, `--mode
+     predict` through the CLI, greedy (batch 32, 3 batches) and beam
+     (batch 128, 1 batch): outputs checked and 6 flash_attn launches per
+     batch (and 0 with flash_attention false); one batch's log-probs, the
+     kernel against the plain attention; the forward at B=64 x 5 s with
+     flash_attention on and off, float32 and bfloat16.
+  7. prints a JSON line of kernel results, then as the last line
      {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
@@ -117,6 +132,16 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
 # parents and syms must be identical.
 BEAM_NLL_REL = 1e-6
 BEAM_B, BEAM_A, BEAM_K = 128, 28, 16  # the CLI's beam batch, vocab, width
+# the attention of the conformer and transformer defaults (d_model 256, 4
+# heads) at B=64 x 5 s: T' = ceil(401 / 2) frames after frame stacking
+ATTN_H, ATTN_T, ATTN_DH = 4, 201, 64
+# flash_attn vs its plain version, max abs error. float32: the online
+# softmax over 64-key tiles and another summation order move the outputs
+# (convex mixes of v, |v| < ~5) by float32 rounding only. bfloat16, relative
+# to max|v|: p is rounded to bf16 against its tile's running max (the plain
+# version against the row's max) and the output to bf16, at most 2^-9
+# relative each, so the two may differ by a few ulps: 2^-6.
+FLASH_BOUNDS = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -480,6 +505,86 @@ def phase_beam(dev):
     return cases
 
 
+def attn_inputs(dev, dtype):
+    """q, k, v as (B, H, T', dh) views of one fused (B, T', 3, H, dh)
+    projection (the layout the models hand over) and a ragged (B, T')
+    validity mask with lengths T' and 1 among them, from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(B, ATTN_T, 3, ATTN_H, ATTN_DH, generator=g)
+    lens = torch.randint(1, ATTN_T + 1, (B,), generator=g)
+    lens[0], lens[1] = ATTN_T, 1
+    valid = (torch.arange(ATTN_T)[None] < lens[:, None]).to(dev)
+    qkv = qkv.to(dev, dtype)
+    return (*(qkv[:, :, i].transpose(1, 2) for i in range(3)), valid,
+            lens.tolist())
+
+
+def phase_flash(dev):
+    """flash_attn vs mhsa_plain at the conformer's attention shape, float32
+    and bfloat16; the bound and F.scaled_dot_product_attention beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from pg_asr_tpu_torch.ops import cuda_flash_attn
+    from pg_asr_tpu_torch.ops.flash_attn import mhsa_plain
+
+    scale = ATTN_DH ** -0.5
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, valid, lens = attn_inputs(dev, dtype)
+        got = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale)
+        ref = mhsa_plain(q, k, v, valid, scale)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == q.shape,
+              "flash_attn output dtype/shape")
+        err = (got.float() - ref.float()).abs()
+        v_max = v.float().abs().max().item()
+        bound = FLASH_BOUNDS[name] * (v_max if name == "bfloat16" else 1.0)
+        # every row, padded queries (which attend the padded keys) included
+        check(err.max().item() <= bound,
+              f"flash_attn {name} disagrees with the plain version: max "
+              f"{err.max().item()} > {bound}")
+        same = valid[:, None, :, None] == valid[:, None, None, :]
+        k_ms, p_ms = in_turns(
+            lambda: mhsa_plain(q, k, v, valid, scale),
+            lambda: cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale),
+            10, 50)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=same, scale=scale), 50)
+        lib_err = (F.scaled_dot_product_attention(
+            q, k, v, attn_mask=same, scale=scale).float()
+            - ref.float()).abs().max().item()
+        # operations on the (query, key) pairs the segment mask leaves: a
+        # valid query meets the len valid keys, a padded one the T' - len
+        # padded keys; q . k and p . v are 2 flops per multiply-add each.
+        # Bytes: q, k, v read once, the output written once, the int32 mask
+        pairs = sum(n * n + (ATTN_T - n) ** 2 for n in lens)
+        flops = 4 * ATTN_H * ATTN_DH * pairs
+        nbytes = (4 * B * ATTN_H * ATTN_T * ATTN_DH * q.element_size()
+                  + B * ATTN_T * 4)
+        b_ms, b_by = bound_ms(flops, nbytes, name)
+        case = {"dtype": name, "B": B, "H": ATTN_H, "T": ATTN_T,
+                "dh": ATTN_DH, "pairs_per_head": pairs,
+                "max_abs_err": err.max().item(),
+                "mean_abs_err": err.mean().item(), "bound": bound,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms,
+                "library_max_abs_err": lib_err}
+        cases.append(case)
+        print(f"[kernel] flash_attn B={B} H={ATTN_H} T'={ATTN_T} "
+              f"dh={ATTN_DH} {name} (q, k, v views of the fused qkv): "
+              f"max_abs_err {case['max_abs_err']:.3e} (bound {bound:.3e}), "
+              f"mean {case['mean_abs_err']:.3e}; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{flops / 1e9:.3f} GFLOP on {pairs} pairs x {ATTN_H} heads, "
+              f"{nbytes / 1e6:.1f} MB); F.scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (max diff to plain {lib_err:.1e})")
+    return cases
+
+
 def make_corpus(d):
     from pg_asr_tpu_torch.data import make_synthetic_corpus
 
@@ -761,13 +866,160 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
     return counts, steps_ms
 
 
-def kernels_line(cases, lib, predict_launches, train_counts):
+def phase_attention(dev, corpus, alphabet, d, family, flash_cases):
+    """One attention family at its full default width, flash_attention in
+    config.json: `--mode predict` through the CLI, greedy and beam, with
+    the flash_attn launch counts; the same weights with flash_attention
+    false (no launch); kernel vs plain log-probs on one batch; the forward
+    at B=64 x 5 s with and without the kernel, float32 and bfloat16."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import Config, ModelConfig
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.models import conformer_ctc, transformer_ctc
+    from pg_asr_tpu_torch.ops import cuda_flash_attn, cuda_lstm
+    from pg_asr_tpu_torch.predict import forward, load_model
+
+    mod = conformer_ctc if family == "conformer" else transformer_ctc
+    base = Config(model=ModelConfig(family=family, vocab_size=alphabet.size))
+    sub = getattr(base, family)
+    cfgs = {flash: base.replace(**{family: dataclasses.replace(
+        sub, flash_attention=flash)}) for flash in (True, False)}
+    params = mod.init_params(base.model, sub,
+                             torch.Generator().manual_seed(SEED))
+    dirs = {flash: os.path.join(d, f"{family}_{'flash' if flash else 'dense'}")
+            for flash in (True, False)}
+    for flash in (True, False):
+        save_model(dirs[flash], params, cfgs[flash])
+    n_params = sum(p.numel() for p in params.values())
+    utts = load_manifest(os.path.join(corpus, "test.tsv"),
+                         os.path.join(corpus, "clips"))
+    per = sub.num_layers  # one attention per block
+    print(f"[{family}] {sub.num_layers} blocks, d_model {sub.d_model}, "
+          f"{sub.num_heads} heads, ffn {sub.ffn_dim}, vocab {alphabet.size}, "
+          f"{n_params} params")
+
+    counts = {}
+    for name, flash, extra, bs in (("greedy", True, [], 32),
+                                   ("beam", True, ["--decoder", "beam"],
+                                    BEAM_B),
+                                   ("greedy_dense", False, [], 32)):
+        n_batches = -(-len(utts) // bs)
+        cuda_flash_attn.LAUNCHES = cuda_beam.LAUNCHES = cuda_lstm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                           "--model_path", dirs[flash], "--device", str(dev),
+                           *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, beams = cuda_flash_attn.LAUNCHES, cuda_beam.LAUNCHES
+        print(f"[{family}] predict {name} (flash_attention {flash}): rc={rc} "
+              f"in {wall:.2f} s (host clock); {len(utts)} utterances in "
+              f"{n_batches} batch(es) of <= {bs}; flash_attn launches "
+              f"{launches}, ctc_beam launches {beams}")
+        check(rc == 0 and "CER:" in out and "WER:" in out,
+              f"{family} predict {name} failed")
+        with open(os.path.join(dirs[flash], "predicted.txt")) as fo:
+            rows = fo.read().splitlines()
+        check(len(rows) == len(utts) and all("|" in r for r in rows),
+              f"{family} {name}: predicted.txt has {len(rows)} rows")
+        want = per * n_batches if flash else 0
+        check(launches == want, f"{family} {name}: flash_attn launched "
+              f"{launches} times, expected {want}")
+        check(beams == (n_batches if extra else 0) and cuda_lstm.LAUNCHES == 0,
+              f"{family} {name}: ctc_beam {beams}, lstm_fwd "
+              f"{cuda_lstm.LAUNCHES} launches")
+        counts[name] = launches
+
+    # one batch: the forward with the kernel vs with the plain attention
+    params_d, cfg_d = load_model(dirs[True], alphabet, device=dev)
+    batch = next(iter(BatchIterator(utts, alphabet, 32, shuffle=False)))
+    wave = torch.from_numpy(batch.wave).to(dev)
+    ns = torch.from_numpy(batch.num_samples).to(dev)
+    lp_k, mask_k, lens_k = forward(params_d, wave, ns, cfg_d)
+    lp_p, _, _ = forward(params_d, wave, ns, cfg_d, use_kernel=False)
+    torch.cuda.synchronize()
+    T_b = batch.wave.shape[1] // cfg_d.features.hop_length + 1
+    To = -(-T_b // sub.subsample)
+    check(tuple(lp_k.shape) == (len(batch.texts), To, alphabet.size)
+          and bool(torch.isfinite(lp_k).all()),
+          f"{family} log-probs {tuple(lp_k.shape)}")
+    check(int(lens_k.max()) <= To and bool((mask_k.sum(1) == lens_k).all()),
+          f"{family} out_lens / out_mask disagree")
+    err = (lp_k - lp_p).abs().max().item()
+    print(f"[{family}] batch log-probs {tuple(lp_k.shape)}: kernel vs plain "
+          f"attention max_abs_err {err:.3e} (bound {LOGPROB_BOUND:.0e})")
+    check(err <= LOGPROB_BOUND, f"{family} log-probs disagree: {err}")
+
+    # the forward (features + model) at B=64 x 5 s, dense and flash in
+    # turns, then where its device time goes
+    wave64, ns64 = flagship_batch(dev)[:2]
+    fwd_ms, breakdown = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        run = {}
+        for flash in (True, False):
+            p_d, c_d = load_model(dirs[flash], alphabet, device=dev,
+                                  dtype=dtype)
+            run[flash] = (lambda p_d=p_d, c_d=c_d:
+                          forward(p_d, wave64, ns64, c_d))
+        ms = dict(zip((True, False), in_turns(run[False], run[True], 10, 10)))
+        for flash in (True, False):
+            key = f"{dtype}_{'flash' if flash else 'dense'}"
+            fwd_ms[key] = ms[flash]
+            breakdown[key] = device_breakdown(run[flash])
+            busy = sum(breakdown[key].values())
+            print(f"[{family}] forward B={B} x 5 s (T={T}, T'={ATTN_T}), "
+                  f"{dtype}, flash_attention {flash}: {ms[flash]:.2f} ms "
+                  f"(in turns); device time per forward {busy:.2f} ms: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in
+                              breakdown[key].items())
+                  + f"; device idle {max(0.0, 1 - busy / ms[flash]):.0%}")
+    return {"launches": counts, "logprob_max_abs_err": err,
+            "forward_ms": fwd_ms, "device_ms": breakdown}
+
+
+def device_breakdown(fn, reps: int = 3) -> dict:
+    """Kernel time per call of fn on the card, by group, from a
+    torch.profiler trace of `reps` calls: flash_attn, GEMMs, convolutions
+    (the STFT and the depthwise conv), LayerNorm, and the rest (elementwise,
+    softmax, copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    groups = dict.fromkeys(("flash_attn", "gemm", "conv", "layer_norm",
+                            "other"), 0.0)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        # a convolution first: cuDNN names some of its kernels "...gemm"
+        group = ("flash_attn" if "flash_attn" in name else
+                 "conv" if "conv" in name else
+                 "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
+                 else "layer_norm" if "layer_norm" in name else "other")
+        groups[group] += e.self_device_time_total / 1e3 / reps
+    check(sum(groups.values()) > 0, "the profiler saw no kernel time")
+    return groups
+
+
+def kernels_line(cases, lib, predict_launches, train_counts, attention):
     def head(rows):
         return next(c for c in rows if c["dtype"] == "float32"
                     and not c["reverse"])
 
     f, r, b = head(cases["fwd"]), head(cases["res"]), head(cases["bwd"])
     beam = cases["beam"][0]  # M=6, the default prune
+    flash = next(c for c in cases["flash"] if c["dtype"] == "float32")
     src = "pg_asr_tpu_torch/csrc/"
     return [{
         "name": "lstm_fwd", "route": "cuda", "source": src + "lstm_fwd.cu",
@@ -812,6 +1064,19 @@ def kernels_line(cases, lib, predict_launches, train_counts):
         "library_note": "no single PyTorch call computes a CTC prefix beam "
                         "search",
         "cases": cases["beam"],
+    }, {
+        "name": "flash_attn", "route": "cuda", "source": src + "flash_attn.cu",
+        "replaces": "pg_asr_tpu/ops/flash_attn.py:62",
+        "launches": attention["conformer"]["launches"]["greedy"],
+        "launches_by_path": {f"{fam}_{path}": n
+                             for fam, r in attention.items()
+                             for path, n in r["launches"].items()},
+        "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "library_note": "F.scaled_dot_product_attention with the boolean "
+                        "segment-equality mask",
+        "cases": cases["flash"], "models": attention,
     }]
 
 
@@ -820,11 +1085,15 @@ def main() -> int:
     phase_build()
     cases = phase_kernels(dev)
     cases["beam"] = phase_beam(dev)
+    cases["flash"] = phase_flash(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
         predict_launches = phase_predict(dev, corpus, alphabet, d, cases)
         train_counts, _ = phase_train(dev, corpus, alphabet, d, cases)
+        attention = {family: phase_attention(dev, corpus, alphabet, d, family,
+                                             cases["flash"])
+                     for family in ("conformer", "transformer")}
 
     import torch
 
@@ -832,7 +1101,7 @@ def main() -> int:
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
     check(not bad, f"the port imported {bad}")
     print(json.dumps({"kernels": kernels_line(cases, lib, predict_launches,
-                                              train_counts)}))
+                                              train_counts, attention)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

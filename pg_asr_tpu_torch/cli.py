@@ -12,7 +12,9 @@ The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
 is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so.
+exit with a message that says so (training the transformer and conformer
+families among them). ``--mode predict`` takes the model family and
+``flash_attention`` from the model's config.json, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
         description="PyTorch/CUDA port of pg_asr_tpu (train and predict of "
-                    "the BiLSTM-CTC so far)")
+                    "the BiLSTM-CTC, predict of the transformer-CTC and "
+                    "conformer-CTC so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -57,6 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default=None,
                    choices=["ctc", "transformer", "conformer", "transducer",
                             "seq2seq", "moe"])
+    p.add_argument("--flash_attention", action="store_true",
+                   help="train, transformer/conformer: attention through "
+                        "the hand-written flash-attention kernel on CUDA "
+                        "(segment-masked online softmax; no (B, H, T, T) "
+                        "score tensor in device memory). `--mode predict` "
+                        "takes it from the model's config.json")
     p.add_argument("--features", type=str, default=None,
                    choices=["logmel", "mfcc"])
     p.add_argument("--units", type=str, default=None, choices=["char", "bpe"])
@@ -112,6 +121,10 @@ def train_config(args) -> Config:
         model_kw["dtype"] = args.dtype
     if model_kw:
         cfg = cfg.replace(model=_replace(cfg.model, **model_kw))
+    if args.flash_attention:
+        cfg = cfg.replace(
+            transformer=_replace(cfg.transformer, flash_attention=True),
+            conformer=_replace(cfg.conformer, flash_attention=True))
     if args.features:
         cfg = cfg.replace(features=_replace(cfg.features, kind=args.features))
     if args.units:

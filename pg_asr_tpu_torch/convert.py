@@ -1,13 +1,18 @@
-"""Parameter bridge between the JAX package's BiLSTM-CTC pytree and the
-port's flat state dict (the reverse direction of
-pg_asr_tpu/models/torch_import.py).
+"""Parameter bridge between the JAX package's parameter pytrees and the
+port's flat state dicts (the reverse direction of
+pg_asr_tpu/models/torch_import.py), for every family the port serves.
 
-JAX tree (as numpy arrays):
-  {"input_proj": {"w": (F, proj), "b"}, "lstm": [{"fwd": {"W", "U", "b"},
-   "bwd": {...}}, ...], "ctc_head": {"w": (2H, A), "b"}}
-Port state dict: ``input_proj.w``, ``lstm.{i}.{fwd,bwd}.{W,U,b}``,
-``ctc_head.w`` ... with the same layouts (linears (in, out), LSTM gates
-i,f,g,o), so the conversion is a renaming and is exact both ways.
+A state dict name is the tree path joined by dots, list positions as
+numbers, and every array keeps its JAX layout (linears (in, out), LSTM
+gates i,f,g,o, the conformer's depthwise kernel (K, 1, d)), so each
+direction is a renaming and exact:
+  BiLSTM-CTC   {"input_proj": {"w", "b"}, "lstm": [{"fwd": {"W", "U", "b"},
+               "bwd": {...}}, ...], "ctc_head": {...}}
+               <-> ``input_proj.w``, ``lstm.{i}.{fwd,bwd}.{W,U,b}``, ...
+  transformer  {"input_proj", "blocks": [{"ln1": {"scale", "bias"}, "qkv",
+  / conformer  ...}, ...], "ln_final", "ctc_head"}
+               <-> ``blocks.{i}.ln1.scale``, ``blocks.{i}.qkv.w``,
+               ``blocks.{i}.conv_dw``, ``ln_final.bias``, ...
 """
 
 from __future__ import annotations
@@ -15,39 +20,51 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.bilstm_ctc import num_layers
-
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX BiLSTM-CTC params (numpy arrays) -> port state dict (CPU)."""
+    """JAX params (nested dicts and lists of arrays) -> port state dict
+    (CPU tensors, in the arrays' types)."""
     out: dict[str, torch.Tensor] = {}
 
-    def put(name, arr):
-        out[name] = torch.from_numpy(np.array(arr, copy=True))
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            arr = np.array(node, copy=True)
+            if arr.dtype.name == "bfloat16":  # ml_dtypes' type: widen, exact
+                out[prefix] = torch.from_numpy(
+                    arr.astype(np.float32)).to(torch.bfloat16)
+            else:
+                out[prefix] = torch.from_numpy(arr)
+            return
+        for key, child in items:
+            walk(f"{prefix}.{key}" if prefix else str(key), child)
 
-    for lin in ("input_proj", "ctc_head"):
-        put(f"{lin}.w", tree[lin]["w"])
-        put(f"{lin}.b", tree[lin]["b"])
-    for i, layer in enumerate(tree["lstm"]):
-        for d in ("fwd", "bwd"):
-            for n in ("W", "U", "b"):
-                put(f"lstm.{i}.{d}.{n}", layer[d][n])
+    walk("", tree)
     return out
 
 
 def params_to_jax(state: dict[str, torch.Tensor]) -> dict:
-    """Port state dict -> JAX BiLSTM-CTC params as numpy arrays. bfloat16
-    tensors come back as float32 (numpy has no bfloat16; the widening is
-    exact)."""
-    def arr(name):
-        t = state[name].detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy().copy()
+    """Port state dict -> JAX params as numpy arrays (numbered levels
+    become lists). bfloat16 tensors come back as float32 (numpy has no
+    bfloat16; the widening is exact)."""
+    root: dict = {}
+    for name, t in state.items():
+        node = root
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
-    return {
-        "input_proj": {"w": arr("input_proj.w"), "b": arr("input_proj.b")},
-        "lstm": [{d: {n: arr(f"lstm.{i}.{d}.{n}") for n in ("W", "U", "b")}
-                  for d in ("fwd", "bwd")} for i in range(num_layers(state))],
-        "ctc_head": {"w": arr("ctc_head.w"), "b": arr("ctc_head.b")},
-    }
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)

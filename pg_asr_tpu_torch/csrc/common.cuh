@@ -1,4 +1,5 @@
-// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu).
+// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu,
+// flash_attn.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +16,7 @@ constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-residen
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;
 constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
+constexpr int kErrHeadDim = -6;         // flash_attn: head dim other than 32 or 64
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

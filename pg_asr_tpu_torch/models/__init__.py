@@ -1,34 +1,81 @@
 """Model families + the CTC-family forward dispatch (counterpart of
-pg_asr_tpu/models/__init__.py). Only the flagship BiLSTM-CTC ("ctc") is
-ported so far."""
+pg_asr_tpu/models/__init__.py).
+
+Ported: the flagship BiLSTM-CTC ("ctc"), trained and served; the
+transformer-CTC ("transformer") and conformer-CTC ("conformer"), served
+only (inference). The attention families subsample time, so the dispatch
+returns the shorter output mask and lengths beside the log-probs; BiLSTM
+callers get their inputs back unchanged.
+"""
 
 from __future__ import annotations
 
 import torch
 
 _NOT_PORTED = {
-    "transformer": "ROADMAP.md queue 1 item 7 (transformer-CTC)",
-    "conformer": "ROADMAP.md queue 1 item 7 (conformer-CTC)",
     "transducer": "ROADMAP.md queue 1 item 8 (transducer)",
     "seq2seq": "ROADMAP.md queue 1 item 9 (seq2seq)",
 }
+_TRAIN_NOT_PORTED = {
+    family: ("ROADMAP.md queue 1 item 7 (training the transformer and "
+             "conformer families, with the flash-attention backward)")
+    for family in ("transformer", "conformer")
+}
 
 
-def check_family(family: str) -> None:
-    if family != "ctc":
+def check_family(family: str, train: bool = False) -> None:
+    """Raise unless the port serves (train=False) or trains (train=True)
+    the model family."""
+    if family == "ctc":
+        return
+    if family in _TRAIN_NOT_PORTED:
+        if not train:
+            return
+        where = _TRAIN_NOT_PORTED[family]
+        what = f"training the {family} family"
+    else:
         where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
-        raise NotImplementedError(
-            f"model family {family!r} is not yet ported to pg_asr_tpu_torch; "
-            f"see {where}")
+        what = f"model family {family!r}"
+    raise NotImplementedError(f"{what} is not yet ported to pg_asr_tpu_torch; "
+                              f"see {where}")
+
+
+def _is_layer_norm(name: str) -> bool:
+    # "blocks.0.ln1.scale", "ln_final.bias": the owner starts with "ln"
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2].startswith("ln")
+
+
+def cast_params(params: dict[str, torch.Tensor], dtype: torch.dtype,
+                device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Params onto `device` in the compute `dtype`; LayerNorm scales and
+    biases stay float32 in every compute type, as in the JAX package."""
+    return {k: v.to(device=device,
+                    dtype=torch.float32 if _is_layer_norm(k) else dtype)
+            for k, v in params.items()}
 
 
 def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
                      use_kernel: bool = True, train: bool = False,
                      generator=None):
-    """CTC-family forward: (B,T,F) feats -> (log_probs (B,T,A), out_mask
-    (B,T) f32, out_lens (B,)). The BiLSTM keeps T. train=True applies
-    dropout with bits from `generator` (a torch.Generator on feats' device)."""
-    check_family(cfg.model.family)
+    """CTC-family forward: (B,T,F) feats -> (log_probs (B,T',A), out_mask
+    (B,T') f32, out_lens (B,)). T' == T for the BiLSTM; the attention
+    families serve only (train=True raises). train=True applies dropout
+    with bits from `generator` (a torch.Generator on feats' device)."""
+    family = cfg.model.family
+    check_family(family, train=train)
+    if family == "transformer":
+        from . import transformer_ctc
+
+        return transformer_ctc.apply(params, feats, frame_mask, frame_lens,
+                                     cfg.model, cfg.transformer,
+                                     use_kernel=use_kernel, train=train)
+    if family == "conformer":
+        from . import conformer_ctc
+
+        return conformer_ctc.apply(params, feats, frame_mask, frame_lens,
+                                   cfg.model, cfg.conformer,
+                                   use_kernel=use_kernel, train=train)
     from . import bilstm_ctc
 
     log_probs = bilstm_ctc.apply(params, feats, frame_mask, cfg.model,

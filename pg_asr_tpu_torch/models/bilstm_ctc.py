@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.lstm import bilstm_layer
+from . import cast_params
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,6 +34,15 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}") from None
 
 
+def init_linear(p: dict, name: str, in_dim: int, out_dim: int,
+                generator: torch.Generator) -> None:
+    """Xavier-normal ``{name}.w`` (in, out) and bias ``{name}.b`` = 0.1, in
+    float32 on the CPU (the JAX package's ``init_linear``)."""
+    std = (2.0 / (in_dim + out_dim)) ** 0.5
+    p[f"{name}.w"] = torch.randn(in_dim, out_dim, generator=generator) * std
+    p[f"{name}.b"] = torch.full((out_dim,), 0.1)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
     """Same shapes and distributions as the JAX init: Xavier-normal linears
@@ -42,12 +52,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     H = cfg.hidden_size
     p: dict[str, torch.Tensor] = {}
 
-    def linear(name, i, o):
-        std = (2.0 / (i + o)) ** 0.5
-        p[f"{name}.w"] = torch.randn(i, o, generator=generator) * std
-        p[f"{name}.b"] = torch.full((o,), 0.1)
-
-    linear("input_proj", cfg.input_dim, cfg.input_proj_dim)
+    init_linear(p, "input_proj", cfg.input_dim, cfg.input_proj_dim, generator)
     in_dim = cfg.input_proj_dim
     bound = 1.0 / math.sqrt(H)
     for layer in range(cfg.num_layers):
@@ -61,8 +66,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             b[H:2 * H] = 1.0
             p[f"{pre}.b"] = b
         in_dim = 2 * H
-    linear("ctc_head", 2 * H, cfg.vocab_size)
-    return {k: v.to(device=device, dtype=dtype) for k, v in p.items()}
+    init_linear(p, "ctc_head", 2 * H, cfg.vocab_size, generator)
+    return cast_params(p, dtype, device)
 
 
 def num_layers(params: dict) -> int:

@@ -1,0 +1,182 @@
+"""Conformer-CTC acoustic model, inference (counterpart of
+pg_asr_tpu/models/conformer_ctc.py).
+
+Masked per-utterance normalization -> frame stacking (as the transformer)
+-> Linear to d_model -> blocks of: half-step FFN (LN -> silu FFN, x0.5
+residual), rotary MHSA (LN -> attention with q, k rotated), convolution
+module (LN -> pointwise d -> 2d -> GLU -> padded frames zeroed ->
+depthwise conv over time -> LN -> swish -> pointwise d -> d), half-step FFN
+-> LN -> CTC head -> float32 log-softmax.
+
+Rotary positions rotate the halves x[..., :dh/2] and x[..., dh/2:] (as
+the JAX code does; its docstring speaks of pairs), with cos and sin
+computed in float32 and cast to x's type. The depthwise conv is JAX's
+``conv_general_dilated`` with a (K, 1, d) kernel, feature groups d and
+padding (pad, K-1-pad): ``F.conv1d(groups=d)`` with the weight as
+(d, 1, K), neither flipping the kernel. Dense attention keeps its scores
+and softmax in the compute type when ``attn_softmax_bf16`` is set (the
+default), in float32 otherwise; the flash path (ops/flash_attn.py, the
+hand-written kernel on CUDA tensors) runs its softmax in float32 whatever
+the flag says, as the JAX package's. The JAX package pads T' to 128 frames
+for its TPU flash kernel; the port does not.
+
+Parameters: a flat dict in the JAX package's layouts, ``input_proj.*``,
+``blocks.{i}.{ln_ffn1,ln_attn,ln_conv,ln_mid,ln_ffn2}.{scale,bias}``
+(float32 in every compute type), ``blocks.{i}.{ffn1_in,ffn1_out,qkv,
+attn_out,conv_in,conv_out,ffn2_in,ffn2_out}.{w,b}``, ``blocks.{i}.conv_dw``
+(K, 1, d), ``ln_final.*``, ``ctc_head.*``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import not_ported
+from ..config import ConformerConfig, ModelConfig
+from ..ops import flash_attn
+from . import cast_params
+from .bilstm_ctc import init_linear, linear, normalize_features, torch_dtype
+from .transformer_ctc import (_attn_out, _init_ln, _layer_norm, _qkv,
+                              ctc_head, num_blocks, padding_bias, stack_frames)
+
+
+def init_encoder_params(mcfg: ModelConfig, ccfg: ConformerConfig,
+                        generator: torch.Generator) -> dict:
+    """Encoder parameters (no CTC head), float32 on the CPU, with the JAX
+    init's shapes and distributions (depthwise kernel ~ N(0, 2/(K+2)))."""
+    d, K = ccfg.d_model, ccfg.conv_kernel
+    p: dict[str, torch.Tensor] = {}
+    init_linear(p, "input_proj", ccfg.subsample * mcfg.input_dim, d,
+                generator)
+    for i in range(ccfg.num_layers):
+        pre = f"blocks.{i}"
+        _init_ln(p, f"{pre}.ln_ffn1", d)
+        init_linear(p, f"{pre}.ffn1_in", d, ccfg.ffn_dim, generator)
+        init_linear(p, f"{pre}.ffn1_out", ccfg.ffn_dim, d, generator)
+        _init_ln(p, f"{pre}.ln_attn", d)
+        init_linear(p, f"{pre}.qkv", d, 3 * d, generator)
+        init_linear(p, f"{pre}.attn_out", d, d, generator)
+        _init_ln(p, f"{pre}.ln_conv", d)
+        init_linear(p, f"{pre}.conv_in", d, 2 * d, generator)
+        p[f"{pre}.conv_dw"] = (torch.randn(K, 1, d, generator=generator)
+                               * (2.0 / (K + 2)) ** 0.5)
+        _init_ln(p, f"{pre}.ln_mid", d)
+        init_linear(p, f"{pre}.conv_out", d, d, generator)
+        _init_ln(p, f"{pre}.ln_ffn2", d)
+        init_linear(p, f"{pre}.ffn2_in", d, ccfg.ffn_dim, generator)
+        init_linear(p, f"{pre}.ffn2_out", ccfg.ffn_dim, d, generator)
+    _init_ln(p, "ln_final", d)
+    return p
+
+
+def init_params(mcfg: ModelConfig, ccfg: ConformerConfig,
+                generator: torch.Generator,
+                device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """Drawn on the CPU from `generator`, then moved and cast (LayerNorm
+    params stay float32)."""
+    p = init_encoder_params(mcfg, ccfg, generator)
+    init_linear(p, "ctc_head", ccfg.d_model, mcfg.vocab_size, generator)
+    return cast_params(p, torch_dtype(mcfg.dtype), device)
+
+
+def _rotary(x: torch.Tensor) -> torch.Tensor:
+    """Rotary positions over the last dim of (B, h, T, dh): position t
+    rotates (x[..., i], x[..., i + dh/2]) by t * 10000^(-i/(dh/2))."""
+    T, dh = x.shape[-2:]
+    half = dh // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = torch.arange(T, dtype=torch.float32, device=x.device)[:, None] \
+        * freq[None, :]
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _mhsa_rotary(params: dict, pre: str, x: torch.Tensor,
+                 key_bias: torch.Tensor, num_heads: int,
+                 flash_mask: torch.Tensor | None = None,
+                 softmax_bf16: bool = False,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Masked MHSA with rotary q and k. x: (B, T, d); key_bias (B, 1, 1, T)
+    additive float32; flash_mask (B, T) bool routes through
+    ops/flash_attn.mhsa; softmax_bf16 keeps the dense scores and softmax in
+    the compute type."""
+    q, k, v = _qkv(params, pre, x, num_heads)
+    q, k = _rotary(q), _rotary(k)
+    scale = 1.0 / (x.shape[-1] // num_heads) ** 0.5
+    if flash_mask is not None:
+        ctx = flash_attn.mhsa(q, k, v, flash_mask, scale,
+                              use_kernel=use_kernel)
+    else:
+        score_t = x.dtype if softmax_bf16 else torch.float32
+        scores = torch.matmul(q.to(score_t), k.to(score_t).transpose(-1, -2))
+        scores = scores * scale + key_bias.to(score_t)
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.matmul(attn, v)
+    return _attn_out(params, pre, ctx)
+
+
+def _conv_module(params: dict, pre: str, x: torch.Tensor, mask: torch.Tensor,
+                 kernel: int) -> torch.Tensor:
+    """pointwise(d -> 2d) -> GLU -> depthwise conv (padded frames zeroed
+    first) -> LN -> swish -> pointwise(d -> d). x: (B, T, d); mask (B, T)
+    in the compute type."""
+    a, b = linear(params, f"{pre}.conv_in", x).chunk(2, dim=-1)
+    h = a * torch.sigmoid(b) * mask[:, :, None]
+    pad = (kernel - 1) // 2
+    w = params[f"{pre}.conv_dw"].permute(2, 1, 0)  # (K, 1, d) -> (d, 1, K)
+    h = F.conv1d(F.pad(h.transpose(1, 2), (pad, kernel - 1 - pad)), w,
+                 groups=h.shape[-1]).transpose(1, 2)
+    h = _layer_norm(params, f"{pre}.ln_mid", h)
+    return linear(params, f"{pre}.conv_out", h * torch.sigmoid(h))
+
+
+def _ffn(params: dict, pre: str, ln: str, ffn: str,
+         x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(linear(params, f"{pre}.{ffn}_in",
+                      _layer_norm(params, f"{pre}.{ln}", x)))
+    return linear(params, f"{pre}.{ffn}_out", h)
+
+
+def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+           frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
+           use_kernel: bool = True):
+    """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
+    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample)."""
+    dtype = torch_dtype(mcfg.dtype)
+    x = normalize_features(feats.to(dtype), frame_mask.to(dtype))
+    x, out_mask, out_lens = stack_frames(x, frame_lens, ccfg.subsample)
+    omask = out_mask.to(dtype)
+    x = linear(params, "input_proj", x)
+    flash_mask = out_mask if ccfg.flash_attention else None
+    bias = padding_bias(out_mask)
+    for i in range(num_blocks(params)):
+        pre = f"blocks.{i}"
+        x = x + 0.5 * _ffn(params, pre, "ln_ffn1", "ffn1", x)
+        x = x + _mhsa_rotary(params, pre,
+                             _layer_norm(params, f"{pre}.ln_attn", x), bias,
+                             ccfg.num_heads, flash_mask=flash_mask,
+                             softmax_bf16=ccfg.attn_softmax_bf16,
+                             use_kernel=use_kernel)
+        x = x + _conv_module(params, pre,
+                             _layer_norm(params, f"{pre}.ln_conv", x), omask,
+                             ccfg.conv_kernel)
+        x = x + 0.5 * _ffn(params, pre, "ln_ffn2", "ffn2", x)
+    return _layer_norm(params, "ln_final", x), out_mask, out_lens
+
+
+def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+          frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
+          use_kernel: bool = True, train: bool = False):
+    """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
+    float32, out_lens (B,)). Inference only: train=True raises."""
+    if train:
+        raise not_ported("training the conformer family")
+    x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
+                                   mcfg, ccfg, use_kernel=use_kernel)
+    log_probs, omask_f = ctc_head(params, x, out_mask)
+    return log_probs, omask_f, out_lens

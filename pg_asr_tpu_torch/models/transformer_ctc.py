@@ -1,0 +1,214 @@
+"""Transformer-CTC acoustic model, inference (counterpart of
+pg_asr_tpu/models/transformer_ctc.py).
+
+Masked per-utterance feature normalization -> frame stacking (pad T to a
+multiple of ``subsample``, reshape (B, T, F) -> (B, T', s*F)) -> Linear to
+d_model + sinusoidal positions ([sin, cos] concatenated) -> pre-LN blocks
+(LN -> MHSA -> +res, LN -> FFN(gelu, tanh form) -> +res) -> LN -> CTC head
+-> log-softmax in float32. Output frame i covers input frames
+[i*s, (i+1)*s) and is valid iff any of them is: out_len = ceil(len / s).
+LayerNorm runs in float32 (eps 1e-6) and its params are float32 in every
+compute type; matmuls run in the compute type.
+
+Attention: with ``flash_attention`` the segment-masked attention of
+ops/flash_attn.py (the hand-written kernel on CUDA tensors); without, the
+dense path, scores in float32 plus a -1e9 key bias (a padded query then
+attends the valid keys; both paths agree on valid rows, and the rest is
+masked). The JAX package pads T' to 128 frames for its TPU flash kernel;
+the port does not, so its log-probs keep T' frames.
+
+Parameters are a flat dict (the state dict ``checkpoint.save_model``
+writes) in the JAX package's layouts: ``input_proj.{w,b}``,
+``blocks.{i}.{ln1,ln2}.{scale,bias}``, ``blocks.{i}.{qkv,attn_out,ffn_in,
+ffn_out}.{w,b}``, ``ln_final.{scale,bias}``, ``ctc_head.{w,b}``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import not_ported
+from ..config import ModelConfig, TransformerConfig
+from ..ops import flash_attn
+from . import cast_params
+from .bilstm_ctc import init_linear, linear, normalize_features, torch_dtype
+
+
+def _init_ln(p: dict, name: str, dim: int) -> None:
+    p[f"{name}.scale"] = torch.ones(dim)
+    p[f"{name}.bias"] = torch.zeros(dim)
+
+
+def _layer_norm(params: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in float32 whatever the compute type, eps 1e-6."""
+    y = F.layer_norm(x.float(), x.shape[-1:], params[f"{name}.scale"],
+                     params[f"{name}.bias"], eps=1e-6)
+    return y.to(x.dtype)
+
+
+def num_blocks(params: dict) -> int:
+    return sum(1 for k in params if k.startswith("blocks.")
+               and k.endswith(".qkv.w"))
+
+
+def init_encoder_params(mcfg: ModelConfig, tcfg: TransformerConfig,
+                        generator: torch.Generator) -> dict:
+    """Encoder parameters (no CTC head), float32 on the CPU: Xavier-normal
+    linears with bias 0.1, LayerNorm at (1, 0), as the JAX init."""
+    d = tcfg.d_model
+    p: dict[str, torch.Tensor] = {}
+    init_linear(p, "input_proj", tcfg.subsample * mcfg.input_dim, d,
+                generator)
+    for i in range(tcfg.num_layers):
+        pre = f"blocks.{i}"
+        _init_ln(p, f"{pre}.ln1", d)
+        init_linear(p, f"{pre}.qkv", d, 3 * d, generator)
+        init_linear(p, f"{pre}.attn_out", d, d, generator)
+        _init_ln(p, f"{pre}.ln2", d)
+        init_linear(p, f"{pre}.ffn_in", d, tcfg.ffn_dim, generator)
+        init_linear(p, f"{pre}.ffn_out", tcfg.ffn_dim, d, generator)
+    _init_ln(p, "ln_final", d)
+    return p
+
+
+def init_params(mcfg: ModelConfig, tcfg: TransformerConfig,
+                generator: torch.Generator,
+                device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """Same shapes and distributions as the JAX init; drawn on the CPU
+    from `generator`, then moved and cast (LayerNorm params stay float32)."""
+    p = init_encoder_params(mcfg, tcfg, generator)
+    init_linear(p, "ctc_head", tcfg.d_model, mcfg.vocab_size, generator)
+    return cast_params(p, torch_dtype(mcfg.dtype), device)
+
+
+def _posenc(T: int, d: int, dtype: torch.dtype,
+            device: torch.device | str = "cpu") -> torch.Tensor:
+    """Sinusoidal positions (T, d): [sin, cos] of pos * 10000^(-i/half),
+    concatenated, computed in float32 and cast to `dtype`."""
+    half = d // 2
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / half)
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).to(dtype)
+
+
+def _qkv(params: dict, pre: str, x: torch.Tensor, num_heads: int):
+    """The fused projection -> q, k, v (B, h, T, dh) views of it."""
+    B, T, d = x.shape
+    qkv = linear(params, f"{pre}.qkv", x).reshape(B, T, 3, num_heads,
+                                                  d // num_heads)
+    return (qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _attn_out(params: dict, pre: str, ctx: torch.Tensor) -> torch.Tensor:
+    """(B, h, T, dh) context -> (B, T, d) -> the output projection."""
+    B, h, T, dh = ctx.shape
+    return linear(params, f"{pre}.attn_out",
+                  ctx.transpose(1, 2).reshape(B, T, h * dh))
+
+
+def _mhsa(params: dict, pre: str, x: torch.Tensor, key_bias: torch.Tensor,
+          num_heads: int, flash_mask: torch.Tensor | None = None,
+          use_kernel: bool = True) -> torch.Tensor:
+    """Masked multi-head self-attention of block `pre`. x: (B, T, d);
+    key_bias: (B, 1, 1, T) additive float32 (-1e9 on padded keys).
+    flash_mask (B, T) bool routes through ops/flash_attn.mhsa."""
+    q, k, v = _qkv(params, pre, x, num_heads)
+    scale = 1.0 / (x.shape[-1] // num_heads) ** 0.5
+    if flash_mask is not None:
+        ctx = flash_attn.mhsa(q, k, v, flash_mask, scale,
+                              use_kernel=use_kernel)
+    else:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores * scale + key_bias
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.matmul(attn, v)
+    return _attn_out(params, pre, ctx)
+
+
+def subsampled_lens(frame_lens: torch.Tensor, subsample: int) -> torch.Tensor:
+    """Output lengths after frame stacking: ceil(len / s)."""
+    return (frame_lens + (subsample - 1)) // subsample
+
+
+def stack_frames(x: torch.Tensor, frame_lens: torch.Tensor, subsample: int):
+    """(B, T, F) -> (B, T', s*F) with the time tail zero-padded to a
+    multiple of s; returns (x, out_mask (B, T') bool, out_lens (B,))."""
+    B, T, Fd = x.shape
+    s = subsample
+    To = -(-T // s)
+    x = F.pad(x, (0, 0, 0, To * s - T)).reshape(B, To, s * Fd)
+    out_lens = subsampled_lens(frame_lens, s)
+    out_mask = (torch.arange(To, device=x.device)[None, :]
+                < out_lens[:, None])
+    return x, out_mask, out_lens
+
+
+def frontend(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+             frame_lens: torch.Tensor, mcfg: ModelConfig,
+             tcfg: TransformerConfig):
+    """Masked normalization -> frame stacking -> input projection +
+    sinusoidal positions -> (x (B, T', d), out_mask (B, T') bool,
+    out_lens (B,))."""
+    dtype = torch_dtype(mcfg.dtype)
+    x = normalize_features(feats.to(dtype), frame_mask.to(dtype))
+    x, out_mask, out_lens = stack_frames(x, frame_lens, tcfg.subsample)
+    x = linear(params, "input_proj", x) + _posenc(
+        x.shape[1], tcfg.d_model, dtype, x.device)
+    return x, out_mask, out_lens
+
+
+def padding_bias(out_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T') bool -> (B, 1, 1, T') float32: 0 on valid keys, -1e9 else."""
+    return torch.where(out_mask, 0.0, -1e9).to(torch.float32)[:, None, None, :]
+
+
+def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+           frame_lens: torch.Tensor, mcfg: ModelConfig,
+           tcfg: TransformerConfig, use_kernel: bool = True):
+    """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
+    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample)."""
+    if tcfg.num_experts > 0:
+        raise not_ported("the switch-MoE transformer (transformer."
+                         "num_experts > 0, parallel/moe.py)")
+    x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
+                                     mcfg, tcfg)
+    flash_mask = out_mask if tcfg.flash_attention else None
+    bias = padding_bias(out_mask)
+    for i in range(num_blocks(params)):
+        pre = f"blocks.{i}"
+        x = x + _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), bias,
+                      tcfg.num_heads, flash_mask=flash_mask,
+                      use_kernel=use_kernel)
+        h = F.gelu(linear(params, f"{pre}.ffn_in",
+                          _layer_norm(params, f"{pre}.ln2", x)),
+                   approximate="tanh")  # jax.nn.gelu's default form
+        x = x + linear(params, f"{pre}.ffn_out", h)
+    return _layer_norm(params, "ln_final", x), out_mask, out_lens
+
+
+def ctc_head(params: dict, x: torch.Tensor, out_mask: torch.Tensor):
+    """Encoder states -> ((B, T', A) masked float32 log-probs, out_mask
+    (B, T') float32)."""
+    logits = linear(params, "ctc_head", x)
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    omask_f = out_mask.to(torch.float32)
+    return log_probs * omask_f[:, :, None], omask_f
+
+
+def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+          frame_lens: torch.Tensor, mcfg: ModelConfig,
+          tcfg: TransformerConfig, use_kernel: bool = True,
+          train: bool = False):
+    """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
+    float32, out_lens (B,)). Inference only: train=True raises."""
+    if train:
+        raise not_ported("training the transformer family")
+    x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
+                                   mcfg, tcfg, use_kernel=use_kernel)
+    log_probs, omask_f = ctc_head(params, x, out_mask)
+    return log_probs, omask_f, out_lens

@@ -2,10 +2,12 @@
 
 Loads model_best (or model_last), decodes every utterance of a test
 manifest, scores CER/WER and writes predicted.txt. Per batch: int16 waves go
-to the device, then features + BiLSTM-CTC forward + decode run there, and
-only the label ids come back. Ported: the CTC family with the greedy decoder
-and the CTC prefix beam search (``decoder="beam"``, one kernel launch per
-batch on CUDA); LM fusion into the beam is not.
+to the device, then features + acoustic forward + decode run there, and
+only the label ids come back. Ported: the CTC families (BiLSTM-CTC,
+transformer-CTC, conformer-CTC; the family and ``flash_attention`` come from
+the model's config.json) with the greedy decoder and the CTC prefix beam
+search (``decoder="beam"``, one kernel launch per batch on CUDA); LM fusion
+into the beam is not.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .data.bpe import load_tokenizer
 from .decoding.beam import beam_decode
 from .decoding.greedy import greedy_decode, ids_to_strings
 from .metrics import evaluate_corpus, save_predictions
-from .models import acoustic_forward, check_family
+from .models import acoustic_forward, cast_params, check_family
 from .models.bilstm_ctc import torch_dtype
 from .ops.features import extract_features
 
@@ -34,7 +36,8 @@ def load_model(model_path: str, alphabet: Alphabet,
 (the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote).
 
     vocab_size and input_dim follow the alphabet and the feature config, as
-    in the JAX package; `dtype` overrides the config's compute dtype."""
+    in the JAX package; `dtype` overrides the config's compute dtype, in
+    which every param comes back but the LayerNorm ones (float32)."""
     cfg_path = os.path.join(model_path, "config.json")
     if config is None and os.path.exists(cfg_path):
         with open(cfg_path) as fo:
@@ -54,15 +57,14 @@ def load_model(model_path: str, alphabet: Alphabet,
     if which == "avg":
         raise not_ported("--ckpt avg (checkpoint averaging)")
     state = load_checkpoint(checkpoint_path(model_path, which))["params"]
-    dt = torch_dtype(cfg.model.dtype)
-    params = {k: v.to(device=device, dtype=dt) for k, v in state.items()}
-    return params, cfg
+    return cast_params(state, torch_dtype(cfg.model.dtype), device), cfg
 
 
 @torch.inference_mode()
 def forward(params, wave, num_samples, cfg: Config, use_kernel: bool = True):
-    """Featurize + acoustic forward on wave's device -> (log_probs, mask,
-    frame_lens)."""
+    """Featurize + acoustic forward on wave's device -> (log_probs (B, T',
+    A), out_mask (B, T') float32, out_lens (B,)); T' = T for the BiLSTM,
+    ceil(T / subsample) for the attention families."""
     feats, mask, frame_lens = extract_features(wave, num_samples, cfg.features)
     return acoustic_forward(params, feats, mask, frame_lens, cfg,
                             use_kernel=use_kernel)
@@ -125,11 +127,11 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         # int16 waves go to the device; only the (B, T) label ids come back
         wave = torch.from_numpy(batch.wave).to(dev)
         num_samples = torch.from_numpy(batch.num_samples).to(dev)
-        log_probs, mask, frame_lens = forward(params, wave, num_samples, cfg)
+        log_probs, mask, out_lens = forward(params, wave, num_samples, cfg)
         with torch.inference_mode():
             if decoder == "beam":
                 labels, lens, _ = beam_decode(
-                    log_probs, frame_lens, beam_size=beam_size,
+                    log_probs, out_lens, beam_size=beam_size,
                     max_label_len=cfg.decode.max_label_len, prune=prune)
             else:
                 labels, lens = greedy_decode(log_probs, mask)

@@ -187,7 +187,7 @@ def batch_to_device(batch, device) -> tuple[torch.Tensor, ...]:
 def check_ported(cfg: Config, profile_steps: int = 0) -> None:
     """Refuse the training options that are not ported."""
     t = cfg.train
-    check_family(cfg.model.family)
+    check_family(cfg.model.family, train=True)
     refused = [
         (t.mesh_shape != () or t.mesh_axes != ("data",), "device meshes"),
         (t.accum_steps > 1, "--accum_steps > 1"),

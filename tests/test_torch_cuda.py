@@ -25,7 +25,7 @@ import torch
 from pg_asr_tpu_torch.config import ModelConfig
 from pg_asr_tpu_torch.decoding import beam, cuda_beam
 from pg_asr_tpu_torch.models import bilstm_ctc
-from pg_asr_tpu_torch.ops import cuda_lstm
+from pg_asr_tpu_torch.ops import cuda_flash_attn, cuda_lstm, flash_attn
 from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan,
                                        lstm_scan_bwd_plain, lstm_scan_plain)
 
@@ -303,3 +303,96 @@ def test_ctc_beam_launcher_rejects_bad_inputs(cuda):
         cuda_beam.ctc_beam_cuda(lp.repeat(1, 1, 2)[..., ::2], fl, K=4, M=6,
                                 Lmax=10)
     assert cuda_beam.LAUNCHES == before
+
+
+# --- segment-masked attention: csrc/flash_attn.cu vs ops/flash_attn.py's
+# mhsa_plain. float32 atol 2e-5: the online softmax over 64-key tiles and
+# the dot products in another order change the result by float32 rounding
+# only (outputs are convex mixes of v, |v| < ~5). bfloat16 atol 2^-6 x
+# max|v|: p is rounded to bf16 against the running max of its tile (the
+# plain version against the row's max) and the output is rounded to bf16,
+# each at most 2^-9 relative, so two results may differ by a few ulps.
+
+def _attn_case(cuda, B, H, T, dh, dtype, seed, fused=False):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, T + 1, B)
+    lens[0], lens[-1] = T, 1
+    valid = torch.from_numpy(np.arange(T)[None] < lens[:, None]).to(cuda)
+    if fused:  # views of a (B, T, 3, H, dh) projection, as the models pass
+        qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, dh))).to(
+            cuda, dtype)
+        return (*(qkv[:, :, i].transpose(1, 2) for i in range(3)), valid)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, dh))).to(
+        cuda, dtype) for _ in range(3))
+    return q, k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+# T not a multiple of the 64-row tiles; one tile; the conformer's T'=201
+@pytest.mark.parametrize("B,H,T,fused", [(5, 2, 37, False), (3, 4, 130, True),
+                                         (4, 4, 201, True), (2, 1, 64, False)])
+def test_flash_attn_kernel_matches_plain(cuda, B, H, T, dh, dtype, fused):
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, B + T + dh, fused)
+    before = cuda_flash_attn.LAUNCHES
+    got = flash_attn.mhsa(q, k, v, valid, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert cuda_flash_attn.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, T, dh)
+    ref = flash_attn.mhsa_plain(q, k, v, valid, dh ** -0.5)
+    atol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * v.abs().max().item()
+    # every row, padded queries (which attend the padded keys) included
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attn_launcher_rejects_bad_inputs(cuda):
+    q, k, v, valid = _attn_case(cuda, 2, 2, 9, 32, torch.float32, 0)
+    before = cuda_flash_attn.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_flash_attn.flash_attn_cuda(q.cpu(), k.cpu(), v.cpu(),
+                                        valid.cpu(), 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        cuda_flash_attn.flash_attn_cuda(q[..., :16], k[..., :16],
+                                        v[..., :16], valid, 0.1)
+    with pytest.raises(TypeError):
+        cuda_flash_attn.flash_attn_cuda(q.double(), k.double(), v.double(),
+                                        valid, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_flash_attn.flash_attn_cuda(q, k[:, :, :5], v, valid, 0.1)
+    with pytest.raises(ValueError, match="valid_mask"):
+        cuda_flash_attn.flash_attn_cuda(q, k, v, valid[:, :5], 0.1)
+    assert cuda_flash_attn.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["transformer", "conformer"])
+def test_attention_model_kernel_matches_plain(cuda, family):
+    """The whole model forward on the card: one flash_attn launch per
+    block; log-probs atol 1e-4 against the plain attention (float32
+    rounding through 2 blocks, the head and the log-softmax)."""
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         TransformerConfig)
+    from pg_asr_tpu_torch.models import conformer_ctc, transformer_ctc
+
+    kw = dict(num_layers=2, d_model=64, num_heads=2, ffn_dim=128,
+              flash_attention=True)
+    mod, sub = ((transformer_ctc, TransformerConfig(**kw))
+                if family == "transformer" else
+                (conformer_ctc, ConformerConfig(conv_kernel=7, **kw)))
+    mcfg = ModelConfig(family=family, vocab_size=12)
+    params = mod.init_params(mcfg, sub, torch.Generator().manual_seed(0),
+                             cuda)
+    rng = np.random.default_rng(1)
+    feats = torch.from_numpy(rng.standard_normal((3, 41, 80)).astype(
+        np.float32)).to(cuda)
+    lens = torch.tensor([41, 17, 1], dtype=torch.int32, device=cuda)
+    mask = (torch.arange(41, device=cuda)[None] < lens[:, None]).float()
+    before = cuda_flash_attn.LAUNCHES
+    got, omask, olens = mod.apply(params, feats, mask, lens, mcfg, sub)
+    assert cuda_flash_attn.LAUNCHES == before + 2
+    ref = mod.apply(params, feats, mask, lens, mcfg, sub, use_kernel=False)
+    assert cuda_flash_attn.LAUNCHES == before + 2
+    assert olens.tolist() == [21, 9, 1] and torch.equal(omask, ref[1])
+    torch.testing.assert_close(got, ref[0], rtol=0, atol=1e-4)
