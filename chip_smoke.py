@@ -28,6 +28,15 @@ the CPU or to a kernel's plain version):
      lengths: max abs errors against stated bounds, CUDA-event times in
      turns, the bound over the pairs the segment mask leaves, and the time
      of F.scaled_dot_product_attention with the same boolean mask.
+  3d. flash-attention backward: at phase 3c's shape and inputs, float32
+     and bfloat16, the residual form (flash_attn with l and m) against
+     mhsa_plain(residuals=True), and flash_attn_bwd_dkv and
+     flash_attn_bwd_dq against mhsa_bwd_plain on the same l, m and a
+     random output gradient: max and mean abs errors relative to max|grad|
+     against stated bounds (in bf16 a control without the rounding of p
+     and ds must exceed the mean bound), CUDA-event times in turns, each
+     kernel's bound, and the backward of F.scaled_dot_product_attention
+     (its autograd.grad minus its forward) as the yardstick.
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
@@ -55,7 +64,20 @@ the CPU or to a kernel's plain version):
      batch (and 0 with flash_attention false); one batch's log-probs, the
      kernel against the plain attention; the forward at B=64 x 5 s with
      flash_attention on and off, float32 and bfloat16.
-  7. prints a JSON line of kernel results, then as the last line
+  7. attention training slices: for the conformer-CTC and the
+     transformer-CTC at full default width, `--mode train --model F
+     --flash_attention` through the CLI, one epoch (18 steps at batch 32,
+     3 dev batches): exactly 6 residual flash_attn, 6 flash_attn_bwd_dkv
+     and 6 flash_attn_bwd_dq launches per step and 6 inference-form
+     launches per dev batch, finite losses, the artifacts; a resumed second
+     epoch that omits --model and --flash_attention and keeps the family
+     and its config; `--mode predict` on the trained model, greedy and
+     beam. Then one batch's loss and every parameter gradient, kernel path
+     vs plain path (dropout 0); one --remat step (12 residual forwards, the
+     same gradients as without remat at dropout 0.1); the train step at
+     B=64 x 5 s in float32 and bfloat16, flash_attention on and off in
+     turns, with a profiler breakdown by kernel group.
+  8. prints a JSON line of kernel results, then as the last line
      {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
@@ -142,6 +164,22 @@ ATTN_H, ATTN_T, ATTN_DH = 4, 201, 64
 # version against the row's max) and the output to bf16, at most 2^-9
 # relative each, so the two may differ by a few ulps: 2^-6.
 FLASH_BOUNDS = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# the residual form's l (a float32 sum of up to T' terms in [0, 1], online
+# against tile maxima): relative 1e-5; m (the row max of the same float32
+# scores summed in another order): abs 1e-5
+FLASH_L_REL, FLASH_M_ABS = 1e-5, 1e-5
+# flash_attn_bwd_dkv / _dq vs mhsa_bwd_plain on the same l, m, do: abs
+# errors relative to max|grad| of each of dq, dk, dv. float32: summation
+# order only; max 2e-5, mean 2e-7 (a CPU estimate at this shape, float64
+# vs float32 sums: max 8e-7, mean 1.3e-8). bfloat16: p and ds are rounded
+# to bf16 at the library's points in both, from scores summed in another
+# order, and each output is rounded to bf16, so the max may reach two ulps
+# of the largest value (2^-7). The mean tells apart a backward that skips
+# the rounding of p and ds (CPU estimate: ~6e-5 relative for a control
+# without it, ~2e-8 with it); its bound 1e-6 lies between, and the script
+# checks that the control exceeds it.
+FLASH_BWD_BOUNDS = {"float32": {"max": 2e-5, "mean": 2e-7},
+                    "bfloat16": {"max": 2.0 ** -7, "mean": 1e-6}}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -585,6 +623,136 @@ def phase_flash(dev):
     return cases
 
 
+def _rel_errs(got, ref):
+    """(max, mean) abs error of got relative to max|ref|."""
+    top = ref.float().abs().max().item()
+    d = (got.float() - ref.float()).abs()
+    return d.max().item() / top, d.mean().item() / top
+
+
+def phase_flash_bwd(dev):
+    """The residual form of flash_attn and flash_attn_bwd_dkv / _dq vs
+    their plain versions at phase 3c's shape, float32 and bfloat16; the
+    bounds and the backward of F.scaled_dot_product_attention beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from pg_asr_tpu_torch.ops import cuda_flash_attn
+    from pg_asr_tpu_torch.ops.flash_attn import mhsa_bwd_plain, mhsa_plain
+
+    scale = ATTN_DH ** -0.5
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, valid, lens = attn_inputs(dev, dtype)
+        s = q.element_size()
+        # --- the residual form
+        o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
+                                                  residuals=True)
+        r_o, r_l, r_m = mhsa_plain(q, k, v, valid, scale, residuals=True)
+        torch.cuda.synchronize()
+        check(l.dtype == m.dtype == torch.float32
+              and l.shape == m.shape == q.shape[:3], "l, m dtype/shape")
+        check(torch.equal(o, cuda_flash_attn.flash_attn_cuda(
+            q, k, v, valid, scale)), "the residual form's o differs from "
+            "the inference form's")
+        l_rel = ((l - r_l).abs() / r_l).max().item()
+        m_err = (m - r_m).abs().max().item()
+        print(f"[kernel] flash_attn residual {name}: l max rel err "
+              f"{l_rel:.2e} (bound {FLASH_L_REL:.0e}), m max abs err "
+              f"{m_err:.2e} (bound {FLASH_M_ABS:.0e})")
+        check(l_rel <= FLASH_L_REL and m_err <= FLASH_M_ABS,
+              f"flash_attn residual {name}: l {l_rel}, m {m_err}")
+        pairs = sum(n * n + (ATTN_T - n) ** 2 for n in lens)
+        bht = B * ATTN_H * ATTN_T
+        tensor = bht * ATTN_DH * s  # bytes of one (B, H, T', dh) tensor
+        b_res = bound_ms(4 * ATTN_H * ATTN_DH * pairs,
+                         4 * tensor + B * ATTN_T * 4 + 2 * bht * 4, name)
+        k_ms, p_ms = in_turns(
+            lambda: mhsa_plain(q, k, v, valid, scale, residuals=True),
+            lambda: cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
+                                                    residuals=True), 10, 50)
+        same = valid[:, None, :, None] == valid[:, None, None, :]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=same,
+                                                  scale=scale)
+
+        # --- the backward, on the plain forward's residuals
+        g = torch.Generator().manual_seed(SEED + 1)
+        do = torch.randn(B, ATTN_T, ATTN_H, ATTN_DH, generator=g).to(
+            dev, dtype).transpose(1, 2)  # as autograd hands it over
+        di = (r_o.float() * do.float()).sum(-1).contiguous()
+        args = (q, k, v, valid, r_l, r_m, do, di, scale)
+        dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
+        dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
+        want = mhsa_bwd_plain(q, k, v, valid, r_o, r_l, r_m, do, scale)
+        torch.cuda.synchronize()
+        errs = {n: _rel_errs(got, w) for n, got, w in
+                zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        bd = FLASH_BWD_BOUNDS[name]
+        ctrl = None
+        if dtype == torch.bfloat16:
+            # control: the plain backward without rounding p and ds (do and
+            # k widened to float32, exactly, so they round to float32)
+            c = mhsa_bwd_plain(q, k.float(), v, valid, r_o, r_l, r_m,
+                               do.float(), scale)
+            ctrl = min(_rel_errs(a, w)[1] for a, w in zip(c, want))
+        dkv_ms, dkv_plain = in_turns(
+            lambda: mhsa_bwd_plain(*args[:4], r_o, r_l, r_m, do, scale),
+            lambda: cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args), 10, 50)
+        dq_ms, dq_plain = in_turns(
+            lambda: mhsa_bwd_plain(*args[:4], r_o, r_l, r_m, do, scale),
+            lambda: cuda_flash_attn.flash_attn_bwd_dq_cuda(*args), 10, 50)
+        sdpa_fwd = time_ms(sdpa, 50)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do),
+                           50) - sdpa_fwd
+        # operations on the pairs the segment mask leaves: dkv computes s,
+        # dp and its shares of dv and dk (4 dot products of dh, 8 dh
+        # flops), dq s, dp and dq (6 dh). Bytes: q, k, v, do, l, m, di and
+        # the mask read once, the outputs written once
+        common = 4 * tensor + 3 * bht * 4 + B * ATTN_T * 4
+        b_dkv = bound_ms(8 * ATTN_H * ATTN_DH * pairs, common + 2 * tensor,
+                         name)
+        b_dq = bound_ms(6 * ATTN_H * ATTN_DH * pairs, common + tensor, name)
+        case = {"dtype": name, "B": B, "H": ATTN_H, "T": ATTN_T,
+                "dh": ATTN_DH, "pairs_per_head": pairs,
+                "l_max_rel_err": l_rel, "m_max_abs_err": m_err,
+                "res_ms": k_ms, "res_plain_ms": p_ms, "res_bound_ms": b_res[0],
+                "res_bound_by": b_res[1], "sdpa_train_fwd_ms": sdpa_fwd,
+                "errors_rel_to_max": errs, "bound": bd,
+                "control_mean_rel_err": ctrl, "dkv_ms": dkv_ms,
+                "dq_ms": dq_ms, "plain_bwd_ms": (dkv_plain + dq_plain) / 2,
+                "dkv_bound_ms": b_dkv[0], "dkv_bound_by": b_dkv[1],
+                "dq_bound_ms": b_dq[0], "dq_bound_by": b_dq[1],
+                "sdpa_bwd_ms": sdpa_bwd}
+        cases.append(case)
+        print(f"[kernel] flash_attn residual {name}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_res[0]:.4f} ms ({b_res[1]}); "
+              f"F.scaled_dot_product_attention training forward "
+              f"{sdpa_fwd:.4f} ms")
+        print(f"[kernel] flash_attn_bwd B={B} H={ATTN_H} T'={ATTN_T} "
+              f"dh={ATTN_DH} {name}: max/mean abs err rel to max|grad| "
+              + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in
+                          errs.items())
+              + f" (bounds {bd['max']:.1e}/{bd['mean']:.0e})"
+              + (f", control without p/ds rounding: mean {ctrl:.2e}"
+                 if ctrl is not None else "")
+              + f"; dkv {dkv_ms:.4f} ms (bound {b_dkv[0]:.4f}, "
+              f"{b_dkv[1]}), dq {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
+              f"{b_dq[1]}), plain backward (all three) "
+              f"{case['plain_bwd_ms']:.4f} ms; "
+              f"F.scaled_dot_product_attention backward {sdpa_bwd:.4f} ms")
+        for n, (mx, mean) in errs.items():
+            check(mx <= bd["max"] and mean <= bd["mean"],
+                  f"flash_attn_bwd {name}: {n} max {mx}, mean {mean} > {bd}")
+        check(ctrl is None or ctrl > bd["mean"],
+              f"the {name} mean bound does not tell apart a backward that "
+              "skips the rounding of p and ds")
+    return cases
+
+
 def make_corpus(d):
     from pg_asr_tpu_torch.data import make_synthetic_corpus
 
@@ -982,11 +1150,202 @@ def phase_attention(dev, corpus, alphabet, d, family, flash_cases):
             "forward_ms": fwd_ms, "device_ms": breakdown}
 
 
+def flash_counts() -> dict:
+    from pg_asr_tpu_torch.ops import cuda_flash_attn as c
+
+    return {"flash_attn": c.LAUNCHES, "flash_attn_residual": c.RES_LAUNCHES,
+            "flash_attn_bwd_dkv": c.DKV_LAUNCHES,
+            "flash_attn_bwd_dq": c.DQ_LAUNCHES}
+
+
+def reset_counts() -> None:
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.ops import cuda_flash_attn as c
+    from pg_asr_tpu_torch.ops import cuda_lstm
+
+    c.LAUNCHES = c.RES_LAUNCHES = c.DKV_LAUNCHES = c.DQ_LAUNCHES = 0
+    cuda_lstm.LAUNCHES = cuda_lstm.RES_LAUNCHES = cuda_lstm.BWD_LAUNCHES = 0
+    cuda_beam.LAUNCHES = 0
+
+
+def phase_attention_train(dev, corpus, alphabet, d, family):
+    """Training one attention family at its full default width with
+    flash_attention through the CLI: launch counts, artifacts, a resume
+    that omits --model and --flash_attention, predict on the trained model;
+    kernel vs plain gradients; a --remat step; the train step at B=64 x 5 s
+    in turns with flash_attention on and off, and its device breakdown."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import AdamW, batch_to_device, loss_and_grads
+
+    bs = 32  # the CLI's default
+    clips = os.path.join(corpus, "clips")
+    train_utts = load_manifest(os.path.join(corpus, "train.tsv"), clips)
+    n_dev = -(-len(load_manifest(os.path.join(corpus, "dev.tsv"), clips))
+              // bs)
+    n_test = len(load_manifest(os.path.join(corpus, "test.tsv"), clips))
+    steps = -(-len(train_utts) // bs)
+    model_dir = os.path.join(d, f"{family}_trained")
+    argv = ["--mode", "train", "--corpus_path", corpus, "--model_path",
+            model_dir, "--device", str(dev), "--seed", str(SEED)]
+    per = 6  # attention blocks of the default width
+    want = {"flash_attn": per * n_dev, "flash_attn_residual": per * steps,
+            "flash_attn_bwd_dkv": per * steps,
+            "flash_attn_bwd_dq": per * steps}
+
+    def no_lstm_or_beam():
+        return (cuda_lstm.LAUNCHES + cuda_lstm.RES_LAUNCHES
+                + cuda_lstm.BWD_LAUNCHES + cuda_beam.LAUNCHES) == 0
+
+    counts = {}
+    for epochs, extra in ((1, ["--model", family, "--flash_attention"]),
+                          (2, [])):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv + ["--num_epochs", str(epochs), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = flash_counts()
+        print(f"[{family} train] epoch {epochs}: rc={rc} in {wall:.2f} s "
+              f"(host clock, includes WAV decode); {steps} steps of <= {bs} "
+              f"+ {n_dev} dev batches; launches {got}")
+        check(rc == 0, f"{family} train epoch {epochs} failed")
+        check(got == want and no_lstm_or_beam(),
+              f"{family} train epoch {epochs}: launches {got}, expected "
+              f"{want} and no lstm or beam launch")
+        counts[f"epoch{epochs}"] = got
+    check("resumed from epoch 1" in out
+          and f"resuming with model family '{family}'" in out,
+          f"{family}: the second run did not resume the family")
+    with open(os.path.join(model_dir, "config.json")) as fo:
+        saved = json.load(fo)
+    check(saved["model"]["family"] == family
+          and saved[family]["flash_attention"] is True,
+          f"{family}: the resume lost the family's config")
+    for name in ("model_best.pt", "model_last.pt", "val_losses.npy"):
+        check(os.path.exists(os.path.join(model_dir, name)), f"no {name}")
+    tl = np.load(os.path.join(model_dir, "train_loss.npy"))
+    vl = np.load(os.path.join(model_dir, "val_losses.npy"))
+    check(tl.shape == vl.shape == (2,) and np.isfinite(tl).all()
+          and np.isfinite(vl).all(), f"{family} losses {tl} {vl}")
+    print(f"[{family} train] train losses {tl.tolist()}, val losses "
+          f"{vl.tolist()}")
+
+    for decoder, n_batches in (("greedy", -(-n_test // bs)),
+                               ("beam", -(-n_test // BEAM_B))):
+        reset_counts()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                           "--model_path", model_dir, "--device", str(dev),
+                           "--decoder", decoder])
+        got = flash_counts()
+        check(rc == 0 and "CER:" in out and "WER:" in out,
+              f"{family} predict {decoder} on the trained model failed")
+        check(got["flash_attn"] == per * n_batches
+              and got["flash_attn_residual"] == got["flash_attn_bwd_dkv"]
+              == got["flash_attn_bwd_dq"] == 0
+              and cuda_beam.LAUNCHES == (n_batches if decoder == "beam"
+                                         else 0),
+              f"{family} predict {decoder}: launches {got}, ctc_beam "
+              f"{cuda_beam.LAUNCHES}")
+        counts[f"predict_{decoder}"] = got
+
+    # one batch: loss and every parameter gradient, kernel vs plain path
+    params, cfg = load_model(model_dir, alphabet, device=dev)
+    sub = getattr(cfg, family)
+    cfg0 = cfg.replace(**{family: dataclasses.replace(sub, dropout=0.0)})
+    batch = next(iter(BatchIterator(train_utts, alphabet, bs,
+                                    shuffle=False)))
+    arrays = batch_to_device(batch, dev)
+    loss_k, g_k = loss_and_grads(params, arrays, cfg0)
+    loss_p, g_p = loss_and_grads(params, arrays, cfg0, use_kernel=False)
+    torch.cuda.synchronize()
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                    / g_p[k].abs().max()).item() for k in g_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[{family} train] one batch {tuple(batch.wave.shape)}, kernel vs "
+          f"plain path (float32, dropout 0): loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {loss_rel:.2e}, bound "
+          f"{TRAIN_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+          f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+          f"{TRAIN_GRAD_REL:.0e})")
+    check(math.isfinite(loss_k.item()) and loss_rel <= TRAIN_LOSS_REL,
+          f"{family} train loss disagrees: {loss_k.item()} vs "
+          f"{loss_p.item()}")
+    check(all(math.isfinite(v) and v <= TRAIN_GRAD_REL
+              for v in grad_rel.values()),
+          f"{family} gradients disagree: {grad_rel}")
+
+    # one --remat step at the trained config's dropout: the forward kernel
+    # runs twice per block, and the gradients equal those without remat
+    remat = {}
+    for on in (False, True):
+        c = cfg.replace(model=dataclasses.replace(cfg.model, remat=on))
+        reset_counts()
+        remat[on] = loss_and_grads(params, arrays, c, torch.Generator(
+            device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        counts["remat_step" if on else "step"] = flash_counts()
+    r_rel = max(((remat[True][1][k] - remat[False][1][k]).abs().max()
+                 / remat[False][1][k].abs().max()).item() for k in g_p)
+    print(f"[{family} train] --remat step (dropout {sub.dropout}): launches "
+          f"{counts['remat_step']} (without: {counts['step']}); gradients vs "
+          f"without remat: worst max|diff|/max|grad| {r_rel:.2e} (bound "
+          f"{TRAIN_GRAD_REL:.0e})")
+    check(counts["remat_step"] == {
+        "flash_attn": 0, "flash_attn_residual": 2 * per,
+        "flash_attn_bwd_dkv": per, "flash_attn_bwd_dq": per},
+        f"{family} --remat step launches {counts['remat_step']}")
+    check(r_rel <= TRAIN_GRAD_REL, f"{family} --remat gradients differ")
+
+    # the train step at B=64 x 5 s, flash on and off in turns, both dtypes
+    arrays64 = flagship_batch(dev, vocab=alphabet.size)
+    step_ms, breakdown = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        run = {}
+        for flash in (True, False):
+            p_d, c_d = load_model(model_dir, alphabet, device=dev,
+                                  dtype=dtype)
+            c_d = c_d.replace(**{family: dataclasses.replace(
+                getattr(c_d, family), flash_attention=flash)})
+            opt = AdamW(c_d, p_d)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+
+            def step(p_d=p_d, c_d=c_d, opt=opt, gen=gen):
+                _, grads = loss_and_grads(p_d, arrays64, c_d, gen)
+                opt.update(p_d, grads)
+
+            run[flash] = step
+        ms = dict(zip((True, False), in_turns(run[False], run[True], 5, 5)))
+        for flash in (True, False):
+            key = f"{dtype}_{'flash' if flash else 'dense'}"
+            step_ms[key] = ms[flash]
+            breakdown[key] = device_breakdown(run[flash])
+            busy = sum(breakdown[key].values())
+            print(f"[{family} train] step B={B} x 5 s (T={T}, T'={ATTN_T}, "
+                  f"labels 60), {dtype}, flash_attention {flash}: "
+                  f"{ms[flash]:.2f} ms (in turns); device time per step "
+                  f"{busy:.2f} ms: " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in breakdown[key].items())
+                  + f"; device idle {max(0.0, 1 - busy / ms[flash]):.0%}")
+    return {"launches": counts, "loss_rel": loss_rel,
+            "worst_grad_rel": grad_rel[worst], "remat_grad_rel": r_rel,
+            "step_ms": step_ms, "device_ms": breakdown}
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
     """Kernel time per call of fn on the card, by group, from a
-    torch.profiler trace of `reps` calls: flash_attn, GEMMs, convolutions
-    (the STFT and the depthwise conv), LayerNorm, and the rest (elementwise,
-    softmax, copies)."""
+    torch.profiler trace of `reps` calls: flash_attn (the forward in either
+    form), flash_bwd (dkv and dq), GEMMs, convolutions (the STFT and the
+    depthwise conv), LayerNorm, and the rest (elementwise, softmax, copies,
+    the CTC loss, the optimizer)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -996,14 +1355,15 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    groups = dict.fromkeys(("flash_attn", "gemm", "conv", "layer_norm",
-                            "other"), 0.0)
+    groups = dict.fromkeys(("flash_attn", "flash_bwd", "gemm", "conv",
+                            "layer_norm", "other"), 0.0)
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         name = e.key.lower()
         # a convolution first: cuDNN names some of its kernels "...gemm"
-        group = ("flash_attn" if "flash_attn" in name else
+        group = ("flash_bwd" if "flash_attn_bwd" in name else
+                 "flash_attn" if "flash_attn" in name else
                  "conv" if "conv" in name else
                  "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
                  else "layer_norm" if "layer_norm" in name else "other")
@@ -1012,7 +1372,8 @@ def device_breakdown(fn, reps: int = 3) -> dict:
     return groups
 
 
-def kernels_line(cases, lib, predict_launches, train_counts, attention):
+def kernels_line(cases, lib, predict_launches, train_counts, attention,
+                 attention_train):
     def head(rows):
         return next(c for c in rows if c["dtype"] == "float32"
                     and not c["reverse"])
@@ -1020,7 +1381,15 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention):
     f, r, b = head(cases["fwd"]), head(cases["res"]), head(cases["bwd"])
     beam = cases["beam"][0]  # M=6, the default prune
     flash = next(c for c in cases["flash"] if c["dtype"] == "float32")
+    fb = next(c for c in cases["flash_bwd"] if c["dtype"] == "float32")
     src = "pg_asr_tpu_torch/csrc/"
+    lib_fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+
+    def train_launches(name):
+        return {f"{fam}_{path}": n[name] for fam, r in attention_train.items()
+                for path, n in r["launches"].items()}
+
+    conformer_epoch = attention_train["conformer"]["launches"]["epoch1"]
     return [{
         "name": "lstm_fwd", "route": "cuda", "source": src + "lstm_fwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:80",
@@ -1068,15 +1437,65 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention):
         "name": "flash_attn", "route": "cuda", "source": src + "flash_attn.cu",
         "replaces": "pg_asr_tpu/ops/flash_attn.py:62",
         "launches": attention["conformer"]["launches"]["greedy"],
-        "launches_by_path": {f"{fam}_{path}": n
-                             for fam, r in attention.items()
-                             for path, n in r["launches"].items()},
+        "launches_by_path": {
+            **{f"{fam}_{path}": n for fam, r in attention.items()
+               for path, n in r["launches"].items()},
+            **train_launches("flash_attn")},
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library_note": "F.scaled_dot_product_attention with the boolean "
                         "segment-equality mask",
         "cases": cases["flash"], "models": attention,
+    }, {
+        "name": "flash_attn_residual", "route": "cuda",
+        "source": src + "flash_attn.cu",
+        "replaces": "pg_asr_tpu/ops/flash_attn.py:62 (" + lib_fa
+                    + " _flash_attention_fwd, save_residuals)",
+        "launches": conformer_epoch["flash_attn_residual"],
+        "launches_by_path": train_launches("flash_attn_residual"),
+        "max_abs_err": max(c["m_max_abs_err"] for c in cases["flash_bwd"]
+                           if c["dtype"] == "float32"),
+        "ms": fb["res_ms"], "plain_ms": fb["res_plain_ms"],
+        "bound_ms": fb["res_bound_ms"], "bound_by": fb["res_bound_by"],
+        "library_ms": fb["sdpa_train_fwd_ms"],
+        "library_note": "F.scaled_dot_product_attention forward on inputs "
+                        "that require grad",
+    }, {
+        "name": "flash_attn_bwd_dkv", "route": "cuda",
+        "source": src + "flash_attn_bwd.cu",
+        "replaces": lib_fa + ":941 (_flash_attention_bwd_dkv, pallas_call "
+                    ":1121, kernel :796)",
+        "launches": conformer_epoch["flash_attn_bwd_dkv"],
+        "launches_by_path": train_launches("flash_attn_bwd_dkv"),
+        "max_abs_err": max(c["errors_rel_to_max"][n][0]
+                           for c in cases["flash_bwd"] for n in ("dk", "dv")
+                           if c["dtype"] == "float32"),
+        "max_abs_err_note": "relative to max|grad|",
+        "ms": fb["dkv_ms"], "plain_ms": fb["plain_bwd_ms"],
+        "bound_ms": fb["dkv_bound_ms"], "bound_by": fb["dkv_bound_by"],
+        "library_ms": fb["sdpa_bwd_ms"],
+        "library_note": "the backward of F.scaled_dot_product_attention "
+                        "(dq, dk and dv together); plain_ms is "
+                        "mhsa_bwd_plain, all three",
+        "cases": cases["flash_bwd"], "models": attention_train,
+    }, {
+        "name": "flash_attn_bwd_dq", "route": "cuda",
+        "source": src + "flash_attn_bwd.cu",
+        "replaces": lib_fa + ":1287 (_flash_attention_bwd_dq, pallas_call "
+                    ":1456, kernel :1146)",
+        "launches": conformer_epoch["flash_attn_bwd_dq"],
+        "launches_by_path": train_launches("flash_attn_bwd_dq"),
+        "max_abs_err": max(c["errors_rel_to_max"]["dq"][0]
+                           for c in cases["flash_bwd"]
+                           if c["dtype"] == "float32"),
+        "max_abs_err_note": "relative to max|grad|",
+        "ms": fb["dq_ms"], "plain_ms": fb["plain_bwd_ms"],
+        "bound_ms": fb["dq_bound_ms"], "bound_by": fb["dq_bound_by"],
+        "library_ms": fb["sdpa_bwd_ms"],
+        "library_note": "the backward of F.scaled_dot_product_attention "
+                        "(dq, dk and dv together); plain_ms is "
+                        "mhsa_bwd_plain, all three",
     }]
 
 
@@ -1086,6 +1505,7 @@ def main() -> int:
     cases = phase_kernels(dev)
     cases["beam"] = phase_beam(dev)
     cases["flash"] = phase_flash(dev)
+    cases["flash_bwd"] = phase_flash_bwd(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
@@ -1094,6 +1514,9 @@ def main() -> int:
         attention = {family: phase_attention(dev, corpus, alphabet, d, family,
                                              cases["flash"])
                      for family in ("conformer", "transformer")}
+        attention_train = {family: phase_attention_train(dev, corpus,
+                                                         alphabet, d, family)
+                           for family in ("conformer", "transformer")}
 
     import torch
 
@@ -1101,7 +1524,8 @@ def main() -> int:
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
     check(not bad, f"the port imported {bad}")
     print(json.dumps({"kernels": kernels_line(cases, lib, predict_launches,
-                                              train_counts, attention)}))
+                                              train_counts, attention,
+                                              attention_train)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

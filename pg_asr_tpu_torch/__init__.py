@@ -8,14 +8,14 @@ not import JAX: what it needs of them (``config``, ``data``, ``metrics``,
 the CLI's flags) it keeps as its own copies.
 
 Ported so far: training (``--mode train``) and batch transcription
-(``--mode predict``, greedy or CTC prefix beam) of the BiLSTM-CTC family,
-and batch transcription with the transformer-CTC and conformer-CTC
-families. On CUDA tensors the LSTM recurrence runs in hand-written kernels
-(``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
-``csrc/lstm_bwd.cu``, its gradient), as do the beam search
-(``csrc/ctc_beam.cu``) and, with ``flash_attention``, the attention
-(``csrc/flash_attn.cu``); on CPU tensors the plain PyTorch versions of the
-same functions run.
+(``--mode predict``, greedy or CTC prefix beam) of the BiLSTM-CTC,
+transformer-CTC and conformer-CTC families. On CUDA tensors the LSTM
+recurrence runs in hand-written kernels (``csrc/lstm_fwd.cu``, forward in
+its inference and residual forms; ``csrc/lstm_bwd.cu``, its gradient), as
+do the beam search (``csrc/ctc_beam.cu``) and, with ``flash_attention``,
+the attention (``csrc/flash_attn.cu``, forward in its inference and
+residual forms; ``csrc/flash_attn_bwd.cu``, its gradient); on CPU tensors
+the plain PyTorch versions of the same functions run.
 """
 
 import torch

@@ -1,6 +1,7 @@
 """Command-line interface of the port (counterpart of pg_asr_tpu/cli.py).
 
     python -m pg_asr_tpu_torch --mode train --corpus_path C --model_path M \\
+        [--model ctc|transformer|conformer] [--flash_attention] [--remat] \\
         [--num_epochs N] [--batch_size N] [--learning_rate X] \\
         [--lr_schedule warmup_constant|warmup_cosine] [--dtype float32|bfloat16] \\
         [--seed S] [--device cuda|cuda:N|cpu]
@@ -12,9 +13,10 @@ The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
 is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so (training the transformer and conformer
-families among them). ``--mode predict`` takes the model family and
-``flash_attention`` from the model's config.json, as the JAX CLI does.
+exit with a message that says so (the transducer, seq2seq and MoE models
+among them). ``--mode predict`` takes the model family and
+``flash_attention`` from the model's config.json, as the JAX CLI does; a
+train run that resumes takes the family and its config from there too.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
         description="PyTorch/CUDA port of pg_asr_tpu (train and predict of "
-                    "the BiLSTM-CTC, predict of the transformer-CTC and "
-                    "conformer-CTC so far)")
+                    "the BiLSTM-CTC, transformer-CTC and conformer-CTC so "
+                    "far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -66,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(segment-masked online softmax; no (B, H, T, T) "
                         "score tensor in device memory). `--mode predict` "
                         "takes it from the model's config.json")
+    p.add_argument("--remat", action="store_true",
+                   help="train, transformer/conformer: recompute each "
+                        "encoder block in the backward pass (less "
+                        "activation memory, one more forward per block)")
     p.add_argument("--features", type=str, default=None,
                    choices=["logmel", "mfcc"])
     p.add_argument("--units", type=str, default=None, choices=["char", "bpe"])
@@ -116,9 +122,17 @@ def train_config(args) -> Config:
     cfg = Config()
     model_kw = {}
     if args.model:
-        model_kw["family"] = args.model
+        # "moe" is the transformer family with switch-MoE FFN blocks (4
+        # experts, the JAX CLI's default); train.train refuses it
+        model_kw["family"] = ("transformer" if args.model == "moe"
+                              else args.model)
+        if args.model == "moe":
+            cfg = cfg.replace(transformer=_replace(cfg.transformer,
+                                                   num_experts=4))
     if args.dtype:
         model_kw["dtype"] = args.dtype
+    if args.remat:
+        model_kw["remat"] = True
     if model_kw:
         cfg = cfg.replace(model=_replace(cfg.model, **model_kw))
     if args.flash_attention:

@@ -1,5 +1,5 @@
 // Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu,
-// flash_attn.cu).
+// flash_attn.cu, flash_attn_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,7 +16,7 @@ constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-residen
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;
 constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
-constexpr int kErrHeadDim = -6;         // flash_attn: head dim other than 32 or 64
+constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim other than 32 or 64
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -44,6 +44,20 @@ template <> __device__ __forceinline__ float ldcg_f32<float>(const float* p) {
 template <> __device__ __forceinline__ float ldcg_f32<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(
       __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// A (rows x DH) tile of a strided (.., T, DH) slice into shared memory as
+// float32, row stride `ld`, by a block of NT threads; rows at or beyond Tn
+// become zeros.
+template <typename T, int DH, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* src,
+                                              long long st, int t0, int rows,
+                                              int Tn) {
+  for (int e = threadIdx.x; e < rows * DH; e += NT) {
+    const int r = e / DH, c = e % DH;
+    const int t = t0 + r;
+    dst[r * ld + c] = t < Tn ? to_f32<T>(src[(long long)t * st + c]) : 0.0f;
+  }
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }

@@ -13,6 +13,10 @@
 //   seg      (B, T) int32, contiguous; query i attends key j iff
 //            seg[b, i] == seg[b, j] (a padded query attends the padded keys)
 //   o        (B, H, T, dh) in q's type, strides as given
+//   l, m     (B, H, T) float32, contiguous, or both null: the residual form
+//            (the library's save_residuals, which its backward reads) also
+//            writes the row sum l and row max m of every row < T; null
+//            pointers keep the inference form
 //   dh = 32 or 64 (a template parameter); any T >= 1.
 //
 // Numerics, as the Pallas kernel: s = (q . k accumulated in float32) *
@@ -64,6 +68,8 @@ struct FlashArgs {
   const void* v;
   const int* seg;
   void* o;
+  float* l;  // residual form only, else null
+  float* m;
   long long sq[3], sk[3], sv[3], so[3];  // (batch, head, time) strides
   int B, H, T;
   float scale;
@@ -79,19 +85,6 @@ constexpr size_t smem_floats() {
 template <int DH>
 constexpr size_t smem_bytes() {
   return smem_floats<DH>() * sizeof(float) + kBK * sizeof(int);
-}
-
-// A (rows x DH) tile of a strided (.., T, DH) slice into shared memory as
-// float32, row stride `ld`; rows at or beyond T become zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long st, int t0, int rows,
-                                          int Tn) {
-  for (int e = threadIdx.x; e < rows * DH; e += kAttnThreads) {
-    const int r = e / DH, c = e % DH;
-    const int t = t0 + r;
-    dst[r * ld + c] = t < Tn ? to_f32<T>(src[(long long)t * st + c]) : 0.0f;
-  }
 }
 
 template <typename T, int DH>
@@ -115,7 +108,7 @@ flash_attn_kernel(const FlashArgs a) {
   T* op = static_cast<T*>(a.o) + b * a.so[0] + h * a.so[1];
   const int* seg = a.seg + (long long)b * Tn;
 
-  load_tile<T, DH>(Qs, LDQ, qp, a.sq[2], q0, kBQ, Tn);
+  load_rows_f32<T, DH, kAttnThreads>(Qs, LDQ, qp, a.sq[2], q0, kBQ, Tn);
   int segq[kRowsPerThread];
   float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][CPT];
 #pragma unroll
@@ -130,8 +123,8 @@ flash_attn_kernel(const FlashArgs a) {
 
   for (int k0 = 0; k0 < Tn; k0 += kBK) {
     __syncthreads();  // the previous tile's k, v and p are consumed
-    load_tile<T, DH>(Ks, LDQ, kp, a.sk[2], k0, kBK, Tn);
-    load_tile<T, DH>(Vs, DH, vp, a.sv[2], k0, kBK, Tn);
+    load_rows_f32<T, DH, kAttnThreads>(Ks, LDQ, kp, a.sk[2], k0, kBK, Tn);
+    load_rows_f32<T, DH, kAttnThreads>(Vs, DH, vp, a.sv[2], k0, kBK, Tn);
     for (int j = threadIdx.x; j < kBK; j += kAttnThreads)
       segk[j] = k0 + j < Tn ? seg[k0 + j] : 0;
     __syncthreads();
@@ -233,6 +226,11 @@ flash_attn_kernel(const FlashArgs a) {
     T* row = op + (long long)t * a.so[2] + CPT * tx;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) row[c] = from_f32<T>(acc[i][c] * inv);
+    if (a.l != nullptr && tx == 0) {  // every thread of the row holds both
+      const long long r = ((long long)b * a.H + h) * Tn + t;
+      a.l[r] = l[i];
+      a.m[r] = m[i];
+    }
   }
 }
 
@@ -260,11 +258,13 @@ int launch_dh(const FlashArgs& a, int dh, cudaStream_t stream) {
 
 extern "C" {
 
-// Strides in elements, (batch, head, time) for each of q, k, v, o; dtype 0
-// float32, 1 bfloat16. Returns 0, kErrHeadDim, kErrDtype, or the launch's
-// cudaError_t.
+// Strides in elements, (batch, head, time) for each of q, k, v, o; l and m
+// both null (inference form) or both (B, H, T) float32 (residual form);
+// dtype 0 float32, 1 bfloat16. Returns 0, kErrHeadDim, kErrDtype, or the
+// launch's cudaError_t.
 int pgasr_flash_attn(const void* q, const void* k, const void* v,
-                     const int* seg, void* o, long long q_sb, long long q_sh,
+                     const int* seg, void* o, float* l, float* m,
+                     long long q_sb, long long q_sh,
                      long long q_st, long long k_sb, long long k_sh,
                      long long k_st, long long v_sb, long long v_sh,
                      long long v_st, long long o_sb, long long o_sh,
@@ -273,7 +273,8 @@ int pgasr_flash_attn(const void* q, const void* k, const void* v,
   using namespace pgasr;
   if (B < 1 || H < 1 || T < 1) return cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return cudaErrorInvalidConfiguration;
-  const FlashArgs a{q, k, v, seg, o,
+  if ((l == nullptr) != (m == nullptr)) return cudaErrorInvalidValue;
+  const FlashArgs a{q, k, v, seg, o, l, m,
                     {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
                     {v_sb, v_sh, v_st}, {o_sb, o_sh, o_st},
                     B, H, T, scale};

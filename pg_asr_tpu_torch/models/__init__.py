@@ -1,43 +1,31 @@
 """Model families + the CTC-family forward dispatch (counterpart of
 pg_asr_tpu/models/__init__.py).
 
-Ported: the flagship BiLSTM-CTC ("ctc"), trained and served; the
-transformer-CTC ("transformer") and conformer-CTC ("conformer"), served
-only (inference). The attention families subsample time, so the dispatch
-returns the shorter output mask and lengths beside the log-probs; BiLSTM
-callers get their inputs back unchanged.
+Ported, trained and served: the flagship BiLSTM-CTC ("ctc"), the
+transformer-CTC ("transformer") and the conformer-CTC ("conformer"). The
+attention families subsample time, so the dispatch returns the shorter
+output mask and lengths beside the log-probs; BiLSTM callers get their
+inputs back unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
+_PORTED = ("ctc", "transformer", "conformer")
 _NOT_PORTED = {
     "transducer": "ROADMAP.md queue 1 item 8 (transducer)",
     "seq2seq": "ROADMAP.md queue 1 item 9 (seq2seq)",
 }
-_TRAIN_NOT_PORTED = {
-    family: ("ROADMAP.md queue 1 item 7 (training the transformer and "
-             "conformer families, with the flash-attention backward)")
-    for family in ("transformer", "conformer")
-}
 
 
-def check_family(family: str, train: bool = False) -> None:
-    """Raise unless the port serves (train=False) or trains (train=True)
-    the model family."""
-    if family == "ctc":
+def check_family(family: str) -> None:
+    """Raise unless the port serves and trains the model family."""
+    if family in _PORTED:
         return
-    if family in _TRAIN_NOT_PORTED:
-        if not train:
-            return
-        where = _TRAIN_NOT_PORTED[family]
-        what = f"training the {family} family"
-    else:
-        where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
-        what = f"model family {family!r}"
-    raise NotImplementedError(f"{what} is not yet ported to pg_asr_tpu_torch; "
-                              f"see {where}")
+    where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
+    raise NotImplementedError(f"model family {family!r} is not yet ported "
+                              f"to pg_asr_tpu_torch; see {where}")
 
 
 def _is_layer_norm(name: str) -> bool:
@@ -59,23 +47,25 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
                      use_kernel: bool = True, train: bool = False,
                      generator=None):
     """CTC-family forward: (B,T,F) feats -> (log_probs (B,T',A), out_mask
-    (B,T') f32, out_lens (B,)). T' == T for the BiLSTM; the attention
-    families serve only (train=True raises). train=True applies dropout
-    with bits from `generator` (a torch.Generator on feats' device)."""
+    (B,T') f32, out_lens (B,)). T' == T for the BiLSTM, ceil(T / subsample)
+    for the attention families. train=True applies dropout with bits from
+    `generator` (a torch.Generator on feats' device)."""
     family = cfg.model.family
-    check_family(family, train=train)
+    check_family(family)
     if family == "transformer":
         from . import transformer_ctc
 
         return transformer_ctc.apply(params, feats, frame_mask, frame_lens,
                                      cfg.model, cfg.transformer,
-                                     use_kernel=use_kernel, train=train)
+                                     use_kernel=use_kernel, train=train,
+                                     generator=generator)
     if family == "conformer":
         from . import conformer_ctc
 
         return conformer_ctc.apply(params, feats, frame_mask, frame_lens,
                                    cfg.model, cfg.conformer,
-                                   use_kernel=use_kernel, train=train)
+                                   use_kernel=use_kernel, train=train,
+                                   generator=generator)
     from . import bilstm_ctc
 
     log_probs = bilstm_ctc.apply(params, feats, frame_mask, cfg.model,

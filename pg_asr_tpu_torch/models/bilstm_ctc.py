@@ -106,16 +106,31 @@ def dropout_from_bits(x: torch.Tensor, rate: float,
     return torch.where(bits >= thresh, x / keep_p, torch.zeros_like(x))
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             generator: torch.Generator | None, train: bool) -> torch.Tensor:
+def dropout_bits(x: torch.Tensor, rate: float,
+                 generator: torch.Generator | None,
+                 train: bool) -> torch.Tensor | None:
+    """The uint8 bits of one dropout site of x's shape, drawn from
+    `generator` on x's device; None where no dropout applies (not
+    training, or rate 0). A rate above 0 in training without a generator
+    raises."""
     if not train or rate <= 0.0:
-        return x
+        return None
     if generator is None:
         raise ValueError(f"dropout {rate} in training needs a generator for "
                          "its bits")
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+    return torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
                          generator=generator)
-    return dropout_from_bits(x, rate, bits)
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  bits: torch.Tensor | None) -> torch.Tensor:
+    """``dropout_from_bits``, or x itself where ``bits`` is None."""
+    return x if bits is None else dropout_from_bits(x, rate, bits)
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator | None, train: bool) -> torch.Tensor:
+    return apply_dropout(x, rate, dropout_bits(x, rate, generator, train))
 
 
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Conformer-CTC acoustic model, inference (counterpart of
+"""Conformer-CTC acoustic model (counterpart of
 pg_asr_tpu/models/conformer_ctc.py).
 
 Masked per-utterance normalization -> frame stacking (as the transformer)
@@ -13,12 +13,20 @@ the JAX code does; its docstring speaks of pairs), with cos and sin
 computed in float32 and cast to x's type. The depthwise conv is JAX's
 ``conv_general_dilated`` with a (K, 1, d) kernel, feature groups d and
 padding (pad, K-1-pad): ``F.conv1d(groups=d)`` with the weight as
-(d, 1, K), neither flipping the kernel. Dense attention keeps its scores
-and softmax in the compute type when ``attn_softmax_bf16`` is set (the
-default), in float32 otherwise; the flash path (ops/flash_attn.py, the
-hand-written kernel on CUDA tensors) runs its softmax in float32 whatever
-the flag says, as the JAX package's. The JAX package pads T' to 128 frames
-for its TPU flash kernel; the port does not.
+(d, 1, K), neither flipping the kernel; it runs in full float32 forward
+and backward (``DepthwiseConv``: cuDNN would run a float32 conv in TF32 by
+default, the JAX package runs it at full precision). Dense attention
+keeps its scores and softmax in the compute type when
+``attn_softmax_bf16`` is set (the default), in float32 otherwise; the
+flash path (ops/flash_attn.py, the hand-written kernels on CUDA tensors)
+runs its softmax in float32 whatever the flag says, as the JAX
+package's. The JAX package pads T' to 128 frames for its TPU flash
+kernel; the port does not.
+
+Training (``train=True``): dropout (``conformer.dropout``) after the input
+projection, then on each of the four residual branches of a block (1 + 4L
+sites, the JAX package's; the half-step FFNs add ``0.5 * dropout(h)``),
+bits and ``model.remat`` as in models/transformer_ctc.py.
 
 Parameters: a flat dict in the JAX package's layouts, ``input_proj.*``,
 ``blocks.{i}.{ln_ffn1,ln_attn,ln_conv,ln_mid,ln_ffn2}.{scale,bias}``
@@ -29,18 +37,21 @@ attn_out,conv_in,conv_out,ffn2_in,ffn2_out}.{w,b}``, ``blocks.{i}.conv_dw``
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported
 from ..config import ConformerConfig, ModelConfig
 from ..ops import flash_attn
+from ..ops.features import full_f32_conv
 from . import cast_params
-from .bilstm_ctc import init_linear, linear, normalize_features, torch_dtype
+from .bilstm_ctc import (apply_dropout, dropout_bits, init_linear, linear,
+                         normalize_features, torch_dtype)
 from .transformer_ctc import (_attn_out, _init_ln, _layer_norm, _qkv,
-                              ctc_head, num_blocks, padding_bias, stack_frames)
+                              ctc_head, num_blocks, padding_bias, run_block,
+                              stack_frames)
 
 
 def init_encoder_params(mcfg: ModelConfig, ccfg: ConformerConfig,
@@ -120,6 +131,27 @@ def _mhsa_rotary(params: dict, pre: str, x: torch.Tensor,
     return _attn_out(params, pre, ctx)
 
 
+class DepthwiseConv(torch.autograd.Function):
+    """``F.conv1d(x, w, groups=channels)`` (x (B, C, T), w (C, 1, K), no
+    padding) with TF32 off in the forward and in the backward, which runs
+    after the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with full_f32_conv():
+            return F.conv1d(x, w, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with full_f32_conv():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1], [0], [1], False, [0], x.shape[1],
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw
+
+
 def _conv_module(params: dict, pre: str, x: torch.Tensor, mask: torch.Tensor,
                  kernel: int) -> torch.Tensor:
     """pointwise(d -> 2d) -> GLU -> depthwise conv (padded frames zeroed
@@ -129,8 +161,8 @@ def _conv_module(params: dict, pre: str, x: torch.Tensor, mask: torch.Tensor,
     h = a * torch.sigmoid(b) * mask[:, :, None]
     pad = (kernel - 1) // 2
     w = params[f"{pre}.conv_dw"].permute(2, 1, 0)  # (K, 1, d) -> (d, 1, K)
-    h = F.conv1d(F.pad(h.transpose(1, 2), (pad, kernel - 1 - pad)), w,
-                 groups=h.shape[-1]).transpose(1, 2)
+    h = DepthwiseConv.apply(F.pad(h.transpose(1, 2),
+                                  (pad, kernel - 1 - pad)), w).transpose(1, 2)
     h = _layer_norm(params, f"{pre}.ln_mid", h)
     return linear(params, f"{pre}.conv_out", h * torch.sigmoid(h))
 
@@ -142,41 +174,62 @@ def _ffn(params: dict, pre: str, ln: str, ffn: str,
     return linear(params, f"{pre}.{ffn}_out", h)
 
 
+def _block(params: dict, pre: str, x: torch.Tensor, b_ffn1, b_attn, b_conv,
+           b_ffn2, *, ccfg: ConformerConfig, key_bias: torch.Tensor,
+           omask: torch.Tensor, flash_mask: torch.Tensor | None,
+           use_kernel: bool) -> torch.Tensor:
+    """One conformer block: half-step FFN, MHSA, conv module, half-step
+    FFN, each a residual branch with its dropout site."""
+    rate = ccfg.dropout
+    x = x + 0.5 * apply_dropout(_ffn(params, pre, "ln_ffn1", "ffn1", x),
+                                rate, b_ffn1)
+    h = _mhsa_rotary(params, pre, _layer_norm(params, f"{pre}.ln_attn", x),
+                     key_bias, ccfg.num_heads, flash_mask=flash_mask,
+                     softmax_bf16=ccfg.attn_softmax_bf16,
+                     use_kernel=use_kernel)
+    x = x + apply_dropout(h, rate, b_attn)
+    h = _conv_module(params, pre, _layer_norm(params, f"{pre}.ln_conv", x),
+                     omask, ccfg.conv_kernel)
+    x = x + apply_dropout(h, rate, b_conv)
+    return x + 0.5 * apply_dropout(_ffn(params, pre, "ln_ffn2", "ffn2", x),
+                                   rate, b_ffn2)
+
+
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
-           use_kernel: bool = True):
+           use_kernel: bool = True, train: bool = False,
+           generator: torch.Generator | None = None):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
-    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample)."""
+    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
+    training dropout draws its bits from `generator` (x's device)."""
     dtype = torch_dtype(mcfg.dtype)
     x = normalize_features(feats.to(dtype), frame_mask.to(dtype))
     x, out_mask, out_lens = stack_frames(x, frame_lens, ccfg.subsample)
-    omask = out_mask.to(dtype)
     x = linear(params, "input_proj", x)
+    x = apply_dropout(x, ccfg.dropout,
+                      dropout_bits(x, ccfg.dropout, generator, train))
     flash_mask = out_mask if ccfg.flash_attention else None
-    bias = padding_bias(out_mask)
+    bias, omask = padding_bias(out_mask), out_mask.to(dtype)
     for i in range(num_blocks(params)):
-        pre = f"blocks.{i}"
-        x = x + 0.5 * _ffn(params, pre, "ln_ffn1", "ffn1", x)
-        x = x + _mhsa_rotary(params, pre,
-                             _layer_norm(params, f"{pre}.ln_attn", x), bias,
-                             ccfg.num_heads, flash_mask=flash_mask,
-                             softmax_bf16=ccfg.attn_softmax_bf16,
-                             use_kernel=use_kernel)
-        x = x + _conv_module(params, pre,
-                             _layer_norm(params, f"{pre}.ln_conv", x), omask,
-                             ccfg.conv_kernel)
-        x = x + 0.5 * _ffn(params, pre, "ln_ffn2", "ffn2", x)
+        block = functools.partial(_block, params, f"blocks.{i}", ccfg=ccfg,
+                                  key_bias=bias, omask=omask,
+                                  flash_mask=flash_mask,
+                                  use_kernel=use_kernel)
+        bits = [dropout_bits(x, ccfg.dropout, generator, train)
+                for _ in range(4)]
+        x = run_block(block, x, bits, mcfg.remat)
     return _layer_norm(params, "ln_final", x), out_mask, out_lens
 
 
 def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
           frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
-          use_kernel: bool = True, train: bool = False):
+          use_kernel: bool = True, train: bool = False,
+          generator: torch.Generator | None = None):
     """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
-    float32, out_lens (B,)). Inference only: train=True raises."""
-    if train:
-        raise not_ported("training the conformer family")
+    float32, out_lens (B,)). train=True applies dropout with bits from
+    `generator`."""
     x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
-                                   mcfg, ccfg, use_kernel=use_kernel)
+                                   mcfg, ccfg, use_kernel=use_kernel,
+                                   train=train, generator=generator)
     log_probs, omask_f = ctc_head(params, x, out_mask)
     return log_probs, omask_f, out_lens

@@ -1,4 +1,4 @@
-"""Transformer-CTC acoustic model, inference (counterpart of
+"""Transformer-CTC acoustic model (counterpart of
 pg_asr_tpu/models/transformer_ctc.py).
 
 Masked per-utterance feature normalization -> frame stacking (pad T to a
@@ -17,6 +17,17 @@ attends the valid keys; both paths agree on valid rows, and the rest is
 masked). The JAX package pads T' to 128 frames for its TPU flash kernel;
 the port does not, so its log-probs keep T' frames.
 
+Training (``train=True``): dropout (``transformer.dropout``) after the
+input projection and positions, then after the attention and after the
+FFN of each block (1 + 2L sites, the JAX package's), with uint8 bits from
+the step's ``torch.Generator`` under the port's threshold rule
+(``bilstm_ctc.dropout_bits``). With ``model.remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant) when a gradient is wanted: its
+activations are recomputed in the backward, as ``jax.checkpoint`` does.
+The checkpoint restores only the default generators' states, so a block's
+dropout bits are drawn before it and passed in: the recompute applies the
+same masks.
+
 Parameters are a flat dict (the state dict ``checkpoint.save_model``
 writes) in the JAX package's layouts: ``input_proj.{w,b}``,
 ``blocks.{i}.{ln1,ln2}.{scale,bias}``, ``blocks.{i}.{qkv,attn_out,ffn_in,
@@ -25,16 +36,19 @@ ffn_out}.{w,b}``, ``ln_final.{scale,bias}``, ``ctc_head.{w,b}``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from ..config import ModelConfig, TransformerConfig
 from ..ops import flash_attn
 from . import cast_params
-from .bilstm_ctc import init_linear, linear, normalize_features, torch_dtype
+from .bilstm_ctc import (apply_dropout, dropout_bits, init_linear, linear,
+                         normalize_features, torch_dtype)
 
 
 def _init_ln(p: dict, name: str, dim: int) -> None:
@@ -167,27 +181,53 @@ def padding_bias(out_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(out_mask, 0.0, -1e9).to(torch.float32)[:, None, None, :]
 
 
+def run_block(block_fn, x: torch.Tensor, bits: list, remat: bool):
+    """``block_fn(x, *bits)``; with ``remat`` and a gradient wanted, under
+    a non-reentrant ``torch.utils.checkpoint`` (the block is recomputed in
+    the backward; the bits, drawn before, make it apply the same dropout)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block_fn, x, *bits, use_reentrant=False)
+    return block_fn(x, *bits)
+
+
+def _block(params: dict, pre: str, x: torch.Tensor, bits_attn, bits_ffn, *,
+           key_bias: torch.Tensor, num_heads: int,
+           flash_mask: torch.Tensor | None, use_kernel: bool,
+           rate: float) -> torch.Tensor:
+    """One pre-LN block: x + dropout(MHSA(LN(x))), then + dropout(FFN)."""
+    h = _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), key_bias,
+              num_heads, flash_mask=flash_mask, use_kernel=use_kernel)
+    x = x + apply_dropout(h, rate, bits_attn)
+    h = F.gelu(linear(params, f"{pre}.ffn_in",
+                      _layer_norm(params, f"{pre}.ln2", x)),
+               approximate="tanh")  # jax.nn.gelu's default form
+    h = linear(params, f"{pre}.ffn_out", h)
+    return x + apply_dropout(h, rate, bits_ffn)
+
+
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig,
-           tcfg: TransformerConfig, use_kernel: bool = True):
+           tcfg: TransformerConfig, use_kernel: bool = True,
+           train: bool = False, generator: torch.Generator | None = None):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
-    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample)."""
+    (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
+    training dropout draws its bits from `generator` (x's device)."""
     if tcfg.num_experts > 0:
         raise not_ported("the switch-MoE transformer (transformer."
                          "num_experts > 0, parallel/moe.py)")
     x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
                                      mcfg, tcfg)
+    rate = tcfg.dropout
+    x = apply_dropout(x, rate, dropout_bits(x, rate, generator, train))
     flash_mask = out_mask if tcfg.flash_attention else None
     bias = padding_bias(out_mask)
     for i in range(num_blocks(params)):
-        pre = f"blocks.{i}"
-        x = x + _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), bias,
-                      tcfg.num_heads, flash_mask=flash_mask,
-                      use_kernel=use_kernel)
-        h = F.gelu(linear(params, f"{pre}.ffn_in",
-                          _layer_norm(params, f"{pre}.ln2", x)),
-                   approximate="tanh")  # jax.nn.gelu's default form
-        x = x + linear(params, f"{pre}.ffn_out", h)
+        block = functools.partial(_block, params, f"blocks.{i}",
+                                  key_bias=bias, num_heads=tcfg.num_heads,
+                                  flash_mask=flash_mask,
+                                  use_kernel=use_kernel, rate=rate)
+        bits = [dropout_bits(x, rate, generator, train) for _ in range(2)]
+        x = run_block(block, x, bits, mcfg.remat)
     return _layer_norm(params, "ln_final", x), out_mask, out_lens
 
 
@@ -203,12 +243,12 @@ def ctc_head(params: dict, x: torch.Tensor, out_mask: torch.Tensor):
 def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
           frame_lens: torch.Tensor, mcfg: ModelConfig,
           tcfg: TransformerConfig, use_kernel: bool = True,
-          train: bool = False):
+          train: bool = False, generator: torch.Generator | None = None):
     """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
-    float32, out_lens (B,)). Inference only: train=True raises."""
-    if train:
-        raise not_ported("training the transformer family")
+    float32, out_lens (B,)). train=True applies dropout with bits from
+    `generator`."""
     x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
-                                   mcfg, tcfg, use_kernel=use_kernel)
+                                   mcfg, tcfg, use_kernel=use_kernel,
+                                   train=train, generator=generator)
     log_probs, omask_f = ctc_head(params, x, out_mask)
     return log_probs, omask_f, out_lens

@@ -119,7 +119,7 @@ def _constants(cfg: FeatureConfig, device: torch.device):
 
 
 @contextlib.contextmanager
-def _full_f32_conv():
+def full_f32_conv():
     """cuDNN runs a float32 conv in TF32 by default; the JAX frontend runs
     this conv at Precision.HIGHEST, so turn TF32 off around it."""
     old = torch.backends.cudnn.allow_tf32
@@ -158,7 +158,7 @@ def extract_features(wave: torch.Tensor, num_samples: torch.Tensor,
 
     pad = cfg.n_fft // 2
     x = F.pad(wave[:, None, :], (pad, pad), mode="reflect")  # (B, 1, N + 2p)
-    with _full_f32_conv():
+    with full_f32_conv():
         spec = F.conv1d(x, kern, stride=cfg.hop_length)  # (B, 2K, F)
     K = cfg.n_fft // 2 + 1
     power = (spec[:, :K] ** 2 + spec[:, K:] ** 2).transpose(1, 2)  # (B, F, K)

@@ -10,10 +10,18 @@ mask is additive (``DEFAULT_MASK_VALUE``, not -inf); scores are q . k in
 float32 times ``sm_scale``; the softmax runs in float32; p is rounded to
 v's type before the p . v product, which accumulates in float32.
 
-``mhsa`` is the one place that chooses: the hand-written kernel
-(ops/cuda_flash_attn.py, csrc/flash_attn.cu) for CUDA tensors, the plain
-version ``mhsa_plain`` for CPU tensors or ``use_kernel=False``. A kernel
-that fails to build or launch raises; nothing falls back. The JAX
+Its gradient is the library's custom VJP (``_flash_attention_fwd`` saves
+the row max ``m`` and sum ``l``; ``_flash_attention_bwd`` computes ``di``
+and launches its dkv and dq kernels): ``FlashAttention`` joins the
+residual forward to the backward, and ``mhsa_bwd_plain`` transcribes the
+two backward kernels' numerics.
+
+``mhsa`` is the one place that chooses: the hand-written kernels
+(ops/cuda_flash_attn.py; csrc/flash_attn.cu, csrc/flash_attn_bwd.cu) for
+CUDA tensors, the plain versions for CPU tensors or ``use_kernel=False``.
+Under autograd it runs ``FlashAttention``; without (inference,
+``torch.no_grad``) the forward's inference form, which keeps no residuals.
+A kernel that fails to build or launch raises; nothing falls back. The JAX
 module's ``available()`` and ``pad_multiple()`` are TPU constraints (a
 backend and a 128-frame block) that the port does not have.
 """
@@ -28,26 +36,98 @@ from . import cuda_flash_attn
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               valid_mask: torch.Tensor, sm_scale: float) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: q, k, v (B, H, T, dh) in the
-    compute type, valid_mask (B, T) -> the (B, H, T, dh) context in q's
-    type, every row (padded queries included)."""
+def _scores(q: torch.Tensor, k: torch.Tensor, valid_mask: torch.Tensor,
+            sm_scale: float) -> torch.Tensor:
+    """(B, H, T, T) float32 scores q . k * sm_scale plus the additive
+    segment mask."""
     seg = valid_mask.to(torch.int32)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     same = seg[:, None, :, None] == seg[:, None, None, :]
-    s = s + torch.where(same, 0.0, DEFAULT_MASK_VALUE)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return s + torch.where(same, 0.0, DEFAULT_MASK_VALUE)
+
+
+def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid_mask: torch.Tensor, sm_scale: float,
+               residuals: bool = False):
+    """The kernel's function in plain PyTorch: q, k, v (B, H, T, dh) in the
+    compute type, valid_mask (B, T) -> the (B, H, T, dh) context in q's
+    type, every row (padded queries included). With ``residuals`` -> (o, l,
+    m), the library's residuals: m the row max of the masked scaled scores,
+    l the sum of exp(s - m), both (B, H, T) float32."""
+    s = _scores(q, k, valid_mask, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
-    return (o * torch.where(l == 0.0, 1.0, 1.0 / l)).to(q.dtype)
+    o = (o * torch.where(l == 0.0, 1.0, 1.0 / l)).to(q.dtype)
+    if residuals:
+        return o, l[..., 0], m[..., 0]
+    return o
+
+
+def mhsa_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid_mask: torch.Tensor, o: torch.Tensor, l: torch.Tensor,
+                   m: torch.Tensor, do: torch.Tensor, sm_scale: float):
+    """The library backward kernels' function in plain PyTorch -> (dq, dk,
+    dv) in q's type, from the forward's inputs, output o and residuals l, m
+    (B, H, T) float32 and the output gradient do.
+
+    As ``_flash_attention_bwd``: di = sum(o . do) in float32; p = exp(s -
+    m) * (1 / l); dv = p^T . do with p rounded to do's type; dp = do . v^T
+    in float32; ds = (dp - di) * p * sm_scale; dk = ds^T . q with ds rounded
+    to do's type (the dkv kernel); dq = ds . k with ds rounded to k's type
+    (the dq kernel); products accumulate in float32."""
+    di = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    s = _scores(q, k, valid_mask, sm_scale)
+    p = torch.exp(s - m[..., None]) * (1.0 / l[..., None])
+    dof = do.float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = (dp - di) * p * sm_scale
+    dk = torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), q.float())
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Segment-masked attention under autograd (counterpart of the library
+    kernel's custom VJP). Forward: the residual form (o, l, m); backward:
+    di, then dk and dv (the dkv kernel) and dq (the dq kernel). Kernels on
+    CUDA tensors unless ``use_kernel`` is False, plain versions otherwise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_mask, sm_scale: float, use_kernel: bool):
+        kernel = use_kernel and q.is_cuda
+        fwd = cuda_flash_attn.flash_attn_cuda if kernel else mhsa_plain
+        o, l, m = fwd(q, k, v, valid_mask, sm_scale, residuals=True)
+        ctx.save_for_backward(q, k, v, valid_mask, o, l, m)
+        ctx.sm_scale, ctx.kernel = sm_scale, kernel
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, valid_mask, o, l, m = ctx.saved_tensors
+        if not ctx.kernel:
+            dq, dk, dv = mhsa_bwd_plain(q, k, v, valid_mask, o, l, m, do,
+                                        ctx.sm_scale)
+            return dq, dk, dv, None, None, None
+        # outside the kernels, as the library computes it
+        di = (o.float() * do.float()).sum(dim=-1).contiguous()
+        args = (q, k, v, valid_mask, l, m, do, di, ctx.sm_scale)
+        dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
+        dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
+        return dq, dk, dv, None, None, None
 
 
 def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          valid_mask: torch.Tensor, sm_scale: float,
          use_kernel: bool = True) -> torch.Tensor:
-    """Masked MHSA: the kernel on CUDA tensors (unless ``use_kernel`` is
-    False), the plain version otherwise. Shapes as ``mhsa_plain``."""
+    """Masked MHSA: the kernels on CUDA tensors (unless ``use_kernel`` is
+    False), the plain versions otherwise; ``FlashAttention`` when a
+    gradient is wanted, the inference form otherwise. Shapes as
+    ``mhsa_plain``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, valid_mask, sm_scale, use_kernel)
     if use_kernel and q.is_cuda:
         return cuda_flash_attn.flash_attn_cuda(q, k, v, valid_mask, sm_scale)
     return mhsa_plain(q, k, v, valid_mask, sm_scale)

@@ -3,14 +3,21 @@ pg_asr_tpu/train.py).
 
 Epoch loop with per-epoch validation on dev.tsv, best/last checkpoints
 selected on validation loss, train_loss.npy / val_losses.npy, and resume
-from model_last. One step: features (no gradient) -> BiLSTM-CTC (dropout,
-LSTM kernels under autograd) -> CTC -> gradients -> clip by global norm ->
+from model_last (with the model family and its config from the
+checkpoint's config.json). One step: features (no gradient) -> a CTC
+family's model with dropout (BiLSTM-CTC: the LSTM kernels under autograd;
+transformer-CTC and conformer-CTC: with ``flash_attention`` the
+flash-attention kernels under autograd, with ``model.remat`` each block
+recomputed in the backward) -> CTC -> gradients -> clip by global norm ->
 AdamW, with optax's rules (``AdamW`` below). Parameters stay in the
-model's dtype, as the JAX package creates them; there is no master copy.
+model's dtype, as the JAX package creates them (LayerNorm params in
+float32); there is no master copy.
 
-Not ported (each refused with a message, ROADMAP.md): device meshes and
+Not ported (each refused with a message, ROADMAP.md): the transducer and
+seq2seq families, the switch-MoE transformer, device meshes and
 multi-host, gradient accumulation, EMA, keep_ckpts, save_every_steps,
-val_metric=cer, augmentation, init_from_torch, profiling.
+val_metric=cer, augmentation, init_from_torch, profiling, BPE units, the
+built-batch cache.
 """
 
 from __future__ import annotations
@@ -29,11 +36,32 @@ from .checkpoint import (BEST_NAME, LAST_NAME, checkpoint_path,
 from .config import Config
 from .data import BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
-from .models import acoustic_forward, check_family
-from .models.bilstm_ctc import init_params, torch_dtype
+from .models import (acoustic_forward, bilstm_ctc, cast_params,
+                     check_family, conformer_ctc, transformer_ctc)
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from .ops.features import extract_features
 from .utils.logging import StepLogger
+
+_MOE = ("the switch-MoE transformer (transformer.num_experts > 0, --model "
+        "moe; ROADMAP.md queue 1 item 14)")
+
+
+def init_model_params(cfg: Config, generator: torch.Generator,
+                      device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Family dispatch (the JAX package's ``init_model_params``): the
+    initial parameters of the configured CTC family, drawn on the CPU from
+    `generator`, then moved and cast."""
+    family = cfg.model.family
+    check_family(family)
+    if family == "transformer":
+        if cfg.transformer.num_experts > 0:
+            raise not_ported(_MOE)
+        return transformer_ctc.init_params(cfg.model, cfg.transformer,
+                                           generator, device)
+    if family == "conformer":
+        return conformer_ctc.init_params(cfg.model, cfg.conformer, generator,
+                                         device)
+    return bilstm_ctc.init_params(cfg.model, generator, device)
 
 
 def make_schedule(cfg: Config) -> Callable[[int], float]:
@@ -187,8 +215,10 @@ def batch_to_device(batch, device) -> tuple[torch.Tensor, ...]:
 def check_ported(cfg: Config, profile_steps: int = 0) -> None:
     """Refuse the training options that are not ported."""
     t = cfg.train
-    check_family(cfg.model.family, train=True)
+    check_family(cfg.model.family)
     refused = [
+        (cfg.model.family == "transformer" and cfg.transformer.num_experts > 0,
+         _MOE),
         (t.mesh_shape != () or t.mesh_axes != ("data",), "device meshes"),
         (t.accum_steps > 1, "--accum_steps > 1"),
         (t.ema_decay > 0.0, "--ema_decay (EMA of the parameters)"),
@@ -212,22 +242,31 @@ def _state(params, optimizer, step, epoch, best_val) -> dict:
 
 def train(corpus_path: str, model_path: str, config: Config | None = None,
           device: str = "cuda", profile_steps: int = 0) -> dict:
-    """Train a BiLSTM-CTC model on a corpus directory (train.tsv, dev.tsv,
-    clips/, alphabet.txt), resuming from a checkpoint in model_path if there
-    is one. Returns a summary dict with the loss curves."""
+    """Train a CTC-family model (BiLSTM, transformer or conformer) on a
+    corpus directory (train.tsv, dev.tsv, clips/, alphabet.txt), resuming
+    from a checkpoint in model_path if there is one. Returns a summary
+    dict with the loss curves."""
     cfg = config or Config()
     check_ported(cfg, profile_steps)
     dev = resolve_device(device)
 
-    # resuming keeps the architecture of the checkpoint's config.json
+    # resuming keeps the architecture of the checkpoint's config.json: a
+    # resume that omits --model (or names another family) must neither
+    # build a wrong model nor overwrite config.json with it
     has_ckpt = any(os.path.exists(os.path.join(model_path, n))
                    for n in (BEST_NAME, LAST_NAME))
     prev_cfg_path = os.path.join(model_path, "config.json")
     if has_ckpt and os.path.exists(prev_cfg_path):
         with open(prev_cfg_path) as fo:
             prev = Config.from_json(fo.read())
-        cfg = cfg.replace(model=prev.model, features=prev.features,
-                          text=prev.text)
+        if prev.model.family != cfg.model.family:
+            print(f"[train] resuming with model family "
+                  f"{prev.model.family!r} from the checkpoint's config.json "
+                  f"(requested {cfg.model.family!r} ignored)")
+        cfg = cfg.replace(model=prev.model, transformer=prev.transformer,
+                          conformer=prev.conformer,
+                          transducer=prev.transducer, seq2seq=prev.seq2seq,
+                          features=prev.features, text=prev.text)
         check_ported(cfg, profile_steps)
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
     if (cfg.model.vocab_size != alphabet.size
@@ -257,7 +296,7 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             "decay_steps": max(cfg.train.num_epochs * len(train_it),
                                cfg.train.warmup_steps + 1)}))
 
-    params = init_params(cfg.model, torch.Generator().manual_seed(
+    params = init_model_params(cfg, torch.Generator().manual_seed(
         cfg.train.seed), dev)
     optimizer = AdamW(cfg, params)
     generator = torch.Generator(device=dev).manual_seed(cfg.train.seed)
@@ -268,9 +307,9 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         which = "last" if os.path.exists(
             os.path.join(model_path, LAST_NAME)) else "best"
         state = load_checkpoint(checkpoint_path(model_path, which))
-        dtype = torch_dtype(cfg.model.dtype)
-        params = {k: v.to(device=dev, dtype=dtype)
-                  for k, v in state["params"].items()}
+        params = cast_params(state["params"],
+                             bilstm_ctc.torch_dtype(cfg.model.dtype),
+                             dev)
         optimizer.load_state_dict(state["opt_state"], dev)
         step = int(state["step"])
         start_epoch = int(state["epoch"]) + 1

@@ -396,3 +396,213 @@ def test_attention_model_kernel_matches_plain(cuda, family):
     assert cuda_flash_attn.LAUNCHES == before + 2
     assert olens.tolist() == [21, 9, 1] and torch.equal(omask, ref[1])
     torch.testing.assert_close(got, ref[0], rtol=0, atol=1e-4)
+
+
+# --- the flash-attention gradient: the residual form of csrc/flash_attn.cu
+# and csrc/flash_attn_bwd.cu (dkv, dq) vs ops/flash_attn.py's mhsa_plain
+# (residuals=True) and mhsa_bwd_plain. l rtol 1e-5 (a sum of up to T terms
+# in [0, 1], online against tile maxima), m atol 1e-5 (the same scores in
+# another summation order). The backward kernels get the plain forward's
+# residuals, so this holds them alone: float32 dq, dk, dv atol 2e-5 x
+# max|grad| (sums over T in another order); bfloat16 atol 2^-7 x max|grad|:
+# both round p and ds to bf16 at the same points, but from scores summed in
+# another order, so a rounding can land one ulp apart, and each output is
+# rounded to bf16 (two ulps of the largest value).
+
+FLASH_BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _flash_counts():
+    return (cuda_flash_attn.LAUNCHES, cuda_flash_attn.RES_LAUNCHES,
+            cuda_flash_attn.DKV_LAUNCHES, cuda_flash_attn.DQ_LAUNCHES)
+
+
+def _assert_rel(got, want, rel, what):
+    bound = rel * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert err <= bound, f"{what}: max abs err {err} > {bound}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+# T not a multiple of the 64-row tiles; the conformer's T'=201; one tile
+@pytest.mark.parametrize("B,H,T,fused", [(5, 2, 37, False), (3, 4, 130, True),
+                                         (4, 4, 201, True), (2, 1, 64, False)])
+def test_flash_attn_bwd_kernels_match_plain(cuda, B, H, T, dh, dtype, fused):
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, 3 * B + T + dh,
+                                fused)
+    scale = dh ** -0.5
+    c0 = _flash_counts()
+    o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
+                                              residuals=True)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (c0[0], c0[1] + 1, c0[2], c0[3])
+    r_o, r_l, r_m = flash_attn.mhsa_plain(q, k, v, valid, scale,
+                                          residuals=True)
+    assert l.dtype == m.dtype == torch.float32 and l.shape == (B, H, T)
+    # the residual form's o is the inference form's
+    torch.testing.assert_close(o, cuda_flash_attn.flash_attn_cuda(
+        q, k, v, valid, scale), rtol=0, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, r_m, rtol=0, atol=1e-5)
+
+    # do as autograd hands it over: a (B, H, T, dh) view of (B, T, H, dh)
+    rng = np.random.default_rng(T)
+    do = torch.from_numpy(rng.standard_normal((B, T, H, dh))).to(
+        cuda, dtype).transpose(1, 2)
+    di = (r_o.float() * do.float()).sum(-1).contiguous()
+    c1 = _flash_counts()
+    dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(q, k, v, valid, r_l, r_m,
+                                                     do, di, scale)
+    dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(q, k, v, valid, r_l, r_m, do,
+                                                di, scale)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (c1[0], c1[1], c1[2] + 1, c1[3] + 1)
+    want = flash_attn.mhsa_bwd_plain(q, k, v, valid, r_o, r_l, r_m, do,
+                                     scale)
+    # every row, padded queries and keys included
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(g, w, FLASH_BWD_REL[dtype], f"{name} {dtype} T={T}")
+
+
+@pytest.mark.cuda
+def test_flash_attn_bwd_launchers_reject_bad_inputs(cuda):
+    q, k, v, valid = _attn_case(cuda, 2, 2, 9, 32, torch.float32, 0)
+    ones = torch.ones(2, 2, 9, device=cuda)
+    before = _flash_counts()
+    for fn in (cuda_flash_attn.flash_attn_bwd_dkv_cuda,
+               cuda_flash_attn.flash_attn_bwd_dq_cuda):
+        with pytest.raises(ValueError, match="do must"):
+            fn(q, k, v, valid, ones, ones, q.double(), ones, 0.1)
+        with pytest.raises(ValueError, match="l must"):
+            fn(q, k, v, valid, ones[:, :, :5], ones, q, ones, 0.1)
+        with pytest.raises(ValueError, match="di must"):
+            fn(q, k, v, valid, ones, ones, q, ones.double(), 0.1)
+        with pytest.raises(ValueError, match="head dims"):
+            fn(q[..., :16], k[..., :16], v[..., :16], valid, ones, ones,
+               q[..., :16], ones, 0.1)
+    assert _flash_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_kernel_matches_plain(cuda, dtype):
+    """FlashAttention through ops/flash_attn.mhsa under autograd, q, k, v
+    views of one fused leaf: one residual forward, one dkv and one dq
+    launch; the leaf's gradient against the plain Function's."""
+    B, H, T, dh = 3, 4, 77, 64
+    rng = np.random.default_rng(5)
+    lens = torch.tensor([T, 40, 1], device=cuda)
+    valid = torch.arange(T, device=cuda)[None] < lens[:, None]
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, dh))).to(
+        cuda, dtype).requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal((B, H, T, dh))).to(cuda, dtype)
+    grads = {}
+    for use_kernel in (True, False):
+        c0 = _flash_counts()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = flash_attn.mhsa(q, k, v, valid, dh ** -0.5, use_kernel=use_kernel)
+        grads[use_kernel], = torch.autograd.grad((o.float() * w.float())
+                                                 .sum(), qkv)
+        torch.cuda.synchronize()
+        n = int(use_kernel)
+        assert _flash_counts() == (c0[0], c0[1] + n, c0[2] + n, c0[3] + n)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _assert_rel(grads[True][:, :, i], grads[False][:, :, i],
+                    FLASH_BWD_REL[dtype], f"{name} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["transformer", "conformer"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_attention_train_gradients_kernel_match_plain(cuda, family, remat):
+    """Loss and every parameter gradient of a small attention-family train
+    step with flash_attention on the card, kernels + F.ctc_loss vs the
+    plain attention + the plain CTC recursion, dropout 0: rtol 1e-3 and
+    atol 1e-4 x max|grad| (float32 sums in other orders through two blocks,
+    the head and two CTC implementations). Per step one residual forward,
+    one dkv and one dq launch per block; with remat the forward runs again
+    in the recompute."""
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         TransformerConfig)
+    from pg_asr_tpu_torch.train import init_model_params, loss_and_grads
+
+    kw = dict(num_layers=2, d_model=64, num_heads=2, ffn_dim=128,
+              dropout=0.0, flash_attention=True)
+    cfg = Config(model=ModelConfig(family=family, vocab_size=12, remat=remat),
+                 transformer=TransformerConfig(**kw),
+                 conformer=ConformerConfig(**kw))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(2)
+    ns = np.array([6400, 3000, 2000])
+    wave = (rng.standard_normal((3, 6400)) * 3000 * (np.arange(6400)[None]
+                                                     < ns[:, None]))
+    arrays = [torch.from_numpy(a).to(cuda) for a in (
+        wave.astype(np.int16), ns.astype(np.int32),
+        rng.integers(1, 12, (3, 6)).astype(np.int32),
+        np.array([6, 4, 0], np.int32))]
+    c0 = _flash_counts()
+    loss_k, g_k = loss_and_grads(params, arrays, cfg)
+    torch.cuda.synchronize()
+    fwd = 2 * (2 if remat else 1)
+    assert _flash_counts() == (c0[0], c0[1] + fwd, c0[2] + 2, c0[3] + 2)
+    loss_p, g_p = loss_and_grads(params, arrays, cfg, use_kernel=False)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-4, atol=1e-5)
+    for k in g_p:
+        torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-3,
+                                   atol=float(1e-4 * g_p[k].abs().max()))
+
+
+@pytest.mark.cuda
+def test_conformer_depthwise_conv_runs_in_full_float32(cuda):
+    """The conformer's depthwise conv, forward and backward, in float32 on
+    the card with cuDNN's TF32 allowed (its default) vs float64 on the CPU,
+    atol 1e-5 x max|ref|: float32 rounding over 15 taps is ~1e-7 relative,
+    TF32's 10-bit mantissa ~1e-3. The whole conv module (pointwise, GLU,
+    depthwise, LayerNorm, swish, pointwise), float32 on the card vs on the
+    CPU, at the same bound."""
+    from pg_asr_tpu_torch.config import ConformerConfig
+    from pg_asr_tpu_torch.models import conformer_ctc
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rng = np.random.default_rng(4)
+        x64 = torch.from_numpy(rng.standard_normal((4, 256, 215)))
+        w64 = torch.from_numpy(rng.standard_normal((256, 1, 15)))
+        gy64 = torch.from_numpy(rng.standard_normal((4, 256, 201)))
+        ref, got = [], []
+        for t, dev, dt in ((ref, "cpu", torch.float64),
+                           (got, cuda, torch.float32)):
+            x = x64.to(dev, dt).requires_grad_(True)
+            w = w64.to(dev, dt).requires_grad_(True)
+            y = conformer_ctc.DepthwiseConv.apply(x, w)
+            t.extend([y, *torch.autograd.grad(y, (x, w), gy64.to(dev, dt))])
+        for name, g, r in zip(("y", "dx", "dw"), got, ref):
+            _assert_rel(g.cpu().double(), r, 1e-5, f"depthwise conv {name}")
+
+        ccfg = ConformerConfig(d_model=256)
+        mcfg = ModelConfig(family="conformer", vocab_size=12)
+        params = conformer_ctc.init_params(mcfg, ccfg,
+                                           torch.Generator().manual_seed(0))
+        pre = "blocks.0"
+        names = [k for k in params if k.startswith(pre + ".conv")
+                 or k.startswith(pre + ".ln_mid")]
+        xin = torch.from_numpy(rng.standard_normal((4, 201, 256)).astype(
+            np.float32))
+        mask = (torch.arange(201)[None] < torch.tensor([201, 150, 77, 1])[
+            :, None]).float()
+        out = {}
+        for dev in ("cpu", cuda):
+            p = {k: params[k].to(dev).requires_grad_(True) for k in names}
+            x = xin.to(dev).requires_grad_(True)
+            y = conformer_ctc._conv_module(p, pre, x, mask.to(dev), 15)
+            gs = torch.autograd.grad(y.square().sum(), [x, *p.values()])
+            out[str(dev)] = [y, *gs]
+        for name, g, r in zip(["y", "dx", *names], out[str(cuda)],
+                              out["cpu"]):
+            _assert_rel(g.cpu(), r, 1e-5, f"conv module {name}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = old

@@ -378,7 +378,7 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
     (["--mesh", "data=2"], "mesh"),
     (["--profile_steps", "2"], "profile_steps"),
     (["--units", "bpe"], "BPE"),
-    (["--model", "conformer"], "conformer"),
+    (["--model", "transducer"], "transducer"),
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                                                       extra, message):
