@@ -37,6 +37,15 @@ the CPU or to a kernel's plain version):
      and ds must exceed the mean bound), CUDA-event times in turns, each
      kernel's bound, and the backward of F.scaled_dot_product_attention
      (its autograd.grad minus its forward) as the yardstick.
+  3e. fused RNN-T joint: joint_fwd and joint_bwd vs their plain versions
+     (ops/joint.fused_joint_plain, fused_joint_bwd_plain) at the
+     transducer's train shape at B=64 x 5 s (T'=201, U+1=61, J=256, A=28),
+     float32 and bfloat16 inputs, ragged frame and label lengths, random
+     cotangents on the cells the loss reads: errors against stated bounds
+     (the tables absolute, the gradients relative to max|grad|), the
+     backward run twice with equal bits, CUDA-event times in turns, each
+     kernel's bound, and the port's unfused composition (forward, forward
+     + backward) as the yardstick.
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
@@ -77,6 +86,19 @@ the CPU or to a kernel's plain version):
      same gradients as without remat at dropout 0.1); the train step at
      B=64 x 5 s in float32 and bfloat16, flash_attention on and off in
      turns, with a profiler breakdown by kernel group.
+  9. transducer training slice: the RNN-T at full default width (conformer encoder, 6 blocks, d_model 256,
+     flash_attention; prediction net 128/256, joint 256, vocab 28, random
+     weights from a seed): one epoch through the CLI (`--mode train --model
+     transducer --flash_attention`, the default unfused joint: no joint
+     launch), one through train(config=...) with fused_joint (exactly one
+     joint_fwd and one joint_bwd launch per step, one joint_fwd per dev
+     batch), a CLI resume that keeps fused_joint from config.json, `--mode
+     predict` refused as not yet ported; one batch's loss and every
+     gradient, kernel vs plain path (dropout 0); one kernel-path step with
+     the BiLSTM and the transformer encoders; the train step at B=64 x 5 s,
+     fused and unfused joint in turns, float32 and bfloat16, with a
+     profiler breakdown (the joint kernels a group of their own) and the
+     lattice loss timed alone.
   8. prints a JSON line of kernel results, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -180,6 +202,24 @@ FLASH_L_REL, FLASH_M_ABS = 1e-5, 1e-5
 # checks that the control exceeds it.
 FLASH_BWD_BOUNDS = {"float32": {"max": 2e-5, "mean": 2e-7},
                     "bfloat16": {"max": 2.0 ** -7, "mean": 1e-6}}
+# the transducer's joint at B=64 x 5 s: T'=201 frames, labels of 60
+# symbols, the default joint_dim 256 and vocab 28
+JOINT_U, JOINT_J, JOINT_A = 60, 256, 28
+# joint_fwd / joint_bwd vs their plain versions. Both compute in float32
+# whatever the inputs' type (bf16 inputs widen exactly), so the tables
+# differ only by float32 summation order (the head's 256 products: the
+# kernel sums them in order, the plain version through cuBLAS) and the
+# expf/logf/tanhf of nvcc vs torch: max 2e-5, mean 1e-6 absolute (log-probs
+# of magnitude ~3). The gradients, relative to max|grad| of each: float32
+# by summation order over up to B*T'*(U+1) = 784 704 cells (dW, db), max
+# 2e-5, mean 1e-6; bfloat16: each is a float32 sum rounded once to bf16 in
+# both, so the two may round one ulp apart, which relative to the largest
+# value is at most 2^-7; such splits are rare, mean 1e-4.
+JOINT_BOUNDS = {
+    "float32": {"lp_max": 2e-5, "lp_mean": 1e-6, "grad_max": 2e-5,
+                "grad_mean": 1e-6},
+    "bfloat16": {"lp_max": 2e-5, "lp_mean": 1e-6, "grad_max": 2.0 ** -7,
+                 "grad_mean": 1e-4}}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -753,6 +793,158 @@ def phase_flash_bwd(dev):
     return cases
 
 
+def joint_inputs(dev, dtype):
+    """The fused joint's inputs at the transducer's train shape (B=64 x 5
+    s: T'=201 frames, labels of 60 symbols, J=256, A=28) from a seed: e and
+    g as the projections hand them over (~N(0, 1/4)), W Xavier-normal, a
+    small bias; ragged frame and label lengths (the full lengths and 1
+    among them), labels 0-padded; cotangents gb, gy ~ N(0, 1) on the cells
+    the loss reads and 0 elsewhere, as the lattice loss gives them. ->
+    (e, g, W, b, labels), gb, gy, (frame_lens, label_lens)"""
+    import torch
+
+    g_ = torch.Generator().manual_seed(SEED)
+    U, A, J = JOINT_U, JOINT_A, JOINT_J
+    e = torch.randn(B, ATTN_T, J, generator=g_) * 0.5
+    g = torch.randn(B, U + 1, J, generator=g_) * 0.5
+    W = torch.randn(J, A, generator=g_) * (2.0 / (J + A)) ** 0.5
+    b = torch.randn(A, generator=g_) * 0.1
+    fl = torch.randint(1, ATTN_T + 1, (B,), generator=g_)
+    ll = torch.randint(1, U + 1, (B,), generator=g_)
+    fl[0], fl[1], ll[0], ll[1] = ATTN_T, 1, U, 1
+    labels = torch.randint(1, A, (B, U), generator=g_)
+    labels[torch.arange(U)[None] >= ll[:, None]] = 0
+    t_ok = torch.arange(ATTN_T)[None, :, None] < fl[:, None, None]
+    u_ok = torch.arange(U + 1)[None, None, :] <= ll[:, None, None]
+    gb = torch.randn(B, ATTN_T, U + 1, generator=g_) * (t_ok & u_ok)
+    gy = torch.randn(B, ATTN_T, U, generator=g_) * (t_ok & u_ok)[..., :U]
+    args = tuple(t.to(dev, dtype) for t in (e, g, W, b)) + (labels.to(dev),)
+    return args, gb.to(dev), gy.to(dev), (fl, ll)
+
+
+def unfused_joint(e, g, W, b, labels):
+    """The port's unfused composition at the inputs' dtype (the default
+    path, fused_joint False): the (B, T, U+1, J) tanh, the head, then
+    joint_log_probs in float32."""
+    import torch
+
+    from pg_asr_tpu_torch.ops.transducer import joint_log_probs
+
+    return joint_log_probs(torch.tanh(e[:, :, None] + g[:, None]) @ W + b,
+                           labels)
+
+
+def phase_joint(dev):
+    """joint_fwd and joint_bwd vs their plain versions at the transducer's
+    train shape, float32 and bfloat16: errors against stated bounds,
+    CUDA-event times in turns, each kernel's bound, and the port's unfused
+    composition (forward, forward + backward) as the yardstick."""
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_joint
+    from pg_asr_tpu_torch.ops.joint import (fused_joint_bwd_plain,
+                                            fused_joint_plain)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        args, gb, gy, (fl, ll) = joint_inputs(dev, dtype)
+        U, A, J = JOINT_U, JOINT_A, JOINT_J
+        s = args[0].element_size()
+        lpb, lpy = cuda_joint.joint_fwd_cuda(*args)
+        rb, ry = fused_joint_plain(*args)
+        grads = cuda_joint.joint_bwd_cuda(*args, gb, gy)
+        want = fused_joint_bwd_plain(*args, gb, gy)
+        torch.cuda.synchronize()
+        check(lpb.dtype == lpy.dtype == torch.float32
+              and lpb.shape == (B, ATTN_T, U + 1)
+              and lpy.shape == (B, ATTN_T, U), "joint_fwd dtype/shape")
+        check(all(g.dtype == dtype for g in grads), "joint_bwd dtypes")
+        check(all(torch.equal(g, a) for g, a in zip(
+            grads, cuda_joint.joint_bwd_cuda(*args, gb, gy))),
+            "joint_bwd is not deterministic")
+        lp_err = {"lp_blank": _errs(lpb, rb), "lp_label": _errs(lpy, ry)}
+        g_err = {n: _rel_errs(g, w) for n, g, w in
+                 zip(("de", "dg", "dW", "db"), grads, want)}
+        bd = JOINT_BOUNDS[name]
+        # the work: per lattice cell J adds and J tanh (one operation
+        # each), the head's J x A multiply-adds (2 flops each) and ~4 A for
+        # the log-sum-exp; the backward recomputes the head and adds the
+        # products dz . W^T and h^T dz, ~7 J elementwise ops and ~8 A.
+        # Float32 math on CUDA cores in both types: the float32 peak.
+        # Bytes: each input read once, each output written once (the
+        # backward's scratch is not the function's)
+        cells = B * ATTN_T * (U + 1)
+        f_fwd = cells * (2 * J * A + 2 * J + 4 * A)
+        f_bwd = cells * (3 * 2 * J * A + 7 * J + 8 * A)
+        ins = (B * ATTN_T * J + B * (U + 1) * J + J * A + A) * s + B * U * 4
+        outs = B * ATTN_T * (2 * U + 1) * 4
+        b_fwd = bound_ms(f_fwd, ins + outs, "float32")
+        b_bwd = bound_ms(f_bwd, ins + outs + ins - B * U * 4, "float32")
+        fwd_ms, fwd_plain = in_turns(
+            lambda: fused_joint_plain(*args),
+            lambda: cuda_joint.joint_fwd_cuda(*args), 3, 20)
+        bwd_ms, bwd_plain = in_turns(
+            lambda: fused_joint_bwd_plain(*args, gb, gy),
+            lambda: cuda_joint.joint_bwd_cuda(*args, gb, gy), 3, 20)
+
+        # the yardstick: the port's unfused composition in this dtype
+        leaves = [a.detach().requires_grad_(True) for a in args[:4]]
+
+        def unfused_train():
+            lb, ly = unfused_joint(*leaves, args[4])
+            torch.autograd.grad((lb * gb).sum() + (ly * gy).sum(), leaves)
+
+        def fused_train():
+            cuda_joint.joint_fwd_cuda(*args)
+            cuda_joint.joint_bwd_cuda(*args, gb, gy)
+
+        with torch.no_grad():
+            unf_ms = time_ms(lambda: unfused_joint(*args), 10)
+        unf_train_ms, fused_train_ms = in_turns(unfused_train, fused_train,
+                                                5, 5)
+        ub, uy = unfused_joint(*args)
+        unf_err = max(_errs(ub, rb)[0], _errs(uy, ry)[0])
+        case = {"dtype": name, "B": B, "T": ATTN_T, "U": U, "J": J, "A": A,
+                "cells": cells, "valid_cells": int(
+                    (fl * (ll + 1)).sum()), "lp_errors": lp_err,
+                "grad_errors_rel_to_max": g_err, "bound": bd,
+                "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
+                "fwd_bound_ms": b_fwd[0], "fwd_bound_by": b_fwd[1],
+                "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain,
+                "bwd_bound_ms": b_bwd[0], "bwd_bound_by": b_bwd[1],
+                "fwd_gflop": f_fwd / 1e9, "bwd_gflop": f_bwd / 1e9,
+                "unfused_fwd_ms": unf_ms,
+                "unfused_fwd_bwd_ms": unf_train_ms,
+                "fused_fwd_bwd_ms": fused_train_ms,
+                "unfused_max_abs_err_to_plain": unf_err}
+        cases.append(case)
+        print(f"[kernel] joint_fwd B={B} T'={ATTN_T} U+1={U + 1} J={J} "
+              f"A={A} {name}: " + ", ".join(
+                  f"{k} max {v[0]:.2e} mean {v[1]:.2e}" for k, v in
+                  lp_err.items())
+              + f" (bounds {bd['lp_max']:.0e} / {bd['lp_mean']:.0e}); "
+              f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
+              f"{b_fwd[0]:.4f} ms ({b_fwd[1]}, {f_fwd / 1e9:.2f} GFLOP); "
+              f"unfused composition ({name}) {unf_ms:.4f} ms (max diff to "
+              f"plain {unf_err:.1e})")
+        print(f"[kernel] joint_bwd {name}: max/mean abs err rel to "
+              f"max|grad| " + ", ".join(
+                  f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in g_err.items())
+              + f" (bounds {bd['grad_max']:.1e}/{bd['grad_mean']:.0e}); "
+              f"kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+              f"{b_bwd[0]:.4f} ms ({b_bwd[1]}, {f_bwd / 1e9:.2f} GFLOP); "
+              f"forward + backward: fused kernels {fused_train_ms:.4f} ms, "
+              f"unfused composition {unf_train_ms:.4f} ms")
+        for k, (mx, mean) in lp_err.items():
+            check(mx <= bd["lp_max"] and mean <= bd["lp_mean"],
+                  f"joint_fwd {name}: {k} max {mx}, mean {mean} > {bd}")
+        for k, (mx, mean) in g_err.items():
+            check(mx <= bd["grad_max"] and mean <= bd["grad_mean"],
+                  f"joint_bwd {name}: {k} max {mx}, mean {mean} > {bd}")
+    return cases
+
+
 def make_corpus(d):
     from pg_asr_tpu_torch.data import make_synthetic_corpus
 
@@ -1161,11 +1353,12 @@ def flash_counts() -> dict:
 def reset_counts() -> None:
     from pg_asr_tpu_torch.decoding import cuda_beam
     from pg_asr_tpu_torch.ops import cuda_flash_attn as c
-    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops import cuda_joint, cuda_lstm
 
     c.LAUNCHES = c.RES_LAUNCHES = c.DKV_LAUNCHES = c.DQ_LAUNCHES = 0
     cuda_lstm.LAUNCHES = cuda_lstm.RES_LAUNCHES = cuda_lstm.BWD_LAUNCHES = 0
     cuda_beam.LAUNCHES = 0
+    cuda_joint.FWD_LAUNCHES = cuda_joint.BWD_LAUNCHES = 0
 
 
 def phase_attention_train(dev, corpus, alphabet, d, family):
@@ -1340,12 +1533,289 @@ def phase_attention_train(dev, corpus, alphabet, d, family):
             "step_ms": step_ms, "device_ms": breakdown}
 
 
+def joint_counts() -> dict:
+    from pg_asr_tpu_torch.ops import cuda_joint as j
+
+    return {"joint_fwd": j.FWD_LAUNCHES, "joint_bwd": j.BWD_LAUNCHES}
+
+
+def load_trained(model_dir, dev, dtype=None, **changes):
+    """A trained model's params (LayerNorm float32) and config, with the
+    compute dtype and any config sections replaced by `changes`."""
+    import dataclasses
+
+    from pg_asr_tpu_torch.checkpoint import checkpoint_path, load_checkpoint
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.models import cast_params
+    from pg_asr_tpu_torch.models.bilstm_ctc import torch_dtype
+
+    with open(os.path.join(model_dir, "config.json")) as fo:
+        cfg = Config.from_json(fo.read())
+    if dtype:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=dtype))
+    cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                         for k, v in changes.items()})
+    state = load_checkpoint(checkpoint_path(model_dir, "last"))["params"]
+    return cast_params(state, torch_dtype(cfg.model.dtype), dev), cfg
+
+
+def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
+    """Training the RNN-T transducer at full default width (conformer
+    encoder, 6 blocks, d_model 256, flash_attention; prediction net
+    128/256, joint 256): the CLI (unfused joint: no joint launch), then
+    train(config=...) with fused_joint (one joint_fwd and one joint_bwd
+    per step, one joint_fwd per dev batch), a CLI resume that keeps it,
+    predict refused; kernel vs plain gradients; one step with the BiLSTM
+    and the transformer encoders; the train step at B=64 x 5 s fused and
+    unfused, float32 and bfloat16, in turns, with a device breakdown and
+    the lattice loss timed alone."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         ModelConfig, TrainConfig,
+                                         TransducerConfig, TransformerConfig)
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.models import transducer
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops.transducer import transducer_loss_mean
+    from pg_asr_tpu_torch.train import (AdamW, batch_to_device,
+                                        init_model_params, loss_and_grads,
+                                        train)
+
+    bs = 32  # the CLI's default
+    clips = os.path.join(corpus, "clips")
+    train_utts = load_manifest(os.path.join(corpus, "train.tsv"), clips)
+    n_dev = -(-len(load_manifest(os.path.join(corpus, "dev.tsv"), clips))
+              // bs)
+    steps = -(-len(train_utts) // bs)
+    per = 6  # conformer blocks of the default width
+    flash_want = {"flash_attn": per * n_dev, "flash_attn_residual": per * steps,
+                  "flash_attn_bwd_dkv": per * steps,
+                  "flash_attn_bwd_dq": per * steps}
+
+    def no_lstm_or_beam():
+        return (cuda_lstm.LAUNCHES + cuda_lstm.RES_LAUNCHES
+                + cuda_lstm.BWD_LAUNCHES + cuda_beam.LAUNCHES) == 0
+
+    def check_run(tag, model_dir, n_epochs, joint_want):
+        got = {**flash_counts(), **joint_counts()}
+        want = {**flash_want, **joint_want}
+        check(got == want and no_lstm_or_beam(),
+              f"transducer {tag}: launches {got}, expected {want} and no "
+              "lstm or beam launch")
+        for name in ("model_best.pt", "model_last.pt", "config.json"):
+            check(os.path.exists(os.path.join(model_dir, name)),
+                  f"transducer {tag}: no {name}")
+        tl = np.load(os.path.join(model_dir, "train_loss.npy"))
+        vl = np.load(os.path.join(model_dir, "val_losses.npy"))
+        check(tl.shape == vl.shape == (n_epochs,) and np.isfinite(tl).all()
+              and np.isfinite(vl).all(), f"transducer {tag}: losses {tl} {vl}")
+        return got, tl.tolist(), vl.tolist()
+
+    counts, losses = {}, {}
+    # 1. the CLI: the default unfused joint
+    cli_dir = os.path.join(d, "transducer_cli")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, _ = run_cli(["--mode", "train", "--corpus_path", corpus,
+                     "--model_path", cli_dir, "--device", str(dev), "--seed",
+                     str(SEED), "--num_epochs", "1", "--model", "transducer",
+                     "--flash_attention"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, "transducer CLI train failed")
+    counts["cli_unfused"], tl, vl = check_run(
+        "CLI epoch (unfused)", cli_dir, 1, {"joint_fwd": 0, "joint_bwd": 0})
+    print(f"[transducer train] CLI epoch (fused_joint false): {wall:.2f} s "
+          f"(host clock, includes WAV decode); {steps} steps of <= {bs} + "
+          f"{n_dev} dev batches; launches {counts['cli_unfused']}; train "
+          f"loss {tl}, val loss {vl}")
+
+    # 2. train(config=...) with fused_joint, then 3. a CLI resume
+    fused_dir = os.path.join(d, "transducer_fused")
+    cfg = Config(model=ModelConfig(family="transducer",
+                                   vocab_size=alphabet.size),
+                 conformer=ConformerConfig(flash_attention=True),
+                 transducer=TransducerConfig(fused_joint=True),
+                 train=TrainConfig(num_epochs=1, seed=SEED))
+    joint_want = {"joint_fwd": steps + n_dev, "joint_bwd": steps}
+    reset_counts()
+    t0 = time.perf_counter()
+    train(corpus, fused_dir, config=cfg, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["train_fused"], tl, vl = check_run("train(config=...) epoch",
+                                              fused_dir, 1, joint_want)
+    print(f"[transducer train] train(config=...) epoch, fused_joint true: "
+          f"{wall:.2f} s; launches {counts['train_fused']}; train loss {tl}, "
+          f"val loss {vl}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "train", "--corpus_path", corpus,
+                       "--model_path", fused_dir, "--device", str(dev),
+                       "--num_epochs", "2"])
+    check(rc == 0 and "resumed from epoch 1" in out
+          and "resuming with model family 'transducer'" in out,
+          "transducer: the CLI resume failed")
+    counts["resume_fused"], tl, vl = check_run("resumed epoch", fused_dir,
+                                               2, joint_want)
+    with open(os.path.join(fused_dir, "config.json")) as fo:
+        saved = json.load(fo)
+    check(saved["transducer"]["fused_joint"] is True
+          and saved["conformer"]["flash_attention"] is True,
+          "transducer: the resume lost fused_joint or flash_attention")
+    losses.update(train_losses=tl, val_losses=vl)
+    print(f"[transducer train] resumed epoch 2 (CLI, no --model): launches "
+          f"{counts['resume_fused']}; train losses {tl}, val losses {vl}")
+
+    # 4. predict on the trained transducer is refused
+    reset_counts()
+    try:
+        run_cli(["--mode", "predict", "--corpus_path", corpus,
+                 "--model_path", fused_dir, "--device", str(dev)])
+        refused = ""
+    except SystemExit as e:
+        refused = str(e)
+    check("not yet ported" in refused and "queue 1 item 3" in refused
+          and not os.path.exists(os.path.join(fused_dir, "predicted.txt")),
+          f"transducer predict was not refused: {refused!r}")
+    print(f"[transducer train] --mode predict refused: {refused}")
+
+    # 5. one batch: loss and every parameter gradient, kernel vs plain path
+    params, cfg0 = load_trained(fused_dir, dev, model={"dropout": 0.0},
+                                conformer={"dropout": 0.0})
+    batch = next(iter(BatchIterator(train_utts, alphabet, bs,
+                                    shuffle=False)))
+    arrays = batch_to_device(batch, dev)
+    reset_counts()
+    loss_k, g_k = loss_and_grads(params, arrays, cfg0)
+    torch.cuda.synchronize()
+    counts["step"] = {**flash_counts(), **joint_counts()}
+    loss_p, g_p = loss_and_grads(params, arrays, cfg0, use_kernel=False)
+    torch.cuda.synchronize()
+    check(counts["step"] == {**{k: per for k in flash_want}, "flash_attn": 0,
+                             "joint_fwd": 1, "joint_bwd": 1},
+          f"transducer step launches {counts['step']}")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                    / g_p[k].abs().max()).item() for k in g_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[transducer train] one batch {tuple(batch.wave.shape)}, kernel "
+          f"vs plain path (float32, dropout 0): loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {loss_rel:.2e}, bound "
+          f"{TRAIN_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+          f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+          f"{TRAIN_GRAD_REL:.0e})")
+    check(math.isfinite(loss_k.item()) and loss_rel <= TRAIN_LOSS_REL,
+          f"transducer loss disagrees: {loss_k.item()} vs {loss_p.item()}")
+    check(all(math.isfinite(v) and v <= TRAIN_GRAD_REL
+              for v in grad_rel.values()),
+          f"transducer gradients disagree: {grad_rel}")
+
+    # 6. one kernel-path step with the BiLSTM and the transformer encoders
+    want_by_enc = {
+        "bilstm": {"lstm_fwd_residual": 6, "lstm_bwd": 6},
+        "transformer": {"flash_attn_residual": 6, "flash_attn_bwd_dkv": 6,
+                        "flash_attn_bwd_dq": 6}}
+    for enc, want in want_by_enc.items():
+        c = Config(model=ModelConfig(family="transducer",
+                                     vocab_size=alphabet.size),
+                   transformer=TransformerConfig(flash_attention=True),
+                   transducer=TransducerConfig(encoder=enc,
+                                               fused_joint=True))
+        p = init_model_params(c, torch.Generator().manual_seed(SEED), dev)
+        reset_counts()
+        loss, g = loss_and_grads(p, arrays, c, torch.Generator(
+            device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        got = {**{k: v for k, v in flash_counts().items() if v},
+               **{k: v for k, v in (("lstm_fwd_residual",
+                                     cuda_lstm.RES_LAUNCHES),
+                                    ("lstm_bwd", cuda_lstm.BWD_LAUNCHES),
+                                    ("lstm_fwd", cuda_lstm.LAUNCHES)) if v},
+               **joint_counts()}
+        counts[f"step_{enc}"] = got
+        print(f"[transducer train] one step, {enc} encoder (default width, "
+              f"dropout on): loss {loss.item():.4f}, launches {got}")
+        check(math.isfinite(loss.item()) and all(
+            bool(torch.isfinite(v).all()) for v in g.values()),
+            f"transducer {enc}: non-finite loss or gradient")
+        check(got == {**want, "joint_fwd": 1, "joint_bwd": 1},
+              f"transducer {enc} step launches {got}")
+
+    # 7. the train step at B=64 x 5 s, fused and unfused in turns
+    arrays64 = flagship_batch(dev, vocab=alphabet.size)
+    step_ms, breakdown = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        run = {}
+        for fused in (True, False):
+            p_d, c_d = load_trained(fused_dir, dev, dtype,
+                                    transducer={"fused_joint": fused})
+            opt = AdamW(c_d, p_d)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+
+            def step(p_d=p_d, c_d=c_d, opt=opt, gen=gen):
+                _, grads = loss_and_grads(p_d, arrays64, c_d, gen)
+                opt.update(p_d, grads)
+
+            run[fused] = step
+        torch.cuda.reset_peak_memory_stats()
+        ms = dict(zip((True, False), in_turns(run[False], run[True], 3, 3)))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for fused in (True, False):
+            key = f"{dtype}_{'fused' if fused else 'unfused'}"
+            step_ms[key] = ms[fused]
+            breakdown[key] = device_breakdown(run[fused])
+            busy = sum(breakdown[key].values())
+            kern = ""
+            if fused:
+                jk = next(c for c in joint_cases if c["dtype"] == dtype)
+                jms = jk["fwd_ms"] + jk["bwd_ms"]
+                kern = (f"; joint_fwd + joint_bwd at phase 3e's times "
+                        f"{jms:.2f} ms ({jms / ms[fused]:.0%})")
+            print(f"[transducer train] step B={B} x 5 s (T'={ATTN_T}, "
+                  f"labels 60), {dtype}, fused_joint {fused}: "
+                  f"{ms[fused]:.2f} ms (in turns); device time per step "
+                  f"{busy:.2f} ms: " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in breakdown[key].items())
+                  + f"; device idle {max(0.0, 1 - busy / ms[fused]):.0%}"
+                  + kern)
+        print(f"[transducer train] {dtype}: peak device memory over both "
+              f"steps {peak_gb:.2f} GB")
+
+    # the lattice loss alone, forward + backward, on the step's tables
+    p_d, c_d = load_trained(fused_dir, dev, "float32")
+    with torch.no_grad():
+        from pg_asr_tpu_torch.ops.features import extract_features
+
+        feats, mask, flens = extract_features(*arrays64[:2], c_d.features)
+        out = transducer.apply_lattice(p_d, feats, mask, flens,
+                                       *arrays64[2:], c_d)
+    lb, ly = (t.detach().requires_grad_(True) for t in out[:2])
+
+    def lattice_loss():
+        loss = transducer_loss_mean(lb, ly, out[2], arrays64[3])
+        torch.autograd.grad(loss, (lb, ly))
+
+    loss_ms = time_ms(lattice_loss, 5)
+    loss_dev = sum(device_breakdown(lattice_loss).values())
+    print(f"[transducer train] lattice loss alone (T'+U = {ATTN_T + 60} "
+          f"diagonals), forward + backward: {loss_ms:.2f} ms, device time "
+          f"{loss_dev:.2f} ms")
+    return {"launches": counts, "losses": losses, "loss_rel": loss_rel,
+            "worst_grad_rel": grad_rel[worst], "step_ms": step_ms,
+            "device_ms": breakdown, "lattice_loss_ms": loss_ms,
+            "lattice_loss_device_ms": loss_dev}
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
     """Kernel time per call of fn on the card, by group, from a
     torch.profiler trace of `reps` calls: flash_attn (the forward in either
-    form), flash_bwd (dkv and dq), GEMMs, convolutions (the STFT and the
-    depthwise conv), LayerNorm, and the rest (elementwise, softmax, copies,
-    the CTC loss, the optimizer)."""
+    form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and its
+    reduction passes), GEMMs, convolutions (the STFT and the depthwise
+    conv), LayerNorm, and the rest (elementwise, softmax, copies, the CTC
+    and lattice losses, the optimizer)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1355,8 +1825,8 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    groups = dict.fromkeys(("flash_attn", "flash_bwd", "gemm", "conv",
-                            "layer_norm", "other"), 0.0)
+    groups = dict.fromkeys(("flash_attn", "flash_bwd", "joint", "gemm",
+                            "conv", "layer_norm", "other"), 0.0)
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -1364,6 +1834,7 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         # a convolution first: cuDNN names some of its kernels "...gemm"
         group = ("flash_bwd" if "flash_attn_bwd" in name else
                  "flash_attn" if "flash_attn" in name else
+                 "joint" if "joint_" in name else
                  "conv" if "conv" in name else
                  "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
                  else "layer_norm" if "layer_norm" in name else "other")
@@ -1373,7 +1844,7 @@ def device_breakdown(fn, reps: int = 3) -> dict:
 
 
 def kernels_line(cases, lib, predict_launches, train_counts, attention,
-                 attention_train):
+                 attention_train, tr):
     def head(rows):
         return next(c for c in rows if c["dtype"] == "float32"
                     and not c["reverse"])
@@ -1390,6 +1861,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
                 for path, n in r["launches"].items()}
 
     conformer_epoch = attention_train["conformer"]["launches"]["epoch1"]
+    jf = next(c for c in cases["joint"] if c["dtype"] == "float32")
     return [{
         "name": "lstm_fwd", "route": "cuda", "source": src + "lstm_fwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:80",
@@ -1496,6 +1968,42 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
         "library_note": "the backward of F.scaled_dot_product_attention "
                         "(dq, dk and dv together); plain_ms is "
                         "mhsa_bwd_plain, all three",
+    }, {
+        "name": "joint_fwd", "route": "cuda", "source": src + "joint_fwd.cu",
+        "replaces": "pg_asr_tpu/ops/pallas_joint.py:69",
+        "launches": tr["launches"]["train_fused"]["joint_fwd"],
+        "launches_by_path": {path: n["joint_fwd"] for path, n in
+                             tr["launches"].items()},
+        "max_abs_err": max(v[0] for c in cases["joint"]
+                           for v in c["lp_errors"].values()),
+        "ms": jf["fwd_ms"], "plain_ms": jf["fwd_plain_ms"],
+        "bound_ms": jf["fwd_bound_ms"], "bound_by": jf["fwd_bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused joint; "
+                        "unfused_ms is the port's unfused composition (the "
+                        "4-D tanh, the head, joint_log_probs)",
+        "unfused_ms": jf["unfused_fwd_ms"], "cases": cases["joint"],
+        "models": {"transducer": tr},
+    }, {
+        "name": "joint_bwd", "route": "cuda", "source": src + "joint_bwd.cu",
+        "replaces": "pg_asr_tpu/ops/pallas_joint.py:92",
+        "launches": tr["launches"]["train_fused"]["joint_bwd"],
+        "launches_by_path": {path: n["joint_bwd"] for path, n in
+                             tr["launches"].items()},
+        "max_abs_err": max(c["grad_errors_rel_to_max"][n][0]
+                           for c in cases["joint"] for n in
+                           ("de", "dg", "dW", "db")
+                           if c["dtype"] == "float32"),
+        "max_abs_err_note": "relative to max|grad|, float32",
+        "ms": jf["bwd_ms"], "plain_ms": jf["bwd_plain_ms"],
+        "bound_ms": jf["bwd_bound_ms"], "bound_by": jf["bwd_bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused joint's "
+                        "gradient; unfused_fwd_bwd_ms is the unfused "
+                        "composition forward + backward, fused_fwd_bwd_ms "
+                        "joint_fwd + joint_bwd",
+        "unfused_fwd_bwd_ms": jf["unfused_fwd_bwd_ms"],
+        "fused_fwd_bwd_ms": jf["fused_fwd_bwd_ms"],
     }]
 
 
@@ -1506,6 +2014,7 @@ def main() -> int:
     cases["beam"] = phase_beam(dev)
     cases["flash"] = phase_flash(dev)
     cases["flash_bwd"] = phase_flash_bwd(dev)
+    cases["joint"] = phase_joint(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
@@ -1517,6 +2026,7 @@ def main() -> int:
         attention_train = {family: phase_attention_train(dev, corpus,
                                                          alphabet, d, family)
                            for family in ("conformer", "transformer")}
+        tr = phase_transducer_train(dev, corpus, alphabet, d, cases["joint"])
 
     import torch
 
@@ -1525,7 +2035,7 @@ def main() -> int:
     check(not bad, f"the port imported {bad}")
     print(json.dumps({"kernels": kernels_line(cases, lib, predict_launches,
                                               train_counts, attention,
-                                              attention_train)}))
+                                              attention_train, tr)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Command-line interface of the port (counterpart of pg_asr_tpu/cli.py).
 
     python -m pg_asr_tpu_torch --mode train --corpus_path C --model_path M \\
-        [--model ctc|transformer|conformer] [--flash_attention] [--remat] \\
+        [--model ctc|transformer|conformer|transducer] [--flash_attention] \\
+        [--remat] [--transducer_encoder bilstm|transformer|conformer] \\
+        [--transducer_ctc_weight W] \\
         [--num_epochs N] [--batch_size N] [--learning_rate X] \\
         [--lr_schedule warmup_constant|warmup_cosine] [--dtype float32|bfloat16] \\
         [--seed S] [--device cuda|cuda:N|cpu]
@@ -13,10 +15,12 @@ The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
 is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so (the transducer, seq2seq and MoE models
-among them). ``--mode predict`` takes the model family and
-``flash_attention`` from the model's config.json, as the JAX CLI does; a
-train run that resumes takes the family and its config from there too.
+exit with a message that says so (the seq2seq and MoE models, and
+``--mode predict`` of a transducer, among them). ``--mode predict`` takes
+the model family and ``flash_attention`` from the model's config.json, as
+the JAX CLI does; a train run that resumes takes the family and its config
+from there too (the transducer's ``fused_joint`` included: no flag sets
+it, as in the JAX CLI; ``train.train(config=...)`` or a config.json does).
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
         description="PyTorch/CUDA port of pg_asr_tpu (train and predict of "
-                    "the BiLSTM-CTC, transformer-CTC and conformer-CTC so "
-                    "far)")
+                    "the BiLSTM-CTC, transformer-CTC and conformer-CTC, and "
+                    "train of the RNN-T transducer, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -62,6 +66,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default=None,
                    choices=["ctc", "transformer", "conformer", "transducer",
                             "seq2seq", "moe"])
+    p.add_argument("--transducer_encoder", type=str, default=None,
+                   choices=["bilstm", "transformer", "conformer"],
+                   help="transducer family: encoder backbone "
+                        "(default conformer)")
+    p.add_argument("--transducer_ctc_weight", type=float, default=None,
+                   help="transducer family: hybrid training with an "
+                        "auxiliary CTC head, L = L_rnnt + w * L_ctc "
+                        "(0 = off)")
     p.add_argument("--flash_attention", action="store_true",
                    help="train, transformer/conformer: attention through "
                         "the hand-written flash-attention kernel on CUDA "
@@ -139,6 +151,12 @@ def train_config(args) -> Config:
         cfg = cfg.replace(
             transformer=_replace(cfg.transformer, flash_attention=True),
             conformer=_replace(cfg.conformer, flash_attention=True))
+    if args.transducer_encoder:
+        cfg = cfg.replace(transducer=_replace(
+            cfg.transducer, encoder=args.transducer_encoder))
+    if args.transducer_ctc_weight is not None:
+        cfg = cfg.replace(transducer=_replace(
+            cfg.transducer, ctc_weight=args.transducer_ctc_weight))
     if args.features:
         cfg = cfg.replace(features=_replace(cfg.features, kind=args.features))
     if args.units:

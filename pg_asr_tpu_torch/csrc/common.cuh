@@ -1,5 +1,5 @@
 // Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu,
-// flash_attn.cu, flash_attn_bwd.cu).
+// flash_attn.cu, flash_attn_bwd.cu, joint_fwd.cu, joint_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +17,7 @@ constexpr int kErrSharedMemory = -3;    // per-block shared memory above the lim
 constexpr int kErrDtype = -4;
 constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
 constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim other than 32 or 64
+constexpr int kErrVocab = -7;           // joint_fwd/_bwd: vocab size outside 1 .. 32
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

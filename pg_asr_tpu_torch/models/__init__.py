@@ -2,10 +2,11 @@
 pg_asr_tpu/models/__init__.py).
 
 Ported, trained and served: the flagship BiLSTM-CTC ("ctc"), the
-transformer-CTC ("transformer") and the conformer-CTC ("conformer"). The
-attention families subsample time, so the dispatch returns the shorter
-output mask and lengths beside the log-probs; BiLSTM callers get their
-inputs back unchanged.
+transformer-CTC ("transformer") and the conformer-CTC ("conformer");
+trained only: the RNN-T transducer ("transducer", models/transducer.py;
+its decoding is not ported). The attention families subsample time, so the
+dispatch returns the shorter output mask and lengths beside the log-probs;
+BiLSTM callers get their inputs back unchanged.
 """
 
 from __future__ import annotations
@@ -13,16 +14,20 @@ from __future__ import annotations
 import torch
 
 _PORTED = ("ctc", "transformer", "conformer")
-_NOT_PORTED = {
-    "transducer": "ROADMAP.md queue 1 item 8 (transducer)",
-    "seq2seq": "ROADMAP.md queue 1 item 9 (seq2seq)",
-}
+_TRAIN_ONLY = {"transducer": "ROADMAP.md queue 1 item 3"}
+_NOT_PORTED = {"seq2seq": "ROADMAP.md queue 1 item 10 (seq2seq)"}
 
 
-def check_family(family: str) -> None:
-    """Raise unless the port serves and trains the model family."""
-    if family in _PORTED:
+def check_family(family: str, train: bool = False) -> None:
+    """Raise unless the port serves and trains the model family; with
+    ``train`` the families the port only trains (the transducer) pass."""
+    if family in _PORTED or (train and family in _TRAIN_ONLY):
         return
+    if family in _TRAIN_ONLY:
+        raise NotImplementedError(
+            f"decoding with model family {family!r} (--mode predict) is not "
+            f"yet ported to pg_asr_tpu_torch (its training is); see "
+            f"{_TRAIN_ONLY[family]}")
     where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
     raise NotImplementedError(f"model family {family!r} is not yet ported "
                               f"to pg_asr_tpu_torch; see {where}")

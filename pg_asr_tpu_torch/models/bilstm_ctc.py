@@ -43,31 +43,46 @@ def init_linear(p: dict, name: str, in_dim: int, out_dim: int,
     p[f"{name}.b"] = torch.full((out_dim,), 0.1)
 
 
+def init_lstm(p: dict, name: str, in_dim: int, H: int,
+              generator: torch.Generator) -> None:
+    """``{name}.W`` (in, 4H) and ``{name}.U`` (H, 4H) ~ U(-1/sqrt(H),
+    1/sqrt(H)), ``{name}.b`` 0 with the forget gate at +1, float32 on the
+    CPU (the JAX package's ``init_lstm_params``)."""
+    bound = 1.0 / math.sqrt(H)
+    p[f"{name}.W"] = (torch.rand(in_dim, 4 * H, generator=generator)
+                      * 2 - 1) * bound
+    p[f"{name}.U"] = (torch.rand(H, 4 * H, generator=generator)
+                      * 2 - 1) * bound
+    b = torch.zeros(4 * H)
+    b[H:2 * H] = 1.0
+    p[f"{name}.b"] = b
+
+
+def init_encoder_params(cfg: ModelConfig,
+                        generator: torch.Generator) -> dict:
+    """Encoder parameters (no CTC head), float32 on the CPU: the input
+    projection and the BiLSTM layers (shared with the transducer family,
+    models/transducer.py)."""
+    H = cfg.hidden_size
+    p: dict[str, torch.Tensor] = {}
+    init_linear(p, "input_proj", cfg.input_dim, cfg.input_proj_dim, generator)
+    in_dim = cfg.input_proj_dim
+    for layer in range(cfg.num_layers):
+        for d in ("fwd", "bwd"):
+            init_lstm(p, f"lstm.{layer}.{d}", in_dim, H, generator)
+        in_dim = 2 * H
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
     """Same shapes and distributions as the JAX init: Xavier-normal linears
     with bias 0.1; LSTM W and U ~ U(-1/sqrt(H), 1/sqrt(H)), bias 0 with the
     forget gate at +1. Drawn on the CPU from `generator`, then moved."""
-    dtype = torch_dtype(cfg.dtype)
-    H = cfg.hidden_size
-    p: dict[str, torch.Tensor] = {}
-
-    init_linear(p, "input_proj", cfg.input_dim, cfg.input_proj_dim, generator)
-    in_dim = cfg.input_proj_dim
-    bound = 1.0 / math.sqrt(H)
-    for layer in range(cfg.num_layers):
-        for d in ("fwd", "bwd"):
-            pre = f"lstm.{layer}.{d}"
-            p[f"{pre}.W"] = (torch.rand(in_dim, 4 * H, generator=generator)
-                             * 2 - 1) * bound
-            p[f"{pre}.U"] = (torch.rand(H, 4 * H, generator=generator)
-                             * 2 - 1) * bound
-            b = torch.zeros(4 * H)
-            b[H:2 * H] = 1.0
-            p[f"{pre}.b"] = b
-        in_dim = 2 * H
-    init_linear(p, "ctc_head", 2 * H, cfg.vocab_size, generator)
-    return cast_params(p, dtype, device)
+    p = init_encoder_params(cfg, generator)
+    init_linear(p, "ctc_head", 2 * cfg.hidden_size, cfg.vocab_size,
+                generator)
+    return cast_params(p, torch_dtype(cfg.dtype), device)
 
 
 def num_layers(params: dict) -> int:

@@ -117,6 +117,45 @@ def lstm_scan_bwd_plain(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
     return dxp, du.to(U.dtype)
 
 
+def lstm_scan_xla(xp: torch.Tensor, U: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA scan (pg_asr_tpu/ops/lstm.py ``lstm_scan``,
+    forward direction) under PyTorch autograd, on any device: carries h, c
+    in xp's dtype, ``h @ U`` in that dtype (accumulated in float32 and
+    rounded once), every gate operation rounding to it; the carry frozen
+    where ``mask == 0`` and the output ``h_new * mask``. The transducer's
+    prediction network runs it (no Pallas kernel lies under it); in float32
+    it equals ``lstm_scan_plain`` up to float32 rounding, in bfloat16 the
+    two round apart. The sigmoid is ``jax.nn.sigmoid``'s 1 / (1 + exp(-x)),
+    each operation rounded (torch.sigmoid rounds once).
+
+    xp (B, T, 4H), U (H, 4H), mask (B, T) -> (B, T, H) in xp's dtype."""
+    B, T, H4 = xp.shape
+    H = H4 // 4
+
+    def sigmoid(v):
+        return 1.0 / (1.0 + torch.exp(-v))
+
+    h = torch.zeros(B, H, dtype=xp.dtype, device=xp.device)
+    c = torch.zeros_like(h)
+    m_all = mask.to(xp.dtype)
+    out = []
+    for t in range(T):
+        pre = xp[:, t] + torch.matmul(h, U)
+        i = sigmoid(pre[:, :H])
+        f = sigmoid(pre[:, H:2 * H])
+        g = torch.tanh(pre[:, 2 * H:3 * H])
+        o = sigmoid(pre[:, 3 * H:])
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = m_all[:, t, None]
+        valid = m > 0
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        out.append(h_new * m)
+    return torch.stack(out, dim=1)
+
+
 def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
               reverse: bool = False, use_kernel: bool = True) -> torch.Tensor:
     """Masked LSTM recurrence, inference form: (B, T, 4H) -> (B, T, H)."""

@@ -4,24 +4,28 @@ pg_asr_tpu/train.py).
 Epoch loop with per-epoch validation on dev.tsv, best/last checkpoints
 selected on validation loss, train_loss.npy / val_losses.npy, and resume
 from model_last (with the model family and its config from the
-checkpoint's config.json). One step: features (no gradient) -> a CTC
+checkpoint's config.json). One step: features (no gradient) -> the
 family's model with dropout (BiLSTM-CTC: the LSTM kernels under autograd;
 transformer-CTC and conformer-CTC: with ``flash_attention`` the
 flash-attention kernels under autograd, with ``model.remat`` each block
-recomputed in the backward) -> CTC -> gradients -> clip by global norm ->
-AdamW, with optax's rules (``AdamW`` below). Parameters stay in the
-model's dtype, as the JAX package creates them (LayerNorm params in
-float32); there is no master copy.
+recomputed in the backward; the transducer: one of those encoders, the
+prediction network, and with ``transducer.fused_joint`` the fused joint
+kernels under autograd) -> CTC or the transducer's lattice loss ->
+gradients -> clip by global norm -> AdamW, with optax's rules and rounding
+points (``AdamW`` below). Parameters stay in the model's dtype, as the JAX
+package creates them (LayerNorm params in float32); there is no master
+copy.
 
-Not ported (each refused with a message, ROADMAP.md): the transducer and
-seq2seq families, the switch-MoE transformer, device meshes and
-multi-host, gradient accumulation, EMA, keep_ckpts, save_every_steps,
-val_metric=cer, augmentation, init_from_torch, profiling, BPE units, the
-built-batch cache.
+Not ported (each refused with a message, ROADMAP.md): the seq2seq family,
+the switch-MoE transformer, device meshes and multi-host, gradient
+accumulation, EMA, keep_ckpts, save_every_steps, val_metric=cer,
+augmentation, init_from_torch, profiling, BPE units, the built-batch
+cache.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -37,9 +41,11 @@ from .config import Config
 from .data import BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
 from .models import (acoustic_forward, bilstm_ctc, cast_params,
-                     check_family, conformer_ctc, transformer_ctc)
+                     check_family, conformer_ctc, transducer,
+                     transformer_ctc)
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from .ops.features import extract_features
+from .ops.transducer import transducer_loss_terms
 from .utils.logging import StepLogger
 
 _MOE = ("the switch-MoE transformer (transformer.num_experts > 0, --model "
@@ -49,10 +55,12 @@ _MOE = ("the switch-MoE transformer (transformer.num_experts > 0, --model "
 def init_model_params(cfg: Config, generator: torch.Generator,
                       device: torch.device | str) -> dict[str, torch.Tensor]:
     """Family dispatch (the JAX package's ``init_model_params``): the
-    initial parameters of the configured CTC family, drawn on the CPU from
+    initial parameters of the configured family, drawn on the CPU from
     `generator`, then moved and cast."""
     family = cfg.model.family
-    check_family(family)
+    check_family(family, train=True)
+    if family == "transducer":
+        return transducer.init_params(cfg, generator, device)
     if family == "transformer":
         if cfg.transformer.num_experts > 0:
             raise not_ported(_MOE)
@@ -96,17 +104,50 @@ def make_schedule(cfg: Config) -> Callable[[int], float]:
     return lambda count: float(lr)
 
 
+def tree_order(name: str) -> list:
+    """Sort key of a flat parameter name in the order ``jax.tree.leaves``
+    walks the JAX package's tree: dict keys sorted, list items by index."""
+    return [(0, int(s), "") if s.isdigit() else (1, 0, s)
+            for s in name.split(".")]
+
+
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: per leaf the sum of its squares (each square
+    rounded to the leaf's dtype, summed in float32 as ``jnp.sum`` does,
+    rounded back), those sums added in tree order in the promoted dtype
+    (bfloat16 until a float32 leaf joins), then the root in that dtype."""
+    total = None
+    for k in sorted(grads, key=tree_order):
+        g = grads[k]
+        s = (g * g).float().sum().to(g.dtype)
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@functools.lru_cache(maxsize=1024)
+def _weak(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies a weak-typed one to an array of
+    `dtype`: rounded to that dtype first (torch would keep it in float32
+    inside a bfloat16 op)."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule,
     weight_decay))`` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8,
-    eps_root 0), updating a dict of parameters in place.
+    eps_root 0), updating a dict of parameters in place, with optax's
+    dtypes and rounding points in every parameter dtype (optax 0.2.6).
 
     Clip: g <- g / |g| * max_norm only where |g| >= max_norm (no epsilon, so
-    ``clip_grad_norm_`` is not the same rule). Adam moments live in the
-    parameters' dtype; bias corrections use the incremented count; weight
-    decay adds ``wd * p`` to the update; the step is ``-lr(count) * update``
-    at the count before the increment. The clip decision stays on the
-    device (no host synchronisation)."""
+    ``clip_grad_norm_`` is not the same rule), |g| from ``global_norm``.
+    Adam moments live in the parameters' dtype; bias corrections
+    ``1 - b**count`` use the incremented count, in float32, rounded to the
+    moment's dtype before the division; weight decay adds ``wd * p`` to the
+    update; the step is ``-lr(count) * update`` at the count before the
+    increment, lr rounded to the update's dtype. Every Python scalar is
+    rounded to the tensor's dtype before its product, as JAX does with weak
+    types, and every operation rounds its result to that dtype. The clip
+    decision stays on the device (no host synchronisation)."""
 
     b1, b2, eps, eps_root = 0.9, 0.999, 1e-8, 0.0
 
@@ -132,42 +173,64 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor]) -> None:
-        g_norm = torch.sqrt(sum(g.float().square().sum()
-                                for g in grads.values()))
-        keep = g_norm < self.max_norm
+        g_norm = global_norm(grads)
+        keep = g_norm < _weak(self.max_norm, g_norm.dtype)
         lr = self.schedule(self.count)
         self.count += 1
         bc1 = 1.0 - np.float32(self.b1) ** np.float32(self.count)
         bc2 = 1.0 - np.float32(self.b2) ** np.float32(self.count)
+        corrections = {}
         for k, p in params.items():
-            g = grads[k]
-            g = torch.where(keep, g, g / g_norm.to(g.dtype) * self.max_norm)
-            mu = (1 - self.b1) * g + self.b1 * self.mu[k]
-            nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[k]
+            g, dt = grads[k], p.dtype
+            if (dt, p.device) not in corrections:
+                # device tensors: CUDA divides by a CPU scalar through its
+                # reciprocal, which is not optax's division
+                corrections[dt, p.device] = [
+                    torch.full((), float(bc), dtype=dt, device=p.device)
+                    for bc in (bc1, bc2)]
+            c1, c2 = corrections[dt, p.device]
+            g = torch.where(keep, g, g / g_norm.to(dt)
+                            * _weak(self.max_norm, dt))
+            mu = _weak(1 - self.b1, dt) * g + _weak(self.b1, dt) * self.mu[k]
+            nu = (_weak(1 - self.b2, dt) * (g * g)
+                  + _weak(self.b2, dt) * self.nu[k])
             self.mu[k], self.nu[k] = mu, nu
-            mu_hat = mu / torch.tensor(float(bc1), dtype=mu.dtype)
-            nu_hat = nu / torch.tensor(float(bc2), dtype=nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
-            u = u + self.weight_decay * p
-            p.add_((-lr) * u)
+            u = mu / c1 / (torch.sqrt(nu / c2 + _weak(self.eps_root, dt))
+                           + _weak(self.eps, dt))
+            u = u + _weak(self.weight_decay, dt) * p
+            p.add_(_weak(-lr, dt) * u)
 
 
 def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                  train: bool, generator: torch.Generator | None = None,
                  use_kernel: bool = True) -> torch.Tensor:
-    """Scalar CTC loss of one batch (the JAX package's ``compute_loss`` for
-    the CTC family). Features carry no gradient. ``use_kernel`` picks the
-    whole path: True, the LSTM kernels on CUDA tensors and ``F.ctc_loss``;
-    False, the plain reference path on any device, the plain LSTM
-    recurrence and the plain CTC recursion."""
+    """Scalar loss of one batch (the JAX package's ``compute_loss``): CTC
+    for the CTC families; for the transducer the lattice loss, plus
+    ``ctc_weight`` x the auxiliary head's CTC loss when that is above 0.
+    Features carry no gradient. ``use_kernel`` picks the whole path: True,
+    the kernels on CUDA tensors and ``F.ctc_loss``; False, the plain
+    reference path on any device, the plain recurrences, joint and CTC
+    recursion."""
     with torch.no_grad():
         feats, mask, frame_lens = extract_features(wave, num_samples,
                                                    cfg.features)
+    ctc_terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
+    if cfg.model.family == "transducer":
+        lam = cfg.transducer.ctc_weight
+        out = transducer.apply_lattice(
+            params, feats, mask, frame_lens, labels, label_lens, cfg,
+            use_kernel=use_kernel, train=train, generator=generator,
+            with_ctc=lam > 0.0)
+        num, den = transducer_loss_terms(out[0], out[1], out[2], label_lens)
+        loss = num / torch.clamp(den, min=1.0)
+        if lam > 0.0:  # hybrid: L = L_rnnt + lam * L_ctc
+            num_c, den_c = ctc_terms(out[3], out[2], labels, label_lens)
+            loss = loss + lam * num_c / torch.clamp(den_c, min=1.0)
+        return loss
     log_probs, _, out_lens = acoustic_forward(
         params, feats, mask, frame_lens, cfg, use_kernel=use_kernel,
         train=train, generator=generator)
-    terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
-    num, den = terms(log_probs, out_lens, labels, label_lens)
+    num, den = ctc_terms(log_probs, out_lens, labels, label_lens)
     return num / torch.clamp(den, min=1.0)
 
 
@@ -215,7 +278,7 @@ def batch_to_device(batch, device) -> tuple[torch.Tensor, ...]:
 def check_ported(cfg: Config, profile_steps: int = 0) -> None:
     """Refuse the training options that are not ported."""
     t = cfg.train
-    check_family(cfg.model.family)
+    check_family(cfg.model.family, train=True)
     refused = [
         (cfg.model.family == "transformer" and cfg.transformer.num_experts > 0,
          _MOE),
@@ -242,8 +305,9 @@ def _state(params, optimizer, step, epoch, best_val) -> dict:
 
 def train(corpus_path: str, model_path: str, config: Config | None = None,
           device: str = "cuda", profile_steps: int = 0) -> dict:
-    """Train a CTC-family model (BiLSTM, transformer or conformer) on a
-    corpus directory (train.tsv, dev.tsv, clips/, alphabet.txt), resuming
+    """Train a model (BiLSTM-CTC, transformer-CTC, conformer-CTC or the
+    transducer) on a corpus directory (train.tsv, dev.tsv, clips/,
+    alphabet.txt), resuming
     from a checkpoint in model_path if there is one. Returns a summary
     dict with the loss curves."""
     cfg = config or Config()

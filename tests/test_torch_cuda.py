@@ -16,6 +16,12 @@ Tolerances of the backward (given the same residuals): float32 dxp atol
 dxp atol 2e-2 x max|dxp| and dU atol 2e-2 x max|dU|: dpre is rounded to
 bf16 and fed back into the dh carry, so a one-ulp difference at one step
 moves the later steps by a few ulps.
+Tolerances of the fused RNN-T joint (kernel vs plain version, float32 math
+in both whatever the inputs' type): the emission tables atol 2e-5 (sums of
+J products in another order, then a log-sum-exp); the gradients atol
+2e-5 x max|grad| in float32 (sums over up to B*T*(U+1) cells in another
+order), 2^-7 x max|grad| in bfloat16 (each is a float32 sum rounded once
+to bf16, so the two may round one ulp apart).
 """
 
 import numpy as np
@@ -25,7 +31,8 @@ import torch
 from pg_asr_tpu_torch.config import ModelConfig
 from pg_asr_tpu_torch.decoding import beam, cuda_beam
 from pg_asr_tpu_torch.models import bilstm_ctc
-from pg_asr_tpu_torch.ops import cuda_flash_attn, cuda_lstm, flash_attn
+from pg_asr_tpu_torch.ops import (cuda_flash_attn, cuda_joint, cuda_lstm,
+                                  flash_attn, joint)
 from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan,
                                        lstm_scan_bwd_plain, lstm_scan_plain)
 
@@ -606,3 +613,141 @@ def test_conformer_depthwise_conv_runs_in_full_float32(cuda):
             _assert_rel(g.cpu(), r, 1e-5, f"conv module {name}")
     finally:
         torch.backends.cudnn.allow_tf32 = old
+
+
+JOINT_GRAD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _joint_case(cuda, B, T, U, J, A, dtype, seed):
+    rng = np.random.default_rng(seed)
+    e, g, W, b = (torch.from_numpy(rng.standard_normal(s) * sc).to(cuda, dtype)
+                  for s, sc in (((B, T, J), 0.5), ((B, U + 1, J), 0.5),
+                                ((J, A), (2 / (J + A)) ** 0.5), ((A,), 0.1)))
+    labels = torch.from_numpy(rng.integers(1, A, (B, U))).to(cuda)
+    labels[0, U // 2:] = 0  # a padded label row
+    gb = torch.from_numpy(rng.standard_normal((B, T, U + 1))).to(
+        cuda, torch.float32)
+    gy = torch.from_numpy(rng.standard_normal((B, T, U))).to(
+        cuda, torch.float32)
+    return (e, g, W, b, labels), gb, gy
+
+
+def _joint_counts():
+    return cuda_joint.FWD_LAUNCHES, cuda_joint.BWD_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# T not a multiple of the 8-frame tiles or of a block's 32-frame walk; U+1
+# across two 32-row u-tiles; U = 0; the vocab padded to 8, 16 and 32
+@pytest.mark.parametrize("B,T,U,J,A", [(3, 37, 5, 32, 9), (2, 45, 40, 100, 28),
+                                       (4, 11, 0, 48, 5), (2, 70, 63, 256, 32),
+                                       (1, 1, 1, 8, 2)])
+def test_joint_kernels_match_plain(cuda, B, T, U, J, A, dtype):
+    args, gb, gy = _joint_case(cuda, B, T, U, J, A, dtype, B + T + U + A)
+    c0 = _joint_counts()
+    lpb, lpy = cuda_joint.joint_fwd_cuda(*args)
+    grads = cuda_joint.joint_bwd_cuda(*args, gb, gy)
+    torch.cuda.synchronize()
+    assert _joint_counts() == (c0[0] + 1, c0[1] + 1)
+    rb, ry = joint.fused_joint_plain(*args)
+    assert lpb.dtype == lpy.dtype == torch.float32
+    assert lpb.shape == (B, T, U + 1) and lpy.shape == (B, T, U)
+    torch.testing.assert_close(lpb, rb, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lpy, ry, rtol=0, atol=2e-5)
+    want = joint.fused_joint_bwd_plain(*args, gb, gy)
+    for name, g, w in zip(("de", "dg", "dW", "db"), grads, want):
+        _assert_rel(g, w, JOINT_GRAD_REL[dtype], f"{name} {dtype} T={T} U={U}")
+    # no atomics: a second run gives the same bits
+    for g, again in zip(grads, cuda_joint.joint_bwd_cuda(*args, gb, gy)):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.cuda
+def test_fused_joint_function_launches_the_kernels(cuda):
+    """FusedJoint under autograd on CUDA tensors: one joint_fwd and one
+    joint_bwd launch; use_kernel=False none; the gradients agree."""
+    args, gb, gy = _joint_case(cuda, 2, 19, 7, 64, 28, torch.float32, 1)
+    grads = {}
+    for use_kernel in (True, False):
+        leaves = [a.clone().requires_grad_(True) for a in args[:4]]
+        c0 = _joint_counts()
+        lb, ly = joint.fused_joint(*leaves, args[4], use_kernel=use_kernel)
+        grads[use_kernel] = torch.autograd.grad(
+            (lb * gb).sum() + (ly * gy).sum(), leaves)
+        torch.cuda.synchronize()
+        n = int(use_kernel)
+        assert _joint_counts() == (c0[0] + n, c0[1] + n)
+    for name, g, w in zip(("de", "dg", "dW", "db"), grads[True],
+                          grads[False]):
+        _assert_rel(g, w, JOINT_GRAD_REL[torch.float32], name)
+
+
+@pytest.mark.cuda
+def test_joint_launchers_reject_bad_inputs(cuda):
+    args, gb, gy = _joint_case(cuda, 2, 9, 3, 16, 6, torch.float32, 0)
+    e, g, W, b, labels = args
+    before = _joint_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_joint.joint_fwd_cuda(*(a.cpu() for a in args))
+    with pytest.raises(TypeError):
+        cuda_joint.joint_fwd_cuda(e.double(), g, W, b, labels)
+    with pytest.raises(TypeError):
+        cuda_joint.joint_fwd_cuda(e, g.bfloat16(), W, b, labels)
+    with pytest.raises(ValueError, match="shapes"):
+        cuda_joint.joint_fwd_cuda(e, g[:, :3], W, b, labels)
+    with pytest.raises(ValueError, match="vocab"):
+        wide = torch.zeros(16, 40, device=cuda)
+        cuda_joint.joint_fwd_cuda(e, g, wide, torch.zeros(40, device=cuda),
+                                  labels)
+    with pytest.raises(ValueError, match="gy must"):
+        cuda_joint.joint_bwd_cuda(*args, gb, gy[:, :, :2])
+    with pytest.raises(RuntimeError, match="shared memory"):
+        big = torch.zeros(2, 9, 4096, device=cuda)
+        cuda_joint.joint_fwd_cuda(big, torch.zeros(2, 4, 4096, device=cuda),
+                                  torch.zeros(4096, 6, device=cuda), b,
+                                  labels)
+    assert _joint_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["bilstm", "conformer"])
+def test_transducer_train_gradients_kernel_match_plain(cuda, encoder):
+    """Loss and every parameter gradient of a small transducer train step
+    with fused_joint on the card, the joint kernels (and the encoder's
+    kernels) vs the plain versions, dropout 0: rtol 1e-3 and atol 1e-4 x
+    max|grad|, as the attention families' test. One joint_fwd and one
+    joint_bwd launch per step; "auto" on CUDA is the fused joint too."""
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         TransducerConfig)
+    from pg_asr_tpu_torch.train import init_model_params, loss_and_grads
+
+    kw = dict(num_layers=2, d_model=64, num_heads=2, ffn_dim=128,
+              dropout=0.0, flash_attention=True)
+    rng = np.random.default_rng(3)
+    ns = np.array([6400, 3000, 2000])
+    wave = (rng.standard_normal((3, 6400)) * 3000 * (np.arange(6400)[None]
+                                                     < ns[:, None]))
+    arrays = [torch.from_numpy(a).to(cuda) for a in (
+        wave.astype(np.int16), ns.astype(np.int32),
+        rng.integers(1, 12, (3, 6)).astype(np.int32),
+        np.array([6, 4, 0], np.int32))]
+    for flag in (True, "auto"):
+        cfg = Config(model=ModelConfig(family="transducer", vocab_size=12,
+                                       hidden_size=64, input_proj_dim=64,
+                                       num_layers=2, dropout=0.0),
+                     conformer=ConformerConfig(**kw),
+                     transducer=TransducerConfig(
+                         encoder=encoder, pred_embed_dim=16, pred_hidden=32,
+                         joint_dim=64, fused_joint=flag, ctc_weight=0.3))
+        params = init_model_params(cfg, torch.Generator().manual_seed(0),
+                                   cuda)
+        c0 = _joint_counts()
+        loss_k, g_k = loss_and_grads(params, arrays, cfg)
+        torch.cuda.synchronize()
+        assert _joint_counts() == (c0[0] + 1, c0[1] + 1)
+    loss_p, g_p = loss_and_grads(params, arrays, cfg, use_kernel=False)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-4, atol=1e-5)
+    for k in g_p:
+        torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-3,
+                                   atol=float(1e-4 * g_p[k].abs().max()))

@@ -276,6 +276,143 @@ def test_one_train_step_matches_jax():
                                    atol=1e-5, err_msg=k)
 
 
+def _bf16_tree(mixed: bool, scale: float, seed: int):
+    """A parameter tree of the JAX package's shape: 11 blocks (so the list
+    order 0, 1, 2, .. 10 differs from the names' string order), bf16
+    leaves and, when `mixed`, float32 LayerNorm leaves among them; its
+    gradients at `scale`."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(shape, ln=False):
+        return jnp.asarray(rng.standard_normal(shape),
+                           jnp.float32 if (ln and mixed) else jnp.bfloat16)
+
+    def tree(ln_scale=1.0):
+        return {"input_proj": {"w": leaf((40, 24)), "b": leaf((24,))},
+                "blocks": [{"ln1": {"scale": leaf((24,), True),
+                                    "bias": leaf((24,), True)},
+                            "qkv": {"w": leaf((24, 72)), "b": leaf((72,))}}
+                           for _ in range(11)],
+                "ctc_head": {"w": leaf((24, 9)), "b": leaf((9,))}}
+
+    params = tree()
+    grads = jax.tree_util.tree_map(lambda x: (x * scale).astype(x.dtype),
+                                   tree())
+    return params, grads
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("clip", [True, False])
+def test_optimizer_matches_optax_in_bfloat16(clip, mixed):
+    """One update of bf16 parameters, clipped (global norm ~35 > 1) and
+    unclipped (~0.35), against optax.chain(clip_by_global_norm, adamw) as
+    the JAX package builds it, run op by op: the parameters and both
+    moments equal element for element. The global norm is optax's: bf16
+    leaf sums added in tree order. With float32 LayerNorm leaves in the
+    tree (the attention families in bf16) the norm sums in float32 from the
+    first such leaf on, and ``jnp.sum`` and torch sum a float32 leaf in
+    different orders: there the float32 leaves agree to rtol 1e-6 (the
+    norm's last bit), the bf16 leaves still exactly."""
+    jcfg = JConfig(train=JTrainConfig(learning_rate=5e-4, warmup_steps=0,
+                                      grad_clip=1.0, weight_decay=0.01))
+    params, grads = _bf16_tree(mixed, 0.02 if clip else 2e-4, seed=4)
+    norm = float(optax.global_norm(grads))
+    assert (norm >= 1.0) == clip, norm
+    opt = jax_train.make_optimizer(jcfg)
+    state = opt.init(params)
+    upd, state = opt.update(grads, state, params)
+    want = params_from_jax(optax.apply_updates(params, upd))
+    want_mu = params_from_jax(state[1][0].mu)
+    want_nu = params_from_jax(state[1][0].nu)
+
+    t_params = params_from_jax(params)
+    t_opt = AdamW(_port_cfg(jcfg), t_params)
+    t_opt.update(t_params, params_from_jax(grads))
+    for got, ref in ((t_params, want), (t_opt.mu, want_mu),
+                     (t_opt.nu, want_nu)):
+        assert set(got) == set(ref)
+        for k, v in got.items():
+            assert v.dtype == ref[k].dtype, k
+            if v.dtype == torch.bfloat16:
+                assert torch.equal(v, ref[k]), k
+            else:
+                torch.testing.assert_close(v, ref[k], rtol=1e-6, atol=0)
+
+
+def test_bf16_train_step_of_an_attention_family_matches_jax():
+    """One bf16 train step of a small transformer-CTC (LayerNorm params
+    float32) against make_train_step. The two frameworks round the
+    activations to bf16 at their own points, so: the loss rtol 1e-3; every
+    gradient atol 2^-5 x its max |grad|; the port's AdamW on JAX's own
+    gradients gives the jitted step's parameters up to XLA's fusions (at
+    most 1 in 200 elements differ: bf16 leaves by one ulp, the float32
+    LayerNorm leaves by rtol 1e-5, the jitted clip's float32 norm);
+    the port's whole step moves no parameter further than 2 lr from JAX's
+    (a gradient whose sign differs turns Adam's first step around) plus one
+    bf16 ulp of the parameter."""
+    from pg_asr_tpu.config import TransformerConfig
+
+    lr = 1e-3
+    jcfg = JConfig(model=JModelConfig(family="transformer", vocab_size=9,
+                                      dtype="bfloat16"),
+                   transformer=TransformerConfig(num_layers=2, d_model=64,
+                                                 num_heads=2, ffn_dim=128,
+                                                 dropout=0.0),
+                   train=JTrainConfig(warmup_steps=0, learning_rate=lr))
+    cfg = _port_cfg(jcfg)
+    rng = np.random.default_rng(0)
+    ns = np.array([6400, 4000, 2500], np.int32)
+    wave = np.where(np.arange(6400)[None] < ns[:, None],
+                    rng.standard_normal((3, 6400)) * 3000, 0).astype(np.int16)
+    labels = rng.integers(1, 9, (3, 6)).astype(np.int32)
+    label_lens = np.array([6, 4, 0], np.int32)
+    for b in range(3):
+        labels[b, label_lens[b]:] = 0
+    batch = (wave, ns, labels, label_lens)
+    tree = jax.tree_util.tree_map(np.asarray, jax_train.init_model_params(
+        jax.random.PRNGKey(0), jcfg))
+    key = jax.random.PRNGKey(1)
+    r_loss, r_grads = jax.value_and_grad(
+        lambda p: jax_train.compute_loss(p, *map(jnp.asarray, batch), jcfg,
+                                         train=True, dropout_rng=key))(
+        jax.tree_util.tree_map(jnp.asarray, tree))
+    opt = jax_train.make_optimizer(jcfg)
+    j_params = jax.tree_util.tree_map(jnp.asarray, tree)
+    new_j, _, _, j_loss = jax_train.make_train_step(jcfg, opt)(
+        j_params, opt.init(j_params), key, *map(jnp.asarray, batch))
+    new_j = params_from_jax(new_j)
+    r_grads = params_from_jax(r_grads)
+
+    params = params_from_jax(tree)
+    assert params["blocks.0.ln1.scale"].dtype == torch.float32
+    assert params["blocks.0.qkv.w"].dtype == torch.bfloat16
+    loss, grads = loss_and_grads(params, [torch.from_numpy(a) for a in batch],
+                                 cfg)
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-3)
+    for k, g in grads.items():
+        ref = r_grads[k].float()
+        torch.testing.assert_close(g.float(), ref, rtol=0,
+                                   atol=2.0 ** -5 * ref.abs().max().item(),
+                                   msg=k)
+    on_ref = {k: v.clone() for k, v in params.items()}
+    AdamW(cfg, on_ref).update(on_ref, r_grads)
+    AdamW(cfg, params).update(params, grads)
+    n = sum(v.numel() for v in params.values())
+    off = 0
+    for k, p in params.items():
+        want = new_j[k].float()
+        if p.dtype == torch.bfloat16:  # one bf16 ulp of the parameter
+            tol = 2.0 ** (torch.floor(torch.log2(
+                want.abs().clamp(min=2 ** -126))) - 7)
+        else:
+            tol = 1e-5 * want.abs()
+        near = (on_ref[k].float() - want).abs()
+        assert torch.all(near <= tol), k
+        off += int((near > 0).sum())
+        assert torch.all((p.float() - want).abs() <= 2 * lr + tol), k
+    assert off <= n // 200, (off, n)
+
+
 # ---------------------------------------------------------------- data
 
 def test_corpus_batches_and_metrics_match_jax(tmp_path):
@@ -378,7 +515,7 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
     (["--mesh", "data=2"], "mesh"),
     (["--profile_steps", "2"], "profile_steps"),
     (["--units", "bpe"], "BPE"),
-    (["--model", "transducer"], "transducer"),
+    (["--model", "seq2seq"], "seq2seq"),
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                                                       extra, message):
