@@ -46,6 +46,18 @@ the CPU or to a kernel's plain version):
      backward run twice with equal bits, CUDA-event times in turns, each
      kernel's bound, and the port's unfused composition (forward, forward
      + backward) as the yardstick.
+  3f. fused-direction BiLSTM: bilstm_fwd (inference and residual forms)
+     and bilstm_bwd vs their plain versions on the card at phase 3's shape
+     (B=64, T=401, H=256 per direction), float32 and bfloat16, ragged
+     lengths, against the phase 3 bounds; each against two single-direction
+     launches (equal bits), the backward run twice (equal bits);
+     CUDA-event times in turns against the plain versions, against 2 x
+     lstm_fwd / lstm_bwd on one stream and against cuDNN's bidirectional
+     nn.LSTM; the bound. Then bilstm_layer(fuse_directions=True) at the
+     flagship's first layer (input 512) under autograd (one residual
+     bilstm_fwd and one bilstm_bwd launch, no single-direction launch) and
+     without (one bilstm_fwd), its output and gradients against
+     fuse_directions=False.
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
@@ -86,21 +98,29 @@ the CPU or to a kernel's plain version):
      same gradients as without remat at dropout 0.1); the train step at
      B=64 x 5 s in float32 and bfloat16, flash_attention on and off in
      turns, with a profiler breakdown by kernel group.
-  9. transducer training slice: the RNN-T at full default width (conformer encoder, 6 blocks, d_model 256,
-     flash_attention; prediction net 128/256, joint 256, vocab 28, random
-     weights from a seed): one epoch through the CLI (`--mode train --model
-     transducer --flash_attention`, the default unfused joint: no joint
-     launch), one through train(config=...) with fused_joint (exactly one
-     joint_fwd and one joint_bwd launch per step, one joint_fwd per dev
-     batch), a CLI resume that keeps fused_joint from config.json, `--mode
-     predict` refused as not yet ported; one batch's loss and every
-     gradient, kernel vs plain path (dropout 0); one kernel-path step with
-     the BiLSTM and the transformer encoders; the train step at B=64 x 5 s,
-     fused and unfused joint in turns, float32 and bfloat16, with a
-     profiler breakdown (the joint kernels a group of their own) and the
-     lattice loss timed alone.
-  8. prints a JSON line of kernel results, then as the last line
-     {"ok": true, "device": {...}}.
+  8. transducer training slice: the RNN-T at full default width
+     (conformer encoder, 6 blocks, d_model 256, flash_attention;
+     prediction net 128/256, joint 256, vocab 28, random weights from a
+     seed): one epoch through the CLI (`--mode train --model transducer
+     --flash_attention`, the default unfused joint: no joint launch), one
+     through train(config=...) with fused_joint (exactly one joint_fwd and
+     one joint_bwd launch per step, one joint_fwd per dev batch), a CLI
+     resume that keeps fused_joint from config.json; one batch's loss and
+     every gradient, kernel vs plain path (dropout 0); one kernel-path step
+     with the BiLSTM and the transformer encoders; the train step at
+     B=64 x 5 s, fused and unfused joint in turns, float32 and bfloat16,
+     with a profiler breakdown (the joint kernels a group of their own) and
+     the lattice loss timed alone.
+  9. transducer transcription: `--mode predict` through the CLI on the
+     transducer phase 8 trained, greedy (batch 32, 3 batches) and beam
+     (batch 128, K=16, 1 batch): predicted.txt, a finite CER/WER, 6
+     flash_attn launches per batch and no other kernel (the decoders run
+     the unfused joint per frame); one batch's greedy labels, beam labels
+     and nll, kernel path vs plain path; the encoder and the decoders
+     timed apart, greedy at B=64 x 5 s and beam at B=128 x 5 s (host
+     clock and profiler device time).
+ 10. prints its total wall time, a JSON line of kernel results, then as
+     the last line {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
 flax or the JAX package (pg_asr_tpu) was imported.
@@ -202,6 +222,12 @@ FLASH_L_REL, FLASH_M_ABS = 1e-5, 1e-5
 # checks that the control exceeds it.
 FLASH_BWD_BOUNDS = {"float32": {"max": 2e-5, "mean": 2e-7},
                     "bfloat16": {"max": 2.0 ** -7, "mean": 1e-6}}
+# transducer decoding, kernel path vs plain path on one batch of the
+# trained model (conformer encoder, flash attention vs plain attention,
+# float32): the encoder states differ by float32 summation order only, so
+# labels must be equal; the beam's nll (a sum over ~200 frames of
+# log-probs) within relative 1e-4
+TRANSDUCER_NLL_REL = 1e-4
 # the transducer's joint at B=64 x 5 s: T'=201 frames, labels of 60
 # symbols, the default joint_dim 256 and vocab 28
 JOINT_U, JOINT_J, JOINT_A = 60, 256, 28
@@ -453,18 +479,21 @@ def phase_kernels(dev):
     return {"fwd": fwd, "res": res, "bwd": bwd}
 
 
-def phase_library(dev):
-    """cuDNN nn.LSTM, one direction, full-length batch, at the kernels'
-    shape, float32: the one PyTorch call that computes the same recurrence
-    (it also does the x@W input projection, from a 512-wide input, which
-    the kernels receive precomputed). A yardstick only; the port never
-    calls it."""
+def phase_library(dev, bidirectional: bool = False):
+    """cuDNN nn.LSTM at the kernels' shape, float32, full-length batch: one
+    direction (yardstick of lstm_fwd / lstm_bwd) or both (of bilstm_fwd /
+    bilstm_bwd): the one PyTorch call that computes the same recurrence (it
+    also does the x@W input projection, from a 512-wide input, which the
+    kernels receive precomputed). A yardstick only; the port never calls
+    it."""
     import torch
 
-    lstm = torch.nn.LSTM(512, H, batch_first=True).to(dev)
+    lstm = torch.nn.LSTM(512, H, batch_first=True,
+                         bidirectional=bidirectional).to(dev)
+    n_dir = 2 if bidirectional else 1
     g = torch.Generator().manual_seed(SEED)
     x = torch.randn(B, T, 512, generator=g).to(dev).requires_grad_(True)
-    gy = torch.randn(B, T, H, generator=g).to(dev)
+    gy = torch.randn(B, T, n_dir * H, generator=g).to(dev)
 
     def infer():
         with torch.no_grad():
@@ -481,11 +510,207 @@ def phase_library(dev):
 
     lib = {"fwd_ms": time_ms(infer, 20), "train_fwd_ms": time_ms(train_fwd, 20),
            "bwd_ms": time_ms(backward, 20)}
-    print(f"[library] cuDNN nn.LSTM(512, {H}) B={B} T={T} float32, one "
-          f"direction: forward {lib['fwd_ms']:.3f} ms (no grad), "
+    print(f"[library] cuDNN nn.LSTM(512, {H}{', bidirectional=True' * bidirectional}) "
+          f"B={B} T={T} float32, {('one direction', 'both directions')[n_dir - 1]}: "
+          f"forward {lib['fwd_ms']:.3f} ms (no grad), "
           f"{lib['train_fwd_ms']:.3f} ms (training), backward "
           f"{lib['bwd_ms']:.3f} ms")
     return lib
+
+
+def bi_inputs(dev):
+    """Phase 3's inputs as the forward direction, a second draw as the
+    backward one: mask, xpf, xpb, Uf, Ub, gy (B, T, 2H), valid steps."""
+    import torch
+
+    mask, xpf, Uf, gyf, valid = kernel_inputs(dev)
+    g = torch.Generator().manual_seed(SEED + 1)
+    xpb = (0.5 * torch.randn(B, T, 4 * H, generator=g)).to(dev)
+    Ub = ((torch.rand(H, 4 * H, generator=g) * 2 - 1) / math.sqrt(H)).to(dev)
+    gy = torch.cat([gyf, torch.randn(B, T, H, generator=g).to(dev)], -1)
+    return mask, xpf, xpb, Uf, Ub, gy, valid
+
+
+def lstm_counts() -> dict:
+    from pg_asr_tpu_torch.ops import cuda_lstm as c
+
+    return {"lstm_fwd": c.LAUNCHES, "lstm_fwd_residual": c.RES_LAUNCHES,
+            "lstm_bwd": c.BWD_LAUNCHES, "bilstm_fwd": c.BI_LAUNCHES,
+            "bilstm_fwd_residual": c.BI_RES_LAUNCHES,
+            "bilstm_bwd": c.BI_BWD_LAUNCHES}
+
+
+def phase_bilstm(dev):
+    """3f: bilstm_fwd (both forms) and bilstm_bwd vs their plain versions
+    and vs two single-direction launches, timed in turns against both;
+    cuDNN's bidirectional nn.LSTM as the yardstick; then
+    bilstm_layer(fuse_directions=True) at the flagship's first layer,
+    under autograd and without, against fuse_directions=False."""
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_lstm as cl
+    from pg_asr_tpu_torch.ops.lstm import (bilstm_layer,
+                                           bilstm_scan_bwd_plain,
+                                           bilstm_scan_plain)
+
+    mask, *inputs32, valid = bi_inputs(dev)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        xpf, xpb, Uf, Ub, gy = (t.to(dtype) for t in inputs32)
+        args = (xpf, xpb, Uf, Ub, mask)
+        name = str(dtype).split(".")[1]
+        s = xpf.element_size()
+        tag = f"B={B} T={T} H={H} x 2 directions {name}"
+        # twice phase 3's work and bytes; the mask is read once
+        io_fwd = 2 * (valid * 4 * H + H * 4 * H + B * T * H) * s + B * T * 4
+        io_res = io_fwd + 2 * B * T * H * (s + 4)
+        io_bwd = (2 * (valid * H * (4 * s + s + 4 + s) + 2 * H * 4 * H * s
+                       + B * T * 4 * H * s) + B * T * 4)
+        f_fwd = 2 * valid * (2 * H * 4 * H + 30 * H)
+        f_bwd = 2 * valid * (3 * 2 * H * 4 * H + 60 * H)
+        case = {"dtype": name}
+
+        # --- forward, both forms
+        y = cl.bilstm_scan_cuda(*args)
+        res = cl.bilstm_scan_residual_cuda(*args)
+        ref = bilstm_scan_plain(*args, residuals=True)
+        sf = cl.lstm_scan_residual_cuda(xpf, Uf, mask, False)
+        sb = cl.lstm_scan_residual_cuda(xpb, Ub, mask, True)
+        torch.cuda.synchronize()
+        check(y.dtype == dtype and y.shape == (B, T, 2 * H)
+              and torch.equal(res[0], y),
+              "bilstm_fwd: output dtype/shape, or the forms' y differ")
+        errs = {k: _errs(g, r) for k, g, r in
+                zip(("y", "hpf", "cpf", "hpb", "cpb"), res, ref)}
+        for k, (mx, mean) in errs.items():
+            bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
+            check(mx <= bd["max"] and mean <= bd["mean"],
+                  f"bilstm_fwd {name}: {k} max {mx} mean {mean} > {bd}")
+        single = (torch.cat([sf[0], sb[0]], -1), sf[1], sf[2], sb[1], sb[2])
+        check(all(torch.equal(a, b) for a, b in zip(res, single)),
+              f"bilstm_fwd {name}: not bit-equal to two lstm_fwd launches")
+        k_ms, p_ms = in_turns(lambda: bilstm_scan_plain(*args),
+                              lambda: cl.bilstm_scan_cuda(*args), 2, 20)
+        two_ms = time_ms(lambda: (cl.lstm_scan_cuda(xpf, Uf, mask, False),
+                                  cl.lstm_scan_cuda(xpb, Ub, mask, True)), 20)
+        kr_ms, pr_ms = in_turns(
+            lambda: bilstm_scan_plain(*args, residuals=True),
+            lambda: cl.bilstm_scan_residual_cuda(*args), 2, 20)
+        two_r_ms = time_ms(
+            lambda: (cl.lstm_scan_residual_cuda(xpf, Uf, mask, False),
+                     cl.lstm_scan_residual_cuda(xpb, Ub, mask, True)), 20)
+        b_ms, b_by = bound_ms(f_fwd, io_fwd, name)
+        br_ms, br_by = bound_ms(f_fwd, io_res, name)
+        case.update(fwd_errors=errs, fwd_ms=k_ms, fwd_plain_ms=p_ms,
+                    two_lstm_fwd_ms=two_ms, fwd_bound_ms=b_ms,
+                    fwd_bound_by=b_by, res_ms=kr_ms, res_plain_ms=pr_ms,
+                    two_lstm_fwd_residual_ms=two_r_ms, res_bound_ms=br_ms,
+                    res_bound_by=br_by)
+        print(f"[kernel] bilstm_fwd {tag}: " + ", ".join(
+            f"{k} max {v[0]:.3e} mean {v[1]:.3e}" for k, v in errs.items())
+            + f" (bounds {BOUNDS[name]}, c {CPREV_BOUNDS[name]}); equal bits "
+            f"to 2 x lstm_fwd; inference form {k_ms:.3f} ms (plain "
+            f"{p_ms:.3f}, 2 x lstm_fwd {two_ms:.3f}, bound {b_ms:.3f} "
+            f"{b_by}); residual form {kr_ms:.3f} ms (plain {pr_ms:.3f}, 2 x "
+            f"lstm_fwd residual {two_r_ms:.3f}, bound {br_ms:.3f} {br_by})")
+
+        # --- backward, on the plain forward's residuals
+        bwd = cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy)
+        again = cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy)
+        r_bwd = bilstm_scan_bwd_plain(*args, *ref[1:], gy)
+        s_f = cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2],
+                                    gy[..., :H].contiguous(), False)
+        s_b = cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4],
+                                    gy[..., H:].contiguous(), True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
+              f"bilstm_bwd {name}: two runs differ")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(bwd, (s_f[0], s_b[0], s_f[1], s_b[1]))),
+              f"bilstm_bwd {name}: not bit-equal to two lstm_bwd launches")
+        bb = BWD_BOUNDS[name]
+        berrs = {}
+        for k, g_, r_ in zip(("dxpf", "dxpb", "dUf", "dUb"), bwd, r_bwd):
+            mx, mean = _errs(g_, r_)
+            ref_max = r_.float().abs().max().item()
+            if k.startswith("dxp"):
+                lim = bb.get("dxp_max", bb.get("dxp_rel", 0) * ref_max)
+                ok = mx <= lim and mean <= bb["dxp_mean"]
+            else:
+                lim = bb["du_rel"] * ref_max
+                ok = mx <= lim
+            berrs[k] = (mx, mean, lim)
+            check(ok, f"bilstm_bwd {name}: {k} max {mx} mean {mean} out of "
+                      f"bounds ({lim}, {bb})")
+        kb_ms, pb_ms = in_turns(
+            lambda: bilstm_scan_bwd_plain(*args, *ref[1:], gy),
+            lambda: cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy), 1, 10)
+        gyf, gyb = gy[..., :H].contiguous(), gy[..., H:].contiguous()
+        two_b_ms = time_ms(
+            lambda: (cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2], gyf,
+                                           False),
+                     cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4], gyb,
+                                           True)), 10)
+        bb_ms, bb_by = bound_ms(f_bwd, io_bwd, name)
+        case.update(bwd_errors=berrs, bwd_ms=kb_ms, bwd_plain_ms=pb_ms,
+                    two_lstm_bwd_ms=two_b_ms, bwd_bound_ms=bb_ms,
+                    bwd_bound_by=bb_by)
+        print(f"[kernel] bilstm_bwd {tag}: " + ", ".join(
+            f"{k} max {v[0]:.3e} (bound {v[2]:.3e}) mean {v[1]:.3e}"
+            for k, v in berrs.items()) + f"; equal bits run to run and to 2 "
+            f"x lstm_bwd; kernel {kb_ms:.3f} ms (plain {pb_ms:.3f}, 2 x "
+            f"lstm_bwd {two_b_ms:.3f}, bound {bb_ms:.3f} {bb_by})")
+        cases.append(case)
+
+    lib = phase_library(dev, bidirectional=True)
+
+    # the layer at the flagship's first layer (input 512), float32
+    I = 512
+    g = torch.Generator().manual_seed(SEED + 2)
+    x0 = torch.randn(B, T, I, generator=g).to(dev)
+    p0 = {d: {"W": (torch.rand(I, 4 * H, generator=g) * 2 - 1) / math.sqrt(I),
+              "U": (torch.rand(H, 4 * H, generator=g) * 2 - 1) / math.sqrt(H),
+              "b": torch.randn(4 * H, generator=g) * 0.1}
+          for d in ("fwd", "bwd")}
+    gy = torch.randn(B, T, 2 * H, generator=g).to(dev)
+    grads, launches = {}, {}
+    for fuse in (True, False):
+        x = x0.clone().requires_grad_(True)
+        p = {d: {k: v.to(dev).requires_grad_(True) for k, v in q.items()}
+             for d, q in p0.items()}
+        reset_counts()
+        y = bilstm_layer(p, x, mask, fuse_directions=fuse)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        launches[fuse] = lstm_counts()
+        grads[fuse] = [y, x.grad] + [p[d][k].grad for d in ("fwd", "bwd")
+                                     for k in ("W", "U", "b")]
+    reset_counts()
+    with torch.no_grad():
+        y_inf = bilstm_layer(p, x0, mask, fuse_directions=True)
+    torch.cuda.synchronize()
+    launches["no_grad"] = lstm_counts()
+    zero = dict.fromkeys(lstm_counts(), 0)
+    check(launches[True] == {**zero, "bilstm_fwd_residual": 1,
+                             "bilstm_bwd": 1},
+          f"fused layer under autograd launched {launches[True]}")
+    check(launches["no_grad"] == {**zero, "bilstm_fwd": 1},
+          f"fused layer without grad launched {launches['no_grad']}")
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(grads[True], grads[False])]
+    equal = all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    inf_equal = torch.equal(y_inf, grads[True][0])
+    print(f"[kernel] bilstm_layer(fuse_directions=True) B={B} T={T} I={I} "
+          f"H={H} float32 vs fuse_directions=False: output and 8 gradients "
+          f"worst max|diff|/max {max(rel):.2e} (bound {TRAIN_GRAD_REL:.0e}), "
+          f"equal bits {equal}; inference form equal bits {inf_equal}; "
+          f"launches under autograd {launches[True]}, without "
+          f"{launches['no_grad']}")
+    check(max(rel) <= TRAIN_GRAD_REL and inf_equal,
+          f"fused layer disagrees with the unfused one: {rel}")
+    return {"cases": cases, "library": lib, "layer_launches": {
+        "autograd": launches[True], "no_grad": launches["no_grad"]},
+        "layer_worst_rel": max(rel), "layer_equal_bits": equal}
 
 
 def beam_inputs(dev):
@@ -1096,18 +1321,20 @@ def run_beam_predict(dev, corpus, model_dir, n_utts: int) -> int:
     return launches
 
 
-def flagship_batch(dev, label_len: int = 60, vocab: int = 28):
-    """B=64 utterances of 5 s (WAVE_SAMPLES, T=401 frames) with random
-    labels of 60 symbols (the length of 5 s of read English): int16 waves,
-    lengths, labels, label lengths on the device."""
+def flagship_batch(dev, label_len: int = 60, vocab: int = 28,
+                   batch: int = B):
+    """`batch` (default B=64) utterances of 5 s (WAVE_SAMPLES, T=401
+    frames) with random labels of 60 symbols (the length of 5 s of read
+    English): int16 waves, lengths, labels, label lengths on the device."""
     import torch
 
     g = torch.Generator().manual_seed(SEED)
-    wave = (torch.randn(B, WAVE_SAMPLES, generator=g) * 3000).to(torch.int16)
-    ns = torch.full((B,), WAVE_SAMPLES, dtype=torch.int32)
-    labels = torch.randint(1, vocab, (B, label_len), generator=g,
+    wave = (torch.randn(batch, WAVE_SAMPLES, generator=g) * 3000).to(
+        torch.int16)
+    ns = torch.full((batch,), WAVE_SAMPLES, dtype=torch.int32)
+    labels = torch.randint(1, vocab, (batch, label_len), generator=g,
                            dtype=torch.int32)
-    lens = torch.full((B,), label_len, dtype=torch.int32)
+    lens = torch.full((batch,), label_len, dtype=torch.int32)
     return tuple(a.to(dev) for a in (wave, ns, labels, lens))
 
 
@@ -1134,6 +1361,8 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
             model_dir, "--device", str(dev), "--seed", str(SEED)]
 
     cuda_lstm.LAUNCHES = cuda_lstm.RES_LAUNCHES = cuda_lstm.BWD_LAUNCHES = 0
+    cuda_lstm.BI_LAUNCHES = cuda_lstm.BI_RES_LAUNCHES = 0
+    cuda_lstm.BI_BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     rc, out = run_cli(argv + ["--num_epochs", "1"])
     torch.cuda.synchronize()
@@ -1357,6 +1586,8 @@ def reset_counts() -> None:
 
     c.LAUNCHES = c.RES_LAUNCHES = c.DKV_LAUNCHES = c.DQ_LAUNCHES = 0
     cuda_lstm.LAUNCHES = cuda_lstm.RES_LAUNCHES = cuda_lstm.BWD_LAUNCHES = 0
+    cuda_lstm.BI_LAUNCHES = cuda_lstm.BI_RES_LAUNCHES = 0
+    cuda_lstm.BI_BWD_LAUNCHES = 0
     cuda_beam.LAUNCHES = 0
     cuda_joint.FWD_LAUNCHES = cuda_joint.BWD_LAUNCHES = 0
 
@@ -1564,8 +1795,8 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
     encoder, 6 blocks, d_model 256, flash_attention; prediction net
     128/256, joint 256): the CLI (unfused joint: no joint launch), then
     train(config=...) with fused_joint (one joint_fwd and one joint_bwd
-    per step, one joint_fwd per dev batch), a CLI resume that keeps it,
-    predict refused; kernel vs plain gradients; one step with the BiLSTM
+    per step, one joint_fwd per dev batch), a CLI resume that keeps it;
+    kernel vs plain gradients; one step with the BiLSTM
     and the transformer encoders; the train step at B=64 x 5 s fused and
     unfused, float32 and bfloat16, in turns, with a device breakdown and
     the lattice loss timed alone."""
@@ -1668,19 +1899,6 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
     losses.update(train_losses=tl, val_losses=vl)
     print(f"[transducer train] resumed epoch 2 (CLI, no --model): launches "
           f"{counts['resume_fused']}; train losses {tl}, val losses {vl}")
-
-    # 4. predict on the trained transducer is refused
-    reset_counts()
-    try:
-        run_cli(["--mode", "predict", "--corpus_path", corpus,
-                 "--model_path", fused_dir, "--device", str(dev)])
-        refused = ""
-    except SystemExit as e:
-        refused = str(e)
-    check("not yet ported" in refused and "queue 1 item 3" in refused
-          and not os.path.exists(os.path.join(fused_dir, "predicted.txt")),
-          f"transducer predict was not refused: {refused!r}")
-    print(f"[transducer train] --mode predict refused: {refused}")
 
     # 5. one batch: loss and every parameter gradient, kernel vs plain path
     params, cfg0 = load_trained(fused_dir, dev, model={"dropout": 0.0},
@@ -1809,6 +2027,150 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
             "lattice_loss_device_ms": loss_dev}
 
 
+def phase_transducer_predict(dev, corpus, alphabet, model_dir):
+    """Transcription with the transducer phase 8 trained (conformer encoder,
+    flash_attention): `--mode predict` through the CLI, greedy (batch 32)
+    and beam (batch 128, K=16), with 6 flash_attn launches per batch and no
+    other kernel; one batch's labels on the kernel path against the plain
+    path; the encoder and each decoder timed apart at B=64 x 5 s (greedy)
+    and B=128 x 5 s (beam), host clock and device time."""
+    import re
+
+    import torch
+
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.decoding import cuda_beam
+    from pg_asr_tpu_torch.decoding.transducer import (
+        transducer_beam_decode, transducer_greedy_decode)
+    from pg_asr_tpu_torch.models import transducer
+    from pg_asr_tpu_torch.ops.features import extract_features
+
+    utts = load_manifest(os.path.join(corpus, "test.tsv"),
+                         os.path.join(corpus, "clips"))
+    per, K = 6, 16  # conformer blocks of the default width; the beam width
+
+    def others_zero():
+        return (sum(lstm_counts().values()) + cuda_beam.LAUNCHES
+                + sum(joint_counts().values())) == 0
+
+    counts, stats = {}, {}
+    for decoder, bs in (("greedy", 32), ("beam", 128)):
+        extra = ["--decoder", "beam"] if decoder == "beam" else []
+        n_batches = -(-len(utts) // bs)
+        path = os.path.join(model_dir, "predicted.txt")
+        if os.path.exists(path):
+            os.remove(path)
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                           "--model_path", model_dir, "--device", str(dev),
+                           *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[decoder] = flash_counts()["flash_attn"]
+        m = re.search(r"CER: (\S+) WER: (\S+)", out)
+        check(rc == 0 and m is not None, f"transducer predict {decoder} failed")
+        cer, wer = float(m.group(1)), float(m.group(2))
+        with open(path) as fo:
+            lines = fo.read().splitlines()
+        check(len(lines) == len(utts) and all("|" in ln for ln in lines)
+              and math.isfinite(cer) and math.isfinite(wer),
+              f"transducer predict {decoder}: {len(lines)} lines, CER {cer}, "
+              f"WER {wer}")
+        check(counts[decoder] == per * n_batches and others_zero()
+              and flash_counts()["flash_attn_residual"] == 0,
+              f"transducer predict {decoder}: flash_attn launches "
+              f"{counts[decoder]}, expected {per * n_batches} and no other "
+              "kernel")
+        stats[decoder] = {"cer": cer, "wer": wer, "wall_s": wall,
+                          "batches": n_batches}
+        print(f"[transducer predict] CLI --decoder {decoder}: {wall:.2f} s "
+              f"(host clock, includes WAV decode), {len(utts)} utterances in "
+              f"{n_batches} batches of <= {bs}; {counts[decoder]} flash_attn "
+              f"launches; CER {cer:.4f} WER {wer:.4f}")
+
+    # one batch: the kernel path against the plain path (use_kernel=False)
+    params, cfg = load_trained(model_dir, dev)
+    L = cfg.decode.max_label_len
+    batch = next(iter(BatchIterator(utts, alphabet, 32, shuffle=False)))
+    wave = torch.from_numpy(batch.wave).to(dev)
+    ns = torch.from_numpy(batch.num_samples).to(dev)
+    res = {}
+    with torch.inference_mode():
+        feats, mask, flens = extract_features(wave, ns, cfg.features)
+        for use_kernel in (True, False):
+            reset_counts()
+            enc, _, olens = transducer.encode(params, feats, mask, flens, cfg,
+                                              use_kernel=use_kernel)
+            res[use_kernel] = (
+                enc, transducer_greedy_decode(params, enc, olens, cfg,
+                                              max_label_len=L),
+                transducer_beam_decode(params, enc, olens, cfg, beam_size=K,
+                                       max_label_len=L),
+                flash_counts()["flash_attn"])
+    torch.cuda.synchronize()
+    (enc_k, g_k, b_k, n_k), (enc_p, g_p, b_p, n_p) = res[True], res[False]
+    enc_err = _errs(enc_k, enc_p)[0]
+    nll_rel = ((b_k[2] - b_p[2]).abs() / b_p[2].abs()).max().item()
+    print(f"[transducer predict] one batch of {wave.shape[0]}, kernel vs "
+          f"plain path (float32): encoder states max abs diff {enc_err:.2e}; "
+          f"greedy labels equal {torch.equal(g_k[0], g_p[0])}, beam labels "
+          f"equal {torch.equal(b_k[0], b_p[0])}, beam nll rel diff "
+          f"{nll_rel:.2e} (bound {TRANSDUCER_NLL_REL:.0e}); flash_attn "
+          f"launches {n_k} / {n_p}")
+    check(n_k == per and n_p == 0, f"flash_attn launches {n_k} / {n_p}")
+    check(all(torch.equal(a, b) for a, b in zip(g_k, g_p))
+          and torch.equal(b_k[0], b_p[0]) and torch.equal(b_k[1], b_p[1])
+          and nll_rel <= TRANSDUCER_NLL_REL,
+          "transducer decode: kernel path and plain path disagree")
+
+    # the encoder and each decoder apart: CUDA events for the encoder, host
+    # clock around a synchronised decode, device time from a profiler trace
+    timing = {}
+    for decoder, nb in (("greedy", B), ("beam", BEAM_B)):
+        wave, ns = flagship_batch(dev, vocab=alphabet.size, batch=nb)[:2]
+        with torch.inference_mode():
+            feats, mask, flens = extract_features(wave, ns, cfg.features)
+
+            def encode():
+                with torch.inference_mode():
+                    return transducer.encode(params, feats, mask, flens, cfg)
+
+            enc, _, olens = encode()
+
+            def decode():
+                with torch.inference_mode():
+                    if decoder == "beam":
+                        return transducer_beam_decode(
+                            params, enc, olens, cfg, beam_size=K,
+                            max_label_len=L)[:2]
+                    return transducer_greedy_decode(params, enc, olens, cfg,
+                                                    max_label_len=L)
+
+            enc_ms = time_ms(encode, 3)
+            decode()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels, lens = decode()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            dev_ms = sum(device_breakdown(decode, reps=1).values())
+        check(bool((lens >= 0).all()) and labels.shape == (nb, L),
+              f"transducer {decoder} decode output")
+        timing[decoder] = {"batch": nb, "encoder_ms": enc_ms,
+                           "decode_host_ms": host_ms,
+                           "decode_device_ms": dev_ms,
+                           "mean_labels": lens.float().mean().item()}
+        print(f"[transducer predict] {decoder} at B={nb} x 5 s (T'="
+              f"{ATTN_T}, K={K if decoder == 'beam' else 1}, float32): "
+              f"encoder {enc_ms:.2f} ms (CUDA events); decode {host_ms:.2f} "
+              f"ms host clock, {dev_ms:.2f} ms device time "
+              f"({1 - dev_ms / host_ms:.0%} idle); "
+              f"{timing[decoder]['mean_labels']:.1f} labels per utterance")
+    return {"launches": counts, "stats": stats, "enc_max_abs_diff": enc_err,
+            "beam_nll_rel": nll_rel, "timing": timing}
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
     """Kernel time per call of fn on the card, by group, from a
     torch.profiler trace of `reps` calls: flash_attn (the forward in either
@@ -1844,7 +2206,7 @@ def device_breakdown(fn, reps: int = 3) -> dict:
 
 
 def kernels_line(cases, lib, predict_launches, train_counts, attention,
-                 attention_train, tr):
+                 attention_train, tr, bi):
     def head(rows):
         return next(c for c in rows if c["dtype"] == "float32"
                     and not c["reverse"])
@@ -1892,7 +2254,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": lib["bwd_ms"],
         "cases": cases["bwd"],
-    }, {
+    }, *bilstm_rows(bi, src), {
         "name": "ctc_beam", "route": "cuda", "source": src + "ctc_beam.cu",
         "replaces": "pg_asr_tpu/decoding/pallas_beam.py:67",
         "launches": predict_launches[1],
@@ -2007,7 +2369,43 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
     }]
 
 
+def bilstm_rows(bi, src):
+    """The kernels line's rows 3 (both forms) and 4: launches from the
+    fused layer's runs in phase 3f (with counts set to 0 just before each),
+    float32 times."""
+    c = next(c for c in bi["cases"] if c["dtype"] == "float32")
+    lib = bi["library"]
+    note = ("cuDNN nn.LSTM(512, 256, bidirectional=True), which also does "
+            "the input projection")
+    rows = []
+    for name, key, lib_key, launches in (
+            ("bilstm_fwd", "fwd", "fwd_ms", bi["layer_launches"]["no_grad"]),
+            ("bilstm_fwd_residual", "res", "train_fwd_ms",
+             bi["layer_launches"]["autograd"]),
+            ("bilstm_bwd", "bwd", "bwd_ms", bi["layer_launches"]["autograd"])):
+        errs = c["bwd_errors" if key == "bwd" else "fwd_errors"]
+        two = {"fwd": "two_lstm_fwd_ms", "res": "two_lstm_fwd_residual_ms",
+               "bwd": "two_lstm_bwd_ms"}[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": src + ("bilstm_bwd.cu" if key == "bwd"
+                             else "bilstm_fwd.cu"),
+            "replaces": "pg_asr_tpu/ops/pallas_lstm.py:"
+                        + ("357" if key == "bwd" else "318"),
+            "launches": launches[name],
+            "max_abs_err": max(v[0] for k, v in errs.items()
+                               if k.startswith(("y", "h", "c", "dxp"))),
+            "ms": c[f"{key}_ms"], "plain_ms": c[f"{key}_plain_ms"],
+            "bound_ms": c[f"{key}_bound_ms"],
+            "bound_by": c[f"{key}_bound_by"], "library_ms": lib[lib_key],
+            "library_note": note, two: c[two],
+            "cases": bi["cases"] if key == "fwd" else None,
+        })
+    return rows
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     cases = phase_kernels(dev)
@@ -2015,6 +2413,7 @@ def main() -> int:
     cases["flash"] = phase_flash(dev)
     cases["flash_bwd"] = phase_flash_bwd(dev)
     cases["joint"] = phase_joint(dev)
+    bi = phase_bilstm(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
@@ -2027,15 +2426,18 @@ def main() -> int:
                                                          alphabet, d, family)
                            for family in ("conformer", "transformer")}
         tr = phase_transducer_train(dev, corpus, alphabet, d, cases["joint"])
+        tr["predict"] = phase_transducer_predict(
+            dev, corpus, alphabet, os.path.join(d, "transducer_fused"))
 
     import torch
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
     check(not bad, f"the port imported {bad}")
+    print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels_line(cases, lib, predict_launches,
                                               train_counts, attention,
-                                              attention_train, tr)}))
+                                              attention_train, tr, bi)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

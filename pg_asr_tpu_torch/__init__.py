@@ -8,14 +8,20 @@ not import JAX: what it needs of them (``config``, ``data``, ``metrics``,
 the CLI's flags) it keeps as its own copies.
 
 Ported so far: training (``--mode train``) and batch transcription
-(``--mode predict``, greedy or CTC prefix beam) of the BiLSTM-CTC,
-transformer-CTC and conformer-CTC families. On CUDA tensors the LSTM
-recurrence runs in hand-written kernels (``csrc/lstm_fwd.cu``, forward in
-its inference and residual forms; ``csrc/lstm_bwd.cu``, its gradient), as
-do the beam search (``csrc/ctc_beam.cu``) and, with ``flash_attention``,
-the attention (``csrc/flash_attn.cu``, forward in its inference and
-residual forms; ``csrc/flash_attn_bwd.cu``, its gradient); on CPU tensors
-the plain PyTorch versions of the same functions run.
+(``--mode predict``) of the BiLSTM-CTC, transformer-CTC and conformer-CTC
+families (greedy or CTC prefix beam) and of the RNN-T transducer (greedy or
+its own beam search, ``decoding/transducer.py``; any of the three
+encoders). On CUDA tensors the LSTM recurrence runs in hand-written kernels
+(``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
+``csrc/lstm_bwd.cu``, its gradient; and, for
+``bilstm_layer(fuse_directions=True)``, both directions in one walk,
+``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``), as do the CTC beam
+search (``csrc/ctc_beam.cu``), with ``flash_attention`` the attention
+(``csrc/flash_attn.cu``, forward in its inference and residual forms;
+``csrc/flash_attn_bwd.cu``, its gradient) and, with the transducer's
+``fused_joint``, its joint network and loss tables (``csrc/joint_fwd.cu``,
+``csrc/joint_bwd.cu``); on CPU tensors the plain PyTorch versions of the
+same functions run.
 """
 
 import torch

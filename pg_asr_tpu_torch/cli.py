@@ -15,10 +15,11 @@ The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
 is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so (the seq2seq and MoE models, and
-``--mode predict`` of a transducer, among them). ``--mode predict`` takes
-the model family and ``flash_attention`` from the model's config.json, as
-the JAX CLI does; a train run that resumes takes the family and its config
+exit with a message that says so (the seq2seq and MoE models among them).
+``--mode predict`` takes the model family (a transducer's encoder with it)
+and ``flash_attention`` from the model's config.json, as the JAX CLI does;
+for a transducer ``--decoder beam`` is its RNN-T beam search (width
+``--beam_size``; ``--beam_prune`` is ignored, as in the JAX CLI); a train run that resumes takes the family and its config
 from there too (the transducer's ``fused_joint`` included: no flag sets
 it, as in the JAX CLI; ``train.train(config=...)`` or a config.json does).
 """
@@ -38,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
         description="PyTorch/CUDA port of pg_asr_tpu (train and predict of "
-                    "the BiLSTM-CTC, transformer-CTC and conformer-CTC, and "
-                    "train of the RNN-T transducer, so far)")
+                    "the BiLSTM-CTC, transformer-CTC, conformer-CTC and "
+                    "RNN-T transducer, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -110,12 +111,14 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["greedy", "beam"])
     p.add_argument("--beam_size", type=int, default=None,
                    help="predict with --decoder beam: beam width (default "
-                        "16, config decode.beam_size)")
+                        "16, config decode.beam_size), of the CTC prefix "
+                        "beam or the transducer's beam")
     p.add_argument("--beam_prune", type=int, default=None,
                    help="predict with --decoder beam: cap the per-frame "
                         "candidate symbols to the top-M (default 6, config "
                         "decode.beam_prune); 0 for the exact search (all "
-                        "beam+2 candidates)")
+                        "beam+2 candidates). The transducer's beam ignores "
+                        "it")
     p.add_argument("--ckpt", type=str, default="best",
                    choices=("best", "last", "avg"))
     p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3])

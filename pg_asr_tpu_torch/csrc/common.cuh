@@ -1,5 +1,6 @@
-// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu,
-// flash_attn.cu, flash_attn_bwd.cu, joint_fwd.cu, joint_bwd.cu).
+// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, bilstm_fwd.cu,
+// bilstm_bwd.cu, ctc_beam.cu, flash_attn.cu, flash_attn_bwd.cu,
+// joint_fwd.cu, joint_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,7 +12,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
 // Error codes of our own; positive codes are cudaError_t values.
-constexpr int kErrUnsupportedH = -1;    // H above 2 x #SMs, or odd and above #SMs
+constexpr int kErrUnsupportedH = -1;    // LSTM units do not fit one block per SM
 constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-resident
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;

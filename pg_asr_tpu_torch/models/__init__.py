@@ -2,32 +2,26 @@
 pg_asr_tpu/models/__init__.py).
 
 Ported, trained and served: the flagship BiLSTM-CTC ("ctc"), the
-transformer-CTC ("transformer") and the conformer-CTC ("conformer");
-trained only: the RNN-T transducer ("transducer", models/transducer.py;
-its decoding is not ported). The attention families subsample time, so the
-dispatch returns the shorter output mask and lengths beside the log-probs;
-BiLSTM callers get their inputs back unchanged.
+transformer-CTC ("transformer"), the conformer-CTC ("conformer") and the
+RNN-T transducer ("transducer", models/transducer.py; decoded by
+decoding/transducer.py, not by the CTC-family dispatch below). The
+attention families subsample time, so the dispatch returns the shorter
+output mask and lengths beside the log-probs; BiLSTM callers get their
+inputs back unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
-_PORTED = ("ctc", "transformer", "conformer")
-_TRAIN_ONLY = {"transducer": "ROADMAP.md queue 1 item 3"}
+_PORTED = ("ctc", "transformer", "conformer", "transducer")
 _NOT_PORTED = {"seq2seq": "ROADMAP.md queue 1 item 10 (seq2seq)"}
 
 
-def check_family(family: str, train: bool = False) -> None:
-    """Raise unless the port serves and trains the model family; with
-    ``train`` the families the port only trains (the transducer) pass."""
-    if family in _PORTED or (train and family in _TRAIN_ONLY):
+def check_family(family: str) -> None:
+    """Raise unless the port serves and trains the model family."""
+    if family in _PORTED:
         return
-    if family in _TRAIN_ONLY:
-        raise NotImplementedError(
-            f"decoding with model family {family!r} (--mode predict) is not "
-            f"yet ported to pg_asr_tpu_torch (its training is); see "
-            f"{_TRAIN_ONLY[family]}")
     where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
     raise NotImplementedError(f"model family {family!r} is not yet ported "
                               f"to pg_asr_tpu_torch; see {where}")
@@ -56,7 +50,9 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
     for the attention families. train=True applies dropout with bits from
     `generator` (a torch.Generator on feats' device)."""
     family = cfg.model.family
-    check_family(family)
+    if family not in ("ctc", "transformer", "conformer"):
+        raise ValueError(f"{family!r} is not a CTC family: its forward is "
+                         "not acoustic_forward's")
     if family == "transformer":
         from . import transformer_ctc
 

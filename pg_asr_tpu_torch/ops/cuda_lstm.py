@@ -1,16 +1,19 @@
 """LSTM recurrence kernels written by hand in CUDA (csrc/lstm_fwd.cu,
-csrc/lstm_bwd.cu) and their wrappers.
+csrc/lstm_bwd.cu; the fused-direction csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu)
+and their wrappers.
 
 Replaces pg_asr_tpu/ops/pallas_lstm.py ``_kernel`` (inference form and the
-``train=True`` residual form) and ``_kernel_bwd``. Each launcher takes CUDA
-tensors only and launches its kernel or raises; ops/lstm.py chooses between
-a launcher and the plain PyTorch version by the tensor's device. There is
-no fallback from a kernel to its plain version.
+``train=True`` residual form) and ``_kernel_bwd``, and their fused-direction
+twins ``_kernel_bi`` (both forms) and ``_kernel_bi_bwd``. Each launcher
+takes CUDA tensors only and launches its kernel or raises; ops/lstm.py
+chooses between a launcher and the plain PyTorch version by the tensor's
+device. There is no fallback from a kernel to its plain version.
 
 Launch counts, so that a run can show its main path went through the
 kernels (each launcher adds one where it launches its kernel, nowhere else):
 ``LAUNCHES`` the inference form of lstm_fwd, ``RES_LAUNCHES`` its residual
-form, ``BWD_LAUNCHES`` lstm_bwd.
+form, ``BWD_LAUNCHES`` lstm_bwd; ``BI_LAUNCHES``, ``BI_RES_LAUNCHES`` and
+``BI_BWD_LAUNCHES`` the same three of bilstm_fwd / bilstm_bwd.
 """
 
 from __future__ import annotations
@@ -21,17 +24,24 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["BWD_LAUNCHES", "LAUNCHES", "RES_LAUNCHES", "lstm_scan_bwd_cuda",
-           "lstm_scan_cuda", "lstm_scan_residual_cuda"]
+__all__ = ["BI_BWD_LAUNCHES", "BI_LAUNCHES", "BI_RES_LAUNCHES",
+           "BWD_LAUNCHES", "LAUNCHES", "RES_LAUNCHES", "bilstm_scan_bwd_cuda",
+           "bilstm_scan_cuda", "bilstm_scan_residual_cuda",
+           "lstm_scan_bwd_cuda", "lstm_scan_cuda", "lstm_scan_residual_cuda"]
 
 LAUNCHES = 0
 RES_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BI_LAUNCHES = 0
+BI_RES_LAUNCHES = 0
+BI_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
     -1: "hidden size H not supported: one block per SM holds 1 or 2 hidden "
-        "units, so H must be <= #SMs, or even and <= 2 x #SMs",
+        "units (lstm_*: H <= #SMs, or even and <= 2 x #SMs) or, for both "
+        "directions, 1, 2 or 4 (bilstm_*: 2H <= #SMs, or H even and <= #SMs, "
+        "or H a multiple of 4 and <= 2 x #SMs; bilstm_bwd also H <= 512)",
     -2: "cooperative grid does not fit on the device (blocks not co-resident)",
     -3: "per-block shared memory above the device limit (batch too large)",
     -4: "unsupported dtype",
@@ -48,6 +58,10 @@ def _lib() -> ctypes.CDLL:
         lib.pgasr_lstm_fwd.restype = ci
         lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
         lib.pgasr_lstm_bwd.restype = ci
+        lib.pgasr_bilstm_fwd.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+        lib.pgasr_bilstm_fwd.restype = ci
+        lib.pgasr_bilstm_bwd.argtypes = [vp] * 15 + [ci] * 4 + [vp]
+        lib.pgasr_bilstm_bwd.restype = ci
         lib.pgasr_cuda_error_string.argtypes = [ci]
         lib.pgasr_cuda_error_string.restype = ctypes.c_char_p
         _declared = True
@@ -154,3 +168,91 @@ def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
     BWD_LAUNCHES += 1
     return dxp, dU
 
+
+def _check_bi(xpf, xpb, Uf, Ub, mask, name: str) -> tuple[int, int, int]:
+    """Validate the fused kernels' inputs: each direction as ``_check``,
+    the two of the same shape and type; returns (B, T, H)."""
+    shape = _check(xpf, Uf, mask, name)
+    if _check(xpb, Ub, mask, name) != shape or xpb.dtype != xpf.dtype:
+        raise ValueError(f"{name}: the two directions differ in shape or "
+                         f"type: {tuple(xpf.shape)} {xpf.dtype} vs "
+                         f"{tuple(xpb.shape)} {xpb.dtype}")
+    return shape
+
+
+def _bi_forward(xpf, xpb, Uf, Ub, mask, residuals: bool):
+    B, T, H = _check_bi(xpf, xpb, Uf, Ub, mask, "bilstm_fwd")
+    m = mask.to(torch.float32).contiguous()
+    dev = xpf.device
+    y = torch.empty(B, T, 2 * H, dtype=xpf.dtype, device=dev)
+    hbuf = torch.empty(2, 2, B, H, dtype=torch.float32, device=dev)
+    res = [None] * 4
+    if residuals:
+        hp = torch.empty(2, T, B, H, dtype=xpf.dtype, device=dev)
+        cp = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
+        res = [hp[0], cp[0], hp[1], cp[1]]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgasr_bilstm_fwd(
+            xpf.data_ptr(), xpb.data_ptr(), Uf.data_ptr(), Ub.data_ptr(),
+            m.data_ptr(), y.data_ptr(), hbuf.data_ptr(),
+            *(r.data_ptr() if residuals else None for r in res), B, T, H,
+            _DTYPES[xpf.dtype], stream)
+    _raise_on(rc, lib, "bilstm_fwd", B, T, H, xpf.dtype)
+    return y, res
+
+
+def bilstm_scan_cuda(xpf: torch.Tensor, xpb: torch.Tensor, Uf: torch.Tensor,
+                     Ub: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Launch bilstm_fwd, inference form -> y (B, T, 2H). Raises on
+    anything it does not take."""
+    global BI_LAUNCHES
+    y, _ = _bi_forward(xpf, xpb, Uf, Ub, mask, residuals=False)
+    BI_LAUNCHES += 1
+    return y
+
+
+def bilstm_scan_residual_cuda(xpf: torch.Tensor, xpb: torch.Tensor,
+                              Uf: torch.Tensor, Ub: torch.Tensor,
+                              mask: torch.Tensor):
+    """Launch bilstm_fwd, residual form -> (y (B,T,2H), hpf, cpf, hpb, cpb),
+    each (T,B,H), h in xp's type and c float32."""
+    global BI_RES_LAUNCHES
+    y, res = _bi_forward(xpf, xpb, Uf, Ub, mask, residuals=True)
+    BI_RES_LAUNCHES += 1
+    return (y, *res)
+
+
+def bilstm_scan_bwd_cuda(xpf: torch.Tensor, xpb: torch.Tensor,
+                         Uf: torch.Tensor, Ub: torch.Tensor,
+                         mask: torch.Tensor, hpf: torch.Tensor,
+                         cpf: torch.Tensor, hpb: torch.Tensor,
+                         cpb: torch.Tensor, gy: torch.Tensor):
+    """Launch bilstm_bwd -> (dxpf, dxpb (B,T,4H) in xp's type, dUf, dUb
+    (H,4H) in U's)."""
+    global BI_BWD_LAUNCHES
+    B, T, H = _check_bi(xpf, xpb, Uf, Ub, mask, "bilstm_bwd")
+    for name, t, dtype, shape in (("hpf", hpf, xpf.dtype, (T, B, H)),
+                                  ("cpf", cpf, torch.float32, (T, B, H)),
+                                  ("hpb", hpb, xpf.dtype, (T, B, H)),
+                                  ("cpb", cpb, torch.float32, (T, B, H)),
+                                  ("gy", gy, xpf.dtype, (B, T, 2 * H))):
+        if t.device != xpf.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape} on {xpf.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    m = mask.to(torch.float32).contiguous()
+    hpf, cpf, hpb, cpb, gy = (t.contiguous() for t in (hpf, cpf, hpb, cpb, gy))
+    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
+    dUf, dUb = torch.empty_like(Uf), torch.empty_like(Ub)
+    dbuf = torch.empty(2, 2, B, 4 * H, dtype=Uf.dtype, device=xpf.device)
+    lib = _lib()
+    with torch.cuda.device(xpf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgasr_bilstm_bwd(
+            *(t.data_ptr() for t in (xpf, xpb, Uf, Ub, m, hpf, cpf, hpb, cpb,
+                                     gy, dxpf, dxpb, dUf, dUb, dbuf)),
+            B, T, H, _DTYPES[xpf.dtype], stream)
+    _raise_on(rc, lib, "bilstm_bwd", B, T, H, xpf.dtype)
+    BI_BWD_LAUNCHES += 1
+    return dxpf, dxpb, dUf, dUb

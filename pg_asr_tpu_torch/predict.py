@@ -4,10 +4,12 @@ Loads model_best (or model_last), decodes every utterance of a test
 manifest, scores CER/WER and writes predicted.txt. Per batch: int16 waves go
 to the device, then features + acoustic forward + decode run there, and
 only the label ids come back. Ported: the CTC families (BiLSTM-CTC,
-transformer-CTC, conformer-CTC; the family and ``flash_attention`` come from
-the model's config.json) with the greedy decoder and the CTC prefix beam
-search (``decoder="beam"``, one kernel launch per batch on CUDA); LM fusion
-into the beam is not.
+transformer-CTC, conformer-CTC) with the greedy decoder and the CTC prefix
+beam search (``decoder="beam"``, one kernel launch per batch on CUDA), and
+the RNN-T transducer (any of the three encoders) with its greedy and beam
+decoders (decoding/transducer.py); the family, the transducer's encoder and
+``flash_attention`` come from the model's config.json. LM fusion into the
+beam is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
 from .decoding.beam import beam_decode
 from .decoding.greedy import greedy_decode, ids_to_strings
+from .decoding.transducer import (transducer_beam_decode,
+                                  transducer_greedy_decode)
 from .metrics import evaluate_corpus, save_predictions
 from .models import acoustic_forward, cast_params, check_family
+from .models import transducer
 from .models.bilstm_ctc import torch_dtype
 from .ops.features import extract_features
 
@@ -70,6 +75,48 @@ def forward(params, wave, num_samples, cfg: Config, use_kernel: bool = True):
                             use_kernel=use_kernel)
 
 
+@torch.inference_mode()
+def forward_transducer(params, wave, num_samples, cfg: Config,
+                       beam_size: int = 0, use_kernel: bool = True):
+    """Featurize + transducer encoder + batched decode on wave's device
+    (greedy, or the RNN-T beam search when beam_size > 0) -> (labels (B, L)
+    int32, lens (B,)); the counterpart of pg_asr_tpu/predict.py
+    ``_forward_transducer``."""
+    feats, mask, frame_lens = extract_features(wave, num_samples, cfg.features)
+    enc, _, out_lens = transducer.encode(params, feats, mask, frame_lens, cfg,
+                                         use_kernel=use_kernel)
+    L = cfg.decode.max_label_len
+    if beam_size > 0:
+        labels, lens, _ = transducer_beam_decode(
+            params, enc, out_lens, cfg, beam_size=beam_size, max_label_len=L)
+        return labels, lens
+    return transducer_greedy_decode(params, enc, out_lens, cfg,
+                                    max_label_len=L)
+
+
+def _check_options(family: str, decoder: str, lm_order: int,
+                   timestamps: bool) -> None:
+    """The JAX package's refusals of --timestamps and --lm_order for the
+    transducer (pg_asr_tpu/predict.py); for the CTC families both are not
+    yet ported."""
+    if family == "transducer":
+        if timestamps:
+            raise ValueError(
+                "--timestamps uses CTC emission peaks — greedy decoder only"
+                if decoder != "greedy" else
+                "--timestamps needs a CTC-family model (frame-synchronous "
+                "posteriors); the transducer decoder is label-synchronous")
+        if lm_order:
+            raise ValueError("LM shallow fusion is a CTC-beam feature; the "
+                             "transducer's prediction network IS its "
+                             "language model")
+    if lm_order:
+        raise not_ported("LM shallow fusion into the beam search "
+                         "(--lm_order)")
+    if timestamps:
+        raise not_ported("--timestamps")
+
+
 def predict(test_path: str, aud_path: str, alphabet_path: str,
             model_path: str, batch_size: int = 32,
             config: Config | None = None, decoder: str = "greedy",
@@ -82,7 +129,9 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
     decoder="beam": CTC prefix beam search of width beam_size (default
     cfg.decode.beam_size) with the per-frame top-M cap beam_prune (default
     cfg.decode.beam_prune; 0 = the exact search; an explicit value needs
-    decoder="beam" and is >= 2 or 0), as pg_asr_tpu/predict.py."""
+    decoder="beam" and is >= 2 or 0), as pg_asr_tpu/predict.py. For a
+    transducer, decoder="beam" is the RNN-T beam search of width beam_size,
+    and beam_prune is ignored, as in the JAX package."""
     if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}")
     if beam_prune is not None:
@@ -91,11 +140,6 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         if beam_prune != 0 and beam_prune < 2:
             raise ValueError("--beam_prune must be >= 2 (blank + one "
                              "symbol), or 0 for the exact search")
-    if lm_order:
-        raise not_ported("LM shallow fusion into the beam search "
-                         "(--lm_order)")
-    if timestamps:
-        raise not_ported("--timestamps")
     dev = resolve_device(device)
 
     cfg_peek = config
@@ -103,6 +147,8 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
     if cfg_peek is None and os.path.exists(cfg_path):
         with open(cfg_path) as fo:
             cfg_peek = Config.from_json(fo.read())
+    family = (cfg_peek or Config()).model.family
+    _check_options(family, decoder, lm_order, timestamps)
     if cfg_peek is not None and cfg_peek.text.units == "bpe":
         alphabet = load_tokenizer(os.path.dirname(alphabet_path), "bpe")
     else:
@@ -127,6 +173,13 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
         # int16 waves go to the device; only the (B, T) label ids come back
         wave = torch.from_numpy(batch.wave).to(dev)
         num_samples = torch.from_numpy(batch.num_samples).to(dev)
+        if family == "transducer":
+            labels, lens = forward_transducer(
+                params, wave, num_samples, cfg,
+                beam_size=beam_size if decoder == "beam" else 0)
+            predicted.extend(ids_to_strings(labels, lens, alphabet))
+            targets.extend(batch.texts)
+            continue
         log_probs, mask, out_lens = forward(params, wave, num_samples, cfg)
         with torch.inference_mode():
             if decoder == "beam":

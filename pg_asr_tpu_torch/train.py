@@ -58,7 +58,7 @@ def init_model_params(cfg: Config, generator: torch.Generator,
     initial parameters of the configured family, drawn on the CPU from
     `generator`, then moved and cast."""
     family = cfg.model.family
-    check_family(family, train=True)
+    check_family(family)
     if family == "transducer":
         return transducer.init_params(cfg, generator, device)
     if family == "transformer":
@@ -278,7 +278,7 @@ def batch_to_device(batch, device) -> tuple[torch.Tensor, ...]:
 def check_ported(cfg: Config, profile_steps: int = 0) -> None:
     """Refuse the training options that are not ported."""
     t = cfg.train
-    check_family(cfg.model.family, train=True)
+    check_family(cfg.model.family)
     refused = [
         (cfg.model.family == "transformer" and cfg.transformer.num_experts > 0,
          _MOE),

@@ -22,6 +22,10 @@ J products in another order, then a log-sum-exp); the gradients atol
 2e-5 x max|grad| in float32 (sums over up to B*T*(U+1) cells in another
 order), 2^-7 x max|grad| in bfloat16 (each is a float32 sum rounded once
 to bf16, so the two may round one ulp apart).
+The fused-direction kernels (bilstm_fwd, bilstm_bwd) hold the
+single-direction tolerances against their plain versions, and each
+direction equals a single-direction launch bit for bit (the same partial
+sums in the same order; see csrc/bilstm_fwd.cu).
 """
 
 import numpy as np
@@ -33,7 +37,9 @@ from pg_asr_tpu_torch.decoding import beam, cuda_beam
 from pg_asr_tpu_torch.models import bilstm_ctc
 from pg_asr_tpu_torch.ops import (cuda_flash_attn, cuda_joint, cuda_lstm,
                                   flash_attn, joint)
-from pg_asr_tpu_torch.ops.lstm import (LSTMScan, lstm_scan,
+from pg_asr_tpu_torch.ops.lstm import (LSTMScan, bilstm_layer,
+                                       bilstm_scan_bwd_plain,
+                                       bilstm_scan_plain, lstm_scan,
                                        lstm_scan_bwd_plain, lstm_scan_plain)
 
 
@@ -751,3 +757,190 @@ def test_transducer_train_gradients_kernel_match_plain(cuda, encoder):
     for k in g_p:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-3,
                                    atol=float(1e-4 * g_p[k].abs().max()))
+
+
+# --- fused-direction BiLSTM: csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu
+
+def _bi_counts():
+    return (cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
+            cuda_lstm.BWD_LAUNCHES, cuda_lstm.BI_LAUNCHES,
+            cuda_lstm.BI_RES_LAUNCHES, cuda_lstm.BI_BWD_LAUNCHES)
+
+
+def _bi_case(cuda, B, T, H, dtype, seed):
+    xpf, Uf, mask, gyf = _case(cuda, B, T, H, dtype, seed)
+    xpb, Ub, _, gyb = _case(cuda, B, T, H, dtype, seed + 1)
+    return xpf, xpb, Uf, Ub, mask, torch.cat([gyf, gyb], -1)
+
+
+# blocks hold 1 (H=64), 2 (H=100) or 4 (H=256, 200) hidden units of one
+# direction; B=70 takes two passes of the block's row loops
+BI_SHAPES = [(5, 37, 64), (4, 13, 100), (3, 11, 256), (2, 9, 200),
+             (70, 5, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("B,T,H", BI_SHAPES)
+def test_bilstm_fwd_kernel_matches_plain(cuda, B, T, H, dtype, atol):
+    xpf, xpb, Uf, Ub, mask, _ = _bi_case(cuda, B, T, H, dtype, H + T)
+    before = _bi_counts()
+    y = cuda_lstm.bilstm_scan_cuda(xpf, xpb, Uf, Ub, mask)
+    res = cuda_lstm.bilstm_scan_residual_cuda(xpf, xpb, Uf, Ub, mask)
+    torch.cuda.synchronize()
+    assert _bi_counts() == (*before[:3], before[3] + 1, before[4] + 1,
+                            before[5])
+    assert y.dtype == dtype and y.shape == (B, T, 2 * H)
+    assert torch.equal(res[0], y)
+    ref = bilstm_scan_plain(xpf, xpb, Uf, Ub, mask, residuals=True)
+    for got, want in zip(res, ref):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+    # each direction equals a single-direction launch bit for bit
+    sf = cuda_lstm.lstm_scan_residual_cuda(xpf, Uf, mask, False)
+    sb = cuda_lstm.lstm_scan_residual_cuda(xpb, Ub, mask, True)
+    assert torch.equal(y, torch.cat([sf[0], sb[0]], -1))
+    for got, want in zip(res[1:], (*sf[1:], *sb[1:])):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,H", BI_SHAPES)
+def test_bilstm_bwd_kernel_matches_plain(cuda, B, T, H, dtype, rel):
+    """Given the plain forward's residuals, as the single-direction test."""
+    xpf, xpb, Uf, Ub, mask, gy = _bi_case(cuda, B, T, H, dtype, 7 * H + T)
+    _, *res = bilstm_scan_plain(xpf, xpb, Uf, Ub, mask, residuals=True)
+    before = cuda_lstm.BI_BWD_LAUNCHES
+    got = cuda_lstm.bilstm_scan_bwd_cuda(xpf, xpb, Uf, Ub, mask, *res, gy)
+    again = cuda_lstm.bilstm_scan_bwd_cuda(xpf, xpb, Uf, Ub, mask, *res, gy)
+    torch.cuda.synchronize()
+    assert cuda_lstm.BI_BWD_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = bilstm_scan_bwd_plain(xpf, xpb, Uf, Ub, mask, *res, gy)
+    for g, want in zip(got, ref):
+        assert g.dtype == dtype and g.shape == want.shape
+        tol = (1e-5 if dtype == torch.float32 and g.dim() == 3
+               else rel * want.float().abs().max())
+        torch.testing.assert_close(g.float(), want.float(), rtol=0,
+                                   atol=float(tol))
+    single = (*cuda_lstm.lstm_scan_bwd_cuda(xpf, Uf, mask, *res[:2],
+                                            gy[..., :H].contiguous(), False),
+              *cuda_lstm.lstm_scan_bwd_cuda(xpb, Ub, mask, *res[2:],
+                                            gy[..., H:].contiguous(), True))
+    for g, want in zip(got, (single[0], single[2], single[1], single[3])):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+def test_bilstm_launchers_reject_bad_inputs(cuda):
+    xp = torch.zeros(2, 3, 64, device=cuda)
+    U = torch.zeros(16, 64, device=cuda)
+    mask = torch.ones(2, 3, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_lstm.bilstm_scan_cuda(xp.cpu(), xp.cpu(), U.cpu(), U.cpu(),
+                                   mask.cpu())
+    with pytest.raises(ValueError, match="differ"):
+        cuda_lstm.bilstm_scan_cuda(xp, xp.bfloat16(), U, U.bfloat16(), mask)
+    with pytest.raises(TypeError):
+        cuda_lstm.bilstm_scan_cuda(xp, xp, U, U.bfloat16(), mask)
+    # H above 4 hidden units per SM's block: refused, not launched
+    H = 4 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    before = _bi_counts()
+    with pytest.raises(RuntimeError, match="hidden size"):
+        x = torch.zeros(1, 2, 4 * H, device=cuda)
+        u = torch.zeros(H, 4 * H, device=cuda)
+        cuda_lstm.bilstm_scan_cuda(x, x, u, u, torch.ones(1, 2, device=cuda))
+    assert _bi_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_layer_fused_autograd_launches_the_kernels(cuda, dtype):
+    """bilstm_layer(fuse_directions=True) under autograd: one residual
+    bilstm_fwd and one bilstm_bwd launch, no single-direction launch; its
+    output and the gradients of x, W, U and b equal the unfused layer's
+    (each direction equals a single-direction launch bit for bit)."""
+    rng = np.random.default_rng(11)
+    B, T, I, H = 6, 23, 48, 256
+    lens = np.array([23, 1, 9, 17, 23, 4])
+    mask = torch.from_numpy(np.arange(T)[None] < lens[:, None]).to(
+        cuda, torch.float32)
+    x0 = torch.from_numpy(rng.standard_normal((B, T, I))).to(cuda, dtype)
+    p0 = {d: {"W": torch.from_numpy(rng.uniform(-1, 1, (I, 4 * H)) / 8),
+              "U": torch.from_numpy(rng.uniform(-1, 1, (H, 4 * H)) / 16),
+              "b": torch.from_numpy(rng.standard_normal(4 * H) / 4)}
+          for d in ("fwd", "bwd")}
+    gy = torch.from_numpy(rng.standard_normal((B, T, 2 * H))).to(cuda, dtype)
+    out = {}
+    for fuse in (True, False):
+        x = x0.clone().requires_grad_(True)
+        p = {d: {k: v.to(cuda, dtype).requires_grad_(True)
+                 for k, v in q.items()} for d, q in p0.items()}
+        before = _bi_counts()
+        y = bilstm_layer(p, x, mask, fuse_directions=fuse)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(_bi_counts(), before))
+        assert delta == ((0, 0, 0, 0, 1, 1) if fuse else (0, 2, 2, 0, 0, 0))
+        out[fuse] = [y, x.grad] + [p[d][k].grad for d in ("fwd", "bwd")
+                                   for k in ("W", "U", "b")]
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        before = _bi_counts()
+        y = bilstm_layer(p, x0, mask, fuse_directions=True)
+        assert _bi_counts()[3] == before[3] + 1
+        assert torch.equal(y, out[True][0])
+
+
+# --- transducer decoding on the card vs the CPU (plain PyTorch both)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["bilstm", "conformer"])
+def test_transducer_decode_on_card_matches_cpu(cuda, encoder):
+    """Greedy and beam (K=4) of a small transducer, from features through
+    its encoder: the card's labels and lens equal the CPU's, the beam's nll
+    within rtol 1e-5 (float32 sums in other orders; joint_out.w scaled x4
+    keeps the argmaxes apart). The BiLSTM encoder runs lstm_fwd on the
+    card, the conformer's flash_attention the flash kernel."""
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         TransducerConfig)
+    from pg_asr_tpu_torch.decoding import transducer as dec
+    from pg_asr_tpu_torch.models import transducer
+
+    cfg = Config(
+        model=ModelConfig(family="transducer", vocab_size=9,
+                          input_proj_dim=32, hidden_size=16, num_layers=2,
+                          dropout=0.0),
+        conformer=ConformerConfig(num_layers=2, d_model=64, num_heads=2,
+                                  ffn_dim=128, dropout=0.0,
+                                  flash_attention=True),  # head dim 32
+        transducer=TransducerConfig(encoder=encoder, pred_embed_dim=8,
+                                    pred_hidden=16, joint_dim=32))
+    params = transducer.init_params(cfg, torch.Generator().manual_seed(0))
+    params["joint_out.w"] = params["joint_out.w"] * 4
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((4, 60, 80)).astype(
+        np.float32))
+    flens = torch.tensor([60, 31, 1, 47])
+    fmask = (torch.arange(60)[None] < flens[:, None]).float()
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        with torch.no_grad():
+            enc, _, olens = transducer.encode(
+                p, feats.to(dev), fmask.to(dev), flens.to(dev), cfg)
+            out[str(dev)] = (
+                dec.transducer_greedy_decode(p, enc, olens, cfg,
+                                             max_label_len=32),
+                dec.transducer_beam_decode(p, enc, olens, cfg, beam_size=4,
+                                           max_label_len=32))
+    (g_cpu, b_cpu), (g_gpu, b_gpu) = out["cpu"], out[str(cuda)]
+    for a, b in zip(g_gpu + b_gpu[:2], g_cpu + b_cpu[:2]):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(b_gpu[2].cpu(), b_cpu[2], rtol=1e-5, atol=0)
+    assert g_cpu[1].sum() > 0

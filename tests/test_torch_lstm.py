@@ -92,9 +92,15 @@ def test_bilstm_layer_matches_jax():
     assert got.shape == (B, T, 2 * H)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="fuse_directions"):
-        bilstm_layer(tparams, torch.from_numpy(x), torch.from_numpy(mask),
-                     fuse_directions=True)
+    # fuse_directions: both directions in one walk, the same function
+    ref = jax_bilstm_layer(jax.tree_util.tree_map(jnp.asarray, params),
+                           jnp.asarray(x), jnp.asarray(mask),
+                           fuse_directions=True)
+    fused = bilstm_layer(tparams, torch.from_numpy(x), torch.from_numpy(mask),
+                         fuse_directions=True)
+    np.testing.assert_allclose(fused.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(fused, got, rtol=0, atol=0)
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():

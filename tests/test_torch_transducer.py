@@ -36,7 +36,7 @@ from pg_asr_tpu.ops.features import extract_features
 from pg_asr_tpu_torch import cli
 from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.convert import params_from_jax, params_to_jax
-from pg_asr_tpu_torch.data import make_synthetic_corpus
+from pg_asr_tpu_torch.data import load_manifest, make_synthetic_corpus
 from pg_asr_tpu_torch.models import cast_params, transducer
 from pg_asr_tpu_torch.ops import transducer as ops
 from pg_asr_tpu_torch.ops.lstm import lstm_scan_plain
@@ -424,7 +424,8 @@ def test_cli_train_then_resume_then_predict_is_refused(tiny_corpus, tmp_path,
     """--model transducer with a BiLSTM encoder and the hybrid CTC head
     through the CLI (full default width, dropout on), a resumed second
     epoch that omits --model and keeps the transducer's config, then
-    --mode predict exits "not yet ported" (ROADMAP queue 1 item 3)."""
+    --mode predict on the trained model, greedy and beam (predicted.txt,
+    CER/WER); --lm_order is refused with the JAX package's message."""
     model = str(tmp_path / "model")
     argv = ["--mode", "train", "--corpus_path", tiny_corpus, "--model_path",
             model, "--batch_size", "4", "--device", "cpu"]
@@ -450,13 +451,19 @@ def test_cli_train_then_resume_then_predict_is_refused(tiny_corpus, tmp_path,
     assert state["params"]["joint_out.w"].shape == (256, vocab)
     assert "ctc_head.w" in state["params"]
 
+    predict = ["--mode", "predict", "--corpus_path", tiny_corpus,
+               "--model_path", model, "--device", "cpu"]
+    n_test = len(load_manifest(os.path.join(tiny_corpus, "test.tsv"),
+                               os.path.join(tiny_corpus, "clips")))
+    for extra in ([], ["--decoder", "beam", "--beam_size", "2"]):
+        assert cli.main(predict + extra) == 0
+        assert "CER:" in capsys.readouterr().out
+        with open(os.path.join(model, "predicted.txt")) as fo:
+            lines = fo.read().splitlines()
+        assert len(lines) == n_test and all("|" in ln for ln in lines)
     with pytest.raises(SystemExit) as e:
-        cli.main(["--mode", "predict", "--corpus_path", tiny_corpus,
-                  "--model_path", model, "--device", "cpu"])
-    msg = str(e.value)
-    assert "not yet ported" in msg and "transducer" in msg
-    assert "queue 1 item 3" in msg
-    assert not os.path.exists(os.path.join(model, "predicted.txt"))
+        cli.main(predict + ["--decoder", "beam", "--lm_order", "2"])
+    assert "IS its language model" in str(e.value)
 
 
 def test_resume_keeps_fused_joint_from_config_json(tiny_corpus, tmp_path,
