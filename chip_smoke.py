@@ -34,9 +34,12 @@ the CPU or to a kernel's plain version):
      flash_attn_bwd_dq against mhsa_bwd_plain on the same l, m and a
      random output gradient: max and mean abs errors relative to max|grad|
      against stated bounds (in bf16 a control without the rounding of p
-     and ds must exceed the mean bound), CUDA-event times in turns, each
-     kernel's bound, and the backward of F.scaled_dot_product_attention
-     (its autograd.grad minus its forward) as the yardstick.
+     and ds must exceed the mean bound), CUDA-event times in turns (the
+     backward kernels' launches queued behind a sleep kernel, so that the
+     card's time is measured, not the host's launches), each kernel's
+     bound, the share of 64 x 64 tile pairs the kernels skip, and the
+     backward as FlashAttention runs it (di, dkv, dq) beside that of
+     F.scaled_dot_product_attention (its autograd.grad minus its forward).
   3e. fused RNN-T joint: joint_fwd and joint_bwd vs their plain versions
      (ops/joint.fused_joint_plain, fused_joint_bwd_plain) at the
      transducer's train shape at B=64 x 5 s (T'=201, U+1=61, J=256, A=28),
@@ -268,10 +271,38 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
+def device_ms(fn, reps: int) -> float:
+    """As time_ms, but the launches queue behind a sleep kernel long enough
+    for the host to enqueue all of them: the events then time the card's
+    work back to back, not the rate at which Python launches kernels of
+    tens of microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 100000)  # > 2 x host_s at 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(plain, kernel, plain_reps: int, kernel_reps: int,
+             kernel_timer=time_ms):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
-    p1, k1 = time_ms(plain, plain_reps), time_ms(kernel, kernel_reps)
-    k2, p2 = time_ms(kernel, kernel_reps), time_ms(plain, plain_reps)
+    p1 = time_ms(plain, plain_reps)
+    k1 = kernel_timer(kernel, kernel_reps)
+    k2 = kernel_timer(kernel, kernel_reps)
+    p2 = time_ms(plain, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -903,13 +934,17 @@ def phase_flash_bwd(dev):
     import torch.nn.functional as F
 
     from pg_asr_tpu_torch.ops import cuda_flash_attn
-    from pg_asr_tpu_torch.ops.flash_attn import mhsa_bwd_plain, mhsa_plain
+    from pg_asr_tpu_torch.ops.flash_attn import (kept_tile_pairs,
+                                                 mhsa_bwd_cuda,
+                                                 mhsa_bwd_plain, mhsa_plain)
 
     scale = ATTN_DH ** -0.5
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         q, k, v, valid, lens = attn_inputs(dev, dtype)
+        # the (query tile, key tile) pairs the kernels skip
+        skipped = 1.0 - kept_tile_pairs(valid).float().mean().item()
         s = q.element_size()
         # --- the residual form
         o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
@@ -964,15 +999,23 @@ def phase_flash_bwd(dev):
             c = mhsa_bwd_plain(q, k.float(), v, valid, r_o, r_l, r_m,
                                do.float(), scale)
             ctrl = min(_rel_errs(a, w)[1] for a, w in zip(c, want))
+        # kernels of tens of microseconds: device_ms, so that the host's
+        # launches do not set the pace
         dkv_ms, dkv_plain = in_turns(
             lambda: mhsa_bwd_plain(*args[:4], r_o, r_l, r_m, do, scale),
-            lambda: cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args), 10, 50)
+            lambda: cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args), 10, 50,
+            device_ms)
         dq_ms, dq_plain = in_turns(
             lambda: mhsa_bwd_plain(*args[:4], r_o, r_l, r_m, do, scale),
-            lambda: cuda_flash_attn.flash_attn_bwd_dq_cuda(*args), 10, 50)
-        sdpa_fwd = time_ms(sdpa, 50)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do),
-                           50) - sdpa_fwd
+            lambda: cuda_flash_attn.flash_attn_bwd_dq_cuda(*args), 10, 50,
+            device_ms)
+        # the backward as FlashAttention runs it (di, dkv, dq) against
+        # SDPA's, which also computes its own di
+        bwd_ms = device_ms(lambda: mhsa_bwd_cuda(*args[:4], r_o, r_l, r_m,
+                                                 do, scale), 50)
+        sdpa_fwd = time_ms(sdpa, 50)  # row 8r's yardstick
+        sdpa_bwd = (device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do),
+                              50) - device_ms(sdpa, 50))
         # operations on the pairs the segment mask leaves: dkv computes s,
         # dp and its shares of dv and dk (4 dot products of dh, 8 dh
         # flops), dq s, dp and dq (6 dh). Bytes: q, k, v, do, l, m, di and
@@ -988,7 +1031,9 @@ def phase_flash_bwd(dev):
                 "res_bound_by": b_res[1], "sdpa_train_fwd_ms": sdpa_fwd,
                 "errors_rel_to_max": errs, "bound": bd,
                 "control_mean_rel_err": ctrl, "dkv_ms": dkv_ms,
-                "dq_ms": dq_ms, "plain_bwd_ms": (dkv_plain + dq_plain) / 2,
+                "dq_ms": dq_ms, "bwd_ms": bwd_ms,
+                "skipped_tile_pairs": skipped,
+                "plain_bwd_ms": (dkv_plain + dq_plain) / 2,
                 "dkv_bound_ms": b_dkv[0], "dkv_bound_by": b_dkv[1],
                 "dq_bound_ms": b_dq[0], "dq_bound_by": b_dq[1],
                 "sdpa_bwd_ms": sdpa_bwd}
@@ -1007,8 +1052,10 @@ def phase_flash_bwd(dev):
               + f"; dkv {dkv_ms:.4f} ms (bound {b_dkv[0]:.4f}, "
               f"{b_dkv[1]}), dq {dq_ms:.4f} ms (bound {b_dq[0]:.4f}, "
               f"{b_dq[1]}), plain backward (all three) "
-              f"{case['plain_bwd_ms']:.4f} ms; "
-              f"F.scaled_dot_product_attention backward {sdpa_bwd:.4f} ms")
+              f"{case['plain_bwd_ms']:.4f} ms; di + dkv + dq "
+              f"(FlashAttention.backward) {bwd_ms:.4f} ms; "
+              f"F.scaled_dot_product_attention backward {sdpa_bwd:.4f} ms; "
+              f"{skipped:.4f} of the 64 x 64 tile pairs skipped")
         for n, (mx, mean) in errs.items():
             check(mx <= bd["max"] and mean <= bd["mean"],
                   f"flash_attn_bwd {name}: {n} max {mx}, mean {mean} > {bd}")

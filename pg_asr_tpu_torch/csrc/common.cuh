@@ -19,6 +19,7 @@ constexpr int kErrDtype = -4;
 constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
 constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim other than 32 or 64
 constexpr int kErrVocab = -7;           // joint_fwd/_bwd: vocab size outside 1 .. 32
+constexpr int kErrAlignment = -8;       // flash_attn_bwd: an input not 16-byte aligned
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -60,6 +61,65 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* src,
     const int t = t0 + r;
     dst[r * ld + c] = t < Tn ? to_f32<T>(src[(long long)t * st + c]) : 0.0f;
   }
+}
+
+// --- Ampere/Hopper building blocks of the tensor-core kernels
+// (flash_attn_bwd.cu)
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async.cg: cached in L2 only); with `valid` false nothing is read and
+// the 16 bytes are zeroed. Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits for every cp.async group this thread committed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory: lanes 8i .. 8i+7
+// give the addresses of matrix i's rows (16 bytes each); r[i] receives row
+// lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1 of matrix i, or with
+// the .trans form the same of its transpose.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a . b on the tensor cores, one warp: a 16 x 16 (row-major fragment
+// a[4]), b 16 x 8 (column-major fragment b0, b1), both bfloat16; d 16 x 8
+// float32. Fragments as the PTX ISA's mma.m16n8k16 lays them out, with
+// g = lane / 4, c = 2 (lane % 4): a[0] row g, columns c, c+1; a[1] row
+// g+8; a[2] row g, columns c+8, c+9; a[3] row g+8, columns c+8, c+9;
+// b0 rows c, c+1 of column g; b1 rows c+8, c+9; d[0], d[1] row g, columns
+// c, c+1; d[2], d[3] row g+8.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to nearest-even bfloat16, `lo` in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }

@@ -13,13 +13,15 @@
 // Their plain version is pg_asr_tpu_torch/ops/flash_attn.py:mhsa_bwd_plain.
 // Contract:
 //   q, k, v, do  (B, H, T, dh) float32 or bfloat16, any (batch, head, time)
-//                strides in elements, the dh axis contiguous
+//                strides in elements, the dh axis contiguous; each start
+//                and each of those strides a multiple of 16 bytes (the
+//                launcher copies an input that is not)
 //   seg          (B, T) int32, contiguous; query i attends key j iff
 //                seg[b, i] == seg[b, j]
 //   l, m, di     (B, H, T) float32, contiguous: the forward's row sum and
 //                row max (csrc/flash_attn.cu, residual form) and
 //                di = sum(o . do) over dh
-//   dq, dk, dv   (B, H, T, dh) in q's type, strides as given
+//   dq, dk, dv   (B, H, T, dh) in q's type, strides as given (even)
 //   dh = 32 or 64 (a template parameter); any T >= 1.
 //
 // Numerics, as the Pallas kernels: s = (q . k in float32) * scale plus
@@ -35,39 +37,83 @@
 // leaves and per head, dkv does four dh-long dot products (s, dp, and its
 // shares of dv and dk: 8 dh flops) and dq three (6 dh). At the conformer's
 // shapes (B=64, H=4, T'=201, dh=64, ragged) that is ~3.6 and ~2.7 GFLOP
-// against ~80 MB and ~67 MB (float32): the float32 operations bound both
-// (~0.05 ms at 67 TFLOP/s); in bfloat16 the bytes would, but the kernels
-// compute in float32 on CUDA cores in both types, so the float32
-// operation rate is their limit.
+// against ~40 MB and ~34 MB in bfloat16 (twice that in float32): in
+// float32 the operations on CUDA cores bound both (~0.05 ms at 67
+// TFLOP/s), in bfloat16 the bytes (~0.01 ms at 3.35 TB/s). At T'=201 a
+// block walks at most 4 tiles, so both are bound by latency and
+// occupancy long before the tensor cores' issue rate.
 //
-// What the design does about it: the forward's 16 x 16 thread grid and
-// 4 x 4 register tiles. dkv: one block per (64-key tile, head, utterance);
-// its k and v tiles stay in shared memory while it walks the query tiles,
-// staging q, do and the rows' m, 1/l, di; each thread owns 4 keys (ty +
-// 16 i) x 4 queries (tx + 16 j) of the s^T and dp^T tiles, and 4 keys x
-// dh/16 columns of the dk and dv accumulators, which stay in registers
-// for the whole walk. dq: one block per (64-query tile, head, utterance);
-// q, do and the rows' m, 1/l, di stay while it walks the key tiles; each
-// thread owns 4 queries x 4 keys of s and dp and 4 queries x dh/16
-// columns of dq. p^T and ds^T (dkv) and ds (dq) pass through shared
-// memory between the two products. No atomics: each output row is summed
-// by one block, so the result is deterministic. Rows are padded by 4
-// floats against bank conflicts; the tiles take 103 KB (dkv) and 85 KB
-// (dq) of shared memory at dh=64, above the 48 KB default, so the launch
-// opts in. Tensor cores, TMA and a fused single-pass backward are later
-// work.
+// Design. Both kernels work on 64-row tiles: dkv holds a key tile and walks
+// the query tiles, dq holds a query tile and walks the key tiles. Each
+// output row is summed by one block (no atomics): the results are the same
+// bits run to run. Both skip a (query tile, key tile) pair whose rows'
+// segment-id ranges are disjoint (tile_flags, the rule of ops/flash_attn.py
+// kept_tile_pairs): no pair of rows there shares a segment, every p and ds
+// is exactly 0, and skipping changes no bit. Tiles arrive by 16-byte
+// cp.async.
+//
+// bfloat16, on the tensor cores: 4 warps, each owning 16 rows of the held
+// tile (keys in dkv, queries in dq). The tiles stay bf16 in shared memory,
+// rows padded by 8 elements so that ldmatrix is free of bank conflicts;
+// the walked tiles (q and do in dkv, k and v in dq) are double-buffered,
+// the next kept tile's copy in flight while the current one is computed,
+// and the walked rows' m, 1/l, di and segment ids are fetched into
+// registers a tile ahead. All five products are mma.sync m16n8k16 (bf16
+// operands, float32 accumulators), over chunks of 32 walked rows: s and dp
+// from ldmatrix fragments; p and ds formed in registers from the
+// accumulator fragments, rounded to bf16 pairs and fed straight back as
+// the A operand of dv += p^T . do and dk += ds^T . q (dkv) or dq += ds . k
+// (dq), the B operands by ldmatrix.trans. So p and ds round exactly where
+// the library rounds them, never pass through shared memory, and only the
+// float32 summation order differs from the plain version. MMAs whose 16
+// rows or 8 columns lie wholly beyond T are skipped (T'=201 computes 208
+// rows, not 256). Shared memory: 57 KB (dkv) and 55 KB (dq) at dh=64, so
+// 3 and 4 blocks per SM; the launch bounds hold the registers to that
+// (nvcc -Xptxas -v on the H100 host, kernel_ab.py flash_bwd: dkv 168 and
+// dq 128 registers at dh=64, 140 and 105 at dh=32, no spills; cuobjdump
+// counts 128 and 96 HMMA at dh=64). More blocks per SM (16-row chunks, or
+// 128 registers with spills), fewer (64-row chunks, or k/v fragments held
+// in registers) and a per-warp skip of 16 x 32 blocks all ran slower or
+// no faster on the card. mma.sync, not wgmma + TMA: at 4 tiles per block
+// the 64-row asynchronous warpgroup pipeline has nothing to overlap; it is
+// the next step if the MMA rate becomes the limit.
+//
+// float32, on CUDA cores (TF32 would move the results past the bounds the
+// port holds them to): a 16 x 16 thread grid with 4 x 4 register tiles.
+// dkv: its k and v tiles stay in shared memory while it walks the query
+// tiles, staging q, do and the rows' m, 1/l, di and segment ids; each
+// thread owns 4 keys (ty + 16 i) x 4 queries (tx + 16 j) of the s^T and
+// dp^T tiles, and 4 keys x dh/16 columns of the dk and dv accumulators.
+// dq: q, do and the rows' m, 1/l, di stay while it walks the key tiles;
+// each thread owns 4 queries x 4 keys of s and dp and 4 queries x dh/16
+// columns of dq. p^T and ds^T (dkv) and ds (dq) pass through shared memory
+// between the two products, whose loop stops at the last row below T.
+// Rows are padded by 4 floats against bank conflicts; 103 KB (dkv) and
+// 85 KB (dq) of shared memory at dh=64, 2 blocks per SM, to which the
+// launch bounds hold the registers (128: at dh=64 ptxas spills 16 bytes in
+// dkv and 24 in dq; unbounded it took 168, for one block per SM).
 
 #include <math.h>
+
+#include <climits>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace pgasr {
 namespace {
 
-constexpr int kBT = 64;            // rows of a query or key tile
-constexpr int kBwdThreads = 256;   // 16 x 16
-constexpr int kPer = kBT / 16;     // tile rows (or columns) per thread
+constexpr int kBT = 64;  // rows of a query or key tile
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // -0.7 * FLT_MAX
+// float32: a 16 x 16 thread grid, kPer x kPer elements per thread
+constexpr int kF32Threads = 256;
+constexpr int kPer = kBT / 16;
+// bfloat16: one warp per 16 rows of the held tile; walked tiles in chunks
+constexpr int kMmaThreads = 32 * (kBT / 16);
+constexpr int kChunk = 32;
+
+using bf16 = __nv_bfloat16;
 
 struct FlashBwdArgs {
   const void* q;
@@ -87,21 +133,111 @@ struct FlashBwdArgs {
   float scale;
 };
 
-template <int DH>
-constexpr size_t dkv_smem_bytes() {
-  // k, v, q, do tiles and p^T, ds^T tiles (rows padded by 4); the query
-  // tile's m, 1/l, di and segment ids
-  return ((size_t)4 * kBT * (DH + 4) + (size_t)2 * kBT * (kBT + 4)
-          + (size_t)4 * kBT) * sizeof(float);
+// threads per block and the blocks per SM the registers are held to
+template <typename T> struct Cfg;
+template <> struct Cfg<float> {
+  static constexpr int kThreads = kF32Threads, kDkvBlocks = 2, kDqBlocks = 2;
+};
+template <> struct Cfg<bf16> {
+  static constexpr int kThreads = kMmaThreads, kDkvBlocks = 3, kDqBlocks = 4;
+};
+
+// one flag per walked tile, after the fixed arrays
+size_t flag_bytes(int T) {
+  return ((size_t)(T + kBT - 1) / kBT + 15) / 16 * 16;
 }
 
-template <int DH>
-constexpr size_t dq_smem_bytes() {
-  // q, do, k, v tiles and the ds tile (rows padded by 4); the key tile's
-  // segment ids
-  return ((size_t)4 * kBT * (DH + 4) + (size_t)kBT * (kBT + 4) + kBT)
-         * sizeof(float);
+template <typename T, int DH>
+constexpr size_t dkv_smem_bytes() {
+  if constexpr (std::is_same_v<T, float>)
+    // k, v, q, do tiles and p^T, ds^T tiles (rows padded by 4); the query
+    // tile's m, 1/l, di and segment ids
+    return ((size_t)4 * kBT * (DH + 4) + (size_t)2 * kBT * (kBT + 4)
+            + (size_t)4 * kBT) * sizeof(float);
+  else
+    // k, v and two buffers of q, do (rows padded by 8); two buffers of the
+    // query tile's m, 1/l, di and segment ids
+    return (size_t)6 * kBT * (DH + 8) * sizeof(bf16)
+           + (size_t)2 * 4 * kBT * sizeof(float);
 }
+
+template <typename T, int DH>
+constexpr size_t dq_smem_bytes() {
+  if constexpr (std::is_same_v<T, float>)
+    // q, do, k, v tiles and the ds tile (rows padded by 4); the key tile's
+    // segment ids
+    return ((size_t)4 * kBT * (DH + 4) + (size_t)kBT * (kBT + 4) + kBT)
+           * sizeof(float);
+  else
+    // q, do and two buffers of k, v (rows padded by 8); two buffers of the
+    // key tile's segment ids
+    return (size_t)6 * kBT * (DH + 8) * sizeof(bf16)
+           + (size_t)2 * kBT * sizeof(int);
+}
+
+// --- shared by both types ---------------------------------------------------
+
+// (min, max) of the segment ids of rows t0 .. t0 + kBT - 1 below Tn, in
+// every lane of the calling warp; (INT_MAX, INT_MIN) for no row
+__device__ __forceinline__ int2 seg_range(const int* seg, int t0, int Tn) {
+  const int lane = threadIdx.x & 31;
+  int lo = INT_MAX, hi = INT_MIN;
+  if (t0 + lane < Tn) lo = hi = seg[t0 + lane];
+  if (t0 + lane + 32 < Tn) {
+    const int s = seg[t0 + lane + 32];
+    lo = min(lo, s);
+    hi = max(hi, s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
+
+// flags[t] for each walked tile t: 0 where the segment-id ranges of tile t
+// and of the held tile (rows h0 ..) are disjoint, so that no (query, key)
+// pair of the two shares a segment and every p and ds of the pair is
+// exactly 0 (the pair is skipped), else 1; ops/flash_attn.py
+// kept_tile_pairs. The caller synchronises before reading them.
+template <int NT>
+__device__ void tile_flags(unsigned char* flags, const int* seg, int h0,
+                           int Tn) {
+  const int2 held = seg_range(seg, h0, Tn);
+  const int n = (Tn + kBT - 1) / kBT;
+  for (int t = threadIdx.x / 32; t < n; t += NT / 32) {
+    const int2 r = seg_range(seg, t * kBT, Tn);
+    if ((threadIdx.x & 31) == 0) flags[t] = !(r.y < held.x || held.y < r.x);
+  }
+}
+
+// the first kept tile at or after t (n if none)
+__device__ __forceinline__ int next_kept(const unsigned char* flags, int t,
+                                         int n) {
+  while (t < n && !flags[t]) ++t;
+  return t;
+}
+
+// rows t0 .. t0 + kBT - 1 of a strided (.., T, DH) slice into a shared tile
+// of row stride LD elements, by NT threads with 16-byte cp.async; rows at
+// or beyond Tn are zero-filled. The caller commits the group.
+template <typename T, int DH, int LD, int NT>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                long long st, int t0,
+                                                int Tn) {
+  constexpr int kVec = 16 / sizeof(T), kRowVecs = DH / kVec;
+  static_assert(kBT * kRowVecs % NT == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < kBT * kRowVecs / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / kRowVecs, c = (e % kRowVecs) * kVec, t = t0 + r;
+    const bool in = t < Tn;
+    cp_async16(dst + r * LD + c, in ? src + (long long)t * st + c : src, in);
+  }
+}
+
+// --- float32: CUDA cores ----------------------------------------------------
 
 // element u of a float4
 __device__ __forceinline__ float lane(const float4& w, int u) {
@@ -154,9 +290,8 @@ __device__ __forceinline__ void row_cols(float (&out)[CPT], const float* tile,
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
+template <int DH>
+__device__ __forceinline__ void dkv_f32(const FlashBwdArgs& a) {
   constexpr int LD = DH + 4, LDP = kBT + 4, CPT = DH / 16;
   extern __shared__ float4 smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
@@ -169,21 +304,25 @@ flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
   float* ilq = mq + kBT;       // 1 / l
   float* diq = ilq + kBT;
   int* segq = reinterpret_cast<int*>(diq + kBT);
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segq + kBT);
 
   const int k0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int Tn = a.T;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  T* dkp = static_cast<T*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
-  T* dvp = static_cast<T*>(a.dv) + b * a.sdv[0] + h * a.sdv[1];
+  const int Tn = a.T, n = (Tn + kBT - 1) / kBT;
+  const float* qp = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const float* kp = static_cast<const float*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const float* vp = static_cast<const float*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const float* dop =
+      static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  float* dkp = static_cast<float*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
+  float* dvp = static_cast<float*>(a.dv) + b * a.sdv[0] + h * a.sdv[1];
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
 
-  load_rows_f32<T, DH, kBwdThreads>(Ks, LD, kp, a.sk[2], k0, kBT, Tn);
-  load_rows_f32<T, DH, kBwdThreads>(Vs, LD, vp, a.sv[2], k0, kBT, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn);
+  cp_async_commit();
+  tile_flags<kF32Threads>(kept, seg, k0, Tn);
   int segk[kPer];
   bool key_in[kPer];
   float dk[kPer][CPT], dv[kPer][CPT];
@@ -195,12 +334,16 @@ flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dk[i][c] = dv[i][c] = 0.0f;
   }
+  __syncthreads();  // the flags
 
-  for (int q0 = 0; q0 < Tn; q0 += kBT) {
+  for (int qt = next_kept(kept, 0, n); qt < n;
+       qt = next_kept(kept, qt + 1, n)) {
+    const int q0 = qt * kBT;
     __syncthreads();  // the previous query tile is consumed
-    load_rows_f32<T, DH, kBwdThreads>(Qs, LD, qp, a.sq[2], q0, kBT, Tn);
-    load_rows_f32<T, DH, kBwdThreads>(Ds, LD, dop, a.sdo[2], q0, kBT, Tn);
-    for (int j = threadIdx.x; j < kBT; j += kBwdThreads) {
+    load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn);
+    load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn);
+    cp_async_commit();
+    for (int j = threadIdx.x; j < kBT; j += kF32Threads) {
       const int t = q0 + j;
       const bool in = t < Tn;
       mq[j] = in ? a.m[row0 + t] : 0.0f;
@@ -208,6 +351,7 @@ flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
       diq[j] = in ? a.di[row0 + t] : 0.0f;
       segq[j] = in ? seg[t] : 0;
     }
+    cp_async_wait_all();
     __syncthreads();
 
     // s^T = k . q^T and dp^T = v . do^T: keys ty + 16 i, queries tx + 16 j
@@ -229,16 +373,16 @@ flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
           p = expf(sv - mj) * ilj;
           ds = (dp[i][j] - dij) * p * a.scale;
         }
-        Ps[(ty + 16 * i) * LDP + qj] = round_to<T>(p);
-        Ss[(ty + 16 * i) * LDP + qj] = round_to<T>(ds);
+        Ps[(ty + 16 * i) * LDP + qj] = p;
+        Ss[(ty + 16 * i) * LDP + qj] = ds;
       }
     }
     __syncthreads();
 
-    // dv += p^T . do and dk += ds^T . q over the tile's queries (rows
-    // beyond T have p = ds = 0)
+    // dv += p^T . do and dk += ds^T . q over the tile's queries below T
+    const int qn = min(kBT, Tn - q0);
 #pragma unroll 2
-    for (int qq = 0; qq < kBT; qq += 4) {
+    for (int qq = 0; qq < qn; qq += 4) {
       float4 pv[kPer], sv[kPer];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
@@ -267,19 +411,18 @@ flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
   for (int i = 0; i < kPer; ++i) {
     if (!key_in[i]) continue;
     const long long t = k0 + ty + 16 * i;
-    T* dkr = dkp + t * a.sdk[2] + CPT * tx;
-    T* dvr = dvp + t * a.sdv[2] + CPT * tx;
+    float* dkr = dkp + t * a.sdk[2] + CPT * tx;
+    float* dvr = dvp + t * a.sdv[2] + CPT * tx;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      dkr[c] = from_f32<T>(dk[i][c]);
-      dvr[c] = from_f32<T>(dv[i][c]);
+      dkr[c] = dk[i][c];
+      dvr[c] = dv[i][c];
     }
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
+template <int DH>
+__device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
   constexpr int LD = DH + 4, LDP = kBT + 4, CPT = DH / 16;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -288,20 +431,24 @@ flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
   float* Vs = Ks + kBT * LD;
   float* Ss = Vs + kBT * LD;   // ds, [query][key]
   int* segk = reinterpret_cast<int*>(Ss + kBT * LDP);
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segk + kBT);
 
   const int q0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int Tn = a.T;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  T* dqp = static_cast<T*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
+  const int Tn = a.T, n = (Tn + kBT - 1) / kBT;
+  const float* qp = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const float* kp = static_cast<const float*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const float* vp = static_cast<const float*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const float* dop =
+      static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  float* dqp = static_cast<float*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;
 
-  load_rows_f32<T, DH, kBwdThreads>(Qs, LD, qp, a.sq[2], q0, kBT, Tn);
-  load_rows_f32<T, DH, kBwdThreads>(Ds, LD, dop, a.sdo[2], q0, kBT, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn);
+  cp_async_commit();
+  tile_flags<kF32Threads>(kept, seg, q0, Tn);
   bool q_in[kPer];
   int segq[kPer];
   float mr[kPer], ilr[kPer], dir[kPer], dq[kPer][CPT];
@@ -316,13 +463,18 @@ flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dq[i][c] = 0.0f;
   }
+  __syncthreads();  // the flags
 
-  for (int k0 = 0; k0 < Tn; k0 += kBT) {
+  for (int kt = next_kept(kept, 0, n); kt < n;
+       kt = next_kept(kept, kt + 1, n)) {
+    const int k0 = kt * kBT;
     __syncthreads();  // the previous key tile and ds are consumed
-    load_rows_f32<T, DH, kBwdThreads>(Ks, LD, kp, a.sk[2], k0, kBT, Tn);
-    load_rows_f32<T, DH, kBwdThreads>(Vs, LD, vp, a.sv[2], k0, kBT, Tn);
-    for (int j = threadIdx.x; j < kBT; j += kBwdThreads)
+    load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn);
+    load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn);
+    cp_async_commit();
+    for (int j = threadIdx.x; j < kBT; j += kF32Threads)
       segk[j] = k0 + j < Tn ? seg[k0 + j] : 0;
+    cp_async_wait_all();
     __syncthreads();
 
     // s = q . k^T and dp = do . v^T: queries ty + 16 i, keys tx + 16 j
@@ -343,14 +495,15 @@ flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
           const float p = expf(sv - mr[i]) * ilr[i];
           ds = (dp[i][j] - dir[i]) * p * a.scale;
         }
-        Ss[(ty + 16 * i) * LDP + kj] = round_to<T>(ds);
+        Ss[(ty + 16 * i) * LDP + kj] = ds;
       }
     }
     __syncthreads();
 
-    // dq += ds . k over the tile's keys (keys beyond T have ds = 0)
+    // dq += ds . k over the tile's keys below T
+    const int kn = min(kBT, Tn - k0);
 #pragma unroll 2
-    for (int kk = 0; kk < kBT; kk += 4) {
+    for (int kk = 0; kk < kn; kk += 4) {
       float4 sv[kPer];
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
@@ -372,55 +525,471 @@ flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     if (!q_in[i]) continue;
-    T* row = dqp + (long long)(q0 + ty + 16 * i) * a.sdq[2] + CPT * tx;
+    float* row = dqp + (long long)(q0 + ty + 16 * i) * a.sdq[2] + CPT * tx;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[c] = from_f32<T>(dq[i][c]);
+    for (int c = 0; c < CPT; ++c) row[c] = dq[i][c];
   }
 }
 
+// --- bfloat16: tensor cores -------------------------------------------------
+
+// ldmatrix row offsets of this lane: A fragments (16 x 16, rows of the
+// held tile), B fragments of two 8-wide n-tiles (rows of a tile stored
+// [n][k]), and B fragments read transposed (rows of a tile stored [k][n])
+struct Lanes {
+  int arow, acol, brow, bcol, trow, tcol;
+  __device__ Lanes(int lane)
+      : arow(lane & 15), acol(8 * (lane >> 4)),
+        brow((lane & 7) + 8 * (lane >> 4)), bcol(8 * ((lane >> 3) & 1)),
+        trow((lane & 7) + 8 * ((lane >> 3) & 1)), tcol(8 * (lane >> 4)) {}
+};
+
+template <int DH>
+__device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {
+  constexpr int LD = DH + 8, TILE = kBT * LD, NC = kChunk / 8, ND = DH / 8;
+  extern __shared__ float4 smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;      // two buffers
+  bf16* Ds = Qs + 2 * TILE;  // do, two buffers
+  float* rows = reinterpret_cast<float*>(Ds + 2 * TILE);  // 2 x (m, 1/l, di)
+  int* segq = reinterpret_cast<int*>(rows + 2 * 3 * kBT);  // two buffers
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segq + 2 * kBT);
+
+  const int k0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const Lanes L(lane);
+  const int Tn = a.T, n = (Tn + kBT - 1) / kBT;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const bf16* dop =
+      static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
+  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.sdv[0] + h * a.sdv[1];
+  const int* seg = a.seg + (long long)b * Tn;
+  const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
+
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], k0, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], k0, Tn);
+  cp_async_commit();
+  tile_flags<kMmaThreads>(kept, seg, k0, Tn);
+  __syncthreads();  // the flags
+
+  // the first kept query tile into buffer 0 (the key tile meets itself)
+  int qt = next_kept(kept, 0, n);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], qt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], qt * kBT, Tn);
+  cp_async_commit();
+  if (threadIdx.x < kBT) {
+    const int t = qt * kBT + threadIdx.x;
+    const bool in = t < Tn;
+    rows[threadIdx.x] = in ? a.m[row0 + t] : 0.0f;
+    rows[kBT + threadIdx.x] = in ? 1.0f / a.l[row0 + t] : 0.0f;
+    rows[2 * kBT + threadIdx.x] = in ? a.di[row0 + t] : 0.0f;
+    segq[threadIdx.x] = in ? seg[t] : 0;
+  }
+
+  // this warp's keys kw .. kw + 15; this lane's rows g and g + 8 of them
+  const int kw = k0 + 16 * warp;
+  const bool warp_in = kw < Tn;
+  int segk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    segk[r] = kw + g + 8 * r < Tn ? seg[kw + g + 8 * r] : 0;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.0f;
+
+  for (int buf = 0; qt < n; buf ^= 1) {
+    const int nxt = next_kept(kept, qt + 1, n);
+    // the next tile's row values, fetched now and stored after this
+    // tile's products
+    const bool stage = nxt < n && threadIdx.x < kBT;
+    const int tn = nxt * kBT + threadIdx.x;
+    float nm = 0.0f, nl = 0.0f, ndi = 0.0f;
+    int ns = 0;
+    if (stage && tn < Tn) {
+      nm = a.m[row0 + tn];
+      nl = a.l[row0 + tn];
+      ndi = a.di[row0 + tn];
+      ns = seg[tn];
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile qt is in `buf`; the other buffer is free
+    if (nxt < n) {
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Qs + (buf ^ 1) * TILE, qp,
+                                                 a.sq[2], nxt * kBT, Tn);
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Ds + (buf ^ 1) * TILE, dop,
+                                                 a.sdo[2], nxt * kBT, Tn);
+    }
+    cp_async_commit();
+
+    if (warp_in) {
+      const bf16* Qb = Qs + buf * TILE;
+      const bf16* Db = Ds + buf * TILE;
+      const float* mq = rows + buf * 3 * kBT;
+      const float* ilq = mq + kBT;
+      const float* diq = ilq + kBT;
+      const int* sq = segq + buf * kBT;
+      const int q0 = qt * kBT;
+      const bf16* ka = Ks + (16 * warp + L.arow) * LD + L.acol;
+      const bf16* va = Vs + (16 * warp + L.arow) * LD + L.acol;
+#pragma unroll
+      for (int qc = 0; qc < kBT; qc += kChunk) {
+        if (q0 + qc >= Tn) break;
+        // s^T = k . q^T and dp^T = v . do^T: this warp's 16 keys x the
+        // chunk's queries, n-tile j = queries qc + 8 j ..
+        float s[NC][4], dp[NC][4];
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < DH; kk += 16) {
+          unsigned ak[4], av[4];
+          ldsm_x4(ak, ka + kk);
+          ldsm_x4(av, va + kk);
+#pragma unroll
+          for (int j = 0; j < NC; j += 2) {
+            const int r = (qc + 8 * j + L.brow) * LD + kk + L.bcol;
+            unsigned bq[4], bd[4];
+            ldsm_x4(bq, Qb + r);
+            ldsm_x4(bd, Db + r);
+            if (q0 + qc + 8 * j < Tn) {
+              mma_bf16_16816(s[j], ak, bq[0], bq[1]);
+              mma_bf16_16816(dp[j], av, bd[0], bd[1]);
+            }
+            if (q0 + qc + 8 * j + 8 < Tn) {
+              mma_bf16_16816(s[j + 1], ak, bq[2], bq[3]);
+              mma_bf16_16816(dp[j + 1], av, bd[2], bd[3]);
+            }
+          }
+        }
+        // p^T and ds^T, rounded to bf16 pairs in the A-fragment layout
+        // over the chunk's queries: n-tiles 2 u and 2 u + 1 make k-step u
+        unsigned pa[NC / 2][4], sa[NC / 2][4];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int col = qc + 8 * j + c2;  // elements 0, 2; col + 1: 1, 3
+          const float2 mj = *reinterpret_cast<const float2*>(mq + col);
+          const float2 ilj = *reinterpret_cast<const float2*>(ilq + col);
+          const float2 dij = *reinterpret_cast<const float2*>(diq + col);
+          const int2 sj = *reinterpret_cast<const int2*>(sq + col);
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;  // query col + odd, key row g + 8 (e / 2)
+            const float sv = s[j][e] * a.scale
+                             + (segk[e >> 1] == (odd ? sj.y : sj.x)
+                                    ? 0.0f : kMaskValue);
+            const bool in = q0 + col + odd < Tn;
+            p[e] = in ? expf(sv - (odd ? mj.y : mj.x)) * (odd ? ilj.y : ilj.x)
+                      : 0.0f;
+            ds[e] = in ? (dp[j][e] - (odd ? dij.y : dij.x)) * p[e] * a.scale
+                       : 0.0f;
+          }
+          pa[j >> 1][2 * (j & 1)] = pack_bf16x2(p[0], p[1]);
+          pa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(p[2], p[3]);
+          sa[j >> 1][2 * (j & 1)] = pack_bf16x2(ds[0], ds[1]);
+          sa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(ds[2], ds[3]);
+        }
+        // dv += p^T . do and dk += ds^T . q over the chunk's queries below
+        // T; n-tile d = columns 8 d ..
+#pragma unroll
+        for (int u = 0; u < NC / 2; ++u) {
+          if (q0 + qc + 16 * u >= Tn) break;
+          const int r = (qc + 16 * u + L.trow) * LD + L.tcol;
+#pragma unroll
+          for (int d = 0; d < ND; d += 2) {
+            unsigned bd[4], bq[4];
+            ldsm_x4_trans(bd, Db + r + 8 * d);
+            ldsm_x4_trans(bq, Qb + r + 8 * d);
+            mma_bf16_16816(dv[d], pa[u], bd[0], bd[1]);
+            mma_bf16_16816(dv[d + 1], pa[u], bd[2], bd[3]);
+            mma_bf16_16816(dk[d], sa[u], bq[0], bq[1]);
+            mma_bf16_16816(dk[d + 1], sa[u], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+
+    if (stage) {
+      float* r = rows + (buf ^ 1) * 3 * kBT;
+      r[threadIdx.x] = nm;
+      r[kBT + threadIdx.x] = tn < Tn ? 1.0f / nl : 0.0f;
+      r[2 * kBT + threadIdx.x] = ndi;
+      segq[(buf ^ 1) * kBT + threadIdx.x] = ns;
+    }
+    qt = nxt;
+  }
+
+  if (!warp_in) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long t = kw + g + 8 * r;
+    if (t >= Tn) continue;
+    bf16* dkr = dkp + t * a.sdk[2] + c2;
+    bf16* dvr = dvp + t * a.sdv[2] + c2;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<unsigned*>(dkr + 8 * d) =
+          pack_bf16x2(dk[d][2 * r], dk[d][2 * r + 1]);
+      *reinterpret_cast<unsigned*>(dvr + 8 * d) =
+          pack_bf16x2(dv[d][2 * r], dv[d][2 * r + 1]);
+    }
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
+  constexpr int LD = DH + 8, TILE = kBT * LD, NC = kChunk / 8, ND = DH / 8;
+  extern __shared__ float4 smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ds = Qs + TILE;      // do
+  bf16* Ks = Ds + TILE;      // two buffers
+  bf16* Vs = Ks + 2 * TILE;  // two buffers
+  int* segk = reinterpret_cast<int*>(Vs + 2 * TILE);  // two buffers
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segk + 2 * kBT);
+
+  const int q0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const Lanes L(lane);
+  const int Tn = a.T, n = (Tn + kBT - 1) / kBT;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const bf16* dop =
+      static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  bf16* dqp = static_cast<bf16*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
+  const int* seg = a.seg + (long long)b * Tn;
+  const long long row0 = ((long long)b * a.H + h) * Tn;
+
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], q0, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], q0, Tn);
+  cp_async_commit();
+  tile_flags<kMmaThreads>(kept, seg, q0, Tn);
+
+  // this warp's queries qw .. qw + 15; this lane's rows g and g + 8 of
+  // them (rows beyond T are computed, not stored)
+  const int qw = q0 + 16 * warp;
+  const bool warp_in = qw < Tn;
+  float mr[2], ilr[2], dir[2];
+  int sr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = qw + g + 8 * r;
+    const bool in = t < Tn;
+    mr[r] = in ? a.m[row0 + t] : 0.0f;
+    ilr[r] = in ? 1.0f / a.l[row0 + t] : 0.0f;
+    dir[r] = in ? a.di[row0 + t] : 0.0f;
+    sr[r] = in ? seg[t] : 0;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.0f;
+  __syncthreads();  // the flags
+
+  // the first kept key tile into buffer 0 (the query tile meets itself)
+  int kt = next_kept(kept, 0, n);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], kt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], kt * kBT, Tn);
+  cp_async_commit();
+  if (threadIdx.x < kBT) {
+    const int t = kt * kBT + threadIdx.x;
+    segk[threadIdx.x] = t < Tn ? seg[t] : 0;
+  }
+
+  for (int buf = 0; kt < n; buf ^= 1) {
+    const int nxt = next_kept(kept, kt + 1, n);
+    // the next tile's segment ids, fetched now and stored after this
+    // tile's products
+    const bool stage = nxt < n && threadIdx.x < kBT;
+    const int tn = nxt * kBT + threadIdx.x;
+    const int ns = stage && tn < Tn ? seg[tn] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in `buf`; the other buffer is free
+    if (nxt < n) {
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Ks + (buf ^ 1) * TILE, kp,
+                                                 a.sk[2], nxt * kBT, Tn);
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Vs + (buf ^ 1) * TILE, vp,
+                                                 a.sv[2], nxt * kBT, Tn);
+    }
+    cp_async_commit();
+
+    if (warp_in) {
+      const bf16* Kb = Ks + buf * TILE;
+      const bf16* Vb = Vs + buf * TILE;
+      const int* sk = segk + buf * kBT;
+      const int k0 = kt * kBT;
+      const bf16* qa = Qs + (16 * warp + L.arow) * LD + L.acol;
+      const bf16* da = Ds + (16 * warp + L.arow) * LD + L.acol;
+#pragma unroll
+      for (int kc = 0; kc < kBT; kc += kChunk) {
+        if (k0 + kc >= Tn) break;
+        // s = q . k^T and dp = do . v^T: this warp's 16 queries x the
+        // chunk's keys, n-tile j = keys kc + 8 j ..
+        float s[NC][4], dp[NC][4];
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < DH; kk += 16) {
+          unsigned aq[4], ad[4];
+          ldsm_x4(aq, qa + kk);
+          ldsm_x4(ad, da + kk);
+#pragma unroll
+          for (int j = 0; j < NC; j += 2) {
+            const int r = (kc + 8 * j + L.brow) * LD + kk + L.bcol;
+            unsigned bk[4], bv[4];
+            ldsm_x4(bk, Kb + r);
+            ldsm_x4(bv, Vb + r);
+            if (k0 + kc + 8 * j < Tn) {
+              mma_bf16_16816(s[j], aq, bk[0], bk[1]);
+              mma_bf16_16816(dp[j], ad, bv[0], bv[1]);
+            }
+            if (k0 + kc + 8 * j + 8 < Tn) {
+              mma_bf16_16816(s[j + 1], aq, bk[2], bk[3]);
+              mma_bf16_16816(dp[j + 1], ad, bv[2], bv[3]);
+            }
+          }
+        }
+        // ds, rounded to bf16 pairs in the A-fragment layout over the
+        // chunk's keys
+        unsigned sa[NC / 2][4];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int col = kc + 8 * j + c2;  // elements 0, 2; col + 1: 1, 3
+          const int2 sj = *reinterpret_cast<const int2*>(sk + col);
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;  // key col + odd, query row g + 8 (e / 2)
+            const int r = e >> 1;
+            const float sv = s[j][e] * a.scale
+                             + (sr[r] == (odd ? sj.y : sj.x) ? 0.0f
+                                                             : kMaskValue);
+            const float p = expf(sv - mr[r]) * ilr[r];
+            ds[e] = k0 + col + odd < Tn ? (dp[j][e] - dir[r]) * p * a.scale
+                                        : 0.0f;
+          }
+          sa[j >> 1][2 * (j & 1)] = pack_bf16x2(ds[0], ds[1]);
+          sa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(ds[2], ds[3]);
+        }
+        // dq += ds . k over the chunk's keys below T
+#pragma unroll
+        for (int u = 0; u < NC / 2; ++u) {
+          if (k0 + kc + 16 * u >= Tn) break;
+          const int r = (kc + 16 * u + L.trow) * LD + L.tcol;
+#pragma unroll
+          for (int d = 0; d < ND; d += 2) {
+            unsigned bk[4];
+            ldsm_x4_trans(bk, Kb + r + 8 * d);
+            mma_bf16_16816(dq[d], sa[u], bk[0], bk[1]);
+            mma_bf16_16816(dq[d + 1], sa[u], bk[2], bk[3]);
+          }
+        }
+      }
+    }
+
+    if (stage) segk[(buf ^ 1) * kBT + threadIdx.x] = ns;
+    kt = nxt;
+  }
+
+  if (!warp_in) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long t = qw + g + 8 * r;
+    if (t >= Tn) continue;
+    bf16* row = dqp + t * a.sdq[2] + c2;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<unsigned*>(row + 8 * d) =
+          pack_bf16x2(dq[d][2 * r], dq[d][2 * r + 1]);
+  }
+}
+
+// --- the two kernels and their launches --------------------------------------
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kDkvBlocks)
+flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
+  if constexpr (std::is_same_v<T, float>) dkv_f32<DH>(a);
+  else dkv_mma<DH>(a);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kDqBlocks)
+flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
+  if constexpr (std::is_same_v<T, float>) dq_f32<DH>(a);
+  else dq_mma<DH>(a);
+}
+
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const FlashBwdArgs& a,
+int launch(Kernel kernel, int threads, size_t smem, const FlashBwdArgs& a,
            cudaStream_t stream) {
+  smem += flag_bytes(a.T);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
   const dim3 grid((a.T + kBT - 1) / kBT, a.H, a.B);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_dkv(const FlashBwdArgs& a, int dh, cudaStream_t stream) {
   if (dh == 32)
-    return launch(flash_attn_bwd_dkv_kernel<T, 32>, dkv_smem_bytes<32>(), a,
-                  stream);
+    return launch(flash_attn_bwd_dkv_kernel<T, 32>, Cfg<T>::kThreads,
+                  dkv_smem_bytes<T, 32>(), a, stream);
   if (dh == 64)
-    return launch(flash_attn_bwd_dkv_kernel<T, 64>, dkv_smem_bytes<64>(), a,
-                  stream);
+    return launch(flash_attn_bwd_dkv_kernel<T, 64>, Cfg<T>::kThreads,
+                  dkv_smem_bytes<T, 64>(), a, stream);
   return kErrHeadDim;
 }
 
 template <typename T>
 int launch_dq(const FlashBwdArgs& a, int dh, cudaStream_t stream) {
   if (dh == 32)
-    return launch(flash_attn_bwd_dq_kernel<T, 32>, dq_smem_bytes<32>(), a,
-                  stream);
+    return launch(flash_attn_bwd_dq_kernel<T, 32>, Cfg<T>::kThreads,
+                  dq_smem_bytes<T, 32>(), a, stream);
   if (dh == 64)
-    return launch(flash_attn_bwd_dq_kernel<T, 64>, dq_smem_bytes<64>(), a,
-                  stream);
+    return launch(flash_attn_bwd_dq_kernel<T, 64>, Cfg<T>::kThreads,
+                  dq_smem_bytes<T, 64>(), a, stream);
   return kErrHeadDim;
 }
 
 int make_args(FlashBwdArgs* a, const void* q, const void* k, const void* v,
               const void* dout, const int* seg, const float* l,
               const float* m, const float* di, void* dq, void* dk, void* dv,
-              const long long* strides, int B, int H, int T, float scale) {
+              const long long* strides, int B, int H, int T, float scale,
+              int dtype) {
   if (B < 1 || H < 1 || T < 1) return cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return cudaErrorInvalidConfiguration;
+  if (dtype != 0 && dtype != 1) return kErrDtype;
   *a = FlashBwdArgs{q, k, v, dout, seg, l, m, di, dq, dk, dv};
   long long* dst[7] = {a->sq, a->sk, a->sv, a->sdo, a->sdq, a->sdk, a->sdv};
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  // the inputs are read by 16-byte cp.async
+  const long long vec = dtype == 0 ? 4 : 8;  // elements per 16 bytes
+  const void* in[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    if (reinterpret_cast<uintptr_t>(in[i]) % 16 != 0) return kErrAlignment;
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] % vec != 0) return kErrAlignment;
+  }
   a->B = B;
   a->H = H;
   a->T = T;
@@ -435,7 +1004,8 @@ extern "C" {
 
 // `strides`: 21 (batch, head, time) strides in elements, of q, k, v, do,
 // dq, dk, dv in that order (the output not computed may be anything);
-// dtype 0 float32, 1 bfloat16. Each returns 0, kErrHeadDim, kErrDtype, or
+// dtype 0 float32, 1 bfloat16. Each returns 0, kErrHeadDim, kErrDtype,
+// kErrAlignment (an input or its stride not a multiple of 16 bytes), or
 // the launch's cudaError_t.
 int pgasr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const int* seg, const float* l,
@@ -446,11 +1016,10 @@ int pgasr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   using namespace pgasr;
   FlashBwdArgs a;
   const int rc = make_args(&a, q, k, v, dout, seg, l, m, di, nullptr, dk, dv,
-                           strides, B, H, T, scale);
+                           strides, B, H, T, scale, dtype);
   if (rc != 0) return rc;
   if (dtype == 0) return launch_dkv<float>(a, dh, stream);
-  if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, dh, stream);
-  return kErrDtype;
+  return launch_dkv<__nv_bfloat16>(a, dh, stream);
 }
 
 int pgasr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -462,11 +1031,10 @@ int pgasr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   using namespace pgasr;
   FlashBwdArgs a;
   const int rc = make_args(&a, q, k, v, dout, seg, l, m, di, dq, nullptr,
-                           nullptr, strides, B, H, T, scale);
+                           nullptr, strides, B, H, T, scale, dtype);
   if (rc != 0) return rc;
   if (dtype == 0) return launch_dq<float>(a, dh, stream);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(a, dh, stream);
-  return kErrDtype;
+  return launch_dq<__nv_bfloat16>(a, dh, stream);
 }
 
 }  // extern "C"

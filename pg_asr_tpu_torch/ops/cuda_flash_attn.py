@@ -12,7 +12,9 @@ the plain versions by the tensor's device. There is no fallback.
 
 q, k, v and do are read in place through their (batch, head, time)
 strides, so views of a fused (B, T, 3, H, dh) projection need no copy;
-only a head axis that is not contiguous is copied first. Each output is
+only a head axis that is not contiguous is copied first, and for the
+backward kernels, which read their inputs by 16-byte cp.async, an input
+whose address or strides are not multiples of 16 bytes. Each output is
 written in a (B, T, H, dh) buffer and returned as its (B, H, T, dh) view,
 so the caller's transpose back to (B, T, H * dh) is free.
 
@@ -41,6 +43,7 @@ DQ_LAUNCHES = 0
 HEAD_DIMS = (32, 64)  # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_HEAD_DIM = -6  # csrc/common.cuh kErrHeadDim
+_ERR_ALIGNMENT = -8  # csrc/common.cuh kErrAlignment
 _declared = False
 
 
@@ -95,6 +98,17 @@ def _inner(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if 16-byte cp.async can read its rows (dh axis contiguous,
+    address and (batch, head, time) strides multiples of 16 bytes), else a
+    contiguous copy, which is."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:3])):
+        return t
+    return t.contiguous()
+
+
 def _out(q: torch.Tensor) -> torch.Tensor:
     """A (B, H, T, dh) view of a new (B, T, H, dh) buffer in q's type."""
     B, H, T, dh = q.shape
@@ -105,6 +119,7 @@ def _out(q: torch.Tensor) -> torch.Tensor:
 def _raise_on(rc: int, lib, name: str, q: torch.Tensor) -> None:
     if rc != 0:
         msg = ("head dim not supported" if rc == _ERR_HEAD_DIM
+               else "inputs not 16-byte aligned" if rc == _ERR_ALIGNMENT
                else lib.pgasr_cuda_error_string(rc).decode())
         B, H, T, dh = q.shape
         raise RuntimeError(f"{name} kernel (B={B}, H={H}, T={T}, dh={dh}, "
@@ -157,7 +172,7 @@ def _bwd_inputs(name, q, k, v, valid_mask, l, m, do, di):
             raise ValueError(f"{what} must be a contiguous {shape[:3]} "
                              f"float32 tensor on {q.device}")
     seg = valid_mask.to(torch.int32).contiguous()
-    return _inner(q), _inner(k), _inner(v), _inner(do), seg, shape
+    return _aligned(q), _aligned(k), _aligned(v), _aligned(do), seg, shape
 
 
 def flash_attn_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,

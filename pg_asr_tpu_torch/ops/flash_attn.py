@@ -34,6 +34,8 @@ from . import cuda_flash_attn
 
 # jax/experimental/pallas/ops/tpu/flash_attention.py DEFAULT_MASK_VALUE
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# rows of the query and key tiles of the backward kernels
+BWD_TILE = 64
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, valid_mask: torch.Tensor,
@@ -65,28 +67,79 @@ def mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def bwd_p_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             valid_mask: torch.Tensor, o: torch.Tensor, l: torch.Tensor,
+             m: torch.Tensor, do: torch.Tensor, sm_scale: float):
+    """p and ds, (B, H, T, T) float32, as the library's backward kernels
+    form them: di = sum(o . do) in float32; p = exp(s - m) * (1 / l); dp =
+    do . v^T in float32; ds = (dp - di) * p * sm_scale."""
+    di = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    s = _scores(q, k, valid_mask, sm_scale)
+    p = torch.exp(s - m[..., None]) * (1.0 / l[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, (dp - di) * p * sm_scale
+
+
+def bwd_products(q: torch.Tensor, k: torch.Tensor, do: torch.Tensor,
+                 p: torch.Tensor, ds: torch.Tensor):
+    """(dq, dk, dv) in q's type from p and ds: dv = p^T . do with p rounded
+    to do's type; dk = ds^T . q with ds rounded to do's type (the dkv
+    kernel); dq = ds . k with ds rounded to k's type (the dq kernel);
+    products accumulate in float32."""
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), q.float())
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def mhsa_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    valid_mask: torch.Tensor, o: torch.Tensor, l: torch.Tensor,
                    m: torch.Tensor, do: torch.Tensor, sm_scale: float):
     """The library backward kernels' function in plain PyTorch -> (dq, dk,
     dv) in q's type, from the forward's inputs, output o and residuals l, m
-    (B, H, T) float32 and the output gradient do.
+    (B, H, T) float32 and the output gradient do: ``bwd_p_ds`` then
+    ``bwd_products``, as ``_flash_attention_bwd``."""
+    p, ds = bwd_p_ds(q, k, v, valid_mask, o, l, m, do, sm_scale)
+    return bwd_products(q, k, do, p, ds)
 
-    As ``_flash_attention_bwd``: di = sum(o . do) in float32; p = exp(s -
-    m) * (1 / l); dv = p^T . do with p rounded to do's type; dp = do . v^T
-    in float32; ds = (dp - di) * p * sm_scale; dk = ds^T . q with ds rounded
-    to do's type (the dkv kernel); dq = ds . k with ds rounded to k's type
-    (the dq kernel); products accumulate in float32."""
-    di = (o.float() * do.float()).sum(dim=-1, keepdim=True)
-    s = _scores(q, k, valid_mask, sm_scale)
-    p = torch.exp(s - m[..., None]) * (1.0 / l[..., None])
-    dof = do.float()
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
-    dp = torch.matmul(dof, v.float().transpose(-1, -2))
-    ds = (dp - di) * p * sm_scale
-    dk = torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), q.float())
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+def kept_tile_pairs(valid_mask: torch.Tensor,
+                    tile: int = BWD_TILE) -> torch.Tensor:
+    """(B, n, n) bool, n = ceil(T / tile): whether the backward kernels
+    compute the pair (query tile i, key tile j) of each utterance; the
+    kernels (csrc/flash_attn_bwd.cu ``tile_flags``) apply this rule.
+
+    A pair is skipped when the segment ids of its two tiles' rows (those
+    < T) span disjoint ranges [min, max]. Then no query of the one shares a
+    segment with a key of the other, every score of the pair carries the
+    additive mask, and exp(s - m) underflows to 0: p and ds are exactly 0,
+    so skipping the pair changes no bit. It holds for any int32 segment
+    ids (``valid_mask`` as the kernels take it: converted to int32)."""
+    seg = valid_mask.to(torch.int32)
+    B, T = seg.shape
+    n = -(-T // tile)
+    info = torch.iinfo(torch.int32)
+
+    def per_tile(fill, reduce):
+        pad = torch.full((B, n * tile - T), fill, dtype=torch.int32,
+                         device=seg.device)
+        return reduce(torch.cat([seg, pad], 1).view(B, n, tile), -1)
+
+    lo, hi = per_tile(info.max, torch.amin), per_tile(info.min, torch.amax)
+    return ~((hi[:, :, None] < lo[:, None, :])
+             | (hi[:, None, :] < lo[:, :, None]))
+
+
+def mhsa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid_mask: torch.Tensor, o: torch.Tensor, l: torch.Tensor,
+                  m: torch.Tensor, do: torch.Tensor, sm_scale: float):
+    """The backward on CUDA tensors as ``FlashAttention`` runs it -> (dq,
+    dk, dv): di outside the kernels, as the library computes it, then the
+    dkv and the dq kernel."""
+    di = (o.float() * do.float()).sum(dim=-1).contiguous()
+    args = (q, k, v, valid_mask, l, m, do, di, sm_scale)
+    dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
+    return cuda_flash_attn.flash_attn_bwd_dq_cuda(*args), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
@@ -107,15 +160,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, valid_mask, o, l, m = ctx.saved_tensors
-        if not ctx.kernel:
-            dq, dk, dv = mhsa_bwd_plain(q, k, v, valid_mask, o, l, m, do,
-                                        ctx.sm_scale)
-            return dq, dk, dv, None, None, None
-        # outside the kernels, as the library computes it
-        di = (o.float() * do.float()).sum(dim=-1).contiguous()
-        args = (q, k, v, valid_mask, l, m, do, di, ctx.sm_scale)
-        dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
-        dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
+        bwd = mhsa_bwd_cuda if ctx.kernel else mhsa_bwd_plain
+        dq, dk, dv = bwd(q, k, v, valid_mask, o, l, m, do, ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 

@@ -38,7 +38,9 @@ def load_model(model_path: str, alphabet: Alphabet,
                config: Config | None = None, which: str = "best",
                device: torch.device | str = "cuda", dtype: str | None = None):
     """Load params from <model_path>/model_{best,last}.pt onto `device`
-(the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote).
+(the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote;
+its ``ema_params`` when the config's ``train.ema_decay`` > 0 and the
+checkpoint holds them, as the JAX package serves them).
 
     vocab_size and input_dim follow the alphabet and the feature config, as
     in the JAX package; `dtype` overrides the config's compute dtype, in
@@ -61,7 +63,17 @@ def load_model(model_path: str, alphabet: Alphabet,
     check_family(cfg.model.family)
     if which == "avg":
         raise not_ported("--ckpt avg (checkpoint averaging)")
-    state = load_checkpoint(checkpoint_path(model_path, which))["params"]
+    ckpt = load_checkpoint(checkpoint_path(model_path, which))
+    state = ckpt["params"]
+    if cfg.train.ema_decay > 0.0:
+        # EMA-trained models serve their averaged weights (the ones the
+        # best-checkpoint selection was scored on); a checkpoint written
+        # before EMA was enabled on a resumed run has none
+        if "ema_params" in ckpt:
+            state = ckpt["ema_params"]
+        else:
+            print("[predict] checkpoint predates EMA being enabled - "
+                  "serving the raw params")
     return cast_params(state, torch_dtype(cfg.model.dtype), device), cfg
 
 

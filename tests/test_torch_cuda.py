@@ -326,10 +326,14 @@ def test_ctc_beam_launcher_rejects_bad_inputs(cuda):
 # plain version against the row's max) and the output is rounded to bf16,
 # each at most 2^-9 relative, so two results may differ by a few ulps.
 
-def _attn_case(cuda, B, H, T, dh, dtype, seed, fused=False):
+def _attn_case(cuda, B, H, T, dh, dtype, seed, fused=False, lens=None):
+    """q, k, v and a (B, T) validity mask from a seed; lengths ``lens``, or
+    random ones with T and 1 among them."""
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1, T + 1, B)
-    lens[0], lens[-1] = T, 1
+    if lens is None:
+        lens = rng.integers(1, T + 1, B)
+        lens[0], lens[-1] = T, 1
+    lens = np.asarray(lens)
     valid = torch.from_numpy(np.arange(T)[None] < lens[:, None]).to(cuda)
     if fused:  # views of a (B, T, 3, H, dh) projection, as the models pass
         qkv = torch.from_numpy(rng.standard_normal((B, T, 3, H, dh))).to(
@@ -423,6 +427,10 @@ def test_attention_model_kernel_matches_plain(cuda, family):
 # rounded to bf16 (two ulps of the largest value).
 
 FLASH_BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+# the mean abs error relative to max|grad| of chip_smoke.py's bf16 bound
+# (FLASH_BWD_BOUNDS): ~2e-8 when p and ds round where the library rounds
+# them, ~6e-5 for a backward that keeps them in float32
+FLASH_BWD_BF16_MEAN = 1e-6
 
 
 def _flash_counts():
@@ -430,8 +438,9 @@ def _flash_counts():
             cuda_flash_attn.DKV_LAUNCHES, cuda_flash_attn.DQ_LAUNCHES)
 
 
-def _assert_rel(got, want, rel, what):
-    bound = rel * want.float().abs().max().item()
+def _assert_rel(got, want, rel, what, scale=None):
+    """max|got - want| <= rel x max|scale| (scale: want by default)."""
+    bound = rel * (want if scale is None else scale).float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert got.dtype == want.dtype and got.shape == want.shape, what
     assert err <= bound, f"{what}: max abs err {err} > {bound}"
@@ -440,12 +449,18 @@ def _assert_rel(got, want, rel, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [32, 64])
-# T not a multiple of the 64-row tiles; the conformer's T'=201; one tile
-@pytest.mark.parametrize("B,H,T,fused", [(5, 2, 37, False), (3, 4, 130, True),
-                                         (4, 4, 201, True), (2, 1, 64, False)])
-def test_flash_attn_bwd_kernels_match_plain(cuda, B, H, T, dh, dtype, fused):
+# T not a multiple of the 64-row tiles; the conformer's T'=201; one tile;
+# one row; one row past a tile; lengths that empty whole tile pairs (the
+# kernels skip those); every length T (no pair skipped)
+@pytest.mark.parametrize("B,H,T,fused,lens", [
+    (5, 2, 37, False, None), (3, 4, 130, True, None),
+    (4, 4, 201, True, None), (2, 1, 64, False, None), (3, 2, 1, True, None),
+    (4, 2, 65, False, None), (5, 2, 257, True, (1, 64, 65, 128, 257)),
+    (3, 4, 201, True, (201, 201, 201))])
+def test_flash_attn_bwd_kernels_match_plain(cuda, B, H, T, dh, dtype, fused,
+                                            lens):
     q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, 3 * B + T + dh,
-                                fused)
+                                fused, lens)
     scale = dh ** -0.5
     c0 = _flash_counts()
     o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
@@ -475,9 +490,93 @@ def test_flash_attn_bwd_kernels_match_plain(cuda, B, H, T, dh, dtype, fused):
     assert _flash_counts() == (c1[0], c1[1], c1[2] + 1, c1[3] + 1)
     want = flash_attn.mhsa_bwd_plain(q, k, v, valid, r_o, r_l, r_m, do,
                                      scale)
-    # every row, padded queries and keys included
+    # every row, padded queries and keys included. At T = 1 each query
+    # attends only itself: ds = (dp - di) p scale is the difference of two
+    # float32 sums of the same products, so dq and dk are rounding noise in
+    # both versions and max|dq| is no scale for their error: all three are
+    # held relative to max|dv| there (dv = do)
     for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        _assert_rel(g, w, FLASH_BWD_REL[dtype], f"{name} {dtype} T={T}")
+        _assert_rel(g, w, FLASH_BWD_REL[dtype], f"{name} {dtype} T={T}",
+                    scale=want[2] if T == 1 else None)
+
+
+def _bwd_inputs(cuda, B, H, T, dh, dtype, seed, lens=None):
+    """Fused q, k, v views, their mask, the plain forward's o, l, m, a
+    (B, H, T, dh) view of a (B, T, H, dh) do, and di."""
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, seed, True, lens)
+    o, l, m = flash_attn.mhsa_plain(q, k, v, valid, dh ** -0.5,
+                                    residuals=True)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((B, T, H, dh))).to(
+        cuda, dtype).transpose(1, 2)
+    di = (o.float() * do.float()).sum(-1).contiguous()
+    return q, k, v, valid, o, l, m, do, di
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_kernels_repeat_their_bits(cuda, dtype):
+    """No atomics: each output row is summed by one block in a fixed order,
+    so a second launch of each kernel gives the same bits."""
+    q, k, v, valid, _, l, m, do, di = _bwd_inputs(cuda, 6, 4, 201, 64, dtype,
+                                                  17)
+    args = (q, k, v, valid, l, m, do, di, 0.125)
+    runs = [(*cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args),
+             cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv", "dq"), *runs):
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.cuda
+def test_flash_attn_bwd_bf16_rounds_p_and_ds_where_the_library_does(cuda):
+    """The mean error tells the roundings apart (the max cannot): the
+    kernels' dq, dk, dv lie within FLASH_BWD_BF16_MEAN of the plain
+    backward, a plain backward that keeps p and ds in float32 (do and k
+    widened exactly) lies beyond it."""
+    B, H, T, dh = 8, 4, 201, 64
+    q, k, v, valid, o, l, m, do, di = _bwd_inputs(
+        cuda, B, H, T, dh, torch.bfloat16, 23)
+    scale = dh ** -0.5
+    args = (q, k, v, valid, l, m, do, di, scale)
+    dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
+    dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
+    want = flash_attn.mhsa_bwd_plain(q, k, v, valid, o, l, m, do, scale)
+    control = flash_attn.mhsa_bwd_plain(q, k.float(), v, valid, o, l, m,
+                                        do.float(), scale)
+
+    def mean_rel(got, ref):
+        return ((got.float() - ref.float()).abs().mean()
+                / ref.float().abs().max()).item()
+
+    for name, g, c, w in zip(("dq", "dk", "dv"), (dq, dk, dv), control,
+                             want):
+        assert mean_rel(g, w) <= FLASH_BWD_BF16_MEAN, name
+        assert mean_rel(c, w) > FLASH_BWD_BF16_MEAN, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_launchers_copy_unaligned_inputs(cuda, dtype):
+    """Inputs whose address or strides are not multiples of 16 bytes (as
+    16-byte cp.async needs) are copied first, not refused."""
+    B, H, T, dh = 3, 2, 70, 32
+    q, k, v, valid, o, l, m, do, di = _bwd_inputs(cuda, B, H, T, dh, dtype,
+                                                  29)
+    wide = torch.zeros(B, H, T, dh + 3, dtype=dtype, device=cuda)
+    wide[..., 1:dh + 1] = q
+    q_odd = wide[..., 1:dh + 1]  # 2 or 4 bytes past alignment, odd strides
+    assert q_odd.data_ptr() % 16 != 0
+    args = (q_odd, k, v, valid, l, m, do, di, dh ** -0.5)
+    dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
+    dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
+    want = flash_attn.mhsa_bwd_plain(q, k, v, valid, o, l, m, do, dh ** -0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(g, w, FLASH_BWD_REL[dtype], f"{name} {dtype}")
 
 
 @pytest.mark.cuda

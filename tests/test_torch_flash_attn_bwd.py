@@ -164,3 +164,59 @@ def test_launchers_refuse_cpu_tensors():
         cuda_flash_attn.flash_attn_bwd_dq_cuda(q, k, v, valid, l, m, do, di,
                                                0.25)
     assert _counts() == before
+
+
+def _segment_ids(kind, T, rng):
+    """(B, T) int32 segment ids: ragged valid masks (lengths 1, 64, 65, 128
+    and T beside random ones: whole 64-row tiles of padding), or runs of
+    random int32 ids, sorted in one row (most tile pairs disjoint), in
+    random order in another, and the extremes of int32 in a third."""
+    if kind == "ragged":
+        lens = np.array([1, 64, 65, 128, T, *rng.integers(1, T + 1, 3)])
+        return torch.from_numpy(np.arange(T)[None] < lens[:, None]).to(
+            torch.int32)
+    info = np.iinfo(np.int32)
+    rows = []
+    for r in range(3):
+        cuts = np.sort(rng.choice(np.arange(1, T), 7, replace=False))
+        ids = rng.integers(info.min, info.max, 8, dtype=np.int64,
+                           endpoint=True)
+        if r == 0:
+            ids = np.sort(ids)
+        if r == 2:
+            ids[:4] = (info.min, info.max, info.min, info.max)
+        rows.append(np.repeat(ids, np.diff(np.r_[0, cuts, T])))
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ragged", "random_int32"])
+def test_skipped_tile_pairs_change_no_bit(kind, dtype):
+    """ops/flash_attn.kept_tile_pairs, the rule by which the backward
+    kernels skip (query tile, key tile) pairs at T = 201 with 64-row
+    tiles: p and ds are exactly 0 on every skipped pair, and the plain
+    backward restricted to the kept pairs equals the full one bit for
+    bit."""
+    T, H, dh, tile = 201, 2, 32, flash_attn.BWD_TILE
+    rng = np.random.default_rng(11)
+    seg = _segment_ids(kind, T, rng)
+    B = seg.shape[0]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, T, dh)).astype(np.float32)).to(dtype) for _ in range(4))
+    kept = flash_attn.kept_tile_pairs(seg)
+    n = -(-T // tile)
+    assert kept.shape == (B, n, n) and kept.dtype == torch.bool
+    # every tile meets itself; the cases skip some pairs
+    assert kept.diagonal(dim1=1, dim2=2).all() and not kept.all()
+    idx = torch.arange(T) // tile
+    keep = kept[:, idx][:, :, idx][:, None]  # (B, 1, T, T) of (query, key)
+    scale = dh ** -0.5
+    o, l, m = flash_attn.mhsa_plain(q, k, v, seg, scale, residuals=True)
+    p, ds = flash_attn.bwd_p_ds(q, k, v, seg, o, l, m, do, scale)
+    skip = (~keep).expand_as(p)
+    assert torch.all(p[skip] == 0) and torch.all(ds[skip] == 0)
+    full = flash_attn.mhsa_bwd_plain(q, k, v, seg, o, l, m, do, scale)
+    part = flash_attn.bwd_products(q, k, do, torch.where(keep, p, 0.0),
+                                   torch.where(keep, ds, 0.0))
+    for name, a, b in zip(("dq", "dk", "dv"), part, full):
+        assert torch.equal(a, b), name

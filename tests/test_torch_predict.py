@@ -28,6 +28,7 @@ from pg_asr_tpu.models import bilstm_ctc as jax_model
 from pg_asr_tpu.predict import predict as jax_predict
 from pg_asr_tpu_torch import cli
 from pg_asr_tpu_torch.checkpoint import load_checkpoint, save_model
+from pg_asr_tpu_torch.checkpoint import save_checkpoint as save_checkpoint_pt
 from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.convert import params_from_jax
 from pg_asr_tpu_torch.predict import forward, load_model
@@ -192,3 +193,29 @@ def test_device_cuda_without_gpu_exits_nonzero(slice_setup):
                  "--model_path", torch_dir, "--device", "cuda"])
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
+
+
+@pytest.mark.parametrize("ema_decay,with_ema,served", [
+    (0.0, True, "params"), (0.999, True, "ema_params"),
+    (0.999, False, "params")])
+def test_load_model_serves_ema_params_as_the_jax_package(
+        slice_setup, tmp_path, capsys, ema_decay, with_ema, served):
+    """pg_asr_tpu/predict.py: with train.ema_decay > 0 the checkpoint's
+    ema_params are served, else (or when it has none) its params."""
+    _, alphabet, cfg, _, torch_dir = slice_setup
+    params = load_checkpoint(os.path.join(torch_dir, "model_best.pt"))[
+        "params"]
+    state = {"params": params}
+    if with_ema:
+        state["ema_params"] = {k: v + 1.0 for k, v in params.items()}
+    save_checkpoint_pt(os.path.join(tmp_path, "model_best.pt"), state)
+    ecfg = cfg.replace(train=cfg.train.__class__(
+        **{**cfg.train.__dict__, "ema_decay": ema_decay}))
+    got, _ = load_model(str(tmp_path), alphabet, config=ecfg, device="cpu")
+    want = state[served]
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype), rtol=0,
+                                   atol=0)
+    said = "predates EMA" in capsys.readouterr().out
+    assert said == (ema_decay > 0 and not with_ema)
