@@ -2,31 +2,48 @@
 """Time the kernels of two trees of this repository on one GPU, in turns.
 
     python3 kernel_ab.py [lstm] A_ROOT B_ROOT
+    python3 kernel_ab.py flash_fwd A_ROOT B_ROOT
     python3 kernel_ab.py flash_bwd A_ROOT B_ROOT
 
 Runs four fresh processes in the order A, B, B, A. Each imports
 pg_asr_tpu_torch from its root (building that tree's kernels there at
 first use) and times its kernels with CUDA events over 20 launches after a
-warm-up (flash_bwd: the launches queued behind a sleep kernel, so that the
-events time the card, not the host's launches). It prints the card's name and power limit, each kernel's time in
-each turn and its mean per tree; the last line is one JSON object with all
-of it.
+warm-up (flash_fwd, flash_bwd: the launches queued behind a sleep kernel,
+so that the events time the card, not the host's launches). It prints the
+card's name and power limit, each kernel's time in each turn and its mean
+per tree; then, for tree B, what `nvcc -Xptxas -v` reports for each kernel
+of the mode's source (registers, stack frame, spills) and how many HMMA
+(tensor-core) and FFMA instructions `cuobjdump -sass` finds in each, where
+the toolkit has them. The last line is one JSON object with all of it. It
+exits non-zero when a check below fails.
 
 lstm: lstm_fwd (inference and residual forms) and lstm_bwd at
 chip_smoke.py's phase-3 shape (B=64, T=401, H=256, ragged lengths from
-seed 0), float32 and bfloat16, forward and reverse; whether the two trees'
-outputs have the same bits. Exits non-zero when they differ.
+seed 0), float32 and bfloat16, forward and reverse. lstm_fwd: the two
+trees' outputs must have the same bits. lstm_bwd sums in other orders
+since its cluster design, so each tree's dxp and dU are held against the
+plain backward (lstm_scan_bwd_plain) on the plain forward's residuals
+within the card test's bounds (float32 dxp 1e-5, dU 1e-5 x max|dU|;
+bfloat16 2e-2 x max|ref| each), and a second launch must repeat its bits.
+Compile report: csrc/lstm_bwd.cu.
+
+flash_fwd: flash_attn in its inference and residual forms at
+chip_smoke.py's phase-3c shape and inputs (B=64, H=4, T'=201, dh=64, q, k,
+v views of a fused projection, ragged lengths from seed 0), float32 and
+bfloat16; each tree's o, l and m held against mhsa_plain(residuals=True)
+within chip_smoke.py's FLASH_BOUNDS, FLASH_L_REL and FLASH_M_ABS; float32's
+o, l and m must have the same bits in both trees. Compile report:
+csrc/flash_attn.cu.
 
 flash_bwd: flash_attn_bwd_dkv and flash_attn_bwd_dq at chip_smoke.py's
-phase-3d shape and inputs (B=64, H=4, T'=201, dh=64, q, k, v views of a
-fused projection, ragged lengths from seed 0, the plain forward's l and m),
-float32 and bfloat16. The trees may sum in other orders, so their bits are
-not compared; each tree's dq, dk and dv are held against its plain
-backward (mhsa_bwd_plain) within chip_smoke.py's FLASH_BWD_BOUNDS, and the
-run exits non-zero when one is not. Then, for tree B, what `nvcc -Xptxas
--v` reports for each backward kernel (registers, stack frame, spills) and
-how many HMMA (tensor-core) and FFMA instructions `cuobjdump -sass` finds
-in each, where the toolkit has them.
+phase-3d shape and inputs (phase 3c's, the plain forward's l and m),
+float32 and bfloat16; each tree's dq, dk and dv held against the plain
+backward (mhsa_bwd_plain) within chip_smoke.py's FLASH_BWD_BOUNDS.
+Compile report: csrc/flash_attn_bwd.cu.
+
+Any tree can be passed: a copy of pg_asr_tpu_torch/ with a constant
+changed makes a variant (its worker alone: `kernel_ab.py --worker MODE
+ROOT` prints one JSON line).
 """
 
 from __future__ import annotations
@@ -42,6 +59,13 @@ REPS = 20
 # chip_smoke.py FLASH_BWD_BOUNDS: abs errors relative to max|grad|
 FLASH_BWD_BOUNDS = {"float32": {"max": 2e-5, "mean": 2e-7},
                     "bfloat16": {"max": 2.0 ** -7, "mean": 1e-6}}
+# chip_smoke.py FLASH_BOUNDS (max abs error of o; bf16 relative to
+# max|v|) and FLASH_L_REL, FLASH_M_ABS (the residual form's l and m)
+FLASH_BOUNDS = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+FLASH_L_REL, FLASH_M_ABS = 1e-5, 1e-5
+# tests/test_torch_cuda.py test_lstm_bwd_kernel_matches_plain: float32 dxp
+# atol 1e-5 and dU atol 1e-5 x max|dU|; bfloat16 both 2e-2 x max|ref|
+LSTM_BWD_REL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _time_ms(fn):
@@ -97,13 +121,17 @@ def _digest(*ts):
     return h.hexdigest()[:16]
 
 
+def _abs_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
 def lstm_worker() -> dict:
     import math
 
     import torch
 
     from pg_asr_tpu_torch.ops import cuda_lstm
-    from pg_asr_tpu_torch.ops.lstm import lstm_scan_plain
+    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
     B, T, H = 64, 401, 256
     dev = torch.device("cuda", 0)
@@ -118,20 +146,80 @@ def lstm_worker() -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         xp, U, gy = xp32.to(dtype), U32.to(dtype), gy32.to(dtype)
+        name = str(dtype).split(".")[1]
         for rev in (False, True):
-            tag = f"{str(dtype).split('.')[1]}_{'rev' if rev else 'fwd'}"
+            tag = f"{name}_{'rev' if rev else 'fwd'}"
             _, hp, cp = lstm_scan_plain(xp, U, mask, rev, residuals=True)
-            runs = {
-                "lstm_fwd": lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, rev),
-                "lstm_fwd_residual": lambda: cuda_lstm.lstm_scan_residual_cuda(
-                    xp, U, mask, rev),
-                "lstm_bwd": lambda: cuda_lstm.lstm_scan_bwd_cuda(
-                    xp, U, mask, hp, cp, gy, rev)}
-            for name, fn in runs.items():
+            for form, fn in (
+                    ("lstm_fwd",
+                     lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, rev)),
+                    ("lstm_fwd_residual",
+                     lambda: cuda_lstm.lstm_scan_residual_cuda(xp, U, mask,
+                                                               rev))):
                 res = fn()
                 res = res if isinstance(res, tuple) else (res,)
-                out[f"{name}_{tag}"] = {"ms": _time_ms(fn),
+                out[f"{form}_{tag}"] = {"ms": _time_ms(fn),
                                         "digest": _digest(*res)}
+            # lstm_bwd sums in another order than the parent's: each tree
+            # is held against the plain backward, not against the other
+            bwd = lambda: cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, hp, cp,
+                                                       gy, rev)
+            dxp, dU = bwd()
+            again = bwd()
+            r_dxp, r_dU = lstm_scan_bwd_plain(xp, U, mask, hp, cp, gy, rev)
+            rel = LSTM_BWD_REL[name]
+            out[f"lstm_bwd_{tag}"] = {
+                "ms": _time_ms(bwd),
+                "errors": {"dxp": _abs_err(dxp, r_dxp),
+                           "dU": _abs_err(dU, r_dU)},
+                "bounds": {"dxp": rel * (1.0 if name == "float32" else
+                                         r_dxp.float().abs().max().item()),
+                           "dU": rel * r_dU.float().abs().max().item()},
+                "repeats_its_bits": _digest(dxp, dU) == _digest(*again)}
+    return out
+
+
+def flash_fwd_worker() -> dict:
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_flash_attn
+    from pg_asr_tpu_torch.ops.flash_attn import mhsa_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, T, dh = 64, 4, 201, 64
+    dev = torch.device("cuda", 0)
+    scale = dh ** -0.5
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        # chip_smoke.py attn_inputs
+        g = torch.Generator().manual_seed(0)
+        qkv = torch.randn(B, T, 3, H, dh, generator=g)
+        lens = torch.randint(1, T + 1, (B,), generator=g)
+        lens[0], lens[1] = T, 1
+        valid = (torch.arange(T)[None] < lens[:, None]).to(dev)
+        qkv = qkv.to(dev, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        r_o, r_l, r_m = mhsa_plain(q, k, v, valid, scale, residuals=True)
+        o_bound = FLASH_BOUNDS[name] * (v.float().abs().max().item()
+                                        if name == "bfloat16" else 1.0)
+        o = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale)
+        out[f"flash_attn_{name}"] = {
+            "ms": _device_ms(lambda: cuda_flash_attn.flash_attn_cuda(
+                q, k, v, valid, scale)),
+            "errors": {"o": _abs_err(o, r_o)}, "bounds": {"o": o_bound}}
+        o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
+                                                  residuals=True)
+        # float32 keeps the first kernel's summation order: the same bits
+        # in both trees (bfloat16 moved to the tensor cores)
+        digest = {"digest": _digest(o, l, m)} if name == "float32" else {}
+        out[f"flash_attn_residual_{name}"] = {**digest,
+            "ms": _device_ms(lambda: cuda_flash_attn.flash_attn_cuda(
+                q, k, v, valid, scale, residuals=True)),
+            "errors": {"o": _abs_err(o, r_o),
+                       "l_rel": ((l - r_l).abs() / r_l).max().item(),
+                       "m": _abs_err(m, r_m)},
+            "bounds": {"o": o_bound, "l_rel": FLASH_L_REL, "m": FLASH_M_ABS}}
     return out
 
 
@@ -165,51 +253,73 @@ def flash_bwd_worker() -> dict:
         dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(*args)
         dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(*args)
         want = mhsa_bwd_plain(q, k, v, valid, o, l, m, do, scale)
-        errs = {}
+        bound = FLASH_BWD_BOUNDS[name]
+        errs, bounds = {}, {}
         for n, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             top = w.float().abs().max().item()
             d = (got.float() - w.float()).abs()
-            errs[n] = [d.max().item() / top, d.mean().item() / top]
+            errs[f"{n}_max"] = d.max().item() / top
+            errs[f"{n}_mean"] = d.mean().item() / top
+            bounds[f"{n}_max"] = bound["max"]
+            bounds[f"{n}_mean"] = bound["mean"]
         for kind, outs in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
             fn = getattr(cuda_flash_attn, f"flash_attn_bwd_{kind}_cuda")
             out[f"flash_attn_bwd_{kind}_{name}"] = {
                 "ms": _device_ms(lambda: fn(*args)),
-                "errors_rel_to_max": {n: errs[n] for n in outs}}
+                "errors": {e: errs[e] for e in errs if e[:2] in outs},
+                "bounds": {e: bounds[e] for e in bounds if e[:2] in outs}}
     return out
 
 
-WORKERS = {"lstm": lstm_worker, "flash_bwd": flash_bwd_worker}
+WORKERS = {"lstm": lstm_worker, "flash_bwd": flash_bwd_worker,
+           "flash_fwd": flash_fwd_worker}
 
 
-def compile_report(root: str) -> dict:
+def _label(mangled: str) -> str | None:
+    """kernel[type, template ints] of a mangled name of one of the kernels
+    the compile report covers, else None."""
+    for name in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
+                 "flash_attn_kernel", "lstm_bwd_kernel", "lstm_bwd_gemm_mma",
+                 "lstm_bwd_gemm", "lstm_bwd_reduce"):
+        if name in mangled:
+            dtype = "bfloat16" if "bfloat16" in mangled else "float32"
+            ints = re.findall(r"Li(\d+)E", mangled)
+            args = ", ".join([dtype, *ints])
+            return f"{name.removesuffix('_kernel')}[{args}]"
+    return None
+
+
+# the sources each mode's compile report covers
+REPORT_SOURCES = {"lstm": ("lstm_bwd.cu",), "flash_bwd": ("flash_attn_bwd.cu",),
+                  "flash_fwd": ("flash_attn.cu",)}
+
+
+def compile_report(root: str, sources) -> dict:
     """Registers, stack frame and spills (`nvcc -Xptxas -v`) and HMMA /
     FFMA counts (`cuobjdump -sass` of the built library) of each kernel of
-    root's csrc/flash_attn_bwd.cu, labelled kernel[type, dh]."""
+    root's csrc/<sources>, labelled kernel[type, template ints]."""
     sys.path.insert(0, root)
     from pg_asr_tpu_torch import _build
 
-    def label(mangled):
-        kind = "dkv" if "bwd_dkv_kernel" in mangled else "dq"
-        dtype = "bfloat16" if "bfloat16" in mangled else "float32"
-        dh = re.search(r"Li(\d+)E", mangled)
-        return f"flash_attn_bwd_{kind}[{dtype}, {dh.group(1) if dh else '?'}]"
-
     nvcc = _build.nvcc_path()
     report: dict = {}
+    log = ""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        proc = subprocess.run(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             os.path.join(tmp, "bwd.o"),
-             os.path.join(_build.CSRC, "flash_attn_bwd.cu")],
-            capture_output=True, text=True)
+        for src in sources:
+            proc = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, src + ".o"), os.path.join(_build.CSRC, src)],
+                capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                report[f"nvcc_error {src}"] = proc.stderr[-2000:]
     current = None
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)'?", line)
         if m:
-            current = (label(m.group(1)) if "flash_attn_bwd" in m.group(1)
-                       else None)
+            current = _label(m.group(1))
             continue
         if current is None:
             continue
@@ -222,8 +332,6 @@ def compile_report(root: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
-    if proc.returncode != 0:
-        report["nvcc_error"] = proc.stderr[-2000:]
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", _build.build()],
@@ -232,11 +340,11 @@ def compile_report(root: str) -> dict:
         for line in sass.splitlines():
             m = re.search(r"Function : (\w+)", line)
             if m:
-                current = (label(m.group(1)) if "flash_attn_bwd" in m.group(1)
-                           else None)
+                label = _label(m.group(1))
+                current = label if label in report else None
                 continue
             if current is not None:
-                entry = report.setdefault(current, {})
+                entry = report[current]
                 for op in ("HMMA", "FFMA"):
                     if re.search(rf"\b{op}\b", line):
                         entry[op] = entry.get(op, 0) + 1
@@ -268,32 +376,34 @@ def main(mode: str, a_root: str, b_root: str) -> int:
         row = {"ms": ms, "mean_ms": mean}
         line = (f"{key}: A {mean['A']:.4f} ms {ms['A']}, B {mean['B']:.4f} ms "
                 f"{ms['B']} (B/A {mean['B'] / mean['A']:.3f})")
-        if mode == "lstm":
+        if "digest" in turns[0][1][key]:  # the same bits in both trees
             same = len({t[key]["digest"] for _, t in turns}) == 1
             row["same_bits"] = same
             ok &= same
             line += f"; same bits {same}"
-        else:
-            bound = FLASH_BWD_BOUNDS[key.rsplit("_", 1)[1]]
-            # the largest over the kernel's outputs and the tree's turns
-            errs = {lab: {n: max(e[i] for l, t in turns if l == lab
-                                 for e in t[key]["errors_rel_to_max"].values())
-                          for i, n in ((0, "max"), (1, "mean"))}
+        if "errors" in turns[0][1][key]:  # each tree within the bounds
+            bounds = turns[0][1][key]["bounds"]
+            errs = {lab: {n: max(t[key]["errors"][n] for l, t in turns
+                                 if l == lab) for n in bounds}
                     for lab in ("A", "B")}
-            within = all(errs[lab]["max"] <= bound["max"]
-                         and errs[lab]["mean"] <= bound["mean"]
-                         for lab in errs)
-            row.update(errors_rel_to_max=errs, within_bounds=within)
-            ok &= within
-            line += (f"; max/mean err rel to max|grad| A {errs['A']['max']:.2e}"
-                     f"/{errs['A']['mean']:.2e}, B {errs['B']['max']:.2e}/"
-                     f"{errs['B']['mean']:.2e} (bounds {bound['max']:.1e}/"
-                     f"{bound['mean']:.0e}): within {within}")
+            within = all(errs[lab][n] <= b for lab in errs
+                         for n, b in bounds.items())
+            repeats = all(t[key].get("repeats_its_bits", True)
+                          for _, t in turns)
+            row.update(errors=errs, bounds=bounds, within_bounds=within,
+                       repeats_its_bits=repeats)
+            ok &= within and repeats
+            line += ("; errors A " + ", ".join(
+                f"{n} {e:.2e}" for n, e in errs["A"].items()) + ", B "
+                + ", ".join(f"{n} {e:.2e}" for n, e in errs["B"].items())
+                + " (bounds " + ", ".join(f"{n} {b:.1e}" for n, b in
+                                          bounds.items())
+                + f"): within {within}; repeats its bits {repeats}")
         summary[key] = row
         print(line)
     result = {"device": smi, "mode": mode, "kernels": summary, "ok": ok}
-    if mode == "flash_bwd":
-        result["compile_b"] = compile_report(b_root)
+    if mode in REPORT_SOURCES:
+        result["compile_b"] = compile_report(b_root, REPORT_SOURCES[mode])
         for name, entry in sorted(result["compile_b"].items()):
             print(f"[compile B] {name}: {entry}")
     print(json.dumps(result))

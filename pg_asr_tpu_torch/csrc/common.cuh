@@ -64,7 +64,7 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* src,
 }
 
 // --- Ampere/Hopper building blocks of the tensor-core kernels
-// (flash_attn_bwd.cu)
+// (flash_attn.cu, flash_attn_bwd.cu, lstm_bwd.cu)
 
 // 16 bytes from global to shared memory without passing through registers
 // (cp.async.cg: cached in L2 only); with `valid` false nothing is read and

@@ -9,10 +9,13 @@
 // pg_asr_tpu_torch/ops/flash_attn.py:mhsa_plain. Contract:
 //   q, k, v  (B, H, T, dh) float32 or bfloat16, any (batch, head, time)
 //            strides in elements, the dh axis contiguous (so q, k, v can be
-//            read in place from a fused (B, T, 3, H, dh) projection)
+//            read in place from a fused (B, T, 3, H, dh) projection); each
+//            start and each of those strides a multiple of 16 bytes (they
+//            are read by 16-byte cp.async; the launcher copies an input
+//            that is not)
 //   seg      (B, T) int32, contiguous; query i attends key j iff
 //            seg[b, i] == seg[b, j] (a padded query attends the padded keys)
-//   o        (B, H, T, dh) in q's type, strides as given
+//   o        (B, H, T, dh) in q's type, strides as given (even)
 //   l, m     (B, H, T) float32, contiguous, or both null: the residual form
 //            (the library's save_residuals, which its backward reads) also
 //            writes the row sum l and row max m of every row < T; null
@@ -24,43 +27,72 @@
 // not -inf); the softmax runs online in float32 over key tiles (running max
 // m and sum l per row, old sums rescaled by exp(m_old - m_new)); p =
 // exp(s - m) is rounded to v's type before the p . v product, which
-// accumulates in float32; the output is acc * (l == 0 ? 1 : 1 / l). Keys
-// beyond T do not exist for the softmax (-inf, p = 0). Every query row
-// < T is written, padded rows included.
+// accumulates in float32; l sums p before that rounding; the output is
+// acc * (l == 0 ? 1 : 1 / l). Keys beyond T do not exist for the softmax
+// (-inf, p = 0). Every query row < T is written, padded rows included.
+//
+// Skipped tile pairs. A (query tile, key tile) pair whose rows' segment-id
+// ranges are disjoint (flash_tiles.cuh tile_flags, the rule of
+// ops/flash_attn.py kept_tile_pairs) is not walked: every score of it
+// carries the mask, and skipping it changes no bit. Walked after a tile
+// with a real key, such a tile would contribute exp(-0.7 * FLT_MAX + s -
+// m) = 0 to l and acc with alpha = exp(0) = 1; walked before one, its sums
+// would be erased when alpha = exp(m_old - m_new) underflows to exactly 0,
+// as the zero sums of a row that has seen no tile are (alpha = exp(-inf)).
+// Every row < T has a real key, itself, in its own tile, which is always
+// walked; so m, l and the output are those of the walk over every tile.
 //
 // What bounds it on this card: at the conformer's shapes (B=64, H=4,
-// T'=201, dh=64) one call is ~2.6 GFLOP over ~50 MB (float32), so the
-// float32 operations bound it (0.04 ms at 67 TFLOP/s); in bfloat16 the
-// bytes bound the card (~8 us), but this kernel computes in float32 on
-// CUDA cores in both types, so its float32 operation rate is its limit.
+// T'=201, dh=64, 13.87% of the 64 x 64 tile pairs empty) one call is ~1.8
+// GFLOP on the pairs the mask leaves over ~26 MB in bfloat16 (~52 MB in
+// float32): the bytes bound bfloat16 (~8 us at 3.35 TB/s; the products
+// are a few microseconds of tensor-core time and the ~10 M exp a few of
+// the SFUs'), the operations float32 (~27 us at 67 TFLOP/s on the CUDA
+// cores). At 4 key tiles per block, latency and the chain of each warp's
+// instructions bound both long before either.
 //
-// What the design does about it: 64 query rows per block and 64 keys per
-// tile, 256 threads as a 16 x 16 grid; each thread owns 4 query rows
-// (ty + 16 i) x 4 keys (tx + 16 j) of the score tile and the same 4 rows x
-// dh/16 output columns, so each 16-byte shared-memory load of q or k
-// feeds 4 multiply-adds and the float32 work dominates the loads. The q
-// tile stays in shared memory for the whole walk; the k and v tiles are
-// staged there (converted to float32) one tile at a time; the row max and
-// sum are reduced over the 16 threads of a row with shuffles and kept in
-// registers, with the output accumulator. Rows of q, k and p are padded
-// by 4 floats in shared memory so that 8 threads reading 8 rows at one
-// column hit 32 distinct banks. The score and p tiles never leave the
-// block. Tensor cores (mma/wgmma for bfloat16), TMA and double-buffered
-// tiles are later work.
+// bfloat16, on the tensor cores: 4 warps, each owning 16 query rows, whose
+// q fragments stay in registers for the whole walk. Both products are
+// mma.sync m16n8k16 (bf16 operands, float32 accumulators): s = q . k^T
+// from ldmatrix fragments of the key tile; the scale, the mask and the
+// online softmax in registers, the row max and sum over the 4 lanes of a
+// quad by shuffles; p = exp(s - m) packed from the s accumulators straight
+// into the bf16 A fragment of p . v (so p rounds where the library rounds
+// it and never touches shared memory), v read through ldmatrix.trans.
+// The k, v tiles and the keys' segment ids are double-buffered: the next
+// kept tile's cp.async is in flight while the current one is computed.
+// MMAs whose 8 keys lie wholly beyond T are skipped. Tiles stay bf16 in
+// shared memory, rows padded by 8 elements (no ldmatrix bank conflicts):
+// 46 KB at dh=64; the launch bounds hold the registers to 3 blocks per SM
+// (at 4, ptxas spilled 16 bytes and the kernel ran ~3% slower).
+//
+// float32, on the CUDA cores (TF32 would move the results past the bounds
+// the port holds them to): 128 threads as 16 key lanes x 8 row groups;
+// each thread owns 8 query rows (ty + 8 i) x 4 keys (tx + 16 j) of the
+// score tile and the same 8 rows x dh/16 output columns, so a 16-byte
+// shared-memory load feeds ~11 multiply-adds (8 at 4 x 4; 256 threads at
+// 4 x 4 and 64 at 16 x 4 ran slower). The q tile stays in shared memory, k
+// and v are double-buffered by 16-byte cp.async in their own type, p passes
+// through shared memory between the two products. Each row's sums run in
+// the order of the first kernel (s over dh in order, the row sum over a
+// thread's 4 keys then a 16-lane butterfly, acc over the tile's keys in
+// order), so with the skip changing no bit the float32 output, l and m
+// keep that kernel's bits.
 
 #include <math.h>
 
-#include "common.cuh"
+#include <cstdint>
+#include <type_traits>
+
+#include "flash_tiles.cuh"
 
 namespace pgasr {
 namespace {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kAttnThreads = 256; // 16 x 16
-constexpr int kRowsPerThread = kBQ / 16;
-constexpr int kKeysPerThread = kBK / 16;
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // -0.7 * FLT_MAX
+using bf16 = __nv_bfloat16;
+
+constexpr int kF32Threads = 128;             // 16 key lanes x 8 row groups
+constexpr int kMmaThreads = 32 * (kBT / 16);  // one warp per 16 query rows
 
 struct FlashArgs {
   const void* q;
@@ -75,97 +107,146 @@ struct FlashArgs {
   float scale;
 };
 
-template <int DH>
-constexpr size_t smem_floats() {
-  // q and k tiles (rows padded by 4), v tile, p tile (rows padded by 4)
-  return (size_t)kBQ * (DH + 4) + (size_t)kBK * (DH + 4) + (size_t)kBK * DH
-         + (size_t)kBQ * (kBK + 4);
-}
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  return smem_floats<DH>() * sizeof(float) + kBK * sizeof(int);
-}
-
 template <typename T, int DH>
-__global__ void __launch_bounds__(kAttnThreads)
-flash_attn_kernel(const FlashArgs a) {
-  constexpr int LDQ = DH + 4, LDP = kBK + 4;
-  constexpr int CPT = DH / 16;  // output columns per thread: 4 or 2
+constexpr size_t smem_bytes() {
+  if constexpr (std::is_same_v<T, float>)
+    // the q tile and two buffers of k (rows padded by 4), two of v, the p
+    // tile (rows padded by 4); two buffers of the keys' segment ids
+    return ((size_t)3 * kBT * (DH + 4) + (size_t)2 * kBT * DH
+            + (size_t)kBT * (kBT + 4) + (size_t)2 * kBT) * sizeof(float);
+  else
+    // the q tile and two buffers of k and of v (rows padded by 8); two
+    // buffers of the keys' segment ids
+    return (size_t)5 * kBT * (DH + 8) * sizeof(bf16)
+           + (size_t)2 * kBT * sizeof(int);
+}
+
+// The block's rows and pointers, shared by both types.
+template <typename T>
+struct Block {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  const int* seg;
+  int q0, Tn, n;
+  long long row0;  // into l, m
+  __device__ Block(const FlashArgs& a)
+      : q(static_cast<const T*>(a.q) + blockIdx.z * a.sq[0]
+          + blockIdx.y * a.sq[1]),
+        k(static_cast<const T*>(a.k) + blockIdx.z * a.sk[0]
+          + blockIdx.y * a.sk[1]),
+        v(static_cast<const T*>(a.v) + blockIdx.z * a.sv[0]
+          + blockIdx.y * a.sv[1]),
+        o(static_cast<T*>(a.o) + blockIdx.z * a.so[0] + blockIdx.y * a.so[1]),
+        seg(a.seg + (long long)blockIdx.z * a.T),
+        q0(blockIdx.x * kBT), Tn(a.T), n((a.T + kBT - 1) / kBT),
+        row0(((long long)blockIdx.z * a.H + blockIdx.y) * a.T) {}
+};
+
+// --- float32: CUDA cores ----------------------------------------------------
+
+template <int DH>
+__device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
+  constexpr int LDK = DH + 4, LDP = kBT + 4, CPT = DH / 16;
+  constexpr int TY = kF32Threads / 16, RPT = kBT / TY, KPT = kBT / 16;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kBQ * LDQ;
-  float* Vs = Ks + kBK * LDQ;
-  float* Ps = Vs + kBK * DH;
-  int* segk = reinterpret_cast<int*>(Ps + kBQ * LDP);
+  float* Ks = Qs + kBT * LDK;      // two buffers
+  float* Vs = Ks + 2 * kBT * LDK;  // two buffers
+  float* Ps = Vs + 2 * kBT * DH;
+  int* segk = reinterpret_cast<int*>(Ps + kBT * LDP);  // two buffers
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segk + 2 * kBT);
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const Block<float> blk(a);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int Tn = a.T;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
-  T* op = static_cast<T*>(a.o) + b * a.so[0] + h * a.so[1];
-  const int* seg = a.seg + (long long)b * Tn;
+  const int Tn = blk.Tn, n = blk.n, q0 = blk.q0;
 
-  load_rows_f32<T, DH, kAttnThreads>(Qs, LDQ, qp, a.sq[2], q0, kBQ, Tn);
-  int segq[kRowsPerThread];
-  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][CPT];
+  load_tile_async<float, DH, LDK, kF32Threads>(Qs, blk.q, a.sq[2], q0, Tn);
+  cp_async_commit();
+  tile_flags<kF32Threads>(kept, blk.seg, q0, Tn);
+  int segq[RPT];
+  float m[RPT], l[RPT], acc[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int t = q0 + ty + 16 * i;
-    segq[i] = t < Tn ? seg[t] : -1;  // rows beyond T are computed, not stored
+  for (int i = 0; i < RPT; ++i) {
+    const int t = q0 + ty + TY * i;
+    segq[i] = t < Tn ? blk.seg[t] : -1;  // rows beyond T: computed, not stored
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
   }
+  __syncthreads();  // the flags
 
-  for (int k0 = 0; k0 < Tn; k0 += kBK) {
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    load_rows_f32<T, DH, kAttnThreads>(Ks, LDQ, kp, a.sk[2], k0, kBK, Tn);
-    load_rows_f32<T, DH, kAttnThreads>(Vs, DH, vp, a.sv[2], k0, kBK, Tn);
-    for (int j = threadIdx.x; j < kBK; j += kAttnThreads)
-      segk[j] = k0 + j < Tn ? seg[k0 + j] : 0;
-    __syncthreads();
+  // the first kept key tile into buffer 0 (the query tile meets itself)
+  int kt = next_kept(kept, 0, n);
+  load_tile_async<float, DH, LDK, kF32Threads>(Ks, blk.k, a.sk[2], kt * kBT,
+                                               Tn);
+  load_tile_async<float, DH, DH, kF32Threads>(Vs, blk.v, a.sv[2], kt * kBT,
+                                              Tn);
+  cp_async_commit();
+  if (threadIdx.x < kBT) {
+    const int t = kt * kBT + threadIdx.x;
+    segk[threadIdx.x] = t < Tn ? blk.seg[t] : 0;
+  }
 
-    // scores of rows ty + 16 i against keys tx + 16 j, q . k in float32
-    float s[kRowsPerThread][kKeysPerThread];
+  for (int buf = 0; kt < n; buf ^= 1) {
+    const int nxt = next_kept(kept, kt + 1, n);
+    // the next tile's segment ids, fetched now, stored after this tile
+    const bool stage = nxt < n && threadIdx.x < kBT;
+    const int tn = nxt * kBT + threadIdx.x;
+    const int ns = stage && tn < Tn ? blk.seg[tn] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in `buf`; the other buffer and p are free
+    if (nxt < n) {
+      load_tile_async<float, DH, LDK, kF32Threads>(
+          Ks + (buf ^ 1) * kBT * LDK, blk.k, a.sk[2], nxt * kBT, Tn);
+      load_tile_async<float, DH, DH, kF32Threads>(
+          Vs + (buf ^ 1) * kBT * DH, blk.v, a.sv[2], nxt * kBT, Tn);
+    }
+    cp_async_commit();
+    const float* Kb = Ks + buf * kBT * LDK;
+    const float* Vb = Vs + buf * kBT * DH;
+    const int* sk = segk + buf * kBT;
+    const int k0 = kt * kBT;
+
+    // scores of rows ty + TY i against keys tx + 16 j, q . k in float32
+    float s[RPT][KPT];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
     for (int c = 0; c < DH; c += 4) {
-      float4 qv[kRowsPerThread], kv[kKeysPerThread];
+      float4 kv[KPT];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LDQ + c]);
+      for (int j = 0; j < KPT; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(&Kb[(tx + 16 * j) * LDK + c]);
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LDQ + c]);
+      for (int i = 0; i < RPT; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&Qs[(ty + TY * i) * LDK + c]);
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; ++j) {
+        for (int j = 0; j < KPT; ++j) {
           float acc_s = s[i][j];
-          acc_s = fmaf(qv[i].x, kv[j].x, acc_s);
-          acc_s = fmaf(qv[i].y, kv[j].y, acc_s);
-          acc_s = fmaf(qv[i].z, kv[j].z, acc_s);
-          acc_s = fmaf(qv[i].w, kv[j].w, acc_s);
+          acc_s = fmaf(qv.x, kv[j].x, acc_s);
+          acc_s = fmaf(qv.y, kv[j].y, acc_s);
+          acc_s = fmaf(qv.z, kv[j].z, acc_s);
+          acc_s = fmaf(qv.w, kv[j].w, acc_s);
           s[i][j] = acc_s;
         }
+      }
     }
 
-    // scale, segment mask, online softmax; p rounded to v's type into Ps
+    // scale, segment mask, online softmax; p into Ps (float32: no rounding)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
+    for (int i = 0; i < RPT; ++i) {
       float mt = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         const int kj = tx + 16 * j;
         float sv = s[i][j] * a.scale;
-        sv += segq[i] == segk[kj] ? 0.0f : kMaskValue;
+        sv += segq[i] == sk[kj] ? 0.0f : kMaskValue;
         s[i][j] = k0 + kj < Tn ? sv : -INFINITY;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -176,10 +257,10 @@ flash_attn_kernel(const FlashArgs a) {
       const float alpha = expf(m[i] - m_new);  // 0 on the first tile
       float ps = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         const float p = expf(s[i][j] - m_new);
         ps += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
+        Ps[(ty + TY * i) * LDP + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -193,56 +274,267 @@ flash_attn_kernel(const FlashArgs a) {
 
     // acc += p . v over the tile's keys (keys beyond T have p = 0, v = 0)
 #pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pv[kRowsPerThread];
+    for (int kk = 0; kk < kBT; kk += 4) {
+      float4 pv[RPT];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * LDP + kk]);
+      for (int i = 0; i < RPT; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + TY * i) * LDP + kk]);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vr[CPT];
         if constexpr (CPT == 4) {
-          const float4 w = *reinterpret_cast<const float4*>(&Vs[(kk + u) * DH + 4 * tx]);
+          const float4 w =
+              *reinterpret_cast<const float4*>(&Vb[(kk + u) * DH + 4 * tx]);
           vr[0] = w.x; vr[1] = w.y; vr[2] = w.z; vr[3] = w.w;
         } else {
-          const float2 w = *reinterpret_cast<const float2*>(&Vs[(kk + u) * DH + 2 * tx]);
+          const float2 w =
+              *reinterpret_cast<const float2*>(&Vb[(kk + u) * DH + 2 * tx]);
           vr[0] = w.x; vr[1] = w.y;
         }
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+        for (int i = 0; i < RPT; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
           for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vr[c], acc[i][c]);
         }
       }
     }
+
+    if (stage) segk[(buf ^ 1) * kBT + threadIdx.x] = ns;
+    kt = nxt;
   }
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int i = 0; i < RPT; ++i) {
+    const int t = q0 + ty + TY * i;
     if (t >= Tn) continue;
     const float inv = l[i] == 0.0f ? 1.0f : 1.0f / l[i];
-    T* row = op + (long long)t * a.so[2] + CPT * tx;
+    float* row = blk.o + (long long)t * a.so[2] + CPT * tx;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[c] = from_f32<T>(acc[i][c] * inv);
+    for (int c = 0; c < CPT; ++c) row[c] = acc[i][c] * inv;
     if (a.l != nullptr && tx == 0) {  // every thread of the row holds both
-      const long long r = ((long long)b * a.H + h) * Tn + t;
-      a.l[r] = l[i];
-      a.m[r] = m[i];
+      a.l[blk.row0 + t] = l[i];
+      a.m[blk.row0 + t] = m[i];
     }
   }
 }
 
+// --- bfloat16: tensor cores -------------------------------------------------
+
+template <int DH>
+__device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
+  constexpr int LD = DH + 8, TILE = kBT * LD, NK = kBT / 8, ND = DH / 8,
+                KQ = DH / 16;
+  extern __shared__ float4 smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TILE;      // two buffers
+  bf16* Vs = Ks + 2 * TILE;  // two buffers
+  int* segk = reinterpret_cast<int*>(Vs + 2 * TILE);  // two buffers
+  unsigned char* kept = reinterpret_cast<unsigned char*>(segk + 2 * kBT);
+
+  const Block<bf16> blk(a);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const Lanes L(lane);
+  const int Tn = blk.Tn, n = blk.n;
+
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, blk.q, a.sq[2], blk.q0, Tn);
+  cp_async_commit();
+  tile_flags<kMmaThreads>(kept, blk.seg, blk.q0, Tn);
+
+  // this warp's queries qw .. qw + 15; this lane's rows g and g + 8 of
+  // them (rows beyond T are computed, not stored)
+  const int qw = blk.q0 + 16 * warp;
+  const bool warp_in = qw < Tn;
+  int sr[2];
+  float m[2], l[2], acc[ND][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = qw + g + 8 * r;
+    sr[r] = t < Tn ? blk.seg[t] : -1;
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+  }
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
+  __syncthreads();  // the flags
+
+  // the first kept key tile into buffer 0 (the query tile meets itself)
+  int kt = next_kept(kept, 0, n);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, blk.k, a.sk[2], kt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, blk.v, a.sv[2], kt * kBT, Tn);
+  cp_async_commit();
+  if (threadIdx.x < kBT) {
+    const int t = kt * kBT + threadIdx.x;
+    segk[threadIdx.x] = t < Tn ? blk.seg[t] : 0;
+  }
+  // this warp's q fragments, kept for the whole walk
+  unsigned qf[KQ][4];
+  cp_async_wait_all();
+  __syncthreads();  // the q tile
+#pragma unroll
+  for (int kq = 0; kq < KQ; ++kq)
+    ldsm_x4(qf[kq], Qs + (16 * warp + L.arow) * LD + L.acol + 16 * kq);
+
+  for (int buf = 0; kt < n; buf ^= 1) {
+    const int nxt = next_kept(kept, kt + 1, n);
+    // the next tile's segment ids, fetched now, stored after this tile
+    const bool stage = nxt < n && threadIdx.x < kBT;
+    const int tn = nxt * kBT + threadIdx.x;
+    const int ns = stage && tn < Tn ? blk.seg[tn] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in `buf`; the other buffer is free
+    if (nxt < n) {
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Ks + (buf ^ 1) * TILE, blk.k,
+                                                 a.sk[2], nxt * kBT, Tn);
+      load_tile_async<bf16, DH, LD, kMmaThreads>(Vs + (buf ^ 1) * TILE, blk.v,
+                                                 a.sv[2], nxt * kBT, Tn);
+    }
+    cp_async_commit();
+
+    if (warp_in) {
+      const bf16* Kb = Ks + buf * TILE;
+      const bf16* Vb = Vs + buf * TILE;
+      const int* sk = segk + buf * kBT;
+      const int k0 = kt * kBT;
+      // s = q . k^T: this warp's 16 queries x the tile's keys, n-tile j =
+      // keys 8 j ..
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+#pragma unroll
+        for (int j = 0; j < NK; j += 2) {
+          unsigned bk[4];
+          ldsm_x4(bk, Kb + (8 * j + L.brow) * LD + 16 * kq + L.bcol);
+          if (k0 + 8 * j < Tn) mma_bf16_16816(s[j], qf[kq], bk[0], bk[1]);
+          if (k0 + 8 * j + 8 < Tn)
+            mma_bf16_16816(s[j + 1], qf[kq], bk[2], bk[3]);
+        }
+      }
+      // scale and mask; element e of n-tile j: row g + 8 (e / 2), key
+      // 8 j + c2 + e % 2
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const int col = 8 * j + c2;
+        const int2 sj = *reinterpret_cast<const int2*>(sk + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          float sv = s[j][e] * a.scale;
+          sv += sr[e >> 1] == (odd ? sj.y : sj.x) ? 0.0f : kMaskValue;
+          s[j][e] = k0 + col + odd < Tn ? sv : -INFINITY;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+        }
+      }
+      // the online softmax over the quad's 4 lanes; p rounded to bf16 pairs
+      // in the A-fragment layout of p . v: n-tiles 2 u and 2 u + 1 make
+      // k-step u
+      float alpha[2], m_new[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        m_new[r] = fmaxf(m[r], mt[r]);
+        alpha[r] = expf(m[r] - m_new[r]);  // 0 on the first tile
+      }
+      unsigned pa[NK / 2][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(s[j][e] - m_new[e >> 1]);
+          ps[e >> 1] += p[e];
+        }
+        pa[j >> 1][2 * (j & 1)] = pack_bf16x2(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+        l[r] = alpha[r] * l[r] + ps[r];
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
+      // acc += p . v over the tile's keys below T; n-tile d = columns 8 d ..
+#pragma unroll
+      for (int u = 0; u < NK / 2; ++u) {
+        if (k0 + 16 * u >= Tn) break;
+        const bf16* vr = Vb + (16 * u + L.trow) * LD + L.tcol;
+#pragma unroll
+        for (int d = 0; d < ND; d += 2) {
+          unsigned bv[4];
+          ldsm_x4_trans(bv, vr + 8 * d);
+          mma_bf16_16816(acc[d], pa[u], bv[0], bv[1]);
+          mma_bf16_16816(acc[d + 1], pa[u], bv[2], bv[3]);
+        }
+      }
+    }
+
+    if (stage) segk[(buf ^ 1) * kBT + threadIdx.x] = ns;
+    kt = nxt;
+  }
+
+  if (!warp_in) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = qw + g + 8 * r;
+    if (t >= Tn) continue;
+    const float inv = l[r] == 0.0f ? 1.0f : 1.0f / l[r];
+    bf16* row = blk.o + (long long)t * a.so[2] + c2;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<unsigned*>(row + 8 * d) =
+          pack_bf16x2(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+    if (a.l != nullptr && (lane & 3) == 0) {  // the quad holds both
+      a.l[blk.row0 + t] = l[r];
+      a.m[blk.row0 + t] = m[r];
+    }
+  }
+}
+
+// --- the kernel and its launch -----------------------------------------------
+
+template <typename T> struct Cfg;
+template <> struct Cfg<float> {
+  static constexpr int kThreads = kF32Threads, kBlocks = 2;
+};
+template <> struct Cfg<bf16> {
+  static constexpr int kThreads = kMmaThreads, kBlocks = 3;
+};
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kBlocks)
+flash_attn_kernel(const FlashArgs a) {
+  if constexpr (std::is_same_v<T, float>) fwd_f32<DH>(a);
+  else fwd_mma<DH>(a);
+}
+
 template <typename T, int DH>
 int launch(const FlashArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>();
+  const size_t smem = smem_bytes<T, DH>() + flag_bytes(a.T);
   cudaError_t e = cudaFuncSetAttribute(
       flash_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.T + kBQ - 1) / kBQ, a.H, a.B);
-  flash_attn_kernel<T, DH><<<grid, kAttnThreads, smem, stream>>>(a);
+  e = cudaFuncSetAttribute(flash_attn_kernel<T, DH>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.T + kBT - 1) / kBT, a.H, a.B);
+  flash_attn_kernel<T, DH><<<grid, Cfg<T>::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -260,8 +552,9 @@ extern "C" {
 
 // Strides in elements, (batch, head, time) for each of q, k, v, o; l and m
 // both null (inference form) or both (B, H, T) float32 (residual form);
-// dtype 0 float32, 1 bfloat16. Returns 0, kErrHeadDim, kErrDtype, or the
-// launch's cudaError_t.
+// dtype 0 float32, 1 bfloat16. Returns 0, kErrHeadDim, kErrDtype,
+// kErrAlignment (q, k or v, or one of their strides, not a multiple of 16
+// bytes), or the launch's cudaError_t.
 int pgasr_flash_attn(const void* q, const void* k, const void* v,
                      const int* seg, void* o, float* l, float* m,
                      long long q_sb, long long q_sh,
@@ -274,13 +567,22 @@ int pgasr_flash_attn(const void* q, const void* k, const void* v,
   if (B < 1 || H < 1 || T < 1) return cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return cudaErrorInvalidConfiguration;
   if ((l == nullptr) != (m == nullptr)) return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return kErrDtype;
   const FlashArgs a{q, k, v, seg, o, l, m,
                     {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
                     {v_sb, v_sh, v_st}, {o_sb, o_sh, o_st},
                     B, H, T, scale};
+  // q, k and v are read by 16-byte cp.async
+  const long long vec = dtype == 0 ? 4 : 8;  // elements per 16 bytes
+  const void* in[3] = {q, k, v};
+  const long long* st[3] = {a.sq, a.sk, a.sv};
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<uintptr_t>(in[i]) % 16 != 0) return kErrAlignment;
+    for (int j = 0; j < 3; ++j)
+      if (st[i][j] % vec != 0) return kErrAlignment;
+  }
   if (dtype == 0) return launch_dh<float>(a, dh, stream);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(a, dh, stream);
-  return kErrDtype;
+  return launch_dh<bf16>(a, dh, stream);
 }
 
 }  // extern "C"

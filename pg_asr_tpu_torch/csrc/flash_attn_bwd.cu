@@ -95,17 +95,14 @@
 
 #include <math.h>
 
-#include <climits>
 #include <cstdint>
 #include <type_traits>
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace pgasr {
 namespace {
 
-constexpr int kBT = 64;  // rows of a query or key tile
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // -0.7 * FLT_MAX
 // float32: a 16 x 16 thread grid, kPer x kPer elements per thread
 constexpr int kF32Threads = 256;
 constexpr int kPer = kBT / 16;
@@ -142,11 +139,6 @@ template <> struct Cfg<bf16> {
   static constexpr int kThreads = kMmaThreads, kDkvBlocks = 3, kDqBlocks = 4;
 };
 
-// one flag per walked tile, after the fixed arrays
-size_t flag_bytes(int T) {
-  return ((size_t)(T + kBT - 1) / kBT + 15) / 16 * 16;
-}
-
 template <typename T, int DH>
 constexpr size_t dkv_smem_bytes() {
   if constexpr (std::is_same_v<T, float>)
@@ -173,68 +165,6 @@ constexpr size_t dq_smem_bytes() {
     // key tile's segment ids
     return (size_t)6 * kBT * (DH + 8) * sizeof(bf16)
            + (size_t)2 * kBT * sizeof(int);
-}
-
-// --- shared by both types ---------------------------------------------------
-
-// (min, max) of the segment ids of rows t0 .. t0 + kBT - 1 below Tn, in
-// every lane of the calling warp; (INT_MAX, INT_MIN) for no row
-__device__ __forceinline__ int2 seg_range(const int* seg, int t0, int Tn) {
-  const int lane = threadIdx.x & 31;
-  int lo = INT_MAX, hi = INT_MIN;
-  if (t0 + lane < Tn) lo = hi = seg[t0 + lane];
-  if (t0 + lane + 32 < Tn) {
-    const int s = seg[t0 + lane + 32];
-    lo = min(lo, s);
-    hi = max(hi, s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  return make_int2(lo, hi);
-}
-
-// flags[t] for each walked tile t: 0 where the segment-id ranges of tile t
-// and of the held tile (rows h0 ..) are disjoint, so that no (query, key)
-// pair of the two shares a segment and every p and ds of the pair is
-// exactly 0 (the pair is skipped), else 1; ops/flash_attn.py
-// kept_tile_pairs. The caller synchronises before reading them.
-template <int NT>
-__device__ void tile_flags(unsigned char* flags, const int* seg, int h0,
-                           int Tn) {
-  const int2 held = seg_range(seg, h0, Tn);
-  const int n = (Tn + kBT - 1) / kBT;
-  for (int t = threadIdx.x / 32; t < n; t += NT / 32) {
-    const int2 r = seg_range(seg, t * kBT, Tn);
-    if ((threadIdx.x & 31) == 0) flags[t] = !(r.y < held.x || held.y < r.x);
-  }
-}
-
-// the first kept tile at or after t (n if none)
-__device__ __forceinline__ int next_kept(const unsigned char* flags, int t,
-                                         int n) {
-  while (t < n && !flags[t]) ++t;
-  return t;
-}
-
-// rows t0 .. t0 + kBT - 1 of a strided (.., T, DH) slice into a shared tile
-// of row stride LD elements, by NT threads with 16-byte cp.async; rows at
-// or beyond Tn are zero-filled. The caller commits the group.
-template <typename T, int DH, int LD, int NT>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
-                                                long long st, int t0,
-                                                int Tn) {
-  constexpr int kVec = 16 / sizeof(T), kRowVecs = DH / kVec;
-  static_assert(kBT * kRowVecs % NT == 0, "whole copies per thread");
-#pragma unroll
-  for (int i = 0; i < kBT * kRowVecs / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int r = e / kRowVecs, c = (e % kRowVecs) * kVec, t = t0 + r;
-    const bool in = t < Tn;
-    cp_async16(dst + r * LD + c, in ? src + (long long)t * st + c : src, in);
-  }
 }
 
 // --- float32: CUDA cores ----------------------------------------------------
@@ -533,16 +463,6 @@ __device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
 
 // --- bfloat16: tensor cores -------------------------------------------------
 
-// ldmatrix row offsets of this lane: A fragments (16 x 16, rows of the
-// held tile), B fragments of two 8-wide n-tiles (rows of a tile stored
-// [n][k]), and B fragments read transposed (rows of a tile stored [k][n])
-struct Lanes {
-  int arow, acol, brow, bcol, trow, tcol;
-  __device__ Lanes(int lane)
-      : arow(lane & 15), acol(8 * (lane >> 4)),
-        brow((lane & 7) + 8 * (lane >> 4)), bcol(8 * ((lane >> 3) & 1)),
-        trow((lane & 7) + 8 * ((lane >> 3) & 1)), tcol(8 * (lane >> 4)) {}
-};
 
 template <int DH>
 __device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {

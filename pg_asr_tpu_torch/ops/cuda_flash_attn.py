@@ -12,9 +12,9 @@ the plain versions by the tensor's device. There is no fallback.
 
 q, k, v and do are read in place through their (batch, head, time)
 strides, so views of a fused (B, T, 3, H, dh) projection need no copy;
-only a head axis that is not contiguous is copied first, and for the
-backward kernels, which read their inputs by 16-byte cp.async, an input
-whose address or strides are not multiples of 16 bytes. Each output is
+the kernels read their inputs by 16-byte cp.async, so only an input whose
+head axis is not contiguous, or whose address or strides are not
+multiples of 16 bytes, is copied first. Each output is
 written in a (B, T, H, dh) buffer and returned as its (B, H, T, dh) view,
 so the caller's transpose back to (B, T, H * dh) is free.
 
@@ -93,11 +93,6 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, H, T, dh
 
 
-def _inner(t: torch.Tensor) -> torch.Tensor:
-    """t itself if its dh axis is contiguous, else a contiguous copy."""
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself if 16-byte cp.async can read its rows (dh axis contiguous,
     address and (batch, head, time) strides multiples of 16 bytes), else a
@@ -135,7 +130,7 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 (the row sum and max). Raises on anything else."""
     global LAUNCHES, RES_LAUNCHES
     B, H, T, dh = _check("flash_attn", q, k, v, valid_mask)
-    q, k, v = _inner(q), _inner(k), _inner(v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     seg = valid_mask.to(torch.int32).contiguous()
     o = _out(q)
     l = m = None

@@ -39,12 +39,15 @@ BI_BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
     -1: "hidden size H not supported: one block per SM holds 1 or 2 hidden "
-        "units (lstm_*: H <= #SMs, or even and <= 2 x #SMs) or, for both "
+        "units (lstm_fwd: H <= #SMs, or even and <= 2 x #SMs) or, for both "
         "directions, 1, 2 or 4 (bilstm_*: 2H <= #SMs, or H even and <= #SMs, "
-        "or H a multiple of 4 and <= 2 x #SMs; bilstm_bwd also H <= 512)",
+        "or H a multiple of 4 and <= 2 x #SMs; bilstm_bwd also H <= 512); "
+        "lstm_bwd takes H <= 512",
     -2: "cooperative grid does not fit on the device (blocks not co-resident)",
     -3: "per-block shared memory above the device limit (batch too large)",
     -4: "unsupported dtype",
+    -9: "no thread-block cluster of lstm_bwd fits on the device (H too "
+        "large for its shared memory)",
 }
 _declared = False
 
@@ -56,8 +59,12 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pgasr_lstm_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.pgasr_lstm_fwd.restype = ci
-        lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ctypes.c_longlong] + [
+            ci] * 5 + [vp]
         lib.pgasr_lstm_bwd.restype = ci
+        lib.pgasr_lstm_bwd_scratch.argtypes = [ci] * 3 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.pgasr_lstm_bwd_scratch.restype = ci
         lib.pgasr_bilstm_fwd.argtypes = [vp] * 11 + [ci] * 4 + [vp]
         lib.pgasr_bilstm_fwd.restype = ci
         lib.pgasr_bilstm_bwd.argtypes = [vp] * 15 + [ci] * 4 + [vp]
@@ -143,7 +150,10 @@ def lstm_scan_residual_cuda(xp: torch.Tensor, U: torch.Tensor,
 def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
                        hprev: torch.Tensor, cprev: torch.Tensor,
                        gy: torch.Tensor, reverse: bool = False):
-    """Launch lstm_bwd -> (dxp (B,T,4H) in xp's type, dU (H,4H) in U's)."""
+    """Launch lstm_bwd -> (dxp (B,T,4H) in xp's type, dU (H,4H) in U's).
+    One call runs the gate recompute for all steps (into a float32
+    scratch), the walk, and dU as float32 partial products that its last
+    kernel adds in order."""
     global BWD_LAUNCHES
     B, T, H = _check(xp, U, mask, "lstm_bwd")
     for name, t, dtype, shape in (("hprev", hprev, xp.dtype, (T, B, H)),
@@ -156,14 +166,19 @@ def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
     hprev, cprev, gy = hprev.contiguous(), cprev.contiguous(), gy.contiguous()
     dxp = torch.empty_like(xp)
     dU = torch.empty_like(U)
-    dbuf = torch.empty(2, B, 4 * H, dtype=U.dtype, device=xp.device)
     lib = _lib()
     with torch.cuda.device(xp.device):
+        n = ctypes.c_longlong(0)
+        _raise_on(lib.pgasr_lstm_bwd_scratch(B, T, H, ctypes.byref(n)), lib,
+                  "lstm_bwd", B, T, H, xp.dtype)
+        n = n.value
+        scratch = torch.empty(n, dtype=torch.float32, device=xp.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgasr_lstm_bwd(
             xp.data_ptr(), U.data_ptr(), m.data_ptr(), hprev.data_ptr(),
             cprev.data_ptr(), gy.data_ptr(), dxp.data_ptr(), dU.data_ptr(),
-            dbuf.data_ptr(), B, T, H, int(reverse), _DTYPES[xp.dtype], stream)
+            scratch.data_ptr(), n, B, T, H, int(reverse), _DTYPES[xp.dtype],
+            stream)
     _raise_on(rc, lib, "lstm_bwd", B, T, H, xp.dtype)
     BWD_LAUNCHES += 1
     return dxp, dU

@@ -23,9 +23,11 @@ J products in another order, then a log-sum-exp); the gradients atol
 order), 2^-7 x max|grad| in bfloat16 (each is a float32 sum rounded once
 to bf16, so the two may round one ulp apart).
 The fused-direction kernels (bilstm_fwd, bilstm_bwd) hold the
-single-direction tolerances against their plain versions, and each
-direction equals a single-direction launch bit for bit (the same partial
-sums in the same order; see csrc/bilstm_fwd.cu).
+single-direction tolerances against their plain versions. Each direction
+of bilstm_fwd equals a single-direction launch bit for bit (the same
+partial sums in the same order; see csrc/bilstm_fwd.cu); bilstm_bwd and
+lstm_bwd sum dh and dU in different orders (lstm_bwd's clusters), so
+their directions agree within the backward's tolerances.
 """
 
 import numpy as np
@@ -160,10 +162,14 @@ def test_lstm_residual_kernel_matches_plain(cuda, B, T, H, reverse, dtype,
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("B,T,H", [(5, 37, 64), (3, 11, 256), (2, 9, 200),
-                                   (70, 5, 32)])
+                                   (70, 5, 32), (1, 9, 256), (13, 7, 200),
+                                   (3, 6, 264)])
 def test_lstm_bwd_kernel_matches_plain(cuda, B, T, H, reverse, dtype, rel):
     """Both get the plain forward's residuals, so this holds the backward
-    alone. B=70 takes two passes of the block's row loops."""
+    alone. One row; B = 13 and 70, not multiples of the rows per cluster
+    (70 also more clusters than fit at once); H = 200, ragged units per
+    block; H = 264, the first kernel's largest at 132 SMs (clusters of
+    16)."""
     xp, U, mask, gy = _case(cuda, B, T, H, dtype, 7 * H + T)
     _, hprev, cprev = lstm_scan_plain(xp, U, mask, reverse, residuals=True)
     before = cuda_lstm.BWD_LAUNCHES
@@ -180,6 +186,20 @@ def test_lstm_bwd_kernel_matches_plain(cuda, B, T, H, reverse, dtype, rel):
     torch.testing.assert_close(dU.float(), ref_dU.float(), rtol=0,
                                atol=float(rel * ref_dU.abs().max()))
     assert torch.all(dxp[mask == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_kernel_repeats_its_bits(cuda, dtype):
+    """No atomics: the dh partials are added in rank order and the dU
+    partials in cluster order, so a second launch gives the same bits."""
+    xp, U, mask, gy = _case(cuda, 64, 23, 256, dtype, 9)
+    _, hprev, cprev = lstm_scan_plain(xp, U, mask, False, residuals=True)
+    runs = [cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, hprev, cprev, gy)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dxp", "dU"), *runs):
+        assert torch.equal(_bits(a), _bits(b)), name
 
 
 @pytest.mark.cuda
@@ -326,6 +346,12 @@ def test_ctc_beam_launcher_rejects_bad_inputs(cuda):
 # plain version against the row's max) and the output is rounded to bf16,
 # each at most 2^-9 relative, so two results may differ by a few ulps.
 
+# the mean abs error relative to max|o| that tells apart a bf16 forward
+# rounding p where the library does (~2e-8) from one keeping p in float32
+# (~4e-5)
+FLASH_FWD_BF16_MEAN = 1e-6
+
+
 def _attn_case(cuda, B, H, T, dh, dtype, seed, fused=False, lens=None):
     """q, k, v and a (B, T) validity mask from a seed; lengths ``lens``, or
     random ones with T and 1 among them."""
@@ -361,6 +387,113 @@ def test_flash_attn_kernel_matches_plain(cuda, B, H, T, dh, dtype, fused):
     atol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * v.abs().max().item()
     # every row, padded queries (which attend the padded keys) included
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+
+
+def _tile_walk_bf16(q, k, v, seg, scale, round_p=True, tile=64):
+    """The library forward's rounding points, test-local: for each query
+    tile the key tiles in order, the online softmax in float32, p = exp(s
+    - m_running) rounded to bf16 (or not, with ``round_p`` False) before
+    p . v, which accumulates in float32; the output rounded to bf16."""
+    B, H, T, _ = q.shape
+    n = -(-T // tile)
+    mask_value = flash_attn.DEFAULT_MASK_VALUE
+    o = torch.empty_like(q)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for b in range(B):
+        for i in range(n):
+            rows = slice(i * tile, min(T, (i + 1) * tile))
+            m = torch.full((H, rows.stop - rows.start), -torch.inf,
+                           device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(H, rows.stop - rows.start, q.shape[-1],
+                              device=q.device)
+            for j in range(n):
+                keys = slice(j * tile, min(T, (j + 1) * tile))
+                s = qf[b, :, rows] @ kf[b, :, keys].transpose(-1, -2) * scale
+                same = seg[b, rows, None] == seg[b, None, keys]
+                s = s + torch.where(same, 0.0, mask_value)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = alpha * l + p.sum(-1)
+                pv = p.to(torch.bfloat16).float() if round_p else p
+                acc = alpha[..., None] * acc + pv @ vf[b, :, keys]
+                m = m_new
+            o[b, :, rows] = (acc / l[..., None]).to(q.dtype)
+    return o
+
+
+@pytest.mark.cuda
+def test_flash_attn_bf16_rounds_p_where_the_library_does(cuda):
+    """The library rounds p = exp(s - m) to bf16 against the running max of
+    the key tiles walked so far. The mean error tells that apart (the max
+    cannot): the kernel lies within FLASH_FWD_BF16_MEAN x max|o| of a
+    test-local walk with those rounding points, a walk that keeps p in
+    float32 lies beyond it. A CPU estimate at this shape, float64 against
+    float32 sums with the same roundings: 2.4e-8; without the rounding of
+    p: 4.4e-5."""
+    B, H, T, dh = 8, 4, 201, 64
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, torch.bfloat16, 31, True)
+    seg = valid.to(torch.int32)
+    got = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, dh ** -0.5)
+    want = _tile_walk_bf16(q, k, v, seg, dh ** -0.5)
+    control = _tile_walk_bf16(q, k, v, seg, dh ** -0.5, round_p=False)
+    top = want.float().abs().max()
+    mean = ((got.float() - want.float()).abs().mean() / top).item()
+    ctrl = ((control.float() - want.float()).abs().mean() / top).item()
+    assert mean <= FLASH_FWD_BF16_MEAN < ctrl, (mean, ctrl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ragged", "random_int32"])
+def test_flash_attn_skips_masked_tile_pairs_without_a_change(cuda, dtype,
+                                                              kind):
+    """Segment layouts that empty whole 64 x 64 tile pairs (lengths 1, 64,
+    65, 128 and T; runs of random int32 segment ids, sorted in one row),
+    which the kernel skips: both forms against mhsa_plain within the
+    usual bounds, l and m included."""
+    B, H, T, dh = 5, 2, 257, 64
+    rng = np.random.default_rng(37)
+    if kind == "ragged":
+        seg = np.arange(T)[None] < np.array([1, 64, 65, 128, T])[:, None]
+    else:
+        ids = rng.integers(-2 ** 31, 2 ** 31, (B, 9), dtype=np.int64)
+        ids[0] = np.sort(ids[0])
+        cuts = np.sort(rng.choice(np.arange(1, T), (B, 8)), axis=1)
+        seg = np.stack([np.repeat(ids[r], np.diff(np.r_[0, cuts[r], T]))
+                        for r in range(B)])
+    seg = torch.from_numpy(seg.astype(np.int32)).to(cuda)
+    assert not flash_attn.kept_tile_pairs(seg).all()
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, dh))).to(
+        cuda, dtype) for _ in range(3))
+    scale = dh ** -0.5
+    o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, seg, scale,
+                                              residuals=True)
+    r_o, r_l, r_m = flash_attn.mhsa_plain(q, k, v, seg, scale,
+                                          residuals=True)
+    atol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * v.abs().max().item()
+    torch.testing.assert_close(o.float(), r_o.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, r_m, rtol=0, atol=1e-5)
+    torch.testing.assert_close(o, cuda_flash_attn.flash_attn_cuda(
+        q, k, v, seg, scale), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_launcher_copies_unaligned_inputs(cuda, dtype):
+    """Inputs whose address or strides are not multiples of 16 bytes (as
+    16-byte cp.async needs) are copied first, not refused."""
+    B, H, T, dh = 3, 2, 70, 32
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, 29, True)
+    wide = torch.zeros(B, H, T, dh + 3, dtype=dtype, device=cuda)
+    wide[..., 1:dh + 1] = q
+    q_odd = wide[..., 1:dh + 1]  # 2 or 4 bytes past alignment, odd strides
+    assert q_odd.data_ptr() % 16 != 0
+    got = cuda_flash_attn.flash_attn_cuda(q_odd, k, v, valid, dh ** -0.5)
+    torch.testing.assert_close(got, cuda_flash_attn.flash_attn_cuda(
+        q, k, v, valid, dh ** -0.5), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -926,12 +1059,17 @@ def test_bilstm_bwd_kernel_matches_plain(cuda, B, T, H, dtype, rel):
                else rel * want.float().abs().max())
         torch.testing.assert_close(g.float(), want.float(), rtol=0,
                                    atol=float(tol))
+    # each direction against a single-direction launch, which sums dh and
+    # dU in its own order: within the same tolerances
     single = (*cuda_lstm.lstm_scan_bwd_cuda(xpf, Uf, mask, *res[:2],
                                             gy[..., :H].contiguous(), False),
               *cuda_lstm.lstm_scan_bwd_cuda(xpb, Ub, mask, *res[2:],
                                             gy[..., H:].contiguous(), True))
     for g, want in zip(got, (single[0], single[2], single[1], single[3])):
-        assert torch.equal(g, want)
+        tol = (1e-5 if dtype == torch.float32 and g.dim() == 3
+               else rel * want.float().abs().max())
+        torch.testing.assert_close(g.float(), want.float(), rtol=0,
+                                   atol=float(tol))
 
 
 @pytest.mark.cuda
@@ -961,8 +1099,11 @@ def test_bilstm_launchers_reject_bad_inputs(cuda):
 def test_bilstm_layer_fused_autograd_launches_the_kernels(cuda, dtype):
     """bilstm_layer(fuse_directions=True) under autograd: one residual
     bilstm_fwd and one bilstm_bwd launch, no single-direction launch; its
-    output and the gradients of x, W, U and b equal the unfused layer's
-    (each direction equals a single-direction launch bit for bit)."""
+    output equals the unfused layer's (each direction of bilstm_fwd equals
+    a single-direction launch bit for bit), and the gradients of x, W, U
+    and b agree within the backward's tolerances relative to max|grad|
+    (1e-5 float32, 2e-2 bfloat16: lstm_bwd sums dh and dU in its own
+    order)."""
     rng = np.random.default_rng(11)
     B, T, I, H = 6, 23, 48, 256
     lens = np.array([23, 1, 9, 17, 23, 4])
@@ -987,8 +1128,11 @@ def test_bilstm_layer_fused_autograd_launches_the_kernels(cuda, dtype):
         assert delta == ((0, 0, 0, 0, 1, 1) if fuse else (0, 2, 2, 0, 0, 0))
         out[fuse] = [y, x.grad] + [p[d][k].grad for d in ("fwd", "bwd")
                                    for k in ("W", "U", "b")]
-    for a, b in zip(out[True], out[False]):
-        assert torch.equal(a, b)
+    assert torch.equal(out[True][0], out[False][0])
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(out[True][1:], out[False][1:]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=float(rel * b.float().abs().max()))
     with torch.no_grad():
         before = _bi_counts()
         y = bilstm_layer(p, x0, mask, fuse_directions=True)

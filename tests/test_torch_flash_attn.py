@@ -10,6 +10,12 @@ the CPU) vs the JAX side, on the same numpy arrays.
   keep its scores in bf16, which is not the kernel's function); the port
   rounds p to bf16 before p . v and the output to bf16, two roundings of
   at most 2^-9 relative each, so atol 2^-7 x max|v|.
+- the forward kernels' walk (csrc/flash_attn.cu), test-local in float32:
+  the online softmax over 64 x 64 tiles that skips the tile pairs
+  ``kept_tile_pairs`` drops equals the walk over every pair bit for bit
+  (o, l, m), on ragged masks and random int32 segment ids; at T = 256 it
+  matches the library's Pallas forward in TPU interpret mode, atol 1e-5
+  (float32 summation order only).
 - the port's ``_mhsa`` / ``_mhsa_rotary`` with the segment-masked path vs
   JAX's dense ``_mhsa`` / ``_mhsa_rotary`` (float32 softmax) on the valid
   query rows, atol 1e-5: the two differ only on padded rows (a padded query
@@ -22,8 +28,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import (
-    SegmentIds, mha_reference_no_custom_vjp)
+    SegmentIds, flash_attention, mha_reference_no_custom_vjp)
 
 from pg_asr_tpu.config import ConformerConfig, ModelConfig, TransformerConfig
 from pg_asr_tpu.models import conformer_ctc as jax_conformer
@@ -156,3 +163,96 @@ def test_posenc_concatenates_sin_and_cos_as_jax_does():
     got = transformer_ctc._posenc(23, 16, torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-6)
+
+
+def _segment_ids(kind, T, rng):
+    """(B, T) int32 segment ids: ragged valid masks (lengths 1, 64, 65,
+    128 and T beside random ones: whole 64-row tiles of padding), or runs
+    of random int32 ids, sorted in one row (most tile pairs disjoint), in
+    random order in another, the extremes of int32 in a third."""
+    if kind == "ragged":
+        lens = np.array([1, 64, 65, 128, T, *rng.integers(1, T + 1, 2)])
+        return (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    info = np.iinfo(np.int32)
+    rows = []
+    for r in range(3):
+        cuts = np.sort(rng.choice(np.arange(1, T), 7, replace=False))
+        ids = rng.integers(info.min, info.max, 8, dtype=np.int64,
+                           endpoint=True)
+        if r == 0:
+            ids = np.sort(ids)
+        if r == 2:
+            ids[:4] = (info.min, info.max, info.min, info.max)
+        rows.append(np.repeat(ids, np.diff(np.r_[0, cuts, T])))
+    return np.stack(rows).astype(np.int32)
+
+
+def _tile_walk(q, k, v, seg, scale, kept=None, tile=64):
+    """The forward kernels' walk in float32: for each query tile, the key
+    tiles in order (only those ``kept`` keeps, if given), each with the
+    scores q . k * scale plus the additive mask, the running max m, alpha
+    = exp(m_old - m_new), p = exp(s - m_new), l = alpha l + sum(p), acc =
+    alpha acc + p . v; o = acc * (1 / l) -> (o, l, m)."""
+    B, H, T, _ = q.shape
+    n = -(-T // tile)
+    o, l_out, m_out = torch.empty_like(q), torch.empty(B, H, T), \
+        torch.empty(B, H, T)
+    for b in range(B):
+        for i in range(n):
+            rows = slice(i * tile, min(T, (i + 1) * tile))
+            qt = q[b, :, rows]
+            m = torch.full(qt.shape[:2], -torch.inf)
+            l = torch.zeros(qt.shape[:2])
+            acc = torch.zeros_like(qt)
+            for j in range(n):
+                if kept is not None and not kept[b, i, j]:
+                    continue
+                keys = slice(j * tile, min(T, (j + 1) * tile))
+                s = qt @ k[b, :, keys].transpose(-1, -2) * scale
+                same = seg[b, rows, None] == seg[b, None, keys]
+                s = s + torch.where(same, 0.0, flash_attn.DEFAULT_MASK_VALUE)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + p @ v[b, :, keys]
+                m = m_new
+            o[b, :, rows] = acc * torch.where(l == 0, 1.0, 1.0 / l)[..., None]
+            l_out[b, :, rows], m_out[b, :, rows] = l, m
+    return o, l_out, m_out
+
+
+@pytest.mark.parametrize("kind", ["ragged", "random_int32"])
+@pytest.mark.parametrize("T", [201, 256])
+def test_forward_skips_emptied_tile_pairs_without_a_change(kind, T):
+    """The claim of csrc/flash_attn.cu: skipping the (query tile, key tile)
+    pairs whose segment-id ranges are disjoint changes no bit of o, l and
+    m. The walk stays within atol 1e-5 of mhsa_plain's residual form and,
+    at T = 256 (the library's 128-row blocks), of the library's Pallas
+    forward in interpret mode."""
+    H, dh = 2, 32
+    rng = np.random.default_rng(T)
+    seg = _segment_ids(kind, T, rng)
+    B = seg.shape[0]
+    q, k, v = (rng.standard_normal((B, H, T, dh)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv, tseg = (torch.from_numpy(a) for a in (q, k, v, seg))
+    scale = dh ** -0.5
+    kept = flash_attn.kept_tile_pairs(tseg)
+    assert not kept.all()  # the case skips some pairs
+    full = _tile_walk(tq, tk, tv, tseg, scale)
+    skip = _tile_walk(tq, tk, tv, tseg, scale, kept)
+    for name, a, b in zip(("o", "l", "m"), skip, full):
+        assert torch.equal(a, b), name
+    for name, a, b in zip(("o", "l", "m"), skip, flash_attn.mhsa_plain(
+            tq, tk, tv, tseg, scale, residuals=True)):
+        torch.testing.assert_close(a, b, rtol=1e-5 if name == "l" else 0,
+                                   atol=0 if name == "l" else 1e-5)
+    if T % 128 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            ref = flash_attention(
+                *(jnp.asarray(a) for a in (q, k, v)),
+                segment_ids=SegmentIds(q=jnp.asarray(seg),
+                                       kv=jnp.asarray(seg)), sm_scale=scale)
+        np.testing.assert_allclose(skip[0].numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-5)

@@ -201,3 +201,90 @@ def test_inference_keeps_the_form_without_residuals(monkeypatch):
     y1 = lstm_mod.lstm_layer(params, x, mask)
     assert calls == [False, True] and y1.requires_grad
     torch.testing.assert_close(y0, y1.detach(), rtol=0, atol=0)
+
+
+def _bwd_in_cluster_order(xp, U, mask, hprev, cprev, gy, reverse, cs,
+                          splits):
+    """The backward with csrc/lstm_bwd.cu's summation orders, float32: the
+    H units split over ``cs`` blocks (H // cs or one more each, in order)
+    and each block's units in two halves, each half's partial dh =
+    dpre_mx[:, its gate columns] @ U[:, those]^T, the partials added in
+    block order, halves in order within a block; dU after the walk as
+    ``splits`` partial products hprev^T @ dxp over consecutive ranges of
+    the (t, b) pairs (t-major), added in order -> (dxp, dU), float32."""
+    B, T, H4 = xp.shape
+    H = H4 // 4
+    cols, u0 = [], 0
+    for q in range(cs):
+        nj = H // cs + (q < H % cs)
+        for lo, hi in ((0, nj // 2), (nj // 2, nj)):
+            cols.append(torch.cat([torch.arange(u0 + lo, u0 + hi) + g * H
+                                   for g in range(4)]))
+        u0 += nj
+    U32 = U.float()
+    dh = torch.zeros(B, H)
+    dc = torch.zeros(B, H)
+    dxp = torch.empty(B, T, H4)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        hp, cp, m = hprev[t].float(), cprev[t].float(), mask[:, t, None]
+        pre = xp[:, t].float() + hp @ U32
+        i, f = torch.sigmoid(pre[:, :H]), torch.sigmoid(pre[:, H:2 * H])
+        g, o = torch.tanh(pre[:, 2 * H:3 * H]), torch.sigmoid(pre[:, 3 * H:])
+        th = torch.tanh(f * cp + i * g)
+        dhn = m * (dh + gy[:, t].float())
+        dct = m * dc + dhn * o * (1.0 - th * th)
+        dpre = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
+                          dct * i * (1.0 - g * g),
+                          dhn * th * o * (1.0 - o)], dim=1)
+        dxp[:, t] = dpre
+        partial = torch.zeros(B, H)
+        for c in cols:
+            partial = partial + dpre[:, c] @ U32[:, c].T
+        dh = (1.0 - m) * dh + partial
+        dc = (1.0 - m) * dc + dct * f
+    # pair k = t B + b: hprev's rows in order, dxp's transposed to match
+    hk = hprev.float().reshape(T * B, H)
+    dk = dxp.transpose(0, 1).reshape(T * B, H4)
+    per = -(-T * B // splits)
+    du = torch.zeros(H, H4)
+    for z in range(splits):
+        rows = slice(z * per, (z + 1) * per)
+        du = du + hk[rows].T @ dk[rows]
+    return dxp, du
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+# clusters of 8 and 16 blocks (H = 20 makes both unit splits ragged), dU in
+# 3 and 5 ranges of the 132 (t, b) pairs
+@pytest.mark.parametrize("cs,splits", [(8, 3), (16, 5)])
+def test_backward_in_the_cluster_kernels_order(reverse, cs, splits):
+    """The summation orders of csrc/lstm_bwd.cu (dh as per-half-block
+    partial sums over gate-column slices, dU as partial products over
+    ranges of the (t, b) pairs added in order) stay within 1e-5 x max|ref|
+    of the plain backward and of _pallas_backward in interpret mode: the
+    card test's float32 bound covers the reordering."""
+    Bc, Tc, Hc = 11, 12, 20
+    rng = np.random.default_rng(40 + cs)
+    lens = np.array([Tc, 1, *rng.integers(1, Tc + 1, Bc - 2)])
+    xp = (0.5 * rng.standard_normal((Bc, Tc, 4 * Hc))).astype(np.float32)
+    U = (rng.uniform(-1, 1, (Hc, 4 * Hc)) / np.sqrt(Hc)).astype(np.float32)
+    mask = (np.arange(Tc)[None] < lens[:, None]).astype(np.float32)
+    gy = rng.standard_normal((Bc, Tc, Hc)).astype(np.float32)
+    _, r_h, r_c = _pallas_forward_train(jnp.asarray(xp), jnp.asarray(U),
+                                        jnp.asarray(mask), reverse, INTERPRET)
+    r_dxp, r_dU = _pallas_backward(jnp.asarray(xp), jnp.asarray(U),
+                                   jnp.asarray(mask), r_h, r_c,
+                                   jnp.asarray(gy), reverse, INTERPRET)
+    hprev, cprev = _t(_f32(r_h)[:Tc]), _t(_f32(r_c)[:Tc])
+    got = _bwd_in_cluster_order(_t(xp), _t(U), _t(mask), hprev, cprev,
+                                _t(gy), reverse, cs, splits)
+    plain = lstm_scan_bwd_plain(_t(xp), _t(U), _t(mask), hprev, cprev,
+                                _t(gy), reverse)
+    for name, g, p, r in zip(("dxp", "dU"), got, plain,
+                             (_f32(r_dxp), _f32(r_dU))):
+        atol = 1e-5 * np.abs(r).max()
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=0, atol=atol,
+                                   err_msg=f"{name} vs the plain backward")
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=atol,
+                                   err_msg=f"{name} vs _pallas_backward")
+    assert np.all(got[0].numpy()[mask == 0] == 0.0)
