@@ -12,7 +12,8 @@ the CPU or to a kernel's plain version):
      B=64, T=401, H=256 (5 s of audio, the default hidden size), float32
      and bfloat16, forward and reverse: lstm_fwd in its inference and
      residual forms, lstm_bwd with a random output gradient. Max and mean
-     abs errors against stated bounds, CUDA-event times (kernel and plain
+     abs errors against stated bounds, each kernel's second launch equal
+     bit for bit to its first, CUDA-event times (kernel and plain
      in turns), the time of cuDNN's nn.LSTM at the same shape as a
      yardstick, and the least time the card could take (bound).
   3b. beam kernel: ctc_beam vs the plain hash scan on the card at the
@@ -57,9 +58,8 @@ the CPU or to a kernel's plain version):
      and bilstm_bwd vs their plain versions on the card at phase 3's shape
      (B=64, T=401, H=256 per direction), float32 and bfloat16, ragged
      lengths, against the phase 3 bounds; each against two single-direction
-     launches (the forward's bits equal, the backward within the phase 3
-     bounds: lstm_bwd sums in its own order), the backward run twice
-     (equal bits);
+     launches within the phase 3 bounds (lstm_fwd and lstm_bwd sum in
+     their own orders), the backward run twice (equal bits);
      CUDA-event times in turns against the plain versions, against 2 x
      lstm_fwd / lstm_bwd on one stream and against cuDNN's bidirectional
      nn.LSTM; the bound. Then bilstm_layer(fuse_directions=True) at the
@@ -398,12 +398,15 @@ def phase_kernels(dev):
             # --- inference form
             bound = BOUNDS[name]
             got = cuda_lstm.lstm_scan_cuda(xp, U, mask, reverse)
+            again = cuda_lstm.lstm_scan_cuda(xp, U, mask, reverse)
             ref_out, ref_h, ref_c = lstm_scan_plain(xp, U, mask, reverse,
                                                     residuals=True)
             torch.cuda.synchronize()
             err, mean_err = _errs(got, ref_out)
             check(got.dtype == dtype and got.shape == (B, T, H),
                   "kernel output dtype/shape")
+            check(bool(torch.equal(got, again)),
+                  f"lstm_fwd {name} reverse={reverse}: two launches differ")
             check(bool(torch.all(got[mask == 0] == 0)),
                   "kernel output not zero at padded steps")
             k_ms, p_ms = in_turns(
@@ -623,9 +626,16 @@ def phase_bilstm(dev):
             bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
             check(mx <= bd["max"] and mean <= bd["mean"],
                   f"bilstm_fwd {name}: {k} max {mx} mean {mean} > {bd}")
+        # against two lstm_fwd launches, which sum h @ U in another order
+        # (clusters): the same bounds
         single = (torch.cat([sf[0], sb[0]], -1), sf[1], sf[2], sb[1], sb[2])
-        check(all(torch.equal(a, b) for a, b in zip(res, single)),
-              f"bilstm_fwd {name}: not bit-equal to two lstm_fwd launches")
+        serrs = {k: _errs(g, r) for k, g, r in
+                 zip(("y", "hpf", "cpf", "hpb", "cpb"), res, single)}
+        for k, (mx, mean) in serrs.items():
+            bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
+            check(mx <= bd["max"] and mean <= bd["mean"],
+                  f"bilstm_fwd {name}: {k} max {mx} mean {mean} > {bd} "
+                  "against two lstm_fwd launches")
         k_ms, p_ms = in_turns(lambda: bilstm_scan_plain(*args),
                               lambda: cl.bilstm_scan_cuda(*args), 2, 20)
         two_ms = time_ms(lambda: (cl.lstm_scan_cuda(xpf, Uf, mask, False),
@@ -638,15 +648,18 @@ def phase_bilstm(dev):
                      cl.lstm_scan_residual_cuda(xpb, Ub, mask, True)), 20)
         b_ms, b_by = bound_ms(f_fwd, io_fwd, name)
         br_ms, br_by = bound_ms(f_fwd, io_res, name)
-        case.update(fwd_errors=errs, fwd_ms=k_ms, fwd_plain_ms=p_ms,
+        case.update(fwd_errors=errs, fwd_vs_lstm_fwd=serrs, fwd_ms=k_ms,
+                    fwd_plain_ms=p_ms,
                     two_lstm_fwd_ms=two_ms, fwd_bound_ms=b_ms,
                     fwd_bound_by=b_by, res_ms=kr_ms, res_plain_ms=pr_ms,
                     two_lstm_fwd_residual_ms=two_r_ms, res_bound_ms=br_ms,
                     res_bound_by=br_by)
         print(f"[kernel] bilstm_fwd {tag}: " + ", ".join(
             f"{k} max {v[0]:.3e} mean {v[1]:.3e}" for k, v in errs.items())
-            + f" (bounds {BOUNDS[name]}, c {CPREV_BOUNDS[name]}); equal bits "
-            f"to 2 x lstm_fwd; inference form {k_ms:.3f} ms (plain "
+            + f" (bounds {BOUNDS[name]}, c {CPREV_BOUNDS[name]}); vs 2 x "
+            "lstm_fwd max " + ", ".join(f"{k} {v[0]:.3e}" for k, v in
+                                        serrs.items())
+            + f"; inference form {k_ms:.3f} ms (plain "
             f"{p_ms:.3f}, 2 x lstm_fwd {two_ms:.3f}, bound {b_ms:.3f} "
             f"{b_by}); residual form {kr_ms:.3f} ms (plain {pr_ms:.3f}, 2 x "
             f"lstm_fwd residual {two_r_ms:.3f}, bound {br_ms:.3f} {br_by})")
@@ -1194,7 +1207,8 @@ def phase_joint(dev):
 
         with torch.no_grad():
             unf_ms = time_ms(lambda: unfused_joint(*args), 10)
-        unf_train_ms, fused_train_ms = in_turns(unfused_train, fused_train,
+        # in_turns(plain, kernel) returns (kernel ms, plain ms)
+        fused_train_ms, unf_train_ms = in_turns(unfused_train, fused_train,
                                                 5, 5)
         ub, uy = unfused_joint(*args)
         unf_err = max(_errs(ub, rb)[0], _errs(uy, ry)[0])

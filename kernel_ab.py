@@ -4,6 +4,7 @@
     python3 kernel_ab.py [lstm] A_ROOT B_ROOT
     python3 kernel_ab.py flash_fwd A_ROOT B_ROOT
     python3 kernel_ab.py flash_bwd A_ROOT B_ROOT
+    python3 kernel_ab.py joint A_ROOT B_ROOT
 
 Runs four fresh processes in the order A, B, B, A. Each imports
 pg_asr_tpu_torch from its root (building that tree's kernels there at
@@ -19,13 +20,15 @@ exits non-zero when a check below fails.
 
 lstm: lstm_fwd (inference and residual forms) and lstm_bwd at
 chip_smoke.py's phase-3 shape (B=64, T=401, H=256, ragged lengths from
-seed 0), float32 and bfloat16, forward and reverse. lstm_fwd: the two
-trees' outputs must have the same bits. lstm_bwd sums in other orders
-since its cluster design, so each tree's dxp and dU are held against the
-plain backward (lstm_scan_bwd_plain) on the plain forward's residuals
+seed 0), float32 and bfloat16, forward and reverse. Both kernels sum in
+other orders since their cluster designs, so each tree is held against
+the plain versions, and a second launch must repeat its bits: lstm_fwd's
+out, hprev and cprev against lstm_scan_plain within chip_smoke.py's BOUNDS
+and CPREV_BOUNDS (max and mean abs error); lstm_bwd's dxp and dU against
+the plain backward (lstm_scan_bwd_plain) on the plain forward's residuals
 within the card test's bounds (float32 dxp 1e-5, dU 1e-5 x max|dU|;
-bfloat16 2e-2 x max|ref| each), and a second launch must repeat its bits.
-Compile report: csrc/lstm_bwd.cu.
+bfloat16 2e-2 x max|ref| each). Compile report: csrc/lstm_fwd.cu and
+csrc/lstm_bwd.cu.
 
 flash_fwd: flash_attn in its inference and residual forms at
 chip_smoke.py's phase-3c shape and inputs (B=64, H=4, T'=201, dh=64, q, k,
@@ -40,6 +43,17 @@ phase-3d shape and inputs (phase 3c's, the plain forward's l and m),
 float32 and bfloat16; each tree's dq, dk and dv held against the plain
 backward (mhsa_bwd_plain) within chip_smoke.py's FLASH_BWD_BOUNDS.
 Compile report: csrc/flash_attn_bwd.cu.
+
+joint: joint_fwd and joint_bwd at chip_smoke.py's phase-3e shape and
+inputs (B=64, T'=201, U+1=61, J=256, A=28, ragged lengths and cotangents
+from seed 0: chip_smoke.joint_inputs), float32 and bfloat16; each tree's
+tables and gradients held against the plain versions within
+chip_smoke.py's JOINT_BOUNDS, and a second launch must repeat its bits.
+Then the fused pair (joint_fwd + joint_bwd, the work of one training
+step) beside the port's unfused composition (chip_smoke.unfused_joint
+under autograd): each over 20 launches, the pair also device-timed, and
+both by phase 3e's protocol (5 launches, unfused and fused in turns).
+Compile report: csrc/joint_bwd.cu.
 
 Any tree can be passed: a copy of pg_asr_tpu_torch/ with a constant
 changed makes a variant (its worker alone: `kernel_ab.py --worker MODE
@@ -125,11 +139,13 @@ def _abs_err(got, ref):
     return (got.float() - ref.float()).abs().max().item()
 
 
+
 def lstm_worker() -> dict:
     import math
 
     import torch
 
+    import chip_smoke as cs  # phase 3's bounds
     from pg_asr_tpu_torch.ops import cuda_lstm
     from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
@@ -149,7 +165,8 @@ def lstm_worker() -> dict:
         name = str(dtype).split(".")[1]
         for rev in (False, True):
             tag = f"{name}_{'rev' if rev else 'fwd'}"
-            _, hp, cp = lstm_scan_plain(xp, U, mask, rev, residuals=True)
+            ref = lstm_scan_plain(xp, U, mask, rev, residuals=True)
+            _, hp, cp = ref
             for form, fn in (
                     ("lstm_fwd",
                      lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, rev)),
@@ -158,8 +175,19 @@ def lstm_worker() -> dict:
                                                                rev))):
                 res = fn()
                 res = res if isinstance(res, tuple) else (res,)
-                out[f"{form}_{tag}"] = {"ms": _time_ms(fn),
-                                        "digest": _digest(*res)}
+                again = fn()
+                again = again if isinstance(again, tuple) else (again,)
+                errors, bounds = {}, {}
+                for k, got, want in zip(("out", "hprev", "cprev"), res, ref):
+                    bd = (cs.CPREV_BOUNDS if k == "cprev"
+                          else cs.BOUNDS)[name]
+                    errors[f"{k}_max"], errors[f"{k}_mean"] = cs._errs(
+                        got, want)
+                    bounds[f"{k}_max"], bounds[f"{k}_mean"] = (bd["max"],
+                                                               bd["mean"])
+                out[f"{form}_{tag}"] = {
+                    "ms": _time_ms(fn), "errors": errors, "bounds": bounds,
+                    "repeats_its_bits": _digest(*res) == _digest(*again)}
             # lstm_bwd sums in another order than the parent's: each tree
             # is held against the plain backward, not against the other
             bwd = lambda: cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, hp, cp,
@@ -271,16 +299,75 @@ def flash_bwd_worker() -> dict:
     return out
 
 
+def joint_worker() -> dict:
+    import torch
+
+    import chip_smoke as cs  # phase 3e's inputs, bounds and yardstick
+    from pg_asr_tpu_torch.ops import cuda_joint
+    from pg_asr_tpu_torch.ops.joint import (fused_joint_bwd_plain,
+                                            fused_joint_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        args, gb, gy, _ = cs.joint_inputs(dev, dtype)
+        bd = cs.JOINT_BOUNDS[name]
+        fwd = lambda: cuda_joint.joint_fwd_cuda(*args)
+        bwd = lambda: cuda_joint.joint_bwd_cuda(*args, gb, gy)
+        errors, bounds = {}, {}
+        for k, got, ref in zip(("lp_blank", "lp_label"), fwd(),
+                               fused_joint_plain(*args)):
+            errors[f"{k}_max"], errors[f"{k}_mean"] = cs._errs(got, ref)
+            bounds[f"{k}_max"], bounds[f"{k}_mean"] = (bd["lp_max"],
+                                                       bd["lp_mean"])
+        out[f"joint_fwd_{name}"] = {
+            "ms": _time_ms(fwd), "errors": errors, "bounds": bounds,
+            "repeats_its_bits": _digest(*fwd()) == _digest(*fwd())}
+        grads = bwd()
+        errors, bounds = {}, {}
+        for k, got, ref in zip(("de", "dg", "dW", "db"), grads,
+                               fused_joint_bwd_plain(*args, gb, gy)):
+            errors[f"{k}_max"], errors[f"{k}_mean"] = cs._rel_errs(got, ref)
+            bounds[f"{k}_max"], bounds[f"{k}_mean"] = (bd["grad_max"],
+                                                       bd["grad_mean"])
+        out[f"joint_bwd_{name}"] = {
+            "ms": _time_ms(bwd), "errors": errors, "bounds": bounds,
+            "repeats_its_bits": _digest(*grads) == _digest(*bwd())}
+
+        # the pair beside the unfused composition (one training step's work)
+        leaves = [t.detach().requires_grad_(True) for t in args[:4]]
+
+        def unfused():
+            lb, ly = cs.unfused_joint(*leaves, args[4])
+            torch.autograd.grad((lb * gb).sum() + (ly * gy).sum(), leaves)
+
+        def pair():
+            fwd()
+            bwd()
+
+        out[f"joint_pair_{name}"] = {"ms": _time_ms(pair)}
+        out[f"joint_pair_device_{name}"] = {"ms": _device_ms(pair)}
+        out[f"unfused_pair_{name}"] = {"ms": _time_ms(unfused)}
+        fused_ms, unfused_ms = cs.in_turns(unfused, pair, 5, 5)
+        out[f"joint_pair_phase3e_{name}"] = {"ms": fused_ms}
+        out[f"unfused_pair_phase3e_{name}"] = {"ms": unfused_ms}
+    return out
+
+
 WORKERS = {"lstm": lstm_worker, "flash_bwd": flash_bwd_worker,
-           "flash_fwd": flash_fwd_worker}
+           "flash_fwd": flash_fwd_worker, "joint": joint_worker}
 
 
 def _label(mangled: str) -> str | None:
     """kernel[type, template ints] of a mangled name of one of the kernels
     the compile report covers, else None."""
     for name in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
-                 "flash_attn_kernel", "lstm_bwd_kernel", "lstm_bwd_gemm_mma",
-                 "lstm_bwd_gemm", "lstm_bwd_reduce"):
+                 "flash_attn_kernel", "lstm_fwd_f32", "lstm_fwd_bf16",
+                 "lstm_bwd_kernel", "lstm_bwd_gemm_mma", "lstm_bwd_gemm",
+                 "lstm_bwd_reduce", "joint_bwd_kernel", "joint_bwd_reduce_de",
+                 "joint_bwd_reduce_w"):
         if name in mangled:
             dtype = "bfloat16" if "bfloat16" in mangled else "float32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -290,8 +377,10 @@ def _label(mangled: str) -> str | None:
 
 
 # the sources each mode's compile report covers
-REPORT_SOURCES = {"lstm": ("lstm_bwd.cu",), "flash_bwd": ("flash_attn_bwd.cu",),
-                  "flash_fwd": ("flash_attn.cu",)}
+REPORT_SOURCES = {"lstm": ("lstm_fwd.cu", "lstm_bwd.cu"),
+                  "flash_bwd": ("flash_attn_bwd.cu",),
+                  "flash_fwd": ("flash_attn.cu",),
+                  "joint": ("joint_bwd.cu",)}
 
 
 def compile_report(root: str, sources) -> dict:

@@ -149,4 +149,112 @@ inline int device_sms(int* dev, int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
 }
 
+// --- Thread-block clusters of the LSTM walks (lstm_fwd.cu, lstm_bwd.cu):
+// clusters own batch rows, the blocks of a cluster own hidden units, and
+// only the cluster's blocks exchange data, through distributed shared
+// memory (lstm_bwd under a split cluster barrier, lstm_fwd counted on
+// mbarriers).
+
+constexpr int kMaxH = 512;         // hidden units a cluster walk takes
+constexpr int kRows = 8;           // batch rows a cluster takes at most
+constexpr int kErrNoCluster = -9;  // no cluster of the kernel fits the device
+
+// The cluster barrier split in two: arrive (release: this thread's earlier
+// writes, to its own and to peer blocks' shared memory, become visible to
+// every thread that waits after it) and wait (acquire); work between the
+// two overlaps the barrier. Every thread of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A block's share of a walk: its cluster owns batch rows b0 .. b0 + nrows
+// - 1 (`rows` a cluster, the last one ragged), the block of rank q the
+// hidden units u0 .. u0 + nj - 1 (H / CS or one more; njmax the most a
+// block of the cluster has).
+struct ClusterShare {
+  int njmax, nj, u0, b0, nrows;
+  __device__ ClusterShare(int H, int B, int CS, int rows, int q)
+      : njmax((H + CS - 1) / CS), nj(H / CS + (q < H % CS)),
+        u0(q * (H / CS) + min(q, H % CS)),
+        b0((int)(blockIdx.x / CS) * rows), nrows(min(rows, B - b0)) {}
+};
+
+// A launch's choice: cluster size, rows per cluster, clusters, threads and
+// dynamic shared memory per block.
+struct ClusterPlan {
+  int cs, rows, clusters, threads;
+  size_t smem;
+};
+
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr,
+                                         const ClusterPlan& p,
+                                         cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cs * p.clusters);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Raises the kernel's dynamic shared memory to `smem` bytes and, for
+// clusters above 8 blocks, allows them. Returns 0 or a cudaError_t.
+template <typename Kernel>
+int set_cluster_attrs(Kernel kernel, int cs, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e == cudaSuccess ? 0 : e;
+}
+
+// Plans a walk of B rows: the first cluster size of 8 (at most H) and 16
+// for which fit(cs, &threads, &smem) holds, the block's shared memory is
+// within the device's limit and at least one cluster fits on the device
+// (cudaOccupancyMaxActiveClusters). Rows per cluster, at most kRows: with
+// `spread`, as few as let every cluster be resident at once (for a walk
+// whose work grows with its rows), else as many as there are (for one
+// whose work does not); a larger batch runs in waves of clusters, which is
+// correct since clusters never wait on each other. Sets the kernel's
+// attributes for the chosen size. Returns 0, a cudaError_t,
+// kErrUnsupportedH or kErrNoCluster.
+template <typename Kernel, typename Fit>
+int plan_clusters(Kernel kernel, int B, int H, bool spread, Fit fit,
+                  ClusterPlan* p) {
+  if (H < 1 || H > kMaxH) return kErrUnsupportedH;
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  for (int cs : {H < 8 ? H : 8, 16}) {
+    ClusterPlan c = {cs, 0, 1, 0, 0};  // one cluster for the query
+    if (!fit(cs, &c.threads, &c.smem) || c.smem > (size_t)smem_max) continue;
+    int rc = set_cluster_attrs(kernel, cs, c.smem);
+    if (rc != 0) return rc;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(&attr, c, 0);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (n < 1) continue;
+    c.rows = min(kRows, spread ? (B + n - 1) / n : B);
+    c.clusters = (B + c.rows - 1) / c.rows;
+    *p = c;
+    return 0;
+  }
+  return kErrNoCluster;
+}
+
 }  // namespace pgasr

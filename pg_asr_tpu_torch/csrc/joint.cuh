@@ -1,8 +1,9 @@
-// The lattice tiling and per-cell logits shared by the fused RNN-T joint
-// kernels (joint_fwd.cu, joint_bwd.cu).
+// The arguments and checks of the fused RNN-T joint kernels (joint_fwd.cu,
+// joint_bwd.cu, both of which split the lattice rows in u-tiles of kUT),
+// and the forward's lattice tiling and per-cell logits.
 //
-// A block owns one utterance b, one u-tile of kUT lattice rows (one lane
-// each) and a walk over kTilesPerBlock T-tiles of kTT frames (one warp
+// A forward block owns one utterance b, one u-tile of kUT lattice rows (one
+// lane each) and a walk over kTilesPerBlock T-tiles of kTT frames (one warp
 // each): 256 cells per T-tile, one per thread. W (J x A, zero-padded to AP
 // columns) and the u-tile's g rows stay in shared memory for the whole
 // walk; each T-tile's e rows are staged in turn. Every value is float32 in

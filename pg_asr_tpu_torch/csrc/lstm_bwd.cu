@@ -66,9 +66,10 @@
 //     distributed shared memory (cluster.map_shared_rank), in rank order:
 //     2 x rows x NJ floats a block reads per step, in place of the first
 //     kernel's 4H x B through L2. The rows per cluster are chosen at launch
-//     from cudaOccupancyMaxActiveClusters (plan()), so that all clusters
-//     are resident at once where 8 rows allow; a larger batch runs in waves
-//     of clusters, which is correct since clusters are independent;
+//     from cudaOccupancyMaxActiveClusters (plan_clusters, common.cuh), so
+//     that all clusters are resident at once where 8 rows allow; a larger
+//     batch runs in waves of clusters, which is correct since clusters are
+//     independent;
 //   dU: hprev^T @ dxp over all (t, b), float32, the same two kernels,
 //     split over ranges of the pairs into partials that lstm_bwd_reduce
 //     adds in order.
@@ -88,17 +89,7 @@ namespace {
 
 using namespace pgasr;
 
-constexpr int kMaxH = 512;         // hidden units a launch takes
-constexpr int kRows = 8;           // rows a cluster takes at most
-constexpr int kErrNoCluster = -9;  // no cluster of the kernel fits the device
 constexpr int kLoads = 16;         // remote partial-dh loads issued together
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // partial-dh halves of a block: 2 where two threads per unit fit
 __host__ __device__ inline int dh_parts(int H) {
@@ -127,13 +118,9 @@ lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
                 int T_len, int H, int reverse, int CS, int rows) {
   const int H4 = 4 * H;
   cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const int cl = blockIdx.x / CS;
-  const int njmax = (H + CS - 1) / CS;
-  const int nj = H / CS + (q < H % CS);
-  const int u0 = q * (H / CS) + min(q, H % CS);
-  const int b0 = cl * rows;
-  const int nrows = min(rows, B - b0);  // rows of this cluster, >= 1
+  const ClusterShare P(H, B, CS, rows, (int)cluster.block_rank());
+  const int njmax = P.njmax, nj = P.nj, u0 = P.u0, b0 = P.b0;
+  const int nrows = P.nrows;  // rows of this cluster, >= 1
   const int parts = dh_parts(H);
   const Smem L(H, njmax);
   extern __shared__ float4 smem_raw[];
@@ -533,75 +520,20 @@ size_t scratch_floats(int B, int T_len, int H) {
   return ((size_t)T_len * B + (size_t)du_splits(B, T_len, H) * H) * 4 * H;
 }
 
-// The launch's choice: cluster size, rows per cluster and clusters.
-struct Plan {
-  int cs, rows, clusters;
-};
-
-cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int cs,
-                                 int clusters, size_t smem,
-                                 cudaStream_t stream) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * clusters);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 size_t smem_bytes(int H, int cs) {
   return Smem(H, (H + cs - 1) / cs).total * sizeof(float);
 }
 
-// Sets the walk's attributes for cluster size cs; *n = how many of its
-// clusters fit on the device at once (0 if none, or if its shared memory
-// is above the limit). Returns 0 or a cudaError_t.
+// The walk's plan (plan_clusters): clusters of 8 blocks, or 16 where U's
+// slice does not fit at 8, a thread per (row, unit) of a block.
 template <typename T>
-int max_clusters(int H, int cs, int* n) {
-  auto kernel = lstm_bwd_kernel<T>;
-  int dev = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const size_t smem = smem_bytes(H, cs);
-  *n = 0;
-  if (smem > (size_t)smem_max) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e == cudaSuccess && cs > 8)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(&attr, cs, 1, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
-  return e == cudaSuccess ? 0 : e;
-}
-
-// Cluster size: 8 (at most H), or 16 where U's slice does not fit at 8.
-// Rows: as few as let every cluster be resident at once, at most kRows.
-template <typename T>
-int plan(int B, int H, Plan* p) {
-  if (H < 1 || H > kMaxH) return kErrUnsupportedH;
-  for (int cs : {min(8, H), 16}) {
-    if ((H + cs - 1) / cs * kRows > kThreads) continue;
-    int n = 0;
-    const int rc = max_clusters<T>(H, cs, &n);
-    if (rc != 0) return rc;
-    if (n < 1) continue;
-    const int rows = min(kRows, (B + n - 1) / n);
-    *p = Plan{cs, rows, (B + rows - 1) / rows};
-    return 0;
-  }
-  return kErrNoCluster;
+int plan(int B, int H, ClusterPlan* p) {
+  return plan_clusters(lstm_bwd_kernel<T>, B, H, true,
+                       [H](int cs, int* threads, size_t* smem) {
+                         *threads = kThreads;
+                         *smem = smem_bytes(H, cs);
+                         return (H + cs - 1) / cs * kRows <= kThreads;
+                       }, p);
 }
 
 template <typename T>
@@ -614,7 +546,7 @@ int dispatch(const void* xp_v, const void* U_v, const float* mask,
   const T* hprev = static_cast<const T*>(hprev_v);
   const T* gy = static_cast<const T*>(gy_v);
   T* dxp = static_cast<T*>(dxp_v);
-  Plan p;
+  ClusterPlan p;
   int rc = plan<T>(B, H, &p);
   if (rc != 0) return rc;
   if (scratch_floats(B, T_len, H) > n_scratch) return cudaErrorInvalidValue;
@@ -631,8 +563,7 @@ int dispatch(const void* xp_v, const void* U_v, const float* mask,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(&attr, p.cs, p.clusters, smem_bytes(H, p.cs), stream);
+  cudaLaunchConfig_t cfg = cluster_config(&attr, p, stream);
   e = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<T>, xp, U, mask, cprev, gy,
                          static_cast<const float*>(G), dxp, B, T_len, H,
                          reverse, p.cs, p.rows);

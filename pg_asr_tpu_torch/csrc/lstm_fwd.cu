@@ -14,33 +14,61 @@
 // Carries h and c are float32. h is rounded to U's type before the product
 // (h.astype(U.dtype) in the Pallas body) and the product accumulates in
 // float32. Where mask == 0 the carry is frozen and the output is zero;
-// reverse walks t = T-1 .. 0.
+// reverse walks t = T-1 .. 0. Only the summation order of the product
+// differs from the plain version; the result is the same from run to run.
 //
 // What bounds it on this card: the recurrence is a chain of T dependent
-// steps, each a small (B, H) x (H, 4H) product plus the gate math. At the
-// slice's shape (B=64, H=256) a step is ~33 MFLOP, far too little to fill
-// 132 SMs, so the kernel is bound by per-step latency (an L2 round trip for
-// h and one grid-wide barrier), not by FLOPs or HBM bytes.
+// steps, each a small (B, H) x (H, 4H) product plus the gate math (~33
+// MFLOP at B=64, H=256), far too little per step to fill 132 SMs, so a
+// step's latency bounds the call, not FLOPs or HBM bytes. The first kernel
+// (one cooperative grid of H/2 blocks, one grid barrier per step, every
+// block reading all of h_{t-1} through L2) took ~4 us a step.
 //
-// What the design does about it: one persistent cooperative launch walks all
-// T steps, so there is no per-step launch. U (1 MiB in f32 at H=256) does not
-// fit one SM's 227 KB of shared memory, so it is split by hidden unit: block
-// b owns NJ (1 or 2) units j and keeps their four gate columns {g*H + j} of U
-// in shared memory for the whole walk, and keeps their c carry in shared memory. The
-// cell update of a unit needs only its own four gates, so c never leaves the
-// block. Only h crosses blocks: every block reads all of h_{t-1} (B x H f32,
-// L2-resident) from a double-buffered global array, writes its own slice of
-// h_t, and the grid synchronises once per step.
-// Inside a block, a warp takes RB = 8/NJ batch rows at once, so each lane
-// holds RB x 4NJ = 32 partial sums: its lanes split the H-long dot products
-// (coalesced h loads of RB rows issued together, four k-strides deep;
-// conflict-free shared reads of U, each reused for RB rows). A butterfly
-// reduce-scatter (31 shuffles for 32 sums, not 32 x 5) leaves lane l with
-// the full sum l; three more shuffles bring a unit's four gates to one lane,
-// which runs the cell update. A warp so pays a few memory latencies per row
-// group, not per row: at B=64 one group per warp, ~4 us per step on an H100
-// (1.6 ms for T=401 in chip_smoke.py).
-// Tensor cores (wgmma), TMA and clusters/DSMEM are left for later work.
+// Design. Batch rows never meet in the recurrence, so the batch is split
+// over thread-block clusters that never wait on each other
+// (cudaLaunchKernelEx with a cluster dimension; no cooperative launch, no
+// grid barrier), and the hidden units over the CS blocks of a cluster
+// (CS = 8, or 16 where U's slice does not fit; ragged: H / CS units or one
+// more). Rows per cluster come from cudaOccupancyMaxActiveClusters
+// (plan_clusters, common.cuh), so that every cluster is resident at once
+// where 8 rows allow. Block q keeps U's 4 NJ gate columns of its units for
+// the whole walk, and their carries, and computes their complete gate sums
+// over all H units; only h_t of the cluster's rows crosses blocks. Each
+// block writes its units' h_t into its own buffer of h (two, alternating)
+// and one thread per peer copies that slice into the peer's buffer with
+// cp.async.bulk (shared::cta to shared::cluster), whose bytes complete a
+// transaction count on the peer's mbarrier (one per buffer): the copy
+// engine moves the slice and the sender never waits, and a block starts a
+// step's product once its peers' h_{t-1} has landed. (A cluster barrier
+// after per-thread remote stores cost ~2.3 K cycles a step in its release,
+// per-thread st.async ~1.7 K in issue: PERF.md, Findings.) Each step's xp is
+// loaded a step ahead. Nothing else guards the buffers against
+// overwriting: a block pushes h_t only after its product of step t, which
+// needed every block's h_{t-1}, so no block reaches step t + 1 (and
+// overwrites the buffer of h_{t-1}) before every block's product of step t
+// is done.
+//   float32 (lstm_fwd_f32, CUDA cores): U's columns in shared memory,
+//     unit-major (column 4 jj + g is U[:, g H + u0 + jj]). Thread (slice
+//     pk of k, unit pj) forms R rows x 4 gates over its slice of k, in
+//     order of k (one 16-byte load of U and one or two broadcast loads of
+//     h for 4 R multiply-adds), into shared memory; thread (row, unit) adds
+//     the slices in order, adds xp and runs the cell update. R, the rows
+//     per cluster, is a template parameter: no multiply-add for an absent
+//     row. (U's slice in registers, its k loop unrolled, ran 20% slower.)
+//   bfloat16 (lstm_fwd_bf16, tensor cores): the product as mma.sync
+//     m16n8k16, U's gate columns as M, K = H, the cluster's rows as N = 8.
+//     Warp (w, r) owns 8 units and k-steps 8 r .. 8 r + 7 of their 32
+//     gate columns (two m16 tiles: i and f, g and o), kept as bf16 A
+//     fragments in registers for the whole walk (K = 256: 2 warps per
+//     unit group); h lives in shared memory as bf16 [k][8 rows] and is
+//     read as B fragments with ldmatrix.trans; the even and odd k-steps
+//     accumulate apart and are added; each warp's sums go to shared
+//     memory and are added over the k-ranges in order. Lane (g, c) of the
+//     unit group's first warp then holds all four gates of unit g for rows
+//     2c and 2c + 1 (and of its second warp for the same rows): they run
+//     the cell updates, row 2c and row 2c + 1, carries in registers. h is
+//     rounded to bf16 once, where it is written (the Pallas body's
+//     h.astype(U.dtype)); bf16 products are exact and the sums float32.
 
 #include <cooperative_groups.h>
 
@@ -51,173 +79,562 @@ namespace cg = cooperative_groups;
 namespace {
 
 using namespace pgasr;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
-                const float* __restrict__ mask, T* __restrict__ out,
-                float* hbuf, T* __restrict__ hprev, float* __restrict__ cprev,
-                int B, int T_len, int H, int reverse) {
-  constexpr int C = 4 * NJ;  // gate columns of this block
-  constexpr int RB = 8 / NJ; // rows a warp takes at once: RB * C == 32
-  static_assert(RB * C == 32, "one partial sum per lane after the reduction");
-  extern __shared__ float smem[];
-  float* u_s = smem;         // [C][H]; column c = g*NJ + jj is U[:, g*H + j0 + jj]
-  float* c_s = smem + C * H; // [B][NJ] cell carry of this block's units
-  cg::grid_group grid = cg::this_grid();
+constexpr int kF32Threads = 256;
+constexpr int kGroupUnits = 8;    // units of a bf16 warp: two m16 tiles
+constexpr int kWarpKSteps = 8;    // k16 steps of U a bf16 warp holds
+constexpr int kBf16Warps = 8;      // warps of a bf16 block up to H = 256
+constexpr int kBf16MaxWarps = 16;  // and above (fewer registers a thread)
 
-  const int j0 = blockIdx.x * NJ;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const size_t BH = (size_t)B * H;
-  const size_t H4 = (size_t)4 * H;
-  // after the reduction lane l holds sum l = r*C + g*NJ + jj; the lanes with
-  // g == 0 run the cell update of row r, unit j0 + jj
-  const int my_r = lane / C;
-  const int my_jj = lane % C;
-  const bool cell_lane = my_jj < NJ;
+// --- the exchange of h: bulk copies between the blocks' shared memory,
+// counted in bytes on the receiver's mbarrier, one barrier per buffer of h
 
-  for (int i = threadIdx.x; i < C * H; i += kThreads) {
-    const int c = i / H, k = i - c * H;
-    const int g = c / NJ, jj = c - g * NJ;
-    u_s[i] = to_f32<T>(U[(size_t)k * H4 + (size_t)g * H + j0 + jj]);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// the address `a` of this block's shared memory as block `rank` sees it
+__device__ __forceinline__ unsigned peer_addr(unsigned a, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// `bytes` (a multiple of 16) of this block's shared memory at `src` to a
+// peer's at `dst`, counted on the peer's mbarrier `bar` (dst and bar mapped
+// to the peer by peer_addr): the copy engine moves them, the sender does not
+// wait. Shared memory written by the block's threads before needs
+// proxy_fence() by each writer, then a block barrier.
+__device__ __forceinline__ void push_bulk(unsigned dst, unsigned src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
+               : "memory");
+}
+// the one arrival of the barrier's current phase, which then completes
+// once `bytes` more have landed (bytes that land earlier count too)
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// until the phase of `parity` completed; a step whose bytes have not all
+// landed after 10 s traps (a launch error rather than a hung card)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) __trap();
+}
+
+// The walk's exchange of h. Buffer b of h (steps s >= 1 with s & 1 == b
+// read h_{s-1} from it) has barrier b, which counts the bytes the peers
+// push into it; `parity` is the phase each waits for next. A block writes
+// its own units' h into its own buffer and pushes that slice to every peer.
+struct Exchange {
+  unsigned bar[2], parity[2] = {0u, 0u};
+  unsigned bytes;  // a step's bytes from the peers
+  int T_len;
+  // thread 0 sets the barriers up (before the cluster's first sync) and
+  // arms them for steps 1 and 2
+  __device__ Exchange(unsigned long long* bars, unsigned bytes_, int T)
+      : bytes(bytes_), T_len(T) {
+    bar[0] = smem_u32(bars);
+    bar[1] = smem_u32(bars + 1);
+    if (threadIdx.x == 0) {
+      mbar_init(bar[0]);
+      mbar_init(bar[1]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (T > 1) mbar_expect(bar[1], bytes);
+      if (T > 2) mbar_expect(bar[0], bytes);
+    }
   }
-  for (int i = threadIdx.x; i < B * NJ; i += kThreads) {
-    const int b = i / NJ, jj = i - b * NJ;
-    c_s[i] = 0.0f;
-    hbuf[(size_t)b * H + j0 + jj] = 0.0f;  // h_{-1} = 0 in buffer 0
+  // every thread: the peers' h_{s-1} has landed in buffer s & 1
+  __device__ void wait(int s) {
+    mbar_wait(bar[s & 1], parity[s & 1]);
+    parity[s & 1] ^= 1u;
   }
-  grid.sync();
+  // thread 0, once every thread of the block waited at step s >= 1: arm
+  // the barrier for its next step, s + 2
+  __device__ void rearm(int s) {
+    if (threadIdx.x == 0 && s > 0 && s + 2 < T_len)
+      mbar_expect(bar[s & 1], bytes);
+  }
+  // thread q < CS (not the block's own rank): the block's slice of buffer
+  // b (`slice`, `n` bytes) to block q, after proxy_fence() by every writer
+  // of the slice and a block barrier
+  __device__ void push(unsigned slice, unsigned n, int b, int CS,
+                       unsigned rank) const {
+    const unsigned q = threadIdx.x;
+    if (q < (unsigned)CS && q != rank && n > 0)
+      push_bulk(peer_addr(slice, q), slice, n, peer_addr(bar[b], q));
+  }
+};
+
+// float32 shared memory, in floats: the two barriers (4 floats), U's own
+// columns [H][ldu] (ldu = 4 njmax, unit-major: column 4 jj + g is U[:, g H
+// + u0 + jj]), two buffers of h [H][kRows], the partial gate sums
+// [ks][R][ldu] (room for R = kRows)
+struct F32Smem {
+  int ldu, ks;
+  size_t u, h, p, total;
+  __host__ __device__ F32Smem(int H, int njmax)
+      : ldu(4 * njmax), ks(kF32Threads / njmax), u(4), h(u + (size_t)H * ldu),
+        p(h + (size_t)2 * H * kRows), total(p + (size_t)ks * kRows * ldu) {}
+};
+
+template <int R>
+__global__ void __launch_bounds__(kF32Threads, 1)
+lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
+             const float* __restrict__ mask, float* __restrict__ out,
+             float* __restrict__ hprev, float* __restrict__ cprev, int B,
+             int T_len, int H, int reverse, int CS) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const ClusterShare P(H, B, CS, R, (int)rank);
+  const F32Smem L(H, P.njmax);
+  const int H4 = 4 * H, tid = threadIdx.x;
+  extern __shared__ float4 smem_raw[];
+  float* us = reinterpret_cast<float*>(smem_raw) + L.u;  // [H][ldu]
+  float* hs = reinterpret_cast<float*>(smem_raw) + L.h;  // [2][H][kRows]
+  float* ps = reinterpret_cast<float*>(smem_raw) + L.p;  // [ks][R][ldu]
+  Exchange X(reinterpret_cast<unsigned long long*>(smem_raw),
+             (unsigned)((H - P.nj) * kRows * sizeof(float)), T_len);
+  const unsigned slice_bytes = (unsigned)(P.nj * kRows * sizeof(float));
+
+  for (int i = tid; i < H * L.ldu; i += kF32Threads) {
+    const int k = i / L.ldu, c = i - k * L.ldu;
+    const int jj = c >> 2, g = c & 3;
+    us[i] = jj < P.nj ? U[(size_t)k * H4 + (size_t)g * H + P.u0 + jj] : 0.0f;
+  }
+  // the product thread: unit pj, k = k_lo .. k_lo + nk - 1
+  const int pj = tid % P.njmax, pk = tid / P.njmax;
+  const int kl = (H + L.ks - 1) / L.ks;
+  const int k_lo = pk < L.ks ? min(H, pk * kl) : H;
+  const int nk = min(H, k_lo + kl) - k_lo;
+  const float* ub = us + (size_t)k_lo * L.ldu + 4 * pj;
+  for (int i = tid; i < 2 * H * kRows; i += kF32Threads) hs[i] = 0.0f;
+
+  // the cell threads: slot e is (row cr, unit cj), i = tid + e kF32Threads;
+  // float32 carries in registers
+  int cr[2], cj[2];
+  bool cell[2];
+  float hc[2] = {0.0f, 0.0f}, cc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = tid + e * kF32Threads;
+    cr[e] = P.nj > 0 ? i / P.nj : R;
+    cj[e] = P.nj > 0 ? i - cr[e] * P.nj : 0;
+    cell[e] = cr[e] < P.nrows;
+  }
+  // this step's cell inputs, loaded a step ahead
+  float xn[2][4], mn[2];
+  auto load_inputs = [&](int s) {
+    const int t = reverse ? T_len - 1 - s : s;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mn[e] = 0.0f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xn[e][g] = 0.0f;
+      if (cell[e]) {
+        const size_t bt = (size_t)(P.b0 + cr[e]) * T_len + t;
+        const float* xrow = xp + bt * H4 + P.u0 + cj[e];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xn[e][g] = xrow[g * H];
+        mn[e] = mask[bt];
+      }
+    }
+  };
+  load_inputs(0);
+
+  cluster.sync();  // barriers set up and h zeroed in every block
 
   for (int s = 0; s < T_len; ++s) {
     const int t = reverse ? T_len - 1 - s : s;
-    const float* h_prev = hbuf + (size_t)(s & 1) * BH;
-    float* h_next = hbuf + (size_t)((s + 1) & 1) * BH;
-
-    for (int b0 = warp * RB; b0 < B; b0 += kWarps * RB) {
-      // this lane's cell inputs (independent of the product): issue first
-      const int b_cell = b0 + my_r;
-      const bool do_cell = cell_lane && b_cell < B;
-      float x_i = 0.f, x_f = 0.f, x_g = 0.f, x_o = 0.f, m = 0.f, h_old = 0.f;
-      if (do_cell) {
-        const size_t bt = (size_t)b_cell * T_len + t;
-        const T* xrow = xp + bt * H4 + j0 + my_jj;
-        x_i = to_f32<T>(xrow[0]);
-        x_f = to_f32<T>(xrow[H]);
-        x_g = to_f32<T>(xrow[2 * H]);
-        x_o = to_f32<T>(xrow[3 * H]);
-        m = mask[bt];
-        h_old = __ldcg(h_prev + (size_t)b_cell * H + j0 + my_jj);
-      }
-
-      float acc[RB * C];
+    float x[2][4], m[2];
 #pragma unroll
-      for (int v = 0; v < RB * C; ++v) acc[v] = 0.0f;
-      const float* hrow[RB];
+    for (int e = 0; e < 2; ++e) {
+      m[e] = mn[e];
 #pragma unroll
-      for (int r = 0; r < RB; ++r)  // rows past B reread row B-1, unused
-        hrow[r] = h_prev + (size_t)min(b0 + r, B - 1) * H;
+      for (int g = 0; g < 4; ++g) x[e][g] = xn[e][g];
+    }
+    if (s > 0) X.wait(s);  // the peers' h_{t-1} in buffer s & 1
+    const float* hb = hs + (size_t)(s & 1) * H * kRows + (size_t)k_lo * kRows;
+    {
+      float acc[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
 #pragma unroll 4
-      for (int k = lane; k < H; k += 32) {
-        float hk[RB];
-        // __ldcg: read through L2 only; L1 may hold this buffer's value
-        // from two steps ago, written by another block
+      for (int i = 0; i < nk; ++i) {  // k = k_lo + i
+        const float4 u =
+            *reinterpret_cast<const float4*>(ub + (size_t)i * L.ldu);
+        const float4 h0 = *reinterpret_cast<const float4*>(hb + i * kRows);
+        float hv[8] = {h0.x, h0.y, h0.z, h0.w, 0.0f, 0.0f, 0.0f, 0.0f};
+        if constexpr (R > 4) {
+          const float4 h1 =
+              *reinterpret_cast<const float4*>(hb + i * kRows + 4);
+          hv[4] = h1.x; hv[5] = h1.y; hv[6] = h1.z; hv[7] = h1.w;
+        }
 #pragma unroll
-        for (int r = 0; r < RB; ++r)
-          hk[r] = to_f32<T>(from_f32<T>(__ldcg(hrow[r] + k)));
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float u = u_s[c * H + k];
-#pragma unroll
-          for (int r = 0; r < RB; ++r) acc[r * C + c] = fmaf(hk[r], u, acc[r * C + c]);
+        for (int r = 0; r < R; ++r) {
+          acc[r][0] = fmaf(hv[r], u.x, acc[r][0]);
+          acc[r][1] = fmaf(hv[r], u.y, acc[r][1]);
+          acc[r][2] = fmaf(hv[r], u.z, acc[r][2]);
+          acc[r][3] = fmaf(hv[r], u.w, acc[r][3]);
         }
       }
-      // butterfly reduce-scatter: at each level a lane keeps the half of its
-      // sums selected by its lane bit and adds the partner's copy of it
-      // (constant trip counts, so acc stays in registers)
+      if (pk < L.ks) {
 #pragma unroll
-      for (int level = 0; level < 5; ++level) {
-        const int n = 16 >> level;
-        const bool upper = (lane & n) != 0;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          if (i < n) {
-            const float send = upper ? acc[i] : acc[i + n];
-            const float keep = upper ? acc[i + n] : acc[i];
-            acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, n);
-          }
-        }
-      }
-      const float p_i = acc[0];
-      const float p_f = __shfl_sync(0xffffffffu, acc[0], (lane + NJ) & 31);
-      const float p_g = __shfl_sync(0xffffffffu, acc[0], (lane + 2 * NJ) & 31);
-      const float p_o = __shfl_sync(0xffffffffu, acc[0], (lane + 3 * NJ) & 31);
-
-      if (do_cell) {
-        const int j = j0 + my_jj;
-        const size_t bt = (size_t)b_cell * T_len + t;
-        const float ig = sigmoid(x_i + p_i);
-        const float fg = sigmoid(x_f + p_f);
-        const float gg = tanhf(x_g + p_g);
-        const float og = sigmoid(x_o + p_o);
-        const float c_old = c_s[b_cell * NJ + my_jj];
-        if (hprev != nullptr) {  // residual form: the carry before this step
-          const size_t r = ((size_t)t * B + b_cell) * H + j;
-          hprev[r] = from_f32<T>(h_old);
-          cprev[r] = c_old;
-        }
-        const float c_new = fg * c_old + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        const bool valid = m > 0.0f;
-        c_s[b_cell * NJ + my_jj] = valid ? c_new : c_old;
-        h_next[(size_t)b_cell * H + j] = valid ? h_new : h_old;
-        out[bt * H + j] = from_f32<T>(h_new * m);
+        for (int r = 0; r < R; ++r)
+          *reinterpret_cast<float4*>(ps + ((size_t)pk * R + r) * L.ldu +
+                                     4 * pj) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
     }
-    grid.sync();  // h_t complete everywhere before any block reads it
+    __syncthreads();  // the partial gate sums; every thread past the wait
+    X.rearm(s);
+
+    const bool push = s + 1 < T_len;  // nobody reads the last step's h
+    const int nb = (s + 1) & 1;
+    float* hn = hs + (size_t)nb * H * kRows;
+    float h_old[2], c_old[2], y[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      h_old[e] = hc[e];
+      c_old[e] = cc[e];
+      y[e] = 0.0f;
+      if (cell[e]) {
+        float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float* pp = ps + (size_t)cr[e] * L.ldu + 4 * cj[e];
+        for (int kk = 0; kk < L.ks; ++kk) {  // the slices in order
+          const float4 v =
+              *reinterpret_cast<const float4*>(pp + (size_t)kk * R * L.ldu);
+          sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+        }
+        const float ig = sigmoid(x[e][0] + sum.x);
+        const float fg = sigmoid(x[e][1] + sum.y);
+        const float gg = tanhf(x[e][2] + sum.z);
+        const float og = sigmoid(x[e][3] + sum.w);
+        const float c_new = fg * c_old[e] + ig * gg;
+        const float h_new = og * tanhf(c_new);
+        const bool valid = m[e] > 0.0f;
+        cc[e] = valid ? c_new : c_old[e];
+        hc[e] = valid ? h_new : h_old[e];
+        y[e] = h_new * m[e];
+        if (push) hn[(size_t)(P.u0 + cj[e]) * kRows + cr[e]] = hc[e];
+      }
+    }
+    if (push) {
+      proxy_fence();
+      __syncthreads();  // the block's slice of h_t complete
+      X.push(smem_u32(hn + (size_t)P.u0 * kRows), slice_bytes, nb, CS, rank);
+      load_inputs(s + 1);
+    }
+
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (cell[e]) {
+        const int b = P.b0 + cr[e], u = P.u0 + cj[e];
+        out[((size_t)b * T_len + t) * H + u] = y[e];
+        if (hprev != nullptr) {
+          const size_t r = ((size_t)t * B + b) * H + u;
+          hprev[r] = h_old[e];
+          cprev[r] = c_old[e];
+        }
+      }
+    }
   }
 }
 
-template <typename T, int NJ>
-int launch(const void* xp, const void* U, const float* mask, void* out,
-           float* hbuf, void* hprev, float* cprev, int B, int T_len, int H,
-           int reverse, cudaStream_t stream, int dev, int sms) {
-  auto kernel = lstm_fwd_kernel<T, NJ>;
-  const size_t smem = sizeof(float) * ((size_t)4 * NJ * H + (size_t)B * NJ);
-  const int grid = H / NJ;
-  int rc = prepare_cooperative(kernel, smem, grid, dev, sms);
-  if (rc != 0) return rc;
+// bfloat16 shared memory, in bytes: the two barriers (16 bytes), two
+// buffers of h as bf16 [kp][kRows] (kp = H rounded up to 32: whole
+// ldmatrix.x4 reads), then each warp's gate sums [kg][ng][8][32 lanes]
+// float32
+struct Bf16Smem {
+  int kp, ng, kg;
+  size_t h, part, total;
+  __host__ __device__ Bf16Smem(int H, int njmax)
+      : kp((H + 31) / 32 * 32), ng((njmax + kGroupUnits - 1) / kGroupUnits),
+        kg(((H + 15) / 16 + kWarpKSteps - 1) / kWarpKSteps), h(16),
+        part(h + (size_t)2 * kp * kRows * sizeof(bf16)),
+        total(part + (size_t)kg * ng * 32 * 8 * sizeof(float)) {}
+};
 
-  const T* xp_t = static_cast<const T*>(xp);
-  const T* u_t = static_cast<const T*>(U);
-  T* out_t = static_cast<T*>(out);
-  T* hprev_t = static_cast<T*>(hprev);
-  void* args[] = {(void*)&xp_t,  (void*)&u_t,   (void*)&mask,  (void*)&out_t,
-                  (void*)&hbuf,  (void*)&hprev_t, (void*)&cprev, (void*)&B,
-                  (void*)&T_len, (void*)&H,     (void*)&reverse};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                              dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+lstm_fwd_bf16(const bf16* __restrict__ xp, const bf16* __restrict__ U,
+              const float* __restrict__ mask, bf16* __restrict__ out,
+              bf16* __restrict__ hprev, float* __restrict__ cprev, int B,
+              int T_len, int H, int reverse, int CS, int rows) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const ClusterShare P(H, B, CS, rows, (int)rank);
+  const Bf16Smem L(H, P.njmax);
+  const int H4 = 4 * H, tid = threadIdx.x;
+  extern __shared__ float4 smem_raw[];
+  char* base = reinterpret_cast<char*>(smem_raw);
+  bf16* hs = reinterpret_cast<bf16*>(base + L.h);  // [2][kp][kRows]
+  float* part = reinterpret_cast<float*>(base + L.part);
+  Exchange X(reinterpret_cast<unsigned long long*>(smem_raw),
+             (unsigned)((H - P.nj) * kRows * sizeof(bf16)), T_len);
+  const unsigned slice_bytes = (unsigned)(P.nj * kRows * sizeof(bf16));
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ug = warp % L.ng, kg = warp / L.ng;  // unit group, k-range
+  const int gq = lane >> 2, c2 = 2 * (lane & 3);
+  const int jj = kGroupUnits * ug + gq;
+  const bool unit_ok = jj < P.nj;
+  const int u = P.u0 + jj;
+  const int ks0 = kg * kWarpKSteps;
+  const int nks = min(kWarpKSteps, (H + 15) / 16 - ks0);
+
+  // U's columns of the warp's units as A fragments [k-step][tile][4]:
+  // a[i] is row gq (i even) or gq + 8 (i odd) of the tile, i.e. gate
+  // 2 tile + (i & 1) of unit jj, at k = 16 ks + c2 (+ 8 for i >= 2) and
+  // the next k; zero past H and for absent units
+  unsigned a[kWarpKSteps][2][4];
+#pragma unroll
+  for (int ks = 0; ks < kWarpKSteps; ++ks)
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * (ks0 + ks) + c2 + 8 * (i >> 1);
+        float lo = 0.0f, hi = 0.0f;
+        if (ks < nks && unit_ok) {
+          const bf16* col = U + (size_t)(2 * tile + (i & 1)) * H + u;
+          if (k < H) lo = to_f32<bf16>(col[(size_t)k * H4]);
+          if (k + 1 < H) hi = to_f32<bf16>(col[(size_t)(k + 1) * H4]);
+        }
+        a[ks][tile][i] = pack_bf16x2(lo, hi);
+      }
+  for (int i = tid; i < 2 * L.kp * kRows; i += blockDim.x)
+    hs[i] = __float2bfloat16_rn(0.0f);
+
+  // the cell updates of unit u, float32 carries in registers: where two
+  // or more warps share a unit group, the first two take row c2 and row
+  // c2 + 1 (own(e) for e = kg), else the only one takes both
+  const bool split = L.kg >= 2;
+  const bool cell = unit_ok && kg < (split ? 2 : 1);
+  auto own = [&](int e) { return cell && (!split || e == kg); };
+  float hc[2] = {0.0f, 0.0f}, cc[2] = {0.0f, 0.0f};
+  // this step's cell inputs, loaded a step ahead (as bf16: converted when
+  // used)
+  bf16 xn[2][4];
+  float mn[2];
+  auto load_inputs = [&](int s) {
+    const int t = reverse ? T_len - 1 - s : s;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mn[e] = 0.0f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xn[e][g] = __float2bfloat16_rn(0.0f);
+      if (own(e) && c2 + e < P.nrows) {
+        const size_t bt = (size_t)(P.b0 + c2 + e) * T_len + t;
+        const bf16* xrow = xp + bt * H4 + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xn[e][g] = xrow[g * H];
+        mn[e] = mask[bt];
+      }
+    }
+  };
+  load_inputs(0);
+
+  cluster.sync();  // barriers set up and h zeroed in every block
+
+  for (int s = 0; s < T_len; ++s) {
+    const int t = reverse ? T_len - 1 - s : s;
+    float x[2][4], m[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m[e] = mn[e];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x[e][g] = to_f32<bf16>(xn[e][g]);
+    }
+    if (s > 0) X.wait(s);  // the peers' h_{t-1} in buffer s & 1
+    const bf16* hb = hs + (size_t)(s & 1) * L.kp * kRows;
+    float d[2][2][4] = {};  // [tile][k-step parity][fragment]
+#pragma unroll
+    for (int kk = 0; kk < kWarpKSteps / 2; ++kk) {
+      if (2 * kk < nks) {
+        // B fragments of k-steps ks0 + 2 kk and the next: rows k of h
+        unsigned b[4];
+        ldsm_x4_trans(b, hb + (size_t)(16 * (ks0 + 2 * kk) + lane) * kRows);
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile)
+          mma_bf16_16816(d[tile][0], a[2 * kk][tile], b[0], b[1]);
+        if (2 * kk + 1 < nks) {
+#pragma unroll
+          for (int tile = 0; tile < 2; ++tile)
+            mma_bf16_16816(d[tile][1], a[2 * kk + 1][tile], b[2], b[3]);
+        }
+      }
+    }
+    {
+      float* pl = part + ((size_t)kg * L.ng + ug) * 8 * 32 + lane;
+#pragma unroll
+      for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pl[(4 * tile + i) * 32] = d[tile][0][i] + d[tile][1][i];
+    }
+    __syncthreads();  // every warp's sums; every thread past the wait
+    X.rearm(s);
+
+    const bool push = s + 1 < T_len;  // nobody reads the last step's h
+    const int nb = (s + 1) & 1;
+    float h_old[2], c_old[2], y[2];
+    if (cell) {
+      float gs[2][4] = {};  // [tile][fragment]: the k-ranges in order
+      for (int k = 0; k < L.kg; ++k) {
+        const float* pk = part + ((size_t)k * L.ng + ug) * 8 * 32 + lane;
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gs[tile][i] += pk[(4 * tile + i) * 32];
+      }
+      // fragment e of tile 0 is gate i of row c2 + e, 2 + e gate f; tile
+      // 1 likewise gates g and o
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        h_old[e] = hc[e];
+        c_old[e] = cc[e];
+        y[e] = 0.0f;
+        if (own(e)) {
+          const float ig = sigmoid(x[e][0] + gs[0][e]);
+          const float fg = sigmoid(x[e][1] + gs[0][2 + e]);
+          const float gg = tanhf(x[e][2] + gs[1][e]);
+          const float og = sigmoid(x[e][3] + gs[1][2 + e]);
+          const float c_new = fg * c_old[e] + ig * gg;
+          const float h_new = og * tanhf(c_new);
+          const bool valid = m[e] > 0.0f;  // absent rows: m = 0, carries 0
+          cc[e] = valid ? c_new : c_old[e];
+          hc[e] = valid ? h_new : h_old[e];
+          y[e] = h_new * m[e];
+          if (push)  // h.astype(U.dtype)
+            hs[(size_t)nb * L.kp * kRows + (size_t)u * kRows + c2 + e] =
+                __float2bfloat16_rn(hc[e]);
+        }
+      }
+    }
+    if (push) {
+      proxy_fence();
+      __syncthreads();  // the block's slice of h_t complete
+      X.push(smem_u32(hs + (size_t)nb * L.kp * kRows + (size_t)P.u0 * kRows),
+             slice_bytes, nb, CS, rank);
+      load_inputs(s + 1);
+    }
+
+    if (cell) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (own(e) && c2 + e < P.nrows) {
+          const int b = P.b0 + c2 + e;
+          out[((size_t)b * T_len + t) * H + u] = __float2bfloat16_rn(y[e]);
+          if (hprev != nullptr) {
+            const size_t r = ((size_t)t * B + b) * H + u;
+            hprev[r] = __float2bfloat16_rn(h_old[e]);
+            cprev[r] = c_old[e];
+          }
+        }
+      }
+    }
+  }
 }
 
-template <typename T>
-int dispatch(const void* xp, const void* U, const float* mask, void* out,
-             float* hbuf, void* hprev, float* cprev, int B, int T_len, int H,
-             int reverse, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  int rc = device_sms(&dev, &sms);
+template <int R>
+int launch_f32(const ClusterPlan& p, const float* xp, const float* U,
+               const float* mask, float* out, float* hprev, float* cprev,
+               int B, int T_len, int H, int reverse, cudaStream_t stream) {
+  auto kernel = lstm_fwd_f32<R>;
+  int rc = set_cluster_attrs(kernel, p.cs, p.smem);
   if (rc != 0) return rc;
-  // fewest units per block such that one block per SM covers all H units:
-  // on an H100 (132 SMs) NJ = 1 up to H = 132, NJ = 2 up to H = 264, which
-  // holds every hidden size the package configures (64 .. 256)
-  if (H <= sms)
-    return launch<T, 1>(xp, U, mask, out, hbuf, hprev, cprev, B, T_len, H,
-                        reverse, stream, dev, sms);
-  if (H % 2 == 0 && H / 2 <= sms)
-    return launch<T, 2>(xp, U, mask, out, hbuf, hprev, cprev, B, T_len, H,
-                        reverse, stream, dev, sms);
-  return kErrUnsupportedH;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, p, stream);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, xp, U, mask, out, hprev,
+                                     cprev, B, T_len, H, reverse, p.cs);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return e;
+}
+
+int dispatch_f32(const float* xp, const float* U, const float* mask,
+                 float* out, float* hprev, float* cprev, int B, int T_len,
+                 int H, int reverse, cudaStream_t stream) {
+  ClusterPlan p;
+  int rc = plan_clusters(lstm_fwd_f32<kRows>, B, H, true,
+                         [H](int cs, int* threads, size_t* smem) {
+                           const F32Smem L(H, (H + cs - 1) / cs);
+                           *threads = kF32Threads;
+                           *smem = L.total * sizeof(float);
+                           return L.ks > 0;
+                         }, &p);
+  if (rc != 0) return rc;
+  using Launch = int (*)(const ClusterPlan&, const float*, const float*,
+                         const float*, float*, float*, float*, int, int, int,
+                         int, cudaStream_t);
+  static constexpr Launch kLaunch[kRows] = {
+      launch_f32<1>, launch_f32<2>, launch_f32<3>, launch_f32<4>,
+      launch_f32<5>, launch_f32<6>, launch_f32<7>, launch_f32<8>};
+  return kLaunch[p.rows - 1](p, xp, U, mask, out, hprev, cprev, B, T_len, H,
+                             reverse, stream);
+}
+
+template <int kWarps>
+int launch_bf16(const bf16* xp, const bf16* U, const float* mask, bf16* out,
+                bf16* hprev, float* cprev, int B, int T_len, int H,
+                int reverse, cudaStream_t stream) {
+  ClusterPlan p;
+  int rc = plan_clusters(lstm_fwd_bf16<kWarps>, B, H, false,
+                         [H](int cs, int* threads, size_t* smem) {
+                           const Bf16Smem L(H, (H + cs - 1) / cs);
+                           *threads = 32 * L.ng * L.kg;
+                           *smem = L.total;
+                           return L.ng * L.kg <= kWarps;
+                         }, &p);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, p, stream);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, lstm_fwd_bf16<kWarps>, xp, U,
+                                     mask, out, hprev, cprev, B, T_len, H,
+                                     reverse, p.cs, p.rows);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return e;
+}
+
+// the 8-warp kernel where its blocks can hold the hidden units (every H up
+// to 256), else the 16-warp one: a launch bound of 512 threads leaves a
+// thread 128 registers, and the walk then spills (the 8-warp kernel ran
+// 12% faster at H = 256)
+int dispatch_bf16(const bf16* xp, const bf16* U, const float* mask,
+                  bf16* out, bf16* hprev, float* cprev, int B, int T_len,
+                  int H, int reverse, cudaStream_t stream) {
+  const int rc = launch_bf16<kBf16Warps>(xp, U, mask, out, hprev, cprev, B,
+                                         T_len, H, reverse, stream);
+  if (rc != kErrNoCluster) return rc;
+  return launch_bf16<kBf16MaxWarps>(xp, U, mask, out, hprev, cprev, B, T_len,
+                                    H, reverse, stream);
 }
 
 }  // namespace
@@ -226,20 +643,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (xp, U, out and hprev share it).
 // hprev/cprev null: the inference form; both set: the residual form.
-// Returns 0, a cudaError_t value, or one of the negative codes of common.cuh.
-int pgasr_lstm_fwd(const void* xp, const void* U, const void* mask, void* out,
-                   void* hbuf, void* hprev, void* cprev, int B, int T_len,
+// Returns 0, a cudaError_t value, or kErrUnsupportedH (H outside 1 ..
+// 512), kErrNoCluster or kErrDtype (common.cuh).
+int pgasr_lstm_fwd(const void* xp, const void* U, const void* mask,
+                   void* out, void* hprev, void* cprev, int B, int T_len,
                    int H, int reverse, int dtype, void* stream) {
   const float* m = static_cast<const float*>(mask);
-  float* h = static_cast<float*>(hbuf);
   float* cp = static_cast<float*>(cprev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((hprev == nullptr) != (cprev == nullptr)) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(xp, U, m, out, h, hprev, cp, B, T_len, H, reverse, s);
+    return dispatch_f32(static_cast<const float*>(xp),
+                        static_cast<const float*>(U), m,
+                        static_cast<float*>(out), static_cast<float*>(hprev),
+                        cp, B, T_len, H, reverse, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(xp, U, m, out, h, hprev, cp, B, T_len, H,
-                                   reverse, s);
+    return dispatch_bf16(static_cast<const bf16*>(xp),
+                         static_cast<const bf16*>(U), m,
+                         static_cast<bf16*>(out), static_cast<bf16*>(hprev),
+                         cp, B, T_len, H, reverse, s);
   return kErrDtype;
 }
 

@@ -38,16 +38,15 @@ BI_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
-    -1: "hidden size H not supported: one block per SM holds 1 or 2 hidden "
-        "units (lstm_fwd: H <= #SMs, or even and <= 2 x #SMs) or, for both "
-        "directions, 1, 2 or 4 (bilstm_*: 2H <= #SMs, or H even and <= #SMs, "
-        "or H a multiple of 4 and <= 2 x #SMs; bilstm_bwd also H <= 512); "
-        "lstm_bwd takes H <= 512",
+    -1: "hidden size H not supported: lstm_fwd and lstm_bwd take H <= 512; "
+        "the fused directions hold 1, 2 or 4 hidden units per SM's block "
+        "(bilstm_*: 2H <= #SMs, or H even and <= #SMs, or H a multiple of 4 "
+        "and <= 2 x #SMs; bilstm_bwd also H <= 512)",
     -2: "cooperative grid does not fit on the device (blocks not co-resident)",
     -3: "per-block shared memory above the device limit (batch too large)",
     -4: "unsupported dtype",
-    -9: "no thread-block cluster of lstm_bwd fits on the device (H too "
-        "large for its shared memory)",
+    -9: "no thread-block cluster of lstm_fwd / lstm_bwd fits on the device "
+        "(H too large for its shared memory)",
 }
 _declared = False
 
@@ -57,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library()
     if not _declared:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pgasr_lstm_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.pgasr_lstm_fwd.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.pgasr_lstm_fwd.restype = ci
         lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ctypes.c_longlong] + [
             ci] * 5 + [vp]
@@ -111,7 +110,6 @@ def _forward(xp, U, mask, reverse: bool, residuals: bool):
     B, T, H = _check(xp, U, mask, "lstm_fwd")
     m = mask.to(torch.float32).contiguous()
     out = torch.empty(B, T, H, dtype=xp.dtype, device=xp.device)
-    hbuf = torch.empty(2, B, H, dtype=torch.float32, device=xp.device)
     hprev = cprev = None
     if residuals:
         hprev = torch.empty(T, B, H, dtype=xp.dtype, device=xp.device)
@@ -121,7 +119,7 @@ def _forward(xp, U, mask, reverse: bool, residuals: bool):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgasr_lstm_fwd(
             xp.data_ptr(), U.data_ptr(), m.data_ptr(), out.data_ptr(),
-            hbuf.data_ptr(), hprev.data_ptr() if residuals else None,
+            hprev.data_ptr() if residuals else None,
             cprev.data_ptr() if residuals else None, B, T, H, int(reverse),
             _DTYPES[xp.dtype], stream)
     _raise_on(rc, lib, "lstm_fwd", B, T, H, xp.dtype)

@@ -175,3 +175,90 @@ def test_plain_versions_chunk_over_t(monkeypatch):
         torch.testing.assert_close(p, w, rtol=0, atol=0)
     for w, p in zip(whole[1][1:], parts[1][1:]):  # sums over chunks
         torch.testing.assert_close(p, w, rtol=1e-6, atol=1e-6)
+
+
+def _bwd_in_block_order(e, g, W, bias, labels, gb, gy, nc):
+    """The joint backward with csrc/joint_bwd.cu's partition, float32: one
+    block per (utterance, u-tile of 32 rows) walks the frames in tiles of
+    ``nc`` cells (nc / 32 frames x 32 rows); z = h . W as the shuffle tree
+    of 32 // (nc // 4) slices of j adds them, + bias; per tile dW += h^T
+    dz and db += dz (in the block), de of a frame summed over the tile's
+    rows (a partial per u-tile), dg of a row over the frames in order; the
+    u-tiles' de partials and the blocks' dW, db partials added in order ->
+    (de, dg, dW, db) in the inputs' types."""
+    B, T, J = e.shape
+    U1, A = g.shape[1], W.shape[1]
+    U, frames = U1 - 1, nc // 32
+    e32, g32, W32, b32 = e.float(), g.float(), W.float(), bias.float()
+    nks = 32 // (nc // 4)
+    jl = -(-J // nks)
+    slices = [slice(min(J, k * jl), min(J, k * jl + jl)) for k in range(nks)]
+    n_ut = -(-U1 // 32)
+    de_part = torch.zeros(n_ut, B, T, J)
+    dg = torch.zeros(B, U1, J)
+    dW, db = torch.zeros(J, A), torch.zeros(A)
+    for b in range(B):
+        for ut in range(n_ut):
+            us = torch.arange(ut * 32, min(U1, ut * 32 + 32))
+            dw_blk, db_blk = torch.zeros(J, A), torch.zeros(A)
+            for t0 in range(0, T, frames):
+                ts = torch.arange(t0, min(T, t0 + frames))
+                h = torch.tanh(e32[b, ts][:, None] + g32[b, us][None])
+                parts = [h[..., s] @ W32[s] for s in slices]
+                while len(parts) > 1:  # xor 16 first: slices k and k + n/2
+                    half = len(parts) // 2
+                    parts = [parts[k] + parts[k + half] for k in range(half)]
+                z = parts[0] + b32
+                p = torch.softmax(z, -1)
+                gbc = gb[b][ts][:, us]
+                gyc = torch.nn.functional.pad(gy[b][ts], (0, 1))[:, us]
+                oh = torch.zeros(len(us), A)
+                lab_rows = us[us < U]
+                oh[:len(lab_rows)].scatter_(
+                    -1, labels[b, lab_rows].long()[:, None], 1.0)
+                dz = (gbc[..., None] * (torch.arange(A) == 0)
+                      + gyc[..., None] * oh - (gbc + gyc)[..., None] * p)
+                dw_blk = dw_blk + torch.einsum("fuj,fua->ja", h, dz)
+                db_blk = db_blk + dz.sum((0, 1))
+                dpre = (dz @ W32.T) * (1.0 - h * h)
+                de_part[ut, b, ts] = dpre.sum(1)
+                for f in range(len(ts)):
+                    dg[b, us] += dpre[f]
+            dW, db = dW + dw_blk, db + db_blk
+    de = sum(de_part[k] for k in range(n_ut))
+    return (de.to(e.dtype), dg.to(g.dtype), dW.to(W.dtype),
+            db.to(bias.dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# tiles of 128, 64 and 32 cells (4, 2 and 1 frames): z's j in 1, 2 and 4
+# slices; T = 11 not a multiple of the tile's frames, U+1 = 41 two u-tiles
+# (the second ragged), A = 9 a padded vocab group
+@pytest.mark.parametrize("nc", [128, 64, 32])
+def test_backward_in_the_block_kernels_order(nc, dtype):
+    """The partition of csrc/joint_bwd.cu stays within the stated
+    tolerances of jax.grad through the Pallas kernels (interpret mode) and
+    of the plain backward: float32 rtol 2e-4, atol 2e-5 (summation order
+    only); bfloat16 atol 2^-7 x max|grad| (each a float32 sum rounded once
+    to bf16)."""
+    _, jdt, tdt = DTYPES[dtype]
+    arrays, labels, gb, gy = _make(T=11, U=40, J=32, A=9, seed=5)
+    ref = _jax_grads(arrays, labels, gb, gy, jdt)
+    args = [torch.from_numpy(x).to(tdt) for x in arrays]
+    lab = torch.from_numpy(labels)
+    cot = (torch.from_numpy(gb), torch.from_numpy(gy))
+    got = _bwd_in_block_order(*args, lab, *cot, nc)
+    plain = fused_joint_bwd_plain(*args, lab, *cot)
+    for name, d, p, r in zip(("de", "dg", "dW", "db"), got, plain, ref):
+        assert d.dtype == tdt, name
+        d, p = d.float().numpy(), p.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(d, r, rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{name} vs Pallas")
+            np.testing.assert_allclose(d, p, rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{name} vs plain")
+        else:
+            for want, what in ((r, "Pallas"), (p, "plain")):
+                np.testing.assert_allclose(
+                    d, want, rtol=0, atol=2.0 ** -7 * np.abs(want).max(),
+                    err_msg=f"{name} vs {what}")
