@@ -54,6 +54,15 @@ the CPU or to a kernel's plain version):
      backward run twice with equal bits, CUDA-event times in turns, each
      kernel's bound, and the port's unfused composition (forward, forward
      + backward) as the yardstick.
+  3g. shapes past the first kernels' limits, each launched on its kernel
+     (its counter rises by one a call) and held against its plain version
+     within the bounds above: lstm_fwd (both forms) and lstm_bwd at phase
+     3's B and T with H=512 float32 and H=1024 bfloat16 (U's columns read
+     from L2), timed; joint_fwd / joint_bwd at A=256, J=640 (B=4,
+     T'=51, U=20, both types); flash_attn and its backward at dh=128 and
+     256 at phase 3c's shape, device-timed beside SDPA; ctc_beam over A=5000 at
+     K=64 (the block form) and K=16 (the warp form), M=6 and exact, best
+     and n-best (B=8, T=101).
   3f. fused-direction BiLSTM: bilstm_fwd (inference and residual forms)
      and bilstm_bwd vs their plain versions on the card at phase 3's shape
      (B=64, T=401, H=256 per direction), float32 and bfloat16, ragged
@@ -783,7 +792,7 @@ def beam_inputs(dev):
     return torch.from_numpy(lp).to(dev), torch.from_numpy(fl).to(dev)
 
 
-def beam_vs_plain(lp, fl, M: int, Lmax: int):
+def beam_vs_plain(lp, fl, M: int, Lmax: int, K: int = BEAM_K):
     """ctc_beam and the plain scan + backtrack on the same inputs: checks
     labels, lens, parents and syms identical and the nll; returns the
     kernel's output and the worst nll relative error."""
@@ -792,10 +801,10 @@ def beam_vs_plain(lp, fl, M: int, Lmax: int):
     from pg_asr_tpu_torch.decoding import beam, cuda_beam
 
     A = lp.shape[-1]
-    prune = None if M == beam._prune_m(A, BEAM_K, None) else M
-    out = cuda_beam.ctc_beam_cuda(lp, fl, K=BEAM_K, M=M, Lmax=Lmax)
+    prune = None if M == beam._prune_m(A, K, None) else M
+    out = cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=M, Lmax=Lmax)
     lens, scores, parents, syms = beam._scan_hash(
-        lp, fl, K=BEAM_K, A=A, Lmax=Lmax, blank=0, prune=prune)
+        lp, fl, K=K, A=A, Lmax=Lmax, blank=0, prune=prune)
     labels, blens, nll = beam._backtrack_batch(parents, syms, lens, scores,
                                                Lmax)
     torch.cuda.synchronize()
@@ -864,14 +873,14 @@ def phase_beam(dev):
     return cases
 
 
-def attn_inputs(dev, dtype):
+def attn_inputs(dev, dtype, dh: int = ATTN_DH):
     """q, k, v as (B, H, T', dh) views of one fused (B, T', 3, H, dh)
     projection (the layout the models hand over) and a ragged (B, T')
     validity mask with lengths T' and 1 among them, from a seed."""
     import torch
 
     g = torch.Generator().manual_seed(SEED)
-    qkv = torch.randn(B, ATTN_T, 3, ATTN_H, ATTN_DH, generator=g)
+    qkv = torch.randn(B, ATTN_T, 3, ATTN_H, dh, generator=g)
     lens = torch.randint(1, ATTN_T + 1, (B,), generator=g)
     lens[0], lens[1] = ATTN_T, 1
     valid = (torch.arange(ATTN_T)[None] < lens[:, None]).to(dev)
@@ -1250,6 +1259,261 @@ def phase_joint(dev):
             check(mx <= bd["grad_max"] and mean <= bd["grad_mean"],
                   f"joint_bwd {name}: {k} max {mx}, mean {mean} > {bd}")
     return cases
+
+
+def phase_shapes(dev):
+    """The shapes past the first kernels' limits, each on its kernel (its
+    launch counter rises by one a call, nothing falls back) against its
+    plain version within the bounds of phases 3b-3e: the LSTM at H=512
+    float32 and 1024 bfloat16; the joint at A=256, J=640 (a BPE
+    vocabulary, joint_dim 640); flash attention at dh=128 (d_model 512
+    with 4 heads) and 256 (the wide kernels) at phase 3c's shape, forward
+    and backward, device-timed beside SDPA; the beam at K=64 over A=5000 (the block
+    form) and at K=16 over A=5000 (the warp form), M=6 and exact, best
+    and n-best. -> {"lstm": [...], "joint": [...], "flash": [...],
+    "beam": [...]}"""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pg_asr_tpu_torch.decoding import beam, cuda_beam
+    from pg_asr_tpu_torch.ops import cuda_flash_attn, cuda_joint
+    from pg_asr_tpu_torch.ops.flash_attn import mhsa_bwd_plain, mhsa_plain
+    from pg_asr_tpu_torch.ops.joint import (fused_joint_bwd_plain,
+                                            fused_joint_plain)
+
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
+
+    out = {"lstm": [], "joint": [], "flash": [], "beam": []}
+    # --- the LSTM at phase 3's B and T past 512 units (U's columns from L2):
+    # H=512 float32 and H=1024 bfloat16, forward scan, both forms and the
+    # backward on the plain forward's residuals, within phase 3's bounds
+    for dtype, lH in ((torch.float32, 512), (torch.bfloat16, 1024)):
+        name = str(dtype).split(".")[1]
+        g_ = torch.Generator().manual_seed(SEED)
+        lens = torch.randint(1, T + 1, (B,), generator=g_)
+        lens[0], lens[1] = T, 1
+        mask = (torch.arange(T)[None] < lens[:, None]).to(dev, torch.float32)
+        xp = (0.5 * torch.randn(B, T, 4 * lH, generator=g_)).to(dev, dtype)
+        U = ((torch.rand(lH, 4 * lH, generator=g_) * 2 - 1)
+             / math.sqrt(lH)).to(dev, dtype)
+        gy = torch.randn(B, T, lH, generator=g_).to(dev, dtype)
+        c0 = (cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
+              cuda_lstm.BWD_LAUNCHES)
+        got = cuda_lstm.lstm_scan_cuda(xp, U, mask, False)
+        o_r, h_r, c_r = cuda_lstm.lstm_scan_residual_cuda(xp, U, mask, False)
+        ref = lstm_scan_plain(xp, U, mask, False, residuals=True)
+        dxp, dU = cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, ref[1], ref[2],
+                                               gy, False)
+        r_dxp, r_dU = lstm_scan_bwd_plain(xp, U, mask, ref[1], ref[2], gy,
+                                          False)
+        torch.cuda.synchronize()
+        check((cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
+               cuda_lstm.BWD_LAUNCHES) == (c0[0] + 1, c0[1] + 1, c0[2] + 1),
+              f"lstm H={lH}: launches")
+        check(torch.equal(o_r, got), f"lstm H={lH}: the residual form's out")
+        errs = {"out": _errs(got, ref[0]), "hprev": _errs(h_r, ref[1]),
+                "cprev": _errs(c_r, ref[2])}
+        bb = BWD_BOUNDS[name]
+        e_dxp, e_du = _errs(dxp, r_dxp), _errs(dU, r_dU)
+        dxp_max = bb.get("dxp_max", bb.get("dxp_rel", 0)
+                         * r_dxp.float().abs().max().item())
+        # phase 3's max bounds hold at any H. Its bf16 mean bounds were set
+        # from readings at H=256, and more products per sum move more
+        # bf16 roundings of h by an ulp (out mean 2.1e-6 at H=1024 against
+        # 3.7e-7 at 256); what the mean must show, that h and dpre round
+        # to bf16 where the Pallas body rounds them, is held here against
+        # a control of the plain version without those roundings (U
+        # widened to float32): the kernel's mean at most a third of it
+        means = {k: v[1] for k, v in errs.items()}
+        means["dxp"] = e_dxp[1]
+        if dtype == torch.bfloat16:
+            c_ref = lstm_scan_plain(xp, U.float(), mask, False,
+                                    residuals=True)
+            c_dxp, _ = lstm_scan_bwd_plain(xp, U.float(), mask, ref[1],
+                                           ref[2], gy, False)
+            ctrl = {k: _errs(c, r)[1] for k, c, r in zip(
+                ("out", "hprev", "cprev"), c_ref, ref)}
+            ctrl["dxp"] = _errs(c_dxp, r_dxp)[1]
+            mean_ok = {k: means[k] <= ctrl[k] / 3 for k in means}
+        else:
+            ctrl = None
+            mean_ok = {k: means[k] <= (CPREV_BOUNDS if k == "cprev"
+                                       else BOUNDS)[name]["mean"]
+                       for k in errs}
+            mean_ok["dxp"] = means["dxp"] <= bb["dxp_mean"]
+        for k, (mx, mean) in errs.items():
+            bd = CPREV_BOUNDS[name] if k == "cprev" else BOUNDS[name]
+            check(mx <= bd["max"] and mean_ok[k],
+                  f"lstm_fwd H={lH} {name}: {k} max {mx}, mean {mean} "
+                  f"(bounds {bd}, control {ctrl})")
+        check(e_dxp[0] <= dxp_max and mean_ok["dxp"],
+              f"lstm_bwd H={lH} {name}: dxp {e_dxp} out of bounds (control "
+              f"{ctrl})")
+        check(e_du[0] <= bb["du_rel"] * r_dU.float().abs().max().item(),
+              f"lstm_bwd H={lH} {name}: dU {e_du} out of bounds")
+        fwd_ms, fwd_plain = in_turns(
+            lambda: lstm_scan_plain(xp, U, mask, False),
+            lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, False), 1, 5)
+        bwd_ms = time_ms(lambda: cuda_lstm.lstm_scan_bwd_cuda(
+            xp, U, mask, ref[1], ref[2], gy, False), 3)
+        out["lstm"].append({"dtype": name, "B": B, "T": T, "H": lH,
+                            "errors": errs, "control_means": ctrl,
+                            "dxp_errors": e_dxp,
+                            "du_errors": e_du, "fwd_ms": fwd_ms,
+                            "fwd_plain_ms": fwd_plain, "bwd_ms": bwd_ms})
+        print(f"[shapes] lstm B={B} T={T} H={lH} {name} (U from L2): "
+              f"lstm_fwd, its residual form and lstm_bwd launched once each; "
+              + ", ".join(f"{k} max {v[0]:.2e} mean {v[1]:.2e}"
+                          for k, v in errs.items())
+              + (f" (controls without the bf16 roundings: {ctrl})" if ctrl
+                 else "")
+              + f"; dxp max {e_dxp[0]:.2e} mean {e_dxp[1]:.2e}, dU max "
+              f"{e_du[0]:.2e}; lstm_fwd {fwd_ms:.3f} ms (plain "
+              f"{fwd_plain:.3f} ms), lstm_bwd {bwd_ms:.3f} ms")
+
+    # --- the joint: a few utterances at A=256, J=640
+    jB, jT, jU, jJ, jA = 4, 51, 20, 640, 256
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        g_ = torch.Generator().manual_seed(SEED)
+        e, g, W, b = (torch.randn(*sh, generator=g_) * sc for sh, sc in (
+            ((jB, jT, jJ), 0.5), ((jB, jU + 1, jJ), 0.5),
+            ((jJ, jA), (2.0 / (jJ + jA)) ** 0.5), ((jA,), 0.1)))
+        labels = torch.randint(1, jA, (jB, jU), generator=g_)
+        gb = torch.randn(jB, jT, jU + 1, generator=g_).to(dev)
+        gy = torch.randn(jB, jT, jU, generator=g_).to(dev)
+        args = tuple(t.to(dev, dtype) for t in (e, g, W, b)) + (
+            labels.to(dev),)
+        c0 = (cuda_joint.FWD_LAUNCHES, cuda_joint.BWD_LAUNCHES)
+        lpb, lpy = cuda_joint.joint_fwd_cuda(*args)
+        grads = cuda_joint.joint_bwd_cuda(*args, gb, gy)
+        torch.cuda.synchronize()
+        check((cuda_joint.FWD_LAUNCHES, cuda_joint.BWD_LAUNCHES)
+              == (c0[0] + 1, c0[1] + 1), "joint A=256 J=640: launches")
+        bd = JOINT_BOUNDS[name]
+        lp_err = {k: _errs(got, ref) for k, got, ref in zip(
+            ("lp_blank", "lp_label"), (lpb, lpy), fused_joint_plain(*args))}
+        g_err = {n: _rel_errs(gr, w) for n, gr, w in zip(
+            ("de", "dg", "dW", "db"), grads,
+            fused_joint_bwd_plain(*args, gb, gy))}
+        for k, (mx, mean) in lp_err.items():
+            check(mx <= bd["lp_max"] and mean <= bd["lp_mean"],
+                  f"joint_fwd A={jA} J={jJ} {name}: {k} {mx}, {mean}")
+        for k, (mx, mean) in g_err.items():
+            check(mx <= bd["grad_max"] and mean <= bd["grad_mean"],
+                  f"joint_bwd A={jA} J={jJ} {name}: {k} {mx}, {mean}")
+        check(all(torch.equal(gr, a) for gr, a in zip(
+            grads, cuda_joint.joint_bwd_cuda(*args, gb, gy))),
+            "joint_bwd A=256 J=640 is not deterministic")
+        fwd_ms = time_ms(lambda: cuda_joint.joint_fwd_cuda(*args), 5)
+        bwd_ms = time_ms(lambda: cuda_joint.joint_bwd_cuda(*args, gb, gy), 5)
+        out["joint"].append({"dtype": name, "B": jB, "T": jT, "U": jU,
+                             "J": jJ, "A": jA, "lp_errors": lp_err,
+                             "grad_errors_rel_to_max": g_err,
+                             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms})
+        print(f"[shapes] joint B={jB} T'={jT} U+1={jU + 1} J={jJ} A={jA} "
+              f"{name}: joint_fwd and joint_bwd launched once each; "
+              + ", ".join(f"{k} {v[0]:.2e}" for k, v in lp_err.items())
+              + ", " + ", ".join(f"{n} {e[0]:.2e}" for n, e in g_err.items())
+              + f" (max, grads rel to max|grad|); repeats its bits; "
+              f"joint_fwd {fwd_ms:.4f} ms, joint_bwd {bwd_ms:.4f} ms")
+
+    # --- flash attention at dh=128 (an instance) and 256 (the wide
+    # kernels), phase 3c's shape
+    for dh, dtype in ((128, torch.float32), (128, torch.bfloat16),
+                      (256, torch.float32), (256, torch.bfloat16)):
+        scale = dh ** -0.5
+        name = str(dtype).split(".")[1]
+        q, k, v, valid, lens = attn_inputs(dev, dtype, dh)
+        c0 = flash_counts()
+        got = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale)
+        ref, r_l, r_m = mhsa_plain(q, k, v, valid, scale, residuals=True)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            SEED)).to(dev, dtype)
+        di = (ref.float() * do.float()).sum(-1).contiguous()
+        dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(
+            q, k, v, valid, r_l, r_m, do, di, scale)
+        dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(q, k, v, valid, r_l, r_m,
+                                                    do, di, scale)
+        torch.cuda.synchronize()
+        c1 = flash_counts()
+        check((c1["flash_attn"], c1["flash_attn_bwd_dkv"],
+               c1["flash_attn_bwd_dq"]) == (
+            c0["flash_attn"] + 1, c0["flash_attn_bwd_dkv"] + 1,
+            c0["flash_attn_bwd_dq"] + 1), f"flash dh={dh}: launches")
+        err = (got.float() - ref.float()).abs().max().item()
+        bound = FLASH_BOUNDS[name] * (v.float().abs().max().item()
+                                      if name == "bfloat16" else 1.0)
+        check(err <= bound, f"flash_attn dh={dh} {name}: {err} > {bound}")
+        bwd_err = {n: _rel_errs(gr, w) for n, gr, w in zip(
+            ("dq", "dk", "dv"), (dq, dk, dv),
+            mhsa_bwd_plain(q, k, v, valid, ref, r_l, r_m, do, scale))}
+        for n, (mx, _) in bwd_err.items():
+            check(mx <= FLASH_BWD_BOUNDS[name]["max"],
+                  f"flash_attn_bwd dh={dh} {name}: {n} {mx}")
+        k_ms, p_ms = in_turns(
+            lambda: mhsa_plain(q, k, v, valid, scale),
+            lambda: cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale),
+            5, 50, device_ms)
+        same = valid[:, None, :, None] == valid[:, None, None, :]
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=same, scale=scale), 50)
+        dkv_ms = device_ms(lambda: cuda_flash_attn.flash_attn_bwd_dkv_cuda(
+            q, k, v, valid, r_l, r_m, do, di, scale), 50)
+        dq_ms = device_ms(lambda: cuda_flash_attn.flash_attn_bwd_dq_cuda(
+            q, k, v, valid, r_l, r_m, do, di, scale), 50)
+        pairs = sum(n * n + (ATTN_T - n) ** 2 for n in lens)
+        flops = 4 * ATTN_H * dh * pairs
+        nbytes = 4 * B * ATTN_H * ATTN_T * dh * q.element_size() + B * ATTN_T * 4
+        b_ms, b_by = bound_ms(flops, nbytes, name)
+        out["flash"].append({"dtype": name, "B": B, "H": ATTN_H, "T": ATTN_T,
+                             "dh": dh, "max_abs_err": err, "bound": bound,
+                             "bwd_errors_rel_to_max": bwd_err, "ms": k_ms,
+                             "plain_ms": p_ms, "library_ms": lib_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "dkv_ms": dkv_ms, "dq_ms": dq_ms})
+        print(f"[shapes] flash_attn B={B} H={ATTN_H} T'={ATTN_T} dh={dh} "
+              f"{name}: flash_attn, dkv, dq launched once each; o max abs "
+              f"err {err:.2e} (bound {bound:.2e}), " + ", ".join(
+                  f"{n} {e[0]:.2e}" for n, e in bwd_err.items())
+              + f" (rel to max|grad|); device-timed: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); dkv {dkv_ms:.4f} ms, dq "
+              f"{dq_ms:.4f} ms")
+
+    # --- the beam over A=5000: K=64 (the block form), K=16 (the warp form)
+    rng = np.random.default_rng(SEED)
+    bB, bT, bA = 8, 101, 5000
+    x = rng.standard_normal((bB, bT, bA)) * 2.0
+    lp = torch.from_numpy((x - np.log(np.exp(x).sum(-1, keepdims=True)))
+                          .astype(np.float32)).to(dev)
+    fl_np = rng.integers(1, bT + 1, bB).astype(np.int32)
+    fl_np[:3] = [bT, 1, 2]
+    fl = torch.from_numpy(fl_np).to(dev)
+    for K in (64, 16):
+        for M in (6, beam._prune_m(bA, K, None)):
+            c0 = cuda_beam.LAUNCHES
+            _, rel, _ = beam_vs_plain(lp, fl, M, bT, K=K)
+            check(cuda_beam.LAUNCHES == c0 + 1, f"ctc_beam K={K}: launches")
+            ms = time_ms(lambda: cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=M,
+                                                         Lmax=bT), 3)
+            out["beam"].append({"B": bB, "T": bT, "A": bA, "K": K, "M": M,
+                                "nll_max_rel_err": rel, "ms": ms})
+            print(f"[shapes] ctc_beam B={bB} T={bT} A={bA} K={K} M={M}: "
+                  f"launched once; labels, lens, parents, syms identical to "
+                  f"the plain scan, nll rel err {rel:.1e}; kernel {ms:.3f} ms")
+        got = beam.beam_decode_nbest(lp, fl, beam_size=K, max_label_len=bT)
+        want = beam.beam_decode_nbest(lp, fl, beam_size=K, max_label_len=bT,
+                                      use_kernel=False)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ctc_beam n-best K={K} A={bA} differs from the plain version")
+        rel = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1)).max()
+        check(rel.item() <= BEAM_NLL_REL, f"ctc_beam n-best K={K}: nll {rel}")
+        print(f"[shapes] ctc_beam n-best B={bB} A={bA} K={K}: identical, nll "
+              f"rel err {rel.item():.1e}")
+    return out
 
 
 def make_corpus(d):
@@ -2316,7 +2580,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
                            if c["dtype"] == "float32"),
         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": lib["fwd_ms"],
-        "cases": cases["fwd"],
+        "cases": cases["fwd"], "shapes": cases["shapes"]["lstm"],
     }, {
         "name": "lstm_fwd_residual", "route": "cuda",
         "source": src + "lstm_fwd.cu",
@@ -2348,7 +2612,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a CTC prefix beam "
                         "search",
-        "cases": cases["beam"],
+        "cases": cases["beam"], "shapes": cases["shapes"]["beam"],
     }, {
         "name": "flash_attn", "route": "cuda", "source": src + "flash_attn.cu",
         "replaces": "pg_asr_tpu/ops/flash_attn.py:62",
@@ -2363,6 +2627,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
         "library_note": "F.scaled_dot_product_attention with the boolean "
                         "segment-equality mask",
         "cases": cases["flash"], "models": attention,
+        "shapes": cases["shapes"]["flash"],
     }, {
         "name": "flash_attn_residual", "route": "cuda",
         "source": src + "flash_attn.cu",
@@ -2427,7 +2692,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
                         "unfused_ms is the port's unfused composition (the "
                         "4-D tanh, the head, joint_log_probs)",
         "unfused_ms": jf["unfused_fwd_ms"], "cases": cases["joint"],
-        "models": {"transducer": tr},
+        "models": {"transducer": tr}, "shapes": cases["shapes"]["joint"],
     }, {
         "name": "joint_bwd", "route": "cuda", "source": src + "joint_bwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_joint.py:92",
@@ -2495,6 +2760,7 @@ def main() -> int:
     cases["flash"] = phase_flash(dev)
     cases["flash_bwd"] = phase_flash_bwd(dev)
     cases["joint"] = phase_joint(dev)
+    cases["shapes"] = phase_shapes(dev)
     bi = phase_bilstm(dev)
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:

@@ -5,6 +5,7 @@
     python3 kernel_ab.py flash_fwd A_ROOT B_ROOT
     python3 kernel_ab.py flash_bwd A_ROOT B_ROOT
     python3 kernel_ab.py joint A_ROOT B_ROOT
+    python3 kernel_ab.py beam A_ROOT B_ROOT
 
 Runs four fresh processes in the order A, B, B, A. Each imports
 pg_asr_tpu_torch from its root (building that tree's kernels there at
@@ -49,11 +50,20 @@ inputs (B=64, T'=201, U+1=61, J=256, A=28, ragged lengths and cotangents
 from seed 0: chip_smoke.joint_inputs), float32 and bfloat16; each tree's
 tables and gradients held against the plain versions within
 chip_smoke.py's JOINT_BOUNDS, and a second launch must repeat its bits.
+joint_fwd is also timed alone behind a sleep kernel (device-timed).
 Then the fused pair (joint_fwd + joint_bwd, the work of one training
 step) beside the port's unfused composition (chip_smoke.unfused_joint
 under autograd): each over 20 launches, the pair also device-timed, and
 both by phase 3e's protocol (5 launches, unfused and fused in turns).
-Compile report: csrc/joint_bwd.cu.
+Compile report: csrc/joint_fwd.cu and csrc/joint_bwd.cu.
+
+beam: ctc_beam at chip_smoke.py's phase-3b shape and inputs (B=128,
+T=401, A=28, K=16, sharp posteriors and ragged lengths from seed 0:
+chip_smoke.beam_inputs), M=6 (the default prune) and M=18 (exact); each
+tree's labels, lens, parents and syms must equal the plain scan's
+(decoding/beam.py _scan_hash + _backtrack_batch), its nll within
+chip_smoke.py's BEAM_NLL_REL, and both trees must give the same bits.
+Compile report: csrc/ctc_beam.cu.
 
 Any tree can be passed: a copy of pg_asr_tpu_torch/ with a constant
 changed makes a variant (its worker alone: `kernel_ab.py --worker MODE
@@ -325,6 +335,7 @@ def joint_worker() -> dict:
         out[f"joint_fwd_{name}"] = {
             "ms": _time_ms(fwd), "errors": errors, "bounds": bounds,
             "repeats_its_bits": _digest(*fwd()) == _digest(*fwd())}
+        out[f"joint_fwd_device_{name}"] = {"ms": _device_ms(fwd)}
         grads = bwd()
         errors, bounds = {}, {}
         for k, got, ref in zip(("de", "dg", "dW", "db"), grads,
@@ -356,8 +367,44 @@ def joint_worker() -> dict:
     return out
 
 
+def beam_worker() -> dict:
+    import torch
+
+    import chip_smoke as cs  # phase 3b's inputs and bound
+    from pg_asr_tpu_torch.decoding import beam, cuda_beam
+
+    dev = torch.device("cuda", 0)
+    lp, fl = cs.beam_inputs(dev)
+    K, A, T = cs.BEAM_K, cs.BEAM_A, cs.T
+    out = {}
+    for M in (6, beam._prune_m(A, K, None)):
+        prune = None if M == beam._prune_m(A, K, None) else M
+
+        def run():
+            return cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=M, Lmax=T)
+
+        got = run()
+        lens, scores, parents, syms = beam._scan_hash(
+            lp, fl, K=K, A=A, Lmax=T, blank=0, prune=prune)
+        labels, blens, nll = beam._backtrack_batch(parents, syms, lens,
+                                                   scores, T)
+        same = all(torch.equal(g, w) for g, w in (
+            (got.parents, parents), (got.syms, syms), (got.lens, lens),
+            (got.labels[:, 0], labels), (got.nb_lens[:, 0], blens)))
+        rel = ((got.nll[:, 0] - nll).abs() / nll.abs().clamp(min=1)).max()
+        again = run()
+        out[f"ctc_beam_M{M}"] = {
+            "ms": _time_ms(run), "device_ms": _device_ms(run),
+            "errors": {"nll_rel": rel.item(), "differs": float(not same)},
+            "bounds": {"nll_rel": cs.BEAM_NLL_REL, "differs": 0.0},
+            "repeats_its_bits": _digest(*got) == _digest(*again),
+            "digest": _digest(got.parents, got.syms, got.labels)}
+    return out
+
+
 WORKERS = {"lstm": lstm_worker, "flash_bwd": flash_bwd_worker,
-           "flash_fwd": flash_fwd_worker, "joint": joint_worker}
+           "flash_fwd": flash_fwd_worker, "joint": joint_worker,
+           "beam": beam_worker}
 
 
 def _label(mangled: str) -> str | None:
@@ -366,8 +413,9 @@ def _label(mangled: str) -> str | None:
     for name in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
                  "flash_attn_kernel", "lstm_fwd_f32", "lstm_fwd_bf16",
                  "lstm_bwd_kernel", "lstm_bwd_gemm_mma", "lstm_bwd_gemm",
-                 "lstm_bwd_reduce", "joint_bwd_kernel", "joint_bwd_reduce_de",
-                 "joint_bwd_reduce_w"):
+                 "lstm_bwd_reduce", "joint_fwd_kernel", "joint_bwd_kernel",
+                 "joint_bwd_chunked_kernel", "joint_bwd_reduce_de",
+                 "joint_bwd_reduce_w", "ctc_beam_warp", "ctc_beam_block"):
         if name in mangled:
             dtype = "bfloat16" if "bfloat16" in mangled else "float32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -380,7 +428,8 @@ def _label(mangled: str) -> str | None:
 REPORT_SOURCES = {"lstm": ("lstm_fwd.cu", "lstm_bwd.cu"),
                   "flash_bwd": ("flash_attn_bwd.cu",),
                   "flash_fwd": ("flash_attn.cu",),
-                  "joint": ("joint_bwd.cu",)}
+                  "joint": ("joint_fwd.cu", "joint_bwd.cu"),
+                  "beam": ("ctc_beam.cu",)}
 
 
 def compile_report(root: str, sources) -> dict:

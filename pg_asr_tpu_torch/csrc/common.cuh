@@ -16,10 +16,9 @@ constexpr int kErrUnsupportedH = -1;    // LSTM units do not fit one block per S
 constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-resident
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;
-constexpr int kErrBeamRange = -5;       // ctc_beam: K, M, A, Lmax or blank out of range
-constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim other than 32 or 64
-constexpr int kErrVocab = -7;           // joint_fwd/_bwd: vocab size outside 1 .. 32
-constexpr int kErrAlignment = -8;       // flash_attn_bwd: an input not 16-byte aligned
+constexpr int kErrBeamRange = -5;       // ctc_beam: M, Lmax or blank out of range, or
+                                        // the block form's candidates past shared memory
+constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim outside 1 .. 256
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -142,6 +141,17 @@ int prepare_cooperative(Kernel kernel, size_t smem, int grid, int dev, int sms) 
   return 0;
 }
 
+// *smem_max = the shared memory a block of the current device can opt in
+// to. Returns 0 or a cudaError_t.
+inline int smem_optin(int* smem_max) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e;
+}
+
 // Device ordinal and SM count of the current device.
 inline int device_sms(int* dev, int* sms) {
   cudaError_t e = cudaGetDevice(dev);
@@ -155,7 +165,7 @@ inline int device_sms(int* dev, int* sms) {
 // memory (lstm_bwd under a split cluster barrier, lstm_fwd counted on
 // mbarriers).
 
-constexpr int kMaxH = 512;         // hidden units a cluster walk takes
+constexpr int kMaxH = 1024;        // hidden units a cluster walk takes
 constexpr int kRows = 8;           // batch rows a cluster takes at most
 constexpr int kErrNoCluster = -9;  // no cluster of the kernel fits the device
 

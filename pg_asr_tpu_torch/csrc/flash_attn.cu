@@ -9,18 +9,21 @@
 // pg_asr_tpu_torch/ops/flash_attn.py:mhsa_plain. Contract:
 //   q, k, v  (B, H, T, dh) float32 or bfloat16, any (batch, head, time)
 //            strides in elements, the dh axis contiguous (so q, k, v can be
-//            read in place from a fused (B, T, 3, H, dh) projection); each
-//            start and each of those strides a multiple of 16 bytes (they
-//            are read by 16-byte cp.async; the launcher copies an input
-//            that is not)
+//            read in place from a fused (B, T, 3, H, dh) projection); rows
+//            of whole 16-byte vectors (start, strides and dh) are read by
+//            16-byte cp.async, any others element by element
 //   seg      (B, T) int32, contiguous; query i attends key j iff
 //            seg[b, i] == seg[b, j] (a padded query attends the padded keys)
-//   o        (B, H, T, dh) in q's type, strides as given (even)
+//   o        (B, H, T, dh) in q's type, strides as given
 //   l, m     (B, H, T) float32, contiguous, or both null: the residual form
 //            (the library's save_residuals, which its backward reads) also
 //            writes the row sum l and row max m of every row < T; null
 //            pointers keep the inference form
-//   dh = 32 or 64 (a template parameter); any T >= 1.
+//   dh in 1 .. 128, on the template instance for 32, 64 or 128 next up
+//   (its columns past dh zero-filled as the tiles load: a zero column
+//   changes no score and no output; only the first dh are written); dh in
+//   129 .. 256 on the wide kernel (below: CUDA cores, float32 math in both
+//   types, the library's rounding of p); any T >= 1.
 //
 // Numerics, as the Pallas kernel: s = (q . k accumulated in float32) *
 // scale, plus -0.7 * FLT_MAX where the segments differ (an additive mask,
@@ -105,6 +108,8 @@ struct FlashArgs {
   long long sq[3], sk[3], sv[3], so[3];  // (batch, head, time) strides
   int B, H, T;
   float scale;
+  int dh;   // the head dim: columns dh .. DH - 1 of the instance are zeros
+  int vec;  // q, k, v rows read by 16-byte cp.async (else element-wise)
 };
 
 template <typename T, int DH>
@@ -146,8 +151,11 @@ struct Block {
 
 // --- float32: CUDA cores ----------------------------------------------------
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LDK = DH + 4, LDP = kBT + 4, CPT = DH / 16;
   constexpr int TY = kF32Threads / 16, RPT = kBT / TY, KPT = kBT / 16;
   extern __shared__ float4 smem_raw[];
@@ -162,7 +170,7 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int Tn = blk.Tn, n = blk.n, q0 = blk.q0;
 
-  load_tile_async<float, DH, LDK, kF32Threads>(Qs, blk.q, a.sq[2], q0, Tn);
+  load_tile_async<float, DH, LDK, kF32Threads>(Qs, blk.q, a.sq[2], q0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kF32Threads>(kept, blk.seg, q0, Tn);
   int segq[RPT];
@@ -181,9 +189,9 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
   // the first kept key tile into buffer 0 (the query tile meets itself)
   int kt = next_kept(kept, 0, n);
   load_tile_async<float, DH, LDK, kF32Threads>(Ks, blk.k, a.sk[2], kt * kBT,
-                                               Tn);
+                                               Tn, dh, vec);
   load_tile_async<float, DH, DH, kF32Threads>(Vs, blk.v, a.sv[2], kt * kBT,
-                                              Tn);
+                                              Tn, dh, vec);
   cp_async_commit();
   if (threadIdx.x < kBT) {
     const int t = kt * kBT + threadIdx.x;
@@ -200,9 +208,9 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
     __syncthreads();  // tile kt is in `buf`; the other buffer and p are free
     if (nxt < n) {
       load_tile_async<float, DH, LDK, kF32Threads>(
-          Ks + (buf ^ 1) * kBT * LDK, blk.k, a.sk[2], nxt * kBT, Tn);
+          Ks + (buf ^ 1) * kBT * LDK, blk.k, a.sk[2], nxt * kBT, Tn, dh, vec);
       load_tile_async<float, DH, DH, kF32Threads>(
-          Vs + (buf ^ 1) * kBT * DH, blk.v, a.sv[2], nxt * kBT, Tn);
+          Vs + (buf ^ 1) * kBT * DH, blk.v, a.sv[2], nxt * kBT, Tn, dh, vec);
     }
     cp_async_commit();
     const float* Kb = Ks + buf * kBT * LDK;
@@ -282,10 +290,14 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vr[CPT];
-        if constexpr (CPT == 4) {
-          const float4 w =
-              *reinterpret_cast<const float4*>(&Vb[(kk + u) * DH + 4 * tx]);
-          vr[0] = w.x; vr[1] = w.y; vr[2] = w.z; vr[3] = w.w;
+        if constexpr (CPT % 4 == 0) {
+#pragma unroll
+          for (int c4 = 0; c4 < CPT; c4 += 4) {
+            const float4 w = *reinterpret_cast<const float4*>(
+                &Vb[(kk + u) * DH + CPT * tx + c4]);
+            vr[c4] = w.x; vr[c4 + 1] = w.y; vr[c4 + 2] = w.z;
+            vr[c4 + 3] = w.w;
+          }
         } else {
           const float2 w =
               *reinterpret_cast<const float2*>(&Vb[(kk + u) * DH + 2 * tx]);
@@ -312,7 +324,8 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
     const float inv = l[i] == 0.0f ? 1.0f : 1.0f / l[i];
     float* row = blk.o + (long long)t * a.so[2] + CPT * tx;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[c] = acc[i][c] * inv;
+    for (int c = 0; c < CPT; ++c)
+      if (CPT * tx + c < dh) row[c] = acc[i][c] * inv;
     if (a.l != nullptr && tx == 0) {  // every thread of the row holds both
       a.l[blk.row0 + t] = l[i];
       a.m[blk.row0 + t] = m[i];
@@ -322,8 +335,11 @@ __device__ __forceinline__ void fwd_f32(const FlashArgs& a) {
 
 // --- bfloat16: tensor cores -------------------------------------------------
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LD = DH + 8, TILE = kBT * LD, NK = kBT / 8, ND = DH / 8,
                 KQ = DH / 16;
   extern __shared__ float4 smem_raw[];
@@ -339,7 +355,7 @@ __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
   const Lanes L(lane);
   const int Tn = blk.Tn, n = blk.n;
 
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, blk.q, a.sq[2], blk.q0, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, blk.q, a.sq[2], blk.q0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kMmaThreads>(kept, blk.seg, blk.q0, Tn);
 
@@ -364,8 +380,8 @@ __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
 
   // the first kept key tile into buffer 0 (the query tile meets itself)
   int kt = next_kept(kept, 0, n);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, blk.k, a.sk[2], kt * kBT, Tn);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, blk.v, a.sv[2], kt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, blk.k, a.sk[2], kt * kBT, Tn, dh, vec);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, blk.v, a.sv[2], kt * kBT, Tn, dh, vec);
   cp_async_commit();
   if (threadIdx.x < kBT) {
     const int t = kt * kBT + threadIdx.x;
@@ -389,9 +405,9 @@ __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
     __syncthreads();  // tile kt is in `buf`; the other buffer is free
     if (nxt < n) {
       load_tile_async<bf16, DH, LD, kMmaThreads>(Ks + (buf ^ 1) * TILE, blk.k,
-                                                 a.sk[2], nxt * kBT, Tn);
+                                                 a.sk[2], nxt * kBT, Tn, dh, vec);
       load_tile_async<bf16, DH, LD, kMmaThreads>(Vs + (buf ^ 1) * TILE, blk.v,
-                                                 a.sv[2], nxt * kBT, Tn);
+                                                 a.sv[2], nxt * kBT, Tn, dh, vec);
     }
     cp_async_commit();
 
@@ -493,11 +509,11 @@ __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
     const int t = qw + g + 8 * r;
     if (t >= Tn) continue;
     const float inv = l[r] == 0.0f ? 1.0f : 1.0f / l[r];
-    bf16* row = blk.o + (long long)t * a.so[2] + c2;
+    bf16* row = blk.o + (long long)t * a.so[2];
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<unsigned*>(row + 8 * d) =
-          pack_bf16x2(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+      store_pair(row, c2 + 8 * d, acc[d][2 * r] * inv,
+                 acc[d][2 * r + 1] * inv, dh, vec);
     if (a.l != nullptr && (lane & 3) == 0) {  // the quad holds both
       a.l[blk.row0 + t] = l[r];
       a.m[blk.row0 + t] = m[r];
@@ -505,44 +521,172 @@ __device__ __forceinline__ void fwd_mma(const FlashArgs& a) {
   }
 }
 
-// --- the kernel and its launch -----------------------------------------------
+// --- head dims past 128: the wide kernel, CUDA cores, float32 math ----------
 
-template <typename T> struct Cfg;
-template <> struct Cfg<float> {
-  static constexpr int kThreads = kF32Threads, kBlocks = 2;
-};
-template <> struct Cfg<bf16> {
-  static constexpr int kThreads = kMmaThreads, kBlocks = 3;
-};
+constexpr int kWideRows = 16;  // query rows of a block: 4 a warp
+constexpr int kWideThreads = 128;
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kBlocks)
-flash_attn_kernel(const FlashArgs a) {
-  if constexpr (std::is_same_v<T, float>) fwd_f32<DH>(a);
-  else fwd_mma<DH>(a);
+size_t wide_smem_bytes() {
+  // the q tile, the k and v tiles, the keys' segment ids
+  return ((size_t)(kWideRows + 2 * kWideKeys) * kWideLd + kWideKeys)
+         * sizeof(float);
 }
 
-template <typename T, int DH>
-int launch(const FlashArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, DH>() + flag_bytes(a.T);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// The forward for dh in 129 .. kWideDh: warp w owns query rows 4 w .. 4 w
+// + 3 of the block's 16; per key tile of 32 (a lane each) the scores over
+// dh in order, the online softmax by warp shuffles, p rounded to v's type
+// (as the library rounds it) and broadcast by shuffles to lanes that own
+// output columns lane + 32 i.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_attn_wide_kernel(const FlashArgs a) {
+  constexpr int CPL = kWideDh / 32;  // output columns of a lane
+  extern __shared__ float4 smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [kWideRows][kWideLd]
+  float* Ks = Qs + kWideRows * kWideLd;            // [kWideKeys][kWideLd]
+  float* Vs = Ks + kWideKeys * kWideLd;            // [kWideKeys][kWideLd]
+  int* segk = reinterpret_cast<int*>(Vs + kWideKeys * kWideLd);
+
+  const Block<T> blk(a);  // its pointers; the rows are the block's own
+  const int q0 = blockIdx.x * kWideRows, Tn = blk.Tn, dh = a.dh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  load_wide<T>(Qs, blk.q, a.sq[2], q0, kWideRows, Tn, dh, kWideThreads);
+  int segq[4];
+  float m[4], l[4], acc[4][CPL];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + 4 * warp + r;
+    segq[r] = t < Tn ? blk.seg[t] : -1;
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) acc[r][i] = 0.0f;
+  }
+  const float* qr = Qs + 4 * warp * kWideLd;
+  for (int k0 = 0; k0 < Tn; k0 += kWideKeys) {
+    __syncthreads();  // the previous tile consumed
+    load_wide<T>(Ks, blk.k, a.sk[2], k0, kWideKeys, Tn, dh, kWideThreads);
+    load_wide<T>(Vs, blk.v, a.sv[2], k0, kWideKeys, Tn, dh, kWideThreads);
+    if (threadIdx.x < kWideKeys) {
+      const int t = k0 + threadIdx.x;
+      segk[threadIdx.x] = t < Tn ? blk.seg[t] : 0;
+    }
+    __syncthreads();
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* kr = Ks + lane * kWideLd;
+    for (int d = 0; d < dh; ++d) {
+      const float kv = kr[d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
+    }
+    const bool key_in = k0 + lane < Tn;
+    const int sk = segk[lane];
+    float pr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float sv = s[r] * a.scale + (segq[r] == sk ? 0.0f : kMaskValue);
+      sv = key_in ? sv : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(sv));
+      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
+      const float p = expf(sv - m_new);
+      l[r] = alpha * l[r] + warp_sum(p);
+      m[r] = m_new;
+      pr[r] = round_to<T>(p);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc[r][i] *= alpha;
+    }
+    // acc += p . v over the tile's keys in order (zero past T)
+    for (int kk = 0; kk < kWideKeys; ++kk) {
+      float pk[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pk[r] = __shfl_sync(0xffffffffu, pr[r], kk);
+      const float* vr = Vs + kk * kWideLd + lane;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const float v = vr[32 * i];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][i] = fmaf(pk[r], v, acc[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + 4 * warp + r;
+    if (t >= Tn) continue;
+    const float inv = l[r] == 0.0f ? 1.0f : 1.0f / l[r];
+    T* row = blk.o + (long long)t * a.so[2];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (lane + 32 * i < dh) row[lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+    if (a.l != nullptr && lane == 0) {
+      a.l[blk.row0 + t] = l[r];
+      a.m[blk.row0 + t] = m[r];
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const FlashArgs& a, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attn_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_attn_kernel<T, DH>,
+  const dim3 grid((a.T + kWideRows - 1) / kWideRows, a.H, a.B);
+  flash_attn_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// --- the kernel and its launch -----------------------------------------------
+
+// threads per block and the blocks per SM the registers are held to (the
+// dh = 128 instances: the shared memory fits one f32 block, two bf16)
+template <typename T, int DH> struct Cfg;
+template <int DH> struct Cfg<float, DH> {
+  static constexpr int kThreads = kF32Threads, kBlocks = DH <= 64 ? 2 : 1;
+};
+template <int DH> struct Cfg<bf16, DH> {
+  static constexpr int kThreads = kMmaThreads, kBlocks = DH <= 64 ? 3 : 2;
+};
+
+template <typename T, int DH, bool kExact>
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, Cfg<T, DH>::kBlocks)
+flash_attn_kernel(const FlashArgs a) {
+  if constexpr (std::is_same_v<T, float>) fwd_f32<DH, kExact>(a);
+  else fwd_mma<DH, kExact>(a);
+}
+
+template <typename T, int DH, bool kExact>
+int launch_form(const FlashArgs& a, cudaStream_t stream) {
+  auto kernel = flash_attn_kernel<T, DH, kExact>;
+  const size_t smem = smem_bytes<T, DH>() + flag_bytes(a.T);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.T + kBT - 1) / kBT, a.H, a.B);
-  flash_attn_kernel<T, DH><<<grid, Cfg<T>::kThreads, smem, stream>>>(a);
+  kernel<<<grid, Cfg<T, DH>::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the instance's own head dim in whole vectors, or any dh below it
+template <typename T, int DH>
+int launch(const FlashArgs& a, cudaStream_t stream) {
+  if (a.dh == DH && a.vec) return launch_form<T, DH, true>(a, stream);
+  return launch_form<T, DH, false>(a, stream);
+}
+
+// the instance of the next head dim up from dh
 template <typename T>
-int launch_dh(const FlashArgs& a, int dh, cudaStream_t stream) {
-  if (dh == 32) return launch<T, 32>(a, stream);
-  if (dh == 64) return launch<T, 64>(a, stream);
-  return kErrHeadDim;
+int launch_dh(const FlashArgs& a, cudaStream_t stream) {
+  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh <= 32) return launch<T, 32>(a, stream);
+  if (a.dh <= 64) return launch<T, 64>(a, stream);
+  if (a.dh <= 128) return launch<T, 128>(a, stream);
+  return launch_wide<T>(a, stream);
 }
 
 }  // namespace
@@ -552,9 +696,8 @@ extern "C" {
 
 // Strides in elements, (batch, head, time) for each of q, k, v, o; l and m
 // both null (inference form) or both (B, H, T) float32 (residual form);
-// dtype 0 float32, 1 bfloat16. Returns 0, kErrHeadDim, kErrDtype,
-// kErrAlignment (q, k or v, or one of their strides, not a multiple of 16
-// bytes), or the launch's cudaError_t.
+// dtype 0 float32, 1 bfloat16; dh in 1 .. 256. Returns 0, kErrHeadDim,
+// kErrDtype, or the launch's cudaError_t.
 int pgasr_flash_attn(const void* q, const void* k, const void* v,
                      const int* seg, void* o, float* l, float* m,
                      long long q_sb, long long q_sh,
@@ -568,21 +711,17 @@ int pgasr_flash_attn(const void* q, const void* k, const void* v,
   if (B > 65535 || H > 65535) return cudaErrorInvalidConfiguration;
   if ((l == nullptr) != (m == nullptr)) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return kErrDtype;
-  const FlashArgs a{q, k, v, seg, o, l, m,
+  FlashArgs a{q, k, v, seg, o, l, m,
                     {q_sb, q_sh, q_st}, {k_sb, k_sh, k_st},
                     {v_sb, v_sh, v_st}, {o_sb, o_sh, o_st},
-                    B, H, T, scale};
-  // q, k and v are read by 16-byte cp.async
-  const long long vec = dtype == 0 ? 4 : 8;  // elements per 16 bytes
+                    B, H, T, scale, dh, 1};
+  // q, k and v by 16-byte cp.async where every row is whole vectors
   const void* in[3] = {q, k, v};
   const long long* st[3] = {a.sq, a.sk, a.sv};
-  for (int i = 0; i < 3; ++i) {
-    if (reinterpret_cast<uintptr_t>(in[i]) % 16 != 0) return kErrAlignment;
-    for (int j = 0; j < 3; ++j)
-      if (st[i][j] % vec != 0) return kErrAlignment;
-  }
-  if (dtype == 0) return launch_dh<float>(a, dh, stream);
-  return launch_dh<bf16>(a, dh, stream);
+  const long long* so[1] = {a.so};
+  a.vec = rows_vectorised(in, st, 3, so, 1, dh, dtype == 0 ? 4 : 8);
+  if (dtype == 0) return launch_dh<float>(a, stream);
+  return launch_dh<bf16>(a, stream);
 }
 
 }  // extern "C"

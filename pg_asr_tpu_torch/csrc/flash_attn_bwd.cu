@@ -13,16 +13,19 @@
 // Their plain version is pg_asr_tpu_torch/ops/flash_attn.py:mhsa_bwd_plain.
 // Contract:
 //   q, k, v, do  (B, H, T, dh) float32 or bfloat16, any (batch, head, time)
-//                strides in elements, the dh axis contiguous; each start
-//                and each of those strides a multiple of 16 bytes (the
-//                launcher copies an input that is not)
+//                strides in elements, the dh axis contiguous; rows of
+//                whole 16-byte vectors are read by 16-byte cp.async, any
+//                others element by element
 //   seg          (B, T) int32, contiguous; query i attends key j iff
 //                seg[b, i] == seg[b, j]
 //   l, m, di     (B, H, T) float32, contiguous: the forward's row sum and
 //                row max (csrc/flash_attn.cu, residual form) and
 //                di = sum(o . do) over dh
-//   dq, dk, dv   (B, H, T, dh) in q's type, strides as given (even)
-//   dh = 32 or 64 (a template parameter); any T >= 1.
+//   dq, dk, dv   (B, H, T, dh) in q's type, strides as given
+//   dh in 1 .. 128, on the instance for 32, 64 or 128 next up, its columns
+//   past dh zero-filled as the tiles load (only the first dh written); dh in
+//   129 .. 256 on the wide kernels (below: CUDA cores, float32 math, p and
+//   ds rounded where the library rounds them); any T >= 1.
 //
 // Numerics, as the Pallas kernels: s = (q . k in float32) * scale plus
 // -0.7 * FLT_MAX where the segments differ; p = exp(s - m) * (1 / l);
@@ -128,15 +131,20 @@ struct FlashBwdArgs {
   long long sq[3], sk[3], sv[3], sdo[3], sdq[3], sdk[3], sdv[3];
   int B, H, T;
   float scale;
+  int dh;   // the head dim: columns dh .. DH - 1 of the instance are zeros
+  int vec;  // q, k, v, do rows read by 16-byte cp.async (else element-wise)
 };
 
-// threads per block and the blocks per SM the registers are held to
-template <typename T> struct Cfg;
-template <> struct Cfg<float> {
-  static constexpr int kThreads = kF32Threads, kDkvBlocks = 2, kDqBlocks = 2;
+// threads per block and the blocks per SM the registers are held to (the
+// dh = 128 instances: one block, dq in bf16 two, for the accumulators)
+template <typename T, int DH> struct Cfg;
+template <int DH> struct Cfg<float, DH> {
+  static constexpr int kThreads = kF32Threads, kDkvBlocks = DH <= 64 ? 2 : 1,
+                       kDqBlocks = DH <= 64 ? 2 : 1;
 };
-template <> struct Cfg<bf16> {
-  static constexpr int kThreads = kMmaThreads, kDkvBlocks = 3, kDqBlocks = 4;
+template <int DH> struct Cfg<bf16, DH> {
+  static constexpr int kThreads = kMmaThreads, kDkvBlocks = DH <= 64 ? 3 : 1,
+                       kDqBlocks = DH <= 64 ? 4 : 2;
 };
 
 template <typename T, int DH>
@@ -211,17 +219,24 @@ __device__ __forceinline__ void tile_dots(float (&acc)[kPer][kPer],
 template <int CPT>
 __device__ __forceinline__ void row_cols(float (&out)[CPT], const float* tile,
                                          int LD, int r, int tx) {
-  if constexpr (CPT == 4) {
-    const float4 w = *reinterpret_cast<const float4*>(&tile[r * LD + 4 * tx]);
-    out[0] = w.x; out[1] = w.y; out[2] = w.z; out[3] = w.w;
+  if constexpr (CPT % 4 == 0) {
+#pragma unroll
+    for (int c4 = 0; c4 < CPT; c4 += 4) {
+      const float4 w =
+          *reinterpret_cast<const float4*>(&tile[r * LD + CPT * tx + c4]);
+      out[c4] = w.x; out[c4 + 1] = w.y; out[c4 + 2] = w.z; out[c4 + 3] = w.w;
+    }
   } else {
     const float2 w = *reinterpret_cast<const float2*>(&tile[r * LD + 2 * tx]);
     out[0] = w.x; out[1] = w.y;
   }
 }
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void dkv_f32(const FlashBwdArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LD = DH + 4, LDP = kBT + 4, CPT = DH / 16;
   extern __shared__ float4 smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
@@ -249,8 +264,8 @@ __device__ __forceinline__ void dkv_f32(const FlashBwdArgs& a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
 
-  load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn);
-  load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn, dh, vec);
+  load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kF32Threads>(kept, seg, k0, Tn);
   int segk[kPer];
@@ -270,8 +285,8 @@ __device__ __forceinline__ void dkv_f32(const FlashBwdArgs& a) {
        qt = next_kept(kept, qt + 1, n)) {
     const int q0 = qt * kBT;
     __syncthreads();  // the previous query tile is consumed
-    load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn);
-    load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn);
+    load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn, dh, vec);
+    load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn, dh, vec);
     cp_async_commit();
     for (int j = threadIdx.x; j < kBT; j += kF32Threads) {
       const int t = q0 + j;
@@ -345,14 +360,19 @@ __device__ __forceinline__ void dkv_f32(const FlashBwdArgs& a) {
     float* dvr = dvp + t * a.sdv[2] + CPT * tx;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      dkr[c] = dk[i][c];
-      dvr[c] = dv[i][c];
+      if (CPT * tx + c < dh) {
+        dkr[c] = dk[i][c];
+        dvr[c] = dv[i][c];
+      }
     }
   }
 }
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LD = DH + 4, LDP = kBT + 4, CPT = DH / 16;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -375,8 +395,8 @@ __device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;
 
-  load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn);
-  load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn);
+  load_tile_async<float, DH, LD, kF32Threads>(Qs, qp, a.sq[2], q0, Tn, dh, vec);
+  load_tile_async<float, DH, LD, kF32Threads>(Ds, dop, a.sdo[2], q0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kF32Threads>(kept, seg, q0, Tn);
   bool q_in[kPer];
@@ -399,8 +419,8 @@ __device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
        kt = next_kept(kept, kt + 1, n)) {
     const int k0 = kt * kBT;
     __syncthreads();  // the previous key tile and ds are consumed
-    load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn);
-    load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn);
+    load_tile_async<float, DH, LD, kF32Threads>(Ks, kp, a.sk[2], k0, Tn, dh, vec);
+    load_tile_async<float, DH, LD, kF32Threads>(Vs, vp, a.sv[2], k0, Tn, dh, vec);
     cp_async_commit();
     for (int j = threadIdx.x; j < kBT; j += kF32Threads)
       segk[j] = k0 + j < Tn ? seg[k0 + j] : 0;
@@ -457,15 +477,19 @@ __device__ __forceinline__ void dq_f32(const FlashBwdArgs& a) {
     if (!q_in[i]) continue;
     float* row = dqp + (long long)(q0 + ty + 16 * i) * a.sdq[2] + CPT * tx;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[c] = dq[i][c];
+    for (int c = 0; c < CPT; ++c)
+      if (CPT * tx + c < dh) row[c] = dq[i][c];
   }
 }
 
 // --- bfloat16: tensor cores -------------------------------------------------
 
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LD = DH + 8, TILE = kBT * LD, NC = kChunk / 8, ND = DH / 8;
   extern __shared__ float4 smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -491,16 +515,16 @@ __device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
 
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], k0, Tn);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], k0, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], k0, Tn, dh, vec);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], k0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kMmaThreads>(kept, seg, k0, Tn);
   __syncthreads();  // the flags
 
   // the first kept query tile into buffer 0 (the key tile meets itself)
   int qt = next_kept(kept, 0, n);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], qt * kBT, Tn);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], qt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], qt * kBT, Tn, dh, vec);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], qt * kBT, Tn, dh, vec);
   cp_async_commit();
   if (threadIdx.x < kBT) {
     const int t = qt * kBT + threadIdx.x;
@@ -542,9 +566,9 @@ __device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {
     __syncthreads();  // tile qt is in `buf`; the other buffer is free
     if (nxt < n) {
       load_tile_async<bf16, DH, LD, kMmaThreads>(Qs + (buf ^ 1) * TILE, qp,
-                                                 a.sq[2], nxt * kBT, Tn);
+                                                 a.sq[2], nxt * kBT, Tn, dh, vec);
       load_tile_async<bf16, DH, LD, kMmaThreads>(Ds + (buf ^ 1) * TILE, dop,
-                                                 a.sdo[2], nxt * kBT, Tn);
+                                                 a.sdo[2], nxt * kBT, Tn, dh, vec);
     }
     cp_async_commit();
 
@@ -652,20 +676,23 @@ __device__ __forceinline__ void dkv_mma(const FlashBwdArgs& a) {
   for (int r = 0; r < 2; ++r) {
     const long long t = kw + g + 8 * r;
     if (t >= Tn) continue;
-    bf16* dkr = dkp + t * a.sdk[2] + c2;
-    bf16* dvr = dvp + t * a.sdv[2] + c2;
+    bf16* dkr = dkp + t * a.sdk[2];
+    bf16* dvr = dvp + t * a.sdv[2];
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      *reinterpret_cast<unsigned*>(dkr + 8 * d) =
-          pack_bf16x2(dk[d][2 * r], dk[d][2 * r + 1]);
-      *reinterpret_cast<unsigned*>(dvr + 8 * d) =
-          pack_bf16x2(dv[d][2 * r], dv[d][2 * r + 1]);
+      store_pair(dkr, c2 + 8 * d, dk[d][2 * r], dk[d][2 * r + 1], dh,
+                 vec);
+      store_pair(dvr, c2 + 8 * d, dv[d][2 * r], dv[d][2 * r + 1], dh,
+                 vec);
     }
   }
 }
 
-template <int DH>
+template <int DH, bool kExact>
 __device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
+  // the instance itself (dh = DH, whole vectors): the checks fold away
+  const int dh = kExact ? DH : a.dh;
+  const bool vec = kExact || a.vec;
   constexpr int LD = DH + 8, TILE = kBT * LD, NC = kChunk / 8, ND = DH / 8;
   extern __shared__ float4 smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -689,8 +716,8 @@ __device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;
 
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], q0, Tn);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], q0, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Qs, qp, a.sq[2], q0, Tn, dh, vec);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ds, dop, a.sdo[2], q0, Tn, dh, vec);
   cp_async_commit();
   tile_flags<kMmaThreads>(kept, seg, q0, Tn);
 
@@ -718,8 +745,8 @@ __device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
 
   // the first kept key tile into buffer 0 (the query tile meets itself)
   int kt = next_kept(kept, 0, n);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], kt * kBT, Tn);
-  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], kt * kBT, Tn);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Ks, kp, a.sk[2], kt * kBT, Tn, dh, vec);
+  load_tile_async<bf16, DH, LD, kMmaThreads>(Vs, vp, a.sv[2], kt * kBT, Tn, dh, vec);
   cp_async_commit();
   if (threadIdx.x < kBT) {
     const int t = kt * kBT + threadIdx.x;
@@ -737,9 +764,9 @@ __device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
     __syncthreads();  // tile kt is in `buf`; the other buffer is free
     if (nxt < n) {
       load_tile_async<bf16, DH, LD, kMmaThreads>(Ks + (buf ^ 1) * TILE, kp,
-                                                 a.sk[2], nxt * kBT, Tn);
+                                                 a.sk[2], nxt * kBT, Tn, dh, vec);
       load_tile_async<bf16, DH, LD, kMmaThreads>(Vs + (buf ^ 1) * TILE, vp,
-                                                 a.sv[2], nxt * kBT, Tn);
+                                                 a.sv[2], nxt * kBT, Tn, dh, vec);
     }
     cp_async_commit();
 
@@ -828,33 +855,254 @@ __device__ __forceinline__ void dq_mma(const FlashBwdArgs& a) {
   for (int r = 0; r < 2; ++r) {
     const long long t = qw + g + 8 * r;
     if (t >= Tn) continue;
-    bf16* row = dqp + t * a.sdq[2] + c2;
+    bf16* row = dqp + t * a.sdq[2];
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<unsigned*>(row + 8 * d) =
-          pack_bf16x2(dq[d][2 * r], dq[d][2 * r + 1]);
+      store_pair(row, c2 + 8 * d, dq[d][2 * r], dq[d][2 * r + 1], dh,
+                 vec);
   }
+}
+
+// --- head dims past 128: the wide kernels, CUDA cores, float32 math ---------
+
+constexpr int kWideRows = 16;         // query rows of a tile
+constexpr int kWideDkvThreads = 256;  // 8 warps: 2 query rows each
+constexpr int kWideDqThreads = 128;   // 4 warps: 4 query rows each
+
+// dkv for dh in 129 .. kWideDh: a block holds 32 keys (k, v) and walks the
+// query tiles of 16 rows. Per row, lane = key: s and dp over dh in order,
+// p and ds (rounded to do's type, as the library rounds them before its
+// products) into shared memory; then thread (key tid / 8, columns tid % 8
+// + 8 i) adds p do and ds q over the tile's rows in order.
+template <typename T>
+__global__ void __launch_bounds__(kWideDkvThreads)
+flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
+  constexpr int CPT = kWideDh / 8;  // columns of a thread's key
+  extern __shared__ float4 smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [kWideKeys][kWideLd]
+  float* Vs = Ks + kWideKeys * kWideLd;
+  float* Qs = Vs + kWideKeys * kWideLd;            // [kWideRows][kWideLd]
+  float* Ds = Qs + kWideRows * kWideLd;            // do
+  float* Ps = Ds + kWideRows * kWideLd;            // [kWideRows][kWideKeys]
+  float* Ss = Ps + kWideRows * kWideKeys;          // ds
+  float* mq = Ss + kWideRows * kWideKeys;
+  float* ilq = mq + kWideRows;
+  float* diq = ilq + kWideRows;
+  int* segq = reinterpret_cast<int*>(diq + kWideRows);
+
+  const int k0 = blockIdx.x * kWideKeys, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Tn = a.T, dh = a.dh;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  T* dkp = static_cast<T*>(a.dk) + b * a.sdk[0] + h * a.sdk[1];
+  T* dvp = static_cast<T*>(a.dv) + b * a.sdv[0] + h * a.sdv[1];
+  const int* seg = a.seg + (long long)b * Tn;
+  const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
+
+  load_wide<T>(Ks, kp, a.sk[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
+  load_wide<T>(Vs, vp, a.sv[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
+  const bool key_in = k0 + lane < Tn;
+  const int segk = key_in ? seg[k0 + lane] : 0;
+  const int ak = threadIdx.x >> 3, c0 = threadIdx.x & 7;
+  float dk[CPT], dv[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) dk[i] = dv[i] = 0.0f;
+
+  for (int q0 = 0; q0 < Tn; q0 += kWideRows) {
+    __syncthreads();  // the previous query tile consumed
+    load_wide<T>(Qs, qp, a.sq[2], q0, kWideRows, Tn, dh, kWideDkvThreads);
+    load_wide<T>(Ds, dop, a.sdo[2], q0, kWideRows, Tn, dh, kWideDkvThreads);
+    if (threadIdx.x < kWideRows) {
+      const int t = q0 + threadIdx.x;
+      const bool in = t < Tn;
+      mq[threadIdx.x] = in ? a.m[row0 + t] : 0.0f;
+      ilq[threadIdx.x] = in ? 1.0f / a.l[row0 + t] : 0.0f;
+      diq[threadIdx.x] = in ? a.di[row0 + t] : 0.0f;
+      segq[threadIdx.x] = in ? seg[t] : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = 2 * warp + rr;
+      const float* qr = Qs + r * kWideLd;
+      const float* dr = Ds + r * kWideLd;
+      const float* kr = Ks + lane * kWideLd;
+      const float* vr = Vs + lane * kWideLd;
+      float s = 0.0f, dp = 0.0f;
+      for (int d = 0; d < dh; ++d) {
+        s = fmaf(qr[d], kr[d], s);
+        dp = fmaf(dr[d], vr[d], dp);
+      }
+      float p = 0.0f, ds = 0.0f;
+      if (q0 + r < Tn && key_in) {
+        float sv = s * a.scale + (segq[r] == segk ? 0.0f : kMaskValue);
+        p = expf(sv - mq[r]) * ilq[r];
+        ds = (dp - diq[r]) * p * a.scale;
+      }
+      Ps[r * kWideKeys + lane] = round_to<T>(p);
+      Ss[r * kWideKeys + lane] = round_to<T>(ds);
+    }
+    __syncthreads();
+    const int qn = min(kWideRows, Tn - q0);
+    for (int r = 0; r < qn; ++r) {
+      const float p = Ps[r * kWideKeys + ak], ds = Ss[r * kWideKeys + ak];
+      const float* dr = Ds + r * kWideLd + c0;
+      const float* qr = Qs + r * kWideLd + c0;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        dv[i] = fmaf(p, dr[8 * i], dv[i]);
+        dk[i] = fmaf(ds, qr[8 * i], dk[i]);
+      }
+    }
+  }
+  if (k0 + ak < Tn) {
+    const long long t = k0 + ak;
+    T* dkr = dkp + t * a.sdk[2];
+    T* dvr = dvp + t * a.sdv[2];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int d = c0 + 8 * i;
+      if (d < dh) {
+        dkr[d] = from_f32<T>(dk[i]);
+        dvr[d] = from_f32<T>(dv[i]);
+      }
+    }
+  }
+}
+
+// dq for dh in 129 .. kWideDh: a block holds 16 query rows (q, do; 4 a
+// warp) and walks the key tiles of 32 (lane = key): s and dp over dh in
+// order, ds rounded to k's type, broadcast by shuffles to the lanes that
+// own dq's columns lane + 32 i, added over the keys in order.
+template <typename T>
+__global__ void __launch_bounds__(kWideDqThreads)
+flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
+  constexpr int CPL = kWideDh / 32;
+  extern __shared__ float4 smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [kWideRows][kWideLd]
+  float* Ds = Qs + kWideRows * kWideLd;
+  float* Ks = Ds + kWideRows * kWideLd;            // [kWideKeys][kWideLd]
+  float* Vs = Ks + kWideKeys * kWideLd;
+  int* segk = reinterpret_cast<int*>(Vs + kWideKeys * kWideLd);
+
+  const int q0 = blockIdx.x * kWideRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Tn = a.T, dh = a.dh;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  T* dqp = static_cast<T*>(a.dq) + b * a.sdq[0] + h * a.sdq[1];
+  const int* seg = a.seg + (long long)b * Tn;
+  const long long row0 = ((long long)b * a.H + h) * Tn;
+
+  load_wide<T>(Qs, qp, a.sq[2], q0, kWideRows, Tn, dh, kWideDqThreads);
+  load_wide<T>(Ds, dop, a.sdo[2], q0, kWideRows, Tn, dh, kWideDqThreads);
+  float mr[4], ilr[4], dir[4], dq[4][CPL];
+  int segr[4];
+  bool row_in[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + 4 * warp + r;
+    row_in[r] = t < Tn;
+    mr[r] = row_in[r] ? a.m[row0 + t] : 0.0f;
+    ilr[r] = row_in[r] ? 1.0f / a.l[row0 + t] : 0.0f;
+    dir[r] = row_in[r] ? a.di[row0 + t] : 0.0f;
+    segr[r] = row_in[r] ? seg[t] : 0;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) dq[r][i] = 0.0f;
+  }
+  const float* qr = Qs + 4 * warp * kWideLd;
+  const float* dr = Ds + 4 * warp * kWideLd;
+  for (int k0 = 0; k0 < Tn; k0 += kWideKeys) {
+    __syncthreads();  // the previous key tile consumed
+    load_wide<T>(Ks, kp, a.sk[2], k0, kWideKeys, Tn, dh, kWideDqThreads);
+    load_wide<T>(Vs, vp, a.sv[2], k0, kWideKeys, Tn, dh, kWideDqThreads);
+    if (threadIdx.x < kWideKeys) {
+      const int t = k0 + threadIdx.x;
+      segk[threadIdx.x] = t < Tn ? seg[t] : 0;
+    }
+    __syncthreads();
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* kr = Ks + lane * kWideLd;
+    const float* vr = Vs + lane * kWideLd;
+    for (int d = 0; d < dh; ++d) {
+      const float kv = kr[d], vv = vr[d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
+        dp[r] = fmaf(dr[r * kWideLd + d], vv, dp[r]);
+      }
+    }
+    const bool key_in = k0 + lane < Tn;
+    const int sk = segk[lane];
+    float dsr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float ds = 0.0f;
+      if (row_in[r] && key_in) {
+        const float sv = s[r] * a.scale + (segr[r] == sk ? 0.0f : kMaskValue);
+        const float p = expf(sv - mr[r]) * ilr[r];
+        ds = (dp[r] - dir[r]) * p * a.scale;
+      }
+      dsr[r] = round_to<T>(ds);
+    }
+    for (int kk = 0; kk < kWideKeys; ++kk) {
+      float dk_[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dk_[r] = __shfl_sync(0xffffffffu, dsr[r], kk);
+      const float* kc = Ks + kk * kWideLd + lane;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const float kv = kc[32 * i];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dq[r][i] = fmaf(dk_[r], kv, dq[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (!row_in[r]) continue;
+    T* row = dqp + (long long)(q0 + 4 * warp + r) * a.sdq[2];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (lane + 32 * i < dh) row[lane + 32 * i] = from_f32<T>(dq[r][i]);
+  }
+}
+
+size_t wide_dkv_smem_bytes() {
+  return ((size_t)(2 * kWideKeys + 2 * kWideRows) * kWideLd
+          + (size_t)2 * kWideRows * kWideKeys + (size_t)4 * kWideRows)
+         * sizeof(float);
+}
+size_t wide_dq_smem_bytes() {
+  return ((size_t)(2 * kWideRows + 2 * kWideKeys) * kWideLd + kWideKeys)
+         * sizeof(float);
 }
 
 // --- the two kernels and their launches --------------------------------------
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kDkvBlocks)
+template <typename T, int DH, bool kExact>
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, Cfg<T, DH>::kDkvBlocks)
 flash_attn_bwd_dkv_kernel(const FlashBwdArgs a) {
-  if constexpr (std::is_same_v<T, float>) dkv_f32<DH>(a);
-  else dkv_mma<DH>(a);
+  if constexpr (std::is_same_v<T, float>) dkv_f32<DH, kExact>(a);
+  else dkv_mma<DH, kExact>(a);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kDqBlocks)
+template <typename T, int DH, bool kExact>
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, Cfg<T, DH>::kDqBlocks)
 flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
-  if constexpr (std::is_same_v<T, float>) dq_f32<DH>(a);
-  else dq_mma<DH>(a);
+  if constexpr (std::is_same_v<T, float>) dq_f32<DH, kExact>(a);
+  else dq_mma<DH, kExact>(a);
 }
 
+// the kernel over (tiles of `rows` along T, heads, batch rows)
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, const FlashBwdArgs& a,
-           cudaStream_t stream) {
+           cudaStream_t stream, int rows = kBT) {
   smem += flag_bytes(a.T);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -863,38 +1111,56 @@ int launch(Kernel kernel, int threads, size_t smem, const FlashBwdArgs& a,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.T + kBT - 1) / kBT, a.H, a.B);
+  const dim3 grid((a.T + rows - 1) / rows, a.H, a.B);
   kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_dkv(const FlashBwdArgs& a, int dh, cudaStream_t stream) {
-  if (dh == 32)
-    return launch(flash_attn_bwd_dkv_kernel<T, 32>, Cfg<T>::kThreads,
-                  dkv_smem_bytes<T, 32>(), a, stream);
-  if (dh == 64)
-    return launch(flash_attn_bwd_dkv_kernel<T, 64>, Cfg<T>::kThreads,
-                  dkv_smem_bytes<T, 64>(), a, stream);
-  return kErrHeadDim;
+// the instance of the next head dim up from dh (its own head dim in whole
+// vectors: the exact form)
+template <typename T, int DH>
+int launch_dkv_dh(const FlashBwdArgs& a, cudaStream_t stream) {
+  if (a.dh == DH && a.vec)
+    return launch(flash_attn_bwd_dkv_kernel<T, DH, true>,
+                  Cfg<T, DH>::kThreads, dkv_smem_bytes<T, DH>(), a, stream);
+  return launch(flash_attn_bwd_dkv_kernel<T, DH, false>, Cfg<T, DH>::kThreads,
+                dkv_smem_bytes<T, DH>(), a, stream);
+}
+
+template <typename T, int DH>
+int launch_dq_dh(const FlashBwdArgs& a, cudaStream_t stream) {
+  if (a.dh == DH && a.vec)
+    return launch(flash_attn_bwd_dq_kernel<T, DH, true>, Cfg<T, DH>::kThreads,
+                  dq_smem_bytes<T, DH>(), a, stream);
+  return launch(flash_attn_bwd_dq_kernel<T, DH, false>, Cfg<T, DH>::kThreads,
+                dq_smem_bytes<T, DH>(), a, stream);
 }
 
 template <typename T>
-int launch_dq(const FlashBwdArgs& a, int dh, cudaStream_t stream) {
-  if (dh == 32)
-    return launch(flash_attn_bwd_dq_kernel<T, 32>, Cfg<T>::kThreads,
-                  dq_smem_bytes<T, 32>(), a, stream);
-  if (dh == 64)
-    return launch(flash_attn_bwd_dq_kernel<T, 64>, Cfg<T>::kThreads,
-                  dq_smem_bytes<T, 64>(), a, stream);
-  return kErrHeadDim;
+int launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
+  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh <= 32) return launch_dkv_dh<T, 32>(a, stream);
+  if (a.dh <= 64) return launch_dkv_dh<T, 64>(a, stream);
+  if (a.dh <= 128) return launch_dkv_dh<T, 128>(a, stream);
+  return launch(flash_attn_bwd_dkv_wide<T>, kWideDkvThreads,
+                wide_dkv_smem_bytes(), a, stream, kWideKeys);
+}
+
+template <typename T>
+int launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
+  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh <= 32) return launch_dq_dh<T, 32>(a, stream);
+  if (a.dh <= 64) return launch_dq_dh<T, 64>(a, stream);
+  if (a.dh <= 128) return launch_dq_dh<T, 128>(a, stream);
+  return launch(flash_attn_bwd_dq_wide<T>, kWideDqThreads,
+                wide_dq_smem_bytes(), a, stream, kWideRows);
 }
 
 int make_args(FlashBwdArgs* a, const void* q, const void* k, const void* v,
               const void* dout, const int* seg, const float* l,
               const float* m, const float* di, void* dq, void* dk, void* dv,
-              const long long* strides, int B, int H, int T, float scale,
-              int dtype) {
+              const long long* strides, int B, int H, int T, int dh,
+              float scale, int dtype) {
   if (B < 1 || H < 1 || T < 1) return cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return cudaErrorInvalidConfiguration;
   if (dtype != 0 && dtype != 1) return kErrDtype;
@@ -902,14 +1168,12 @@ int make_args(FlashBwdArgs* a, const void* q, const void* k, const void* v,
   long long* dst[7] = {a->sq, a->sk, a->sv, a->sdo, a->sdq, a->sdk, a->sdv};
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
-  // the inputs are read by 16-byte cp.async
-  const long long vec = dtype == 0 ? 4 : 8;  // elements per 16 bytes
+  // the inputs by 16-byte cp.async where every row is whole vectors
   const void* in[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    if (reinterpret_cast<uintptr_t>(in[i]) % 16 != 0) return kErrAlignment;
-    for (int j = 0; j < 3; ++j)
-      if (strides[3 * i + j] % vec != 0) return kErrAlignment;
-  }
+  const long long* st[4] = {a->sq, a->sk, a->sv, a->sdo};
+  const long long* so[3] = {a->sdq, a->sdk, a->sdv};
+  a->vec = rows_vectorised(in, st, 4, so, 3, dh, dtype == 0 ? 4 : 8);
+  a->dh = dh;
   a->B = B;
   a->H = H;
   a->T = T;
@@ -924,9 +1188,8 @@ extern "C" {
 
 // `strides`: 21 (batch, head, time) strides in elements, of q, k, v, do,
 // dq, dk, dv in that order (the output not computed may be anything);
-// dtype 0 float32, 1 bfloat16. Each returns 0, kErrHeadDim, kErrDtype,
-// kErrAlignment (an input or its stride not a multiple of 16 bytes), or
-// the launch's cudaError_t.
+// dtype 0 float32, 1 bfloat16; dh in 1 .. 256. Each returns 0,
+// kErrHeadDim, kErrDtype, or the launch's cudaError_t.
 int pgasr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const int* seg, const float* l,
                              const float* m, const float* di, void* dk,
@@ -936,10 +1199,10 @@ int pgasr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   using namespace pgasr;
   FlashBwdArgs a;
   const int rc = make_args(&a, q, k, v, dout, seg, l, m, di, nullptr, dk, dv,
-                           strides, B, H, T, scale, dtype);
+                           strides, B, H, T, dh, scale, dtype);
   if (rc != 0) return rc;
-  if (dtype == 0) return launch_dkv<float>(a, dh, stream);
-  return launch_dkv<__nv_bfloat16>(a, dh, stream);
+  if (dtype == 0) return launch_dkv<float>(a, stream);
+  return launch_dkv<__nv_bfloat16>(a, stream);
 }
 
 int pgasr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -951,10 +1214,10 @@ int pgasr_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   using namespace pgasr;
   FlashBwdArgs a;
   const int rc = make_args(&a, q, k, v, dout, seg, l, m, di, dq, nullptr,
-                           nullptr, strides, B, H, T, scale, dtype);
+                           nullptr, strides, B, H, T, dh, scale, dtype);
   if (rc != 0) return rc;
-  if (dtype == 0) return launch_dq<float>(a, dh, stream);
-  return launch_dq<__nv_bfloat16>(a, dh, stream);
+  if (dtype == 0) return launch_dq<float>(a, stream);
+  return launch_dq<__nv_bfloat16>(a, stream);
 }
 
 }  // extern "C"

@@ -56,7 +56,9 @@ namespace pgasr {
 namespace {
 
 using joint::Args;
+using joint::kJC;
 using joint::kUT;
+using joint::kVC;
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -439,8 +441,299 @@ __global__ void joint_bwd_reduce_w(const float* dw_part, const float* db_part,
   }
 }
 
-// cells of a tile: the most of 128, 64, 32 whose shared memory fits (0 if
-// none does)
+// ---------------------------------------------------------------------------
+// The chunked form: any A and J (joint.cuh's tile, NC = 64 cells). A block
+// per (u-tile, utterance) walks every frame, as above. Per tile, pass 1
+// carries the logsumexp over the vocab chunks; pass 2 recomputes each
+// chunk's z, forms its dz in place and, per J piece, adds h^T dz to the
+// block's dW partial and dz . W^T (1 - h^2) of the chunk to de (per frame)
+// and dg (per row). These sums live in the float32 scratch, each element
+// owned by one thread of one block (read, added, written back by it in a
+// fixed order): dg final in the block, de one partial per u-tile, dW and
+// db one per block, added by the same two reductions.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkNC = 64;
+constexpr int kChunkCPL = 4;  // a lane's cells in the z product
+
+struct ChunkedArgs {
+  const float* gb;  // (B, T, U+1)
+  const float* gy;  // (B, T, U)
+  float* de_part;   // [nU][B][T][J]
+  float* dw_part;   // [blocks][J][ap]
+  float* db_part;   // [blocks][ap]
+  float* dg_acc;    // [B][U+1][J]
+  void* dg;         // (B, U+1, J), the output
+};
+
+struct ChunkedSizes {
+  int nU, ap;
+  long long blocks, de, dw, db, dg;
+};
+
+ChunkedSizes chunked_sizes(int B, int T, int U, int J, int A) {
+  ChunkedSizes s;
+  s.nU = joint::u_tiles(U);
+  s.ap = joint::chunks(A) * kVC;
+  s.blocks = (long long)s.nU * B;
+  s.de = (long long)s.nU * B * T * J;
+  s.dw = s.blocks * J * s.ap;
+  s.db = s.blocks * s.ap;
+  s.dg = (long long)B * (U + 1) * J;
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(joint::kThreads, 1)
+joint_bwd_chunked_kernel(const Args a, const ChunkedArgs o) {
+  constexpr int NC = kChunkNC, F = NC / kUT;
+  const joint::TileSmem L(NC, kChunkCPL, true);
+  const int ldh = L.ldh;
+  extern __shared__ float4 smem_raw[];
+  float* hs = reinterpret_cast<float*>(smem_raw);  // [kJC][ldh]
+  float* ws = hs + L.w;                            // [kJC][kVC]
+  float* zs = hs + L.z;                            // [NKS][kVC][ldh]
+  float* bs = hs + L.bias;                         // [kVC]
+  float* wts = hs + L.wt;                          // [kVC][kLdwt]
+  float* ds = hs + L.d;                            // [kJC][ldh]
+  const int J = a.J, U1 = a.U + 1, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ut = blockIdx.x, b = blockIdx.y, u0 = ut * kUT;
+  const int nch = joint::chunks(a.A), np = joint::pieces(J);
+  const int ap = nch * kVC;
+  const bool resident = nch == 1 && np == 1;
+  const long long blk = (long long)b * gridDim.x + ut;
+  joint::CellPair cp = joint::CellPair::make<NC>();
+  const int u = u0 + cp.cell % kUT;
+  const int y = cp.on && u < a.U ? a.labels[(long long)b * a.U + u] : -1;
+
+  float gr[kUT];
+  if (np == 1) joint::load_g<T>(gr, a, b, u0, tid);
+  if (resident) joint::stage_w<T>(ws, wts, bs, a, 0, 0);
+  // z of chunk c into zs: h staged where `stage_first` asks it of piece 0
+  // or where J takes pieces
+  auto chunk_z = [&](int c, int t0, bool stage_first) {
+    float acc[kChunkCPL][4] = {};
+    for (int p = 0; p < np; ++p) {
+      const int j0 = p * kJC;
+      __syncthreads();
+      if (np > 1 || stage_first) {
+        if (np > 1) joint::load_g<T>(gr, a, b, u0, j0 + tid);
+        joint::stage_h<T, NC>(hs, a, b, t0, j0, gr);
+      }
+      if (!resident) joint::stage_w<T>(ws, wts, bs, a, j0, c * kVC);
+      __syncthreads();
+      joint::z_product<NC, kChunkCPL>(acc, hs, ws, min(kJC, J - j0));
+    }
+    joint::store_z<NC, kChunkCPL>(zs, acc);
+    __syncthreads();
+  };
+
+  for (int t0 = 0; t0 < a.T; t0 += F) {
+    const bool first = t0 == 0;
+    // pass 1: the logsumexp of each cell over all chunks
+    cp.m = -INFINITY;
+    cp.s = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      chunk_z(c, t0, c == 0);
+      if (cp.on) cp.fold<NC, kChunkCPL>(zs, bs, c * kVC, a.A);
+    }
+    const int t = t0 + cp.cell / kUT;
+    const bool in = cp.on && t < a.T && u < U1;
+    float gbv = 0.0f, gyv = 0.0f;
+    if (in) {
+      const long long row = (long long)b * a.T + t;
+      gbv = o.gb[row * U1 + u];
+      gyv = u < a.U ? o.gy[row * a.U + u] : 0.0f;
+    }
+    const float both = (gbv + gyv) / cp.s;
+
+    // pass 2, per chunk: z again, dz in place of z (slice 0), db, then per
+    // J piece dW, dpre, de and dg
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * kVC;
+      chunk_z(c, t0, false);
+      if (cp.on) {
+        for (int k = 16 * cp.half; k < 16 * cp.half + 16; ++k) {
+          float dz = 0.0f;
+          if (in && c0 + k < a.A) {
+            const float ex =
+                expf(joint::z_at<NC, kChunkCPL>(zs, bs, k, cp.cell) - cp.m);
+            dz = (c0 + k == 0 ? gbv : 0.0f) + (c0 + k == y ? gyv : 0.0f)
+                 - both * ex;
+          }
+          zs[(size_t)k * ldh + cp.cell] = dz;
+        }
+      }
+      __syncthreads();
+      if (tid < kVC) {  // db of column c0 + tid, over the cells in order
+        float s = 0.0f;
+        for (int q = 0; q < NC; ++q) s += zs[(size_t)tid * ldh + q];
+        float* d = o.db_part + blk * ap + c0 + tid;
+        *d = first ? s : *d + s;
+      }
+      for (int p = 0; p < np; ++p) {
+        const int j0 = p * kJC;
+        __syncthreads();  // the previous piece's dpre summed
+        if (np > 1) {
+          joint::load_g<T>(gr, a, b, u0, j0 + tid);
+          joint::stage_h<T, NC>(hs, a, b, t0, j0, gr);
+        }
+        if (!resident) joint::stage_w<T>(ws, wts, bs, a, j0, c0);
+        __syncthreads();
+        // dW += h^T dz: warp `warp` vocab columns 4 warp .., a lane the
+        // columns j0 + lane + 32 i, over the cells in order
+        {
+          float dw[kJC / 32][4] = {};
+          for (int q = 0; q < NC / 4; ++q) {
+            float dz[4][4];  // [vocab][cell]
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  zs + (size_t)(4 * warp + k) * ldh + 4 * q);
+              dz[k][0] = v.x; dz[k][1] = v.y; dz[k][2] = v.z; dz[k][3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < kJC / 32; ++i) {
+              const float4 h = *reinterpret_cast<const float4*>(
+                  hs + (size_t)(lane + 32 * i) * ldh + 4 * q);
+              const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  dw[i][k] = fmaf(hv[cc], dz[k][cc], dw[i][k]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kJC / 32; ++i) {
+            const int j = j0 + lane + 32 * i;
+            if (j < J) {
+              float4* d = reinterpret_cast<float4*>(
+                  o.dw_part + (blk * J + j) * ap + c0 + 4 * warp);
+              float4 v = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+              if (!first) {
+                const float4 old = *d;
+                v.x += old.x; v.y += old.y; v.z += old.z; v.w += old.w;
+              }
+              *d = v;
+            }
+          }
+        }
+        // dpre = (dz . W^T) (1 - h^2) of this chunk into ds: a lane the
+        // columns lane + 32 i, a warp 4 cells at a time, over the chunk's
+        // vocab columns in order
+        for (int q0 = 4 * warp; q0 < NC; q0 += 4 * (joint::kThreads / 32)) {
+          float acc[kJC / 32][4] = {};
+          const int nk = min(kVC, a.A - c0);
+          for (int k = 0; k < nk; ++k) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(zs + (size_t)k * ldh + q0);
+            const float dz[4] = {v.x, v.y, v.z, v.w};
+            const float* wr = wts + (size_t)k * joint::kLdwt + lane;
+#pragma unroll
+            for (int i = 0; i < kJC / 32; ++i) {
+              const float w = wr[32 * i];
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+                acc[i][cc] = fmaf(dz[cc], w, acc[i][cc]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kJC / 32; ++i) {
+            const size_t r = (size_t)(lane + 32 * i) * ldh + q0;
+            const float4 h = *reinterpret_cast<const float4*>(hs + r);
+            *reinterpret_cast<float4*>(ds + r) =
+                make_float4(acc[i][0] * (1.0f - h.x * h.x),
+                            acc[i][1] * (1.0f - h.y * h.y),
+                            acc[i][2] * (1.0f - h.z * h.z),
+                            acc[i][3] * (1.0f - h.w * h.w));
+          }
+        }
+        __syncthreads();
+        // column j of dpre -> de of each frame (over the 32 rows in order)
+        // and dg of each row (over the frames in order)
+        const int j = j0 + tid;
+        if (j < J) {
+          const float* col = ds + (size_t)tid * ldh;
+          float dgl[kUT] = {};
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            float de = 0.0f;
+#pragma unroll
+            for (int r = 0; r < kUT; ++r) {
+              const float v = col[kUT * f + r];
+              de += v;
+              dgl[r] += v;
+            }
+            if (t0 + f < a.T) {
+              float* d = o.de_part +
+                         (((long long)ut * a.B + b) * a.T + t0 + f) * J + j;
+              *d = c == 0 ? de : *d + de;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kUT; ++r) {
+            if (u0 + r < U1) {
+              float* d = o.dg_acc + ((long long)b * U1 + u0 + r) * J + j;
+              *d = first && c == 0 ? dgl[r] : *d + dgl[r];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // dg is final: this block walked every frame of rows u0 ..
+  T* dgo = static_cast<T*>(o.dg);
+  for (int j = tid; j < J; j += joint::kThreads)
+    for (int r = 0; r < kUT && u0 + r < U1; ++r) {
+      const long long i = ((long long)b * U1 + u0 + r) * J + j;
+      dgo[i] = from_f32<T>(o.dg_acc[i]);
+    }
+}
+
+// the two reductions of the partials: de over the u-tiles, dW and db over
+// the blocks (`ap` the partials' vocab stride)
+template <typename T>
+int reduce(const Args& a, const float* de_part, const float* dw_part,
+           const float* db_part, int nU, long long blocks, int ap, void* de,
+           void* dW, void* db, cudaStream_t stream) {
+  const long long n_de = (long long)a.B * a.T * a.J;
+  const long long de_blocks = (n_de + 255) / 256;
+  joint_bwd_reduce_de<T><<<(unsigned)(de_blocks < 4096 ? de_blocks : 4096),
+                           256, 0, stream>>>(de_part, n_de, nU,
+                                             static_cast<T*>(de));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long warps = (long long)a.J * a.A + a.A;
+  joint_bwd_reduce_w<T><<<(unsigned)((warps + 7) / 8), 256, 0, stream>>>(
+      dw_part, db_part, blocks, a.J, a.A, ap, static_cast<T*>(dW),
+      static_cast<T*>(db));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_chunked(const Args& a, const float* gb, const float* gy,
+                   float* scratch, void* de, void* dg, void* dW, void* db,
+                   cudaStream_t stream) {
+  const size_t smem =
+      joint::TileSmem(kChunkNC, kChunkCPL, true).total * sizeof(float);
+  const int rc = joint::prepare_smem(joint_bwd_chunked_kernel<T>, smem);
+  if (rc != 0) return rc;
+  const ChunkedSizes s = chunked_sizes(a.B, a.T, a.U, a.J, a.A);
+  const ChunkedArgs o{gb, gy, scratch, scratch + s.de, scratch + s.de + s.dw,
+                      scratch + s.de + s.dw + s.db, dg};
+  joint_bwd_chunked_kernel<T><<<dim3(s.nU, a.B), joint::kThreads, smem,
+                                stream>>>(a, o);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return reduce<T>(a, o.de_part, o.dw_part, o.db_part, s.nU, s.blocks, s.ap,
+                   de, dW, db, stream);
+}
+
+// cells of a tile of the resident form: the most of 128, 64, 32 whose
+// shared memory fits (0 if none does)
 int tile_cells(int J, int A, int smem_max) {
   for (int nc : {128, 64, 32})
     if (BwdSmem(J, A, nc).total * sizeof(float) <= (size_t)smem_max)
@@ -448,15 +741,20 @@ int tile_cells(int J, int A, int smem_max) {
   return 0;
 }
 
+// the resident form takes A <= 32 and J <= 512 where its tile fits; every
+// other shape runs the chunked form
+bool resident_form(int J, int A) {
+  int smem_max = 0;
+  if (A > kVC || J > kMaxJ || smem_optin(&smem_max) != 0) return false;
+  return tile_cells(J, A, smem_max) > 0;
+}
+
 template <typename T, int JT>
 int launch(const Args& a, const float* gb, const float* gy, float* scratch,
            void* de, void* dg, void* dW, void* db, cudaStream_t stream) {
-  int dev = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
+  int smem_max = 0;
+  const int e = smem_optin(&smem_max);
+  if (e != 0) return e;
   const int nc = tile_cells(a.J, a.A, smem_max);
   if (nc == 0) return kErrSharedMemory;
   const size_t smem = BwdSmem(a.J, a.A, nc).total * sizeof(float);
@@ -466,30 +764,20 @@ int launch(const Args& a, const float* gb, const float* gy, float* scratch,
   const BwdArgs o{gb, gy, scratch, scratch + s.de, scratch + s.de + s.dw, dg};
   joint_bwd_kernel<T, JT><<<dim3(s.nU, a.B), kBwdThreads, smem, stream>>>(
       a, o, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const long long n_de = (long long)a.B * a.T * a.J;
-  const long long de_blocks = (n_de + 255) / 256;
-  joint_bwd_reduce_de<T><<<(unsigned)(de_blocks < 4096 ? de_blocks : 4096),
-                           256, 0, stream>>>(o.de_part, n_de, s.nU,
-                                             static_cast<T*>(de));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const long long warps = (long long)a.J * a.A + a.A;
-  joint_bwd_reduce_w<T><<<(unsigned)((warps + 7) / 8), 256, 0, stream>>>(
-      o.dw_part, o.db_part, s.blocks, a.J, a.A, (a.A + 3) / 4 * 4,
-      static_cast<T*>(dW), static_cast<T*>(db));
-  return cudaGetLastError();
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess) return le;
+  return reduce<T>(a, o.de_part, o.dw_part, o.db_part, s.nU, s.blocks,
+                   (a.A + 3) / 4 * 4, de, dW, db, stream);
 }
 
 template <typename T>
 int dispatch(const Args& a, const float* gb, const float* gy, float* scratch,
              void* de, void* dg, void* dW, void* db, cudaStream_t stream) {
+  if (!resident_form(a.J, a.A))
+    return launch_chunked<T>(a, gb, gy, scratch, de, dg, dW, db, stream);
   if (a.J <= 256)
     return launch<T, 1>(a, gb, gy, scratch, de, dg, dW, db, stream);
-  if (a.J <= kMaxJ)
-    return launch<T, 2>(a, gb, gy, scratch, de, dg, dW, db, stream);
-  return kErrSharedMemory;
+  return launch<T, 2>(a, gb, gy, scratch, de, dg, dW, db, stream);
 }
 
 }  // namespace
@@ -497,18 +785,19 @@ int dispatch(const Args& a, const float* gb, const float* gy, float* scratch,
 
 extern "C" {
 
-// Floats of float32 scratch that pgasr_joint_bwd needs (0 for a vocab size
-// it does not take).
+// Floats of float32 scratch that pgasr_joint_bwd needs.
 long long pgasr_joint_bwd_scratch_floats(int B, int T, int U, int J, int A) {
   using namespace pgasr;
-  if (joint::padded_vocab(A) == 0) return 0;
+  if (!resident_form(J, A)) {
+    const ChunkedSizes s = chunked_sizes(B, T, U, J, A);
+    return s.de + s.dw + s.db + s.dg;
+  }
   const Sizes s = sizes(B, T, U, J, A);
   return s.de + s.dw + s.db;
 }
 
 // dtype 0 float32, 1 bfloat16 (of e, g, W, bias and the outputs). Returns
-// 0, kErrVocab, kErrSharedMemory (J above 512, or a tile that does not
-// fit), kErrDtype or a launch's cudaError_t.
+// 0, kErrSharedMemory, kErrDtype or a launch's cudaError_t.
 int pgasr_joint_bwd(const void* e, const void* g, const void* W,
                     const void* bias, const int* labels, const float* gb,
                     const float* gy, float* scratch, void* de, void* dg,

@@ -73,6 +73,11 @@
 //   dU: hprev^T @ dxp over all (t, b), float32, the same two kernels,
 //     split over ranges of the pairs into partials that lstm_bwd_reduce
 //     adds in order.
+// Above H = 512 (up to kMaxH = 1024, clusters of 16) U's own columns do
+// not fit a block's shared memory: the block writes them transposed into
+// the scratch (UT, 4H x H float32) before the walk and the partial dh
+// reads them from L2, coalesced over the threads' units, two units a
+// thread where H is above the block's 512 threads.
 // (Recomputing the gates inside the walk, even on half the block beside
 // the partial dh, and summing dU there, R deep per step, kept the call at
 // 3.6 ms: both products are issue-bound at 8 rows per block; see PERF.md.)
@@ -97,43 +102,60 @@ __host__ __device__ inline int dh_parts(int H) {
 }
 
 // shared memory of a block, in floats: U's own columns (H x LDU; LDU / 4
-// odd, so that lanes reading 16 bytes of different rows do not conflict),
-// dpre_mx of the own columns (kRows x 4 NJmax), two buffers of the partial
-// dh halves (parts x kRows x H)
+// odd, so that lanes reading 16 bytes of different rows do not conflict;
+// none where the walk reads them from L2), dpre_mx of the own columns
+// (kRows x 4 NJmax), two buffers of the partial dh halves (parts x kRows x
+// H)
 struct Smem {
   int ldu, nj4;
   size_t dps, pdh, total;
-  __host__ __device__ Smem(int H, int njmax)
-      : ldu(4 * (njmax | 1)), nj4(4 * njmax), dps((size_t)H * ldu),
-        pdh(dps + (size_t)kRows * nj4),
+  __host__ __device__ Smem(int H, int njmax, bool u_l2)
+      : ldu(4 * (njmax | 1)), nj4(4 * njmax),
+        dps(u_l2 ? 0 : (size_t)H * ldu), pdh(dps + (size_t)kRows * nj4),
         total(pdh + (size_t)2 * dh_parts(H) * kRows * H) {}
 };
 
-template <typename T>
+// kUL2: U's own columns do not fit the block's shared memory (H above
+// 512 and beyond): the block writes them transposed, UT[g H + u0 + jj][k]
+// = U[k][g H + u0 + jj], into the float32 scratch `ut` (4H x H) before the
+// walk, and each step's partial dh reads them from L2, coalesced over the
+// threads' units k.
+template <typename T, bool kUL2>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
                 const float* __restrict__ mask,
                 const float* __restrict__ cprev, const T* __restrict__ gy,
-                const float* __restrict__ G, T* __restrict__ dxp, int B,
-                int T_len, int H, int reverse, int CS, int rows) {
+                const float* __restrict__ G, T* __restrict__ dxp,
+                float* __restrict__ ut, int B, int T_len, int H, int reverse,
+                int CS, int rows) {
   const int H4 = 4 * H;
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterShare P(H, B, CS, rows, (int)cluster.block_rank());
   const int njmax = P.njmax, nj = P.nj, u0 = P.u0, b0 = P.b0;
   const int nrows = P.nrows;  // rows of this cluster, >= 1
   const int parts = dh_parts(H);
-  const Smem L(H, njmax);
+  const Smem L(H, njmax, kUL2);
   extern __shared__ float4 smem_raw[];
   float* us = reinterpret_cast<float*>(smem_raw);
   float* dps = us + L.dps;
   float* pdh = us + L.pdh;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < H * L.ldu; i += kThreads) {
-    const int k = i / L.ldu, c = i - k * L.ldu;
-    const int jj = c >> 2, g = c & 3;
-    us[i] = jj < nj ? to_f32<T>(U[(size_t)k * H4 + (size_t)g * H + u0 + jj])
-                    : 0.0f;
+  if constexpr (kUL2) {
+    for (int i = tid; i < 4 * nj * H; i += kThreads) {
+      const int c = i / H, k = i - c * H;  // c = g nj + jj
+      const int g = c / nj, jj = c - g * nj;
+      ut[((size_t)g * H + u0 + jj) * H + k] =
+          to_f32<T>(U[(size_t)k * H4 + (size_t)g * H + u0 + jj]);
+    }
+  } else {
+    for (int i = tid; i < H * L.ldu; i += kThreads) {
+      const int k = i / L.ldu, c = i - k * L.ldu;
+      const int jj = c >> 2, g = c & 3;
+      us[i] = jj < nj
+                  ? to_f32<T>(U[(size_t)k * H4 + (size_t)g * H + u0 + jj])
+                  : 0.0f;
+    }
   }
   for (int i = tid; i < kRows * L.nj4; i += kThreads) dps[i] = 0.0f;
 
@@ -142,10 +164,21 @@ lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
   const bool cell = cr < nrows && cj < nj;
   const int cb = b0 + cr, cu = u0 + cj;
   float dh = 0.0f, dc = 0.0f;
-  // the partial-dh thread: unit ck, half cp of the block's units
-  const int ck = tid % H, cp = tid / H;
-  const int cj_lo = cp * nj / parts, cj_hi = (cp + 1) * nj / parts;
 
+  // the partial-dh items of this thread: (unit ck, half cp) = (e % H, e /
+  // H) for e = tid (and tid + kThreads where H is above kThreads)
+  constexpr int kItems = kUL2 ? 2 : 1;
+  int ck[kItems], cp[kItems], cj_lo[kItems], cj_hi[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = tid + i * kThreads;
+    ck[i] = e % H;
+    cp[i] = e / H;  // parts or more: no item
+    cj_lo[i] = cp[i] * nj / parts;
+    cj_hi[i] = (cp[i] + 1) * nj / parts;
+  }
+
+  if constexpr (kUL2) __syncthreads();  // this block's UT rows written
   cluster.sync();  // every block of the cluster runs before any remote read
 
   for (int s = 0; s < T_len; ++s) {
@@ -210,14 +243,22 @@ lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
 
     // partial dh of unit ck over half cp of the block's columns, for the
     // cluster's rows: dpre_mx[r, cols] . U[ck, cols]
-    if (cp < parts) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (cp[i] >= parts) continue;
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
 #pragma unroll 4
-      for (int jj = cj_lo; jj < cj_hi; ++jj) {
-        const float4 u =
-            *reinterpret_cast<const float4*>(us + ck * L.ldu + 4 * jj);
+      for (int jj = cj_lo[i]; jj < cj_hi[i]; ++jj) {
+        float4 u;
+        if constexpr (kUL2) {
+          const float* uc = ut + (size_t)(u0 + jj) * H + ck[i];
+          u = make_float4(uc[0], uc[(size_t)H * H], uc[(size_t)2 * H * H],
+                          uc[(size_t)3 * H * H]);
+        } else {
+          u = *reinterpret_cast<const float4*>(us + ck[i] * L.ldu + 4 * jj);
+        }
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           if (r < nrows) {
@@ -231,7 +272,7 @@ lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ U,
         }
       }
       float* out = pdh + (size_t)(s & 1) * parts * kRows * H
-                   + (size_t)cp * kRows * H + ck;
+                   + (size_t)cp[i] * kRows * H + ck[i];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         if (r < nrows) out[r * H] = acc[r];
@@ -515,25 +556,36 @@ int du_splits(int B, int T_len, int H) {
   return max(1, min(512 / tiles, (B * T_len) / 1024));
 }
 
-// float32 scratch of a call: G (T B x 4H), then the dU partials
-size_t scratch_floats(int B, int T_len, int H) {
-  return ((size_t)T_len * B + (size_t)du_splits(B, T_len, H) * H) * 4 * H;
-}
-
-size_t smem_bytes(int H, int cs) {
-  return Smem(H, (H + cs - 1) / cs).total * sizeof(float);
+size_t smem_bytes(int H, int cs, bool u_l2) {
+  return Smem(H, (H + cs - 1) / cs, u_l2).total * sizeof(float);
 }
 
 // The walk's plan (plan_clusters): clusters of 8 blocks, or 16 where U's
 // slice does not fit at 8, a thread per (row, unit) of a block.
-template <typename T>
+template <typename T, bool kUL2>
 int plan(int B, int H, ClusterPlan* p) {
-  return plan_clusters(lstm_bwd_kernel<T>, B, H, true,
+  return plan_clusters(lstm_bwd_kernel<T, kUL2>, B, H, true,
                        [H](int cs, int* threads, size_t* smem) {
                          *threads = kThreads;
-                         *smem = smem_bytes(H, cs);
+                         *smem = smem_bytes(H, cs, kUL2);
                          return (H + cs - 1) / cs * kRows <= kThreads;
                        }, p);
+}
+
+// whether the walk of type T reads U from L2: no cluster of the
+// shared-memory form fits (1), or it does (0), or an error
+template <typename T>
+int u_from_l2(int B, int H) {
+  ClusterPlan p;
+  const int rc = plan<T, false>(B, H, &p);
+  return rc == kErrNoCluster ? 1 : rc;
+}
+
+// float32 scratch of a call: G (T B x 4H), then the dU partials, then (the
+// walk reading U from L2) UT (4H x H)
+size_t scratch_floats(int B, int T_len, int H, bool u_l2) {
+  return ((size_t)T_len * B + (size_t)du_splits(B, T_len, H) * H
+          + (u_l2 ? (size_t)H : 0)) * 4 * H;
 }
 
 template <typename T>
@@ -546,13 +598,18 @@ int dispatch(const void* xp_v, const void* U_v, const float* mask,
   const T* hprev = static_cast<const T*>(hprev_v);
   const T* gy = static_cast<const T*>(gy_v);
   T* dxp = static_cast<T*>(dxp_v);
+  const int l2 = u_from_l2<T>(B, H);
+  if (l2 < 0 || l2 > 1) return l2;
   ClusterPlan p;
-  int rc = plan<T>(B, H, &p);
+  int rc = l2 ? plan<T, true>(B, H, &p) : plan<T, false>(B, H, &p);
   if (rc != 0) return rc;
-  if (scratch_floats(B, T_len, H) > n_scratch) return cudaErrorInvalidValue;
+  if (scratch_floats(B, T_len, H, l2) > n_scratch)
+    return cudaErrorInvalidValue;
   const int H4 = 4 * H, BT = B * T_len;
+  const int splits = du_splits(B, T_len, H);
   float* G = scratch;
   float* part = scratch + (size_t)BT * H4;
+  float* ut = part + (size_t)splits * H * H4;
   const dim3 g_grid((H4 + kTile - 1) / kTile, (BT + kTile - 1) / kTile);
   if constexpr (std::is_same_v<T, float>)
     lstm_bwd_gemm<T, kGates><<<g_grid, 256, 0, stream>>>(hprev, U, B, T_len,
@@ -564,12 +621,16 @@ int dispatch(const void* xp_v, const void* U_v, const float* mask,
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(&attr, p, stream);
-  e = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<T>, xp, U, mask, cprev, gy,
-                         static_cast<const float*>(G), dxp, B, T_len, H,
-                         reverse, p.cs, p.rows);
+  if (l2)
+    e = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<T, true>, xp, U, mask,
+                           cprev, gy, static_cast<const float*>(G), dxp, ut,
+                           B, T_len, H, reverse, p.cs, p.rows);
+  else
+    e = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<T, false>, xp, U, mask,
+                           cprev, gy, static_cast<const float*>(G), dxp, ut,
+                           B, T_len, H, reverse, p.cs, p.rows);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int splits = du_splits(B, T_len, H);
   const dim3 d_grid((H4 + kTile - 1) / kTile, (H + kTile - 1) / kTile,
                     splits);
   const int per = (BT + splits - 1) / splits;
@@ -591,12 +652,15 @@ int dispatch(const void* xp_v, const void* U_v, const float* mask,
 
 extern "C" {
 
-// *floats = the float32 scratch a launch of lstm_bwd at (B, T, H) needs.
-// Returns 0 or kErrUnsupportedH.
+// *floats = the float32 scratch a launch of lstm_bwd at (B, T, H) needs
+// (in either type). Returns 0, kErrUnsupportedH or a cudaError_t.
 int pgasr_lstm_bwd_scratch(int B, int T_len, int H, long long* floats) {
   *floats = 0;
   if (H < 1 || H > kMaxH) return kErrUnsupportedH;
-  *floats = (long long)scratch_floats(B, T_len, H);
+  const int f = u_from_l2<float>(B, H), h = u_from_l2<__nv_bfloat16>(B, H);
+  if (f < 0 || f > 1) return f;
+  if (h < 0 || h > 1) return h;
+  *floats = (long long)scratch_floats(B, T_len, H, f || h);
   return 0;
 }
 

@@ -47,7 +47,7 @@
 // needed every block's h_{t-1}, so no block reaches step t + 1 (and
 // overwrites the buffer of h_{t-1}) before every block's product of step t
 // is done.
-//   float32 (lstm_fwd_f32, CUDA cores): U's columns in shared memory,
+//   float32 (lstm_fwd_cc, CUDA cores): U's columns in shared memory,
 //     unit-major (column 4 jj + g is U[:, g H + u0 + jj]). Thread (slice
 //     pk of k, unit pj) forms R rows x 4 gates over its slice of k, in
 //     order of k (one 16-byte load of U and one or two broadcast loads of
@@ -69,6 +69,14 @@
 //     the cell updates, row 2c and row 2c + 1, carries in registers. h is
 //     rounded to bf16 once, where it is written (the Pallas body's
 //     h.astype(U.dtype)); bf16 products are exact and the sums float32.
+//   H above 512 (up to kMaxH = 1024: clusters of 16 blocks of 64 units):
+//     U's slice no longer fits a block's shared memory (f32 from H ~ 416
+//     on) nor 16 warps' registers (bf16), so both types take the CUDA-core
+//     walk with U's gate columns read from L2 on every step (lstm_fwd_cc
+//     with kUL2; f32 U at H = 1024 is 16 MB, inside the 50 MB L2), one
+//     coalesced load per gate over the block's units; bfloat16 rounds h to
+//     bf16 where it is written, so its products are the tensor-core walk's
+//     (exact, float32 sums in another order).
 
 #include <cooperative_groups.h>
 
@@ -192,28 +200,36 @@ struct Exchange {
   }
 };
 
-// float32 shared memory, in floats: the two barriers (4 floats), U's own
-// columns [H][ldu] (ldu = 4 njmax, unit-major: column 4 jj + g is U[:, g H
-// + u0 + jj]), two buffers of h [H][kRows], the partial gate sums
-// [ks][R][ldu] (room for R = kRows)
+// CUDA-core shared memory, in floats: the two barriers (4 floats), U's
+// own columns [H][ldu] (ldu = 4 njmax, unit-major: column 4 jj + g is U[:,
+// g H + u0 + jj]; none where the walk reads U from L2), two buffers of h
+// [H][kRows], the partial gate sums [ks][R][ldu] (room for R = kRows)
 struct F32Smem {
   int ldu, ks;
   size_t u, h, p, total;
-  __host__ __device__ F32Smem(int H, int njmax)
-      : ldu(4 * njmax), ks(kF32Threads / njmax), u(4), h(u + (size_t)H * ldu),
-        p(h + (size_t)2 * H * kRows), total(p + (size_t)ks * kRows * ldu) {}
+  __host__ __device__ F32Smem(int H, int njmax, bool u_l2)
+      : ldu(4 * njmax), ks(kF32Threads / njmax), u(4),
+        h(u + (u_l2 ? 0 : (size_t)H * ldu)), p(h + (size_t)2 * H * kRows),
+        total(p + (size_t)ks * kRows * ldu) {}
 };
 
-template <int R>
+// The walk on the CUDA cores, float32 products: xp, U, out and hprev of
+// type T (float32, or bfloat16 where U's A fragments do not fit the tensor
+// -core walk's registers: bf16 products are exact in float32, and h is
+// rounded to bf16 where it is written, as the Pallas body's
+// h.astype(U.dtype)). kUL2: U's columns are read from L2 on every step
+// (coalesced over the block's units, one gate at a time) where their
+// slice does not fit the block's shared memory.
+template <typename T, int R, bool kUL2>
 __global__ void __launch_bounds__(kF32Threads, 1)
-lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
-             const float* __restrict__ mask, float* __restrict__ out,
-             float* __restrict__ hprev, float* __restrict__ cprev, int B,
-             int T_len, int H, int reverse, int CS) {
+lstm_fwd_cc(const T* __restrict__ xp, const T* __restrict__ U,
+            const float* __restrict__ mask, T* __restrict__ out,
+            T* __restrict__ hprev, float* __restrict__ cprev, int B,
+            int T_len, int H, int reverse, int CS) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const ClusterShare P(H, B, CS, R, (int)rank);
-  const F32Smem L(H, P.njmax);
+  const F32Smem L(H, P.njmax, kUL2);
   const int H4 = 4 * H, tid = threadIdx.x;
   extern __shared__ float4 smem_raw[];
   float* us = reinterpret_cast<float*>(smem_raw) + L.u;  // [H][ldu]
@@ -223,10 +239,14 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
              (unsigned)((H - P.nj) * kRows * sizeof(float)), T_len);
   const unsigned slice_bytes = (unsigned)(P.nj * kRows * sizeof(float));
 
-  for (int i = tid; i < H * L.ldu; i += kF32Threads) {
-    const int k = i / L.ldu, c = i - k * L.ldu;
-    const int jj = c >> 2, g = c & 3;
-    us[i] = jj < P.nj ? U[(size_t)k * H4 + (size_t)g * H + P.u0 + jj] : 0.0f;
+  if constexpr (!kUL2) {
+    for (int i = tid; i < H * L.ldu; i += kF32Threads) {
+      const int k = i / L.ldu, c = i - k * L.ldu;
+      const int jj = c >> 2, g = c & 3;
+      us[i] = jj < P.nj
+                  ? to_f32<T>(U[(size_t)k * H4 + (size_t)g * H + P.u0 + jj])
+                  : 0.0f;
+    }
   }
   // the product thread: unit pj, k = k_lo .. k_lo + nk - 1
   const int pj = tid % P.njmax, pk = tid / P.njmax;
@@ -234,6 +254,9 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
   const int k_lo = pk < L.ks ? min(H, pk * kl) : H;
   const int nk = min(H, k_lo + kl) - k_lo;
   const float* ub = us + (size_t)k_lo * L.ldu + 4 * pj;
+  // kUL2: U[k][g H + u0 + pj], zero for an absent unit
+  const bool u_ok = pj < P.nj;
+  const T* ug = U + (size_t)k_lo * H4 + P.u0 + (u_ok ? pj : 0);
   for (int i = tid; i < 2 * H * kRows; i += kF32Threads) hs[i] = 0.0f;
 
   // the cell threads: slot e is (row cr, unit cj), i = tid + e kF32Threads;
@@ -259,9 +282,9 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
       for (int g = 0; g < 4; ++g) xn[e][g] = 0.0f;
       if (cell[e]) {
         const size_t bt = (size_t)(P.b0 + cr[e]) * T_len + t;
-        const float* xrow = xp + bt * H4 + P.u0 + cj[e];
+        const T* xrow = xp + bt * H4 + P.u0 + cj[e];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) xn[e][g] = xrow[g * H];
+        for (int g = 0; g < 4; ++g) xn[e][g] = to_f32<T>(xrow[g * H]);
         mn[e] = mask[bt];
       }
     }
@@ -289,8 +312,15 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
         for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
 #pragma unroll 4
       for (int i = 0; i < nk; ++i) {  // k = k_lo + i
-        const float4 u =
-            *reinterpret_cast<const float4*>(ub + (size_t)i * L.ldu);
+        float4 u;
+        if constexpr (kUL2) {
+          const T* ur = ug + (size_t)i * H4;
+          u = u_ok ? make_float4(to_f32<T>(ur[0]), to_f32<T>(ur[H]),
+                                 to_f32<T>(ur[2 * H]), to_f32<T>(ur[3 * H]))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          u = *reinterpret_cast<const float4*>(ub + (size_t)i * L.ldu);
+        }
         const float4 h0 = *reinterpret_cast<const float4*>(hb + i * kRows);
         float hv[8] = {h0.x, h0.y, h0.z, h0.w, 0.0f, 0.0f, 0.0f, 0.0f};
         if constexpr (R > 4) {
@@ -344,7 +374,8 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
         cc[e] = valid ? c_new : c_old[e];
         hc[e] = valid ? h_new : h_old[e];
         y[e] = h_new * m[e];
-        if (push) hn[(size_t)(P.u0 + cj[e]) * kRows + cr[e]] = hc[e];
+        if (push)  // h.astype(U.dtype)
+          hn[(size_t)(P.u0 + cj[e]) * kRows + cr[e]] = round_to<T>(hc[e]);
       }
     }
     if (push) {
@@ -358,10 +389,10 @@ lstm_fwd_f32(const float* __restrict__ xp, const float* __restrict__ U,
     for (int e = 0; e < 2; ++e) {
       if (cell[e]) {
         const int b = P.b0 + cr[e], u = P.u0 + cj[e];
-        out[((size_t)b * T_len + t) * H + u] = y[e];
+        out[((size_t)b * T_len + t) * H + u] = from_f32<T>(y[e]);
         if (hprev != nullptr) {
           const size_t r = ((size_t)t * B + b) * H + u;
-          hprev[r] = h_old[e];
+          hprev[r] = from_f32<T>(h_old[e]);
           cprev[r] = c_old[e];
         }
       }
@@ -564,11 +595,11 @@ lstm_fwd_bf16(const bf16* __restrict__ xp, const bf16* __restrict__ U,
   }
 }
 
-template <int R>
-int launch_f32(const ClusterPlan& p, const float* xp, const float* U,
-               const float* mask, float* out, float* hprev, float* cprev,
-               int B, int T_len, int H, int reverse, cudaStream_t stream) {
-  auto kernel = lstm_fwd_f32<R>;
+template <typename T, int R, bool kUL2>
+int launch_cc(const ClusterPlan& p, const T* xp, const T* U,
+              const float* mask, T* out, T* hprev, float* cprev, int B,
+              int T_len, int H, int reverse, cudaStream_t stream) {
+  auto kernel = lstm_fwd_cc<T, R, kUL2>;
   int rc = set_cluster_attrs(kernel, p.cs, p.smem);
   if (rc != 0) return rc;
   cudaLaunchAttribute attr;
@@ -579,26 +610,44 @@ int launch_f32(const ClusterPlan& p, const float* xp, const float* U,
   return e;
 }
 
-int dispatch_f32(const float* xp, const float* U, const float* mask,
-                 float* out, float* hprev, float* cprev, int B, int T_len,
-                 int H, int reverse, cudaStream_t stream) {
+// The CUDA-core walk with U's columns in shared memory, else (no cluster
+// of it fits) read from L2. A block's cells are R rows x its units, two a
+// thread: njmax R <= 2 x 256.
+template <typename T, bool kUL2>
+int dispatch_cc_form(const T* xp, const T* U, const float* mask, T* out,
+                     T* hprev, float* cprev, int B, int T_len, int H,
+                     int reverse, cudaStream_t stream) {
   ClusterPlan p;
-  int rc = plan_clusters(lstm_fwd_f32<kRows>, B, H, true,
+  int rc = plan_clusters(lstm_fwd_cc<T, kRows, kUL2>, B, H, true,
                          [H](int cs, int* threads, size_t* smem) {
-                           const F32Smem L(H, (H + cs - 1) / cs);
+                           const int njmax = (H + cs - 1) / cs;
+                           const F32Smem L(H, njmax, kUL2);
                            *threads = kF32Threads;
                            *smem = L.total * sizeof(float);
-                           return L.ks > 0;
+                           return L.ks > 0 &&
+                                  njmax * kRows <= 2 * kF32Threads;
                          }, &p);
   if (rc != 0) return rc;
-  using Launch = int (*)(const ClusterPlan&, const float*, const float*,
-                         const float*, float*, float*, float*, int, int, int,
-                         int, cudaStream_t);
+  using Launch = int (*)(const ClusterPlan&, const T*, const T*,
+                         const float*, T*, T*, float*, int, int, int, int,
+                         cudaStream_t);
   static constexpr Launch kLaunch[kRows] = {
-      launch_f32<1>, launch_f32<2>, launch_f32<3>, launch_f32<4>,
-      launch_f32<5>, launch_f32<6>, launch_f32<7>, launch_f32<8>};
+      launch_cc<T, 1, kUL2>, launch_cc<T, 2, kUL2>, launch_cc<T, 3, kUL2>,
+      launch_cc<T, 4, kUL2>, launch_cc<T, 5, kUL2>, launch_cc<T, 6, kUL2>,
+      launch_cc<T, 7, kUL2>, launch_cc<T, 8, kUL2>};
   return kLaunch[p.rows - 1](p, xp, U, mask, out, hprev, cprev, B, T_len, H,
                              reverse, stream);
+}
+
+template <typename T>
+int dispatch_cc(const T* xp, const T* U, const float* mask, T* out,
+                T* hprev, float* cprev, int B, int T_len, int H, int reverse,
+                cudaStream_t stream) {
+  const int rc = dispatch_cc_form<T, false>(xp, U, mask, out, hprev, cprev,
+                                            B, T_len, H, reverse, stream);
+  if (rc != kErrNoCluster) return rc;
+  return dispatch_cc_form<T, true>(xp, U, mask, out, hprev, cprev, B, T_len,
+                                   H, reverse, stream);
 }
 
 template <int kWarps>
@@ -630,11 +679,16 @@ int launch_bf16(const bf16* xp, const bf16* U, const float* mask, bf16* out,
 int dispatch_bf16(const bf16* xp, const bf16* U, const float* mask,
                   bf16* out, bf16* hprev, float* cprev, int B, int T_len,
                   int H, int reverse, cudaStream_t stream) {
-  const int rc = launch_bf16<kBf16Warps>(xp, U, mask, out, hprev, cprev, B,
-                                         T_len, H, reverse, stream);
+  int rc = launch_bf16<kBf16Warps>(xp, U, mask, out, hprev, cprev, B, T_len,
+                                   H, reverse, stream);
   if (rc != kErrNoCluster) return rc;
-  return launch_bf16<kBf16MaxWarps>(xp, U, mask, out, hprev, cprev, B, T_len,
-                                    H, reverse, stream);
+  rc = launch_bf16<kBf16MaxWarps>(xp, U, mask, out, hprev, cprev, B, T_len, H,
+                                  reverse, stream);
+  if (rc != kErrNoCluster) return rc;
+  // U's fragments do not fit 16 warps' registers (H above 512): the
+  // CUDA-core walk
+  return dispatch_cc<bf16>(xp, U, mask, out, hprev, cprev, B, T_len, H,
+                           reverse, stream);
 }
 
 }  // namespace
@@ -644,7 +698,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (xp, U, out and hprev share it).
 // hprev/cprev null: the inference form; both set: the residual form.
 // Returns 0, a cudaError_t value, or kErrUnsupportedH (H outside 1 ..
-// 512), kErrNoCluster or kErrDtype (common.cuh).
+// kMaxH), kErrNoCluster or kErrDtype (common.cuh).
 int pgasr_lstm_fwd(const void* xp, const void* U, const void* mask,
                    void* out, void* hprev, void* cprev, int B, int T_len,
                    int H, int reverse, int dtype, void* stream) {
@@ -653,10 +707,11 @@ int pgasr_lstm_fwd(const void* xp, const void* U, const void* mask,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((hprev == nullptr) != (cprev == nullptr)) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_f32(static_cast<const float*>(xp),
-                        static_cast<const float*>(U), m,
-                        static_cast<float*>(out), static_cast<float*>(hprev),
-                        cp, B, T_len, H, reverse, s);
+    return dispatch_cc<float>(static_cast<const float*>(xp),
+                              static_cast<const float*>(U), m,
+                              static_cast<float*>(out),
+                              static_cast<float*>(hprev), cp, B, T_len, H,
+                              reverse, s);
   if (dtype == 1)
     return dispatch_bf16(static_cast<const bf16*>(xp),
                          static_cast<const bf16*>(U), m,

@@ -21,13 +21,9 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["LAUNCHES", "MAX_A", "MAX_K", "MAX_M", "BeamScan", "ctc_beam_cuda"]
+__all__ = ["LAUNCHES", "BeamScan", "ctc_beam_cuda"]
 
 LAUNCHES = 0
-# the kernel's range (csrc/ctc_beam.cu kMaxK, kMaxM, kMaxA): beam slots are
-# bits of one 32-bit mask, and the candidate and log-prob rows live in
-# static shared memory
-MAX_K, MAX_M, MAX_A = 32, 64, 1024
 _ERR_RANGE = -5  # csrc/common.cuh kErrBeamRange
 _declared = False
 
@@ -64,9 +60,10 @@ def ctc_beam_cuda(log_probs: torch.Tensor, frame_lens: torch.Tensor, K: int,
                   M: int, Lmax: int, blank: int = 0,
                   nbest: bool = False) -> BeamScan:
     """Launch ctc_beam on (B, T, A) float32 log-probs and (B,) int32 frame
-    lengths, both contiguous on one CUDA device: beam K in [1, MAX_K],
-    top-M symbols per frame in [2, min(A, MAX_M)], A <= MAX_A, labels cut
-    at Lmax in [1, T]. Raises on anything else."""
+    lengths, both contiguous on one CUDA device: any beam K >= 1, top-M
+    symbols per frame in [1, A], labels cut at Lmax in [1, T]. Raises on
+    anything else (and where the block form's K (1 + M) candidates do not
+    fit its shared memory)."""
     global LAUNCHES
     if log_probs.device.type != "cuda":
         raise ValueError(f"ctc_beam needs CUDA tensors, got "
@@ -86,13 +83,11 @@ def ctc_beam_cuda(log_probs: torch.Tensor, frame_lens: torch.Tensor, K: int,
                          f"{tuple(frame_lens.shape)}")
     if not (log_probs.is_contiguous() and frame_lens.is_contiguous()):
         raise ValueError("log_probs and frame_lens must be contiguous")
-    if not (1 <= K <= MAX_K and 2 <= M <= min(A, MAX_M) and A <= MAX_A
-            and 1 <= Lmax <= T and 0 <= blank < A):
+    if not (K >= 1 and 1 <= M <= A and 1 <= Lmax <= T and 0 <= blank < A):
         raise ValueError(
-            f"ctc_beam supports beam K in [1, {MAX_K}], top-M in [2, "
-            f"min(A, {MAX_M})], A <= {MAX_A}, Lmax in [1, T] and a blank "
-            f"in [0, A); got K={K}, M={M}, A={A}, Lmax={Lmax}, T={T}, "
-            f"blank={blank}")
+            f"ctc_beam takes a beam K >= 1, top-M in [1, A], Lmax in [1, T] "
+            f"and a blank in [0, A); got K={K}, M={M}, A={A}, Lmax={Lmax}, "
+            f"T={T}, blank={blank}")
     NB = K if nbest else 1
     dev = log_probs.device
 
@@ -109,7 +104,8 @@ def ctc_beam_cuda(log_probs: torch.Tensor, frame_lens: torch.Tensor, K: int,
                                 *(t.data_ptr() for t in out), B, T, A, K, M,
                                 Lmax, blank, NB, stream)
     if rc != 0:
-        msg = ("arguments outside the kernel's range" if rc == _ERR_RANGE
+        msg = ("the block form's candidates do not fit its shared memory"
+               if rc == _ERR_RANGE
                else lib.pgasr_cuda_error_string(rc).decode())
         raise RuntimeError(f"ctc_beam kernel (B={B}, T={T}, A={A}, K={K}, "
                            f"M={M}): {msg}")

@@ -32,7 +32,7 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "RES_LAUNCHES", "DKV_LAUNCHES",
+__all__ = ["MAX_HEAD_DIM", "LAUNCHES", "RES_LAUNCHES", "DKV_LAUNCHES",
            "DQ_LAUNCHES", "flash_attn_cuda", "flash_attn_bwd_dkv_cuda",
            "flash_attn_bwd_dq_cuda"]
 
@@ -40,10 +40,12 @@ LAUNCHES = 0
 RES_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_LAUNCHES = 0
-HEAD_DIMS = (32, 64)  # the kernels' template instances
+# head dims 1 .. 128 run on the kernels' instances for 32, 64 and 128 (the
+# next one up, its columns past dh zero-filled as the tiles load), 129 ..
+# 256 on the wide kernels
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_HEAD_DIM = -6  # csrc/common.cuh kErrHeadDim
-_ERR_ALIGNMENT = -8  # csrc/common.cuh kErrAlignment
 _declared = False
 
 
@@ -85,8 +87,9 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, T, dh = q.shape
     if 0 in q.shape:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{name} supports head dims {HEAD_DIMS}, got {dh}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} supports head dims 1 .. {MAX_HEAD_DIM}, "
+                         f"got {dh}")
     if tuple(valid_mask.shape) != (B, T):
         raise ValueError(f"valid_mask must be ({B}, {T}), got "
                          f"{tuple(valid_mask.shape)}")
@@ -94,12 +97,15 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself if 16-byte cp.async can read its rows (dh axis contiguous,
-    address and (batch, head, time) strides multiples of 16 bytes), else a
-    contiguous copy, which is."""
+    """t itself if its dh axis is contiguous and, where dh is whole 16-byte
+    vectors, 16-byte cp.async can read its rows (address and (batch, head,
+    time) strides multiples of 16 bytes); else a contiguous copy. The
+    kernels read the rows of any other dh element by element."""
     vec = 16 // t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in t.stride()[:3])):
+    if t.stride(-1) == 1 and (
+            t.shape[-1] % vec != 0
+            or (t.data_ptr() % 16 == 0
+                and all(s % vec == 0 for s in t.stride()[:3]))):
         return t
     return t.contiguous()
 
@@ -114,7 +120,6 @@ def _out(q: torch.Tensor) -> torch.Tensor:
 def _raise_on(rc: int, lib, name: str, q: torch.Tensor) -> None:
     if rc != 0:
         msg = ("head dim not supported" if rc == _ERR_HEAD_DIM
-               else "inputs not 16-byte aligned" if rc == _ERR_ALIGNMENT
                else lib.pgasr_cuda_error_string(rc).decode())
         B, H, T, dh = q.shape
         raise RuntimeError(f"{name} kernel (B={B}, H={H}, T={T}, dh={dh}, "
@@ -125,7 +130,7 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: torch.Tensor, sm_scale: float,
                     residuals: bool = False):
     """Launch flash_attn: q, k, v (B, H, T, dh) float32 or bfloat16 on one
-    CUDA device, dh in HEAD_DIMS, valid_mask (B, T) -> the (B, H, T, dh)
+    CUDA device, dh in 1 .. MAX_HEAD_DIM, valid_mask (B, T) -> the (B, H, T, dh)
     context in q's type; with ``residuals`` -> (o, l, m), l and m (B, H, T)
     float32 (the row sum and max). Raises on anything else."""
     global LAUNCHES, RES_LAUNCHES

@@ -21,15 +21,12 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["FWD_LAUNCHES", "BWD_LAUNCHES", "MAX_VOCAB", "joint_fwd_cuda",
-           "joint_bwd_cuda"]
+__all__ = ["FWD_LAUNCHES", "BWD_LAUNCHES", "joint_fwd_cuda", "joint_bwd_cuda"]
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
-MAX_VOCAB = 32  # the kernels keep a cell's logits in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {-3: "shared memory: the joint dim is too large for the tiles",
-           -7: f"vocab size outside 1 .. {MAX_VOCAB}"}
+_ERRORS = {-3: "shared memory: the card cannot hold the kernel's tile"}
 _declared = False
 
 
@@ -72,12 +69,9 @@ def _check(name: str, e, g, W, bias, labels):
         raise ValueError(f"shapes disagree: e {tuple(e.shape)}, g "
                          f"{tuple(g.shape)}, W {tuple(W.shape)}, bias "
                          f"{tuple(bias.shape)}, labels {tuple(labels.shape)}")
-    if min(B, T, J) < 1 or U < 0:
+    if min(B, T, J, A) < 1 or U < 0:
         raise ValueError(f"empty joint input e {tuple(e.shape)}, g "
-                         f"{tuple(g.shape)}")
-    if not 1 <= A <= MAX_VOCAB:
-        raise ValueError(f"{name} supports vocab sizes 1 .. {MAX_VOCAB}, "
-                         f"got {A}")
+                         f"{tuple(g.shape)}, W {tuple(W.shape)}")
     if any(not t.is_contiguous() for t in (e, g, W, bias)):
         raise ValueError("e, g, W and bias must be contiguous")
     return (B, T, U, J, A), labels.to(torch.int32).contiguous()

@@ -38,7 +38,7 @@ BI_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
-    -1: "hidden size H not supported: lstm_fwd and lstm_bwd take H <= 512; "
+    -1: "hidden size H not supported: lstm_fwd and lstm_bwd take H <= 1024; "
         "the fused directions hold 1, 2 or 4 hidden units per SM's block "
         "(bilstm_*: 2H <= #SMs, or H even and <= #SMs, or H a multiple of 4 "
         "and <= 2 x #SMs; bilstm_bwd also H <= 512)",

@@ -49,7 +49,7 @@ from .ops.transducer import transducer_loss_terms
 from .utils.logging import StepLogger
 
 _MOE = ("the switch-MoE transformer (transformer.num_experts > 0, --model "
-        "moe; ROADMAP.md queue 1 item 14)")
+        "moe; ROADMAP.md queue 1 item 15)")
 
 
 def init_model_params(cfg: Config, generator: torch.Generator,

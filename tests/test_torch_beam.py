@@ -83,7 +83,9 @@ def _assert_scan_equal(got, want):
 
 
 @pytest.mark.parametrize("prune", [None, 4, 6])
-@pytest.mark.parametrize("T,S,K", [(6, 4, 4), (13, 5, 8), (20, 8, 16)])
+# beams wider than a warp's 32 lanes (the kernel's block form) over A=40
+@pytest.mark.parametrize("T,S,K", [(6, 4, 4), (13, 5, 8), (20, 8, 16),
+                                   (12, 40, 33), (10, 40, 40)])
 def test_scan_hash_matches_jax(T, S, K, prune):
     rng = np.random.default_rng(T * 7 + S)
     lp, fl = _log_probs(rng, 5, T, S), _frame_lens(rng, 5, T)
@@ -171,6 +173,25 @@ def test_beam_decode_nbest_matches_jax():
     top = tb.beam_decode(torch.from_numpy(lp), torch.from_numpy(fl),
                          beam_size=K, max_label_len=T + 2, prune=None)
     np.testing.assert_array_equal(got[0][:, 0], top[0].numpy())
+
+
+@pytest.mark.parametrize("K", [33, 40])
+def test_beam_decode_wide_beams_match_jax(K):
+    """beam_decode (exact and prune 6) and beam_decode_nbest at beams wider
+    than 32 over A=40 against the JAX hash scan."""
+    T, S = 12, 40
+    rng = np.random.default_rng(K)
+    lp, fl = _log_probs(rng, 4, T, S), _frame_lens(rng, 4, T)
+    for prune in (None, 6):
+        got, want = _both(lp, fl, beam_size=K, max_label_len=T + 2,
+                          impl="hash", prune=prune)
+        _assert_decode_equal(got, want)
+    want = [np.asarray(t) for t in jb.beam_decode_nbest(
+        jnp.asarray(lp), jnp.asarray(fl), beam_size=K, max_label_len=T + 2)]
+    got = [t.numpy() for t in tb.beam_decode_nbest(
+        torch.from_numpy(lp), torch.from_numpy(fl), beam_size=K,
+        max_label_len=T + 2)]
+    _assert_decode_equal(got, want)
 
 
 def test_rank_topk_ties_toward_the_lower_index():

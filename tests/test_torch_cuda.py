@@ -60,9 +60,12 @@ def cuda():
 # clusters of 8 blocks: H=64 (8 units a block), 256, 200 (ragged units);
 # H=264 and 320: float32 clusters of 16 (a slice of k fits a thread's
 # registers), and in bfloat16 three warps per unit group at 320; B=70:
-# more clusters than 8 rows each would need, B=13 a ragged last cluster
+# more clusters than 8 rows each would need, B=13 a ragged last cluster;
+# H=448, 512, 1024: U's columns read from L2 (the CUDA-core walk, bf16 too)
 @pytest.mark.parametrize("B,T,H", [(5, 37, 64), (3, 11, 256), (2, 9, 200),
-                                   (13, 7, 264), (70, 5, 32), (3, 6, 320)])
+                                   (13, 7, 264), (70, 5, 32), (3, 6, 320),
+                                   (8, 64, 448), (8, 64, 512),
+                                   (8, 64, 1024)])
 def test_lstm_kernel_matches_plain(cuda, B, T, H, reverse, dtype, atol):
     rng = np.random.default_rng(H + T)
     lens = np.clip(rng.integers(1, T + 1, B), 1, T)
@@ -95,8 +98,8 @@ def test_lstm_kernel_rejects_bad_inputs(cuda):
         cuda_lstm.lstm_scan_cuda(xp, U[:8], mask)
     with pytest.raises(ValueError):
         cuda_lstm.lstm_scan_cuda(xp.transpose(0, 1), U, mask.T)
-    # above 512 hidden units: refused, not launched
-    H = 514
+    # above 1024 hidden units: refused, not launched
+    H = 1030
     before = cuda_lstm.LAUNCHES
     with pytest.raises(RuntimeError, match="hidden size"):
         cuda_lstm.lstm_scan_cuda(torch.zeros(1, 2, 4 * H, device=cuda),
@@ -143,7 +146,9 @@ def _case(cuda, B, T, H, dtype, seed):
                                         (torch.bfloat16, 4e-3)])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("B,T,H", [(5, 37, 64), (3, 11, 256), (2, 9, 200),
-                                   (13, 7, 264), (70, 5, 32), (3, 6, 320)])
+                                   (13, 7, 264), (70, 5, 32), (3, 6, 320),
+                                   (8, 64, 448), (8, 64, 512),
+                                   (8, 64, 1024)])
 def test_lstm_residual_kernel_matches_plain(cuda, B, T, H, reverse, dtype,
                                             atol):
     xp, U, mask, _ = _case(cuda, B, T, H, dtype, H + T)
@@ -170,13 +175,15 @@ def test_lstm_residual_kernel_matches_plain(cuda, B, T, H, reverse, dtype,
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("B,T,H", [(5, 37, 64), (3, 11, 256), (2, 9, 200),
                                    (70, 5, 32), (1, 9, 256), (13, 7, 200),
-                                   (3, 6, 264)])
+                                   (3, 6, 264), (8, 64, 448), (8, 64, 512),
+                                   (8, 64, 1024)])
 def test_lstm_bwd_kernel_matches_plain(cuda, B, T, H, reverse, dtype, rel):
     """Both get the plain forward's residuals, so this holds the backward
     alone. One row; B = 13 and 70, not multiples of the rows per cluster
     (70 also more clusters than fit at once); H = 200, ragged units per
     block; H = 264, the first kernel's largest at 132 SMs (clusters of
-    16)."""
+    16); H = 448, 512, 1024: U's columns read from L2, two units a thread
+    above 512."""
     xp, U, mask, gy = _case(cuda, B, T, H, dtype, 7 * H + T)
     _, hprev, cprev = lstm_scan_plain(xp, U, mask, reverse, residuals=True)
     before = cuda_lstm.BWD_LAUNCHES
@@ -281,7 +288,14 @@ def _beam_case(cuda, B, T, A, seed):
 @pytest.mark.parametrize("prune", [None, 6])
 # the beam's default batch and width at 5 s; a small case with K=4, 8
 @pytest.mark.parametrize("B,T,A,K", [(128, 401, 28, 16), (5, 37, 6, 4),
-                                     (4, 50, 12, 8)])
+                                     (4, 50, 12, 8),
+                                     # the warp form with a lane's symbols
+                                     # in registers (A <= 128) and read
+                                     # from the row (A above; 5000 not a
+                                     # multiple of 32 or 4)
+                                     (8, 101, 100, 32), (8, 101, 5000, 16),
+                                     # the block form (K > 32)
+                                     (8, 101, 256, 48), (8, 101, 5000, 64)])
 def test_ctc_beam_kernel_matches_plain(cuda, B, T, A, K, prune):
     lp, fl = _beam_case(cuda, B, T, A, B + T + K)
     M = beam._prune_m(A, K, prune)
@@ -315,6 +329,21 @@ def test_ctc_beam_nbest_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("A,K", [(256, 48), (5000, 64), (5000, 16)])
+def test_ctc_beam_wide_nbest_kernel_matches_plain(cuda, A, K):
+    """The n-best of beams wider than a warp and vocabularies over 1024,
+    exact M = K + 2."""
+    lp, fl = _beam_case(cuda, 8, 101, A, A + K)
+    before = cuda_beam.LAUNCHES
+    got = beam.beam_decode_nbest(lp, fl, beam_size=K, max_label_len=101)
+    assert cuda_beam.LAUNCHES == before + 1
+    want = beam.beam_decode_nbest(lp, fl, beam_size=K, max_label_len=101,
+                                  use_kernel=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
 def test_beam_decode_launches_the_kernel_once(cuda):
     lp, fl = _beam_case(cuda, 8, 60, 28, 1)
     before = cuda_beam.LAUNCHES
@@ -333,9 +362,9 @@ def test_ctc_beam_launcher_rejects_bad_inputs(cuda):
     before = cuda_beam.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         cuda_beam.ctc_beam_cuda(lp.cpu(), fl.cpu(), K=4, M=6, Lmax=10)
-    with pytest.raises(ValueError, match="supports"):
-        cuda_beam.ctc_beam_cuda(lp, fl, K=33, M=8, Lmax=10)
-    with pytest.raises(ValueError, match="supports"):
+    with pytest.raises(ValueError, match="takes"):
+        cuda_beam.ctc_beam_cuda(lp, fl, K=0, M=8, Lmax=10)
+    with pytest.raises(ValueError, match="takes"):
         cuda_beam.ctc_beam_cuda(lp, fl, K=4, M=9, Lmax=10)  # M > A
     with pytest.raises(TypeError):
         cuda_beam.ctc_beam_cuda(lp.double(), fl, K=4, M=6, Lmax=10)
@@ -511,8 +540,8 @@ def test_flash_attn_launcher_rejects_bad_inputs(cuda):
         cuda_flash_attn.flash_attn_cuda(q.cpu(), k.cpu(), v.cpu(),
                                         valid.cpu(), 0.1)
     with pytest.raises(ValueError, match="head dims"):
-        cuda_flash_attn.flash_attn_cuda(q[..., :16], k[..., :16],
-                                        v[..., :16], valid, 0.1)
+        wide = q.repeat(1, 1, 1, 9)[..., :264]  # dh past 256
+        cuda_flash_attn.flash_attn_cuda(wide, wide, wide, valid, 0.1)
     with pytest.raises(TypeError):
         cuda_flash_attn.flash_attn_cuda(q.double(), k.double(), v.double(),
                                         valid, 0.1)
@@ -640,6 +669,49 @@ def test_flash_attn_bwd_kernels_match_plain(cuda, B, H, T, dh, dtype, fused,
                     scale=want[2] if T == 1 else None)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# head dims on the instance next up: 16 and 20 (32), 48 (64), 80 and 128
+# (128); 20 and 17 are not whole 16-byte vectors in bf16 (17 nor in f32):
+# their rows are read element by element; 129, 200 and 256 on the wide
+# kernels
+@pytest.mark.parametrize("dh", [16, 20, 48, 80, 128, 17, 129, 200, 256])
+@pytest.mark.parametrize("fused", [False, True])
+def test_flash_attn_head_dims_match_plain(cuda, dh, dtype, fused):
+    """Forward (both forms) and backward at B=2, H=4, T'=201 against the
+    plain versions, with the tolerances above."""
+    B, H, T = 2, 4, 201
+    q, k, v, valid = _attn_case(cuda, B, H, T, dh, dtype, dh + 7, fused)
+    scale = dh ** -0.5
+    c0 = _flash_counts()
+    got = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale)
+    o, l, m = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale,
+                                              residuals=True)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (c0[0] + 1, c0[1] + 1, c0[2], c0[3])
+    assert got.shape == (B, H, T, dh) and got.dtype == dtype
+    r_o, r_l, r_m = flash_attn.mhsa_plain(q, k, v, valid, scale,
+                                          residuals=True)
+    atol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * v.abs().max().item()
+    torch.testing.assert_close(got.float(), r_o.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(o, got, rtol=0, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, r_m, rtol=0, atol=1e-5)
+    rng = np.random.default_rng(dh)
+    do = torch.from_numpy(rng.standard_normal((B, T, H, dh))).to(
+        cuda, dtype).transpose(1, 2)
+    di = (r_o.float() * do.float()).sum(-1).contiguous()
+    dk, dv = cuda_flash_attn.flash_attn_bwd_dkv_cuda(q, k, v, valid, r_l, r_m,
+                                                     do, di, scale)
+    dq = cuda_flash_attn.flash_attn_bwd_dq_cuda(q, k, v, valid, r_l, r_m, do,
+                                                di, scale)
+    torch.cuda.synchronize()
+    want = flash_attn.mhsa_bwd_plain(q, k, v, valid, r_o, r_l, r_m, do,
+                                     scale)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(g, w, FLASH_BWD_REL[dtype], f"{name} {dtype} dh={dh}")
+
+
 def _bwd_inputs(cuda, B, H, T, dh, dtype, seed, lens=None):
     """Fused q, k, v views, their mask, the plain forward's o, l, m, a
     (B, H, T, dh) view of a (B, T, H, dh) do, and di."""
@@ -733,8 +805,8 @@ def test_flash_attn_bwd_launchers_reject_bad_inputs(cuda):
         with pytest.raises(ValueError, match="di must"):
             fn(q, k, v, valid, ones, ones, q, ones.double(), 0.1)
         with pytest.raises(ValueError, match="head dims"):
-            fn(q[..., :16], k[..., :16], v[..., :16], valid, ones, ones,
-               q[..., :16], ones, 0.1)
+            wide = q.repeat(1, 1, 1, 9)[..., :264]  # dh past 256
+            fn(wide, wide, wide, valid, ones, ones, wide, ones, 0.1)
     assert _flash_counts() == before
 
 
@@ -883,11 +955,17 @@ def _joint_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# T not a multiple of the 8-frame tiles or of a block's 32-frame walk; U+1
-# across two 32-row u-tiles; U = 0; the vocab padded to 8, 16 and 32
+# T not a multiple of a tile's frames or of a block's walk; U+1 across two
+# 32-row u-tiles; U = 0; vocabularies inside one chunk of 32 and over
+# several (33, 256, 1024: the backward's chunked form), joint dims over
+# one piece of 256 (640, 1024)
 @pytest.mark.parametrize("B,T,U,J,A", [(3, 37, 5, 32, 9), (2, 45, 40, 100, 28),
                                        (4, 11, 0, 48, 5), (2, 70, 63, 256, 32),
-                                       (1, 1, 1, 8, 2)])
+                                       (1, 1, 1, 8, 2), (2, 23, 7, 640, 33),
+                                       (2, 19, 40, 256, 256),
+                                       (2, 13, 9, 1024, 256),
+                                       (1, 9, 5, 640, 1024),
+                                       (2, 11, 6, 1024, 1024)])
 def test_joint_kernels_match_plain(cuda, B, T, U, J, A, dtype):
     args, gb, gy = _joint_case(cuda, B, T, U, J, A, dtype, B + T + U + A)
     c0 = _joint_counts()
@@ -941,17 +1019,10 @@ def test_joint_launchers_reject_bad_inputs(cuda):
         cuda_joint.joint_fwd_cuda(e, g.bfloat16(), W, b, labels)
     with pytest.raises(ValueError, match="shapes"):
         cuda_joint.joint_fwd_cuda(e, g[:, :3], W, b, labels)
-    with pytest.raises(ValueError, match="vocab"):
-        wide = torch.zeros(16, 40, device=cuda)
-        cuda_joint.joint_fwd_cuda(e, g, wide, torch.zeros(40, device=cuda),
-                                  labels)
+    with pytest.raises(ValueError, match="empty"):
+        cuda_joint.joint_fwd_cuda(e, g, W[:, :0], b[:0], labels)
     with pytest.raises(ValueError, match="gy must"):
         cuda_joint.joint_bwd_cuda(*args, gb, gy[:, :, :2])
-    with pytest.raises(RuntimeError, match="shared memory"):
-        big = torch.zeros(2, 9, 4096, device=cuda)
-        cuda_joint.joint_fwd_cuda(big, torch.zeros(2, 4, 4096, device=cuda),
-                                  torch.zeros(4096, 6, device=cuda), b,
-                                  labels)
     assert _joint_counts() == before
 
 

@@ -256,3 +256,53 @@ def test_forward_skips_emptied_tile_pairs_without_a_change(kind, T):
                                        kv=jnp.asarray(seg)), sm_scale=scale)
         np.testing.assert_allclose(skip[0].numpy(), np.asarray(ref), rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [48, 128])
+def test_mhsa_and_its_backward_match_the_library_kernel_at_head_dims(dh):
+    """mhsa (the plain version on the CPU) and its gradient through
+    FlashAttention at dh=128 (an instance of the kernels) and dh=48 (not
+    one: it runs on the dh=64 instance), against JAX's library Pallas
+    flash attention and its backward kernels in TPU interpret mode, float32:
+    atol 1e-5 (summation order only). T = 128, one block of the library
+    kernels; a full row and a row of 1."""
+    rng = np.random.default_rng(dh)
+    B, H, T = 2, 2, 128
+    q, k, v, do = (rng.standard_normal((B, H, T, dh)).astype(np.float32)
+                   for _ in range(4))
+    valid = np.arange(T)[None] < np.array([T, 1])[:, None]
+    seg = jnp.asarray(valid.astype(np.int32))
+    scale = dh ** -0.5
+
+    def f(q, k, v):
+        return flash_attention(q, k, v, segment_ids=SegmentIds(q=seg, kv=seg),
+                               sm_scale=scale)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+        ref_grads = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = flash_attn.mhsa(*leaves, torch.from_numpy(valid), scale)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+    grads = torch.autograd.grad(got, leaves, torch.from_numpy(do))
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dh,inst", [(48, 64), (20, 32), (80, 128)])
+def test_zero_columns_past_dh_change_nothing(dh, inst):
+    """The kernels' claim for a head dim between instances: q, k, v
+    zero-filled from dh to the instance's width give the same scores, so
+    the first dh output columns (and l, m) are those of dh, and the
+    columns past dh are zero (the kernels do not write them)."""
+    q, k, v, valid = (torch.from_numpy(a) for a in _qkv(dh, dh=dh))
+    scale = dh ** -0.5
+    pad = [torch.nn.functional.pad(t, (0, inst - dh)) for t in (q, k, v)]
+    o, l, m = flash_attn.mhsa_plain(q, k, v, valid, scale, residuals=True)
+    po, pl, pm = flash_attn.mhsa_plain(*pad, valid, scale, residuals=True)
+    torch.testing.assert_close(po[..., :dh], o, rtol=0, atol=1e-6)
+    assert torch.equal(po[..., dh:], torch.zeros_like(po[..., dh:]))
+    torch.testing.assert_close(pl, l, rtol=1e-6, atol=0)
+    torch.testing.assert_close(pm, m, rtol=0, atol=1e-6)

@@ -262,3 +262,158 @@ def test_backward_in_the_block_kernels_order(nc, dtype):
                 np.testing.assert_allclose(
                     d, want, rtol=0, atol=2.0 ** -7 * np.abs(want).max(),
                     err_msg=f"{name} vs {what}")
+
+
+# --- vocabularies past one chunk of 32 columns and joint dims past one
+# piece of 256: the kernels' chunked forms (csrc/joint.cuh)
+
+def _lse_in_chunks(z):
+    """The logsumexp of csrc/joint.cuh's CellPair: over vocab chunks of 32,
+    a running max m and sum s, s = s exp(m - m') + sum exp(z - m')."""
+    m = torch.full(z.shape[:-1], -float("inf"))
+    s = torch.zeros(z.shape[:-1])
+    for c0 in range(0, z.shape[-1], 32):
+        zc = z[..., c0:c0 + 32]
+        nm = torch.maximum(m, zc.amax(-1))
+        s = s * torch.exp(m - nm) + torch.exp(zc - nm[..., None]).sum(-1)
+        m = nm
+    return m + torch.log(s)
+
+
+def _fwd_in_chunk_order(e, g, W, bias, labels):
+    """csrc/joint_fwd.cu's tables, float32: z summed over J piece by piece
+    (256 columns each) in one running sum, + bias, the chunked lse."""
+    e32, g32, W32 = e.float(), g.float(), W.float()
+    h = torch.tanh(e32[:, :, None] + g32[:, None])
+    z = torch.zeros(*h.shape[:-1], W.shape[1])
+    for j0 in range(0, W.shape[0], 256):
+        z = z + h[..., j0:j0 + 256] @ W32[j0:j0 + 256]
+    z = z + bias.float()
+    lse = _lse_in_chunks(z)
+    U = labels.shape[1]
+    zy = torch.gather(z[:, :, :U], -1,
+                      labels.long()[:, None, :, None].expand(
+                          -1, z.shape[1], -1, 1))[..., 0]
+    return z[..., 0] - lse, zy - lse[..., :U]
+
+
+def _bwd_in_chunk_order(e, g, W, bias, labels, gb, gy):
+    """csrc/joint_bwd.cu's chunked form, float32: one block per (utterance,
+    u-tile of 32 rows) walks the frames in tiles of 64 cells (2 frames);
+    per tile the chunked lse, then per vocab chunk of 32 its dz, db += dz,
+    dW[:, chunk] += h^T dz, and dpre_chunk = (dz . W_chunk^T)(1 - h^2)
+    added to de (per frame: a partial per u-tile) and dg (per row) chunk
+    by chunk; the partials added in order."""
+    B, T, J = e.shape
+    U1, A = g.shape[1], W.shape[1]
+    U = U1 - 1
+    e32, g32, W32, b32 = e.float(), g.float(), W.float(), bias.float()
+    n_ut = -(-U1 // 32)
+    de_part = torch.zeros(n_ut, B, T, J)
+    dg = torch.zeros(B, U1, J)
+    dW, db = torch.zeros(J, A), torch.zeros(A)
+    for b in range(B):
+        for ut in range(n_ut):
+            us = torch.arange(ut * 32, min(U1, ut * 32 + 32))
+            dw_blk, db_blk = torch.zeros(J, A), torch.zeros(A)
+            for t0 in range(0, T, 2):
+                ts = torch.arange(t0, min(T, t0 + 2))
+                h = torch.tanh(e32[b, ts][:, None] + g32[b, us][None])
+                z = h @ W32 + b32
+                m_lse = _lse_in_chunks(z)
+                gbc = gb[b][ts][:, us]
+                gyc = torch.nn.functional.pad(gy[b][ts], (0, 1))[:, us]
+                oh = torch.zeros(len(us), A)
+                lab_rows = us[us < U]
+                oh[:len(lab_rows)].scatter_(
+                    -1, labels[b, lab_rows].long()[:, None], 1.0)
+                for c0 in range(0, A, 32):
+                    cs = slice(c0, c0 + 32)
+                    p = torch.exp(z[..., cs] - m_lse[..., None])
+                    dz = (gbc[..., None] * (torch.arange(A)[cs] == 0)
+                          + gyc[..., None] * oh[:, cs]
+                          - (gbc + gyc)[..., None] * p)
+                    db_blk[cs] += dz.sum((0, 1))
+                    dw_blk[:, cs] += torch.einsum("fuj,fua->ja", h, dz)
+                    dpre = (dz @ W32[:, cs].T) * (1.0 - h * h)
+                    de_part[ut, b, ts] += dpre.sum(1)
+                    dg[b, us] += dpre.sum(0)
+            dW, db = dW + dw_blk, db + db_blk
+    de = sum(de_part[k] for k in range(n_ut))
+    return (de.to(e.dtype), dg.to(g.dtype), dW.to(W.dtype),
+            db.to(bias.dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# vocabularies over one chunk (40: a ragged second chunk; 96: three)
+@pytest.mark.parametrize("A", [40, 96])
+def test_plain_wide_vocab_matches_pallas_interpret(A, dtype):
+    """fused_joint_plain and fused_joint_bwd_plain at A past the first
+    kernels' limit of 32 and J=72, vs the Pallas kernels in interpret mode,
+    with the tolerances of the module docstring."""
+    _, jdt, tdt = DTYPES[dtype]
+    arrays, labels, gb, gy = _make(B=2, T=9, U=5, J=72, A=A, seed=A)
+    args = [torch.from_numpy(x).to(tdt) for x in arrays]
+    lab = torch.from_numpy(labels)
+    for got, ref in zip(fused_joint_plain(*args, lab),
+                        _jax_tables(arrays, labels, jdt)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    ref = _jax_grads(arrays, labels, gb, gy, jdt)
+    got = fused_joint_bwd_plain(*args, lab, torch.from_numpy(gb),
+                                torch.from_numpy(gy))
+    for name, d, r in zip(("de", "dg", "dW", "db"), got, ref):
+        d = d.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(d, r, rtol=2e-4, atol=2e-5,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(d, r, rtol=0,
+                                       atol=2.0 ** -7 * np.abs(r).max(),
+                                       err_msg=name)
+
+
+# A = 9 inside one chunk; 40 and 96 over two and three; J = 300 two pieces
+@pytest.mark.parametrize("A,J", [(9, 32), (40, 72), (96, 72), (40, 300)])
+def test_forward_in_the_chunked_kernels_order(A, J):
+    """csrc/joint_fwd.cu's order (J in pieces of 256, the logsumexp carried
+    over vocab chunks of 32) within the stated tolerances (rtol 1e-5, atol
+    1e-5) of the Pallas kernel in interpret mode and of the plain
+    forward."""
+    arrays, labels, _, _ = _make(B=2, T=5, U=4, J=J, A=A, seed=J + A)
+    args = [torch.from_numpy(x) for x in arrays]
+    lab = torch.from_numpy(labels)
+    got = _fwd_in_chunk_order(*args, lab)
+    for g, p, r in zip(got, fused_joint_plain(*args, lab),
+                       _jax_tables(arrays, labels, jnp.float32)):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("A,J", [(40, 72), (96, 72), (40, 300)])
+def test_backward_in_the_chunked_kernels_order(A, J, dtype):
+    """The partition of csrc/joint_bwd.cu's chunked form (A > 32 or J >
+    512) within the stated tolerances of jax.grad through the Pallas
+    kernels (interpret mode) and of the plain backward: float32 rtol 2e-4,
+    atol 2e-5; bfloat16 atol 2^-7 x max|grad|. T = 5 is not a multiple of
+    the tile's 2 frames; U+1 = 34 is two u-tiles."""
+    _, jdt, tdt = DTYPES[dtype]
+    arrays, labels, gb, gy = _make(B=2, T=5, U=33, J=J, A=A, seed=7 + A)
+    ref = _jax_grads(arrays, labels, gb, gy, jdt)
+    args = [torch.from_numpy(x).to(tdt) for x in arrays]
+    lab = torch.from_numpy(labels)
+    cot = (torch.from_numpy(gb), torch.from_numpy(gy))
+    got = _bwd_in_chunk_order(*args, lab, *cot)
+    plain = fused_joint_bwd_plain(*args, lab, *cot)
+    for name, d, p, r in zip(("de", "dg", "dW", "db"), got, plain, ref):
+        assert d.dtype == tdt, name
+        d, p = d.float().numpy(), p.float().numpy()
+        for want, what in ((r, "Pallas"), (p, "plain")):
+            if dtype == "float32":
+                np.testing.assert_allclose(d, want, rtol=2e-4, atol=2e-5,
+                                           err_msg=f"{name} vs {what}")
+            else:
+                np.testing.assert_allclose(
+                    d, want, rtol=0, atol=2.0 ** -7 * np.abs(want).max(),
+                    err_msg=f"{name} vs {what}")

@@ -103,6 +103,31 @@ def test_bilstm_layer_matches_jax():
     torch.testing.assert_close(fused, got, rtol=0, atol=0)
 
 
+def test_bilstm_layer_above_512_units_matches_pallas():
+    """H = 520, past the CUDA kernels' limit of 512: the port's layer (the
+    plain recurrence on CPU tensors) against pallas_lstm_scan in interpret
+    mode, one direction each way, on x @ W + b; rtol 1e-4, atol 1e-5."""
+    rng = np.random.default_rng(520)
+    B, T, I, H = 2, 5, 8, 520
+    x = rng.standard_normal((B, T, I)).astype(np.float32)
+    mask = (np.arange(T)[None] < np.array([T, 2])[:, None]).astype(np.float32)
+    params = {d: {"W": (rng.uniform(-1, 1, (I, 4 * H)) / 4).astype(np.float32),
+                  "U": (rng.uniform(-1, 1, (H, 4 * H)) / np.sqrt(H)).astype(
+                      np.float32),
+                  "b": rng.standard_normal(4 * H).astype(np.float32)}
+              for d in ("fwd", "bwd")}
+    ref = [pallas_lstm_scan(jnp.asarray(x @ p["W"] + p["b"]),
+                            jnp.asarray(p["U"]), jnp.asarray(mask), reverse,
+                            INTERPRET)
+           for p, reverse in ((params["fwd"], False), (params["bwd"], True))]
+    tparams = {d: {k: torch.from_numpy(v) for k, v in p.items()}
+               for d, p in params.items()}
+    got = bilstm_layer(tparams, torch.from_numpy(x), torch.from_numpy(mask))
+    assert got.shape == (B, T, 2 * H)
+    np.testing.assert_allclose(got.numpy(), np.concatenate(
+        [np.asarray(r) for r in ref], -1), rtol=1e-4, atol=1e-5)
+
+
 def test_wrapper_takes_plain_version_for_cpu_tensors():
     """On CPU tensors lstm_scan is the plain version and launches nothing;
     the kernel entry point refuses CPU tensors instead of falling back."""
