@@ -57,39 +57,46 @@ the CPU or to a kernel's plain version):
   3g. shapes past the first kernels' limits, each launched on its kernel
      (its counter rises by one a call) and held against its plain version
      within the bounds above: lstm_fwd (both forms) and lstm_bwd at phase
-     3's B and T with H=512 float32 and H=1024 bfloat16 (U's columns read
-     from L2), timed; joint_fwd / joint_bwd at A=256, J=640 (B=4,
-     T'=51, U=20, both types); flash_attn and its backward at dh=128 and
-     256 at phase 3c's shape, device-timed beside SDPA; ctc_beam over A=5000 at
-     K=64 (the block form) and K=16 (the warp form), M=6 and exact, best
-     and n-best (B=8, T=101).
+     3's B and T with H=512 float32, H=1024 bfloat16 and H=2048 in both
+     (U's columns read from L2), timed; bilstm_fwd (both forms) and
+     bilstm_bwd at H=1024, both types, each direction equal bit for bit
+     to the single-direction kernels, timed in turns beside them;
+     joint_fwd / joint_bwd at A=256, J=640 (B=4, T'=51, U=20, both types);
+     flash_attn and its backward at dh=128, 256 and 512 (the wide kernels
+     in two pieces) at phase 3c's shape, device-timed beside SDPA;
+     ctc_beam over A=5000 at K=64 (the block form) and K=16 (the warp
+     form), M=6 and exact, best and n-best (B=8, T=101).
   3f. fused-direction BiLSTM: bilstm_fwd (inference and residual forms)
      and bilstm_bwd vs their plain versions on the card at phase 3's shape
      (B=64, T=401, H=256 per direction), float32 and bfloat16, ragged
-     lengths, against the phase 3 bounds; each against two single-direction
-     launches within the phase 3 bounds (lstm_fwd and lstm_bwd sum in
-     their own orders), the backward run twice (equal bits);
-     CUDA-event times in turns against the plain versions, against 2 x
-     lstm_fwd / lstm_bwd on one stream and against cuDNN's bidirectional
-     nn.LSTM; the bound. Then bilstm_layer(fuse_directions=True) at the
-     flagship's first layer (input 512) under autograd (one residual
-     bilstm_fwd and one bilstm_bwd launch, no single-direction launch) and
-     without (one bilstm_fwd), its output and gradients against
-     fuse_directions=False.
+     lengths, against the phase 3 bounds; each direction equal bit for
+     bit to a single-direction launch (lstm_fwd, lstm_bwd), the backward
+     run twice (equal bits); CUDA-event times in turns (A, B, .., B, A) of
+     the fused kernel, 2 x lstm_fwd / lstm_bwd on one stream, cuDNN's
+     bidirectional nn.LSTM and the plain version; the bound. Then
+     bilstm_layer(fuse_directions=True) at the flagship's first layer
+     (input 512) under autograd (one residual bilstm_fwd and one
+     bilstm_bwd launch, no single-direction launch) and without (one
+     bilstm_fwd), its output (equal bits) and gradients against
+     fuse_directions=False (which launches 2 lstm_fwd without grad, 2
+     residual lstm_fwd and 2 lstm_bwd under autograd).
   4. predict slice: batch transcription through the port's CLI
      (`--mode predict --device cuda`, default batch 32) of 96 synthetic
      utterances of 1-5 s with the full-width default BiLSTM-CTC (random
-     weights from a seed); checks predicted.txt, CER/WER, that every LSTM
-     direction of every batch went through lstm_fwd, and one batch's
-     log-probs against the plain recurrence; times the forward at
-     B=64 x 5 s. Then `--decoder beam` (default batch 128, K=16, prune 6:
-     one batch): the same checks, one ctc_beam launch per batch, and the
-     kernel against the plain scan on that batch's log-probs.
+     weights from a seed); checks predicted.txt, CER/WER, that every
+     layer of every batch went through the LSTM kernels of the encoder's
+     route (models/bilstm_ctc.py fuse_directions: one bilstm_fwd a layer,
+     or lstm_fwd a direction), and one batch's log-probs against the
+     plain recurrence; times the forward at B=64 x 5 s. Then `--decoder
+     beam` (default batch 128, K=16, prune 6: one batch): the same
+     checks, one ctc_beam launch per batch, and the kernel against the
+     plain scan on that batch's log-probs.
   5. train slice: `--mode train --device cuda` through the CLI, one epoch
      of the synthetic train split (576 utterances, 18 steps at the default
      batch 32) with validation on dev; checks the launch counts of the
-     residual forward and the backward (6 per step) and of the inference
-     forward (6 per dev batch), the artifacts and finite losses, a resumed
+     route's residual forward and backward (per layer, or per direction,
+     each step) and of its inference forward (each dev batch), the
+     artifacts and finite losses, a resumed
      second epoch, and `--mode predict` on the trained model, greedy and
      beam; then one
      batch's loss and every parameter gradient, kernel path vs plain path,
@@ -528,13 +535,13 @@ def phase_kernels(dev):
     return {"fwd": fwd, "res": res, "bwd": bwd}
 
 
-def phase_library(dev, bidirectional: bool = False):
-    """cuDNN nn.LSTM at the kernels' shape, float32, full-length batch: one
-    direction (yardstick of lstm_fwd / lstm_bwd) or both (of bilstm_fwd /
-    bilstm_bwd): the one PyTorch call that computes the same recurrence (it
-    also does the x@W input projection, from a 512-wide input, which the
-    kernels receive precomputed). A yardstick only; the port never calls
-    it."""
+def cudnn_lstm(dev, bidirectional: bool = False):
+    """cuDNN nn.LSTM at the kernels' shape, float32, full-length batch, one
+    direction or both: the one PyTorch call that computes the same
+    recurrence (it also does the x@W input projection, from a 512-wide
+    input, which the kernels receive precomputed). A yardstick only; the
+    port never calls it. -> {"fwd_ms": no grad, "train_fwd_ms": the
+    training forward, "bwd_ms": the backward}: callables to time."""
     import torch
 
     lstm = torch.nn.LSTM(512, H, batch_first=True,
@@ -557,14 +564,28 @@ def phase_library(dev, bidirectional: bool = False):
     def backward():
         torch.autograd.grad(out, params, gy, retain_graph=True)
 
-    lib = {"fwd_ms": time_ms(infer, 20), "train_fwd_ms": time_ms(train_fwd, 20),
-           "bwd_ms": time_ms(backward, 20)}
-    print(f"[library] cuDNN nn.LSTM(512, {H}{', bidirectional=True' * bidirectional}) "
-          f"B={B} T={T} float32, {('one direction', 'both directions')[n_dir - 1]}: "
-          f"forward {lib['fwd_ms']:.3f} ms (no grad), "
+    return {"fwd_ms": infer, "train_fwd_ms": train_fwd, "bwd_ms": backward}
+
+
+def phase_library(dev):
+    """cuDNN's one-direction nn.LSTM timed: the yardstick of lstm_fwd /
+    lstm_bwd (phase 3f times the bidirectional one in turns with the fused
+    kernels)."""
+    lib = {k: time_ms(f, 20) for k, f in cudnn_lstm(dev).items()}
+    print(f"[library] cuDNN nn.LSTM(512, {H}) B={B} T={T} float32, one "
+          f"direction: forward {lib['fwd_ms']:.3f} ms (no grad), "
           f"{lib['train_fwd_ms']:.3f} ms (training), backward "
           f"{lib['bwd_ms']:.3f} ms")
     return lib
+
+
+def turns(fns: dict, reps: dict) -> dict:
+    """{name: ms}: each callable timed in the order given, then in the
+    reverse order (A, B, .., B, A), the two readings averaged."""
+    got = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        got[k].append(time_ms(fns[k], reps[k]))
+    return {k: sum(v) / 2 for k, v in got.items()}
 
 
 def bi_inputs(dev):
@@ -589,12 +610,25 @@ def lstm_counts() -> dict:
             "bilstm_bwd": c.BI_BWD_LAUNCHES}
 
 
+def route_counters():
+    """The counters the BiLSTM encoder (models/bilstm_ctc.py encode: both
+    directions of a layer in one walk) moves, and the launches of each in
+    one forward of the default model: (inference, residual, backward, per
+    forward)."""
+    from pg_asr_tpu_torch.config import Config
+
+    return ("bilstm_fwd", "bilstm_fwd_residual", "bilstm_bwd",
+            Config().model.num_layers)
+
+
 def phase_bilstm(dev):
-    """3f: bilstm_fwd (both forms) and bilstm_bwd vs their plain versions
-    and vs two single-direction launches, timed in turns against both;
-    cuDNN's bidirectional nn.LSTM as the yardstick; then
-    bilstm_layer(fuse_directions=True) at the flagship's first layer,
-    under autograd and without, against fuse_directions=False."""
+    """3f: bilstm_fwd (both forms) and bilstm_bwd vs their plain versions,
+    each direction vs a single-direction launch (equal bits), the backward
+    twice (equal bits); the fused kernel, two single-direction launches,
+    cuDNN's bidirectional nn.LSTM and the plain version timed in turns;
+    the bound. Then bilstm_layer(fuse_directions=True) at the flagship's
+    first layer, under autograd and without, against
+    fuse_directions=False."""
     import torch
 
     from pg_asr_tpu_torch.ops import cuda_lstm as cl
@@ -603,6 +637,7 @@ def phase_bilstm(dev):
                                            bilstm_scan_plain)
 
     mask, *inputs32, valid = bi_inputs(dev)
+    lib = cudnn_lstm(dev, bidirectional=True)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         xpf, xpb, Uf, Ub, gy = (t.to(dtype) for t in inputs32)
@@ -635,99 +670,109 @@ def phase_bilstm(dev):
             bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
             check(mx <= bd["max"] and mean <= bd["mean"],
                   f"bilstm_fwd {name}: {k} max {mx} mean {mean} > {bd}")
-        # against two lstm_fwd launches, which sum h @ U in another order
-        # (clusters): the same bounds
+        # each direction equals a single-direction launch bit for bit
         single = (torch.cat([sf[0], sb[0]], -1), sf[1], sf[2], sb[1], sb[2])
-        serrs = {k: _errs(g, r) for k, g, r in
+        equal = {k: torch.equal(g, r) for k, g, r in
                  zip(("y", "hpf", "cpf", "hpb", "cpb"), res, single)}
-        for k, (mx, mean) in serrs.items():
-            bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
-            check(mx <= bd["max"] and mean <= bd["mean"],
-                  f"bilstm_fwd {name}: {k} max {mx} mean {mean} > {bd} "
-                  "against two lstm_fwd launches")
-        k_ms, p_ms = in_turns(lambda: bilstm_scan_plain(*args),
-                              lambda: cl.bilstm_scan_cuda(*args), 2, 20)
-        two_ms = time_ms(lambda: (cl.lstm_scan_cuda(xpf, Uf, mask, False),
-                                  cl.lstm_scan_cuda(xpb, Ub, mask, True)), 20)
-        kr_ms, pr_ms = in_turns(
-            lambda: bilstm_scan_plain(*args, residuals=True),
-            lambda: cl.bilstm_scan_residual_cuda(*args), 2, 20)
-        two_r_ms = time_ms(
-            lambda: (cl.lstm_scan_residual_cuda(xpf, Uf, mask, False),
-                     cl.lstm_scan_residual_cuda(xpb, Ub, mask, True)), 20)
+        check(all(equal.values()),
+              f"bilstm_fwd {name}: bits differ from two lstm_fwd launches: "
+              f"{equal}")
+        fwd_t = turns({
+            "kernel": lambda: cl.bilstm_scan_cuda(*args),
+            "two": lambda: (cl.lstm_scan_cuda(xpf, Uf, mask, False),
+                            cl.lstm_scan_cuda(xpb, Ub, mask, True)),
+            "cudnn": lib["fwd_ms"],
+            "plain": lambda: bilstm_scan_plain(*args)},
+            {"kernel": 20, "two": 20, "cudnn": 10, "plain": 1})
+        res_t = turns({
+            "kernel": lambda: cl.bilstm_scan_residual_cuda(*args),
+            "two": lambda: (cl.lstm_scan_residual_cuda(xpf, Uf, mask, False),
+                            cl.lstm_scan_residual_cuda(xpb, Ub, mask, True)),
+            "cudnn": lib["train_fwd_ms"],
+            "plain": lambda: bilstm_scan_plain(*args, residuals=True)},
+            {"kernel": 20, "two": 20, "cudnn": 10, "plain": 1})
         b_ms, b_by = bound_ms(f_fwd, io_fwd, name)
         br_ms, br_by = bound_ms(f_fwd, io_res, name)
-        case.update(fwd_errors=errs, fwd_vs_lstm_fwd=serrs, fwd_ms=k_ms,
-                    fwd_plain_ms=p_ms,
-                    two_lstm_fwd_ms=two_ms, fwd_bound_ms=b_ms,
-                    fwd_bound_by=b_by, res_ms=kr_ms, res_plain_ms=pr_ms,
-                    two_lstm_fwd_residual_ms=two_r_ms, res_bound_ms=br_ms,
+        case.update(fwd_errors=errs, fwd_equal_to_lstm_fwd=equal,
+                    fwd_ms=fwd_t["kernel"], fwd_plain_ms=fwd_t["plain"],
+                    two_lstm_fwd_ms=fwd_t["two"], fwd_cudnn_ms=fwd_t["cudnn"],
+                    fwd_bound_ms=b_ms, fwd_bound_by=b_by,
+                    res_ms=res_t["kernel"], res_plain_ms=res_t["plain"],
+                    two_lstm_fwd_residual_ms=res_t["two"],
+                    res_cudnn_ms=res_t["cudnn"], res_bound_ms=br_ms,
                     res_bound_by=br_by)
         print(f"[kernel] bilstm_fwd {tag}: " + ", ".join(
             f"{k} max {v[0]:.3e} mean {v[1]:.3e}" for k, v in errs.items())
-            + f" (bounds {BOUNDS[name]}, c {CPREV_BOUNDS[name]}); vs 2 x "
-            "lstm_fwd max " + ", ".join(f"{k} {v[0]:.3e}" for k, v in
-                                        serrs.items())
-            + f"; inference form {k_ms:.3f} ms (plain "
-            f"{p_ms:.3f}, 2 x lstm_fwd {two_ms:.3f}, bound {b_ms:.3f} "
-            f"{b_by}); residual form {kr_ms:.3f} ms (plain {pr_ms:.3f}, 2 x "
-            f"lstm_fwd residual {two_r_ms:.3f}, bound {br_ms:.3f} {br_by})")
+            + f" (bounds {BOUNDS[name]}, c {CPREV_BOUNDS[name]}); each "
+            "direction equal bit for bit to lstm_fwd; in turns: inference "
+            f"form {fwd_t['kernel']:.3f} ms (2 x lstm_fwd {fwd_t['two']:.3f}, "
+            f"cuDNN bidirectional {fwd_t['cudnn']:.3f} (f32), plain "
+            f"{fwd_t['plain']:.3f}, bound {b_ms:.3f} {b_by}); residual form "
+            f"{res_t['kernel']:.3f} ms (2 x lstm_fwd residual "
+            f"{res_t['two']:.3f}, cuDNN training forward "
+            f"{res_t['cudnn']:.3f}, plain {res_t['plain']:.3f}, bound "
+            f"{br_ms:.3f} {br_by})")
 
         # --- backward, on the plain forward's residuals
         bwd = cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy)
         again = cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy)
         r_bwd = bilstm_scan_bwd_plain(*args, *ref[1:], gy)
-        s_f = cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2],
-                                    gy[..., :H].contiguous(), False)
-        s_b = cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4],
-                                    gy[..., H:].contiguous(), True)
+        gyf, gyb = gy[..., :H].contiguous(), gy[..., H:].contiguous()
+        s_f = cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2], gyf, False)
+        s_b = cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4], gyb, True)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(bwd, again)),
               f"bilstm_bwd {name}: two runs differ")
+        bequal = {k: torch.equal(g_, r_) for k, g_, r_ in zip(
+            ("dxpf", "dxpb", "dUf", "dUb"), bwd, (s_f[0], s_b[0], s_f[1],
+                                                  s_b[1]))}
+        check(all(bequal.values()),
+              f"bilstm_bwd {name}: bits differ from two lstm_bwd launches: "
+              f"{bequal}")
         bb = BWD_BOUNDS[name]
-        berrs, serrs = {}, {}
-        # against the plain version, and against two lstm_bwd launches,
-        # which sum dh and dU in another order (clusters): the same bounds
-        for k, g_, r_, s_ in zip(("dxpf", "dxpb", "dUf", "dUb"), bwd, r_bwd,
-                                 (s_f[0], s_b[0], s_f[1], s_b[1])):
+        berrs = {}
+        for k, g_, r_ in zip(("dxpf", "dxpb", "dUf", "dUb"), bwd, r_bwd):
             ref_max = r_.float().abs().max().item()
-            for errs, other in ((berrs, r_), (serrs, s_)):
-                mx, mean = _errs(g_, other)
-                if k.startswith("dxp"):
-                    lim = bb.get("dxp_max", bb.get("dxp_rel", 0) * ref_max)
-                    ok = mx <= lim and mean <= bb["dxp_mean"]
-                else:
-                    lim = bb["du_rel"] * ref_max
-                    ok = mx <= lim
-                errs[k] = (mx, mean, lim)
-                check(ok, f"bilstm_bwd {name}: {k} max {mx} mean {mean} out "
-                          f"of bounds ({lim}, {bb}) against "
-                          + ("the plain version" if errs is berrs
-                             else "two lstm_bwd launches"))
-        kb_ms, pb_ms = in_turns(
-            lambda: bilstm_scan_bwd_plain(*args, *ref[1:], gy),
-            lambda: cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy), 1, 10)
-        gyf, gyb = gy[..., :H].contiguous(), gy[..., H:].contiguous()
-        two_b_ms = time_ms(
-            lambda: (cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2], gyf,
-                                           False),
-                     cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4], gyb,
-                                           True)), 10)
+            mx, mean = _errs(g_, r_)
+            if k.startswith("dxp"):
+                lim = bb.get("dxp_max", bb.get("dxp_rel", 0) * ref_max)
+                ok = mx <= lim and mean <= bb["dxp_mean"]
+            else:
+                lim = bb["du_rel"] * ref_max
+                ok = mx <= lim
+            berrs[k] = (mx, mean, lim)
+            check(ok, f"bilstm_bwd {name}: {k} max {mx} mean {mean} out of "
+                      f"bounds ({lim}, {bb}) against the plain version")
+        bwd_t = turns({
+            "kernel": lambda: cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy),
+            "two": lambda: (
+                cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2], gyf,
+                                      False),
+                cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4], gyb,
+                                      True)),
+            "cudnn": lib["bwd_ms"],
+            "plain": lambda: bilstm_scan_bwd_plain(*args, *ref[1:], gy)},
+            {"kernel": 10, "two": 10, "cudnn": 10, "plain": 1})
         bb_ms, bb_by = bound_ms(f_bwd, io_bwd, name)
-        case.update(bwd_errors=berrs, bwd_vs_lstm_bwd=serrs, bwd_ms=kb_ms,
-                    bwd_plain_ms=pb_ms,
-                    two_lstm_bwd_ms=two_b_ms, bwd_bound_ms=bb_ms,
-                    bwd_bound_by=bb_by)
+        case.update(bwd_errors=berrs, bwd_equal_to_lstm_bwd=bequal,
+                    bwd_ms=bwd_t["kernel"], bwd_plain_ms=bwd_t["plain"],
+                    two_lstm_bwd_ms=bwd_t["two"], bwd_cudnn_ms=bwd_t["cudnn"],
+                    bwd_bound_ms=bb_ms, bwd_bound_by=bb_by)
         print(f"[kernel] bilstm_bwd {tag}: " + ", ".join(
             f"{k} max {v[0]:.3e} (bound {v[2]:.3e}) mean {v[1]:.3e}"
-            for k, v in berrs.items()) + "; equal bits run to run; vs 2 x "
-            "lstm_bwd max " + ", ".join(f"{k} {v[0]:.3e}" for k, v in
-                                        serrs.items())
-            + f"; kernel {kb_ms:.3f} ms (plain {pb_ms:.3f}, 2 x "
-            f"lstm_bwd {two_b_ms:.3f}, bound {bb_ms:.3f} {bb_by})")
+            for k, v in berrs.items()) + "; equal bits run to run and to two "
+            f"lstm_bwd calls; in turns: kernel {bwd_t['kernel']:.3f} ms (2 x "
+            f"lstm_bwd {bwd_t['two']:.3f}, cuDNN bidirectional backward "
+            f"{bwd_t['cudnn']:.3f} (f32), plain {bwd_t['plain']:.3f}, bound "
+            f"{bb_ms:.3f} {bb_by})")
+        train_gain = (res_t["two"] + bwd_t["two"]) - (res_t["kernel"]
+                                                      + bwd_t["kernel"])
+        print(f"[kernel] fused directions {name} (the encoder's route, "
+              f"models/bilstm_ctc.py): fused inference form faster by "
+              f"{fwd_t['two'] - fwd_t['kernel']:.3f} ms than 2 x lstm_fwd, "
+              f"fused residual form + backward faster by {train_gain:.3f} "
+              f"ms than 2 x lstm_fwd residual + 2 x lstm_bwd")
         cases.append(case)
-
-    lib = phase_library(dev, bidirectional=True)
 
     # the layer at the flagship's first layer (input 512), float32
     I = 512
@@ -752,29 +797,42 @@ def phase_bilstm(dev):
                                      for k in ("W", "U", "b")]
     reset_counts()
     with torch.no_grad():
+        bilstm_layer(p, x0, mask, fuse_directions=False)
+    torch.cuda.synchronize()
+    launches["unfused_no_grad"] = lstm_counts()
+    reset_counts()
+    with torch.no_grad():
         y_inf = bilstm_layer(p, x0, mask, fuse_directions=True)
     torch.cuda.synchronize()
     launches["no_grad"] = lstm_counts()
     zero = dict.fromkeys(lstm_counts(), 0)
+    check(launches["unfused_no_grad"] == {**zero, "lstm_fwd": 2},
+          f"unfused layer without grad launched "
+          f"{launches['unfused_no_grad']}")
     check(launches[True] == {**zero, "bilstm_fwd_residual": 1,
                              "bilstm_bwd": 1},
           f"fused layer under autograd launched {launches[True]}")
+    check(launches[False] == {**zero, "lstm_fwd_residual": 2,
+                              "lstm_bwd": 2},
+          f"unfused layer under autograd launched {launches[False]}")
     check(launches["no_grad"] == {**zero, "bilstm_fwd": 1},
           f"fused layer without grad launched {launches['no_grad']}")
     rel = [((a - b).abs().max() / b.abs().max()).item()
            for a, b in zip(grads[True], grads[False])]
-    equal = all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    equal = [torch.equal(a, b) for a, b in zip(grads[True], grads[False])]
     inf_equal = torch.equal(y_inf, grads[True][0])
     print(f"[kernel] bilstm_layer(fuse_directions=True) B={B} T={T} I={I} "
           f"H={H} float32 vs fuse_directions=False: output and 8 gradients "
-          f"worst max|diff|/max {max(rel):.2e} (bound {TRAIN_GRAD_REL:.0e}), "
-          f"equal bits {equal}; inference form equal bits {inf_equal}; "
-          f"launches under autograd {launches[True]}, without "
-          f"{launches['no_grad']}")
-    check(max(rel) <= TRAIN_GRAD_REL and inf_equal,
-          f"fused layer disagrees with the unfused one: {rel}")
-    return {"cases": cases, "library": lib, "layer_launches": {
-        "autograd": launches[True], "no_grad": launches["no_grad"]},
+          f"equal bits {equal}, worst max|diff|/max {max(rel):.2e} (bound "
+          f"{TRAIN_GRAD_REL:.0e}); inference form equal bits {inf_equal}; "
+          f"launches under autograd {launches[True]} (unfused "
+          f"{launches[False]}), without {launches['no_grad']}")
+    check(equal[0] and max(rel) <= TRAIN_GRAD_REL and inf_equal,
+          f"fused layer disagrees with the unfused one: {equal} {rel}")
+    return {"cases": cases, "layer_launches": {
+        "autograd": launches[True], "unfused_autograd": launches[False],
+        "no_grad": launches["no_grad"],
+        "unfused_no_grad": launches["unfused_no_grad"]},
         "layer_worst_rel": max(rel), "layer_equal_bits": equal}
 
 
@@ -1285,11 +1343,13 @@ def phase_shapes(dev):
     from pg_asr_tpu_torch.ops import cuda_lstm
     from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
-    out = {"lstm": [], "joint": [], "flash": [], "beam": []}
+    out = {"lstm": [], "bilstm": [], "joint": [], "flash": [], "beam": []}
     # --- the LSTM at phase 3's B and T past 512 units (U's columns from L2):
-    # H=512 float32 and H=1024 bfloat16, forward scan, both forms and the
+    # H=512 float32, H=1024 bfloat16 and H=2048 (fewer rows a cluster, a
+    # thread looping over units) in both, forward scan, both forms and the
     # backward on the plain forward's residuals, within phase 3's bounds
-    for dtype, lH in ((torch.float32, 512), (torch.bfloat16, 1024)):
+    for dtype, lH in ((torch.float32, 512), (torch.bfloat16, 1024),
+                      (torch.float32, 2048), (torch.bfloat16, 2048)):
         name = str(dtype).split(".")[1]
         g_ = torch.Generator().manual_seed(SEED)
         lens = torch.randint(1, T + 1, (B,), generator=g_)
@@ -1373,6 +1433,84 @@ def phase_shapes(dev):
               f"{e_du[0]:.2e}; lstm_fwd {fwd_ms:.3f} ms (plain "
               f"{fwd_plain:.3f} ms), lstm_bwd {bwd_ms:.3f} ms")
 
+    # --- the fused directions at phase 3's B and T and H=1024 (refused by
+    # the first fused kernels): bilstm_fwd (both forms) and bilstm_bwd, each
+    # direction equal bit for bit to lstm_fwd / lstm_bwd, against the plain
+    # versions within phase 3's max bounds; timed beside two single-direction
+    # launches
+    from pg_asr_tpu_torch.ops.lstm import (bilstm_scan_bwd_plain,
+                                           bilstm_scan_plain)
+    for dtype in (torch.float32, torch.bfloat16):
+        lH, name = 1024, str(dtype).split(".")[1]
+        g_ = torch.Generator().manual_seed(SEED + 3)
+        lens = torch.randint(1, T + 1, (B,), generator=g_)
+        lens[0], lens[1] = T, 1
+        mask = (torch.arange(T)[None] < lens[:, None]).to(dev, torch.float32)
+        xpf, xpb = ((0.5 * torch.randn(B, T, 4 * lH, generator=g_)).to(
+            dev, dtype) for _ in range(2))
+        Uf, Ub = (((torch.rand(lH, 4 * lH, generator=g_) * 2 - 1)
+                   / math.sqrt(lH)).to(dev, dtype) for _ in range(2))
+        gy = torch.randn(B, T, 2 * lH, generator=g_).to(dev, dtype)
+        args = (xpf, xpb, Uf, Ub, mask)
+        c0 = lstm_counts()
+        res = cuda_lstm.bilstm_scan_residual_cuda(*args)
+        y = cuda_lstm.bilstm_scan_cuda(*args)
+        ref = bilstm_scan_plain(*args, residuals=True)
+        bwd = cuda_lstm.bilstm_scan_bwd_cuda(*args, *ref[1:], gy)
+        c1 = lstm_counts()
+        r_bwd = bilstm_scan_bwd_plain(*args, *ref[1:], gy)
+        sf = cuda_lstm.lstm_scan_residual_cuda(xpf, Uf, mask, False)
+        sb = cuda_lstm.lstm_scan_residual_cuda(xpb, Ub, mask, True)
+        gyf, gyb = gy[..., :lH].contiguous(), gy[..., lH:].contiguous()
+        s_f = cuda_lstm.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2], gyf,
+                                           False)
+        s_b = cuda_lstm.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4], gyb,
+                                           True)
+        torch.cuda.synchronize()
+        check({k: c1[k] - c0[k] for k in c0} == {
+            **dict.fromkeys(c0, 0), "bilstm_fwd": 1, "bilstm_fwd_residual": 1,
+            "bilstm_bwd": 1}, f"bilstm H={lH}: launches")
+        check(torch.equal(y, res[0]), f"bilstm H={lH}: the forms' y differ")
+        equal = all(torch.equal(a, b) for a, b in zip(
+            (*res, *bwd), (torch.cat([sf[0], sb[0]], -1), sf[1], sf[2],
+                           sb[1], sb[2], s_f[0], s_b[0], s_f[1], s_b[1])))
+        check(equal, f"bilstm H={lH} {name}: bits differ from two "
+                     "single-direction launches")
+        errs = {k: _errs(g, r)[0] for k, g, r in zip(
+            ("y", "hpf", "cpf", "hpb", "cpb"), res, ref)}
+        for k, mx in errs.items():
+            bd = CPREV_BOUNDS[name] if k.startswith("c") else BOUNDS[name]
+            check(mx <= bd["max"], f"bilstm_fwd H={lH} {name}: {k} {mx}")
+        bb = BWD_BOUNDS[name]
+        for k, g_b, r_b in zip(("dxpf", "dxpb", "dUf", "dUb"), bwd, r_bwd):
+            ref_max = r_b.float().abs().max().item()
+            lim = (bb["du_rel"] * ref_max if k.startswith("dU")
+                   else bb.get("dxp_max", bb.get("dxp_rel", 0) * ref_max))
+            errs[k] = _errs(g_b, r_b)[0]
+            check(errs[k] <= lim, f"bilstm_bwd H={lH} {name}: {k} "
+                                  f"{errs[k]} > {lim}")
+        t = turns({
+            "fwd": lambda: cuda_lstm.bilstm_scan_cuda(*args),
+            "two_fwd": lambda: (cuda_lstm.lstm_scan_cuda(xpf, Uf, mask, False),
+                                cuda_lstm.lstm_scan_cuda(xpb, Ub, mask, True)),
+            "bwd": lambda: cuda_lstm.bilstm_scan_bwd_cuda(*args, *ref[1:], gy),
+            "two_bwd": lambda: (
+                cuda_lstm.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1], ref[2],
+                                             gyf, False),
+                cuda_lstm.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3], ref[4],
+                                             gyb, True))},
+            dict.fromkeys(("fwd", "two_fwd", "bwd", "two_bwd"), 2))
+        out["bilstm"].append({"dtype": name, "B": B, "T": T, "H": lH,
+                              "max_abs_errors": errs, **{
+                                  f"{k}_ms": v for k, v in t.items()}})
+        print(f"[shapes] bilstm B={B} T={T} H={lH} {name}: bilstm_fwd (both "
+              f"forms) and bilstm_bwd launched once each, each direction "
+              f"equal bit for bit to lstm_fwd / lstm_bwd; max abs errors "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; in turns: bilstm_fwd {t['fwd']:.3f} ms (2 x lstm_fwd "
+              f"{t['two_fwd']:.3f}), bilstm_bwd {t['bwd']:.3f} ms (2 x "
+              f"lstm_bwd {t['two_bwd']:.3f})")
+
     # --- the joint: a few utterances at A=256, J=640
     jB, jT, jU, jJ, jA = 4, 51, 20, 640, 256
     for dtype in (torch.float32, torch.bfloat16):
@@ -1420,10 +1558,11 @@ def phase_shapes(dev):
               + f" (max, grads rel to max|grad|); repeats its bits; "
               f"joint_fwd {fwd_ms:.4f} ms, joint_bwd {bwd_ms:.4f} ms")
 
-    # --- flash attention at dh=128 (an instance) and 256 (the wide
-    # kernels), phase 3c's shape
+    # --- flash attention at dh=128 (an instance), 256 (the wide kernels)
+    # and 512 (the wide kernels in two pieces), phase 3c's shape
     for dh, dtype in ((128, torch.float32), (128, torch.bfloat16),
-                      (256, torch.float32), (256, torch.bfloat16)):
+                      (256, torch.float32), (256, torch.bfloat16),
+                      (512, torch.float32), (512, torch.bfloat16)):
         scale = dh ** -0.5
         name = str(dtype).split(".")[1]
         q, k, v, valid, lens = attn_inputs(dev, dtype, dh)
@@ -1539,7 +1678,7 @@ def run_cli(argv):
     return rc, out.getvalue()
 
 
-def phase_predict(dev, corpus, alphabet, d, kernel_cases):
+def phase_predict(dev, corpus, alphabet, d, bi):
     import torch
 
     from pg_asr_tpu_torch.checkpoint import save_model
@@ -1564,24 +1703,25 @@ def phase_predict(dev, corpus, alphabet, d, kernel_cases):
           f"vocab {alphabet.size}, {n_params} params; {len(utts)} test "
           f"utterances in {n_batches} batches of <= {bs}")
 
-    cuda_lstm.LAUNCHES = 0
+    inf, _, _, per_batch = route_counters()
+    reset_counts()
     t0 = time.perf_counter()
     rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
                        "--model_path", model_dir, "--device", str(dev)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_lstm.LAUNCHES
+    launches = lstm_counts()
     print(f"[predict] rc={rc} in {wall:.2f} s (host clock, first run: "
-          f"includes data loading and warm-up); lstm_fwd launches {launches}")
+          f"includes data loading and warm-up); LSTM launches {launches}")
     check(rc == 0, "predict failed")
     check("CER:" in out and "WER:" in out, "CER/WER not printed")
     with open(os.path.join(model_dir, "predicted.txt")) as fo:
         rows = fo.read().splitlines()
     check(len(rows) == len(utts) and all("|" in r for r in rows),
           f"predicted.txt has {len(rows)} rows for {len(utts)} utts")
-    per_batch = 2 * cfg.model.num_layers
-    check(launches == per_batch * n_batches,
-          f"lstm_fwd launched {launches} times, expected {per_batch} x "
+    check(launches == {**dict.fromkeys(launches, 0),
+                       inf: per_batch * n_batches},
+          f"LSTM launches {launches}, expected {per_batch} {inf} x "
           f"{n_batches} batches")
 
     # one batch: the forward with the kernel vs with the plain recurrence
@@ -1606,11 +1746,11 @@ def phase_predict(dev, corpus, alphabet, d, kernel_cases):
     for dtype in ("float32", "bfloat16"):
         p_d, c_d = load_model(model_dir, alphabet, device=dev, dtype=dtype)
         f_k = time_ms(lambda: forward(p_d, wave64, ns64, c_d), 5)
-        lstm = per_batch * sum(c["ms"] for c in kernel_cases["fwd"]
-                               if c["dtype"] == dtype) / 2
+        fused = next(c for c in bi["cases"] if c["dtype"] == dtype)
+        lstm = per_batch * fused["fwd_ms"]
         print(f"[predict] forward B={B} x 5 s (T={T}), {dtype}: with kernel "
-              f"{f_k:.2f} ms; the 6 LSTM directions at phase 3's kernel "
-              f"times: {lstm:.2f} ms ({lstm / f_k:.0%})")
+              f"{f_k:.2f} ms; the {per_batch} {inf} launches at phase 3f's "
+              f"time: {lstm:.2f} ms ({lstm / f_k:.0%})")
 
     beam_launches = run_beam_predict(dev, corpus, model_dir, len(utts))
     # the beam batch's log-probs: ctc_beam vs the plain scan. Random weights
@@ -1633,7 +1773,8 @@ def phase_predict(dev, corpus, alphabet, d, kernel_cases):
 def run_beam_predict(dev, corpus, model_dir, n_utts: int) -> int:
     """`--mode predict --decoder beam` through the CLI (default batch 128,
     K=16, prune 6); checks its outputs and that each batch launched ctc_beam
-    once and lstm_fwd 6 times. Returns the ctc_beam launches."""
+    once and the encoder's route its LSTM kernels (route_counters). Returns
+    the ctc_beam launches."""
     import torch
 
     from pg_asr_tpu_torch.config import Config
@@ -1641,18 +1782,18 @@ def run_beam_predict(dev, corpus, model_dir, n_utts: int) -> int:
     from pg_asr_tpu_torch.ops import cuda_lstm
 
     n_batches = -(-n_utts // BEAM_B)
-    per_batch = 2 * Config().model.num_layers
-    cuda_lstm.LAUNCHES = cuda_beam.LAUNCHES = 0
+    inf, _, _, per_batch = route_counters()
+    reset_counts()
     t0 = time.perf_counter()
     rc, out = run_cli(["--mode", "predict", "--decoder", "beam",
                        "--corpus_path", corpus, "--model_path", model_dir,
                        "--device", str(dev)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, lstm = cuda_beam.LAUNCHES, cuda_lstm.LAUNCHES
+    launches, lstm = cuda_beam.LAUNCHES, lstm_counts()
     print(f"[predict] --decoder beam: rc={rc} in {wall:.2f} s (host clock); "
           f"{n_utts} utterances in {n_batches} batch(es) of <= {BEAM_B}; "
-          f"ctc_beam launches {launches}, lstm_fwd launches {lstm}")
+          f"ctc_beam launches {launches}, LSTM launches {lstm}")
     check(rc == 0, "beam predict failed")
     check("CER:" in out and "WER:" in out, "beam predict: CER/WER not printed")
     with open(os.path.join(model_dir, "predicted.txt")) as fo:
@@ -1661,9 +1802,9 @@ def run_beam_predict(dev, corpus, model_dir, n_utts: int) -> int:
           f"beam predict: predicted.txt has {len(rows)} rows for {n_utts}")
     check(launches == n_batches,
           f"ctc_beam launched {launches} times for {n_batches} batches")
-    check(lstm == per_batch * n_batches,
-          f"beam predict: lstm_fwd launched {lstm} times, expected "
-          f"{per_batch} x {n_batches}")
+    check(lstm == {**dict.fromkeys(lstm, 0), inf: per_batch * n_batches},
+          f"beam predict: LSTM launches {lstm}, expected {per_batch} {inf} "
+          f"x {n_batches}")
     return launches
 
 
@@ -1684,7 +1825,7 @@ def flagship_batch(dev, label_len: int = 60, vocab: int = 28,
     return tuple(a.to(dev) for a in (wave, ns, labels, lens))
 
 
-def phase_train(dev, corpus, alphabet, d, kernel_cases):
+def phase_train(dev, corpus, alphabet, d, bi):
     import numpy as np
     import torch
 
@@ -1701,34 +1842,25 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
     dev_utts = load_manifest(os.path.join(corpus, "dev.tsv"), clips)
     n_test = len(load_manifest(os.path.join(corpus, "test.tsv"), clips))
     steps, n_dev = -(-n_train // bs), -(-len(dev_utts) // bs)
-    per = 2 * Config().model.num_layers  # LSTM directions per forward
     model_dir = os.path.join(d, "trained")
     argv = ["--mode", "train", "--corpus_path", corpus, "--model_path",
             model_dir, "--device", str(dev), "--seed", str(SEED)]
 
-    cuda_lstm.LAUNCHES = cuda_lstm.RES_LAUNCHES = cuda_lstm.BWD_LAUNCHES = 0
-    cuda_lstm.BI_LAUNCHES = cuda_lstm.BI_RES_LAUNCHES = 0
-    cuda_lstm.BI_BWD_LAUNCHES = 0
+    inf, res, bwd, per = route_counters()  # launches per forward
+    reset_counts()
     t0 = time.perf_counter()
     rc, out = run_cli(argv + ["--num_epochs", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"lstm_fwd": cuda_lstm.LAUNCHES,
-              "lstm_fwd_residual": cuda_lstm.RES_LAUNCHES,
-              "lstm_bwd": cuda_lstm.BWD_LAUNCHES}
+    counts = lstm_counts()
     print(f"[train] rc={rc}, 1 epoch of {n_train} utterances ({steps} "
           f"steps of <= {bs}) + validation on {len(dev_utts)} in {wall:.2f} "
           f"s (host clock, includes WAV decode); launches {counts}")
     check(rc == 0, "train failed")
-    check(counts["lstm_bwd"] == per * steps,
-          f"lstm_bwd launched {counts['lstm_bwd']} times, expected {per} x "
-          f"{steps} steps")
-    check(counts["lstm_fwd_residual"] == per * steps,
-          f"residual lstm_fwd launched {counts['lstm_fwd_residual']} times, "
-          f"expected {per} x {steps} steps")
-    check(counts["lstm_fwd"] == per * n_dev,
-          f"inference lstm_fwd launched {counts['lstm_fwd']} times, expected "
-          f"{per} x {n_dev} dev batches")
+    check(counts == {**dict.fromkeys(counts, 0), res: per * steps,
+                     bwd: per * steps, inf: per * n_dev},
+          f"LSTM launches {counts}, expected {per} {res} and {per} {bwd} x "
+          f"{steps} steps, {per} {inf} x {n_dev} dev batches")
     for name in ("model_best.pt", "model_last.pt", "train_loss.npy",
                  "val_losses.npy", "config.json"):
         check(os.path.exists(os.path.join(model_dir, name)), f"no {name}")
@@ -1741,14 +1873,14 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
     tl = np.load(os.path.join(model_dir, "train_loss.npy"))
     check(rc == 0 and "resumed from epoch 1" in out and tl.shape == (2,)
           and np.isfinite(tl).all(), f"resume failed: {tl}")
-    cuda_lstm.LAUNCHES = 0
+    reset_counts()
     rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
                        "--model_path", model_dir, "--device", str(dev)])
     check(rc == 0 and "CER:" in out and "WER:" in out,
           "predict on the trained model failed")
-    check(cuda_lstm.LAUNCHES == per * -(-n_test // bs),
-          f"predict on the trained model: {cuda_lstm.LAUNCHES} lstm_fwd "
-          "launches")
+    got = lstm_counts()
+    check(got == {**dict.fromkeys(got, 0), inf: per * -(-n_test // bs)},
+          f"predict on the trained model: LSTM launches {got}")
     counts["ctc_beam"] = run_beam_predict(dev, corpus, model_dir, n_test)
 
     # one batch: loss and every parameter gradient, kernel vs plain path
@@ -1790,13 +1922,11 @@ def phase_train(dev, corpus, alphabet, d, kernel_cases):
 
         ms = time_ms(step, 5)
         steps_ms[dtype] = ms
-        f = per * sum(c["ms"] for c in kernel_cases["res"]
-                      if c["dtype"] == dtype) / 2
-        b = per * sum(c["ms"] for c in kernel_cases["bwd"]
-                      if c["dtype"] == dtype) / 2
+        fused = next(c for c in bi["cases"] if c["dtype"] == dtype)
+        f, b = per * fused["res_ms"], per * fused["bwd_ms"]
         print(f"[train] step B={B} x 5 s (T={T}, labels 60), {dtype}: "
-              f"{ms:.2f} ms; at phase 3's kernel times the 6 residual "
-              f"forwards {f:.2f} ms ({f / ms:.0%}) and the 6 backwards "
+              f"{ms:.2f} ms; at phase 3f's times the {per} {res} launches "
+              f"{f:.2f} ms ({f / ms:.0%}) and the {per} {bwd} launches "
               f"{b:.2f} ms ({b / ms:.0%})")
     return counts, steps_ms
 
@@ -1844,7 +1974,7 @@ def phase_attention(dev, corpus, alphabet, d, family, flash_cases):
                                     BEAM_B),
                                    ("greedy_dense", False, [], 32)):
         n_batches = -(-len(utts) // bs)
-        cuda_flash_attn.LAUNCHES = cuda_beam.LAUNCHES = cuda_lstm.LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
                            "--model_path", dirs[flash], "--device", str(dev),
@@ -1865,9 +1995,10 @@ def phase_attention(dev, corpus, alphabet, d, family, flash_cases):
         want = per * n_batches if flash else 0
         check(launches == want, f"{family} {name}: flash_attn launched "
               f"{launches} times, expected {want}")
-        check(beams == (n_batches if extra else 0) and cuda_lstm.LAUNCHES == 0,
-              f"{family} {name}: ctc_beam {beams}, lstm_fwd "
-              f"{cuda_lstm.LAUNCHES} launches")
+        check(beams == (n_batches if extra else 0)
+              and not any(lstm_counts().values()),
+              f"{family} {name}: ctc_beam {beams}, LSTM {lstm_counts()} "
+              "launches")
         counts[name] = launches
 
     # one batch: the forward with the kernel vs with the plain attention
@@ -1971,8 +2102,7 @@ def phase_attention_train(dev, corpus, alphabet, d, family):
             "flash_attn_bwd_dq": per * steps}
 
     def no_lstm_or_beam():
-        return (cuda_lstm.LAUNCHES + cuda_lstm.RES_LAUNCHES
-                + cuda_lstm.BWD_LAUNCHES + cuda_beam.LAUNCHES) == 0
+        return sum(lstm_counts().values()) + cuda_beam.LAUNCHES == 0
 
     counts = {}
     for epochs, extra in ((1, ["--model", family, "--flash_attention"]),
@@ -2173,8 +2303,7 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
                   "flash_attn_bwd_dq": per * steps}
 
     def no_lstm_or_beam():
-        return (cuda_lstm.LAUNCHES + cuda_lstm.RES_LAUNCHES
-                + cuda_lstm.BWD_LAUNCHES + cuda_beam.LAUNCHES) == 0
+        return sum(lstm_counts().values()) + cuda_beam.LAUNCHES == 0
 
     def check_run(tag, model_dir, n_epochs, joint_want):
         got = {**flash_counts(), **joint_counts()}
@@ -2278,8 +2407,9 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
           f"transducer gradients disagree: {grad_rel}")
 
     # 6. one kernel-path step with the BiLSTM and the transformer encoders
+    _, res, bwd, per = route_counters()
     want_by_enc = {
-        "bilstm": {"lstm_fwd_residual": 6, "lstm_bwd": 6},
+        "bilstm": {res: per, bwd: per},
         "transformer": {"flash_attn_residual": 6, "flash_attn_bwd_dkv": 6,
                         "flash_attn_bwd_dq": 6}}
     for enc, want in want_by_enc.items():
@@ -2294,10 +2424,7 @@ def phase_transducer_train(dev, corpus, alphabet, d, joint_cases):
             device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         got = {**{k: v for k, v in flash_counts().items() if v},
-               **{k: v for k, v in (("lstm_fwd_residual",
-                                     cuda_lstm.RES_LAUNCHES),
-                                    ("lstm_bwd", cuda_lstm.BWD_LAUNCHES),
-                                    ("lstm_fwd", cuda_lstm.LAUNCHES)) if v},
+               **{k: v for k, v in lstm_counts().items() if v},
                **joint_counts()}
         counts[f"step_{enc}"] = got
         print(f"[transducer train] one step, {enc} encoder (default width, "
@@ -2570,12 +2697,24 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
 
     conformer_epoch = attention_train["conformer"]["launches"]["epoch1"]
     jf = next(c for c in cases["joint"] if c["dtype"] == "float32")
+    # the BiLSTM-CTC's model paths (predict, train), counts set to 0 before
+    # each; where the encoder's route fuses the directions, the
+    # single-direction kernels run on bilstm_layer(fuse_directions=False),
+    # the JAX package's default of that entry point (phase 3f)
+    route = {"predict": predict_launches[0],
+             "train": {k: train_counts[k] for k in predict_launches[0]}}
+
+    def launches(name, layer):
+        by_path = {path: n[name] for path, n in route.items()}
+        own = bi["layer_launches"][layer][name]
+        return {"launches": sum(by_path.values()) or own,
+                "launches_by_path": {**by_path, (
+                    "bilstm_layer(fuse_directions=False)"): own}}
+
     return [{
         "name": "lstm_fwd", "route": "cuda", "source": src + "lstm_fwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:80",
-        "launches": predict_launches[0],
-        "launches_by_path": {"predict": predict_launches[0],
-                             "train": train_counts["lstm_fwd"]},
+        **launches("lstm_fwd", "unfused_no_grad"),
         "max_abs_err": max(c["max_abs_err"] for c in cases["fwd"]
                            if c["dtype"] == "float32"),
         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
@@ -2585,7 +2724,7 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
         "name": "lstm_fwd_residual", "route": "cuda",
         "source": src + "lstm_fwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:80",
-        "launches": train_counts["lstm_fwd_residual"],
+        **launches("lstm_fwd_residual", "unfused_autograd"),
         "max_abs_err": max(max(v[0] for v in c["errors"].values())
                            for c in cases["res"] if c["dtype"] == "float32"),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2594,13 +2733,13 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
     }, {
         "name": "lstm_bwd", "route": "cuda", "source": src + "lstm_bwd.cu",
         "replaces": "pg_asr_tpu/ops/pallas_lstm.py:122",
-        "launches": train_counts["lstm_bwd"],
+        **launches("lstm_bwd", "unfused_autograd"),
         "max_abs_err": max(c["dxp_max_abs_err"] for c in cases["bwd"]
                            if c["dtype"] == "float32"),
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": lib["bwd_ms"],
         "cases": cases["bwd"],
-    }, *bilstm_rows(bi, src), {
+    }, *bilstm_rows(bi, src, route), {
         "name": "ctc_beam", "route": "cuda", "source": src + "ctc_beam.cu",
         "replaces": "pg_asr_tpu/decoding/pallas_beam.py:67",
         "launches": predict_launches[1],
@@ -2716,35 +2855,39 @@ def kernels_line(cases, lib, predict_launches, train_counts, attention,
     }]
 
 
-def bilstm_rows(bi, src):
-    """The kernels line's rows 3 (both forms) and 4: launches from the
-    fused layer's runs in phase 3f (with counts set to 0 just before each),
-    float32 times."""
+def bilstm_rows(bi, src, route_counts):
+    """The kernels line's rows 3 (both forms) and 4, float32 times:
+    launches from the model paths the encoder's route takes through them
+    (route_counts: {path: {counter: launches}}, counts set to 0 before each
+    path), beside the fused layer's own runs in phase 3f."""
     c = next(c for c in bi["cases"] if c["dtype"] == "float32")
-    lib = bi["library"]
     note = ("cuDNN nn.LSTM(512, 256, bidirectional=True), which also does "
-            "the input projection")
+            "the input projection, timed in turns with the kernel")
     rows = []
-    for name, key, lib_key, launches in (
-            ("bilstm_fwd", "fwd", "fwd_ms", bi["layer_launches"]["no_grad"]),
-            ("bilstm_fwd_residual", "res", "train_fwd_ms",
-             bi["layer_launches"]["autograd"]),
-            ("bilstm_bwd", "bwd", "bwd_ms", bi["layer_launches"]["autograd"])):
+    for name, key, layer in (
+            ("bilstm_fwd", "fwd", bi["layer_launches"]["no_grad"]),
+            ("bilstm_fwd_residual", "res", bi["layer_launches"]["autograd"]),
+            ("bilstm_bwd", "bwd", bi["layer_launches"]["autograd"])):
         errs = c["bwd_errors" if key == "bwd" else "fwd_errors"]
         two = {"fwd": "two_lstm_fwd_ms", "res": "two_lstm_fwd_residual_ms",
                "bwd": "two_lstm_bwd_ms"}[key]
+        by_path = {path: n.get(name, 0) for path, n in route_counts.items()}
         rows.append({
             "name": name, "route": "cuda",
-            "source": src + ("bilstm_bwd.cu" if key == "bwd"
-                             else "bilstm_fwd.cu"),
+            "source": src + ("lstm_bwd.cu" if key == "bwd"
+                             else "lstm_fwd.cu"),
             "replaces": "pg_asr_tpu/ops/pallas_lstm.py:"
                         + ("357" if key == "bwd" else "318"),
-            "launches": launches[name],
+            "launches": sum(by_path.values()) or layer[name],
+            "launches_by_path": {**by_path,
+                                 "bilstm_layer(fuse_directions=True)":
+                                     layer[name]},
             "max_abs_err": max(v[0] for k, v in errs.items()
                                if k.startswith(("y", "h", "c", "dxp"))),
             "ms": c[f"{key}_ms"], "plain_ms": c[f"{key}_plain_ms"],
             "bound_ms": c[f"{key}_bound_ms"],
-            "bound_by": c[f"{key}_bound_by"], "library_ms": lib[lib_key],
+            "bound_by": c[f"{key}_bound_by"],
+            "library_ms": c[f"{key}_cudnn_ms"],
             "library_note": note, two: c[two],
             "cases": bi["cases"] if key == "fwd" else None,
         })
@@ -2765,8 +2908,8 @@ def main() -> int:
     lib = phase_library(dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
-        predict_launches = phase_predict(dev, corpus, alphabet, d, cases)
-        train_counts, _ = phase_train(dev, corpus, alphabet, d, cases)
+        predict_launches = phase_predict(dev, corpus, alphabet, d, bi)
+        train_counts, _ = phase_train(dev, corpus, alphabet, d, bi)
         attention = {family: phase_attention(dev, corpus, alphabet, d, family,
                                              cases["flash"])
                      for family in ("conformer", "transformer")}

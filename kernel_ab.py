@@ -6,6 +6,7 @@
     python3 kernel_ab.py flash_bwd A_ROOT B_ROOT
     python3 kernel_ab.py joint A_ROOT B_ROOT
     python3 kernel_ab.py beam A_ROOT B_ROOT
+    python3 kernel_ab.py bilstm A_ROOT B_ROOT
 
 Runs four fresh processes in the order A, B, B, A. Each imports
 pg_asr_tpu_torch from its root (building that tree's kernels there at
@@ -64,6 +65,18 @@ tree's labels, lens, parents and syms must equal the plain scan's
 (decoding/beam.py _scan_hash + _backtrack_batch), its nll within
 chip_smoke.py's BEAM_NLL_REL, and both trees must give the same bits.
 Compile report: csrc/ctc_beam.cu.
+
+bilstm: the fused directions at chip_smoke.py's phase-3f shape and inputs
+(B=64, T=401, H=256 per direction, ragged lengths from seed 0:
+chip_smoke.bi_inputs), float32 and bfloat16: bilstm_fwd (inference and
+residual forms) and bilstm_bwd, each tree's outputs held against the plain
+versions (bilstm_scan_plain, bilstm_scan_bwd_plain on the plain forward's
+residuals) within chip_smoke.py's BOUNDS, CPREV_BOUNDS and the card test's
+backward bounds, a second launch repeating its bits; beside them two
+single-direction launches of each (2 x lstm_fwd in both forms, 2 x
+lstm_bwd, forward and reverse on one stream) and lstm_fwd / lstm_bwd alone
+(one forward-scan direction). Compile report: csrc/lstm_fwd.cu and
+csrc/lstm_bwd.cu.
 
 Any tree can be passed: a copy of pg_asr_tpu_torch/ with a constant
 changed makes a variant (its worker alone: `kernel_ab.py --worker MODE
@@ -214,6 +227,76 @@ def lstm_worker() -> dict:
                                          r_dxp.float().abs().max().item()),
                            "dU": rel * r_dU.float().abs().max().item()},
                 "repeats_its_bits": _digest(dxp, dU) == _digest(*again)}
+    return out
+
+
+def bilstm_worker() -> dict:
+    import torch
+
+    import chip_smoke as cs  # phase 3f's inputs and phase 3's bounds
+    from pg_asr_tpu_torch.ops import cuda_lstm as cl
+    from pg_asr_tpu_torch.ops.lstm import (bilstm_scan_bwd_plain,
+                                           bilstm_scan_plain)
+
+    dev = torch.device("cuda", 0)
+    mask, *inputs32, _ = cs.bi_inputs(dev)
+    H = cs.H
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xpf, xpb, Uf, Ub, gy = (t.to(dtype) for t in inputs32)
+        args = (xpf, xpb, Uf, Ub, mask)
+        name = str(dtype).split(".")[1]
+        ref = bilstm_scan_plain(*args, residuals=True)
+        r_bwd = bilstm_scan_bwd_plain(*args, *ref[1:], gy)
+        gyf, gyb = gy[..., :H].contiguous(), gy[..., H:].contiguous()
+        for key, fn, want in (
+                ("bilstm_fwd", lambda: cl.bilstm_scan_cuda(*args), ref[:1]),
+                ("bilstm_fwd_residual",
+                 lambda: cl.bilstm_scan_residual_cuda(*args), ref),
+                ("bilstm_bwd",
+                 lambda: cl.bilstm_scan_bwd_cuda(*args, *ref[1:], gy),
+                 r_bwd)):
+            res = fn()
+            res = res if isinstance(res, tuple) else (res,)
+            again = fn()
+            again = again if isinstance(again, tuple) else (again,)
+            errors, bounds = {}, {}
+            for k, got, w in zip(("dxpf", "dxpb", "dUf", "dUb")
+                                 if key == "bilstm_bwd" else
+                                 ("y", "hpf", "cpf", "hpb", "cpb"), res, want):
+                if key == "bilstm_bwd":
+                    rel = LSTM_BWD_REL[name]
+                    errors[k] = _abs_err(got, w)
+                    bounds[k] = rel * (1.0 if name == "float32"
+                                       and k.startswith("dxp")
+                                       else w.float().abs().max().item())
+                else:
+                    bd = (cs.CPREV_BOUNDS if k.startswith("c")
+                          else cs.BOUNDS)[name]
+                    errors[f"{k}_max"], errors[f"{k}_mean"] = cs._errs(got, w)
+                    bounds[f"{k}_max"], bounds[f"{k}_mean"] = (bd["max"],
+                                                               bd["mean"])
+            out[f"{key}_{name}"] = {
+                "ms": _time_ms(fn), "errors": errors, "bounds": bounds,
+                "repeats_its_bits": _digest(*res) == _digest(*again)}
+        for key, fn in (
+                ("2x_lstm_fwd", lambda: (cl.lstm_scan_cuda(xpf, Uf, mask),
+                                         cl.lstm_scan_cuda(xpb, Ub, mask,
+                                                           True))),
+                ("2x_lstm_fwd_residual",
+                 lambda: (cl.lstm_scan_residual_cuda(xpf, Uf, mask),
+                          cl.lstm_scan_residual_cuda(xpb, Ub, mask, True))),
+                ("2x_lstm_bwd",
+                 lambda: (cl.lstm_scan_bwd_cuda(xpf, Uf, mask, ref[1],
+                                                ref[2], gyf),
+                          cl.lstm_scan_bwd_cuda(xpb, Ub, mask, ref[3],
+                                                ref[4], gyb, True))),
+                ("lstm_fwd", lambda: cl.lstm_scan_cuda(xpf, Uf, mask)),
+                ("lstm_fwd_residual",
+                 lambda: cl.lstm_scan_residual_cuda(xpf, Uf, mask)),
+                ("lstm_bwd", lambda: cl.lstm_scan_bwd_cuda(
+                    xpf, Uf, mask, ref[1], ref[2], gyf))):
+            out[f"{key}_{name}"] = {"ms": _time_ms(fn)}
     return out
 
 
@@ -404,16 +487,16 @@ def beam_worker() -> dict:
 
 WORKERS = {"lstm": lstm_worker, "flash_bwd": flash_bwd_worker,
            "flash_fwd": flash_fwd_worker, "joint": joint_worker,
-           "beam": beam_worker}
+           "beam": beam_worker, "bilstm": bilstm_worker}
 
 
 def _label(mangled: str) -> str | None:
     """kernel[type, template ints] of a mangled name of one of the kernels
     the compile report covers, else None."""
     for name in ("flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel",
-                 "flash_attn_kernel", "lstm_fwd_f32", "lstm_fwd_bf16",
+                 "flash_attn_kernel", "lstm_fwd_cc", "lstm_fwd_bf16",
                  "lstm_bwd_kernel", "lstm_bwd_gemm_mma", "lstm_bwd_gemm",
-                 "lstm_bwd_reduce", "joint_fwd_kernel", "joint_bwd_kernel",
+                 "joint_fwd_kernel", "joint_bwd_kernel",
                  "joint_bwd_chunked_kernel", "joint_bwd_reduce_de",
                  "joint_bwd_reduce_w", "ctc_beam_warp", "ctc_beam_block"):
         if name in mangled:
@@ -426,6 +509,7 @@ def _label(mangled: str) -> str | None:
 
 # the sources each mode's compile report covers
 REPORT_SOURCES = {"lstm": ("lstm_fwd.cu", "lstm_bwd.cu"),
+                  "bilstm": ("lstm_fwd.cu", "lstm_bwd.cu"),
                   "flash_bwd": ("flash_attn_bwd.cu",),
                   "flash_fwd": ("flash_attn.cu",),
                   "joint": ("joint_fwd.cu", "joint_bwd.cu"),

@@ -13,9 +13,9 @@ families (greedy or CTC prefix beam) and of the RNN-T transducer (greedy or
 its own beam search, ``decoding/transducer.py``; any of the three
 encoders). On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
-``csrc/lstm_bwd.cu``, its gradient; and, for
-``bilstm_layer(fuse_directions=True)``, both directions in one walk,
-``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``), as do the CTC beam
+``csrc/lstm_bwd.cu``, its gradient; each launches one direction or, for
+``bilstm_layer(fuse_directions=True)``, both directions of a layer at
+once), as do the CTC beam
 search (``csrc/ctc_beam.cu``), with ``flash_attention`` the attention
 (``csrc/flash_attn.cu``, forward in its inference and residual forms;
 ``csrc/flash_attn_bwd.cu``, its gradient) and, with the transducer's

@@ -1,6 +1,5 @@
-// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, bilstm_fwd.cu,
-// bilstm_bwd.cu, ctc_beam.cu, flash_attn.cu, flash_attn_bwd.cu,
-// joint_fwd.cu, joint_bwd.cu).
+// Helpers shared by the kernels (lstm_fwd.cu, lstm_bwd.cu, ctc_beam.cu,
+// flash_attn.cu, flash_attn_bwd.cu, joint_fwd.cu, joint_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,16 +8,13 @@
 namespace pgasr {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 
 // Error codes of our own; positive codes are cudaError_t values.
-constexpr int kErrUnsupportedH = -1;    // LSTM units do not fit one block per SM
-constexpr int kErrGridNotResident = -2; // cooperative grid cannot be co-resident
 constexpr int kErrSharedMemory = -3;    // per-block shared memory above the limit
 constexpr int kErrDtype = -4;
 constexpr int kErrBeamRange = -5;       // ctc_beam: M, Lmax or blank out of range, or
                                         // the block form's candidates past shared memory
-constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim outside 1 .. 256
+constexpr int kErrHeadDim = -6;         // flash_attn(_bwd): head dim below 1
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -123,24 +119,6 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// Checks a cooperative launch of `grid` blocks of kThreads with `smem`
-// bytes of dynamic shared memory: raises the kernel's shared-memory limit
-// and verifies the grid can be co-resident. Returns 0 or an error code.
-template <typename Kernel>
-int prepare_cooperative(Kernel kernel, size_t smem, int grid, int dev, int sms) {
-  int smem_max = 0, per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(
-      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  if (smem > (size_t)smem_max) return kErrSharedMemory;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (grid > per_sm * sms) return kErrGridNotResident;
-  return 0;
-}
-
 // *smem_max = the shared memory a block of the current device can opt in
 // to. Returns 0 or a cudaError_t.
 inline int smem_optin(int* smem_max) {
@@ -160,13 +138,15 @@ inline int device_sms(int* dev, int* sms) {
 }
 
 // --- Thread-block clusters of the LSTM walks (lstm_fwd.cu, lstm_bwd.cu):
-// clusters own batch rows, the blocks of a cluster own hidden units, and
-// only the cluster's blocks exchange data, through distributed shared
-// memory (lstm_bwd under a split cluster barrier, lstm_fwd counted on
-// mbarriers).
+// clusters own batch rows of one direction, the blocks of a cluster own
+// hidden units, and only the cluster's blocks exchange data, through
+// distributed shared memory (lstm_bwd under a split cluster barrier,
+// lstm_fwd counted on mbarriers). A launch carries one direction or the
+// two of a bidirectional layer: clusters 0 .. cpd - 1 walk the first,
+// cpd .. 2 cpd - 1 the second.
 
-constexpr int kMaxH = 1024;        // hidden units a cluster walk takes
-constexpr int kRows = 8;           // batch rows a cluster takes at most
+constexpr int kRows = 8;           // batch rows of a cluster that fill the
+                                   // bf16 walk's n8 tile
 constexpr int kErrNoCluster = -9;  // no cluster of the kernel fits the device
 
 // The cluster barrier split in two: arrive (release: this thread's earlier
@@ -180,22 +160,25 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// A block's share of a walk: its cluster owns batch rows b0 .. b0 + nrows
-// - 1 (`rows` a cluster, the last one ragged), the block of rank q the
-// hidden units u0 .. u0 + nj - 1 (H / CS or one more; njmax the most a
-// block of the cluster has).
+// A block's share of a walk: the direction `dir` of its cluster (cpd
+// clusters a direction), whose rows are b0 .. b0 + nrows - 1 (`rows` a
+// cluster, the last one ragged); the block of rank q owns the hidden units
+// u0 .. u0 + nj - 1 (H / CS or one more; njmax the most a block of the
+// cluster has).
 struct ClusterShare {
-  int njmax, nj, u0, b0, nrows;
-  __device__ ClusterShare(int H, int B, int CS, int rows, int q)
+  int njmax, nj, u0, dir, b0, nrows;
+  __device__ ClusterShare(int H, int B, int CS, int rows, int cpd, int q)
       : njmax((H + CS - 1) / CS), nj(H / CS + (q < H % CS)),
         u0(q * (H / CS) + min(q, H % CS)),
-        b0((int)(blockIdx.x / CS) * rows), nrows(min(rows, B - b0)) {}
+        dir((int)(blockIdx.x / CS) >= cpd),
+        b0(((int)(blockIdx.x / CS) - dir * cpd) * rows),
+        nrows(min(rows, B - b0)) {}
 };
 
-// A launch's choice: cluster size, rows per cluster, clusters, threads and
-// dynamic shared memory per block.
+// A launch's choice: cluster size, rows per cluster, clusters a direction
+// and in all, threads and dynamic shared memory per block.
 struct ClusterPlan {
-  int cs, rows, clusters, threads;
+  int cs, rows, cpd, clusters, threads;
   size_t smem;
 };
 
@@ -224,24 +207,28 @@ int set_cluster_attrs(Kernel kernel, int cs, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && cs > 8)
     e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   return e == cudaSuccess ? 0 : e;
 }
 
-// Plans a walk of B rows: the first cluster size of 8 (at most H) and 16
-// for which fit(cs, &threads, &smem) holds, the block's shared memory is
-// within the device's limit and at least one cluster fits on the device
-// (cudaOccupancyMaxActiveClusters). Rows per cluster, at most kRows: with
-// `spread`, as few as let every cluster be resident at once (for a walk
-// whose work grows with its rows), else as many as there are (for one
-// whose work does not); a larger batch runs in waves of clusters, which is
-// correct since clusters never wait on each other. Sets the kernel's
-// attributes for the chosen size. Returns 0, a cudaError_t,
-// kErrUnsupportedH or kErrNoCluster.
+// Plans a walk of `ndir` directions of B rows each. fit(cs, rows,
+// &threads, &smem) says whether a block of a cluster of cs blocks carrying
+// `rows` rows fits, and its threads and dynamic shared memory. Takes the
+// first cluster size of 8 (at most H) and 16 at which the most rows that
+// fit (up to max_rows, within the device's shared memory) reach `need`
+// (at 8) or `need16` (at 16) and at least one cluster fits on the device
+// (cudaOccupancyMaxActiveClusters: n). So the cluster size, and with it
+// every (row, unit)'s summation order, does not depend on B or ndir. Rows
+// per cluster: as few as let every cluster of the ndir directions be
+// resident at once (n / ndir a direction), rounded up to a multiple of
+// `grain`; a larger batch runs in waves of clusters, which is correct
+// since clusters never wait on each other. Sets the kernel's attributes
+// for the most rows. Returns 0, a cudaError_t or kErrNoCluster.
 template <typename Kernel, typename Fit>
-int plan_clusters(Kernel kernel, int B, int H, bool spread, Fit fit,
+int plan_clusters(Kernel kernel, int B, int H, int ndir, int grain,
+                  int need, int need16, int max_rows, Fit fit,
                   ClusterPlan* p) {
-  if (H < 1 || H > kMaxH) return kErrUnsupportedH;
   int dev = 0, smem_max = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -249,8 +236,12 @@ int plan_clusters(Kernel kernel, int B, int H, bool spread, Fit fit,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
   for (int cs : {H < 8 ? H : 8, 16}) {
-    ClusterPlan c = {cs, 0, 1, 0, 0};  // one cluster for the query
-    if (!fit(cs, &c.threads, &c.smem) || c.smem > (size_t)smem_max) continue;
+    ClusterPlan c = {cs, 0, 1, 1, 0, 0};  // one cluster for the query
+    int cap = 0;
+    for (int r = max_rows; r >= 1 && cap == 0; --r)
+      if (fit(cs, r, &c.threads, &c.smem) && c.smem <= (size_t)smem_max)
+        cap = r;
+    if (cap < min(cs == 16 ? need16 : need, max_rows)) continue;
     int rc = set_cluster_attrs(kernel, cs, c.smem);
     if (rc != 0) return rc;
     cudaLaunchAttribute attr;
@@ -259,8 +250,11 @@ int plan_clusters(Kernel kernel, int B, int H, bool spread, Fit fit,
     e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
     if (e != cudaSuccess) return e;
     if (n < 1) continue;
-    c.rows = min(kRows, spread ? (B + n - 1) / n : B);
-    c.clusters = (B + c.rows - 1) / c.rows;
+    const int per = max(1, n / ndir);
+    c.rows = min(cap, ((B + per - 1) / per + grain - 1) / grain * grain);
+    c.cpd = (B + c.rows - 1) / c.rows;
+    c.clusters = ndir * c.cpd;
+    fit(cs, c.rows, &c.threads, &c.smem);  // the launch's own
     *p = c;
     return 0;
   }

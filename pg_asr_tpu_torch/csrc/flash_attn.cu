@@ -21,9 +21,10 @@
 //            pointers keep the inference form
 //   dh in 1 .. 128, on the template instance for 32, 64 or 128 next up
 //   (its columns past dh zero-filled as the tiles load: a zero column
-//   changes no score and no output; only the first dh are written); dh in
-//   129 .. 256 on the wide kernel (below: CUDA cores, float32 math in both
-//   types, the library's rounding of p); any T >= 1.
+//   changes no score and no output; only the first dh are written); dh
+//   from 129 on the wide kernel (below: CUDA cores, float32 math in both
+//   types, the library's rounding of p; past 256 in pieces of 256); any T
+//   >= 1.
 //
 // Numerics, as the Pallas kernel: s = (q . k accumulated in float32) *
 // scale, plus -0.7 * FLT_MAX where the segments differ (an additive mask,
@@ -532,12 +533,16 @@ size_t wide_smem_bytes() {
          * sizeof(float);
 }
 
-// The forward for dh in 129 .. kWideDh: warp w owns query rows 4 w .. 4 w
-// + 3 of the block's 16; per key tile of 32 (a lane each) the scores over
-// dh in order, the online softmax by warp shuffles, p rounded to v's type
-// (as the library rounds it) and broadcast by shuffles to lanes that own
-// output columns lane + 32 i.
-template <typename T>
+// The forward for dh past 128: warp w owns query rows 4 w .. 4 w + 3 of
+// the block's 16; per key tile of 32 (a lane each) the scores over dh in
+// order, the online softmax by warp shuffles, p rounded to v's type (as
+// the library rounds it) and broadcast by shuffles to lanes that own
+// output columns lane + 32 i. Past kWideDh the head dim is cut in pieces
+// of kWideDh: each block writes one piece of the output (grid x = query
+// tile x pieces) and sums q . k over all pieces in order, reloading the q
+// and k tiles a piece at a time; every block of a query tile computes the
+// same scores, so the pieces' softmax statistics agree bit for bit.
+template <typename T, bool kPieces>
 __global__ void __launch_bounds__(kWideThreads)
 flash_attn_wide_kernel(const FlashArgs a) {
   constexpr int CPL = kWideDh / 32;  // output columns of a lane
@@ -548,9 +553,14 @@ flash_attn_wide_kernel(const FlashArgs a) {
   int* segk = reinterpret_cast<int*>(Vs + kWideKeys * kWideLd);
 
   const Block<T> blk(a);  // its pointers; the rows are the block's own
-  const int q0 = blockIdx.x * kWideRows, Tn = blk.Tn, dh = a.dh;
+  const int Tn = blk.Tn, dh = a.dh;
+  // pieces of the head dim (one up to kWideDh: the loops fold away)
+  const int np = kPieces ? (dh + kWideDh - 1) / kWideDh : 1;
+  const int pc = blockIdx.x % np, q0 = blockIdx.x / np * kWideRows;
+  const int oc = pc * kWideDh, on = min(kWideDh, dh - oc);  // output piece
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_wide<T>(Qs, blk.q, a.sq[2], q0, kWideRows, Tn, dh, kWideThreads);
+  if (np == 1) load_wide<T>(Qs, blk.q, a.sq[2], q0, kWideRows, Tn, dh,
+                            kWideThreads);
   int segq[4];
   float m[4], l[4], acc[4][CPL];
 #pragma unroll
@@ -563,21 +573,30 @@ flash_attn_wide_kernel(const FlashArgs a) {
     for (int i = 0; i < CPL; ++i) acc[r][i] = 0.0f;
   }
   const float* qr = Qs + 4 * warp * kWideLd;
+  const float* kr = Ks + lane * kWideLd;
   for (int k0 = 0; k0 < Tn; k0 += kWideKeys) {
-    __syncthreads();  // the previous tile consumed
-    load_wide<T>(Ks, blk.k, a.sk[2], k0, kWideKeys, Tn, dh, kWideThreads);
-    load_wide<T>(Vs, blk.v, a.sv[2], k0, kWideKeys, Tn, dh, kWideThreads);
-    if (threadIdx.x < kWideKeys) {
-      const int t = k0 + threadIdx.x;
-      segk[threadIdx.x] = t < Tn ? blk.seg[t] : 0;
-    }
-    __syncthreads();
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const float* kr = Ks + lane * kWideLd;
-    for (int d = 0; d < dh; ++d) {
-      const float kv = kr[d];
+    for (int p = 0; p < np; ++p) {  // q . k over the pieces in order
+      const int c0 = p * kWideDh, cn = min(kWideDh, dh - c0);
+      __syncthreads();  // the previous tile or piece consumed
+      if (np > 1)
+        load_wide<T>(Qs, blk.q + c0, a.sq[2], q0, kWideRows, Tn, cn,
+                     kWideThreads);
+      load_wide<T>(Ks, blk.k + c0, a.sk[2], k0, kWideKeys, Tn, cn,
+                   kWideThreads);
+      if (p == np - 1)
+        load_wide<T>(Vs, blk.v + oc, a.sv[2], k0, kWideKeys, Tn, on,
+                     kWideThreads);
+      if (p == 0 && threadIdx.x < kWideKeys) {
+        const int t = k0 + threadIdx.x;
+        segk[threadIdx.x] = t < Tn ? blk.seg[t] : 0;
+      }
+      __syncthreads();
+      for (int d = 0; d < cn; ++d) {
+        const float kv = kr[d];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
+        for (int r = 0; r < 4; ++r) s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
+      }
     }
     const bool key_in = k0 + lane < Tn;
     const int sk = segk[lane];
@@ -614,11 +633,11 @@ flash_attn_wide_kernel(const FlashArgs a) {
     const int t = q0 + 4 * warp + r;
     if (t >= Tn) continue;
     const float inv = l[r] == 0.0f ? 1.0f : 1.0f / l[r];
-    T* row = blk.o + (long long)t * a.so[2];
+    T* row = blk.o + (long long)t * a.so[2] + oc;
 #pragma unroll
     for (int i = 0; i < CPL; ++i)
-      if (lane + 32 * i < dh) row[lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
-    if (a.l != nullptr && lane == 0) {
+      if (lane + 32 * i < on) row[lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+    if (a.l != nullptr && pc == 0 && lane == 0) {
       a.l[blk.row0 + t] = l[r];
       a.m[blk.row0 + t] = m[r];
     }
@@ -628,12 +647,14 @@ flash_attn_wide_kernel(const FlashArgs a) {
 template <typename T>
 int launch_wide(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = wide_smem_bytes();
+  const int pieces = (a.dh + kWideDh - 1) / kWideDh;
+  auto kernel = pieces > 1 ? flash_attn_wide_kernel<T, true>
+                           : flash_attn_wide_kernel<T, false>;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.T + kWideRows - 1) / kWideRows, a.H, a.B);
-  flash_attn_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(a);
+  const dim3 grid((a.T + kWideRows - 1) / kWideRows * pieces, a.H, a.B);
+  kernel<<<grid, kWideThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -682,7 +703,7 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 // the instance of the next head dim up from dh
 template <typename T>
 int launch_dh(const FlashArgs& a, cudaStream_t stream) {
-  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh < 1) return kErrHeadDim;
   if (a.dh <= 32) return launch<T, 32>(a, stream);
   if (a.dh <= 64) return launch<T, 64>(a, stream);
   if (a.dh <= 128) return launch<T, 128>(a, stream);
@@ -696,7 +717,7 @@ extern "C" {
 
 // Strides in elements, (batch, head, time) for each of q, k, v, o; l and m
 // both null (inference form) or both (B, H, T) float32 (residual form);
-// dtype 0 float32, 1 bfloat16; dh in 1 .. 256. Returns 0, kErrHeadDim,
+// dtype 0 float32, 1 bfloat16; any dh >= 1. Returns 0, kErrHeadDim,
 // kErrDtype, or the launch's cudaError_t.
 int pgasr_flash_attn(const void* q, const void* k, const void* v,
                      const int* seg, void* o, float* l, float* m,

@@ -23,9 +23,10 @@
 //                di = sum(o . do) over dh
 //   dq, dk, dv   (B, H, T, dh) in q's type, strides as given
 //   dh in 1 .. 128, on the instance for 32, 64 or 128 next up, its columns
-//   past dh zero-filled as the tiles load (only the first dh written); dh in
-//   129 .. 256 on the wide kernels (below: CUDA cores, float32 math, p and
-//   ds rounded where the library rounds them); any T >= 1.
+//   past dh zero-filled as the tiles load (only the first dh written); dh
+//   from 129 on the wide kernels (below: CUDA cores, float32 math, p and
+//   ds rounded where the library rounds them; past 256 in pieces of 256);
+//   any T >= 1.
 //
 // Numerics, as the Pallas kernels: s = (q . k in float32) * scale plus
 // -0.7 * FLT_MAX where the segments differ; p = exp(s - m) * (1 / l);
@@ -869,12 +870,15 @@ constexpr int kWideRows = 16;         // query rows of a tile
 constexpr int kWideDkvThreads = 256;  // 8 warps: 2 query rows each
 constexpr int kWideDqThreads = 128;   // 4 warps: 4 query rows each
 
-// dkv for dh in 129 .. kWideDh: a block holds 32 keys (k, v) and walks the
-// query tiles of 16 rows. Per row, lane = key: s and dp over dh in order,
-// p and ds (rounded to do's type, as the library rounds them before its
+// dkv for dh past 128: a block holds 32 keys (k, v) and walks the query
+// tiles of 16 rows. Per row, lane = key: s and dp over dh in order, p and
+// ds (rounded to do's type, as the library rounds them before its
 // products) into shared memory; then thread (key tid / 8, columns tid % 8
-// + 8 i) adds p do and ds q over the tile's rows in order.
-template <typename T>
+// + 8 i) adds p do and ds q over the tile's rows in order. Past kWideDh
+// the head dim is cut in pieces of kWideDh: each block writes one piece of
+// dk and dv (grid x = key tile x pieces) and sums s and dp over all pieces
+// in order, loading the tiles a piece at a time.
+template <typename T, bool kPieces>
 __global__ void __launch_bounds__(kWideDkvThreads)
 flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   constexpr int CPT = kWideDh / 8;  // columns of a thread's key
@@ -890,9 +894,13 @@ flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   float* diq = ilq + kWideRows;
   int* segq = reinterpret_cast<int*>(diq + kWideRows);
 
-  const int k0 = blockIdx.x * kWideKeys, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Tn = a.T, dh = a.dh;
+  // pieces of the head dim (one up to kWideDh: the loops fold away)
+  const int np = kPieces ? (dh + kWideDh - 1) / kWideDh : 1;
+  const int pc = blockIdx.x % np, k0 = blockIdx.x / np * kWideKeys;
+  const int oc = pc * kWideDh, on = min(kWideDh, dh - oc);  // output piece
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
   const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
@@ -902,8 +910,10 @@ flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;  // into l, m, di
 
-  load_wide<T>(Ks, kp, a.sk[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
-  load_wide<T>(Vs, vp, a.sv[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
+  if (np == 1) {
+    load_wide<T>(Ks, kp, a.sk[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
+    load_wide<T>(Vs, vp, a.sv[2], k0, kWideKeys, Tn, dh, kWideDkvThreads);
+  }
   const bool key_in = k0 + lane < Tn;
   const int segk = key_in ? seg[k0 + lane] : 0;
   const int ak = threadIdx.x >> 3, c0 = threadIdx.x & 7;
@@ -912,38 +922,60 @@ flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   for (int i = 0; i < CPT; ++i) dk[i] = dv[i] = 0.0f;
 
   for (int q0 = 0; q0 < Tn; q0 += kWideRows) {
-    __syncthreads();  // the previous query tile consumed
-    load_wide<T>(Qs, qp, a.sq[2], q0, kWideRows, Tn, dh, kWideDkvThreads);
-    load_wide<T>(Ds, dop, a.sdo[2], q0, kWideRows, Tn, dh, kWideDkvThreads);
-    if (threadIdx.x < kWideRows) {
-      const int t = q0 + threadIdx.x;
-      const bool in = t < Tn;
-      mq[threadIdx.x] = in ? a.m[row0 + t] : 0.0f;
-      ilq[threadIdx.x] = in ? 1.0f / a.l[row0 + t] : 0.0f;
-      diq[threadIdx.x] = in ? a.di[row0 + t] : 0.0f;
-      segq[threadIdx.x] = in ? seg[t] : 0;
+    float s[2] = {0.0f, 0.0f}, dp[2] = {0.0f, 0.0f};
+    for (int p = 0; p < np; ++p) {  // s and dp over the pieces in order
+      const int pcol = p * kWideDh, cn = min(kWideDh, dh - pcol);
+      __syncthreads();  // the previous query tile or piece consumed
+      if (np > 1) {
+        load_wide<T>(Ks, kp + pcol, a.sk[2], k0, kWideKeys, Tn, cn,
+                     kWideDkvThreads);
+        load_wide<T>(Vs, vp + pcol, a.sv[2], k0, kWideKeys, Tn, cn,
+                     kWideDkvThreads);
+      }
+      load_wide<T>(Qs, qp + pcol, a.sq[2], q0, kWideRows, Tn, cn,
+                   kWideDkvThreads);
+      load_wide<T>(Ds, dop + pcol, a.sdo[2], q0, kWideRows, Tn, cn,
+                   kWideDkvThreads);
+      if (p == 0 && threadIdx.x < kWideRows) {
+        const int t = q0 + threadIdx.x;
+        const bool in = t < Tn;
+        mq[threadIdx.x] = in ? a.m[row0 + t] : 0.0f;
+        ilq[threadIdx.x] = in ? 1.0f / a.l[row0 + t] : 0.0f;
+        diq[threadIdx.x] = in ? a.di[row0 + t] : 0.0f;
+        segq[threadIdx.x] = in ? seg[t] : 0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = 2 * warp + rr;
+        const float* qr = Qs + r * kWideLd;
+        const float* dr = Ds + r * kWideLd;
+        const float* kr = Ks + lane * kWideLd;
+        const float* vr = Vs + lane * kWideLd;
+        for (int d = 0; d < cn; ++d) {
+          s[rr] = fmaf(qr[d], kr[d], s[rr]);
+          dp[rr] = fmaf(dr[d], vr[d], dp[rr]);
+        }
+      }
     }
-    __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = 2 * warp + rr;
-      const float* qr = Qs + r * kWideLd;
-      const float* dr = Ds + r * kWideLd;
-      const float* kr = Ks + lane * kWideLd;
-      const float* vr = Vs + lane * kWideLd;
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < dh; ++d) {
-        s = fmaf(qr[d], kr[d], s);
-        dp = fmaf(dr[d], vr[d], dp);
-      }
       float p = 0.0f, ds = 0.0f;
       if (q0 + r < Tn && key_in) {
-        float sv = s * a.scale + (segq[r] == segk ? 0.0f : kMaskValue);
+        float sv = s[rr] * a.scale + (segq[r] == segk ? 0.0f : kMaskValue);
         p = expf(sv - mq[r]) * ilq[r];
-        ds = (dp - diq[r]) * p * a.scale;
+        ds = (dp[rr] - diq[r]) * p * a.scale;
       }
       Ps[r * kWideKeys + lane] = round_to<T>(p);
       Ss[r * kWideKeys + lane] = round_to<T>(ds);
+    }
+    if (np > 1) {  // the output piece's q and do
+      __syncthreads();
+      load_wide<T>(Qs, qp + oc, a.sq[2], q0, kWideRows, Tn, on,
+                   kWideDkvThreads);
+      load_wide<T>(Ds, dop + oc, a.sdo[2], q0, kWideRows, Tn, on,
+                   kWideDkvThreads);
     }
     __syncthreads();
     const int qn = min(kWideRows, Tn - q0);
@@ -960,12 +992,12 @@ flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   }
   if (k0 + ak < Tn) {
     const long long t = k0 + ak;
-    T* dkr = dkp + t * a.sdk[2];
-    T* dvr = dvp + t * a.sdv[2];
+    T* dkr = dkp + t * a.sdk[2] + oc;
+    T* dvr = dvp + t * a.sdv[2] + oc;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int d = c0 + 8 * i;
-      if (d < dh) {
+      if (d < on) {
         dkr[d] = from_f32<T>(dk[i]);
         dvr[d] = from_f32<T>(dv[i]);
       }
@@ -973,11 +1005,13 @@ flash_attn_bwd_dkv_wide(const FlashBwdArgs a) {
   }
 }
 
-// dq for dh in 129 .. kWideDh: a block holds 16 query rows (q, do; 4 a
-// warp) and walks the key tiles of 32 (lane = key): s and dp over dh in
-// order, ds rounded to k's type, broadcast by shuffles to the lanes that
-// own dq's columns lane + 32 i, added over the keys in order.
-template <typename T>
+// dq for dh past 128: a block holds 16 query rows (q, do; 4 a warp) and
+// walks the key tiles of 32 (lane = key): s and dp over dh in order, ds
+// rounded to k's type, broadcast by shuffles to the lanes that own dq's
+// columns lane + 32 i, added over the keys in order. Past kWideDh, pieces
+// as in the dkv kernel: a block writes one piece of dq (grid x = query
+// tile x pieces).
+template <typename T, bool kPieces>
 __global__ void __launch_bounds__(kWideDqThreads)
 flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
   constexpr int CPL = kWideDh / 32;
@@ -988,9 +1022,13 @@ flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
   float* Vs = Ks + kWideKeys * kWideLd;
   int* segk = reinterpret_cast<int*>(Vs + kWideKeys * kWideLd);
 
-  const int q0 = blockIdx.x * kWideRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Tn = a.T, dh = a.dh;
+  // pieces of the head dim (one up to kWideDh: the loops fold away)
+  const int np = kPieces ? (dh + kWideDh - 1) / kWideDh : 1;
+  const int pc = blockIdx.x % np, q0 = blockIdx.x / np * kWideRows;
+  const int oc = pc * kWideDh, on = min(kWideDh, dh - oc);  // output piece
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
   const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
@@ -999,8 +1037,10 @@ flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
   const int* seg = a.seg + (long long)b * Tn;
   const long long row0 = ((long long)b * a.H + h) * Tn;
 
-  load_wide<T>(Qs, qp, a.sq[2], q0, kWideRows, Tn, dh, kWideDqThreads);
-  load_wide<T>(Ds, dop, a.sdo[2], q0, kWideRows, Tn, dh, kWideDqThreads);
+  if (np == 1) {
+    load_wide<T>(Qs, qp, a.sq[2], q0, kWideRows, Tn, dh, kWideDqThreads);
+    load_wide<T>(Ds, dop, a.sdo[2], q0, kWideRows, Tn, dh, kWideDqThreads);
+  }
   float mr[4], ilr[4], dir[4], dq[4][CPL];
   int segr[4];
   bool row_in[4];
@@ -1017,24 +1057,35 @@ flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
   }
   const float* qr = Qs + 4 * warp * kWideLd;
   const float* dr = Ds + 4 * warp * kWideLd;
+  const float* kr = Ks + lane * kWideLd;
+  const float* vr = Vs + lane * kWideLd;
   for (int k0 = 0; k0 < Tn; k0 += kWideKeys) {
-    __syncthreads();  // the previous key tile consumed
-    load_wide<T>(Ks, kp, a.sk[2], k0, kWideKeys, Tn, dh, kWideDqThreads);
-    load_wide<T>(Vs, vp, a.sv[2], k0, kWideKeys, Tn, dh, kWideDqThreads);
-    if (threadIdx.x < kWideKeys) {
-      const int t = k0 + threadIdx.x;
-      segk[threadIdx.x] = t < Tn ? seg[t] : 0;
-    }
-    __syncthreads();
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const float* kr = Ks + lane * kWideLd;
-    const float* vr = Vs + lane * kWideLd;
-    for (int d = 0; d < dh; ++d) {
-      const float kv = kr[d], vv = vr[d];
+    for (int p = 0; p < np; ++p) {  // s and dp over the pieces in order
+      const int pcol = p * kWideDh, cn = min(kWideDh, dh - pcol);
+      __syncthreads();  // the previous key tile or piece consumed
+      if (np > 1) {
+        load_wide<T>(Qs, qp + pcol, a.sq[2], q0, kWideRows, Tn, cn,
+                     kWideDqThreads);
+        load_wide<T>(Ds, dop + pcol, a.sdo[2], q0, kWideRows, Tn, cn,
+                     kWideDqThreads);
+      }
+      load_wide<T>(Ks, kp + pcol, a.sk[2], k0, kWideKeys, Tn, cn,
+                   kWideDqThreads);
+      load_wide<T>(Vs, vp + pcol, a.sv[2], k0, kWideKeys, Tn, cn,
+                   kWideDqThreads);
+      if (p == 0 && threadIdx.x < kWideKeys) {
+        const int t = k0 + threadIdx.x;
+        segk[threadIdx.x] = t < Tn ? seg[t] : 0;
+      }
+      __syncthreads();
+      for (int d = 0; d < cn; ++d) {
+        const float kv = kr[d], vv = vr[d];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
-        dp[r] = fmaf(dr[r * kWideLd + d], vv, dp[r]);
+        for (int r = 0; r < 4; ++r) {
+          s[r] = fmaf(qr[r * kWideLd + d], kv, s[r]);
+          dp[r] = fmaf(dr[r * kWideLd + d], vv, dp[r]);
+        }
       }
     }
     const bool key_in = k0 + lane < Tn;
@@ -1049,6 +1100,12 @@ flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
         ds = (dp[r] - dir[r]) * p * a.scale;
       }
       dsr[r] = round_to<T>(ds);
+    }
+    if (np > 1) {  // the output piece's k
+      __syncthreads();
+      load_wide<T>(Ks, kp + oc, a.sk[2], k0, kWideKeys, Tn, on,
+                   kWideDqThreads);
+      __syncthreads();
     }
     for (int kk = 0; kk < kWideKeys; ++kk) {
       float dk_[4];
@@ -1066,10 +1123,10 @@ flash_attn_bwd_dq_wide(const FlashBwdArgs a) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (!row_in[r]) continue;
-    T* row = dqp + (long long)(q0 + 4 * warp + r) * a.sdq[2];
+    T* row = dqp + (long long)(q0 + 4 * warp + r) * a.sdq[2] + oc;
 #pragma unroll
     for (int i = 0; i < CPL; ++i)
-      if (lane + 32 * i < dh) row[lane + 32 * i] = from_f32<T>(dq[r][i]);
+      if (lane + 32 * i < on) row[lane + 32 * i] = from_f32<T>(dq[r][i]);
   }
 }
 
@@ -1099,10 +1156,11 @@ flash_attn_bwd_dq_kernel(const FlashBwdArgs a) {
   else dq_mma<DH, kExact>(a);
 }
 
-// the kernel over (tiles of `rows` along T, heads, batch rows)
+// the kernel over (tiles of `rows` along T x `pieces` of the head dim,
+// heads, batch rows)
 template <typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, const FlashBwdArgs& a,
-           cudaStream_t stream, int rows = kBT) {
+           cudaStream_t stream, int rows = kBT, int pieces = 1) {
   smem += flag_bytes(a.T);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1111,7 +1169,7 @@ int launch(Kernel kernel, int threads, size_t smem, const FlashBwdArgs& a,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.T + rows - 1) / rows, a.H, a.B);
+  const dim3 grid((a.T + rows - 1) / rows * pieces, a.H, a.B);
   kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1136,24 +1194,33 @@ int launch_dq_dh(const FlashBwdArgs& a, cudaStream_t stream) {
                 dq_smem_bytes<T, DH>(), a, stream);
 }
 
+// pieces of kWideDh columns of a wide kernel's head dim
+int wide_pieces(int dh) { return (dh + kWideDh - 1) / kWideDh; }
+
 template <typename T>
 int launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
-  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh < 1) return kErrHeadDim;
   if (a.dh <= 32) return launch_dkv_dh<T, 32>(a, stream);
   if (a.dh <= 64) return launch_dkv_dh<T, 64>(a, stream);
   if (a.dh <= 128) return launch_dkv_dh<T, 128>(a, stream);
-  return launch(flash_attn_bwd_dkv_wide<T>, kWideDkvThreads,
-                wide_dkv_smem_bytes(), a, stream, kWideKeys);
+  const int np = wide_pieces(a.dh);
+  return launch(np > 1 ? flash_attn_bwd_dkv_wide<T, true>
+                       : flash_attn_bwd_dkv_wide<T, false>,
+                kWideDkvThreads, wide_dkv_smem_bytes(), a, stream, kWideKeys,
+                np);
 }
 
 template <typename T>
 int launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
-  if (a.dh < 1 || a.dh > kWideDh) return kErrHeadDim;
+  if (a.dh < 1) return kErrHeadDim;
   if (a.dh <= 32) return launch_dq_dh<T, 32>(a, stream);
   if (a.dh <= 64) return launch_dq_dh<T, 64>(a, stream);
   if (a.dh <= 128) return launch_dq_dh<T, 128>(a, stream);
-  return launch(flash_attn_bwd_dq_wide<T>, kWideDqThreads,
-                wide_dq_smem_bytes(), a, stream, kWideRows);
+  const int np = wide_pieces(a.dh);
+  return launch(np > 1 ? flash_attn_bwd_dq_wide<T, true>
+                       : flash_attn_bwd_dq_wide<T, false>,
+                kWideDqThreads, wide_dq_smem_bytes(), a, stream, kWideRows,
+                np);
 }
 
 int make_args(FlashBwdArgs* a, const void* q, const void* k, const void* v,
@@ -1188,7 +1255,7 @@ extern "C" {
 
 // `strides`: 21 (batch, head, time) strides in elements, of q, k, v, do,
 // dq, dk, dv in that order (the output not computed may be anything);
-// dtype 0 float32, 1 bfloat16; dh in 1 .. 256. Each returns 0,
+// dtype 0 float32, 1 bfloat16; any dh >= 1. Each returns 0,
 // kErrHeadDim, kErrDtype, or the launch's cudaError_t.
 int pgasr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const int* seg, const float* l,

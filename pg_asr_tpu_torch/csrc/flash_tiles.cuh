@@ -107,10 +107,11 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col,
   }
 }
 
-// Head dims past the instances (32, 64, 128), up to kWideDh, run the wide kernels
-// (flash_attn.cu, flash_attn_bwd.cu): float32 tiles with rows padded by one
-// (a lane per row reads one column of 32 rows from 32 banks), a lane per
-// key of a walked tile of kWideKeys, the head dim walked in order.
+// Head dims past the instances (32, 64, 128) run the wide kernels
+// (flash_attn.cu, flash_attn_bwd.cu): float32 tiles of kWideDh columns with
+// rows padded by one (a lane per row reads one column of 32 rows from 32
+// banks), a lane per key of a walked tile of kWideKeys, the head dim walked
+// in order, in pieces of kWideDh past it (a block per output piece).
 constexpr int kWideDh = 256;
 constexpr int kWideKeys = 32;
 constexpr int kWideLd = kWideDh + 1;

@@ -32,7 +32,7 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["MAX_HEAD_DIM", "LAUNCHES", "RES_LAUNCHES", "DKV_LAUNCHES",
+__all__ = ["LAUNCHES", "RES_LAUNCHES", "DKV_LAUNCHES",
            "DQ_LAUNCHES", "flash_attn_cuda", "flash_attn_bwd_dkv_cuda",
            "flash_attn_bwd_dq_cuda"]
 
@@ -41,9 +41,8 @@ RES_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_LAUNCHES = 0
 # head dims 1 .. 128 run on the kernels' instances for 32, 64 and 128 (the
-# next one up, its columns past dh zero-filled as the tiles load), 129 ..
-# 256 on the wide kernels
-MAX_HEAD_DIM = 256
+# next one up, its columns past dh zero-filled as the tiles load), larger
+# ones on the wide kernels (in pieces of 256 past 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_HEAD_DIM = -6  # csrc/common.cuh kErrHeadDim
 _declared = False
@@ -87,9 +86,6 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, T, dh = q.shape
     if 0 in q.shape:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name} supports head dims 1 .. {MAX_HEAD_DIM}, "
-                         f"got {dh}")
     if tuple(valid_mask.shape) != (B, T):
         raise ValueError(f"valid_mask must be ({B}, {T}), got "
                          f"{tuple(valid_mask.shape)}")
@@ -130,7 +126,7 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_mask: torch.Tensor, sm_scale: float,
                     residuals: bool = False):
     """Launch flash_attn: q, k, v (B, H, T, dh) float32 or bfloat16 on one
-    CUDA device, dh in 1 .. MAX_HEAD_DIM, valid_mask (B, T) -> the (B, H, T, dh)
+    CUDA device, any dh, valid_mask (B, T) -> the (B, H, T, dh)
     context in q's type; with ``residuals`` -> (o, l, m), l and m (B, H, T)
     float32 (the row sum and max). Raises on anything else."""
     global LAUNCHES, RES_LAUNCHES

@@ -1,6 +1,6 @@
 """LSTM recurrence kernels written by hand in CUDA (csrc/lstm_fwd.cu,
-csrc/lstm_bwd.cu; the fused-direction csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu)
-and their wrappers.
+csrc/lstm_bwd.cu, each launching one direction or, fused, the two of a
+bidirectional layer at once) and their wrappers.
 
 Replaces pg_asr_tpu/ops/pallas_lstm.py ``_kernel`` (inference form and the
 ``train=True`` residual form) and ``_kernel_bwd``, and their fused-direction
@@ -38,15 +38,8 @@ BI_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
-    -1: "hidden size H not supported: lstm_fwd and lstm_bwd take H <= 1024; "
-        "the fused directions hold 1, 2 or 4 hidden units per SM's block "
-        "(bilstm_*: 2H <= #SMs, or H even and <= #SMs, or H a multiple of 4 "
-        "and <= 2 x #SMs; bilstm_bwd also H <= 512)",
-    -2: "cooperative grid does not fit on the device (blocks not co-resident)",
-    -3: "per-block shared memory above the device limit (batch too large)",
     -4: "unsupported dtype",
-    -9: "no thread-block cluster of lstm_fwd / lstm_bwd fits on the device "
-        "(H too large for its shared memory)",
+    -9: "no thread-block cluster of the LSTM walk fits on the device",
 }
 _declared = False
 
@@ -56,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library()
     if not _declared:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pgasr_lstm_fwd.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.pgasr_lstm_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.pgasr_lstm_fwd.restype = ci
         lib.pgasr_lstm_bwd.argtypes = [vp] * 9 + [ctypes.c_longlong] + [
             ci] * 5 + [vp]
@@ -66,8 +59,12 @@ def _lib() -> ctypes.CDLL:
         lib.pgasr_lstm_bwd_scratch.restype = ci
         lib.pgasr_bilstm_fwd.argtypes = [vp] * 11 + [ci] * 4 + [vp]
         lib.pgasr_bilstm_fwd.restype = ci
-        lib.pgasr_bilstm_bwd.argtypes = [vp] * 15 + [ci] * 4 + [vp]
+        lib.pgasr_bilstm_bwd.argtypes = [vp] * 15 + [ctypes.c_longlong] + [
+            ci] * 4 + [vp]
         lib.pgasr_bilstm_bwd.restype = ci
+        lib.pgasr_bilstm_bwd_scratch.argtypes = [ci] * 3 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.pgasr_bilstm_bwd_scratch.restype = ci
         lib.pgasr_cuda_error_string.argtypes = [ci]
         lib.pgasr_cuda_error_string.restype = ctypes.c_char_p
         _declared = True
@@ -106,6 +103,13 @@ def _raise_on(rc: int, lib, kernel: str, B: int, T: int, H: int, dtype) -> None:
                            f"{msg}")
 
 
+def _h_exchange(ndir: int, B: int, H: int, device) -> torch.Tensor:
+    """The forward's float32 scratch: two buffers of h for each (row,
+    direction), through which the walk for the widest H (one row a
+    cluster, csrc/lstm_fwd.cu lstm_fwd_big) exchanges h."""
+    return torch.empty(ndir * B * 2 * H, dtype=torch.float32, device=device)
+
+
 def _forward(xp, U, mask, reverse: bool, residuals: bool):
     B, T, H = _check(xp, U, mask, "lstm_fwd")
     m = mask.to(torch.float32).contiguous()
@@ -114,14 +118,15 @@ def _forward(xp, U, mask, reverse: bool, residuals: bool):
     if residuals:
         hprev = torch.empty(T, B, H, dtype=xp.dtype, device=xp.device)
         cprev = torch.empty(T, B, H, dtype=torch.float32, device=xp.device)
+    hg = _h_exchange(1, B, H, xp.device)
     lib = _lib()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgasr_lstm_fwd(
             xp.data_ptr(), U.data_ptr(), m.data_ptr(), out.data_ptr(),
             hprev.data_ptr() if residuals else None,
-            cprev.data_ptr() if residuals else None, B, T, H, int(reverse),
-            _DTYPES[xp.dtype], stream)
+            cprev.data_ptr() if residuals else None, hg.data_ptr(), B, T, H,
+            int(reverse), _DTYPES[xp.dtype], stream)
     _raise_on(rc, lib, "lstm_fwd", B, T, H, xp.dtype)
     return out, hprev, cprev
 
@@ -149,9 +154,9 @@ def lstm_scan_bwd_cuda(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
                        hprev: torch.Tensor, cprev: torch.Tensor,
                        gy: torch.Tensor, reverse: bool = False):
     """Launch lstm_bwd -> (dxp (B,T,4H) in xp's type, dU (H,4H) in U's).
-    One call runs the gate recompute for all steps (into a float32
-    scratch), the walk, and dU as float32 partial products that its last
-    kernel adds in order."""
+    One call is three launches: the gate recompute for all steps (into a
+    float32 scratch), the walk, and dU as float32 partial products that
+    the last block of each tile adds in order."""
     global BWD_LAUNCHES
     B, T, H = _check(xp, U, mask, "lstm_bwd")
     for name, t, dtype, shape in (("hprev", hprev, xp.dtype, (T, B, H)),
@@ -198,28 +203,29 @@ def _bi_forward(xpf, xpb, Uf, Ub, mask, residuals: bool):
     m = mask.to(torch.float32).contiguous()
     dev = xpf.device
     y = torch.empty(B, T, 2 * H, dtype=xpf.dtype, device=dev)
-    hbuf = torch.empty(2, 2, B, H, dtype=torch.float32, device=dev)
     res = [None] * 4
     if residuals:
         hp = torch.empty(2, T, B, H, dtype=xpf.dtype, device=dev)
         cp = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
         res = [hp[0], cp[0], hp[1], cp[1]]
+    hg = _h_exchange(2, B, H, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgasr_bilstm_fwd(
             xpf.data_ptr(), xpb.data_ptr(), Uf.data_ptr(), Ub.data_ptr(),
-            m.data_ptr(), y.data_ptr(), hbuf.data_ptr(),
-            *(r.data_ptr() if residuals else None for r in res), B, T, H,
-            _DTYPES[xpf.dtype], stream)
+            m.data_ptr(), y.data_ptr(),
+            *(r.data_ptr() if residuals else None for r in res),
+            hg.data_ptr(), B, T, H, _DTYPES[xpf.dtype], stream)
     _raise_on(rc, lib, "bilstm_fwd", B, T, H, xpf.dtype)
     return y, res
 
 
 def bilstm_scan_cuda(xpf: torch.Tensor, xpb: torch.Tensor, Uf: torch.Tensor,
                      Ub: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Launch bilstm_fwd, inference form -> y (B, T, 2H). Raises on
-    anything it does not take."""
+    """Launch bilstm_fwd, inference form -> y (B, T, 2H): both directions
+    in one launch, each written straight into its half. Raises on anything
+    it does not take."""
     global BI_LAUNCHES
     y, _ = _bi_forward(xpf, xpb, Uf, Ub, mask, residuals=False)
     BI_LAUNCHES += 1
@@ -243,7 +249,8 @@ def bilstm_scan_bwd_cuda(xpf: torch.Tensor, xpb: torch.Tensor,
                          cpf: torch.Tensor, hpb: torch.Tensor,
                          cpb: torch.Tensor, gy: torch.Tensor):
     """Launch bilstm_bwd -> (dxpf, dxpb (B,T,4H) in xp's type, dUf, dUb
-    (H,4H) in U's)."""
+    (H,4H) in U's): lstm_bwd's three launches, each carrying both
+    directions."""
     global BI_BWD_LAUNCHES
     B, T, H = _check_bi(xpf, xpb, Uf, Ub, mask, "bilstm_bwd")
     for name, t, dtype, shape in (("hpf", hpf, xpf.dtype, (T, B, H)),
@@ -258,14 +265,18 @@ def bilstm_scan_bwd_cuda(xpf: torch.Tensor, xpb: torch.Tensor,
     hpf, cpf, hpb, cpb, gy = (t.contiguous() for t in (hpf, cpf, hpb, cpb, gy))
     dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
     dUf, dUb = torch.empty_like(Uf), torch.empty_like(Ub)
-    dbuf = torch.empty(2, 2, B, 4 * H, dtype=Uf.dtype, device=xpf.device)
     lib = _lib()
     with torch.cuda.device(xpf.device):
+        n = ctypes.c_longlong(0)
+        _raise_on(lib.pgasr_bilstm_bwd_scratch(B, T, H, ctypes.byref(n)),
+                  lib, "bilstm_bwd", B, T, H, xpf.dtype)
+        n = n.value
+        scratch = torch.empty(n, dtype=torch.float32, device=xpf.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgasr_bilstm_bwd(
             *(t.data_ptr() for t in (xpf, xpb, Uf, Ub, m, hpf, cpf, hpb, cpb,
-                                     gy, dxpf, dxpb, dUf, dUb, dbuf)),
-            B, T, H, _DTYPES[xpf.dtype], stream)
+                                     gy, dxpf, dxpb, dUf, dUb, scratch)),
+            n, B, T, H, _DTYPES[xpf.dtype], stream)
     _raise_on(rc, lib, "bilstm_bwd", B, T, H, xpf.dtype)
     BI_BWD_LAUNCHES += 1
     return dxpf, dxpb, dUf, dUb

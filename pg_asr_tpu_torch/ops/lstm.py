@@ -12,8 +12,10 @@ gradient kernel; without autograd (inference, ``torch.no_grad``) the
 forward runs in its inference form, which keeps no residuals.
 ``bilstm_layer(fuse_directions=True)`` runs both directions in one walk
 (``BiLSTMScan``, the counterpart of ``pallas_bilstm_scan``): step s runs
-forward time s and backward time T-1-s, on the fused-direction kernels
-(``csrc/bilstm_fwd.cu``, ``csrc/bilstm_bwd.cu``) or their plain versions.
+forward time s and backward time T-1-s, on one launch of both directions
+(bilstm_fwd in ``csrc/lstm_fwd.cu``, bilstm_bwd in ``csrc/lstm_bwd.cu``,
+each direction with the single-direction kernel's bits) or on their plain
+versions.
 
 Gate order everywhere: i, f, g, o (sigmoid, sigmoid, tanh, sigmoid).
 Parameters per direction: ``W`` (I, 4H), ``U`` (H, 4H), ``b`` (4H,), the JAX
