@@ -144,8 +144,26 @@ the CPU or to a kernel's plain version):
      and nll, kernel path vs plain path; the encoder and the decoders
      timed apart, greedy at B=64 x 5 s and beam at B=128 x 5 s (host
      clock and profiler device time).
- 10. prints its total wall time, a JSON line of kernel results, then as
-     the last line {"ok": true, "device": {...}}.
+ 10. policy-gradient slice: `--mode finetune_pg --device cuda` through
+     the CLI on the BiLSTM-CTC phase 5 trained, REINFORCE for 20 steps at
+     the default batch 32 with the dev CER every 10 (exactly 3 residual
+     bilstm_fwd and 3 bilstm_bwd launches a step, 3 bilstm_fwd a dev batch;
+     20 finite rewards, two dev CERs, model_last with epoch -1), a rerun to
+     30 that resumes at 20, `--mode predict` on the result; MWER with K=4 on
+     a copy of the supervised model (one ctc_beam launch a step as well);
+     one batch's PG loss and every parameter gradient, kernel path vs plain
+     path, for both objectives on the same paths and the same n-best (the
+     n-best of ctc_beam identical to the plain scan's); the PG step at B=64
+     x 5 s, both objectives, float32 and bfloat16, beside phase 5's
+     supervised step, with the LSTM kernels at phase 3f's times, a profiler
+     breakdown and the idle share, and the reward DP's host ms and device
+     ops and the n-best launch timed alone. Then MWER through the CLI on
+     the transducer phase 8 trained (fused_joint): a joint_fwd and a
+     joint_bwd launch each for the n-best re-scoring and for the anchor, a
+     step, and finite rewards.
+ 11. prints its total wall time, a JSON line of kernel results (with each
+     kernel's launches on the policy-gradient paths), then as the last line
+     {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
 flax or the JAX package (pg_asr_tpu) was imported.
@@ -213,6 +231,13 @@ LOGPROB_BOUND = 1e-3
 # max |grad| 1e-3 (float32 sums in other orders through 3 layers, the head,
 # and two CTC implementations: F.ctc_loss vs the plain alpha recursion)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
+# one PG batch (phase 10), kernel path vs plain path, float32, on the same
+# sampled paths and the same n-best (fixed from the kernel path's
+# log-probs, so the integer rewards and risks are equal): the train step's
+# bounds. REINFORCE adds per-path sums of the same log-probs; MWER
+# re-scores the n-best with F.ctc_loss against the plain recursion, which
+# moves each hypothesis's weight by float32 rounding only
+PG_LOSS_REL, PG_GRAD_REL = TRAIN_LOSS_REL, TRAIN_GRAD_REL
 # beam search, kernel vs plain scan: the two run the same float32
 # operations in the same order (logaddexp as max + log1p(exp(min - max)),
 # the merge as max + log(sum exp)), so only expf/log1pf of nvcc's and of
@@ -2644,13 +2669,323 @@ def phase_transducer_predict(dev, corpus, alphabet, model_dir):
             "beam_nll_rel": nll_rel, "timing": timing}
 
 
-def device_breakdown(fn, reps: int = 3) -> dict:
-    """Kernel time per call of fn on the card, by group, from a
-    torch.profiler trace of `reps` calls: flash_attn (the forward in either
-    form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and its
-    reduction passes), GEMMs, convolutions (the STFT and the depthwise
+def all_counts() -> dict:
+    """Every launch counter of the port, by kernel row name."""
+    from pg_asr_tpu_torch.decoding import cuda_beam
+
+    return {**lstm_counts(), **flash_counts(), **joint_counts(),
+            "ctc_beam": cuda_beam.LAUNCHES}
+
+
+@contextlib.contextmanager
+def fixed_draws(paths, nbest):
+    """rl/reinforce.py's loss takes these sampled paths and this n-best in
+    place of its sampler's and its beam's (both restored after), so that
+    the kernel path and the plain path score the same hypotheses."""
+    from pg_asr_tpu_torch.rl import reinforce as rl
+
+    saved = rl._sample_paths, rl.beam_decode_nbest
+    rl._sample_paths = lambda generator, lp, S, temperature: paths
+    rl.beam_decode_nbest = lambda *args, **kwargs: nbest
+    try:
+        yield
+    finally:
+        rl._sample_paths, rl.beam_decode_nbest = saved
+
+
+def phase_pg(dev, corpus, alphabet, d, bi, beam_cases, train_steps_ms):
+    """10. Policy-gradient fine-tuning (`--mode finetune_pg`) of the
+    BiLSTM-CTC phase 5 trained and of the transducer phase 8 trained, through
+    the CLI: launch counts per step and per dev batch, the artifacts, a
+    resumed run, predict on the result; kernel vs plain path on one batch;
+    the PG step at B=64 x 5 s timed with its breakdown."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.decoding.beam import beam_decode_nbest
+    from pg_asr_tpu_torch.decoding.greedy import greedy_decode
+    from pg_asr_tpu_torch.ops.edit_distance import cer_from_ids
+    from pg_asr_tpu_torch.predict import forward, load_model
+    from pg_asr_tpu_torch.rl import reinforce as rl
+    from pg_asr_tpu_torch.rl.reward import sequence_reward
+    from pg_asr_tpu_torch.train import (AdamW, batch_to_device,
+                                        value_and_grad)
+
+    bs = 32  # the CLI's default
+    clips = os.path.join(corpus, "clips")
+    n_dev = -(-len(load_manifest(os.path.join(corpus, "dev.tsv"), clips))
+              // bs)
+    n_test = -(-len(load_manifest(os.path.join(corpus, "test.tsv"), clips))
+               // bs)
+    inf, res, bwd, per = route_counters()
+    src = os.path.join(d, "trained")  # phase 5's BiLSTM-CTC
+    space = alphabet.char2ind.get(" ", -1)
+    out_counts = {}
+
+    def run_pg(model_dir, steps, every, *extra):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(["--mode", "finetune_pg", "--corpus_path", corpus,
+                           "--model_path", model_dir, "--device", str(dev),
+                           "--pg_steps", str(steps), "--pg_eval_every",
+                           str(every), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"finetune_pg {extra} failed")
+        return out, wall, all_counts()
+
+    def want(steps, evals, beams=0):
+        w = dict.fromkeys(all_counts(), 0)
+        w.update({res: per * steps, bwd: per * steps,
+                  inf: per * n_dev * evals, "ctc_beam": beams})
+        return w
+
+    def rewards_of(model_dir, n):
+        r = np.load(os.path.join(model_dir, "pg_rewards.npy"))
+        check(r.shape == (n,) and np.isfinite(r).all(),
+              f"pg_rewards.npy: {r}")
+        return r
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    # 1. REINFORCE through the CLI, 20 steps and dev CER every 10, resumed
+    model = os.path.join(d, "pg_reinforce")
+    shutil.copytree(src, model)
+    out, wall, counts = run_pg(model, 20, 10)
+    print(f"[pg] REINFORCE: 20 steps of {bs} + 2 x {n_dev} dev batches in "
+          f"{wall:.2f} s (host clock, includes WAV decode); launches "
+          f"{nonzero(counts)}")
+    check(counts == want(20, 2),
+          f"REINFORCE launches {counts}, expected {per} {res} and {per} "
+          f"{bwd} a step, {per} {inf} a dev batch")
+    out_counts["finetune_pg_reinforce"] = counts
+    r = rewards_of(model, 20)
+    cer = np.load(os.path.join(model, "pg_dev_cer.npy"))
+    check(cer.shape == (2, 2) and cer[:, 0].tolist() == [10, 20]
+          and np.isfinite(cer).all(), f"pg_dev_cer.npy: {cer}")
+    last = load_checkpoint(os.path.join(model, "model_last.pt"))
+    check(last["epoch"] == -1 and last["step"] == 20,
+          f"model_last: epoch {last['epoch']}, step {last['step']}")
+    print(f"[pg] rewards {r[0]:.4f} .. {r[-1]:.4f}, dev CER "
+          f"{cer[:, 1].tolist()}")
+    out, wall, counts = run_pg(model, 30, 10)
+    check("[pg] resumed from model_last at step 20" in out
+          and "[pg] 30 steps" in out, "REINFORCE: the resume failed")
+    check(counts == want(10, 1), f"resumed run's launches {counts}")
+    rewards_of(model, 10)
+    check(load_checkpoint(os.path.join(model, "model_last.pt"))["step"]
+          == 30, "the resumed run did not end at step 30")
+    print(f"[pg] resumed at step 20, ended at 30 in {wall:.2f} s; launches "
+          f"{nonzero(counts)}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                       "--model_path", model, "--device", str(dev)])
+    got = lstm_counts()
+    check(rc == 0 and "CER:" in out and got == {
+        **dict.fromkeys(got, 0), inf: per * n_test},
+        f"predict on the fine-tuned model: rc {rc}, launches {got}")
+
+    # 2. MWER through the CLI (K=4): one ctc_beam launch a step
+    model = os.path.join(d, "pg_mwer")
+    shutil.copytree(src, model)
+    out, wall, counts = run_pg(model, 4, 4, "--pg_objective", "mwer",
+                               "--mwer_beam", "4")
+    print(f"[pg] MWER (K=4): 4 steps + {n_dev} dev batches in {wall:.2f} s; "
+          f"launches {nonzero(counts)}")
+    check(counts == want(4, 1, beams=4), f"MWER launches {counts}")
+    out_counts["finetune_pg_mwer"] = counts
+    rewards_of(model, 4)
+
+    # 3. one batch, kernel path vs plain path: the same paths and n-best
+    params, cfg = load_model(src, alphabet, device=dev)
+    utts = load_manifest(os.path.join(corpus, "train.tsv"), clips)
+    batch = next(iter(BatchIterator(utts, alphabet, bs, shuffle=False)))
+    arrays = batch_to_device(batch, dev)
+    lp, _, fl = forward(params, arrays[0], arrays[1], cfg)
+    L = arrays[2].shape[1]
+    paths = rl._sample_paths(torch.Generator(device=dev).manual_seed(SEED),
+                             lp, cfg.rl.num_samples, cfg.rl.temperature)
+    nbest = beam_decode_nbest(lp, fl, beam_size=4, max_label_len=L)
+    plain = beam_decode_nbest(lp, fl, beam_size=4, max_label_len=L,
+                              use_kernel=False)
+    check(torch.equal(nbest[0], plain[0]) and torch.equal(nbest[1], plain[1]),
+          "the n-best of ctc_beam differs from the plain scan's")
+    nll_rel = ((nbest[2] - plain[2]).abs() / plain[2].abs().clamp(min=1))
+    nll_rel = nll_rel[plain[2] < 1e29].max().item()
+    check(nll_rel <= BEAM_NLL_REL, f"n-best nll rel error {nll_rel}")
+    compare = {"nbest_nll_rel": nll_rel}
+    for objective in ("reinforce", "mwer"):
+        c = cfg.replace(rl=dataclasses.replace(
+            cfg.rl, objective=objective, baseline="mean", mwer_beam=4,
+            space_id=space))
+        got = {}
+        with fixed_draws(paths, nbest):
+            for use_kernel in (True, False):
+                (loss, _), grads = value_and_grad(
+                    lambda p: rl.pg_loss_fn(p, *arrays, None, c, use_kernel),
+                    params)
+                got[use_kernel] = loss.item(), grads
+        (loss_k, g_k), (loss_p, g_p) = got[True], got[False]
+        loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-6)
+        grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                        / g_p[k].abs().max().clamp(min=1e-30)).item()
+                    for k in g_p}
+        worst = max(grad_rel, key=grad_rel.get)
+        print(f"[pg] {objective}, one batch {tuple(batch.wave.shape)}, "
+              f"kernel vs plain path (float32, same paths / n-best): loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, bound "
+              f"{PG_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+              f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+              f"{PG_GRAD_REL:.0e})")
+        check(math.isfinite(loss_k) and loss_rel <= PG_LOSS_REL,
+              f"{objective}: PG loss disagrees: {loss_k} vs {loss_p}")
+        check(all(math.isfinite(v) and v <= PG_GRAD_REL
+                  for v in grad_rel.values()),
+              f"{objective}: gradients disagree: {grad_rel}")
+        compare[objective] = {"loss_rel": loss_rel,
+                              "grad_rel_worst": grad_rel[worst]}
+
+    # 4. the PG step at B=64 x 5 s, both objectives, float32 and bfloat16
+    wave64, ns64, labels64, lens64 = arrays64 = flagship_batch(
+        dev, vocab=alphabet.size)
+    timing = {}
+    for dtype in ("float32", "bfloat16"):
+        fused = next(c for c in bi["cases"] if c["dtype"] == dtype)
+        for objective in ("reinforce", "mwer"):
+            p_d, c_d = load_model(src, alphabet, device=dev, dtype=dtype)
+            c_d = c_d.replace(rl=dataclasses.replace(
+                c_d.rl, objective=objective, space_id=space))
+            opt = AdamW(c_d, p_d, learning_rate=c_d.train.learning_rate * 0.1,
+                        weight_decay=1e-4)
+            step = rl.make_pg_step(c_d, opt)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+
+            def run():
+                return step(p_d, gen, *arrays64)
+
+            reset_counts()
+            run()
+            torch.cuda.synchronize()
+            counts = all_counts()
+            check(counts == want(1, 0, beams=int(objective == "mwer")),
+                  f"PG step launches {counts}")
+            ms = time_ms(run, 5)
+            groups = device_breakdown(run, 3, PG_GROUPS, pg_group)
+            dev_ms = sum(groups.values())
+            kern = per * (fused["res_ms"] + fused["bwd_ms"])
+            timing[f"{objective}_{dtype}"] = {
+                "ms": ms, "device_ms": dev_ms, "idle": 1 - dev_ms / ms,
+                "groups": groups, "lstm_at_phase_3f_ms": kern}
+            print(f"[pg] {objective} step B={B} x 5 s (T={T}, labels 60), "
+                  f"{dtype}: {ms:.2f} ms (supervised step, phase 5: "
+                  f"{train_steps_ms[dtype]:.2f}); at phase 3f's times the "
+                  f"{per} {res} + {per} {bwd} launches {kern:.2f} ms; device "
+                  f"{dev_ms:.2f} ms ({1 - dev_ms / ms:.0%} idle): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()))
+
+    # the reward DP and the n-best alone, on the float32 model's log-probs
+    p32, c32 = load_model(src, alphabet, device=dev)
+    lp64, mask64, fl64 = forward(p32, wave64, ns64, c32)
+    S, K = c32.rl.num_samples, 4
+    paths64 = rl._sample_paths(torch.Generator(device=dev).manual_seed(SEED),
+                               lp64, S, c32.rl.temperature)
+
+    def reinforce_rewards():
+        R, _, _ = rl._path_rewards(paths64, mask64, labels64, lens64,
+                                   "neg_cer")
+        ids, n = greedy_decode(lp64, mask64)
+        return R, sequence_reward(labels64, lens64, ids, n)
+
+    hyp = beam_decode_nbest(lp64, fl64, beam_size=K, max_label_len=60)
+
+    def mwer_risk():
+        return cer_from_ids(labels64.repeat_interleave(K, 0),
+                            lens64.repeat_interleave(K),
+                            hyp[0].flatten(0, 1), hyp[1].flatten())
+
+    dp = {"reinforce_rewards": {"host_ms": host_ms(reinforce_rewards, 5),
+                                "device_ops": device_ops(reinforce_rewards)},
+          "mwer_risk": {"host_ms": host_ms(mwer_risk, 5),
+                        "device_ops": device_ops(mwer_risk)},
+          "nbest_ms": time_ms(lambda: beam_decode_nbest(
+              lp64, fl64, beam_size=K, max_label_len=60), 5)}
+    print(f"[pg] B={B} x 5 s, float32: REINFORCE rewards (S={S} paths of "
+          f"{T} frames against 60 labels, + the greedy baseline) "
+          f"{dp['reinforce_rewards']['host_ms']:.2f} ms host, "
+          f"{dp['reinforce_rewards']['device_ops']} device ops; MWER risk "
+          f"(B x K = {B * K} rows) {dp['mwer_risk']['host_ms']:.2f} ms, "
+          f"{dp['mwer_risk']['device_ops']} device ops; the n-best (one "
+          f"ctc_beam launch, K={K}, exact) {dp['nbest_ms']:.3f} ms "
+          f"(phase 3b, K=16 at B=128: {beam_cases[0]['ms']:.3f} ms at M=6)")
+
+    # 5. the transducer phase 8 trained (fused_joint, conformer encoder with
+    # flash attention): MWER through the CLI
+    tdir = os.path.join(d, "pg_transducer")
+    shutil.copytree(os.path.join(d, "transducer_fused"), tdir)
+    out, wall, counts = run_pg(tdir, 2, 0, "--mwer_beam", "4")
+    blocks = 6  # conformer blocks of the default width
+    tr_want = {**dict.fromkeys(counts, 0), "joint_fwd": 4, "joint_bwd": 4,
+               "flash_attn_residual": 2 * blocks,
+               "flash_attn_bwd_dkv": 2 * blocks,
+               "flash_attn_bwd_dq": 2 * blocks}
+    print(f"[pg] transducer MWER (K=4, fused joint): 2 steps of {bs} in "
+          f"{wall:.2f} s; launches {nonzero(counts)}")
+    check("[pg] transducer family: using the MWER objective" in out,
+          "the transducer did not switch to MWER")
+    check(counts == tr_want, f"transducer PG launches {counts}, expected "
+          "a joint_fwd and a joint_bwd for the n-best and for the anchor "
+          "each step")
+    out_counts["finetune_pg_transducer"] = counts
+    rewards_of(tdir, 2)
+    return {"launches": out_counts, "compare": compare, "timing": timing,
+            "reward_dp": dp}
+
+
+def attention_group(name: str) -> str:
+    """The kernel group of a device_breakdown: flash_attn (the forward in
+    either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
+    its reduction passes), GEMMs, convolutions (the STFT and the depthwise
     conv), LayerNorm, and the rest (elementwise, softmax, copies, the CTC
     and lattice losses, the optimizer)."""
+    # a convolution first: cuDNN names some of its kernels "...gemm"
+    return ("flash_bwd" if "flash_attn_bwd" in name else
+            "flash_attn" if "flash_attn" in name else
+            "joint" if "joint_" in name else
+            "conv" if "conv" in name else
+            "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
+            else "layer_norm" if "layer_norm" in name else "other")
+
+
+ATTENTION_GROUPS = ("flash_attn", "flash_bwd", "joint", "gemm", "conv",
+                    "layer_norm", "other")
+
+
+def pg_group(name: str) -> str:
+    """The kernel group of a PG step: the LSTM kernels (bilstm_fwd's walk,
+    bilstm_bwd's three launches), ctc_beam, the CTC loss (F.ctc_loss's
+    kernels), GEMMs, and the rest (the edit-distance DP, sampling, the
+    entropy, elementwise passes, the optimizer)."""
+    return ("lstm" if "lstm" in name else
+            "ctc_beam" if "ctc_beam" in name else
+            "ctc_loss" if "ctc_loss" in name else
+            "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
+            else "other")
+
+
+PG_GROUPS = ("lstm", "ctc_beam", "ctc_loss", "gemm", "other")
+
+
+def device_breakdown(fn, reps: int = 3, groups=ATTENTION_GROUPS,
+                     classify=attention_group) -> dict:
+    """Kernel time per call of fn on the card, by group (`classify` maps a
+    kernel's name to one of `groups`), from a torch.profiler trace of `reps`
+    calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2660,22 +2995,43 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    groups = dict.fromkeys(("flash_attn", "flash_bwd", "joint", "gemm",
-                            "conv", "layer_norm", "other"), 0.0)
+    out = dict.fromkeys(groups, 0.0)
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.key.lower()
-        # a convolution first: cuDNN names some of its kernels "...gemm"
-        group = ("flash_bwd" if "flash_attn_bwd" in name else
-                 "flash_attn" if "flash_attn" in name else
-                 "joint" if "joint_" in name else
-                 "conv" if "conv" in name else
-                 "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
-                 else "layer_norm" if "layer_norm" in name else "other")
-        groups[group] += e.self_device_time_total / 1e3 / reps
-    check(sum(groups.values()) > 0, "the profiler saw no kernel time")
-    return groups
+        out[classify(e.key.lower())] += e.self_device_time_total / 1e3 / reps
+    check(sum(out.values()) > 0, "the profiler saw no kernel time")
+    return out
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernel launches and copies) of one call of fn,
+    counted by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of fn, synchronised at the end (for work
+    whose time is its launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def kernels_line(cases, lib, predict_launches, train_counts, attention,
@@ -2909,7 +3265,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
         predict_launches = phase_predict(dev, corpus, alphabet, d, bi)
-        train_counts, _ = phase_train(dev, corpus, alphabet, d, bi)
+        train_counts, train_steps_ms = phase_train(dev, corpus, alphabet,
+                                                   d, bi)
         attention = {family: phase_attention(dev, corpus, alphabet, d, family,
                                              cases["flash"])
                      for family in ("conformer", "transformer")}
@@ -2919,16 +3276,22 @@ def main() -> int:
         tr = phase_transducer_train(dev, corpus, alphabet, d, cases["joint"])
         tr["predict"] = phase_transducer_predict(
             dev, corpus, alphabet, os.path.join(d, "transducer_fused"))
+        pg = phase_pg(dev, corpus, alphabet, d, bi, cases["beam"],
+                      train_steps_ms)
 
     import torch
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
     check(not bad, f"the port imported {bad}")
+    print(json.dumps({"finetune_pg": pg}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels_line(cases, lib, predict_launches,
-                                              train_counts, attention,
-                                              attention_train, tr, bi)}))
+    rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
+                        attention_train, tr, bi)
+    for row in rows:  # the policy-gradient paths' launches (phase 10)
+        row["launches_by_path"].update(
+            {path: n[row["name"]] for path, n in pg["launches"].items()})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,11 +7,12 @@ it imports nothing of the JAX package either, not even its modules that do
 not import JAX: what it needs of them (``config``, ``data``, ``metrics``,
 the CLI's flags) it keeps as its own copies.
 
-Ported so far: training (``--mode train``) and batch transcription
-(``--mode predict``) of the BiLSTM-CTC, transformer-CTC and conformer-CTC
-families (greedy or CTC prefix beam) and of the RNN-T transducer (greedy or
-its own beam search, ``decoding/transducer.py``; any of the three
-encoders). On CUDA tensors the LSTM recurrence runs in hand-written kernels
+Ported so far: training (``--mode train``), batch transcription
+(``--mode predict``) and policy-gradient fine-tuning (``--mode
+finetune_pg``, ``rl/``) of the BiLSTM-CTC, transformer-CTC and
+conformer-CTC families (greedy or CTC prefix beam; REINFORCE or MWER) and
+of the RNN-T transducer (greedy or its own beam search,
+``decoding/transducer.py``; MWER; any of the three encoders). On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction or, for
 ``bilstm_layer(fuse_directions=True)``, both directions of a layer at

@@ -10,6 +10,10 @@
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--batch_size N] [--dtype ...] [--ckpt best|last] [--device ...]
+    python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
+        --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
+        [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
+        [--pg_eval_every N] [--batch_size N] [--device ...]
 
 The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
@@ -38,9 +42,10 @@ MODES = ("train", "predict", "preproc", "finetune_pg", "stream", "export",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
-        description="PyTorch/CUDA port of pg_asr_tpu (train and predict of "
-                    "the BiLSTM-CTC, transformer-CTC, conformer-CTC and "
-                    "RNN-T transducer, so far)")
+        description="PyTorch/CUDA port of pg_asr_tpu (train, predict and "
+                    "policy-gradient fine-tuning of the BiLSTM-CTC, "
+                    "transformer-CTC, conformer-CTC and RNN-T transducer, "
+                    "so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -123,6 +128,30 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("best", "last", "avg"))
     p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3])
     p.add_argument("--timestamps", action="store_true")
+    # finetune_pg
+    p.add_argument("--pg_steps", type=int, default=200,
+                   help="finetune_pg: number of fine-tune steps")
+    p.add_argument("--pg_objective", type=str, default=None,
+                   choices=["reinforce", "mwer"],
+                   help="finetune_pg: REINFORCE over sampled alignment "
+                        "paths (reference-style) or expected-CER over the "
+                        "on-device K-best list (MWER)")
+    p.add_argument("--mwer_beam", type=int, default=None,
+                   help="finetune_pg: n-best width K for --pg_objective "
+                        "mwer (default 4)")
+    p.add_argument("--pg_reward", type=str, default=None,
+                   choices=["neg_cer", "neg_wer", "stepwise_ed"],
+                   help="finetune_pg: reward granularity — negative CER, "
+                        "negative WER (on-chip word segmentation, the "
+                        "north-star reward), or the reference's per-step "
+                        "edit-distance deltas")
+    p.add_argument("--pg_eval_every", type=int, default=50,
+                   help="finetune_pg: greedy-decode the dev set every N "
+                        "steps (real dev CER curve + best-on-CER "
+                        "checkpoint); 0 disables")
+    p.add_argument("--max_restarts", type=int, default=0,
+                   help="train/finetune_pg: relaunch a run that dies "
+                        "ungracefully (not ported)")
     return p
 
 
@@ -130,11 +159,12 @@ def _replace(section, **kw):
     return section.__class__(**{**section.__dict__, **kw})
 
 
-def train_config(args) -> Config:
+def train_config(args, cfg: Config | None = None) -> Config:
     """The Config a `--mode train` run starts from (the JAX CLI's
-    ``_config`` for the flags the port has). Options that are not ported
-    are set here as asked and refused by ``train.train``."""
-    cfg = Config()
+    ``_config`` for the flags the port has), the flags applied over `cfg`
+    (default ``Config()``). Options that are not ported are set here as
+    asked and refused by ``train.train``."""
+    cfg = cfg or Config()
     model_kw = {}
     if args.model:
         # "moe" is the transformer family with switch-MoE FFN blocks (4
@@ -177,9 +207,42 @@ def train_config(args) -> Config:
     return cfg.replace(train=_replace(cfg.train, **tr))
 
 
+def pg_config(args) -> Config:
+    """The Config of a `--mode finetune_pg` run: <model_path>/config.json
+    (the config the model was trained with), the flags applied over it, as
+    the JAX CLI's ``_config(args, from_model_path=True)``."""
+    cfg = None
+    path = os.path.join(args.model_path, "config.json")
+    if os.path.exists(path):
+        with open(path) as fo:
+            cfg = Config.from_json(fo.read())
+    cfg = train_config(args, cfg)
+    rl = {}
+    if args.pg_objective:
+        rl["objective"] = args.pg_objective
+    if args.mwer_beam is not None:
+        if args.mwer_beam < 2:
+            raise SystemExit("--mwer_beam must be >= 2")
+        rl["mwer_beam"] = args.mwer_beam
+    if args.pg_reward:
+        rl["reward"] = args.pg_reward
+    return cfg.replace(rl=_replace(cfg.rl, **rl))
+
+
+def _refuse_unported_runs(args) -> None:
+    """The run options of train and finetune_pg that are not ported."""
+    from . import not_ported
+
+    if args.mesh:
+        raise not_ported("--mesh (device meshes)")
+    if args.max_restarts > 0:
+        raise not_ported("--max_restarts (supervised relaunch, "
+                         "utils/elastic.py)")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode not in ("train", "predict"):
+    if args.mode not in ("train", "predict", "finetune_pg"):
         raise SystemExit(f"--mode {args.mode} is not yet ported to "
                          "pg_asr_tpu_torch (see ROADMAP.md); use main.py")
     from . import resolve_device
@@ -193,15 +256,30 @@ def main(argv=None) -> int:
         if not args.corpus_path or not args.model_path:
             raise SystemExit("--mode train needs --corpus_path and "
                              "--model_path")
-        from . import not_ported
         from .train import train
 
         try:
-            if args.mesh:
-                raise not_ported("--mesh (device meshes)")
+            _refuse_unported_runs(args)
             train(args.corpus_path, args.model_path, config=train_config(args),
                   device=str(device), profile_steps=args.profile_steps or 0)
         except NotImplementedError as e:
+            raise SystemExit(str(e)) from None
+        return 0
+
+    if args.mode == "finetune_pg":
+        if not args.corpus_path or not args.model_path:
+            raise SystemExit("--mode finetune_pg needs --corpus_path and "
+                             "--model_path")
+        from .rl.reinforce import finetune_pg
+
+        try:
+            _refuse_unported_runs(args)
+            finetune_pg(args.corpus_path, args.model_path,
+                        num_steps=args.pg_steps,
+                        batch_size=args.batch_size or 32,
+                        config=pg_config(args),
+                        eval_every=args.pg_eval_every, device=str(device))
+        except (NotImplementedError, ValueError) as e:
             raise SystemExit(str(e)) from None
         return 0
 

@@ -16,6 +16,9 @@ points (``AdamW`` below). Parameters stay in the model's dtype, as the JAX
 package creates them (LayerNorm params in float32); there is no master
 copy.
 
+Also here for policy-gradient fine-tuning (rl/reinforce.py): ``AdamW``'s
+constant-rate form and the greedy dev CER (``corpus_cer``).
+
 Not ported (each refused with a message, ROADMAP.md): the seq2seq family,
 the switch-MoE transformer, device meshes and multi-host, gradient
 accumulation, EMA, keep_ckpts, save_every_steps, val_metric=cer,
@@ -151,12 +154,21 @@ class AdamW:
 
     b1, b2, eps, eps_root = 0.9, 0.999, 1e-8, 0.0
 
-    def __init__(self, cfg: Config, params: dict[str, torch.Tensor]):
+    def __init__(self, cfg: Config, params: dict[str, torch.Tensor],
+                 learning_rate: float | None = None,
+                 weight_decay: float | None = None):
+        """The rate follows ``make_schedule(cfg)`` and the decay
+        ``cfg.train.weight_decay``, unless given: a given `learning_rate` is
+        constant, a Python float rounded to each update's dtype where it is
+        applied, as optax applies a float rate (policy-gradient fine-tuning's
+        ``optax.adamw(lr * 0.1)``, whose decay is optax's default 1e-4)."""
         if cfg.train.accum_steps > 1:
             raise not_ported("--accum_steps > 1 (optax.MultiSteps)")
         self.max_norm = cfg.train.grad_clip
-        self.weight_decay = cfg.train.weight_decay
-        self.schedule = make_schedule(cfg)
+        self.weight_decay = (cfg.train.weight_decay if weight_decay is None
+                             else weight_decay)
+        self.schedule = (make_schedule(cfg) if learning_rate is None
+                         else lambda count: learning_rate)
         self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.count = 0
@@ -234,19 +246,31 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
     return num / torch.clamp(den, min=1.0)
 
 
+def value_and_grad(fn: Callable, params: dict[str, torch.Tensor]):
+    """(fn(params), {name: d loss / d param}) for fn returning a scalar loss
+    or (loss, aux); a parameter the loss does not reach gets a zero
+    gradient, as in JAX."""
+    names = list(params)
+    leaves = [params[k].detach().requires_grad_(True) for k in names]
+    with torch.enable_grad():
+        out = fn(dict(zip(names, leaves)))
+        loss = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for k, p, g in zip(names, leaves, grads)}
+    return out, grads
+
+
 def loss_and_grads(params: dict[str, torch.Tensor], batch_arrays, cfg: Config,
                    generator: torch.Generator | None = None,
                    use_kernel: bool = True):
     """(loss, {name: gradient}) of one training batch; ``use_kernel`` as in
     ``compute_loss``."""
-    names = list(params)
-    leaves = [params[k].detach().requires_grad_(True) for k in names]
-    with torch.enable_grad():
-        loss = compute_loss(dict(zip(names, leaves)), *batch_arrays, cfg,
-                            train=True, generator=generator,
-                            use_kernel=use_kernel)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), dict(zip(names, grads))
+    loss, grads = value_and_grad(
+        lambda p: compute_loss(p, *batch_arrays, cfg, train=True,
+                               generator=generator, use_kernel=use_kernel),
+        params)
+    return loss.detach(), grads
 
 
 def make_train_step(cfg: Config, optimizer: AdamW) -> Callable:
@@ -273,6 +297,47 @@ def batch_to_device(batch, device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in
                  (batch.wave, batch.num_samples, batch.labels,
                   batch.label_lens))
+
+
+@torch.no_grad()
+def _batch_cer_counts(params, batch, cfg: Config,
+                      alphabet) -> tuple[int, int]:
+    """Greedy-decode one batch on the params' device and return the additive
+    corpus-CER counts (edit-distance sum, reference-length sum), from the
+    host ``metrics.edit_dist`` (the JAX package's counterpart)."""
+    from .decoding.greedy import greedy_decode, ids_to_strings
+    from .metrics import edit_dist
+    from .predict import forward, forward_transducer
+
+    dev = next(iter(params.values())).device
+    wave = torch.from_numpy(batch.wave).to(dev)
+    ns = torch.from_numpy(batch.num_samples).to(dev)
+    if cfg.model.family == "transducer":
+        labels, lens = forward_transducer(params, wave, ns, cfg)
+    else:
+        log_probs, mask, _ = forward(params, wave, ns, cfg)
+        labels, lens = greedy_decode(log_probs, mask)
+    d_sum = l_sum = 0
+    for ref, hyp in zip(batch.texts, ids_to_strings(labels, lens, alphabet)):
+        d, n = edit_dist(ref, hyp)
+        d_sum += d
+        l_sum += n
+    return d_sum, l_sum
+
+
+def corpus_cer(params, rows, alphabet, cfg: Config, batch_size: int) -> float:
+    """Greedy corpus CER (total edits / total reference characters) over a
+    manifest's rows, on one host: the JAX package's ``sharded_corpus_cer``
+    with one shard. ``--val_metric cer`` stays refused (``check_ported``);
+    policy-gradient fine-tuning selects its best checkpoint with this."""
+    it = BatchIterator(rows, alphabet, batch_size, shuffle=False,
+                       sample_rate=cfg.features.sample_rate)
+    d_sum = l_sum = 0
+    for batch in it:
+        d, n = _batch_cer_counts(params, batch, cfg, alphabet)
+        d_sum += d
+        l_sum += n
+    return d_sum / max(l_sum, 1)
 
 
 def check_ported(cfg: Config, profile_steps: int = 0) -> None:

@@ -1291,3 +1291,126 @@ def test_transducer_decode_on_card_matches_cpu(cuda, encoder):
         assert torch.equal(a.cpu(), b)
     torch.testing.assert_close(b_gpu[2].cpu(), b_cpu[2], rtol=1e-5, atol=0)
     assert g_cpu[1].sum() > 0
+
+
+# --- policy-gradient fine-tuning (rl/reinforce.py) on the card
+
+def _pg_case(cuda, dtype, objective):
+    """A small BiLSTM-CTC (2 layers, H=32, vocab 12) in `dtype` and one
+    batch of three utterances (the last with no labels)."""
+    from pg_asr_tpu_torch.config import Config, RLConfig
+
+    cfg = Config(model=ModelConfig(vocab_size=12, input_proj_dim=64,
+                                   hidden_size=32, num_layers=2, dropout=0.0,
+                                   dtype=dtype),
+                 rl=RLConfig(objective=objective, baseline="mean",
+                             mwer_beam=4, space_id=1))
+    params = bilstm_ctc.init_params(cfg.model,
+                                    torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(3)
+    ns = np.array([6400, 3000, 2000])
+    wave = (rng.standard_normal((3, 6400)) * 3000 * (np.arange(6400)[None]
+                                                     < ns[:, None]))
+    labels = rng.integers(1, 12, (3, 8))
+    labels[1, 5:] = 0
+    arrays = [torch.from_numpy(a).to(cuda) for a in (
+        wave.astype(np.int16), ns.astype(np.int32), labels.astype(np.int32),
+        np.array([8, 5, 0], np.int32))]
+    return cfg, params, arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,loss_rtol,grad_rel", [
+    ("float32", 1e-4, 1e-3), ("bfloat16", 2e-2, 2.0 ** -4)])
+@pytest.mark.parametrize("objective", ["reinforce", "mwer"])
+def test_pg_loss_and_gradients_kernel_match_plain(cuda, monkeypatch,
+                                                  objective, dtype, loss_rtol,
+                                                  grad_rel):
+    """The PG loss and every parameter gradient, kernel path (bilstm_fwd /
+    bilstm_bwd, F.ctc_loss for the n-best re-scoring and the anchor) vs
+    plain path (plain recurrence, CTC recursion), on the same sampled paths
+    and the same n-best (both fixed from the kernel path's log-probs, so a
+    near-tie cannot send the two paths to other hypotheses; the n-best of
+    ctc_beam equals the plain scan's). float32: loss rtol 1e-4, gradients
+    atol 1e-3 x max|grad| (as the train step: sums in other orders through
+    two layers and two CTC implementations). bfloat16: loss rtol 2e-2,
+    gradients atol 2^-4 x max|grad|: h and dpre round to bf16 in both, and
+    an ulp apart at one step moves the later steps and the next layer."""
+    from pg_asr_tpu_torch.decoding.beam import beam_decode_nbest
+    from pg_asr_tpu_torch.predict import forward
+    from pg_asr_tpu_torch.rl import reinforce as rl
+    from pg_asr_tpu_torch.train import value_and_grad
+
+    cfg, params, arrays = _pg_case(cuda, dtype, objective)
+    lp, _, fl = forward(params, arrays[0], arrays[1], cfg)
+    paths = rl._sample_paths(torch.Generator(device=cuda).manual_seed(1), lp,
+                             4, 1.0)
+    L = arrays[2].shape[1]
+    nbest = beam_decode_nbest(lp, fl, beam_size=4, max_label_len=L)
+    plain = beam_decode_nbest(lp, fl, beam_size=4, max_label_len=L,
+                              use_kernel=False)
+    assert torch.equal(nbest[0], plain[0]) and torch.equal(nbest[1], plain[1])
+    monkeypatch.setattr(rl, "_sample_paths", lambda g, x, S, t: paths)
+    monkeypatch.setattr(rl, "beam_decode_nbest", lambda *a, **k: nbest)
+    out = {}
+    for use_kernel in (True, False):
+        (loss, _), grads = value_and_grad(
+            lambda p: rl.pg_loss_fn(p, *arrays, None, cfg, use_kernel),
+            params)
+        out[use_kernel] = loss, grads
+    (loss_k, g_k), (loss_p, g_p) = out[True], out[False]
+    assert torch.isfinite(loss_k)
+    torch.testing.assert_close(loss_k, loss_p, rtol=loss_rtol, atol=1e-6)
+    for k in g_p:
+        ref = g_p[k].float()
+        torch.testing.assert_close(g_k[k].float(), ref, rtol=0,
+                                   atol=float(grad_rel * ref.abs().max()),
+                                   msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["reinforce", "mwer"])
+def test_pg_step_launches_the_kernels(cuda, objective):
+    """One PG step: a residual bilstm_fwd and a bilstm_bwd per layer, no
+    single-direction or inference launch, and for MWER one ctc_beam launch
+    (the n-best); finite parameters after the update."""
+    from pg_asr_tpu_torch.rl import reinforce as rl
+    from pg_asr_tpu_torch.train import AdamW
+
+    cfg, params, arrays = _pg_case(cuda, "float32", objective)
+    step = rl.make_pg_step(cfg, AdamW(cfg, params, learning_rate=5e-5,
+                                      weight_decay=1e-4))
+    before, beams = _bi_counts(), cuda_beam.LAUNCHES
+    loss, metrics = step(params, torch.Generator(device=cuda).manual_seed(0),
+                         *arrays)
+    torch.cuda.synchronize()
+    n = cfg.model.num_layers
+    assert [a - b for a, b in zip(_bi_counts(), before)] == [0, 0, 0, 0, n, n]
+    assert cuda_beam.LAUNCHES - beams == (objective == "mwer")
+    assert torch.isfinite(loss) and torch.isfinite(metrics["reward_mean"])
+    assert all(bool(torch.isfinite(p).all()) for p in params.values())
+
+
+@pytest.mark.cuda
+def test_edit_distances_on_card_match_cpu(cuda):
+    """The reward DP on CUDA tensors: distances, prefix distances, word
+    hashes and WER equal the CPU results (integers, so bit for bit)."""
+    from pg_asr_tpu_torch.ops import edit_distance as ed
+
+    rng = np.random.default_rng(4)
+    ref = torch.from_numpy(rng.integers(1, 6, (64, 60)).astype(np.int32))
+    hyp = torch.from_numpy(rng.integers(1, 6, (64, 401)).astype(np.int32))
+    rl = torch.from_numpy(rng.integers(0, 61, 64).astype(np.int32))
+    hl = torch.from_numpy(rng.integers(0, 402, 64).astype(np.int32))
+    for args in ((ref, rl, hyp, hl), (hyp, hl, ref, rl)):
+        on_card = [a.to(cuda) for a in args]
+        assert torch.equal(ed.edit_distance(*on_card).cpu(),
+                           ed.edit_distance(*args))
+        for a, b in zip(ed.edit_distance_prefixes(*on_card),
+                        ed.edit_distance_prefixes(*args)):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(ed.word_hash_sequences(on_card[0], on_card[1], 1),
+                        ed.word_hash_sequences(args[0], args[1], 1)):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(ed.wer_from_ids(*on_card, 1).cpu(),
+                           ed.wer_from_ids(*args, 1))

@@ -159,7 +159,7 @@ def test_cli_unported_family_exits_with_message(slice_setup, tmp_path):
 
 def test_cli_other_modes_not_ported():
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--mode", "finetune_pg", "--device", "cpu"])
+        cli.main(["--mode", "stream", "--device", "cpu"])
 
 
 def _run(code_or_args, **kw):
