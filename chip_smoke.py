@@ -7,7 +7,8 @@ Phases (any failure ends the run with a non-zero exit; nothing falls back to
 the CPU or to a kernel's plain version):
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the hand-written kernels from pg_asr_tpu_torch/csrc
-     (one nvcc per source, started together).
+     (one nvcc per source, started together), then the native WAV decoder
+     (native/pgasr_io.cpp, host g++) that the loader uses.
   3. kernels: each kernel vs its plain PyTorch version on the card at
      B=64, T=401, H=256 (5 s of audio, the default hidden size), float32
      and bfloat16, forward and reverse: lstm_fwd in its inference and
@@ -161,9 +162,29 @@ the CPU or to a kernel's plain version):
      the transducer phase 8 trained (fused_joint): a joint_fwd and a
      joint_bwd launch each for the n-best re-scoring and for the anchor, a
      step, and finite rewards.
- 11. prints its total wall time, a JSON line of kernel results (with each
-     kernel's launches on the policy-gradient paths), then as the last line
-     {"ok": true, "device": {...}}.
+ 11. the supervised training recipe: `--mode train --device cuda` through
+     the CLI for the full-width BiLSTM-CTC with every option (SpecAugment,
+     speed 0.9-1.1, noise 0.1, gain 3 dB, --accum_steps 2, --ema_decay
+     0.999, --keep_ckpts 2, --save_every_steps 5, --val_metric cer,
+     --loader_threads 2, --cache_audio_mb 64, --profile_steps 2, 3
+     epochs): 3 residual bilstm_fwd + 3 bilstm_bwd a micro-batch, 3 + 3
+     bilstm_fwd a dev batch (loss and greedy CER), finite losses,
+     ema_params in model_best and model_last, two rolling snapshots, the
+     trace, the native WAV decoder; the same command in a subprocess
+     (`python3 chip_smoke.py --recipe-worker ...`) stopped by SIGTERM after
+     its first mid-epoch save (model_last with batches_done, exit 0), then
+     resumed: the uninterrupted run's batches and step count, epoch losses
+     within RESUME_LOSS_REL; `--mode predict --ckpt avg`, greedy and beam;
+     one emit of 2 augmented micro-batches with EMA, kernel vs plain path;
+     wave_augment, spec_augment, the EMA update and the recipe's
+     micro-step timed at B=64 x 5 s, float32 and bfloat16, and the
+     loader's host ms per batch (Python or native decode, 0 or 2 threads,
+     the cache); examples/pg_improves_cer.py's recipe on the port's
+     phonetic corpus (16 epochs, then 120 REINFORCE steps) with its test
+     CERs.
+ 12. prints its total wall time, a JSON line of kernel results (with each
+     kernel's launches on the policy-gradient and recipe paths), then as
+     the last line {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
 flax or the JAX package (pg_asr_tpu) was imported.
@@ -380,12 +401,18 @@ def phase_device():
 
 def phase_build():
     from pg_asr_tpu_torch import _build
+    from pg_asr_tpu_torch.data import native_io
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
     print(f"[build] {os.path.relpath(path)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check(native_io.native_available(), "the native WAV decoder did not "
+          f"build from {native_io.SOURCE}")
+    print(f"[build] {os.path.relpath(native_io.library_path())} (host C++, "
+          f"the native WAV decoder) in {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_inputs(dev):
@@ -2947,6 +2974,412 @@ def phase_pg(dev, corpus, alphabet, d, bi, beam_cases, train_steps_ms):
             "reward_dp": dp}
 
 
+# phase 11: the supervised training recipe through the CLI
+RECIPE = ["--specaugment", "--speed_perturb", "0.9,1.1", "--wave_noise",
+          "0.1", "--wave_gain_db", "3", "--accum_steps", "2", "--ema_decay",
+          "0.999", "--keep_ckpts", "2", "--save_every_steps", "5",
+          "--val_metric", "cer", "--loader_threads", "2", "--cache_audio_mb",
+          "64", "--profile_steps", "2", "--num_epochs", "3"]
+# an interrupted-and-resumed run vs an uninterrupted one on the card: the
+# batches, the steps and every draw are the same (the step generator's
+# state is in the checkpoint), and only F.ctc_loss's CUDA backward (atomic
+# adds) sums in another order, so the epochs after the resume may differ by
+# float32 rounding carried through a few dozen AdamW steps at a warmup rate
+RESUME_LOSS_REL = 5e-3
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """Every batch the trainer moves to the device (train and dev), as
+    (texts, total samples), in order."""
+    from pg_asr_tpu_torch import train as train_mod
+
+    seen, inner = [], train_mod.batch_to_device
+
+    def record(batch, dev):
+        seen.append([list(batch.texts), int(batch.num_samples.sum())])
+        return inner(batch, dev)
+
+    train_mod.batch_to_device = record
+    try:
+        yield seen
+    finally:
+        train_mod.batch_to_device = inner
+
+
+def recipe_worker(record_path: str, argv: list[str]) -> int:
+    """`python3 chip_smoke.py --recipe-worker OUT ARGV...`: cli.main(ARGV),
+    then the batches it trained on into OUT (phase 11's interrupted run)."""
+    from pg_asr_tpu_torch import cli
+
+    with recorded_batches() as seen:
+        rc = cli.main(argv)
+    with open(record_path, "w") as fo:
+        json.dump(seen, fo)
+    return rc
+
+
+def phase_recipe(dev, corpus, alphabet, d, bi, train_steps_ms):
+    """11. The supervised training recipe (every option of `--mode train`
+    on one device) on the full-width BiLSTM-CTC: the CLI run with its
+    launches and artifacts, a SIGTERM mid-epoch in a subprocess and the
+    resumed run against the uninterrupted one, `--ckpt avg` predict, one
+    emit of two micro-batches kernel vs plain path, the options' timings,
+    and the convergence recipe of examples/pg_improves_cer.py."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.data import load_manifest
+
+    bs = 32
+    clips = os.path.join(corpus, "clips")
+    steps = -(-len(load_manifest(os.path.join(corpus, "train.tsv"), clips))
+              // bs)
+    n_dev = -(-len(load_manifest(os.path.join(corpus, "dev.tsv"), clips))
+              // bs)
+    n_test = len(load_manifest(os.path.join(corpus, "test.tsv"), clips))
+    epochs = 3
+    inf, res, bwd, per = route_counters()
+    out_counts, result = {}, {}
+
+    def argv_for(model):
+        return ["--mode", "train", "--corpus_path", corpus, "--model_path",
+                model, "--device", str(dev), "--seed", str(SEED), *RECIPE]
+
+    # 1. the recipe through the CLI: per micro-batch 3 residual bilstm_fwd
+    # + 3 bilstm_bwd; per dev batch 3 bilstm_fwd for the loss and 3 for the
+    # greedy CER (--val_metric cer), on the EMA weights
+    model = os.path.join(d, "recipe")
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_batches() as full_seen:
+        rc, out = run_cli(argv_for(model))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    want = {**dict.fromkeys(counts, 0), res: per * steps * epochs,
+            bwd: per * steps * epochs, inf: 2 * per * n_dev * epochs}
+    print(f"[recipe] rc={rc}: {epochs} epochs of {steps} micro-batches of "
+          f"{bs} (accumulation 2) + {n_dev} dev batches (loss and CER) in "
+          f"{wall:.2f} s; launches { {k: v for k, v in counts.items() if v} }")
+    check(rc == 0, "the recipe's train run failed")
+    check(counts == want, f"recipe launches {counts}, expected {want}")
+    out_counts["recipe_train"] = counts
+    tl = np.load(os.path.join(model, "train_loss.npy"))
+    vl = np.load(os.path.join(model, "val_losses.npy"))
+    check(tl.shape == vl.shape == (epochs,) and np.isfinite(tl).all()
+          and np.isfinite(vl).all(), f"losses {tl} {vl}")
+    check(out.count("val_cer=") == epochs, "no dev CER per epoch")
+    for name in ("model_best.pt", "model_last.pt"):
+        state = load_checkpoint(os.path.join(model, name))
+        check(set(state.get("ema_params", {})) == set(state["params"]),
+              f"{name} holds no ema_params")
+    last = load_checkpoint(os.path.join(model, "model_last.pt"))
+    check(last["step"] == steps * epochs
+          and last["opt_state"]["count"] == steps * epochs // 2,
+          f"model_last step {last['step']}, count "
+          f"{last['opt_state']['count']}")
+    snaps = sorted(n for n in os.listdir(model) if n.startswith("model_epoch"))
+    check(snaps == ["model_epoch0002.pt", "model_epoch0003.pt"],
+          f"rolling snapshots {snaps}")
+    traces = os.listdir(os.path.join(model, "trace"))
+    check(traces == ["steps_3-5.pt.trace.json"], f"trace {traces}")
+    line = next(x for x in out.splitlines() if x.startswith("[train] loader"))
+    check(" 0 by the Python one" in line and "by the native" in line
+          and not line.startswith("[train] loader: 0 "),
+          f"the native WAV decoder did not run: {line}")
+    result["train"] = {"wall_s": wall, "train_losses": tl.tolist(),
+                       "val_losses": vl.tolist(), "loader": line}
+
+    # 2. the same command in a subprocess, SIGTERM after its first
+    # mid-epoch save (batch 5), then resumed here
+    model2 = os.path.join(d, "recipe_sigterm")
+    record = os.path.join(d, "recipe_worker.json")
+    log = os.path.join(d, "recipe_worker.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as fo:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--recipe-worker",
+             record, *argv_for(model2)], stdout=fo, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            last_path = os.path.join(model2, "model_last.pt")
+            while not os.path.exists(last_path) and proc.poll() is None:
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as fo:
+        worker_out = fo.read()
+    saved = load_checkpoint(os.path.join(model2, "model_last.pt"))
+    done = int(saved["batches_done"])
+    print(f"[recipe] SIGTERM in a subprocess: rc={rc} after "
+          f"{time.perf_counter() - t0:.1f} s, model_last at epoch "
+          f"{saved['epoch']} batch {done}")
+    check(rc == 0 and f"SIGTERM: saved model_last at epoch 1 batch {done}"
+          in worker_out, f"the interrupted run: rc {rc}\n{worker_out[-3000:]}")
+    check(saved["epoch"] == 1 and 0 < done < steps,
+          f"not a mid-epoch save: epoch {saved['epoch']} batch {done}")
+    reset_counts()
+    with recorded_batches() as resumed_seen:
+        rc, out = run_cli(argv_for(model2))
+    counts = all_counts()
+    out_counts["recipe_resume"] = counts
+    with open(record) as fo:
+        worker_seen = json.load(fo)
+    last2 = load_checkpoint(os.path.join(model2, "model_last.pt"))
+    tl2 = np.load(os.path.join(model2, "train_loss.npy"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(tl2[1:], tl[1:])]
+    drift = max((last2["params"][k] - last["params"][k]).abs().max().item()
+                / last["params"][k].abs().max().item() for k in last["params"])
+    print(f"[recipe] resumed at epoch 1 batch {done}: rc={rc}, step "
+          f"{last2['step']} (uninterrupted {last['step']}); batch order "
+          f"{'the same' if worker_seen + resumed_seen == full_seen else 'DIFFERS'}"
+          f"; epoch 2-3 train losses {tl2[1:].tolist()} vs "
+          f"{tl[1:].tolist()} (rel {max(rel):.2e}, bound "
+          f"{RESUME_LOSS_REL:.0e}); final params max|diff|/max|p| "
+          f"{drift:.2e}")
+    check(rc == 0 and f"resumed from epoch 1 batch {done}" in out,
+          "the resumed run failed")
+    check(last2["step"] == last["step"], "the resumed run's step count")
+    check(worker_seen + resumed_seen == full_seen,
+          "the resumed run's batches are not the uninterrupted run's")
+    check(counts[res] == per * (steps * epochs - done),
+          f"resumed run launches {counts}")
+    check(len(tl2) == epochs and all(r <= RESUME_LOSS_REL for r in rel),
+          f"resumed losses {tl2} vs {tl}")
+    result["resume"] = {"batches_done": done, "loss_rel": max(rel),
+                        "params_drift": drift}
+
+    # 3. predict on the average of the two snapshots' EMA weights
+    n_batches = -(-n_test // bs)
+    for decoder, want_counts in (
+            ("greedy", {inf: per * n_batches}),
+            ("beam", {inf: per * -(-n_test // BEAM_B), "ctc_beam": 1})):
+        reset_counts()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                           "--model_path", model, "--device", str(dev),
+                           "--ckpt", "avg", "--decoder", decoder])
+        counts = all_counts()
+        with open(os.path.join(model, "predicted.txt")) as fo:
+            rows = fo.read().splitlines()
+        cer = float(out.split("CER: ")[1].split()[0]) if "CER: " in out \
+            else math.nan
+        check(rc == 0 and "averaged 2 epoch snapshots" in out
+              and len(rows) == n_test and math.isfinite(cer),
+              f"--ckpt avg --decoder {decoder}: rc {rc}, CER {cer}")
+        check(counts == {**dict.fromkeys(counts, 0), **want_counts},
+              f"--ckpt avg {decoder} launches {counts}")
+        out_counts[f"recipe_predict_avg_{decoder}"] = counts
+        result[f"predict_avg_{decoder}_cer"] = cer
+
+    result["compare"] = recipe_step_vs_plain(dev, alphabet, model, corpus)
+    result["timing"] = recipe_timing(dev, alphabet, model, corpus, bi,
+                                     train_steps_ms)
+    result["convergence"] = recipe_convergence(dev, d)
+    return {"launches": out_counts, **result}
+
+
+def recipe_step_vs_plain(dev, alphabet, model, corpus):
+    """One emit (2 micro-batches of 32) with every augmentation, from the
+    recipe's model_last (its params, AdamW state and EMA), dropout 0, the
+    same draws (a CUDA generator of one seed each): kernel vs plain path,
+    phase 5's bounds on the losses and on the change of every parameter and
+    of the EMA (plus 4 float32 ulps of the value the change is added to)."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.models import cast_params
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import (AdamW, _copy, _ema_update,
+                                        batch_to_device, loss_and_grads)
+
+    _, cfg = load_model(model, alphabet, device=dev)
+    # the full rate (no warmup): the change then stands well above the
+    # float32 rounding of the values it is added to
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0),
+                      train=dataclasses.replace(cfg.train, warmup_steps=0))
+    state = load_checkpoint(os.path.join(model, "model_last.pt"))
+    it = BatchIterator(load_manifest(os.path.join(corpus, "train.tsv"),
+                                     os.path.join(corpus, "clips")),
+                       alphabet, 32, shuffle=False)
+    batches = []
+    for batch in it:
+        batches.append(batch_to_device(batch, dev))
+        if len(batches) == 2:
+            break
+    start = cast_params(state["params"], torch.float32, dev)
+    start_ema = cast_params(state["ema_params"], torch.float32, dev)
+    got = {}
+    for use_kernel in (True, False):
+        # copies: the optimizer and the EMA update in place
+        params, ema = _copy(start), _copy(start_ema)
+        opt = AdamW(cfg, params)
+        opt.load_state_dict(state["opt_state"], dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses = []
+        for arrays in batches:
+            loss, grads = loss_and_grads(params, arrays, cfg, gen,
+                                         use_kernel=use_kernel)
+            opt.update(params, grads)
+            _ema_update(ema, params, cfg.train.ema_decay)
+            losses.append(loss.item())
+        got[use_kernel] = losses, params, ema
+    (lk, pk, ek), (lp, pp, ep) = got[True], got[False]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    eps = torch.finfo(torch.float32).eps
+    worst, raw = {}, {}
+    for name, k_, p_, s_ in (("params", pk, pp, start),
+                             ("ema", ek, ep, start_ema)):
+        for k in p_:
+            change = max((p_[k] - s_[k]).abs().max().item(), 1e-30)
+            diff = (k_[k] - p_[k]).abs().max().item()
+            excess = diff - 4 * eps * p_[k].abs().max().item()
+            worst[f"{name}:{k}"] = max(excess, 0.0) / change
+            raw[f"{name}:{k}"] = diff / change
+    key, key_raw = max(worst, key=worst.get), max(raw, key=raw.get)
+    print(f"[recipe] one emit of 2 micro-batches of 32 (augmented, EMA, "
+          f"full rate), kernel vs plain path: losses {lk} vs {lp} (rel "
+          f"{loss_rel:.2e}, bound {TRAIN_LOSS_REL:.0e}); worst change error "
+          f"beyond 4 ulps {worst[key]:.2e} of the change ({key}; bound "
+          f"{TRAIN_GRAD_REL:.0e}), max|diff|/change {raw[key_raw]:.2e} "
+          f"({key_raw})")
+    check(all(math.isfinite(x) for x in lk) and loss_rel <= TRAIN_LOSS_REL,
+          f"recipe losses disagree: {lk} vs {lp}")
+    check(all(v <= TRAIN_GRAD_REL for v in worst.values()),
+          f"recipe params / EMA disagree: {key} {worst[key]}")
+    return {"loss_rel": loss_rel, "change_rel_worst": worst[key],
+            "diff_over_change_max": raw[key_raw]}
+
+
+def recipe_timing(dev, alphabet, model, corpus, bi, train_steps_ms):
+    """The recipe's options at B=64 x 5 s: wave_augment and spec_augment
+    (float32 whatever the model's type), the EMA update and the train
+    micro-step with every option, float32 and bfloat16, beside phase 5's
+    plain step; the loader's host ms per batch."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.ops.augment import spec_augment, wave_augment
+    from pg_asr_tpu_torch.ops.features import extract_features
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import (AdamW, _copy, _ema_update,
+                                        make_train_step)
+    from pg_asr_tpu_torch.utils.profiling import memory_stats
+
+    arrays64 = flagship_batch(dev, vocab=alphabet.size)
+    _, cfg = load_model(model, alphabet, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    feats, mask, _ = extract_features(arrays64[0], arrays64[1], cfg.features)
+    out = {"wave_augment_ms": device_ms(lambda: wave_augment(
+               arrays64[0], arrays64[1], gen, cfg.augment), 20),
+           "spec_augment_ms": device_ms(lambda: spec_augment(
+               feats, mask, gen, cfg.augment), 20)}
+    for dtype in ("float32", "bfloat16"):
+        params, c = load_model(model, alphabet, device=dev, dtype=dtype)
+        ema = _copy(params)
+        out[f"ema_ms_{dtype}"] = time_ms(
+            lambda: _ema_update(ema, params, c.train.ema_decay), 10)
+        opt = AdamW(c, params)
+        step = make_train_step(c, opt)
+
+        def micro_step():
+            step(params, gen, *arrays64)
+            _ema_update(ema, params, c.train.ema_decay)
+
+        torch.cuda.reset_peak_memory_stats()
+        out[f"step_ms_{dtype}"] = time_ms(micro_step, 6)  # 3 emits
+        peak = memory_stats()[str(dev)]["peak_bytes_in_use"] / 2 ** 30
+        out[f"step_peak_gib_{dtype}"] = peak
+        print(f"[recipe] B={B} x 5 s, {dtype}: micro-step with every "
+              f"augmentation, accumulation 2 and EMA "
+              f"{out[f'step_ms_{dtype}']:.2f} ms (phase 5's plain step "
+              f"{train_steps_ms[dtype]:.2f} ms), peak {peak:.2f} GiB "
+              f"allocated; EMA update {out[f'ema_ms_{dtype}']:.3f} ms")
+    print(f"[recipe] B={B} x 5 s: wave_augment (speed, noise, gain) "
+          f"{out['wave_augment_ms']:.3f} ms, spec_augment (2 + 2 masks) "
+          f"{out['spec_augment_ms']:.3f} ms (device time)")
+
+    utts = load_manifest(os.path.join(corpus, "train.tsv"),
+                         os.path.join(corpus, "clips"))
+    loader = {}
+    for name, kw in (("python_0", dict(decoder="python")),
+                     ("native_0", dict(decoder="native")),
+                     ("native_2", dict(decoder="native", num_workers=2)),
+                     ("native_2_cache", dict(decoder="native", num_workers=2,
+                                             cache_mb=4096))):
+        it = BatchIterator(utts, alphabet, 32, seed=SEED, **kw)
+        n = sum(1 for _ in it)  # lengths known (and the cache filled)
+        t0 = time.perf_counter()
+        check(sum(1 for _ in it) == n, "loader epoch length")
+        loader[name] = (time.perf_counter() - t0) * 1e3 / n
+    print(f"[recipe] loader host ms per batch of 32 (1-5 s, second epoch): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in loader.items()))
+    out["loader_ms_per_batch"] = loader
+    return out
+
+
+def recipe_convergence(dev, d):
+    """examples/pg_improves_cer.py's recipe on the port's phonetic corpus
+    (96 utterances, seed 0): logmel 40, projection 128, 2 x BiLSTM 64,
+    dropout 0.1, 16 epochs of batch 8, lr 3e-3, warmup 50, then 120
+    REINFORCE steps; the test CER after each. The JAX package's run of the
+    same recipe from the same initial weights: tests/test_torch_convergence.py
+    run as a script, on a CPU."""
+    from pg_asr_tpu_torch.config import (Config, FeatureConfig, ModelConfig,
+                                         TrainConfig)
+    from pg_asr_tpu_torch.data import make_phonetic_corpus
+    from pg_asr_tpu_torch.predict import predict
+    from pg_asr_tpu_torch.rl.reinforce import finetune_pg
+    from pg_asr_tpu_torch.train import train
+
+    corpus, _ = make_phonetic_corpus(os.path.join(d, "phonetic"), n_utts=96,
+                                     seed=0)
+    model = os.path.join(d, "phonetic_model")
+    cfg = Config(
+        features=FeatureConfig(kind="logmel", n_mels=40, n_fft=256,
+                               win_length=256, hop_length=128),
+        model=ModelConfig(family="ctc", vocab_size=8, input_dim=40,
+                          input_proj_dim=128, hidden_size=64, num_layers=2,
+                          dropout=0.1),
+        train=TrainConfig(num_epochs=16, batch_size=8, learning_rate=3e-3,
+                          warmup_steps=50, log_every=10000, prefetch_depth=0))
+    args = (os.path.join(corpus, "test.tsv"), os.path.join(corpus, "clips"),
+            os.path.join(corpus, "alphabet.txt"), model)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train(corpus, model, config=cfg, device=str(dev))
+        t_train = time.perf_counter() - t0
+        before = predict(*args, batch_size=8, device=str(dev))
+        t0 = time.perf_counter()
+        finetune_pg(corpus, model, num_steps=120, batch_size=8, config=cfg,
+                    device=str(dev))
+        t_pg = time.perf_counter() - t0
+        after = predict(*args, batch_size=8, which_ckpt="last",
+                        device=str(dev))
+    res = {"cer_train": before["cer"], "wer_train": before["wer"],
+           "cer_pg": after["cer"], "wer_pg": after["wer"],
+           "train_losses": out["train_losses"],
+           "val_losses": out["val_losses"], "train_s": t_train, "pg_s": t_pg}
+    print(f"[recipe] convergence (phonetic corpus, 96 utterances): test CER "
+          f"{before['cer']:.4f} after 16 epochs ({t_train:.1f} s), "
+          f"{after['cer']:.4f} after 120 REINFORCE steps ({t_pg:.1f} s); "
+          f"train losses {[round(x, 4) for x in out['train_losses']]}")
+    check(all(math.isfinite(res[k]) for k in ("cer_train", "cer_pg")),
+          f"convergence CER {res}")
+    return res
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -3251,6 +3684,8 @@ def bilstm_rows(bi, src, route_counts):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--recipe-worker"]:
+        return recipe_worker(sys.argv[2], sys.argv[3:])
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
@@ -3278,6 +3713,7 @@ def main() -> int:
             dev, corpus, alphabet, os.path.join(d, "transducer_fused"))
         pg = phase_pg(dev, corpus, alphabet, d, bi, cases["beam"],
                       train_steps_ms)
+        recipe = phase_recipe(dev, corpus, alphabet, d, bi, train_steps_ms)
 
     import torch
 
@@ -3285,12 +3721,14 @@ def main() -> int:
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
     check(not bad, f"the port imported {bad}")
     print(json.dumps({"finetune_pg": pg}))
+    print(json.dumps({"recipe": recipe}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the policy-gradient paths' launches (phase 10)
+    for row in rows:  # the policy-gradient and recipe paths (phases 10, 11)
         row["launches_by_path"].update(
-            {path: n[row["name"]] for path, n in pg["launches"].items()})
+            {path: n[row["name"]] for path, n in
+             {**pg["launches"], **recipe["launches"]}.items()})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,18 @@
 """The port's checkpoint format: ``<model_path>/config.json`` in the JAX
 package's schema (``config.Config``) beside ``model_best.pt`` /
-``model_last.pt``. Each ``.pt`` file is a ``torch.save``d dict holding
-``params`` (the model's state dict) and, when the trainer wrote it, the
-trainer's state: ``opt_state`` (AdamW moments and count), ``step``,
-``epoch`` and ``best_val_loss``. Reading the JAX package's flax ``.ckpt``
-files is not ported yet (ROADMAP.md)."""
+``model_last.pt`` and, with ``train.keep_ckpts``, the newest per-epoch
+snapshots ``model_epochNNNN.pt``. Each ``.pt`` file is a ``torch.save``d
+dict holding ``params`` (the model's state dict) and, when the trainer
+wrote it, the trainer's state: ``opt_state`` (AdamW moments and count;
+with ``accum_steps`` also ``mini_step`` and ``acc_grads``), ``step``,
+``epoch``, ``batches_done`` (> 0: saved mid-epoch), ``best_val_loss``,
+``rng_state`` (the step generator's) and, with ``ema_decay``,
+``ema_params``. Reading the JAX package's flax ``.ckpt`` files is not
+ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
+import glob
 import os
 import tempfile
 
@@ -68,3 +73,37 @@ def save_model(model_path: str, params: dict[str, torch.Tensor],
     save_config(model_path, cfg)
     for w in which:
         save_checkpoint(checkpoint_path(model_path, w), {"params": params})
+
+
+def epoch_snapshots(model_path: str) -> list[str]:
+    """The per-epoch snapshots in <model_path>, oldest first."""
+    return sorted(glob.glob(os.path.join(model_path, "model_epoch*.pt")))
+
+
+def save_rolling(model_path: str, state: dict, epoch: int, keep: int) -> str:
+    """Write model_epochNNNN.pt and keep the newest `keep` snapshots (the
+    JAX package's ``CheckpointManager.save_rolling``)."""
+    path = os.path.join(model_path, f"model_epoch{epoch:04d}.pt")
+    save_checkpoint(path, state)
+    for old in epoch_snapshots(model_path)[:-keep]:
+        os.unlink(old)
+    return path
+
+
+def average_checkpoints(paths: list[str], key: str = "params"
+                        ) -> dict[str, torch.Tensor]:
+    """The uniform average of the `key` state dicts of `paths`: floating
+    tensors summed in float64, divided by the count and cast back; other
+    tensors the last checkpoint's (the JAX package's
+    ``average_checkpoints``). Raises KeyError when a file lacks `key`."""
+    if not paths:
+        raise ValueError("average_checkpoints needs at least one path")
+    acc: dict[str, torch.Tensor] = {}
+    last: dict[str, torch.Tensor] = {}
+    for p in paths:
+        last = load_checkpoint(p)[key]
+        for k, t in last.items():
+            if t.is_floating_point():
+                acc[k] = t.double() if k not in acc else acc[k] + t.double()
+    return {k: (acc[k] / float(len(paths))).to(t.dtype)
+            if t.is_floating_point() else t for k, t in last.items()}

@@ -6,10 +6,15 @@
         [--transducer_ctc_weight W] \\
         [--num_epochs N] [--batch_size N] [--learning_rate X] \\
         [--lr_schedule warmup_constant|warmup_cosine] [--dtype float32|bfloat16] \\
-        [--seed S] [--device cuda|cuda:N|cpu]
+        [--seed S] [--device cuda|cuda:N|cpu] [--specaugment] \\
+        [--speed_perturb MIN,MAX] [--wave_noise STD] [--wave_gain_db G] \\
+        [--accum_steps K] [--ema_decay D] [--keep_ckpts K] \\
+        [--save_every_steps N] [--val_metric loss|cer] \\
+        [--loader_threads N] [--cache_audio_mb MB] [--profile_steps N] \\
+        [--init_from_torch model_best.pth [--trust_torch_pickle]]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
-        [--batch_size N] [--dtype ...] [--ckpt best|last] [--device ...]
+        [--batch_size N] [--dtype ...] [--ckpt best|last|avg] [--device ...]
     python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
         [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
@@ -19,7 +24,8 @@ The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
 is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so (the seq2seq and MoE models among them).
+exit with a message that says so (the seq2seq and MoE models, ``--mesh``,
+``--max_restarts`` and ``--fault_step`` among them).
 ``--mode predict`` takes the model family (a transducer's encoder with it)
 and ``flash_attention`` from the model's config.json, as the JAX CLI does;
 for a transducer ``--decoder beam`` is its RNN-T beam search (width
@@ -93,18 +99,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--features", type=str, default=None,
                    choices=["logmel", "mfcc"])
     p.add_argument("--units", type=str, default=None, choices=["char", "bpe"])
-    for name in ("accum_steps", "save_every_steps", "keep_ckpts",
-                 "profile_steps"):
-        p.add_argument(f"--{name}", type=int, default=None)
-    p.add_argument("--ema_decay", type=float, default=None)
+    p.add_argument("--accum_steps", type=int, default=None,
+                   help="train: accumulate gradients over N micro-batches "
+                        "per optimizer update")
     p.add_argument("--val_metric", type=str, default=None,
-                   choices=["loss", "cer"])
-    p.add_argument("--mesh", type=str, default=None)
-    p.add_argument("--init_from_torch", type=str, default=None)
-    p.add_argument("--specaugment", action="store_true")
-    p.add_argument("--speed_perturb", type=str, default=None)
-    p.add_argument("--wave_noise", type=float, default=None)
-    p.add_argument("--wave_gain_db", type=float, default=None)
+                   choices=["loss", "cer"],
+                   help="train: select the best checkpoint on validation "
+                        "loss or greedy-decode CER")
+    p.add_argument("--save_every_steps", type=int, default=None,
+                   help="train: also save model_last every N steps within "
+                        "an epoch; a resume goes on at the next batch of "
+                        "the same shuffled order")
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="train: exponential moving average of the params "
+                        "(validation and predict use it; 0 = off)")
+    p.add_argument("--keep_ckpts", type=int, default=None,
+                   help="train: keep the newest K per-epoch snapshots "
+                        "(model_epochNNNN.pt) for --ckpt avg")
+    p.add_argument("--loader_threads", type=int, default=None,
+                   help="train: decode threads building batches ahead "
+                        "(0 = inline; default: 2 on hosts of >= 4 CPUs)")
+    p.add_argument("--cache_audio_mb", type=float, default=None,
+                   help="train: MiB of built batches kept for later epochs "
+                        "(0 = off)")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="train: torch.profiler trace of N steady-state "
+                        "steps into <model_path>/trace")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="device meshes (not ported)")
+    p.add_argument("--fault_step", type=int, default=None,
+                   help="train: fault injection for --max_restarts (not "
+                        "ported)")
+    p.add_argument("--init_from_torch", type=str, default=None,
+                   help="train: warm-start from a reference torch "
+                        "checkpoint (model_best.pth) when model_path has "
+                        "no checkpoint (families ctc and transducer with "
+                        "the bilstm encoder; --features mfcc for its "
+                        "120-dim input)")
+    p.add_argument("--trust_torch_pickle", action="store_true",
+                   help="init_from_torch: allow full unpickling when the "
+                        "weights_only load fails (runs code embedded in "
+                        "the file: trusted sources only)")
+    p.add_argument("--specaugment", action="store_true",
+                   help="train: SpecAugment time and frequency masks on "
+                        "the device")
+    p.add_argument("--speed_perturb", type=str, default=None,
+                   metavar="MIN,MAX",
+                   help="train: per-utterance speed factor range, e.g. "
+                        "0.9,1.1")
+    p.add_argument("--wave_noise", type=float, default=None,
+                   help="train: additive noise std relative to each "
+                        "utterance's RMS")
+    p.add_argument("--wave_gain_db", type=float, default=None,
+                   help="train: random gain in [-g, +g] dB")
     # predict
     p.add_argument("--test_path", type=str, default=None,
                    help="test manifest TSV (default <corpus_path>/test.tsv)")
@@ -194,16 +241,46 @@ def train_config(args, cfg: Config | None = None) -> Config:
         cfg = cfg.replace(features=_replace(cfg.features, kind=args.features))
     if args.units:
         cfg = cfg.replace(text=_replace(cfg.text, units=args.units))
-    if (args.specaugment or args.speed_perturb or args.wave_noise is not None
-            or args.wave_gain_db is not None):
+    if args.specaugment:
         cfg = cfg.replace(augment=_replace(cfg.augment, enabled=True))
+    aug = {}
+    if args.speed_perturb:
+        try:
+            lo, hi = (float(x) for x in args.speed_perturb.split(","))
+        except ValueError:
+            raise SystemExit("--speed_perturb expects MIN,MAX (e.g. 0.9,1.1)")
+        if not 0.5 <= lo <= hi <= 2.0:
+            raise SystemExit("--speed_perturb factors must satisfy "
+                             "0.5 <= MIN <= MAX <= 2.0")
+        aug.update(speed_min=lo, speed_max=hi)
+    for flag, field in (("wave_noise", "noise_std"),
+                        ("wave_gain_db", "gain_db")):
+        value = getattr(args, flag)
+        if value is not None:
+            if value < 0:
+                raise SystemExit(f"--{flag} must be >= 0")
+            aug[field] = value
+    if aug:
+        # a waveform option turns augmentation on; the SpecAugment masks
+        # stay off unless --specaugment was given (the JAX CLI's rule)
+        if not args.specaugment:
+            aug.update(time_masks=0, freq_masks=0)
+        cfg = cfg.replace(augment=_replace(cfg.augment, enabled=True, **aug))
     tr = {"num_epochs": args.num_epochs}
+    for name in ("save_every_steps", "keep_ckpts", "cache_audio_mb",
+                 "loader_threads"):
+        value = getattr(args, name)
+        if value is not None and value < 0:
+            raise SystemExit(f"--{name} must be >= 0")
     for name in ("batch_size", "seed", "learning_rate", "lr_schedule",
                  "accum_steps", "val_metric", "ema_decay", "save_every_steps",
-                 "keep_ckpts", "init_from_torch"):
+                 "keep_ckpts", "init_from_torch", "loader_threads",
+                 "cache_audio_mb"):
         value = getattr(args, name)
         if value is not None:
             tr[name] = value
+    if args.trust_torch_pickle:
+        tr["trust_torch_pickle"] = True
     return cfg.replace(train=_replace(cfg.train, **tr))
 
 
@@ -230,7 +307,8 @@ def pg_config(args) -> Config:
 
 
 def _refuse_unported_runs(args) -> None:
-    """The run options of train and finetune_pg that are not ported."""
+    """The run options of train and finetune_pg that are not ported
+    (ROADMAP.md queue 1 item 15)."""
     from . import not_ported
 
     if args.mesh:
@@ -238,6 +316,8 @@ def _refuse_unported_runs(args) -> None:
     if args.max_restarts > 0:
         raise not_ported("--max_restarts (supervised relaunch, "
                          "utils/elastic.py)")
+    if args.fault_step is not None:
+        raise not_ported("--fault_step (fault injection for --max_restarts)")
 
 
 def main(argv=None) -> int:
@@ -261,7 +341,7 @@ def main(argv=None) -> int:
         try:
             _refuse_unported_runs(args)
             train(args.corpus_path, args.model_path, config=train_config(args),
-                  device=str(device), profile_steps=args.profile_steps or 0)
+                  device=str(device), profile_steps=args.profile_steps)
         except NotImplementedError as e:
             raise SystemExit(str(e)) from None
         return 0
@@ -298,7 +378,7 @@ def main(argv=None) -> int:
                 device=str(device), dtype=args.dtype,
                 beam_size=args.beam_size, beam_prune=args.beam_prune,
                 lm_order=args.lm_order, timestamps=args.timestamps)
-    except (NotImplementedError, ValueError) as e:
+    except (NotImplementedError, ValueError, FileNotFoundError) as e:
         raise SystemExit(str(e)) from None
     return 0
 

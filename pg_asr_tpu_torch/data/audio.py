@@ -1,6 +1,7 @@
 """Host-side WAV IO and synthetic audio (counterpart of
 pg_asr_tpu/data/audio.py). numpy only; WAV is the one container ported
-(the JAX package's optional soundfile branch for FLAC/OGG is not)."""
+(the JAX package's optional soundfile branch for FLAC/OGG is not).
+``load_audio`` prefers the native decoder (``native_io``)."""
 
 from __future__ import annotations
 
@@ -42,8 +43,19 @@ def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def load_audio(path: str) -> tuple[np.ndarray, int]:
+def load_audio(path: str, decoder: str = "auto") -> tuple[np.ndarray, int]:
+    """(float32 samples, rate) of a WAV file, by the native C++ decoder
+    (``native_io``) unless `decoder` is "python" or it cannot be built, as
+    the JAX package's ``default_loader``; both give the same samples."""
     if os.path.splitext(path)[1].lower() == ".wav":
+        if decoder != "python":
+            from . import native_io
+
+            if native_io.native_available():
+                return native_io.read_wav(path)
+            if decoder == "native":
+                raise RuntimeError("the native WAV decoder could not be "
+                                   f"built ({native_io.SOURCE})")
         return read_wav(path)
     raise NotImplementedError(
         f"cannot decode {path!r}: only WAV is ported to pg_asr_tpu_torch "

@@ -1,6 +1,7 @@
 """Batch inference + scoring driver (counterpart of pg_asr_tpu/predict.py).
 
-Loads model_best (or model_last), decodes every utterance of a test
+Loads model_best (or model_last, or the average of the per-epoch snapshots,
+``--ckpt avg``), decodes every utterance of a test
 manifest, scores CER/WER and writes predicted.txt. Per batch: int16 waves go
 to the device, then features + acoustic forward + decode run there, and
 only the label ids come back. Ported: the CTC families (BiLSTM-CTC,
@@ -19,7 +20,8 @@ import os
 import torch
 
 from . import not_ported, resolve_device
-from .checkpoint import checkpoint_path, load_checkpoint
+from .checkpoint import (average_checkpoints, checkpoint_path,
+                         epoch_snapshots, load_checkpoint)
 from .config import Config
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
@@ -40,7 +42,9 @@ def load_model(model_path: str, alphabet: Alphabet,
     """Load params from <model_path>/model_{best,last}.pt onto `device`
 (the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote;
 its ``ema_params`` when the config's ``train.ema_decay`` > 0 and the
-checkpoint holds them, as the JAX package serves them).
+checkpoint holds them, as the JAX package serves them). which="avg": the
+uniform average of the per-epoch snapshots (train with ``keep_ckpts``),
+of their ``ema_params`` for an EMA model.
 
     vocab_size and input_dim follow the alphabet and the feature config, as
     in the JAX package; `dtype` overrides the config's compute dtype, in
@@ -61,8 +65,21 @@ checkpoint holds them, as the JAX package serves them).
         cfg = cfg.replace(model=cfg.model.__class__(
             **{**cfg.model.__dict__, **model_kw}))
     check_family(cfg.model.family)
+    dt = torch_dtype(cfg.model.dtype)
     if which == "avg":
-        raise not_ported("--ckpt avg (checkpoint averaging)")
+        snaps = epoch_snapshots(model_path)
+        if not snaps:
+            raise FileNotFoundError(
+                f"no model_epoch*.pt snapshots in {model_path} - train "
+                "with --keep_ckpts K to enable checkpoint averaging")
+        key = "ema_params" if cfg.train.ema_decay > 0.0 else "params"
+        try:
+            state = average_checkpoints(snaps, key)
+        except KeyError:
+            state = average_checkpoints(snaps, "params")
+        print(f"[predict] averaged {len(snaps)} epoch snapshots "
+              f"({os.path.basename(snaps[0])}..{os.path.basename(snaps[-1])})")
+        return cast_params(state, dt, device), cfg
     ckpt = load_checkpoint(checkpoint_path(model_path, which))
     state = ckpt["params"]
     if cfg.train.ema_decay > 0.0:
@@ -74,7 +91,7 @@ checkpoint holds them, as the JAX package serves them).
         else:
             print("[predict] checkpoint predates EMA being enabled - "
                   "serving the raw params")
-    return cast_params(state, torch_dtype(cfg.model.dtype), device), cfg
+    return cast_params(state, dt, device), cfg
 
 
 @torch.inference_mode()

@@ -375,8 +375,7 @@ def _check_pg_ported(cfg: Config) -> None:
             (cfg.model.family == "transformer"
              and cfg.transformer.num_experts > 0, _MOE),
             (t.mesh_shape != () or t.mesh_axes != ("data",),
-             "device meshes"),
-            (t.ema_decay > 0.0, "--ema_decay (EMA of the parameters)")):
+             "device meshes")):
         if bad:
             raise not_ported(what)
 
@@ -393,10 +392,14 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
     learning_rate * 0.1 and optax's default weight decay 1e-4. A PG
     model_last (epoch -1, step < num_steps) resumes the run; a supervised
     one is left alone. SIGTERM saves model_last at the exact step and
-    returns. Artifacts: pg_rewards.npy (reward per step), pg_dev_cer.npy
+    returns. An EMA model (``train.ema_decay`` > 0: load_model serves its
+    averaged weights) keeps its average through the PG steps; the dev CER
+    and every checkpoint's ``ema_params`` are that average, as in the JAX
+    package. Artifacts: pg_rewards.npy (reward per step), pg_dev_cer.npy
     ((step, CER) pairs), metrics.jsonl every 10 steps."""
     from ..predict import load_model
-    from ..train import AdamW, batch_to_device, corpus_cer
+    from ..train import (AdamW, _copy, _ema_update, batch_to_device,
+                         corpus_cer)
 
     cfg = config or Config()
     if batch_size:
@@ -430,6 +433,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                       weight_decay=1e-4)  # optax.adamw's default decay
     pg_step = make_pg_step(cfg, optimizer)
     logger = StepLogger(model_path)
+    use_ema = cfg.train.ema_decay > 0.0
+    ema = _copy(params) if use_ema else None
 
     # resume an interrupted PG run: its checkpoints carry epoch -1
     start_step, best_val = 0, math.inf
@@ -441,6 +446,9 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
             params = cast_params(prev["params"],
                                  torch_dtype(cfg.model.dtype), dev)
             optimizer.load_state_dict(prev["opt_state"], dev)
+            if use_ema and "ema_params" in prev:
+                ema = cast_params(prev["ema_params"],
+                                  torch_dtype(cfg.model.dtype), dev)
             start_step = int(prev["step"])
             best_val = float(prev.get("best_val_loss", math.inf))
             print(f"[pg] resumed from model_last at step {start_step}")
@@ -461,6 +469,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
             best_val = float(val)
         state = {"params": params, "opt_state": optimizer.state_dict(),
                  "step": step, "epoch": -1, "best_val_loss": best_val}
+        if use_ema:
+            state["ema_params"] = ema
         save_checkpoint(last_path, state)
         if is_best:
             save_checkpoint(checkpoint_path(model_path, "best"), state)
@@ -477,6 +487,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
             for batch in it:
                 loss, metrics = pg_step(params, generator,
                                         *batch_to_device(batch, dev))
+                if use_ema:
+                    _ema_update(ema, params, cfg.train.ema_decay)
                 step += 1
                 reward_dev.append(metrics["reward_mean"])
                 if step % 10 == 0:
@@ -485,7 +497,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                                entropy=float(metrics["entropy"]))
                 if dev_rows is not None and (step % eval_every == 0
                                              or step >= num_steps):
-                    cer = corpus_cer(params, dev_rows, alphabet, cfg, bs)
+                    cer = corpus_cer(ema if use_ema else params, dev_rows,
+                                     alphabet, cfg, bs)
                     dev_cers.append((step, cer))
                     if _save(step, val=cer):
                         print(f"[pg] step {step}: new best dev CER "

@@ -1414,3 +1414,185 @@ def test_edit_distances_on_card_match_cpu(cuda):
             assert torch.equal(a.cpu(), b)
         assert torch.equal(ed.wer_from_ids(*on_card, 1).cpu(),
                            ed.wer_from_ids(*args, 1))
+
+
+# --- the supervised recipe's options on the card (plain PyTorch: the JAX
+# package computes them in XLA, no kernel): the augmentation applies, the
+# accumulated AdamW step and the EMA update on CUDA tensors equal the CPU
+# on the same draws and gradients, and a train step with all of them runs
+# the encoder's kernels, equal to the plain path on the same draws.
+
+@pytest.mark.cuda
+def test_augment_applies_on_card_match_cpu(cuda):
+    """The draws made on the CPU, applied on both: float32 within 1e-6
+    (sums in other orders), lengths exact; draws from a CUDA generator
+    repeat with its seed."""
+    from pg_asr_tpu_torch.config import SpecAugmentConfig
+    from pg_asr_tpu_torch.ops import augment
+
+    g = torch.Generator().manual_seed(0)
+    B, N, T, F = 8, 16000, 101, 80
+    ns = torch.randint(1, N + 1, (B,), generator=g, dtype=torch.int32)
+    wave = (torch.randn(B, N, generator=g) * 3000).to(torch.int16)
+    wave[torch.arange(N)[None] >= ns[:, None]] = 0
+    f = torch.rand(B, 1, generator=g) * 0.2 + 0.9
+    noise = torch.randn(B, N, generator=g)
+    gain = torch.rand(B, 1, generator=g) * 6 - 3
+    cpu = augment._wave_apply(wave, ns, f, noise, gain, 0.1)
+    card = augment._wave_apply(*(x.to(cuda) for x in (wave, ns, f, noise,
+                                                       gain)), 0.1)
+    assert torch.equal(card[1].cpu(), cpu[1])
+    assert (card[0].cpu() - cpu[0]).abs().max() <= 1e-6
+
+    mask = (torch.arange(T)[None] < (ns[:, None] // 160 + 1)).float()
+    feats = torch.randn(B, T, F, generator=g) * mask[:, :, None]
+    draws = [*augment._mask_draws(g, 2, 40, mask.sum(1).int(), B, "cpu"),
+             *augment._mask_draws(g, 2, 15, torch.full((B,), F), B, "cpu")]
+    cpu = augment._spec_apply(feats, mask, *draws)
+    card = augment._spec_apply(feats.to(cuda), mask.to(cuda),
+                               *(d.to(cuda) for d in draws))
+    assert (card.cpu() - cpu).abs().max() <= 1e-6
+
+    cfg = SpecAugmentConfig(enabled=True, speed_min=0.9, speed_max=1.1,
+                            noise_std=0.1, gain_db=3.0)
+    runs = [augment.wave_augment(wave.to(cuda), ns.to(cuda),
+                                 torch.Generator(device=cuda).manual_seed(3),
+                                 cfg) for _ in range(2)]
+    assert runs[0][0].is_cuda and torch.equal(runs[0][0], runs[1][0])
+    out = augment.spec_augment(feats.to(cuda), mask.to(cuda),
+                               torch.Generator(device=cuda).manual_seed(3),
+                               cfg)
+    assert out.is_cuda and out.shape == feats.shape
+
+
+def _opt_case(device, dtype, scale):
+    g = torch.Generator().manual_seed(1)
+    params = {f"p{i}": torch.randn(shape, generator=g).to(device, dtype)
+              for i, shape in enumerate([(64, 32), (32,), (7, 5, 3)])}
+    grads = [{k: (torch.randn(v.shape, generator=g) * s).to(device, dtype)
+              for k, v in params.items()} for s in scale]
+    return params, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [False, True])
+def test_accumulated_adamw_on_card_matches_cpu(cuda, dtype, clip):
+    """--accum_steps 2 over 4 micro-batches on the card and on the CPU:
+    unclipped, bf16 bit for bit and float32 rtol 1e-6; clipped, the global
+    norm's float32 sum runs in another order, so the clip factor may differ
+    in its last bit: rtol 1e-6 in float32, one bf16 ulp (2^-7 relative) in
+    bfloat16."""
+    from pg_asr_tpu_torch.config import Config, TrainConfig
+    from pg_asr_tpu_torch.train import AdamW
+
+    cfg = Config(train=TrainConfig(learning_rate=1e-2, warmup_steps=2,
+                                   grad_clip=1.0, weight_decay=0.1,
+                                   accum_steps=2))
+    scale = (0.5, 9.0, 0.2, 0.3) if clip else (1e-3, 2e-3, 1e-3, 3e-3)
+    out = []
+    for device in ("cpu", cuda):
+        params, grads = _opt_case(device, dtype, scale)
+        opt = AdamW(cfg, params)
+        for g in grads:
+            opt.update(params, g)
+        assert opt.count == 2 and opt.mini_step == 0
+        out.append((params, opt.mu, opt.nu))
+    for cpu, card in zip(*out):
+        for k in cpu:
+            got = card[k].cpu()
+            if dtype == torch.bfloat16 and not clip:
+                assert torch.equal(got, cpu[k]), k
+            elif dtype == torch.bfloat16:
+                torch.testing.assert_close(got, cpu[k], rtol=2 ** -7,
+                                           atol=0)
+            else:
+                torch.testing.assert_close(got, cpu[k], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ema_update_on_card_matches_cpu(cuda, dtype):
+    """Bit for bit: every operation rounds where it does on the CPU (the
+    float32 multiply-add in float64, bf16 per operation)."""
+    from pg_asr_tpu_torch.train import _ema_update
+
+    out = []
+    for device in ("cpu", cuda):
+        ema, grads = _opt_case(device, dtype, (1.0, 1.0, 1.0))
+        for decay, p in zip((0.999, 0.9, 0.999), grads):
+            _ema_update(ema, p, decay)
+        out.append(ema)
+    assert all(torch.equal(out[1][k].cpu(), out[0][k]) for k in out[0])
+
+
+@pytest.mark.cuda
+def test_recipe_train_step_kernel_matches_plain(cuda):
+    """Augmentation (every option), accumulation over 2 micro-batches and
+    EMA, dropout 0: the kernel path (3 + 3 fused LSTM launches a
+    micro-batch) and the plain path, each from a CUDA generator of one
+    seed, so the same draws: losses rtol 1e-4, the parameters and the EMA
+    after the emit atol 1e-3 x the largest change of each tensor
+    (gradients in other float32 orders, through one AdamW step) plus 4
+    float32 ulps of its largest value (the rounding of p + the change)."""
+    from pg_asr_tpu_torch.config import Config, SpecAugmentConfig
+    from pg_asr_tpu_torch.train import AdamW, _ema_update, make_train_step
+
+    cfg = Config(model=ModelConfig(vocab_size=12, input_proj_dim=64,
+                                   hidden_size=32, num_layers=2,
+                                   dropout=0.0),
+                 augment=SpecAugmentConfig(enabled=True, speed_min=0.9,
+                                           speed_max=1.1, noise_std=0.1,
+                                           gain_db=3.0))
+    cfg = cfg.replace(train=cfg.train.__class__(
+        **{**cfg.train.__dict__, "accum_steps": 2, "warmup_steps": 0}))
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(2):
+        ns = np.array([6400, 3000, 2000])
+        wave = (rng.standard_normal((3, 6400)) * 3000
+                * (np.arange(6400)[None] < ns[:, None]))
+        batches.append([torch.from_numpy(a).to(cuda) for a in (
+            wave.astype(np.int16), ns.astype(np.int32),
+            rng.integers(1, 12, (3, 8)).astype(np.int32),
+            np.array([8, 5, 3], np.int32))])
+    start = bilstm_ctc.init_params(cfg.model,
+                                   torch.Generator().manual_seed(0), cuda)
+    out = {}
+    for use_kernel in (True, False):
+        params = {k: v.clone() for k, v in start.items()}
+        ema = {k: v.clone() for k, v in start.items()}
+        opt = AdamW(cfg, params)
+        # a run's moments (as after 100 updates), so that the emitted
+        # update is smooth in the gradient (the first Adam step is
+        # lr * sign(g), which a near-zero gradient can flip)
+        opt.count = 100
+        opt.nu = {k: torch.full_like(v, 1e-2) for k, v in params.items()}
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        step = make_train_step(cfg, opt)
+        if not use_kernel:
+            from pg_asr_tpu_torch import train as train_mod
+
+            def step(p, g, *arrays):
+                loss, grads = train_mod.loss_and_grads(p, arrays, cfg, g,
+                                                       use_kernel=False)
+                opt.update(p, grads)
+                return loss
+        before = _bi_counts()
+        losses = []
+        for arrays in batches:
+            losses.append(step(params, gen, *arrays))
+            _ema_update(ema, params, 0.9)
+        launched = [a - b for a, b in zip(_bi_counts(), before)]
+        assert launched == ([0, 0, 0, 0, 4, 4] if use_kernel else [0] * 6)
+        out[use_kernel] = torch.stack(losses), params, ema
+    (lk, pk, ek), (lp, pp, ep) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-5)
+    eps = torch.finfo(torch.float32).eps
+    for got, ref in ((pk, pp), (ek, ep)):
+        for k in ref:
+            change = (ref[k] - start[k]).abs().max()
+            assert change > 0 or "input_proj.b" in k or "ctc_head.b" in k, k
+            # and a few ulps of the values the small change is added to
+            bound = 1e-3 * change + 4 * eps * ref[k].abs().max()
+            assert (got[k] - ref[k]).abs().max() <= bound, k

@@ -198,7 +198,6 @@ def test_preemption_handler_sets_the_event_then_terminates(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--ema_decay", "0.99"], "EMA"),
     (["--max_restarts", "1"], "--max_restarts"),
     (["--mesh", "data:2"], "--mesh"),
 ])

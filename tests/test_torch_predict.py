@@ -128,7 +128,6 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 @pytest.mark.parametrize("extra,message", [
     (["--decoder", "beam", "--lm_order", "2"], "beam"),
-    (["--ckpt", "avg"], "avg"),
     (["--timestamps"], "timestamps"),
 ])
 def test_cli_unported_options_exit_with_message(slice_setup, extra, message):

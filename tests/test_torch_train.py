@@ -505,15 +505,10 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--accum_steps", "2"], "accum_steps"),
-    (["--ema_decay", "0.9"], "ema_decay"),
-    (["--keep_ckpts", "2"], "keep_ckpts"),
-    (["--save_every_steps", "5"], "save_every_steps"),
-    (["--val_metric", "cer"], "val_metric"),
-    (["--specaugment"], "augmentation"),
-    (["--init_from_torch", "x.pth"], "init_from_torch"),
     (["--mesh", "data=2"], "mesh"),
-    (["--profile_steps", "2"], "profile_steps"),
+    (["--max_restarts", "1"], "max_restarts"),
+    (["--fault_step", "3"], "fault_step"),
+    (["--model", "moe"], "MoE"),
     (["--units", "bpe"], "BPE"),
     (["--model", "seq2seq"], "seq2seq"),
 ])
