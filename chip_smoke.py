@@ -8,7 +8,8 @@ the CPU or to a kernel's plain version):
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the hand-written kernels from pg_asr_tpu_torch/csrc
      (one nvcc per source, started together), then the native WAV decoder
-     (native/pgasr_io.cpp, host g++) that the loader uses.
+     (native/pgasr_io.cpp, host g++) that the loader uses and the native
+     BPE segmenter (native/pgasr_bpe.cpp) that encodes BPE transcripts.
   3. kernels: each kernel vs its plain PyTorch version on the card at
      B=64, T=401, H=256 (5 s of audio, the default hidden size), float32
      and bfloat16, forward and reverse: lstm_fwd in its inference and
@@ -182,12 +183,33 @@ the CPU or to a kernel's plain version):
      the cache); examples/pg_improves_cer.py's recipe on the port's
      phonetic corpus (16 epochs, then 120 REINFORCE steps) with its test
      CERs.
- 12. prints its total wall time, a JSON line of kernel results (with each
-     kernel's launches on the policy-gradient and recipe paths), then as
-     the last line {"ok": true, "device": {...}}.
+ 12. corpus tools: the smoke corpus's WAVs laid out as a LibriSpeech
+     tree (train-clean-100, dev-clean, test-clean; upper-case
+     *.trans.txt) through `--mode preproc --librispeech_root --units bpe
+     --bpe_vocab_size 256` (the native segmenter's ids equal the Python
+     tokenizer's); one epoch of `--mode train --units bpe` on the
+     full-width BiLSTM-CTC (3 residual bilstm_fwd + 3 bilstm_bwd a step,
+     every batch encoded by the native segmenter, finite losses); `--mode
+     predict --decoder beam` (one ctc_beam launch at A = the learned
+     vocabulary) and greedy `--timestamps` (word onsets in order inside
+     their utterances), on the trained model and on random weights;
+     `--mode align` (every test utterance aligned, word spans in order
+     inside it; one batch's spans on the card equal the CPU's on the same
+     log-probs); `--mode pseudolabel` on the clips directory; ctc_beam vs
+     its plain scan at B=128, T=401, A=256, K=16, M=6 and exact, timed with
+     its bound; the Viterbi (ops/align.py) at B=32 x 5 s: device busy time
+     (profiler), wall and device operations; the train step at B=64 x 5 s
+     with the BPE head beside the character head, in turns; the committed flax fixture (a JAX-trained
+     model_best.ckpt with ema_params) served on the card: its log-probs
+     against the JAX package's stored ones within LOGPROB_BOUND, `--mode
+     predict` and `--mode align` through the CLI. Prints its wall time.
+ 13. prints its total wall time, a JSON line of kernel results (with each
+     kernel's launches on the policy-gradient, recipe and corpus-tool
+     paths, and ctc_beam's cases at A=256), then as the last line
+     {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
-flax or the JAX package (pg_asr_tpu) was imported.
+flax, msgpack, ml_dtypes or the JAX package (pg_asr_tpu) was imported.
 """
 
 from __future__ import annotations
@@ -401,7 +423,7 @@ def phase_device():
 
 def phase_build():
     from pg_asr_tpu_torch import _build
-    from pg_asr_tpu_torch.data import native_io
+    from pg_asr_tpu_torch.data import native_bpe, native_io
 
     t0 = time.perf_counter()
     path = _build.build()
@@ -413,6 +435,12 @@ def phase_build():
           f"build from {native_io.SOURCE}")
     print(f"[build] {os.path.relpath(native_io.library_path())} (host C++, "
           f"the native WAV decoder) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check(native_bpe.native_available(), "the native BPE segmenter did not "
+          f"build from {native_bpe.SOURCE}")
+    lib = native_io.library_path(native_bpe.SOURCE)
+    print(f"[build] {os.path.relpath(lib)} (host C++, the native BPE "
+          f"segmenter) in {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_inputs(dev):
@@ -3380,6 +3408,386 @@ def recipe_convergence(dev, d):
     return res
 
 
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "pg_asr_tpu_torch", "testdata", "flax_bilstm_tiny")
+VITERBI_B, VITERBI_L = 32, 32  # utterances of 5 s, labels (a batch's pad)
+
+
+def librispeech_tree(corpus, root):
+    """The smoke corpus's WAVs as a LibriSpeech tree: train-clean-100/,
+    dev-clean/, test-clean/, speaker/chapter dirs of 16 utterances each
+    (symlinks to the clips), upper-case <spk>-<chap>.trans.txt."""
+    from pg_asr_tpu_torch.data.text import read_tsv
+
+    for split, name in (("train", "train-clean-100"), ("dev", "dev-clean"),
+                        ("test", "test-clean")):
+        _, rows = read_tsv(os.path.join(corpus, f"{split}.tsv"))
+        for k in range(0, len(rows), 16):
+            spk, chap = 100 + k // 16, 1000 + k // 16
+            d = os.path.join(root, name, str(spk), str(chap))
+            os.makedirs(d)
+            lines = []
+            for j, r in enumerate(rows[k: k + 16]):
+                uid = f"{spk}-{chap}-{j:04d}"
+                os.symlink(os.path.join(corpus, "clips", r["path"]),
+                           os.path.join(d, uid + ".wav"))
+                lines.append(f"{uid} {r['sentence'].upper()}")
+            with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "w") as fo:
+                fo.write("\n".join(lines) + "\n")
+
+
+def durations_in_batch_order(tsv, aud, alphabet, bs):
+    """Seconds of each utterance of a manifest, in the order the drivers
+    write their rows (length-sorted batches, shuffle off)."""
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+
+    return [float(n) / 16000 for b in BatchIterator(
+        load_manifest(tsv, aud), alphabet, bs, shuffle=False)
+        for n in b.num_samples]
+
+
+def check_word_times(rows, durations, what):
+    """Each row's words: start <= end, in order, inside the utterance
+    (times are rounded to ms). Returns the number of words."""
+    check(len(rows) == len(durations), f"{what}: {len(rows)} rows for "
+          f"{len(durations)} utterances")
+    n = 0
+    for row, dur in zip(rows, durations):
+        prev = 0.0
+        for w in row["words"]:
+            check(prev - 1e-3 <= w["start"] <= w["end"] <= dur + 1e-3
+                  and 0.0 <= w["conf"] <= 1.0,
+                  f"{what}: word {w} of a {dur:.3f} s utterance")
+            prev = w["start"] if what == "timestamps" else w["end"]
+            n += 1
+    return n
+
+
+def phase_corpus_tools(dev, corpus, d):
+    """12. The corpus tools on the full-width BiLSTM-CTC with BPE units:
+    preproc of a LibriSpeech tree, one training epoch, beam and greedy
+    --timestamps transcription, forced alignment, pseudo-labels; ctc_beam
+    at A=256 against its plain scan; the Viterbi timed at B=32 x 5 s; the
+    JAX package's flax checkpoint fixture served on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import Config, ModelConfig
+    from pg_asr_tpu_torch.data import Alphabet, BatchIterator, load_manifest
+    from pg_asr_tpu_torch.data import bpe, native_bpe
+    from pg_asr_tpu_torch.decoding import beam, cuda_beam
+    from pg_asr_tpu_torch.models import bilstm_ctc, cast_params
+    from pg_asr_tpu_torch.models.bilstm_ctc import torch_dtype
+    from pg_asr_tpu_torch.ops import align
+    from pg_asr_tpu_torch.predict import forward, load_model
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+
+    t_start = time.perf_counter()
+    inf, res, bwd, per = route_counters()
+    bs, out_counts, result = 32, {}, {}
+
+    def jsonl(path):
+        with open(path) as fo:
+            return [json.loads(ln) for ln in fo]
+
+    # 1. preproc of a LibriSpeech tree with BPE units
+    root, bcorpus = os.path.join(d, "LibriSpeech"), os.path.join(d, "bpe")
+    librispeech_tree(corpus, root)
+    t0 = time.perf_counter()
+    rc, out = run_cli(["--mode", "preproc", "--librispeech_root", root,
+                       "--corpus_path", bcorpus, "--units", "bpe",
+                       "--bpe_vocab_size", "256"])
+    check(rc == 0 and "[preproc] BPE vocabulary" in out, "preproc failed")
+    tok = bpe.load_tokenizer(bcorpus, "bpe")
+    n = {s: len(load_manifest(os.path.join(bcorpus, f"{s}.tsv"), None))
+         for s in ("train", "dev", "test")}
+    check(n == {s: len(load_manifest(os.path.join(corpus, f"{s}.tsv")))
+                for s in n}, f"splits {n}")
+    texts = [u.text for u in load_manifest(
+        os.path.join(bcorpus, "train.tsv"), None)]
+    check(all(t == t.lower() for t in texts), "transcripts not lower-cased")
+    check(native_bpe.native_available(), "the native BPE segmenter did not "
+          f"build from {native_bpe.SOURCE}")
+    check(native_bpe.NativeBpe(tok.symbols, tok.merges).encode_batch(texts)
+          == [tok.encode(t) for t in texts],
+          "the native segmenter's ids differ from the Python tokenizer's")
+    result["preproc"] = {"s": time.perf_counter() - t0, "vocab": tok.size,
+                         "merges": len(tok.merges), "splits": n}
+    print(f"[tools] preproc: LibriSpeech tree {n} -> BPE vocabulary of "
+          f"{tok.size} tokens ({len(tok.merges)} merges) in "
+          f"{result['preproc']['s']:.1f} s; native segmenter ids equal the "
+          "Python tokenizer's")
+
+    # 2. one epoch of training on the BPE units
+    model = os.path.join(d, "bpe_model")
+    steps, n_dev, n_test = (-(-n["train"] // bs), -(-n["dev"] // bs),
+                            n["test"])
+    reset_counts()
+    for k in bpe.SEGMENTED:
+        bpe.SEGMENTED[k] = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(["--mode", "train", "--corpus_path", bcorpus,
+                       "--model_path", model, "--device", str(dev),
+                       "--units", "bpe", "--num_epochs", "1", "--seed",
+                       str(SEED)])
+    torch.cuda.synchronize()
+    counts = all_counts()
+    tl = np.load(os.path.join(model, "train_loss.npy"))
+    vl = np.load(os.path.join(model, "val_losses.npy"))
+    check(rc == 0 and np.isfinite(tl).all() and np.isfinite(vl).all(),
+          f"BPE train: rc {rc}, losses {tl} {vl}")
+    check(counts == {**dict.fromkeys(counts, 0), res: per * steps,
+                     bwd: per * steps, inf: per * n_dev},
+          f"BPE train launches {counts}")
+    seg = dict(bpe.SEGMENTED)
+    check(seg["native"] >= steps + n_dev and seg["python"] == 0,
+          f"segmenter batches {seg}: the native one must encode them all")
+    with open(os.path.join(model, "config.json")) as fo:
+        cfg = Config.from_json(fo.read())
+    check(cfg.text.units == "bpe" and cfg.model.vocab_size == tok.size,
+          f"config {cfg.text} vocab {cfg.model.vocab_size}")
+    out_counts["corpus_tools_train"] = counts
+    result["train"] = {"s": time.perf_counter() - t0, "steps": steps,
+                       "train_loss": float(tl[0]), "val_loss": float(vl[0]),
+                       "segmented": seg}
+    print(f"[tools] train --units bpe: {steps} steps, {per} + {per} "
+          f"residual / backward launches a step, loss {tl[0]:.4f} val "
+          f"{vl[0]:.4f}, segmenter batches {seg}, "
+          f"{result['train']['s']:.1f} s")
+
+    # 3. beam (one ctc_beam launch at A = the vocabulary) and greedy
+    # --timestamps, on the trained model and on random weights (which
+    # emit words where one epoch may not yet)
+    rand = os.path.join(d, "bpe_random")
+    save_model(rand, bilstm_ctc.init_params(
+        ModelConfig(vocab_size=tok.size), torch.Generator().manual_seed(SEED)),
+        cfg)
+    test_tsv = os.path.join(bcorpus, "test.tsv")
+    durs = durations_in_batch_order(test_tsv, None, tok, bs)
+    for name, m in (("trained", model), ("random", rand)):
+        reset_counts()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", bcorpus,
+                           "--model_path", m, "--device", str(dev),
+                           "--decoder", "beam"])
+        counts = all_counts()
+        check(rc == 0 and "CER:" in out, f"{name} beam predict: rc {rc}")
+        check(counts == {**dict.fromkeys(counts, 0), "ctc_beam": 1,
+                         inf: per}, f"{name} beam launches {counts}")
+        out_counts[f"corpus_tools_{name}_beam"] = counts
+        reset_counts()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", bcorpus,
+                           "--model_path", m, "--device", str(dev),
+                           "--timestamps"])
+        counts = all_counts()
+        check(rc == 0 and counts == {**dict.fromkeys(counts, 0),
+                                     inf: per * -(-n_test // bs)},
+              f"{name} --timestamps: rc {rc}, launches {counts}")
+        out_counts[f"corpus_tools_{name}_timestamps"] = counts
+        rows = jsonl(os.path.join(m, "timestamps.jsonl"))
+        words = check_word_times(rows, durs, "timestamps")
+        result[f"{name}_timestamps_words"] = words
+        print(f"[tools] {name} BPE model: beam 1 ctc_beam launch at A="
+              f"{tok.size}; --timestamps {len(rows)} rows, {words} words, "
+              "onsets in order inside their utterances")
+    check(result["random_timestamps_words"] > 0, "no word timed")
+
+    # 4. forced alignment, and one batch's spans on the card vs the CPU
+    reset_counts()
+    rc, out = run_cli(["--mode", "align", "--corpus_path", bcorpus,
+                       "--model_path", model, "--device", str(dev)])
+    counts = all_counts()
+    check(rc == 0 and counts == {**dict.fromkeys(counts, 0),
+                                 inf: per * -(-n_test // bs)},
+          f"align: rc {rc}, launches {counts}")
+    out_counts["corpus_tools_align"] = counts
+    rows = jsonl(os.path.join(model, "alignments.jsonl"))
+    words = check_word_times(rows, durs, "alignments")
+    check(all(r["aligned"] for r in rows) and words >= n_test,
+          f"align: {sum(r['aligned'] for r in rows)} of {len(rows)} aligned,"
+          f" {words} words")
+    params, cfg_m = load_model(model, tok, device=dev)
+    batch = next(iter(BatchIterator(load_manifest(test_tsv, None), tok, bs,
+                                    shuffle=False)))
+    lp, _, lens = forward(params, torch.from_numpy(batch.wave).to(dev),
+                          torch.from_numpy(batch.num_samples).to(dev), cfg_m)
+    labels = torch.from_numpy(batch.labels)
+    llens = torch.from_numpy(batch.label_lens)
+    on_card = align.ctc_forced_align(lp, lens, labels.to(dev),
+                                     llens.to(dev))
+    check(on_card == align.ctc_forced_align(lp.cpu(), lens.cpu(), labels,
+                                            llens),
+          "the card's alignment spans differ from the CPU's")
+    result["align"] = {"rows": len(rows), "words": words}
+    print(f"[tools] align: {len(rows)} of {len(rows)} aligned, {words} word "
+          "spans in order inside their utterances; one batch's spans on the "
+          "card equal the CPU's on the same log-probs")
+
+    # 5. pseudo-labels of the clips directory
+    clips = os.path.join(corpus, "clips")
+    for name, m in (("trained", model), ("random", rand)):
+        reset_counts()
+        rc, out = run_cli(["--mode", "pseudolabel", "--corpus_path", bcorpus,
+                           "--aud_path", clips, "--model_path", m,
+                           "--device", str(dev), "--min_conf", "0"])
+        counts = all_counts()
+        n_clips = len([f for f in os.listdir(clips) if f.endswith(".wav")])
+        check(rc == 0 and counts == {**dict.fromkeys(counts, 0),
+                                     inf: per * -(-n_clips // bs)},
+              f"{name} pseudolabel: rc {rc}, launches {counts}")
+        out_counts[f"corpus_tools_{name}_pseudolabel"] = counts
+        with open(os.path.join(m, "pseudo.tsv")) as fo:
+            lines = fo.read().splitlines()
+        check(lines[0] == "path\tsentence\tconfidence"
+              and all(ln.split("\t")[0].startswith(clips)
+                      and ln.split("\t")[1].strip()
+                      and 0.0 <= float(ln.split("\t")[2]) <= 1.0
+                      for ln in lines[1:]), f"{name} pseudo.tsv rows")
+        result[f"{name}_pseudolabel_kept"] = len(lines) - 1
+        print(f"[tools] {name} pseudolabel: kept {len(lines) - 1} of "
+              f"{n_clips} clips (min_conf 0)")
+    check(result["random_pseudolabel_kept"] > 0, "no pseudo-label kept")
+
+    # 6. ctc_beam at a BPE vocabulary, A=256, the beam's default batch
+    rng = np.random.default_rng(SEED + 1)
+    A = 256
+    x = rng.standard_normal((BEAM_B, T, A)) * 2.0
+    blp = torch.from_numpy((x - np.log(np.exp(x).sum(-1, keepdims=True)))
+                           .astype(np.float32)).to(dev)
+    fl = rng.integers(1, T + 1, BEAM_B).astype(np.int32)
+    fl[:3] = [T, 1, 2]
+    valid = int(fl.sum())
+    fl = torch.from_numpy(fl).to(dev)
+    cases = []
+    for M in (6, beam._prune_m(A, BEAM_K, None)):
+        prune = None if M == beam._prune_m(A, BEAM_K, None) else M
+        _, rel, abs_err = beam_vs_plain(blp, fl, M, T)
+        k_ms, p_ms = in_turns(
+            lambda: beam.beam_decode(blp, fl, max_label_len=T, prune=prune,
+                                     use_kernel=False),
+            lambda: cuda_beam.ctc_beam_cuda(blp, fl, K=BEAM_K, M=M, Lmax=T),
+            1, 20)
+        C = BEAM_K * (1 + M)  # phase 3b's count at this A
+        nbytes = (valid * A * 4 + BEAM_B * 4 + 2 * T * BEAM_B * BEAM_K * 4
+                  + 2 * BEAM_B * BEAM_K * 4 + BEAM_B * T * 4 + 2 * BEAM_B * 4)
+        flops = valid * (A * M + BEAM_K * BEAM_K + 5 * C + 20 * BEAM_K)
+        b_ms, b_by = bound_ms(flops, nbytes, "float32")
+        cases.append({"M": M, "B": BEAM_B, "T": T, "A": A, "K": BEAM_K,
+                      "valid_frames": valid, "nll_max_rel_err": rel,
+                      "nll_max_abs_err": abs_err, "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[tools] ctc_beam B={BEAM_B} T={T} A={A} K={BEAM_K} M={M}: "
+              f"labels, lens, parents, syms identical to the plain scan; nll "
+              f"rel err {rel:.1e}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms,"
+              f" bound {b_ms * 1e3:.2f} us ({b_by})")
+    result["beam_a256"] = cases
+
+    # 7. the Viterbi at B=32 x 5 s over the learned vocabulary
+    vlp = torch.log_softmax(torch.randn(
+        VITERBI_B, T, tok.size, generator=torch.Generator().manual_seed(SEED)),
+        -1).to(dev)
+    vlab = torch.randint(1, tok.size, (VITERBI_B, VITERBI_L),
+                         generator=torch.Generator().manual_seed(SEED))
+    vll = torch.full((VITERBI_B,), VITERBI_L, dtype=torch.int64)
+    vfl = torch.full((VITERBI_B,), T, dtype=torch.int64)
+    vargs = (vlp, vfl.to(dev), vlab.to(dev), vll.to(dev))
+
+    def viterbi():
+        return align.ctc_viterbi_backpointers(*vargs)
+
+    def forced():
+        return align.ctc_forced_align(*vargs)
+
+    back = viterbi()[0]
+    check(torch.equal(back.cpu(), align.ctc_viterbi_backpointers(
+        vlp.cpu(), vfl, vlab, vll)[0]), "Viterbi backpointers: card vs CPU")
+    # its thousands of launches overfill the launch queue, so CUDA events
+    # would time the host: the device's busy time comes from the profiler
+    busy = device_breakdown(viterbi, groups=("all",),
+                            classify=lambda name: "all")["all"]
+    vit = {"B": VITERBI_B, "T": T, "A": tok.size, "S": 2 * VITERBI_L + 1,
+           "device_busy_ms": busy, "host_ms": host_ms(viterbi, 5),
+           "forced_align_host_ms": host_ms(forced, 3),
+           "device_ops": device_ops(viterbi)}
+    result["viterbi"] = vit
+    print(f"[tools] Viterbi B={VITERBI_B} T={T} S={vit['S']}: device busy "
+          f"{busy:.2f} ms (profiler), wall {vit['host_ms']:.2f} ms (host "
+          f"clock, synchronised; {vit['device_ops']} device operations); "
+          f"with the D2H copy and the backtrace "
+          f"{vit['forced_align_host_ms']:.2f} ms")
+
+    # the train step at B=64 x 5 s with the BPE head beside the character
+    # head (A=28), random weights, in turns (char, bpe, bpe, char)
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        fns = {}
+        for name, vocab in (("char", 28), ("bpe", tok.size)):
+            mcfg = Config(model=ModelConfig(vocab_size=vocab, dtype=dtype))
+            p_d = cast_params(bilstm_ctc.init_params(
+                mcfg.model, torch.Generator().manual_seed(SEED)),
+                torch_dtype(dtype), dev)
+            opt = AdamW(mcfg, p_d)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            arrays = flagship_batch(dev, vocab=vocab)
+
+            def step(p_d=p_d, opt=opt, gen=gen, arrays=arrays, mcfg=mcfg):
+                _, grads = loss_and_grads(p_d, arrays, mcfg, gen)
+                opt.update(p_d, grads)
+
+            fns[name] = step
+        c1, b1 = time_ms(fns["char"], 5), time_ms(fns["bpe"], 5)
+        b2, c2 = time_ms(fns["bpe"], 5), time_ms(fns["char"], 5)
+        steps[dtype] = {"char_ms": (c1 + c2) / 2, "bpe_ms": (b1 + b2) / 2}
+        print(f"[tools] train step B={B} x 5 s, {dtype}: A={tok.size} "
+              f"{steps[dtype]['bpe_ms']:.2f} ms, A=28 "
+              f"{steps[dtype]['char_ms']:.2f} ms (in turns)")
+    result["train_step"] = steps
+
+    # 8. the JAX package's flax checkpoint (committed fixture) on the card
+    flax_dir = os.path.join(d, "flax_model")
+    shutil.copytree(FIXTURE, flax_dir)
+    with np.load(os.path.join(flax_dir, "reference.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    falpha = Alphabet.load(os.path.join(flax_dir, "alphabet.txt"))
+    reset_counts()
+    fparams, fcfg = load_model(flax_dir, falpha, device=dev)
+    flp, _, flens = forward(fparams, torch.from_numpy(ref["wave"]).to(dev),
+                            torch.from_numpy(ref["num_samples"]).to(dev),
+                            fcfg)
+    counts = all_counts()
+    err = (flp.cpu() - torch.from_numpy(ref["log_probs"])).abs().max().item()
+    check(flens.cpu().tolist() == ref["out_lens"].tolist()
+          and err <= LOGPROB_BOUND, f"flax fixture log-probs: err {err}")
+    check(counts[inf] == fcfg.model.num_layers and sum(counts.values())
+          == counts[inf], f"flax fixture forward launches {counts}")
+    n_flax = -(-n_test // bs)
+    for mode in ("predict", "align"):
+        reset_counts()
+        rc, out = run_cli(["--mode", mode, "--corpus_path", corpus,
+                           "--model_path", flax_dir, "--alphabet",
+                           os.path.join(flax_dir, "alphabet.txt"),
+                           "--device", str(dev)])
+        counts = all_counts()
+        check(rc == 0 and counts == {
+            **dict.fromkeys(counts, 0),
+            inf: fcfg.model.num_layers * n_flax},
+            f"flax fixture --mode {mode}: rc {rc}, launches {counts}")
+        out_counts[f"corpus_tools_flax_{mode}"] = counts
+    rows = jsonl(os.path.join(flax_dir, "alignments.jsonl"))
+    check(len(rows) == n_test, "flax fixture alignments")
+    result["flax"] = {"max_abs_err": err, "bound": LOGPROB_BOUND,
+                      "served": sorted(os.listdir(flax_dir))}
+    print(f"[tools] flax fixture (JAX-trained, model_best.ckpt with "
+          f"ema_params): log-probs on the card vs the JAX package's max abs "
+          f"err {err:.2e} (bound {LOGPROB_BOUND:.0e}); predict and align "
+          "through the CLI")
+    result["wall_s"] = time.perf_counter() - t_start
+    print(f"[tools] phase 12 wall time {result['wall_s']:.1f} s")
+    return {"launches": out_counts, **result}
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -3714,21 +4122,27 @@ def main() -> int:
         pg = phase_pg(dev, corpus, alphabet, d, bi, cases["beam"],
                       train_steps_ms)
         recipe = phase_recipe(dev, corpus, alphabet, d, bi, train_steps_ms)
+        tools = phase_corpus_tools(dev, corpus, d)
 
     import torch
 
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "pg_asr_tpu",
+                                        "msgpack", "ml_dtypes"))
     check(not bad, f"the port imported {bad}")
     print(json.dumps({"finetune_pg": pg}))
     print(json.dumps({"recipe": recipe}))
+    print(json.dumps({"corpus_tools": tools}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the policy-gradient and recipe paths (phases 10, 11)
+    for row in rows:  # the PG, recipe and corpus-tool paths (10, 11, 12)
         row["launches_by_path"].update(
             {path: n[row["name"]] for path, n in
-             {**pg["launches"], **recipe["launches"]}.items()})
+             {**pg["launches"], **recipe["launches"],
+              **tools["launches"]}.items()})
+        if row["name"] == "ctc_beam":
+            row["cases_bpe_vocab"] = tools["beam_a256"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

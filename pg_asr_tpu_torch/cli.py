@@ -19,6 +19,14 @@
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
         [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
         [--pg_eval_every N] [--batch_size N] [--device ...]
+    python -m pg_asr_tpu_torch --mode preproc --corpus_path C \\
+        [--librispeech_root R] [--lang en] [--units bpe \\
+        [--bpe_vocab_size 256]]
+    python -m pg_asr_tpu_torch --mode align --corpus_path C --model_path M \\
+        [--test_path T] [--aud_path A] [--alphabet F] [--ckpt ...]
+    python -m pg_asr_tpu_torch --mode pseudolabel --corpus_path C \\
+        --model_path M [--aud_path DIR_OR_TSV] [--min_conf 0.5] \\
+        [--out_tsv F] [--ckpt ...]
 
 The flags keep the JAX CLI's names for what is ported; ``--device`` names a
 torch device and defaults to ``cuda`` (asking for it on a host without a GPU
@@ -26,6 +34,9 @@ is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
 Modes and options of the JAX CLI that are not ported yet are accepted and
 exit with a message that says so (the seq2seq and MoE models, ``--mesh``,
 ``--max_restarts`` and ``--fault_step`` among them).
+``--mode preproc`` does no tensor work and ignores ``--device``, as the
+JAX CLI has none. ``--mode predict``, ``align`` and ``pseudolabel`` read
+the JAX package's ``.ckpt`` model directories too.
 ``--mode predict`` takes the model family (a transducer's encoder with it)
 and ``flash_attention`` from the model's config.json, as the JAX CLI does;
 for a transducer ``--decoder beam`` is its RNN-T beam search (width
@@ -48,10 +59,11 @@ MODES = ("train", "predict", "preproc", "finetune_pg", "stream", "export",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pg_asr_tpu_torch",
-        description="PyTorch/CUDA port of pg_asr_tpu (train, predict and "
-                    "policy-gradient fine-tuning of the BiLSTM-CTC, "
-                    "transformer-CTC, conformer-CTC and RNN-T transducer, "
-                    "so far)")
+        description="PyTorch/CUDA port of pg_asr_tpu (train, predict, "
+                    "policy-gradient fine-tuning, corpus preparation, "
+                    "forced alignment and pseudo-labels for the "
+                    "BiLSTM-CTC, transformer-CTC, conformer-CTC and RNN-T "
+                    "transducer, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -98,7 +110,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "activation memory, one more forward per block)")
     p.add_argument("--features", type=str, default=None,
                    choices=["logmel", "mfcc"])
-    p.add_argument("--units", type=str, default=None, choices=["char", "bpe"])
+    p.add_argument("--units", type=str, default=None, choices=["char", "bpe"],
+                   help="label units: char or BPE subwords (preproc trains "
+                        "them; train/predict use <corpus>/bpe.vocab)")
+    p.add_argument("--bpe_vocab_size", type=int, default=None,
+                   help="preproc --units bpe: target subword vocabulary "
+                        "size incl. pad (default 256)")
+    p.add_argument("--lang", type=str, default="en",
+                   help="preproc: language of the text normaliser's extra "
+                        "characters (en, eu, es, fr, de)")
+    p.add_argument("--librispeech_root", type=str, default=None,
+                   help="preproc: build corpus manifests + alphabet from a "
+                        "LibriSpeech tree (train-*/dev-*/test-* subdirs) "
+                        "into --corpus_path")
     p.add_argument("--accum_steps", type=int, default=None,
                    help="train: accumulate gradients over N micro-batches "
                         "per optimizer update")
@@ -174,7 +198,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", type=str, default="best",
                    choices=("best", "last", "avg"))
     p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3])
-    p.add_argument("--timestamps", action="store_true")
+    p.add_argument("--timestamps", action="store_true",
+                   help="predict: also write timestamps.jsonl with per-word "
+                        "[start, end] times (CTC emission peaks, seconds) "
+                        "and per-word/utterance confidences (greedy "
+                        "decoder, CTC families)")
+    p.add_argument("--min_conf", type=float, default=0.5,
+                   help="pseudolabel: keep utterances whose confidence "
+                        "(geometric-mean emitted posterior) is at least "
+                        "this")
+    p.add_argument("--out_tsv", type=str, default=None,
+                   help="pseudolabel: output manifest path (default "
+                        "<model_path>/pseudo.tsv)")
     # finetune_pg
     p.add_argument("--pg_steps", type=int, default=200,
                    help="finetune_pg: number of fine-tune steps")
@@ -241,6 +276,9 @@ def train_config(args, cfg: Config | None = None) -> Config:
         cfg = cfg.replace(features=_replace(cfg.features, kind=args.features))
     if args.units:
         cfg = cfg.replace(text=_replace(cfg.text, units=args.units))
+    if args.bpe_vocab_size:
+        cfg = cfg.replace(text=_replace(cfg.text,
+                                        bpe_vocab_size=args.bpe_vocab_size))
     if args.specaugment:
         cfg = cfg.replace(augment=_replace(cfg.augment, enabled=True))
     aug = {}
@@ -320,11 +358,46 @@ def _refuse_unported_runs(args) -> None:
         raise not_ported("--fault_step (fault injection for --max_restarts)")
 
 
+def preproc(args) -> None:
+    """--mode preproc: a LibriSpeech tree into the corpus layout, or the
+    text pass over a Common Voice-style corpus; with --units bpe also the
+    BPE vocabulary of the train split. Host work only."""
+    from .data.text import read_tsv
+
+    if args.librispeech_root:
+        from .data.dataset import librispeech_to_corpus
+
+        counts = librispeech_to_corpus(args.librispeech_root,
+                                       args.corpus_path)
+        print(f"[preproc] LibriSpeech -> {args.corpus_path}: {counts}")
+    else:
+        from .data.text import preproc_text
+
+        preproc_text(args.corpus_path, args.lang)
+        print(f"[preproc] normalized TSVs + alphabet.txt in "
+              f"{args.corpus_path}")
+    if args.units == "bpe":
+        from .data.bpe import train_bpe
+
+        _, rows = read_tsv(os.path.join(args.corpus_path, "train.tsv"))
+        tok = train_bpe([r.get("sentence", "") for r in rows],
+                        args.bpe_vocab_size or 256)
+        tok.save(os.path.join(args.corpus_path, "bpe.vocab"))
+        print(f"[preproc] BPE vocabulary ({tok.size} tokens, "
+              f"{len(tok.merges)} merges) -> "
+              f"{args.corpus_path}/bpe.vocab")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode not in ("train", "predict", "finetune_pg"):
+    if args.mode in ("stream", "export"):
         raise SystemExit(f"--mode {args.mode} is not yet ported to "
                          "pg_asr_tpu_torch (see ROADMAP.md); use main.py")
+    if args.mode == "preproc":
+        if not args.corpus_path:
+            raise SystemExit("--mode preproc needs --corpus_path")
+        preproc(args)
+        return 0
     from . import resolve_device
 
     try:
@@ -367,6 +440,25 @@ def main(argv=None) -> int:
     test_path = args.test_path or os.path.join(corpus, "test.tsv")
     aud_path = args.aud_path or os.path.join(corpus, "clips")
     alphabet = args.alphabet or os.path.join(corpus, "alphabet.txt")
+    if args.mode in ("align", "pseudolabel"):
+        try:
+            if args.mode == "align":
+                from .alignment import align_corpus
+
+                align_corpus(test_path, aud_path, alphabet, args.model_path,
+                             batch_size=args.batch_size or 32,
+                             which_ckpt=args.ckpt, device=str(device))
+            else:
+                from .selftrain import pseudo_label
+
+                pseudo_label(aud_path, alphabet, args.model_path,
+                             out_tsv=args.out_tsv,
+                             batch_size=args.batch_size or 32,
+                             min_conf=args.min_conf, which_ckpt=args.ckpt,
+                             device=str(device))
+        except (NotImplementedError, ValueError, FileNotFoundError) as e:
+            raise SystemExit(str(e)) from None
+        return 0
     from .predict import predict
 
     # beam eval batches at 128, greedy at 32, as the JAX CLI

@@ -22,8 +22,9 @@ import torch
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX params (nested dicts and lists of arrays) -> port state dict
-    (CPU tensors, in the arrays' types)."""
+    """JAX params (nested dicts and lists of arrays, or of CPU tensors as
+    ``checkpoint.read_flax_checkpoint`` gives them) -> port state dict (CPU
+    tensors, in the arrays' types)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:
@@ -31,6 +32,9 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             items = node.items()
         elif isinstance(node, (list, tuple)):
             items = enumerate(node)
+        elif isinstance(node, torch.Tensor):
+            out[prefix] = node.detach().clone()
+            return
         else:
             arr = np.array(node, copy=True)
             if arr.dtype.name == "bfloat16":  # ml_dtypes' type: widen, exact

@@ -1,7 +1,7 @@
-"""Host-side WAV IO and synthetic audio (counterpart of
-pg_asr_tpu/data/audio.py). numpy only; WAV is the one container ported
-(the JAX package's optional soundfile branch for FLAC/OGG is not).
-``load_audio`` prefers the native decoder (``native_io``)."""
+"""Host-side audio IO and synthetic audio (counterpart of
+pg_asr_tpu/data/audio.py). WAV in numpy, by the native decoder
+(``native_io``) first; every other container (FLAC, OGG) through
+soundfile where it is importable, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -9,6 +9,11 @@ import os
 import wave as _wave
 
 import numpy as np
+
+try:  # optional: neither host of the port has it
+    import soundfile as _sf
+except ImportError:
+    _sf = None
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -44,9 +49,10 @@ def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
 
 
 def load_audio(path: str, decoder: str = "auto") -> tuple[np.ndarray, int]:
-    """(float32 samples, rate) of a WAV file, by the native C++ decoder
+    """(float32 mono samples, rate). A WAV file by the native C++ decoder
     (``native_io``) unless `decoder` is "python" or it cannot be built, as
-    the JAX package's ``default_loader``; both give the same samples."""
+    the JAX package's ``default_loader`` (both give the same samples);
+    any other file by soundfile, channels averaged."""
     if os.path.splitext(path)[1].lower() == ".wav":
         if decoder != "python":
             from . import native_io
@@ -57,9 +63,14 @@ def load_audio(path: str, decoder: str = "auto") -> tuple[np.ndarray, int]:
                 raise RuntimeError("the native WAV decoder could not be "
                                    f"built ({native_io.SOURCE})")
         return read_wav(path)
-    raise NotImplementedError(
-        f"cannot decode {path!r}: only WAV is ported to pg_asr_tpu_torch "
-        "(see ROADMAP.md)")
+    if _sf is not None:
+        data, sr = _sf.read(path, dtype="float32", always_2d=False)
+        if data.ndim > 1:
+            data = data.mean(axis=1)
+        return data.astype(np.float32), int(sr)
+    raise RuntimeError(
+        f"cannot decode {path!r}: only WAV is supported natively and "
+        f"soundfile is not installed")
 
 
 def synth_utterance(rng: np.random.Generator, duration_s: float,

@@ -1,5 +1,7 @@
 """Manifests, length-bucketed batching and the synthetic corpus
-(counterpart of pg_asr_tpu/data/dataset.py).
+(counterpart of pg_asr_tpu/data/dataset.py), and the LibriSpeech layout
+(``scan_librispeech``, ``librispeech_to_corpus``: ``--mode preproc
+--librispeech_root``).
 
 numpy only. The batches are those of the JAX package's ``BatchIterator``
 (same bucketing, padding quanta, shuffle stream and int16 quantisation), so
@@ -40,6 +42,7 @@ class Batch:
     labels: np.ndarray        # (B, L) int32, 0-padded
     label_lens: np.ndarray    # (B,) int32
     texts: list[str]          # reference transcripts (for eval)
+    paths: list[str] | None = None  # source audio paths (pseudo-labeling)
 
     @property
     def size(self) -> int:
@@ -57,6 +60,56 @@ def load_manifest(tsv_path: str, audio_dir: str | None = None) -> list[Utterance
         utts.append(Utterance(audio_path=p, text=r.get("sentence", ""),
                               num_samples=-1))
     return utts
+
+
+def scan_librispeech(root: str) -> list[Utterance]:
+    """The utterances of a LibriSpeech split dir (speaker/chapter/
+    *.trans.txt beside .flac or .wav files, .flac first), transcripts
+    lower-cased, in os.walk order as the JAX package."""
+    utts = []
+    for dirpath, _, files in os.walk(root):
+        for fn in files:
+            if fn.endswith(".trans.txt"):
+                with open(os.path.join(dirpath, fn), encoding="utf-8") as fo:
+                    for line in fo:
+                        utt_id, _, text = line.strip().partition(" ")
+                        for ext in (".flac", ".wav"):
+                            ap = os.path.join(dirpath, utt_id + ext)
+                            if os.path.exists(ap):
+                                utts.append(Utterance(ap, text.lower(), -1))
+                                break
+    return utts
+
+
+def librispeech_to_corpus(root: str, out_dir: str) -> dict:
+    """A LibriSpeech tree -> the corpus layout the drivers read
+    (train/dev/test.tsv + alphabet.txt, audio referenced by absolute
+    path). Subdirs are classified by name prefix (train-*, dev-*, test-*,
+    several per split concatenate); a tree without such subdirs is all
+    train. Returns {"train": n, "dev": n, "test": n}."""
+    splits: dict[str, list[Utterance]] = {"train": [], "dev": [], "test": []}
+    for entry in sorted(os.listdir(root)):
+        full = os.path.join(root, entry)
+        if not os.path.isdir(full):
+            continue
+        for split in splits:
+            if entry.startswith(split):
+                splits[split].extend(scan_librispeech(full))
+                break
+    if not any(splits.values()):
+        splits["train"] = scan_librispeech(root)
+
+    os.makedirs(out_dir, exist_ok=True)
+    for split, utts in splits.items():
+        if utts:
+            write_tsv(os.path.join(out_dir, f"{split}.tsv"),
+                      ["path", "sentence"],
+                      [{"path": u.audio_path, "sentence": u.text}
+                       for u in utts])
+    texts = [u.text for u in splits["train"]] or [
+        u.text for us in splits.values() for u in us]
+    Alphabet.from_texts(texts).save(os.path.join(out_dir, "alphabet.txt"))
+    return {k: len(v) for k, v in splits.items()}
 
 
 # padded lengths are multiples of these (the JAX package's defaults), so
@@ -239,7 +292,8 @@ class BatchIterator:
         labels = np.zeros((len(utts), L), np.int32)
         for i, e in enumerate(enc):
             labels[i, : len(e)] = e
-        return Batch(wave, lens, labels, llens, [u.text for u in utts])
+        return Batch(wave, lens, labels, llens, [u.text for u in utts],
+                     paths=[u.audio_path for u in utts])
 
     def _batch_waves(self, utts: list[Utterance]):
         """(B, N) int16 waves and lengths: one threaded native call for the

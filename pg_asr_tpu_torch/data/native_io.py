@@ -41,27 +41,35 @@ _lib = None
 _tried = False
 
 
-def library_path() -> str:
+def library_path(source: str = SOURCE) -> str:
+    """The build of `source` in BUILD_DIR, keyed on a hash of the source
+    and the flags: an edited source builds anew, never a stale library."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as fo:
+    with open(source, "rb") as fo:
         h.update(fo.read())
-    return os.path.join(BUILD_DIR, f"libpgasr_io_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _build(out: str) -> None:
-    """Compile into a temporary file and rename it into place, so that a
-    concurrent process never loads a half-written library."""
+def build_library(source: str = SOURCE) -> str:
+    """``library_path(source)``, compiled unless it exists: into a
+    temporary file renamed into place, so that a concurrent process never
+    loads a half-written library."""
+    out = library_path(source)
+    if os.path.exists(out):
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     try:
         subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp,
-                        SOURCE, "-lpthread"],
+                        source, "-lpthread"],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    return out
 
 
 def _load():
@@ -71,10 +79,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            out = library_path()
-            if not os.path.exists(out):
-                _build(out)
-            lib = ctypes.CDLL(out)
+            lib = ctypes.CDLL(build_library())
         except (OSError, subprocess.SubprocessError):
             return None
         c_int_p = ctypes.POINTER(ctypes.c_int)

@@ -4,16 +4,44 @@ Conventions of the JAX package, kept exactly:
   * index 0 is '<pad>' and doubles as the CTC blank;
   * alphabet.txt holds one symbol per line WITHOUT the pad entry; loaders
     prepend '<pad>'.
-Text normalisation (``--mode preproc``) is not ported.
+``normalize_text`` and ``preproc_text`` are ``--mode preproc``'s text
+pass: the same normalised sentences and alphabet.txt as the JAX package.
 """
 
 from __future__ import annotations
 
 import csv
+import os
+import re
+import unicodedata
 from dataclasses import dataclass
 
 PAD = "<pad>"
 BLANK_ID = 0
+
+# characters kept by the normalizer besides letters, per language
+_LANG_EXTRA = {
+    "en": "'",
+    "eu": "'ñ",
+    "es": "'ñáéíóúü",
+    "fr": "'àâçéèêëîïôùûüÿœæ",
+    "de": "'äöüß",
+}
+
+
+def normalize_text(text: str, lang: str = "en") -> str:
+    """NFC, lower-case; keep letters (unicode-aware) and the language's
+    extra set, turn whitespace and dashes, underscores and slashes into
+    spaces, drop the rest (digits, punctuation); collapse whitespace."""
+    text = unicodedata.normalize("NFC", text or "").lower()
+    extra = set(_LANG_EXTRA.get(lang, "'"))
+    out = []
+    for ch in text:
+        if ch.isalpha() or ch in extra:
+            out.append(ch)
+        elif ch.isspace() or ch in "-–—_/":
+            out.append(" ")
+    return re.sub(r"\s+", " ", "".join(out)).strip()
 
 
 @dataclass(frozen=True)
@@ -33,6 +61,11 @@ class Alphabet:
     @property
     def ind2char(self) -> dict[int, str]:
         return {i: s for i, s in enumerate(self.symbols)}
+
+    def piece(self, i: int) -> str:
+        """Printable text of one symbol (identity for characters; the BPE
+        tokenizer maps its word-start marker to a space)."""
+        return self.symbols[i]
 
     def encode(self, text: str) -> list[int]:
         c2i = self.char2ind
@@ -58,26 +91,47 @@ class Alphabet:
     @staticmethod
     def load(path: str) -> "Alphabet":
         """Read alphabet.txt (pad not stored) and prepend '<pad>'."""
-        with open(path, "r") as fo:
+        with open(path, "r", encoding="utf-8") as fo:
             lines = [ln.rstrip("\n") for ln in fo.readlines()]
         return Alphabet.from_symbols([ln for ln in lines if ln != ""])
 
     def save(self, path: str) -> None:
-        with open(path, "w") as fo:
+        with open(path, "w", encoding="utf-8") as fo:
             for s in self.symbols[1:]:  # pad is implicit
                 fo.write(s + "\n")
 
 
 def read_tsv(path: str) -> tuple[list[str], list[dict]]:
-    with open(path, "r", newline="") as fo:
+    with open(path, "r", newline="", encoding="utf-8") as fo:
         rd = csv.DictReader(fo, delimiter="\t")
         rows = list(rd)
         return list(rd.fieldnames or []), rows
 
 
 def write_tsv(path: str, fieldnames: list[str], rows: list[dict]) -> None:
-    with open(path, "w", newline="") as fo:
+    with open(path, "w", newline="", encoding="utf-8") as fo:
         wr = csv.DictWriter(fo, fieldnames=fieldnames, delimiter="\t")
         wr.writeheader()
         for r in rows:
             wr.writerow(r)
+
+
+def preproc_text(corpus_path: str, lang: str = "en",
+                 splits=("train", "dev", "test")) -> Alphabet:
+    """``--mode preproc`` on a Common Voice-style corpus: normalise the
+    'sentence' column of each split TSV in place and write alphabet.txt
+    from the normalised train sentences."""
+    train_texts: list[str] = []
+    for split in splits:
+        path = os.path.join(corpus_path, f"{split}.tsv")
+        if not os.path.exists(path):
+            continue
+        fieldnames, rows = read_tsv(path)
+        for r in rows:
+            r["sentence"] = normalize_text(r.get("sentence", ""), lang)
+        write_tsv(path, fieldnames, rows)
+        if split == "train":
+            train_texts = [r["sentence"] for r in rows]
+    alphabet = Alphabet.from_texts(train_texts)
+    alphabet.save(os.path.join(corpus_path, "alphabet.txt"))
+    return alphabet

@@ -5,28 +5,33 @@ Loads model_best (or model_last, or the average of the per-epoch snapshots,
 manifest, scores CER/WER and writes predicted.txt. Per batch: int16 waves go
 to the device, then features + acoustic forward + decode run there, and
 only the label ids come back. Ported: the CTC families (BiLSTM-CTC,
-transformer-CTC, conformer-CTC) with the greedy decoder and the CTC prefix
+transformer-CTC, conformer-CTC) with the greedy decoder (``timestamps``:
+also timestamps.jsonl, per-word times and confidences) and the CTC prefix
 beam search (``decoder="beam"``, one kernel launch per batch on CUDA), and
 the RNN-T transducer (any of the three encoders) with its greedy and beam
 decoders (decoding/transducer.py); the family, the transducer's encoder and
-``flash_attention`` come from the model's config.json. LM fusion into the
-beam is not ported.
+``flash_attention`` come from the model's config.json. A model directory
+the JAX package wrote (``.ckpt`` files) is served as well. LM fusion into
+the beam is not ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
+import numpy as np
 import torch
 
 from . import not_ported, resolve_device
-from .checkpoint import (average_checkpoints, checkpoint_path,
-                         epoch_snapshots, load_checkpoint)
+from .checkpoint import (average_checkpoints, epoch_snapshots,
+                         find_checkpoint, load_checkpoint)
 from .config import Config
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
 from .decoding.beam import beam_decode
-from .decoding.greedy import greedy_decode, ids_to_strings
+from .decoding.greedy import (assemble_word_timings, greedy_decode,
+                              greedy_decode_with_timing, ids_to_strings)
 from .decoding.transducer import (transducer_beam_decode,
                                   transducer_greedy_decode)
 from .metrics import evaluate_corpus, save_predictions
@@ -42,18 +47,16 @@ def load_model(model_path: str, alphabet: Alphabet,
     """Load params from <model_path>/model_{best,last}.pt onto `device`
 (the ``params`` entry of a checkpoint the trainer or ``save_model`` wrote;
 its ``ema_params`` when the config's ``train.ema_decay`` > 0 and the
-checkpoint holds them, as the JAX package serves them). which="avg": the
-uniform average of the per-epoch snapshots (train with ``keep_ckpts``),
-of their ``ema_params`` for an EMA model.
+checkpoint holds them, as the JAX package serves them), or from the JAX
+package's model_{best,last}.ckpt where there is no .pt. which="avg": the
+uniform average of the per-epoch snapshots (train with ``keep_ckpts``;
+model_epoch*.pt, else the JAX package's model_epoch*.ckpt), of their
+``ema_params`` for an EMA model.
 
     vocab_size and input_dim follow the alphabet and the feature config, as
     in the JAX package; `dtype` overrides the config's compute dtype, in
     which every param comes back but the LayerNorm ones (float32)."""
-    cfg_path = os.path.join(model_path, "config.json")
-    if config is None and os.path.exists(cfg_path):
-        with open(cfg_path) as fo:
-            config = Config.from_json(fo.read())
-    cfg = config or Config()
+    cfg = model_config(model_path, config)
     model_kw = {}
     if (cfg.model.vocab_size != alphabet.size
             or cfg.model.input_dim != cfg.features.feature_dim):
@@ -67,7 +70,8 @@ of their ``ema_params`` for an EMA model.
     check_family(cfg.model.family)
     dt = torch_dtype(cfg.model.dtype)
     if which == "avg":
-        snaps = epoch_snapshots(model_path)
+        snaps = (epoch_snapshots(model_path)
+                 or epoch_snapshots(model_path, ".ckpt"))
         if not snaps:
             raise FileNotFoundError(
                 f"no model_epoch*.pt snapshots in {model_path} - train "
@@ -80,7 +84,7 @@ of their ``ema_params`` for an EMA model.
         print(f"[predict] averaged {len(snaps)} epoch snapshots "
               f"({os.path.basename(snaps[0])}..{os.path.basename(snaps[-1])})")
         return cast_params(state, dt, device), cfg
-    ckpt = load_checkpoint(checkpoint_path(model_path, which))
+    ckpt = load_checkpoint(find_checkpoint(model_path, which))
     state = ckpt["params"]
     if cfg.train.ema_decay > 0.0:
         # EMA-trained models serve their averaged weights (the ones the
@@ -92,6 +96,24 @@ of their ``ema_params`` for an EMA model.
             print("[predict] checkpoint predates EMA being enabled - "
                   "serving the raw params")
     return cast_params(state, dt, device), cfg
+
+
+def model_config(model_path: str, config: Config | None = None) -> Config:
+    """`config`, else <model_path>/config.json, else the defaults."""
+    cfg_path = os.path.join(model_path, "config.json")
+    if config is None and os.path.exists(cfg_path):
+        with open(cfg_path) as fo:
+            config = Config.from_json(fo.read())
+    return config or Config()
+
+
+def model_tokenizer(alphabet_path: str, cfg: Config):
+    """The model's tokenizer: its config's text.units picks alphabet.txt
+    at `alphabet_path` or the BPE files beside it (the JAX drivers'
+    rule)."""
+    if cfg.text.units == "bpe":
+        return load_tokenizer(os.path.dirname(alphabet_path), "bpe")
+    return Alphabet.load(alphabet_path)
 
 
 @torch.inference_mode()
@@ -125,25 +147,44 @@ def forward_transducer(params, wave, num_samples, cfg: Config,
 
 def _check_options(family: str, decoder: str, lm_order: int,
                    timestamps: bool) -> None:
-    """The JAX package's refusals of --timestamps and --lm_order for the
-    transducer (pg_asr_tpu/predict.py); for the CTC families both are not
-    yet ported."""
-    if family == "transducer":
-        if timestamps:
-            raise ValueError(
-                "--timestamps uses CTC emission peaks — greedy decoder only"
-                if decoder != "greedy" else
-                "--timestamps needs a CTC-family model (frame-synchronous "
-                "posteriors); the transducer decoder is label-synchronous")
-        if lm_order:
-            raise ValueError("LM shallow fusion is a CTC-beam feature; the "
-                             "transducer's prediction network IS its "
-                             "language model")
+    """The JAX package's refusals of --timestamps (greedy decoder and CTC
+    families only) and of --lm_order for the transducer
+    (pg_asr_tpu/predict.py); LM fusion for the CTC families is not yet
+    ported."""
+    if timestamps and decoder != "greedy":
+        raise ValueError("--timestamps uses CTC emission peaks — "
+                         "greedy decoder only")
+    if timestamps and family in ("transducer", "seq2seq"):
+        raise ValueError("--timestamps needs a CTC-family model "
+                         "(frame-synchronous posteriors); the "
+                         f"{family} decoder is label-synchronous")
+    if lm_order and family == "transducer":
+        raise ValueError("LM shallow fusion is a CTC-beam feature; the "
+                         "transducer's prediction network IS its "
+                         "language model")
     if lm_order:
         raise not_ported("LM shallow fusion into the beam search "
                          "(--lm_order)")
-    if timestamps:
-        raise not_ported("--timestamps")
+
+
+def timing_rows(labels, lens, onsets, token_logp, out_lens, num_samples,
+                texts, alphabet, sample_rate: int) -> list[dict]:
+    """timestamps.jsonl's rows for one batch (host arrays): per utterance
+    the target, the transcript, its confidence (geometric-mean token
+    posterior, 4 decimals) and the words' timings. A frame lasts the
+    utterance's seconds over its model output frames (any subsampling)."""
+    rows = []
+    for i in range(labels.shape[0]):
+        spf = ((float(num_samples[i]) / sample_rate)
+               / max(int(out_lens[i]), 1))
+        n = int(lens[i])
+        words = assemble_word_timings(labels[i], n, onsets[i], token_logp[i],
+                                      alphabet, spf)
+        conf = float(np.exp(np.mean(token_logp[i][:n]))) if n else 0.0
+        rows.append({"target": texts[i],
+                     "predicted": alphabet.decode(labels[i][:n]),
+                     "confidence": round(conf, 4), "words": words})
+    return rows
 
 
 def predict(test_path: str, aud_path: str, alphabet_path: str,
@@ -171,17 +212,10 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
                              "symbol), or 0 for the exact search")
     dev = resolve_device(device)
 
-    cfg_peek = config
-    cfg_path = os.path.join(model_path, "config.json")
-    if cfg_peek is None and os.path.exists(cfg_path):
-        with open(cfg_path) as fo:
-            cfg_peek = Config.from_json(fo.read())
-    family = (cfg_peek or Config()).model.family
+    cfg_peek = model_config(model_path, config)
+    family = cfg_peek.model.family
     _check_options(family, decoder, lm_order, timestamps)
-    if cfg_peek is not None and cfg_peek.text.units == "bpe":
-        alphabet = load_tokenizer(os.path.dirname(alphabet_path), "bpe")
-    else:
-        alphabet = Alphabet.load(alphabet_path)
+    alphabet = model_tokenizer(alphabet_path, cfg_peek)
     params, cfg = load_model(model_path, alphabet, config, which=which_ckpt,
                              device=dev, dtype=dtype)
     beam_size = beam_size or cfg.decode.beam_size
@@ -198,6 +232,7 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
 
     targets: list[str] = []
     predicted: list[str] = []
+    timing: list[dict] = []
     for batch in it:
         # int16 waves go to the device; only the (B, T) label ids come back
         wave = torch.from_numpy(batch.wave).to(dev)
@@ -215,12 +250,26 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
                 labels, lens, _ = beam_decode(
                     log_probs, out_lens, beam_size=beam_size,
                     max_label_len=cfg.decode.max_label_len, prune=prune)
+            elif timestamps:
+                labels, lens, onsets, tok_lp = greedy_decode_with_timing(
+                    log_probs, mask)
+                timing.extend(timing_rows(
+                    *(x.cpu().numpy() for x in (labels, lens, onsets, tok_lp,
+                                                out_lens)),
+                    batch.num_samples, batch.texts, alphabet,
+                    cfg.features.sample_rate))
             else:
                 labels, lens = greedy_decode(log_probs, mask)
         predicted.extend(ids_to_strings(labels, lens, alphabet))
         targets.extend(batch.texts)
 
     save_predictions(targets, predicted, model_path)
+    if timestamps:
+        ts_path = os.path.join(model_path, "timestamps.jsonl")
+        with open(ts_path, "w", encoding="utf-8") as fo:
+            for row in timing:
+                fo.write(json.dumps(row, ensure_ascii=False) + "\n")
+        print(f"[predict] word timings + confidences -> {ts_path}")
     stats = evaluate_corpus(targets, predicted)
     print(f"CER: {stats['cer_mean']:.4f} WER: {stats['wer_mean']:.4f} "
           f"(corpus: cer={stats['cer']:.4f} wer={stats['wer']:.4f}, "

@@ -384,8 +384,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                 batch_size: int | None = None, config: Config | None = None,
                 eval_every: int = 50, device: str = "cuda") -> dict:
     """Policy-gradient fine-tuning of the model in <model_path> (its
-    model_best.pt and config.json, written by the port's trainer), on the
-    corpus's train split, with a greedy dev CER every `eval_every` steps
+    model_best.pt and config.json, written by the port's trainer, or the
+    JAX package's model_best.ckpt), on the corpus's train split, with a greedy dev CER every `eval_every` steps
     selecting the best checkpoint.
 
     Optimizer: clip by global norm + AdamW at a constant rate of

@@ -48,8 +48,8 @@ import torch
 
 from . import not_ported, resolve_device
 from .checkpoint import (BEST_NAME, LAST_NAME, checkpoint_path,
-                         load_checkpoint, save_checkpoint, save_config,
-                         save_rolling)
+                         has_flax_checkpoints, load_checkpoint,
+                         save_checkpoint, save_config, save_rolling)
 from .config import Config
 from .data import BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
@@ -459,10 +459,20 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
     # build a wrong model nor overwrite config.json with it
     has_ckpt = any(os.path.exists(os.path.join(model_path, n))
                    for n in (BEST_NAME, LAST_NAME))
+    if not has_ckpt and has_flax_checkpoints(model_path):
+        # starting fresh would overwrite the JAX run's config.json
+        raise not_ported("resuming a JAX package run (its optax state)")
     prev_cfg_path = os.path.join(model_path, "config.json")
     if os.path.exists(prev_cfg_path):
         with open(prev_cfg_path) as fo:
             prev = Config.from_json(fo.read())
+        if prev.text.units != cfg.text.units:
+            # the tokenizer the model directory was made with, whatever
+            # --units says (a wrong vocabulary would not load)
+            print(f"[train] resuming with text.units={prev.text.units!r} "
+                  "from the checkpoint's config.json")
+            cfg = cfg.replace(text=dataclasses.replace(
+                cfg.text, units=prev.text.units))
         if has_ckpt:
             if prev.model.family != cfg.model.family:
                 print(f"[train] resuming with model family "

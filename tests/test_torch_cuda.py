@@ -321,7 +321,10 @@ def _beam_case(cuda, B, T, A, seed):
                                      # multiple of 32 or 4)
                                      (8, 101, 100, 32), (8, 101, 5000, 16),
                                      # the block form (K > 32)
-                                     (8, 101, 256, 48), (8, 101, 5000, 64)])
+                                     (8, 101, 256, 48), (8, 101, 5000, 64),
+                                     # a BPE vocabulary (the default 256)
+                                     # at the beam's default batch
+                                     (128, 401, 256, 16)])
 def test_ctc_beam_kernel_matches_plain(cuda, B, T, A, K, prune):
     lp, fl = _beam_case(cuda, B, T, A, B + T + K)
     M = beam._prune_m(A, K, prune)
@@ -380,6 +383,53 @@ def test_beam_decode_launches_the_kernel_once(cuda):
                            use_kernel=False)
     assert cuda_beam.LAUNCHES == before + 1
     assert torch.equal(labels, ref[0]) and torch.equal(lens, ref[1])
+
+
+# --- CTC forced alignment (ops/align.py, plain PyTorch on the tensors'
+# device) and the timing decoder: the card's backpointers, end states,
+# scores and spans equal the CPU's (the same float32 operations in the
+# same order: max, compare, add), on random and on exactly tied log-probs.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+def test_viterbi_on_card_matches_cpu(cuda, tied):
+    from pg_asr_tpu_torch.ops import align
+
+    rng = np.random.default_rng(4)
+    B, T, A, L = 32, 401, 256, 60
+    if tied:
+        lp = np.full((B, T, A), -np.log(A), np.float32)
+    else:
+        x = rng.standard_normal((B, T, A)).astype(np.float32)
+        lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(
+            np.float32)
+    labels = rng.integers(1, A, (B, L)).astype(np.int32)
+    labels[:, 1] = labels[:, 0]  # a repeat
+    label_lens = rng.integers(1, L + 1, B).astype(np.int32)
+    frame_lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    frame_lens[0], label_lens[1], frame_lens[1] = T, L, 10  # infeasible
+    args = [torch.from_numpy(a) for a in (lp, frame_lens, labels,
+                                          label_lens)]
+    got = align.ctc_viterbi_backpointers(*[a.to(cuda) for a in args])
+    want = align.ctc_viterbi_backpointers(*args)
+    assert all(g.is_cuda for g in got)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    spans = align.ctc_forced_align(*[a.to(cuda) for a in args])
+    assert spans == align.ctc_forced_align(*args)
+    assert spans[1] == [] and len(spans[0]) == label_lens[0]
+
+
+@pytest.mark.cuda
+def test_greedy_timing_on_card_matches_cpu(cuda):
+    from pg_asr_tpu_torch.decoding import greedy
+
+    lp, fl = _beam_case(cuda, 16, 120, 40, 9)
+    mask = (torch.arange(120, device=cuda)[None] < fl[:, None]).float()
+    got = greedy.greedy_decode_with_timing(lp, mask)
+    want = greedy.greedy_decode_with_timing(lp.cpu(), mask.cpu())
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

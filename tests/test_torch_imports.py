@@ -1,8 +1,9 @@
 """The port stands alone: no module of pg_asr_tpu_torch, and not
 chip_smoke.py, imports the JAX package (pg_asr_tpu), jax or flax, even a
-JAX-package module that imports no jax. What the port needs of such modules
-it keeps as its own copies; the config schema is one of them, and one
-config.json reads in both packages.
+JAX-package module that imports no jax, nor msgpack or ml_dtypes (the
+card's host has neither: the port reads flax checkpoints by itself). What
+the port needs of such modules it keeps as its own copies; the config
+schema is one of them, and one config.json reads in both packages.
 """
 
 import dataclasses
@@ -22,7 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # `import pg_asr_tpu`, `from pg_asr_tpu.x import y`, `import jax.numpy`...;
 # the word boundary lets pg_asr_tpu_torch through
 FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(pg_asr_tpu|jax|jaxlib|flax)(?:[.\s,]|$)",
+    r"^\s*(?:from|import)\s+(pg_asr_tpu|jax|jaxlib|flax|msgpack|ml_dtypes)"
+    r"(?:[.\s,]|$)",
     re.MULTILINE)
 
 
@@ -51,7 +53,8 @@ def test_pattern_allows_the_port_and_catches_the_jax_package():
     assert not FORBIDDEN.search("import pg_asr_tpu_torch\n")
     for line in ("import pg_asr_tpu\n", "from pg_asr_tpu.config import X\n",
                  "    from pg_asr_tpu import metrics\n", "import jax.numpy\n",
-                 "from flax import serialization\n"):
+                 "from flax import serialization\n", "import msgpack\n",
+                 "    from ml_dtypes import bfloat16\n"):
         assert FORBIDDEN.search(line), line
 
 
@@ -63,7 +66,8 @@ def test_importing_every_module_of_the_port_loads_no_jax_package():
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('pg_asr_tpu', 'jax', 'jaxlib', 'flax'))\n"
+            "             ('pg_asr_tpu', 'jax', 'jaxlib', 'flax', 'msgpack',\n"
+            "              'ml_dtypes'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}

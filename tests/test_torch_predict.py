@@ -128,7 +128,7 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 @pytest.mark.parametrize("extra,message", [
     (["--decoder", "beam", "--lm_order", "2"], "beam"),
-    (["--timestamps"], "timestamps"),
+    (["--lm_order", "2"], "lm_order"),
 ])
 def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
     paths, _, _, _, torch_dir = slice_setup

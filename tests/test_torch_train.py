@@ -509,7 +509,7 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
     (["--max_restarts", "1"], "max_restarts"),
     (["--fault_step", "3"], "fault_step"),
     (["--model", "moe"], "MoE"),
-    (["--units", "bpe"], "BPE"),
+    (["--mesh", "fsdp=8"], "mesh"),
     (["--model", "seq2seq"], "seq2seq"),
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
