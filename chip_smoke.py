@@ -203,9 +203,28 @@ the CPU or to a kernel's plain version):
      model_best.ckpt with ema_params) served on the card: its log-probs
      against the JAX package's stored ones within LOGPROB_BOUND, `--mode
      predict` and `--mode align` through the CLI. Prints its wall time.
- 13. prints its total wall time, a JSON line of kernel results (with each
-     kernel's launches on the policy-gradient, recipe and corpus-tool
-     paths, and ctc_beam's cases at A=256), then as the last line
+ 13. streaming transcription (serving.py) at the full width of Config():
+     lstm_fwd's reverse form (the LC-BLSTM window's backward direction)
+     vs its plain version at B=1 and B=8 (an idle slot's all-zero mask, a
+     flushed slot's partial window), T = C + R = 96, float32 and
+     bfloat16, and flash_attn at the streamed attention windows (B=1,
+     T'=16-304), device-timed with their bounds; on the longest test clip
+     with its own fixed norm and lookahead to the end, phase 5's
+     BiLSTM-CTC (3 lstm_fwd launches a chunk) and phase 7's conformer
+     (flash attention, the whole utterance as left context: 6 flash_attn
+     launches a chunk) streamed against their offline forward (log-probs
+     within a bound, ids equal); `--mode stream --wav` through the CLI on
+     phase 5's model, the random-weight model and phase 12's BPE model,
+     with and without --timestamps; the batched transcriber at S=8 over 8
+     clips opened one a round and closed as they end (3 lstm_fwd launches
+     a tick), every slot's text equal to its single stream; per-chunk
+     host ms (p50, p95), the real-time factor and the profiler's device
+     busy time and idle share for greedy, beam K=8, the conformer at left
+     context 512 and batched greedy at S=8 and S=32.
+ 14. prints its total wall time, a JSON line of kernel results (with each
+     kernel's launches on the policy-gradient, recipe, corpus-tool and
+     streaming paths, ctc_beam's cases at A=256, lstm_fwd's and
+     flash_attn's at the streamed windows), then as the last line
      {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
@@ -3788,6 +3807,487 @@ def phase_corpus_tools(dev, corpus, d):
     return {"launches": out_counts, **result}
 
 
+
+# the streamed window (serving.py): C committed + R lookahead frames, the
+# StreamingTranscriber's defaults
+STREAM_C, STREAM_R = 64, 32
+# lstm_fwd vs its plain version at the window's shapes (B=1 and 8, T=96):
+# tests/test_torch_cuda.py's bounds, float32 by summation order, bfloat16
+# one ulp of an output in [0.5, 1)
+STREAM_KERNEL_BOUNDS = {"float32": 1e-5, "bfloat16": 4e-3}
+# the streamed log-probs vs the offline forward on one utterance, float32
+# (fixed norm, lookahead to the stream end): the same model through other
+# kernels (the window's backward direction on lstm_fwd from a zero state,
+# the forward direction on the carried plain scan, whose sigmoid rounds per
+# operation; offline bilstm_fwd; for the conformer, windows of growing
+# length through flash_attn): phase 4's end-to-end bound
+STREAM_LOGPROB_BOUND = LOGPROB_BOUND
+# the flash kernel at the streamed attention windows: B=1, the default
+# conformer's 4 heads of 64, T' = (n_ctx + C + R) / 2 from the first
+# window's 48 up to the full left context's 304, and 16 (a flushed chunk)
+STREAM_FLASH_T = (16, 48, 176, 304)
+# seconds of audio a timed stream carries; chunks (ticks) profiled
+STREAM_TIMING_S = 12
+STREAM_PROFILED = 3
+
+
+def stream_lstm_cases(dev):
+    """lstm_fwd's reverse form (the window's backward direction) vs its
+    plain version at B=1 and B=8 (a batched tick: row 3 an idle slot with
+    an all-zero mask, row 5 a flushed slot's partial window), T = C + R,
+    H=256, float32 and bfloat16: errors, equal bits on a second launch,
+    zeros where masked, device-timed in turns, the bound."""
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops.lstm import lstm_scan_plain
+
+    Tw = STREAM_C + STREAM_R
+    cases = []
+    for Bs in (1, 8):
+        g = torch.Generator().manual_seed(SEED + Bs)
+        lens = torch.full((Bs,), Tw)
+        if Bs > 1:
+            lens[3], lens[5] = 0, 37
+        mask = (torch.arange(Tw)[None] < lens[:, None]).to(dev, torch.float32)
+        xp32 = (0.5 * torch.randn(Bs, Tw, 4 * H, generator=g)).to(dev)
+        U32 = ((torch.rand(H, 4 * H, generator=g) * 2 - 1)
+               / math.sqrt(H)).to(dev)
+        valid = int(lens.sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            xp, U = xp32.to(dtype), U32.to(dtype)
+            got = cuda_lstm.lstm_scan_cuda(xp, U, mask, True)
+            again = cuda_lstm.lstm_scan_cuda(xp, U, mask, True)
+            ref = lstm_scan_plain(xp, U, mask, True)
+            torch.cuda.synchronize()
+            err, mean_err = _errs(got, ref)
+            bound = STREAM_KERNEL_BOUNDS[name]
+            check(torch.equal(got, again), f"lstm_fwd B={Bs} {name}: two "
+                  "launches differ")
+            check(bool(torch.all(got[mask == 0] == 0)),
+                  f"lstm_fwd B={Bs} {name}: not zero where masked")
+            check(err <= bound, f"lstm_fwd at the streamed window B={Bs} "
+                  f"{name}: max abs err {err} > {bound}")
+            k_ms, p_ms = in_turns(
+                lambda: lstm_scan_plain(xp, U, mask, True),
+                lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, True), 3, 20,
+                device_ms)
+            s = xp.element_size()
+            # phase 3's counts: xp on the valid steps, U, the output and
+            # the mask; the product and ~30 elementwise ops a valid step
+            io = (valid * 4 * H + H * 4 * H + Bs * Tw * H) * s + Bs * Tw * 4
+            b_ms, b_by = bound_ms(valid * (2 * H * 4 * H + 30 * H), io, name)
+            case = {"B": Bs, "T": Tw, "H": H, "dtype": name,
+                    "reverse": True, "row_lens": lens.tolist(),
+                    "max_abs_err": err, "mean_abs_err": mean_err,
+                    "bound": bound, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+            cases.append(case)
+            print(f"[stream] lstm_fwd reverse B={Bs} T={Tw} H={H} {name} "
+                  f"(row lens {lens.tolist()}): max_abs_err {err:.3e} "
+                  f"(bound {bound:.0e}), mean {mean_err:.3e}; "
+                  f"device-timed kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+    return cases
+
+
+def stream_flash_cases(dev):
+    """flash_attn vs its plain version at the streamed attention windows
+    (B=1, 4 heads of 64, T' as STREAM_FLASH_T, the last quarter of the
+    longest window masked as past the stream end), float32 and bfloat16,
+    device-timed in turns."""
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_flash_attn
+    from pg_asr_tpu_torch.ops.flash_attn import mhsa_plain
+
+    scale = ATTN_DH ** -0.5
+    cases = []
+    for Tq in STREAM_FLASH_T:
+        g = torch.Generator().manual_seed(SEED + Tq)
+        qkv = torch.randn(1, Tq, 3, ATTN_H, ATTN_DH, generator=g)
+        n = Tq - Tq // 4 if Tq == max(STREAM_FLASH_T) else Tq
+        valid = (torch.arange(Tq)[None] < n).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v = (qkv.to(dev, dtype)[:, :, i].transpose(1, 2)
+                       for i in range(3))
+            got = cuda_flash_attn.flash_attn_cuda(q, k, v, valid, scale)
+            ref = mhsa_plain(q, k, v, valid, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            bound = FLASH_BOUNDS[name] * (v.float().abs().max().item()
+                                          if name == "bfloat16" else 1.0)
+            check(err <= bound, f"flash_attn T'={Tq} {name}: {err} > "
+                  f"{bound}")
+            k_ms, p_ms = in_turns(
+                lambda: mhsa_plain(q, k, v, valid, scale),
+                lambda: cuda_flash_attn.flash_attn_cuda(q, k, v, valid,
+                                                        scale), 10, 50,
+                device_ms)
+            pairs = n * n + (Tq - n) ** 2
+            b_ms, b_by = bound_ms(4 * ATTN_H * ATTN_DH * pairs,
+                                  4 * ATTN_H * Tq * ATTN_DH
+                                  * q.element_size() + Tq * 4, name)
+            cases.append({"B": 1, "H": ATTN_H, "T": Tq, "valid": n,
+                          "dh": ATTN_DH, "dtype": name, "max_abs_err": err,
+                          "bound": bound, "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by})
+            print(f"[stream] flash_attn B=1 H={ATTN_H} T'={Tq} ({n} valid) "
+                  f"dh={ATTN_DH} {name}: max_abs_err {err:.3e} (bound "
+                  f"{bound:.3e}); device-timed kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return cases
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, rec: list):
+    """module.name wrapped so that each call's result is appended to
+    rec (restored after)."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = orig(*args, **kw)
+        rec.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def offline_utterance(dev, cfg, wave):
+    """One utterance the way batched predict sees it (zeros past its end):
+    (wave (1, N) on dev, num_samples, valid frames, its fixed norm: the
+    (mean, var) of its valid feature cells)."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.ops.features import extract_features
+
+    w = torch.from_numpy(np.pad(wave, (0, cfg.features.n_fft)))[None].to(dev)
+    ns = torch.tensor([len(wave)], device=dev)
+    feats, _, flens = extract_features(w, ns, cfg.features)
+    n = int(flens[0])
+    cells = feats[0, :n].double()
+    return w, ns, n, (cells.mean().item(), cells.var(unbiased=False).item())
+
+
+def stream_vs_offline(dev, alphabet, model_dir, wave, attention: bool):
+    """Fixed norm (the utterance's own), lookahead to the stream end and,
+    for an attention family, left context over the whole utterance: the
+    streamed per-frame log-probs (BiLSTM-CTC; the max log-prob for the
+    attention families) and ids against the offline predict.forward.
+    Counts the launches of the streamed run."""
+    import torch
+
+    from pg_asr_tpu_torch import serving
+    from pg_asr_tpu_torch.predict import forward, load_model
+
+    params, cfg = load_model(model_dir, alphabet, device=dev)
+    w, ns, n, norm = offline_utterance(dev, cfg, wave)
+    lp_off, _, out_lens = forward(params, w, ns, cfg)
+    n_out = int(out_lens[0])
+    lp_off = lp_off[0, :n_out]
+    st = serving.StreamingTranscriber(params, cfg, alphabet,
+                                      chunk_frames=STREAM_C, right_context=n,
+                                      left_context=n, norm=norm, device=dev)
+    rec = []
+    reset_counts()
+    if attention:
+        with recorded(serving, "_chunk_step_attention", rec):
+            text = st.push(wave) + st.flush()
+        ids = torch.cat([r[0][0] for r in rec])[:n_out]
+        lp_max = torch.cat([r[1][0] for r in rec])[:n_out]
+        err = (lp_max - lp_off.amax(-1)).abs().max().item()
+    else:
+        with recorded(serving, "_ctc_log_probs", rec):
+            text = st.push(wave) + st.flush()
+        lp = torch.cat([r[0] for r in rec])[:n_out]
+        ids = lp.argmax(-1)
+        err = (lp - lp_off).abs().max().item()
+    counts = all_counts()
+    n_chunks = len(rec)
+    top2 = lp_off.topk(2, dim=-1).values
+    # where the top two lie further apart than twice the bound, the
+    # agreement of the log-probs within it forbids another argmax
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * STREAM_LOGPROB_BOUND
+    diff = int(((ids != lp_off.argmax(-1)) & clear).sum())
+    check(n_chunks == -(-n // STREAM_C), f"{n_chunks} chunks for {n} frames")
+    check(err <= STREAM_LOGPROB_BOUND and diff == 0,
+          f"streamed vs offline ({cfg.model.family}): log-prob err {err}, "
+          f"{diff} ids differ")
+    return {"family": cfg.model.family, "frames": n, "out_frames": n_out,
+            "chunks": n_chunks, "max_abs_err": err,
+            "bound": STREAM_LOGPROB_BOUND,
+            "near_tie_frames": int((~clear).sum()), "text": text,
+            "launches": counts}
+
+
+def stream_clips(corpus):
+    """The test split's clips, longest first: (path, samples)."""
+    from pg_asr_tpu_torch.data import load_manifest
+    from pg_asr_tpu_torch.data.audio import load_audio
+
+    clips = [(u.audio_path, load_audio(u.audio_path)[0])
+             for u in load_manifest(os.path.join(corpus, "test.tsv"),
+                                    os.path.join(corpus, "clips"))]
+    return sorted(clips, key=lambda c: -len(c[1]))
+
+
+def chunk_times(st, audio, block: int):
+    """Push audio in blocks of `block` samples and flush, timing each
+    chunk step on the host clock (each ends with its ids on the host) ->
+    (text, [ms per chunk], wall s)."""
+    times = []
+    run = st._run_chunk
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = run(*args, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    st._run_chunk = timed
+    t0 = time.perf_counter()
+    text = "".join(st.push(audio[i:i + block])
+                   for i in range(0, len(audio), block)) + st.flush()
+    wall = time.perf_counter() - t0
+    del st._run_chunk
+    return text, times, wall
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """(device busy ms, host wall ms) of one call of fn: the kernels' time
+    from a torch.profiler trace, the wall on the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA) / 1e3
+    check(busy > 0, "the profiler saw no kernel time")
+    return busy, wall
+
+
+def _pcts(times):
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(times, 50)),
+            "p95_ms": float(np.percentile(times, 95)), "n": len(times)}
+
+
+def phase_stream(dev, corpus, alphabet, ctc_dir, random_dir, conformer_dir,
+                 bpe_corpus, bpe_dir):
+    """13. Streaming transcription (serving.py) at the full width of
+    Config(): the kernels at the window's shapes; the streamed BiLSTM-CTC
+    (phase 5's) and conformer (phase 7's, flash attention) against their
+    offline forward; --mode stream through the CLI; the batched
+    transcriber at S=8 against single streams; the launches per chunk;
+    per-chunk times, the real-time factor and the device's idle share."""
+    import json as _json
+
+    import numpy as np
+
+    from pg_asr_tpu_torch import serving
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.predict import load_model
+
+    t_start = time.perf_counter()
+    inf = "lstm_fwd"
+    result, out_counts = {}, {}
+    result["lstm_fwd_cases"] = stream_lstm_cases(dev)
+    result["flash_attn_cases"] = stream_flash_cases(dev)
+    clips = stream_clips(corpus)
+    path, wave = clips[0]
+    sr, hop = Config().features.sample_rate, Config().features.hop_length
+
+    # offline equality on the longest test clip
+    result["offline"] = {}
+    for key, mdir, attention in (("ctc", ctc_dir, False),
+                                 ("conformer", conformer_dir, True)):
+        r = stream_vs_offline(dev, alphabet, mdir, wave, attention)
+        layers = 6 if attention else 3
+        want = ({"flash_attn": layers * r["chunks"]} if attention
+                else {inf: layers * r["chunks"]})
+        check(r["launches"] == {**dict.fromkeys(r["launches"], 0), **want},
+              f"streamed {key}: launches {r['launches']}, expected {want}")
+        result["offline"][key] = r
+        out_counts[f"stream_offline_{key}"] = r["launches"]
+        print(f"[stream] {key} on a {len(wave) / sr:.2f} s test clip "
+              f"({r['frames']} frames, {r['chunks']} chunks of "
+              f"{STREAM_C}, fixed norm, lookahead to the end): log-probs vs "
+              f"the offline forward max abs err {r['max_abs_err']:.3e} "
+              f"(bound {STREAM_LOGPROB_BOUND:.0e}), ids equal "
+              f"({r['near_tie_frames']} near-tie frames exempt); launches "
+              f"{want} ({layers} a chunk)")
+
+    # --mode stream through the CLI: phase 5's model, random weights, BPE
+    result["cli"] = {}
+    n_frames = len(wave) // hop + 1
+    n_chunks = -(-n_frames // STREAM_C)
+    for key, cdir, mdir in (("ctc", corpus, ctc_dir),
+                            ("ctc_random", corpus, random_dir),
+                            ("bpe", bpe_corpus, bpe_dir)):
+        base = ["--mode", "stream", "--corpus_path", cdir, "--model_path",
+                mdir, "--wav", path, "--device", str(dev)]
+        reset_counts()
+        rc, out = run_cli(base)
+        counts = all_counts()
+        check(rc == 0 and out.endswith("\n"), f"stream CLI {key}: rc {rc}")
+        check(counts == {**dict.fromkeys(counts, 0), inf: 3 * n_chunks},
+              f"stream CLI {key}: launches {counts}, expected "
+              f"{3 * n_chunks} lstm_fwd")
+        out_counts[f"stream_cli_{key}"] = counts
+        rc, out_ts = run_cli([*base, "--timestamps"])
+        lines = out_ts.splitlines()
+        words = [_json.loads(ln) for ln in lines[1:]]
+        check(rc == 0 and lines[0] == out.splitlines()[0],
+              f"stream CLI {key} --timestamps: rc {rc}, another text")
+        check([w["word"] for w in words] == lines[0].split()
+              and all(0 <= w["start"] < w["end"] for w in words),
+              f"stream CLI {key}: words {words[:3]} vs {lines[0]!r}")
+        result["cli"][key] = {"text": lines[0], "words": len(words)}
+        print(f"[stream] --mode stream {key}: {len(lines[0])} characters, "
+              f"{len(words)} JSON words with --timestamps; {3 * n_chunks} "
+              f"lstm_fwd launches ({n_chunks} chunks)")
+    check(any(r["words"] for r in result["cli"].values()),
+          "no model printed a word")
+
+    # the batched transcriber at S=8, staggered, against single streams
+    result["batched"] = {}
+    eight = clips[:8]
+    for key, mdir in (("ctc", ctc_dir), ("ctc_random", random_dir)):
+        params, cfg = load_model(mdir, alphabet, device=dev)
+        single = []
+        for _, w in eight:
+            st = serving.StreamingTranscriber(params, cfg, alphabet,
+                                              device=dev)
+            single.append(st.push(w) + st.flush())
+        srv = serving.BatchedStreamingTranscriber(params, cfg, alphabet,
+                                                  slots=8, device=dev)
+        ticks = []
+
+        def counted(work, run=srv._run):
+            if work:  # a tick with no ready slot runs nothing
+                ticks.append(len(work))
+            return run(work)
+
+        srv._run = counted
+        reset_counts()
+        slot, cursor, texts = {}, {}, {}
+        block, rnd = sr // 2, 0
+        while len(texts) < len(eight):
+            if rnd < len(eight):  # one stream opens a round
+                slot[rnd], cursor[rnd] = srv.open(), 0
+            for k in sorted(cursor):
+                srv.push(slot[k], eight[k][1][cursor[k]:cursor[k] + block])
+                cursor[k] += block
+            srv.step()
+            for k in sorted(cursor):
+                if cursor[k] >= len(eight[k][1]):
+                    srv.flush(slot[k])
+                    texts[k] = srv.text(slot[k])
+                    srv.close(slot[k])
+                    del cursor[k]
+            rnd += 1
+        counts = all_counts()
+        got = [texts[k] for k in range(len(eight))]
+        check(got == single, f"batched {key}: {got} vs single {single}")
+        check(counts == {**dict.fromkeys(counts, 0), inf: 3 * len(ticks)},
+              f"batched {key}: launches {counts} for {len(ticks)} ticks")
+        out_counts[f"stream_batched_s8_{key}"] = counts
+        result["batched"][key] = {"ticks": len(ticks),
+                                  "rows_per_tick": ticks,
+                                  "chars": sum(map(len, got))}
+        print(f"[stream] batched S=8 {key}: 8 clips opened one a round and "
+              f"closed as they end, every slot's text equal to its single "
+              f"stream ({sum(map(len, got))} characters); {len(ticks)} "
+              f"ticks (rows {ticks}), 3 lstm_fwd launches each")
+    check(any(r["chars"] for r in result["batched"].values()),
+          "the batched runs emitted nothing")
+
+    # timing: a STREAM_TIMING_S stream of test clips in 100 ms blocks;
+    # the profiler over STREAM_PROFILED chunks (or ticks) after it
+    audio = np.concatenate([w for _, w in clips])[:STREAM_TIMING_S * sr]
+    secs = len(audio) / sr
+    chunk_s = STREAM_C * hop / sr
+    timing = {}
+    p_ctc, c_ctc = load_model(ctc_dir, alphabet, device=dev)
+    p_conf, c_conf = load_model(conformer_dir, alphabet, device=dev)
+    runs = {"greedy": (p_ctc, c_ctc, {}),
+            "beam_k8": (p_ctc, c_ctc, {"decoder": "beam", "beam_size": 8}),
+            "conformer_left512": (p_conf, c_conf, {"left_context": 512})}
+    for key, (p, c, kw) in runs.items():
+        st = serving.StreamingTranscriber(p, c, alphabet, device=dev, **kw)
+        chunk_times(st, audio[:2 * sr], sr // 10)  # warm-up
+        st.reset()
+        _, times, wall = chunk_times(st, audio, sr // 10)
+        # the profiled chunks: the stream's next ones, mid-stream
+        st.reset()
+        st.push(audio[:4 * sr])
+        f0 = st._frames_done
+        busy, bwall = device_busy(lambda: st.push(
+            audio[4 * sr:4 * sr + STREAM_PROFILED * STREAM_C * hop]))
+        n_prof = (st._frames_done - f0) // STREAM_C
+        check(n_prof == STREAM_PROFILED, f"{n_prof} chunks profiled")
+        timing[key] = {**_pcts(times), "rtf": secs / wall,
+                       "device_busy_ms_per_chunk": busy / n_prof,
+                       "idle_share": 1 - busy / bwall}
+        t = timing[key]
+        print(f"[stream] {key} C={STREAM_C} R={STREAM_R} on {secs:.1f} s: "
+              f"chunk p50 {t['p50_ms']:.2f} ms p95 {t['p95_ms']:.2f} ms "
+              f"(host clock, {t['n']} chunks of {chunk_s:.2f} s audio), "
+              f"real-time factor {t['rtf']:.1f} (audio s per wall s); "
+              f"device busy {t['device_busy_ms_per_chunk']:.3f} ms a chunk "
+              f"over {n_prof} chunks (profiler), idle share "
+              f"{t['idle_share']:.3f}")
+    for S in (8, 32):
+        srv = serving.BatchedStreamingTranscriber(p_ctc, c_ctc, alphabet,
+                                                  slots=S, device=dev)
+        slots = [srv.open() for _ in range(S)]
+        for k, s_ in enumerate(slots):  # each slot its own offset
+            srv.push(s_, np.roll(audio, k * sr // 3))
+        srv.step()  # warm-up
+        times = []
+        # the stream's ticks but the warm-up's, the profiled ones and the
+        # last, whose window runs past the audio
+        for _ in range(STREAM_TIMING_S * sr // (STREAM_C * hop)
+                       - 2 - STREAM_PROFILED):
+            t0 = time.perf_counter()
+            check(len(srv.step()) == S, "a tick without every slot")
+            times.append((time.perf_counter() - t0) * 1e3)
+        busy, bwall = device_busy(lambda: [
+            check(len(srv.step()) == S, "a profiled tick without every slot")
+            for _ in range(STREAM_PROFILED)])
+        timing[f"batched_s{S}"] = {
+            **_pcts(times),
+            "rtf": S * chunk_s * len(times) / (sum(times) / 1e3),
+            "device_busy_ms_per_tick": busy / STREAM_PROFILED,
+            "idle_share": 1 - busy / bwall}
+        t = timing[f"batched_s{S}"]
+        print(f"[stream] batched greedy S={S}: tick p50 {t['p50_ms']:.2f} "
+              f"ms p95 {t['p95_ms']:.2f} ms ({t['n']} ticks, {S} x "
+              f"{chunk_s:.2f} s of audio each), real-time factor "
+              f"{t['rtf']:.1f} (all streams' audio s per wall s of the "
+              f"ticks); device busy {t['device_busy_ms_per_tick']:.3f} ms a "
+              f"tick over {STREAM_PROFILED} ticks (profiler), idle share "
+              f"{t['idle_share']:.3f}")
+    result["timing"] = timing
+    result["wall_s"] = time.perf_counter() - t_start
+    print(f"[stream] phase 13 wall time {result['wall_s']:.1f} s")
+    return {"launches": out_counts, **result}
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -4123,6 +4623,12 @@ def main() -> int:
                       train_steps_ms)
         recipe = phase_recipe(dev, corpus, alphabet, d, bi, train_steps_ms)
         tools = phase_corpus_tools(dev, corpus, d)
+        stream = phase_stream(dev, corpus, alphabet,
+                              os.path.join(d, "trained"),
+                              os.path.join(d, "model"),
+                              os.path.join(d, "conformer_trained"),
+                              os.path.join(d, "bpe"),
+                              os.path.join(d, "bpe_model"))
 
     import torch
 
@@ -4133,16 +4639,22 @@ def main() -> int:
     print(json.dumps({"finetune_pg": pg}))
     print(json.dumps({"recipe": recipe}))
     print(json.dumps({"corpus_tools": tools}))
+    print(json.dumps({"stream": stream}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the PG, recipe and corpus-tool paths (10, 11, 12)
+    for row in rows:  # the PG, recipe, corpus-tool and streaming paths
         row["launches_by_path"].update(
             {path: n[row["name"]] for path, n in
-             {**pg["launches"], **recipe["launches"],
-              **tools["launches"]}.items()})
+             {**pg["launches"], **recipe["launches"], **tools["launches"],
+              **stream["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
+        if row["name"] in ("lstm_fwd", "flash_attn"):
+            row["cases_stream"] = stream[f"{row['name']}_cases"]
+        if row["name"] == "lstm_fwd":  # no other model path launches it
+            row["launches"] = stream["launches"]["stream_cli_ctc"][
+                "lstm_fwd"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,12 @@ of the RNN-T transducer (greedy or its own beam search,
 tools: ``--mode preproc`` (text normalisation, LibriSpeech trees, BPE
 units with the native segmenter, ``data/``), ``--mode align``
 (``alignment.py``, ``ops/align.py``), ``--mode pseudolabel``
-(``selftrain.py``) and ``--timestamps``; and the JAX package's flax
-``.ckpt`` model directories, read without flax or msgpack
-(``checkpoint.read_flax_checkpoint``). Their CPU tests hold each against
-the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phase 12
-runs them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
+(``selftrain.py``) and ``--timestamps``; streaming transcription
+(``serving.py``, ``--mode stream``: single streams and S streams in
+lockstep); and the JAX package's flax ``.ckpt`` model directories, read
+without flax or msgpack (``checkpoint.read_flax_checkpoint``). Their CPU tests hold each against
+the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phases 12
+and 13 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction or, for
 ``bilstm_layer(fuse_directions=True)``, both directions of a layer at

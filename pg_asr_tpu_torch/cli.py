@@ -27,13 +27,22 @@
     python -m pg_asr_tpu_torch --mode pseudolabel --corpus_path C \\
         --model_path M [--aud_path DIR_OR_TSV] [--min_conf 0.5] \\
         [--out_tsv F] [--ckpt ...]
+    python -m pg_asr_tpu_torch --mode stream --corpus_path C --model_path M \\
+        --wav F [--chunk_frames 64] [--right_context 32] \\
+        [--left_context 512] [--block_ms 100] [--decoder greedy|beam] \\
+        [--beam_size 8] [--timestamps] [--device ...]
 
-The flags keep the JAX CLI's names for what is ported; ``--device`` names a
-torch device and defaults to ``cuda`` (asking for it on a host without a GPU
-is an error, never a CPU fallback), and ``--seed`` sets ``train.seed``.
-Modes and options of the JAX CLI that are not ported yet are accepted and
-exit with a message that says so (the seq2seq and MoE models, ``--mesh``,
-``--max_restarts`` and ``--fault_step`` among them).
+The parser declares every flag of the JAX CLI, with its default, so that
+argparse resolves a flag, or a prefix of one, as the JAX CLI does;
+``--device`` names a torch device and defaults to ``cuda`` (asking for it
+on a host without a GPU is an error, never a CPU fallback), and ``--seed``
+sets ``train.seed``. Modes and options of the JAX CLI that are not ported
+yet exit with a message that says so and names their ROADMAP.md item: the
+seq2seq and MoE models, ``--mode export`` and its ``--export_*`` flags,
+LM fusion (``--lm_order`` and the other ``--lm_*`` flags,
+``--length_bonus``), ``--mesh``, ``--microbatches``, ``--moe_experts``,
+``--capacity_factor``, ``--max_restarts``, ``--fault_step`` and
+``--debug_nans``.
 ``--mode preproc`` does no tensor work and ignores ``--device``, as the
 JAX CLI has none. ``--mode predict``, ``align`` and ``pseudolabel`` read
 the JAX package's ``.ckpt`` model directories too.
@@ -61,9 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m pg_asr_tpu_torch",
         description="PyTorch/CUDA port of pg_asr_tpu (train, predict, "
                     "policy-gradient fine-tuning, corpus preparation, "
-                    "forced alignment and pseudo-labels for the "
-                    "BiLSTM-CTC, transformer-CTC, conformer-CTC and RNN-T "
-                    "transducer, so far)")
+                    "forced alignment, pseudo-labels and streaming "
+                    "transcription for the BiLSTM-CTC, transformer-CTC, "
+                    "conformer-CTC and RNN-T transducer, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -234,7 +243,77 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_restarts", type=int, default=0,
                    help="train/finetune_pg: relaunch a run that dies "
                         "ungracefully (not ported)")
+    # stream
+    p.add_argument("--wav", type=str, default=None,
+                   help="stream: input audio file")
+    p.add_argument("--chunk_frames", type=int, default=64,
+                   help="stream: committed frames per step (emission "
+                        "granularity)")
+    p.add_argument("--right_context", type=int, default=32,
+                   help="stream: lookahead frames (latency/accuracy dial)")
+    p.add_argument("--left_context", type=int, default=512,
+                   help="stream (transformer/conformer): exact left-context "
+                        "frames per window")
+    p.add_argument("--block_ms", type=int, default=100,
+                   help="stream: audio push block size in milliseconds")
+    # not ported: each non-default value exits with a message
+    # (_refuse_unported_flags)
+    p.add_argument("--lm_weight", type=float, default=0.3,
+                   help="LM fusion weight (not ported)")
+    p.add_argument("--lm_type", type=str, default="ngram",
+                   choices=["ngram", "neural"],
+                   help="fusion LM flavor (not ported)")
+    p.add_argument("--lm_steps", type=int, default=300,
+                   help="neural-LM training steps (not ported)")
+    p.add_argument("--lm_pass", type=str, default="fused",
+                   choices=("fused", "rescore"),
+                   help="neural LM fused or rescoring (not ported)")
+    p.add_argument("--length_bonus", type=float, default=0.0,
+                   help="LM fusion length bonus (not ported)")
+    p.add_argument("--export_batch", type=int, default=8,
+                   help="export: static batch size (not ported)")
+    p.add_argument("--export_seconds", type=float, default=20.0,
+                   help="export: max audio length (not ported)")
+    p.add_argument("--export_platforms", type=str, default=None,
+                   help="export: platforms (not ported)")
+    p.add_argument("--export_quantize", type=str, default=None,
+                   choices=["int8"],
+                   help="export: weight-only int8 (not ported)")
+    p.add_argument("--microbatches", type=int, default=None,
+                   help="pipeline microbatches (not ported)")
+    p.add_argument("--moe_experts", type=int, default=None,
+                   help="switch-MoE experts (not ported)")
+    p.add_argument("--capacity_factor", type=float, default=None,
+                   help="MoE expert capacity factor (not ported)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="fail fast on NaN (not ported)")
     return p
+
+
+# the JAX CLI's flags that are not ported -> what each belongs to
+_UNPORTED_FLAGS = {
+    "lm_weight": "LM fusion, item 11", "lm_type": "LM fusion, item 11",
+    "lm_steps": "LM fusion, item 11", "lm_pass": "LM fusion, item 11",
+    "length_bonus": "LM fusion, item 11",
+    "export_batch": "export, item 14", "export_seconds": "export, item 14",
+    "export_platforms": "export, item 14",
+    "export_quantize": "export, item 14",
+    "microbatches": "the pipeline mesh, item 15",
+    "moe_experts": "the switch-MoE transformer, item 15",
+    "capacity_factor": "the switch-MoE transformer, item 15",
+    "debug_nans": "NaN checks, item 16",
+}
+
+
+def _refuse_unported_flags(parser: argparse.ArgumentParser, args) -> None:
+    """Exit through ``not_ported`` on any flag of the JAX CLI that is set
+    away from its default and not ported (naming its ROADMAP.md queue 1
+    item)."""
+    from . import not_ported
+
+    for flag, what in _UNPORTED_FLAGS.items():
+        if getattr(args, flag) != parser.get_default(flag):
+            raise not_ported(f"--{flag} ({what} of ROADMAP.md queue 1)")
 
 
 def _replace(section, **kw):
@@ -388,11 +467,68 @@ def preproc(args) -> None:
               f"{args.corpus_path}/bpe.vocab")
 
 
+def stream(args, device) -> None:
+    """--mode stream: push one audio file through a StreamingTranscriber
+    in --block_ms blocks, printing each emitted piece, then the flush and
+    (--timestamps) one JSON word timing a line (the JAX CLI's output)."""
+    import json
+
+    import numpy as np
+
+    from . import not_ported
+    from .data.audio import load_audio
+    from .data.bpe import load_tokenizer
+    from .data.dataset import _resample_linear
+    from .data.native_io import native_available
+    from .predict import load_model, model_config
+    from .serving import StreamingTranscriber
+
+    if not args.wav:
+        raise SystemExit("--mode stream needs --wav <file>")
+    if not args.corpus_path:
+        raise SystemExit("--mode stream needs --corpus_path (for the "
+                         "tokenizer artifacts)")
+    if args.lm_order:
+        raise not_ported("--lm_order (LM fusion, item 11 of ROADMAP.md "
+                         "queue 1)")
+    cfg = model_config(args.model_path)
+    alphabet = load_tokenizer(args.corpus_path, cfg.text.units)
+    params, cfg = load_model(args.model_path, alphabet, cfg, device=device,
+                             dtype=args.dtype)
+    st = StreamingTranscriber(params, cfg, alphabet,
+                              chunk_frames=args.chunk_frames,
+                              right_context=args.right_context,
+                              left_context=args.left_context,
+                              timestamps=args.timestamps,
+                              decoder=args.decoder,
+                              beam_size=args.beam_size or 8, device=device)
+    wave, sr = load_audio(args.wav)
+    rate = cfg.features.sample_rate
+    if sr != rate:
+        wave = _resample_linear(wave, int(round(len(wave) * rate / sr)),
+                                native_available())
+    block = max(1, args.block_ms * rate // 1000)
+    for i in range(0, len(wave), block):
+        piece = st.push(np.asarray(wave[i:i + block], np.float32))
+        if piece:
+            print(piece, end="", flush=True)
+    print(st.flush())
+    if args.timestamps:
+        for w in st.words:
+            print(json.dumps(w, ensure_ascii=False))
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.mode in ("stream", "export"):
-        raise SystemExit(f"--mode {args.mode} is not yet ported to "
-                         "pg_asr_tpu_torch (see ROADMAP.md); use main.py")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    try:
+        _refuse_unported_flags(parser, args)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    if args.mode == "export":
+        raise SystemExit("--mode export is not yet ported to "
+                         "pg_asr_tpu_torch (item 14 of ROADMAP.md queue 1); "
+                         "use main.py")
     if args.mode == "preproc":
         if not args.corpus_path:
             raise SystemExit("--mode preproc needs --corpus_path")
@@ -433,6 +569,13 @@ def main(argv=None) -> int:
                         config=pg_config(args),
                         eval_every=args.pg_eval_every, device=str(device))
         except (NotImplementedError, ValueError) as e:
+            raise SystemExit(str(e)) from None
+        return 0
+
+    if args.mode == "stream":
+        try:
+            stream(args, str(device))
+        except (NotImplementedError, ValueError, FileNotFoundError) as e:
             raise SystemExit(str(e)) from None
         return 0
 

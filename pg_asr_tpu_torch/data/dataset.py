@@ -118,6 +118,17 @@ WAVE_QUANTUM = 16000  # samples
 LABEL_QUANTUM = 32    # symbols
 
 
+def _resample_linear(w: np.ndarray, n_out: int, native: bool) -> np.ndarray:
+    """Linear resample to n_out samples (np.interp semantics): the native
+    build when `native`, else numpy (the same samples)."""
+    if native:
+        from . import native_io
+
+        return native_io.resample(w, n_out)
+    return np.interp(np.linspace(0.0, len(w) - 1.0, n_out),
+                     np.arange(len(w)), w).astype(np.float32)
+
+
 def _round_up(x: int, q: int) -> int:
     return ((x + q - 1) // q) * q
 
@@ -182,13 +193,7 @@ class BatchIterator:
             # linear resample (native when it builds: the same semantics);
             # +0.5 truncation as in the JAX package
             n_out = int(len(w) * self.sample_rate / sr + 0.5)
-            if self._native():
-                from . import native_io
-
-                w = native_io.resample(w, n_out)
-            else:
-                w = np.interp(np.linspace(0.0, len(w) - 1.0, n_out),
-                              np.arange(len(w)), w).astype(np.float32)
+            w = _resample_linear(w, n_out, self._native())
         utt.num_samples = len(w)
         return w
 

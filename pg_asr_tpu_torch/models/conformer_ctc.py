@@ -198,12 +198,17 @@ def _block(params: dict, pre: str, x: torch.Tensor, b_ffn1, b_attn, b_conv,
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
            use_kernel: bool = True, train: bool = False,
-           generator: torch.Generator | None = None):
+           generator: torch.Generator | None = None,
+           pre_normalized: bool = False):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
     (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
-    training dropout draws its bits from `generator` (x's device)."""
+    training dropout draws its bits from `generator` (x's device).
+    pre_normalized=True (streaming, serving.py): the caller normalized with
+    running or fixed statistics. Rotary attention sees positions only
+    through their differences, so a window needs no position offset."""
     dtype = torch_dtype(mcfg.dtype)
-    x = normalize_features(feats.to(dtype), frame_mask.to(dtype))
+    x = (feats.to(dtype) if pre_normalized
+         else normalize_features(feats.to(dtype), frame_mask.to(dtype)))
     x, out_mask, out_lens = stack_frames(x, frame_lens, ccfg.subsample)
     x = linear(params, "input_proj", x)
     x = apply_dropout(x, ccfg.dropout,

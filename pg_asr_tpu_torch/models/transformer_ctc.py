@@ -99,11 +99,14 @@ def init_params(mcfg: ModelConfig, tcfg: TransformerConfig,
 
 
 def _posenc(T: int, d: int, dtype: torch.dtype,
-            device: torch.device | str = "cpu") -> torch.Tensor:
+            device: torch.device | str = "cpu",
+            offset: int = 0) -> torch.Tensor:
     """Sinusoidal positions (T, d): [sin, cos] of pos * 10000^(-i/half),
-    concatenated, computed in float32 and cast to `dtype`."""
+    concatenated, computed in float32 and cast to `dtype`; positions start
+    at `offset` (a streamed window starts mid-utterance)."""
     half = d // 2
-    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    pos = (torch.arange(T, dtype=torch.float32, device=device)
+           + offset)[:, None]
     freq = torch.exp(-math.log(10000.0) * torch.arange(
         half, dtype=torch.float32, device=device) / half)
     ang = pos * freq[None, :]
@@ -164,15 +167,19 @@ def stack_frames(x: torch.Tensor, frame_lens: torch.Tensor, subsample: int):
 
 def frontend(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
              frame_lens: torch.Tensor, mcfg: ModelConfig,
-             tcfg: TransformerConfig):
+             tcfg: TransformerConfig, pos_offset: int = 0,
+             pre_normalized: bool = False):
     """Masked normalization -> frame stacking -> input projection +
     sinusoidal positions -> (x (B, T', d), out_mask (B, T') bool,
-    out_lens (B,))."""
+    out_lens (B,)). Streaming (serving.py) passes pre_normalized=True (it
+    normalizes with running or fixed statistics) and the window's first
+    absolute subframe as pos_offset."""
     dtype = torch_dtype(mcfg.dtype)
-    x = normalize_features(feats.to(dtype), frame_mask.to(dtype))
+    x = (feats.to(dtype) if pre_normalized
+         else normalize_features(feats.to(dtype), frame_mask.to(dtype)))
     x, out_mask, out_lens = stack_frames(x, frame_lens, tcfg.subsample)
     x = linear(params, "input_proj", x) + _posenc(
-        x.shape[1], tcfg.d_model, dtype, x.device)
+        x.shape[1], tcfg.d_model, dtype, x.device, pos_offset)
     return x, out_mask, out_lens
 
 
@@ -208,15 +215,17 @@ def _block(params: dict, pre: str, x: torch.Tensor, bits_attn, bits_ffn, *,
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig,
            tcfg: TransformerConfig, use_kernel: bool = True,
-           train: bool = False, generator: torch.Generator | None = None):
+           train: bool = False, generator: torch.Generator | None = None,
+           pos_offset: int = 0, pre_normalized: bool = False):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
     (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
-    training dropout draws its bits from `generator` (x's device)."""
+    training dropout draws its bits from `generator` (x's device).
+    pos_offset and pre_normalized: see ``frontend``."""
     if tcfg.num_experts > 0:
         raise not_ported("the switch-MoE transformer (transformer."
                          "num_experts > 0, parallel/moe.py)")
     x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
-                                     mcfg, tcfg)
+                                     mcfg, tcfg, pos_offset, pre_normalized)
     rate = tcfg.dropout
     x = apply_dropout(x, rate, dropout_bits(x, rate, generator, train))
     flash_mask = out_mask if tcfg.flash_attention else None

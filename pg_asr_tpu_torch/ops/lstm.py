@@ -215,14 +215,11 @@ def xla_gate_step(c: torch.Tensor, pre: torch.Tensor):
     -> (h_new, c_new). The XLA scan and the transducer decoders' prediction
     step share it."""
     H = pre.shape[1] // 4
-
-    def sigmoid(v):
-        return 1.0 / (1.0 + torch.exp(-v))
-
-    i = sigmoid(pre[:, :H])
-    f = sigmoid(pre[:, H:2 * H])
+    # one sigmoid over all four gates (the g slice unused): elementwise, so
+    # each element's bits are the per-slice ones, in a third of the launches
+    sig = 1.0 / (1.0 + torch.exp(-pre))
+    i, f, o = sig[:, :H], sig[:, H:2 * H], sig[:, 3 * H:]
     g = torch.tanh(pre[:, 2 * H:3 * H])
-    o = sigmoid(pre[:, 3 * H:])
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new
 
@@ -241,17 +238,29 @@ def lstm_scan_xla(xp: torch.Tensor, U: torch.Tensor,
     xp (B, T, 4H), U (H, 4H), mask (B, T) -> (B, T, H) in xp's dtype."""
     B, T, H4 = xp.shape
     h = torch.zeros(B, H4 // 4, dtype=xp.dtype, device=xp.device)
-    c = torch.zeros_like(h)
-    m_all = mask.to(xp.dtype)
+    return lstm_scan_xla_from(xp, U, mask, h, torch.zeros_like(h))[0]
+
+
+def lstm_scan_xla_from(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,
+                       h0: torch.Tensor, c0: torch.Tensor):
+    """``lstm_scan_xla`` from the carry (h0, c0) (B, H) in xp's dtype,
+    returning the carry too: the counterpart of pg_asr_tpu/serving.py
+    ``_fwd_scan_from``, the forward direction of a streamed window, which
+    carries (h, c) across chunks. -> (ys (B, T, H), (h, c)), the carry
+    frozen at masked steps."""
+    h, c = h0, c0
+    if xp.shape[1] == 0:  # a window with no lookahead frames
+        return xp.new_zeros(*h.shape[:1], 0, h.shape[1]), (h, c)
+    m_all = mask.to(xp.dtype)[:, :, None]
+    valid = m_all > 0
     out = []
-    for t in range(T):
+    for t in range(xp.shape[1]):
         h_new, c_new = xla_gate_step(c, xp[:, t] + torch.matmul(h, U))
-        m = m_all[:, t, None]
-        valid = m > 0
-        h = torch.where(valid, h_new, h)
-        c = torch.where(valid, c_new, c)
-        out.append(h_new * m)
-    return torch.stack(out, dim=1)
+        h = torch.where(valid[:, t], h_new, h)
+        c = torch.where(valid[:, t], c_new, c)
+        out.append(h_new)
+    # h_new * m, one multiply for all steps (the same bits)
+    return torch.stack(out, dim=1) * m_all, (h, c)
 
 
 def lstm_scan(xp: torch.Tensor, U: torch.Tensor, mask: torch.Tensor,

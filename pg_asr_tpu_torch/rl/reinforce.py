@@ -39,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import not_ported, resolve_device
-from ..checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
+from ..checkpoint import (FLAX_NAMES, checkpoint_path, load_checkpoint,
+                          read_flax_checkpoint, save_checkpoint)
 from ..config import Config
 from ..data import BatchIterator, load_manifest
 from ..data.bpe import load_tokenizer
@@ -380,6 +381,22 @@ def _check_pg_ported(cfg: Config) -> None:
             raise not_ported(what)
 
 
+def _refuse_jax_pg_resume(model_path: str, num_steps: int) -> None:
+    """Refuse a directory where the JAX package left a policy-gradient run
+    mid-way (its model_last.ckpt at epoch -1, no model_last.pt): the JAX
+    package resumes it from there, with its optax state, which the port
+    cannot map yet; starting over from model_best would not be that run."""
+    flax_last = os.path.join(model_path, FLAX_NAMES["last"])
+    if (os.path.exists(checkpoint_path(model_path, "last"))
+            or not os.path.exists(flax_last)):
+        return
+    prev = read_flax_checkpoint(flax_last)
+    if (int(prev.get("epoch", 0)) == -1
+            and int(prev.get("step", 0)) < num_steps):
+        raise not_ported("resuming a JAX package policy-gradient run "
+                         "(model_last.ckpt at epoch -1: its optax state)")
+
+
 def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                 batch_size: int | None = None, config: Config | None = None,
                 eval_every: int = 50, device: str = "cuda") -> dict:
@@ -406,6 +423,7 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     batch_size=batch_size))
     _check_pg_ported(cfg)
+    _refuse_jax_pg_resume(model_path, num_steps)
     dev = resolve_device(device)
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
     params, cfg = load_model(model_path, alphabet, cfg, which="best",

@@ -30,8 +30,8 @@ constant-rate form, ``_ema_update`` and the greedy dev CER
 (``corpus_cer``).
 
 Not ported (each refused with a message, ROADMAP.md): the seq2seq family,
-the switch-MoE transformer, device meshes and multi-host, BPE units; the
-CLI refuses ``--max_restarts`` and ``--fault_step``.
+the switch-MoE transformer, device meshes and multi-host; the CLI refuses
+``--max_restarts`` and ``--fault_step``.
 """
 
 from __future__ import annotations

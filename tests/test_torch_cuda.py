@@ -1646,3 +1646,91 @@ def test_recipe_train_step_kernel_matches_plain(cuda):
             # and a few ulps of the values the small change is added to
             bound = 1e-3 * change + 4 * eps * ref[k].abs().max()
             assert (got[k] - ref[k]).abs().max() <= bound, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("B", [1, 8])
+def test_lstm_kernel_at_the_streamed_window_shapes(cuda, B, dtype, atol):
+    """lstm_fwd's reverse form as the streamed LC-BLSTM window runs it:
+    T = C + R = 96 frames, H=256, one stream (B=1) or a batched tick
+    (B=8), where an idle slot's mask is all zeros (its outputs must stay
+    zeros) and a flushed slot's window is partly valid."""
+    T, H = 96, 256
+    rng = np.random.default_rng(B)
+    lens = np.full(B, T)
+    if B > 1:
+        lens[3], lens[5] = 0, 37
+    xp = torch.from_numpy(0.5 * rng.standard_normal((B, T, 4 * H)))
+    U = torch.from_numpy(rng.uniform(-1, 1, (H, 4 * H)) / np.sqrt(H))
+    mask = torch.from_numpy(np.arange(T)[None] < lens[:, None])
+    xp, U = xp.to(cuda, dtype), U.to(cuda, dtype)
+    mask = mask.to(cuda, torch.float32)
+    before = cuda_lstm.LAUNCHES
+    got = lstm_scan(xp, U, mask, reverse=True)
+    torch.cuda.synchronize()
+    assert cuda_lstm.LAUNCHES == before + 1
+    ref = lstm_scan_plain(xp, U, mask, reverse=True)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+    assert torch.all(got[mask == 0] == 0)
+    if B > 1:
+        assert not got[3].any()
+    assert torch.equal(got, lstm_scan(xp, U, mask, reverse=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", ["greedy", "beam"])
+def test_streaming_launches_lstm_fwd_per_layer_and_matches_plain(cuda,
+                                                                 decoder):
+    """StreamingTranscriber and BatchedStreamingTranscriber on the card:
+    one lstm_fwd launch a layer a chunk (the window's backward direction;
+    3 streams batched into one launch), the text equal to the plain path
+    on the card (use_kernel=False) and to a single stream."""
+    from pg_asr_tpu_torch.config import Config, FeatureConfig
+    from pg_asr_tpu_torch.data import Alphabet
+    from pg_asr_tpu_torch.serving import (BatchedStreamingTranscriber,
+                                          StreamingTranscriber)
+
+    cfg = Config(features=FeatureConfig(kind="logmel", n_mels=16, n_fft=128,
+                                        win_length=128, hop_length=64),
+                 model=ModelConfig(vocab_size=8, input_dim=16,
+                                   input_proj_dim=32, hidden_size=64,
+                                   num_layers=2, dropout=0.0))
+    params = bilstm_ctc.init_params(cfg.model,
+                                    torch.Generator().manual_seed(3))
+    params["ctc_head.b"] += torch.from_numpy(
+        np.random.default_rng(7).standard_normal(8).astype(np.float32) * 2)
+    alphabet = Alphabet.from_symbols(list("abcdefg"))
+    rng = np.random.default_rng(0)
+    waves = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+             for n in (1600, 2300, 900)]
+    kw = dict(chunk_frames=8, right_context=4, decoder=decoder, beam_size=4,
+              max_label_len=32)
+    single = []
+    for wave in waves:
+        texts = []
+        for use_kernel in (True, False):
+            st = StreamingTranscriber(params, cfg, alphabet, device=cuda,
+                                      use_kernel=use_kernel, **kw)
+            before = cuda_lstm.LAUNCHES
+            texts.append(st.push(wave) + st.flush())
+            n_chunks = -(-st._frames_done // 8)
+            assert cuda_lstm.LAUNCHES - before == (
+                2 * n_chunks if use_kernel else 0)
+        assert texts[0] == texts[1]
+        single.append(texts[0])
+    srv = BatchedStreamingTranscriber(params, cfg, alphabet, slots=4,
+                                      device=cuda, **kw)
+    slots = [srv.open() for _ in waves]
+    for s, wave in zip(slots, waves):
+        srv.push(s, wave)
+    before = cuda_lstm.LAUNCHES
+    ticks = 0
+    while srv.step():
+        ticks += 1
+    assert cuda_lstm.LAUNCHES - before == 2 * ticks
+    for s in slots:
+        srv.flush(s)
+    assert [srv.text(s) for s in slots] == single
+    assert "".join(single)

@@ -294,6 +294,27 @@ def test_train_refuses_to_resume_a_jax_run(tmp_path, corpus):
     assert not any(n.endswith(".pt") for n in os.listdir(d))
 
 
+def test_finetune_pg_refuses_to_resume_a_jax_pg_run(tmp_path, corpus):
+    """A directory the JAX package left mid-PG (model_last.ckpt at epoch
+    -1, step below --pg_steps): the JAX package resumes it with its optax
+    state, so the port refuses it rather than start over from
+    model_best.ckpt, and writes nothing."""
+    alphabet = Alphabet.load(os.path.join(corpus, "alphabet.txt"))
+    d, _, _ = _jax_model_dir(tmp_path, alphabet, ema=False)
+    _, tree = _jax_tree("float32", seed=1, vocab=alphabet.size)
+    jax_save_checkpoint(os.path.join(d, "model_last.ckpt"), {
+        "params": tree, "opt_state": optax.adamw(1e-4).init(tree),
+        "step": 3, "epoch": -1, "best_val_loss": 0.5})
+    before = sorted(os.listdir(d))
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--mode", "finetune_pg", "--corpus_path", corpus,
+                  "--model_path", d, "--device", "cpu", "--pg_steps", "5",
+                  "--batch_size", "4"])
+    assert "not yet ported" in str(e.value) and "optax" in str(e.value)
+    assert sorted(os.listdir(d)) == before
+    assert not any(n.endswith(".pt") for n in os.listdir(d))
+
+
 def _fixture_inputs():
     with np.load(os.path.join(FIXTURE, "reference.npz")) as z:
         return {k: z[k] for k in z.files}

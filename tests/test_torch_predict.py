@@ -126,9 +126,27 @@ def test_cli_predict_cpu(slice_setup, capsys):
     assert "CER:" in out and "WER:" in out
 
 
+# the JAX CLI's flags that are not ported, each with a non-default value
+UNPORTED_FLAGS = [
+    (["--lm_weight", "0.5"], "lm_weight"),
+    (["--lm_type", "neural"], "lm_type"),
+    (["--lm_steps", "10"], "lm_steps"), (["--lm_pass", "rescore"], "lm_pass"),
+    (["--length_bonus", "0.1"], "length_bonus"),
+    (["--export_batch", "4"], "export_batch"),
+    (["--export_seconds", "5"], "export_seconds"),
+    (["--export_platforms", "cpu"], "export_platforms"),
+    (["--export_quantize", "int8"], "export_quantize"),
+    (["--microbatches", "2"], "microbatches"),
+    (["--moe_experts", "4"], "moe_experts"),
+    (["--capacity_factor", "1.5"], "capacity_factor"),
+    (["--debug_nans"], "debug_nans"),
+]
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--decoder", "beam", "--lm_order", "2"], "beam"),
     (["--lm_order", "2"], "lm_order"),
+    *UNPORTED_FLAGS,
 ])
 def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
     paths, _, _, _, torch_dir = slice_setup
@@ -158,7 +176,7 @@ def test_cli_unported_family_exits_with_message(slice_setup, tmp_path):
 
 def test_cli_other_modes_not_ported():
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["--mode", "stream", "--device", "cpu"])
+        cli.main(["--mode", "export", "--device", "cpu"])
 
 
 def _run(code_or_args, **kw):

@@ -1,0 +1,91 @@
+"""``--mode stream`` through both CLIs, in process, on the committed flax
+fixture (pg_asr_tpu_torch/testdata/flax_bilstm_tiny: a JAX-trained
+BiLSTM-CTC, its alphabet.txt the tokenizer), the port with ``--device
+cpu``; and the port's parser against the JAX CLI's.
+
+Parity bar: the printed text (each pushed block's piece, then the flush)
+and the ``--timestamps`` JSON lines equal, greedy and beam (no LM). The
+clip is 22.05 kHz, so both resample it to the model's 16 kHz first
+(linear, np.interp semantics in both).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pg_asr_tpu import cli as jax_cli
+from pg_asr_tpu_torch import cli
+from pg_asr_tpu_torch.data.audio import synth_utterance, write_wav
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "pg_asr_tpu_torch", "testdata",
+                       "flax_bilstm_tiny")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    """2.4 s of synthetic speech at 22.05 kHz (three 0.8 s utterances)."""
+    path = str(tmp_path_factory.mktemp("stream") / "clip.wav")
+    rng = np.random.default_rng(1)
+    write_wav(path, np.concatenate([synth_utterance(rng, 0.8, 22050)
+                                    for _ in range(3)]), 22050)
+    return path
+
+
+def _stream(main, clip, capsys, *extra):
+    rc = main(["--mode", "stream", "--corpus_path", FIXTURE, "--model_path",
+               FIXTURE, "--wav", clip, "--chunk_frames", "16",
+               "--right_context", "8", "--block_ms", "70", *extra])
+    assert rc == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [(), ("--timestamps",),
+                                   ("--decoder", "beam", "--beam_size", "4")])
+def test_stream_output_matches_jax_cli(clip, capsys, extra):
+    got = _stream(cli.main, clip, capsys, "--device", "cpu", *extra)
+    want = _stream(jax_cli.main, clip, capsys, *extra)
+    assert got == want
+    lines = got.splitlines()
+    assert lines and lines[0].strip()
+    if extra == ("--timestamps",):
+        assert len(lines) > 3 and lines[1].startswith('{"word": ')
+
+
+def test_stream_needs_wav_and_refuses_lm(clip):
+    with pytest.raises(SystemExit, match="--wav"):
+        cli.main(["--mode", "stream", "--corpus_path", FIXTURE,
+                  "--model_path", FIXTURE, "--device", "cpu"])
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--mode", "stream", "--corpus_path", FIXTURE,
+                  "--model_path", FIXTURE, "--device", "cpu", "--wav", clip,
+                  "--decoder", "beam", "--lm_order", "2"])
+    assert "not yet ported" in str(e.value) and "lm_order" in str(e.value)
+
+
+def test_parser_declares_every_jax_flag():
+    """Every option string of the JAX CLI, so that argparse resolves a flag
+    or a prefix of one alike; the port's only extra is --seed (its
+    --device, an int there, names a torch device here)."""
+    def flags(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    jax_flags = flags(jax_cli.build_parser())
+    port_flags = flags(cli.build_parser())
+    assert jax_flags <= port_flags
+    assert port_flags - jax_flags == {"--seed"}
+    jax_defaults = {a.dest: a.default for a in jax_cli.build_parser()._actions}
+    for a in cli.build_parser()._actions:
+        if a.dest in ("wav", "chunk_frames", "right_context", "left_context",
+                      "block_ms", *cli._UNPORTED_FLAGS):
+            assert a.default == jax_defaults[a.dest], a.dest

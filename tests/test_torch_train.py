@@ -31,6 +31,7 @@ from pg_asr_tpu_torch.data import make_synthetic_corpus
 from pg_asr_tpu_torch.models import bilstm_ctc
 from pg_asr_tpu_torch.ops import ctc
 from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+from tests.test_torch_predict import UNPORTED_FLAGS
 
 
 @pytest.fixture(autouse=True)
@@ -511,6 +512,7 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
     (["--model", "moe"], "MoE"),
     (["--mesh", "fsdp=8"], "mesh"),
     (["--model", "seq2seq"], "seq2seq"),
+    *UNPORTED_FLAGS,
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                                                       extra, message):
