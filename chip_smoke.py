@@ -221,10 +221,29 @@ the CPU or to a kernel's plain version):
      host ms (p50, p95), the real-time factor and the profiler's device
      busy time and idle share for greedy, beam K=8, the conformer at left
      context 512 and batched greedy at S=8 and S=32.
- 14. prints its total wall time, a JSON line of kernel results (with each
-     kernel's launches on the policy-gradient, recipe, corpus-tool and
-     streaming paths, ctc_beam's cases at A=256, lstm_fwd's and
-     flash_attn's at the streamed windows), then as the last line
+ 14. the attention seq2seq (models/seq2seq.py) at its full default width
+     (the flagship's encoder; decoder embed 128, LSTM 512, dot attention,
+     output 1024 -> 28), random weights from a seed: `--mode train --model
+     seq2seq` through the CLI for one epoch (3 residual bilstm_fwd + 3
+     bilstm_bwd and one residual lstm_fwd + one lstm_bwd, the decoder's
+     teacher-forced pass, a step; 3 bilstm_fwd + 1 lstm_fwd a dev batch),
+     `--mode predict` greedy and `--decoder beam` (3 bilstm_fwd a batch:
+     the decoder loops run no kernel), `--mode finetune_pg` SCST and MWER
+     (K=4; two teacher-forced passes a step), each run's launches exact;
+     the decoder route, LSTMScan (lstm_fwd residual + lstm_bwd) against
+     ops/lstm.lstm_scan_xla in turns at B=64, Td=60, I=128, H=512, float32
+     and bfloat16, and lstm_fwd (both forms) / lstm_bwd at that shape
+     against their plain versions within phase 3's bounds; one batch's
+     loss and every gradient, kernel vs plain path; the train step
+     (float32, bfloat16), the SCST and MWER steps at B=64 x 5 s and greedy
+     and beam (K=16) transcription of a batch of 32, each with its
+     launches, CUDA-event or host ms and the profiler's device time and
+     idle share.
+ 15. prints its total wall time, a JSON line of kernel results (with each
+     kernel's launches on the policy-gradient, recipe, corpus-tool,
+     streaming and seq2seq paths, ctc_beam's cases at A=256, lstm_fwd's and
+     flash_attn's at the streamed windows, lstm_fwd_residual's and
+     lstm_bwd's at the seq2seq decoder's shape), then as the last line
      {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
@@ -1418,6 +1437,97 @@ def phase_joint(dev):
     return cases
 
 
+def lstm_shape_case(dev, dtype, lH: int, lens, g_, tag: str,
+                    note: str) -> dict:
+    """lstm_fwd (both forms) and lstm_bwd at B = len(lens), T = max(lens),
+    H = lH against their plain versions within phase 3's bounds (the bf16
+    means against a control without the bf16 roundings), each launched
+    once; the inputs drawn from the CPU generator g_; times in turns."""
+    import torch
+
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
+
+    name = str(dtype).split(".")[1]
+    nB, nT = len(lens), int(lens.max())
+    mask = (torch.arange(nT)[None] < lens[:, None]).to(dev, torch.float32)
+    xp = (0.5 * torch.randn(nB, nT, 4 * lH, generator=g_)).to(dev, dtype)
+    U = ((torch.rand(lH, 4 * lH, generator=g_) * 2 - 1)
+         / math.sqrt(lH)).to(dev, dtype)
+    gy = torch.randn(nB, nT, lH, generator=g_).to(dev, dtype)
+    c0 = (cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
+          cuda_lstm.BWD_LAUNCHES)
+    got = cuda_lstm.lstm_scan_cuda(xp, U, mask, False)
+    o_r, h_r, c_r = cuda_lstm.lstm_scan_residual_cuda(xp, U, mask, False)
+    ref = lstm_scan_plain(xp, U, mask, False, residuals=True)
+    dxp, dU = cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, ref[1], ref[2],
+                                           gy, False)
+    r_dxp, r_dU = lstm_scan_bwd_plain(xp, U, mask, ref[1], ref[2], gy,
+                                      False)
+    torch.cuda.synchronize()
+    check((cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
+           cuda_lstm.BWD_LAUNCHES) == (c0[0] + 1, c0[1] + 1, c0[2] + 1),
+          f"lstm H={lH}: launches")
+    check(torch.equal(o_r, got), f"lstm H={lH}: the residual form's out")
+    errs = {"out": _errs(got, ref[0]), "hprev": _errs(h_r, ref[1]),
+            "cprev": _errs(c_r, ref[2])}
+    bb = BWD_BOUNDS[name]
+    e_dxp, e_du = _errs(dxp, r_dxp), _errs(dU, r_dU)
+    dxp_max = bb.get("dxp_max", bb.get("dxp_rel", 0)
+                     * r_dxp.float().abs().max().item())
+    # phase 3's max bounds hold at any H. Its bf16 mean bounds were set
+    # from readings at H=256, and more products per sum move more
+    # bf16 roundings of h by an ulp (out mean 2.1e-6 at H=1024 against
+    # 3.7e-7 at 256); what the mean must show, that h and dpre round
+    # to bf16 where the Pallas body rounds them, is held here against
+    # a control of the plain version without those roundings (U
+    # widened to float32): the kernel's mean at most a third of it
+    means = {k: v[1] for k, v in errs.items()}
+    means["dxp"] = e_dxp[1]
+    if dtype == torch.bfloat16:
+        c_ref = lstm_scan_plain(xp, U.float(), mask, False,
+                                residuals=True)
+        c_dxp, _ = lstm_scan_bwd_plain(xp, U.float(), mask, ref[1],
+                                       ref[2], gy, False)
+        ctrl = {k: _errs(c, r)[1] for k, c, r in zip(
+            ("out", "hprev", "cprev"), c_ref, ref)}
+        ctrl["dxp"] = _errs(c_dxp, r_dxp)[1]
+        mean_ok = {k: means[k] <= ctrl[k] / 3 for k in means}
+    else:
+        ctrl = None
+        mean_ok = {k: means[k] <= (CPREV_BOUNDS if k == "cprev"
+                                   else BOUNDS)[name]["mean"]
+                   for k in errs}
+        mean_ok["dxp"] = means["dxp"] <= bb["dxp_mean"]
+    for k, (mx, mean) in errs.items():
+        bd = CPREV_BOUNDS[name] if k == "cprev" else BOUNDS[name]
+        check(mx <= bd["max"] and mean_ok[k],
+              f"lstm_fwd H={lH} {name}: {k} max {mx}, mean {mean} "
+              f"(bounds {bd}, control {ctrl})")
+    check(e_dxp[0] <= dxp_max and mean_ok["dxp"],
+          f"lstm_bwd H={lH} {name}: dxp {e_dxp} out of bounds (control "
+          f"{ctrl})")
+    check(e_du[0] <= bb["du_rel"] * r_dU.float().abs().max().item(),
+          f"lstm_bwd H={lH} {name}: dU {e_du} out of bounds")
+    fwd_ms, fwd_plain = in_turns(
+        lambda: lstm_scan_plain(xp, U, mask, False),
+        lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, False), 1, 5)
+    bwd_ms = time_ms(lambda: cuda_lstm.lstm_scan_bwd_cuda(
+        xp, U, mask, ref[1], ref[2], gy, False), 3)
+    print(f"[{tag}] lstm B={nB} T={nT} H={lH} {name} {note}: "
+          f"lstm_fwd, its residual form and lstm_bwd launched once each; "
+          + ", ".join(f"{k} max {v[0]:.2e} mean {v[1]:.2e}"
+                      for k, v in errs.items())
+          + (f" (controls without the bf16 roundings: {ctrl})" if ctrl
+             else "")
+          + f"; dxp max {e_dxp[0]:.2e} mean {e_dxp[1]:.2e}, dU max "
+          f"{e_du[0]:.2e}; lstm_fwd {fwd_ms:.3f} ms (plain "
+          f"{fwd_plain:.3f} ms), lstm_bwd {bwd_ms:.3f} ms")
+    return {"dtype": name, "B": nB, "T": nT, "H": lH, "errors": errs,
+            "control_means": ctrl, "dxp_errors": e_dxp, "du_errors": e_du,
+            "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain, "bwd_ms": bwd_ms}
+
+
 def phase_shapes(dev):
     """The shapes past the first kernels' limits, each on its kernel (its
     launch counter rises by one a call, nothing falls back) against its
@@ -1440,7 +1550,6 @@ def phase_shapes(dev):
                                             fused_joint_plain)
 
     from pg_asr_tpu_torch.ops import cuda_lstm
-    from pg_asr_tpu_torch.ops.lstm import lstm_scan_bwd_plain, lstm_scan_plain
 
     out = {"lstm": [], "bilstm": [], "joint": [], "flash": [], "beam": []}
     # --- the LSTM at phase 3's B and T past 512 units (U's columns from L2):
@@ -1449,88 +1558,11 @@ def phase_shapes(dev):
     # backward on the plain forward's residuals, within phase 3's bounds
     for dtype, lH in ((torch.float32, 512), (torch.bfloat16, 1024),
                       (torch.float32, 2048), (torch.bfloat16, 2048)):
-        name = str(dtype).split(".")[1]
         g_ = torch.Generator().manual_seed(SEED)
         lens = torch.randint(1, T + 1, (B,), generator=g_)
         lens[0], lens[1] = T, 1
-        mask = (torch.arange(T)[None] < lens[:, None]).to(dev, torch.float32)
-        xp = (0.5 * torch.randn(B, T, 4 * lH, generator=g_)).to(dev, dtype)
-        U = ((torch.rand(lH, 4 * lH, generator=g_) * 2 - 1)
-             / math.sqrt(lH)).to(dev, dtype)
-        gy = torch.randn(B, T, lH, generator=g_).to(dev, dtype)
-        c0 = (cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
-              cuda_lstm.BWD_LAUNCHES)
-        got = cuda_lstm.lstm_scan_cuda(xp, U, mask, False)
-        o_r, h_r, c_r = cuda_lstm.lstm_scan_residual_cuda(xp, U, mask, False)
-        ref = lstm_scan_plain(xp, U, mask, False, residuals=True)
-        dxp, dU = cuda_lstm.lstm_scan_bwd_cuda(xp, U, mask, ref[1], ref[2],
-                                               gy, False)
-        r_dxp, r_dU = lstm_scan_bwd_plain(xp, U, mask, ref[1], ref[2], gy,
-                                          False)
-        torch.cuda.synchronize()
-        check((cuda_lstm.LAUNCHES, cuda_lstm.RES_LAUNCHES,
-               cuda_lstm.BWD_LAUNCHES) == (c0[0] + 1, c0[1] + 1, c0[2] + 1),
-              f"lstm H={lH}: launches")
-        check(torch.equal(o_r, got), f"lstm H={lH}: the residual form's out")
-        errs = {"out": _errs(got, ref[0]), "hprev": _errs(h_r, ref[1]),
-                "cprev": _errs(c_r, ref[2])}
-        bb = BWD_BOUNDS[name]
-        e_dxp, e_du = _errs(dxp, r_dxp), _errs(dU, r_dU)
-        dxp_max = bb.get("dxp_max", bb.get("dxp_rel", 0)
-                         * r_dxp.float().abs().max().item())
-        # phase 3's max bounds hold at any H. Its bf16 mean bounds were set
-        # from readings at H=256, and more products per sum move more
-        # bf16 roundings of h by an ulp (out mean 2.1e-6 at H=1024 against
-        # 3.7e-7 at 256); what the mean must show, that h and dpre round
-        # to bf16 where the Pallas body rounds them, is held here against
-        # a control of the plain version without those roundings (U
-        # widened to float32): the kernel's mean at most a third of it
-        means = {k: v[1] for k, v in errs.items()}
-        means["dxp"] = e_dxp[1]
-        if dtype == torch.bfloat16:
-            c_ref = lstm_scan_plain(xp, U.float(), mask, False,
-                                    residuals=True)
-            c_dxp, _ = lstm_scan_bwd_plain(xp, U.float(), mask, ref[1],
-                                           ref[2], gy, False)
-            ctrl = {k: _errs(c, r)[1] for k, c, r in zip(
-                ("out", "hprev", "cprev"), c_ref, ref)}
-            ctrl["dxp"] = _errs(c_dxp, r_dxp)[1]
-            mean_ok = {k: means[k] <= ctrl[k] / 3 for k in means}
-        else:
-            ctrl = None
-            mean_ok = {k: means[k] <= (CPREV_BOUNDS if k == "cprev"
-                                       else BOUNDS)[name]["mean"]
-                       for k in errs}
-            mean_ok["dxp"] = means["dxp"] <= bb["dxp_mean"]
-        for k, (mx, mean) in errs.items():
-            bd = CPREV_BOUNDS[name] if k == "cprev" else BOUNDS[name]
-            check(mx <= bd["max"] and mean_ok[k],
-                  f"lstm_fwd H={lH} {name}: {k} max {mx}, mean {mean} "
-                  f"(bounds {bd}, control {ctrl})")
-        check(e_dxp[0] <= dxp_max and mean_ok["dxp"],
-              f"lstm_bwd H={lH} {name}: dxp {e_dxp} out of bounds (control "
-              f"{ctrl})")
-        check(e_du[0] <= bb["du_rel"] * r_dU.float().abs().max().item(),
-              f"lstm_bwd H={lH} {name}: dU {e_du} out of bounds")
-        fwd_ms, fwd_plain = in_turns(
-            lambda: lstm_scan_plain(xp, U, mask, False),
-            lambda: cuda_lstm.lstm_scan_cuda(xp, U, mask, False), 1, 5)
-        bwd_ms = time_ms(lambda: cuda_lstm.lstm_scan_bwd_cuda(
-            xp, U, mask, ref[1], ref[2], gy, False), 3)
-        out["lstm"].append({"dtype": name, "B": B, "T": T, "H": lH,
-                            "errors": errs, "control_means": ctrl,
-                            "dxp_errors": e_dxp,
-                            "du_errors": e_du, "fwd_ms": fwd_ms,
-                            "fwd_plain_ms": fwd_plain, "bwd_ms": bwd_ms})
-        print(f"[shapes] lstm B={B} T={T} H={lH} {name} (U from L2): "
-              f"lstm_fwd, its residual form and lstm_bwd launched once each; "
-              + ", ".join(f"{k} max {v[0]:.2e} mean {v[1]:.2e}"
-                          for k, v in errs.items())
-              + (f" (controls without the bf16 roundings: {ctrl})" if ctrl
-                 else "")
-              + f"; dxp max {e_dxp[0]:.2e} mean {e_dxp[1]:.2e}, dU max "
-              f"{e_du[0]:.2e}; lstm_fwd {fwd_ms:.3f} ms (plain "
-              f"{fwd_plain:.3f} ms), lstm_bwd {bwd_ms:.3f} ms")
+        out["lstm"].append(lstm_shape_case(dev, dtype, lH, lens, g_,
+                                           "shapes", "(U from L2)"))
 
     # --- the fused directions at phase 3's B and T and H=1024 (refused by
     # the first fused kernels): bilstm_fwd (both forms) and bilstm_bwd, each
@@ -3959,6 +3991,18 @@ def recorded(module, name: str, rec: list):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
+def replayed(module, name: str, rec: list):
+    """module.name replaced by one that returns rec's results in turn (a
+    list that ``recorded`` filled; restored after)."""
+    orig, it = getattr(module, name), iter(rec)
+    setattr(module, name, lambda *args, **kw: next(it))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def offline_utterance(dev, cfg, wave):
     """One utterance the way batched predict sees it (zeros past its end):
     (wave (1, N) on dev, num_samples, valid frames, its fixed norm: the
@@ -4286,6 +4330,413 @@ def phase_stream(dev, corpus, alphabet, ctc_dir, random_dir, conformer_dir,
     result["wall_s"] = time.perf_counter() - t_start
     print(f"[stream] phase 13 wall time {result['wall_s']:.1f} s")
     return {"launches": out_counts, **result}
+
+
+# phase 14: the attention seq2seq family at its full default width. The
+# decoder's teacher-forced recurrence at the train step's shape: 64
+# utterances of 60 labels (5 s of read English), Seq2SeqConfig()'s embed
+# 128 and LSTM 512
+S2S_TD, S2S_E, S2S_H = 60, 128, 512
+# the same recurrence through the two routes (LSTMScan: lstm_fwd's
+# residual form + lstm_bwd; ops/lstm.lstm_scan_xla: the JAX scan's
+# numerics, a Python loop of small ops) in float32: the same function in
+# float32 sums of another order, max abs error of the outputs
+S2S_ROUTE_BOUND = 1e-5
+# MWER's n-best width in phase 14's steps
+S2S_MWER_K = 4
+# a beam hypothesis's normalized score against its teacher-forced
+# re-scoring, relative: float32 sums over up to 256 steps of a score near
+# -900 round by at most ~1e-5 of it
+S2S_RESCORE_REL = 1e-4
+
+
+def phase_seq2seq(dev, corpus, alphabet, d):
+    """14. The attention seq2seq (models/seq2seq.py) at its full default
+    width (encoder 80 -> 512, 3 x BiLSTM 256; decoder embed 128, LSTM 512,
+    dot attention, output 1024 -> 28), random weights from a seed: one
+    epoch of `--mode train --model seq2seq` through the CLI, `--mode
+    predict` greedy and beam, `--mode finetune_pg` SCST and MWER (K=4),
+    each with its launch counts; the decoder route (LSTMScan against
+    lstm_scan_xla, in turns) and lstm_fwd / lstm_bwd at the decoder's shape
+    against their plain versions; one batch's loss and gradients, kernel
+    vs plain path; the train, SCST and MWER steps at B=64 x 5 s and greedy
+    and beam transcription of a batch of 32, each timed with its device
+    busy time and idle share."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.data import BatchIterator, load_manifest
+    from pg_asr_tpu_torch.models import seq2seq
+    from pg_asr_tpu_torch.ops import cuda_lstm
+    from pg_asr_tpu_torch.ops.features import extract_features
+    from pg_asr_tpu_torch.ops.lstm import LSTMScan, lstm_scan_xla
+    from pg_asr_tpu_torch.predict import (forward_seq2seq,
+                                          forward_seq2seq_beam, load_model)
+    from pg_asr_tpu_torch.rl import reinforce as rl
+    from pg_asr_tpu_torch.train import (AdamW, batch_to_device,
+                                        loss_and_grads, value_and_grad)
+
+    t_start = time.perf_counter()
+    bs = 32  # the CLI's default
+    clips = os.path.join(corpus, "clips")
+    sizes = {s: len(load_manifest(os.path.join(corpus, f"{s}.tsv"), clips))
+             for s in ("train", "dev", "test")}
+    steps, n_dev, n_test = (-(-sizes[s] // bs)
+                            for s in ("train", "dev", "test"))
+    n_beam = -(-sizes["test"] // 128)  # the CLI's beam batch
+    L = Config().model.num_layers
+    model_dir = os.path.join(d, "seq2seq")
+    out_counts = {}
+    result = {"launches": out_counts}
+
+    def expect(**kw):
+        return {**dict.fromkeys(all_counts(), 0), **kw}
+
+    def step_launches(k, passes=1):
+        """k train or PG steps: the encoder's residual bilstm_fwd and
+        bilstm_bwd per layer, `passes` teacher-forced decoder passes
+        (lstm_fwd residual + lstm_bwd each)."""
+        return {"bilstm_fwd_residual": L * k, "bilstm_bwd": L * k,
+                "lstm_fwd_residual": passes * k, "lstm_bwd": passes * k}
+
+    def predicted_rows(mdir, out, key):
+        """predicted.txt's rows checked; -> the count of non-empty
+        transcripts."""
+        with open(os.path.join(mdir, "predicted.txt")) as fo:
+            rows = fo.read().splitlines()
+        check("CER:" in out and len(rows) == sizes["test"]
+              and all("|" in r for r in rows),
+              f"seq2seq {key}: predicted.txt has {len(rows)} rows")
+        return sum(bool(r.split("|", 1)[1]) for r in rows)
+
+    def cli_run(key, argv, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        print(f"[seq2seq] {key}: rc={rc} in {wall:.2f} s (host clock, "
+              f"includes WAV decode); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        check(rc == 0, f"seq2seq {key} failed")
+        check(counts == want, f"seq2seq {key}: launches {counts}, "
+              f"expected {want}")
+        out_counts[f"seq2seq_{key}"] = counts
+        return out, wall
+
+    # 1. one epoch through the CLI (dev: the teacher-forced loss, one
+    # lstm_fwd inference launch a batch), then predict, greedy and beam
+    out, wall = cli_run("train", [
+        "--mode", "train", "--corpus_path", corpus, "--model_path",
+        model_dir, "--model", "seq2seq", "--num_epochs", "1", "--seed",
+        str(SEED)], expect(**step_launches(steps), bilstm_fwd=L * n_dev,
+                           lstm_fwd=n_dev))
+    tl = np.load(os.path.join(model_dir, "train_loss.npy"))
+    vl = np.load(os.path.join(model_dir, "val_losses.npy"))
+    check(tl.shape == vl.shape == (1,) and np.isfinite(tl).all()
+          and np.isfinite(vl).all(), f"seq2seq losses {tl} {vl}")
+    result["train_epoch"] = {"wall_s": wall, "train_loss": float(tl[0]),
+                             "val_loss": float(vl[0])}
+    for key, extra, batches in (("predict_greedy", [], n_test),
+                                ("predict_beam", ["--decoder", "beam"],
+                                 n_beam)):
+        out, wall = cli_run(key, ["--mode", "predict", "--corpus_path",
+                                  corpus, "--model_path", model_dir, *extra],
+                            expect(bilstm_fwd=L * batches))
+        result[key] = {"wall_s": wall,
+                       "nonempty": predicted_rows(model_dir, out, key)}
+    # random weights emit text greedily (one epoch may not), so the
+    # transcripts' checks are not vacuous. The beam's length penalty
+    # favours the EOS-first hypothesis of a near-uniform model, so the
+    # beam runs on random weights with the EOS logit's bias lowered by
+    # 30: no hypothesis ends, and every best one is max_label_len long
+    cfg0 = fit_vocab(Config().replace(model=dataclasses.replace(
+        Config().model, family="seq2seq")), alphabet.size)
+    p0 = seq2seq.init_params(cfg0.model, cfg0.seq2seq,
+                             torch.Generator().manual_seed(SEED))
+    random_dir = os.path.join(d, "seq2seq_random")
+    save_model(random_dir, p0, cfg0)
+    no_eos_dir = os.path.join(d, "seq2seq_random_no_eos")
+    p0["output.b"][0] -= 30.0
+    save_model(no_eos_dir, p0, cfg0)
+    for key, mdir, extra, batches in (
+            ("predict_greedy_random", random_dir, [], n_test),
+            ("predict_beam_random_no_eos", no_eos_dir,
+             ["--decoder", "beam"], n_beam)):
+        out, wall = cli_run(key, ["--mode", "predict", "--corpus_path",
+                                  corpus, "--model_path", mdir, *extra],
+                            expect(bilstm_fwd=L * batches))
+        nonempty = predicted_rows(mdir, out, key)
+        check(nonempty > 0, f"seq2seq {key}: no text")
+        result[key] = {"wall_s": wall, "nonempty": nonempty}
+
+    # 2. finetune_pg through the CLI: SCST (greedy baseline) and MWER, 3
+    # steps each and a dev CER at the end (greedy: bilstm_fwd only)
+    for key, extra, passes in (("finetune_pg_scst", [], 1),
+                               ("finetune_pg_mwer", [
+                                   "--pg_objective", "mwer", "--mwer_beam",
+                                   "4"], 2)):
+        pg_dir = os.path.join(d, key)
+        shutil.copytree(model_dir, pg_dir)
+        out, wall = cli_run(key, [
+            "--mode", "finetune_pg", "--corpus_path", corpus,
+            "--model_path", pg_dir, "--pg_steps", "3", "--pg_eval_every",
+            "3", *extra], expect(**step_launches(3, passes),
+                                 bilstm_fwd=L * n_dev))
+        r = np.load(os.path.join(pg_dir, "pg_rewards.npy"))
+        cer = np.load(os.path.join(pg_dir, "pg_dev_cer.npy"))
+        check(r.shape == (3,) and np.isfinite(r).all() and cer.shape == (1, 2)
+              and np.isfinite(cer).all(), f"seq2seq {key}: {r} {cer}")
+        result[key] = {"wall_s": wall, "rewards": r.tolist(),
+                       "dev_cer": float(cer[0, 1])}
+
+    # 3. the decoder route: LSTMScan (1 + 3 launches) vs lstm_scan_xla, the
+    # projection, the recurrence and its gradient at B=64, Td=60, I=128,
+    # H=512, in turns; then the kernels at that shape vs their plain
+    # versions
+    route = {}
+    g_ = torch.Generator().manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = torch.randn(B, S2S_TD, S2S_E, generator=g_).to(dev, dtype)
+        W = ((torch.rand(S2S_E, 4 * S2S_H, generator=g_) * 2 - 1)
+             / math.sqrt(S2S_H)).to(dev, dtype)
+        U = ((torch.rand(S2S_H, 4 * S2S_H, generator=g_) * 2 - 1)
+             / math.sqrt(S2S_H)).to(dev, dtype)
+        bias = torch.zeros(4 * S2S_H, device=dev, dtype=dtype)
+        gy = torch.randn(B, S2S_TD, S2S_H, generator=g_).to(dev, dtype)
+        ones = torch.ones(B, S2S_TD, device=dev, dtype=dtype)
+        leaves = [t.requires_grad_(True) for t in (x, W, U, bias)]
+
+        def through(recurrence):
+            def run():
+                y = recurrence(x @ W + bias)
+                return y, torch.autograd.grad(y, leaves, gy)
+            return run
+
+        kern = through(lambda xp: LSTMScan.apply(xp, U, ones, False, True))
+        xla = through(lambda xp: lstm_scan_xla(xp, U, ones))
+        c0 = (cuda_lstm.RES_LAUNCHES, cuda_lstm.BWD_LAUNCHES)
+        y_k, _ = kern()
+        torch.cuda.synchronize()
+        check((cuda_lstm.RES_LAUNCHES, cuda_lstm.BWD_LAUNCHES)
+              == (c0[0] + 1, c0[1] + 1), "the decoder route's launches")
+        y_x, _ = xla()
+        err = (y_k.float() - y_x.float()).abs().max().item()
+        if dtype == torch.float32:
+            check(err <= S2S_ROUTE_BOUND, f"decoder route: LSTMScan vs "
+                  f"lstm_scan_xla max abs err {err}")
+        k_ms, x_ms = in_turns(xla, kern, 3, 10)
+        route[name] = {"lstm_scan_kernels_ms": k_ms, "lstm_scan_xla_ms": x_ms,
+                       "max_abs_diff": err}
+        print(f"[seq2seq] decoder route B={B} Td={S2S_TD} I={S2S_E} "
+              f"H={S2S_H} {name}, projection + recurrence + gradient: "
+              f"LSTMScan (lstm_fwd residual + lstm_bwd) {k_ms:.3f} ms, "
+              f"lstm_scan_xla {x_ms:.3f} ms, in turns (outputs differ by "
+              f"{err:.2e})")
+    result["decoder_route"] = route
+    # the teacher-forced pass over B rows, and MWER's re-scoring of the
+    # n-best over B x K rows (a plan of more rows and clusters)
+    result["lstm_cases"] = [
+        lstm_shape_case(dev, dtype, S2S_H, torch.full((rows,), S2S_TD), g_,
+                        "seq2seq", note)
+        for rows, note in ((B, "(the decoder's teacher-forced pass)"),
+                           (B * S2S_MWER_K, "(MWER's n-best re-scored)"))
+        for dtype in (torch.float32, torch.bfloat16)]
+
+    # 4. one train batch of 8, kernel vs plain path (float32, dropout 0)
+    params, cfg = load_model(model_dir, alphabet, device=dev)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+    utts = load_manifest(os.path.join(corpus, "train.tsv"), clips)
+    batch = next(iter(BatchIterator(utts[:8], alphabet, 8, shuffle=False)))
+    arrays = batch_to_device(batch, dev)
+    loss_k, g_k = loss_and_grads(params, arrays, cfg)
+    loss_p, g_p = loss_and_grads(params, arrays, cfg, use_kernel=False)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                    / g_p[k].abs().max().clamp(min=1e-30)).item()
+                for k in g_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[seq2seq] one batch {tuple(batch.wave.shape)}, kernel vs plain "
+          f"path (float32, dropout 0): loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {loss_rel:.2e}, bound "
+          f"{TRAIN_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+          f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+          f"{TRAIN_GRAD_REL:.0e})")
+    check(math.isfinite(loss_k.item()) and loss_rel <= TRAIN_LOSS_REL,
+          f"seq2seq loss disagrees: {loss_k.item()} vs {loss_p.item()}")
+    check(all(math.isfinite(v) and v <= TRAIN_GRAD_REL
+              for v in grad_rel.values()),
+          f"seq2seq gradients disagree: {grad_rel}")
+    result["compare"] = {"loss_rel": loss_rel,
+                         "grad_rel_worst": grad_rel[worst]}
+
+    # 5. one SCST and one MWER (K=4) step's loss and gradients at B=64 x
+    # 5 s, kernel vs plain path (float32): the plain pass replays the
+    # kernel pass's draws, greedy baseline and n-best, so that both score
+    # the same hypotheses
+    arrays64 = flagship_batch(dev, vocab=alphabet.size)
+    space = alphabet.char2ind.get(" ", -1)
+    p32, c32 = load_model(model_dir, alphabet, device=dev)
+    for objective in ("reinforce", "mwer"):
+        c_o = c32.replace(rl=dataclasses.replace(
+            c32.rl, objective=objective, mwer_beam=S2S_MWER_K,
+            space_id=space))
+        got, recs = {}, ([], [], [])
+        names = ("draw_tokens", "greedy_from_encoder",
+                 "beam_scan_from_encoder")
+        for use_kernel in (True, False):
+            hooks = (recorded if use_kernel else replayed)
+            with contextlib.ExitStack() as stack:
+                for name, rec in zip(names, recs):
+                    stack.enter_context(hooks(seq2seq, name, rec))
+                (loss, _), grads = value_and_grad(
+                    lambda p: rl.pg_loss_fn(
+                        p, *arrays64, torch.Generator(device=dev).manual_seed(
+                            SEED), c_o, use_kernel), p32)
+            got[use_kernel] = loss.item(), grads
+        (loss_k, g_k), (loss_p, g_p) = got[True], got[False]
+        loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-6)
+        grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                        / g_p[k].abs().max().clamp(min=1e-30)).item()
+                    for k in g_p}
+        worst = max(grad_rel, key=grad_rel.get)
+        key = "scst" if objective == "reinforce" else f"mwer K={S2S_MWER_K}"
+        print(f"[seq2seq] {key} step B={B} x 5 s, kernel vs plain path "
+              f"(float32, the same draws, baseline and n-best; "
+              f"{[len(r) for r in recs]} calls replayed): loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, bound "
+              f"{PG_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+              f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+              f"{PG_GRAD_REL:.0e})")
+        check(math.isfinite(loss_k) and loss_rel <= PG_LOSS_REL,
+              f"seq2seq {key}: loss disagrees: {loss_k} vs {loss_p}")
+        check(all(math.isfinite(v) and v <= PG_GRAD_REL
+                  for v in grad_rel.values()),
+              f"seq2seq {key}: gradients disagree: {grad_rel}")
+        result["compare"][objective] = {"loss_rel": loss_rel,
+                                  "grad_rel_worst": grad_rel[worst]}
+
+    # 6. the train, SCST and MWER steps at B=64 x 5 s (labels of 60)
+    timing = {}
+
+    def timed(key, run, want):
+        reset_counts()
+        run()
+        torch.cuda.synchronize()
+        counts = all_counts()
+        check(counts == want, f"seq2seq {key}: launches {counts}")
+        ms = time_ms(run, 3)
+        groups = device_breakdown(run, 2, PG_GROUPS, pg_group)
+        dev_ms = sum(groups.values())
+        timing[key] = {"ms": ms, "device_ms": dev_ms,
+                       "idle": 1 - dev_ms / ms, "groups": groups,
+                       "launches": {k: v for k, v in counts.items() if v}}
+        print(f"[seq2seq] {key} B={B} x 5 s (T={T}, labels {S2S_TD}): "
+              f"{ms:.2f} ms; device {dev_ms:.2f} ms "
+              f"({1 - dev_ms / ms:.0%} idle): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()))
+
+    for dtype in ("float32", "bfloat16"):
+        p_d, c_d = load_model(model_dir, alphabet, device=dev, dtype=dtype)
+        opt = AdamW(c_d, p_d)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def train_step():
+            _, grads = loss_and_grads(p_d, arrays64, c_d, gen)
+            opt.update(p_d, grads)
+
+        timed(f"train_step_{dtype}", train_step, expect(**step_launches(1)))
+    for objective, passes in (("reinforce", 1), ("mwer", 2)):
+        c_o = c32.replace(rl=dataclasses.replace(
+            c32.rl, objective=objective, mwer_beam=S2S_MWER_K,
+            space_id=space))
+        opt = AdamW(c_o, p32, learning_rate=c_o.train.learning_rate * 0.1,
+                    weight_decay=1e-4)
+        pg_step = rl.make_pg_step(c_o, opt)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        timed("scst_step" if objective == "reinforce" else "mwer_step",
+              lambda: pg_step(p32, gen, *arrays64),
+              expect(**step_launches(1, passes)))
+
+    # 7. greedy and beam (K=16) transcription of one test batch of 32 over
+    # decode.max_label_len steps by the trained model: host ms, device busy
+    # time, launches
+    p32, c32 = load_model(model_dir, alphabet, device=dev)
+    test = load_manifest(os.path.join(corpus, "test.tsv"), clips)
+    tb = next(iter(BatchIterator(test, alphabet, bs, shuffle=False)))
+    wave, ns = (torch.from_numpy(a).to(dev) for a in (tb.wave,
+                                                      tb.num_samples))
+    for key, fn in (
+            ("greedy_batch", lambda: seq2seq.cut_at_eos(forward_seq2seq(
+                p32, wave, ns, c32)[0])),
+            ("beam_batch", lambda: forward_seq2seq_beam(
+                p32, wave, ns, c32, beam_size=c32.decode.beam_size))):
+        reset_counts()
+        labels, lens = fn()
+        torch.cuda.synchronize()
+        counts = all_counts()
+        check(counts == expect(bilstm_fwd=L), f"seq2seq {key}: {counts}")
+        check(labels.shape[0] == tb.size and bool((lens >= 0).all()),
+              f"seq2seq {key}: lens {lens}")
+        ms = host_ms(fn, 3)
+        busy, wall = device_busy(fn)
+        timing[key] = {"host_ms": ms, "device_ms": busy,
+                       "idle": 1 - busy / wall, "mean_len": lens.float()
+                       .mean().item(),
+                       "launches": {k: v for k, v in counts.items() if v}}
+        ids, freq = labels[labels > 0].unique(return_counts=True)
+        top = [(alphabet.piece(int(i)), int(n)) for n, i in sorted(
+            zip(freq.tolist(), ids.tolist()), reverse=True)[:3]]
+        timing[key]["top_tokens"] = top
+        print(f"[seq2seq] {key} ({tb.size} utterances of 1-5 s, "
+              f"{c32.decode.max_label_len} steps): {ms:.2f} ms host; "
+              f"device busy {busy:.2f} of {wall:.2f} ms "
+              f"({1 - busy / wall:.0%} idle); mean length "
+              f"{timing[key]['mean_len']:.1f}, most emitted {top}")
+    result["timing"] = timing
+
+    # 8. the full-width beam (K=16, A=28) on random weights, whose n-best
+    # holds the EOS-first hypothesis, others that end early and long
+    # ones: every live hypothesis re-scored by the teacher-forced decoder
+    # (plain path, B x K rows) must carry the beam's normalized score,
+    # which holds the top-K, parent gather and buffer path to the tokens
+    # it returns
+    p_r, c_r = load_model(random_dir, alphabet, device=dev)
+    K = c_r.decode.beam_size
+    with torch.inference_mode():
+        feats, fmask, _ = extract_features(wave, ns, c_r.features)
+        enc = seq2seq.encode(p_r, feats, fmask, c_r.model)
+        buf, lens, normed = seq2seq.beam_scan_from_encoder(
+            p_r, enc, fmask, K, c_r.decode.max_label_len)
+        flat, flen = buf.reshape(-1, buf.shape[-1]), lens.reshape(-1)
+        lp = seq2seq.decode_teacher_forced(p_r, enc, fmask, flat,
+                                           use_kernel=False)
+        raw = rl._hyp_log_lik_seq2seq(lp, flat, flen).reshape(lens.shape)
+        penalty = ((5.0 + lens.float()) / 6.0) ** 0.6
+        live = normed > -1e29
+        rel = ((raw / penalty - normed).abs() / normed.abs())[live].max()
+    full = c_r.decode.max_label_len
+    kinds = {"live": int(live.sum()),
+             "empty": int((live & (lens == 0)).sum()),
+             "ended_early": int((live & (lens > 0) & (lens < full)).sum()),
+             "full_length": int((live & (lens == full)).sum())}
+    print(f"[seq2seq] beam on random weights (B={tb.size}, K={K}): "
+          f"n-best {kinds} re-scored, max rel diff {rel.item():.2e} "
+          f"(bound {S2S_RESCORE_REL:.0e})")
+    check(rel.item() <= S2S_RESCORE_REL, f"seq2seq beam scores {rel}")
+    check(kinds["ended_early"] + kinds["full_length"] > 0,
+          "seq2seq beam on random weights: no non-empty hypothesis")
+    result["beam_random"] = {"rescore_rel": rel.item(), **kinds}
+    result["wall_s"] = time.perf_counter() - t_start
+    print(f"[seq2seq] phase wall time {result['wall_s']:.1f} s")
+    return result
 
 
 def attention_group(name: str) -> str:
@@ -4629,6 +5080,7 @@ def main() -> int:
                               os.path.join(d, "conformer_trained"),
                               os.path.join(d, "bpe"),
                               os.path.join(d, "bpe_model"))
+        s2s = phase_seq2seq(dev, corpus, alphabet, d)
 
     import torch
 
@@ -4640,21 +5092,26 @@ def main() -> int:
     print(json.dumps({"recipe": recipe}))
     print(json.dumps({"corpus_tools": tools}))
     print(json.dumps({"stream": stream}))
+    print(json.dumps({"seq2seq": s2s}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the PG, recipe, corpus-tool and streaming paths
-        row["launches_by_path"].update(
+    for row in rows:  # the PG, recipe, corpus-tool, streaming and seq2seq
+        row["launches_by_path"].update(  # paths
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
-              **stream["launches"]}.items()})
+              **stream["launches"], **s2s["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):
             row["cases_stream"] = stream[f"{row['name']}_cases"]
-        if row["name"] == "lstm_fwd":  # no other model path launches it
+        if row["name"] == "lstm_fwd":  # the streamed window's backward
             row["launches"] = stream["launches"]["stream_cli_ctc"][
                 "lstm_fwd"]
+        if row["name"] in ("lstm_fwd_residual", "lstm_bwd"):
+            # the seq2seq decoder's teacher-forced pass under autograd
+            row["launches"] = s2s["launches"]["seq2seq_train"][row["name"]]
+            row["cases_seq2seq"] = s2s["lstm_cases"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

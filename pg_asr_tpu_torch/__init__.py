@@ -10,9 +10,11 @@ the CLI's flags) it keeps as its own copies.
 Ported so far: training (``--mode train``), batch transcription
 (``--mode predict``) and policy-gradient fine-tuning (``--mode
 finetune_pg``, ``rl/``) of the BiLSTM-CTC, transformer-CTC and
-conformer-CTC families (greedy or CTC prefix beam; REINFORCE or MWER) and
-of the RNN-T transducer (greedy or its own beam search,
-``decoding/transducer.py``; MWER; any of the three encoders); the corpus
+conformer-CTC families (greedy or CTC prefix beam; REINFORCE or MWER), of
+the RNN-T transducer (greedy or its own beam search,
+``decoding/transducer.py``; MWER; any of the three encoders) and of the
+attention seq2seq (``models/seq2seq.py``: greedy or the decoder's beam
+search; SCST or MWER); the corpus
 tools: ``--mode preproc`` (text normalisation, LibriSpeech trees, BPE
 units with the native segmenter, ``data/``), ``--mode align``
 (``alignment.py``, ``ops/align.py``), ``--mode pseudolabel``
@@ -23,7 +25,8 @@ without flax or msgpack (``checkpoint.read_flax_checkpoint``). Their CPU tests h
 the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phases 12
 and 13 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
-``csrc/lstm_bwd.cu``, its gradient; each launches one direction or, for
+``csrc/lstm_bwd.cu``, its gradient; each launches one direction, as for
+the seq2seq decoder's teacher-forced pass, or, for
 ``bilstm_layer(fuse_directions=True)``, both directions of a layer at
 once), as do the CTC beam
 search (``csrc/ctc_beam.cu``), with ``flash_attention`` the attention

@@ -14,8 +14,10 @@ The JAX package's checkpoints (``model_best.ckpt``, ``model_last.ckpt``,
 are read by ``read_flax_checkpoint``, a decoder of the part of msgpack
 that flax writes, in pure Python (neither msgpack nor flax is needed), and
 ``load_checkpoint`` gives their ``params`` and ``ema_params`` as the
-port's state dicts (``convert.params_from_jax``). Where a model directory
-holds both formats the port's ``.pt`` files are read.
+port's state dicts (``convert.params_from_jax``: every family's tree, the
+seq2seq family's ``encoder``, ``embed``, ``dec_lstm`` and ``output``
+included). Where a model directory holds both formats the port's ``.pt``
+files are read.
 """
 
 from __future__ import annotations

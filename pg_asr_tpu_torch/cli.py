@@ -1,7 +1,8 @@
 """Command-line interface of the port (counterpart of pg_asr_tpu/cli.py).
 
     python -m pg_asr_tpu_torch --mode train --corpus_path C --model_path M \\
-        [--model ctc|transformer|conformer|transducer] [--flash_attention] \\
+        [--model ctc|transformer|conformer|transducer|seq2seq] \\
+        [--flash_attention] \\
         [--remat] [--transducer_encoder bilstm|transformer|conformer] \\
         [--transducer_ctc_weight W] \\
         [--num_epochs N] [--batch_size N] [--learning_rate X] \\
@@ -38,7 +39,7 @@ argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Modes and options of the JAX CLI that are not ported
 yet exit with a message that says so and names their ROADMAP.md item: the
-seq2seq and MoE models, ``--mode export`` and its ``--export_*`` flags,
+MoE model, ``--mode export`` and its ``--export_*`` flags,
 LM fusion (``--lm_order`` and the other ``--lm_*`` flags,
 ``--length_bonus``), ``--mesh``, ``--microbatches``, ``--moe_experts``,
 ``--capacity_factor``, ``--max_restarts``, ``--fault_step`` and
@@ -48,8 +49,13 @@ JAX CLI has none. ``--mode predict``, ``align`` and ``pseudolabel`` read
 the JAX package's ``.ckpt`` model directories too.
 ``--mode predict`` takes the model family (a transducer's encoder with it)
 and ``flash_attention`` from the model's config.json, as the JAX CLI does;
-for a transducer ``--decoder beam`` is its RNN-T beam search (width
-``--beam_size``; ``--beam_prune`` is ignored, as in the JAX CLI); a train run that resumes takes the family and its config
+for a transducer ``--decoder beam`` is its RNN-T beam search and for the
+seq2seq family its decoder's beam search (width ``--beam_size``, default
+``decode.beam_size``, over ``decode.max_label_len`` steps; ``--beam_prune``
+is ignored, as in the JAX CLI); ``--mode stream``, ``align``,
+``pseudolabel``, ``--timestamps`` and ``--lm_order`` refuse the seq2seq
+family with the JAX CLI's errors. A train run that resumes takes the
+family and its config
 from there too (the transducer's ``fused_joint`` included: no flag sets
 it, as in the JAX CLI; ``train.train(config=...)`` or a config.json does).
 """
@@ -72,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "policy-gradient fine-tuning, corpus preparation, "
                     "forced alignment, pseudo-labels and streaming "
                     "transcription for the BiLSTM-CTC, transformer-CTC, "
-                    "conformer-CTC and RNN-T transducer, so far)")
+                    "conformer-CTC, RNN-T transducer and attention "
+                    "seq2seq, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -166,9 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_from_torch", type=str, default=None,
                    help="train: warm-start from a reference torch "
                         "checkpoint (model_best.pth) when model_path has "
-                        "no checkpoint (families ctc and transducer with "
-                        "the bilstm encoder; --features mfcc for its "
-                        "120-dim input)")
+                        "no checkpoint (families ctc, seq2seq and "
+                        "transducer with the bilstm encoder; --features "
+                        "mfcc for its 120-dim input)")
     p.add_argument("--trust_torch_pickle", action="store_true",
                    help="init_from_torch: allow full unpickling when the "
                         "weights_only load fails (runs code embedded in "
@@ -197,7 +204,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam_size", type=int, default=None,
                    help="predict with --decoder beam: beam width (default "
                         "16, config decode.beam_size), of the CTC prefix "
-                        "beam or the transducer's beam")
+                        "beam, the transducer's beam or the seq2seq "
+                        "decoder's beam")
     p.add_argument("--beam_prune", type=int, default=None,
                    help="predict with --decoder beam: cap the per-frame "
                         "candidate symbols to the top-M (default 6, config "
@@ -225,8 +233,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pg_objective", type=str, default=None,
                    choices=["reinforce", "mwer"],
                    help="finetune_pg: REINFORCE over sampled alignment "
-                        "paths (reference-style) or expected-CER over the "
-                        "on-device K-best list (MWER)")
+                        "paths (reference-style; for seq2seq SCST over "
+                        "sampled decoder continuations) or expected-CER "
+                        "over the on-device K-best list (MWER)")
     p.add_argument("--mwer_beam", type=int, default=None,
                    help="finetune_pg: n-best width K for --pg_objective "
                         "mwer (default 4)")

@@ -374,3 +374,18 @@ class Config:
                         d[f.name] = tuple(d[f.name])
                 kw[name] = cls(**{k: v for k, v in d.items() if k in {f.name for f in dataclasses.fields(cls)}})
         return Config(**kw)
+
+
+def fit_vocab(cfg: Config, vocab_size: int) -> Config:
+    """The config with the model's vocabulary (and the seq2seq decoder's)
+    set to the tokenizer's size and its input to the feature dimension,
+    as the JAX package's train and predict do before building a model."""
+    if (cfg.model.vocab_size != vocab_size
+            or cfg.model.input_dim != cfg.features.feature_dim):
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, vocab_size=vocab_size,
+            input_dim=cfg.features.feature_dim))
+    if cfg.seq2seq.vocab_size != vocab_size:
+        cfg = cfg.replace(seq2seq=dataclasses.replace(
+            cfg.seq2seq, vocab_size=vocab_size))
+    return cfg

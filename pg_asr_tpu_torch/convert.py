@@ -13,6 +13,10 @@ direction is a renaming and exact:
   / conformer  ...}, ...], "ln_final", "ctc_head"}
                <-> ``blocks.{i}.ln1.scale``, ``blocks.{i}.qkv.w``,
                ``blocks.{i}.conv_dw``, ``ln_final.bias``, ...
+  seq2seq      {"encoder": {"input_proj", "lstm": [...]}, "embed",
+               "dec_lstm": {"W", "U", "b"}, "output": {"w", "b"}}
+               <-> ``encoder.lstm.{i}.fwd.W``, ``embed``, ``dec_lstm.U``,
+               ``output.w``, ...
 """
 
 from __future__ import annotations

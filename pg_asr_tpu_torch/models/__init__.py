@@ -2,9 +2,11 @@
 pg_asr_tpu/models/__init__.py).
 
 Ported, trained and served: the flagship BiLSTM-CTC ("ctc"), the
-transformer-CTC ("transformer"), the conformer-CTC ("conformer") and the
+transformer-CTC ("transformer"), the conformer-CTC ("conformer"), the
 RNN-T transducer ("transducer", models/transducer.py; decoded by
-decoding/transducer.py, not by the CTC-family dispatch below). The
+decoding/transducer.py) and the attention seq2seq ("seq2seq",
+models/seq2seq.py, which decodes itself); the last two are not CTC
+families and have no part in the dispatch below. The
 attention families subsample time, so the dispatch returns the shorter
 output mask and lengths beside the log-probs; BiLSTM callers get their
 inputs back unchanged.
@@ -14,17 +16,15 @@ from __future__ import annotations
 
 import torch
 
-_PORTED = ("ctc", "transformer", "conformer", "transducer")
-_NOT_PORTED = {"seq2seq": "ROADMAP.md queue 1 item 10 (seq2seq)"}
+_PORTED = ("ctc", "transformer", "conformer", "transducer", "seq2seq")
 
 
 def check_family(family: str) -> None:
     """Raise unless the port serves and trains the model family."""
-    if family in _PORTED:
-        return
-    where = _NOT_PORTED.get(family, "ROADMAP.md queue 1")
-    raise NotImplementedError(f"model family {family!r} is not yet ported "
-                              f"to pg_asr_tpu_torch; see {where}")
+    if family not in _PORTED:
+        raise NotImplementedError(f"model family {family!r} is not yet "
+                                  "ported to pg_asr_tpu_torch; see "
+                                  "ROADMAP.md queue 1")
 
 
 def _is_layer_norm(name: str) -> bool:

@@ -17,15 +17,14 @@ columns, so ``W = weight_ih.T``, ``U = weight_hh.T``, ``b = bias_ih +
 bias_hh``; a bidirectional output is [forward | backward], as the port's;
 ``input_layer.weight`` is (out, in) and the port's linears (in, out). A
 ``nn.DataParallel`` checkpoint's ``module.`` prefix is stripped. The CTC
-head (and for the transducer the prediction network and joint) keep their
-fresh initialisation; the report says so. The seq2seq family is not ported.
+head (for the transducer the prediction network and joint, for the
+seq2seq family its output linear, which the reference's active decoder
+never built) keep their fresh initialisation; the report says so.
 """
 
 from __future__ import annotations
 
 import torch
-
-from .. import not_ported
 
 
 def load_torch_state_dict(path: str, allow_pickle: bool = False
@@ -90,18 +89,29 @@ def import_encoder(sd: dict, params: dict, used: set, dst: str = "",
     k = 0
     while f"{dst}lstm.{k}.fwd.W" in params:
         for d, sfx in (("fwd", f"_l{k}"), ("bwd", f"_l{k}_reverse")):
-            name = f"lstm.{k}.{d}"
-            W, U, b = (params[f"{dst}{name}.{x}"] for x in "WUb")
-            put(f"{name}.W", _take(sd, f"{prefix}blstm.weight_ih{sfx}",
-                                   tuple(W.shape[::-1]), used).T)
-            put(f"{name}.U", _take(sd, f"{prefix}blstm.weight_hh{sfx}",
-                                   tuple(U.shape[::-1]), used).T)
-            put(f"{name}.b", _take(sd, f"{prefix}blstm.bias_ih{sfx}",
-                                   tuple(b.shape), used)
-                + _take(sd, f"{prefix}blstm.bias_hh{sfx}", tuple(b.shape),
-                        used))
+            out.update(import_lstm(sd, params, used, f"{dst}lstm.{k}.{d}",
+                                   f"{prefix}blstm.", sfx))
         k += 1
     return out
+
+
+def import_lstm(sd: dict, params: dict, used: set, name: str, prefix: str,
+                sfx: str = "_l0") -> dict[str, torch.Tensor]:
+    """One direction of one layer of a torch LSTM (``{prefix}weight_ih{sfx}``
+    ...) onto ``{name}.{W,U,b}``, each cast to the dtype and device of the
+    tensor it replaces."""
+    W, U, b = (params[f"{name}.{x}"] for x in "WUb")
+    out = {
+        "W": _take(sd, f"{prefix}weight_ih{sfx}", tuple(W.shape[::-1]),
+                   used).T,
+        "U": _take(sd, f"{prefix}weight_hh{sfx}", tuple(U.shape[::-1]),
+                   used).T,
+        "b": (_take(sd, f"{prefix}bias_ih{sfx}", tuple(b.shape), used)
+              + _take(sd, f"{prefix}bias_hh{sfx}", tuple(b.shape), used)),
+    }
+    return {f"{name}.{k}": v.to(dtype=params[f"{name}.{k}"].dtype,
+                                device=params[f"{name}.{k}"].device)
+            for k, v in out.items()}
 
 
 def init_from_torch_checkpoint(path: str, params: dict, cfg,
@@ -109,26 +119,34 @@ def init_from_torch_checkpoint(path: str, params: dict, cfg,
                                ) -> tuple[dict, str]:
     """Warm-start `params` (a fresh init of cfg.model.family) from a
     reference checkpoint. Returns (new params, report). Families: "ctc"
-    (the encoder; the CTC head stays fresh) and "transducer" with the
-    bilstm encoder (the encoder; prediction network and joint stay fresh).
-    The attention families have no counterpart in the reference."""
+    (the encoder; the CTC head stays fresh), "transducer" with the bilstm
+    encoder (the encoder; prediction network and joint stay fresh) and
+    "seq2seq" (the encoder, the decoder's embedding and LSTM; the output
+    linear stays fresh). The attention families have no counterpart in the
+    reference."""
     family = cfg.model.family
-    if family == "seq2seq":
-        raise not_ported("the seq2seq family (ROADMAP.md queue 1 item 10)")
     if family == "transducer" and cfg.transducer.encoder != "bilstm":
         raise ValueError("--init_from_torch supports the transducer family "
                          "only with the bilstm encoder backbone")
-    if family not in ("ctc", "transducer"):
+    if family not in ("ctc", "transducer", "seq2seq"):
         raise ValueError(
             f"--init_from_torch: no reference torch counterpart for model "
             f"family {family!r} (supported: ctc, transducer, seq2seq)")
     sd = load_torch_state_dict(path, allow_pickle=allow_pickle)
     used: set[str] = set()
-    dst = "encoder." if family == "transducer" else ""
+    dst = "" if family == "ctc" else "encoder."
     new = {**params, **import_encoder(sd, params, used, dst)}
+    imported = ("input_proj.", "lstm.", "encoder.")
+    if family == "seq2seq":
+        emb = params["embed"]
+        new["embed"] = _take(sd, "decoder.embed_layer.weight",
+                             tuple(emb.shape), used).to(dtype=emb.dtype,
+                                                        device=emb.device)
+        new.update(import_lstm(sd, params, used, "dec_lstm",
+                               "decoder.lstm."))
+        imported += ("embed", "dec_lstm.")
     fresh = list(dict.fromkeys(k.split(".")[0] for k in params
-                               if not k.startswith(("input_proj.", "lstm.",
-                                                    "encoder."))))
+                               if not k.startswith(imported)))
     unused = sorted(set(sd) - used)
     report = (f"imported {len(used)} tensors from {path}"
               + (f"; fresh (no torch source): {', '.join(fresh)}" if fresh

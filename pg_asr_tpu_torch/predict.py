@@ -7,16 +7,19 @@ to the device, then features + acoustic forward + decode run there, and
 only the label ids come back. Ported: the CTC families (BiLSTM-CTC,
 transformer-CTC, conformer-CTC) with the greedy decoder (``timestamps``:
 also timestamps.jsonl, per-word times and confidences) and the CTC prefix
-beam search (``decoder="beam"``, one kernel launch per batch on CUDA), and
-the RNN-T transducer (any of the three encoders) with its greedy and beam
-decoders (decoding/transducer.py); the family, the transducer's encoder and
+beam search (``decoder="beam"``, one kernel launch per batch on CUDA), the
+RNN-T transducer (any of the three encoders) with its greedy and beam
+decoders (decoding/transducer.py), and the attention seq2seq with its
+greedy decoding (cut at the first EOS) and its decoder beam search
+(models/seq2seq.py); the family, the transducer's encoder and
 ``flash_attention`` come from the model's config.json. A model directory
 the JAX package wrote (``.ckpt`` files) is served as well. LM fusion into
-the beam is not ported.
+the CTC beam is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -26,7 +29,7 @@ import torch
 from . import not_ported, resolve_device
 from .checkpoint import (average_checkpoints, epoch_snapshots,
                          find_checkpoint, load_checkpoint)
-from .config import Config
+from .config import Config, fit_vocab
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
 from .decoding.beam import beam_decode
@@ -36,7 +39,7 @@ from .decoding.transducer import (transducer_beam_decode,
                                   transducer_greedy_decode)
 from .metrics import evaluate_corpus, save_predictions
 from .models import acoustic_forward, cast_params, check_family
-from .models import transducer
+from .models import seq2seq, transducer
 from .models.bilstm_ctc import torch_dtype
 from .ops.features import extract_features
 
@@ -53,20 +56,13 @@ uniform average of the per-epoch snapshots (train with ``keep_ckpts``;
 model_epoch*.pt, else the JAX package's model_epoch*.ckpt), of their
 ``ema_params`` for an EMA model.
 
-    vocab_size and input_dim follow the alphabet and the feature config, as
-    in the JAX package; `dtype` overrides the config's compute dtype, in
-    which every param comes back but the LayerNorm ones (float32)."""
-    cfg = model_config(model_path, config)
-    model_kw = {}
-    if (cfg.model.vocab_size != alphabet.size
-            or cfg.model.input_dim != cfg.features.feature_dim):
-        model_kw.update(vocab_size=alphabet.size,
-                        input_dim=cfg.features.feature_dim)
+    vocab_size (the seq2seq decoder's too) and input_dim follow the
+    alphabet and the feature config, as in the JAX package; `dtype`
+    overrides the config's compute dtype, in which every param comes back
+    but the LayerNorm ones (float32)."""
+    cfg = fit_vocab(model_config(model_path, config), alphabet.size)
     if dtype is not None:
-        model_kw["dtype"] = dtype
-    if model_kw:
-        cfg = cfg.replace(model=cfg.model.__class__(
-            **{**cfg.model.__dict__, **model_kw}))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=dtype))
     check_family(cfg.model.family)
     dt = torch_dtype(cfg.model.dtype)
     if which == "avg":
@@ -145,12 +141,38 @@ def forward_transducer(params, wave, num_samples, cfg: Config,
                                     max_label_len=L)
 
 
+@torch.inference_mode()
+def forward_seq2seq(params, wave, num_samples, cfg: Config,
+                    use_kernel: bool = True):
+    """Featurize + encoder + greedy decoding of all
+    ``decode.max_label_len`` steps on wave's device -> (tokens (B, S),
+    log-probs (B, S, A)); pad id 0 is EOS (the JAX package's
+    ``_forward_seq2seq``)."""
+    feats, mask, _ = extract_features(wave, num_samples, cfg.features)
+    return seq2seq.greedy_generate(params, feats, mask, cfg.model,
+                                   max_steps=cfg.decode.max_label_len,
+                                   use_kernel=use_kernel)
+
+
+@torch.inference_mode()
+def forward_seq2seq_beam(params, wave, num_samples, cfg: Config,
+                         beam_size: int = 8, use_kernel: bool = True):
+    """Featurize + encoder + the decoder's beam search of width beam_size
+    -> (tokens (B, S) zero-padded after EOS, lens (B,)) (the JAX package's
+    ``_forward_seq2seq_beam``)."""
+    feats, mask, _ = extract_features(wave, num_samples, cfg.features)
+    tokens, lens, _ = seq2seq.beam_generate(
+        params, feats, mask, cfg.model, beam_size=beam_size,
+        max_steps=cfg.decode.max_label_len, use_kernel=use_kernel)
+    return tokens, lens
+
+
 def _check_options(family: str, decoder: str, lm_order: int,
                    timestamps: bool) -> None:
     """The JAX package's refusals of --timestamps (greedy decoder and CTC
-    families only) and of --lm_order for the transducer
-    (pg_asr_tpu/predict.py); LM fusion for the CTC families is not yet
-    ported."""
+    families only) and of --lm_order for the transducer and the seq2seq
+    family (pg_asr_tpu/predict.py); LM fusion for the CTC families is not
+    yet ported."""
     if timestamps and decoder != "greedy":
         raise ValueError("--timestamps uses CTC emission peaks — "
                          "greedy decoder only")
@@ -162,6 +184,9 @@ def _check_options(family: str, decoder: str, lm_order: int,
         raise ValueError("LM shallow fusion is a CTC-beam feature; the "
                          "transducer's prediction network IS its "
                          "language model")
+    if lm_order and family == "seq2seq":
+        raise ValueError("LM shallow fusion is a CTC-beam feature; the "
+                         "seq2seq decoder LSTM IS its language model")
     if lm_order:
         raise not_ported("LM shallow fusion into the beam search "
                          "(--lm_order)")
@@ -201,7 +226,8 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
     cfg.decode.beam_prune; 0 = the exact search; an explicit value needs
     decoder="beam" and is >= 2 or 0), as pg_asr_tpu/predict.py. For a
     transducer, decoder="beam" is the RNN-T beam search of width beam_size,
-    and beam_prune is ignored, as in the JAX package."""
+    and for the seq2seq family the decoder's own beam search of that width;
+    both ignore beam_prune, as in the JAX package."""
     if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}")
     if beam_prune is not None:
@@ -241,6 +267,16 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
             labels, lens = forward_transducer(
                 params, wave, num_samples, cfg,
                 beam_size=beam_size if decoder == "beam" else 0)
+            predicted.extend(ids_to_strings(labels, lens, alphabet))
+            targets.extend(batch.texts)
+            continue
+        if family == "seq2seq":
+            if decoder == "beam":
+                labels, lens = forward_seq2seq_beam(params, wave, num_samples,
+                                                    cfg, beam_size=beam_size)
+            else:
+                labels, lens = seq2seq.cut_at_eos(forward_seq2seq(
+                    params, wave, num_samples, cfg)[0])
             predicted.extend(ids_to_strings(labels, lens, alphabet))
             targets.extend(batch.texts)
             continue

@@ -1,9 +1,9 @@
-"""Policy-gradient fine-tuning of the CTC families and the transducer
-(counterpart of pg_asr_tpu/rl/reinforce.py; seq2seq's SCST and MWER are not
-ported, ROADMAP.md queue 1 item 10).
+"""Policy-gradient fine-tuning of every model family the port serves
+(counterpart of pg_asr_tpu/rl/reinforce.py).
 
 Objectives by family, each plus an entropy bonus where paths are sampled
-and a supervised anchor (the CTC or RNN-T loss, weight rl.ctc_mix_weight):
+and a supervised anchor (the CTC loss, the teacher-forced NLL or the RNN-T
+loss, weight rl.ctc_mix_weight):
 
   * CTC families (ctc / transformer / conformer):
       - REINFORCE over sampled alignment paths: S paths per utterance from
@@ -15,12 +15,19 @@ and a supervised anchor (the CTC or RNN-T loss, weight rl.ctc_mix_weight):
       - MWER over the prefix-beam n-best (``ctc_beam`` in its n-best mode
         on CUDA tensors), each hypothesis re-scored with its differentiable
         CTC log-likelihood (_mwer_terms).
+  * seq2seq: SCST, continuations sampled from the autoregressive decoder
+    with a greedy self-critic, mean or no baseline
+    (_scst_seq2seq_terms), and MWER over the decoder beam's n-best
+    re-scored teacher-forced (_mwer_seq2seq_terms); the anchor is the
+    per-step teacher-forced NLL, whose per-step quotients
+    _combine_terms sums.
   * transducer: MWER over the RNN-T beam's n-best, re-scored with the
     lattice loss (_mwer_transducer_terms).
 
 The forward runs with gradient and without dropout (``train=False``), so on
 CUDA the BiLSTM encoder takes the residual ``bilstm_fwd`` and ``bilstm_bwd``
-kernels. ``use_kernel=False`` is the plain reference path on any device:
+kernels, and the seq2seq decoder's teacher-forced passes the residual
+``lstm_fwd`` and ``lstm_bwd``. ``use_kernel=False`` is the plain reference path on any device:
 the plain recurrences and scans and the plain CTC recursion.
 
 One device; random draws come from an explicit ``torch.Generator`` on it.
@@ -47,7 +54,9 @@ from ..data.bpe import load_tokenizer
 from ..decoding.beam import beam_decode_nbest
 from ..decoding.greedy import collapse_frame_ids, greedy_decode
 from ..decoding.transducer import transducer_beam_nbest
-from ..models import acoustic_forward, cast_params, check_family, transducer
+from ..losses import seq2seq_nll_terms
+from ..models import (acoustic_forward, cast_params, check_family, seq2seq,
+                      transducer)
 from ..models.bilstm_ctc import torch_dtype
 from ..ops.ctc import (alignable, ctc_loss, ctc_loss_terms,
                        ctc_loss_terms_fused)
@@ -229,18 +238,137 @@ def _mwer_transducer_terms(params, feats, fmask, flens, labels, label_lens,
     return nums, dens, dict(obj_metrics, entropy=zero)
 
 
+def _scst_seq2seq_terms(params, feats, fmask, labels, label_lens,
+                        generator: torch.Generator | None, cfg: Config,
+                        use_kernel: bool = True):
+    """SCST (self-critical sequence training) for the attention seq2seq
+    family: S continuations per utterance sampled from the decoder
+    (``seq2seq.sample_from_encoder``, drawn from `generator`), each
+    rewarded with negative CER or WER, minus the greedy decode's reward
+    (Rennie et al. 2017), the samples' mean or nothing; REINFORCE on the
+    mean log-prob of each sample's tokens up to and including its EOS, an
+    entropy bonus over the same steps, and the teacher-forced NLL on the
+    same encoder states as the anchor."""
+    rl = cfg.rl
+    B, L = labels.shape
+    kind = _risk_kind(rl)
+    S = rl.num_samples
+    enc_out = seq2seq.encode(params, feats, fmask, cfg.model,
+                             use_kernel=use_kernel)
+    toks, tok_lp, ent = seq2seq.sample_from_encoder(
+        params, enc_out, fmask, generator, S, max_steps=L,
+        temperature=rl.temperature)  # (S, B, L) each
+    lens = seq2seq.generated_lengths(toks)  # (S, B)
+    R = sequence_reward(labels.repeat(S, 1), label_lens.repeat(S),
+                        toks.reshape(S * B, L), lens.reshape(S * B), kind,
+                        rl.space_id).reshape(S, B)
+
+    if rl.baseline == "greedy":
+        with torch.no_grad():
+            g_toks, _ = seq2seq.greedy_from_encoder(params, enc_out.detach(),
+                                                    fmask, L)
+            base = sequence_reward(labels, label_lens, g_toks,
+                                   seq2seq.generated_lengths(g_toks), kind,
+                                   rl.space_id)[None, :]
+    elif rl.baseline == "mean":
+        base = R.mean(dim=0, keepdim=True)
+    else:
+        base = R.new_zeros((1, 1))
+
+    # every sampled token up to and including the EOS action
+    pos = torch.arange(L, device=labels.device)
+    valid = label_lens > 0  # zero-length rows are batch padding
+    step_mask = ((pos <= lens[:, :, None]) & valid[None, :, None]).float()
+    seq_lp = ((tok_lp * step_mask).sum(2)
+              / torch.clamp(step_mask.sum(2), min=1.0))
+    adv = (R - base) * valid[None, :]
+    pg_num = -(adv * seq_lp).sum()
+    pg_den = float(S) * valid.float().sum()
+    ent_num = (ent * step_mask).sum()
+    ent_den = step_mask.sum()
+
+    lp_tf = seq2seq.decode_teacher_forced(params, enc_out, fmask, labels,
+                                          use_kernel=use_kernel)
+    a_num, a_den = seq2seq_nll_terms(lp_tf, labels, label_lens)
+    metrics = {
+        "reward_mean": R.mean(),
+        "baseline_mean": base.mean(),
+        "advantage_mean": (R - base).mean(),
+        "sample_len_mean": lens.float().mean(),
+        "entropy": ent_num / torch.clamp(ent_den, min=1.0),
+    }
+    nums = {"pg": pg_num, "ent": ent_num, "ctc": a_num}
+    dens = {"pg": pg_den, "ent": ent_den, "ctc": a_den}
+    return nums, dens, metrics
+
+
+def _hyp_log_lik_seq2seq(lp, hyp, hyp_lens):
+    """(N, L, A) teacher-forced log-probs of hypotheses (N, L) -> (N,)
+    sequence log-likelihoods including the EOS step (position hyp_lens,
+    unless the beam reached L)."""
+    tok_lp = torch.gather(lp, 2, hyp.long()[..., None])[..., 0]
+    pos = torch.arange(hyp.shape[1], device=hyp.device)[None, :]
+    return (tok_lp * (pos <= hyp_lens[:, None])).sum(1)
+
+
+def _mwer_seq2seq_terms(params, feats, fmask, labels, label_lens,
+                        cfg: Config, use_kernel: bool = True):
+    """MWER for the attention seq2seq family: the K-best of the decoder's
+    beam search (``seq2seq.beam_scan_from_encoder``, on the detached
+    encoder states), each hypothesis re-scored with its differentiable
+    teacher-forced log-likelihood: the B x K hypotheses in one decoder
+    call over the shared encoder states (one ``lstm_fwd`` residual launch
+    and one ``lstm_bwd`` on CUDA), then the anchor."""
+    rl = cfg.rl
+    B, L = labels.shape
+    K = rl.mwer_beam
+    kind = _risk_kind(rl)
+    enc_out = seq2seq.encode(params, feats, fmask, cfg.model,
+                             use_kernel=use_kernel)
+    with torch.no_grad():
+        hyp, hyp_lens, scores = seq2seq.beam_scan_from_encoder(
+            params, enc_out.detach(), fmask, beam_size=K, max_steps=L)
+    h = hyp.reshape(B * K, L)
+    hl = hyp_lens.reshape(B * K)
+    lp = seq2seq.decode_teacher_forced(params, enc_out, fmask, h,
+                                       use_kernel=use_kernel)
+    logp = _hyp_log_lik_seq2seq(lp, h, hl).reshape(B, K)
+    risk = -sequence_reward(labels.repeat_interleave(K, dim=0),
+                            label_lens.repeat_interleave(K), h, hl, kind,
+                            rl.space_id).reshape(B, K)
+    pg_num, pg_den, obj_metrics = _mwer_combine(logp, risk, scores > -1e29,
+                                                label_lens > 0)
+
+    lp_tf = seq2seq.decode_teacher_forced(params, enc_out, fmask, labels,
+                                          use_kernel=use_kernel)
+    a_num, a_den = seq2seq_nll_terms(lp_tf, labels, label_lens)
+    zero = enc_out.new_zeros((), dtype=torch.float32)
+    one = torch.ones((), device=enc_out.device)
+    nums = {"pg": pg_num, "ent": zero, "ctc": a_num}
+    dens = {"pg": pg_den, "ent": one, "ctc": a_den}
+    return nums, dens, dict(obj_metrics, entropy=zero)
+
+
 def pg_loss_terms(params, wave, num_samples, labels, label_lens,
                   generator: torch.Generator | None, cfg: Config,
                   use_kernel: bool = True):
     """PG loss as (numerators, denominators, metrics), each component
     num / den. CTC families: REINFORCE over sampled alignment paths (drawn
-    from `generator`) or MWER over the prefix-beam n-best; the transducer:
-    MWER over its beam's n-best."""
+    from `generator`) or MWER over the prefix-beam n-best; seq2seq: SCST
+    (objective "reinforce", samples drawn from `generator`) or MWER over
+    the decoder beam's n-best; the transducer: MWER over its beam's
+    n-best."""
     rl = cfg.rl
     check_family(cfg.model.family)
     with torch.no_grad():
         feats, fmask, flens = extract_features(wave, num_samples,
                                                cfg.features)
+    if cfg.model.family == "seq2seq":
+        if rl.objective == "mwer":
+            return _mwer_seq2seq_terms(params, feats, fmask, labels,
+                                       label_lens, cfg, use_kernel)
+        return _scst_seq2seq_terms(params, feats, fmask, labels, label_lens,
+                                   generator, cfg, use_kernel)
     if cfg.model.family == "transducer":
         if rl.objective != "mwer":
             raise ValueError(
@@ -332,8 +460,10 @@ def _combine_terms(nums, dens, rl):
     ent = nums["ent"] / torch.clamp(dens["ent"], min=1.0)
     loss = pg - rl.entropy_weight * ent
     if rl.ctc_mix_weight > 0:
-        loss = loss + rl.ctc_mix_weight * nums["ctc"] / torch.clamp(
-            dens["ctc"], min=1.0)
+        # the seq2seq anchor's terms are per-step vectors: the sum of the
+        # per-step means, as losses.seq2seq_nll_loss
+        loss = loss + rl.ctc_mix_weight * torch.sum(
+            nums["ctc"] / torch.clamp(dens["ctc"], min=1.0))
     return loss
 
 

@@ -14,7 +14,9 @@ transformer-CTC and conformer-CTC: with ``flash_attention`` the
 flash-attention kernels under autograd, with ``model.remat`` each block
 recomputed in the backward; the transducer: one of those encoders, the
 prediction network, and with ``transducer.fused_joint`` the fused joint
-kernels under autograd) -> CTC or the transducer's lattice loss ->
+kernels under autograd; the attention seq2seq: the BiLSTM encoder's kernels
+and the teacher-forced decoder LSTM on ``lstm_fwd`` / ``lstm_bwd``) -> CTC,
+the transducer's lattice loss or the seq2seq per-step NLL ->
 gradients -> (``accum_steps``: their running mean over micro-batches) ->
 clip by global norm -> AdamW, with optax's rules and rounding points
 (``AdamW`` below) -> (``ema_decay``: the parameters' moving average, on
@@ -29,8 +31,8 @@ Also here for policy-gradient fine-tuning (rl/reinforce.py): ``AdamW``'s
 constant-rate form, ``_ema_update`` and the greedy dev CER
 (``corpus_cer``).
 
-Not ported (each refused with a message, ROADMAP.md): the seq2seq family,
-the switch-MoE transformer, device meshes and multi-host; the CLI refuses
+Not ported (each refused with a message, ROADMAP.md): the switch-MoE
+transformer, device meshes and multi-host; the CLI refuses
 ``--max_restarts`` and ``--fault_step``.
 """
 
@@ -50,11 +52,12 @@ from . import not_ported, resolve_device
 from .checkpoint import (BEST_NAME, LAST_NAME, checkpoint_path,
                          has_flax_checkpoints, load_checkpoint,
                          save_checkpoint, save_config, save_rolling)
-from .config import Config
+from .config import Config, fit_vocab
 from .data import BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
+from .losses import seq2seq_nll_loss
 from .models import (acoustic_forward, bilstm_ctc, cast_params,
-                     check_family, conformer_ctc, transducer,
+                     check_family, conformer_ctc, seq2seq, transducer,
                      transformer_ctc)
 from .ops.augment import spec_augment, wave_augment, wave_augmented
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
@@ -77,6 +80,8 @@ def init_model_params(cfg: Config, generator: torch.Generator,
     check_family(family)
     if family == "transducer":
         return transducer.init_params(cfg, generator, device)
+    if family == "seq2seq":
+        return seq2seq.init_params(cfg.model, cfg.seq2seq, generator, device)
     if family == "transformer":
         if cfg.transformer.num_experts > 0:
             raise not_ported(_MOE)
@@ -292,7 +297,9 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                  use_kernel: bool = True) -> torch.Tensor:
     """Scalar loss of one batch (the JAX package's ``compute_loss``): CTC
     for the CTC families; for the transducer the lattice loss, plus
-    ``ctc_weight`` x the auxiliary head's CTC loss when that is above 0.
+    ``ctc_weight`` x the auxiliary head's CTC loss when that is above 0;
+    for the seq2seq family the teacher-forced per-step NLL
+    (``losses.seq2seq_nll_loss``).
     Features carry no gradient. In training with a generator and
     ``augment.enabled``: the waveform options (when one is set) before the
     features and SpecAugment after them, their draws taken from the
@@ -310,6 +317,11 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                                                    cfg.features)
         if augment:
             feats = spec_augment(feats, mask, generator, aug)
+    if cfg.model.family == "seq2seq":
+        log_probs = seq2seq.apply_teacher_forced(
+            params, feats, mask, labels, cfg.model, use_kernel=use_kernel,
+            train=train, generator=generator)
+        return seq2seq_nll_loss(log_probs, labels, label_lens)
     ctc_terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
     if cfg.model.family == "transducer":
         lam = cfg.transducer.ctc_weight
@@ -391,13 +403,16 @@ def _batch_cer_counts(params, batch, cfg: Config,
     host ``metrics.edit_dist`` (the JAX package's counterpart)."""
     from .decoding.greedy import greedy_decode, ids_to_strings
     from .metrics import edit_dist
-    from .predict import forward, forward_transducer
+    from .predict import forward, forward_seq2seq, forward_transducer
 
     dev = next(iter(params.values())).device
     wave = torch.from_numpy(batch.wave).to(dev)
     ns = torch.from_numpy(batch.num_samples).to(dev)
     if cfg.model.family == "transducer":
         labels, lens = forward_transducer(params, wave, ns, cfg)
+    elif cfg.model.family == "seq2seq":
+        labels, lens = seq2seq.cut_at_eos(
+            forward_seq2seq(params, wave, ns, cfg)[0])
     else:
         log_probs, mask, _ = forward(params, wave, ns, cfg)
         labels, lens = greedy_decode(log_probs, mask)
@@ -441,12 +456,12 @@ def _copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 def train(corpus_path: str, model_path: str, config: Config | None = None,
           device: str = "cuda", profile_steps: int = 0) -> dict:
-    """Train a model (BiLSTM-CTC, transformer-CTC, conformer-CTC or the
-    transducer) on a corpus directory (train.tsv, dev.tsv, clips/,
-    alphabet.txt), resuming from a checkpoint in model_path if there is
-    one: at the next epoch, or mid-epoch at the next batch of the same
-    shuffled order, with the step generator's state, so that a resumed run
-    takes the steps of an uninterrupted one. SIGTERM saves model_last at
+    """Train a model (BiLSTM-CTC, transformer-CTC, conformer-CTC, the
+    transducer or the attention seq2seq) on a corpus directory (train.tsv,
+    dev.tsv, clips/, alphabet.txt), resuming from a checkpoint in
+    model_path if there is one: at the next epoch, or mid-epoch at the
+    next batch of the same shuffled order, with the step generator's
+    state, so that a resumed run takes the steps of an uninterrupted one. SIGTERM saves model_last at
     the current batch and returns (``"interrupted": True``).
     ``profile_steps`` = N > 0 traces this process's steps 2..2+N into
     <model_path>/trace. Returns a summary dict with the loss curves."""
@@ -492,11 +507,7 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
                 cfg.train, ema_decay=prev.train.ema_decay))
         check_ported(cfg)
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
-    if (cfg.model.vocab_size != alphabet.size
-            or cfg.model.input_dim != cfg.features.feature_dim):
-        cfg = cfg.replace(model=dataclasses.replace(
-            cfg.model, vocab_size=alphabet.size,
-            input_dim=cfg.features.feature_dim))
+    cfg = fit_vocab(cfg, alphabet.size)
 
     aud_path = os.path.join(corpus_path, "clips")
     t = cfg.train

@@ -1734,3 +1734,107 @@ def test_streaming_launches_lstm_fwd_per_layer_and_matches_plain(cuda,
         srv.flush(s)
     assert [srv.text(s) for s in slots] == single
     assert "".join(single)
+
+
+# --- the attention seq2seq family (models/seq2seq.py) on the card
+
+def _seq2seq_case(cuda, dtype):
+    """A small seq2seq (2 BiLSTM layers of 32, decoder 16 -> 64, vocab 12,
+    the output weights x4 for clear argmaxes) in `dtype` on the card, and
+    features of three utterances (50, 31 and 12 frames) with targets of 9,
+    6 and 0 labels."""
+    from pg_asr_tpu_torch.config import Config, Seq2SeqConfig
+    from pg_asr_tpu_torch.models import seq2seq
+
+    cfg = Config(model=ModelConfig(family="seq2seq", vocab_size=12,
+                                   input_dim=20, input_proj_dim=48,
+                                   hidden_size=32, num_layers=2, dropout=0.0,
+                                   dtype=dtype),
+                 seq2seq=Seq2SeqConfig(vocab_size=12, embed_dim=16,
+                                       dec_hidden=64))
+    params = seq2seq.init_params(cfg.model, cfg.seq2seq,
+                                 torch.Generator().manual_seed(0))
+    params["output.w"] *= 4
+    params = {k: v.to(cuda) for k, v in params.items()}
+    rng = np.random.default_rng(5)
+    lens = np.array([50, 31, 12])
+    mask = (np.arange(50)[None] < lens[:, None]).astype(np.float32)
+    feats = rng.standard_normal((3, 50, 20)).astype(np.float32)
+    targets = rng.integers(1, 12, (3, 9))
+    targets[1, 6:] = 0
+    targets[2] = 0
+    arrays = [torch.from_numpy(a).to(cuda) for a in (
+        feats, mask, targets.astype(np.int32), np.array([9, 6, 0], np.int32))]
+    return cfg, params, arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,loss_rtol,grad_rel", [
+    ("float32", 1e-4, 1e-3), ("bfloat16", 2e-2, 2.0 ** -4)])
+def test_seq2seq_forward_backward_kernel_matches_plain(cuda, dtype, loss_rtol,
+                                                       grad_rel):
+    """The teacher-forced loss and every parameter gradient, kernel path
+    (bilstm_fwd / bilstm_bwd per encoder layer, the decoder LSTM on
+    lstm_fwd's residual form and lstm_bwd: one launch each) vs plain path,
+    with the bounds of the PG test above (the same recurrences); without
+    autograd the decoder takes lstm_fwd's inference form."""
+    from pg_asr_tpu_torch.losses import seq2seq_nll_loss
+    from pg_asr_tpu_torch.models import seq2seq
+    from pg_asr_tpu_torch.train import value_and_grad
+
+    cfg, params, (feats, mask, targets, lens) = _seq2seq_case(cuda, dtype)
+    out = {}
+    for use_kernel in (True, False):
+        before = _bi_counts()
+        loss, grads = value_and_grad(
+            lambda p: seq2seq_nll_loss(seq2seq.apply_teacher_forced(
+                p, feats, mask, targets, cfg.model, use_kernel=use_kernel),
+                targets, lens), params)
+        torch.cuda.synchronize()
+        n = cfg.model.num_layers
+        want = [0, 1, 1, 0, n, n] if use_kernel else [0] * 6
+        assert [a - b for a, b in zip(_bi_counts(), before)] == want
+        out[use_kernel] = loss, grads
+    (loss_k, g_k), (loss_p, g_p) = out[True], out[False]
+    assert torch.isfinite(loss_k)
+    torch.testing.assert_close(loss_k, loss_p, rtol=loss_rtol, atol=1e-6)
+    for k in g_p:
+        ref = g_p[k].float()
+        torch.testing.assert_close(g_k[k].float(), ref, rtol=0,
+                                   atol=float(grad_rel * ref.abs().max()),
+                                   msg=k)
+    before = _bi_counts()
+    with torch.no_grad():
+        seq2seq.apply_teacher_forced(params, feats, mask, targets, cfg.model)
+    assert [a - b for a, b in zip(_bi_counts(), before)] == [
+        1, 0, 0, cfg.model.num_layers, 0, 0]
+
+
+@pytest.mark.cuda
+def test_seq2seq_greedy_and_beam_kernel_match_plain(cuda):
+    """Greedy and beam (K=4) decoding over 12 steps, float32: the encoder
+    on its kernels vs its plain recurrence, the decoder loops the same:
+    equal tokens and lengths, log-probs atol 1e-4, normalized scores rtol
+    1e-5; the same on the CPU (plain path)."""
+    from pg_asr_tpu_torch.models import seq2seq
+
+    cfg, params, (feats, mask, _, _) = _seq2seq_case(cuda, "float32")
+    with torch.no_grad():
+        got = {}
+        for use_kernel in (True, False):
+            toks, lp = seq2seq.greedy_generate(params, feats, mask, cfg.model,
+                                               max_steps=12,
+                                               use_kernel=use_kernel)
+            beam = seq2seq.beam_generate(params, feats, mask, cfg.model,
+                                         beam_size=4, max_steps=12,
+                                         use_kernel=use_kernel)
+            got[use_kernel] = toks, lp, beam
+        cpu = {k: v.cpu() for k, v in params.items()}
+        toks_c, _ = seq2seq.greedy_generate(cpu, feats.cpu(), mask.cpu(),
+                                            cfg.model, max_steps=12)
+    (tk, lk, bk), (tp, lpl, bp) = got[True], got[False]
+    assert torch.equal(tk, tp) and torch.equal(tk.cpu(), toks_c)
+    torch.testing.assert_close(lk, lpl, rtol=0, atol=1e-4)
+    assert torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
+    torch.testing.assert_close(bk[2], bp[2], rtol=1e-5, atol=0)
+    assert (tk != 0).any()

@@ -19,14 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from pg_asr_tpu import train as jax_train
 from pg_asr_tpu.config import Config as JConfig
 from pg_asr_tpu.data.dataset import load_manifest as jax_load_manifest
 from pg_asr_tpu.data.text import Alphabet as JAlphabet
+from pg_asr_tpu.rl import reinforce as jax_reinforce
 from pg_asr_tpu_torch import cli
 from pg_asr_tpu_torch.checkpoint import load_checkpoint
-from pg_asr_tpu_torch.config import (Config, ModelConfig, TrainConfig,
-                                     TransducerConfig)
+from pg_asr_tpu_torch.config import (Config, ModelConfig, Seq2SeqConfig,
+                                     TrainConfig, TransducerConfig)
 from pg_asr_tpu_torch.convert import params_to_jax
 from pg_asr_tpu_torch.data import (Alphabet, load_manifest,
                                    make_synthetic_corpus)
@@ -208,15 +211,48 @@ def test_unported_options_are_refused(trained, extra, message):
     assert "not yet ported" in str(e.value) and message in str(e.value)
 
 
-def test_seq2seq_is_refused(trained, tmp_path):
+def test_seq2seq_is_refused(trained, tmp_path, monkeypatch):
+    """The seq2seq family, refused before it was ported, now fine-tunes:
+    a tiny seq2seq the port trained for one epoch, then finetune_pg
+    through the CLI, MWER (K=3) and SCST for 2 steps each; the first
+    MWER step's loss equals the JAX package's pg_loss_fn on the same batch
+    and weights (rtol 1e-4, as tests/test_torch_reinforce.py)."""
     corpus, _ = trained
-    model = _copy(trained, tmp_path)
-    cfg = _tiny(family="seq2seq")
-    with open(os.path.join(model, "config.json"), "w") as fo:
-        fo.write(cfg.to_json())
-    with pytest.raises(SystemExit) as e:
-        _pg(corpus, model, "--pg_steps", "1")
-    assert "not yet ported" in str(e.value) and "seq2seq" in str(e.value)
+    model = str(tmp_path / "model")
+    cfg = _tiny(family="seq2seq").replace(seq2seq=Seq2SeqConfig(
+        embed_dim=8, dec_hidden=32))
+    train(corpus, model, config=cfg, device="cpu")
+    steps = []
+    make_pg_step = reinforce.make_pg_step
+
+    def recording(cfg, optimizer, **kw):
+        step = make_pg_step(cfg, optimizer, **kw)
+
+        def run(params, generator, *arrays):
+            before = {k: v.clone() for k, v in params.items()}
+            loss, metrics = step(params, generator, *arrays)
+            steps.append((cfg, before, arrays, loss))
+            return loss, metrics
+
+        return run
+
+    monkeypatch.setattr(reinforce, "make_pg_step", recording)
+    assert _pg(corpus, model, "--pg_steps", "2", "--pg_objective", "mwer",
+               "--mwer_beam", "3") == 0
+    pg_cfg, params, arrays, loss = steps[0]
+    assert pg_cfg.model.family == "seq2seq" and pg_cfg.rl.objective == "mwer"
+    jcfg = JConfig.from_json(pg_cfg.to_json())
+    want, _ = jax_reinforce.pg_loss_fn(
+        jax.tree_util.tree_map(jax.numpy.asarray, params_to_jax(params)),
+        *(a.numpy() for a in arrays),
+        jax.random.PRNGKey(0), jcfg)
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
+    assert np.isfinite(np.load(os.path.join(model, "pg_rewards.npy"))).all()
+    assert _pg(corpus, model, "--pg_steps", "4") == 0  # SCST resumes at 2
+    rewards = np.load(os.path.join(model, "pg_rewards.npy"))
+    assert rewards.shape == (2,) and np.isfinite(rewards).all()
+    last = load_checkpoint(os.path.join(model, "model_last.pt"))
+    assert (last["epoch"], last["step"]) == (-1, 4)
 
 
 def test_mwer_beam_below_two_is_refused(trained):

@@ -19,19 +19,27 @@ import torch
 
 import jax
 
+from pg_asr_tpu.alignment import align_corpus as jax_align
 from pg_asr_tpu.checkpoint import save_checkpoint
 from pg_asr_tpu.config import Config as JConfig
+from pg_asr_tpu.config import DecodeConfig as JDecodeConfig
 from pg_asr_tpu.config import ModelConfig
+from pg_asr_tpu.config import Seq2SeqConfig as JSeq2SeqConfig
 from pg_asr_tpu.data.dataset import (BatchIterator, load_manifest,
                                      make_synthetic_corpus)
+from pg_asr_tpu.data.text import Alphabet as JAlphabet
 from pg_asr_tpu.models import bilstm_ctc as jax_model
+from pg_asr_tpu.models import seq2seq as jax_seq2seq
+from pg_asr_tpu.predict import load_model as jax_load_model
 from pg_asr_tpu.predict import predict as jax_predict
+from pg_asr_tpu.selftrain import pseudo_label as jax_pseudo_label
+from pg_asr_tpu.serving import StreamingTranscriber as JStreamingTranscriber
 from pg_asr_tpu_torch import cli
 from pg_asr_tpu_torch.checkpoint import load_checkpoint, save_model
 from pg_asr_tpu_torch.checkpoint import save_checkpoint as save_checkpoint_pt
 from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.convert import params_from_jax
-from pg_asr_tpu_torch.predict import forward, load_model
+from pg_asr_tpu_torch.predict import forward, forward_seq2seq, load_model
 from pg_asr_tpu_torch.predict import predict as torch_predict
 
 
@@ -158,20 +166,121 @@ def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
     assert "not yet ported" in str(e.value) and message in str(e.value)
 
 
-def test_cli_unported_family_exits_with_message(slice_setup, tmp_path):
-    """The model family comes from the checkpoint's config.json (seq2seq
-    is not ported; the transducer is served since it got its decoders)."""
-    paths, _, cfg, _, torch_dir = slice_setup
-    seq2seq = cfg.replace(model=cfg.model.__class__(
-        **{**cfg.model.__dict__, "family": "seq2seq"}))
-    save_model(str(tmp_path), load_checkpoint(
-        os.path.join(torch_dir, "model_best.pt"))["params"], seq2seq)
+@pytest.fixture(scope="module")
+def seq2seq_dirs(slice_setup, tmp_path_factory):
+    """A tiny attention seq2seq from the JAX init, as a JAX package model
+    directory (config.json + model_best.ckpt through its save_checkpoint)
+    and as the port's (model_best.pt); greedy and beam run 16 steps."""
+    paths, alphabet, _, _, _ = slice_setup
+    d = tmp_path_factory.mktemp("seq2seq")
+    jcfg = JConfig(
+        model=ModelConfig(family="seq2seq", vocab_size=alphabet.size,
+                          input_proj_dim=16, hidden_size=8, num_layers=1),
+        seq2seq=JSeq2SeqConfig(vocab_size=alphabet.size, embed_dim=8,
+                               dec_hidden=16),
+        decode=JDecodeConfig(max_label_len=16))
+    tree = jax.tree_util.tree_map(np.asarray, jax_seq2seq.init_params(
+        jax.random.PRNGKey(MODEL_SEED), jcfg.model, jcfg.seq2seq))
+    jax_dir, torch_dir = str(d / "jax"), str(d / "torch")
+    os.makedirs(jax_dir)
+    with open(os.path.join(jax_dir, "config.json"), "w") as fo:
+        fo.write(jcfg.to_json())
+    save_checkpoint(os.path.join(jax_dir, "model_best.ckpt"),
+                    {"params": tree})
+    save_model(torch_dir, params_from_jax(tree),
+               Config.from_json(jcfg.to_json()))
+    return jcfg, jax_dir, torch_dir
+
+
+def _predict_cli(paths, model_dir, *extra):
+    return cli.main(["--mode", "predict", "--test_path", paths["test_path"],
+                     "--aud_path", paths["aud_path"], "--alphabet",
+                     paths["alphabet_path"], "--model_path", model_dir,
+                     "--batch_size", "3", "--device", "cpu", *extra])
+
+
+def _predicted(model_dir):
+    with open(os.path.join(model_dir, "predicted.txt")) as fo:
+        return fo.read()
+
+
+def test_cli_unported_family_exits_with_message(slice_setup, seq2seq_dirs):
+    """The model family comes from the checkpoint's config.json: the
+    seq2seq family, no longer refused, is served from the port's model
+    directory and from the JAX package's (its .ckpt), greedy and with the
+    decoder's beam (K=3), with the JAX package's predicted.txt. The
+    greedy steps' top two log-probs lie more than 1e-4 apart (asserted),
+    so that exact text equality is a fair bar."""
+    paths, alphabet, _, _, _ = slice_setup
+    jcfg, jax_dir, torch_dir = seq2seq_dirs
+    params, cfg = load_model(torch_dir, alphabet, device="cpu")
+    assert cfg.model.family == "seq2seq"
+    utts = load_manifest(paths["test_path"], paths["aud_path"])
+    margin = np.inf
+    for b in BatchIterator(utts, alphabet, 3, shuffle=False):
+        _, lp = forward_seq2seq(params, torch.from_numpy(b.wave),
+                                torch.from_numpy(b.num_samples), cfg)
+        top2 = lp.topk(2, dim=-1).values
+        margin = min(margin, (top2[..., 0] - top2[..., 1]).min().item())
+    assert margin > 1e-4
+    for extra in ([], ["--decoder", "beam", "--beam_size", "3"]):
+        beam = dict(decoder="beam", beam_size=3) if extra else {}
+        ref = jax_predict(**paths, model_path=jax_dir, batch_size=3, **beam)
+        want = _predicted(jax_dir)
+        assert any(line.split("|")[1] for line in want.splitlines())
+        for model_dir in (torch_dir, jax_dir):
+            assert _predict_cli(paths, model_dir, *extra) == 0
+            assert _predicted(model_dir) == want, (extra, model_dir)
+        got = torch_predict(**paths, model_path=torch_dir, batch_size=3,
+                            device="cpu", **beam)
+        assert got == ref
+
+
+def _jax_error(fn):
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+@pytest.mark.parametrize("what", ["stream", "align", "pseudolabel",
+                                  "timestamps", "lm_order"])
+def test_seq2seq_refusals_match_jax(slice_setup, seq2seq_dirs, what):
+    """Streaming, forced alignment, pseudo-labels, --timestamps and LM
+    fusion refuse the seq2seq family through the port's CLI with the JAX
+    package's ValueError, word for word."""
+    paths, alphabet, _, _, _ = slice_setup
+    jcfg, jax_dir, torch_dir = seq2seq_dirs
+    if what == "stream":
+        jparams = jax_load_model(jax_dir, JAlphabet.load(
+            paths["alphabet_path"]))[0]
+        want = _jax_error(lambda: JStreamingTranscriber(
+            jparams, jcfg, JAlphabet.load(paths["alphabet_path"])))
+        argv = ["--mode", "stream", "--corpus_path",
+                os.path.dirname(paths["test_path"]), "--wav",
+                load_manifest(paths["test_path"],
+                              paths["aud_path"])[0].audio_path]
+    elif what == "align":
+        want = _jax_error(lambda: jax_align(**paths, model_path=jax_dir))
+        argv = ["--mode", "align", "--test_path", paths["test_path"]]
+    elif what == "pseudolabel":
+        want = _jax_error(lambda: jax_pseudo_label(
+            paths["aud_path"], paths["alphabet_path"], jax_dir))
+        argv = ["--mode", "pseudolabel"]
+    elif what == "timestamps":
+        want = _jax_error(lambda: jax_predict(**paths, model_path=jax_dir,
+                                              timestamps=True))
+        argv = ["--mode", "predict", "--timestamps", "--test_path",
+                paths["test_path"]]
+    else:
+        want = _jax_error(lambda: jax_predict(**paths, model_path=jax_dir,
+                                              decoder="beam", lm_order=2))
+        argv = ["--mode", "predict", "--decoder", "beam", "--lm_order", "2",
+                "--test_path", paths["test_path"]]
     with pytest.raises(SystemExit) as e:
-        cli.main(["--mode", "predict", "--test_path", paths["test_path"],
-                  "--aud_path", paths["aud_path"], "--alphabet",
-                  paths["alphabet_path"], "--model_path", str(tmp_path),
+        cli.main([*argv, "--aud_path", paths["aud_path"], "--alphabet",
+                  paths["alphabet_path"], "--model_path", torch_dir,
                   "--device", "cpu"])
-    assert "not yet ported" in str(e.value) and "seq2seq" in str(e.value)
+    assert str(e.value) == want
 
 
 def test_cli_other_modes_not_ported():

@@ -505,13 +505,42 @@ def test_cli_train_resume_predict_cpu(tiny_corpus, tmp_path, capsys):
         assert len(fo.read().splitlines()) == 2
 
 
+def test_cli_seq2seq_train_predict_round_trip(tiny_corpus, tmp_path,
+                                             capsys):
+    """--model seq2seq at the default width through the CLI: one epoch,
+    then --mode predict without --model (the family comes from
+    config.json), greedy and with the decoder's beam; the artifacts, a
+    finite loss, and predicted.txt with every test utterance."""
+    model = str(tmp_path / "model")
+    assert cli.main(["--mode", "train", "--corpus_path", tiny_corpus,
+                     "--model_path", model, "--batch_size", "4",
+                     "--num_epochs", "1", "--model", "seq2seq",
+                     "--device", "cpu"]) == 0
+    with open(os.path.join(model, "config.json")) as fo:
+        cfg = json.load(fo)
+    assert cfg["model"]["family"] == "seq2seq"
+    assert cfg["seq2seq"]["vocab_size"] == cfg["model"]["vocab_size"]
+    state = torch.load(os.path.join(model, "model_last.pt"),
+                       weights_only=True)
+    assert state["step"] == 3
+    assert {"embed", "dec_lstm.U", "output.w",
+            "encoder.lstm.2.bwd.U"} <= set(state["params"])
+    assert np.isfinite(np.load(os.path.join(model, "train_loss.npy"))).all()
+    for extra in ([], ["--decoder", "beam", "--beam_size", "4"]):
+        assert cli.main(["--mode", "predict", "--corpus_path", tiny_corpus,
+                         "--model_path", model, "--device", "cpu",
+                         *extra]) == 0
+        assert "CER:" in capsys.readouterr().out
+        with open(os.path.join(model, "predicted.txt")) as fo:
+            assert len(fo.read().splitlines()) == 2
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--mesh", "data=2"], "mesh"),
     (["--max_restarts", "1"], "max_restarts"),
     (["--fault_step", "3"], "fault_step"),
     (["--model", "moe"], "MoE"),
     (["--mesh", "fsdp=8"], "mesh"),
-    (["--model", "seq2seq"], "seq2seq"),
     *UNPORTED_FLAGS,
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
