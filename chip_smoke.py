@@ -239,12 +239,32 @@ the CPU or to a kernel's plain version):
      and beam (K=16) transcription of a batch of 32, each with its
      launches, CUDA-event or host ms and the profiler's device time and
      idle share.
- 15. prints its total wall time, a JSON line of kernel results (with each
+ 15. LM fusion (decoding/lm.py, neural_lm.py, rescore.py) at the
+     flagship's width: `--mode predict --decoder beam` through the CLI
+     with --lm_order 2 and 3 on phase 5's BiLSTM-CTC and 3 on phase 12's
+     BPE model (3 bilstm_fwd a batch, no other launch: the fused search
+     has no kernel), --lm_type neural (embed 48, hidden 160, 2 layers)
+     trained for the default 300 steps on the card (2 residual lstm_fwd +
+     2 lstm_bwd a step), reused by a second run (no training launch), and
+     --lm_pass rescore (1 ctc_beam + 2 lstm_fwd a batch), each run's
+     launches exact; the n-gram (orders 2, 3) and neural fused searches on
+     phase 3b's inputs (B=128, T=401, A=28, K=16) on the card against the
+     CPU (labels and lens equal, nll within LM_NLL_REL) with host ms,
+     device busy time, idle share and device operations a batch; lstm_fwd
+     (both forms) and lstm_bwd at the LM's training batch (B=32, T=128,
+     H=160) and at the rescoring rows (B*K=2048, T=60) against their plain
+     versions; one LM training step, loss and every gradient kernel vs
+     plain, timed; the rescoring pass card vs CPU, timed; `--mode stream
+     --decoder beam --lm_order 3` through the CLI on phase 5's model (3
+     lstm_fwd a chunk), its text the offline fused search's on the
+     streamed log-probs, and the streamed beam's chunk times and real-time
+     factor with and without the LM.
+ 16. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
-     streaming and seq2seq paths, ctc_beam's cases at A=256, lstm_fwd's and
-     flash_attn's at the streamed windows, lstm_fwd_residual's and
-     lstm_bwd's at the seq2seq decoder's shape), then as the last line
-     {"ok": true, "device": {...}}.
+     streaming, seq2seq and LM paths, ctc_beam's cases at A=256, lstm_fwd's
+     and flash_attn's at the streamed windows, lstm_fwd_residual's and
+     lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
+     last line {"ok": true, "device": {...}}.
 
 It imports only the port (pg_asr_tpu_torch) and fails if any module of jax,
 flax, msgpack, ml_dtypes or the JAX package (pg_asr_tpu) was imported.
@@ -4104,23 +4124,68 @@ def chunk_times(st, audio, block: int):
     return text, times, wall
 
 
-def device_busy(fn) -> tuple[float, float]:
-    """(device busy ms, host wall ms) of one call of fn: the kernels' time
-    from a torch.profiler trace, the wall on the host clock."""
+# torch.profiler on the H100 (CUPTI) drops kernel records at both ends of
+# a trace while it keeps their launch records: a trace's first few
+# launches (more often the longer the process has run) and, in long
+# traces, thousands of its last ones. Each trace therefore opens with
+# PROFILE_PAD spin kernels and closes with PROFILE_TAIL, which take the
+# loss, and is refused unless every launch of fn has its kernel record
+# (taken again up to PROFILE_TRIES times where fn may run twice)
+PROFILE_PAD, PROFILE_TAIL, PROFILE_TRIES = 1024, 16384, 3
+
+
+def device_trace(fn, reps: int = 1, warm: bool = True,
+                 again: bool = True) -> tuple[list, float]:
+    """The device records (kernels and copies) of `reps` calls of fn in one
+    torch.profiler trace, as (name, ms) pairs, and the calls' host wall ms.
+    warm: one untimed call first; again: fn may be called again, so a trace
+    that lost a kernel record is taken anew (else it fails at once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    if warm:
         fn()
+    for _ in range(PROFILE_TRIES if again else 1):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if getattr(e, "device_type", None)
-               == torch.autograd.DeviceType.CUDA) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            for _ in range(PROFILE_TAIL):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        # the trace's raw events: parsing them into FunctionEvents takes
+        # seconds for the pads' ~17 K records
+        events = prof.profiler.kineto_results.events()
+        launches = sum(e.device_type() != cuda and ("LaunchKernel" in e.name()
+                                                    or "cuLaunch" in e.name())
+                       for e in events) - PROFILE_PAD - PROFILE_TAIL
+        records = [(e.name(), e.duration_ns() / 1e6) for e in events
+                   if e.device_type() == cuda
+                   and "spin_kernel" not in e.name()]
+        kernels = sum(not n.startswith(("Memcpy", "Memset"))
+                      for n, _ in records)
+        if kernels == launches:
+            return records, wall
+    check(False, f"the profiler lost kernel records: {kernels} of "
+          f"{launches} launches traced")
+
+
+def device_busy(fn, again: bool = True) -> tuple[float, float, int]:
+    """(device busy ms, host wall ms, device operations) of one call of fn:
+    the kernels' and copies' time and count from a torch.profiler trace,
+    the wall on the host clock. No warm-up call: fn may hold state (a
+    stream's push; then again=False)."""
+    records, wall = device_trace(fn, warm=False, again=again)
+    busy = sum(ms for _, ms in records)
     check(busy > 0, "the profiler saw no kernel time")
-    return busy, wall
+    return busy, wall, len(records)
 
 
 def _pcts(times):
@@ -4280,8 +4345,9 @@ def phase_stream(dev, corpus, alphabet, ctc_dir, random_dir, conformer_dir,
         st.reset()
         st.push(audio[:4 * sr])
         f0 = st._frames_done
-        busy, bwall = device_busy(lambda: st.push(
-            audio[4 * sr:4 * sr + STREAM_PROFILED * STREAM_C * hop]))
+        busy, bwall, _ = device_busy(lambda: st.push(
+            audio[4 * sr:4 * sr + STREAM_PROFILED * STREAM_C * hop]),
+            again=False)
         n_prof = (st._frames_done - f0) // STREAM_C
         check(n_prof == STREAM_PROFILED, f"{n_prof} chunks profiled")
         timing[key] = {**_pcts(times), "rtf": secs / wall,
@@ -4310,9 +4376,9 @@ def phase_stream(dev, corpus, alphabet, ctc_dir, random_dir, conformer_dir,
             t0 = time.perf_counter()
             check(len(srv.step()) == S, "a tick without every slot")
             times.append((time.perf_counter() - t0) * 1e3)
-        busy, bwall = device_busy(lambda: [
+        busy, bwall, _ = device_busy(lambda: [
             check(len(srv.step()) == S, "a profiled tick without every slot")
-            for _ in range(STREAM_PROFILED)])
+            for _ in range(STREAM_PROFILED)], again=False)
         timing[f"batched_s{S}"] = {
             **_pcts(times),
             "rtf": S * chunk_s * len(times) / (sum(times) / 1e3),
@@ -4686,7 +4752,7 @@ def phase_seq2seq(dev, corpus, alphabet, d):
         check(labels.shape[0] == tb.size and bool((lens >= 0).all()),
               f"seq2seq {key}: lens {lens}")
         ms = host_ms(fn, 3)
-        busy, wall = device_busy(fn)
+        busy, wall, _ = device_busy(fn)
         timing[key] = {"host_ms": ms, "device_ms": busy,
                        "idle": 1 - busy / wall, "mean_len": lens.float()
                        .mean().item(),
@@ -4739,6 +4805,372 @@ def phase_seq2seq(dev, corpus, alphabet, d):
     return result
 
 
+# phase 15: LM fusion. The fused search on the card against the same
+# search on the CPU, relative on nll: both run the same float32 operations
+# (the fused key's multiply-adds through float64 in both) but expf, log1pf
+# and logf of nvcc's and of the CPU's libraries, and in the neural LM's
+# products float32 sums in other orders, ~1e-6 of an LM score
+LM_NLL_REL = 1e-5
+# the fusion coefficients of the card runs: the CLI's --lm_weight, and a
+# --length_bonus so that every term of the fused key is exercised
+LM_WEIGHT, LM_BONUS = 0.3, 0.2
+# the neural LM's training batch (train_neural_lm's defaults: 32
+# transcripts of up to 128 units), hidden size (init_lm_params's) and the
+# CLI's default --lm_steps
+LM_B, LM_T, LM_H, LM_STEPS = 32, 128, 160, 300
+# the rescoring pass's rows: the beam's K-best of a batch of 128, each of
+# 60 labels (5 s of read English, as the seq2seq decoder's S2S_TD)
+LM_RESCORE_T = 60
+# the CPU holds the card's searches on the batch's first rows (each row's
+# search is its own)
+LM_CPU_ROWS = 16
+# the streamed beam with and without the LM, in turns (A, B, B, A), each
+# turn over LM_STREAM_S s of the test clips
+LM_STREAM_S = 6
+
+
+def phase_lm(dev, corpus, alphabet, d):
+    """15. LM fusion at the flagship's width: `--mode predict --decoder
+    beam` through the CLI with --lm_order 2 and 3 on phase 5's BiLSTM-CTC
+    and 3 on phase 12's BPE model, --lm_type neural (300 steps of LM
+    training on the card, then reused) fused and --lm_pass rescore, each
+    run's launches exact; the fused searches (n-gram orders 2 and 3,
+    neural) on the card against the CPU on phase 3b's inputs, with host
+    ms, device busy time, idle share and device operations a batch; the
+    teacher-forced LM pass's kernels at the LM's shapes against their plain
+    versions and one LM training step kernel vs plain; the rescoring pass
+    card vs CPU; `--mode stream --decoder beam --lm_order 3` through the
+    CLI, its text equal to the offline fused search's on the streamed
+    log-probs, and its chunk times and real-time factor."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch import serving
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.data import load_manifest
+    from pg_asr_tpu_torch.decoding import beam, neural_lm
+    from pg_asr_tpu_torch.decoding.greedy import ids_to_strings
+    from pg_asr_tpu_torch.decoding.lm import lm_from_manifest
+    from pg_asr_tpu_torch.decoding.rescore import rescore_nbest
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import AdamW, value_and_grad
+
+    t_start = time.perf_counter()
+    L = Config().model.num_layers
+    trained = os.path.join(d, "trained")
+    bpe_corpus, bpe_dir = os.path.join(d, "bpe"), os.path.join(d, "bpe_model")
+    lm_dir = os.path.join(d, "lm_trained")  # the neural LM's cache lives here
+    shutil.copytree(trained, lm_dir)
+    clips = os.path.join(corpus, "clips")
+    train_utts = load_manifest(os.path.join(corpus, "train.tsv"), clips)
+    result, out_counts = {"predict": {}}, {}
+
+    def expect(**kw):
+        return {**dict.fromkeys(all_counts(), 0), **kw}
+
+    def n_beam(cdir):  # the CLI's beam batches of 128
+        return -(-len(load_manifest(os.path.join(cdir, "test.tsv"))) // 128)
+
+    # 1. --mode predict --decoder beam through the CLI
+    t_sec = time.perf_counter()
+    nb, nb_bpe = n_beam(corpus), n_beam(bpe_corpus)
+    neural = ["--lm_order", "2", "--lm_type", "neural"]
+    runs = (
+        ("ngram2", corpus, trained, ["--lm_order", "2"],
+         expect(bilstm_fwd=L * nb)),
+        ("ngram3", corpus, trained, ["--lm_order", "3"],
+         expect(bilstm_fwd=L * nb)),
+        ("bpe_ngram3", bpe_corpus, bpe_dir, ["--lm_order", "3"],
+         expect(bilstm_fwd=L * nb_bpe)),
+        ("neural_train", corpus, lm_dir, neural,
+         expect(bilstm_fwd=L * nb, lstm_fwd_residual=2 * LM_STEPS,
+                lstm_bwd=2 * LM_STEPS)),
+        ("neural_reused", corpus, lm_dir, neural, expect(bilstm_fwd=L * nb)),
+        ("neural_rescore", corpus, lm_dir, [*neural, "--lm_pass", "rescore"],
+         expect(bilstm_fwd=L * nb, ctc_beam=nb, lstm_fwd=2 * nb)))
+    for key, cdir, mdir, extra, want in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(["--mode", "predict", "--corpus_path", cdir,
+                           "--model_path", mdir, "--decoder", "beam",
+                           *extra, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        check(rc == 0 and "CER:" in out, f"lm predict {key}: rc {rc}")
+        check(counts == want, f"lm predict {key}: launches {counts}, "
+              f"expected {want}")
+        if key.startswith("neural"):
+            said = ("trained (300 steps)" if key == "neural_train"
+                    else "reused from")
+            check(f"neural LM {said}" in out, f"lm predict {key}: {out}")
+        with open(os.path.join(mdir, "predicted.txt")) as fo:
+            rows = fo.read().splitlines()
+        n_test = len(load_manifest(os.path.join(cdir, "test.tsv")))
+        check(len(rows) == n_test and all("|" in r for r in rows),
+              f"lm predict {key}: {len(rows)} rows")
+        cer = float(out.split("CER: ")[1].split()[0])
+        out_counts[f"lm_predict_{key}"] = counts
+        result["predict"][key] = {
+            "wall_s": wall, "cer": cer,
+            "nonempty": sum(bool(r.split("|", 1)[1]) for r in rows),
+            "launches": {k: v for k, v in counts.items() if v}}
+        print(f"[lm] predict --decoder beam {' '.join(extra)} ({key}): rc 0 "
+              f"in {wall:.2f} s (host clock, WAV decode included), CER "
+              f"{cer:.4f}, {result['predict'][key]['nonempty']}/{n_test} "
+              f"non-empty; launches "
+              f"{result['predict'][key]['launches']}")
+
+    predict_s = time.perf_counter() - t_sec
+
+    # 2. the fused searches at the beam's batch (B=128, T=401, A=28, K=16)
+    # on phase 3b's inputs, card vs CPU
+    lp, fl = beam_inputs(dev)
+    tabs = {o: lm_from_manifest(train_utts, alphabet, order=o)
+            for o in (2, 3)}
+    nlm = neural_lm.load_lm(os.path.join(lm_dir, neural_lm.LM_FILE),
+                            alphabet.size, device=dev)
+    result["fused"], searches = {}, {}
+    rows = slice(0, LM_CPU_ROWS)
+    t_sec = time.perf_counter()
+    for key, kw in (("ngram2", {"lm": tabs[2]}), ("ngram3", {"lm": tabs[3]}),
+                    ("neural", {"neural_lm": nlm})):
+        def search(x=lp, f=fl, kw=kw):
+            return beam.beam_decode(x, f, beam_size=BEAM_K,
+                                    lm_weight=LM_WEIGHT,
+                                    length_bonus=LM_BONUS, **kw)
+
+        reset_counts()
+        got = search()
+        torch.cuda.synchronize()
+        counts = all_counts()
+        check(counts == expect(), f"fused {key}: launches {counts}")
+        t0 = time.perf_counter()
+        want = search(lp[rows].cpu(), fl[rows].cpu())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same = [torch.equal(g[rows].cpu(), w)
+                for g, w in zip(got[:2], want[:2])]
+        rel = ((got[2][rows].cpu() - want[2]).abs()
+               / want[2].abs().clamp(min=1)).max().item()
+        check(all(same) and rel <= LM_NLL_REL,
+              f"fused {key}: card vs CPU labels/lens equal {same}, nll rel "
+              f"{rel} (bound {LM_NLL_REL})")
+        searches[key] = search
+        # the whole batch in one trace (phase 15's first call warmed it)
+        busy, _, ops = device_busy(search)
+        result["fused"][key] = {
+            "device_busy_ms": busy, "device_ops": ops,
+            "ops_per_frame": ops / T, "cpu_ms_rows": cpu_ms,
+            "nll_rel_err": rel, "mean_len": got[1].float().mean().item()}
+        print(f"[lm] fused {key} B={BEAM_B} T={T} A={BEAM_A} K={BEAM_K} "
+              f"(phase 3b's inputs, lm_weight {LM_WEIGHT}, length_bonus "
+              f"{LM_BONUS}; mean length {got[1].float().mean():.1f}): no "
+              f"kernel launch; rows 0-{LM_CPU_ROWS - 1} equal to the CPU's "
+              f"(labels, lens), nll rel err {rel:.2e} (bound "
+              f"{LM_NLL_REL:.0e}); device busy {busy:.1f} ms and {ops} "
+              f"device operations a batch ({ops / T:.1f} a frame), one "
+              f"profiler trace of the whole batch; the CPU's {LM_CPU_ROWS} "
+              f"rows {cpu_ms:.0f} ms")
+    # host ms a batch, one call each in turns (order 2, 3, neural, neural,
+    # 3, 2): the host's clock, which other tenants of the machine move
+    times = {k: [] for k in searches}
+    for key in [*searches, *reversed(searches)]:
+        t0 = time.perf_counter()
+        searches[key]()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+    for key, r in result["fused"].items():
+        r["host_ms"] = sum(times[key]) / 2
+        r["host_ms_turns"] = times[key]
+        r["idle"] = 1 - r["device_busy_ms"] / r["host_ms"]
+        print(f"[lm] fused {key}: {r['host_ms']:.1f} ms host a batch (turns "
+              f"{times[key][0]:.1f}, {times[key][1]:.1f}), "
+              f"{r['idle']:.0%} idle")
+    result["section_s"] = {"predict": predict_s,
+                           "fused": time.perf_counter() - t_sec}
+
+    # 3. the teacher-forced LM pass: the kernels at the LM's shapes against
+    # their plain versions (phase 3's bounds), then one LM training step
+    t_sec = time.perf_counter()
+    g_ = torch.Generator().manual_seed(SEED)
+    result["lstm_cases"] = [
+        lstm_shape_case(dev, torch.float32, LM_H, torch.full((rows, ), t),
+                        g_, "lm", note)
+        for rows, t, note in (
+            (LM_B, LM_T, "(the LM's training batch)"),
+            (BEAM_B * BEAM_K, LM_RESCORE_T, "(the rescoring pass's rows)"))]
+    # the first batch train_neural_lm draws: 32 transcripts, padded to the
+    # longest of the split
+    enc = [alphabet.encode(u.text)[:LM_T] for u in train_utts if u.text]
+    pick = np.random.default_rng(0).integers(0, len(enc), LM_B)
+    ids = torch.zeros(LM_B, max(map(len, enc)), dtype=torch.long)
+    for i, j in enumerate(pick):
+        ids[i, :len(enc[j])] = torch.tensor(enc[j])
+    lens = torch.tensor([len(enc[j]) for j in pick])
+    ids, lens = ids.to(dev), lens.to(dev)
+
+    def lm_loss(p, use_kernel=True):
+        return (-neural_lm.lm_sequence_logp(p, ids, lens, use_kernel).sum()
+                / lens.sum().clamp(min=1))
+
+    reset_counts()
+    loss_k, g_k = value_and_grad(lm_loss, nlm)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts == expect(lstm_fwd_residual=2, lstm_bwd=2),
+          f"LM step: launches {counts}")
+    loss_p, g_p = value_and_grad(lambda p: lm_loss(p, False), nlm)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = {k: ((g_k[k] - g_p[k]).abs().max()
+                    / g_p[k].abs().max().clamp(min=1e-30)).item()
+                for k in g_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(math.isfinite(loss_k.item()) and loss_rel <= TRAIN_LOSS_REL
+          and all(v <= TRAIN_GRAD_REL for v in grad_rel.values()),
+          f"LM step kernel vs plain: loss rel {loss_rel}, gradients "
+          f"{grad_rel}")
+    p_step = {k: v.clone() for k, v in nlm.items()}
+    opt = AdamW(Config().replace(train=dataclasses.replace(
+        Config().train, grad_clip=math.inf)), p_step, learning_rate=3e-3,
+        weight_decay=0.0)
+
+    def lm_step(use_kernel=True):
+        _, grads = value_and_grad(lambda p: lm_loss(p, use_kernel), p_step)
+        opt.update(p_step, grads)
+
+    step_ms = time_ms(lm_step, 5)
+    step_plain_ms = time_ms(lambda: lm_step(False), 2)
+    busy, wall, _ = device_busy(lm_step)
+    result["train_step"] = {
+        "loss_rel": loss_rel, "grad_rel_worst": grad_rel[worst],
+        "ms": step_ms, "plain_ms": step_plain_ms, "device_busy_ms": busy,
+        "idle": 1 - busy / wall, "T": int(ids.shape[1])}
+    print(f"[lm] one LM training step (B={LM_B}, T={ids.shape[1]}, embed "
+          f"48, hidden {LM_H}, 2 layers), kernel vs plain path: loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {loss_rel:.2e}, "
+          f"bound {TRAIN_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+          f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+          f"{TRAIN_GRAD_REL:.0e}); the step (with Adam) {step_ms:.2f} ms "
+          f"(plain recurrence {step_plain_ms:.2f} ms), device busy "
+          f"{busy:.2f} of {wall:.2f} ms")
+
+    result["section_s"]["teacher_forced"] = time.perf_counter() - t_sec
+
+    # 4. the rescoring pass on phase 3b's inputs, the kernels against the
+    # plain path (the plain beam and recurrence) on the card, all B rows
+    t_sec = time.perf_counter()
+
+    def rescore(use_kernel=True):
+        return rescore_nbest(lp, fl, nlm, beam_size=BEAM_K,
+                             lm_weight=LM_WEIGHT, length_bonus=LM_BONUS,
+                             use_kernel=use_kernel)
+
+    reset_counts()
+    got = rescore()
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check(counts == expect(ctc_beam=1, lstm_fwd=2),
+          f"rescore: launches {counts}")
+    want = rescore(use_kernel=False)
+    check(all_counts() == counts, "rescore's plain path launched a kernel")
+    same = [torch.equal(g, w) for g, w in zip(got[:2], want[:2])]
+    rel = ((got[2] - want[2]).abs()
+           / want[2].abs().clamp(min=1)).max().item()
+    check(all(same) and rel <= LM_NLL_REL,
+          f"rescore kernels vs plain path: labels/lens equal {same}, score "
+          f"rel {rel}")
+    ms = host_ms(rescore, 3)
+    busy, wall, _ = device_busy(rescore)
+    result["rescore"] = {"host_ms": ms, "device_busy_ms": busy,
+                         "idle": 1 - busy / wall, "score_rel_err": rel,
+                         "rows_T": int(got[1].max())}
+    print(f"[lm] rescore B={BEAM_B} T={T} K={BEAM_K} (1 ctc_beam, 2 "
+          f"lstm_fwd over {BEAM_B * BEAM_K} rows of {int(got[1].max())} "
+          f"labels), kernels vs the plain path on the card: all {BEAM_B} "
+          f"rows' labels and lens equal, score rel err "
+          f"{rel:.2e}; {ms:.2f} ms host a batch, device busy {busy:.2f} of "
+          f"{wall:.2f} ms")
+
+    result["section_s"]["rescore"] = time.perf_counter() - t_sec
+
+    # 5. --mode stream --decoder beam --lm_order 3 through the CLI on the
+    # longest test clip: its text is the offline fused search's on the
+    # streamed log-probs; then chunk times with and without the LM
+    t_sec = time.perf_counter()
+    clips = stream_clips(corpus)
+    path, wave = clips[0]
+    hop, sr = Config().features.hop_length, Config().features.sample_rate
+    n_frames = len(wave) // hop + 1
+    n_chunks = -(-n_frames // STREAM_C)
+    rec = []
+    reset_counts()
+    with recorded(serving, "_ctc_log_probs", rec):
+        rc, out = run_cli(["--mode", "stream", "--corpus_path", corpus,
+                           "--model_path", trained, "--wav", path,
+                           "--decoder", "beam", "--lm_order", "3",
+                           "--device", str(dev)])
+    counts = all_counts()
+    check(rc == 0 and counts == expect(lstm_fwd=L * n_chunks),
+          f"stream --lm_order 3: rc {rc}, launches {counts}")
+    lp_s = torch.cat(rec, dim=1)[:, :n_frames]
+    labels, lens, _ = beam.beam_decode(
+        lp_s, torch.tensor([n_frames], device=dev), beam_size=8,
+        max_label_len=Config().decode.max_label_len, lm=tabs[3])
+    offline = ids_to_strings(labels, lens, alphabet)[0]
+    check(out == offline + "\n", f"stream --lm_order 3: {out!r} vs the "
+          f"offline fused search's {offline!r}")
+    out_counts["lm_stream_cli"] = counts
+    print(f"[lm] --mode stream --decoder beam --lm_order 3 on a "
+          f"{len(wave) / sr:.2f} s clip: {L * n_chunks} lstm_fwd launches "
+          f"({n_chunks} chunks), text equal to the offline fused search on "
+          f"the streamed log-probs ({len(offline)} characters)")
+    params, cfg = load_model(trained, alphabet, device=dev)
+    audio = np.concatenate([w for _, w in clips])[:LM_STREAM_S * sr]
+    kws = {"beam_k8": {}, "beam_k8_lm3": {"lm": tabs[3]}}
+    sts = {k: serving.StreamingTranscriber(params, cfg, alphabet, device=dev,
+                                           decoder="beam", beam_size=8, **kw)
+           for k, kw in kws.items()}
+    for st in sts.values():  # warm-up
+        chunk_times(st, audio[:sr], sr // 10)
+    times, walls = {k: [] for k in sts}, {k: 0.0 for k in sts}
+    for key in [*sts, *reversed(sts)]:
+        sts[key].reset()
+        _, t_, w_ = chunk_times(sts[key], audio, sr // 10)
+        times[key] += t_
+        walls[key] += w_
+    timing = {}
+    for key, st in sts.items():
+        st.reset()
+        st.push(audio[:2 * sr])
+        f0 = st._frames_done
+        busy, bwall, _ = device_busy(lambda: st.push(
+            audio[2 * sr:2 * sr + STREAM_PROFILED * STREAM_C * hop]),
+            again=False)
+        n_prof = (st._frames_done - f0) // STREAM_C
+        check(n_prof == STREAM_PROFILED, f"{n_prof} chunks profiled")
+        timing[key] = {**_pcts(times[key]),
+                       "rtf": 2 * len(audio) / sr / walls[key],
+                       "device_busy_ms_per_chunk": busy / n_prof,
+                       "idle_share": 1 - busy / bwall}
+        t = timing[key]
+        print(f"[lm] stream {key} C={STREAM_C} R={STREAM_R}, two turns of "
+              f"{len(audio) / sr:.1f} s (in turns with the other): chunk "
+              f"p50 {t['p50_ms']:.2f} ms p95 {t['p95_ms']:.2f} ms (host "
+              f"clock, {t['n']} chunks), real-time factor {t['rtf']:.1f}; "
+              f"device busy {t['device_busy_ms_per_chunk']:.3f} ms a chunk, "
+              f"idle share {t['idle_share']:.3f}")
+    result["stream"] = {"text": out.rstrip("\n"), "chunks": n_chunks,
+                        "timing": timing}
+    result["section_s"]["stream"] = time.perf_counter() - t_sec
+    result["wall_s"] = time.perf_counter() - t_start
+    print(f"[lm] phase 15 wall time {result['wall_s']:.1f} s (sections, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in result["section_s"].items())
+          + ")")
+    return {"launches": out_counts, **result}
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -4777,39 +5209,19 @@ def device_breakdown(fn, reps: int = 3, groups=ATTENTION_GROUPS,
                      classify=attention_group) -> dict:
     """Kernel time per call of fn on the card, by group (`classify` maps a
     kernel's name to one of `groups`), from a torch.profiler trace of `reps`
-    calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    calls after one untimed."""
+    records, _ = device_trace(fn, reps)
     out = dict.fromkeys(groups, 0.0)
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        out[classify(e.key.lower())] += e.self_device_time_total / 1e3 / reps
+    for name, ms in records:
+        out[classify(name.lower())] += ms / reps
     check(sum(out.values()) > 0, "the profiler saw no kernel time")
     return out
 
 
 def device_ops(fn) -> int:
     """Device operations (kernel launches and copies) of one call of fn,
-    counted by torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if getattr(e, "device_type", None)
-               == torch.autograd.DeviceType.CUDA)
+    counted by torch.profiler after one untimed call."""
+    return len(device_trace(fn)[0])
 
 
 def host_ms(fn, reps: int) -> float:
@@ -5081,6 +5493,7 @@ def main() -> int:
                               os.path.join(d, "bpe"),
                               os.path.join(d, "bpe_model"))
         s2s = phase_seq2seq(dev, corpus, alphabet, d)
+        lm = phase_lm(dev, corpus, alphabet, d)
 
     import torch
 
@@ -5093,14 +5506,16 @@ def main() -> int:
     print(json.dumps({"corpus_tools": tools}))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"seq2seq": s2s}))
+    print(json.dumps({"lm": lm}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the PG, recipe, corpus-tool, streaming and seq2seq
-        row["launches_by_path"].update(  # paths
+    for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq
+        row["launches_by_path"].update(  # and LM paths
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
-              **stream["launches"], **s2s["launches"]}.items()})
+              **stream["launches"], **s2s["launches"],
+              **lm["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):
@@ -5112,6 +5527,8 @@ def main() -> int:
             # the seq2seq decoder's teacher-forced pass under autograd
             row["launches"] = s2s["launches"]["seq2seq_train"][row["name"]]
             row["cases_seq2seq"] = s2s["lstm_cases"]
+        if row["name"] in ("lstm_fwd", "lstm_fwd_residual", "lstm_bwd"):
+            row["cases_lm"] = lm["lstm_cases"]  # the LM's shapes
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,13 +20,17 @@ units with the native segmenter, ``data/``), ``--mode align``
 (``alignment.py``, ``ops/align.py``), ``--mode pseudolabel``
 (``selftrain.py``) and ``--timestamps``; streaming transcription
 (``serving.py``, ``--mode stream``: single streams and S streams in
-lockstep); and the JAX package's flax ``.ckpt`` model directories, read
-without flax or msgpack (``checkpoint.read_flax_checkpoint``). Their CPU tests hold each against
-the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phases 12
-and 13 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
+lockstep); LM fusion into the CTC beam (``--lm_order``: an n-gram table,
+``decoding/lm.py``, or an LSTM LM, ``decoding/neural_lm.py``, fused in
+the search, offline and streamed, or re-ranking the n-best,
+``decoding/rescore.py``); and the JAX package's flax ``.ckpt`` model
+directories and neural LMs, read without flax or msgpack
+(``checkpoint.read_flax_checkpoint``). Their CPU tests hold each against
+the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phases 12,
+13 and 15 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction, as for
-the seq2seq decoder's teacher-forced pass, or, for
+the seq2seq decoder's and the neural LM's teacher-forced passes, or, for
 ``bilstm_layer(fuse_directions=True)``, both directions of a layer at
 once), as do the CTC beam
 search (``csrc/ctc_beam.cu``), with ``flash_attention`` the attention

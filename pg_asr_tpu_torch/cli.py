@@ -15,6 +15,8 @@
         [--init_from_torch model_best.pth [--trust_torch_pickle]]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
+        [--lm_order 2|3 [--lm_type ngram|neural] [--lm_pass fused|rescore] \\
+        [--lm_weight W] [--lm_steps N] [--length_bonus X]] \\
         [--batch_size N] [--dtype ...] [--ckpt best|last|avg] [--device ...]
     python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
@@ -31,7 +33,8 @@
     python -m pg_asr_tpu_torch --mode stream --corpus_path C --model_path M \\
         --wav F [--chunk_frames 64] [--right_context 32] \\
         [--left_context 512] [--block_ms 100] [--decoder greedy|beam] \\
-        [--beam_size 8] [--timestamps] [--device ...]
+        [--beam_size 8] [--lm_order 2|3 [--lm_weight W] \\
+        [--length_bonus X]] [--timestamps] [--device ...]
 
 The parser declares every flag of the JAX CLI, with its default, so that
 argparse resolves a flag, or a prefix of one, as the JAX CLI does;
@@ -40,8 +43,7 @@ on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Modes and options of the JAX CLI that are not ported
 yet exit with a message that says so and names their ROADMAP.md item: the
 MoE model, ``--mode export`` and its ``--export_*`` flags,
-LM fusion (``--lm_order`` and the other ``--lm_*`` flags,
-``--length_bonus``), ``--mesh``, ``--microbatches``, ``--moe_experts``,
+``--mesh``, ``--microbatches``, ``--moe_experts``,
 ``--capacity_factor``, ``--max_restarts``, ``--fault_step`` and
 ``--debug_nans``.
 ``--mode preproc`` does no tensor work and ignores ``--device``, as the
@@ -52,7 +54,10 @@ and ``flash_attention`` from the model's config.json, as the JAX CLI does;
 for a transducer ``--decoder beam`` is its RNN-T beam search and for the
 seq2seq family its decoder's beam search (width ``--beam_size``, default
 ``decode.beam_size``, over ``decode.max_label_len`` steps; ``--beam_prune``
-is ignored, as in the JAX CLI); ``--mode stream``, ``align``,
+is ignored, as in the JAX CLI). ``--lm_order`` fuses an LM trained on the
+corpus's train.tsv into the CTC beam of ``--mode predict`` (n-gram or
+``--lm_type neural``, fused or ``--lm_pass rescore``) and of ``--mode
+stream`` (n-gram); ``--mode stream``, ``align``,
 ``pseudolabel``, ``--timestamps`` and ``--lm_order`` refuse the seq2seq
 family with the JAX CLI's errors. A train run that resumes takes the
 family and its config
@@ -214,7 +219,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "it")
     p.add_argument("--ckpt", type=str, default="best",
                    choices=("best", "last", "avg"))
-    p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3])
+    p.add_argument("--lm_order", type=int, default=0, choices=[0, 2, 3],
+                   help="predict / stream with --decoder beam: shallow-fuse "
+                        "an n-gram LM of this order, trained on the "
+                        "corpus's train.tsv, into the beam ranking; 0 = "
+                        "off")
+    p.add_argument("--lm_weight", type=float, default=0.3,
+                   help="LM fusion weight")
+    p.add_argument("--lm_type", type=str, default="ngram",
+                   choices=["ngram", "neural"],
+                   help="predict: the fused LM, an add-k n-gram table or "
+                        "a small LSTM LM with beam-carried states (needs "
+                        "--lm_order != 0; trained on the device, cached at "
+                        "model_path/lm_neural.pt)")
+    p.add_argument("--lm_steps", type=int, default=300,
+                   help="predict: neural-LM training steps (--lm_type "
+                        "neural)")
+    p.add_argument("--lm_pass", type=str, default="fused",
+                   choices=("fused", "rescore"),
+                   help="predict with --lm_type neural: fuse the LM in the "
+                        "beam search, or re-rank the exact K-best with one "
+                        "batched LM pass")
+    p.add_argument("--length_bonus", type=float, default=0.0,
+                   help="LM fusion bonus per emitted unit")
     p.add_argument("--timestamps", action="store_true",
                    help="predict: also write timestamps.jsonl with per-word "
                         "[start, end] times (CTC emission peaks, seconds) "
@@ -267,18 +294,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stream: audio push block size in milliseconds")
     # not ported: each non-default value exits with a message
     # (_refuse_unported_flags)
-    p.add_argument("--lm_weight", type=float, default=0.3,
-                   help="LM fusion weight (not ported)")
-    p.add_argument("--lm_type", type=str, default="ngram",
-                   choices=["ngram", "neural"],
-                   help="fusion LM flavor (not ported)")
-    p.add_argument("--lm_steps", type=int, default=300,
-                   help="neural-LM training steps (not ported)")
-    p.add_argument("--lm_pass", type=str, default="fused",
-                   choices=("fused", "rescore"),
-                   help="neural LM fused or rescoring (not ported)")
-    p.add_argument("--length_bonus", type=float, default=0.0,
-                   help="LM fusion length bonus (not ported)")
     p.add_argument("--export_batch", type=int, default=8,
                    help="export: static batch size (not ported)")
     p.add_argument("--export_seconds", type=float, default=20.0,
@@ -301,9 +316,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # the JAX CLI's flags that are not ported -> what each belongs to
 _UNPORTED_FLAGS = {
-    "lm_weight": "LM fusion, item 11", "lm_type": "LM fusion, item 11",
-    "lm_steps": "LM fusion, item 11", "lm_pass": "LM fusion, item 11",
-    "length_bonus": "LM fusion, item 11",
     "export_batch": "export, item 14", "export_seconds": "export, item 14",
     "export_platforms": "export, item 14",
     "export_quantize": "export, item 14",
@@ -484,10 +496,11 @@ def stream(args, device) -> None:
 
     import numpy as np
 
-    from . import not_ported
+    from .data import load_manifest
     from .data.audio import load_audio
     from .data.bpe import load_tokenizer
     from .data.dataset import _resample_linear
+    from .decoding.lm import lm_from_manifest
     from .data.native_io import native_available
     from .predict import load_model, model_config
     from .serving import StreamingTranscriber
@@ -497,20 +510,26 @@ def stream(args, device) -> None:
     if not args.corpus_path:
         raise SystemExit("--mode stream needs --corpus_path (for the "
                          "tokenizer artifacts)")
-    if args.lm_order:
-        raise not_ported("--lm_order (LM fusion, item 11 of ROADMAP.md "
-                         "queue 1)")
     cfg = model_config(args.model_path)
     alphabet = load_tokenizer(args.corpus_path, cfg.text.units)
     params, cfg = load_model(args.model_path, alphabet, cfg, device=device,
                              dtype=args.dtype)
+    lm_tab = None
+    if args.lm_order:
+        # the table the offline --decoder beam fuses, from the train split
+        lm_tab = lm_from_manifest(
+            load_manifest(os.path.join(args.corpus_path, "train.tsv"),
+                          os.path.join(args.corpus_path, "clips")),
+            alphabet, order=args.lm_order)
     st = StreamingTranscriber(params, cfg, alphabet,
                               chunk_frames=args.chunk_frames,
                               right_context=args.right_context,
                               left_context=args.left_context,
                               timestamps=args.timestamps,
                               decoder=args.decoder,
-                              beam_size=args.beam_size or 8, device=device)
+                              beam_size=args.beam_size or 8, lm=lm_tab,
+                              lm_weight=args.lm_weight,
+                              length_bonus=args.length_bonus, device=device)
     wave, sr = load_audio(args.wav)
     rate = cfg.features.sample_rate
     if sr != rate:
@@ -621,7 +640,12 @@ def main(argv=None) -> int:
                 batch_size=bs, decoder=args.decoder, which_ckpt=args.ckpt,
                 device=str(device), dtype=args.dtype,
                 beam_size=args.beam_size, beam_prune=args.beam_prune,
-                lm_order=args.lm_order, timestamps=args.timestamps)
+                lm_order=args.lm_order, lm_weight=args.lm_weight,
+                length_bonus=args.length_bonus,
+                lm_train_tsv=(os.path.join(corpus, "train.tsv")
+                              if (args.lm_order and corpus) else None),
+                lm_type=args.lm_type, lm_steps=args.lm_steps,
+                lm_pass=args.lm_pass, timestamps=args.timestamps)
     except (NotImplementedError, ValueError, FileNotFoundError) as e:
         raise SystemExit(str(e)) from None
     return 0

@@ -17,6 +17,10 @@ direction is a renaming and exact:
                "dec_lstm": {"W", "U", "b"}, "output": {"w", "b"}}
                <-> ``encoder.lstm.{i}.fwd.W``, ``embed``, ``dec_lstm.U``,
                ``output.w``, ...
+  neural LM    {"embed", "layers": [{"W", "U", "b"}, ...], "head": {"w",
+               "b"}} (pg_asr_tpu/decoding/neural_lm.py)
+               <-> ``embed``, ``layers.{i}.W``, ``head.w``, ...
+               (decoding/neural_lm.py)
 """
 
 from __future__ import annotations

@@ -38,14 +38,25 @@ the plain version matches the JAX hash scan to an ulp per operation.
 The JAX functions are per utterance under ``vmap``; here the batch axis is
 written out: every state tensor leads with B, backpointers are time-major
 (T, B, K) as the Pallas kernel writes them.
+
+Shallow fusion (``lm=`` an n-gram table of decoding/lm.py, or
+``neural_lm=`` the LSTM LM of decoding/neural_lm.py; hash impl only):
+candidates rank by acoustic + lm_weight * log P_lm + length_bonus * len
+while the carried (p_b, p_nb) stay acoustic, and the extends run over the
+whole vocabulary (the top-M dominance argument holds for the acoustic key
+only), so ``prune`` does not apply and the search never goes to the
+kernel, which has no LM term. It is plain PyTorch on any device
+(``_scan_hash_lm``), as the JAX package's is XLA; ``_step_lm_buffer`` is
+its prefix-buffer form, which streams (serving.py).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .. import not_ported
 from . import cuda_beam
+from .neural_lm import lm_advance, lm_init_state, lm_next_logp
 
 NEG = -1.0e30
 # above this candidate count rank_topk's O(C^2) compare costs more than the
@@ -102,6 +113,37 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long())
 
 
+def _extends(sym, sym_lp, last, lens, p_b, total, valid, *, Lmax: int,
+             blank: int) -> torch.Tensor:
+    """Extend candidates (B, K, M): slot k + the symbol sym[..., m] of
+    log-prob sym_lp[..., m], from p_b where the symbol repeats the slot's
+    last (the CTC repeat rule) and from the total otherwise; blank, dead
+    slots and full prefixes NEG."""
+    src = torch.where(sym == last[..., None], p_b[..., None],
+                      total[..., None])
+    ext = src + sym_lp
+    ext = torch.where(sym == blank, NEG, ext)
+    ext = torch.where(valid[..., None], ext, NEG)
+    return torch.where((lens >= Lmax)[..., None], NEG, ext)
+
+
+def _hash_merge(h, last, lens, valid, p_b, total, lp_last, stay_pnb):
+    """Extends that reproduce another slot's prefix fold their mass into
+    that slot's stay: E[b, j, k] = prefix_j == prefix_k + (last_j,), by
+    hash; the mass of extend (k, last_j) is p_b_k where last_j == last_k,
+    else the total. -> (E, stay_pnb with the merged mass)."""
+    h_ext = (h[:, None, :] * _HASH_M
+             + (last.clamp(min=0) + 1)[:, :, None]) & _MASK32      # (B, j, k)
+    E = ((h[:, :, None] == h_ext)
+         & (lens[:, :, None] == lens[:, None, :] + 1)
+         & valid[:, :, None] & valid[:, None, :] & (last[:, :, None] >= 0))
+    C_src = torch.where(last[:, :, None] == last[:, None, :], p_b[:, None, :],
+                        total[:, None, :])
+    C = torch.where(E, C_src + lp_last[:, :, None], NEG)
+    merged = torch.where(E.any(-1), _logsumexp(C, -1), NEG)
+    return E, _lae(stay_pnb, merged.clamp(min=NEG))
+
+
 # ---------------------------------------------------------------------------
 # impl="buffer": explicit (K, Lmax) prefix buffers (the structural oracle)
 # ---------------------------------------------------------------------------
@@ -123,12 +165,8 @@ def _step(state, lp, *, K: int, A: int, Lmax: int, blank: int):
                            p_nb + _take(lp, last.clamp(min=0)), NEG)
 
     syms = torch.arange(A, device=lp.device)
-    is_last = syms == last[..., None]                              # (B, K, A)
-    src = torch.where(is_last, p_b[..., None], total[..., None])
-    ext = src + lp[:, None, :]
-    ext = torch.where(syms == blank, NEG, ext)
-    ext = torch.where(valid[..., None], ext, NEG)
-    ext = torch.where((lens >= Lmax)[..., None], NEG, ext)
+    ext = _extends(syms, lp[:, None, :], last, lens, p_b, total, valid,
+                   Lmax=Lmax, blank=blank)                         # (B, K, A)
 
     # E[b, j, k] = prefix_j == prefix_k + (last_j,)
     pos = torch.arange(Lmax, device=lp.device)
@@ -225,24 +263,10 @@ def _step_hash(state, lp, top_lp, top_sym, *, K: int, M: int, Lmax: int,
     stay_pb = torch.where(valid, total + lp[:, blank, None], NEG)
     stay_pnb = torch.where(valid & (last >= 0), p_nb + lp_last, NEG)
 
-    is_last = top_sym[:, None, :] == last[..., None]               # (B, K, M)
-    src = torch.where(is_last, p_b[..., None], total[..., None])
-    ext = src + top_lp[:, None, :]
-    ext = torch.where(top_sym[:, None, :] == blank, NEG, ext)
-    ext = torch.where(valid[..., None], ext, NEG)
-    ext = torch.where((lens >= Lmax)[..., None], NEG, ext)
-
-    # E[b, j, k] = prefix_j == prefix_k + (last_j,), by hash
-    h_ext = (h[:, None, :] * _HASH_M
-             + (last.clamp(min=0) + 1)[:, :, None]) & _MASK32      # (B, j, k)
-    E = ((h[:, :, None] == h_ext)
-         & (lens[:, :, None] == lens[:, None, :] + 1)
-         & valid[:, :, None] & valid[:, None, :] & (last[:, :, None] >= 0))
-    C_src = torch.where(last[:, :, None] == last[:, None, :], p_b[:, None, :],
-                        total[:, None, :])
-    C = torch.where(E, C_src + lp_last[:, :, None], NEG)
-    merged = torch.where(E.any(-1), _logsumexp(C, -1), NEG)
-    stay_pnb = _lae(stay_pnb, merged.clamp(min=NEG))
+    ext = _extends(top_sym[:, None, :], top_lp[:, None, :], last, lens, p_b,
+                   total, valid, Lmax=Lmax, blank=blank)           # (B, K, M)
+    E, stay_pnb = _hash_merge(h, last, lens, valid, p_b, total, lp_last,
+                              stay_pnb)
     # kill[b, k, r] = exists j: E[b, j, k] & last_j == top_sym[r]
     kill = (E[..., None] & (last[:, :, None, None]
                             == top_sym[:, None, None, :])).any(1)
@@ -333,6 +357,194 @@ def _backtrack_batch(parents, syms, lens, scores, Lmax: int):
     return labels, _take(lens, best)[:, 0], -_take(scores, best)[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# LM shallow fusion (impl="hash"): pg_asr_tpu/decoding/beam.py
+# _step_hash_lm, _step_lm_buffer, lm_context_scores, _decode_one_hash_lm and
+# _decode_one_hash_nlm, batched. Plain PyTorch on every device.
+# ---------------------------------------------------------------------------
+
+
+def fused_score(ac, lm, length, lam: float, beta: float) -> torch.Tensor:
+    """The fused ranking key ac + lam * lm + beta * length in float32, the
+    one place the port computes it (the fused search, its best slot and
+    rescoring). The JAX package's CPU build contracts the expression into
+    two fused multiply-adds, each rounding the exact sum once to float32;
+    here each sum is taken in float64 (the products of float32 values are
+    exact there) and then rounded to float32, which matches except in rare
+    double-rounding cases. lam and beta come from
+    ``fusion_coefficients``."""
+    f = (ac.double() + lam * lm.double()).float()
+    return (f.double() + beta * length.double()).float()
+
+
+def fusion_coefficients(lm_weight, length_bonus) -> tuple[float, float]:
+    """(lam, beta) for ``fused_score``: lm_weight and length_bonus rounded
+    to float32, as the JAX package passes them."""
+    return float(np.float32(lm_weight)), float(np.float32(length_bonus))
+
+
+def lm_context_scores(lm_tab: torch.Tensor, last: torch.Tensor,
+                      last2: torch.Tensor) -> torch.Tensor:
+    """(..., A) log P_lm(next | context) rows of an n-gram table for the
+    carried beam contexts (ctx = max(last, 0); row / plane 0 is BOS, which
+    the blank id 0 doubles as). A row gather: the JAX package's one-hot
+    product has one nonzero term, and the table is finite, so its bits are
+    the row's."""
+    A = lm_tab.shape[-1]
+    ctx = last.clamp(min=0)
+    if lm_tab.dim() == 3:
+        ctx = last2.clamp(min=0) * A + ctx
+    return lm_tab.reshape(-1, A)[ctx.long()]
+
+
+def _step_hash_lm(state, lp, lmn, *, K: int, A: int, Lmax: int, blank: int,
+                  lam: float, beta: float):
+    """One LM-fused frame for the batch, carrying (hash, last, last2, lens,
+    p_b, p_nb, lm), all (B, K); lp (B, A); lmn (B, K, A) log P_lm(symbol |
+    beam context). Candidates rank by ``fused_score``; the carried masses
+    stay acoustic, and an extend that reproduces another slot's prefix
+    merges into it as in ``_step_hash`` (the LM's product decomposition
+    gives both the same LM score). -> (new_state, (parent, sym))."""
+    h, last, last2, lens, p_b, p_nb, lm = state
+    B = lp.shape[0]
+    total = _lae(p_b, p_nb)
+    valid = total > NEG / 2
+    lp_last = _take(lp, last.clamp(min=0))
+
+    stay_pb = torch.where(valid, total + lp[:, blank, None], NEG)
+    stay_pnb = torch.where(valid & (last >= 0), p_nb + lp_last, NEG)
+
+    syms = torch.arange(A, device=lp.device)
+    ext = _extends(syms, lp[:, None, :], last, lens, p_b, total, valid,
+                   Lmax=Lmax, blank=blank)                         # (B, K, A)
+    E, stay_pnb = _hash_merge(h, last, lens, valid, p_b, total, lp_last,
+                              stay_pnb)
+    # kill[b, k, s] = exists j: E[b, j, k] & last_j == s, as _step's
+    onehot_last = (syms == last[..., None]) & (last >= 0)[..., None]
+    kill = (E.transpose(1, 2).float() @ onehot_last.float()) > 0  # (B, K, A)
+    ext = torch.where(kill, NEG, ext)
+
+    # top-K by the fused key over K stays + K*A extends
+    cand_ac = torch.cat([_lae(stay_pb, stay_pnb), ext.reshape(B, K * A)], 1)
+    cand_lm = torch.cat([lm, (lm[..., None] + lmn).reshape(B, K * A)], 1)
+    cand_len = torch.cat([lens, (lens + 1)[..., None].expand(B, K, A)
+                          .reshape(B, K * A)], 1)
+    fused = fused_score(cand_ac, cand_lm, cand_len, lam, beta)
+    fused = torch.where(cand_ac <= NEG / 2, NEG, fused)
+    _, top_idx = _top_k(fused, K)
+    is_stay = top_idx < K
+    parent = torch.where(is_stay, top_idx, (top_idx - K) // A)
+    sym = torch.where(is_stay, -1, (top_idx - K) % A)
+    # the selected masses: the JAX package's one-hot products have one
+    # nonzero term each, so they are these gathers' bits
+    ac_sel = _take(cand_ac, top_idx)
+    lm_sel = _take(cand_lm, top_idx)
+
+    par_h = _take(h, parent)
+    new_h = torch.where(is_stay, par_h,
+                        (par_h * _HASH_M + (sym.clamp(min=0) + 1)) & _MASK32)
+    par_last = _take(last, parent)
+    new_last = torch.where(is_stay, par_last, sym)
+    new_last2 = torch.where(is_stay, _take(last2, parent), par_last)
+    new_lens = _take(lens, parent) + (~is_stay).to(lens.dtype)
+    new_pb = torch.where(is_stay, _take(stay_pb, parent), NEG)
+    new_pnb = torch.where(is_stay, _take(stay_pnb, parent), ac_sel)
+    dead = ac_sel <= NEG / 2
+    new_state = (new_h.masked_fill(dead, 0), new_last.masked_fill(dead, -1),
+                 new_last2.masked_fill(dead, -1), new_lens.masked_fill(dead, 0),
+                 new_pb.masked_fill(dead, NEG), new_pnb.masked_fill(dead, NEG),
+                 lm_sel.masked_fill(dead, 0.0))
+    return new_state, (parent, sym)
+
+
+def _lm_state0(B: int, K: int, device):
+    """The empty LM-fused beam: (hash, last, last2, lens, p_b, p_nb, lm)."""
+    def full(v, dtype=torch.int64):
+        return torch.full((B, K), v, dtype=dtype, device=device)
+
+    return (full(0), full(-1), full(-1), full(0), _init_pb(B, K, device),
+            full(NEG, torch.float32), full(0.0, torch.float32))
+
+
+def _step_lm_buffer(state, lp, lmn, *, K: int, A: int, Lmax: int,
+                    blank: int, lam: float, beta: float):
+    """``_step_hash_lm`` carrying the (B, K, Lmax) prefix buffers in place of
+    backpointer records (which grow with T and cannot stream): the streamed
+    LM beam's step (serving.py). state: (prefixes (B, K, Lmax), hash, last,
+    last2, lens, p_b, p_nb, lm)."""
+    prefixes = state[0]
+    new, (parent, sym) = _step_hash_lm(state[1:], lp, lmn, K=K, A=A,
+                                       Lmax=Lmax, blank=blank, lam=lam,
+                                       beta=beta)
+    B = lp.shape[0]
+    new_prefixes = torch.gather(prefixes, 1,
+                                parent[..., None].expand(B, K, Lmax))
+    old_lens = _take(state[4], parent)
+    pos = torch.arange(Lmax, device=lp.device)
+    write = (pos == old_lens[..., None]) & (sym >= 0)[..., None]
+    new_prefixes = torch.where(write, sym.clamp(min=0)[..., None].to(
+        prefixes.dtype), new_prefixes)
+    new_prefixes = new_prefixes.masked_fill((new[3] == 0)[..., None], 0)
+    return (new_prefixes, *new)
+
+
+def _scan_hash_lm(log_probs, frame_lens, lam: float, beta: float, *, K: int,
+                  A: int, Lmax: int, blank: int, lm_tab=None, nlm=None):
+    """The LM-fused hash scan over the batch, an n-gram table `lm_tab` or an
+    LSTM LM `nlm`: (B, T, A) float32 log-probs -> final state and the (T, B,
+    K) backpointers. Under the neural LM each slot carries its LM state
+    (consumed [BOS, prefix...]); after selection the states follow their
+    parents and the extended slots advance by their symbol. Frames t >=
+    frame_len keep every state and record identity parents."""
+    B, T, _ = log_probs.shape
+    dev = log_probs.device
+    state = _lm_state0(B, K, dev)
+    if nlm is not None:
+        lm_state = lm_init_state(nlm, B * K)
+        Lyr, _, _, H = lm_state.shape
+        lm_state = lm_state.view(Lyr, 2, B, K, H)
+    idk = torch.arange(K, device=dev).expand(B, K)
+    parents = torch.empty(T, B, K, dtype=torch.int32, device=dev)
+    syms = torch.empty(T, B, K, dtype=torch.int32, device=dev)
+    frame_lens = frame_lens.to(dev)
+    for t in range(T):
+        if nlm is None:
+            lmn = lm_context_scores(lm_tab, state[1], state[2])
+        else:
+            lmn = lm_next_logp(nlm, lm_state.view(Lyr, 2, B * K, H)).view(
+                B, K, A)
+        new, (parent, sym) = _step_hash_lm(state, log_probs[:, t], lmn, K=K,
+                                           A=A, Lmax=Lmax, blank=blank,
+                                           lam=lam, beta=beta)
+        active = (t < frame_lens)[:, None]
+        state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
+        if nlm is not None:
+            sel = torch.gather(lm_state, 3, parent[None, None, :, :, None]
+                               .expand(Lyr, 2, B, K, H))
+            adv = lm_advance(nlm, sel.view(Lyr, 2, B * K, H),
+                             sym.clamp(min=0).view(-1)).view(Lyr, 2, B, K, H)
+            moved = torch.where((sym >= 0)[:, :, None], adv, sel)
+            lm_state = torch.where(active[:, :, None], moved, lm_state)
+        parents[t] = torch.where(active, parent, idk)
+        syms[t] = torch.where(active, sym, -1)
+    return state, parents, syms
+
+
+def _decode_hash_lm(log_probs, frame_lens, lam: float, beta: float, *,
+                    K: int, A: int, Lmax: int, blank: int, lm_tab=None,
+                    nlm=None):
+    """The fused search's best slot by the fused key -> (labels (B, Lmax),
+    lens (B,), nll (B,) = the negative fused score)."""
+    state, parents, syms = _scan_hash_lm(log_probs, frame_lens, lam, beta,
+                                         K=K, A=A, Lmax=Lmax, blank=blank,
+                                         lm_tab=lm_tab, nlm=nlm)
+    _, _, _, lens, p_b, p_nb, lm = state
+    ac = _lae(p_b, p_nb)
+    fused = torch.where(ac <= NEG / 2, NEG,
+                        fused_score(ac, lm, lens, lam, beta))
+    return _backtrack_batch(parents, syms, lens.to(torch.int32), fused, Lmax)
+
+
 def _pad_labels(labels: torch.Tensor, max_label_len: int) -> torch.Tensor:
     Lmax = labels.shape[-1]
     if Lmax < max_label_len:
@@ -344,6 +556,7 @@ def beam_decode(log_probs: torch.Tensor, frame_lens: torch.Tensor,
                 beam_size: int = 16, max_label_len: int = 256,
                 blank: int = 0, impl: str | None = None,
                 prune: int | None = None, lm=None, neural_lm=None,
+                lm_weight: float = 0.3, length_bonus: float = 0.0,
                 use_kernel: bool = True):
     """Batched CTC prefix beam search.
 
@@ -351,12 +564,25 @@ def beam_decode(log_probs: torch.Tensor, frame_lens: torch.Tensor,
     (B,). impl: "hash" (default; the kernel on CUDA tensors unless
     ``use_kernel`` is False) or "buffer" (the oracle, plain). prune: the
     hash impl's per-frame top-M symbol cap; None keeps the exact M = K + 2.
+    lm: an (A, A) bigram or (A, A, A) trigram log-prob table
+    (decoding/lm.py; numpy or a tensor) and neural_lm: LSTM LM parameters
+    (decoding/neural_lm.py), one or neither, each moved to log_probs'
+    device: shallow fusion with lm_weight and length_bonus, whose nll is
+    the negative fused score of the best (the JAX package's rules; no
+    kernel, and no ``prune``).
     Returns labels (B, max_label_len) int32 best prefixes (0-padded), lens
     (B,) int32 and nll (B,) float32."""
-    if lm is not None or neural_lm is not None:
-        raise not_ported("LM shallow fusion of the beam search (lm, "
-                         "neural_lm)")
     impl = impl or "hash"
+    if neural_lm is not None:
+        if lm is not None:
+            raise ValueError("pass either lm (n-gram table) or neural_lm, "
+                             "not both")
+        if impl != "hash":
+            raise ValueError("neural-LM shallow fusion requires impl='hash' "
+                             f"(got {impl!r})")
+    if lm is not None and impl != "hash":
+        raise ValueError("LM shallow fusion requires impl='hash' "
+                         f"(got {impl!r})")
     if impl not in ("hash", "buffer"):
         raise ValueError(f"unknown beam impl {impl!r} (hash or buffer)")
     B, T, A = log_probs.shape
@@ -364,7 +590,17 @@ def beam_decode(log_probs: torch.Tensor, frame_lens: torch.Tensor,
     K = beam_size
     lp = log_probs.to(torch.float32).contiguous()
     fl = frame_lens.to(device=lp.device, dtype=torch.int32).contiguous()
-    if impl == "buffer":
+    if lm is not None or neural_lm is not None:
+        lam, beta = fusion_coefficients(lm_weight, length_bonus)
+        tab = (None if lm is None else torch.as_tensor(
+            lm, dtype=torch.float32, device=lp.device))
+        nlm = (None if neural_lm is None else
+               {k: v.to(device=lp.device, dtype=torch.float32)
+                for k, v in neural_lm.items()})
+        labels, lens, nll = _decode_hash_lm(lp, fl, lam, beta, K=K, A=A,
+                                            Lmax=Lmax, blank=blank,
+                                            lm_tab=tab, nlm=nlm)
+    elif impl == "buffer":
         labels, lens, nll = _decode_one(lp, fl, K=K, A=A, Lmax=Lmax,
                                         blank=blank)
     elif use_kernel and lp.is_cuda:

@@ -13,8 +13,16 @@ decoders (decoding/transducer.py), and the attention seq2seq with its
 greedy decoding (cut at the first EOS) and its decoder beam search
 (models/seq2seq.py); the family, the transducer's encoder and
 ``flash_attention`` come from the model's config.json. A model directory
-the JAX package wrote (``.ckpt`` files) is served as well. LM fusion into
-the CTC beam is not ported.
+the JAX package wrote (``.ckpt`` files) is served as well.
+
+LM fusion into the CTC beam (``lm_order`` 2 or 3 with ``decoder="beam"``):
+an n-gram table trained from ``lm_train_tsv``'s transcripts
+(decoding/lm.py), or with ``lm_type="neural"`` a small LSTM LM
+(decoding/neural_lm.py) trained on the device and cached beside the model
+(``lm_neural.pt`` + ``lm_neural.pt.json``, the key of what it was trained
+on; a JAX package ``lm_neural.ckpt`` with a matching ``lm_neural.ckpt.json``
+is served as it is), fused in the beam (``lm_pass="fused"``) or
+re-ranking the exact K-best (``"rescore"``, decoding/rescore.py).
 """
 
 from __future__ import annotations
@@ -26,13 +34,17 @@ import os
 import numpy as np
 import torch
 
-from . import not_ported, resolve_device
+from . import resolve_device
 from .checkpoint import (average_checkpoints, epoch_snapshots,
                          find_checkpoint, load_checkpoint)
 from .config import Config, fit_vocab
 from .data import Alphabet, BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
 from .decoding.beam import beam_decode
+from .decoding.lm import lm_from_manifest
+from .decoding.neural_lm import (JAX_LM_FILE, LM_FILE, load_lm, save_lm,
+                                 train_neural_lm)
+from .decoding.rescore import rescore_nbest
 from .decoding.greedy import (assemble_word_timings, greedy_decode,
                               greedy_decode_with_timing, ids_to_strings)
 from .decoding.transducer import (transducer_beam_decode,
@@ -168,11 +180,10 @@ def forward_seq2seq_beam(params, wave, num_samples, cfg: Config,
 
 
 def _check_options(family: str, decoder: str, lm_order: int,
-                   timestamps: bool) -> None:
+                   timestamps: bool, lm_train_tsv: str | None) -> None:
     """The JAX package's refusals of --timestamps (greedy decoder and CTC
-    families only) and of --lm_order for the transducer and the seq2seq
-    family (pg_asr_tpu/predict.py); LM fusion for the CTC families is not
-    yet ported."""
+    families only) and of --lm_order (the CTC beam only, and a TSV to
+    train on), in its order (pg_asr_tpu/predict.py)."""
     if timestamps and decoder != "greedy":
         raise ValueError("--timestamps uses CTC emission peaks — "
                          "greedy decoder only")
@@ -187,9 +198,45 @@ def _check_options(family: str, decoder: str, lm_order: int,
     if lm_order and family == "seq2seq":
         raise ValueError("LM shallow fusion is a CTC-beam feature; the "
                          "seq2seq decoder LSTM IS its language model")
-    if lm_order:
-        raise not_ported("LM shallow fusion into the beam search "
-                         "(--lm_order)")
+    if lm_order and decoder != "beam":
+        raise ValueError("LM shallow fusion needs --decoder beam")
+    if lm_order and not lm_train_tsv:
+        raise ValueError("lm_order set but no lm_train_tsv to train on")
+
+
+def neural_lm_for(model_path: str, lm_train_tsv: str, aud_path: str,
+                  alphabet, lm_steps: int, device) -> dict:
+    """The neural LM for a model directory, on `device`: the cached one
+    when its meta file shows the same training (steps, vocab and the TSV's
+    absolute path, size and mtime: the JAX package's key), the port's
+    lm_neural.pt before the JAX package's lm_neural.ckpt; else one trained
+    for `lm_steps` on the TSV's transcripts and cached as lm_neural.pt."""
+    meta = {"steps": lm_steps, "vocab": alphabet.size,
+            "tsv": os.path.abspath(lm_train_tsv),
+            "tsv_size": os.path.getsize(lm_train_tsv),
+            "tsv_mtime": int(os.path.getmtime(lm_train_tsv))}
+    for name in (LM_FILE, JAX_LM_FILE):
+        path = os.path.join(model_path, name)
+        try:
+            with open(path + ".json") as fo:
+                cached = json.load(fo)
+        except (OSError, ValueError):
+            continue
+        lm = (load_lm(path, alphabet.size, device=device)
+              if cached == meta else None)
+        if lm is not None:
+            print(f"[predict] neural LM reused from {path} (same steps + "
+                  "training TSV)")
+            return lm
+    path = os.path.join(model_path, LM_FILE)
+    lm = train_neural_lm(
+        (u.text for u in load_manifest(lm_train_tsv, aud_path)), alphabet,
+        steps=lm_steps, device=device)
+    save_lm(lm, path)
+    with open(path + ".json", "w") as fo:
+        json.dump(meta, fo)
+    print(f"[predict] neural LM trained ({lm_steps} steps) -> {path}")
+    return lm
 
 
 def timing_rows(labels, lens, onsets, token_logp, out_lens, num_samples,
@@ -218,7 +265,10 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
             which_ckpt: str = "best", limit: int | None = None,
             device: str = "cuda", dtype: str | None = None,
             beam_size: int | None = None, beam_prune: int | None = None,
-            lm_order: int = 0, timestamps: bool = False) -> dict:
+            lm_order: int = 0, lm_weight: float = 0.3,
+            length_bonus: float = 0.0, lm_train_tsv: str | None = None,
+            lm_type: str = "ngram", lm_steps: int = 300,
+            lm_pass: str = "fused", timestamps: bool = False) -> dict:
     """Decode a test manifest and report CER/WER (+ predicted.txt dump).
 
     decoder="beam": CTC prefix beam search of width beam_size (default
@@ -227,27 +277,52 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
     decoder="beam" and is >= 2 or 0), as pg_asr_tpu/predict.py. For a
     transducer, decoder="beam" is the RNN-T beam search of width beam_size,
     and for the seq2seq family the decoder's own beam search of that width;
-    both ignore beam_prune, as in the JAX package."""
+    both ignore beam_prune, as in the JAX package.
+
+    lm_order (2 or 3; CTC families, decoder="beam"): shallow fusion of an
+    n-gram of that order trained on lm_train_tsv's transcripts, or with
+    lm_type="neural" of the LSTM LM (``neural_lm_for``, lm_steps), with
+    lm_weight and length_bonus; lm_pass="rescore" (neural only) re-ranks
+    the exact K-best instead (beam_prune then defaults to 0, and another
+    value is refused). A fused search ignores beam_prune, as in the JAX
+    package."""
     if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}")
     if beam_prune is not None:
         if decoder != "beam":
             raise ValueError("--beam_prune applies to --decoder beam")
+        if lm_pass == "rescore" and beam_prune != 0:
+            raise ValueError("--beam_prune shapes the fused in-beam search; "
+                             "the rescore pass decodes its n-best exactly")
         if beam_prune != 0 and beam_prune < 2:
             raise ValueError("--beam_prune must be >= 2 (blank + one "
                              "symbol), or 0 for the exact search")
+    if lm_pass not in ("fused", "rescore"):
+        raise ValueError(f"unknown lm_pass {lm_pass!r}")
+    if lm_pass == "rescore" and lm_type != "neural":
+        raise ValueError("--lm_pass rescore re-ranks the n-best with the "
+                         "neural LM — set --lm_type neural (the n-gram "
+                         "table fuses in-beam)")
     dev = resolve_device(device)
 
     cfg_peek = model_config(model_path, config)
     family = cfg_peek.model.family
-    _check_options(family, decoder, lm_order, timestamps)
+    _check_options(family, decoder, lm_order, timestamps, lm_train_tsv)
     alphabet = model_tokenizer(alphabet_path, cfg_peek)
     params, cfg = load_model(model_path, alphabet, config, which=which_ckpt,
                              device=dev, dtype=dtype)
     beam_size = beam_size or cfg.decode.beam_size
     if beam_prune is None:
-        beam_prune = cfg.decode.beam_prune
+        # the rescore pass decodes its n-best exactly
+        beam_prune = cfg.decode.beam_prune if lm_pass != "rescore" else 0
     prune = beam_prune or None  # 0 -> the exact search
+    lm_tab = neural_lm = None
+    if lm_order and lm_type == "neural":
+        neural_lm = neural_lm_for(model_path, lm_train_tsv, aud_path,
+                                  alphabet, lm_steps, dev)
+    elif lm_order:
+        lm_tab = lm_from_manifest(load_manifest(lm_train_tsv, aud_path),
+                                  alphabet, order=lm_order)
 
     utts = load_manifest(test_path, aud_path)
     if limit:
@@ -282,10 +357,18 @@ def predict(test_path: str, aud_path: str, alphabet_path: str,
             continue
         log_probs, mask, out_lens = forward(params, wave, num_samples, cfg)
         with torch.inference_mode():
-            if decoder == "beam":
+            if decoder == "beam" and neural_lm is not None \
+                    and lm_pass == "rescore":
+                labels, lens, _ = rescore_nbest(
+                    log_probs, out_lens, neural_lm, beam_size=beam_size,
+                    max_label_len=cfg.decode.max_label_len,
+                    lm_weight=lm_weight, length_bonus=length_bonus)
+            elif decoder == "beam":
                 labels, lens, _ = beam_decode(
                     log_probs, out_lens, beam_size=beam_size,
-                    max_label_len=cfg.decode.max_label_len, prune=prune)
+                    max_label_len=cfg.decode.max_label_len, prune=prune,
+                    lm=lm_tab, neural_lm=neural_lm, lm_weight=lm_weight,
+                    length_bonus=length_bonus)
             elif timestamps:
                 labels, lens, onsets, tok_lp = greedy_decode_with_timing(
                     log_probs, mask)

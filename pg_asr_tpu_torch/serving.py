@@ -20,7 +20,11 @@ names): latency-controlled BiLSTM transcription of audio as it arrives.
   * Greedy CTC collapse with the previous id carried across chunks; the
     CTC prefix beam (``decoder="beam"``) carries the buffer beam state
     (``decoding/beam._step``) across chunks and emits the live beams'
-    agreed prefix; the transducer (BiLSTM encoder) continues its
+    agreed prefix; with ``lm=`` (an n-gram table, decoding/lm.py) the
+    carry is the LM-fused beam's (``decoding/beam._step_lm_buffer``:
+    prefixes, LM contexts and cumulative LM scores), ranked by acoustic +
+    lm_weight * lm + length_bonus * len frame for frame as the offline
+    ``beam_decode(lm=...)``; the transducer (BiLSTM encoder) continues its
     frame-synchronous greedy search from the carried prediction-network
     state.
   * Transformer / conformer: overlapping windows of up to ``left_context``
@@ -35,8 +39,7 @@ slots ride along with zero masks and their state freezes.
 
 Device state lives on the transcriber's ``device`` (default ``cuda``;
 asking for it without a GPU raises, the CPU runs only when asked for).
-LM fusion (``lm=``, ``length_bonus``; the JAX ``_chunk_step_beam_lm``) is
-not ported.
+``BatchedStreamingTranscriber`` fuses no LM, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,16 +50,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import not_ported, resolve_device
+from . import resolve_device
 from .config import Config
-from .decoding.beam import NEG, _step
+from .decoding.beam import (NEG, _lm_state0, _step, _step_lm_buffer,
+                            fusion_coefficients, lm_context_scores)
 from .decoding.transducer import greedy_scan, init_decode_state
 from .models.bilstm_ctc import linear, torch_dtype
 from .ops.features import _constants, full_f32_conv
 from .ops.lstm import lstm_scan, lstm_scan_xla_from
-
-_LM_ITEM = "ROADMAP.md queue 1 item 11"
-
 
 # the forward direction from a carry, under the JAX package's name
 _fwd_scan_from = lstm_scan_xla_from
@@ -221,15 +222,47 @@ def _chunk_step_beam(params, window, stats, carries, beam_state, n_valid,
         fixed_norm, use_kernel)
     log_probs = _ctc_log_probs(params, x, chunk)
     A = log_probs.shape[-1]
-    # frames no row commits leave every beam as it was
+    beam_state = _advance_beam(
+        beam_state, log_probs, n_committed, chunk,
+        lambda state, lp: _step(state, lp, K=K, A=A, Lmax=Lmax, blank=0))
+    return beam_state, new_stats, new_carries
+
+
+def _chunk_step_beam_lm(params, window, stats, carries, beam_state, lm_tab,
+                        lam: float, beta: float, n_valid, n_committed,
+                        cfg: Config, chunk: int, fixed_norm: bool, K: int,
+                        Lmax: int, use_kernel: bool = True):
+    """``_chunk_step_beam`` with n-gram shallow fusion: the carry is
+    ``_step_lm_buffer``'s state (prefixes, hash, last, last2, lens, p_b,
+    p_nb, cumulative LM score), ranked frame for frame as the offline
+    ``beam_decode(lm=...)``. -> (beam_state, stats, carries)."""
+    x, new_stats, new_carries = _encode_window(
+        params, window, stats, carries, n_valid, n_committed, cfg, chunk,
+        fixed_norm, use_kernel)
+    log_probs = _ctc_log_probs(params, x, chunk)
+    A = log_probs.shape[-1]
+
+    def step(state, lp):
+        lmn = lm_context_scores(lm_tab, state[2], state[3])
+        return _step_lm_buffer(state, lp, lmn, K=K, A=A, Lmax=Lmax, blank=0,
+                               lam=lam, beta=beta)
+
+    beam_state = _advance_beam(beam_state, log_probs, n_committed, chunk,
+                               step)
+    return beam_state, new_stats, new_carries
+
+
+def _advance_beam(beam_state, log_probs, n_committed, chunk: int, step):
+    """`step` over the chunk's committed frames; a row's frames at or past
+    its n_committed leave its beam as it was, and frames no row commits
+    are not run."""
     for t in range(min(chunk, int(n_committed.max()))):
-        new = _step(beam_state, log_probs[:, t], K=K, A=A, Lmax=Lmax,
-                    blank=0)
+        new = step(beam_state, log_probs[:, t])
         live = t < n_committed
         beam_state = tuple(
             torch.where(live.view(-1, *([1] * (n.dim() - 1))), n, o)
             for n, o in zip(new, beam_state))
-    return beam_state, new_stats, new_carries
+    return beam_state
 
 
 def _chunk_step_rnnt(params, enc, window, stats, carries, dec_state,
@@ -261,12 +294,26 @@ def _beam_init(S: int, K: int, L: int, device):
             torch.full((S, K), NEG, device=device))
 
 
-def _beam_view(beam_state, row: int):
-    """Host view of one row's carried beam: (prefixes, lens, total, live),
-    the total the acoustic logaddexp(p_b, p_nb) in float64."""
-    P, Ln, pb, pnb = (t[row].cpu().numpy() for t in beam_state)
+def _beam_view(beam_state, row: int, fusion=None):
+    """Host view of one row's carried beam: (prefixes, lens, score, live).
+    The score is the acoustic logaddexp(p_b, p_nb) in float64, plus lam *
+    lm + beta * len on the live slots under fusion = (lam, beta) (the LM
+    beam's layout). It is the JAX package's snapshot key, taken on the host
+    in float64 there too, not ``decoding/beam.fused_score``'s float32 key:
+    the streamed text picks its best hypothesis by it as the JAX stream
+    does."""
+    host = [t[row].cpu().numpy() for t in beam_state]
+    if fusion is None:
+        P, Ln, pb, pnb = host
+    else:
+        P, _, _, _, Ln, pb, pnb, lm_sc = host
     tot = np.logaddexp(pb.astype(np.float64), pnb.astype(np.float64))
-    return P, Ln, tot, tot > NEG / 2
+    live = tot > NEG / 2
+    if fusion is not None:
+        lam, beta = fusion
+        tot = np.where(live, tot + (lam * lm_sc.astype(np.float64)
+                                    + beta * Ln), tot)
+    return P, Ln, tot, live
 
 
 def _agreed(prefixes, lens, live) -> int:
@@ -297,6 +344,9 @@ class StreamingTranscriber:
         fixed (mean, var); fixed statistics with lookahead to the stream
         end reproduce the offline forward.
       left_context: transformer / conformer, exact left frames a window.
+      lm: an n-gram table (decoding/lm.py) to fuse into the beam
+        (decoder="beam"), with lm_weight and length_bonus (which needs
+        an lm).
       device: where the device state lives and the steps run (default
         cuda); params are moved there.
       use_kernel: False runs the kernels' plain versions on any device.
@@ -327,10 +377,15 @@ class StreamingTranscriber:
         self.K = int(beam_size)
         self.Lmax = int(max_label_len if max_label_len is not None
                         else min(cfg.decode.max_label_len, 512))
-        if lm is not None:
-            raise not_ported(f"streaming LM fusion (lm=, {_LM_ITEM})")
-        if length_bonus:
-            raise not_ported(f"length_bonus (LM fusion, {_LM_ITEM})")
+        if lm is not None and not self.beam:
+            raise ValueError("streaming LM fusion needs decoder='beam'")
+        if lm is None and length_bonus:
+            raise ValueError(
+                "length_bonus applies only under LM fusion (matching "
+                "offline beam_decode, which ignores it without an LM); "
+                "pass lm= or drop length_bonus")
+        self._fusion = (None if lm is None
+                        else fusion_coefficients(lm_weight, length_bonus))
         if timestamps and self.rnnt:
             raise ValueError("streaming timestamps use CTC emission peaks; "
                              "the transducer decoder is label-synchronous")
@@ -356,6 +411,8 @@ class StreamingTranscriber:
         self.device = resolve_device(str(device))
         self.use_kernel = use_kernel
         self.params = {k: v.to(self.device) for k, v in params.items()}
+        self._lm = (None if lm is None else torch.as_tensor(
+            lm, dtype=torch.float32, device=self.device))
         # the BiLSTM encoder's parameters (the transducer's sit under
         # "encoder.")
         self._enc = ({k[len("encoder."):]: v for k, v in self.params.items()
@@ -405,8 +462,14 @@ class StreamingTranscriber:
         self._emitted = 0  # whole-stream label count (rnnt emission cap)
         self._words: list[dict] = []          # finalized word timings
         self._cur_word: list[tuple] = []      # (text, frame, logp, sub)
-        if self.beam:
+        if self.beam and self._lm is None:
             self._beam_state = _beam_init(1, self.K, self.Lmax, self.device)
+        elif self.beam:
+            self._beam_state = (torch.zeros(1, self.K, self.Lmax,
+                                            dtype=torch.int32,
+                                            device=self.device),
+                                *_lm_state0(1, self.K, self.device))
+        if self.beam:
             self._beam_emitted = 0  # common-prefix ids already emitted
         if self.rnnt:
             self._dec_state = init_decode_state(
@@ -456,8 +519,9 @@ class StreamingTranscriber:
 
     def _beam_snapshot(self):
         """Host view of the carried beam: (prefixes, lens, score, live),
-        the score the acoustic total (no LM is fused)."""
-        return _beam_view(self._beam_state, 0)
+        the score the decision key (acoustic, plus lam * lm + beta * len
+        under fusion)."""
+        return _beam_view(self._beam_state, 0, self._fusion)
 
     @property
     def partial_text(self) -> str:
@@ -564,10 +628,18 @@ class StreamingTranscriber:
             out = [self.alphabet.piece(int(i)) for i in ids[0, :n].tolist()]
             self._emitted += len(out)
         elif self.beam:
-            self._beam_state, self._stats, self._carries = _chunk_step_beam(
-                self.params, window, self._stats, self._carries,
-                self._beam_state, nv, nc, self.cfg, self.chunk,
-                self.fixed_norm, self.K, self.Lmax, self.use_kernel)
+            if self._lm is None:
+                step = _chunk_step_beam(
+                    self.params, window, self._stats, self._carries,
+                    self._beam_state, nv, nc, self.cfg, self.chunk,
+                    self.fixed_norm, self.K, self.Lmax, self.use_kernel)
+            else:
+                step = _chunk_step_beam_lm(
+                    self.params, window, self._stats, self._carries,
+                    self._beam_state, self._lm, *self._fusion, nv, nc,
+                    self.cfg, self.chunk, self.fixed_norm, self.K, self.Lmax,
+                    self.use_kernel)
+            self._beam_state, self._stats, self._carries = step
             prefixes, lens, _, live = self._beam_snapshot()
             out = self._emit_agreed(prefixes, lens, live)
         else:

@@ -270,9 +270,12 @@ def test_bf16_log_probs_decode_in_float32():
 
 
 def test_unported_and_unknown_options_raise():
+    """LM fusion outside the hash impl and an unknown impl raise (the LM
+    guards' messages against the JAX package's: tests/test_torch_lm.py)."""
     lp, fl = torch.zeros(1, 3, 4), torch.tensor([3])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tb.beam_decode(lp, fl, lm=np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match="requires impl='hash'"):
+        tb.beam_decode(lp, fl, lm=np.zeros((4, 4), np.float32),
+                       impl="buffer")
     with pytest.raises(ValueError, match="impl"):
         tb.beam_decode(lp, fl, impl="pallas")
 

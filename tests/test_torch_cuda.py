@@ -1838,3 +1838,83 @@ def test_seq2seq_greedy_and_beam_kernel_match_plain(cuda):
     assert torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
     torch.testing.assert_close(bk[2], bp[2], rtol=1e-5, atol=0)
     assert (tk != 0).any()
+
+
+def _lm_case(device, vocab: int = 28, seed: int = 0):
+    from pg_asr_tpu_torch.decoding.neural_lm import init_lm_params
+
+    return init_lm_params(torch.Generator().manual_seed(seed), vocab,
+                          device=device)
+
+
+@pytest.mark.cuda
+def test_lm_teacher_forced_pass_launches_the_kernels(cuda):
+    """lm_sequence_logp on CUDA tensors: one inference lstm_fwd a layer
+    without autograd, one residual lstm_fwd + one lstm_bwd a layer under
+    it; the log-probs within 1e-4 of the plain recurrence's and the
+    gradients within 1e-5 x max|grad| (float32 sums in other orders)."""
+    from pg_asr_tpu_torch.decoding.neural_lm import lm_sequence_logp
+    from pg_asr_tpu_torch.train import value_and_grad
+
+    params = _lm_case(cuda)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, 28, (32, 60))).to(cuda)
+    lens = torch.from_numpy(rng.integers(0, 61, 32)).to(cuda)
+    before = _bi_counts()
+    with torch.no_grad():
+        got = lm_sequence_logp(params, ids, lens)
+    want = lm_sequence_logp(params, ids, lens, use_kernel=False)
+    assert [a - b for a, b in zip(_bi_counts(), before)] == [2, 0, 0, 0, 0, 0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    grads = {}
+    for use_kernel in (True, False):
+        before = _bi_counts()
+        _, grads[use_kernel] = value_and_grad(
+            lambda p: -lm_sequence_logp(p, ids, lens, use_kernel).sum()
+            / lens.sum(), params)
+        if use_kernel:
+            assert [a - b for a, b in zip(_bi_counts(), before)] == [
+                0, 2, 2, 0, 0, 0]
+    for k, g in grads[True].items():
+        ref = grads[False][k]
+        torch.testing.assert_close(g, ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_rescore_and_fused_search_on_card_match_cpu(cuda):
+    """rescore_nbest on CUDA tensors: one ctc_beam launch (the exact
+    n-best) and one lstm_fwd a layer (the LM pass), the CPU's labels and
+    lens, scores within 1e-5 relative; the fused searches (n-gram and
+    neural) on the card launch no kernel: the CPU's labels and lens, nll
+    within 1e-5 relative (expf / log1pf of nvcc's and the CPU's, and in
+    the neural LM's products float32 sums in another order)."""
+    from pg_asr_tpu_torch.decoding.rescore import rescore_nbest
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((16, 80, 28)) * 2
+    lp = torch.from_numpy((x - np.log(np.exp(x).sum(-1, keepdims=True)))
+                          .astype(np.float32))
+    fl = torch.from_numpy(rng.integers(20, 81, 16).astype(np.int32))
+    nlm = _lm_case("cpu")
+    before, beams = _bi_counts(), cuda_beam.LAUNCHES
+    got = rescore_nbest(lp.to(cuda), fl.to(cuda), nlm, beam_size=16,
+                        max_label_len=80)
+    assert cuda_beam.LAUNCHES - beams == 1
+    assert [a - b for a, b in zip(_bi_counts(), before)] == [2, 0, 0, 0, 0, 0]
+    want = rescore_nbest(lp, fl, nlm, beam_size=16, max_label_len=80)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0)
+    tab = np.log(rng.dirichlet(np.ones(28), (28, 28))).astype(np.float32)
+    for kw in ({"lm": tab}, {"lm": tab[0]}, {"neural_lm": nlm}):
+        before, beams = _bi_counts(), cuda_beam.LAUNCHES
+        got = beam.beam_decode(lp.to(cuda), fl.to(cuda), beam_size=16,
+                               max_label_len=80, lm_weight=0.5,
+                               length_bonus=0.2, **kw)
+        assert cuda_beam.LAUNCHES == beams and _bi_counts() == before
+        want = beam.beam_decode(lp, fl, beam_size=16, max_label_len=80,
+                                lm_weight=0.5, length_bonus=0.2, **kw)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0)

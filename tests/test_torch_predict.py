@@ -136,10 +136,6 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 # the JAX CLI's flags that are not ported, each with a non-default value
 UNPORTED_FLAGS = [
-    (["--lm_weight", "0.5"], "lm_weight"),
-    (["--lm_type", "neural"], "lm_type"),
-    (["--lm_steps", "10"], "lm_steps"), (["--lm_pass", "rescore"], "lm_pass"),
-    (["--length_bonus", "0.1"], "length_bonus"),
     (["--export_batch", "4"], "export_batch"),
     (["--export_seconds", "5"], "export_seconds"),
     (["--export_platforms", "cpu"], "export_platforms"),
@@ -151,11 +147,7 @@ UNPORTED_FLAGS = [
 ]
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--decoder", "beam", "--lm_order", "2"], "beam"),
-    (["--lm_order", "2"], "lm_order"),
-    *UNPORTED_FLAGS,
-])
+@pytest.mark.parametrize("extra,message", UNPORTED_FLAGS)
 def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
     paths, _, _, _, torch_dir = slice_setup
     with pytest.raises(SystemExit) as e:
@@ -164,6 +156,47 @@ def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
                   paths["alphabet_path"], "--model_path", torch_dir,
                   "--device", "cpu", *extra])
     assert "not yet ported" in str(e.value) and message in str(e.value)
+
+
+# the LM flags, each with a non-default value: each runs (the JAX
+# package's predicted.txt: the n-gram fused beam, or greedy, where the flag
+# has nothing to act on without --lm_order) or exits with its ValueError
+LM_FLAGS = [
+    (["--decoder", "beam", "--lm_order", "2"],
+     dict(decoder="beam", lm_order=2)),
+    (["--lm_order", "2"], "LM shallow fusion needs --decoder beam"),
+    (["--lm_weight", "0.5"], {}), (["--lm_type", "neural"], {}),
+    (["--lm_steps", "10"], {}),
+    (["--lm_pass", "rescore"], "--lm_pass rescore re-ranks the n-best"),
+    (["--length_bonus", "0.1"], {}),
+]
+
+
+@pytest.mark.parametrize("extra,want", LM_FLAGS)
+def test_cli_lm_options_match_jax(slice_setup, extra, want):
+    """--lm_order and the other --lm_* flags and --length_bonus through the
+    CLI with --corpus_path (the LM trains on its train.tsv), against the
+    JAX package's predict with the same options: the same predicted.txt,
+    or the same error."""
+    paths, _, _, jax_dir, torch_dir = slice_setup
+    corpus = os.path.dirname(paths["test_path"])
+    train_tsv = os.path.join(corpus, "train.tsv")
+    if isinstance(want, str):
+        message = _jax_error(lambda: jax_predict(
+            **paths, model_path=jax_dir, lm_order=2, lm_train_tsv=train_tsv,
+            lm_pass="rescore" if "rescore" in extra else "fused"))
+        assert message.startswith(want)
+        with pytest.raises(SystemExit) as e:
+            _predict_cli(paths, torch_dir, "--corpus_path", corpus, *extra)
+        assert str(e.value) == message
+        return
+    lm = {"lm_train_tsv": train_tsv} if want else {}
+    jax_predict(**paths, model_path=jax_dir, batch_size=3, **want, **lm)
+    assert _predict_cli(paths, torch_dir, "--corpus_path", corpus,
+                        *extra) == 0
+    assert _predicted(torch_dir) == _predicted(jax_dir)
+    assert any(line.split("|")[1] for line in
+               _predicted(torch_dir).splitlines())
 
 
 @pytest.fixture(scope="module")

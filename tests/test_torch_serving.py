@@ -304,6 +304,87 @@ def test_beam_full_lookahead_matches_jax(beam_case):
     assert _run(tst, [wave]) == _run(jst, [wave]) != ""
 
 
+def _lm_table(order: int) -> np.ndarray:
+    from pg_asr_tpu.decoding.lm import train_char_ngram
+
+    return train_char_ngram(["abcabc", "bca", "cabba", "abacaba", "bbcc",
+                             "gfed"], JAlphabet.from_symbols(list("abcdefg")),
+                            order=order)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_beam_lm_state_and_text_match_jax(beam_case, order):
+    """decoder='beam' with lm= (n-gram shallow fusion): after every push
+    the carried LM beam (prefixes, hash, contexts, lengths equal; p_b, p_nb
+    and the cumulative LM scores within TOL), partial_text and the emitted
+    text; then the flush."""
+    c = beam_case
+    kw = dict(chunk_frames=6, right_context=4, decoder="beam",
+              beam_size=BEAM_K, max_label_len=BEAM_L, lm=_lm_table(order),
+              lm_weight=0.4, length_bonus=0.1)
+    jst, tst = c.pair(**kw)
+    sofar = ""
+    for block in np.array_split(_wave(0), 5):
+        got = tst.push(block)
+        assert got == jst.push(block)
+        sofar += got
+        assert tst.partial_text == jst.partial_text
+        for i, (t, j) in enumerate(zip(tst._beam_state, jst._beam_state)):
+            if i < 5:  # prefixes, hash, last, last2, lens
+                assert t[0].tolist() == np.asarray(j).tolist(), i
+            else:
+                _close(t[0], j)
+    final = tst.flush()
+    assert final == jst.flush()
+    assert tst.text == jst.text == sofar + final != ""
+
+
+def _offline_fused(c, wave, tab) -> tuple[str, str]:
+    """The offline fused search's text on the utterance's whole-batch
+    log-probs: (port, JAX package)."""
+    from pg_asr_tpu.decoding.beam import beam_decode as jax_beam_decode
+    from pg_asr_tpu.decoding.greedy import ids_to_strings as jax_strings
+    from pg_asr_tpu.ops.features import extract_features as jax_features
+    from pg_asr_tpu_torch.decoding.beam import beam_decode
+    from pg_asr_tpu_torch.decoding.greedy import ids_to_strings
+    from pg_asr_tpu_torch.models import acoustic_forward
+    from pg_asr_tpu_torch.ops.features import extract_features
+
+    kw = dict(beam_size=BEAM_K, max_label_len=BEAM_L, lm=tab, lm_weight=0.4,
+              length_bonus=0.1)
+    w, ns = np.pad(wave, (0, 512))[None], np.array([len(wave)], np.int32)
+    feats, mask, flens = extract_features(torch.from_numpy(w),
+                                          torch.from_numpy(ns),
+                                          c.cfg.features)
+    lp, _, lens = acoustic_forward(c.params, feats, mask, flens, c.cfg)
+    ids, n, _ = beam_decode(lp, lens, **kw)
+    jf, jm, jl = jax_features(jnp.asarray(w), jnp.asarray(ns),
+                              c.jcfg.features)
+    jlp = jax_bilstm.apply(c.jparams, jf, jm, c.jcfg.model, train=False)
+    jids, jn, _ = jax_beam_decode(jlp, jl, **kw)
+    return (ids_to_strings(ids, n, c.ta)[0],
+            jax_strings(jids, jn, c.ja)[0])
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_beam_lm_full_lookahead_matches_offline(beam_case, order):
+    """With fixed norm and lookahead to the stream end the streamed fused
+    beam is the offline fused search (beam_decode(lm=...)) of the whole
+    utterance, in the port as in the JAX package."""
+    c = beam_case
+    wave = _wave(0)
+    tab = _lm_table(order)
+    T = len(wave) // c.jcfg.features.hop_length + 1
+    jst, tst = c.pair(chunk_frames=8, right_context=T,
+                      norm=_offline_norm(c.jcfg, wave), decoder="beam",
+                      beam_size=BEAM_K, max_label_len=BEAM_L, lm=tab,
+                      lm_weight=0.4, length_bonus=0.1)
+    streamed = _run(tst, [wave])
+    assert streamed == _run(jst, [wave])
+    assert (streamed, streamed) == _offline_fused(c, wave, tab)
+    assert streamed != ""
+
+
 @pytest.fixture(scope="module")
 def rnnt():
     from pg_asr_tpu.models import transducer
@@ -407,13 +488,13 @@ def test_timestamps_words_match_jax():
      "bilstm"),
     ({"family": "transformer", "num_experts": 2}, {}, ValueError, "MoE"),
     ({"kind": "mfcc"}, {}, ValueError, "logmel"),
-    ({}, {"lm": np.zeros((9, 9), np.float32), "decoder": "beam"},
-     NotImplementedError, "LM fusion"),
-    ({}, {"length_bonus": 0.1}, NotImplementedError, "length_bonus"),
+    ({}, {"lm": np.zeros((9, 9), np.float32)}, ValueError,
+     "LM fusion needs decoder='beam'"),
+    ({}, {"length_bonus": 0.1}, ValueError, "length_bonus applies only"),
 ])
 def test_validation_errors_match_jax(ctc, change, kw, error, match):
-    """The JAX package's ValueErrors for the same configurations; LM
-    fusion (lm=, length_bonus) is refused as not ported instead."""
+    """The JAX package's ValueErrors for the same configurations, LM
+    fusion's (lm= without the beam, length_bonus without lm=) included."""
     jcfg = ctc.jcfg
     if "family" in change:
         jcfg = jcfg.replace(model=jcfg.model.__class__(

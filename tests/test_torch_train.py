@@ -551,3 +551,17 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                   *extra])
     assert "not yet ported" in str(e.value) and message in str(e.value)
     assert not os.path.exists(tmp_path / "m" / "model_last.pt")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--lm_weight", "0.5"], ["--lm_type", "neural"], ["--lm_steps", "10"],
+    ["--lm_pass", "rescore"], ["--length_bonus", "0.1"]])
+def test_cli_train_takes_the_lm_flags_as_the_jax_cli(extra):
+    """The LM flags (predict's and stream's) are accepted by a train run and
+    change nothing in it, as in the JAX CLI: the same Config as without
+    them, and no refusal."""
+    base = ["--mode", "train", "--corpus_path", "c", "--model_path", "m"]
+    parser = cli.build_parser()
+    args = parser.parse_args(base + extra)
+    cli._refuse_unported_flags(parser, args)
+    assert cli.train_config(args) == cli.train_config(parser.parse_args(base))
