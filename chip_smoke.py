@@ -259,10 +259,27 @@ the CPU or to a kernel's plain version):
      lstm_fwd a chunk), its text the offline fused search's on the
      streamed log-probs, and the streamed beam's chunk times and real-time
      factor with and without the LM.
- 16. prints its total wall time, a JSON line of kernel results (with each
+ 16. export (exporting.py) at the CLI's defaults (B=8 x 20 s): `--mode
+     export --device cuda` through the CLI on phase 5's BiLSTM-CTC (greedy,
+     --decoder beam K=16, --export_quantize int8, --export_platforms
+     cpu,cuda), phase 7's conformer (flash_attention), phase 8's
+     transducer (conformer encoder, flash_attention; greedy) and phase
+     14's seq2seq (greedy): each export's seconds, node count, pgasr::
+     nodes and MB; the artifact loaded by ExportedModel on the card, its
+     ids and lens on 8 test clips equal to the live serving function's,
+     its kernel launches a call equal to its pgasr:: nodes and to the live
+     call's, the exported call's ms against the live one's in turns (CUDA
+     events), the profiler's device busy time, idle share and device
+     operations a call (not for the transducer's frame loop, whose 132 K
+     launches the profiler takes tens of seconds to trace); the int8
+     artifact smaller than the float32 one;
+     the cpu,cuda artifact also loaded on the CPU (no launch), its ids
+     equal to the card's. Each registered op (ops/registry.py) must be
+     reached by some export.
+ 17. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
-     streaming, seq2seq and LM paths, ctc_beam's cases at A=256, lstm_fwd's
-     and flash_attn's at the streamed windows, lstm_fwd_residual's and
+     streaming, seq2seq, LM and export paths, ctc_beam's cases at A=256,
+     lstm_fwd's and flash_attn's at the streamed windows, lstm_fwd_residual's and
      lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
      last line {"ok": true, "device": {...}}.
 
@@ -404,10 +421,11 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, reps: int) -> float:
+def once_ms(fn, reps: int = 1) -> float:
+    """CUDA-event ms of `reps` calls of fn, without time_ms's warm-up call
+    (for calls of seconds that have run before)."""
     import torch
 
-    fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -417,6 +435,11 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()  # warm-up
+    return once_ms(fn, reps)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -5171,6 +5194,183 @@ def phase_lm(dev, corpus, alphabet, d):
           + ")")
     return {"launches": out_counts, **result}
 
+EXPORT_B, EXPORT_S = 8, 20.0  # the CLI's --export_batch, --export_seconds
+# timed calls a turn (live, exported, exported, live); 1 for a call of
+# over 0.5 s (the transducer's frame loop)
+EXPORT_REPS = 3
+
+
+def phase_export(dev, corpus, alphabet, d):
+    """16. `--mode export` through the CLI at its defaults (B=8 x 20 s) on
+    full-width models with random weights from a seed (the BiLSTM-CTC
+    greedy, beam K=16, int8 and cpu,cuda; the conformer with
+    flash_attention; the transducer, conformer encoder with
+    flash_attention, greedy; the seq2seq greedy): random weights emit text
+    in every family, where the earlier phases' one-epoch models emit
+    little or none greedily, so that equal ids are a fair bar. Each
+    export's seconds, node count, pgasr:: nodes and MB; the artifact
+    loaded by ExportedModel on the card, its ids and lens equal to the
+    live serving function's on 8 test clips (some labels emitted), its
+    kernel launches a call (counts set to
+    0 before it: each pgasr node launches its kernel once) equal to the
+    live call's, the exported call's ms against the live one's in turns
+    (CUDA events), the profiler's device busy time, idle share and device
+    operations a call (for calls under 0.5 s); the cpu,cuda artifact also
+    loaded on the CPU, its
+    ids equal to the card's. A registered op that no export reaches fails
+    the phase."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.data import load_manifest
+    from pg_asr_tpu_torch.data.audio import load_audio
+    from pg_asr_tpu_torch.exporting import (EXPORT_DIR, ExportedModel,
+                                            make_serving_fn)
+    from pg_asr_tpu_torch.ops import registry
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import init_model_params
+
+    t_start = time.perf_counter()
+    clips = os.path.join(corpus, "clips")
+    utts = load_manifest(os.path.join(corpus, "test.tsv"), clips)[:EXPORT_B]
+    n = int(EXPORT_S * 16000)
+    wave = np.zeros((EXPORT_B, n), np.float32)
+    ns = np.zeros((EXPORT_B,), np.int32)
+    for i, u in enumerate(utts):
+        audio, sr = load_audio(u.audio_path)
+        check(sr == 16000, f"{u.audio_path}: {sr} Hz")
+        wave[i, :len(audio)], ns[i] = audio, len(audio)
+    wave_t, ns_t = torch.from_numpy(wave).to(dev), torch.from_numpy(ns).to(dev)
+    row = {"pgasr::bilstm_fwd": "bilstm_fwd", "pgasr::ctc_beam": "ctc_beam",
+           "pgasr::flash_attn": "flash_attn"}
+    base = Config()
+    flash = {"conformer": dataclasses.replace(base.conformer,
+                                              flash_attention=True)}
+    families = {"ctc": {}, "conformer": flash, "transducer": flash,
+                "seq2seq": {}}
+    runs = (  # key, family, CLI flags
+        ("ctc_greedy", "ctc", []),
+        ("ctc_beam", "ctc", ["--decoder", "beam", "--beam_size", "16"]),
+        ("ctc_int8", "ctc", ["--export_quantize", "int8"]),
+        ("ctc_cpu_cuda", "ctc", ["--export_platforms", "cpu,cuda"]),
+        ("conformer_greedy", "conformer", []),
+        ("transducer_greedy", "transducer", []),
+        ("seq2seq_greedy", "seq2seq", []))
+    cases, out_counts, reached = {}, {}, set()
+    for key, family, flags in runs:
+        model_dir = os.path.join(d, f"export_{key}")
+        cfg = fit_vocab(base.replace(model=dataclasses.replace(
+            base.model, family=family), **families[family]), alphabet.size)
+        save_model(model_dir, init_model_params(
+            cfg, torch.Generator().manual_seed(SEED), "cpu"), cfg)
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["--mode", "export", "--corpus_path", corpus,
+                         "--model_path", model_dir, *flags,
+                         "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        check(rc == 0, f"export {key}: rc {rc}")
+        export_dir = os.path.join(model_dir, EXPORT_DIR)
+        with open(os.path.join(export_dir, "manifest.json")) as fo:
+            m = json.load(fo)
+        check(m["batch_size"] == EXPORT_B and m["max_samples"] == n,
+              f"export {key}: manifest {m['batch_size']} x {m['max_samples']}")
+        ops = m["pgasr_ops"]
+        check(ops, f"export {key}: no pgasr:: node in the program")
+        ex = ExportedModel(export_dir, device=str(dev))
+        params, cfg = load_model(model_dir, alphabet, device=dev)
+        live = make_serving_fn(params, cfg, decoder=m["decoder"],
+                               beam_size=m["beam_size"],
+                               quantize="" if m["quantize"] == "none"
+                               else m["quantize"])
+
+        def live_call():
+            with torch.inference_mode():
+                return live(wave_t, ns_t)
+
+        def exported_call():
+            return ex.run(wave_t, ns_t)
+
+        want = {**dict.fromkeys(all_counts(), 0),
+                **{row[op]: k for op, k in ops.items()}}
+        reset_counts()
+        t0 = time.perf_counter()
+        ids, lens = exported_call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = all_counts()
+        check(got == want, f"export {key}: the exported call launched {got}, "
+              f"its pgasr:: nodes {ops}")
+        out_counts[f"export_{key}"] = got
+        reached |= set(ops)
+        reset_counts()
+        want_ids, want_lens = live_call()
+        torch.cuda.synchronize()
+        check(all_counts() == want, f"export {key}: the live call launched "
+              f"{all_counts()}, not {want}")
+        check(torch.equal(ids, want_ids) and torch.equal(lens, want_lens),
+              f"export {key}: the exported ids differ from the live ones")
+        check(ids.dtype == torch.int32 and lens.dtype == torch.int32
+              and int(lens.sum()) > 0, f"export {key}: ids {ids.dtype}, "
+              f"lens {lens.dtype} {lens.tolist()}")
+        # the decoder loops' calls of seconds: one call a turn, no warm-up
+        # call (the launch check above warmed both paths)
+        reps = EXPORT_REPS if first_ms < 500 else 1
+        timer = time_ms if reps > 1 else once_ms
+        l1 = timer(live_call, reps)
+        e1 = timer(exported_call, reps)
+        e2 = timer(exported_call, reps)
+        l2 = timer(live_call, reps)
+        case = {"flags": flags, "export_s": export_s, "nodes": m["nodes"],
+                "pgasr_ops": ops, "mb": m["bytes"] / 1e6,
+                "exported_ms": (e1 + e2) / 2, "live_ms": (l1 + l2) / 2,
+                "turns_ms": [l1, e1, e2, l2], "reps": reps, "launches": got,
+                "lens": lens.tolist()}
+        profile = ""
+        if reps > 1:
+            # not the decoder loops: tracing their 100 K+ launches takes
+            # the profiler tens of seconds and stretches the call's wall
+            busy, wall, n_ops = device_busy(exported_call)
+            case.update(device_busy_ms=busy, idle_share=1 - busy / wall,
+                        device_ops=n_ops)
+            profile = (f"; device busy {busy:.2f} ms, idle share "
+                       f"{case['idle_share']:.3f}, {n_ops} device ops a "
+                       "call")
+        if key == "ctc_cpu_cuda":
+            check(m["stored_on"] == "cpu", f"stored on {m['stored_on']}")
+            cpu_ex = ExportedModel(export_dir, device="cpu")
+            reset_counts()
+            cpu_ids, cpu_lens = cpu_ex(wave, ns)
+            check(not any(all_counts().values()), "the CPU program launched "
+                  f"{all_counts()}")
+            check(np.array_equal(cpu_ids, ids.cpu().numpy())
+                  and np.array_equal(cpu_lens, lens.cpu().numpy()),
+                  "export ctc_cpu_cuda: the CPU's ids differ from the card's")
+            case["cpu_ids_equal"] = True
+        if key == "ctc_int8":
+            f32 = cases["ctc_greedy"]
+            check(case["mb"] < f32["mb"], f"int8 {case['mb']:.1f} MB >= "
+                  f"float32 {f32['mb']:.1f} MB")
+            case["mb_float32"] = f32["mb"]
+        cases[key] = case
+        print(f"[export] {key}: export {export_s:.1f} s, {m['nodes']} nodes, "
+              f"pgasr {ops}, {case['mb']:.1f} MB; exported "
+              f"{case['exported_ms']:.2f} ms vs live {case['live_ms']:.2f} ms "
+              f"a call (turns, CUDA events: "
+              + ", ".join(f"{t:.2f}" for t in case["turns_ms"])
+              + f"){profile}; launches "
+              f"{dict((k, v) for k, v in got.items() if v)}")
+        del ex, live, params
+    missing = set(registry.OPS) - reached
+    check(not missing, f"registered ops no export reached: {missing}")
+    wall_s = time.perf_counter() - t_start
+    print(f"[export] phase 16 wall time {wall_s:.1f} s")
+    return {"launches": out_counts, "cases": cases, "wall_s": wall_s}
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -5494,6 +5694,7 @@ def main() -> int:
                               os.path.join(d, "bpe_model"))
         s2s = phase_seq2seq(dev, corpus, alphabet, d)
         lm = phase_lm(dev, corpus, alphabet, d)
+        export = phase_export(dev, corpus, alphabet, d)
 
     import torch
 
@@ -5507,15 +5708,16 @@ def main() -> int:
     print(json.dumps({"stream": stream}))
     print(json.dumps({"seq2seq": s2s}))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"export": export}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
-    for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq
-        row["launches_by_path"].update(  # and LM paths
+    for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq,
+        row["launches_by_path"].update(  # LM and export paths
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
-              **lm["launches"]}.items()})
+              **lm["launches"], **export["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

@@ -23,11 +23,15 @@ units with the native segmenter, ``data/``), ``--mode align``
 lockstep); LM fusion into the CTC beam (``--lm_order``: an n-gram table,
 ``decoding/lm.py``, or an LSTM LM, ``decoding/neural_lm.py``, fused in
 the search, offline and streamed, or re-ranking the n-best,
-``decoding/rescore.py``); and the JAX package's flax ``.ckpt`` model
+``decoding/rescore.py``); the JAX package's flax ``.ckpt`` model
 directories and neural LMs, read without flax or msgpack
-(``checkpoint.read_flax_checkpoint``). Their CPU tests hold each against
-the JAX package (``tests/test_torch_*.py``); ``chip_smoke.py`` phases 12,
-13 and 15 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
+(``checkpoint.read_flax_checkpoint``); and ``--mode export``
+(``exporting.py``): the serving program of any ported family as one
+``torch.export`` artifact, float32 or weight-only int8 (``ops/quant.py``),
+its kernels the registered ``pgasr`` operators (``ops/registry.py``). Only
+the switch-MoE transformer (and so its export) is refused. Their CPU tests
+hold each against the JAX package (``tests/test_torch_*.py``);
+``chip_smoke.py`` phases 12, 13, 15 and 16 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction, as for
 the seq2seq decoder's and the neural LM's teacher-forced passes, or, for

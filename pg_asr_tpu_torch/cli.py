@@ -35,6 +35,10 @@
         [--left_context 512] [--block_ms 100] [--decoder greedy|beam] \\
         [--beam_size 8] [--lm_order 2|3 [--lm_weight W] \\
         [--length_bonus X]] [--timestamps] [--device ...]
+    python -m pg_asr_tpu_torch --mode export --model_path M --corpus_path C \\
+        [--decoder greedy|beam] [--beam_size K] [--export_batch 8] \\
+        [--export_seconds 20] [--export_platforms cpu,cuda] \\
+        [--export_quantize int8] [--device ...]
 
 The parser declares every flag of the JAX CLI, with its default, so that
 argparse resolves a flag, or a prefix of one, as the JAX CLI does;
@@ -42,10 +46,12 @@ argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Modes and options of the JAX CLI that are not ported
 yet exit with a message that says so and names their ROADMAP.md item: the
-MoE model, ``--mode export`` and its ``--export_*`` flags,
-``--mesh``, ``--microbatches``, ``--moe_experts``,
-``--capacity_factor``, ``--max_restarts``, ``--fault_step`` and
-``--debug_nans``.
+MoE model (its export too), ``--mesh``, ``--microbatches``,
+``--moe_experts``, ``--capacity_factor``, ``--max_restarts``,
+``--fault_step`` and ``--debug_nans``. ``--mode export`` (exporting.py)
+traces the serving program on ``--device`` and writes
+<model_path>/export/serving.pt2 + manifest.json; ``--export_platforms``
+takes ``cpu`` and ``cuda``.
 ``--mode preproc`` does no tensor work and ignores ``--device``, as the
 JAX CLI has none. ``--mode predict``, ``align`` and ``pseudolabel`` read
 the JAX package's ``.ckpt`` model directories too.
@@ -292,17 +298,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "frames per window")
     p.add_argument("--block_ms", type=int, default=100,
                    help="stream: audio push block size in milliseconds")
-    # not ported: each non-default value exits with a message
-    # (_refuse_unported_flags)
+    # export
     p.add_argument("--export_batch", type=int, default=8,
-                   help="export: static batch size (not ported)")
+                   help="export: static batch size of the serving artifact")
     p.add_argument("--export_seconds", type=float, default=20.0,
-                   help="export: max audio length (not ported)")
+                   help="export: max audio length (s) the artifact accepts")
     p.add_argument("--export_platforms", type=str, default=None,
-                   help="export: platforms (not ported)")
+                   help="export: comma list (cpu,cuda) for one artifact "
+                        "that loads on either device; default = --device")
     p.add_argument("--export_quantize", type=str, default=None,
                    choices=["int8"],
-                   help="export: weight-only int8 (not ported)")
+                   help="export: weight-only per-channel int8 (~4x smaller "
+                        "weights, near-lossless; dequantized in the "
+                        "program: see ops/quant.py)")
+    # not ported: each non-default value exits with a message
+    # (_refuse_unported_flags)
     p.add_argument("--microbatches", type=int, default=None,
                    help="pipeline microbatches (not ported)")
     p.add_argument("--moe_experts", type=int, default=None,
@@ -316,9 +326,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # the JAX CLI's flags that are not ported -> what each belongs to
 _UNPORTED_FLAGS = {
-    "export_batch": "export, item 14", "export_seconds": "export, item 14",
-    "export_platforms": "export, item 14",
-    "export_quantize": "export, item 14",
     "microbatches": "the pipeline mesh, item 15",
     "moe_experts": "the switch-MoE transformer, item 15",
     "capacity_factor": "the switch-MoE transformer, item 15",
@@ -546,6 +553,26 @@ def stream(args, device) -> None:
             print(json.dumps(w, ensure_ascii=False))
 
 
+def export(args, device) -> None:
+    """--mode export: the serving program of --model_path, traced on
+    `device`, into <model_path>/export/ (exporting.export_model)."""
+    from . import not_ported
+    from .exporting import export_model
+
+    if not args.model_path:
+        raise SystemExit("--mode export needs --model_path")
+    if args.model == "moe":
+        raise not_ported("--model moe export (the switch-MoE transformer, "
+                         "item 15 of ROADMAP.md queue 1)")
+    platforms = tuple(s.strip() for s in
+                      (args.export_platforms or "").split(",") if s.strip())
+    export_model(args.model_path, corpus_path=args.corpus_path,
+                 batch_size=args.export_batch,
+                 max_seconds=args.export_seconds, decoder=args.decoder,
+                 beam_size=(args.beam_size or 0), platforms=platforms,
+                 quantize=args.export_quantize or "", device=device)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -553,10 +580,6 @@ def main(argv=None) -> int:
         _refuse_unported_flags(parser, args)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    if args.mode == "export":
-        raise SystemExit("--mode export is not yet ported to "
-                         "pg_asr_tpu_torch (item 14 of ROADMAP.md queue 1); "
-                         "use main.py")
     if args.mode == "preproc":
         if not args.corpus_path:
             raise SystemExit("--mode preproc needs --corpus_path")
@@ -603,6 +626,13 @@ def main(argv=None) -> int:
     if args.mode == "stream":
         try:
             stream(args, str(device))
+        except (NotImplementedError, ValueError, FileNotFoundError) as e:
+            raise SystemExit(str(e)) from None
+        return 0
+
+    if args.mode == "export":
+        try:
+            export(args, str(device))
         except (NotImplementedError, ValueError, FileNotFoundError) as e:
             raise SystemExit(str(e)) from None
         return 0

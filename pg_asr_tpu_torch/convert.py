@@ -21,12 +21,19 @@ direction is a renaming and exact:
                "b"}} (pg_asr_tpu/decoding/neural_lm.py)
                <-> ``embed``, ``layers.{i}.W``, ``head.w``, ...
                (decoding/neural_lm.py)
+
+A weight-only int8 leaf (ops/quant.py) keeps its place: the JAX package's
+``{"q8", "s", "d"}`` dict under a parameter's path is the port's leaf dict
+under the parameter's name, and back (each array exact; a bfloat16 "d"
+comes back float32, as every bfloat16 array does).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ops.quant import is_quantized_leaf
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -35,21 +42,24 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     tensors, in the arrays' types)."""
     out: dict[str, torch.Tensor] = {}
 
+    def tensor(node) -> torch.Tensor:
+        if isinstance(node, torch.Tensor):
+            return node.detach().clone()
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes' type: widen, exact
+            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(arr)
+
     def walk(prefix: str, node) -> None:
+        if is_quantized_leaf(node):  # stays a leaf, its arrays converted
+            out[prefix] = {k: tensor(v) for k, v in node.items()}
+            return
         if isinstance(node, dict):
             items = node.items()
         elif isinstance(node, (list, tuple)):
             items = enumerate(node)
-        elif isinstance(node, torch.Tensor):
-            out[prefix] = node.detach().clone()
-            return
         else:
-            arr = np.array(node, copy=True)
-            if arr.dtype.name == "bfloat16":  # ml_dtypes' type: widen, exact
-                out[prefix] = torch.from_numpy(
-                    arr.astype(np.float32)).to(torch.bfloat16)
-            else:
-                out[prefix] = torch.from_numpy(arr)
+            out[prefix] = tensor(node)
             return
         for key, child in items:
             walk(f"{prefix}.{key}" if prefix else str(key), child)
@@ -63,13 +73,18 @@ def params_to_jax(state: dict[str, torch.Tensor]) -> dict:
     become lists). bfloat16 tensors come back as float32 (numpy has no
     bfloat16; the widening is exact)."""
     root: dict = {}
+
+    def to_numpy(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
     for name, t in state.items():
         node = root
         *path, leaf = name.split(".")
         for key in path:
             node = node.setdefault(key, {})
-        t = t.detach().cpu()
-        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+        node[leaf] = ({k: to_numpy(v) for k, v in t.items()}
+                      if is_quantized_leaf(t) else to_numpy(t))
 
     def listify(node):
         if not isinstance(node, dict):

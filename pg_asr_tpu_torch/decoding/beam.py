@@ -24,9 +24,11 @@ Two implementations, as in the JAX package:
     On a CUDA tensor (and ``use_kernel``) the whole scan, and the
     backtrack, run in one hand-written kernel (``cuda_beam``,
     ``csrc/ctc_beam.cu``); on a CPU tensor, or with ``use_kernel=False``,
-    the plain PyTorch version below (``_scan_hash`` + ``_backtrack_batch``),
-    which is also the kernel's reference. The choice is made here and
-    nowhere else.
+    the plain PyTorch version below (``ctc_beam_plain``: ``_scan_hash`` +
+    the backtrack), which is also the kernel's reference. Both go through
+    the registered op ``pgasr::ctc_beam`` (ops/registry.py), which picks
+    by the tensor's device and which torch.export keeps as one node;
+    ``use_kernel=False`` calls ``ctc_beam_plain`` directly.
   * ``impl="buffer"``: the structural oracle carrying (K, Lmax) prefix
     buffers and comparing them; always plain.
 
@@ -55,7 +57,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import cuda_beam
+from ..ops import registry  # noqa: F401  (defines torch.ops.pgasr)
 from .neural_lm import lm_advance, lm_init_state, lm_next_logp
 
 NEG = -1.0e30
@@ -294,15 +296,17 @@ def _step_hash(state, lp, top_lp, top_sym, *, K: int, M: int, Lmax: int,
 
 
 def _scan_hash(log_probs, frame_lens, *, K: int, A: int, Lmax: int,
-               blank: int, prune: int | None = None):
+               blank: int, prune: int | None = None, M: int | None = None):
     """Plain PyTorch version of the beam kernel: (B, T, A) float32
     log-probs, (B,) frame lengths -> final (lens (B, K) int32, scores (B, K)
     float32) and the backpointers (parents, syms), each (T, B, K) int32.
     Frames t >= frame_len keep the state and record identity parents with
-    sym -1."""
+    sym -1. M, the top-M symbols a frame, as the kernel takes it; by
+    default ``_prune_m(A, K, prune)``."""
     B, T, _ = log_probs.shape
     dev = log_probs.device
-    M = _prune_m(A, K, prune)
+    if M is None:
+        M = _prune_m(A, K, prune)
     top_lp, top_sym = _top_k(log_probs, M)                         # (B, T, M)
     state = (torch.zeros(B, K, dtype=torch.int64, device=dev),
              torch.full((B, K), -1, dtype=torch.int64, device=dev),
@@ -347,6 +351,27 @@ def _backtrack_slot(slot: int, parents, syms, Lmax: int) -> torch.Tensor:
     """One utterance's slot from its (T, K) backpointers -> (Lmax,)."""
     slots = torch.tensor([[slot]], device=parents.device)
     return _backtrack(slots, parents[:, None], syms[:, None], Lmax)[0, 0]
+
+
+def ctc_beam_plain(log_probs: torch.Tensor, frame_lens: torch.Tensor,
+                   K: int, M: int, Lmax: int, blank: int = 0,
+                   nbest: bool = False):
+    """Plain PyTorch version of what one ctc_beam launch returns
+    (cuda_beam.ctc_beam_cuda's labels, nb_lens and nll), on any device:
+    (B, T, A) float32 log-probs, (B,) int32 frame lengths -> labels (B, NB,
+    Lmax) int32, lens (B, NB) int32, nll (B, NB) float32; NB = 1, the best
+    slot, or K with ``nbest``, by score descending (ties in slot order)."""
+    A = log_probs.shape[-1]
+    lens_k, scores, parents, syms = _scan_hash(log_probs, frame_lens, K=K,
+                                               A=A, Lmax=Lmax, blank=blank,
+                                               M=M)
+    if not nbest:
+        labels, lens, nll = _backtrack_batch(parents, syms, lens_k, scores,
+                                             Lmax)
+        return labels[:, None], lens[:, None], nll[:, None]
+    order = torch.argsort(-scores, dim=1, stable=True)
+    return (_backtrack(order, parents, syms, Lmax), _take(lens_k, order),
+            -_take(scores, order))
 
 
 def _backtrack_batch(parents, syms, lens, scores, Lmax: int):
@@ -603,15 +628,12 @@ def beam_decode(log_probs: torch.Tensor, frame_lens: torch.Tensor,
     elif impl == "buffer":
         labels, lens, nll = _decode_one(lp, fl, K=K, A=A, Lmax=Lmax,
                                         blank=blank)
-    elif use_kernel and lp.is_cuda:
-        out = cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=_prune_m(A, K, prune),
-                                      Lmax=Lmax, blank=blank)
-        labels, lens, nll = out.labels[:, 0], out.nb_lens[:, 0], out.nll[:, 0]
     else:
-        lens_k, scores, parents, syms = _scan_hash(lp, fl, K=K, A=A, Lmax=Lmax,
-                                                   blank=blank, prune=prune)
-        labels, lens, nll = _backtrack_batch(parents, syms, lens_k, scores,
-                                             Lmax)
+        # pgasr::ctc_beam: the kernel on a CUDA tensor, ctc_beam_plain on a
+        # CPU one; use_kernel=False calls ctc_beam_plain directly
+        op = torch.ops.pgasr.ctc_beam if use_kernel else ctc_beam_plain
+        labels, lens, nll = (t[:, 0] for t in op(
+            lp, fl, K, _prune_m(A, K, prune), Lmax, blank, False))
     return _pad_labels(labels, max_label_len), lens, nll
 
 
@@ -628,14 +650,6 @@ def beam_decode_nbest(log_probs: torch.Tensor, frame_lens: torch.Tensor,
     K = beam_size
     lp = log_probs.to(torch.float32).contiguous()
     fl = frame_lens.to(device=lp.device, dtype=torch.int32).contiguous()
-    if use_kernel and lp.is_cuda:
-        out = cuda_beam.ctc_beam_cuda(lp, fl, K=K, M=_prune_m(A, K, None),
-                                      Lmax=Lmax, blank=blank, nbest=True)
-        labels, lens, nll = out.labels, out.nb_lens, out.nll
-    else:
-        lens_k, scores, parents, syms = _scan_hash(lp, fl, K=K, A=A, Lmax=Lmax,
-                                                   blank=blank)
-        order = torch.argsort(-scores, dim=1, stable=True)
-        labels = _backtrack(order, parents, syms, Lmax)
-        lens, nll = _take(lens_k, order), -_take(scores, order)
+    op = torch.ops.pgasr.ctc_beam if use_kernel else ctc_beam_plain
+    labels, lens, nll = op(lp, fl, K, _prune_m(A, K, None), Lmax, blank, True)
     return _pad_labels(labels, max_label_len), lens, nll

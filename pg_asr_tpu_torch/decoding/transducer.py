@@ -11,15 +11,19 @@ frame's done pool by a rolling int32 prefix hash and their length.
 
 Plain PyTorch on the encoder states' device (no Pallas kernel lies under
 the JAX functions): where JAX scans, a Python loop over frames and
-expansion rounds; where it vmaps the beam over the batch, a batch dimension
-written out. Payloads (labels, prediction-network states) move by gather
-where JAX contracts one-hot matrices: every output slot selects exactly one
-candidate, so the values are the same. The encoder-side joint projection is
+expansion rounds (``over_frames``: under torch.export the frames are one
+``scan`` of the same step, utils/loops.py); where it vmaps the beam over
+the batch, a batch dimension written out. Payloads (labels,
+prediction-network states) move by gather where JAX contracts one-hot
+matrices: every output slot selects exactly one candidate, so the values
+are the same. The encoder-side joint projection is
 hoisted out of the loops as one (B, T, J) product, and logits are cast to
 float32 after the ``joint_out`` linear in the compute dtype, as in JAX.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,6 +31,7 @@ from ..config import Config
 from ..models.bilstm_ctc import linear
 from ..models.transducer import embed_labels
 from ..ops.lstm import xla_gate_step
+from ..utils.loops import scan_steps
 from .beam import _logsumexp, rank_topk
 
 NEG = -1.0e30
@@ -64,33 +69,54 @@ def greedy_scan(params: dict, E: torch.Tensor, out_lens: torch.Tensor,
     the whole stream's cap; emissions stop once pos_offset + pos reaches
     it. -> (labels (B, max_label_len) int32 0-padded, lens (B,) int32,
     state)."""
-    B, T, _ = E.shape
-    L = max_label_len
+    B = E.shape[0]
     dev = E.device
-    h, c, g = state
     pos = torch.zeros(B, dtype=torch.int32, device=dev)
-    out = torch.zeros(B, L, dtype=torch.int32, device=dev)
-    slots = torch.arange(L, device=dev)
-    for t in range(T):
-        e_t = E[:, t]
-        active = t < out_lens
-        for _ in range(max_symbols):
-            logits = linear(params, "joint_out",
-                            torch.tanh(e_t + g)).float()  # (B, A)
-            sym = torch.argmax(logits, dim=-1).to(torch.int32)
-            emit = active & (sym != 0) & (pos < L)
-            if global_cap is not None:
-                emit &= (pos_offset + pos) < global_cap
-            h2, c2 = _pred_step(params, sym, h, c)
-            keep = emit[:, None]
-            h = torch.where(keep, h2, h)
-            c = torch.where(keep, c2, c)
-            g = torch.where(keep, linear(params, "joint_pred", h2), g)
-            out = out + ((slots[None, :] == pos[:, None])
-                         * (sym * emit)[:, None]).to(torch.int32)
-            pos = pos + emit.to(torch.int32)
-            active = emit  # blank or cap stops this frame's expansion
+    out = torch.zeros(B, max_label_len, dtype=torch.int32, device=dev)
+    step = functools.partial(_greedy_frame, params, max_symbols=max_symbols,
+                             pos_offset=pos_offset, global_cap=global_cap)
+    h, c, g, pos, out = over_frames(step, (*state, pos, out), E, out_lens)
     return out, pos, (h, c, g)
+
+
+def _greedy_frame(params: dict, carry, e_t: torch.Tensor,
+                  active: torch.Tensor, *, max_symbols: int, pos_offset=None,
+                  global_cap: int | None = None):
+    """One frame of the greedy search for the batch: carry (h, c, g, pos
+    (B,) labels so far, out (B, L) labels), e_t (B, J) the projected
+    frame, active (B,) t < out_len -> the next carry."""
+    h, c, g, pos, out = carry
+    L = out.shape[1]
+    slots = torch.arange(L, device=e_t.device)
+    for _ in range(max_symbols):
+        logits = linear(params, "joint_out",
+                        torch.tanh(e_t + g)).float()  # (B, A)
+        sym = torch.argmax(logits, dim=-1).to(torch.int32)
+        emit = active & (sym != 0) & (pos < L)
+        if global_cap is not None:
+            emit &= (pos_offset + pos) < global_cap
+        h2, c2 = _pred_step(params, sym, h, c)
+        keep = emit[:, None]
+        h = torch.where(keep, h2, h)
+        c = torch.where(keep, c2, c)
+        g = torch.where(keep, linear(params, "joint_pred", h2), g)
+        out = out + ((slots[None, :] == pos[:, None])
+                     * (sym * emit)[:, None]).to(torch.int32)
+        pos = pos + emit.to(torch.int32)
+        active = emit  # blank or cap stops this frame's expansion
+    return h, c, g, pos, out
+
+
+def over_frames(step, carry: tuple, E: torch.Tensor, out_lens: torch.Tensor):
+    """carry = step(carry, E[:, t], t < out_lens) for t = 0 .. T-1 ->
+    the last carry (utils/loops.scan_steps: under torch.export one scan
+    over the frames, so that the exported program does not grow with T)."""
+    T = E.shape[1]
+    valid = (torch.arange(T, device=E.device)[:, None]
+             < out_lens.to(E.device)[None, :])  # (T, B)
+    carry, _ = scan_steps(lambda c, e_t, v_t: (step(c, e_t, v_t), ()), carry,
+                          (E.transpose(0, 1), valid))
+    return carry
 
 
 def transducer_greedy_decode(params: dict, enc: torch.Tensor,
@@ -209,7 +235,7 @@ def _beam_all(params, E, out_lens, state0, *, K, A, Lmax, max_symbols):
     """Beam search over projected encoder frames E (B, T, J). Returns each
     utterance's FULL surviving pool: (labels (B, K, Lmax), lens (B, K),
     score (B, K) log-lik, dead slots ~-1e30)."""
-    B, T, _ = E.shape
+    B = E.shape[0]
     h1, c1, g1 = state0  # (1, P) / (1, J) empty-history state
     dev = E.device
     score = torch.full((B, K), NEG, device=dev)
@@ -219,9 +245,9 @@ def _beam_all(params, E, out_lens, state0, *, K, A, Lmax, max_symbols):
              score,
              torch.zeros(B, K, dtype=torch.int32, device=dev),
              h1.expand(B, K, -1), c1.expand(B, K, -1), g1.expand(B, K, -1))
-    for t in range(T):
-        carry = _beam_frame(params, carry, E[:, t], t < out_lens, K=K, A=A,
-                            Lmax=Lmax, max_symbols=max_symbols)
+    step = functools.partial(_beam_frame, params, K=K, A=A, Lmax=Lmax,
+                             max_symbols=max_symbols)
+    carry = over_frames(step, carry, E, out_lens)
     return carry[0], carry[1], carry[2]
 
 

@@ -18,7 +18,8 @@ form and ``lstm_bwd``), on CPU tensors their plain versions; then one
 batched attention for all steps. Free-running decoding (greedy, sampling
 for SCST, the beam search) is a Python loop over steps of
 ``ops/lstm.xla_gate_step``, the JAX package's gate numerics with the
-carries in the encoder states' dtype, as the transducer's decoders.
+carries in the encoder states' dtype, as the transducer's decoders; the
+greedy steps are one scan under torch.export (utils/loops.py).
 
 Parameters: a flat dict in the JAX package's layouts, ``encoder.*`` (the
 BiLSTM-CTC encoder's names), ``embed`` (A, E), ``dec_lstm.{W, U, b}`` and
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig, Seq2SeqConfig
 from ..decoding.beam import _top_k
 from ..ops.lstm import lstm_layer, xla_gate_step
+from ..utils.loops import scan_steps
 from . import bilstm_ctc, cast_params
 from .bilstm_ctc import init_linear, init_lstm, linear, torch_dtype
 
@@ -146,18 +148,23 @@ def _zero_carry(params: dict, n: int, enc_out: torch.Tensor):
 def greedy_from_encoder(params: dict, enc_out: torch.Tensor,
                         frame_mask: torch.Tensor, max_steps: int = 128):
     """Greedy decoding over precomputed encoder states: all `max_steps`
-    steps, as the JAX package's scan -> (tokens (B, max_steps) int64,
-    log-probs (B, max_steps, A) float32)."""
+    steps, as the JAX package's scan (utils/loops.scan_steps: one scan
+    under torch.export) -> (tokens (B, max_steps) int64, log-probs (B,
+    max_steps, A) float32)."""
     B = enc_out.shape[0]
-    tok = torch.zeros(B, dtype=torch.long, device=enc_out.device)
+    dev = enc_out.device
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
     h, c = _zero_carry(params, B, enc_out)
-    toks, lps = [], []
-    for _ in range(max_steps):
+
+    def step(carry, _):
+        tok, h, c = carry
         h, c, lp = _step(params, tok, h, c, enc_out, frame_mask)
         tok = torch.argmax(lp, dim=-1)
-        toks.append(tok)
-        lps.append(lp)
-    return torch.stack(toks, dim=1), torch.stack(lps, dim=1)
+        return (tok, h, c), (tok, lp)
+
+    _, (toks, lps) = scan_steps(step, (tok, h, c),
+                                (torch.arange(max_steps, device=dev),))
+    return toks.transpose(0, 1), lps.transpose(0, 1)
 
 
 def greedy_generate(params: dict, feats: torch.Tensor,

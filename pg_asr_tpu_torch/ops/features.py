@@ -105,9 +105,16 @@ def dft_conv_kernel(n_fft: int, win_length: int) -> np.ndarray:
     return np.concatenate([cos_b, sin_b], axis=0).astype(np.float32)[:, None, :]
 
 
-@functools.lru_cache(maxsize=16)
 def _constants(cfg: FeatureConfig, device: torch.device):
-    """(DFT conv kernel, mel filterbank, DCT matrix or None) on `device`."""
+    """(DFT conv kernel, mel filterbank, DCT matrix or None) on `device`,
+    cached; under torch.export made anew and not cached (the trace's
+    tensors are its own: they become the exported program's constants)."""
+    if torch.compiler.is_exporting():
+        return _make_constants(cfg, device)
+    return _cached_constants(cfg, device)
+
+
+def _make_constants(cfg: FeatureConfig, device: torch.device):
     n_mels = 128 if cfg.kind == "mfcc" else cfg.n_mels
     kern = torch.from_numpy(dft_conv_kernel(cfg.n_fft, cfg.win_length))
     fb = torch.from_numpy(mel_filterbank(n_mels, cfg.n_fft, cfg.sample_rate,
@@ -116,6 +123,9 @@ def _constants(cfg: FeatureConfig, device: torch.device):
            if cfg.kind == "mfcc" else None)
     return (kern.to(device), fb.to(device),
             None if dct is None else dct.to(device))
+
+
+_cached_constants = functools.lru_cache(maxsize=16)(_make_constants)
 
 
 @contextlib.contextmanager

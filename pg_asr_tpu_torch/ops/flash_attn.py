@@ -20,7 +20,10 @@ two backward kernels' numerics.
 (ops/cuda_flash_attn.py; csrc/flash_attn.cu, csrc/flash_attn_bwd.cu) for
 CUDA tensors, the plain versions for CPU tensors or ``use_kernel=False``.
 Under autograd it runs ``FlashAttention``; without (inference,
-``torch.no_grad``) the forward's inference form, which keeps no residuals.
+``torch.no_grad``) the forward's inference form, which keeps no residuals,
+through the registered op ``pgasr::flash_attn`` (ops/registry.py: the
+device picks the kernel or the plain version), which torch.export keeps as
+one node.
 A kernel that fails to build or launch raises; nothing falls back. The JAX
 module's ``available()`` and ``pad_multiple()`` are TPU constraints (a
 backend and a 128-frame block) that the port does not have.
@@ -31,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_flash_attn
+from . import registry  # noqa: F401  (defines torch.ops.pgasr)
 
 # jax/experimental/pallas/ops/tpu/flash_attention.py DEFAULT_MASK_VALUE
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -170,10 +174,13 @@ def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          use_kernel: bool = True) -> torch.Tensor:
     """Masked MHSA: the kernels on CUDA tensors (unless ``use_kernel`` is
     False), the plain versions otherwise; ``FlashAttention`` when a
-    gradient is wanted, the inference form otherwise. Shapes as
-    ``mhsa_plain``."""
+    gradient is wanted, the inference form otherwise, through
+    pgasr::flash_attn (ops/registry.py: the kernel on CUDA tensors, the
+    plain version on CPU ones), which torch.export keeps as one node.
+    Shapes as ``mhsa_plain``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, valid_mask, sm_scale, use_kernel)
-    if use_kernel and q.is_cuda:
-        return cuda_flash_attn.flash_attn_cuda(q, k, v, valid_mask, sm_scale)
+    if use_kernel:
+        return torch.ops.pgasr.flash_attn(q, k, v, valid_mask,
+                                          float(sm_scale)).transpose(1, 2)
     return mhsa_plain(q, k, v, valid_mask, sm_scale)

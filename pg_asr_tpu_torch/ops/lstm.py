@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lstm
+from . import registry  # noqa: F401  (defines torch.ops.pgasr)
 
 
 def _cell_fwd(xp_t, h, c, U, U32, m):
@@ -316,9 +317,12 @@ def lstm_layer(params: dict, x: torch.Tensor, mask: torch.Tensor,
 def bilstm_scan(xpf: torch.Tensor, xpb: torch.Tensor, Uf: torch.Tensor,
                 Ub: torch.Tensor, mask: torch.Tensor,
                 use_kernel: bool = True) -> torch.Tensor:
-    """Fused-direction recurrence, inference form: -> (B, T, 2H)."""
-    if use_kernel and xpf.is_cuda:
-        return cuda_lstm.bilstm_scan_cuda(xpf, xpb, Uf, Ub, mask)
+    """Fused-direction recurrence, inference form: -> (B, T, 2H). Through
+    pgasr::bilstm_fwd (ops/registry.py: the kernel on CUDA tensors, the
+    plain version on CPU ones), which torch.export keeps as one node;
+    ``use_kernel=False`` calls the plain version directly."""
+    if use_kernel:
+        return torch.ops.pgasr.bilstm_fwd(xpf, xpb, Uf, Ub, mask)
     return bilstm_scan_plain(xpf, xpb, Uf, Ub, mask)
 
 

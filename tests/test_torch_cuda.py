@@ -1918,3 +1918,120 @@ def test_rescore_and_fused_search_on_card_match_cpu(cuda):
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
         torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0)
+
+
+# --- the serving ops (ops/registry.py) and the exported program
+# (exporting.py) on the card: each pgasr op's CUDA implementation launches
+# its kernel once and holds the tolerances above against its plain version;
+# an artifact exported on the card gives the live forward's ids.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 4e-3)])
+def test_pgasr_bilstm_fwd_op_matches_plain(cuda, dtype, atol):
+    g = torch.Generator().manual_seed(7)
+    B, T, H = 6, 40, 64
+    lens = torch.tensor([T, 1, 17, 33, 2, 40])
+    mask = (torch.arange(T)[None] < lens[:, None]).float().to(cuda)
+    xpf, xpb = ((0.5 * torch.randn(B, T, 4 * H, generator=g)).to(cuda, dtype)
+                for _ in range(2))
+    Uf, Ub = (((torch.rand(H, 4 * H, generator=g) * 2 - 1) / 8).to(
+        cuda, dtype) for _ in range(2))
+    before = _bi_counts()
+    got = torch.ops.pgasr.bilstm_fwd(xpf, xpb, Uf, Ub, mask)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_bi_counts(), before)] == [0, 0, 0, 1, 0, 0]
+    want = bilstm_scan_plain(xpf, xpb, Uf, Ub, mask)
+    assert got.dtype == dtype and got.shape == (B, T, 2 * H)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbest", [False, True])
+def test_pgasr_ctc_beam_op_matches_plain(cuda, nbest):
+    lp, fl = _beam_case(cuda, 16, 120, 28, 5)
+    before = cuda_beam.LAUNCHES
+    got = torch.ops.pgasr.ctc_beam(lp, fl, 16, 6, 120, 0, nbest)
+    assert cuda_beam.LAUNCHES == before + 1
+    want = beam.ctc_beam_plain(lp, fl, 16, 6, 120, 0, nbest)
+    assert got[0].shape == (16, 16 if nbest else 1, 120)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    assert int(want[1].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pgasr_flash_attn_op_matches_plain(cuda, dtype):
+    q, k, v, valid = _attn_case(cuda, 4, 4, 201, 64, dtype, 11, fused=True)
+    before = cuda_flash_attn.LAUNCHES
+    got = torch.ops.pgasr.flash_attn(q, k, v, valid, 0.125)
+    torch.cuda.synchronize()
+    assert cuda_flash_attn.LAUNCHES == before + 1
+    assert got.shape == (4, 201, 4, 64) and got.is_contiguous()
+    want = flash_attn.mhsa_plain(q, k, v, valid, 0.125).transpose(1, 2)
+    atol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * v.abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,decoder", [("ctc", "beam"),
+                                            ("conformer", "greedy"),
+                                            ("transducer", "greedy")])
+def test_exported_artifact_on_card_equals_live(cuda, tmp_path, family,
+                                               decoder):
+    """A small model (random weights from a seed) exported on the card
+    (cpu,cuda for the BiLSTM-CTC): the loaded program's ids and lens equal
+    the live serving function's on the card (and on the CPU), and the
+    program launches the kernels of its pgasr nodes."""
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import (Config, ConformerConfig,
+                                         FeatureConfig)
+    from pg_asr_tpu_torch.data import Alphabet, make_synthetic_corpus
+    from pg_asr_tpu_torch.exporting import (EXPORT_DIR, ExportedModel,
+                                            export_model, make_serving_fn)
+    from pg_asr_tpu_torch.ops import registry
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import init_model_params
+
+    corpus = str(tmp_path / "corpus")
+    make_synthetic_corpus(corpus, n_utts=4, seed=11, min_dur=0.2, max_dur=0.3)
+    alphabet = Alphabet.load(corpus + "/alphabet.txt")
+    cfg = Config(features=FeatureConfig(kind="logmel", n_mels=16),
+                 model=ModelConfig(family=family, vocab_size=alphabet.size,
+                                   input_dim=16, input_proj_dim=32,
+                                   hidden_size=32, num_layers=2, dropout=0.0),
+                 conformer=ConformerConfig(num_layers=2, d_model=64,
+                                           num_heads=2, ffn_dim=64,
+                                           flash_attention=True))
+    model_dir = str(tmp_path / family)
+    save_model(model_dir, init_model_params(
+        cfg, torch.Generator().manual_seed(3), "cpu"), cfg)
+    platforms = ("cpu", "cuda") if family == "ctc" else ()
+    m = export_model(model_dir, corpus, batch_size=4, max_seconds=2.0,
+                     decoder=decoder, beam_size=8 if decoder == "beam" else 0,
+                     platforms=platforms, device="cuda")
+    rng = np.random.default_rng(0)
+    wave = (rng.standard_normal((4, 32000)) * 0.1).astype(np.float32)
+    ns = np.array([32000, 9000, 20000, 4000], np.int32)
+    params, cfg = load_model(model_dir, alphabet, device=cuda)
+    fn = make_serving_fn(params, cfg, decoder=decoder,
+                         beam_size=m["beam_size"])
+    with torch.inference_mode():
+        want = fn(torch.from_numpy(wave).to(cuda), torch.from_numpy(ns).to(
+            cuda))
+    for dev in (platforms or ("cuda",)):
+        ex = ExportedModel(f"{model_dir}/{EXPORT_DIR}", device=dev)
+        before = {op: getattr(mod, name)
+                  for op, (mod, name) in registry.OPS.items()}
+        ids, lens = ex(wave, ns)
+        launched = {op: getattr(mod, name) - before[op]
+                    for op, (mod, name) in registry.OPS.items()}
+        assert np.array_equal(ids, want[0].cpu().numpy()), dev
+        assert np.array_equal(lens, want[1].cpu().numpy()), dev
+        if dev == "cuda":
+            assert {op: n for op, n in launched.items() if n} == m[
+                "pgasr_ops"]
+        else:
+            assert not any(launched.values())
+    assert m["pgasr_ops"]

@@ -122,5 +122,6 @@ def test_parser_declares_every_jax_flag():
         if a.dest in ("wav", "chunk_frames", "right_context", "left_context",
                       "block_ms", "lm_order", "lm_weight", "lm_type",
                       "lm_steps", "lm_pass", "length_bonus",
-                      *cli._UNPORTED_FLAGS):
+                      "export_batch", "export_seconds", "export_platforms",
+                      "export_quantize", *cli._UNPORTED_FLAGS):
             assert a.default == jax_defaults[a.dest], a.dest
