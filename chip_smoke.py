@@ -276,9 +276,30 @@ the CPU or to a kernel's plain version):
      the cpu,cuda artifact also loaded on the CPU (no launch), its ids
      equal to the card's. Each registered op (ops/registry.py) must be
      reached by some export.
- 17. prints its total wall time, a JSON line of kernel results (with each
+ 17. the switch-MoE transformer (parallel/moe.py) at the full width of
+     Config()'s transformer with the CLI's --model moe (6 blocks, d_model
+     256, 4 experts, capacity factor 1.25), random weights from a seed:
+     `--mode train --model moe` through the CLI for one epoch (18 steps),
+     a resume for a second, `--mode predict` greedy and `--decoder beam`,
+     `--mode finetune_pg` REINFORCE and MWER (3 steps each), each run's
+     launches exact (no kernel but ctc_beam: one a beam batch, one an MWER
+     step; the MoE encoder takes the dense attention, as the JAX
+     package's); `--mode export` greedy, beam (K=16) and int8 of a
+     random-weight MoE model at the CLI's defaults (B=8 x 20 s), each
+     artifact's ids on 8 test clips equal to the live serving function's
+     and its ctc_beam launches to its pgasr:: nodes; card vs CPU on one
+     B=64 x 5 s batch of the trained model in float32 with dropout 0: the
+     routing of every block on every valid token (a flip allowed only at
+     a router top-2 margin within MOE_ROUTE_MARGIN, printed), the loss
+     and every gradient within the train step's bounds; the share of valid
+     tokens capacity drops; the slot cumsum in moe.route's layout
+     beside one along the outer axis; the MoE train step beside the dense
+     transformer's (dense attention both), float32 and bfloat16, in
+     turns, with the profiler's device time by group, the idle share and
+     the step's peak device memory.
+ 18. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
-     streaming, seq2seq, LM and export paths, ctc_beam's cases at A=256,
+     streaming, seq2seq, LM, export and MoE paths, ctc_beam's cases at A=256,
      lstm_fwd's and flash_attn's at the streamed windows, lstm_fwd_residual's and
      lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
      last line {"ok": true, "device": {...}}.
@@ -5371,6 +5392,329 @@ def phase_export(dev, corpus, alphabet, d):
     return {"launches": out_counts, "cases": cases, "wall_s": wall_s}
 
 
+# phase 17: the switch-MoE transformer (parallel/moe.py) at the full width
+# of Config()'s transformer with the CLI's --model moe (4 experts, capacity
+# factor 1.25, aux weight 0.01): finetune_pg steps of each objective
+MOE_PG_STEPS = 3
+# card vs CPU at B=64 x 5 s in float32: a valid token's expert may differ
+# only where the router's top-2 probabilities lie within this margin (the
+# two devices' float32 sums round apart); a flip at a larger margin is a
+# fault, not rounding
+MOE_ROUTE_MARGIN = 1e-5
+
+
+def moe_group(name: str) -> str:
+    """The kernel group of an MoE train step: GEMMs (the projections, the
+    dense attention's batched products, the experts' bmm), the routing and
+    dispatch (index copies and gathers, the slot cumsum), the CTC loss,
+    LayerNorm, and the rest (softmax, elementwise, reductions, the
+    optimizer)."""
+    return ("gemm" if any(w in name for w in ("gemm", "nvjet", "xmma"))
+            else "ctc_loss" if "ctc" in name else
+            "dispatch" if any(w in name for w in ("index", "scatter",
+                                                  "gather", "scan"))
+            else "layer_norm" if "layer_norm" in name else "other")
+
+
+MOE_GROUPS = ("gemm", "dispatch", "ctc_loss", "layer_norm", "other")
+
+
+def phase_moe(dev, corpus, alphabet, d):
+    """17. The switch-MoE transformer at full width: `--mode train --model
+    moe` through the CLI (an epoch, then a resume), `--mode predict`
+    greedy and beam, `--mode finetune_pg` REINFORCE and MWER, each run's
+    launches exact (no kernel but ctc_beam: one a beam batch and one an
+    MWER step); `--mode export` greedy, beam and int8 of a random-weight
+    MoE model (random weights emit text), each artifact's ids equal to the
+    live serving function's on 8 test clips and its ctc_beam launches to
+    its pgasr:: nodes; card vs CPU on one B=64 x 5 s batch of the trained
+    model in float32, dropout 0: the routing of every block on every valid
+    token, the loss and every gradient; the share of valid tokens capacity
+    drops; the slot cumsum's two layouts, device-timed; the MoE train step
+    beside the dense transformer's, float32 and bfloat16, in turns, with
+    the profiler's device time, idle share and the step's peak device
+    memory."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import save_model
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.data import load_manifest
+    from pg_asr_tpu_torch.data.audio import load_audio
+    from pg_asr_tpu_torch.exporting import (EXPORT_DIR, ExportedModel,
+                                            make_serving_fn)
+    from pg_asr_tpu_torch.parallel import moe
+    from pg_asr_tpu_torch.predict import load_model
+    from pg_asr_tpu_torch.train import AdamW, init_model_params, loss_and_grads
+
+    t_start = time.perf_counter()
+    bs = 32  # the CLI's default
+    clips = os.path.join(corpus, "clips")
+
+    def n_rows(split):
+        return len(load_manifest(os.path.join(corpus, f"{split}.tsv"), clips))
+
+    n_test = n_rows("test")
+    model_dir = os.path.join(d, "moe_trained")
+    zero = dict.fromkeys(all_counts(), 0)
+    launches = {}
+
+    def run(key, argv, beams):
+        """The CLI run, its launches: `beams` ctc_beam and nothing else."""
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        torch.cuda.synchronize()
+        got = all_counts()
+        print(f"[moe] {key}: rc={rc} in {time.perf_counter() - t0:.2f} s "
+              f"(host clock); launches "
+              f"{dict((k, v) for k, v in got.items() if v)}")
+        check(rc == 0, f"moe {key}: rc {rc}")
+        check(got == {**zero, "ctc_beam": beams}, f"moe {key}: launches "
+              f"{got}, expected {beams} ctc_beam and nothing else")
+        launches[f"moe_{key}"] = got
+        return out
+
+    argv = ["--mode", "train", "--corpus_path", corpus, "--model_path",
+            model_dir, "--device", str(dev), "--seed", str(SEED)]
+    run("train_epoch1", argv + ["--num_epochs", "1", "--model", "moe"], 0)
+    out = run("train_epoch2", argv + ["--num_epochs", "2"], 0)
+    check("resumed from epoch 1" in out
+          and "resuming with model family 'transformer'" in out,
+          "moe: the second run did not resume the family")
+    with open(os.path.join(model_dir, "config.json")) as fo:
+        saved = json.load(fo)["transformer"]
+    check(saved["num_experts"] == 4 and saved["capacity_factor"] == 1.25
+          and saved["num_layers"] == 6 and saved["d_model"] == 256,
+          f"moe config.json {saved}")
+    tl = np.load(os.path.join(model_dir, "train_loss.npy"))
+    vl = np.load(os.path.join(model_dir, "val_losses.npy"))
+    check(tl.shape == vl.shape == (2,) and np.isfinite(tl).all()
+          and np.isfinite(vl).all(), f"moe losses {tl} {vl}")
+    print(f"[moe] train losses {tl.tolist()}, val losses {vl.tolist()}")
+    for decoder, beams in (("greedy", 0), ("beam", -(-n_test // BEAM_B))):
+        out = run(f"predict_{decoder}",
+                  ["--mode", "predict", "--corpus_path", corpus,
+                   "--model_path", model_dir, "--device", str(dev),
+                   "--decoder", decoder], beams)
+        check("CER:" in out and "WER:" in out, f"moe predict {decoder}")
+    for objective in ("reinforce", "mwer"):
+        pg_dir = os.path.join(d, f"moe_pg_{objective}")
+        os.makedirs(pg_dir)
+        for name in ("config.json", "model_best.pt"):
+            shutil.copy(os.path.join(model_dir, name), pg_dir)
+        run(f"finetune_pg_{objective}",
+            ["--mode", "finetune_pg", "--corpus_path", corpus,
+             "--model_path", pg_dir, "--device", str(dev), "--pg_steps",
+             str(MOE_PG_STEPS), "--pg_eval_every", "0", "--pg_objective",
+             objective], MOE_PG_STEPS if objective == "mwer" else 0)
+        rewards = np.load(os.path.join(pg_dir, "pg_rewards.npy"))
+        check(rewards.shape == (MOE_PG_STEPS,) and np.isfinite(rewards).all(),
+              f"moe finetune_pg {objective}: rewards {rewards}")
+        print(f"[moe] finetune_pg {objective}: rewards {rewards.tolist()}")
+
+    # export of a random-weight MoE model at the CLI's defaults
+    utts = load_manifest(os.path.join(corpus, "test.tsv"), clips)[:EXPORT_B]
+    n = int(EXPORT_S * 16000)
+    wave = np.zeros((EXPORT_B, n), np.float32)
+    ns = np.zeros((EXPORT_B,), np.int32)
+    for i, u in enumerate(utts):
+        audio, _ = load_audio(u.audio_path)
+        wave[i, :len(audio)], ns[i] = audio, len(audio)
+    wave_t, ns_t = torch.from_numpy(wave).to(dev), torch.from_numpy(ns).to(dev)
+    base = Config()
+    cfg_r = fit_vocab(base.replace(
+        model=dataclasses.replace(base.model, family="transformer"),
+        transformer=dataclasses.replace(base.transformer, num_experts=4)),
+        alphabet.size)
+    random_dir = os.path.join(d, "moe_random")
+    save_model(random_dir, init_model_params(
+        cfg_r, torch.Generator().manual_seed(SEED), "cpu"), cfg_r)
+    export = {}
+    for key, flags in (("greedy", []),
+                       ("beam", ["--decoder", "beam", "--beam_size",
+                                 str(BEAM_K)]),
+                       ("int8", ["--export_quantize", "int8"])):
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["--mode", "export", "--corpus_path", corpus,
+                         "--model_path", random_dir, *flags,
+                         "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        check(rc == 0, f"moe export {key}: rc {rc}")
+        export_dir = os.path.join(random_dir, EXPORT_DIR)
+        ex = ExportedModel(export_dir, device=str(dev))
+        m = ex.manifest
+        ops = m["pgasr_ops"]
+        check(ops == ({"pgasr::ctc_beam": 1} if key == "beam" else {}),
+              f"moe export {key}: pgasr nodes {ops}")
+        want = {**zero, "ctc_beam": ops.get("pgasr::ctc_beam", 0)}
+        reset_counts()
+        ids, lens = ex.run(wave_t, ns_t)
+        torch.cuda.synchronize()
+        got = all_counts()
+        check(got == want, f"moe export {key}: the exported call launched "
+              f"{got}, its pgasr nodes {ops}")
+        launches[f"moe_export_{key}"] = got
+        params, cfg = load_model(random_dir, alphabet, device=dev)
+        live = make_serving_fn(params, cfg, decoder=m["decoder"],
+                               beam_size=m["beam_size"],
+                               quantize="" if m["quantize"] == "none"
+                               else m["quantize"])
+        reset_counts()
+        with torch.inference_mode():
+            want_ids, want_lens = live(wave_t, ns_t)
+        torch.cuda.synchronize()
+        check(all_counts() == want, f"moe export {key}: the live call "
+              f"launched {all_counts()}")
+        check(torch.equal(ids, want_ids) and torch.equal(lens, want_lens)
+              and int(lens.sum()) > 0,
+              f"moe export {key}: ids differ from the live ones or are "
+              f"empty (lens {lens.tolist()})")
+        export[key] = {"export_s": export_s, "nodes": m["nodes"],
+                       "pgasr_ops": ops, "mb": m["bytes"] / 1e6,
+                       "lens": lens.tolist()}
+        print(f"[moe] export {key}: {export_s:.1f} s, {m['nodes']} nodes, "
+              f"pgasr {ops}, {m['bytes'] / 1e6:.1f} MB; ids equal to the "
+              f"live call's on {EXPORT_B} clips (lens {lens.tolist()})")
+        del ex, live, params
+
+    # card vs CPU: one B=64 x 5 s batch of the trained model, float32
+    params, cfg = load_model(model_dir, alphabet, device=dev)
+    cfg0 = cfg.replace(transformer=dataclasses.replace(cfg.transformer,
+                                                       dropout=0.0))
+    arrays = flagship_batch(dev, vocab=alphabet.size)
+    routes = {"cuda": [], "cpu": []}
+    real_route = moe.route
+
+    def recording(tag):
+        def route(params, pre, x, token_valid, capacity):
+            r = real_route(params, pre, x, token_valid, capacity)
+            routes[tag].append((r, token_valid.reshape(-1)))
+            return r
+        return route
+
+    try:
+        moe.route = recording("cuda")
+        loss_g, g_g = loss_and_grads(params, arrays, cfg0)
+        moe.route = recording("cpu")
+        t0 = time.perf_counter()
+        loss_c, g_c = loss_and_grads({k: v.cpu() for k, v in params.items()},
+                                     [a.cpu() for a in arrays], cfg0)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        moe.route = real_route
+    check(len(routes["cuda"]) == len(routes["cpu"]) == 6,
+          f"moe: {len(routes['cuda'])} routed blocks")
+    flips, drop = [], []
+    for i, ((rg, vg), (rc, vc)) in enumerate(zip(routes["cuda"],
+                                                 routes["cpu"])):
+        v = vc
+        check(torch.equal(vg.cpu(), v), f"moe block {i}: valid tokens differ")
+        differ = (rg.expert.cpu() != rc.expert) & v
+        top2 = rc.probs.detach().topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        for n_ in differ.nonzero().flatten().tolist():
+            flips.append({"block": i, "token": n_,
+                          "margin": margin[n_].item()})
+            print(f"[moe] block {i} token {n_}: expert "
+                  f"{rg.expert[n_].item()} on the card, {rc.expert[n_].item()}"
+                  f" on the CPU, router top-2 margin {margin[n_].item():.2e}")
+        if not differ.any():
+            check(torch.equal(rg.pos.cpu()[v], rc.pos[v])
+                  and torch.equal(rg.kept.cpu()[v], rc.kept[v]),
+                  f"moe block {i}: equal experts but other slots")
+        drop.append(((v & ~rg.kept.cpu()).sum() / v.sum()).item())
+    check(all(f["margin"] <= MOE_ROUTE_MARGIN for f in flips),
+          f"moe: routing flips at a margin above {MOE_ROUTE_MARGIN}: {flips}")
+    loss_rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    # (a gradient that is 0 on both devices counts as agreeing)
+    grad_rel = {k: ((g_g[k].cpu() - g_c[k]).abs().max()
+                    / g_c[k].abs().max().clamp(min=1e-30)).item()
+                for k in g_c}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[moe] card vs CPU, B={B} x 5 s, float32, dropout 0: routing of "
+          f"{len(routes['cpu'])} blocks x {arrays[0].shape[0] * ATTN_T} "
+          f"tokens, {len(flips)} flips; loss {loss_g.item():.6f} vs "
+          f"{loss_c.item():.6f} (rel {loss_rel:.2e}, bound "
+          f"{TRAIN_LOSS_REL:.0e}); {len(grad_rel)} gradients, worst "
+          f"max|diff|/max|grad| {grad_rel[worst]:.2e} ({worst}; bound "
+          f"{TRAIN_GRAD_REL:.0e}); the CPU's step {cpu_s:.1f} s; capacity "
+          f"drops {np.mean(drop):.4f} of the valid tokens (by block "
+          + ", ".join(f"{x:.4f}" for x in drop) + ")")
+    check(math.isfinite(loss_g.item()) and loss_rel <= TRAIN_LOSS_REL,
+          f"moe loss card {loss_g.item()} vs CPU {loss_c.item()}")
+    check(all(math.isfinite(x) and x <= TRAIN_GRAD_REL
+              for x in grad_rel.values()),
+          f"moe gradients card vs CPU: {grad_rel}")
+    del g_g, g_c
+    # the slot cumsum of one block's (N, E) assignments: along the outer
+    # axis (a thread a column) and, as moe.route takes it, along the
+    # contiguous token axis of the transpose
+    assign = routes["cuda"][0][0].assign
+    cumsum_ms = {
+        "outer_axis": device_ms(lambda: torch.cumsum(assign, dim=0), 20),
+        "route": device_ms(lambda: torch.cumsum(assign.t().contiguous(),
+                                                dim=1), 20)}
+    print(f"[moe] the slot cumsum of {tuple(assign.shape)} int64 "
+          f"assignments (device-timed): along the outer axis "
+          f"{cumsum_ms['outer_axis']:.4f} ms, along the transpose's "
+          f"contiguous axis (moe.route) {cumsum_ms['route']:.4f} ms")
+
+    # the train step at B=64 x 5 s beside the dense transformer's
+    dense_cfg = fit_vocab(base.replace(model=dataclasses.replace(
+        base.model, family="transformer")), alphabet.size)
+    step_ms, breakdown, idle, peak_mb = {}, {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        steps = {}
+        p_m, c_m = load_model(model_dir, alphabet, device=dev, dtype=dtype)
+        c_d = dense_cfg.replace(model=dataclasses.replace(dense_cfg.model,
+                                                          dtype=dtype))
+        p_d = init_model_params(c_d, torch.Generator().manual_seed(SEED), dev)
+        for name, (p, c) in (("moe", (p_m, c_m)), ("dense", (p_d, c_d))):
+            opt = AdamW(c, p)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+
+            def step(p=p, c=c, opt=opt, gen=gen):
+                _, grads = loss_and_grads(p, arrays, c, gen)
+                opt.update(p, grads)
+
+            steps[name] = step
+        ms = dict(zip(("moe", "dense"), in_turns(steps["dense"], steps["moe"],
+                                                 3, 3)))
+        for name, step in steps.items():
+            key = f"{dtype}_{name}"
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak_mb[key] = (torch.cuda.max_memory_allocated() - before) / 1e6
+            breakdown[key] = device_breakdown(step, reps=2, groups=MOE_GROUPS,
+                                              classify=moe_group)
+            busy = sum(breakdown[key].values())
+            step_ms[key] = ms[name]
+            idle[key] = max(0.0, 1 - busy / ms[name])
+            print(f"[moe] train step B={B} x 5 s, {dtype}, {name}: "
+                  f"{ms[name]:.2f} ms (in turns); device time {busy:.2f} ms: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in
+                              breakdown[key].items())
+                  + f"; device idle {idle[key]:.0%}; the step's peak "
+                  f"device memory {peak_mb[key]:.0f} MB above its "
+                  "params and optimizer state")
+        del p_m, p_d, steps
+    wall_s = time.perf_counter() - t_start
+    print(f"[moe] phase 17 wall time {wall_s:.1f} s")
+    return {"launches": launches, "export": export, "routing_flips": flips,
+            "loss_rel": loss_rel, "worst_grad_rel": grad_rel[worst],
+            "drop_share_by_block": drop, "cpu_step_s": cpu_s,
+            "slot_cumsum_ms": cumsum_ms,
+            "step_ms": step_ms, "device_ms": breakdown, "idle_share": idle,
+            "step_peak_mb": peak_mb, "wall_s": wall_s}
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -5695,6 +6039,7 @@ def main() -> int:
         s2s = phase_seq2seq(dev, corpus, alphabet, d)
         lm = phase_lm(dev, corpus, alphabet, d)
         export = phase_export(dev, corpus, alphabet, d)
+        moe_res = phase_moe(dev, corpus, alphabet, d)
 
     import torch
 
@@ -5709,15 +6054,17 @@ def main() -> int:
     print(json.dumps({"seq2seq": s2s}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"export": export}))
+    print(json.dumps({"moe": moe_res}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
     for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq,
-        row["launches_by_path"].update(  # LM and export paths
+        row["launches_by_path"].update(  # LM, export and MoE paths
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
-              **lm["launches"], **export["launches"]}.items()})
+              **lm["launches"], **export["launches"],
+              **moe_res["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

@@ -10,7 +10,8 @@ the CLI's flags) it keeps as its own copies.
 Ported so far: training (``--mode train``), batch transcription
 (``--mode predict``) and policy-gradient fine-tuning (``--mode
 finetune_pg``, ``rl/``) of the BiLSTM-CTC, transformer-CTC and
-conformer-CTC families (greedy or CTC prefix beam; REINFORCE or MWER), of
+conformer-CTC families and the switch-MoE transformer (``--model moe``,
+``parallel/moe.py``) (greedy or CTC prefix beam; REINFORCE or MWER), of
 the RNN-T transducer (greedy or its own beam search,
 ``decoding/transducer.py``; MWER; any of the three encoders) and of the
 attention seq2seq (``models/seq2seq.py``: greedy or the decoder's beam
@@ -28,8 +29,9 @@ directories and neural LMs, read without flax or msgpack
 (``checkpoint.read_flax_checkpoint``); and ``--mode export``
 (``exporting.py``): the serving program of any ported family as one
 ``torch.export`` artifact, float32 or weight-only int8 (``ops/quant.py``),
-its kernels the registered ``pgasr`` operators (``ops/registry.py``). Only
-the switch-MoE transformer (and so its export) is refused. Their CPU tests
+its kernels the registered ``pgasr`` operators (``ops/registry.py``); and
+``--debug_nans`` (``utils/debug.py``). Device meshes are not ported yet
+(ROADMAP.md queue 1 item 15b). Their CPU tests
 hold each against the JAX package (``tests/test_torch_*.py``);
 ``chip_smoke.py`` phases 12, 13, 15 and 16 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;

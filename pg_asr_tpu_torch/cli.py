@@ -1,8 +1,8 @@
 """Command-line interface of the port (counterpart of pg_asr_tpu/cli.py).
 
     python -m pg_asr_tpu_torch --mode train --corpus_path C --model_path M \\
-        [--model ctc|transformer|conformer|transducer|seq2seq] \\
-        [--flash_attention] \\
+        [--model ctc|transformer|conformer|transducer|seq2seq|moe] \\
+        [--moe_experts E] [--capacity_factor F] [--flash_attention] \\
         [--remat] [--transducer_encoder bilstm|transformer|conformer] \\
         [--transducer_ctc_weight W] \\
         [--num_epochs N] [--batch_size N] [--learning_rate X] \\
@@ -12,7 +12,8 @@
         [--accum_steps K] [--ema_decay D] [--keep_ckpts K] \\
         [--save_every_steps N] [--val_metric loss|cer] \\
         [--loader_threads N] [--cache_audio_mb MB] [--profile_steps N] \\
-        [--init_from_torch model_best.pth [--trust_torch_pickle]]
+        [--init_from_torch model_best.pth [--trust_torch_pickle]] \\
+        [--debug_nans]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--lm_order 2|3 [--lm_type ngram|neural] [--lm_pass fused|rescore] \\
@@ -21,7 +22,7 @@
     python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
         [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
-        [--pg_eval_every N] [--batch_size N] [--device ...]
+        [--pg_eval_every N] [--batch_size N] [--debug_nans] [--device ...]
     python -m pg_asr_tpu_torch --mode preproc --corpus_path C \\
         [--librispeech_root R] [--lang en] [--units bpe \\
         [--bpe_vocab_size 256]]
@@ -44,11 +45,16 @@ The parser declares every flag of the JAX CLI, with its default, so that
 argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 ``--device`` names a torch device and defaults to ``cuda`` (asking for it
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
-sets ``train.seed``. Modes and options of the JAX CLI that are not ported
-yet exit with a message that says so and names their ROADMAP.md item: the
-MoE model (its export too), ``--mesh``, ``--microbatches``,
-``--moe_experts``, ``--capacity_factor``, ``--max_restarts``,
-``--fault_step`` and ``--debug_nans``. ``--mode export`` (exporting.py)
+sets ``train.seed``. Options of the JAX CLI that are not ported yet exit
+with a message that says so and names their ROADMAP.md item: ``--mesh``,
+``--microbatches``, ``--max_restarts`` and ``--fault_step``. ``--model
+moe`` is the transformer family with switch-MoE FFN blocks
+(parallel/moe.py; ``--moe_experts``, default 4, and
+``--capacity_factor`` set its config, as the JAX CLI does), served by
+every mode but ``--mode stream``, which refuses it as the JAX CLI does.
+``--debug_nans`` turns on NaN checks for the run (utils/debug.py): train
+and finetune_pg raise FloatingPointError on a step whose loss or
+gradients are not finite. ``--mode export`` (exporting.py)
 traces the serving program on ``--device`` and writes
 <model_path>/export/serving.pt2 + manifest.json; ``--export_platforms``
 takes ``cpu`` and ``cuda``.
@@ -89,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "policy-gradient fine-tuning, corpus preparation, "
                     "forced alignment, pseudo-labels and streaming "
                     "transcription for the BiLSTM-CTC, transformer-CTC, "
-                    "conformer-CTC, RNN-T transducer and attention "
-                    "seq2seq, so far)")
+                    "conformer-CTC, switch-MoE transformer, RNN-T "
+                    "transducer and attention seq2seq, so far)")
     p.add_argument("--mode", required=True, choices=MODES)
     p.add_argument("--corpus_path", type=str,
                    help="corpus dir (train/dev/test.tsv, clips/, alphabet.txt)")
@@ -311,25 +317,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="export: weight-only per-channel int8 (~4x smaller "
                         "weights, near-lossless; dequantized in the "
                         "program: see ops/quant.py)")
+    p.add_argument("--moe_experts", type=int, default=None,
+                   help="switch-MoE experts per block (--model moe "
+                        "defaults to 4)")
+    p.add_argument("--capacity_factor", type=float, default=None,
+                   help="MoE: expert capacity = tokens/experts * factor")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="train/finetune_pg: fail fast (FloatingPointError) "
+                        "on a non-finite loss or gradient; autograd's "
+                        "anomaly mode names the backward op of a NaN")
     # not ported: each non-default value exits with a message
     # (_refuse_unported_flags)
     p.add_argument("--microbatches", type=int, default=None,
                    help="pipeline microbatches (not ported)")
-    p.add_argument("--moe_experts", type=int, default=None,
-                   help="switch-MoE experts (not ported)")
-    p.add_argument("--capacity_factor", type=float, default=None,
-                   help="MoE expert capacity factor (not ported)")
-    p.add_argument("--debug_nans", action="store_true",
-                   help="fail fast on NaN (not ported)")
     return p
 
 
 # the JAX CLI's flags that are not ported -> what each belongs to
 _UNPORTED_FLAGS = {
-    "microbatches": "the pipeline mesh, item 15",
-    "moe_experts": "the switch-MoE transformer, item 15",
-    "capacity_factor": "the switch-MoE transformer, item 15",
-    "debug_nans": "NaN checks, item 16",
+    "microbatches": "the pipeline mesh, item 15b",
 }
 
 
@@ -355,14 +361,20 @@ def train_config(args, cfg: Config | None = None) -> Config:
     asked and refused by ``train.train``."""
     cfg = cfg or Config()
     model_kw = {}
+    moe = {}
     if args.model:
         # "moe" is the transformer family with switch-MoE FFN blocks (4
-        # experts, the JAX CLI's default); train.train refuses it
+        # experts unless --moe_experts says otherwise, as the JAX CLI)
         model_kw["family"] = ("transformer" if args.model == "moe"
                               else args.model)
         if args.model == "moe":
-            cfg = cfg.replace(transformer=_replace(cfg.transformer,
-                                                   num_experts=4))
+            moe["num_experts"] = 4
+    if args.moe_experts is not None:
+        moe["num_experts"] = args.moe_experts
+    if args.capacity_factor is not None:
+        moe["capacity_factor"] = args.capacity_factor
+    if moe:
+        cfg = cfg.replace(transformer=_replace(cfg.transformer, **moe))
     if args.dtype:
         model_kw["dtype"] = args.dtype
     if args.remat:
@@ -453,11 +465,12 @@ def pg_config(args) -> Config:
 
 def _refuse_unported_runs(args) -> None:
     """The run options of train and finetune_pg that are not ported
-    (ROADMAP.md queue 1 item 15)."""
+    (ROADMAP.md queue 1 item 15b)."""
     from . import not_ported
 
     if args.mesh:
-        raise not_ported("--mesh (device meshes)")
+        raise not_ported("--mesh (device meshes, item 15b of ROADMAP.md "
+                         "queue 1)")
     if args.max_restarts > 0:
         raise not_ported("--max_restarts (supervised relaunch, "
                          "utils/elastic.py)")
@@ -556,14 +569,10 @@ def stream(args, device) -> None:
 def export(args, device) -> None:
     """--mode export: the serving program of --model_path, traced on
     `device`, into <model_path>/export/ (exporting.export_model)."""
-    from . import not_ported
     from .exporting import export_model
 
     if not args.model_path:
         raise SystemExit("--mode export needs --model_path")
-    if args.model == "moe":
-        raise not_ported("--model moe export (the switch-MoE transformer, "
-                         "item 15 of ROADMAP.md queue 1)")
     platforms = tuple(s.strip() for s in
                       (args.export_platforms or "").split(",") if s.strip())
     export_model(args.model_path, corpus_path=args.corpus_path,
@@ -580,6 +589,19 @@ def main(argv=None) -> int:
         _refuse_unported_flags(parser, args)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
+    if not args.debug_nans:
+        return _run(args)
+    from .utils.debug import enable_nan_checks
+
+    # for this run only (the JAX CLI sets jax_debug_nans for its process)
+    enable_nan_checks(True)
+    try:
+        return _run(args)
+    finally:
+        enable_nan_checks(False)
+
+
+def _run(args) -> int:
     if args.mode == "preproc":
         if not args.corpus_path:
             raise SystemExit("--mode preproc needs --corpus_path")

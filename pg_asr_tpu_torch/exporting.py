@@ -51,7 +51,7 @@ import os
 import numpy as np
 import torch
 
-from . import not_ported, resolve_device
+from . import resolve_device
 from .config import Config
 from .ops import registry  # noqa: F401  (registers the pgasr ops)
 from .ops.quant import (LEAF_KEYS, dequantize_tree, is_quantized_leaf,
@@ -115,7 +115,8 @@ def make_serving_fn_from(get_params, cfg: Config, decoder: str = "greedy",
                 beam_size=beam_size if decoder == "beam" else 0))
         return fn
 
-    # the CTC families (ctc / transformer / conformer)
+    # the CTC families (ctc / transformer, dense or switch-MoE: its
+    # capacity a constant of the static batch and length / conformer)
     from .decoding.beam import beam_decode
     from .decoding.greedy import greedy_decode
 
@@ -203,9 +204,6 @@ def export_model(model_path: str, corpus_path: str | None = None,
                          "(supported: 'int8')")
     dev = resolve_device(device)
     cfg = model_config(model_path)
-    if cfg.model.family == "transformer" and cfg.transformer.num_experts > 0:
-        raise not_ported("exporting the switch-MoE transformer "
-                         "(ROADMAP.md queue 1 item 15)")
     tok_root = corpus_path or model_path
     try:
         alphabet = load_tokenizer(tok_root, cfg.text.units)

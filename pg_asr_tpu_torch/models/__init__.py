@@ -2,7 +2,9 @@
 pg_asr_tpu/models/__init__.py).
 
 Ported, trained and served: the flagship BiLSTM-CTC ("ctc"), the
-transformer-CTC ("transformer"), the conformer-CTC ("conformer"), the
+transformer-CTC ("transformer"; with ``transformer.num_experts`` > 0 the
+switch-MoE transformer of parallel/moe.py, ``--model moe``), the
+conformer-CTC ("conformer"), the
 RNN-T transducer ("transducer", models/transducer.py; decoded by
 decoding/transducer.py) and the attention seq2seq ("seq2seq",
 models/seq2seq.py, which decodes itself); the last two are not CTC
@@ -36,7 +38,8 @@ def _is_layer_norm(name: str) -> bool:
 def cast_params(params: dict[str, torch.Tensor], dtype: torch.dtype,
                 device: torch.device | str) -> dict[str, torch.Tensor]:
     """Params onto `device` in the compute `dtype`; LayerNorm scales and
-    biases stay float32 in every compute type, as in the JAX package."""
+    biases stay float32 in every compute type, as in the JAX package (the
+    MoE router and expert stacks take the compute type)."""
     return {k: v.to(device=device,
                     dtype=torch.float32 if _is_layer_norm(k) else dtype)
             for k, v in params.items()}
@@ -54,6 +57,11 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
         raise ValueError(f"{family!r} is not a CTC family: its forward is "
                          "not acoustic_forward's")
     if family == "transformer":
+        if cfg.transformer.num_experts > 0:
+            from ..parallel.moe import moe_apply
+
+            return moe_apply(params, feats, frame_mask, frame_lens, cfg,
+                             train=train, generator=generator)
         from . import transformer_ctc
 
         return transformer_ctc.apply(params, feats, frame_mask, frame_lens,

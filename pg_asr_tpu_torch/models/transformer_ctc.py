@@ -43,7 +43,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .. import not_ported
 from ..config import ModelConfig, TransformerConfig
 from ..ops import flash_attn
 from . import cast_params
@@ -220,10 +219,10 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
     (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
     training dropout draws its bits from `generator` (x's device).
-    pos_offset and pre_normalized: see ``frontend``."""
-    if tcfg.num_experts > 0:
-        raise not_ported("the switch-MoE transformer (transformer."
-                         "num_experts > 0, parallel/moe.py)")
+    pos_offset and pre_normalized: see ``frontend``. Dense whatever
+    ``tcfg.num_experts`` says, as the JAX package's: the switch-MoE
+    encoder is parallel/moe.py's, which the CTC dispatch picks (a
+    transducer's transformer encoder stays dense)."""
     x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
                                      mcfg, tcfg, pos_offset, pre_normalized)
     rate = tcfg.dropout

@@ -1,0 +1,282 @@
+"""The switch-MoE transformer encoder on one device (counterpart of
+pg_asr_tpu/parallel/moe.py).
+
+Each block of the transformer-CTC (models/transformer_ctc.py) keeps its
+attention and replaces its dense FFN by E experts with top-1 switch
+routing (Fedus et al. 2021):
+
+  * router: (N, d) x (d, E) in the compute type, softmax in float32. A
+    token's expert is the argmax (the first on ties, as ``jnp.argmax``),
+    its gate the max probability (``torch.amax``: a tie splits the
+    gradient evenly, as ``jnp.max``'s does; one expert has gate 1).
+  * slots: each expert has C slots, and a token claims the next free slot
+    of its expert in the flattened (B, T') row-major token order (an
+    exclusive cumsum of the assignments). Padded frames neither route nor
+    count. A token past its expert's C slots is dropped: its FFN output
+    is exactly 0, so only its residual passes.
+  * experts: the kept tokens are copied by index into an (E, C, d) buffer
+    (empty slots 0), the experts run as two batched products with b1 / b2
+    added to every slot and gelu (tanh form) between, and each used slot's
+    output is copied back to its token (the others' 0), times the gate,
+    in float32.
+  * load balance: aux = E * sum_e(frac_e * mean_p_e) over the valid
+    tokens, averaged over the blocks; ``moe_loss_terms`` returns it beside
+    the CTC loss as a stacked num/den component.
+
+The JAX package dispatches and combines through a one-hot (N, E, C) tensor
+and einsums. Each row of those einsums is one product plus exact zeros, so
+the index form here gives the same values bit for bit in float32, forward
+and gradients (for finite inputs), without that tensor: at B=64 x 5 s it
+would hold N = 12,864 tokens x 4 experts x C = 4,020 slots, 827 MB a block
+in float32. The one-hot form is kept only in the tests, as the oracle of
+that equality.
+
+C = ceil(N / E * capacity_factor) with N = B x ceil(T / subsample) of the
+PADDED batch (``moe_capacity``), so an utterance's output depends on its
+batch's size and padding, as in the JAX package.
+
+As the JAX package's ``moe_encode``, the encoder always takes the dense
+attention and no recomputation: ``flash_attention`` and ``model.remat``
+do not apply to it. No hand-written kernel runs here; the expert products
+are ``torch.bmm`` (the JAX package's einsums run outside any Pallas kernel
+too).
+
+Parameters are the transformer-CTC's flat dict with each block's FFN
+linears replaced: ``blocks.{i}.router.{w,b}`` (d, E) and (E,);
+``blocks.{i}.w1`` (E, d, ffn), ``b1`` (E, ffn), ``w2`` (E, ffn, d), ``b2``
+(E, d). The expert axis's sharding (``moe_param_specs``,
+``shard_moe_params``) is ROADMAP.md queue 1 item 15b.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import Config
+from ..models import cast_params
+from ..models.bilstm_ctc import (apply_dropout, dropout_bits, init_linear,
+                                 linear, torch_dtype)
+from ..models.transformer_ctc import (_init_ln, _layer_norm, _mhsa,
+                                      ctc_head, frontend, num_blocks,
+                                      padding_bias)
+from ..ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
+from ..ops.features import extract_features
+
+_DENSE_FFN = ("ffn_in.w", "ffn_in.b", "ffn_out.w", "ffn_out.b")
+
+
+def init_moe_params(cfg: Config, num_experts: int,
+                    generator: torch.Generator,
+                    device: torch.device | str = "cpu") -> dict:
+    """Transformer encoder params with a switch FFN per block: router (d, E)
+    and expert stacks (E, d, ffn) / (E, ffn, d) ~ N(0, 2 / (d + ffn)),
+    biases 0.1, as the JAX init; drawn on the CPU from `generator`, then
+    moved and cast (LayerNorm params stay float32)."""
+    mcfg, tcfg = cfg.model, cfg.transformer
+    d, f = tcfg.d_model, tcfg.ffn_dim
+    std = (2.0 / (d + f)) ** 0.5
+    p: dict[str, torch.Tensor] = {}
+    init_linear(p, "input_proj", tcfg.subsample * mcfg.input_dim, d,
+                generator)
+    for i in range(tcfg.num_layers):
+        pre = f"blocks.{i}"
+        _init_ln(p, f"{pre}.ln1", d)
+        init_linear(p, f"{pre}.qkv", d, 3 * d, generator)
+        init_linear(p, f"{pre}.attn_out", d, d, generator)
+        _init_ln(p, f"{pre}.ln2", d)
+        init_linear(p, f"{pre}.router", d, num_experts, generator)
+        p[f"{pre}.w1"] = torch.randn(num_experts, d, f,
+                                     generator=generator) * std
+        p[f"{pre}.b1"] = torch.full((num_experts, f), 0.1)
+        p[f"{pre}.w2"] = torch.randn(num_experts, f, d,
+                                     generator=generator) * std
+        p[f"{pre}.b2"] = torch.full((num_experts, d), 0.1)
+    _init_ln(p, "ln_final", d)
+    init_linear(p, "ctc_head", d, mcfg.vocab_size, generator)
+    return cast_params(p, torch_dtype(mcfg.dtype), device)
+
+
+def moe_params_from_dense(params: dict, num_experts: int,
+                          generator: torch.Generator) -> dict:
+    """A dense transformer's FFN weights tiled into every expert, with a
+    new router per block from `generator` (the test anchor: with one expert
+    and ample capacity this is the dense model exactly)."""
+    out = {k: v for k, v in params.items()
+           if not k.endswith(_DENSE_FFN)}
+    for i in range(num_blocks(params)):
+        pre = f"blocks.{i}"
+        w_in = params[f"{pre}.ffn_in.w"]
+        router: dict[str, torch.Tensor] = {}
+        init_linear(router, "r", w_in.shape[0], num_experts, generator)
+        out[f"{pre}.router.w"] = router["r.w"].to(w_in)
+        out[f"{pre}.router.b"] = router["r.b"].to(w_in)
+        for new, old in (("w1", "ffn_in.w"), ("b1", "ffn_in.b"),
+                         ("w2", "ffn_out.w"), ("b2", "ffn_out.b")):
+            v = params[f"{pre}.{old}"]
+            out[f"{pre}.{new}"] = v.expand(num_experts, *v.shape).clone()
+    return out
+
+
+class Routing(NamedTuple):
+    """One block's routing of N = B x T' tokens."""
+    probs: torch.Tensor   # (N, E) float32 router probabilities
+    expert: torch.Tensor  # (N,) int64, the argmax
+    gate: torch.Tensor    # (N,) float32, the max probability
+    assign: torch.Tensor  # (N, E) int64 one-hot of the valid tokens
+    pos: torch.Tensor     # (N,) int64, the slot within the expert
+    kept: torch.Tensor    # (N,) bool: valid and pos < capacity
+
+
+def route(params: dict, pre: str, x: torch.Tensor, token_valid: torch.Tensor,
+          capacity: int) -> Routing:
+    """Top-1 routing of block `pre` for x (B, T, d), token_valid (B, T)."""
+    B, T, d = x.shape
+    logits = linear(params, f"{pre}.router", x.reshape(B * T, d)).float()
+    probs = torch.softmax(logits, dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    gate = torch.amax(probs, dim=-1)
+    valid = token_valid.reshape(B * T)
+    assign = F.one_hot(expert, probs.shape[1]) * valid[:, None]
+    # the slot: the expert's earlier valid tokens, an exclusive cumsum
+    # along the contiguous token axis of the (E, N) assignments (on CUDA
+    # PyTorch's scan over the outer axis of (N, E) runs a thread a column,
+    # far slower: chip_smoke.py phase 17 times both)
+    at = assign.t().contiguous()
+    pos = ((torch.cumsum(at, dim=1) - at) * at).sum(dim=0)
+    return Routing(probs, expert, gate, assign, pos,
+                   valid & (pos < capacity))
+
+
+def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
+             token_valid: torch.Tensor, capacity: int):
+    """Switch-routed FFN of block `pre`. x: (B, T, d) in the compute type,
+    token_valid: (B, T) bool. Returns (out (B, T, d), aux float32)."""
+    B, T, d = x.shape
+    N = B * T
+    r = route(params, pre, x, token_valid, capacity)
+    E, C = r.probs.shape[1], capacity
+    # each kept token's flat slot e * C + pos (the others: a spare slot E *
+    # C, cut off) and each slot's token (an empty slot: a spare token N).
+    # Both directions are copies by index, whose gradients are gathers:
+    # no two rows add into one, so nothing accumulates atomically
+    slot = torch.where(r.kept, r.expert * C + r.pos, E * C)
+    token = torch.full((E * C + 1,), N, dtype=slot.dtype,
+                       device=slot.device).index_copy(
+        0, slot, torch.arange(N, device=slot.device))[:E * C]
+    # (the JAX package forms xin in float32 and casts it back: the same
+    # values, since every row is a copy of a row of x)
+    xin = x.new_zeros(E * C + 1, d).index_copy(
+        0, slot, x.reshape(N, d))[:E * C].reshape(E, C, d)
+    h = F.gelu(torch.bmm(xin, params[f"{pre}.w1"])
+               + params[f"{pre}.b1"][:, None, :], approximate="tanh")
+    y = torch.bmm(h, params[f"{pre}.w2"]) + params[f"{pre}.b2"][:, None, :]
+    out = x.new_zeros(N + 1, d, dtype=torch.float32).index_copy(
+        0, token, y.reshape(E * C, d).float())[:N]
+    out = (out * r.gate[:, None]).to(x.dtype)
+
+    # the load-balance loss over the valid tokens (uniform routing: 1.0)
+    tv = token_valid.reshape(B * T).float()
+    n_valid = torch.clamp(tv.sum(), min=1.0)
+    frac = r.assign.float().sum(dim=0) / n_valid
+    mean_p = (r.probs * tv[:, None]).sum(dim=0) / n_valid
+    aux = E * torch.sum(frac * mean_p)
+    return out.reshape(B, T, d), aux
+
+
+def moe_encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+               frame_lens: torch.Tensor, cfg: Config, capacity: int,
+               train: bool = False, generator: torch.Generator | None = None):
+    """The MoE encoder: transformer_ctc's frontend and dropout sites (1 +
+    2L, their bits drawn from `generator` in the dense encoder's order),
+    the dense attention, the switch FFN. Returns (x (B, T', d), out_mask
+    (B, T') bool, out_lens (B,), the blocks' mean aux)."""
+    tcfg = cfg.transformer
+    x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
+                                     cfg.model, tcfg)
+    rate = tcfg.dropout
+    x = apply_dropout(x, rate, dropout_bits(x, rate, generator, train))
+    bias = padding_bias(out_mask)
+    n = num_blocks(params)
+    aux_total = None
+    for i in range(n):
+        pre = f"blocks.{i}"
+        bits = [dropout_bits(x, rate, generator, train) for _ in range(2)]
+        h = _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), bias,
+                  tcfg.num_heads)
+        x = x + apply_dropout(h, rate, bits[0])
+        h, aux = _moe_ffn(params, pre, _layer_norm(params, f"{pre}.ln2", x),
+                          out_mask, capacity)
+        x = x + apply_dropout(h, rate, bits[1])
+        aux_total = aux if aux_total is None else aux_total + aux
+    return (_layer_norm(params, "ln_final", x), out_mask, out_lens,
+            aux_total / n)
+
+
+def moe_capacity(cfg: Config, batch: int, frames: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert for a padded batch of `frames` feature frames."""
+    n = batch * (-(-frames // cfg.transformer.subsample))
+    return max(int(math.ceil(n / num_experts * capacity_factor)), 1)
+
+
+def _capacity(cfg: Config, feats: torch.Tensor) -> int:
+    tcfg = cfg.transformer
+    return moe_capacity(cfg, feats.shape[0], feats.shape[1],
+                        tcfg.num_experts, tcfg.capacity_factor)
+
+
+def moe_apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
+              frame_lens: torch.Tensor, cfg: Config, train: bool = False,
+              generator: torch.Generator | None = None):
+    """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
+    float32, out_lens (B,)): the CTC families' forward contract, so every
+    decoder, the metrics and policy-gradient fine-tuning take the MoE
+    family unchanged. No aux term."""
+    x, out_mask, out_lens, _ = moe_encode(
+        params, feats, frame_mask, frame_lens, cfg, _capacity(cfg, feats),
+        train=train, generator=generator)
+    log_probs, omask_f = ctc_head(params, x, out_mask)
+    return log_probs, omask_f, out_lens
+
+
+def moe_loss_terms(params: dict, feats, mask, frame_lens, labels,
+                   label_lens, cfg: Config, train: bool = False,
+                   generator: torch.Generator | None = None,
+                   use_kernel: bool = True):
+    """Stacked (num, den) components [ctc, aux]: sum(num / max(den, 1)) =
+    ctc_mean + moe_aux_weight * aux_mean, the aux component weighted by the
+    valid tokens. Takes features (after SpecAugment). ``use_kernel``:
+    ``F.ctc_loss`` or the plain CTC recursion, as train.compute_loss."""
+    x, out_mask, out_lens, aux = moe_encode(
+        params, feats, mask, frame_lens, cfg, _capacity(cfg, feats),
+        train=train, generator=generator)
+    log_probs, _ = ctc_head(params, x, out_mask)
+    terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
+    num_c, den_c = terms(log_probs, out_lens, labels, label_lens)
+    nv = torch.clamp(out_mask.float().sum(), min=1.0)
+    num = torch.stack([num_c, cfg.transformer.moe_aux_weight * aux * nv])
+    return num, torch.stack([den_c, nv])
+
+
+def make_moe_loss(cfg: Config, num_experts: int, capacity: int,
+                  aux_weight: float = 0.01, use_kernel: bool = True):
+    """loss_fn(params, wave, num_samples, labels, label_lens) -> ctc_mean +
+    aux_weight x the blocks' mean aux, at a fixed `capacity`, without
+    dropout (the JAX package's test anchor; `num_experts` is read from the
+    params)."""
+    def loss_fn(params, wave, num_samples, labels, label_lens):
+        with torch.no_grad():
+            feats, mask, frame_lens = extract_features(wave, num_samples,
+                                                       cfg.features)
+        x, out_mask, out_lens, aux = moe_encode(params, feats, mask,
+                                                frame_lens, cfg, capacity)
+        log_probs, _ = ctc_head(params, x, out_mask)
+        terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
+        num, den = terms(log_probs, out_lens, labels, label_lens)
+        return num / torch.clamp(den, min=1.0) + aux_weight * aux
+
+    return loss_fn

@@ -5,7 +5,9 @@ Objectives by family, each plus an entropy bonus where paths are sampled
 and a supervised anchor (the CTC loss, the teacher-forced NLL or the RNN-T
 loss, weight rl.ctc_mix_weight):
 
-  * CTC families (ctc / transformer / conformer):
+  * CTC families (ctc / transformer, dense or switch-MoE / conformer; the
+    MoE's load-balance aux is a supervised term and has no part here, as
+    in the JAX package):
       - REINFORCE over sampled alignment paths: S paths per utterance from
         the per-frame categorical (temperature-scaled), CTC-collapsed and
         rewarded with negative CER / WER through the edit-distance DP
@@ -482,10 +484,10 @@ def make_pg_step(cfg: Config, optimizer, mesh=None,
     """step(params, generator, wave, num_samples, labels, label_lens) ->
     (loss, metrics): the PG loss's gradients, then the optimizer, which
     updates params in place. One device: meshes are not ported."""
-    from ..train import value_and_grad
+    from ..train import _MESH, value_and_grad
 
     if mesh is not None:
-        raise not_ported("--mesh (device meshes)")
+        raise not_ported(_MESH)
 
     def pg_step(params, generator, wave, ns, labels, label_lens):
         (loss, metrics), grads = value_and_grad(
@@ -498,17 +500,12 @@ def make_pg_step(cfg: Config, optimizer, mesh=None,
 
 
 def _check_pg_ported(cfg: Config) -> None:
-    from ..train import _MOE
+    from ..train import _MESH
 
     check_family(cfg.model.family)
     t = cfg.train
-    for bad, what in (
-            (cfg.model.family == "transformer"
-             and cfg.transformer.num_experts > 0, _MOE),
-            (t.mesh_shape != () or t.mesh_axes != ("data",),
-             "device meshes")):
-        if bad:
-            raise not_ported(what)
+    if t.mesh_shape != () or t.mesh_axes != ("data",):
+        raise not_ported(_MESH)
 
 
 def _refuse_jax_pg_resume(model_path: str, num_steps: int) -> None:

@@ -31,9 +31,14 @@ Also here for policy-gradient fine-tuning (rl/reinforce.py): ``AdamW``'s
 constant-rate form, ``_ema_update`` and the greedy dev CER
 (``corpus_cer``).
 
-Not ported (each refused with a message, ROADMAP.md): the switch-MoE
-transformer, device meshes and multi-host; the CLI refuses
-``--max_restarts`` and ``--fault_step``.
+The switch-MoE transformer (``transformer.num_experts`` > 0,
+parallel/moe.py) trains on one device: CTC plus the load-balance aux as
+stacked num/den components. Under ``--debug_nans`` (utils/debug.py) every
+step's loss and gradients are checked (``value_and_grad``).
+
+Not ported (each refused with a message, ROADMAP.md): device meshes and
+multi-host (queue 1 item 15b); the CLI refuses ``--max_restarts`` and
+``--fault_step``.
 """
 
 from __future__ import annotations
@@ -63,12 +68,13 @@ from .ops.augment import spec_augment, wave_augment, wave_augmented
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from .ops.features import extract_features
 from .ops.transducer import transducer_loss_terms
+from .parallel.moe import init_moe_params, moe_loss_terms
+from .utils import debug
 from .utils.logging import StepLogger
 from .utils.preempt import install_preemption_handler
 from .utils.profiling import start_trace, stop_trace
 
-_MOE = ("the switch-MoE transformer (transformer.num_experts > 0, --model "
-        "moe; ROADMAP.md queue 1 item 15)")
+_MESH = "device meshes (ROADMAP.md queue 1 item 15b)"
 
 
 def init_model_params(cfg: Config, generator: torch.Generator,
@@ -84,7 +90,8 @@ def init_model_params(cfg: Config, generator: torch.Generator,
         return seq2seq.init_params(cfg.model, cfg.seq2seq, generator, device)
     if family == "transformer":
         if cfg.transformer.num_experts > 0:
-            raise not_ported(_MOE)
+            return init_moe_params(cfg, cfg.transformer.num_experts,
+                                   generator, device)
         return transformer_ctc.init_params(cfg.model, cfg.transformer,
                                            generator, device)
     if family == "conformer":
@@ -296,8 +303,10 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                  train: bool, generator: torch.Generator | None = None,
                  use_kernel: bool = True) -> torch.Tensor:
     """Scalar loss of one batch (the JAX package's ``compute_loss``): CTC
-    for the CTC families; for the transducer the lattice loss, plus
-    ``ctc_weight`` x the auxiliary head's CTC loss when that is above 0;
+    for the CTC families, for the switch-MoE transformer plus
+    ``moe_aux_weight`` x the load-balance aux (``moe_loss_terms``); for the
+    transducer the lattice loss, plus ``ctc_weight`` x the auxiliary
+    head's CTC loss when that is above 0;
     for the seq2seq family the teacher-forced per-step NLL
     (``losses.seq2seq_nll_loss``).
     Features carry no gradient. In training with a generator and
@@ -335,6 +344,14 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
             num_c, den_c = ctc_terms(out[3], out[2], labels, label_lens)
             loss = loss + lam * num_c / torch.clamp(den_c, min=1.0)
         return loss
+    if (cfg.model.family == "transformer"
+            and cfg.transformer.num_experts > 0):
+        # the switch-MoE encoder: CTC + the load-balance aux, stacked
+        # num/den components
+        num, den = moe_loss_terms(params, feats, mask, frame_lens, labels,
+                                  label_lens, cfg, train=train,
+                                  generator=generator, use_kernel=use_kernel)
+        return torch.sum(num / torch.clamp(den, min=1.0))
     log_probs, _, out_lens = acoustic_forward(
         params, feats, mask, frame_lens, cfg, use_kernel=use_kernel,
         train=train, generator=generator)
@@ -345,15 +362,28 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
 def value_and_grad(fn: Callable, params: dict[str, torch.Tensor]):
     """(fn(params), {name: d loss / d param}) for fn returning a scalar loss
     or (loss, aux); a parameter the loss does not reach gets a zero
-    gradient, as in JAX."""
+    gradient, as in JAX. With NaN checks on (``--debug_nans``,
+    utils/debug.py) a non-finite loss raises FloatingPointError before the
+    backward, as do non-finite gradients after it and the anomaly mode's
+    NaN in a backward function."""
+    checks = debug.nan_checks_enabled()
     names = list(params)
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     with torch.enable_grad():
         out = fn(dict(zip(names, leaves)))
         loss = out[0] if isinstance(out, tuple) else out
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if checks:
+            debug.assert_all_finite({"loss": loss.detach()}, "the loss")
+        try:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        except RuntimeError as e:
+            if checks and "nan values" in str(e):
+                raise FloatingPointError(str(e)) from e
+            raise
     grads = {k: torch.zeros_like(p) if g is None else g
              for k, p, g in zip(names, leaves, grads)}
+    if checks:
+        debug.assert_all_finite(grads, "the gradients")
     return out, grads
 
 
@@ -444,10 +474,8 @@ def check_ported(cfg: Config) -> None:
     ``--max_restarts`` and ``--fault_step``)."""
     t = cfg.train
     check_family(cfg.model.family)
-    if cfg.model.family == "transformer" and cfg.transformer.num_experts > 0:
-        raise not_ported(_MOE)
     if t.mesh_shape != () or t.mesh_axes != ("data",):
-        raise not_ported("device meshes (ROADMAP.md queue 1 item 15)")
+        raise not_ported(_MESH)
 
 
 def _copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

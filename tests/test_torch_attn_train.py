@@ -231,12 +231,18 @@ def test_init_model_params_dispatches_by_family(family):
 
 
 def test_moe_transformer_is_refused():
+    # ported since the switch-MoE transformer is (tests/test_torch_moe.py):
+    # init_model_params dispatches num_experts > 0 to the MoE tree, with
+    # the JAX package's shapes
     jcfg = _config("transformer")
+    jcfg = jcfg.replace(transformer=jcfg.transformer.__class__(
+        **{**jcfg.transformer.__dict__, "num_experts": 4}))
     cfg = Config.from_json(jcfg.to_json())
-    cfg = cfg.replace(transformer=cfg.transformer.__class__(
-        **{**cfg.transformer.__dict__, "num_experts": 4}))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_model_params(cfg, torch.Generator(), "cpu")
+    got = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ref = params_from_jax(_tree(jcfg))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in ref.items()}
+    assert got["blocks.1.w1"].shape == (4, 64, 128)
 
 
 # ---------------------------------------------------------------- CLI

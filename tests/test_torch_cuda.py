@@ -2035,3 +2035,87 @@ def test_exported_artifact_on_card_equals_live(cuda, tmp_path, family,
         else:
             assert not any(launched.values())
     assert m["pgasr_ops"]
+
+
+# ------------------------------------------------ the switch-MoE transformer
+# (parallel/moe.py: no kernel of its own; its expert products are
+# torch.bmm). Card vs CPU in float32: the routing (expert, slot, kept)
+# equal on every valid token where the router's top-2 margin exceeds 1e-5
+# (asserted), the FFN's output atol 1e-5 and its gradients atol 1e-5 x
+# max|grad| (cuBLAS against the CPU's sums); one MoE loss and every
+# gradient, loss rtol 1e-5, gradients atol 1e-4 x max|grad| (through two
+# blocks and the CTC loss, F.ctc_loss's CUDA backward against its CPU one).
+
+def _moe_block(E, seed):
+    from pg_asr_tpu_torch.parallel import moe
+
+    g = torch.Generator().manual_seed(seed)
+    d, f = 32, 64
+    p = {"b.router.w": torch.randn(d, E, generator=g),
+         "b.router.b": torch.full((E,), 0.1),
+         "b.w1": torch.randn(E, d, f, generator=g) * 0.2,
+         "b.b1": torch.full((E, f), 0.1),
+         "b.w2": torch.randn(E, f, d, generator=g) * 0.2,
+         "b.b2": torch.full((E, d), 0.1)}
+    x = torch.randn(4, 37, d, generator=g)
+    valid = torch.arange(37)[None] < torch.tensor([37, 30, 12, 1])[:, None]
+    return moe, p, x, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [148, 20])
+def test_moe_ffn_on_card_matches_cpu(cuda, capacity):
+    moe, p, x, valid = _moe_block(4, seed=0)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    res = {}
+    for dev in ("cpu", cuda):
+        q = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        xd = x.to(dev).requires_grad_(True)
+        r = moe.route(q, "b", xd, valid.to(dev), capacity)
+        out, aux = moe._moe_ffn(q, "b", xd, valid.to(dev), capacity)
+        grads = torch.autograd.grad((out * cot.to(dev)).sum() + aux,
+                                    [xd, *q.values()])
+        res[str(dev)] = (r, out.detach().cpu(), aux.item(),
+                         [g.cpu() for g in grads])
+    (rc, oc, ac, gc), (rg, og, ag, gg) = res["cpu"], res[str(cuda)]
+    v = valid.reshape(-1)
+    top2 = rc.probs.detach().topk(2, dim=-1).values
+    assert (top2[:, 0] - top2[:, 1])[v].min() > 1e-5
+    for f in ("expert", "pos", "kept"):
+        assert torch.equal(getattr(rg, f).cpu()[v], getattr(rc, f)[v]), f
+    assert (~rc.kept[v]).any() == (capacity < 148)
+    torch.testing.assert_close(og, oc, rtol=0, atol=1e-5)
+    assert abs(ag - ac) <= 1e-6 * abs(ac)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_moe_loss_on_card_matches_cpu(cuda):
+    from pg_asr_tpu_torch.config import Config, TransformerConfig
+    from pg_asr_tpu_torch.train import init_model_params, loss_and_grads
+
+    cfg = Config(model=ModelConfig(family="transformer", vocab_size=9,
+                                   input_dim=80),
+                 transformer=TransformerConfig(num_layers=2, d_model=32,
+                                               num_heads=2, ffn_dim=64,
+                                               dropout=0.0, num_experts=4))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    ns = np.array([16000, 9000, 4000], np.int32)
+    wave = np.where(np.arange(16000)[None] < ns[:, None],
+                    rng.standard_normal((3, 16000)) * 3000,
+                    0).astype(np.int16)
+    labels = rng.integers(1, 9, (3, 8)).astype(np.int32)
+    label_lens = np.array([8, 5, 2], np.int32)
+    batch = [torch.from_numpy(a) for a in (wave, ns, labels, label_lens)]
+    loss_c, g_c = loss_and_grads(params, batch, cfg)
+    loss_g, g_g = loss_and_grads({k: v.to(cuda) for k, v in params.items()},
+                                 [a.to(cuda) for a in batch], cfg)
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for k, g in g_c.items():
+        torch.testing.assert_close(g_g[k].cpu(), g, rtol=0,
+                                   atol=1e-4 * g.abs().max().item(),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    assert g_c["blocks.0.router.w"].abs().max() > 0

@@ -61,8 +61,9 @@ def test_pattern_allows_the_port_and_catches_the_jax_package():
 def test_importing_every_module_of_the_port_loads_no_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         pg_asr_tpu_torch.__path__, "pg_asr_tpu_torch."))
-    assert {"pg_asr_tpu_torch.train", "pg_asr_tpu_torch.serving"} <= set(
-        modules)
+    assert {"pg_asr_tpu_torch.train", "pg_asr_tpu_torch.serving",
+            "pg_asr_tpu_torch.parallel.moe",
+            "pg_asr_tpu_torch.utils.debug"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"

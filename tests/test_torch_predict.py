@@ -135,8 +135,10 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 
 # the JAX CLI's flags that were not ported, each with a non-default value;
-# the export flags are ported since --mode export is: --mode predict runs
-# with them and ignores them, as the JAX CLI does
+# the export flags are ported since --mode export is, the MoE flags since
+# the switch-MoE transformer is and --debug_nans since its checks are:
+# --mode predict runs with them and ignores them (the model's config.json
+# decides), as the JAX CLI does
 UNPORTED_FLAGS = [
     (["--export_batch", "4"], "export_batch"),
     (["--export_seconds", "5"], "export_seconds"),
@@ -147,6 +149,9 @@ UNPORTED_FLAGS = [
     (["--capacity_factor", "1.5"], "capacity_factor"),
     (["--debug_nans"], "debug_nans"),
 ]
+PORTED_FLAGS = ("export_batch", "export_seconds", "export_platforms",
+                "export_quantize", "moe_experts", "capacity_factor",
+                "debug_nans")
 
 
 @pytest.mark.parametrize("extra,message", UNPORTED_FLAGS)
@@ -156,7 +161,7 @@ def test_cli_unported_options_exit_with_message(slice_setup, extra, message):
             "--aud_path", paths["aud_path"], "--alphabet",
             paths["alphabet_path"], "--model_path", torch_dir,
             "--device", "cpu", *extra]
-    if message.startswith("export_"):
+    if message in PORTED_FLAGS:
         assert cli.main(argv) == 0
         return
     with pytest.raises(SystemExit) as e:
@@ -323,11 +328,13 @@ def test_seq2seq_refusals_match_jax(slice_setup, seq2seq_dirs, what):
 
 
 def test_cli_other_modes_not_ported(tmp_path):
-    # every mode is ported; the export of the switch-MoE transformer is not
+    # every mode is ported, the switch-MoE transformer's export too
+    # (tests/test_torch_moe.py); what stays refused is a mode's device mesh
     with pytest.raises(SystemExit) as e:
-        cli.main(["--mode", "export", "--model", "moe", "--model_path",
-                  str(tmp_path), "--device", "cpu"])
-    assert "not yet ported" in str(e.value) and "item 15" in str(e.value)
+        cli.main(["--mode", "finetune_pg", "--model", "moe", "--mesh",
+                  "expert=2", "--corpus_path", str(tmp_path / "corpus"),
+                  "--model_path", str(tmp_path), "--device", "cpu"])
+    assert "not yet ported" in str(e.value) and "item 15b" in str(e.value)
 
 
 def _run(code_or_args, **kw):

@@ -123,5 +123,6 @@ def test_parser_declares_every_jax_flag():
                       "block_ms", "lm_order", "lm_weight", "lm_type",
                       "lm_steps", "lm_pass", "length_bonus",
                       "export_batch", "export_seconds", "export_platforms",
-                      "export_quantize", *cli._UNPORTED_FLAGS):
+                      "export_quantize", "moe_experts", "capacity_factor",
+                      "debug_nans", *cli._UNPORTED_FLAGS):
             assert a.default == jax_defaults[a.dest], a.dest

@@ -31,7 +31,7 @@ from pg_asr_tpu_torch.data import make_synthetic_corpus
 from pg_asr_tpu_torch.models import bilstm_ctc
 from pg_asr_tpu_torch.ops import ctc
 from pg_asr_tpu_torch.train import AdamW, loss_and_grads
-from tests.test_torch_predict import UNPORTED_FLAGS
+from tests.test_torch_predict import PORTED_FLAGS, UNPORTED_FLAGS
 
 
 @pytest.fixture(autouse=True)
@@ -539,22 +539,34 @@ def test_cli_seq2seq_train_predict_round_trip(tiny_corpus, tmp_path,
     (["--mesh", "data=2"], "mesh"),
     (["--max_restarts", "1"], "max_restarts"),
     (["--fault_step", "3"], "fault_step"),
-    (["--model", "moe"], "MoE"),
+    # the switch-MoE transformer trains since it was ported
+    # (tests/test_torch_moe.py); its pipeline microbatches stay refused
+    (["--model", "moe", "--microbatches", "2"], "microbatches"),
     (["--mesh", "fsdp=8"], "mesh"),
     *UNPORTED_FLAGS,
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                                                       extra, message):
-    if message.startswith("export_"):
-        # ported since --mode export is: a train run takes them and they
-        # change nothing in it, as in the JAX CLI
+    if message in PORTED_FLAGS:
+        # ported since --mode export is (the export flags), since the
+        # switch-MoE transformer is (--moe_experts and --capacity_factor
+        # set its config, as in the JAX CLI) and since NaN checks are
+        # (--debug_nans is no config field); the others change nothing in
+        # a train run, as in the JAX CLI
         base = ["--mode", "train", "--corpus_path", tiny_corpus,
                 "--model_path", str(tmp_path / "m")]
         parser = cli.build_parser()
         args = parser.parse_args(base + extra)
         cli._refuse_unported_flags(parser, args)
-        assert cli.train_config(args) == cli.train_config(
+        cfg, want = cli.train_config(args), cli.train_config(
             parser.parse_args(base))
+        moe = {"moe_experts": ("num_experts", 4),
+               "capacity_factor": ("capacity_factor", 1.5)}
+        if message in moe:
+            field, value = moe[message]
+            assert getattr(cfg.transformer, field) == value
+            want = want.replace(transformer=cfg.transformer)
+        assert cfg == want
         return
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", "--corpus_path", tiny_corpus,
