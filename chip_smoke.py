@@ -297,9 +297,29 @@ the CPU or to a kernel's plain version):
      transformer's (dense attention both), float32 and bfloat16, in
      turns, with the profiler's device time by group, the idle share and
      the step's peak device memory.
- 18. prints its total wall time, a JSON line of kernel results (with each
+ 18. the data mesh axis and the elastic supervisor (parallel/mesh.py,
+     utils/elastic.py) on the full-width BiLSTM-CTC at B=64 x 5 s: (a)
+     `--mode train --mesh data=1` through the CLI (an NCCL group of one),
+     one epoch against the same epoch without a mesh, run twice (the
+     float32 noise of F.ctc_loss's atomic backward is the yardstick): the
+     same launches (3 residual bilstm_fwd + 3 bilstm_bwd a step, 3
+     bilstm_fwd a dev batch), the losses and parameters within stated
+     bounds; then, in a group of one here, one step with and without the
+     mesh from the same state (the losses equal bit for bit, the gradient
+     all-reduce the identity), the all-reduce and both steps timed; (b) two
+     rank processes on the one card (`python3 chip_smoke.py --mesh-worker
+     ...`, gloo: NCCL takes one rank a device), 32 rows each, 3 steps
+     against the one-process steps on the same global batches (the CPU
+     tests' tolerances), each rank's launches and step time; (c) `--mode
+     train --max_restarts 1 --fault_step 4` through the CLI in a
+     subprocess: the child's exit 17, one relaunch, the resume at batch 4,
+     the result against (a)'s, the relaunch's seconds; (d) 3 MWER `--mode
+     finetune_pg` steps under `--mesh data=1` against the same steps
+     without a mesh (one ctc_beam launch a step).
+ 19. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
-     streaming, seq2seq, LM, export and MoE paths, ctc_beam's cases at A=256,
+     streaming, seq2seq, LM, export, MoE and mesh paths, ctc_beam's cases
+     at A=256,
      lstm_fwd's and flash_attn's at the streamed windows, lstm_fwd_residual's and
      lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
      last line {"ok": true, "device": {...}}.
@@ -5715,6 +5735,423 @@ def phase_moe(dev, corpus, alphabet, d):
             "step_peak_mb": peak_mb, "wall_s": wall_s}
 
 
+MESH_BS = 64  # phase 18's batch: the flagship's B=64
+MESH_STEPS = 3  # the two-rank steps (b) and the MWER steps (d)
+MESH_FAULT_STEP = 4  # (c): epoch 1, batch 4 of 9
+# (a), (c) and (d) against the run without a mesh: bit for bit where two
+# runs without a mesh agree bit for bit (a); where the card's float32
+# sums do not repeat (F.ctc_loss's CUDA backward adds atomically: phase
+# 11), the losses within RESUME_LOSS_REL and the parameters within
+# MESH_PARAM_REL of their largest value, the largest difference printed
+MESH_PARAM_REL = 1e-3
+# (b) two ranks vs one process, at the CPU tests' rtol / atol: the losses;
+# the first step's all-reduced gradients against the gradients of the
+# whole batch, every element, atol of the tensor's largest (a wrong
+# reduction's scale, a mean for the sum or a rank counted twice, moves
+# every element by half or more); and, as the CPU tests, every parameter
+# element whose gradient exceeds MESH_GRAD_FLOOR at every step: AdamW
+# moves a parameter by about lr * g / (|g| + 1e-8) over the moments, so
+# where |g| is near the float32 rounding of the batch's two splits (GEMMs
+# of 32 and 64 rows, F.ctc_loss's atomic backward) the update's direction
+# is noise; the count left out is printed
+MESH_RTOL, MESH_ATOL, MESH_GRAD_FLOOR = 1e-4, 1e-5, 1e-6
+
+
+def mesh_spec(alphabet):
+    """Phase 18 (b)'s inputs: the full-width BiLSTM-CTC (random weights from
+    the seed, dropout 0), float32, with a constant rate so that the steps
+    move it, and the global B=64 x 5 s batch, on the host."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.train import init_model_params
+
+    cfg = fit_vocab(Config(), alphabet.size)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout=0.0),
+        train=dataclasses.replace(cfg.train, warmup_steps=0,
+                                  learning_rate=1e-3))
+    params = init_model_params(cfg, torch.Generator().manual_seed(SEED),
+                               "cpu")
+    batch = flagship_batch("cpu", vocab=alphabet.size)
+    return cfg, params, tuple(a.numpy() for a in batch)
+
+
+def mesh_worker(spec_path: str, out_path: str, rank: int, port: int) -> int:
+    """`python3 chip_smoke.py --mesh-worker SPEC OUT RANK PORT`: rank RANK
+    of two on the spec's device (the card) over gloo (NCCL takes one rank a
+    device): its 32 rows of the spec's global batch, MESH_STEPS
+    data-parallel train steps, its launches, losses, step times, the first
+    step's all-reduced gradients and the parameters into OUT."""
+    import torch
+
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import AdamW, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                          device=dev)
+    summed = []
+
+    class Recorded(mesh.GroupRank):
+        def sum_grads(self, grads):
+            out = super().sum_grads(grads)
+            if not summed:
+                summed.append({k: v.cpu() for k, v in out.items()})
+            return out
+
+    try:
+        dp = Recorded(dev)
+        cfg = Config.from_json(spec["config"])
+        params = {k: v.to(dev) for k, v in spec["params"].items()}
+        arrays = [torch.from_numpy(a).to(dev) for a in
+                  mesh.local_rows(spec["batch"], dp.rank, dp.world)]
+        step = make_train_step(cfg, AdamW(cfg, params), dp)
+        gen = torch.Generator().manual_seed(SEED)  # world 2: on the host
+        reset_counts()
+        losses, ms = [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(params, gen, *arrays).item())  # synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.save({"losses": losses, "ms": ms, "counts": all_counts(),
+                    "rows": int(arrays[0].shape[0]), "grads": summed[0],
+                    "params": {k: v.cpu() for k, v in params.items()}},
+                   out_path)
+    finally:
+        mesh.destroy_distributed()
+    return 0
+
+
+def _drift(got: dict, want: dict) -> float:
+    """max over the parameters of max|got - want| / max|want|."""
+    return max((got[k].float() - want[k].float()).abs().max().item()
+               / want[k].float().abs().max().item() for k in want)
+
+
+def phase_mesh(dev, corpus, alphabet, d):
+    """18. The data mesh axis and the elastic supervisor on the full-width
+    BiLSTM-CTC at B=64: (a) `--mode train --mesh data=1` through the CLI
+    (an NCCL group of one) against the same epoch without a mesh, run
+    twice (the float32 noise of F.ctc_loss's atomic backward); in a group
+    of one in this process, one step with and without the mesh from the
+    same state (the losses equal bit for bit, the gradient all-reduce the
+    identity), the all-reduce and both steps timed; (b) two rank processes
+    on the one card over gloo, 32 rows each, MESH_STEPS steps against the
+    one-process steps on the same global batches, each rank's launches;
+    (c) `--max_restarts 1 --fault_step MESH_FAULT_STEP` through the CLI:
+    the child's exit 17, one relaunch, the resumed run against (a)'s, the
+    relaunch's cost; (d) MESH_STEPS MWER `--mode finetune_pg` steps under
+    `--mesh data=1` against the same steps without a mesh."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.data import load_manifest
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import (AdamW, loss_and_grads,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    result, launches = {}, {}
+    clips = os.path.join(corpus, "clips")
+    n_train = len(load_manifest(os.path.join(corpus, "train.tsv"), clips))
+    n_dev = len(load_manifest(os.path.join(corpus, "dev.tsv"), clips))
+    steps, dev_batches = -(-n_train // MESH_BS), -(-n_dev // MESH_BS)
+    inf, res, bwd, per = route_counters()
+    want_counts = {res: per * steps, bwd: per * steps,
+                   inf: per * dev_batches}
+    base = ["--mode", "train", "--corpus_path", corpus, "--device", str(dev),
+            "--seed", str(SEED), "--num_epochs", "1", "--batch_size",
+            str(MESH_BS)]
+
+    # (a) one epoch without a mesh, under --mesh data=1, without again
+    runs = {}
+    for name, extra in (("plain", []), ("data1", ["--mesh", "data=1"]),
+                        ("plain_again", [])):
+        model = os.path.join(d, f"mesh_{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(base + ["--model_path", model, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        got = {k: counts[k] for k in want_counts}
+        check(rc == 0, f"(a) {name}: rc {rc}")
+        check(got == want_counts and sum(counts.values()) == sum(
+            want_counts.values()), f"(a) {name}: launches {counts}, "
+            f"expected {want_counts}")
+        if name == "data1":
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            check(f"torch.distributed initialized (process 0/1, {backend})"
+                  in out, f"(a) --mesh data=1 did not form a {backend} group")
+            launches["mesh_data1_train"] = counts
+        runs[name] = {
+            "params": load_checkpoint(os.path.join(
+                model, "model_last.pt"))["params"],
+            "train": np.load(os.path.join(model, "train_loss.npy")),
+            "val": np.load(os.path.join(model, "val_losses.npy")),
+            "wall_s": wall}
+    ref = runs["plain"]
+    cmp_a = {}
+    for name in ("data1", "plain_again"):
+        r = runs[name]
+        loss_rel = max(abs(float(r[k][0]) - float(ref[k][0]))
+                       / abs(float(ref[k][0])) for k in ("train", "val"))
+        cmp_a[name] = {"loss_rel": loss_rel,
+                       "params_drift": _drift(r["params"], ref["params"]),
+                       "bit_equal": all(torch.equal(r["params"][k],
+                                                    ref["params"][k])
+                                        for k in ref["params"])}
+    print(f"[mesh] (a) 1 epoch, {steps} steps at B={MESH_BS} + {dev_batches}"
+          f" dev batches, launches {want_counts} in each run; --mesh data=1 "
+          f"(a group of one) vs no mesh: {cmp_a['data1']}; no mesh again vs "
+          f"no mesh: {cmp_a['plain_again']} (the card's own repeatability)"
+          "; wall s " + ", ".join(
+              f"{k} {v['wall_s']:.2f}" for k, v in runs.items()))
+    for name, c in cmp_a.items():
+        check(c["loss_rel"] <= RESUME_LOSS_REL
+              and c["params_drift"] <= MESH_PARAM_REL,
+              f"(a) {name} vs the run without a mesh: {c}")
+    # where two runs without a mesh agree bit for bit, the world-1 run must
+    check(cmp_a["data1"]["bit_equal"]
+          or not cmp_a["plain_again"]["bit_equal"],
+          "(a) --mesh data=1 differs from two identical runs without a mesh")
+    result["a"] = {"compare": cmp_a, "launches": want_counts,
+                   "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+
+    # (a) in a group of one here: one step with and without the mesh from
+    # the same parameters and generator state, and the times
+    cfg_b, params0, batch = mesh_spec(alphabet)
+    arrays = [torch.from_numpy(a).to(dev) for a in batch]
+    mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                          device=dev)
+    try:
+        dp = mesh.GroupRank(dev)
+        p_plain = {k: v.to(dev) for k, v in params0.items()}
+        p_mesh = {k: v.clone() for k, v in p_plain.items()}
+        steps_fn = {
+            "plain": make_train_step(cfg_b, AdamW(cfg_b, p_plain)),
+            "data1": make_train_step(cfg_b, AdamW(cfg_b, p_mesh), dp)}
+        gens = {k: torch.Generator(device=dev).manual_seed(SEED)
+                for k in steps_fn}
+        loss_plain = steps_fn["plain"](p_plain, gens["plain"], *arrays)
+        loss_mesh = steps_fn["data1"](p_mesh, gens["data1"], *arrays)
+        _, grads = loss_and_grads(p_plain, arrays, cfg_b)
+        summed = dp.sum_grads(grads)
+        identity = all(torch.equal(summed[k], grads[k]) for k in grads)
+        check(torch.equal(loss_plain, loss_mesh) and identity,
+              f"(a) world-1 step: loss {loss_mesh.item()!r} vs "
+              f"{loss_plain.item()!r}, all-reduce identity {identity}")
+        nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+        allreduce_ms = time_ms(lambda: dp.sum_grads(grads), 20)
+        step_ms, plain_ms = in_turns(
+            lambda: steps_fn["plain"](p_plain, gens["plain"], *arrays),
+            lambda: steps_fn["data1"](p_mesh, gens["data1"], *arrays), 5, 5)
+    finally:
+        mesh.destroy_distributed()
+    print(f"[mesh] (a) world-1 NCCL step at B={MESH_BS} x 5 s, float32: loss "
+          f"{loss_mesh.item():.6f} equal bit for bit to the step without a "
+          f"mesh, the gradient all-reduce the identity; the all-reduce of "
+          f"the {len(grads)} gradients ({nbytes / 1e6:.2f} MB, one buffer) "
+          f"{allreduce_ms:.3f} ms; the step {step_ms:.2f} ms with the mesh, "
+          f"{plain_ms:.2f} ms without (in turns)")
+    result["a"].update(allreduce_ms=allreduce_ms, grads_mb=nbytes / 1e6,
+                       step_ms=step_ms, plain_step_ms=plain_ms)
+
+    # (b) two ranks on the one card over gloo vs the one-process steps
+    spec_path = os.path.join(d, "mesh_spec.pt")
+    torch.save({"config": cfg_b.to_json(), "params": params0,
+                "batch": batch, "device": str(dev)}, spec_path)
+    port = mesh.free_port()
+    outs = [os.path.join(d, f"mesh_rank{r}.pt") for r in range(2)]
+    logs = [os.path.join(d, f"mesh_rank{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as fo:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 spec_path, outs[r], str(r), str(port)], stdout=fo,
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_b = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        with open(logs[r]) as fo:
+            log = fo.read()
+        check(rc == 0, f"(b) rank {r}: rc {rc}\n{log[-3000:]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    p_ref = {k: v.to(dev) for k, v in params0.items()}
+    opt = AdamW(cfg_b, p_ref)
+    ref_losses, ref_grads = [], None
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p_ref.items()}
+    for _ in range(MESH_STEPS):
+        loss, grads = loss_and_grads(p_ref, arrays, cfg_b)
+        ref_losses.append(loss.item())
+        if ref_grads is None:
+            ref_grads = {k: g.cpu() for k, g in grads.items()}
+        sure = {k: sure[k] & (grads[k].abs() > MESH_GRAD_FLOOR)
+                for k in sure}
+        opt.update(p_ref, grads)
+    p_ref = {k: v.cpu() for k, v in p_ref.items()}
+    sure = {k: v.cpu() for k, v in sure.items()}
+    left_out = sum(int((~v).sum()) for v in sure.values())
+    worst = {"loss": 0.0, "param": 0.0, "grad": 0.0}
+    for rk in ranks:
+        for k, g in ref_grads.items():  # every element, no mask
+            diff = (rk["grads"][k] - g).abs()
+            bound = MESH_ATOL * g.abs().max() + MESH_RTOL * g.abs()
+            worst["grad"] = max(worst["grad"], (diff.max()
+                                                / g.abs().max()).item())
+            check(bool((diff <= bound).all()), f"(b) the all-reduced "
+                  f"gradient of {k}: max|diff| {diff.max().item():.3e}, "
+                  f"max|g| {g.abs().max().item():.3e}")
+        for a, b in zip(rk["losses"], ref_losses):
+            worst["loss"] = max(worst["loss"], abs(a - b) / max(abs(b),
+                                                                1e-30))
+            check(abs(a - b) <= MESH_ATOL + MESH_RTOL * abs(b),
+                  f"(b) losses {rk['losses']} vs {ref_losses}")
+        for k, v in p_ref.items():
+            diff = (rk["params"][k] - v).abs()[sure[k]]
+            bound = MESH_ATOL + MESH_RTOL * v.abs()[sure[k]]
+            if diff.numel():
+                worst["param"] = max(worst["param"], diff.max().item())
+            check(bool((diff <= bound).all()), f"(b) {k}: max|diff| "
+                  f"{diff.max().item():.3e}")
+        check(rk["counts"][res] == per * MESH_STEPS
+              and rk["counts"][bwd] == per * MESH_STEPS
+              and sum(rk["counts"].values()) == 2 * per * MESH_STEPS,
+              f"(b) rank launches {rk['counts']}")
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in p_ref)
+    check(same, "(b) the two ranks' parameters differ")
+    for r, rk in enumerate(ranks):
+        launches[f"mesh_2rank_r{r}_train"] = rk["counts"]
+    rank_ms = [float(np.mean(rk["ms"][1:])) for rk in ranks]
+    print(f"[mesh] (b) 2 ranks on cuda:0 over gloo, {ranks[0]['rows']} rows "
+          f"each of the B={MESH_BS} x 5 s batch, {MESH_STEPS} steps: losses "
+          f"{ranks[0]['losses']} vs one process {ref_losses} (worst rel "
+          f"{worst['loss']:.2e}); parameters equal on both ranks and within "
+          f"rtol {MESH_RTOL:g} / atol {MESH_ATOL:g} of one process's (worst "
+          f"max|diff| {worst['param']:.2e}; {left_out} of "
+          f"{sum(v.numel() for v in sure.values())} elements with |g| <= "
+          f"{MESH_GRAD_FLOOR:g} at some step left out, as the CPU tests); "
+          "the first step's all-reduced gradients against the "
+          f"whole batch's, every element: worst max|diff| / max|g| "
+          f"{worst['grad']:.2e} (atol {MESH_ATOL:g} of it, rtol "
+          f"{MESH_RTOL:g}); launches a rank "
+          f"{ranks[0]['counts']}; step ms a rank (steps 2-{MESH_STEPS}, "
+          f"host clock) {[round(m, 2) for m in rank_ms]}; {wall_b:.1f} s "
+          "with the processes' start")
+    result["b"] = {"losses": [rk["losses"] for rk in ranks],
+                   "one_process_losses": ref_losses, "worst": worst,
+                   "left_out": left_out, "step_ms": rank_ms,
+                   "wall_s": wall_b}
+
+    # (c) --max_restarts 1 --fault_step N through the CLI, a subprocess
+    model_c = os.path.join(d, "mesh_fault")
+    cmd = [sys.executable, "-m", "pg_asr_tpu_torch", *base, "--model_path",
+           model_c, "--save_every_steps", "1", "--max_restarts", "1",
+           "--fault_step", str(MESH_FAULT_STEP)]
+    t0 = time.perf_counter()
+    stamped = []
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        for line in proc.stdout:
+            stamped.append((time.perf_counter(), line.rstrip()))
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall_c = time.perf_counter() - t0
+    text = "\n".join(line for _, line in stamped)
+    exits = [(t, line) for t, line in stamped
+             if line.startswith("[elastic] child exited")]
+    resumed = [(t, line) for t, line in stamped if "resumed from" in line]
+    with open(os.path.join(model_c, ".fault_injected")) as fo:
+        marker = fo.read()
+    check(rc == 0 and len(exits) == 1 and "rc=17" in exits[0][1]
+          and marker == str(MESH_FAULT_STEP) and len(resumed) == 1
+          and f"batch {MESH_FAULT_STEP}" in resumed[0][1],
+          f"(c) rc {rc}, marker {marker!r}\n{text[-3000:]}")
+    last_c = load_checkpoint(os.path.join(model_c, "model_last.pt"))
+    val_c = np.load(os.path.join(model_c, "val_losses.npy"))
+    val_rel = abs(float(val_c[0]) - float(ref["val"][0])) / abs(
+        float(ref["val"][0]))
+    drift_c = _drift(last_c["params"], ref["params"])
+    relaunch_s = resumed[0][0] - exits[0][0]
+    print(f"[mesh] (c) --max_restarts 1 --fault_step {MESH_FAULT_STEP}: the "
+          f"child exited 17 at step {marker}, one relaunch ({exits[0][1]}), "
+          f"{resumed[0][1]}; rc {rc}; step {last_c['step']} (uninterrupted "
+          f"{steps}); val loss rel {val_rel:.2e} (bound "
+          f"{RESUME_LOSS_REL:.0e}), params max|diff|/max|p| {drift_c:.2e} "
+          f"vs (a)'s run without a mesh (bound {MESH_PARAM_REL:.0e}); the "
+          f"relaunch {relaunch_s:.2f} s from the exit to the resume (1 s "
+          f"backoff, process start, CUDA init, restore); {wall_c:.1f} s in "
+          "all")
+    check(last_c["step"] == steps and val_rel <= RESUME_LOSS_REL
+          and drift_c <= MESH_PARAM_REL, "(c) the resumed run vs (a)")
+    result["c"] = {"fault_step": MESH_FAULT_STEP, "relaunch_s": relaunch_s,
+                   "wall_s": wall_c, "val_rel": val_rel,
+                   "params_drift": drift_c}
+
+    # (d) MESH_STEPS MWER steps under --mesh data=1 vs without a mesh
+    pg = {}
+    for name, extra in (("plain", []), ("data1", ["--mesh", "data=1"])):
+        model = os.path.join(d, f"mesh_pg_{name}")
+        shutil.copytree(os.path.join(d, "mesh_plain"), model)
+        reset_counts()
+        rc, out = run_cli(["--mode", "finetune_pg", "--corpus_path", corpus,
+                           "--model_path", model, "--device", str(dev),
+                           "--pg_objective", "mwer", "--pg_steps",
+                           str(MESH_STEPS), "--pg_eval_every", "0",
+                           "--batch_size", str(MESH_BS), *extra])
+        counts = all_counts()
+        check(rc == 0, f"(d) {name}: rc {rc}")
+        check(counts["ctc_beam"] == MESH_STEPS
+              and counts[res] == per * MESH_STEPS
+              and counts[bwd] == per * MESH_STEPS, f"(d) {name}: {counts}")
+        if name == "data1":
+            launches["mesh_data1_pg_mwer"] = counts
+        pg[name] = {"rewards": np.load(os.path.join(model, "pg_rewards.npy")),
+                    "params": load_checkpoint(os.path.join(
+                        model, "model_last.pt"))["params"]}
+    rew_diff = float(np.abs(pg["data1"]["rewards"]
+                            - pg["plain"]["rewards"]).max())
+    drift_d = _drift(pg["data1"]["params"], pg["plain"]["params"])
+    print(f"[mesh] (d) {MESH_STEPS} MWER steps at B={MESH_BS} under --mesh "
+          f"data=1: rewards {pg['data1']['rewards'].tolist()} vs "
+          f"{pg['plain']['rewards'].tolist()} without a mesh (max|diff| "
+          f"{rew_diff:.2e}), params max|diff|/max|p| {drift_d:.2e} (bound "
+          f"{MESH_PARAM_REL:.0e}); {MESH_STEPS} ctc_beam launches each")
+    check(pg["data1"]["rewards"][0] == pg["plain"]["rewards"][0]
+          and rew_diff <= RESUME_LOSS_REL and drift_d <= MESH_PARAM_REL,
+          "(d) the MWER steps under --mesh data=1")
+    result["d"] = {"reward_max_diff": rew_diff, "params_drift": drift_d}
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 18 in {result['wall_s']:.1f} s")
+    result["launches"] = launches
+    return result
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -6001,6 +6438,9 @@ def bilstm_rows(bi, src, route_counts):
 def main() -> int:
     if sys.argv[1:2] == ["--recipe-worker"]:
         return recipe_worker(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                           int(sys.argv[5]))
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
@@ -6040,6 +6480,7 @@ def main() -> int:
         lm = phase_lm(dev, corpus, alphabet, d)
         export = phase_export(dev, corpus, alphabet, d)
         moe_res = phase_moe(dev, corpus, alphabet, d)
+        mesh_res = phase_mesh(dev, corpus, alphabet, d)
 
     import torch
 
@@ -6055,16 +6496,17 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"export": export}))
     print(json.dumps({"moe": moe_res}))
+    print(json.dumps({"mesh": mesh_res}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
     for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq,
-        row["launches_by_path"].update(  # LM, export and MoE paths
+        row["launches_by_path"].update(  # LM, export, MoE and mesh paths
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
               **lm["launches"], **export["launches"],
-              **moe_res["launches"]}.items()})
+              **moe_res["launches"], **mesh_res["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

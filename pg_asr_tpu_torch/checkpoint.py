@@ -182,6 +182,15 @@ def save_checkpoint(path: str, state: dict) -> None:
             os.unlink(tmp)
 
 
+def cleanup_tmp(model_path: str) -> None:
+    """Remove what a save cut short left in `model_path` (its temporary
+    ``tmp*.tmp`` files: a process killed mid-save runs no ``finally``). The
+    trainer calls it before its first save, on the one process that
+    writes."""
+    for path in glob.glob(os.path.join(model_path, "tmp*.tmp")):
+        os.unlink(path)
+
+
 def load_checkpoint(path: str) -> dict:
     """Read a checkpoint onto the CPU (tensors and numbers only, no pickled
     code). Its ``params`` entry is the model's state dict. A JAX package

@@ -13,7 +13,7 @@
         [--save_every_steps N] [--val_metric loss|cer] \\
         [--loader_threads N] [--cache_audio_mb MB] [--profile_steps N] \\
         [--init_from_torch model_best.pth [--trust_torch_pickle]] \\
-        [--debug_nans]
+        [--mesh data=N] [--max_restarts K [--fault_step S]] [--debug_nans]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--lm_order 2|3 [--lm_type ngram|neural] [--lm_pass fused|rescore] \\
@@ -22,7 +22,8 @@
     python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
         [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
-        [--pg_eval_every N] [--batch_size N] [--debug_nans] [--device ...]
+        [--pg_eval_every N] [--batch_size N] [--mesh data=N] \\
+        [--max_restarts K] [--debug_nans] [--device ...]
     python -m pg_asr_tpu_torch --mode preproc --corpus_path C \\
         [--librispeech_root R] [--lang en] [--units bpe \\
         [--bpe_vocab_size 256]]
@@ -46,15 +47,40 @@ argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 ``--device`` names a torch device and defaults to ``cuda`` (asking for it
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Options of the JAX CLI that are not ported yet exit
-with a message that says so and names their ROADMAP.md item: ``--mesh``,
-``--microbatches``, ``--max_restarts`` and ``--fault_step``. ``--model
-moe`` is the transformer family with switch-MoE FFN blocks
+with a message that says so and names their ROADMAP.md item: a live mesh
+axis other than ``data`` (``expert``: item 15b.2; ``model``, ``fsdp``,
+``seq``, ``pipe``: 15b.3) and ``--microbatches`` (15b.3).
+
+``--mesh data=N`` (train, finetune_pg) trains on N ranks, one process each
+over torch.distributed (parallel/mesh.py): the CLI starts them itself,
+on ``cuda:0`` .. ``cuda:N-1`` (or N CPU processes under ``--device cpu``),
+returns nonzero if any fails, and forwards SIGTERM to them; ``data=1``
+runs in this process, in a process group of one. With
+``PGASR_DISTRIBUTED=1`` (``PGASR_COORDINATOR`` host:port,
+``PGASR_NUM_PROCESSES``, ``PGASR_PROCESS_ID``, the JAX CLI's variables)
+this process is one rank on its ``--device``, started by the user, and
+``data`` must equal the number of processes. Without ``--mesh`` the run
+stays on one device (the JAX CLI takes every local device). The batch's
+rows split over the ranks and the loss and gradients sum over them, so
+that N ranks train as one device would on the whole batch (train.py).
+``--max_restarts K`` (train, finetune_pg) supervises the run and relaunches
+it, up to K times, when it dies other than by SIGTERM; the relaunch
+resumes from model_last (utils/elastic.py). Under ``--mesh data=N`` the
+launcher supervises the N rank processes as one group: when one dies, the
+others are stopped and all N relaunch together. ``--fault_step S`` ends a train run
+with exit code 17 at global step S, once per model directory, to test
+that path.
+
+``--model moe`` is the transformer family with switch-MoE FFN blocks
 (parallel/moe.py; ``--moe_experts``, default 4, and
 ``--capacity_factor`` set its config, as the JAX CLI does), served by
 every mode but ``--mode stream``, which refuses it as the JAX CLI does.
-``--debug_nans`` turns on NaN checks for the run (utils/debug.py): train
-and finetune_pg raise FloatingPointError on a step whose loss or
-gradients are not finite. ``--mode export`` (exporting.py)
+``--debug_nans`` turns on NaN checks for the run (utils/debug.py), as the
+JAX CLI's ``jax_debug_nans``: a NaN raises FloatingPointError and +-Inf
+passes, in every step's loss and gradients (train, finetune_pg), the dev
+pass and the forward outputs of predict, align, pseudolabel, stream and
+export. The JAX CLI sets its flag for the process; here it holds for one
+``main`` call. ``--mode export`` (exporting.py)
 traces the serving program on ``--device`` and writes
 <model_path>/export/serving.pt2 + manifest.json; ``--export_platforms``
 takes ``cpu`` and ``cuda``.
@@ -80,7 +106,10 @@ it, as in the JAX CLI; ``train.train(config=...)`` or a config.json does).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import subprocess
+import sys
 
 from .config import Config
 
@@ -183,10 +212,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train: torch.profiler trace of N steady-state "
                         "steps into <model_path>/trace")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device meshes (not ported)")
+                   help="train/finetune_pg: data=N trains on N ranks, one "
+                        "process each (cuda:0..N-1, or the CPU under "
+                        "--device cpu); other axes are not ported yet")
     p.add_argument("--fault_step", type=int, default=None,
-                   help="train: fault injection for --max_restarts (not "
-                        "ported)")
+                   help="train: end the process with exit code 17 at this "
+                        "global step, once per model dir (tests "
+                        "--max_restarts)")
     p.add_argument("--init_from_torch", type=str, default=None,
                    help="train: warm-start from a reference torch "
                         "checkpoint (model_best.pth) when model_path has "
@@ -290,7 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoint); 0 disables")
     p.add_argument("--max_restarts", type=int, default=0,
                    help="train/finetune_pg: relaunch a run that dies "
-                        "ungracefully (not ported)")
+                        "ungracefully, up to N times; it resumes from "
+                        "model_last")
     # stream
     p.add_argument("--wav", type=str, default=None,
                    help="stream: input audio file")
@@ -323,9 +356,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capacity_factor", type=float, default=None,
                    help="MoE: expert capacity = tokens/experts * factor")
     p.add_argument("--debug_nans", action="store_true",
-                   help="train/finetune_pg: fail fast (FloatingPointError) "
-                        "on a non-finite loss or gradient; autograd's "
-                        "anomaly mode names the backward op of a NaN")
+                   help="fail fast (FloatingPointError) on a NaN in a "
+                        "step's loss or gradients, the dev loss or a "
+                        "mode's log-probs (+-Inf passes); autograd's anomaly "
+                        "mode names the backward op of a NaN")
     # not ported: each non-default value exits with a message
     # (_refuse_unported_flags)
     p.add_argument("--microbatches", type=int, default=None,
@@ -335,7 +369,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # the JAX CLI's flags that are not ported -> what each belongs to
 _UNPORTED_FLAGS = {
-    "microbatches": "the pipeline mesh, item 15b",
+    "microbatches": "the pipeline mesh, item 15b.3",
 }
 
 
@@ -438,7 +472,18 @@ def train_config(args, cfg: Config | None = None) -> Config:
             tr[name] = value
     if args.trust_torch_pickle:
         tr["trust_torch_pickle"] = True
+    if args.mesh:
+        tr["mesh_shape"], tr["mesh_axes"] = _mesh_spec(args.mesh)
     return cfg.replace(train=_replace(cfg.train, **tr))
+
+
+def _mesh_spec(spec: str):
+    from .parallel.driver import parse_mesh_spec
+
+    try:
+        return parse_mesh_spec(spec)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}") from None
 
 
 def pg_config(args) -> Config:
@@ -463,19 +508,90 @@ def pg_config(args) -> Config:
     return cfg.replace(rl=_replace(cfg.rl, **rl))
 
 
-def _refuse_unported_runs(args) -> None:
-    """The run options of train and finetune_pg that are not ported
-    (ROADMAP.md queue 1 item 15b)."""
-    from . import not_ported
+def _data_axis(args) -> int:
+    """The size of the ``data`` axis of a train or finetune_pg run (1
+    without ``--mesh``, and for the other modes, which run on one device);
+    a live axis the port does not run exits through ``not_ported``."""
+    if not args.mesh or args.mode not in ("train", "finetune_pg"):
+        return 1
+    from .parallel.driver import data_parallel_size
 
-    if args.mesh:
-        raise not_ported("--mesh (device meshes, item 15b of ROADMAP.md "
-                         "queue 1)")
-    if args.max_restarts > 0:
-        raise not_ported("--max_restarts (supervised relaunch, "
-                         "utils/elastic.py)")
-    if args.fault_step is not None:
-        raise not_ported("--fault_step (fault injection for --max_restarts)")
+    return data_parallel_size(*_mesh_spec(args.mesh))
+
+
+def _launch_ranks(argv: list[str], world: int, device: str,
+                  max_restarts: int) -> int:
+    """``--mesh data=N``: run this command as N rank processes, rank r on
+    ``cuda:r`` (or the CPU), joined through the ``PGASR_*`` variables at a
+    free local port, supervised as one group (utils/elastic.supervise):
+    SIGTERM and SIGINT forwarded to every rank; when a rank fails, the
+    others get a grace period, then are killed, and with `max_restarts` >
+    0 all N are relaunched together, at a new port. Returns 0, or the
+    first failing rank's exit code."""
+    import torch
+
+    from .parallel.mesh import free_port
+    from .utils import elastic
+
+    kind = device.split(":")[0]
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {device}: no CUDA device is available"
+                             " on this host (pass --device cpu to run the "
+                             "plain PyTorch path)")
+        if world > torch.cuda.device_count():
+            raise SystemExit(f"--mesh data={world}: only "
+                             f"{torch.cuda.device_count()} CUDA device(s) "
+                             "visible")
+        devices = [f"cuda:{r}" for r in range(world)]
+    elif kind == "cpu":
+        devices = ["cpu"] * world
+    else:
+        raise SystemExit(f"--device {device}: expected cuda, cuda:N or cpu")
+    base = elastic.package_env()
+    # the ranks do not supervise themselves: this process supervises them
+    base.update({elastic.CHILD_ENV: "1", "PGASR_DISTRIBUTED": "1",
+                 "PGASR_NUM_PROCESSES": str(world)})
+
+    def spawn():
+        coordinator = f"127.0.0.1:{free_port()}"
+        return [subprocess.Popen(
+            [sys.executable, "-m", "pg_asr_tpu_torch.cli", *argv,
+             "--device", d],
+            env={**base, "PGASR_COORDINATOR": coordinator,
+                 "PGASR_PROCESS_ID": str(r)})
+            for r, d in enumerate(devices)]
+
+    return elastic.supervise(spawn, max_restarts=max_restarts)
+
+
+@contextlib.contextmanager
+def _process_group(args, world: int):
+    """The process group of a train or finetune_pg rank: from the
+    ``PGASR_*`` variables under ``PGASR_DISTRIBUTED=1``, a group of one
+    for ``--mesh data=1``, else none."""
+    from . import resolve_device
+    from .parallel import mesh
+
+    env = os.environ
+    if args.mode not in ("train", "finetune_pg"):
+        yield
+        return
+    if env.get("PGASR_DISTRIBUTED") == "1":
+        mesh.init_distributed(
+            coordinator_address=env.get("PGASR_COORDINATOR"),
+            num_processes=(int(env["PGASR_NUM_PROCESSES"])
+                           if "PGASR_NUM_PROCESSES" in env else None),
+            process_id=(int(env["PGASR_PROCESS_ID"])
+                        if "PGASR_PROCESS_ID" in env else None),
+            device=resolve_device(args.device))
+    elif args.mesh and world == 1:
+        mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                              device=resolve_device(args.device))
+    try:
+        yield
+    finally:
+        mesh.destroy_distributed()
 
 
 def preproc(args) -> None:
@@ -584,21 +700,39 @@ def export(args, device) -> None:
 
 def main(argv=None) -> int:
     parser = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
     try:
         _refuse_unported_flags(parser, args)
+        world = _data_axis(args)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    if not args.debug_nans:
-        return _run(args)
-    from .utils.debug import enable_nan_checks
+    from .utils import elastic
 
-    # for this run only (the JAX CLI sets jax_debug_nans for its process)
-    enable_nan_checks(True)
-    try:
-        return _run(args)
-    finally:
-        enable_nan_checks(False)
+    restarts = (args.max_restarts
+                if args.mode in ("train", "finetune_pg")
+                and os.environ.get(elastic.CHILD_ENV) != "1" else 0)
+    if world > 1 and os.environ.get("PGASR_DISTRIBUTED") != "1":
+        return _launch_ranks(argv, world, args.device, restarts)
+    if restarts > 0:
+        # supervise: this command again as the child (CHILD_ENV marks it);
+        # a crash relaunches it and it resumes from model_last, a SIGTERM
+        # is forwarded for a graceful stop
+        return elastic.run_elastic(
+            [sys.executable, "-m", "pg_asr_tpu_torch.cli", *argv],
+            max_restarts=args.max_restarts)
+    with _process_group(args, world):
+        if not args.debug_nans:
+            return _run(args)
+        from .utils.debug import enable_nan_checks
+
+        # for this run only (the JAX CLI sets jax_debug_nans for its
+        # process)
+        enable_nan_checks(True)
+        try:
+            return _run(args)
+        finally:
+            enable_nan_checks(False)
 
 
 def _run(args) -> int:
@@ -621,9 +755,9 @@ def _run(args) -> int:
         from .train import train
 
         try:
-            _refuse_unported_runs(args)
             train(args.corpus_path, args.model_path, config=train_config(args),
-                  device=str(device), profile_steps=args.profile_steps)
+                  device=str(device), profile_steps=args.profile_steps,
+                  fault_step=args.fault_step)
         except NotImplementedError as e:
             raise SystemExit(str(e)) from None
         return 0
@@ -635,7 +769,6 @@ def _run(args) -> int:
         from .rl.reinforce import finetune_pg
 
         try:
-            _refuse_unported_runs(args)
             finetune_pg(args.corpus_path, args.model_path,
                         num_steps=args.pg_steps,
                         batch_size=args.batch_size or 32,

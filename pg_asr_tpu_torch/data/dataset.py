@@ -8,8 +8,9 @@ numpy only. The batches are those of the JAX package's ``BatchIterator``
 one corpus and seed give the same batches in both packages, with the
 native C++ WAV decoder (``native_io``) or the Python one, decode worker
 threads and the built-batch cache, and ``skip_epochs`` / ``skip_batches``
-for a mid-epoch resume. Not ported (ROADMAP.md): multi-host sharding and
-``max_samples``.
+for a mid-epoch resume, and the data axis's sharding (``shard_index``,
+``shard_count``: each rank iterates its own slice of the corpus). Not
+ported (ROADMAP.md): ``max_samples``.
 """
 
 from __future__ import annotations
@@ -149,16 +150,19 @@ class BatchIterator:
     at least 4 CPUs, else 0). ``cache_mb`` > 0 keeps built batches up to
     that many MiB for later epochs (a batch's composition never changes).
     Neither changes a batch: one seed gives the same batches, byte for
-    byte, with or without them."""
+    byte, with or without them. ``shard_count`` > 1: this iterator takes
+    the utterances ``shard_index::shard_count`` of the manifest (a rank of
+    the data axis, train.py)."""
 
     def __init__(self, utterances: list[Utterance], alphabet: Alphabet,
                  batch_size: int, *, sample_rate: int = 16000,
                  shuffle: bool = True, seed: int = 0, cache_mb: float = 0.0,
-                 num_workers: int = 0, decoder: str = "auto"):
+                 num_workers: int = 0, decoder: str = "auto",
+                 shard_index: int = 0, shard_count: int = 1):
         if decoder not in ("auto", "native", "python"):
             raise ValueError(f"decoder must be auto|native|python, got "
                              f"{decoder!r}")
-        self.utts = list(utterances)
+        self.utts = list(utterances)[shard_index::shard_count]
         self.alphabet = alphabet
         self.batch_size = batch_size
         self.sample_rate = sample_rate

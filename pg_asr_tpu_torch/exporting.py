@@ -56,6 +56,7 @@ from .config import Config
 from .ops import registry  # noqa: F401  (registers the pgasr ops)
 from .ops.quant import (LEAF_KEYS, dequantize_tree, is_quantized_leaf,
                         quantize_tree)
+from .utils import debug
 
 EXPORT_DIR = "export"
 ARTIFACT = "serving.pt2"
@@ -226,6 +227,10 @@ def export_model(model_path: str, corpus_path: str | None = None,
     example = (torch.zeros(batch_size, n, dtype=torch.float32, device=dev),
                torch.full((batch_size,), n, dtype=torch.int32, device=dev))
     with torch.no_grad():
+        if debug.nan_checks_enabled():
+            # --debug_nans: run the program once on its example input, with
+            # its forward's outputs checked (nothing is read while tracing)
+            module(*example)
         ep = torch.export.export(module, example)
     stats = graph_stats(ep)
     platforms = platforms or (dev.type,)

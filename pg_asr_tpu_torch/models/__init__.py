@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import ONE_DEVICE
+
 _PORTED = ("ctc", "transformer", "conformer", "transducer", "seq2seq")
 
 
@@ -47,11 +49,12 @@ def cast_params(params: dict[str, torch.Tensor], dtype: torch.dtype,
 
 def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
                      use_kernel: bool = True, train: bool = False,
-                     generator=None):
+                     generator=None, dp=ONE_DEVICE):
     """CTC-family forward: (B,T,F) feats -> (log_probs (B,T',A), out_mask
     (B,T') f32, out_lens (B,)). T' == T for the BiLSTM, ceil(T / subsample)
     for the attention families. train=True applies dropout with bits from
-    `generator` (a torch.Generator on feats' device)."""
+    `generator` (a torch.Generator on feats' device). ``dp``: the switch-MoE
+    routes over the ranks of a data axis (parallel/moe.py)."""
     family = cfg.model.family
     if family not in ("ctc", "transformer", "conformer"):
         raise ValueError(f"{family!r} is not a CTC family: its forward is "
@@ -61,7 +64,7 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
             from ..parallel.moe import moe_apply
 
             return moe_apply(params, feats, frame_mask, frame_lens, cfg,
-                             train=train, generator=generator)
+                             train=train, generator=generator, dp=dp)
         from . import transformer_ctc
 
         return transformer_ctc.apply(params, feats, frame_mask, frame_lens,

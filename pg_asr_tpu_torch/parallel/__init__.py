@@ -1,4 +1,5 @@
-"""Counterpart of pg_asr_tpu/parallel/: so far the switch-MoE transformer
-on one device (moe.py). The device meshes (data / model / expert / fsdp /
-pipe / seq) and the expert axis's sharding rules are ROADMAP.md queue 1
-item 15b."""
+"""Counterpart of pg_asr_tpu/parallel/: the switch-MoE transformer (moe.py),
+the mesh spec and its router (driver.py) and the ``data`` axis over
+torch.distributed (mesh.py). The other axes are ROADMAP.md queue 1 items
+15b.2 (``expert``: the expert stacks' sharding rules) and 15b.3
+(``model``, ``fsdp``, ``seq``, ``pipe`` with ``--microbatches``)."""

@@ -35,6 +35,17 @@ C = ceil(N / E * capacity_factor) with N = B x ceil(T / subsample) of the
 PADDED batch (``moe_capacity``), so an utterance's output depends on its
 batch's size and padding, as in the JAX package.
 
+Under ``--mesh data=N`` (``dp``, parallel/mesh.py) each rank routes its own
+rows, but as one device would route the ranks' batches concatenated, which
+is what the JAX package's step does (it runs the MoE outside
+``shard_map``, so that the slot cumsum sees the global token order): N is
+the padded tokens of every rank, a token's slot counts its expert's
+tokens on the ranks before this one (an all-reduce of each rank's
+per-expert counts a block), and the aux takes the global counts and valid
+tokens, each rank adding its share, E / Nv^2 x sum_e(count_e x sum_p_e).
+With equal padded lengths on every rank the result is the one device's on
+the concatenated batch (float32 up to summation order).
+
 As the JAX package's ``moe_encode``, the encoder always takes the dense
 attention and no recomputation: ``flash_attention`` and ``model.remat``
 do not apply to it. No hand-written kernel runs here; the expert products
@@ -45,7 +56,7 @@ Parameters are the transformer-CTC's flat dict with each block's FFN
 linears replaced: ``blocks.{i}.router.{w,b}`` (d, E) and (E,);
 ``blocks.{i}.w1`` (E, d, ffn), ``b1`` (E, ffn), ``w2`` (E, ffn, d), ``b2``
 (E, d). The expert axis's sharding (``moe_param_specs``,
-``shard_moe_params``) is ROADMAP.md queue 1 item 15b.
+``shard_moe_params``) is ROADMAP.md queue 1 item 15b.2.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from ..models.transformer_ctc import (_init_ln, _layer_norm, _mhsa,
                                       padding_bias)
 from ..ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from ..ops.features import extract_features
+from .mesh import ONE_DEVICE, DataParallel
 
 _DENSE_FFN = ("ffn_in.w", "ffn_in.b", "ffn_out.w", "ffn_out.b")
 
@@ -152,12 +164,18 @@ def route(params: dict, pre: str, x: torch.Tensor, token_valid: torch.Tensor,
 
 
 def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
-             token_valid: torch.Tensor, capacity: int):
+             token_valid: torch.Tensor, capacity: int,
+             dp: DataParallel = ONE_DEVICE):
     """Switch-routed FFN of block `pre`. x: (B, T, d) in the compute type,
-    token_valid: (B, T) bool. Returns (out (B, T, d), aux float32)."""
+    token_valid: (B, T) bool. Returns (out (B, T, d), aux float32: this
+    rank's share of the aux over the ranks of ``dp``)."""
     B, T, d = x.shape
     N = B * T
     r = route(params, pre, x, token_valid, capacity)
+    # the slots continue those of the ranks before this one
+    before, _ = dp.exclusive_offsets(r.assign.sum(dim=0))
+    pos = r.pos + before[r.expert]
+    r = r._replace(pos=pos, kept=token_valid.reshape(N) & (pos < capacity))
     E, C = r.probs.shape[1], capacity
     # each kept token's flat slot e * C + pos (the others: a spare slot E *
     # C, cut off) and each slot's token (an empty slot: a spare token N).
@@ -180,8 +198,10 @@ def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
 
     # the load-balance loss over the valid tokens (uniform routing: 1.0)
     tv = token_valid.reshape(B * T).float()
-    n_valid = torch.clamp(tv.sum(), min=1.0)
-    frac = r.assign.float().sum(dim=0) / n_valid
+    # the global counts; this rank's probabilities
+    counts = dp.all_sum(r.assign.float().sum(dim=0))
+    n_valid = torch.clamp(dp.all_sum(tv.sum()), min=1.0)
+    frac = counts / n_valid
     mean_p = (r.probs * tv[:, None]).sum(dim=0) / n_valid
     aux = E * torch.sum(frac * mean_p)
     return out.reshape(B, T, d), aux
@@ -189,11 +209,13 @@ def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
 
 def moe_encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
                frame_lens: torch.Tensor, cfg: Config, capacity: int,
-               train: bool = False, generator: torch.Generator | None = None):
+               train: bool = False, generator: torch.Generator | None = None,
+               dp: DataParallel = ONE_DEVICE):
     """The MoE encoder: transformer_ctc's frontend and dropout sites (1 +
     2L, their bits drawn from `generator` in the dense encoder's order),
-    the dense attention, the switch FFN. Returns (x (B, T', d), out_mask
-    (B, T') bool, out_lens (B,), the blocks' mean aux)."""
+    the dense attention, the switch FFN (routed over the ranks of ``dp``).
+    Returns (x (B, T', d), out_mask (B, T') bool, out_lens (B,), the
+    blocks' mean aux)."""
     tcfg = cfg.transformer
     x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
                                      cfg.model, tcfg)
@@ -209,7 +231,7 @@ def moe_encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
                   tcfg.num_heads)
         x = x + apply_dropout(h, rate, bits[0])
         h, aux = _moe_ffn(params, pre, _layer_norm(params, f"{pre}.ln2", x),
-                          out_mask, capacity)
+                          out_mask, capacity, dp)
         x = x + apply_dropout(h, rate, bits[1])
         aux_total = aux if aux_total is None else aux_total + aux
     return (_layer_norm(params, "ln_final", x), out_mask, out_lens,
@@ -220,25 +242,32 @@ def moe_capacity(cfg: Config, batch: int, frames: int, num_experts: int,
                  capacity_factor: float) -> int:
     """Slots per expert for a padded batch of `frames` feature frames."""
     n = batch * (-(-frames // cfg.transformer.subsample))
-    return max(int(math.ceil(n / num_experts * capacity_factor)), 1)
+    return _slots(n, num_experts, capacity_factor)
 
 
-def _capacity(cfg: Config, feats: torch.Tensor) -> int:
+def _slots(tokens: int, num_experts: int, capacity_factor: float) -> int:
+    return max(int(math.ceil(tokens / num_experts * capacity_factor)), 1)
+
+
+def _capacity(cfg: Config, feats: torch.Tensor, dp: DataParallel) -> int:
+    """The capacity of every rank's padded tokens together."""
     tcfg = cfg.transformer
-    return moe_capacity(cfg, feats.shape[0], feats.shape[1],
-                        tcfg.num_experts, tcfg.capacity_factor)
+    B, T = feats.shape[:2]
+    (tokens,) = dp.sum_counts(B * -(-T // tcfg.subsample))
+    return _slots(tokens, tcfg.num_experts, tcfg.capacity_factor)
 
 
 def moe_apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
               frame_lens: torch.Tensor, cfg: Config, train: bool = False,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None,
+              dp: DataParallel = ONE_DEVICE):
     """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
     float32, out_lens (B,)): the CTC families' forward contract, so every
     decoder, the metrics and policy-gradient fine-tuning take the MoE
     family unchanged. No aux term."""
     x, out_mask, out_lens, _ = moe_encode(
-        params, feats, frame_mask, frame_lens, cfg, _capacity(cfg, feats),
-        train=train, generator=generator)
+        params, feats, frame_mask, frame_lens, cfg,
+        _capacity(cfg, feats, dp), train=train, generator=generator, dp=dp)
     log_probs, omask_f = ctc_head(params, x, out_mask)
     return log_probs, omask_f, out_lens
 
@@ -246,19 +275,24 @@ def moe_apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
 def moe_loss_terms(params: dict, feats, mask, frame_lens, labels,
                    label_lens, cfg: Config, train: bool = False,
                    generator: torch.Generator | None = None,
-                   use_kernel: bool = True):
+                   use_kernel: bool = True, dp: DataParallel = ONE_DEVICE):
     """Stacked (num, den) components [ctc, aux]: sum(num / max(den, 1)) =
     ctc_mean + moe_aux_weight * aux_mean, the aux component weighted by the
     valid tokens. Takes features (after SpecAugment). ``use_kernel``:
-    ``F.ctc_loss`` or the plain CTC recursion, as train.compute_loss."""
+    ``F.ctc_loss`` or the plain CTC recursion, as train.compute_loss.
+    Over the ranks of ``dp`` the aux component's numerator is this rank's
+    share of the global aux times the global valid tokens and its
+    denominator this rank's valid tokens, so that the data-parallel step,
+    which sums the denominators over the ranks, adds up the global aux."""
     x, out_mask, out_lens, aux = moe_encode(
-        params, feats, mask, frame_lens, cfg, _capacity(cfg, feats),
-        train=train, generator=generator)
+        params, feats, mask, frame_lens, cfg, _capacity(cfg, feats, dp),
+        train=train, generator=generator, dp=dp)
     log_probs, _ = ctc_head(params, x, out_mask)
     terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
     num_c, den_c = terms(log_probs, out_lens, labels, label_lens)
-    nv = torch.clamp(out_mask.float().sum(), min=1.0)
-    num = torch.stack([num_c, cfg.transformer.moe_aux_weight * aux * nv])
+    nv = out_mask.float().sum()
+    weight = torch.clamp(dp.all_sum(nv), min=1.0)
+    num = torch.stack([num_c, cfg.transformer.moe_aux_weight * aux * weight])
     return num, torch.stack([den_c, nv])
 
 

@@ -54,6 +54,7 @@ from .models import acoustic_forward, cast_params, check_family
 from .models import seq2seq, transducer
 from .models.bilstm_ctc import torch_dtype
 from .ops.features import extract_features
+from .utils import debug
 
 
 def load_model(model_path: str, alphabet: Alphabet,
@@ -130,8 +131,10 @@ def forward(params, wave, num_samples, cfg: Config, use_kernel: bool = True):
     A), out_mask (B, T') float32, out_lens (B,)); T' = T for the BiLSTM,
     ceil(T / subsample) for the attention families."""
     feats, mask, frame_lens = extract_features(wave, num_samples, cfg.features)
-    return acoustic_forward(params, feats, mask, frame_lens, cfg,
-                            use_kernel=use_kernel)
+    out = acoustic_forward(params, feats, mask, frame_lens, cfg,
+                           use_kernel=use_kernel)
+    debug.check_nans(out[0], "the log-probs")
+    return out
 
 
 @torch.inference_mode()
@@ -144,6 +147,7 @@ def forward_transducer(params, wave, num_samples, cfg: Config,
     feats, mask, frame_lens = extract_features(wave, num_samples, cfg.features)
     enc, _, out_lens = transducer.encode(params, feats, mask, frame_lens, cfg,
                                          use_kernel=use_kernel)
+    debug.check_nans(enc, "the encoder output")
     L = cfg.decode.max_label_len
     if beam_size > 0:
         labels, lens, _ = transducer_beam_decode(
@@ -161,9 +165,11 @@ def forward_seq2seq(params, wave, num_samples, cfg: Config,
     log-probs (B, S, A)); pad id 0 is EOS (the JAX package's
     ``_forward_seq2seq``)."""
     feats, mask, _ = extract_features(wave, num_samples, cfg.features)
-    return seq2seq.greedy_generate(params, feats, mask, cfg.model,
-                                   max_steps=cfg.decode.max_label_len,
-                                   use_kernel=use_kernel)
+    out = seq2seq.greedy_generate(params, feats, mask, cfg.model,
+                                  max_steps=cfg.decode.max_label_len,
+                                  use_kernel=use_kernel)
+    debug.check_nans(out[1], "the log-probs")
+    return out
 
 
 @torch.inference_mode()
@@ -173,9 +179,10 @@ def forward_seq2seq_beam(params, wave, num_samples, cfg: Config,
     -> (tokens (B, S) zero-padded after EOS, lens (B,)) (the JAX package's
     ``_forward_seq2seq_beam``)."""
     feats, mask, _ = extract_features(wave, num_samples, cfg.features)
-    tokens, lens, _ = seq2seq.beam_generate(
+    tokens, lens, scores = seq2seq.beam_generate(
         params, feats, mask, cfg.model, beam_size=beam_size,
         max_steps=cfg.decode.max_label_len, use_kernel=use_kernel)
+    debug.check_nans(scores, "the beam scores")
     return tokens, lens
 
 

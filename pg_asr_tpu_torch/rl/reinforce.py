@@ -32,7 +32,9 @@ kernels, and the seq2seq decoder's teacher-forced passes the residual
 ``lstm_fwd`` and ``lstm_bwd``. ``use_kernel=False`` is the plain reference path on any device:
 the plain recurrences and scans and the plain CTC recursion.
 
-One device; random draws come from an explicit ``torch.Generator`` on it.
+Random draws come from an explicit ``torch.Generator``. One device, or
+under ``--mesh data=N`` one rank of N (``make_pg_step(dp=)``,
+``finetune_pg``; parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from ..ops.ctc import (alignable, ctc_loss, ctc_loss_terms,
 from ..ops.edit_distance import cer_from_ids, wer_from_ids
 from ..ops.features import extract_features
 from ..ops.transducer import transducer_loss, transducer_loss_terms
+from ..parallel.mesh import ONE_DEVICE, DataParallel, join_data_axis
 from ..utils.logging import StepLogger
 from ..utils.preempt import install_preemption_handler
 from .reward import sequence_reward, stepwise_reward
@@ -353,13 +356,13 @@ def _mwer_seq2seq_terms(params, feats, fmask, labels, label_lens,
 
 def pg_loss_terms(params, wave, num_samples, labels, label_lens,
                   generator: torch.Generator | None, cfg: Config,
-                  use_kernel: bool = True):
+                  use_kernel: bool = True, dp: DataParallel = ONE_DEVICE):
     """PG loss as (numerators, denominators, metrics), each component
     num / den. CTC families: REINFORCE over sampled alignment paths (drawn
     from `generator`) or MWER over the prefix-beam n-best; seq2seq: SCST
     (objective "reinforce", samples drawn from `generator`) or MWER over
     the decoder beam's n-best; the transducer: MWER over its beam's
-    n-best."""
+    n-best. ``dp``: the switch-MoE routes over the ranks of a data axis."""
     rl = cfg.rl
     check_family(cfg.model.family)
     with torch.no_grad():
@@ -384,7 +387,8 @@ def pg_loss_terms(params, wave, num_samples, labels, label_lens,
 
     # mask / frame_lens in the model's output time base
     log_probs, mask, frame_lens = acoustic_forward(
-        params, feats, fmask, flens, cfg, use_kernel=use_kernel, train=False)
+        params, feats, fmask, flens, cfg, use_kernel=use_kernel, train=False,
+        dp=dp)
 
     if rl.objective == "mwer":
         pg_num, pg_den, obj_metrics = _mwer_terms(
@@ -479,33 +483,35 @@ def pg_loss_fn(params, wave, num_samples, labels, label_lens,
     return _combine_terms(nums, dens, cfg.rl), metrics
 
 
-def make_pg_step(cfg: Config, optimizer, mesh=None,
+def make_pg_step(cfg: Config, optimizer, dp: DataParallel = ONE_DEVICE,
                  use_kernel: bool = True) -> Callable:
     """step(params, generator, wave, num_samples, labels, label_lens) ->
     (loss, metrics): the PG loss's gradients, then the optimizer, which
-    updates params in place. One device: meshes are not ported."""
-    from ..train import _MESH, value_and_grad
+    updates params in place.
 
-    if mesh is not None:
-        raise not_ported(_MESH)
+    ``dp`` (parallel/mesh.py): this rank's place on the data axis (the JAX
+    package's ``shard_map`` step): the samples drawn from
+    ``dp.step_generator(generator)``, every component's denominator summed
+    over the ranks before the quotients, the gradients summed before the
+    optimizer; the loss is the global one and the metrics the ranks'
+    mean. On one device (``ONE_DEVICE``) every sum is the identity."""
+    from ..train import value_and_grad
 
     def pg_step(params, generator, wave, ns, labels, label_lens):
-        (loss, metrics), grads = value_and_grad(
-            lambda p: pg_loss_fn(p, wave, ns, labels, label_lens, generator,
-                                 cfg, use_kernel), params)
-        optimizer.update(params, grads)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        gen = dp.step_generator(generator)
+
+        def loss_fn(p):
+            nums, dens, metrics = pg_loss_terms(
+                p, wave, ns, labels, label_lens, gen, cfg, use_kernel, dp)
+            dens = {k: dp.all_sum(v) for k, v in dens.items()}
+            return _combine_terms(nums, dens, cfg.rl), metrics
+
+        (loss, metrics), grads = value_and_grad(loss_fn, params)
+        optimizer.update(params, dp.sum_grads(grads))
+        return dp.all_sum(loss.detach()), {
+            k: dp.all_mean(v.detach()) for k, v in metrics.items()}
 
     return pg_step
-
-
-def _check_pg_ported(cfg: Config) -> None:
-    from ..train import _MESH
-
-    check_family(cfg.model.family)
-    t = cfg.train
-    if t.mesh_shape != () or t.mesh_axes != ("data",):
-        raise not_ported(_MESH)
 
 
 def _refuse_jax_pg_resume(model_path: str, num_steps: int) -> None:
@@ -540,18 +546,26 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
     averaged weights) keeps its average through the PG steps; the dev CER
     and every checkpoint's ``ema_params`` are that average, as in the JAX
     package. Artifacts: pg_rewards.npy (reward per step), pg_dev_cer.npy
-    ((step, CER) pairs), metrics.jsonl every 10 steps."""
+    ((step, CER) pairs), metrics.jsonl every 10 steps.
+
+    Under ``--mesh data=N`` this process is one rank of the joined process
+    group, as in train.train: its slice of the train split at batch_size //
+    N rows, the data-parallel step (``make_pg_step(dp=)``), `num_steps`
+    global steps on every rank, the dev CER over every rank's slice, a
+    SIGTERM to any rank agreed at the step, and only rank 0 writes."""
     from ..predict import load_model
     from ..train import (AdamW, _copy, _ema_update, batch_to_device,
-                         corpus_cer)
+                         check_ported, corpus_cer)
 
     cfg = config or Config()
     if batch_size:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     batch_size=batch_size))
-    _check_pg_ported(cfg)
+    world = check_ported(cfg)
     _refuse_jax_pg_resume(model_path, num_steps)
     dev = resolve_device(device)
+    dp = join_data_axis(world, dev)
+    is_main = dp.is_main
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
     params, cfg = load_model(model_path, alphabet, cfg, which="best",
                              device=dev)
@@ -568,16 +582,17 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
               "(n-best re-scored with the differentiable lattice loss)")
         cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, objective="mwer"))
 
-    bs = cfg.train.batch_size
+    bs = max(1, cfg.train.batch_size // world)  # this rank's rows
     aud = os.path.join(corpus_path, "clips")
     it = BatchIterator(load_manifest(os.path.join(corpus_path, "train.tsv"),
                                      aud),
                        alphabet, bs, sample_rate=cfg.features.sample_rate,
-                       seed=cfg.train.seed)
+                       seed=cfg.train.seed, shard_index=dp.rank,
+                       shard_count=dp.world)
     optimizer = AdamW(cfg, params, learning_rate=cfg.train.learning_rate * 0.1,
                       weight_decay=1e-4)  # optax.adamw's default decay
-    pg_step = make_pg_step(cfg, optimizer)
-    logger = StepLogger(model_path)
+    pg_step = make_pg_step(cfg, optimizer, dp=dp)
+    logger = StepLogger(model_path) if is_main else None
     use_ema = cfg.train.ema_decay > 0.0
     ema = _copy(params) if use_ema else None
 
@@ -597,21 +612,32 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
             start_step = int(prev["step"])
             best_val = float(prev.get("best_val_loss", math.inf))
             print(f"[pg] resumed from model_last at step {start_step}")
+    dp.broadcast_(params)  # every rank starts from rank 0's parameters
+    if use_ema:
+        dp.broadcast_(ema)
 
     preempted, restore_sigterm = install_preemption_handler()
-    generator = torch.Generator(device=dev).manual_seed(cfg.train.seed + 17)
+    # the same on every rank: on the host when each rank draws from a
+    # generator of its own (DataParallel.step_generator)
+    generator = torch.Generator(device=dev if world == 1 else "cpu"
+                                ).manual_seed(cfg.train.seed + 17)
 
     dev_tsv = os.path.join(corpus_path, "dev.tsv")
     dev_rows = (load_manifest(dev_tsv, aud)
                 if eval_every and os.path.exists(dev_tsv) else None)
+    if dev_rows is not None and 0 < len(dev_rows) < world:
+        dev_rows = None  # fewer dev rows than ranks: no rank evaluates
 
     def _save(step: int, val: float | None) -> bool:
         """model_last always; model_best too when `val` improves on the
-        best so far (the JAX package's CheckpointManager.save)."""
+        best so far (the JAX package's CheckpointManager.save). Rank 0
+        writes; every rank keeps the same best."""
         nonlocal best_val
         is_best = val is not None and val < best_val
         if is_best:
             best_val = float(val)
+        if not is_main:
+            return is_best
         state = {"params": params, "opt_state": optimizer.state_dict(),
                  "step": step, "epoch": -1, "best_val_loss": best_val}
         if use_ema:
@@ -620,6 +646,10 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
         if is_best:
             save_checkpoint(checkpoint_path(model_path, "best"), state)
         return is_best
+
+    def say(msg: str) -> None:
+        if is_main:
+            print(msg)
 
     # the rewards stay on the device; they are read at the log, eval and
     # end boundaries only (a read per step would wait for every step)
@@ -636,25 +666,24 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                     _ema_update(ema, params, cfg.train.ema_decay)
                 step += 1
                 reward_dev.append(metrics["reward_mean"])
-                if step % 10 == 0:
+                if is_main and step % 10 == 0:
                     logger.log(step=step, pg_loss=float(loss),
                                reward=float(metrics["reward_mean"]),
                                entropy=float(metrics["entropy"]))
                 if dev_rows is not None and (step % eval_every == 0
                                              or step >= num_steps):
                     cer = corpus_cer(ema if use_ema else params, dev_rows,
-                                     alphabet, cfg, bs)
+                                     alphabet, cfg, bs, dp)
                     dev_cers.append((step, cer))
                     if _save(step, val=cer):
-                        print(f"[pg] step {step}: new best dev CER "
-                              f"{cer:.4f}")
+                        say(f"[pg] step {step}: new best dev CER {cer:.4f}")
                     else:
-                        print(f"[pg] step {step}: dev CER {cer:.4f} "
-                              f"(best {best_val:.4f})")
-                if preempted.is_set():
+                        say(f"[pg] step {step}: dev CER {cer:.4f} (best "
+                            f"{best_val:.4f})")
+                if dp.any(preempted.is_set()):  # one rank's SIGTERM stops all
                     _save(step, val=None)  # model_last at the exact step
-                    print(f"[pg] SIGTERM: saved model_last at step {step}; "
-                          "rerun finetune_pg to resume")
+                    say(f"[pg] SIGTERM: saved model_last at step {step}; "
+                        "rerun finetune_pg to resume")
                     return {"rewards": _floats(reward_dev), "params": params,
                             "config": cfg, "dev_cers": dev_cers,
                             "interrupted": True}
@@ -662,15 +691,17 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                     break
 
         rewards = _floats(reward_dev)
-        np.save(os.path.join(model_path, "pg_rewards.npy"), np.array(rewards))
-        if dev_cers:
-            np.save(os.path.join(model_path, "pg_dev_cer.npy"),
-                    np.array(dev_cers))
+        if is_main:
+            np.save(os.path.join(model_path, "pg_rewards.npy"),
+                    np.array(rewards))
+            if dev_cers:
+                np.save(os.path.join(model_path, "pg_dev_cer.npy"),
+                        np.array(dev_cers))
         if dev_rows is None:
             # no dev set: select on the reward proxy
             _save(step, val=-float(np.mean(rewards[-10:])))
-        print(f"[pg] {step} steps, final reward {np.mean(rewards[-10:]):.4f} "
-              f"({time.time() - t0:.1f}s)")
+        say(f"[pg] {step} steps, final reward {np.mean(rewards[-10:]):.4f} "
+            f"({time.time() - t0:.1f}s)")
     finally:
         restore_sigterm()
     return {"rewards": rewards, "params": params, "config": cfg,

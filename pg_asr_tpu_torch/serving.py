@@ -58,6 +58,7 @@ from .decoding.transducer import greedy_scan, init_decode_state
 from .models.bilstm_ctc import linear, torch_dtype
 from .ops.features import _constants, full_f32_conv
 from .ops.lstm import lstm_scan, lstm_scan_xla_from
+from .utils import debug
 
 # the forward direction from a carry, under the JAX package's name
 _fwd_scan_from = lstm_scan_xla_from
@@ -141,6 +142,7 @@ def _chunk_step_attention(params, window: torch.Tensor, stats,
             use_kernel=use_kernel, pos_offset=abs_frame0 // s,
             pre_normalized=True)
     log_probs = torch.log_softmax(linear(params, "ctc_head", xs).float(), -1)
+    debug.check_nans(log_probs, "the stream's log-probs")
     ids, lp_max = torch.argmax(log_probs, dim=-1), log_probs.amax(dim=-1)
     lo = n_ctx // s
     return ids[:, lo:lo + chunk // s], lp_max[:, lo:lo + chunk // s], \
@@ -191,8 +193,10 @@ def _encode_window(enc: dict, window: torch.Tensor, stats, carries,
 
 def _ctc_log_probs(params, x: torch.Tensor, chunk: int) -> torch.Tensor:
     """The CTC head over the C committed slots -> (S, C, A) float32."""
-    return torch.log_softmax(
+    log_probs = torch.log_softmax(
         linear(params, "ctc_head", x[:, :chunk]).float(), dim=-1)
+    debug.check_nans(log_probs, "the stream's log-probs")
+    return log_probs
 
 
 def _chunk_step(params, window, stats, carries, n_valid, n_committed,
@@ -278,6 +282,7 @@ def _chunk_step_rnnt(params, enc, window, stats, carries, dec_state,
         enc, window, stats, carries, n_valid, n_committed, cfg, chunk,
         fixed_norm, use_kernel)
     E = linear(params, "joint_enc", x[:, :chunk])
+    debug.check_nans(E, "the stream's encoder output")
     out, pos, dec_state = greedy_scan(
         params, E, n_committed, dec_state,
         max_label_len=chunk * max_symbols, max_symbols=max_symbols,

@@ -32,19 +32,33 @@ constant-rate form, ``_ema_update`` and the greedy dev CER
 (``corpus_cer``).
 
 The switch-MoE transformer (``transformer.num_experts`` > 0,
-parallel/moe.py) trains on one device: CTC plus the load-balance aux as
-stacked num/den components. Under ``--debug_nans`` (utils/debug.py) every
-step's loss and gradients are checked (``value_and_grad``).
+parallel/moe.py) trains too: CTC plus the load-balance aux as stacked
+num/den components. Under ``--debug_nans`` (utils/debug.py) every step's
+loss and gradients are checked for NaN (``value_and_grad``), and the dev
+pass's loss.
 
-Not ported (each refused with a message, ROADMAP.md): device meshes and
-multi-host (queue 1 item 15b); the CLI refuses ``--max_restarts`` and
-``--fault_step``.
+``--mesh data=N`` (``train.mesh_shape`` / ``mesh_axes``): this process is
+one of N ranks joined in a process group (parallel/mesh.py; the CLI starts
+them). Each rank iterates its own slice of the corpus
+(``BatchIterator(shard_index=rank, shard_count=N)``) at ``batch_size //
+N`` rows, every rank running the same number of steps (the shortest
+slice's), and the step takes the loss as the sum of the rank's
+numerators over the all-reduced denominators, all-reduces the gradients
+(a sum), then clips and applies AdamW identically on every rank
+(``make_train_step(dp=)``, the JAX package's ``shard_map`` step); the
+parameters are broadcast from rank 0 first. Dropout and augmentation draw
+from a generator of the rank (``DataParallel.step_generator``). Only rank
+0 writes checkpoints and artifacts, in the one-device layout; a SIGTERM to
+any rank stops every rank at the same step. Other mesh axes are refused
+(parallel/driver.py). ``fault_step`` injects a crash for the elastic
+supervisor (utils/elastic.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 import os
 import time
@@ -55,12 +69,12 @@ import torch
 
 from . import not_ported, resolve_device
 from .checkpoint import (BEST_NAME, LAST_NAME, checkpoint_path,
-                         has_flax_checkpoints, load_checkpoint,
+                         cleanup_tmp, has_flax_checkpoints, load_checkpoint,
                          save_checkpoint, save_config, save_rolling)
 from .config import Config, fit_vocab
 from .data import BatchIterator, PrefetchIterator, load_manifest
 from .data.bpe import load_tokenizer
-from .losses import seq2seq_nll_loss
+from .losses import seq2seq_nll_terms
 from .models import (acoustic_forward, bilstm_ctc, cast_params,
                      check_family, conformer_ctc, seq2seq, transducer,
                      transformer_ctc)
@@ -68,13 +82,13 @@ from .ops.augment import spec_augment, wave_augment, wave_augmented
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from .ops.features import extract_features
 from .ops.transducer import transducer_loss_terms
+from .parallel.driver import data_parallel_size
+from .parallel.mesh import ONE_DEVICE, DataParallel, join_data_axis
 from .parallel.moe import init_moe_params, moe_loss_terms
 from .utils import debug
 from .utils.logging import StepLogger
 from .utils.preempt import install_preemption_handler
 from .utils.profiling import start_trace, stop_trace
-
-_MESH = "device meshes (ROADMAP.md queue 1 item 15b)"
 
 
 def init_model_params(cfg: Config, generator: torch.Generator,
@@ -302,20 +316,33 @@ def _ema_update(ema_params: dict[str, torch.Tensor],
 def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
                  train: bool, generator: torch.Generator | None = None,
                  use_kernel: bool = True) -> torch.Tensor:
-    """Scalar loss of one batch (the JAX package's ``compute_loss``): CTC
-    for the CTC families, for the switch-MoE transformer plus
-    ``moe_aux_weight`` x the load-balance aux (``moe_loss_terms``); for the
-    transducer the lattice loss, plus ``ctc_weight`` x the auxiliary
-    head's CTC loss when that is above 0;
-    for the seq2seq family the teacher-forced per-step NLL
-    (``losses.seq2seq_nll_loss``).
+    """Scalar loss of one batch (the JAX package's ``compute_loss``):
+    ``sum(num / max(den, 1))`` of ``loss_terms``."""
+    num, den = loss_terms(params, wave, num_samples, labels, label_lens, cfg,
+                          train, generator, use_kernel)
+    return torch.sum(num / torch.clamp(den, min=1.0))
+
+
+def loss_terms(params, wave, num_samples, labels, label_lens, cfg: Config,
+               train: bool, generator: torch.Generator | None = None,
+               use_kernel: bool = True, dp: DataParallel = ONE_DEVICE):
+    """(numerator, denominator) tensors of one shape whose ``sum(num /
+    max(den, 1))`` is the batch's loss, so that a data-parallel step can sum
+    the denominators over the ranks first: CTC for the CTC families, for
+    the switch-MoE transformer plus ``moe_aux_weight`` x the load-balance
+    aux (``moe_loss_terms``, two stacked components); for the transducer
+    the lattice loss, plus ``ctc_weight`` x the auxiliary head's CTC loss
+    when that is above 0 (two stacked components); for the seq2seq family
+    the teacher-forced per-step NLL (``losses.seq2seq_nll_terms``).
     Features carry no gradient. In training with a generator and
     ``augment.enabled``: the waveform options (when one is set) before the
     features and SpecAugment after them, their draws taken from the
     generator before the model's dropout draws. ``use_kernel`` picks the
     whole path: True, the kernels on CUDA tensors and ``F.ctc_loss``;
     False, the plain reference path on any device, the plain recurrences,
-    joint and CTC recursion (augmentation is plain PyTorch in both)."""
+    joint and CTC recursion (augmentation is plain PyTorch in both).
+    ``dp``: the MoE routes its experts' slots in the global token order of
+    the ranks' batches (parallel/moe.py)."""
     aug = cfg.augment
     augment = train and aug.enabled and generator is not None
     with torch.no_grad():
@@ -330,7 +357,7 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
         log_probs = seq2seq.apply_teacher_forced(
             params, feats, mask, labels, cfg.model, use_kernel=use_kernel,
             train=train, generator=generator)
-        return seq2seq_nll_loss(log_probs, labels, label_lens)
+        return seq2seq_nll_terms(log_probs, labels, label_lens)
     ctc_terms = ctc_loss_terms_fused if use_kernel else ctc_loss_terms
     if cfg.model.family == "transducer":
         lam = cfg.transducer.ctc_weight
@@ -339,51 +366,47 @@ def compute_loss(params, wave, num_samples, labels, label_lens, cfg: Config,
             use_kernel=use_kernel, train=train, generator=generator,
             with_ctc=lam > 0.0)
         num, den = transducer_loss_terms(out[0], out[1], out[2], label_lens)
-        loss = num / torch.clamp(den, min=1.0)
         if lam > 0.0:  # hybrid: L = L_rnnt + lam * L_ctc
             num_c, den_c = ctc_terms(out[3], out[2], labels, label_lens)
-            loss = loss + lam * num_c / torch.clamp(den_c, min=1.0)
-        return loss
+            return torch.stack([num, lam * num_c]), torch.stack([den, den_c])
+        return num, den
     if (cfg.model.family == "transformer"
             and cfg.transformer.num_experts > 0):
         # the switch-MoE encoder: CTC + the load-balance aux, stacked
         # num/den components
-        num, den = moe_loss_terms(params, feats, mask, frame_lens, labels,
-                                  label_lens, cfg, train=train,
-                                  generator=generator, use_kernel=use_kernel)
-        return torch.sum(num / torch.clamp(den, min=1.0))
+        return moe_loss_terms(params, feats, mask, frame_lens, labels,
+                              label_lens, cfg, train=train,
+                              generator=generator, use_kernel=use_kernel,
+                              dp=dp)
     log_probs, _, out_lens = acoustic_forward(
         params, feats, mask, frame_lens, cfg, use_kernel=use_kernel,
         train=train, generator=generator)
-    num, den = ctc_terms(log_probs, out_lens, labels, label_lens)
-    return num / torch.clamp(den, min=1.0)
+    return ctc_terms(log_probs, out_lens, labels, label_lens)
 
 
 def value_and_grad(fn: Callable, params: dict[str, torch.Tensor]):
     """(fn(params), {name: d loss / d param}) for fn returning a scalar loss
     or (loss, aux); a parameter the loss does not reach gets a zero
     gradient, as in JAX. With NaN checks on (``--debug_nans``,
-    utils/debug.py) a non-finite loss raises FloatingPointError before the
-    backward, as do non-finite gradients after it and the anomaly mode's
-    NaN in a backward function."""
-    checks = debug.nan_checks_enabled()
+    utils/debug.py) a NaN loss raises FloatingPointError before the
+    backward, as do NaN gradients after it and the anomaly mode's NaN in a
+    backward function; an infinite loss or gradient passes, as under the
+    JAX package's ``jax_debug_nans``."""
     names = list(params)
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     with torch.enable_grad():
         out = fn(dict(zip(names, leaves)))
         loss = out[0] if isinstance(out, tuple) else out
-        if checks:
-            debug.assert_all_finite({"loss": loss.detach()}, "the loss")
+        debug.check_nans(loss.detach(), "the loss")
         try:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         except RuntimeError as e:
-            if checks and "nan values" in str(e):
+            if debug.nan_checks_enabled() and "nan values" in str(e):
                 raise FloatingPointError(str(e)) from e
             raise
     grads = {k: torch.zeros_like(p) if g is None else g
              for k, p, g in zip(names, leaves, grads)}
-    if checks:
-        debug.assert_all_finite(grads, "the gradients")
+    debug.check_nans(grads, "the gradients")
     return out, grads
 
 
@@ -399,22 +422,45 @@ def loss_and_grads(params: dict[str, torch.Tensor], batch_arrays, cfg: Config,
     return loss.detach(), grads
 
 
-def make_train_step(cfg: Config, optimizer: AdamW) -> Callable:
+def make_train_step(cfg: Config, optimizer: AdamW,
+                    dp: DataParallel = ONE_DEVICE) -> Callable:
     """step(params, generator, wave, num_samples, labels, label_lens) ->
-    loss; updates params and the optimizer state in place."""
+    loss; updates params and the optimizer state in place.
+
+    ``dp``: this rank's place on the data axis (the JAX package's
+    ``shard_map`` step): the loss is the sum of this rank's numerators over
+    the denominators summed over the ranks (clamped at 1), so that ragged
+    and zero-padded rows reduce to the global batch's loss, not to a mean
+    of the ranks' means; the gradients are summed over the ranks before
+    the clip and AdamW, which then run identically on every rank. The
+    draws come from ``dp.step_generator(generator)``. Returns the global
+    loss. On one device (``ONE_DEVICE``) every sum is the identity."""
 
     def train_step(params, generator, *batch_arrays):
-        loss, grads = loss_and_grads(params, batch_arrays, cfg, generator)
-        optimizer.update(params, grads)
-        return loss
+        gen = dp.step_generator(generator)
+
+        def loss_fn(p):
+            num, den = loss_terms(p, *batch_arrays, cfg, train=True,
+                                  generator=gen, dp=dp)
+            return torch.sum(num / torch.clamp(dp.all_sum(den), min=1.0))
+
+        loss, grads = value_and_grad(loss_fn, params)
+        optimizer.update(params, dp.sum_grads(grads))
+        return dp.all_sum(loss.detach())
 
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable:
+def make_eval_step(cfg: Config, dp: DataParallel = ONE_DEVICE) -> Callable:
+    """step(params, wave, num_samples, labels, label_lens) -> the global
+    batch's loss without dropout, reduced as the train step's."""
     @torch.no_grad()
     def eval_step(params, *batch_arrays):
-        return compute_loss(params, *batch_arrays, cfg, train=False)
+        num, den = loss_terms(params, *batch_arrays, cfg, train=False, dp=dp)
+        loss = dp.all_sum(torch.sum(
+            num / torch.clamp(dp.all_sum(den), min=1.0)))
+        debug.check_nans(loss, "the dev loss")
+        return loss
 
     return eval_step
 
@@ -454,28 +500,42 @@ def _batch_cer_counts(params, batch, cfg: Config,
     return d_sum, l_sum
 
 
-def corpus_cer(params, rows, alphabet, cfg: Config, batch_size: int) -> float:
+def corpus_cer(params, rows, alphabet, cfg: Config, batch_size: int,
+               dp: DataParallel = ONE_DEVICE) -> float:
     """Greedy corpus CER (total edits / total reference characters) over a
-    manifest's rows, on one host: the JAX package's ``sharded_corpus_cer``
-    with one shard (policy-gradient fine-tuning selects its best checkpoint
-    with it; ``val_metric="cer"`` sums the same counts in the dev pass)."""
+    manifest's rows (the JAX package's ``sharded_corpus_cer``; policy-
+    gradient fine-tuning selects its best checkpoint with it,
+    ``val_metric="cer"`` sums the same counts in the dev pass). Each rank
+    of ``dp`` decodes its slice of the rows at `batch_size` rows a batch,
+    every rank the same number of batches (the shortest slice's), and the
+    counts are summed over the ranks."""
     it = BatchIterator(rows, alphabet, batch_size, shuffle=False,
-                       sample_rate=cfg.features.sample_rate)
+                       sample_rate=cfg.features.sample_rate,
+                       shard_index=dp.rank, shard_count=dp.world)
     d_sum = l_sum = 0
-    for batch in it:
-        d, n = _batch_cer_counts(params, batch, cfg, alphabet)
+    for batch in itertools.islice(it, rank_batches(len(rows), batch_size,
+                                                   dp)):
+        d, L = _batch_cer_counts(params, batch, cfg, alphabet)
         d_sum += d
-        l_sum += n
+        l_sum += L
+    d_sum, l_sum = dp.sum_counts(d_sum, l_sum)
     return d_sum / max(l_sum, 1)
 
 
-def check_ported(cfg: Config) -> None:
-    """Refuse the training options that are not ported (the CLI refuses
-    ``--max_restarts`` and ``--fault_step``)."""
+def rank_batches(n_rows: int, rank_bs: int, dp: DataParallel) -> int:
+    """Batches every rank runs over a manifest of `n_rows`: the shortest
+    slice's count, the same on every rank without communication, so that
+    the ranks' collectives pair up (on one device, every batch)."""
+    return -(-(n_rows // dp.world) // rank_bs)
+
+
+def check_ported(cfg: Config) -> int:
+    """Refuse the training options that are not ported; returns the size of
+    the data axis."""
     t = cfg.train
     check_family(cfg.model.family)
-    if t.mesh_shape != () or t.mesh_axes != ("data",):
-        raise not_ported(_MESH)
+    return data_parallel_size(t.mesh_shape, t.mesh_axes,
+                              t.pipeline_microbatches)
 
 
 def _copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -483,19 +543,27 @@ def _copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def train(corpus_path: str, model_path: str, config: Config | None = None,
-          device: str = "cuda", profile_steps: int = 0) -> dict:
+          device: str = "cuda", profile_steps: int = 0,
+          fault_step: int | None = None) -> dict:
     """Train a model (BiLSTM-CTC, transformer-CTC, conformer-CTC, the
-    transducer or the attention seq2seq) on a corpus directory (train.tsv,
-    dev.tsv, clips/, alphabet.txt), resuming from a checkpoint in
-    model_path if there is one: at the next epoch, or mid-epoch at the
-    next batch of the same shuffled order, with the step generator's
-    state, so that a resumed run takes the steps of an uninterrupted one. SIGTERM saves model_last at
-    the current batch and returns (``"interrupted": True``).
-    ``profile_steps`` = N > 0 traces this process's steps 2..2+N into
-    <model_path>/trace. Returns a summary dict with the loss curves."""
+    switch-MoE transformer, the transducer or the attention seq2seq) on a
+    corpus directory (train.tsv, dev.tsv, clips/, alphabet.txt), resuming
+    from a checkpoint in model_path if there is one: at the next epoch, or
+    mid-epoch at the next batch of the same shuffled order, with the step
+    generator's state, so that a resumed run takes the steps of an
+    uninterrupted one. SIGTERM saves model_last at the current batch and
+    returns (``"interrupted": True``). ``profile_steps`` = N > 0 traces
+    this process's steps 2..2+N into <model_path>/trace. ``fault_step`` =
+    N ends the process with ``os._exit(utils.elastic.FAULT_EXIT)`` after
+    global step N (after that step's mid-epoch save), once per model
+    directory. Under ``--mesh data=N`` this process is one rank of the
+    joined process group (see the module's docstring). Returns a summary
+    dict with the loss curves."""
     cfg = config or Config()
-    check_ported(cfg)
+    world = check_ported(cfg)
     dev = resolve_device(device)
+    dp = join_data_axis(world, dev)
+    is_main = dp.is_main
 
     # resuming keeps the architecture of the checkpoint's config.json: a
     # resume that omits --model (or names another family) must neither
@@ -539,21 +607,38 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
 
     aud_path = os.path.join(corpus_path, "clips")
     t = cfg.train
+    # each rank takes its slice of the corpus at batch_size // N rows a
+    # batch; every rank runs the same number of steps, from the global
+    # manifest's size (no communication needed): the caps
+    rank_bs = max(1, t.batch_size // world)
+    manifest = load_manifest(os.path.join(corpus_path, "train.tsv"), aud_path)
     train_it = BatchIterator(
-        load_manifest(os.path.join(corpus_path, "train.tsv"), aud_path),
-        alphabet, t.batch_size, sample_rate=cfg.features.sample_rate,
-        seed=t.seed, cache_mb=t.cache_audio_mb, num_workers=t.loader_threads)
+        manifest, alphabet, rank_bs, sample_rate=cfg.features.sample_rate,
+        seed=t.seed, cache_mb=t.cache_audio_mb, num_workers=t.loader_threads,
+        shard_index=dp.rank, shard_count=dp.world)
+    epoch_len = min(len(train_it), rank_batches(len(manifest), rank_bs, dp))
     dev_tsv = os.path.join(corpus_path, "dev.tsv")
-    dev_it = None
+    dev_it = dev_cap = None
     if os.path.exists(dev_tsv):
-        dev_it = BatchIterator(load_manifest(dev_tsv, aud_path), alphabet,
-                               t.batch_size, shuffle=False,
-                               sample_rate=cfg.features.sample_rate)
+        dev_manifest = load_manifest(dev_tsv, aud_path)
+        dev_cap = rank_batches(len(dev_manifest), rank_bs, dp)
+        if dev_cap == 0 and dev_manifest:
+            # fewer dev rows than ranks: no rank validates
+            if is_main:
+                print("[train] dev set smaller than the data axis - "
+                      "skipping validation")
+        else:
+            dev_it = BatchIterator(dev_manifest, alphabet, rank_bs,
+                                   shuffle=False,
+                                   sample_rate=cfg.features.sample_rate,
+                                   shard_index=dp.rank,
+                                   shard_count=dp.world)
     select_on_cer = t.val_metric == "cer" and dev_it is not None
     if t.lr_schedule == "warmup_cosine" and t.decay_steps <= 0:
         # the cosine horizon from the run's length, as the JAX package
         cfg = cfg.replace(train=dataclasses.replace(
-            t, decay_steps=max(t.num_epochs * len(train_it),
+            t, decay_steps=max(t.num_epochs * -(-len(manifest)
+                                                // (rank_bs * world)),
                                t.warmup_steps + 1)))
         t = cfg.train
 
@@ -562,7 +647,11 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
     optimizer = AdamW(cfg, params)
     use_ema = t.ema_decay > 0.0
     ema = _copy(params) if use_ema else None
-    generator = torch.Generator(device=dev).manual_seed(t.seed)
+    # the carried generator, the same on every rank: on the device, or on
+    # the host when the ranks draw from generators of their own
+    # (DataParallel.step_generator)
+    generator = torch.Generator(
+        device=dev if world == 1 else "cpu").manual_seed(t.seed)
     start_epoch, step, best_val, skip = 1, 0, math.inf, 0
     train_losses: list[float] = []
     val_losses: list[float] = []
@@ -587,7 +676,7 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         step = int(state["step"])
         best_val = float(state["best_val_loss"])
         done = int(state.get("batches_done", 0))
-        if 0 < done < len(train_it):
+        if 0 < done < epoch_len:
             # saved mid-epoch: re-enter that epoch at the next batch
             start_epoch, skip = int(state["epoch"]), done
         else:
@@ -618,13 +707,18 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         if use_ema:
             ema = _copy(params)
         print(f"[train] {report}")
+    dp.broadcast_(params)  # every rank starts from rank 0's parameters
+    if use_ema:
+        dp.broadcast_(ema)
     # written only after the restore attempt: a failed resume must not
     # leave config.json overwritten with a mismatched run's settings
-    save_config(model_path, cfg)
+    if is_main:
+        cleanup_tmp(model_path)
+        save_config(model_path, cfg)
 
-    train_step = make_train_step(cfg, optimizer)
-    eval_step = make_eval_step(cfg)
-    logger = StepLogger(model_path)
+    train_step = make_train_step(cfg, optimizer, dp)
+    eval_step = make_eval_step(cfg, dp)
+    logger = StepLogger(model_path) if is_main else None
     source = (PrefetchIterator(train_it, depth=t.prefetch_depth)
               if t.prefetch_depth > 0 else train_it)
     last_path = checkpoint_path(model_path, "last")
@@ -637,6 +731,10 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         if use_ema:
             state["ema_params"] = ema
         return state
+
+    def save_last(epoch: int, batches_done: int) -> None:
+        if is_main:
+            save_checkpoint(last_path, state_at(epoch, batches_done))
 
     def summary(**extra) -> dict:
         return {"train_losses": train_losses, "val_losses": val_losses,
@@ -670,7 +768,10 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             batches = iter(source)
             try:
                 for batch in batches:
-                    if profile_steps > 0 and run_steps == 2 and trace is None:
+                    if batch_pos >= epoch_len:
+                        break  # the ranks' step counts stay equal
+                    if (profile_steps > 0 and run_steps == 2 and is_main
+                            and trace is None):
                         trace = start_trace(dev)
                     loss = train_step(params, generator,
                                       *batch_to_device(batch, dev))
@@ -683,17 +784,24 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
                     if trace is not None and run_steps > 2 + profile_steps:
                         end_trace()
                     epoch_loss = loss if epoch_loss is None else epoch_loss + loss
-                    if step % t.log_every == 0:
+                    if is_main and step % t.log_every == 0:
                         logger.log(step=step, epoch=epoch, loss=float(loss),
-                                   utts_per_sec=batch.size * n_batches
+                                   utts_per_sec=batch.size * world * n_batches
                                    / (time.time() - t0))
-                    if preempted.is_set():
-                        save_checkpoint(last_path, state_at(epoch, batch_pos))
-                        print(f"[train] SIGTERM: saved model_last at epoch "
-                              f"{epoch} batch {batch_pos}; rerun to continue")
-                        return summary(interrupted=True)
                     if t.save_every_steps and batch_pos % t.save_every_steps == 0:
-                        save_checkpoint(last_path, state_at(epoch, batch_pos))
+                        save_last(epoch, batch_pos)
+                    if fault_step is not None and step == fault_step:
+                        _inject_fault(model_path, step)
+                    # one rank's SIGTERM stops every rank here: a rank that
+                    # returned alone would leave its peers waiting in the
+                    # next step's all-reduce
+                    if dp.any(preempted.is_set()):
+                        save_last(epoch, batch_pos)
+                        if is_main:
+                            print(f"[train] SIGTERM: saved model_last at "
+                                  f"epoch {epoch} batch {batch_pos}; rerun "
+                                  "to continue")
+                        return summary(interrupted=True)
             finally:
                 batches.close()  # ends the prefetch and decode threads
             if trace is not None:  # an epoch shorter than the window
@@ -701,14 +809,17 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             mean_train = (float(epoch_loss) / max(n_batches, 1)
                           if epoch_loss is not None else 0.0)
             train_losses.append(mean_train)
-            np.save(os.path.join(model_path, "train_loss.npy"),
-                    np.array(train_losses))
+            if is_main:
+                np.save(os.path.join(model_path, "train_loss.npy"),
+                        np.array(train_losses))
 
             cur_val = cur_cer = None
             eval_params = ema if use_ema else params
             if dev_it is not None and epoch % t.eval_every_epochs == 0:
                 tot, n, d_sum, l_sum = None, 0, 0, 0
                 for batch in dev_it:
+                    if n >= dev_cap:
+                        break  # the ranks' collective counts stay equal
                     v = eval_step(eval_params, *batch_to_device(batch, dev))
                     tot = v if tot is None else tot + v
                     n += 1
@@ -718,36 +829,62 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
                         d_sum, l_sum = d_sum + d, l_sum + L
                 cur_val = float(tot) / max(n, 1) if tot is not None else 0.0
                 val_losses.append(cur_val)
-                np.save(os.path.join(model_path, "val_losses.npy"),
-                        np.array(val_losses))
-                if select_on_cer:
+                if is_main:
+                    np.save(os.path.join(model_path, "val_losses.npy"),
+                            np.array(val_losses))
+                if select_on_cer:  # over every rank's slice of the dev set
+                    d_sum, l_sum = dp.sum_counts(d_sum, l_sum)
                     cur_cer = d_sum / max(l_sum, 1)
-            print(f"[train] epoch {epoch}/{t.num_epochs} "
-                  f"train_loss={mean_train:.4f}"
-                  + (f" val_loss={cur_val:.4f}" if cur_val is not None else "")
-                  + (f" val_cer={cur_cer:.4f}" if cur_cer is not None else "")
-                  + f" ({time.time() - t0:.1f}s, {n_batches} steps)")
+            if is_main:
+                print(f"[train] epoch {epoch}/{t.num_epochs} "
+                      f"train_loss={mean_train:.4f}"
+                      + (f" val_loss={cur_val:.4f}" if cur_val is not None
+                         else "")
+                      + (f" val_cer={cur_cer:.4f}" if cur_cer is not None
+                         else "")
+                      + f" ({time.time() - t0:.1f}s, {n_batches} steps)")
 
             select = (cur_cer if cur_cer is not None else
                       cur_val if cur_val is not None else mean_train)
             is_best = select < best_val
             if is_best:
                 best_val = select
-            state = state_at(epoch, 0)
-            save_checkpoint(last_path, state)
-            if is_best:
-                save_checkpoint(checkpoint_path(model_path, "best"), state)
-                print(f"[train] new best checkpoint "
-                      f"({'cer' if cur_cer is not None else 'val'} "
-                      f"{best_val:.4f})")
-            if t.keep_ckpts > 0:  # for predict --ckpt avg
-                save_rolling(model_path, state, epoch, t.keep_ckpts)
-        print(f"[train] loader: {train_it.decoded['native']} batches by the "
-              f"native WAV decoder, {train_it.decoded['python']} by the "
-              f"Python one ({train_it.num_workers} decode threads, cache "
-              f"{t.cache_audio_mb:g} MiB)")
+            if is_main:
+                state = state_at(epoch, 0)
+                save_checkpoint(last_path, state)
+                if is_best:
+                    save_checkpoint(checkpoint_path(model_path, "best"),
+                                    state)
+                    print(f"[train] new best checkpoint "
+                          f"({'cer' if cur_cer is not None else 'val'} "
+                          f"{best_val:.4f})")
+                if t.keep_ckpts > 0:  # for predict --ckpt avg
+                    save_rolling(model_path, state, epoch, t.keep_ckpts)
+        if is_main:
+            print(f"[train] loader: {train_it.decoded['native']} batches by "
+                  f"the native WAV decoder, {train_it.decoded['python']} by "
+                  f"the Python one ({train_it.num_workers} decode threads, "
+                  f"cache {t.cache_audio_mb:g} MiB)")
     finally:
         if trace is not None:
             end_trace()
         restore_sigterm()
     return summary()
+
+
+def _inject_fault(model_path: str, step: int) -> None:
+    """--fault_step: end the process as an OOM kill would, with no handler
+    and no flush, for the elastic supervisor to relaunch. Once per model
+    directory: the marker, created by one process only (O_EXCL, so one
+    rank of a data axis fires), holds the step; the relaunch replays the
+    step from the last save and goes on."""
+    from .utils.elastic import FAULT_EXIT
+
+    try:
+        fd = os.open(os.path.join(model_path, ".fault_injected"),
+                     os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return
+    os.write(fd, str(step).encode())
+    os.close(fd)
+    os._exit(FAULT_EXIT)

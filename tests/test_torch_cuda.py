@@ -2119,3 +2119,172 @@ def test_moe_loss_on_card_matches_cpu(cuda):
                                    atol=1e-4 * g.abs().max().item(),
                                    msg=lambda m, k=k: f"{k}: {m}")
     assert g_c["blocks.0.router.w"].abs().max() > 0
+
+
+def _mesh_case():
+    """A BiLSTM-CTC of 2 layers of 64 units (dropout 0, a constant rate)
+    and a global batch of 6 ragged rows of int16 audio, on the host."""
+    from pg_asr_tpu_torch.config import Config, TrainConfig
+    from pg_asr_tpu_torch.train import init_model_params
+
+    cfg = Config(model=ModelConfig(vocab_size=9, input_dim=80,
+                                   input_proj_dim=64, hidden_size=64,
+                                   num_layers=2, dropout=0.0),
+                 train=TrainConfig(warmup_steps=0, learning_rate=1e-3))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    ns = np.array([16000, 9000, 12000, 4000, 16000, 7000], np.int32)
+    wave = np.where(np.arange(16000)[None] < ns[:, None],
+                    rng.standard_normal((6, 16000)) * 3000,
+                    0).astype(np.int16)
+    labels = rng.integers(1, 9, (6, 8)).astype(np.int32)
+    label_lens = np.array([8, 5, 6, 2, 8, 4], np.int32)
+    return cfg, params, (wave, ns, labels, label_lens)
+
+
+@pytest.mark.cuda
+def test_world1_nccl_step_equals_the_step_without_a_mesh(cuda):
+    """In an NCCL group of one: the data-parallel step's loss equals the
+    one-device step's bit for bit from the same state, its gradient
+    all-reduce is the identity, and the kernels launch as without a mesh."""
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import (AdamW, loss_and_grads,
+                                        make_train_step)
+
+    cfg, params, batch = _mesh_case()
+    arrays = [torch.from_numpy(a).to(cuda) for a in batch]
+    mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                          device=cuda)
+    try:
+        dp = mesh.GroupRank(cuda)
+        runs = {}
+        for name, with_dp in (("plain", mesh.ONE_DEVICE), ("mesh", dp)):
+            p = {k: v.to(cuda) for k, v in params.items()}
+            before = _bi_counts()
+            loss = make_train_step(cfg, AdamW(cfg, p), with_dp)(
+                p, torch.Generator(device=cuda).manual_seed(0), *arrays)
+            runs[name] = (loss, p, tuple(
+                a - b for a, b in zip(_bi_counts(), before)))
+        _, grads = loss_and_grads(runs["plain"][1], arrays, cfg)
+        summed = dp.sum_grads(grads)
+    finally:
+        mesh.destroy_distributed()
+    assert torch.equal(runs["mesh"][0], runs["plain"][0])
+    assert runs["mesh"][2] == runs["plain"][2] == (0, 0, 0, 0, 2, 2)
+    assert all(torch.equal(summed[k], grads[k]) for k in grads)
+    for k, v in runs["plain"][1].items():  # F.ctc_loss's atomic backward
+        torch.testing.assert_close(runs["mesh"][1][k], v, rtol=1e-5,
+                                   atol=1e-6)
+
+
+# one of two ranks on the card over gloo: its rows of the global batch, two
+# data-parallel steps; losses, launches, the first step's all-reduced
+# gradients and the parameters into OUT
+_CUDA_RANK = r"""
+import sys
+import numpy as np
+import torch
+from pg_asr_tpu_torch.config import Config
+from pg_asr_tpu_torch.ops import cuda_lstm
+from pg_asr_tpu_torch.parallel import mesh
+from pg_asr_tpu_torch.train import AdamW, make_train_step
+
+spec_path, out, rank, port = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+spec = torch.load(spec_path, weights_only=False)
+dev = torch.device("cuda", 0)
+mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev)
+summed = []
+
+
+class Recorded(mesh.GroupRank):
+    def sum_grads(self, grads):
+        out = super().sum_grads(grads)
+        if not summed:
+            summed.append({k: v.cpu() for k, v in out.items()})
+        return out
+
+
+dp = Recorded(dev)
+cfg = Config.from_json(spec["config"])
+params = {k: v.to(dev) for k, v in spec["params"].items()}
+arrays = [torch.from_numpy(a).to(dev)
+          for a in mesh.local_rows(spec["batch"], rank, 2)]
+step = make_train_step(cfg, AdamW(cfg, params), dp)
+gen = torch.Generator().manual_seed(0)
+losses = [step(params, gen, *arrays).item() for _ in range(2)]
+torch.save({"losses": losses, "launches": (cuda_lstm.BI_RES_LAUNCHES,
+                                           cuda_lstm.BI_BWD_LAUNCHES),
+            "grads": summed[0],
+            "params": {k: v.cpu() for k, v in params.items()}}, out)
+mesh.destroy_distributed()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two rank processes on cuda:0 over gloo (NCCL takes one rank a
+    device), 3 rows each of a global batch of 6: the first step's
+    all-reduced gradients equal the whole batch's gradients, every element,
+    within rtol 1e-4 / atol 1e-5 of the tensor's largest (a mean for the
+    sum, or a rank counted twice, would be off by half or more); after 2
+    steps the losses and parameters hold the one-process steps' within the
+    CPU tests' rtol 1e-4 / atol 1e-5 (the parameters where every step's
+    gradient exceeds the CPU tests' 1e-6: AdamW's direction is rounding
+    noise below), each rank launching the kernels on its rows."""
+    import os
+    import subprocess
+    import sys
+
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+
+    cfg, params, batch = _mesh_case()
+    spec = str(tmp_path / "spec.pt")
+    torch.save({"config": cfg.to_json(), "params": params, "batch": batch},
+               spec)
+    script = str(tmp_path / "rank.py")
+    with open(script, "w") as fo:
+        fo.write(_CUDA_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    port = str(mesh.free_port())
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, script, spec, outs[r], str(r),
+                               port], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    p_ref = {k: v.to(cuda) for k, v in params.items()}
+    arrays = [torch.from_numpy(a).to(cuda) for a in batch]
+    opt, losses, first = AdamW(cfg, p_ref), [], None
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p_ref.items()}
+    for _ in range(2):
+        loss, grads = loss_and_grads(p_ref, arrays, cfg)
+        losses.append(loss.item())
+        first = first or {k: g.cpu() for k, g in grads.items()}
+        sure = {k: sure[k] & (grads[k].abs() > 1e-6) for k in sure}
+        opt.update(p_ref, grads)
+    for rk in ranks:
+        np.testing.assert_allclose(rk["losses"], losses, rtol=1e-4,
+                                   atol=1e-5)
+        assert rk["launches"] == (4, 4)  # 2 layers x 2 steps, each
+        for k, g in first.items():  # every element, no mask
+            np.testing.assert_allclose(
+                rk["grads"][k].numpy(), g.numpy(), rtol=1e-4,
+                atol=1e-5 * g.abs().max().item(), err_msg=k)
+        for k, v in p_ref.items():
+            m = sure[k].cpu()
+            np.testing.assert_allclose(rk["params"][k][m].numpy(),
+                                       v.cpu()[m].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in p_ref)

@@ -200,15 +200,19 @@ def test_preemption_handler_sets_the_event_then_terminates(tmp_path):
     assert r.returncode == -signal.SIGTERM
 
 
+# --max_restarts and --mesh data=N are ported (tests/test_torch_elastic.py,
+# tests/test_torch_mesh.py); what stays refused is a mesh axis other than
+# data and a malformed spec, which exits with the JAX CLI's message
 @pytest.mark.parametrize("extra,message", [
-    (["--max_restarts", "1"], "--max_restarts"),
-    (["--mesh", "data:2"], "--mesh"),
+    (["--mesh", "data=1,fsdp=2"], "--mesh fsdp=2"),
+    (["--mesh", "data:2"], "--mesh: unknown mesh axis 'data:2'"),
 ])
 def test_unported_options_are_refused(trained, extra, message):
     corpus, model = trained
     with pytest.raises(SystemExit) as e:
         _pg(corpus, model, "--pg_steps", "1", *extra)
-    assert "not yet ported" in str(e.value) and message in str(e.value)
+    assert message in str(e.value)
+    assert ("not yet ported" in str(e.value)) == ("fsdp" in message)
 
 
 def test_seq2seq_is_refused(trained, tmp_path, monkeypatch):

@@ -63,6 +63,9 @@ def test_importing_every_module_of_the_port_loads_no_jax_package():
         pg_asr_tpu_torch.__path__, "pg_asr_tpu_torch."))
     assert {"pg_asr_tpu_torch.train", "pg_asr_tpu_torch.serving",
             "pg_asr_tpu_torch.parallel.moe",
+            "pg_asr_tpu_torch.parallel.driver",
+            "pg_asr_tpu_torch.parallel.mesh",
+            "pg_asr_tpu_torch.utils.elastic",
             "pg_asr_tpu_torch.utils.debug"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"

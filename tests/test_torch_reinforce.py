@@ -443,5 +443,12 @@ def test_one_pg_step_matches_make_pg_step(monkeypatch, ctc_tree):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rl.make_pg_step(Config(), None, mesh=object())
+    # the data axis runs (tests/test_torch_mesh.py); the others are refused
+    from pg_asr_tpu_torch.train import check_ported
+
+    cfg = Config()
+    assert check_ported(cfg.replace(train=dataclasses.replace(
+        cfg.train, mesh_shape=(2,), mesh_axes=("data",)))) == 2
+    with pytest.raises(NotImplementedError, match="not yet ported.*"):
+        check_ported(cfg.replace(train=dataclasses.replace(
+            cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "model"))))

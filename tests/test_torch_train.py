@@ -535,6 +535,11 @@ def test_cli_seq2seq_train_predict_round_trip(tiny_corpus, tmp_path,
             assert len(fo.read().splitlines()) == 2
 
 
+# ported run options of the JAX CLI: each sets up the run, not the model
+RUN_FLAGS = (["--mesh", "data=2"], ["--max_restarts", "1"],
+             ["--fault_step", "3"])
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--mesh", "data=2"], "mesh"),
     (["--max_restarts", "1"], "max_restarts"),
@@ -547,17 +552,22 @@ def test_cli_seq2seq_train_predict_round_trip(tiny_corpus, tmp_path,
 ])
 def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
                                                       extra, message):
-    if message in PORTED_FLAGS:
+    if message in PORTED_FLAGS or extra in RUN_FLAGS:
         # ported since --mode export is (the export flags), since the
         # switch-MoE transformer is (--moe_experts and --capacity_factor
-        # set its config, as in the JAX CLI) and since NaN checks are
-        # (--debug_nans is no config field); the others change nothing in
-        # a train run, as in the JAX CLI
+        # set its config, as in the JAX CLI), since NaN checks are
+        # (--debug_nans is no config field) and since the data axis and the
+        # elastic supervisor are (--mesh data=2 sets the config's mesh; the
+        # run options --max_restarts and --fault_step are no config
+        # fields, tests/test_torch_mesh.py and test_torch_elastic.py run
+        # them); the others change nothing in a train run, as in the JAX
+        # CLI
         base = ["--mode", "train", "--corpus_path", tiny_corpus,
                 "--model_path", str(tmp_path / "m")]
         parser = cli.build_parser()
         args = parser.parse_args(base + extra)
         cli._refuse_unported_flags(parser, args)
+        assert cli._data_axis(args) == (2 if message == "mesh" else 1)
         cfg, want = cli.train_config(args), cli.train_config(
             parser.parse_args(base))
         moe = {"moe_experts": ("num_experts", 4),
@@ -566,6 +576,10 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
             field, value = moe[message]
             assert getattr(cfg.transformer, field) == value
             want = want.replace(transformer=cfg.transformer)
+        if message == "mesh":
+            assert (cfg.train.mesh_shape, cfg.train.mesh_axes) == (
+                (2,), ("data",))
+            want = want.replace(train=cfg.train)
         assert cfg == want
         return
     with pytest.raises(SystemExit) as e:

@@ -371,8 +371,8 @@ def test_resume_equals_an_uninterrupted_run(corpus, uninterrupted, tmp_path,
     if how == "save_every_steps":
         step = train.make_train_step
 
-        def crash_at_8(cfg, optimizer):
-            inner, calls = step(cfg, optimizer), []
+        def crash_at_8(cfg, optimizer, dp=None):
+            inner, calls = step(cfg, optimizer, dp), []
 
             def run(*args):
                 calls.append(1)
