@@ -5838,8 +5838,7 @@ def _drift(got: dict, want: dict) -> float:
 def phase_mesh(dev, corpus, alphabet, d):
     """18. The data mesh axis and the elastic supervisor on the full-width
     BiLSTM-CTC at B=64: (a) `--mode train --mesh data=1` through the CLI
-    (an NCCL group of one) against the same epoch without a mesh, run
-    twice (the float32 noise of F.ctc_loss's atomic backward); in a group
+    (an NCCL group of one) against the same epoch without a mesh; in a group
     of one in this process, one step with and without the mesh from the
     same state (the losses equal bit for bit, the gradient all-reduce the
     identity), the all-reduce and both steps timed; (b) two rank processes
@@ -5873,10 +5872,9 @@ def phase_mesh(dev, corpus, alphabet, d):
             "--seed", str(SEED), "--num_epochs", "1", "--batch_size",
             str(MESH_BS)]
 
-    # (a) one epoch without a mesh, under --mesh data=1, without again
+    # (a) one epoch without a mesh and under --mesh data=1
     runs = {}
-    for name, extra in (("plain", []), ("data1", ["--mesh", "data=1"]),
-                        ("plain_again", [])):
+    for name, extra in (("plain", []), ("data1", ["--mesh", "data=1"])):
         model = os.path.join(d, f"mesh_{name}")
         reset_counts()
         t0 = time.perf_counter()
@@ -5902,7 +5900,7 @@ def phase_mesh(dev, corpus, alphabet, d):
             "wall_s": wall}
     ref = runs["plain"]
     cmp_a = {}
-    for name in ("data1", "plain_again"):
+    for name in ("data1",):
         r = runs[name]
         loss_rel = max(abs(float(r[k][0]) - float(ref[k][0]))
                        / abs(float(ref[k][0])) for k in ("train", "val"))
@@ -5913,18 +5911,15 @@ def phase_mesh(dev, corpus, alphabet, d):
                                         for k in ref["params"])}
     print(f"[mesh] (a) 1 epoch, {steps} steps at B={MESH_BS} + {dev_batches}"
           f" dev batches, launches {want_counts} in each run; --mesh data=1 "
-          f"(a group of one) vs no mesh: {cmp_a['data1']}; no mesh again vs "
-          f"no mesh: {cmp_a['plain_again']} (the card's own repeatability)"
-          "; wall s " + ", ".join(
-              f"{k} {v['wall_s']:.2f}" for k, v in runs.items()))
+          f"(a group of one) vs no mesh: {cmp_a['data1']}; wall s "
+          + ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in runs.items()))
+    # (two runs without a mesh agreed bit for bit in PR 21's runs, as did
+    # the world-1 run; the card's F.ctc_loss backward adds atomically, so
+    # bit equality is printed, the bounds are checked)
     for name, c in cmp_a.items():
         check(c["loss_rel"] <= RESUME_LOSS_REL
               and c["params_drift"] <= MESH_PARAM_REL,
               f"(a) {name} vs the run without a mesh: {c}")
-    # where two runs without a mesh agree bit for bit, the world-1 run must
-    check(cmp_a["data1"]["bit_equal"]
-          or not cmp_a["plain_again"]["bit_equal"],
-          "(a) --mesh data=1 differs from two identical runs without a mesh")
     result["a"] = {"compare": cmp_a, "launches": want_counts,
                    "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
 
@@ -6148,6 +6143,508 @@ def phase_mesh(dev, corpus, alphabet, d):
     result["d"] = {"reward_max_diff": rew_diff, "params_drift": drift_d}
     result["wall_s"] = time.perf_counter() - t_phase
     print(f"[mesh] phase 18 in {result['wall_s']:.1f} s")
+    result["launches"] = launches
+    return result
+
+
+SHARD_STEPS = 3  # phase 19's steps under expert=2 (a) and fsdp=2 (c)
+SHARD_STEPS_B = 2  # data=2,expert=2 (b): four ranks on the one card
+SHARD_PLAIN_REPS = 3  # the one-process step's timed reps, each turn
+# every sharded run against the one-process steps at the CPU tests' rtol /
+# atol (MESH_RTOL, MESH_ATOL): the losses; the first step's reduced
+# gradients (this rank's parts) against the same slices of the whole
+# batch's, every element, atol of the tensor's largest; the gathered
+# parameters where every step's gradient exceeds MESH_GRAD_FLOOR and
+# SHARD_GRAD_REL of its tensor's largest. AdamW's first steps move a
+# parameter by about lr * g / |g|, so where |g| is within the two runs'
+# gradient difference (up to ~1e-6 of the tensor's largest: 32-row and
+# 64-row products round apart) the update's sign is noise (one element
+# of 1.05 M in phase 19 (b)'s first run, |g| 2.8e-6 of a largest 5.5e-2);
+# the count left out is printed. Of the elements checked, at most
+# SHARD_OUTLIERS (a fraction) may lie outside the tolerance, each within
+# two AdamW steps of lr a step: the card's one-process run differs from
+# itself in the last bits (F.ctc_loss's backward adds atomically), and
+# where a moment nearly cancels between steps AdamW magnifies that (one
+# element of 9.5 M in (a)'s second run, |g| 5.8e-4 of its tensor's
+# largest); a wrong reduction moves most elements, and the first step's
+# gradients are held on every element
+SHARD_GRAD_REL = 1e-4
+SHARD_OUTLIERS = 1e-5
+
+
+def shard_specs(alphabet):
+    """Phase 19's models, float32, dropout 0, a constant rate of 1e-3,
+    their weights from the seed on the host: the full-width switch-MoE
+    (phase 17's: 6 blocks, d 256, 4 experts, capacity 1.25) and the
+    flagship BiLSTM-CTC (phase 18's `mesh_spec`), also with the MWER
+    objective (K=4); and phase 18's global B=64 x 5 s batch."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.train import init_model_params
+
+    cfg_c, params_c, batch = mesh_spec(alphabet)
+    base = Config()
+    cfg_m = fit_vocab(base.replace(
+        model=dataclasses.replace(base.model, family="transformer",
+                                  dropout=0.0),
+        transformer=dataclasses.replace(base.transformer, num_experts=4,
+                                        dropout=0.0),
+        train=cfg_c.train), alphabet.size)
+    check(cfg_m.transformer.capacity_factor == 1.25,
+          f"moe capacity {cfg_m.transformer.capacity_factor}")
+    params_m = init_model_params(cfg_m, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+    cfg_pg = cfg_c.replace(rl=dataclasses.replace(cfg_c.rl, objective="mwer"))
+    return {"moe": (cfg_m, params_m), "ctc": (cfg_c, params_c),
+            "ctc_mwer": (cfg_pg, params_c)}, batch
+
+
+def _meshed(cfg, spec: str):
+    import dataclasses
+
+    from pg_asr_tpu_torch.parallel.driver import parse_mesh_spec
+
+    shape, axes = parse_mesh_spec(spec)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, mesh_shape=shape, mesh_axes=axes))
+
+
+def _tree_bytes(*trees) -> int:
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree.values())
+
+
+def shard_case(case: dict, spec: dict, dev) -> dict:
+    """One case of phase 19 on this rank of the joined group: `steps`
+    steps of the model on the case's mesh from the spec's weights, its rows
+    of the global batch; the losses, step ms, launches, resident bytes,
+    the first step's reduced gradients, the collectives alone timed, the
+    gathered parameters. A "run" case is one epoch of train() on the
+    mesh into its model directory."""
+    import torch
+
+    from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.rl.reinforce import make_pg_step
+    from pg_asr_tpu_torch.train import (AdamW, make_plan, make_train_step,
+                                        train)
+
+    cfg = _meshed(Config.from_json(spec["configs"][case["model"]]),
+                  case["mesh"])
+    if case["kind"] == "run":
+        import dataclasses
+
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, num_epochs=1, batch_size=MESH_BS))
+        reset_counts()
+        t0 = time.perf_counter()
+        train(spec["corpus"], case["model_dir"], config=cfg, device=str(dev))
+        torch.cuda.synchronize()
+        return {"counts": all_counts(), "wall_s": time.perf_counter() - t0}
+    summed = []
+
+    class Recorded(mesh.GroupRank):
+        def sum_grads(self, grads):
+            out = super().sum_grads(grads)
+            if not summed:
+                summed.append({k: v.cpu() for k, v in out.items()})
+            return out
+
+    dp = Recorded(dev, make_plan(cfg))
+    params = dp.shard({k: v.to(dev, copy=True) for k, v in
+                       spec["params"][case["model"]].items()})
+    arrays = [torch.from_numpy(a).to(dev) for a in
+              mesh.local_rows(spec["batch"], dp.rank, dp.world)]
+    if case["kind"] == "pg":  # finetune_pg's optimizer and step
+        opt = AdamW(cfg, params, learning_rate=cfg.train.learning_rate * 0.1,
+                    weight_decay=1e-4, dp=dp)
+        pg_step = make_pg_step(cfg, opt, dp=dp)
+
+        def step(*args):
+            return pg_step(*args)[0]
+    else:
+        opt = AdamW(cfg, params, dp=dp)
+        step = make_train_step(cfg, opt, dp)
+    gen = torch.Generator().manual_seed(SEED)  # several ranks: the host
+    reset_counts()
+    losses, ms = [], []
+    for _ in range(case["steps"]):
+        t0 = time.perf_counter()
+        losses.append(step(params, gen, *arrays).item())  # synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = all_counts()
+    res = {"losses": losses, "ms": ms, "counts": counts,
+           "rows": int(arrays[0].shape[0]), "grads": summed[0],
+           "resident": _tree_bytes(params, opt.mu, opt.nu),
+           "shapes": {k: tuple(v.shape) for k, v in params.items()}}
+    if dp.fsdp_size > 1:  # the step's gather and its reduce-scatter alone
+        res["all_gather_ms"] = time_ms(lambda: dp.unshard(params), 5)
+        full = dp.unshard(params)
+        res["reduce_scatter_ms"] = time_ms(lambda: dp.sum_grads(full), 5)
+    if dp.expert_size > 1:  # one block's combine: (rows x T') x d float32
+        t_out = -(-(WAVE_SAMPLES // cfg.features.hop_length + 1)
+                  // cfg.transformer.subsample)
+        out = torch.ones(res["rows"] * t_out, cfg.transformer.d_model,
+                         device=dev)
+        res["combine_ms"] = time_ms(lambda: dp.expert_sum(out), 5)
+        res["combine_mb"] = out.numel() * 4 / 1e6
+    res["params"] = {k: v.cpu() for k, v in dp.unshard(params).items()}
+    return res
+
+
+def shard_worker(spec_path: str, rank: int) -> int:
+    """`python3 chip_smoke.py --shard-worker SPEC RANK`: process RANK of
+    phase 19's four, on the spec's device (the card) over gloo: each group
+    of the spec it belongs to joined in turn (a case may wait for another
+    group's marker file, so that two groups never time the card at once),
+    its cases run, the results into the spec's directory."""
+    import torch
+
+    from pg_asr_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    out = {}
+    for group in spec["groups"]:
+        if rank not in group["ranks"]:
+            continue
+        me = group["ranks"].index(rank)
+        mesh.init_distributed(f"127.0.0.1:{group['port']}",
+                              len(group["ranks"]), me, backend="gloo",
+                              device=dev)
+        try:
+            for case in group["cases"]:
+                if case.get("after"):
+                    end = time.monotonic() + 600
+                    while not os.path.exists(case["after"]):
+                        check(time.monotonic() < end,
+                              f"{case['name']}: no {case['after']}")
+                        time.sleep(0.05)
+                out[case["name"]] = shard_case(case, spec, dev)
+                if case.get("done") and me == 0:
+                    with open(case["done"], "w") as fo:
+                        fo.write("done")
+        finally:
+            mesh.destroy_distributed()
+    torch.save(out, os.path.join(spec["dir"], f"shard_rank{rank}.pt"))
+    return 0
+
+
+def phase_shard(dev, corpus, alphabet, d):
+    """19. The expert and fsdp mesh axes, four rank processes on the one
+    card over gloo (NCCL takes one rank a device) against the one-process
+    steps on the same global B=64 x 5 s batch from the same weights: (a)
+    `expert=2` on the full-width switch-MoE, SHARD_STEPS steps, ranks 0-1;
+    (b) `data=2,expert=2`, SHARD_STEPS_B steps, all four; (c) `fsdp=2` on
+    the flagship BiLSTM-CTC, SHARD_STEPS steps, ranks 2-3, then (e)
+    SHARD_STEPS_B MWER policy-gradient steps under `fsdp=2` (the n-best on
+    `ctc_beam`), and (d) one epoch of train() under `fsdp=2` whose
+    checkpoint (in the one-device shapes) `--mode predict` serves and
+    `--mode train` resumes for one epoch without a mesh. Each case prints its losses, the
+    gradients' and parameters' largest difference relative to each
+    tensor's largest, each rank's resident bytes of parameters and AdamW
+    moments against one process's, the step ms beside the one-process
+    step's (timed before and after the ranks), the collectives alone, and
+    each rank's launches (rows 3r and 4 under (c))."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.parallel.driver import ParallelPlan
+    from pg_asr_tpu_torch.rl.reinforce import make_pg_step
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    specs, batch = shard_specs(alphabet)
+    arrays = [torch.from_numpy(a).to(dev) for a in batch]
+    _, res, bwd, per = route_counters()
+
+    def pg_reference() -> list:
+        """SHARD_STEPS_B one-process MWER steps' losses."""
+        cfg, params0 = specs["ctc_mwer"]
+        p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+        step = make_pg_step(cfg, AdamW(
+            cfg, p, learning_rate=cfg.train.learning_rate * 0.1,
+            weight_decay=1e-4))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return [step(p, gen, *arrays)[0].item()
+                for _ in range(SHARD_STEPS_B)]
+
+    def reference(model: str) -> dict:
+        """SHARD_STEPS one-process steps: the losses, the first step's
+        gradients, the parameters after each step, the mask, the
+        resident bytes."""
+        cfg, params0 = specs[model]
+        p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+        opt = AdamW(cfg, p)
+        out = {"losses": [], "after": [], "grads": None}
+        sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p.items()}
+        for _ in range(SHARD_STEPS):
+            loss, grads = loss_and_grads(p, arrays, cfg)
+            out["losses"].append(loss.item())
+            if out["grads"] is None:
+                out["grads"] = {k: g.cpu() for k, g in grads.items()}
+            sure = {k: sure[k] & (grads[k].abs() > max(
+                MESH_GRAD_FLOOR, SHARD_GRAD_REL * grads[k].abs().max().item()))
+                    for k in sure}
+            opt.update(p, grads)
+            out["after"].append({k: v.to("cpu", copy=True)
+                                 for k, v in p.items()})
+            out.setdefault("sure", []).append({k: v.to("cpu", copy=True)
+                                               for k, v in sure.items()})
+        out["resident"] = _tree_bytes(p, opt.mu, opt.nu)
+        return out
+
+    def plain_ms(model: str) -> float:
+        cfg, params0 = specs[model]
+        p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+        step = make_train_step(cfg, AdamW(cfg, p))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return time_ms(lambda: step(p, gen, *arrays), SHARD_PLAIN_REPS)
+
+    refs = {m: reference(m) for m in ("moe", "ctc")}
+    turns = {m: [plain_ms(m)] for m in ("moe", "ctc")}
+    pg_losses = pg_reference()
+
+    # the four processes: (b) in a group of 4, then (a) on ranks 0-1 and,
+    # after it, (c) and (d) on ranks 2-3
+    marker = os.path.join(d, "shard_a_done")
+    run_dir = os.path.join(d, "shard_fsdp2")
+    cases = {
+        "b": {"name": "b", "model": "moe", "mesh": "data=2,expert=2",
+              "kind": "steps", "steps": SHARD_STEPS_B},
+        "a": {"name": "a", "model": "moe", "mesh": "expert=2",
+              "kind": "steps", "steps": SHARD_STEPS, "done": marker},
+        "c": {"name": "c", "model": "ctc", "mesh": "fsdp=2",
+              "kind": "steps", "steps": SHARD_STEPS, "after": marker},
+        "e": {"name": "e", "model": "ctc_mwer", "mesh": "fsdp=2",
+              "kind": "pg", "steps": SHARD_STEPS_B},
+        "d": {"name": "d", "model": "ctc", "mesh": "fsdp=2", "kind": "run",
+              "model_dir": run_dir},
+    }
+    spec_path = os.path.join(d, "shard_spec.pt")
+    torch.save({"device": str(dev), "dir": d, "corpus": corpus,
+                "batch": batch,
+                "configs": {m: c.to_json() for m, (c, _) in specs.items()},
+                "params": {m: p for m, (_, p) in specs.items()},
+                "groups": [
+                    {"ranks": [0, 1, 2, 3], "port": mesh.free_port(),
+                     "cases": [cases["b"]]},
+                    {"ranks": [0, 1], "port": mesh.free_port(),
+                     "cases": [cases["a"]]},
+                    {"ranks": [2, 3], "port": mesh.free_port(),
+                     "cases": [cases["c"], cases["e"], cases["d"]]}]},
+               spec_path)
+    logs = [os.path.join(d, f"shard_rank{r}.log") for r in range(4)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(4):
+        with open(logs[r], "w") as fo:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-worker",
+                 spec_path, str(r)], stdout=fo, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        rcs = [p.wait(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_ranks = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        with open(logs[r]) as fo:
+            log = fo.read()
+        check(rc == 0, f"phase 19 rank {r}: rc {rc}\n{log[-3000:]}")
+    got = [torch.load(os.path.join(d, f"shard_rank{r}.pt"),
+                      weights_only=False) for r in range(4)]
+    for m in turns:
+        turns[m].append(plain_ms(m))
+
+    result, launches = {}, {}
+    for key, ranks in (("b", [0, 1, 2, 3]), ("a", [0, 1]), ("c", [2, 3])):
+        case = cases[key]
+        cfg = _meshed(specs[case["model"]][0], case["mesh"])
+        plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes)
+        ref = refs[case["model"]]
+        n = case["steps"]
+        worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+        for i, r in enumerate(ranks):
+            rk = got[r][key]
+            coords = plan.coords(i)
+            for a, b in zip(rk["losses"], ref["losses"][:n]):
+                worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+                check(abs(a - b) <= MESH_ATOL + MESH_RTOL * abs(b),
+                      f"({key}) rank {r} losses {rk['losses']} vs "
+                      f"{ref['losses'][:n]}")
+            for k, g in ref["grads"].items():
+                where = plan.placement(k, tuple(g.shape))
+                if where is not None:
+                    axis, dim = where
+                    g = mesh.shard_leaf(g, dim, coords[axis],
+                                        plan.sizes[axis])
+                diff = (rk["grads"][k] - g).abs()
+                top = g.abs().max()
+                worst["grad"] = max(worst["grad"], (diff.max() / top).item())
+                check(bool((diff <= MESH_ATOL * top
+                            + MESH_RTOL * g.abs()).all()),
+                      f"({key}) rank {r} the reduced gradient of {k}: "
+                      f"max|diff| {diff.max().item():.3e}, max|g| "
+                      f"{top.item():.3e}")
+            want, sure = ref["after"][n - 1], ref["sure"][n - 1]
+            outliers, checked, far = [], 0, 0.0
+            for k, v in want.items():
+                diff = (rk["params"][k] - v).abs()
+                worst["param"] = max(worst["param"], (
+                    diff.max() / v.abs().max()).item())
+                bad = (diff > MESH_ATOL + MESH_RTOL * v.abs()) & sure[k]
+                checked += int(sure[k].sum())
+                if bad.any():
+                    far = max(far, diff[bad].max().item())
+                    outliers.append(
+                        f"{k}: {int(bad.sum())} of {bad.numel()}, max|diff| "
+                        f"{diff[bad].max().item():.3e}, first-step |g| <= "
+                        f"{ref['grads'][k].abs()[bad].max():.3e} (max|g| "
+                        f"{ref['grads'][k].abs().max():.3e})")
+            n_out = sum(int(o.split(": ")[1].split(" of")[0])
+                        for o in outliers)
+            worst["outliers"] = max(worst.get("outliers", 0), n_out)
+            if outliers:
+                print(f"[shard] ({key}) rank {r} parameters outside the "
+                      f"tolerance: " + "; ".join(outliers))
+            check(n_out <= SHARD_OUTLIERS * checked
+                  and far <= 2 * n * cfg.train.learning_rate,
+                  f"({key}) rank {r}: {n_out} of {checked} parameters "
+                  f"outside the tolerance, the farthest {far:.3e}")
+            if key == "c":
+                check(rk["counts"][res] == per * n
+                      and rk["counts"][bwd] == per * n
+                      and sum(rk["counts"].values()) == 2 * per * n,
+                      f"(c) rank {r} launches {rk['counts']}")
+            else:  # the MoE launches no kernel of the port
+                check(sum(rk["counts"].values()) == 0,
+                      f"({key}) rank {r} launches {rk['counts']}")
+            launches[f"shard_{key}_r{r}_train"] = rk["counts"]
+        same = all(torch.equal(got[ranks[0]][key]["params"][k],
+                               got[r][key]["params"][k])
+                   for r in ranks[1:] for k in ref["grads"])
+        check(same, f"({key}) the ranks' gathered parameters differ")
+        rank_ms = [float(np.mean(got[r][key]["ms"][1:])) for r in ranks]
+        resident = [got[r][key]["resident"] for r in ranks]
+        sure = ref["sure"][n - 1]
+        left_out = sum(int((~v).sum()) for v in sure.values())
+        extra = {k: [got[r][key][k] for r in ranks]
+                 for k in ("all_gather_ms", "reduce_scatter_ms",
+                           "combine_ms", "combine_mb")
+                 if k in got[ranks[0]][key]}
+        result[key] = {"mesh": case["mesh"], "model": case["model"],
+                       "rows": got[ranks[0]][key]["rows"],
+                       "losses": [got[r][key]["losses"] for r in ranks],
+                       "one_process_losses": ref["losses"][:n],
+                       "worst": worst, "left_out": left_out,
+                       "step_ms": rank_ms,
+                       "one_process_step_ms": turns[case["model"]],
+                       "resident_bytes": resident,
+                       "one_process_resident_bytes": ref["resident"],
+                       "launches": [got[r][key]["counts"] for r in ranks],
+                       **extra}
+        print(f"[shard] ({key}) --mesh {case['mesh']} on the "
+              f"{case['model']} at B={MESH_BS} x 5 s, {len(ranks)} gloo "
+              f"ranks on cuda:0, {result[key]['rows']} rows each, {n} "
+              f"steps: losses {got[ranks[0]][key]['losses']} vs one "
+              f"process {ref['losses'][:n]} (worst rel "
+              f"{worst['loss']:.2e}); the first step's reduced gradients, "
+              f"every element: worst max|diff| / max|g| {worst['grad']:.2e}"
+              f"; parameters gathered, equal on every rank: worst max|diff|"
+              f" / max|p| {worst['param']:.2e} (rtol {MESH_RTOL:g} / atol "
+              f"{MESH_ATOL:g} where every step's |g| > {MESH_GRAD_FLOOR:g} "
+              f"and {SHARD_GRAD_REL:g} of its tensor's largest: {left_out} "
+              f"of {sum(v.numel() for v in sure.values())} left out, "
+              f"{worst.get('outliers', 0)} outside the tolerance at most on "
+              f"a rank); "
+              f"resident parameters + AdamW moments a rank "
+              f"{[round(b / 1e6, 2) for b in resident]} MB vs one process "
+              f"{ref['resident'] / 1e6:.2f} MB; step ms a rank (steps "
+              f"2-{n}, host clock) {[round(m, 2) for m in rank_ms]}, one "
+              f"process before / after {[round(m, 2) for m in turns[case['model']]]}"
+              + "".join(f"; {k} {[round(v, 3) for v in vs]}"
+                        for k, vs in extra.items())
+              + f"; launches a rank {got[ranks[0]][key]['counts']}")
+        if key != "c":
+            stacks = [s for k, s in got[ranks[0]][key]["shapes"].items()
+                      if k.endswith(".w1")]
+            check(all(s[0] == 2 for s in stacks),
+                  f"({key}) expert stacks {stacks}")
+
+    # (e) MWER steps under fsdp=2: the losses, each rank's launches (its
+    # n-best on ctc_beam, its rows through rows 3r and 4)
+    for r in (2, 3):
+        rk = got[r]["e"]
+        for a, b in zip(rk["losses"], pg_losses):
+            check(abs(a - b) <= MESH_ATOL + MESH_RTOL * abs(b),
+                  f"(e) rank {r} MWER losses {rk['losses']} vs {pg_losses}")
+        n = SHARD_STEPS_B
+        check(rk["counts"]["ctc_beam"] == n and rk["counts"][res] == per * n
+              and rk["counts"][bwd] == per * n
+              and sum(rk["counts"].values()) == (2 * per + 1) * n,
+              f"(e) rank {r} launches {rk['counts']}")
+        launches[f"shard_e_r{r}_pg_mwer"] = rk["counts"]
+    result["e"] = {"losses": [got[r]["e"]["losses"] for r in (2, 3)],
+                   "one_process_losses": pg_losses,
+                   "step_ms": [float(np.mean(got[r]["e"]["ms"][1:]))
+                               for r in (2, 3)]}
+    print(f"[shard] (e) --mesh fsdp=2, {SHARD_STEPS_B} MWER steps (K=4) on "
+          f"the BiLSTM-CTC, ranks 2-3, {MESH_BS // 2} rows each: losses "
+          f"{result['e']['losses'][0]} vs one process {pg_losses}; step ms "
+          f"a rank {[round(m, 2) for m in result['e']['step_ms']]}; "
+          f"launches a rank {got[2]['e']['counts']}")
+
+    # (d) the fsdp=2 epoch's checkpoint in the one-device shapes, served
+    # by predict on one device and resumed for an epoch without a mesh
+    last = load_checkpoint(os.path.join(run_dir, "model_last.pt"))
+    shapes = {k: v.shape for k, v in specs["ctc"][1].items()}
+    check({k: v.shape for k, v in last["params"].items()} == shapes
+          and {k: v.shape for k, v in last["opt_state"]["mu"].items()}
+          == shapes, "(d) the checkpoint's shapes are not one device's")
+    epoch = {k: np.load(os.path.join(run_dir, f"{k}.npy")).tolist()
+             for k in ("train_loss", "val_losses")}
+    d_counts = [got[r]["d"]["counts"] for r in (2, 3)]
+    rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev)])
+    check(rc == 0 and "CER:" in out, f"(d) predict: rc {rc}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "train", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev),
+                       "--num_epochs", "2", "--batch_size", str(MESH_BS)])
+    resume_counts = all_counts()
+    tl = np.load(os.path.join(run_dir, "train_loss.npy"))
+    check(rc == 0 and "resumed from epoch 1" in out and len(tl) == 2
+          and np.isfinite(tl).all(), f"(d) the resume: rc {rc}, {tl}")
+    check(resume_counts[res] == resume_counts[bwd] > 0,
+          f"(d) resumed launches {resume_counts}")
+    launches["shard_d_fsdp2_epoch_r2"] = d_counts[0]
+    launches["shard_d_fsdp2_epoch_r3"] = d_counts[1]
+    launches["shard_d_resume_no_mesh"] = resume_counts
+    print(f"[shard] (d) one epoch of train() under --mesh fsdp=2 (ranks 2-3,"
+          f" {MESH_BS // 2} rows each, {[round(got[r]['d']['wall_s'], 1) for r in (2, 3)]} s): "
+          f"train / val loss {epoch['train_loss']} / {epoch['val_losses']}; "
+          f"its checkpoint in the one-device shapes (parameters and AdamW "
+          f"moments); launches a rank {d_counts}; --mode predict on one "
+          f"device served it; --mode train resumed it for an epoch without "
+          f"a mesh (train losses {tl.tolist()}, launches {resume_counts})")
+    result["d"] = {"epoch": epoch, "wall_s": [got[r]["d"]["wall_s"]
+                                              for r in (2, 3)],
+                   "resumed_train_losses": tl.tolist()}
+    result["ranks_wall_s"] = wall_ranks
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[shard] phase 19 in {result['wall_s']:.1f} s (the four rank "
+          f"processes {wall_ranks:.1f} s)")
     result["launches"] = launches
     return result
 
@@ -6441,46 +6938,63 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
                            int(sys.argv[5]))
+    if sys.argv[1:2] == ["--shard-worker"]:
+        return shard_worker(sys.argv[2], int(sys.argv[3]))
     t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall time kept under `name` and printed."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        print(f"[smoke] {name}: {walls[name]:.1f} s")
+        return out
+
     dev = phase_device()
-    phase_build()
-    cases = phase_kernels(dev)
-    cases["beam"] = phase_beam(dev)
-    cases["flash"] = phase_flash(dev)
-    cases["flash_bwd"] = phase_flash_bwd(dev)
-    cases["joint"] = phase_joint(dev)
-    cases["shapes"] = phase_shapes(dev)
-    bi = phase_bilstm(dev)
-    lib = phase_library(dev)
+    timed("build", phase_build)
+    cases = timed("3 kernels", phase_kernels, dev)
+    cases["beam"] = timed("3b beam", phase_beam, dev)
+    cases["flash"] = timed("3c flash", phase_flash, dev)
+    cases["flash_bwd"] = timed("3d flash_bwd", phase_flash_bwd, dev)
+    cases["joint"] = timed("3e joint", phase_joint, dev)
+    cases["shapes"] = timed("3g shapes", phase_shapes, dev)
+    bi = timed("3f bilstm", phase_bilstm, dev)
+    lib = timed("3 library", phase_library, dev)
     with tempfile.TemporaryDirectory() as d:
         corpus, alphabet = make_corpus(d)
-        predict_launches = phase_predict(dev, corpus, alphabet, d, bi)
-        train_counts, train_steps_ms = phase_train(dev, corpus, alphabet,
-                                                   d, bi)
-        attention = {family: phase_attention(dev, corpus, alphabet, d, family,
-                                             cases["flash"])
+        predict_launches = timed("4 predict", phase_predict, dev, corpus,
+                                 alphabet, d, bi)
+        train_counts, train_steps_ms = timed("5 train", phase_train, dev,
+                                             corpus, alphabet, d, bi)
+        attention = {family: timed(f"6 {family}", phase_attention, dev,
+                                   corpus, alphabet, d, family,
+                                   cases["flash"])
                      for family in ("conformer", "transformer")}
-        attention_train = {family: phase_attention_train(dev, corpus,
-                                                         alphabet, d, family)
+        attention_train = {family: timed(f"7 {family} train",
+                                         phase_attention_train, dev, corpus,
+                                         alphabet, d, family)
                            for family in ("conformer", "transformer")}
-        tr = phase_transducer_train(dev, corpus, alphabet, d, cases["joint"])
-        tr["predict"] = phase_transducer_predict(
-            dev, corpus, alphabet, os.path.join(d, "transducer_fused"))
-        pg = phase_pg(dev, corpus, alphabet, d, bi, cases["beam"],
-                      train_steps_ms)
-        recipe = phase_recipe(dev, corpus, alphabet, d, bi, train_steps_ms)
-        tools = phase_corpus_tools(dev, corpus, d)
-        stream = phase_stream(dev, corpus, alphabet,
-                              os.path.join(d, "trained"),
-                              os.path.join(d, "model"),
-                              os.path.join(d, "conformer_trained"),
-                              os.path.join(d, "bpe"),
-                              os.path.join(d, "bpe_model"))
-        s2s = phase_seq2seq(dev, corpus, alphabet, d)
-        lm = phase_lm(dev, corpus, alphabet, d)
-        export = phase_export(dev, corpus, alphabet, d)
-        moe_res = phase_moe(dev, corpus, alphabet, d)
-        mesh_res = phase_mesh(dev, corpus, alphabet, d)
+        tr = timed("8 transducer train", phase_transducer_train, dev, corpus,
+                   alphabet, d, cases["joint"])
+        tr["predict"] = timed("9 transducer predict",
+                              phase_transducer_predict, dev, corpus,
+                              alphabet, os.path.join(d, "transducer_fused"))
+        pg = timed("10 finetune_pg", phase_pg, dev, corpus, alphabet, d, bi,
+                   cases["beam"], train_steps_ms)
+        recipe = timed("11 recipe", phase_recipe, dev, corpus, alphabet, d,
+                       bi, train_steps_ms)
+        tools = timed("12 corpus tools", phase_corpus_tools, dev, corpus, d)
+        stream = timed("13 stream", phase_stream, dev, corpus, alphabet,
+                       os.path.join(d, "trained"), os.path.join(d, "model"),
+                       os.path.join(d, "conformer_trained"),
+                       os.path.join(d, "bpe"), os.path.join(d, "bpe_model"))
+        s2s = timed("14 seq2seq", phase_seq2seq, dev, corpus, alphabet, d)
+        lm = timed("15 lm", phase_lm, dev, corpus, alphabet, d)
+        export = timed("16 export", phase_export, dev, corpus, alphabet, d)
+        moe_res = timed("17 moe", phase_moe, dev, corpus, alphabet, d)
+        mesh_res = timed("18 mesh", phase_mesh, dev, corpus, alphabet, d)
+        shard_res = timed("19 shard", phase_shard, dev, corpus, alphabet, d)
 
     import torch
 
@@ -6497,6 +7011,8 @@ def main() -> int:
     print(json.dumps({"export": export}))
     print(json.dumps({"moe": moe_res}))
     print(json.dumps({"mesh": mesh_res}))
+    print(json.dumps({"shard": shard_res}))
+    print(json.dumps({"phase_wall_s": walls}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
@@ -6506,7 +7022,8 @@ def main() -> int:
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
               **lm["launches"], **export["launches"],
-              **moe_res["launches"], **mesh_res["launches"]}.items()})
+              **moe_res["launches"], **mesh_res["launches"],
+              **shard_res["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

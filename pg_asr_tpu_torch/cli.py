@@ -13,7 +13,8 @@
         [--save_every_steps N] [--val_metric loss|cer] \\
         [--loader_threads N] [--cache_audio_mb MB] [--profile_steps N] \\
         [--init_from_torch model_best.pth [--trust_torch_pickle]] \\
-        [--mesh data=N] [--max_restarts K [--fault_step S]] [--debug_nans]
+        [--mesh data=N|expert=X|fsdp=F|data=N,expert=X|data=N,fsdp=F] \\
+        [--max_restarts K [--fault_step S]] [--debug_nans]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--lm_order 2|3 [--lm_type ngram|neural] [--lm_pass fused|rescore] \\
@@ -22,7 +23,7 @@
     python -m pg_asr_tpu_torch --mode finetune_pg --corpus_path C \\
         --model_path M [--pg_steps N] [--pg_objective reinforce|mwer] \\
         [--mwer_beam K] [--pg_reward neg_cer|neg_wer|stepwise_ed] \\
-        [--pg_eval_every N] [--batch_size N] [--mesh data=N] \\
+        [--pg_eval_every N] [--batch_size N] [--mesh data=N,fsdp=F ...] \\
         [--max_restarts K] [--debug_nans] [--device ...]
     python -m pg_asr_tpu_torch --mode preproc --corpus_path C \\
         [--librispeech_root R] [--lang en] [--units bpe \\
@@ -47,29 +48,35 @@ argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 ``--device`` names a torch device and defaults to ``cuda`` (asking for it
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Options of the JAX CLI that are not ported yet exit
-with a message that says so and names their ROADMAP.md item: a live mesh
-axis other than ``data`` (``expert``: item 15b.2; ``model``, ``fsdp``,
-``seq``, ``pipe``: 15b.3) and ``--microbatches`` (15b.3).
+with a message that says so and names their ROADMAP.md item: a live
+``model``, ``seq`` or ``pipe`` mesh axis, alone or composed (``data x model
+x expert`` included), and ``--microbatches`` (item 15b.3).
 
-``--mesh data=N`` (train, finetune_pg) trains on N ranks, one process each
-over torch.distributed (parallel/mesh.py): the CLI starts them itself,
-on ``cuda:0`` .. ``cuda:N-1`` (or N CPU processes under ``--device cpu``),
-returns nonzero if any fails, and forwards SIGTERM to them; ``data=1``
-runs in this process, in a process group of one. With
-``PGASR_DISTRIBUTED=1`` (``PGASR_COORDINATOR`` host:port,
-``PGASR_NUM_PROCESSES``, ``PGASR_PROCESS_ID``, the JAX CLI's variables)
-this process is one rank on its ``--device``, started by the user, and
-``data`` must equal the number of processes. Without ``--mesh`` the run
-stays on one device (the JAX CLI takes every local device). The batch's
-rows split over the ranks and the loss and gradients sum over them, so
-that N ranks train as one device would on the whole batch (train.py).
+``--mesh`` (train, finetune_pg) runs on one rank process per mesh position
+over torch.distributed (parallel/mesh.py; the plan, parallel/driver.py,
+checks the mesh against the model first, with the JAX package's messages,
+and a refused mesh exits before any rank starts): ``data=N`` splits the
+batch's rows over N ranks; ``expert=X`` splits each switch-MoE block's
+experts over X ranks that take the same rows; ``fsdp=F`` splits the
+parameters and the AdamW state over F ranks that each take their own
+rows; ``data`` composes with either. The CLI starts the ranks itself, on
+``cuda:0`` .. ``cuda:W-1`` (W the product of the sizes; or W CPU processes
+under ``--device cpu``), returns nonzero if any fails, and forwards
+SIGTERM to them; a mesh of one position runs in this process, in a
+process group of one. With ``PGASR_DISTRIBUTED=1`` (``PGASR_COORDINATOR``
+host:port, ``PGASR_NUM_PROCESSES``, ``PGASR_PROCESS_ID``, the JAX CLI's
+variables) this process is one rank on its ``--device``, started by the
+user, and the mesh's positions must equal the number of processes.
+Without ``--mesh`` the run stays on one device (the JAX CLI takes every
+local device). Every mesh takes the step one device would take on the
+whole batch (train.py), and checkpoints hold the full shapes.
 ``--max_restarts K`` (train, finetune_pg) supervises the run and relaunches
 it, up to K times, when it dies other than by SIGTERM; the relaunch
-resumes from model_last (utils/elastic.py). Under ``--mesh data=N`` the
-launcher supervises the N rank processes as one group: when one dies, the
-others are stopped and all N relaunch together. ``--fault_step S`` ends a train run
-with exit code 17 at global step S, once per model directory, to test
-that path.
+resumes from model_last (utils/elastic.py). Under ``--mesh`` the
+launcher supervises the rank processes as one group: when one dies, the
+others are stopped and all relaunch together. ``--fault_step S`` ends a
+train run with exit code 17 at global step S, once per model directory,
+to test that path.
 
 ``--model moe`` is the transformer family with switch-MoE FFN blocks
 (parallel/moe.py; ``--moe_experts``, default 4, and
@@ -212,9 +219,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train: torch.profiler trace of N steady-state "
                         "steps into <model_path>/trace")
     p.add_argument("--mesh", type=str, default=None,
-                   help="train/finetune_pg: data=N trains on N ranks, one "
-                        "process each (cuda:0..N-1, or the CPU under "
-                        "--device cpu); other axes are not ported yet")
+                   help="train/finetune_pg: data=N, expert=X, fsdp=F, or "
+                        "data with one of them: one rank process a mesh "
+                        "position (cuda:0..W-1, or the CPU under --device "
+                        "cpu); model, seq and pipe are not ported yet")
     p.add_argument("--fault_step", type=int, default=None,
                    help="train: end the process with exit code 17 at this "
                         "global step, once per model dir (tests "
@@ -508,25 +516,37 @@ def pg_config(args) -> Config:
     return cfg.replace(rl=_replace(cfg.rl, **rl))
 
 
-def _data_axis(args) -> int:
-    """The size of the ``data`` axis of a train or finetune_pg run (1
-    without ``--mesh``, and for the other modes, which run on one device);
-    a live axis the port does not run exits through ``not_ported``."""
+def _mesh_world(args) -> int:
+    """The rank processes of a train or finetune_pg run's mesh (1 without
+    ``--mesh``, and for the other modes, which run on one device), from
+    the plan of the config the run will take (parallel/driver.py), so
+    that a refused mesh exits before any rank starts: a live axis the port
+    does not run exits through ``not_ported``, a mesh the model cannot
+    take with the JAX package's message."""
     if not args.mesh or args.mode not in ("train", "finetune_pg"):
         return 1
-    from .parallel.driver import data_parallel_size
+    from .train import make_plan, resume_config
 
-    return data_parallel_size(*_mesh_spec(args.mesh))
+    if args.mode == "train":
+        cfg = train_config(args)
+        if args.model_path:
+            cfg, _ = resume_config(cfg, args.model_path, say=lambda _: None)
+    else:
+        cfg = pg_config(args)
+    try:
+        return make_plan(cfg).world
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
 
 
 def _launch_ranks(argv: list[str], world: int, device: str,
-                  max_restarts: int) -> int:
-    """``--mesh data=N``: run this command as N rank processes, rank r on
+                  max_restarts: int, mesh: str = "") -> int:
+    """``--mesh``: run this command as `world` rank processes, rank r on
     ``cuda:r`` (or the CPU), joined through the ``PGASR_*`` variables at a
     free local port, supervised as one group (utils/elastic.supervise):
     SIGTERM and SIGINT forwarded to every rank; when a rank fails, the
     others get a grace period, then are killed, and with `max_restarts` >
-    0 all N are relaunched together, at a new port. Returns 0, or the
+    0 all are relaunched together, at a new port. Returns 0, or the
     first failing rank's exit code."""
     import torch
 
@@ -540,7 +560,7 @@ def _launch_ranks(argv: list[str], world: int, device: str,
                              " on this host (pass --device cpu to run the "
                              "plain PyTorch path)")
         if world > torch.cuda.device_count():
-            raise SystemExit(f"--mesh data={world}: only "
+            raise SystemExit(f"--mesh {mesh}: {world} ranks, only "
                              f"{torch.cuda.device_count()} CUDA device(s) "
                              "visible")
         devices = [f"cuda:{r}" for r in range(world)]
@@ -569,7 +589,7 @@ def _launch_ranks(argv: list[str], world: int, device: str,
 def _process_group(args, world: int):
     """The process group of a train or finetune_pg rank: from the
     ``PGASR_*`` variables under ``PGASR_DISTRIBUTED=1``, a group of one
-    for ``--mesh data=1``, else none."""
+    for a ``--mesh`` of one position, else none."""
     from . import resolve_device
     from .parallel import mesh
 
@@ -704,7 +724,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     try:
         _refuse_unported_flags(parser, args)
-        world = _data_axis(args)
+        world = _mesh_world(args)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
     from .utils import elastic
@@ -713,7 +733,7 @@ def main(argv=None) -> int:
                 if args.mode in ("train", "finetune_pg")
                 and os.environ.get(elastic.CHILD_ENV) != "1" else 0)
     if world > 1 and os.environ.get("PGASR_DISTRIBUTED") != "1":
-        return _launch_ranks(argv, world, args.device, restarts)
+        return _launch_ranks(argv, world, args.device, restarts, args.mesh)
     if restarts > 0:
         # supervise: this command again as the child (CHILD_ENV marks it);
         # a crash relaunches it and it resumes from model_last, a SIGTERM

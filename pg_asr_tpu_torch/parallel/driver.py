@@ -1,24 +1,34 @@
-"""Mesh specs and the strategy router (counterpart of
+"""Mesh specs and the parallel plan (counterpart of
 pg_asr_tpu/parallel/driver.py).
 
-The user writes ``--mesh data=2`` as for the JAX CLI, and ``parse_mesh_spec``
-reads it with the JAX package's rules and messages. The port runs the
-``data`` axis: N rank processes over torch.distributed, one device each,
-the batch's rows split over them and the loss and gradients summed
-(parallel/mesh.py, train.py, rl/reinforce.py). ``data_parallel_size``
-routes a config: it returns the size of the ``data`` axis, or refuses an
-axis the port does not run yet, naming its ROADMAP.md item.
+The user writes ``--mesh data=2,fsdp=2`` as for the JAX CLI, and
+``parse_mesh_spec`` reads it with the JAX package's rules and messages.
+``ParallelPlan`` validates a mesh against a config before any rank process
+starts, with the JAX package's ``ValueError`` messages, and says what the
+ranks run: one rank process per mesh position (``world``, the product of
+the axis sizes), laid out row-major over the axes as given, as
+``jax.sharding.Mesh`` lays out its devices (``coords``); each rank's rows
+of a batch (the batch splits over ``data``, and over ``data x fsdp`` under
+``fsdp``: ``batch_multiple``); and where each parameter leaf lives
+(``placement``): whole on every rank, its experts split over ``expert``
+(parallel/moe.py) or its largest divisible dimension over ``fsdp``
+(parallel/fsdp.py). The steps' collectives are parallel/mesh.py's.
+
+The port runs ``data``, ``expert`` and ``fsdp``, each with ``data``; the
+``model``, ``seq`` and ``pipe`` axes and pipeline microbatches are refused
+as not ported, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
+
+import math
 
 from .. import not_ported
 
 MESH_AXES = ("data", "model", "pipe", "seq", "expert", "fsdp")
 
 # the axes the port does not run yet -> their ROADMAP.md queue 1 item
-_UNPORTED_AXES = {"expert": "15b.2", "model": "15b.3", "fsdp": "15b.3",
-                  "seq": "15b.3", "pipe": "15b.3"}
+_UNPORTED_AXES = {"model": "15b.3", "seq": "15b.3", "pipe": "15b.3"}
 
 
 def parse_mesh_spec(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -49,19 +59,110 @@ def parse_mesh_spec(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
     return tuple(shape), tuple(axes)
 
 
-def data_parallel_size(mesh_shape: tuple[int, ...],
-                       mesh_axes: tuple[str, ...],
-                       microbatches: int = 0) -> int:
-    """The ``data`` axis's size of a mesh (1 without one: ``mesh_shape``
-    empty, one device, where the JAX package takes every local device).
-    Raises ``not_ported`` for any other live axis (size > 1) and for
-    pipeline microbatches."""
-    sizes = dict(zip(mesh_axes, mesh_shape))
-    for axis, item in _UNPORTED_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise not_ported(f"--mesh {axis}={sizes[axis]} (the {axis} axis, "
-                             f"item {item} of ROADMAP.md queue 1)")
-    if microbatches:
-        raise not_ported("--microbatches (the pipeline mesh, item 15b.3 of "
-                         "ROADMAP.md queue 1)")
-    return sizes.get("data", 1)
+def mesh_text(shape: tuple[int, ...], axes: tuple[str, ...]) -> str:
+    """((2, 2), ('data', 'fsdp')) -> 'data=2,fsdp=2'."""
+    return ",".join(f"{a}={n}" for a, n in zip(axes, shape))
+
+
+class ParallelPlan:
+    """What the ranks of a mesh run for a config (the JAX package's
+    ``ParallelPlan``: its checks and messages, its batch multiple; the
+    placement its sharding rules give). ``mesh_shape`` empty: one device,
+    rank 0 of 1."""
+
+    def __init__(self, cfg, mesh_shape: tuple[int, ...] = (),
+                 mesh_axes: tuple[str, ...] = (), microbatches: int = 0):
+        self.shape, self.axes = tuple(mesh_shape), tuple(mesh_axes)
+        sizes = dict(zip(self.axes, self.shape))
+        live = [a for a in ("model", "pipe", "seq", "expert", "fsdp")
+                if sizes.get(a, 1) > 1]
+        composable = ({"model", "expert"}, {"model", "pipe"})
+        if len(live) > 1 and set(live) not in composable:
+            raise ValueError(
+                f"mesh composes {live} — 'data' composes with any ONE of "
+                "model/pipe/seq/expert/fsdp (plus the GSPMD pairs "
+                "model+expert and model+pipe); other compositions are "
+                "not supported")
+        for axis in live:
+            if axis in _UNPORTED_AXES:
+                raise not_ported(
+                    f"--mesh {axis}={sizes[axis]} (the {axis} axis, item "
+                    f"{_UNPORTED_AXES[axis]} of ROADMAP.md queue 1)")
+        if microbatches:
+            raise not_ported("--microbatches (the pipeline mesh, item 15b.3 "
+                             "of ROADMAP.md queue 1)")
+        self.strategy = live[0] if live else "data"
+        self.sizes = {a: sizes.get(a, 1) for a in ("data", "expert", "fsdp")}
+        self.world = math.prod(self.shape)
+        self.fsdp_coverage = None
+        if self.strategy == "fsdp":
+            from .fsdp import shardable_fraction
+
+            n = self.sizes["fsdp"]
+            frac = shardable_fraction(_param_shapes(cfg), n)
+            if frac == 0.0:
+                raise ValueError(
+                    f"fsdp={n} shards NO parameter leaf of this model "
+                    "(no dimension divisible by the axis size) — it would "
+                    "silently degrade to replicated data parallelism; "
+                    "pick an axis size that divides the layer dims")
+            self.fsdp_coverage = frac
+        if self.strategy == "expert":
+            E = cfg.transformer.num_experts
+            n = self.sizes["expert"]
+            if not (cfg.model.family == "transformer" and E > 0):
+                raise ValueError(
+                    "'expert' axis needs a MoE model — set "
+                    "--moe_experts N (transformer.num_experts)")
+            if E % n != 0:
+                raise ValueError(
+                    f"num_experts={E} not divisible over expert axis "
+                    f"size {n}")
+
+    @property
+    def text(self) -> str:
+        return mesh_text(self.shape, self.axes) or "none"
+
+    @property
+    def batch_multiple(self) -> int:
+        """The ranks that hold distinct rows of a batch: ``data``, times
+        ``fsdp`` under ``fsdp`` (the ranks of one expert group hold the
+        same rows)."""
+        return self.sizes["data"] * self.sizes["fsdp"]
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """The mesh position of rank `rank` (row-major over the axes as
+        given); 0 on an axis the mesh does not name."""
+        out = dict.fromkeys(("data", "expert", "fsdp"), 0)
+        for axis, n in reversed(tuple(zip(self.axes, self.shape))):
+            out[axis] = rank % n
+            rank //= n
+        return out
+
+    def placement(self, name: str, shape: tuple[int, ...]
+                  ) -> tuple[str, int] | None:
+        """(axis, dimension) over which a parameter leaf (and its
+        optimizer state, accumulator and EMA) is split, or None when every
+        rank holds it whole."""
+        if self.strategy == "expert":
+            from .moe import moe_leaf_dim
+
+            dim = moe_leaf_dim(name)
+            return None if dim is None else ("expert", dim)
+        if self.strategy == "fsdp":
+            from .fsdp import fsdp_leaf_dim
+
+            dim = fsdp_leaf_dim(tuple(shape), self.sizes["fsdp"])
+            return None if dim is None else ("fsdp", dim)
+        return None
+
+
+def _param_shapes(cfg) -> dict:
+    """The config's parameters as shapes only (tensors on the meta device,
+    as the JAX package's ``eval_shape`` probe): nothing is allocated."""
+    import torch
+
+    from ..train import init_model_params
+
+    with torch.device("meta"):
+        return init_model_params(cfg, torch.Generator(), "meta")

@@ -1,21 +1,32 @@
-"""The ``data`` mesh axis over torch.distributed (counterpart of the data
-half of pg_asr_tpu/parallel/mesh.py).
+"""The mesh's rank processes over torch.distributed: the ``data``,
+``expert`` and ``fsdp`` axes (counterpart of the data half of
+pg_asr_tpu/parallel/mesh.py and of the placements of parallel/moe.py and
+parallel/fsdp.py).
 
-The JAX package runs ``--mesh data=N`` in one process over N devices (and
-over hosts with ``jax.distributed``). The port runs one process per rank,
-PyTorch's way: each rank holds the whole model on its own device, takes
-its own rows of the batch, and the steps sum the loss's denominators and
-the gradients over the ranks (train.py, rl/reinforce.py), as the JAX
-package's ``shard_map`` step does with ``psum``.
+The JAX package runs a mesh in one process over its devices (and over
+hosts with ``jax.distributed``). The port runs one process per mesh
+position, PyTorch's way, each on its own device: ``data`` ranks take their
+own rows of the batch and sum the loss's denominators and the gradients,
+as the JAX package's ``shard_map`` step does with ``psum``; ``expert``
+ranks take the same rows and split each MoE block's experts
+(parallel/moe.py); ``fsdp`` ranks take their own rows and split the
+parameters and the optimizer state (parallel/fsdp.py). Ranks lie on the
+mesh row-major (``ParallelPlan.coords``), as ``jax.sharding.Mesh`` lays out
+devices.
 
   * ``init_distributed``: the process group, from a ``tcp://`` rendezvous
     at the coordinator's address; NCCL for a CUDA rank, gloo for a CPU
     rank, unless the caller names a backend. A configured cluster that
     fails raises: it never carries on as a single process.
-  * ``DataParallel``: this rank's place on the data axis and the
-    collectives the steps make (all sums but the stop agreement, which
-    takes a max): ``ONE_DEVICE`` without a process group, every collective
-    the identity; ``GroupRank`` in the joined group.
+  * ``DataParallel``: this rank's place on the mesh and the collectives
+    the steps make, each over a named set of ranks: the *batch* ranks
+    (those holding distinct rows: ``data``, ``data x fsdp``) for the
+    loss's denominators, the MoE's token counts and the gradients of
+    whole leaves; the expert group for the MoE's combine; the fsdp group
+    for the gathers and reduce-scatters of split leaves; every rank for
+    the stop agreement and the broadcast. ``ONE_DEVICE`` without a process
+    group, every collective the identity; ``GroupRank`` in the joined
+    group (without a plan: a data axis over the whole group).
   * ``pad_batch_to_multiple``, ``local_rows``: a global batch laid out over
     the ranks as the JAX package lays it out over the devices of a mesh.
 """
@@ -118,38 +129,53 @@ def local_rows(arrays: tuple[np.ndarray, ...], rank: int, world: int):
     return tuple(a[rank * n:(rank + 1) * n] for a in arrays)
 
 
-def join_data_axis(size: int, device: torch.device | str) -> "DataParallel":
-    """This process's rank on a data axis of `size` ranks: ``ONE_DEVICE``
-    outside any process group; else the joined group's ``GroupRank``,
-    whose world size must be `size`."""
+
+
+def join_mesh(plan, device: torch.device | str) -> "DataParallel":
+    """This process's rank on the mesh of `plan` (parallel/driver.py):
+    ``ONE_DEVICE`` outside any process group; else the joined group's
+    ``GroupRank``, whose world size must be the mesh's."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        if size > 1:
+        if plan.world > 1:
             raise ValueError(
-                f"--mesh data={size} needs {size} rank processes joined in "
-                "a process group (parallel/mesh.init_distributed); the CLI "
-                "starts them")
+                f"--mesh {plan.text} needs {plan.world} rank processes "
+                "joined in a process group (parallel/mesh.init_distributed);"
+                " the CLI starts them")
         return ONE_DEVICE
-    if dist.get_world_size() != size:
+    if dist.get_world_size() != plan.world:
         raise ValueError(
-            f"--mesh data={size} in a process group of "
-            f"{dist.get_world_size()} ranks: the data axis must equal the "
-            "world size")
-    return GroupRank(device)
+            f"--mesh {plan.text} in a process group of "
+            f"{dist.get_world_size()} ranks: the mesh's positions must equal "
+            "the world size")
+    return GroupRank(device, plan)
+
+
+def shard_leaf(v: torch.Tensor, dim: int, index: int, n: int
+               ) -> torch.Tensor:
+    """Part `index` of `n` of `v` along `dim`, in storage of its own (a
+    view would keep the whole tensor alive)."""
+    size = v.shape[dim] // n
+    return v.narrow(dim, index * size, size).clone(
+        memory_format=torch.contiguous_format)
 
 
 class DataParallel:
-    """This process's rank on the ``data`` axis and the collectives that
-    the data-parallel steps make; reductions are sums unless named
-    otherwise. This base is the run without a process group (one device,
-    ``ONE_DEVICE``): rank 0 of 1, every collective the identity, so that
-    the steps have one body for one device and for N ranks."""
+    """This process's place on the mesh and the collectives that the steps
+    make; reductions are sums unless named otherwise. ``rank`` and
+    ``world`` are its place among the ranks that hold distinct rows of a
+    batch (the data index, or data x fsdp), ``n_ranks`` the processes of
+    the whole mesh. This base is the run without a process group (one
+    device, ``ONE_DEVICE``): rank 0 of 1, every collective the identity,
+    every leaf whole, so that the steps have one body for one device and
+    for any mesh."""
 
-    rank, world, is_main = 0, 1, True
+    rank, world, n_ranks, is_main = 0, 1, 1, True
+    expert_index, expert_size = 0, 1
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of `t`."""
+        """The sum of `t` over the ranks that hold distinct rows."""
         return t
 
     def all_mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -157,7 +183,9 @@ class DataParallel:
 
     def sum_grads(self, grads: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
-        """Every gradient summed over the ranks."""
+        """The step's gradients (of the whole leaves that
+        ``forward_params`` gave) summed over the ranks that hold distinct
+        rows, in the layout the parameters are held in."""
         return grads
 
     def broadcast_(self, tensors: dict[str, torch.Tensor]) -> None:
@@ -168,13 +196,13 @@ class DataParallel:
         return flag
 
     def sum_counts(self, *counts: int) -> tuple[int, ...]:
-        """Host integers summed over the ranks."""
+        """Host integers summed over the ranks that hold distinct rows."""
         return counts
 
     def exclusive_offsets(self, counts: torch.Tensor):
-        """For per-rank counts (K,) int64: (the sum over the ranks before
-        this one, the sum over all ranks), each (K,): the rank-major
-        global order that the MoE's expert slots follow."""
+        """For per-rank counts (K,) int64: (the sum over the ranks of rows
+        before this one, the sum over all of them), each (K,): the
+        rank-major global order that the MoE's expert slots follow."""
         return torch.zeros_like(counts), counts
 
     def step_generator(self, carried: torch.Generator) -> torch.Generator:
@@ -182,50 +210,197 @@ class DataParallel:
         device the carried generator itself."""
         return carried
 
+    def shard(self, tree: dict[str, torch.Tensor]
+              ) -> dict[str, torch.Tensor]:
+        """This rank's part of full-shape parameter-like leaves (parameters,
+        optimizer moments, accumulators, EMA)."""
+        return tree
+
+    def unshard(self, tree: dict[str, torch.Tensor], axis: str | None = None
+                ) -> dict[str, torch.Tensor]:
+        """The full-shape leaves of this rank's parts (of the leaves split
+        over `axis`, or over any axis), gathered from their group."""
+        return tree
+
+    def forward_params(self, params: dict[str, torch.Tensor]
+                       ) -> dict[str, torch.Tensor]:
+        """The parameters a step's forward takes: the fsdp leaves gathered
+        whole, the expert stacks as this rank holds them."""
+        return self.unshard(params, "fsdp")
+
+    def leaf_sums(self, sums: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        """Per-leaf float32 sums of this rank's parts completed into the
+        whole leaves' sums: summed over each split leaf's group, a whole
+        leaf counted once."""
+        return sums
+
+    def expert_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the expert group (in float32), without
+        gradient."""
+        return t
+
 
 # the rank of a run without a process group
 ONE_DEVICE = DataParallel()
 
+# a set of ranks of one member: no collective
+_SELF = "self"
+
 
 class GroupRank(DataParallel):
-    """This process's rank in the joined process group, on `device`. Every
-    collective takes and returns tensors on `device` (NCCL reduces device
-    tensors only) and returns a new tensor with no gradient."""
+    """This process's rank in the joined process group, on `device`, at its
+    place on `plan`'s mesh (without a plan: a data axis over the whole
+    group). Every collective takes and returns tensors on `device` (NCCL
+    reduces device tensors only) and returns a new tensor with no
+    gradient. The sets of ranks are ``dist.new_group`` groups, made on
+    every rank in one order; one that spans the world is the default
+    group."""
 
-    def __init__(self, device: torch.device | str):
+    def __init__(self, device: torch.device | str, plan=None):
         import torch.distributed as dist
 
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
-        self.is_main = self.rank == 0  # the one that writes files
+        n = dist.get_world_size()
+        self.global_rank = dist.get_rank()
+        self.n_ranks = n
+        self.is_main = self.global_rank == 0  # the one that writes files
         self.device = torch.device(device)
+        self.plan = plan
+        if plan is None:
+            sizes = {"data": n, "expert": 1, "fsdp": 1}
+            coords = [{"data": r, "expert": 0, "fsdp": 0} for r in range(n)]
+        else:
+            if plan.world != n:
+                raise ValueError(f"--mesh {plan.text} has {plan.world} "
+                                 f"positions, the process group {n} ranks")
+            sizes = plan.sizes
+            coords = [plan.coords(r) for r in range(n)]
+        me = coords[self.global_rank]
+        F = sizes["fsdp"]
+        self.rank = me["data"] * F + me["fsdp"]
+        self.world = sizes["data"] * F
+        self.expert_index, self.expert_size = me["expert"], sizes["expert"]
+        self.fsdp_index, self.fsdp_size = me["fsdp"], F
+        self._index = {"expert": self.expert_index, "fsdp": self.fsdp_index}
+        self._size = {"expert": self.expert_size, "fsdp": F}
+        self._groups = {name: self._new_group(coords, along)
+                        for name, along in (("batch", ("data", "fsdp")),
+                                            ("data", ("data",)),
+                                            ("expert", ("expert",)),
+                                            ("fsdp", ("fsdp",)))}
+        self._groups["world"] = None
+        self._placed: dict[str, tuple[str, int]] = {}
+
+    def _new_group(self, coords, along):
+        """The ranks that differ from this one only along the axes
+        `along`: None for the whole world (the default group), _SELF for
+        this rank alone, else its ``dist.new_group`` (every rank makes
+        every such group, in one order, as new_group requires)."""
+        import torch.distributed as dist
+
+        parts: dict[tuple, list[int]] = {}
+        for r, c in enumerate(coords):
+            key = tuple(v for a, v in sorted(c.items()) if a not in along)
+            parts.setdefault(key, []).append(r)
+        if len(parts) == 1:
+            return None
+        mine = None
+        for ranks in sorted(parts.values()):
+            if len(ranks) == 1:
+                if self.global_rank in ranks:
+                    mine = _SELF
+                continue
+            group = dist.new_group(ranks)
+            if self.global_rank in ranks:
+                mine = group
+        return mine
+
+    def _all_reduce(self, t: torch.Tensor, over: str) -> None:
+        """`t` summed in place over the named set of ranks."""
+        import torch.distributed as dist
+
+        group = self._groups[over]
+        if group is not _SELF:
+            dist.all_reduce(t, group=group)
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
-        import torch.distributed as dist
-
         out = t.detach().clone()
-        dist.all_reduce(out)
+        self._all_reduce(out, "batch")
         return out
 
-    def sum_grads(self, grads: dict[str, torch.Tensor]
+    def _sum_flat(self, grads: dict[str, torch.Tensor], over: str
                   ) -> dict[str, torch.Tensor]:
-        """One all-reduce a dtype, on the gradients flattened into one
+        """One all-reduce a dtype, on the tensors flattened into one
         buffer."""
-        import torch.distributed as dist
-
         by_dtype: dict[torch.dtype, list[str]] = {}
         for k, g in grads.items():
             by_dtype.setdefault(g.dtype, []).append(k)
         out = {}
         for keys in by_dtype.values():
             flat = torch.cat([grads[k].reshape(-1) for k in keys])
-            dist.all_reduce(flat)
+            self._all_reduce(flat, over)
             at = 0
             for k in keys:
                 n = grads[k].numel()
                 out[k] = flat[at:at + n].view_as(grads[k])
                 at += n
+        return out
+
+    def sum_grads(self, grads: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        """Whole leaves: an all-reduce over the batch ranks; fsdp leaves:
+        a reduce-scatter within the fsdp group, then an all-reduce of the
+        part over the data group; expert stacks (the expert group's ranks
+        hold the same rows): an all-reduce over the data group. Under an
+        expert axis the whole leaves' gradients are summed over every rank
+        and divided by its size: the data group's sum, averaged over the
+        expert group, whose ranks each hold a copy of it that agrees but
+        for rounding (the card's CTC backward adds atomically), so that
+        every rank of the group keeps the same dense weights and routes
+        alike."""
+        axis = {k: self._placed.get(k, ("",))[0] for k in grads}
+        whole = {k: g for k, g in grads.items() if axis[k] == ""}
+        if self.expert_size > 1:
+            out = {k: g / self.expert_size for k, g in
+                   self._sum_flat(whole, "world").items()}
+        else:
+            out = self._sum_flat(whole, "batch")
+        out.update(self._sum_flat({k: g for k, g in grads.items()
+                                   if axis[k] == "expert"}, "batch"))
+        split = {k: g for k, g in grads.items() if axis[k] == "fsdp"}
+        if split:
+            out.update(self._sum_flat(self._reduce_scatter(split), "data"))
         return {k: out[k] for k in grads}
+
+    def _reduce_scatter(self, grads: dict[str, torch.Tensor]
+                        ) -> dict[str, torch.Tensor]:
+        """Each full-shape fsdp gradient summed within the fsdp group,
+        this rank keeping its part: one reduce-scatter a dtype (torch's
+        ``reduce_scatter_single``, earlier ``reduce_scatter_tensor``), the
+        input laid out as the F ranks' parts one after another."""
+        import torch.distributed as dist
+
+        scatter_single = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
+        F = self.fsdp_size
+        by_dtype: dict[torch.dtype, list[str]] = {}
+        for k, g in grads.items():
+            by_dtype.setdefault(g.dtype, []).append(k)
+        out = {}
+        for keys in by_dtype.values():
+            parts = {k: grads[k].chunk(F, dim=self._placed[k][1])
+                     for k in keys}
+            flat = torch.cat([parts[k][f].reshape(-1) for f in range(F)
+                              for k in keys])
+            mine = flat.new_empty(flat.numel() // F)
+            scatter_single(mine, flat, group=self._groups["fsdp"])
+            at = 0
+            for k in keys:
+                shape = parts[k][0].shape
+                n = parts[k][0].numel()
+                out[k] = mine[at:at + n].view(shape)
+                at += n
+        return out
 
     def broadcast_(self, tensors: dict[str, torch.Tensor]) -> None:
         import torch.distributed as dist
@@ -236,7 +411,7 @@ class GroupRank(DataParallel):
     def any(self, flag: bool) -> bool:
         import torch.distributed as dist
 
-        if self.world == 1:  # no agreement to reach: no wait for the card
+        if self.n_ranks == 1:  # no agreement to reach: no wait for the card
             return flag
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
@@ -254,13 +429,81 @@ class GroupRank(DataParallel):
 
     def step_generator(self, carried: torch.Generator) -> torch.Generator:
         """The carried generator stays the same on every rank (a host
-        generator when world > 1); each step draws one seed from it and
-        this rank's draws come from a generator on its device seeded from
-        that seed and the rank, as the JAX step folds the data axis's index
-        into its key. At world 1 the draws are the carried generator's
-        own, as on one device without a mesh."""
-        if self.world == 1:
+        generator when there are several); each step draws one seed from
+        it and this rank's draws come from a generator on its device
+        seeded from that seed and its row index (``rank``), as the JAX
+        step folds the data axis's index into its key: the ranks of one
+        expert group, which hold the same rows, draw the same bits. In a
+        group of one the draws are the carried generator's own, as on one
+        device without a mesh."""
+        if self.n_ranks == 1:
             return carried
         seed = int(torch.randint(0, 2 ** 62, (), generator=carried))
         return torch.Generator(device=self.device).manual_seed(
             (seed + self.rank * 0x9E3779B97F4A7C15) % 2 ** 63)
+
+    def shard(self, tree: dict[str, torch.Tensor]
+              ) -> dict[str, torch.Tensor]:
+        if self.plan is None:
+            return tree
+        out = {}
+        for k, v in tree.items():
+            where = self.plan.placement(k, tuple(v.shape))
+            if where is None:
+                out[k] = v
+                continue
+            self._placed[k] = where
+            axis, dim = where
+            out[k] = shard_leaf(v, dim, self._index[axis], self._size[axis])
+        return out
+
+    def unshard(self, tree: dict[str, torch.Tensor], axis: str | None = None
+                ) -> dict[str, torch.Tensor]:
+        """One all-gather a split axis and dtype (torch's
+        ``all_gather_single``, earlier ``all_gather_into_tensor``), each
+        leaf reassembled along its dimension into a contiguous tensor."""
+        import torch.distributed as dist
+
+        gather_single = getattr(dist, "all_gather_single",
+                                dist.all_gather_into_tensor)
+        batches: dict[tuple, list[str]] = {}
+        for k, v in tree.items():
+            where = self._placed.get(k)
+            if where is not None and axis in (None, where[0]):
+                batches.setdefault((where[0], v.dtype), []).append(k)
+        if not batches:
+            return tree
+        out = dict(tree)
+        for (ax, _), keys in batches.items():
+            n = self._size[ax]
+            flat = torch.cat([tree[k].reshape(-1) for k in keys])
+            every = flat.new_empty(n * flat.numel())
+            gather_single(every, flat, group=self._groups[ax])
+            parts = every.view(n, -1)
+            at = 0
+            for k in keys:
+                v = tree[k]
+                size = v.numel()
+                out[k] = torch.cat([parts[i, at:at + size].view(v.shape)
+                                    for i in range(n)],
+                                   dim=self._placed[k][1])
+                at += size
+        return out
+
+    def leaf_sums(self, sums: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        by_axis: dict[str, list[str]] = {}
+        for k in sums:
+            if k in self._placed:
+                by_axis.setdefault(self._placed[k][0], []).append(k)
+        out = dict(sums)
+        for ax, keys in by_axis.items():
+            stacked = torch.stack([sums[k].float() for k in keys])
+            self._all_reduce(stacked, ax)
+            out.update(zip(keys, stacked.unbind()))
+        return out
+
+    def expert_sum(self, t: torch.Tensor) -> torch.Tensor:
+        out = t.detach().float().clone()
+        self._all_reduce(out, "expert")
+        return out.to(t.dtype)

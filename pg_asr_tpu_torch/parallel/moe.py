@@ -35,9 +35,10 @@ C = ceil(N / E * capacity_factor) with N = B x ceil(T / subsample) of the
 PADDED batch (``moe_capacity``), so an utterance's output depends on its
 batch's size and padding, as in the JAX package.
 
-Under ``--mesh data=N`` (``dp``, parallel/mesh.py) each rank routes its own
-rows, but as one device would route the ranks' batches concatenated, which
-is what the JAX package's step does (it runs the MoE outside
+Over the ranks that hold distinct rows (``--mesh data=N``, or ``data x
+fsdp``; ``dp``, parallel/mesh.py) each rank routes its own rows, but as
+one device would route the ranks' batches concatenated, which is what the
+JAX package's step does (it runs the MoE outside
 ``shard_map``, so that the slot cumsum sees the global token order): N is
 the padded tokens of every rank, a token's slot counts its expert's
 tokens on the ranks before this one (an all-reduce of each rank's
@@ -55,8 +56,25 @@ too).
 Parameters are the transformer-CTC's flat dict with each block's FFN
 linears replaced: ``blocks.{i}.router.{w,b}`` (d, E) and (E,);
 ``blocks.{i}.w1`` (E, d, ffn), ``b1`` (E, ffn), ``w2`` (E, ffn, d), ``b2``
-(E, d). The expert axis's sharding (``moe_param_specs``,
-``shard_moe_params``) is ROADMAP.md queue 1 item 15b.2.
+(E, d).
+
+Under ``--mesh expert=X`` (``moe_param_specs``, ``shard_moe_params``: the
+JAX package's placement) rank x of an expert group holds experts [x E/X,
+(x+1) E/X) of every block's ``w1``, ``b1``, ``w2``, ``b2``, with their
+AdamW moments, accumulator and EMA; the router and the dense leaves are
+whole on every rank. The ranks of an expert group hold the same rows (the
+batch splits over ``data`` only, as in the JAX package), so each routes
+all of them exactly as one device would, fills and runs only its own
+experts' slots, (E/X, C, d), and the partial combined outputs are summed
+over the group before the gate multiplies them: with top-1 routing every
+token has one nonzero term, so the sum is exact. Two autograd functions
+carry it: the combine (an all-reduce forward, the identity backward) and
+the dispatch's input (the identity forward, an all-reduce of its
+gradient backward). The stacks' gradients are then summed over the data
+group only; the dense ones over the data group too, and averaged over the
+expert group, whose ranks each computed them whole (parallel/mesh.py
+``sum_grads``: on the card their copies differ in the last bits, and the
+ranks of a group must keep equal weights to route alike).
 """
 
 from __future__ import annotations
@@ -76,9 +94,11 @@ from ..models.transformer_ctc import (_init_ln, _layer_norm, _mhsa,
                                       padding_bias)
 from ..ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from ..ops.features import extract_features
-from .mesh import ONE_DEVICE, DataParallel
+from .mesh import ONE_DEVICE, DataParallel, shard_leaf
 
 _DENSE_FFN = ("ffn_in.w", "ffn_in.b", "ffn_out.w", "ffn_out.b")
+# each block's expert stacks, split on their leading (expert) dimension
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
 
 
 def init_moe_params(cfg: Config, num_experts: int,
@@ -163,12 +183,40 @@ def route(params: dict, pre: str, x: torch.Tensor, token_valid: torch.Tensor,
                    valid & (pos < capacity))
 
 
+class _Combine(torch.autograd.Function):
+    """The partial combined outputs summed over the expert group; the
+    gradient passes unchanged (each rank's part reaches the sum once)."""
+
+    @staticmethod
+    def forward(ctx, t, dp):
+        return dp.expert_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatch's input as it is; its gradient, which each rank forms
+    from its own experts' slots only, summed over the expert group."""
+
+    @staticmethod
+    def forward(ctx, x, dp):
+        ctx.dp = dp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dp.expert_sum(g), None
+
+
 def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
              token_valid: torch.Tensor, capacity: int,
              dp: DataParallel = ONE_DEVICE):
     """Switch-routed FFN of block `pre`. x: (B, T, d) in the compute type,
     token_valid: (B, T) bool. Returns (out (B, T, d), aux float32: this
-    rank's share of the aux over the ranks of ``dp``)."""
+    rank's share of the aux over the ranks of ``dp``). The expert stacks
+    may hold this rank's experts of an expert axis only (``dp``'s)."""
     B, T, d = x.shape
     N = B * T
     r = route(params, pre, x, token_valid, capacity)
@@ -177,23 +225,34 @@ def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
     pos = r.pos + before[r.expert]
     r = r._replace(pos=pos, kept=token_valid.reshape(N) & (pos < capacity))
     E, C = r.probs.shape[1], capacity
-    # each kept token's flat slot e * C + pos (the others: a spare slot E *
-    # C, cut off) and each slot's token (an empty slot: a spare token N).
-    # Both directions are copies by index, whose gradients are gathers:
-    # no two rows add into one, so nothing accumulates atomically
-    slot = torch.where(r.kept, r.expert * C + r.pos, E * C)
-    token = torch.full((E * C + 1,), N, dtype=slot.dtype,
+    # this rank's experts [lo, lo + El): all of them on one device
+    El = params[f"{pre}.w1"].shape[0]
+    if El * dp.expert_size != E:
+        raise ValueError(f"{pre}: the expert stacks hold {El} of {E} "
+                         f"experts on an expert axis of {dp.expert_size}")
+    lo = dp.expert_index * El
+    mine = r.kept if El == E else r.kept & (r.expert >= lo) & (
+        r.expert < lo + El)
+    # each of its tokens' flat slot (e - lo) * C + pos (the others: a spare
+    # slot El * C, cut off) and each slot's token (an empty slot: a spare
+    # token N). Both directions are copies by index, whose gradients are
+    # gathers: no two rows add into one, so nothing accumulates atomically
+    slot = torch.where(mine, (r.expert - lo) * C + r.pos, El * C)
+    token = torch.full((El * C + 1,), N, dtype=slot.dtype,
                        device=slot.device).index_copy(
-        0, slot, torch.arange(N, device=slot.device))[:E * C]
+        0, slot, torch.arange(N, device=slot.device))[:El * C]
     # (the JAX package forms xin in float32 and casts it back: the same
     # values, since every row is a copy of a row of x)
-    xin = x.new_zeros(E * C + 1, d).index_copy(
-        0, slot, x.reshape(N, d))[:E * C].reshape(E, C, d)
+    xd = x if El == E else _Dispatch.apply(x, dp)
+    xin = x.new_zeros(El * C + 1, d).index_copy(
+        0, slot, xd.reshape(N, d))[:El * C].reshape(El, C, d)
     h = F.gelu(torch.bmm(xin, params[f"{pre}.w1"])
                + params[f"{pre}.b1"][:, None, :], approximate="tanh")
     y = torch.bmm(h, params[f"{pre}.w2"]) + params[f"{pre}.b2"][:, None, :]
     out = x.new_zeros(N + 1, d, dtype=torch.float32).index_copy(
-        0, token, y.reshape(E * C, d).float())[:N]
+        0, token, y.reshape(El * C, d).float())[:N]
+    if El != E:  # every token's one output, from the rank of its expert
+        out = _Combine.apply(out, dp)
     out = (out * r.gate[:, None]).to(x.dtype)
 
     # the load-balance loss over the valid tokens (uniform routing: 1.0)
@@ -314,3 +373,28 @@ def make_moe_loss(cfg: Config, num_experts: int, capacity: int,
         return num / torch.clamp(den, min=1.0) + aux_weight * aux
 
     return loss_fn
+
+
+def moe_leaf_dim(name: str) -> int | None:
+    """The dimension an expert axis splits of the leaf `name`: 0 for an
+    expert stack, None for the router and the dense leaves."""
+    parts = name.split(".")
+    if len(parts) == 3 and parts[0] == "blocks" and parts[2] in _EXPERT_LEAVES:
+        return 0
+    return None
+
+
+def moe_param_specs(params: dict) -> dict[str, tuple]:
+    """{name: partition spec} of an MoE parameter dict on an ``expert``
+    axis, as the JAX package's rules write it: ``("expert",)`` for the
+    expert stacks, ``()`` (replicated) for the router and the rest."""
+    return {k: ("expert",) if moe_leaf_dim(k) == 0 else ()
+            for k in params}
+
+
+def shard_moe_params(params: dict[str, torch.Tensor], n: int, index: int
+                     ) -> dict[str, torch.Tensor]:
+    """The leaves that position `index` of an expert axis of `n` holds:
+    its E/n experts of each stack, the other leaves whole."""
+    return {k: v if moe_leaf_dim(k) is None else shard_leaf(v, 0, index, n)
+            for k, v in params.items()}

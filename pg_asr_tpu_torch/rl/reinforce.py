@@ -33,8 +33,12 @@ kernels, and the seq2seq decoder's teacher-forced passes the residual
 the plain recurrences and scans and the plain CTC recursion.
 
 Random draws come from an explicit ``torch.Generator``. One device, or
-under ``--mesh data=N`` one rank of N (``make_pg_step(dp=)``,
-``finetune_pg``; parallel/mesh.py).
+under ``--mesh`` one rank of the mesh (``make_pg_step(dp=)``,
+``finetune_pg``; parallel/mesh.py): ``data``, ``expert`` (the switch-MoE's
+experts split over the ranks) or ``fsdp`` (the parameters and the AdamW
+state split, the tree gathered for each step), each with ``data``, the
+same ranks and layouts as training's; every mesh takes the global step, as
+the JAX package's pjit step does with its replicated parameters.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ from ..ops.ctc import (alignable, ctc_loss, ctc_loss_terms,
 from ..ops.edit_distance import cer_from_ids, wer_from_ids
 from ..ops.features import extract_features
 from ..ops.transducer import transducer_loss, transducer_loss_terms
-from ..parallel.mesh import ONE_DEVICE, DataParallel, join_data_axis
+from ..parallel.mesh import ONE_DEVICE, DataParallel, join_mesh
 from ..utils.logging import StepLogger
 from ..utils.preempt import install_preemption_handler
 from .reward import sequence_reward, stepwise_reward
@@ -489,12 +493,14 @@ def make_pg_step(cfg: Config, optimizer, dp: DataParallel = ONE_DEVICE,
     (loss, metrics): the PG loss's gradients, then the optimizer, which
     updates params in place.
 
-    ``dp`` (parallel/mesh.py): this rank's place on the data axis (the JAX
-    package's ``shard_map`` step): the samples drawn from
+    ``dp`` (parallel/mesh.py): this rank's place on the mesh (the JAX
+    package's ``shard_map`` step on a data axis): the samples drawn from
     ``dp.step_generator(generator)``, every component's denominator summed
-    over the ranks before the quotients, the gradients summed before the
-    optimizer; the loss is the global one and the metrics the ranks'
-    mean. On one device (``ONE_DEVICE``) every sum is the identity."""
+    over the ranks of distinct rows before the quotients, the gradients
+    summed before the optimizer, the forward on ``dp.forward_params`` (the
+    fsdp leaves gathered) as train.make_train_step; the loss is the global
+    one and the metrics the ranks' mean. On one device (``ONE_DEVICE``)
+    every sum is the identity."""
     from ..train import value_and_grad
 
     def pg_step(params, generator, wave, ns, labels, label_lens):
@@ -506,7 +512,8 @@ def make_pg_step(cfg: Config, optimizer, dp: DataParallel = ONE_DEVICE,
             dens = {k: dp.all_sum(v) for k, v in dens.items()}
             return _combine_terms(nums, dens, cfg.rl), metrics
 
-        (loss, metrics), grads = value_and_grad(loss_fn, params)
+        (loss, metrics), grads = value_and_grad(loss_fn,
+                                                dp.forward_params(params))
         optimizer.update(params, dp.sum_grads(grads))
         return dp.all_sum(loss.detach()), {
             k: dp.all_mean(v.detach()) for k, v in metrics.items()}
@@ -548,27 +555,29 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
     package. Artifacts: pg_rewards.npy (reward per step), pg_dev_cer.npy
     ((step, CER) pairs), metrics.jsonl every 10 steps.
 
-    Under ``--mesh data=N`` this process is one rank of the joined process
-    group, as in train.train: its slice of the train split at batch_size //
-    N rows, the data-parallel step (``make_pg_step(dp=)``), `num_steps`
-    global steps on every rank, the dev CER over every rank's slice, a
-    SIGTERM to any rank agreed at the step, and only rank 0 writes."""
+    Under ``--mesh`` this process is one rank of the joined process group,
+    as in train.train: its slice of the train split at batch_size // N
+    rows (N the ranks of distinct rows), its parts of the split leaves, the
+    mesh's step (``make_pg_step(dp=)``), `num_steps` global steps on every
+    rank, the dev CER over every slice, a SIGTERM to any rank agreed at the
+    step, and only rank 0 writes, in the full shapes."""
     from ..predict import load_model
-    from ..train import (AdamW, _copy, _ema_update, batch_to_device,
-                         check_ported, corpus_cer)
+    from ..train import (AdamW, _copy, _ema_update, _opt_layout,
+                         batch_to_device, corpus_cer, make_plan)
 
     cfg = config or Config()
     if batch_size:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     batch_size=batch_size))
-    world = check_ported(cfg)
+    check_family(cfg.model.family)
     _refuse_jax_pg_resume(model_path, num_steps)
     dev = resolve_device(device)
-    dp = join_data_axis(world, dev)
-    is_main = dp.is_main
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
     params, cfg = load_model(model_path, alphabet, cfg, which="best",
                              device=dev)
+    # the mesh, checked against the model this run fine-tunes
+    dp = join_mesh(make_plan(cfg), dev)
+    is_main, world = dp.is_main, dp.world
 
     # the word delimiter of WER-granularity rewards (neg_wer)
     space_id = alphabet.char2ind.get(" ", -1)
@@ -589,12 +598,10 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                        alphabet, bs, sample_rate=cfg.features.sample_rate,
                        seed=cfg.train.seed, shard_index=dp.rank,
                        shard_count=dp.world)
-    optimizer = AdamW(cfg, params, learning_rate=cfg.train.learning_rate * 0.1,
-                      weight_decay=1e-4)  # optax.adamw's default decay
-    pg_step = make_pg_step(cfg, optimizer, dp=dp)
     logger = StepLogger(model_path) if is_main else None
     use_ema = cfg.train.ema_decay > 0.0
     ema = _copy(params) if use_ema else None
+    opt_state = None  # a restored optimizer state, in the full shapes
 
     # resume an interrupted PG run: its checkpoints carry epoch -1
     start_step, best_val = 0, math.inf
@@ -605,7 +612,7 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                 and int(prev["step"]) < num_steps):
             params = cast_params(prev["params"],
                                  torch_dtype(cfg.model.dtype), dev)
-            optimizer.load_state_dict(prev["opt_state"], dev)
+            opt_state = prev["opt_state"]
             if use_ema and "ema_params" in prev:
                 ema = cast_params(prev["ema_params"],
                                   torch_dtype(cfg.model.dtype), dev)
@@ -615,11 +622,19 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
     dp.broadcast_(params)  # every rank starts from rank 0's parameters
     if use_ema:
         dp.broadcast_(ema)
+    # from here on each rank holds its parts of the mesh's split leaves
+    params = dp.shard(params)
+    ema = dp.shard(ema) if use_ema else None
+    optimizer = AdamW(cfg, params, learning_rate=cfg.train.learning_rate * 0.1,
+                      weight_decay=1e-4, dp=dp)  # optax.adamw's default decay
+    if opt_state is not None:
+        optimizer.load_state_dict(_opt_layout(opt_state, dp.shard), dev)
+    pg_step = make_pg_step(cfg, optimizer, dp=dp)
 
     preempted, restore_sigterm = install_preemption_handler()
     # the same on every rank: on the host when each rank draws from a
     # generator of its own (DataParallel.step_generator)
-    generator = torch.Generator(device=dev if world == 1 else "cpu"
+    generator = torch.Generator(device=dev if dp.n_ranks == 1 else "cpu"
                                 ).manual_seed(cfg.train.seed + 17)
 
     dev_tsv = os.path.join(corpus_path, "dev.tsv")
@@ -630,18 +645,19 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
 
     def _save(step: int, val: float | None) -> bool:
         """model_last always; model_best too when `val` improves on the
-        best so far (the JAX package's CheckpointManager.save). Rank 0
-        writes; every rank keeps the same best."""
+        best so far (the JAX package's CheckpointManager.save). Every rank
+        gathers the full shapes and keeps the same best; rank 0 writes."""
         nonlocal best_val
         is_best = val is not None and val < best_val
         if is_best:
             best_val = float(val)
-        if not is_main:
-            return is_best
-        state = {"params": params, "opt_state": optimizer.state_dict(),
+        state = {"params": dp.unshard(params),
+                 "opt_state": _opt_layout(optimizer.state_dict(), dp.unshard),
                  "step": step, "epoch": -1, "best_val_loss": best_val}
         if use_ema:
-            state["ema_params"] = ema
+            state["ema_params"] = dp.unshard(ema)
+        if not is_main:
+            return is_best
         save_checkpoint(last_path, state)
         if is_best:
             save_checkpoint(checkpoint_path(model_path, "best"), state)
@@ -684,7 +700,8 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
                     _save(step, val=None)  # model_last at the exact step
                     say(f"[pg] SIGTERM: saved model_last at step {step}; "
                         "rerun finetune_pg to resume")
-                    return {"rewards": _floats(reward_dev), "params": params,
+                    return {"rewards": _floats(reward_dev),
+                            "params": dp.unshard(params),
                             "config": cfg, "dev_cers": dev_cers,
                             "interrupted": True}
                 if step >= num_steps:
@@ -704,7 +721,7 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
             f"({time.time() - t0:.1f}s)")
     finally:
         restore_sigterm()
-    return {"rewards": rewards, "params": params, "config": cfg,
+    return {"rewards": rewards, "params": dp.unshard(params), "config": cfg,
             "dev_cers": dev_cers}
 
 

@@ -37,21 +37,29 @@ num/den components. Under ``--debug_nans`` (utils/debug.py) every step's
 loss and gradients are checked for NaN (``value_and_grad``), and the dev
 pass's loss.
 
-``--mesh data=N`` (``train.mesh_shape`` / ``mesh_axes``): this process is
-one of N ranks joined in a process group (parallel/mesh.py; the CLI starts
-them). Each rank iterates its own slice of the corpus
+``--mesh`` (``train.mesh_shape`` / ``mesh_axes``; parallel/driver.py's
+``ParallelPlan``): this process is one of the mesh's ranks joined in a
+process group (parallel/mesh.py; the CLI starts them). The ranks that hold
+distinct rows (``data``, or ``data x fsdp``; an expert group's ranks hold
+the same rows) each iterate their own slice of the corpus
 (``BatchIterator(shard_index=rank, shard_count=N)``) at ``batch_size //
 N`` rows, every rank running the same number of steps (the shortest
 slice's), and the step takes the loss as the sum of the rank's
-numerators over the all-reduced denominators, all-reduces the gradients
-(a sum), then clips and applies AdamW identically on every rank
-(``make_train_step(dp=)``, the JAX package's ``shard_map`` step); the
-parameters are broadcast from rank 0 first. Dropout and augmentation draw
-from a generator of the rank (``DataParallel.step_generator``). Only rank
-0 writes checkpoints and artifacts, in the one-device layout; a SIGTERM to
-any rank stops every rank at the same step. Other mesh axes are refused
-(parallel/driver.py). ``fault_step`` injects a crash for the elastic
-supervisor (utils/elastic.py).
+numerators over the all-reduced denominators and sums the gradients over
+those ranks (``make_train_step(dp=)``: the JAX package's ``shard_map``
+step under ``data``, its GSPMD step under ``expert`` and ``fsdp``). The
+parameters are broadcast from rank 0, then each rank keeps its part of
+the split leaves (``DataParallel.shard``: an expert group's experts, an
+fsdp group's slices of every divisible leaf), and AdamW, its accumulator
+and the EMA run on those parts; the clip's global norm completes each
+split leaf's squares over its group. Under ``fsdp`` a step gathers the
+whole tree first and reduce-scatters the gradients after. Dropout and
+augmentation draw from a generator of the rows (``step_generator``). Only
+rank 0 writes checkpoints and artifacts, always in the one-device layout
+(the parts gathered first), so that any mesh resumes and one device
+serves them; a SIGTERM to any rank stops every rank at the same step.
+``fault_step`` injects a crash for the elastic supervisor
+(utils/elastic.py).
 """
 
 from __future__ import annotations
@@ -82,8 +90,8 @@ from .ops.augment import spec_augment, wave_augment, wave_augmented
 from .ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from .ops.features import extract_features
 from .ops.transducer import transducer_loss_terms
-from .parallel.driver import data_parallel_size
-from .parallel.mesh import ONE_DEVICE, DataParallel, join_data_axis
+from .parallel.driver import ParallelPlan
+from .parallel.mesh import ONE_DEVICE, DataParallel, join_mesh
 from .parallel.moe import init_moe_params, moe_loss_terms
 from .utils import debug
 from .utils.logging import StepLogger
@@ -153,15 +161,19 @@ def tree_order(name: str) -> list:
             for s in name.split(".")]
 
 
-def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: per leaf the sum of its squares (each square
-    rounded to the leaf's dtype, summed in float32 as ``jnp.sum`` does,
-    rounded back), those sums added in tree order in the promoted dtype
-    (bfloat16 until a float32 leaf joins), then the root in that dtype."""
+def global_norm(grads: dict[str, torch.Tensor],
+                dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
+    """``optax.global_norm`` of the whole tree: per leaf the sum of its
+    squares (each square rounded to the leaf's dtype, summed in float32 as
+    ``jnp.sum`` does, rounded back), those sums added in tree order in the
+    promoted dtype (bfloat16 until a float32 leaf joins), then the root in
+    that dtype. ``dp``: a leaf split over a mesh axis sums its part's
+    squares over that axis's group before the rounding back; a whole leaf
+    counts once."""
+    sums = dp.leaf_sums({k: (g * g).float().sum() for k, g in grads.items()})
     total = None
     for k in sorted(grads, key=tree_order):
-        g = grads[k]
-        s = (g * g).float().sum().to(g.dtype)
+        s = sums[k].to(grads[k].dtype)
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -198,19 +210,25 @@ class AdamW:
     schedule and the moments count emitted updates only. optax also
     computes the inner update on the other micro-steps and discards it
     (its state kept only on the k-th, the update multiplied by 0); that
-    changes nothing for finite gradients, and is skipped here."""
+    changes nothing for finite gradients, and is skipped here.
+
+    On a mesh (``dp``) the parameters, moments and accumulator are this
+    rank's parts of the split leaves, and the clip takes the whole tree's
+    norm (``global_norm(dp=)``)."""
 
     b1, b2, eps, eps_root = 0.9, 0.999, 1e-8, 0.0
 
     def __init__(self, cfg: Config, params: dict[str, torch.Tensor],
                  learning_rate: float | None = None,
-                 weight_decay: float | None = None):
+                 weight_decay: float | None = None,
+                 dp: DataParallel = ONE_DEVICE):
         """The rate follows ``make_schedule(cfg)`` and the decay
         ``cfg.train.weight_decay``, unless given: a given `learning_rate` is
         constant, a Python float rounded to each update's dtype where it is
         applied, as optax applies a float rate (policy-gradient fine-tuning's
         ``optax.adamw(lr * 0.1)``, whose decay is optax's default 1e-4), and
         accumulates no gradients (that chain has no MultiSteps)."""
+        self.dp = dp
         self.accum_steps = (max(cfg.train.accum_steps, 1)
                             if learning_rate is None else 1)
         self.max_norm = cfg.train.grad_clip
@@ -261,7 +279,7 @@ class AdamW:
         self._step(params, grads)
 
     def _step(self, params, grads) -> None:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.dp)
         keep = g_norm < _weak(self.max_norm, g_norm.dtype)
         lr = self.schedule(self.count)
         self.count += 1
@@ -432,9 +450,12 @@ def make_train_step(cfg: Config, optimizer: AdamW,
     the denominators summed over the ranks (clamped at 1), so that ragged
     and zero-padded rows reduce to the global batch's loss, not to a mean
     of the ranks' means; the gradients are summed over the ranks before
-    the clip and AdamW, which then run identically on every rank. The
-    draws come from ``dp.step_generator(generator)``. Returns the global
-    loss. On one device (``ONE_DEVICE``) every sum is the identity."""
+    the clip and AdamW, which then run identically on every rank. Under
+    ``fsdp`` the forward and backward run on the whole tree gathered for
+    the step (``dp.forward_params``), the gradients come back as this
+    rank's parts, and the gathered copies are freed. The draws come from
+    ``dp.step_generator(generator)``. Returns the global loss. On one
+    device (``ONE_DEVICE``) every sum is the identity."""
 
     def train_step(params, generator, *batch_arrays):
         gen = dp.step_generator(generator)
@@ -444,7 +465,7 @@ def make_train_step(cfg: Config, optimizer: AdamW,
                                   generator=gen, dp=dp)
             return torch.sum(num / torch.clamp(dp.all_sum(den), min=1.0))
 
-        loss, grads = value_and_grad(loss_fn, params)
+        loss, grads = value_and_grad(loss_fn, dp.forward_params(params))
         optimizer.update(params, dp.sum_grads(grads))
         return dp.all_sum(loss.detach())
 
@@ -453,10 +474,12 @@ def make_train_step(cfg: Config, optimizer: AdamW,
 
 def make_eval_step(cfg: Config, dp: DataParallel = ONE_DEVICE) -> Callable:
     """step(params, wave, num_samples, labels, label_lens) -> the global
-    batch's loss without dropout, reduced as the train step's."""
+    batch's loss without dropout, reduced as the train step's (on the
+    parameters as this rank holds them: ``dp.forward_params``)."""
     @torch.no_grad()
     def eval_step(params, *batch_arrays):
-        num, den = loss_terms(params, *batch_arrays, cfg, train=False, dp=dp)
+        num, den = loss_terms(dp.forward_params(params), *batch_arrays, cfg,
+                              train=False, dp=dp)
         loss = dp.all_sum(torch.sum(
             num / torch.clamp(dp.all_sum(den), min=1.0)))
         debug.check_nans(loss, "the dev loss")
@@ -507,8 +530,10 @@ def corpus_cer(params, rows, alphabet, cfg: Config, batch_size: int,
     gradient fine-tuning selects its best checkpoint with it,
     ``val_metric="cer"`` sums the same counts in the dev pass). Each rank
     of ``dp`` decodes its slice of the rows at `batch_size` rows a batch,
-    every rank the same number of batches (the shortest slice's), and the
-    counts are summed over the ranks."""
+    every rank the same number of batches (the shortest slice's), on the
+    whole parameters (``dp.unshard``), and the counts are summed over the
+    ranks that hold distinct rows."""
+    params = dp.unshard(params)
     it = BatchIterator(rows, alphabet, batch_size, shuffle=False,
                        sample_rate=cfg.features.sample_rate,
                        shard_index=dp.rank, shard_count=dp.world)
@@ -529,17 +554,68 @@ def rank_batches(n_rows: int, rank_bs: int, dp: DataParallel) -> int:
     return -(-(n_rows // dp.world) // rank_bs)
 
 
-def check_ported(cfg: Config) -> int:
-    """Refuse the training options that are not ported; returns the size of
-    the data axis."""
+def make_plan(cfg: Config) -> ParallelPlan:
+    """The config's mesh validated against its model (parallel/driver.py):
+    refuses the family and mesh options that are not ported."""
     t = cfg.train
     check_family(cfg.model.family)
-    return data_parallel_size(t.mesh_shape, t.mesh_axes,
-                              t.pipeline_microbatches)
+    return ParallelPlan(cfg, t.mesh_shape, t.mesh_axes,
+                        t.pipeline_microbatches)
+
+
+def check_ported(cfg: Config) -> int:
+    """Refuse the training options that are not ported; returns the number
+    of rank processes of the config's mesh."""
+    return make_plan(cfg).world
 
 
 def _copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in params.items()}
+
+
+def resume_config(cfg: Config, model_path: str,
+                  say: Callable[[str], None] = print
+                  ) -> tuple[Config, bool]:
+    """The config a train run on `model_path` takes, and whether it resumes
+    a checkpoint there (each change it makes reported through `say`). A
+    directory holding only a JAX package run is refused."""
+    # resuming keeps the architecture of the checkpoint's config.json: a
+    # resume that omits --model (or names another family) must neither
+    # build a wrong model nor overwrite config.json with it
+    has_ckpt = any(os.path.exists(os.path.join(model_path, n))
+                   for n in (BEST_NAME, LAST_NAME))
+    if not has_ckpt and has_flax_checkpoints(model_path):
+        # starting fresh would overwrite the JAX run's config.json
+        raise not_ported("resuming a JAX package run (its optax state)")
+    prev_cfg_path = os.path.join(model_path, "config.json")
+    if os.path.exists(prev_cfg_path):
+        with open(prev_cfg_path) as fo:
+            prev = Config.from_json(fo.read())
+        if prev.text.units != cfg.text.units:
+            # the tokenizer the model directory was made with, whatever
+            # --units says (a wrong vocabulary would not load)
+            say(f"[train] resuming with text.units={prev.text.units!r} "
+                "from the checkpoint's config.json")
+            cfg = cfg.replace(text=dataclasses.replace(
+                cfg.text, units=prev.text.units))
+        if has_ckpt:
+            if prev.model.family != cfg.model.family:
+                say(f"[train] resuming with model family "
+                    f"{prev.model.family!r} from the checkpoint's "
+                    f"config.json (requested {cfg.model.family!r} ignored)")
+            cfg = cfg.replace(model=prev.model, transformer=prev.transformer,
+                              conformer=prev.conformer,
+                              transducer=prev.transducer,
+                              seq2seq=prev.seq2seq, features=prev.features,
+                              text=prev.text)
+        if cfg.train.ema_decay == 0.0 and prev.train.ema_decay > 0.0:
+            # a resume without --ema_decay keeps the average the best
+            # checkpoint was selected on
+            say(f"[train] resuming with ema_decay={prev.train.ema_decay} "
+                "from the checkpoint's config.json")
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, ema_decay=prev.train.ema_decay))
+    return cfg, has_ckpt
 
 
 def train(corpus_path: str, model_path: str, config: Config | None = None,
@@ -556,60 +632,26 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
     this process's steps 2..2+N into <model_path>/trace. ``fault_step`` =
     N ends the process with ``os._exit(utils.elastic.FAULT_EXIT)`` after
     global step N (after that step's mid-epoch save), once per model
-    directory. Under ``--mesh data=N`` this process is one rank of the
-    joined process group (see the module's docstring). Returns a summary
-    dict with the loss curves."""
+    directory. Under ``--mesh`` this process is one rank of the joined
+    process group (see the module's docstring). Returns a summary dict
+    with the loss curves (and the whole parameters)."""
     cfg = config or Config()
-    world = check_ported(cfg)
+    check_family(cfg.model.family)
     dev = resolve_device(device)
-    dp = join_data_axis(world, dev)
-    is_main = dp.is_main
 
-    # resuming keeps the architecture of the checkpoint's config.json: a
-    # resume that omits --model (or names another family) must neither
-    # build a wrong model nor overwrite config.json with it
-    has_ckpt = any(os.path.exists(os.path.join(model_path, n))
-                   for n in (BEST_NAME, LAST_NAME))
-    if not has_ckpt and has_flax_checkpoints(model_path):
-        # starting fresh would overwrite the JAX run's config.json
-        raise not_ported("resuming a JAX package run (its optax state)")
-    prev_cfg_path = os.path.join(model_path, "config.json")
-    if os.path.exists(prev_cfg_path):
-        with open(prev_cfg_path) as fo:
-            prev = Config.from_json(fo.read())
-        if prev.text.units != cfg.text.units:
-            # the tokenizer the model directory was made with, whatever
-            # --units says (a wrong vocabulary would not load)
-            print(f"[train] resuming with text.units={prev.text.units!r} "
-                  "from the checkpoint's config.json")
-            cfg = cfg.replace(text=dataclasses.replace(
-                cfg.text, units=prev.text.units))
-        if has_ckpt:
-            if prev.model.family != cfg.model.family:
-                print(f"[train] resuming with model family "
-                      f"{prev.model.family!r} from the checkpoint's "
-                      f"config.json (requested {cfg.model.family!r} ignored)")
-            cfg = cfg.replace(model=prev.model, transformer=prev.transformer,
-                              conformer=prev.conformer,
-                              transducer=prev.transducer,
-                              seq2seq=prev.seq2seq, features=prev.features,
-                              text=prev.text)
-        if cfg.train.ema_decay == 0.0 and prev.train.ema_decay > 0.0:
-            # a resume without --ema_decay keeps the average the best
-            # checkpoint was selected on
-            print(f"[train] resuming with ema_decay={prev.train.ema_decay} "
-                  "from the checkpoint's config.json")
-            cfg = cfg.replace(train=dataclasses.replace(
-                cfg.train, ema_decay=prev.train.ema_decay))
-        check_ported(cfg)
+    cfg, has_ckpt = resume_config(cfg, model_path)
     alphabet = load_tokenizer(corpus_path, cfg.text.units)
     cfg = fit_vocab(cfg, alphabet.size)
+    # the mesh, checked against the model the run trains
+    dp = join_mesh(make_plan(cfg), dev)
+    is_main, world = dp.is_main, dp.world
 
     aud_path = os.path.join(corpus_path, "clips")
     t = cfg.train
-    # each rank takes its slice of the corpus at batch_size // N rows a
-    # batch; every rank runs the same number of steps, from the global
-    # manifest's size (no communication needed): the caps
+    # each rank of distinct rows takes its slice of the corpus at
+    # batch_size // N rows a batch; every rank runs the same number of
+    # steps, from the global manifest's size (no communication needed):
+    # the caps
     rank_bs = max(1, t.batch_size // world)
     manifest = load_manifest(os.path.join(corpus_path, "train.tsv"), aud_path)
     train_it = BatchIterator(
@@ -644,14 +686,14 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
 
     params = init_model_params(cfg, torch.Generator().manual_seed(t.seed),
                                dev)
-    optimizer = AdamW(cfg, params)
+    opt_state = None  # a restored optimizer state, in the full shapes
     use_ema = t.ema_decay > 0.0
-    ema = _copy(params) if use_ema else None
+    ema = None
     # the carried generator, the same on every rank: on the device, or on
     # the host when the ranks draw from generators of their own
     # (DataParallel.step_generator)
     generator = torch.Generator(
-        device=dev if world == 1 else "cpu").manual_seed(t.seed)
+        device=dev if dp.n_ranks == 1 else "cpu").manual_seed(t.seed)
     start_epoch, step, best_val, skip = 1, 0, math.inf, 0
     train_losses: list[float] = []
     val_losses: list[float] = []
@@ -661,12 +703,10 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         state = load_checkpoint(checkpoint_path(model_path, which))
         dtype = bilstm_ctc.torch_dtype(cfg.model.dtype)
         params = cast_params(state["params"], dtype, dev)
-        optimizer = AdamW(cfg, params)
-        optimizer.load_state_dict(state["opt_state"], dev)
+        opt_state = state["opt_state"]
         if use_ema and "ema_params" in state:
             ema = cast_params(state["ema_params"], dtype, dev)
         elif use_ema:
-            ema = _copy(params)
             print("[train] checkpoint has no EMA state - initializing the "
                   "average from the restored params")
         rng = state.get("rng_state")
@@ -703,13 +743,19 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
         params, report = init_from_torch_checkpoint(
             t.init_from_torch, params, cfg,
             allow_pickle=t.trust_torch_pickle)
-        optimizer = AdamW(cfg, params)
-        if use_ema:
-            ema = _copy(params)
+        opt_state, ema = None, None
         print(f"[train] {report}")
+    if use_ema and ema is None:
+        ema = _copy(params)
     dp.broadcast_(params)  # every rank starts from rank 0's parameters
     if use_ema:
         dp.broadcast_(ema)
+    # from here on each rank holds its parts of the mesh's split leaves
+    params = dp.shard(params)
+    ema = dp.shard(ema) if use_ema else None
+    optimizer = AdamW(cfg, params, dp=dp)
+    if opt_state is not None:
+        optimizer.load_state_dict(_opt_layout(opt_state, dp.shard), dev)
     # written only after the restore attempt: a failed resume must not
     # leave config.json overwritten with a mismatched run's settings
     if is_main:
@@ -724,22 +770,28 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
     last_path = checkpoint_path(model_path, "last")
 
     def state_at(epoch: int, batches_done: int) -> dict:
-        state = {"params": params, "opt_state": optimizer.state_dict(),
+        """The checkpoint's state in the full shapes (every rank takes
+        part in the gathers; rank 0 writes it)."""
+        state = {"params": dp.unshard(params),
+                 "opt_state": _opt_layout(optimizer.state_dict(),
+                                          dp.unshard),
                  "step": step, "epoch": epoch, "batches_done": batches_done,
                  "best_val_loss": best_val,
                  "rng_state": generator.get_state()}
         if use_ema:
-            state["ema_params"] = ema
+            state["ema_params"] = dp.unshard(ema)
         return state
 
     def save_last(epoch: int, batches_done: int) -> None:
+        state = state_at(epoch, batches_done)
         if is_main:
-            save_checkpoint(last_path, state_at(epoch, batches_done))
+            save_checkpoint(last_path, state)
 
     def summary(**extra) -> dict:
         return {"train_losses": train_losses, "val_losses": val_losses,
                 "steps": step, "config": cfg, "alphabet": alphabet,
-                "params": params, "ema_params": ema,
+                "params": dp.unshard(params),
+                "ema_params": dp.unshard(ema) if use_ema else None,
                 "best_path": checkpoint_path(model_path, "best"),
                 "last_path": last_path, **extra}
 
@@ -817,6 +869,8 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             eval_params = ema if use_ema else params
             if dev_it is not None and epoch % t.eval_every_epochs == 0:
                 tot, n, d_sum, l_sum = None, 0, 0, 0
+                # the greedy decode takes the whole parameters
+                dec_params = dp.unshard(eval_params) if select_on_cer else None
                 for batch in dev_it:
                     if n >= dev_cap:
                         break  # the ranks' collective counts stay equal
@@ -824,7 +878,7 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
                     tot = v if tot is None else tot + v
                     n += 1
                     if select_on_cer:  # greedy decode in the same pass
-                        d, L = _batch_cer_counts(eval_params, batch, cfg,
+                        d, L = _batch_cer_counts(dec_params, batch, cfg,
                                                  alphabet)
                         d_sum, l_sum = d_sum + d, l_sum + L
                 cur_val = float(tot) / max(n, 1) if tot is not None else 0.0
@@ -849,8 +903,8 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             is_best = select < best_val
             if is_best:
                 best_val = select
+            state = state_at(epoch, 0)
             if is_main:
-                state = state_at(epoch, 0)
                 save_checkpoint(last_path, state)
                 if is_best:
                     save_checkpoint(checkpoint_path(model_path, "best"),
@@ -870,6 +924,12 @@ def train(corpus_path: str, model_path: str, config: Config | None = None,
             end_trace()
         restore_sigterm()
     return summary()
+
+
+def _opt_layout(state: dict, fn: Callable) -> dict:
+    """An AdamW state with `fn` applied to its parameter-shaped dicts (the
+    moments and the accumulator)."""
+    return {k: fn(v) if isinstance(v, dict) else v for k, v in state.items()}
 
 
 def _inject_fault(model_path: str, step: int) -> None:

@@ -245,10 +245,11 @@ def test_cli_predict_matches_jax_package(attention_slice, family, decoder,
 @pytest.mark.parametrize("model", ["moe"])
 def test_cli_train_of_attention_families_exits_not_ported(tmp_path, model):
     # the switch-MoE transformer trains since it was ported
-    # (tests/test_torch_moe.py); its expert mesh stays refused
+    # (tests/test_torch_moe.py), on an expert mesh since that was
+    # (tests/test_torch_expert.py); its expert x model mesh stays refused
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", "--model", model, "--flash_attention",
-                  "--mesh", "data=1,expert=2",
+                  "--mesh", "data=1,model=2,expert=2",
                   "--corpus_path", str(tmp_path / "corpus"), "--model_path",
                   str(tmp_path / "model"), "--device", "cpu"])
     assert "not yet ported" in str(e.value) and "15b" in str(e.value)

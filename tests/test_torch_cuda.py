@@ -2288,3 +2288,159 @@ def test_two_rank_gloo_step_on_the_card_matches_one_process(cuda, tmp_path):
                                        atol=1e-5, err_msg=k)
     assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
                for k in p_ref)
+
+
+# one of two ranks of an expert=2 or fsdp=2 mesh on the card over gloo: the
+# whole global batch (expert) or its rows (fsdp), its parts of the split
+# leaves, two steps; losses, launches, the first step's reduced gradients
+# (its parts), the gathered parameters and its resident bytes into OUT
+_CUDA_SHARD_RANK = r"""
+import dataclasses, sys
+import torch
+from pg_asr_tpu_torch.config import Config
+from pg_asr_tpu_torch.ops import cuda_lstm
+from pg_asr_tpu_torch.parallel import mesh
+from pg_asr_tpu_torch.parallel.driver import parse_mesh_spec
+from pg_asr_tpu_torch.train import AdamW, make_plan, make_train_step
+
+spec_path, out, rank, port, spec_mesh = sys.argv[1:6]
+rank = int(rank)
+spec = torch.load(spec_path, weights_only=False)
+dev = torch.device("cuda", 0)
+mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev)
+summed = []
+
+
+class Recorded(mesh.GroupRank):
+    def sum_grads(self, grads):
+        out = super().sum_grads(grads)
+        if not summed:
+            summed.append({k: v.cpu() for k, v in out.items()})
+        return out
+
+
+cfg = Config.from_json(spec["config"])
+shape, axes = parse_mesh_spec(spec_mesh)
+cfg = cfg.replace(train=dataclasses.replace(cfg.train, mesh_shape=shape,
+                                            mesh_axes=axes))
+dp = Recorded(dev, make_plan(cfg))
+params = dp.shard({k: v.to(dev) for k, v in spec["params"].items()})
+arrays = [torch.from_numpy(a).to(dev)
+          for a in mesh.local_rows(spec["batch"], dp.rank, dp.world)]
+opt = AdamW(cfg, params, dp=dp)
+step = make_train_step(cfg, opt, dp)
+gen = torch.Generator().manual_seed(0)
+losses = [step(params, gen, *arrays).item() for _ in range(2)]
+resident = sum(t.numel() * t.element_size()
+               for tree in (params, opt.mu, opt.nu) for t in tree.values())
+torch.save({"losses": losses, "launches": (cuda_lstm.BI_RES_LAUNCHES,
+                                           cuda_lstm.BI_BWD_LAUNCHES),
+            "grads": summed[0], "resident": resident,
+            "params": {k: v.cpu() for k, v in dp.unshard(params).items()}},
+           out)
+mesh.destroy_distributed()
+"""
+
+
+def _moe_case():
+    """A switch-MoE transformer of 2 blocks, d 64, 4 experts (dropout 0, a
+    constant rate) and _mesh_case's batch, on the host."""
+    from pg_asr_tpu_torch.config import Config, TrainConfig, TransformerConfig
+    from pg_asr_tpu_torch.train import init_model_params
+
+    _, _, batch = _mesh_case()
+    cfg = Config(model=ModelConfig(family="transformer", vocab_size=9,
+                                   input_dim=80, dropout=0.0),
+                 transformer=TransformerConfig(
+                     num_layers=2, d_model=64, num_heads=4, ffn_dim=128,
+                     dropout=0.0, num_experts=4, capacity_factor=1.25),
+                 train=TrainConfig(warmup_steps=0, learning_rate=1e-3))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_mesh", ["expert=2", "fsdp=2"])
+def test_two_rank_sharded_step_on_the_card_matches_one_process(
+        cuda, tmp_path, spec_mesh):
+    """expert=2 on the switch-MoE (the ranks take the same rows and half
+    the experts each) and fsdp=2 on the BiLSTM-CTC (their own rows, half
+    of every divisible leaf): two rank processes on cuda:0 over gloo
+    against the one-process steps, as the data axis's card test holds it:
+    the first step's reduced gradients (each rank's part) equal the
+    whole batch's, every element, within rtol 1e-4 / atol 1e-5 of the
+    tensor's largest; after 2 steps the losses and the gathered parameters
+    within rtol 1e-4 / atol 1e-5 (where every step's gradient exceeds
+    1e-6), the ranks equal; each rank holds less than one process's
+    parameters and moments, and under fsdp launches the BiLSTM kernels on
+    its rows."""
+    import os
+    import subprocess
+    import sys
+
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.parallel.driver import (ParallelPlan,
+                                                  parse_mesh_spec)
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+
+    cfg, params, batch = (_moe_case() if spec_mesh == "expert=2"
+                          else _mesh_case())
+    spec = str(tmp_path / "spec.pt")
+    torch.save({"config": cfg.to_json(), "params": params, "batch": batch},
+               spec)
+    script = str(tmp_path / "rank.py")
+    with open(script, "w") as fo:
+        fo.write(_CUDA_SHARD_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    port = str(mesh.free_port())
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, script, spec, outs[r], str(r),
+                               port, spec_mesh], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    plan = ParallelPlan(cfg, *parse_mesh_spec(spec_mesh))
+    p_ref = {k: v.to(cuda) for k, v in params.items()}
+    arrays = [torch.from_numpy(a).to(cuda) for a in batch]
+    opt, losses, first = AdamW(cfg, p_ref), [], None
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p_ref.items()}
+    for _ in range(2):
+        loss, grads = loss_and_grads(p_ref, arrays, cfg)
+        losses.append(loss.item())
+        first = first or {k: g.cpu() for k, g in grads.items()}
+        sure = {k: sure[k] & (grads[k].abs() > 1e-6) for k in sure}
+        opt.update(p_ref, grads)
+    whole = sum(t.numel() * t.element_size()
+                for tree in (p_ref, opt.mu, opt.nu) for t in tree.values())
+    for r, rk in enumerate(ranks):
+        np.testing.assert_allclose(rk["losses"], losses, rtol=1e-4,
+                                   atol=1e-5)
+        assert rk["resident"] < 0.8 * whole
+        assert rk["launches"] == ((0, 0) if spec_mesh == "expert=2"
+                                  else (4, 4))  # 2 layers x 2 steps
+        coords = plan.coords(r)
+        for k, g in first.items():  # every element, no mask
+            where = plan.placement(k, tuple(g.shape))
+            if where is not None:
+                g = mesh.shard_leaf(g, where[1], coords[where[0]], 2)
+            np.testing.assert_allclose(
+                rk["grads"][k].numpy(), g.numpy(), rtol=1e-4,
+                atol=1e-5 * g.abs().max().item(), err_msg=k)
+        for k, v in p_ref.items():
+            m = sure[k].cpu()
+            np.testing.assert_allclose(rk["params"][k][m].numpy(),
+                                       v.cpu()[m].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in p_ref)

@@ -200,11 +200,13 @@ def test_preemption_handler_sets_the_event_then_terminates(tmp_path):
     assert r.returncode == -signal.SIGTERM
 
 
-# --max_restarts and --mesh data=N are ported (tests/test_torch_elastic.py,
-# tests/test_torch_mesh.py); what stays refused is a mesh axis other than
-# data and a malformed spec, which exits with the JAX CLI's message
+# --max_restarts and --mesh data=N, expert=X and fsdp=F are ported
+# (tests/test_torch_elastic.py, tests/test_torch_mesh.py,
+# tests/test_torch_expert.py, tests/test_torch_fsdp.py); what stays
+# refused is a seq, pipe or model axis and a malformed spec, which exits
+# with the JAX CLI's message
 @pytest.mark.parametrize("extra,message", [
-    (["--mesh", "data=1,fsdp=2"], "--mesh fsdp=2"),
+    (["--mesh", "data=1,seq=2"], "--mesh seq=2"),
     (["--mesh", "data:2"], "--mesh: unknown mesh axis 'data:2'"),
 ])
 def test_unported_options_are_refused(trained, extra, message):
@@ -212,7 +214,7 @@ def test_unported_options_are_refused(trained, extra, message):
     with pytest.raises(SystemExit) as e:
         _pg(corpus, model, "--pg_steps", "1", *extra)
     assert message in str(e.value)
-    assert ("not yet ported" in str(e.value)) == ("fsdp" in message)
+    assert ("not yet ported" in str(e.value)) == ("seq" in message)
 
 
 def test_seq2seq_is_refused(trained, tmp_path, monkeypatch):

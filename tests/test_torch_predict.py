@@ -329,10 +329,12 @@ def test_seq2seq_refusals_match_jax(slice_setup, seq2seq_dirs, what):
 
 def test_cli_other_modes_not_ported(tmp_path):
     # every mode is ported, the switch-MoE transformer's export too
-    # (tests/test_torch_moe.py); what stays refused is a mode's device mesh
+    # (tests/test_torch_moe.py), its expert mesh too
+    # (tests/test_torch_expert.py); what stays refused is a mode's device
+    # mesh with a model axis
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "finetune_pg", "--model", "moe", "--mesh",
-                  "expert=2", "--corpus_path", str(tmp_path / "corpus"),
+                  "model=2,expert=2", "--corpus_path", str(tmp_path / "corpus"),
                   "--model_path", str(tmp_path), "--device", "cpu"])
     assert "not yet ported" in str(e.value) and "item 15b" in str(e.value)
 

@@ -537,7 +537,7 @@ def test_cli_seq2seq_train_predict_round_trip(tiny_corpus, tmp_path,
 
 # ported run options of the JAX CLI: each sets up the run, not the model
 RUN_FLAGS = (["--mesh", "data=2"], ["--max_restarts", "1"],
-             ["--fault_step", "3"])
+             ["--fault_step", "3"], ["--mesh", "fsdp=8"])
 
 
 @pytest.mark.parametrize("extra,message", [
@@ -560,14 +560,16 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
         # elastic supervisor are (--mesh data=2 sets the config's mesh; the
         # run options --max_restarts and --fault_step are no config
         # fields, tests/test_torch_mesh.py and test_torch_elastic.py run
-        # them); the others change nothing in a train run, as in the JAX
-        # CLI
+        # them), and since the fsdp axis is (--mesh fsdp=8 sets the mesh of
+        # 8 ranks, tests/test_torch_fsdp.py runs it); the others change
+        # nothing in a train run, as in the JAX CLI
         base = ["--mode", "train", "--corpus_path", tiny_corpus,
                 "--model_path", str(tmp_path / "m")]
         parser = cli.build_parser()
         args = parser.parse_args(base + extra)
         cli._refuse_unported_flags(parser, args)
-        assert cli._data_axis(args) == (2 if message == "mesh" else 1)
+        want_world = {"data=2": 2, "fsdp=8": 8}.get(args.mesh, 1)
+        assert cli._mesh_world(args) == want_world
         cfg, want = cli.train_config(args), cli.train_config(
             parser.parse_args(base))
         moe = {"moe_experts": ("num_experts", 4),
@@ -578,7 +580,7 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
             want = want.replace(transformer=cfg.transformer)
         if message == "mesh":
             assert (cfg.train.mesh_shape, cfg.train.mesh_axes) == (
-                (2,), ("data",))
+                (want_world,), (args.mesh.split("=")[0],))
             want = want.replace(train=cfg.train)
         assert cfg == want
         return
