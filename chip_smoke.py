@@ -316,9 +316,28 @@ the CPU or to a kernel's plain version):
      the result against (a)'s, the relaunch's seconds; (d) 3 MWER `--mode
      finetune_pg` steps under `--mesh data=1` against the same steps
      without a mesh (one ctc_beam launch a step).
- 19. prints its total wall time, a JSON line of kernel results (with each
+ 19. the expert and fsdp mesh axes (phase_shard): four gloo rank
+     processes on the one card (`python3 chip_smoke.py --shard-worker
+     ...`) against the one-process steps on the global B=64 x 5 s batch:
+     `expert=2` and `data=2,expert=2` on the full-width switch-MoE,
+     `fsdp=2` on the BiLSTM-CTC (train steps, MWER steps, and an epoch
+     whose checkpoint predict serves and a run without a mesh resumes).
+ 20. the model mesh axis (phase_tensor, Megatron tensor parallelism), the
+     same four processes: `model=2` on the full-width conformer with
+     flash_attention (the kernels on 2 of its 4 heads a rank), on the
+     BiLSTM-CTC (rows 3r and 4 on the gathered W and U), on the
+     transducer with the transformer encoder (joint unfused, and fused:
+     rows 5 and 6 on the gathered projections), 2 MWER steps;
+     `model=2,expert=2` on the switch-MoE; and a `model=2` epoch of the
+     conformer whose checkpoint predict serves on one device and a run
+     without a mesh resumes. Each case against the one-process steps:
+     losses, the first step's reduced gradients, the parameters, each
+     rank's resident bytes (equal to the share its splits give), peak
+     memory, step ms, the collectives alone and the launches.
+ 21. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
-     streaming, seq2seq, LM, export, MoE and mesh paths, ctc_beam's cases
+     streaming, seq2seq, LM, export, MoE and mesh paths, those of the
+     model axis under model_*, ctc_beam's cases
      at A=256,
      lstm_fwd's and flash_attn's at the streamed windows, lstm_fwd_residual's and
      lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
@@ -5357,18 +5376,23 @@ def phase_export(dev, corpus, alphabet, d):
         check(ids.dtype == torch.int32 and lens.dtype == torch.int32
               and int(lens.sum()) > 0, f"export {key}: ids {ids.dtype}, "
               f"lens {lens.dtype} {lens.tolist()}")
-        # the decoder loops' calls of seconds: one call a turn, no warm-up
-        # call (the launch check above warmed both paths)
+        # the decoder loops' calls of seconds: one call a side, no warm-up
+        # call (the launch check above warmed both paths), to keep the
+        # smoke inside its time limit (the exported transducer's call took
+        # 14-67 s late in a whole run, 2-3 s in this phase alone)
         reps = EXPORT_REPS if first_ms < 500 else 1
-        timer = time_ms if reps > 1 else once_ms
-        l1 = timer(live_call, reps)
-        e1 = timer(exported_call, reps)
-        e2 = timer(exported_call, reps)
-        l2 = timer(live_call, reps)
+        if reps > 1:
+            turns = [time_ms(live_call, reps), time_ms(exported_call, reps),
+                     time_ms(exported_call, reps), time_ms(live_call, reps)]
+            live_ms, exported_ms = ((turns[0] + turns[3]) / 2,
+                                    (turns[1] + turns[2]) / 2)
+        else:
+            turns = [once_ms(live_call), once_ms(exported_call)]
+            live_ms, exported_ms = turns
         case = {"flags": flags, "export_s": export_s, "nodes": m["nodes"],
                 "pgasr_ops": ops, "mb": m["bytes"] / 1e6,
-                "exported_ms": (e1 + e2) / 2, "live_ms": (l1 + l2) / 2,
-                "turns_ms": [l1, e1, e2, l2], "reps": reps, "launches": got,
+                "exported_ms": exported_ms, "live_ms": live_ms,
+                "turns_ms": turns, "reps": reps, "launches": got,
                 "lens": lens.tolist()}
         profile = ""
         if reps > 1:
@@ -6218,15 +6242,17 @@ def _tree_bytes(*trees) -> int:
 
 
 def shard_case(case: dict, spec: dict, dev) -> dict:
-    """One case of phase 19 on this rank of the joined group: `steps`
+    """One case of phase 19 or 20 on this rank of the joined group: `steps`
     steps of the model on the case's mesh from the spec's weights, its rows
     of the global batch; the losses, step ms, launches, resident bytes,
-    the first step's reduced gradients, the collectives alone timed, the
-    gathered parameters. A "run" case is one epoch of train() on the
-    mesh into its model directory."""
+    peak memory, the first step's reduced gradients, the heads each
+    flash-attention call took, the collectives alone timed, the gathered
+    parameters. A "run" case is one epoch of train() on the mesh into its
+    model directory."""
     import torch
 
     from pg_asr_tpu_torch.config import Config
+    from pg_asr_tpu_torch.ops import flash_attn
     from pg_asr_tpu_torch.parallel import mesh
     from pg_asr_tpu_torch.rl.reinforce import make_pg_step
     from pg_asr_tpu_torch.train import (AdamW, make_plan, make_train_step,
@@ -6254,6 +6280,9 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
             return out
 
     dp = Recorded(dev, make_plan(cfg))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     params = dp.shard({k: v.to(dev, copy=True) for k, v in
                        spec["params"][case["model"]].items()})
     arrays = [torch.from_numpy(a).to(dev) for a in
@@ -6269,16 +6298,29 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
         opt = AdamW(cfg, params, dp=dp)
         step = make_train_step(cfg, opt, dp)
     gen = torch.Generator().manual_seed(SEED)  # several ranks: the host
+    heads = set()  # the heads of each flash-attention call
+    mhsa = flash_attn.mhsa
+
+    def counted(q, *args, **kwargs):
+        heads.add(int(q.shape[1]))
+        return mhsa(q, *args, **kwargs)
+
+    flash_attn.mhsa = counted
     reset_counts()
     losses, ms = [], []
-    for _ in range(case["steps"]):
-        t0 = time.perf_counter()
-        losses.append(step(params, gen, *arrays).item())  # synchronizes
-        ms.append((time.perf_counter() - t0) * 1e3)
+    try:
+        for _ in range(case["steps"]):
+            t0 = time.perf_counter()
+            losses.append(step(params, gen, *arrays).item())  # synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        flash_attn.mhsa = mhsa
     counts = all_counts()
     res = {"losses": losses, "ms": ms, "counts": counts,
            "rows": int(arrays[0].shape[0]), "grads": summed[0],
            "resident": _tree_bytes(params, opt.mu, opt.nu),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "flash_heads": sorted(heads),
            "shapes": {k: tuple(v.shape) for k, v in params.items()}}
     if dp.fsdp_size > 1:  # the step's gather and its reduce-scatter alone
         res["all_gather_ms"] = time_ms(lambda: dp.unshard(params), 5)
@@ -6289,8 +6331,26 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
                   // cfg.transformer.subsample)
         out = torch.ones(res["rows"] * t_out, cfg.transformer.d_model,
                          device=dev)
-        res["combine_ms"] = time_ms(lambda: dp.expert_sum(out), 5)
+        res["combine_ms"] = time_ms(lambda: dp.group_sum(out, "expert"), 5)
         res["combine_mb"] = out.numel() * 4 / 1e6
+    if dp.model_size > 1:
+        # the step's gathers of the leaves no pair computes in parts, and
+        # one pair's sum of the partial outputs, (rows x T') x d float32
+        gathered = [k for k, v in dp.forward_params(params).items()
+                    if v.shape != params[k].shape]
+        res["gather_ms"] = time_ms(lambda: dp.forward_params(params), 5)
+        res["gather_mb"] = sum(spec["params"][case["model"]][k].numel() * 4
+                               for k in gathered) / 1e6
+        enc = (cfg.transducer.encoder if cfg.model.family == "transducer"
+               else cfg.model.family)
+        if enc in ("transformer", "conformer"):
+            sub = getattr(cfg, enc)
+            t_out = -(-(WAVE_SAMPLES // cfg.features.hop_length + 1)
+                      // sub.subsample)
+            out = torch.ones(res["rows"] * t_out, sub.d_model, device=dev)
+            res["model_sum_ms"] = time_ms(lambda: dp.group_sum(out, "model"),
+                                          5)
+            res["model_sum_mb"] = out.numel() * 4 / 1e6
     res["params"] = {k: v.cpu() for k, v in dp.unshard(params).items()}
     return res
 
@@ -6649,6 +6709,410 @@ def phase_shard(dev, corpus, alphabet, d):
     return result
 
 
+TENSOR_STEPS = 2  # phase 20's steps a case
+# the first step's reduced gradients of a model axis's rank against the
+# same parts of the one-process gradients, max|diff| / max|g| a leaf: the
+# ranks sum the partial products of every pair in another order than one
+# GEMM does, block after block, and a leaf that sums over the batch's
+# 12.9 K tokens cancels (the worst seen, 3.4e-5 of its largest, is the
+# third block's switch router under model=2,expert=2; the conformer's
+# head 1.3e-5; the BiLSTM-CTC's 1.9e-7); a wrong reduction's scale or a
+# part counted twice moves every element by half or more
+TENSOR_GRAD_REL = 1e-4
+
+
+def tensor_specs(alphabet):
+    """Phase 20's models, float32, dropout 0, a constant rate of 1e-3,
+    their weights from the seed on the host: phase 19's switch-MoE,
+    BiLSTM-CTC and its MWER objective; the full-width conformer-CTC with
+    flash_attention; the transducer with the full-width transformer
+    encoder, its joint unfused and fused (one set of weights); and phase
+    18's global B=64 x 5 s batch."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.train import init_model_params
+
+    specs, batch = shard_specs(alphabet)
+    base, train_cfg = Config(), specs["ctc"][0].train
+    conf = fit_vocab(base.replace(
+        model=dataclasses.replace(base.model, family="conformer",
+                                  dropout=0.0),
+        conformer=dataclasses.replace(base.conformer, dropout=0.0,
+                                      flash_attention=True),
+        train=train_cfg), alphabet.size)
+    rnnt = fit_vocab(base.replace(
+        model=dataclasses.replace(base.model, family="transducer",
+                                  dropout=0.0),
+        transformer=dataclasses.replace(base.transformer, dropout=0.0),
+        transducer=dataclasses.replace(base.transducer,
+                                       encoder="transformer",
+                                       fused_joint=False),
+        train=train_cfg), alphabet.size)
+    fused = rnnt.replace(transducer=dataclasses.replace(rnnt.transducer,
+                                                        fused_joint=True))
+    for name, cfg in (("conformer", conf), ("transducer", rnnt)):
+        specs[name] = (cfg, init_model_params(
+            cfg, torch.Generator().manual_seed(SEED), "cpu"))
+    specs["transducer_fused"] = (fused, specs["transducer"][1])
+    return specs, batch
+
+
+def model_part(plan, k: str, v, coords: dict):
+    """The part of full-shape leaf `k` that the rank at `coords` of `plan`
+    holds: put in the model axis's run layout, then each split taken."""
+    from pg_asr_tpu_torch.parallel import mesh, tensor
+
+    for axis, dim in plan.splits(k, tuple(v.shape)):
+        if axis == "model":
+            v = tensor.to_run(k, v, plan.sizes["model"])
+        v = mesh.shard_leaf(v, dim, coords[axis], plan.sizes[axis])
+    return v
+
+
+def predicted_bytes(plan, params: dict) -> int:
+    """A rank's parameters and AdamW moments (three float32 copies of each
+    leaf's part), from the shapes and the plan's splits alone."""
+    total = 0
+    for k, v in params.items():
+        n = v.numel()
+        for axis, _ in plan.splits(k, tuple(v.shape)):
+            n //= plan.sizes[axis]
+        total += 3 * n * v.element_size()
+    return total
+
+
+def phase_tensor(dev, corpus, alphabet, d):
+    """20. The model mesh axis (Megatron tensor parallelism), gloo rank
+    processes on the one card against the one-process steps on the same
+    global B=64 x 5 s batch from the same weights: (a) `model=2` on the
+    full-width conformer with flash_attention (the kernels on 2 heads a
+    rank); (b) `model=2` on the flagship BiLSTM-CTC (rows 3r and 4 on the
+    gathered W and U); (c) `model=2,expert=2` on the full-width switch-MoE,
+    four ranks; (d) `model=2` on the transducer with the transformer
+    encoder, its joint unfused and fused (rows 5 and 6 on the gathered
+    projections); (e) TENSOR_STEPS MWER steps under `model=2`; (f) one
+    epoch of train() under `model=2` on the conformer, whose checkpoint
+    (full shapes, canonical layout) `--mode predict` serves on one device
+    and `--mode train` resumes without a mesh. Each case prints its losses,
+    the gradients' and parameters' largest difference relative to each
+    tensor's largest, each rank's resident bytes of parameters and AdamW
+    moments beside the share its splits predict and one process's, each
+    rank's peak memory beside one process's, the step ms beside one
+    process's, the collectives alone, and each rank's launches."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.parallel.driver import ParallelPlan
+    from pg_asr_tpu_torch.rl.reinforce import make_pg_step
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+
+    t_phase = time.perf_counter()
+    specs, batch = tensor_specs(alphabet)
+    arrays = [torch.from_numpy(a).to(dev) for a in batch]
+    _, res, bwd, per = route_counters()
+    n = TENSOR_STEPS
+
+    def reference(model: str) -> dict:
+        """n one-process steps: the losses, the first step's gradients,
+        the parameters after, the mask, the resident and peak bytes, the
+        step ms (host clock, synchronized)."""
+        cfg, params0 = specs[model]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+        opt = AdamW(cfg, p)
+        out = {"losses": [], "grads": None, "ms": []}
+        sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p.items()}
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(p, arrays, cfg)
+            out["losses"].append(loss.item())
+            if out["grads"] is None:
+                out["grads"] = {k: g.cpu() for k, g in grads.items()}
+            sure = {k: sure[k] & (grads[k].abs() > max(
+                MESH_GRAD_FLOOR, SHARD_GRAD_REL * grads[k].abs().max().item()))
+                    for k in sure}
+            opt.update(p, grads)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["after"] = {k: v.cpu() for k, v in p.items()}
+        out["sure"] = {k: v.cpu() for k, v in sure.items()}
+        out["resident"] = _tree_bytes(p, opt.mu, opt.nu)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+        del p, opt, grads
+        torch.cuda.empty_cache()
+        return out
+
+    def pg_reference() -> list:
+        cfg, params0 = specs["ctc_mwer"]
+        p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+        step = make_pg_step(cfg, AdamW(
+            cfg, p, learning_rate=cfg.train.learning_rate * 0.1,
+            weight_decay=1e-4))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return [step(p, gen, *arrays)[0].item() for _ in range(n)]
+
+    models = ("conformer", "ctc", "moe", "transducer", "transducer_fused")
+    refs = {m: reference(m) for m in models}
+    pg_losses = pg_reference()
+
+    # the four processes: (c) in a group of 4; then ranks 0-1 run (a), (d)
+    # and (f), and after them ranks 2-3 run (b) and (e), so that no two
+    # groups time the card at once
+    marker = os.path.join(d, "tensor_01_done")
+    run_dir = os.path.join(d, "tensor_model2")
+    cases = {
+        "c": {"name": "c", "model": "moe", "mesh": "model=2,expert=2",
+              "kind": "steps", "steps": n},
+        "a": {"name": "a", "model": "conformer", "mesh": "model=2",
+              "kind": "steps", "steps": n},
+        "d": {"name": "d", "model": "transducer", "mesh": "model=2",
+              "kind": "steps", "steps": n},
+        "d_fused": {"name": "d_fused", "model": "transducer_fused",
+                    "mesh": "model=2", "kind": "steps", "steps": n},
+        "f": {"name": "f", "model": "conformer", "mesh": "model=2",
+              "kind": "run", "model_dir": run_dir, "done": marker},
+        "b": {"name": "b", "model": "ctc", "mesh": "model=2",
+              "kind": "steps", "steps": n, "after": marker},
+        "e": {"name": "e", "model": "ctc_mwer", "mesh": "model=2",
+              "kind": "pg", "steps": n},
+    }
+    spec_path = os.path.join(d, "tensor_spec.pt")
+    torch.save({"device": str(dev), "dir": d, "corpus": corpus,
+                "batch": batch,
+                "configs": {m: c.to_json() for m, (c, _) in specs.items()},
+                "params": {m: p for m, (_, p) in specs.items()},
+                "groups": [
+                    {"ranks": [0, 1, 2, 3], "port": mesh.free_port(),
+                     "cases": [cases["c"]]},
+                    {"ranks": [0, 1], "port": mesh.free_port(),
+                     "cases": [cases[k] for k in ("a", "d", "d_fused",
+                                                  "f")]},
+                    {"ranks": [2, 3], "port": mesh.free_port(),
+                     "cases": [cases["b"], cases["e"]]}]},
+               spec_path)
+    logs = [os.path.join(d, f"tensor_rank{r}.log") for r in range(4)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(4):
+        with open(logs[r], "w") as fo:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-worker",
+                 spec_path, str(r)], stdout=fo, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        rcs = [p.wait(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_ranks = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        with open(logs[r]) as fo:
+            log = fo.read()
+        check(rc == 0, f"phase 20 rank {r}: rc {rc}\n{log[-3000:]}")
+    got = [torch.load(os.path.join(d, f"shard_rank{r}.pt"),
+                      weights_only=False) for r in range(4)]
+
+    # each case's launches a rank in its n steps: the conformer's flash
+    # forward (residual form) and backward per block, the BiLSTM's rows 3r
+    # and 4 per layer, the fused joint's rows 5 and 6, nothing of the
+    # port's kernels for the MoE and the unfused transducer
+    blocks = specs["conformer"][0].conformer.num_layers
+    want_counts = {
+        "a": {"flash_attn_residual": blocks * n, "flash_attn_bwd_dkv":
+              blocks * n, "flash_attn_bwd_dq": blocks * n},
+        "b": {res: per * n, bwd: per * n},
+        "c": {}, "d": {},
+        "d_fused": {"joint_fwd": n, "joint_bwd": n},
+    }
+    result, launches = {}, {}
+    for key, ranks in (("c", [0, 1, 2, 3]), ("a", [0, 1]), ("d", [0, 1]),
+                       ("d_fused", [0, 1]), ("b", [2, 3])):
+        case = cases[key]
+        cfg = _meshed(specs[case["model"]][0], case["mesh"])
+        plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes)
+        ref = refs[case["model"]]
+        predicted = predicted_bytes(plan, specs[case["model"]][1])
+        worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "outliers": 0}
+        for i, r in enumerate(ranks):
+            rk = got[r][key]
+            coords = plan.coords(i)
+            for a, b in zip(rk["losses"], ref["losses"]):
+                worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+                check(abs(a - b) <= MESH_ATOL + MESH_RTOL * abs(b),
+                      f"({key}) rank {r} losses {rk['losses']} vs "
+                      f"{ref['losses']}")
+            for k, g in ref["grads"].items():
+                g = model_part(plan, k, g, coords)
+                diff = (rk["grads"][k] - g).abs()
+                top = g.abs().max()
+                rel = (diff.max() / top).item()
+                if rel > worst["grad"]:
+                    worst["grad"], worst["grad_leaf"] = rel, k
+                check(rel <= TENSOR_GRAD_REL,
+                      f"({key}) rank {r} the reduced gradient of {k}: "
+                      f"max|diff| {diff.max().item():.3e}, max|g| "
+                      f"{top.item():.3e}")
+            outliers, checked, far = 0, 0, 0.0
+            for k, v in ref["after"].items():
+                diff = (rk["params"][k] - v).abs()
+                worst["param"] = max(worst["param"], (
+                    diff.max() / v.abs().max()).item())
+                bad = (diff > MESH_ATOL + MESH_RTOL * v.abs()) & ref["sure"][k]
+                checked += int(ref["sure"][k].sum())
+                if bad.any():
+                    far = max(far, diff[bad].max().item())
+                    outliers += int(bad.sum())
+            worst["outliers"] = max(worst["outliers"], outliers)
+            check(outliers <= SHARD_OUTLIERS * checked
+                  and far <= 2 * n * cfg.train.learning_rate,
+                  f"({key}) rank {r}: {outliers} of {checked} parameters "
+                  f"outside the tolerance, the farthest {far:.3e}")
+            check(rk["resident"] == predicted,
+                  f"({key}) rank {r} holds {rk['resident']} bytes, its "
+                  f"splits give {predicted}")
+            counts = {k: v for k, v in rk["counts"].items() if v}
+            check(counts == want_counts[key],
+                  f"({key}) rank {r} launches {rk['counts']}")
+            launches[f"model_{key}_r{r}_train"] = rk["counts"]
+        if key == "a":  # the flash kernels ran on h / T heads a rank
+            heads = cfg.conformer.num_heads // plan.sizes["model"]
+            seen = [got[r][key]["flash_heads"] for r in ranks]
+            check(all(h == [heads] for h in seen), f"(a) flash heads {seen}")
+        same = all(torch.equal(got[ranks[0]][key]["params"][k],
+                               got[r][key]["params"][k])
+                   for r in ranks[1:] for k in ref["grads"])
+        check(same, f"({key}) the ranks' gathered parameters differ")
+        rank_ms = [float(np.mean(got[r][key]["ms"][1:])) for r in ranks]
+        resident = [got[r][key]["resident"] for r in ranks]
+        peak = [got[r][key]["peak_bytes"] for r in ranks]
+        sure = ref["sure"]
+        left_out = sum(int((~v).sum()) for v in sure.values())
+        extra = {k: [got[r][key][k] for r in ranks]
+                 for k in ("gather_ms", "gather_mb", "model_sum_ms",
+                           "model_sum_mb", "combine_ms", "combine_mb")
+                 if k in got[ranks[0]][key]}
+        result[key] = {"mesh": case["mesh"], "model": case["model"],
+                       "rows": got[ranks[0]][key]["rows"],
+                       "losses": [got[r][key]["losses"] for r in ranks],
+                       "one_process_losses": ref["losses"],
+                       "worst": worst, "left_out": left_out,
+                       "step_ms": rank_ms,
+                       "one_process_step_ms": ref["ms"][1:],
+                       "resident_bytes": resident,
+                       "predicted_resident_bytes": predicted,
+                       "one_process_resident_bytes": ref["resident"],
+                       "peak_bytes": peak,
+                       "one_process_peak_bytes": ref["peak_bytes"],
+                       "flash_heads": got[ranks[0]][key]["flash_heads"],
+                       "launches": [got[r][key]["counts"] for r in ranks],
+                       **extra}
+        print(f"[tensor] ({key}) --mesh {case['mesh']} on the "
+              f"{case['model']} at B={MESH_BS} x 5 s, {len(ranks)} gloo "
+              f"ranks on cuda:0, {result[key]['rows']} rows each, {n} "
+              f"steps: losses {got[ranks[0]][key]['losses']} vs one "
+              f"process {ref['losses']} (worst rel {worst['loss']:.2e}); "
+              f"the first step's reduced gradients, every element: worst "
+              f"max|diff| / max|g| {worst['grad']:.2e} "
+              f"({worst.get('grad_leaf')}); parameters "
+              f"gathered, equal on every rank: worst max|diff| / max|p| "
+              f"{worst['param']:.2e} ({left_out} of "
+              f"{sum(v.numel() for v in sure.values())} left out, "
+              f"{worst['outliers']} outside the tolerance at most on a "
+              f"rank); resident parameters + AdamW moments a rank "
+              f"{[round(b / 1e6, 2) for b in resident]} MB (its splits "
+              f"predict {predicted / 1e6:.2f}) vs one process "
+              f"{ref['resident'] / 1e6:.2f} MB; peak a rank "
+              f"{[round(b / 1e6, 1) for b in peak]} MB vs one process "
+              f"{ref['peak_bytes'] / 1e6:.1f} MB; step ms a rank (steps "
+              f"2-{n}, host clock) {[round(m, 2) for m in rank_ms]}, one "
+              f"process {[round(m, 2) for m in ref['ms'][1:]]}"
+              + "".join(f"; {k} {[round(v, 3) for v in vs]}"
+                        for k, vs in extra.items())
+              + f"; flash heads a call {result[key]['flash_heads']}"
+              f"; launches a rank {got[ranks[0]][key]['counts']}")
+
+    # (e) MWER steps under model=2: the losses, each rank's launches (its
+    # n-best on ctc_beam, rows 3r and 4 on the gathered weights)
+    for r in (2, 3):
+        rk = got[r]["e"]
+        for a, b in zip(rk["losses"], pg_losses):
+            check(abs(a - b) <= MESH_ATOL + MESH_RTOL * abs(b),
+                  f"(e) rank {r} MWER losses {rk['losses']} vs {pg_losses}")
+        check({k: v for k, v in rk["counts"].items() if v}
+              == {"ctc_beam": n, res: per * n, bwd: per * n},
+              f"(e) rank {r} launches {rk['counts']}")
+        launches[f"model_e_r{r}_pg_mwer"] = rk["counts"]
+    result["e"] = {"losses": [got[r]["e"]["losses"] for r in (2, 3)],
+                   "one_process_losses": pg_losses,
+                   "step_ms": [float(np.mean(got[r]["e"]["ms"][1:]))
+                               for r in (2, 3)]}
+    print(f"[tensor] (e) --mesh model=2, {n} MWER steps (K=4) on the "
+          f"BiLSTM-CTC, ranks 2-3, {MESH_BS} rows each: losses "
+          f"{result['e']['losses'][0]} vs one process {pg_losses}; step ms "
+          f"a rank {[round(m, 2) for m in result['e']['step_ms']]}; "
+          f"launches a rank {got[2]['e']['counts']}")
+
+    # (f) the model=2 epoch's checkpoint: the one-device shapes, served by
+    # predict on one device and resumed for an epoch without a mesh
+    last = load_checkpoint(os.path.join(run_dir, "model_last.pt"))
+    shapes = {k: v.shape for k, v in specs["conformer"][1].items()}
+    check({k: v.shape for k, v in last["params"].items()} == shapes
+          and {k: v.shape for k, v in last["opt_state"]["mu"].items()}
+          == shapes, "(f) the checkpoint's shapes are not one device's")
+    epoch = {k: np.load(os.path.join(run_dir, f"{k}.npy")).tolist()
+             for k in ("train_loss", "val_losses")}
+    f_counts = [got[r]["f"]["counts"] for r in (0, 1)]
+    check(all(c["flash_attn_residual"] > 0 for c in f_counts),
+          f"(f) launches {f_counts}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev)])
+    predict_counts = all_counts()
+    check(rc == 0 and "CER:" in out and predict_counts["flash_attn"] > 0,
+          f"(f) predict: rc {rc}, launches {predict_counts}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "train", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev),
+                       "--num_epochs", "2", "--batch_size", str(MESH_BS)])
+    resume_counts = all_counts()
+    tl = np.load(os.path.join(run_dir, "train_loss.npy"))
+    check(rc == 0 and "resumed from epoch 1" in out and len(tl) == 2
+          and np.isfinite(tl).all() and tl[1] < tl[0],
+          f"(f) the resume: rc {rc}, {tl}")
+    check(resume_counts["flash_attn_residual"] > 0,
+          f"(f) resumed launches {resume_counts}")
+    launches["model_f_epoch_r0"] = f_counts[0]
+    launches["model_f_epoch_r1"] = f_counts[1]
+    launches["model_f_predict_one_device"] = predict_counts
+    launches["model_f_resume_no_mesh"] = resume_counts
+    print(f"[tensor] (f) one epoch of train() under --mesh model=2 on the "
+          f"conformer (ranks 0-1, {MESH_BS} rows each, "
+          f"{[round(got[r]['f']['wall_s'], 1) for r in (0, 1)]} s): train "
+          f"/ val loss {epoch['train_loss']} / {epoch['val_losses']}; its "
+          f"checkpoint in the one-device shapes; launches a rank "
+          f"{f_counts}; --mode predict on one device served it (launches "
+          f"{predict_counts}); --mode train resumed it for an epoch without "
+          f"a mesh (train losses {tl.tolist()}, launches {resume_counts})")
+    result["f"] = {"epoch": epoch, "wall_s": [got[r]["f"]["wall_s"]
+                                              for r in (0, 1)],
+                   "resumed_train_losses": tl.tolist()}
+    result["ranks_wall_s"] = wall_ranks
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[tensor] phase 20 in {result['wall_s']:.1f} s (the four rank "
+          f"processes {wall_ranks:.1f} s)")
+    result["launches"] = launches
+    return result
+
+
 def attention_group(name: str) -> str:
     """The kernel group of a device_breakdown: flash_attn (the forward in
     either form), flash_bwd (dkv and dq), joint (joint_fwd, joint_bwd and
@@ -6995,6 +7459,8 @@ def main() -> int:
         moe_res = timed("17 moe", phase_moe, dev, corpus, alphabet, d)
         mesh_res = timed("18 mesh", phase_mesh, dev, corpus, alphabet, d)
         shard_res = timed("19 shard", phase_shard, dev, corpus, alphabet, d)
+        tensor_res = timed("20 tensor", phase_tensor, dev, corpus, alphabet,
+                           d)
 
     import torch
 
@@ -7012,18 +7478,20 @@ def main() -> int:
     print(json.dumps({"moe": moe_res}))
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"shard": shard_res}))
+    print(json.dumps({"tensor": tensor_res}))
     print(json.dumps({"phase_wall_s": walls}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
     for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq,
         row["launches_by_path"].update(  # LM, export, MoE and mesh paths
+            # (the model axis's under model_*)
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
               **lm["launches"], **export["launches"],
               **moe_res["launches"], **mesh_res["launches"],
-              **shard_res["launches"]}.items()})
+              **shard_res["launches"], **tensor_res["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

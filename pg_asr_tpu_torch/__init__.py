@@ -30,19 +30,23 @@ directories and neural LMs, read without flax or msgpack
 (``exporting.py``): the serving program of any ported family as one
 ``torch.export`` artifact, float32 or weight-only int8 (``ops/quant.py``),
 its kernels the registered ``pgasr`` operators (``ops/registry.py``);
-``--debug_nans`` (``utils/debug.py``); the ``data``, ``expert`` and
-``fsdp`` mesh axes (``--mesh data=N``, ``expert=X``, ``fsdp=F``, or
-``data`` with one of the others, for train and finetune_pg: a rank
-process a mesh position over torch.distributed, ``parallel/mesh.py``;
-the switch-MoE's experts split over ``expert``, the parameters and the
-AdamW state over ``fsdp``, ``parallel/moe.py``, ``parallel/fsdp.py``; the
-CLI starts the ranks, or the user does with ``PGASR_DISTRIBUTED=1``) and
-the elastic supervisor (``--max_restarts``, ``--fault_step``,
-``utils/elastic.py``). The ``model``, ``seq`` and ``pipe`` axes are not
-ported yet (ROADMAP.md queue 1 item 15b.3).
+``--debug_nans`` (``utils/debug.py``); the ``data``, ``model``,
+``expert`` and ``fsdp`` mesh axes (``--mesh data=N``, ``model=T``,
+``expert=X``, ``fsdp=F``, ``data`` with one of the others, or
+``model=T,expert=X`` with or without ``data``, for train and finetune_pg:
+a rank process a mesh position over torch.distributed,
+``parallel/mesh.py``; Megatron tensor parallelism over ``model``,
+``parallel/tensor.py``; the switch-MoE's experts split over ``expert``,
+the parameters and the AdamW state over ``fsdp``, ``parallel/moe.py``,
+``parallel/fsdp.py``; the CLI starts the ranks, or the user does with
+``PGASR_DISTRIBUTED=1``) and the elastic supervisor (``--max_restarts``,
+``--fault_step``, ``utils/elastic.py``). The ``seq`` and ``pipe`` axes
+and ``--microbatches`` are not ported yet (ROADMAP.md queue 1 item
+15b.3).
 Their CPU tests
 hold each against the JAX package (``tests/test_torch_*.py``);
-``chip_smoke.py`` phases 12, 13, 15, 16, 18 and 19 run them on the card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
+``chip_smoke.py`` phases 12, 13, 15, 16, 18, 19 and 20 run them on the
+card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction, as for
 the seq2seq decoder's and the neural LM's teacher-forced passes, or, for

@@ -49,17 +49,21 @@ argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
 sets ``train.seed``. Options of the JAX CLI that are not ported yet exit
 with a message that says so and names their ROADMAP.md item: a live
-``model``, ``seq`` or ``pipe`` mesh axis, alone or composed (``data x model
-x expert`` included), and ``--microbatches`` (item 15b.3).
+``seq`` or ``pipe`` mesh axis, alone or composed (``data x pipe x model``
+included), and ``--microbatches`` (item 15b.3).
 
 ``--mesh`` (train, finetune_pg) runs on one rank process per mesh position
 over torch.distributed (parallel/mesh.py; the plan, parallel/driver.py,
 checks the mesh against the model first, with the JAX package's messages,
 and a refused mesh exits before any rank starts): ``data=N`` splits the
 batch's rows over N ranks; ``expert=X`` splits each switch-MoE block's
-experts over X ranks that take the same rows; ``fsdp=F`` splits the
+experts over X ranks that take the same rows; ``model=T`` runs each
+block's attention, FFNs and convolution module and the transducer's
+joint as Megatron pairs over T ranks that take the same rows, and stores
+every other split leaf split (parallel/tensor.py); ``fsdp=F`` splits the
 parameters and the AdamW state over F ranks that each take their own
-rows; ``data`` composes with either. The CLI starts the ranks itself, on
+rows; ``data`` composes with any one of them, and ``model`` with
+``expert``. The CLI starts the ranks itself, on
 ``cuda:0`` .. ``cuda:W-1`` (W the product of the sizes; or W CPU processes
 under ``--device cpu``), returns nonzero if any fails, and forwards
 SIGTERM to them; a mesh of one position runs in this process, in a

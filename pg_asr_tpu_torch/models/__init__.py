@@ -54,7 +54,9 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
     (B,T') f32, out_lens (B,)). T' == T for the BiLSTM, ceil(T / subsample)
     for the attention families. train=True applies dropout with bits from
     `generator` (a torch.Generator on feats' device). ``dp``: the switch-MoE
-    routes over the ranks of a data axis (parallel/moe.py)."""
+    routes over the ranks of a data axis (parallel/moe.py), and a model
+    axis's rank runs its part of the attention families' Megatron pairs
+    (parallel/tensor.py)."""
     family = cfg.model.family
     if family not in ("ctc", "transformer", "conformer"):
         raise ValueError(f"{family!r} is not a CTC family: its forward is "
@@ -70,14 +72,14 @@ def acoustic_forward(params, feats, frame_mask, frame_lens, cfg,
         return transformer_ctc.apply(params, feats, frame_mask, frame_lens,
                                      cfg.model, cfg.transformer,
                                      use_kernel=use_kernel, train=train,
-                                     generator=generator)
+                                     generator=generator, dp=dp)
     if family == "conformer":
         from . import conformer_ctc
 
         return conformer_ctc.apply(params, feats, frame_mask, frame_lens,
                                    cfg.model, cfg.conformer,
                                    use_kernel=use_kernel, train=train,
-                                   generator=generator)
+                                   generator=generator, dp=dp)
     from . import bilstm_ctc
 
     log_probs = bilstm_ctc.apply(params, feats, frame_mask, cfg.model,

@@ -46,12 +46,14 @@ import torch.nn.functional as F
 from ..config import ConformerConfig, ModelConfig
 from ..ops import flash_attn
 from ..ops.features import full_f32_conv
+from ..parallel import tensor
+from ..parallel.mesh import ONE_DEVICE, DataParallel
 from . import cast_params
 from .bilstm_ctc import (apply_dropout, dropout_bits, init_linear, linear,
                          normalize_features, torch_dtype)
 from .transformer_ctc import (_attn_out, _init_ln, _layer_norm, _qkv,
-                              ctc_head, num_blocks, padding_bias, run_block,
-                              stack_frames)
+                              attn_split, ctc_head, ffn, num_blocks,
+                              padding_bias, run_block, stack_frames)
 
 
 def init_encoder_params(mcfg: ModelConfig, ccfg: ConformerConfig,
@@ -111,14 +113,17 @@ def _mhsa_rotary(params: dict, pre: str, x: torch.Tensor,
                  key_bias: torch.Tensor, num_heads: int,
                  flash_mask: torch.Tensor | None = None,
                  softmax_bf16: bool = False,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 use_kernel: bool = True,
+                 dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
     """Masked MHSA with rotary q and k. x: (B, T, d); key_bias (B, 1, 1, T)
     additive float32; flash_mask (B, T) bool routes through
     ops/flash_attn.mhsa; softmax_bf16 keeps the dense scores and softmax in
-    the compute type."""
+    the compute type. On a model axis (``dp``) the rank runs the heads its
+    part of ``qkv`` holds (the rotation stays within a head)."""
+    scale = 1.0 / (x.shape[-1] // num_heads) ** 0.5
+    x, is_split = attn_split(params, pre, x, dp)
     q, k, v = _qkv(params, pre, x, num_heads)
     q, k = _rotary(q), _rotary(k)
-    scale = 1.0 / (x.shape[-1] // num_heads) ** 0.5
     if flash_mask is not None:
         ctx = flash_attn.mhsa(q, k, v, flash_mask, scale,
                               use_kernel=use_kernel)
@@ -128,7 +133,7 @@ def _mhsa_rotary(params: dict, pre: str, x: torch.Tensor,
         scores = scores * scale + key_bias.to(score_t)
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.matmul(attn, v)
-    return _attn_out(params, pre, ctx)
+    return _attn_out(params, pre, ctx, dp, is_split)
 
 
 class DepthwiseConv(torch.autograd.Function):
@@ -153,56 +158,67 @@ class DepthwiseConv(torch.autograd.Function):
 
 
 def _conv_module(params: dict, pre: str, x: torch.Tensor, mask: torch.Tensor,
-                 kernel: int) -> torch.Tensor:
+                 kernel: int, dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
     """pointwise(d -> 2d) -> GLU -> depthwise conv (padded frames zeroed
     first) -> LN -> swish -> pointwise(d -> d). x: (B, T, d); mask (B, T)
-    in the compute type."""
+    in the compute type. On a model axis (``dp``) the rank runs its d/T
+    channels through the GLU (its ``conv_in`` columns in the run layout
+    [a_i | b_i]) and the depthwise conv; they are gathered for ``ln_mid``,
+    which normalizes all d, and split again for ``conv_out``'s rows."""
+    is_split = tensor.split(dp, params[f"{pre}.conv_out.w"].shape[0],
+                            x.shape[-1])
+    if is_split:
+        x = tensor.copy_to(x, dp)
     a, b = linear(params, f"{pre}.conv_in", x).chunk(2, dim=-1)
     h = a * torch.sigmoid(b) * mask[:, :, None]
     pad = (kernel - 1) // 2
     w = params[f"{pre}.conv_dw"].permute(2, 1, 0)  # (K, 1, d) -> (d, 1, K)
     h = DepthwiseConv.apply(F.pad(h.transpose(1, 2),
                                   (pad, kernel - 1 - pad)), w).transpose(1, 2)
+    if is_split:
+        h = tensor.gather_to(h, dp)
     h = _layer_norm(params, f"{pre}.ln_mid", h)
-    return linear(params, f"{pre}.conv_out", h * torch.sigmoid(h))
-
-
-def _ffn(params: dict, pre: str, ln: str, ffn: str,
-         x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(linear(params, f"{pre}.{ffn}_in",
-                      _layer_norm(params, f"{pre}.{ln}", x)))
-    return linear(params, f"{pre}.{ffn}_out", h)
+    h = h * torch.sigmoid(h)
+    if is_split:
+        h = tensor.split_to(h, dp)
+    return tensor.row_linear(params, f"{pre}.conv_out", h, dp, is_split)
 
 
 def _block(params: dict, pre: str, x: torch.Tensor, b_ffn1, b_attn, b_conv,
            b_ffn2, *, ccfg: ConformerConfig, key_bias: torch.Tensor,
            omask: torch.Tensor, flash_mask: torch.Tensor | None,
-           use_kernel: bool) -> torch.Tensor:
+           use_kernel: bool, dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
     """One conformer block: half-step FFN, MHSA, conv module, half-step
     FFN, each a residual branch with its dropout site."""
     rate = ccfg.dropout
-    x = x + 0.5 * apply_dropout(_ffn(params, pre, "ln_ffn1", "ffn1", x),
-                                rate, b_ffn1)
+
+    def half_ffn(ln: str, name: str, x: torch.Tensor) -> torch.Tensor:
+        return ffn(params, pre, name, _layer_norm(params, f"{pre}.{ln}", x),
+                   F.silu, ccfg.ffn_dim, dp)
+
+    x = x + 0.5 * apply_dropout(half_ffn("ln_ffn1", "ffn1", x), rate, b_ffn1)
     h = _mhsa_rotary(params, pre, _layer_norm(params, f"{pre}.ln_attn", x),
                      key_bias, ccfg.num_heads, flash_mask=flash_mask,
                      softmax_bf16=ccfg.attn_softmax_bf16,
-                     use_kernel=use_kernel)
+                     use_kernel=use_kernel, dp=dp)
     x = x + apply_dropout(h, rate, b_attn)
     h = _conv_module(params, pre, _layer_norm(params, f"{pre}.ln_conv", x),
-                     omask, ccfg.conv_kernel)
+                     omask, ccfg.conv_kernel, dp)
     x = x + apply_dropout(h, rate, b_conv)
-    return x + 0.5 * apply_dropout(_ffn(params, pre, "ln_ffn2", "ffn2", x),
-                                   rate, b_ffn2)
+    return x + 0.5 * apply_dropout(half_ffn("ln_ffn2", "ffn2", x), rate,
+                                   b_ffn2)
 
 
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
            use_kernel: bool = True, train: bool = False,
            generator: torch.Generator | None = None,
-           pre_normalized: bool = False):
+           pre_normalized: bool = False, dp: DataParallel = ONE_DEVICE):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
     (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
-    training dropout draws its bits from `generator` (x's device).
+    training dropout draws its bits from `generator` (x's device). ``dp``:
+    a model axis's rank runs its part of each block's attention, FFNs and
+    convolution module.
     pre_normalized=True (streaming, serving.py): the caller normalized with
     running or fixed statistics. Rotary attention sees positions only
     through their differences, so a window needs no position offset."""
@@ -219,7 +235,7 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
         block = functools.partial(_block, params, f"blocks.{i}", ccfg=ccfg,
                                   key_bias=bias, omask=omask,
                                   flash_mask=flash_mask,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, dp=dp)
         bits = [dropout_bits(x, ccfg.dropout, generator, train)
                 for _ in range(4)]
         x = run_block(block, x, bits, mcfg.remat)
@@ -229,12 +245,13 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
 def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
           frame_lens: torch.Tensor, mcfg: ModelConfig, ccfg: ConformerConfig,
           use_kernel: bool = True, train: bool = False,
-          generator: torch.Generator | None = None):
+          generator: torch.Generator | None = None,
+          dp: DataParallel = ONE_DEVICE):
     """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
     float32, out_lens (B,)). train=True applies dropout with bits from
     `generator`."""
     x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
                                    mcfg, ccfg, use_kernel=use_kernel,
-                                   train=train, generator=generator)
+                                   train=train, generator=generator, dp=dp)
     log_probs, omask_f = ctc_head(params, x, out_mask)
     return log_probs, omask_f, out_lens

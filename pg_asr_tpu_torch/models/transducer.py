@@ -34,6 +34,8 @@ from ..config import Config
 from ..ops.joint import fused_joint
 from ..ops.lstm import lstm_scan_xla
 from ..ops.transducer import joint_log_probs
+from ..parallel import tensor
+from ..parallel.mesh import ONE_DEVICE, DataParallel
 from . import bilstm_ctc, cast_params, conformer_ctc, transformer_ctc
 from .bilstm_ctc import _dropout, init_linear, init_lstm, linear, torch_dtype
 
@@ -82,9 +84,11 @@ def init_params(cfg: Config, generator: torch.Generator,
 
 def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, cfg: Config, use_kernel: bool = True,
-           train: bool = False, generator: torch.Generator | None = None):
+           train: bool = False, generator: torch.Generator | None = None,
+           dp: DataParallel = ONE_DEVICE):
     """Encoder dispatch -> (enc (B, T', De), out_mask (B, T') bool,
-    out_lens (B,))."""
+    out_lens (B,)). ``dp``: a model axis's rank runs its part of an
+    attention encoder's pairs."""
     kind = cfg.transducer.encoder
     _check_encoder(kind)
     enc = {k[len("encoder."):]: v for k, v in params.items()
@@ -97,7 +101,7 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
     mod = transformer_ctc if kind == "transformer" else conformer_ctc
     return mod.encode(enc, feats, frame_mask, frame_lens, cfg.model,
                       getattr(cfg, kind), use_kernel=use_kernel, train=train,
-                      generator=generator)
+                      generator=generator, dp=dp)
 
 
 def embed_labels(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -122,14 +126,20 @@ def predict_states(params: dict, labels: torch.Tensor,
     return lstm_scan_xla(xp, params["pred_lstm.U"], umask)
 
 
-def joint_logits(params: dict, enc: torch.Tensor,
-                 pred: torch.Tensor) -> torch.Tensor:
+def joint_logits(params: dict, enc: torch.Tensor, pred: torch.Tensor,
+                 dp: DataParallel = ONE_DEVICE,
+                 is_split: bool = False) -> torch.Tensor:
     """enc (B, T, De), pred (B, U+1, P) -> logits (B, T, U+1, A) through the
-    (B, T, U+1, J) tanh joint, in the compute dtype."""
+    (B, T, U+1, J) tanh joint, in the compute dtype. Split on the model
+    axis of ``dp``: the rank's J/T columns of the projections and the tanh,
+    its rows of ``joint_out``, the partial logits summed over the group."""
+    if is_split:
+        enc, pred = tensor.copy_to(enc, dp), tensor.copy_to(pred, dp)
     e = linear(params, "joint_enc", enc)
     g = linear(params, "joint_pred", pred)
-    return linear(params, "joint_out",
-                  torch.tanh(e[:, :, None, :] + g[:, None, :, :]))
+    return tensor.row_linear(params, "joint_out",
+                             torch.tanh(e[:, :, None, :] + g[:, None, :, :]),
+                             dp, is_split)
 
 
 def use_fused_joint(flag, enc: torch.Tensor) -> bool:
@@ -140,17 +150,30 @@ def use_fused_joint(flag, enc: torch.Tensor) -> bool:
 
 def joint_lattice_log_probs(params: dict, enc: torch.Tensor,
                             pred: torch.Tensor, labels: torch.Tensor,
-                            cfg: Config, use_kernel: bool = True):
+                            cfg: Config, use_kernel: bool = True,
+                            dp: DataParallel = ONE_DEVICE):
     """enc/pred states + labels -> (lp_blank (B, T, U+1), lp_label (B, T,
     U)) float32 over the whole lattice: unfused (the 4-D tanh and the head
     in the compute dtype, then ``joint_log_probs``) or, with
     ``fused_joint``, the fused joint (kernels on CUDA tensors unless
-    ``use_kernel`` is False)."""
+    ``use_kernel`` is False). On the model axis of ``dp`` the unfused joint
+    runs as a Megatron pair (``joint_logits``); the fused kernels reduce
+    over J inside, so the rank's projections and rows of ``joint_out`` are
+    gathered and the kernel runs whole."""
+    is_split = tensor.split(dp, params["joint_out.w"].shape[0],
+                            cfg.transducer.joint_dim)
     if not use_fused_joint(cfg.transducer.fused_joint, enc):
-        return joint_log_probs(joint_logits(params, enc, pred), labels)
-    return fused_joint(linear(params, "joint_enc", enc),
-                       linear(params, "joint_pred", pred),
-                       params["joint_out.w"], params["joint_out.b"], labels,
+        return joint_log_probs(joint_logits(params, enc, pred, dp, is_split),
+                               labels)
+    w = params["joint_out.w"]
+    if is_split:
+        enc, pred = tensor.copy_to(enc, dp), tensor.copy_to(pred, dp)
+    e = linear(params, "joint_enc", enc)
+    g = linear(params, "joint_pred", pred)
+    if is_split:
+        e, g = tensor.gather_to(e, dp), tensor.gather_to(g, dp)
+        w = tensor.gather_to(w, dp, 0)
+    return fused_joint(e, g, w, params["joint_out.b"], labels,
                        use_kernel=use_kernel)
 
 
@@ -159,19 +182,20 @@ def apply_lattice(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
                   label_lens: torch.Tensor, cfg: Config,
                   use_kernel: bool = True, train: bool = False,
                   generator: torch.Generator | None = None,
-                  with_ctc: bool = False):
+                  with_ctc: bool = False, dp: DataParallel = ONE_DEVICE):
     """Training forward: features + labels -> (lp_blank (B, T', U+1),
     lp_label (B, T', U), out_lens (B,)) for ops/transducer.transducer_loss;
     with ``with_ctc`` (hybrid training) also the auxiliary head's masked
     (B, T', A) float32 CTC log-probs. Dropout bits come from `generator`,
-    the encoder's sites first."""
+    the encoder's sites first. ``dp``: a model axis's rank runs its part of
+    the encoder's and the joint's pairs."""
     enc, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
                                      cfg, use_kernel=use_kernel, train=train,
-                                     generator=generator)
+                                     generator=generator, dp=dp)
     pred = predict_states(params, labels, label_lens, cfg, train=train,
                           generator=generator)
-    lp_blank, lp_label = joint_lattice_log_probs(params, enc, pred, labels,
-                                                 cfg, use_kernel=use_kernel)
+    lp_blank, lp_label = joint_lattice_log_probs(
+        params, enc, pred, labels, cfg, use_kernel=use_kernel, dp=dp)
     if not with_ctc:
         return lp_blank, lp_label, out_lens
     ctc_lp = torch.log_softmax(linear(params, "ctc_head", enc).float(), -1)

@@ -45,6 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, TransformerConfig
 from ..ops import flash_attn
+from ..parallel import tensor
+from ..parallel.mesh import ONE_DEVICE, DataParallel
 from . import cast_params
 from .bilstm_ctc import (apply_dropout, dropout_bits, init_linear, linear,
                          normalize_features, torch_dtype)
@@ -113,28 +115,46 @@ def _posenc(T: int, d: int, dtype: torch.dtype,
 
 
 def _qkv(params: dict, pre: str, x: torch.Tensor, num_heads: int):
-    """The fused projection -> q, k, v (B, h, T, dh) views of it."""
+    """The fused projection -> q, k, v (B, h, T, dh) views of it: the heads
+    its columns hold (a model axis's rank: its h/T, parallel/tensor.py)."""
     B, T, d = x.shape
-    qkv = linear(params, f"{pre}.qkv", x).reshape(B, T, 3, num_heads,
+    qkv = linear(params, f"{pre}.qkv", x).reshape(B, T, 3, -1,
                                                   d // num_heads)
     return (qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def _attn_out(params: dict, pre: str, ctx: torch.Tensor) -> torch.Tensor:
-    """(B, h, T, dh) context -> (B, T, d) -> the output projection."""
+def _attn_out(params: dict, pre: str, ctx: torch.Tensor,
+              dp: DataParallel = ONE_DEVICE,
+              is_split: bool = False) -> torch.Tensor:
+    """(B, h, T, dh) context -> (B, T, d) -> the output projection (split:
+    this rank's heads' rows, the partial products summed over the model
+    group)."""
     B, h, T, dh = ctx.shape
-    return linear(params, f"{pre}.attn_out",
-                  ctx.transpose(1, 2).reshape(B, T, h * dh))
+    return tensor.row_linear(params, f"{pre}.attn_out",
+                             ctx.transpose(1, 2).reshape(B, T, h * dh), dp,
+                             is_split)
+
+
+def attn_split(params: dict, pre: str, x: torch.Tensor,
+               dp: DataParallel) -> tuple[torch.Tensor, bool]:
+    """(x, whether block `pre`'s attention runs as a Megatron pair on the
+    model axis of ``dp``): split, x's gradient is summed over the group."""
+    is_split = tensor.split(dp, params[f"{pre}.qkv.w"].shape[-1],
+                            3 * x.shape[-1])
+    return (tensor.copy_to(x, dp) if is_split else x), is_split
 
 
 def _mhsa(params: dict, pre: str, x: torch.Tensor, key_bias: torch.Tensor,
           num_heads: int, flash_mask: torch.Tensor | None = None,
-          use_kernel: bool = True) -> torch.Tensor:
+          use_kernel: bool = True,
+          dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
     """Masked multi-head self-attention of block `pre`. x: (B, T, d);
     key_bias: (B, 1, 1, T) additive float32 (-1e9 on padded keys).
-    flash_mask (B, T) bool routes through ops/flash_attn.mhsa."""
-    q, k, v = _qkv(params, pre, x, num_heads)
+    flash_mask (B, T) bool routes through ops/flash_attn.mhsa. On a model
+    axis (``dp``) the rank runs the heads its part of ``qkv`` holds."""
     scale = 1.0 / (x.shape[-1] // num_heads) ** 0.5
+    x, is_split = attn_split(params, pre, x, dp)
+    q, k, v = _qkv(params, pre, x, num_heads)
     if flash_mask is not None:
         ctx = flash_attn.mhsa(q, k, v, flash_mask, scale,
                               use_kernel=use_kernel)
@@ -143,7 +163,20 @@ def _mhsa(params: dict, pre: str, x: torch.Tensor, key_bias: torch.Tensor,
         scores = scores * scale + key_bias
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.matmul(attn, v)
-    return _attn_out(params, pre, ctx)
+    return _attn_out(params, pre, ctx, dp, is_split)
+
+
+def ffn(params: dict, pre: str, name: str, x: torch.Tensor, act,
+        ffn_dim: int, dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
+    """``{name}_out(act({name}_in(x)))`` of block `pre`; on a model axis
+    (``dp``) the rank's columns of ``{name}_in`` and rows of
+    ``{name}_out`` when it splits the FFN's `ffn_dim`."""
+    is_split = tensor.split(dp, params[f"{pre}.{name}_out.w"].shape[0],
+                            ffn_dim)
+    if is_split:
+        x = tensor.copy_to(x, dp)
+    h = act(linear(params, f"{pre}.{name}_in", x))
+    return tensor.row_linear(params, f"{pre}.{name}_out", h, dp, is_split)
 
 
 def subsampled_lens(frame_lens: torch.Tensor, subsample: int) -> torch.Tensor:
@@ -196,18 +229,21 @@ def run_block(block_fn, x: torch.Tensor, bits: list, remat: bool):
     return block_fn(x, *bits)
 
 
+def _gelu(h: torch.Tensor) -> torch.Tensor:
+    return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+
+
 def _block(params: dict, pre: str, x: torch.Tensor, bits_attn, bits_ffn, *,
            key_bias: torch.Tensor, num_heads: int,
            flash_mask: torch.Tensor | None, use_kernel: bool,
-           rate: float) -> torch.Tensor:
+           rate: float, ffn_dim: int = 0,
+           dp: DataParallel = ONE_DEVICE) -> torch.Tensor:
     """One pre-LN block: x + dropout(MHSA(LN(x))), then + dropout(FFN)."""
     h = _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), key_bias,
-              num_heads, flash_mask=flash_mask, use_kernel=use_kernel)
+              num_heads, flash_mask=flash_mask, use_kernel=use_kernel, dp=dp)
     x = x + apply_dropout(h, rate, bits_attn)
-    h = F.gelu(linear(params, f"{pre}.ffn_in",
-                      _layer_norm(params, f"{pre}.ln2", x)),
-               approximate="tanh")  # jax.nn.gelu's default form
-    h = linear(params, f"{pre}.ffn_out", h)
+    h = ffn(params, pre, "ffn", _layer_norm(params, f"{pre}.ln2", x), _gelu,
+            ffn_dim, dp)
     return x + apply_dropout(h, rate, bits_ffn)
 
 
@@ -215,14 +251,16 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
            frame_lens: torch.Tensor, mcfg: ModelConfig,
            tcfg: TransformerConfig, use_kernel: bool = True,
            train: bool = False, generator: torch.Generator | None = None,
-           pos_offset: int = 0, pre_normalized: bool = False):
+           pos_offset: int = 0, pre_normalized: bool = False,
+           dp: DataParallel = ONE_DEVICE):
     """Encoder forward: (B, T, F) features -> (states (B, T', d), out_mask
     (B, T') bool, out_lens (B,)) with T' = ceil(T / subsample). In
     training dropout draws its bits from `generator` (x's device).
-    pos_offset and pre_normalized: see ``frontend``. Dense whatever
-    ``tcfg.num_experts`` says, as the JAX package's: the switch-MoE
-    encoder is parallel/moe.py's, which the CTC dispatch picks (a
-    transducer's transformer encoder stays dense)."""
+    pos_offset and pre_normalized: see ``frontend``. ``dp``: a model
+    axis's rank runs its part of each block's attention and FFN. Dense
+    whatever ``tcfg.num_experts`` says, as the JAX package's: the
+    switch-MoE encoder is parallel/moe.py's, which the CTC dispatch picks
+    (a transducer's transformer encoder stays dense)."""
     x, out_mask, out_lens = frontend(params, feats, frame_mask, frame_lens,
                                      mcfg, tcfg, pos_offset, pre_normalized)
     rate = tcfg.dropout
@@ -233,7 +271,8 @@ def encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
         block = functools.partial(_block, params, f"blocks.{i}",
                                   key_bias=bias, num_heads=tcfg.num_heads,
                                   flash_mask=flash_mask,
-                                  use_kernel=use_kernel, rate=rate)
+                                  use_kernel=use_kernel, rate=rate,
+                                  ffn_dim=tcfg.ffn_dim, dp=dp)
         bits = [dropout_bits(x, rate, generator, train) for _ in range(2)]
         x = run_block(block, x, bits, mcfg.remat)
     return _layer_norm(params, "ln_final", x), out_mask, out_lens
@@ -251,12 +290,13 @@ def ctc_head(params: dict, x: torch.Tensor, out_mask: torch.Tensor):
 def apply(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
           frame_lens: torch.Tensor, mcfg: ModelConfig,
           tcfg: TransformerConfig, use_kernel: bool = True,
-          train: bool = False, generator: torch.Generator | None = None):
+          train: bool = False, generator: torch.Generator | None = None,
+          dp: DataParallel = ONE_DEVICE):
     """(B, T, F) features -> ((B, T', A) CTC log-probs, out_mask (B, T')
     float32, out_lens (B,)). train=True applies dropout with bits from
     `generator`."""
     x, out_mask, out_lens = encode(params, feats, frame_mask, frame_lens,
                                    mcfg, tcfg, use_kernel=use_kernel,
-                                   train=train, generator=generator)
+                                   train=train, generator=generator, dp=dp)
     log_probs, omask_f = ctc_head(params, x, out_mask)
     return log_probs, omask_f, out_lens

@@ -11,12 +11,15 @@ the axis sizes), laid out row-major over the axes as given, as
 of a batch (the batch splits over ``data``, and over ``data x fsdp`` under
 ``fsdp``: ``batch_multiple``); and where each parameter leaf lives
 (``placement``): whole on every rank, its experts split over ``expert``
-(parallel/moe.py) or its largest divisible dimension over ``fsdp``
-(parallel/fsdp.py). The steps' collectives are parallel/mesh.py's.
+(parallel/moe.py), its largest divisible dimension over ``fsdp``
+(parallel/fsdp.py), or the dimension the Megatron rules name over
+``model`` (parallel/tensor.py), an expert stack under ``model x expert``
+over both. The steps' collectives are parallel/mesh.py's.
 
-The port runs ``data``, ``expert`` and ``fsdp``, each with ``data``; the
-``model``, ``seq`` and ``pipe`` axes and pipeline microbatches are refused
-as not ported, naming their ROADMAP.md item.
+The port runs ``data``, ``model``, ``expert`` and ``fsdp``, each of the
+last three with ``data``, and the JAX pair ``model x expert``; the ``seq``
+and ``pipe`` axes (``data x pipe x model`` with them) and pipeline
+microbatches are refused as not ported, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from .. import not_ported
 MESH_AXES = ("data", "model", "pipe", "seq", "expert", "fsdp")
 
 # the axes the port does not run yet -> their ROADMAP.md queue 1 item
-_UNPORTED_AXES = {"model": "15b.3", "seq": "15b.3", "pipe": "15b.3"}
+_UNPORTED_AXES = {"seq": "15b.3", "pipe": "15b.3"}
 
 
 def parse_mesh_spec(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -91,9 +94,16 @@ class ParallelPlan:
         if microbatches:
             raise not_ported("--microbatches (the pipeline mesh, item 15b.3 "
                              "of ROADMAP.md queue 1)")
-        self.strategy = live[0] if live else "data"
-        self.sizes = {a: sizes.get(a, 1) for a in ("data", "expert", "fsdp")}
+        # the strategy that owns the layout ('model' rides along with
+        # 'expert', as in the JAX package)
+        non_model = [a for a in live if a != "model"]
+        self.strategy = (non_model[0] if non_model
+                         else live[0] if live else "data")
+        self.tp = "model" in live
+        self.sizes = {a: sizes.get(a, 1)
+                      for a in ("data", "model", "expert", "fsdp")}
         self.world = math.prod(self.shape)
+        self._heads = _num_heads(cfg)
         self.fsdp_coverage = None
         if self.strategy == "fsdp":
             from .fsdp import shardable_fraction
@@ -126,35 +136,64 @@ class ParallelPlan:
     @property
     def batch_multiple(self) -> int:
         """The ranks that hold distinct rows of a batch: ``data``, times
-        ``fsdp`` under ``fsdp`` (the ranks of one expert group hold the
-        same rows)."""
+        ``fsdp`` under ``fsdp`` (the ranks of one expert or model group
+        hold the same rows)."""
         return self.sizes["data"] * self.sizes["fsdp"]
 
     def coords(self, rank: int) -> dict[str, int]:
         """The mesh position of rank `rank` (row-major over the axes as
         given); 0 on an axis the mesh does not name."""
-        out = dict.fromkeys(("data", "expert", "fsdp"), 0)
+        out = dict.fromkeys(("data", "model", "expert", "fsdp"), 0)
         for axis, n in reversed(tuple(zip(self.axes, self.shape))):
             out[axis] = rank % n
             rank //= n
         return out
 
-    def placement(self, name: str, shape: tuple[int, ...]
-                  ) -> tuple[str, int] | None:
-        """(axis, dimension) over which a parameter leaf (and its
-        optimizer state, accumulator and EMA) is split, or None when every
-        rank holds it whole."""
+    def placement(self, name: str, shape: tuple[int, ...]):
+        """Where a parameter leaf (and its optimizer state, accumulator and
+        EMA) is split: None when every rank holds it whole, (axis,
+        dimension) for one split, and a tuple of those pairs for a leaf
+        split over two axes (an expert stack under ``model x expert``)."""
+        splits = self.splits(name, shape)
+        if not splits:
+            return None
+        return splits[0] if len(splits) == 1 else splits
+
+    def splits(self, name: str, shape: tuple[int, ...]
+               ) -> tuple[tuple[str, int], ...]:
+        """Every (axis, dimension) split of a leaf, expert before model;
+        () when it is whole."""
+        out = []
         if self.strategy == "expert":
             from .moe import moe_leaf_dim
 
             dim = moe_leaf_dim(name)
-            return None if dim is None else ("expert", dim)
+            if dim is not None:
+                out.append(("expert", dim))
         if self.strategy == "fsdp":
             from .fsdp import fsdp_leaf_dim
 
             dim = fsdp_leaf_dim(tuple(shape), self.sizes["fsdp"])
-            return None if dim is None else ("fsdp", dim)
-        return None
+            if dim is not None:
+                out.append(("fsdp", dim))
+        if self.tp:
+            from .tensor import model_leaf_dim
+
+            dim = model_leaf_dim(name, tuple(shape), self.sizes["model"],
+                                 self._heads, moe=self.strategy == "expert")
+            if dim is not None:
+                out.append(("model", dim))
+        return tuple(out)
+
+
+def _num_heads(cfg) -> int:
+    """The attention heads of the config's model (0 without attention)."""
+    family = cfg.model.family
+    if family == "transducer":
+        family = cfg.transducer.encoder
+    if family in ("transformer", "conformer"):
+        return getattr(cfg, family).num_heads
+    return 0
 
 
 def _param_shapes(cfg) -> dict:

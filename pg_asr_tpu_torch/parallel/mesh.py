@@ -1,5 +1,5 @@
 """The mesh's rank processes over torch.distributed: the ``data``,
-``expert`` and ``fsdp`` axes (counterpart of the data half of
+``model``, ``expert`` and ``fsdp`` axes (counterpart of
 pg_asr_tpu/parallel/mesh.py and of the placements of parallel/moe.py and
 parallel/fsdp.py).
 
@@ -7,12 +7,13 @@ The JAX package runs a mesh in one process over its devices (and over
 hosts with ``jax.distributed``). The port runs one process per mesh
 position, PyTorch's way, each on its own device: ``data`` ranks take their
 own rows of the batch and sum the loss's denominators and the gradients,
-as the JAX package's ``shard_map`` step does with ``psum``; ``expert``
-ranks take the same rows and split each MoE block's experts
-(parallel/moe.py); ``fsdp`` ranks take their own rows and split the
-parameters and the optimizer state (parallel/fsdp.py). Ranks lie on the
-mesh row-major (``ParallelPlan.coords``), as ``jax.sharding.Mesh`` lays out
-devices.
+as the JAX package's ``shard_map`` step does with ``psum``; ``model``
+ranks take the same rows and run their parts of the Megatron pairs
+(parallel/tensor.py); ``expert`` ranks take the same rows and split each
+MoE block's experts (parallel/moe.py); ``fsdp`` ranks take their own rows
+and split the parameters and the optimizer state (parallel/fsdp.py).
+Ranks lie on the mesh row-major (``ParallelPlan.coords``), as
+``jax.sharding.Mesh`` lays out devices.
 
   * ``init_distributed``: the process group, from a ``tcp://`` rendezvous
     at the coordinator's address; NCCL for a CUDA rank, gloo for a CPU
@@ -22,11 +23,13 @@ devices.
     the steps make, each over a named set of ranks: the *batch* ranks
     (those holding distinct rows: ``data``, ``data x fsdp``) for the
     loss's denominators, the MoE's token counts and the gradients of
-    whole leaves; the expert group for the MoE's combine; the fsdp group
-    for the gathers and reduce-scatters of split leaves; every rank for
-    the stop agreement and the broadcast. ``ONE_DEVICE`` without a process
-    group, every collective the identity; ``GroupRank`` in the joined
-    group (without a plan: a data axis over the whole group).
+    whole leaves; the model group for the Megatron pairs' sums and the
+    gathers of the leaves the forward takes whole; the expert group for
+    the MoE's combine; the fsdp group for the gathers and reduce-scatters
+    of split leaves; every rank for the stop agreement and the broadcast.
+    ``ONE_DEVICE`` without a process group, every collective the
+    identity; ``GroupRank`` in the joined group (without a plan: a data
+    axis over the whole group).
   * ``pad_batch_to_multiple``, ``local_rows``: a global batch laid out over
     the ranks as the JAX package lays it out over the devices of a mesh.
 """
@@ -34,10 +37,13 @@ devices.
 from __future__ import annotations
 
 import datetime
+import math
 import socket
 
 import numpy as np
 import torch
+
+from . import tensor
 
 # a peer that stops answering turns into an error after this long
 DEFAULT_TIMEOUT_S = 600.0
@@ -173,6 +179,7 @@ class DataParallel:
 
     rank, world, n_ranks, is_main = 0, 1, 1, True
     expert_index, expert_size = 0, 1
+    model_index, model_size = 0, 1
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of `t` over the ranks that hold distinct rows."""
@@ -224,9 +231,17 @@ class DataParallel:
 
     def forward_params(self, params: dict[str, torch.Tensor]
                        ) -> dict[str, torch.Tensor]:
-        """The parameters a step's forward takes: the fsdp leaves gathered
-        whole, the expert stacks as this rank holds them."""
+        """The parameters a step's forward takes: the fsdp leaves and the
+        model axis's unpaired leaves gathered whole, the expert stacks and
+        the Megatron pairs' leaves as this rank holds them."""
         return self.unshard(params, "fsdp")
+
+    def whole_pairs(self, tree: dict[str, torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+        """A ``forward_params`` tree with its Megatron pairs' leaves
+        gathered whole too, in the canonical layout, without gradient (for
+        a decoder that runs the whole model)."""
+        return tree
 
     def leaf_sums(self, sums: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
@@ -235,9 +250,20 @@ class DataParallel:
         leaf counted once."""
         return sums
 
-    def expert_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` over the expert group (in float32), without
+    def group_sum(self, t: torch.Tensor, over: str) -> torch.Tensor:
+        """The sum of `t` over the named group of ranks (``"expert"``,
+        ``"model"``, or ``"model+expert"``: both), in float32, without
         gradient."""
+        return t
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's parts of `t` joined along `dim`, without
+        gradient."""
+        return t
+
+    def model_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part along `dim` of `t`, which every rank of the
+        model group holds whole."""
         return t
 
 
@@ -247,17 +273,46 @@ ONE_DEVICE = DataParallel()
 # a set of ranks of one member: no collective
 _SELF = "self"
 
+# the mesh axes a rank has a place on (the port runs no ``pipe`` or ``seq``
+# axis), and the named sets of ranks of the collectives: those that differ
+# from this rank only along the axes named
+_AXES = ("data", "model", "expert", "fsdp")
+_GROUPS = {"batch": ("data", "fsdp"), "data": ("data",),
+           "expert": ("expert",), "fsdp": ("fsdp",), "model": ("model",),
+           "model+expert": ("model", "expert"), "world": _AXES}
+
+
+def group_parts(coords: list[dict[str, int]], along: tuple[str, ...]
+                ) -> tuple[tuple[int, ...], ...]:
+    """The sets of ranks (`coords`: each rank's mesh position) that differ
+    only along the axes `along`, in rank order."""
+    parts: dict[tuple, list[int]] = {}
+    for r, c in enumerate(coords):
+        key = tuple(v for a, v in sorted(c.items()) if a not in along)
+        parts.setdefault(key, []).append(r)
+    return tuple(sorted(tuple(ranks) for ranks in parts.values()))
+
 
 class GroupRank(DataParallel):
     """This process's rank in the joined process group, on `device`, at its
     place on `plan`'s mesh (without a plan: a data axis over the whole
     group). Every collective takes and returns tensors on `device` (NCCL
     reduces device tensors only) and returns a new tensor with no
-    gradient. The sets of ranks are ``dist.new_group`` groups, made on
-    every rank in one order; one that spans the world is the default
-    group."""
+    gradient. The sets of ranks are ``dist.new_group`` groups, one for
+    every set of axes, made on every rank in one order (a set of ranks
+    made once however many sets of axes give it); one that spans the
+    world is the default group.
+
+    A leaf's placement (``ParallelPlan.splits``) names the axes that split
+    it. Its gradient is summed over the ranks that differ from this one
+    along the other axes: the ``data`` ranks hold other rows, and the
+    ``model`` and ``expert`` ranks that hold the same part compute copies
+    of one gradient, which are averaged (on the card the copies differ in
+    their last bits, and the ranks of a group must keep equal weights)."""
 
     def __init__(self, device: torch.device | str, plan=None):
+        import itertools
+
         import torch.distributed as dist
 
         n = dist.get_world_size()
@@ -267,8 +322,8 @@ class GroupRank(DataParallel):
         self.device = torch.device(device)
         self.plan = plan
         if plan is None:
-            sizes = {"data": n, "expert": 1, "fsdp": 1}
-            coords = [{"data": r, "expert": 0, "fsdp": 0} for r in range(n)]
+            sizes = dict(dict.fromkeys(_AXES, 1), data=n)
+            coords = [dict(dict.fromkeys(_AXES, 0), data=r) for r in range(n)]
         else:
             if plan.world != n:
                 raise ValueError(f"--mesh {plan.text} has {plan.world} "
@@ -281,15 +336,17 @@ class GroupRank(DataParallel):
         self.world = sizes["data"] * F
         self.expert_index, self.expert_size = me["expert"], sizes["expert"]
         self.fsdp_index, self.fsdp_size = me["fsdp"], F
-        self._index = {"expert": self.expert_index, "fsdp": self.fsdp_index}
-        self._size = {"expert": self.expert_size, "fsdp": F}
-        self._groups = {name: self._new_group(coords, along)
-                        for name, along in (("batch", ("data", "fsdp")),
-                                            ("data", ("data",)),
-                                            ("expert", ("expert",)),
-                                            ("fsdp", ("fsdp",)))}
-        self._groups["world"] = None
-        self._placed: dict[str, tuple[str, int]] = {}
+        self.model_index, self.model_size = me["model"], sizes["model"]
+        self._index = {a: me[a] for a in _AXES}
+        self._size = {a: sizes[a] for a in _AXES}
+        self._made: dict[tuple, object] = {}
+        self._groups = {along: self._new_group(coords, along)
+                        for r in range(1, len(_AXES) + 1)
+                        for along in itertools.combinations(_AXES, r)}
+        # leaf -> its ((axis, dim), ...); the model-split leaves that the
+        # forward takes whole
+        self._placed: dict[str, tuple[tuple[str, int], ...]] = {}
+        self._gathered: set[str] = set()
 
     def _new_group(self, coords, along):
         """The ranks that differ from this one only along the axes
@@ -298,37 +355,42 @@ class GroupRank(DataParallel):
         every such group, in one order, as new_group requires)."""
         import torch.distributed as dist
 
-        parts: dict[tuple, list[int]] = {}
-        for r, c in enumerate(coords):
-            key = tuple(v for a, v in sorted(c.items()) if a not in along)
-            parts.setdefault(key, []).append(r)
-        if len(parts) == 1:
+        key = group_parts(coords, along)
+        if len(key) == 1:
             return None
+        if key in self._made:
+            return self._made[key]
         mine = None
-        for ranks in sorted(parts.values()):
+        for ranks in key:
             if len(ranks) == 1:
                 if self.global_rank in ranks:
                     mine = _SELF
                 continue
-            group = dist.new_group(ranks)
+            group = dist.new_group(list(ranks))
             if self.global_rank in ranks:
                 mine = group
+        self._made[key] = mine
         return mine
 
-    def _all_reduce(self, t: torch.Tensor, over: str) -> None:
-        """`t` summed in place over the named set of ranks."""
+    def _all_reduce(self, t: torch.Tensor, over) -> None:
+        """`t` summed in place over the named set of ranks (a name of
+        ``_GROUPS``, or a tuple of axes)."""
         import torch.distributed as dist
 
-        group = self._groups[over]
+        group = self._groups[_GROUPS.get(over, over)]
         if group is not _SELF:
             dist.all_reduce(t, group=group)
+
+    def _dim(self, k: str, axis: str) -> int | None:
+        """The dimension of leaf `k` that `axis` splits, or None."""
+        return dict(self._placed.get(k, ())).get(axis)
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         out = t.detach().clone()
         self._all_reduce(out, "batch")
         return out
 
-    def _sum_flat(self, grads: dict[str, torch.Tensor], over: str
+    def _sum_flat(self, grads: dict[str, torch.Tensor], over
                   ) -> dict[str, torch.Tensor]:
         """One all-reduce a dtype, on the tensors flattened into one
         buffer."""
@@ -348,26 +410,35 @@ class GroupRank(DataParallel):
 
     def sum_grads(self, grads: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
-        """Whole leaves: an all-reduce over the batch ranks; fsdp leaves:
-        a reduce-scatter within the fsdp group, then an all-reduce of the
-        part over the data group; expert stacks (the expert group's ranks
-        hold the same rows): an all-reduce over the data group. Under an
-        expert axis the whole leaves' gradients are summed over every rank
-        and divided by its size: the data group's sum, averaged over the
-        expert group, whose ranks each hold a copy of it that agrees but
-        for rounding (the card's CTC backward adds atomically), so that
-        every rank of the group keeps the same dense weights and routes
-        alike."""
-        axis = {k: self._placed.get(k, ("",))[0] for k in grads}
-        whole = {k: g for k, g in grads.items() if axis[k] == ""}
-        if self.expert_size > 1:
-            out = {k: g / self.expert_size for k, g in
-                   self._sum_flat(whole, "world").items()}
-        else:
-            out = self._sum_flat(whole, "batch")
-        out.update(self._sum_flat({k: g for k, g in grads.items()
-                                   if axis[k] == "expert"}, "batch"))
-        split = {k: g for k, g in grads.items() if axis[k] == "fsdp"}
+        """Each leaf's gradient summed over the ranks that differ from this
+        one along the axes that do not split it (one all-reduce a set of
+        axes and dtype) and divided by the ``model`` and ``expert`` ranks
+        among them, which hold copies: a whole leaf over every rank, an
+        expert stack over the data group, a model axis's part over the
+        data group and, under ``model x expert``, averaged over the expert
+        group. An unpaired leaf of the model axis, gathered whole for the
+        forward, keeps this rank's slice of its whole gradient first. fsdp
+        leaves: a reduce-scatter within the fsdp group, then an all-reduce
+        of the part over the data group."""
+        by_over: dict[tuple, dict[str, torch.Tensor]] = {}
+        split = {}
+        for k, g in grads.items():
+            axes = {a for a, _ in self._placed.get(k, ())}
+            if "fsdp" in axes:
+                split[k] = g
+                continue
+            if k in self._gathered:
+                g = shard_leaf(g, self._dim(k, "model"), self.model_index,
+                               self.model_size)
+            over = tuple(a for a in _AXES if a not in axes)
+            by_over.setdefault(over, {})[k] = g
+        out = {}
+        for over, part in by_over.items():
+            copies = math.prod(self._size[a] for a in over
+                               if a in ("model", "expert"))
+            summed = self._sum_flat(part, over)
+            out.update(summed if copies == 1 else
+                       {k: g / copies for k, g in summed.items()})
         if split:
             out.update(self._sum_flat(self._reduce_scatter(split), "data"))
         return {k: out[k] for k in grads}
@@ -388,12 +459,12 @@ class GroupRank(DataParallel):
             by_dtype.setdefault(g.dtype, []).append(k)
         out = {}
         for keys in by_dtype.values():
-            parts = {k: grads[k].chunk(F, dim=self._placed[k][1])
+            parts = {k: grads[k].chunk(F, dim=self._dim(k, "fsdp"))
                      for k in keys}
             flat = torch.cat([parts[k][f].reshape(-1) for f in range(F)
                               for k in keys])
             mine = flat.new_empty(flat.numel() // F)
-            scatter_single(mine, flat, group=self._groups["fsdp"])
+            scatter_single(mine, flat, group=self._groups[("fsdp",)])
             at = 0
             for k in keys:
                 shape = parts[k][0].shape
@@ -433,9 +504,9 @@ class GroupRank(DataParallel):
         it and this rank's draws come from a generator on its device
         seeded from that seed and its row index (``rank``), as the JAX
         step folds the data axis's index into its key: the ranks of one
-        expert group, which hold the same rows, draw the same bits. In a
-        group of one the draws are the carried generator's own, as on one
-        device without a mesh."""
+        expert or model group, which hold the same rows, draw the same
+        bits. In a group of one the draws are the carried generator's own,
+        as on one device without a mesh."""
         if self.n_ranks == 1:
             return carried
         seed = int(torch.randint(0, 2 ** 62, (), generator=carried))
@@ -444,41 +515,45 @@ class GroupRank(DataParallel):
 
     def shard(self, tree: dict[str, torch.Tensor]
               ) -> dict[str, torch.Tensor]:
+        """A model axis's ``qkv`` and ``conv_in`` leaves are put in the run
+        layout (parallel/tensor.py ``to_run``) before their split."""
         if self.plan is None:
             return tree
         out = {}
         for k, v in tree.items():
-            where = self.plan.placement(k, tuple(v.shape))
-            if where is None:
-                out[k] = v
-                continue
-            self._placed[k] = where
-            axis, dim = where
-            out[k] = shard_leaf(v, dim, self._index[axis], self._size[axis])
+            splits = self.plan.splits(k, tuple(v.shape))
+            if splits:
+                self._placed[k] = splits
+            for axis, dim in splits:
+                if axis == "model":
+                    v = tensor.to_run(k, v, self.model_size)
+                    if not tensor.is_paired(k):
+                        self._gathered.add(k)
+                v = shard_leaf(v, dim, self._index[axis], self._size[axis])
+            out[k] = v
         return out
 
-    def unshard(self, tree: dict[str, torch.Tensor], axis: str | None = None
-                ) -> dict[str, torch.Tensor]:
-        """One all-gather a split axis and dtype (torch's
-        ``all_gather_single``, earlier ``all_gather_into_tensor``), each
-        leaf reassembled along its dimension into a contiguous tensor."""
+    def _gather(self, tree: dict[str, torch.Tensor], axis: str,
+                keys: list[str]) -> dict[str, torch.Tensor]:
+        """The leaves `keys` of `tree`, split over `axis`, gathered from
+        its group: one all-gather a dtype (torch's ``all_gather_single``,
+        earlier ``all_gather_into_tensor``), each leaf reassembled along its
+        dimension into a contiguous tensor."""
         import torch.distributed as dist
 
         gather_single = getattr(dist, "all_gather_single",
                                 dist.all_gather_into_tensor)
-        batches: dict[tuple, list[str]] = {}
-        for k, v in tree.items():
-            where = self._placed.get(k)
-            if where is not None and axis in (None, where[0]):
-                batches.setdefault((where[0], v.dtype), []).append(k)
+        batches: dict[torch.dtype, list[str]] = {}
+        for k in keys:
+            batches.setdefault(tree[k].dtype, []).append(k)
         if not batches:
             return tree
         out = dict(tree)
-        for (ax, _), keys in batches.items():
-            n = self._size[ax]
+        n = self._size[axis]
+        for keys in batches.values():
             flat = torch.cat([tree[k].reshape(-1) for k in keys])
             every = flat.new_empty(n * flat.numel())
-            gather_single(every, flat, group=self._groups[ax])
+            gather_single(every, flat, group=self._groups[(axis,)])
             parts = every.view(n, -1)
             at = 0
             for k in keys:
@@ -486,24 +561,71 @@ class GroupRank(DataParallel):
                 size = v.numel()
                 out[k] = torch.cat([parts[i, at:at + size].view(v.shape)
                                     for i in range(n)],
-                                   dim=self._placed[k][1])
+                                   dim=self._dim(k, axis))
                 at += size
         return out
 
+    def unshard(self, tree: dict[str, torch.Tensor], axis: str | None = None
+                ) -> dict[str, torch.Tensor]:
+        """The model axis's parts first (back in the canonical layout),
+        then the expert axis's, then the fsdp axis's."""
+        for ax in ("model", "expert", "fsdp"):
+            if axis not in (None, ax):
+                continue
+            keys = [k for k in tree if self._dim(k, ax) is not None]
+            tree = self._gather(tree, ax, keys)
+            if ax == "model":
+                tree = dict(tree, **{k: tensor.to_run(
+                    k, tree[k], self.model_size, inverse=True)
+                    for k in keys})
+        return tree
+
+    def forward_params(self, params: dict[str, torch.Tensor]
+                       ) -> dict[str, torch.Tensor]:
+        tree = self.unshard(params, "fsdp")
+        return self._gather(tree, "model",
+                            [k for k in tree if k in self._gathered])
+
+    @torch.no_grad()
+    def whole_pairs(self, tree: dict[str, torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+        keys = [k for k in tree if self._dim(k, "model") is not None
+                and k not in self._gathered]
+        out = self._gather({k: v.detach() for k, v in tree.items()},
+                           "model", keys)
+        return dict(out, **{k: tensor.to_run(k, out[k], self.model_size,
+                                             inverse=True) for k in keys})
+
     def leaf_sums(self, sums: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
-        by_axis: dict[str, list[str]] = {}
+        by_axes: dict[tuple, list[str]] = {}
         for k in sums:
             if k in self._placed:
-                by_axis.setdefault(self._placed[k][0], []).append(k)
+                axes = {a for a, _ in self._placed[k]}
+                by_axes.setdefault(tuple(a for a in _AXES if a in axes),
+                                   []).append(k)
         out = dict(sums)
-        for ax, keys in by_axis.items():
+        for axes, keys in by_axes.items():
             stacked = torch.stack([sums[k].float() for k in keys])
-            self._all_reduce(stacked, ax)
+            self._all_reduce(stacked, axes)
             out.update(zip(keys, stacked.unbind()))
         return out
 
-    def expert_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def group_sum(self, t: torch.Tensor, over: str) -> torch.Tensor:
         out = t.detach().float().clone()
-        self._all_reduce(out, "expert")
+        self._all_reduce(out, over)
         return out.to(t.dtype)
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        gather_single = getattr(dist, "all_gather_single",
+                                dist.all_gather_into_tensor)
+        t = t.detach().contiguous()
+        n = self.model_size
+        every = t.new_empty(n * t.numel())
+        gather_single(every, t.reshape(-1), group=self._groups[("model",)])
+        return torch.cat(list(every.view(n, *t.shape)), dim=dim)
+
+    def model_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return shard_leaf(t, dim, self.model_index, self.model_size)

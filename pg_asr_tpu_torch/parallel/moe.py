@@ -68,13 +68,24 @@ all of them exactly as one device would, fills and runs only its own
 experts' slots, (E/X, C, d), and the partial combined outputs are summed
 over the group before the gate multiplies them: with top-1 routing every
 token has one nonzero term, so the sum is exact. Two autograd functions
-carry it: the combine (an all-reduce forward, the identity backward) and
-the dispatch's input (the identity forward, an all-reduce of its
-gradient backward). The stacks' gradients are then summed over the data
-group only; the dense ones over the data group too, and averaged over the
-expert group, whose ranks each computed them whole (parallel/mesh.py
-``sum_grads``: on the card their copies differ in the last bits, and the
-ranks of a group must keep equal weights to route alike).
+carry it, parallel/tensor.py's Megatron pair over the expert group: the
+combine (``reduce_from``: an all-reduce forward, the identity backward)
+and the dispatch's input (``copy_to``: the identity forward, an
+all-reduce of its gradient backward). The stacks' gradients are then
+summed over the data group only; the dense ones over the data group too,
+and averaged over the expert group, whose ranks each computed them whole
+(parallel/mesh.py ``sum_grads``: on the card their copies differ in the
+last bits, and the ranks of a group must keep equal weights to route
+alike).
+
+Under ``--mesh model=T,expert=X`` (the JAX package's ``moe_param_specs``
+with a live model axis) each rank also holds its f/T columns of its
+experts' ``w1`` and ``b1`` and rows of ``w2``: the experts' partial
+products are summed over the model group before ``b2``, the combined
+outputs over the expert group, and the dispatch's input gradient over
+both. The router stays whole: its argmax must see all E logits. On
+``model`` alone the stacks stay whole, as the JAX rules leave them, and
+the router is split over its E columns and gathered for the forward.
 """
 
 from __future__ import annotations
@@ -94,6 +105,7 @@ from ..models.transformer_ctc import (_init_ln, _layer_norm, _mhsa,
                                       padding_bias)
 from ..ops.ctc import ctc_loss_terms, ctc_loss_terms_fused
 from ..ops.features import extract_features
+from . import tensor
 from .mesh import ONE_DEVICE, DataParallel, shard_leaf
 
 _DENSE_FFN = ("ffn_in.w", "ffn_in.b", "ffn_out.w", "ffn_out.b")
@@ -183,40 +195,14 @@ def route(params: dict, pre: str, x: torch.Tensor, token_valid: torch.Tensor,
                    valid & (pos < capacity))
 
 
-class _Combine(torch.autograd.Function):
-    """The partial combined outputs summed over the expert group; the
-    gradient passes unchanged (each rank's part reaches the sum once)."""
-
-    @staticmethod
-    def forward(ctx, t, dp):
-        return dp.expert_sum(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _Dispatch(torch.autograd.Function):
-    """The dispatch's input as it is; its gradient, which each rank forms
-    from its own experts' slots only, summed over the expert group."""
-
-    @staticmethod
-    def forward(ctx, x, dp):
-        ctx.dp = dp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.dp.expert_sum(g), None
-
-
 def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
              token_valid: torch.Tensor, capacity: int,
-             dp: DataParallel = ONE_DEVICE):
+             dp: DataParallel = ONE_DEVICE, ffn_dim: int = 0):
     """Switch-routed FFN of block `pre`. x: (B, T, d) in the compute type,
     token_valid: (B, T) bool. Returns (out (B, T, d), aux float32: this
     rank's share of the aux over the ranks of ``dp``). The expert stacks
-    may hold this rank's experts of an expert axis only (``dp``'s)."""
+    may hold this rank's experts of an expert axis only (``dp``'s) and,
+    under ``model x expert``, this rank's columns of their `ffn_dim`."""
     B, T, d = x.shape
     N = B * T
     r = route(params, pre, x, token_valid, capacity)
@@ -241,18 +227,27 @@ def _moe_ffn(params: dict, pre: str, x: torch.Tensor,
     token = torch.full((El * C + 1,), N, dtype=slot.dtype,
                        device=slot.device).index_copy(
         0, slot, torch.arange(N, device=slot.device))[:El * C]
-    # (the JAX package forms xin in float32 and casts it back: the same
-    # values, since every row is a copy of a row of x)
-    xd = x if El == E else _Dispatch.apply(x, dp)
+    # the dispatch's input, whose gradient each rank forms from its own
+    # experts' slots and its own ffn columns only, summed over the ranks
+    # that hold the other experts and columns (the JAX package forms xin
+    # in float32 and casts it back: the same values, since every row is a
+    # copy of a row of x)
+    cols = tensor.split(dp, params[f"{pre}.w2"].shape[1], ffn_dim)
+    over = "+".join(a for a, on in (("model", cols), ("expert", El != E))
+                    if on)
+    xd = tensor.copy_to(x, dp, over) if over else x
     xin = x.new_zeros(El * C + 1, d).index_copy(
         0, slot, xd.reshape(N, d))[:El * C].reshape(El, C, d)
     h = F.gelu(torch.bmm(xin, params[f"{pre}.w1"])
                + params[f"{pre}.b1"][:, None, :], approximate="tanh")
-    y = torch.bmm(h, params[f"{pre}.w2"]) + params[f"{pre}.b2"][:, None, :]
+    y = torch.bmm(h, params[f"{pre}.w2"])
+    if cols:  # the ffn columns' partial products, before the bias
+        y = tensor.reduce_from(y, dp, "model")
+    y = y + params[f"{pre}.b2"][:, None, :]
     out = x.new_zeros(N + 1, d, dtype=torch.float32).index_copy(
         0, token, y.reshape(El * C, d).float())[:N]
     if El != E:  # every token's one output, from the rank of its expert
-        out = _Combine.apply(out, dp)
+        out = tensor.reduce_from(out, dp, "expert")
     out = (out * r.gate[:, None]).to(x.dtype)
 
     # the load-balance loss over the valid tokens (uniform routing: 1.0)
@@ -287,10 +282,10 @@ def moe_encode(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
         pre = f"blocks.{i}"
         bits = [dropout_bits(x, rate, generator, train) for _ in range(2)]
         h = _mhsa(params, pre, _layer_norm(params, f"{pre}.ln1", x), bias,
-                  tcfg.num_heads)
+                  tcfg.num_heads, dp=dp)
         x = x + apply_dropout(h, rate, bits[0])
         h, aux = _moe_ffn(params, pre, _layer_norm(params, f"{pre}.ln2", x),
-                          out_mask, capacity, dp)
+                          out_mask, capacity, dp, tcfg.ffn_dim)
         x = x + apply_dropout(h, rate, bits[1])
         aux_total = aux if aux_total is None else aux_total + aux
     return (_layer_norm(params, "ln_final", x), out_mask, out_lens,

@@ -34,11 +34,13 @@ the plain recurrences and scans and the plain CTC recursion.
 
 Random draws come from an explicit ``torch.Generator``. One device, or
 under ``--mesh`` one rank of the mesh (``make_pg_step(dp=)``,
-``finetune_pg``; parallel/mesh.py): ``data``, ``expert`` (the switch-MoE's
-experts split over the ranks) or ``fsdp`` (the parameters and the AdamW
-state split, the tree gathered for each step), each with ``data``, the
-same ranks and layouts as training's; every mesh takes the global step, as
-the JAX package's pjit step does with its replicated parameters.
+``finetune_pg``; parallel/mesh.py): ``data``, ``model`` (Megatron tensor
+parallelism, parallel/tensor.py), ``expert`` (the switch-MoE's experts
+split over the ranks), ``model x expert``, or ``fsdp`` (the parameters and
+the AdamW state split, the tree gathered for each step), each with
+``data``, the same ranks and layouts as training's; every mesh takes the
+global step, as the JAX package's pjit step does with its replicated
+parameters.
 """
 
 from __future__ import annotations
@@ -203,30 +205,32 @@ def _risk_kind(rl) -> str:
 
 
 def _mwer_transducer_terms(params, feats, fmask, flens, labels, label_lens,
-                           cfg: Config, use_kernel: bool = True):
+                           cfg: Config, use_kernel: bool = True,
+                           dp: DataParallel = ONE_DEVICE):
     """MWER for the RNN-T family: the n-best of the frame-synchronous beam
     (decoding/transducer.transducer_beam_nbest, on the detached encoder
     states), every hypothesis re-scored with the lattice loss. The B x K
     hypotheses go through the prediction network and the joint as one
     batch of rows (one fused-joint launch with ``fused_joint``), then the
-    anchor, the RNN-T loss on the ground truth."""
+    anchor, the RNN-T loss on the ground truth. On a model axis (``dp``)
+    the beam runs on the pairs' leaves gathered whole."""
     rl = cfg.rl
     B, L = labels.shape
     K = rl.mwer_beam
     kind = _risk_kind(rl)
     enc, _, out_lens = transducer.encode(params, feats, fmask, flens, cfg,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel, dp=dp)
     with torch.no_grad():
         hyp, hyp_lens, scores = transducer_beam_nbest(
-            params, enc.detach(), out_lens, cfg, beam_size=K,
-            max_label_len=L)
+            dp.whole_pairs(params), enc.detach(), out_lens, cfg,
+            beam_size=K, max_label_len=L)
     h = hyp.reshape(B * K, L)
     hl = hyp_lens.reshape(B * K)
     ol = out_lens.repeat_interleave(K)
     pred = transducer.predict_states(params, h, hl, cfg)
     lp_blank, lp_label = transducer.joint_lattice_log_probs(
         params, enc.repeat_interleave(K, dim=0), pred, h, cfg,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, dp=dp)
     nll = transducer_loss(lp_blank, lp_label, ol, hl).reshape(B, K)
     live = (scores > -1e29) & (nll < 0.5e30)
     risk = -sequence_reward(labels.repeat_interleave(K, dim=0),
@@ -237,7 +241,7 @@ def _mwer_transducer_terms(params, feats, fmask, flens, labels, label_lens,
 
     pred = transducer.predict_states(params, labels, label_lens, cfg)
     lp_blank, lp_label = transducer.joint_lattice_log_probs(
-        params, enc, pred, labels, cfg, use_kernel=use_kernel)
+        params, enc, pred, labels, cfg, use_kernel=use_kernel, dp=dp)
     a_num, a_den = transducer_loss_terms(lp_blank, lp_label, out_lens,
                                          label_lens)
     zero = enc.new_zeros((), dtype=torch.float32)
@@ -366,7 +370,8 @@ def pg_loss_terms(params, wave, num_samples, labels, label_lens,
     from `generator`) or MWER over the prefix-beam n-best; seq2seq: SCST
     (objective "reinforce", samples drawn from `generator`) or MWER over
     the decoder beam's n-best; the transducer: MWER over its beam's
-    n-best. ``dp``: the switch-MoE routes over the ranks of a data axis."""
+    n-best. ``dp``: the switch-MoE routes over the ranks of a data axis, and
+    a model axis's rank runs its part of the Megatron pairs."""
     rl = cfg.rl
     check_family(cfg.model.family)
     with torch.no_grad():
@@ -387,7 +392,7 @@ def pg_loss_terms(params, wave, num_samples, labels, label_lens,
                 "finetune_pg auto-selects it; set it explicitly when "
                 "building steps directly.")
         return _mwer_transducer_terms(params, feats, fmask, flens, labels,
-                                      label_lens, cfg, use_kernel)
+                                      label_lens, cfg, use_kernel, dp)
 
     # mask / frame_lens in the model's output time base
     log_probs, mask, frame_lens = acoustic_forward(

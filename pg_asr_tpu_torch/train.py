@@ -40,20 +40,23 @@ pass's loss.
 ``--mesh`` (``train.mesh_shape`` / ``mesh_axes``; parallel/driver.py's
 ``ParallelPlan``): this process is one of the mesh's ranks joined in a
 process group (parallel/mesh.py; the CLI starts them). The ranks that hold
-distinct rows (``data``, or ``data x fsdp``; an expert group's ranks hold
-the same rows) each iterate their own slice of the corpus
+distinct rows (``data``, or ``data x fsdp``; a model or an expert group's
+ranks hold the same rows) each iterate their own slice of the corpus
 (``BatchIterator(shard_index=rank, shard_count=N)``) at ``batch_size //
 N`` rows, every rank running the same number of steps (the shortest
 slice's), and the step takes the loss as the sum of the rank's
 numerators over the all-reduced denominators and sums the gradients over
 those ranks (``make_train_step(dp=)``: the JAX package's ``shard_map``
-step under ``data``, its GSPMD step under ``expert`` and ``fsdp``). The
-parameters are broadcast from rank 0, then each rank keeps its part of
-the split leaves (``DataParallel.shard``: an expert group's experts, an
-fsdp group's slices of every divisible leaf), and AdamW, its accumulator
-and the EMA run on those parts; the clip's global norm completes each
-split leaf's squares over its group. Under ``fsdp`` a step gathers the
-whole tree first and reduce-scatters the gradients after. Dropout and
+step under ``data``, its GSPMD step under ``model``, ``expert`` and
+``fsdp``). The parameters are broadcast from rank 0, then each rank keeps
+its part of the split leaves (``DataParallel.shard``: a model group's
+Megatron parts and slices of the other leaves its rules split, an expert
+group's experts, an fsdp group's slices of every divisible leaf), and
+AdamW, its accumulator and the EMA run on those parts; the clip's global
+norm completes each split leaf's squares over its group. Under ``fsdp`` a
+step gathers the whole tree first and reduce-scatters the gradients
+after; under ``model`` it gathers the leaves that no Megatron pair
+computes in parts (parallel/tensor.py). Dropout and
 augmentation draw from a generator of the rows (``step_generator``). Only
 rank 0 writes checkpoints and artifacts, always in the one-device layout
 (the parts gathered first), so that any mesh resumes and one device
@@ -360,7 +363,9 @@ def loss_terms(params, wave, num_samples, labels, label_lens, cfg: Config,
     False, the plain reference path on any device, the plain recurrences,
     joint and CTC recursion (augmentation is plain PyTorch in both).
     ``dp``: the MoE routes its experts' slots in the global token order of
-    the ranks' batches (parallel/moe.py)."""
+    the ranks' batches (parallel/moe.py); a model axis's rank runs its part
+    of the Megatron pairs (parallel/tensor.py) on the parameters that
+    ``dp.forward_params`` gives."""
     aug = cfg.augment
     augment = train and aug.enabled and generator is not None
     with torch.no_grad():
@@ -382,7 +387,7 @@ def loss_terms(params, wave, num_samples, labels, label_lens, cfg: Config,
         out = transducer.apply_lattice(
             params, feats, mask, frame_lens, labels, label_lens, cfg,
             use_kernel=use_kernel, train=train, generator=generator,
-            with_ctc=lam > 0.0)
+            with_ctc=lam > 0.0, dp=dp)
         num, den = transducer_loss_terms(out[0], out[1], out[2], label_lens)
         if lam > 0.0:  # hybrid: L = L_rnnt + lam * L_ctc
             num_c, den_c = ctc_terms(out[3], out[2], labels, label_lens)
@@ -398,7 +403,7 @@ def loss_terms(params, wave, num_samples, labels, label_lens, cfg: Config,
                               dp=dp)
     log_probs, _, out_lens = acoustic_forward(
         params, feats, mask, frame_lens, cfg, use_kernel=use_kernel,
-        train=train, generator=generator)
+        train=train, generator=generator, dp=dp)
     return ctc_terms(log_probs, out_lens, labels, label_lens)
 
 

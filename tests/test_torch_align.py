@@ -51,7 +51,7 @@ CONF_TOL = 1e-4
 WORDS = ("abba", "cad", "bad", "cab", "dada", "ab")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -43,7 +43,7 @@ from pg_asr_tpu_torch.models import conformer_ctc, transformer_ctc
 from pg_asr_tpu_torch.train import AdamW, init_model_params, loss_and_grads
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -34,7 +34,7 @@ K, L = 4, 64
 C, R = 8, 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -42,7 +42,7 @@ from pg_asr_tpu_torch.predict import predict as torch_predict
 RTOL = 1e-5
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

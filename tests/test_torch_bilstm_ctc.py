@@ -23,7 +23,7 @@ from pg_asr_tpu_torch.decoding import greedy
 from pg_asr_tpu_torch.models import bilstm_ctc
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards: importing this module changes no

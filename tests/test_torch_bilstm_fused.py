@@ -37,7 +37,7 @@ LENS = np.array([12, 7, 1, 3])
 MASK = (np.arange(T)[None] < LENS[:, None]).astype(np.float32)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

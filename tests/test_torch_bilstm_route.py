@@ -39,7 +39,7 @@ from pg_asr_tpu_torch.train import loss_and_grads
 INTERPRET = jax.default_backend() != "tpu"
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

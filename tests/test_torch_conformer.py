@@ -45,7 +45,7 @@ from pg_asr_tpu_torch.predict import forward, load_model
 from pg_asr_tpu_torch.predict import predict as torch_predict
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -246,10 +246,12 @@ def test_cli_predict_matches_jax_package(attention_slice, family, decoder,
 def test_cli_train_of_attention_families_exits_not_ported(tmp_path, model):
     # the switch-MoE transformer trains since it was ported
     # (tests/test_torch_moe.py), on an expert mesh since that was
-    # (tests/test_torch_expert.py); its expert x model mesh stays refused
+    # (tests/test_torch_expert.py), on an expert x model mesh since the
+    # model axis was (tests/test_torch_tensor.py); a pipe x model mesh
+    # stays refused
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", "--model", model, "--flash_attention",
-                  "--mesh", "data=1,model=2,expert=2",
+                  "--mesh", "data=1,pipe=2,model=2",
                   "--corpus_path", str(tmp_path / "corpus"), "--model_path",
                   str(tmp_path / "model"), "--device", "cpu"])
     assert "not yet ported" in str(e.value) and "15b" in str(e.value)

@@ -43,7 +43,7 @@ from pg_asr_tpu_torch.convert import params_to_jax
 from pg_asr_tpu_torch.data import make_phonetic_corpus
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

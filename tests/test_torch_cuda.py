@@ -2290,6 +2290,119 @@ def test_two_rank_gloo_step_on_the_card_matches_one_process(cuda, tmp_path):
                for k in p_ref)
 
 
+_CUDA_TENSOR_RANK = r"""
+import dataclasses, sys
+import torch
+from pg_asr_tpu_torch.config import Config
+from pg_asr_tpu_torch.ops import cuda_flash_attn, flash_attn
+from pg_asr_tpu_torch.parallel import mesh
+from pg_asr_tpu_torch.train import AdamW, make_plan, make_train_step
+
+spec_path, out, rank, port = sys.argv[1:5]
+spec = torch.load(spec_path, weights_only=False)
+dev = torch.device("cuda", 0)
+mesh.init_distributed(f"127.0.0.1:{port}", 2, int(rank), backend="gloo",
+                      device=dev)
+cfg = Config.from_json(spec["config"])
+cfg = cfg.replace(train=dataclasses.replace(cfg.train, mesh_shape=(2,),
+                                            mesh_axes=("model",)))
+dp = mesh.GroupRank(dev, make_plan(cfg))
+params = dp.shard({k: v.to(dev) for k, v in spec["params"].items()})
+arrays = [torch.from_numpy(a).to(dev) for a in spec["batch"]]
+heads, mhsa = set(), flash_attn.mhsa
+
+
+def counted(q, *args, **kwargs):
+    heads.add(int(q.shape[1]))
+    return mhsa(q, *args, **kwargs)
+
+
+flash_attn.mhsa = counted
+step = make_train_step(cfg, AdamW(cfg, params, dp=dp), dp)
+gen = torch.Generator().manual_seed(0)
+losses = [step(params, gen, *arrays).item() for _ in range(2)]
+torch.save({"losses": losses, "heads": sorted(heads),
+            "launches": (cuda_flash_attn.RES_LAUNCHES,
+                         cuda_flash_attn.DKV_LAUNCHES,
+                         cuda_flash_attn.DQ_LAUNCHES),
+            "params": {k: v.cpu() for k, v in dp.unshard(params).items()}},
+           out)
+mesh.destroy_distributed()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_model_axis_on_the_card_matches_one_process(cuda, tmp_path):
+    """model=2 on a conformer of 2 blocks, d 64, 4 heads, with
+    flash_attention: two rank processes on cuda:0 over gloo, each running
+    its 2 heads through the flash kernels (residual forward, dkv, dq: one
+    launch a block a step) and its halves of the FFNs and the convolution
+    module, against the one-process steps on the same batch: the losses
+    and the gathered parameters after 2 steps within rtol 1e-4 / atol
+    1e-5 (where every step's gradient exceeds 1e-6), the ranks equal."""
+    import os
+    import subprocess
+    import sys
+
+    from pg_asr_tpu_torch.config import Config, ConformerConfig, TrainConfig
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import AdamW, init_model_params, loss_and_grads
+
+    _, _, batch = _mesh_case()
+    cfg = Config(model=ModelConfig(family="conformer", vocab_size=9,
+                                   input_dim=80, dropout=0.0),
+                 conformer=ConformerConfig(num_layers=2, d_model=64,
+                                           num_heads=4, ffn_dim=128,
+                                           dropout=0.0, flash_attention=True),
+                 train=TrainConfig(warmup_steps=0, learning_rate=1e-3))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    spec = str(tmp_path / "spec.pt")
+    torch.save({"config": cfg.to_json(), "params": params, "batch": batch},
+               spec)
+    script = str(tmp_path / "rank.py")
+    with open(script, "w") as fo:
+        fo.write(_CUDA_TENSOR_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    port = str(mesh.free_port())
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, script, spec, outs[r], str(r),
+                               port], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    p_ref = {k: v.to(cuda) for k, v in params.items()}
+    arrays = [torch.from_numpy(a).to(cuda) for a in batch]
+    opt, losses = AdamW(cfg, p_ref), []
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p_ref.items()}
+    for _ in range(2):
+        loss, grads = loss_and_grads(p_ref, arrays, cfg)
+        losses.append(loss.item())
+        sure = {k: sure[k] & (grads[k].abs() > 1e-6) for k in sure}
+        opt.update(p_ref, grads)
+    for rk in ranks:
+        np.testing.assert_allclose(rk["losses"], losses, rtol=1e-4,
+                                   atol=1e-5)
+        assert rk["heads"] == [2]
+        assert rk["launches"] == (4, 4, 4)  # 2 blocks x 2 steps
+        for k, v in p_ref.items():
+            m = sure[k].cpu()
+            np.testing.assert_allclose(rk["params"][k][m].numpy(),
+                                       v.cpu()[m].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in p_ref)
+
+
 # one of two ranks of an expert=2 or fsdp=2 mesh on the card over gloo: the
 # whole global batch (expert) or its rows (fsdp), its parts of the split
 # leaves, two steps; losses, launches, the first step's reduced gradients

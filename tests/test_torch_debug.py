@@ -30,7 +30,7 @@ from pg_asr_tpu_torch.data import make_synthetic_corpus
 from pg_asr_tpu_torch.utils import debug
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -35,7 +35,7 @@ from tests.test_torch_mesh import TIMEOUT, _start, _tiny_model, _wait
 PACKAGES = {"jax": jax_elastic, "torch": elastic}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

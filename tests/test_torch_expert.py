@@ -52,7 +52,7 @@ from tests.test_torch_mesh_ranks import (CLIP, assert_matches,
 E = 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -113,12 +113,19 @@ def test_plan_matches_jax(spec, family):
 
 
 def test_model_with_expert_stays_refused():
-    """JAX composes data x model x expert; the port refuses it, naming
-    its item."""
+    """JAX composes data x model x expert, and the port runs it since the
+    model axis was ported (tests/test_torch_tensor.py): the expert stacks
+    split on both axes; with a pipe axis the port refuses it, naming its
+    item."""
     cfg = Config.from_json(_moe().to_json())
+    plan = driver.ParallelPlan(cfg, *driver.parse_mesh_spec(
+        "data=1,model=2,expert=2"))
+    assert plan.world == 4 and plan.strategy == "expert" and plan.tp
+    assert plan.placement("blocks.0.w1", (E, 32, 64)) == (
+        ("expert", 0), ("model", 2))
     with pytest.raises(NotImplementedError, match="item 15b.3"):
         driver.ParallelPlan(cfg, *driver.parse_mesh_spec(
-            "data=1,model=2,expert=2"))
+            "data=1,pipe=2,model=2"))
 
 
 @pytest.mark.parametrize("spec", ["expert=2", "data=2,expert=2",

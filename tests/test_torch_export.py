@@ -40,7 +40,7 @@ from tests.test_export import _waves
 B, SECONDS, BEAM = 2, 0.5, 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -22,7 +22,7 @@ from pg_asr_tpu_torch.config import Config
 from pg_asr_tpu_torch.ops import features as tfeat
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards: importing this module changes no

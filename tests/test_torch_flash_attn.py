@@ -40,7 +40,7 @@ from pg_asr_tpu_torch.models import conformer_ctc, transformer_ctc
 from pg_asr_tpu_torch.ops import cuda_flash_attn, flash_attn
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -54,7 +54,7 @@ LOGPROB_TOL = 1e-4
 WORDS = ("the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -60,7 +60,7 @@ from tests.test_torch_mesh_ranks import (CLIP, assert_matches,
                                          run_ranks)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

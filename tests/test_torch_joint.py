@@ -29,7 +29,7 @@ DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
           "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -47,7 +47,7 @@ TEXTS = ["abc gab", "bad cafe", "face bead", "ace", "dab gag", "cab bed",
          "gaffe", "beg a cab"] * 3
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

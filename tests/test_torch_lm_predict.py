@@ -28,7 +28,7 @@ FIXTURE = os.path.join(REPO, "pg_asr_tpu_torch", "testdata",
 WORDS = ("the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

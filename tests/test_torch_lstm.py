@@ -21,7 +21,7 @@ from pg_asr_tpu_torch.ops.lstm import (bilstm_layer, lstm_scan,
                                        lstm_scan_plain)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards: importing this module changes no

@@ -36,7 +36,7 @@ from pg_asr_tpu.ops.pallas_lstm import _pallas_forward, _pallas_forward_train
 from pg_asr_tpu_torch.ops.lstm import lstm_scan_plain
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards."""

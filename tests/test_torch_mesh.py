@@ -28,6 +28,7 @@ SIGTERM to one of two rank processes started by the user
 model_last. Every multi-process test has a hard timeout of its own.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -67,7 +68,7 @@ TIMEOUT = 120  # seconds, each multi-process test
 WORLD = 2
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -159,13 +160,21 @@ def test_local_rows_are_the_mesh_shards():
 
 def test_other_axes_are_refused_with_their_item():
     # the expert and fsdp axes run since they were ported
-    # (tests/test_torch_expert.py, tests/test_torch_fsdp.py)
+    # (tests/test_torch_expert.py, tests/test_torch_fsdp.py), the model
+    # axis alone, with data and with expert too (tests/test_torch_tensor.py)
     cfg = Config()
     assert driver.ParallelPlan(cfg, (), ()).world == 1
     assert driver.ParallelPlan(cfg, (4, 1), ("data", "model")).world == 4
-    for spec, item in (("model=2", "15b.3"), ("data=2,model=2", "15b.3"),
-                       ("model=2,expert=2", "15b.3"), ("seq=2", "15b.3"),
-                       ("pipe=2", "15b.3")):
+    moe = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                family="transformer"),
+                      transformer=dataclasses.replace(cfg.transformer,
+                                                      num_experts=4))
+    for spec, c, world in (("model=2", cfg, 2), ("data=2,model=2", cfg, 4),
+                           ("model=2,expert=2", moe, 4)):
+        plan = driver.ParallelPlan(c, *driver.parse_mesh_spec(spec))
+        assert plan.world == world and plan.tp
+    for spec, item in (("seq=2", "15b.3"), ("pipe=2", "15b.3"),
+                       ("data=2,pipe=2,model=2", "15b.3")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             driver.ParallelPlan(cfg, *driver.parse_mesh_spec(spec))
     with pytest.raises(NotImplementedError, match="microbatches.*15b.3"):

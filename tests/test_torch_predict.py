@@ -43,7 +43,7 @@ from pg_asr_tpu_torch.predict import forward, forward_seq2seq, load_model
 from pg_asr_tpu_torch.predict import predict as torch_predict
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards: importing this module changes no
@@ -330,11 +330,12 @@ def test_seq2seq_refusals_match_jax(slice_setup, seq2seq_dirs, what):
 def test_cli_other_modes_not_ported(tmp_path):
     # every mode is ported, the switch-MoE transformer's export too
     # (tests/test_torch_moe.py), its expert mesh too
-    # (tests/test_torch_expert.py); what stays refused is a mode's device
-    # mesh with a model axis
+    # (tests/test_torch_expert.py), its model x expert mesh too
+    # (tests/test_torch_tensor.py); what stays refused is a mode's device
+    # mesh with a pipe axis
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "finetune_pg", "--model", "moe", "--mesh",
-                  "model=2,expert=2", "--corpus_path", str(tmp_path / "corpus"),
+                  "pipe=2,model=2", "--corpus_path", str(tmp_path / "corpus"),
                   "--model_path", str(tmp_path), "--device", "cpu"])
     assert "not yet ported" in str(e.value) and "item 15b" in str(e.value)
 

@@ -31,7 +31,7 @@ SR = 16000
 WORDS = ["HELLO", "WORLD", "IT'S", "A", "SMALL", "TEST", "OF", "SPEECH"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards."""

@@ -41,7 +41,7 @@ from pg_asr_tpu_torch.train import AdamW, value_and_grad
 SPACE = 1  # the space symbol's id in these tests' alphabets
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -443,12 +443,15 @@ def test_one_pg_step_matches_make_pg_step(monkeypatch, ctc_tree):
 
 
 def test_mesh_is_refused():
-    # the data axis runs (tests/test_torch_mesh.py); the others are refused
+    # the data axis runs (tests/test_torch_mesh.py), the model axis too
+    # (tests/test_torch_tensor.py); the pipe axis is refused
     from pg_asr_tpu_torch.train import check_ported
 
     cfg = Config()
     assert check_ported(cfg.replace(train=dataclasses.replace(
         cfg.train, mesh_shape=(2,), mesh_axes=("data",)))) == 2
+    assert check_ported(cfg.replace(train=dataclasses.replace(
+        cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "model")))) == 2
     with pytest.raises(NotImplementedError, match="not yet ported.*"):
         check_ported(cfg.replace(train=dataclasses.replace(
-            cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "model"))))
+            cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "pipe"))))

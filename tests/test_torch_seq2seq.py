@@ -46,7 +46,7 @@ TARGET_LENS = np.array([6, 3, 0], np.int32)  # the last row is padding
 BEAMS = ((1, 0.0, STEPS), (3, 0.0, STEPS), (3, 2.5, STEPS), (9, 0.0, 1))
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

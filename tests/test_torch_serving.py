@@ -39,7 +39,7 @@ CONF_TOL = 1e-4
 BEAM_K, BEAM_L = 4, 12
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -34,7 +34,7 @@ from pg_asr_tpu_torch.train import AdamW, loss_and_grads
 from tests.test_torch_predict import PORTED_FLAGS, UNPORTED_FLAGS
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread per test (the suite runs in several worker
     processes), restored afterwards: importing this module changes no

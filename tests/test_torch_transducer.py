@@ -47,7 +47,7 @@ VOCAB = 9
 ENCODERS = ("bilstm", "transformer", "conformer")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -46,7 +46,7 @@ LENS = np.array([9, 5, 1], np.int32)
 NLL_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
