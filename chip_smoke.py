@@ -334,10 +334,23 @@ the CPU or to a kernel's plain version):
      losses, the first step's reduced gradients, the parameters, each
      rank's resident bytes (equal to the share its splits give), peak
      memory, step ms, the collectives alone and the launches.
- 21. prints its total wall time, a JSON line of kernel results (with each
+ 21. the pipe and seq mesh axes (phase_pipeseq: GPipe pipeline stages
+     and sequence parallelism), the same four processes on the full-width
+     transformer-CTC with flash_attention (which neither axis takes, as
+     the JAX package's): `pipe=2` at 2 and 4 microbatches, `pipe=3` at 3
+     (three ranks), `data=2,pipe=2`, `pipe=2,model=2`, `seq=2`, `seq=4`
+     (T'=201 padded to 204), `data=2,seq=2`, and a `data=2,pipe=2`
+     epoch (2 microbatches) whose checkpoint predict serves on one device
+     and a run without a mesh resumes. Each case against the one-process
+     steps of the dense model: losses within 1e-6 relative, the first
+     step's reduced gradients, the parameters, each rank's resident bytes
+     (a stage's share of the blocks under pipe), peak memory, step ms, one
+     send / recv or one key gather and reduce-scatter alone, and no launch.
+ 22. prints its total wall time, a JSON line of kernel results (with each
      kernel's launches on the policy-gradient, recipe, corpus-tool,
      streaming, seq2seq, LM, export, MoE and mesh paths, those of the
-     model axis under model_*, ctc_beam's cases
+     model axis under model_*, the pipe and seq axes' under pipeseq_*,
+     ctc_beam's cases
      at A=256,
      lstm_fwd's and flash_attn's at the streamed windows, lstm_fwd_residual's and
      lstm_bwd's at the seq2seq decoder's and the LM's shapes), then as the
@@ -6191,9 +6204,101 @@ SHARD_PLAIN_REPS = 3  # the one-process step's timed reps, each turn
 # where a moment nearly cancels between steps AdamW magnifies that (one
 # element of 9.5 M in (a)'s second run, |g| 5.8e-4 of its tensor's
 # largest); a wrong reduction moves most elements, and the first step's
-# gradients are held on every element
+# gradients are held on every element. The MoE's top-1 routing is an
+# argmax: at a near-tie the ranks (whose activations differ from one
+# process's in the last bits) may send a token to another expert, and every
+# parameter then takes another path (673 of 7.1 M elements outside the
+# tolerance in one run of (a)). So the one-process steps of a MoE case run
+# after its ranks and take the ranks' experts call by call
+# (`routes_replayed`), and wherever their own argmax differs from the
+# ranks' choice the top probability may lead the ranks' expert's by at
+# most ROUTE_TIE
 SHARD_GRAD_REL = 1e-4
 SHARD_OUTLIERS = 1e-5
+ROUTE_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def routes_recorded(store: list):
+    """While open, moe.route appends each call's top-1 experts (int8, on
+    their device: no synchronization) to `store`."""
+    import torch
+
+    from pg_asr_tpu_torch.parallel import moe
+
+    route = moe.route
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        store.append(r.expert.to(torch.int8))
+        return r
+
+    moe.route = recording
+    try:
+        yield store
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def routes_replayed(routes: list, leads: list):
+    """While open, moe.route takes the experts of `routes`, call by call,
+    in place of its own argmax: the gate is the taken expert's
+    probability, the slots and the capacity follow from the taken experts
+    as moe.route computes them. Where its own argmax differs, the top
+    probability's lead over the taken expert's is appended to `leads`.
+    Every call of `routes` must be taken."""
+    import torch
+    import torch.nn.functional as F
+
+    from pg_asr_tpu_torch.parallel import moe
+
+    route = moe.route
+    calls = iter(enumerate(routes))
+
+    def replaying(params, pre, x, token_valid, capacity):
+        r = route(params, pre, x, token_valid, capacity)
+        i, taken = next(calls, (None, None))
+        check(taken is not None and taken.shape == r.expert.shape,
+              f"{pre}: {len(routes)} recorded routes, call "
+              f"{i} of shape {None if taken is None else tuple(taken.shape)}"
+              f" for {tuple(r.expert.shape)} tokens")
+        taken = taken.to(r.expert.device, torch.long)
+        gate = r.probs.gather(1, taken[:, None])[:, 0]
+        differ = taken != r.expert
+        if bool(differ.any()):
+            leads.extend((r.gate - gate)[differ].tolist())
+        valid = token_valid.reshape(-1)
+        assign = F.one_hot(taken, r.probs.shape[1]) * valid[:, None]
+        at = assign.t().contiguous()
+        pos = ((torch.cumsum(at, dim=1) - at) * at).sum(dim=0)
+        return moe.Routing(r.probs, taken, gate, assign, pos,
+                           valid & (pos < capacity))
+
+    moe.route = replaying
+    try:
+        yield leads
+    finally:
+        moe.route = route
+    check(next(calls, None) is None,
+          f"{len(routes)} recorded routes, fewer calls replayed them")
+
+
+def ranks_routes(got: list, ranks: list, plan, key: str) -> list:
+    """The experts the ranks of case `key` took, call by call, over the
+    global batch: the data ranks' tokens in row order (the first rank of
+    each (model, expert) group records them)."""
+    import torch
+
+    parts = sorted(((plan.coords(i)["data"], got[r][key]["routes"])
+                    for i, r in enumerate(ranks)
+                    if "routes" in got[r][key]), key=lambda p: p[0])
+    check([p[0] for p in parts] == list(range(plan.sizes["data"]))
+          and len({len(p[1]) for p in parts}) == 1,
+          f"({key}) routes of data ranks {[p[0] for p in parts]}, "
+          f"{[len(p[1]) for p in parts]} calls")
+    return [torch.cat([p[1][j] for p in parts])
+            for j in range(len(parts[0][1]))]
 
 
 def shard_specs(alphabet):
@@ -6226,14 +6331,15 @@ def shard_specs(alphabet):
             "ctc_mwer": (cfg_pg, params_c)}, batch
 
 
-def _meshed(cfg, spec: str):
+def _meshed(cfg, spec: str, microbatches: int = 0):
     import dataclasses
 
     from pg_asr_tpu_torch.parallel.driver import parse_mesh_spec
 
     shape, axes = parse_mesh_spec(spec)
     return cfg.replace(train=dataclasses.replace(
-        cfg.train, mesh_shape=shape, mesh_axes=axes))
+        cfg.train, mesh_shape=shape, mesh_axes=axes,
+        pipeline_microbatches=microbatches))
 
 
 def _tree_bytes(*trees) -> int:
@@ -6259,7 +6365,7 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
                                         train)
 
     cfg = _meshed(Config.from_json(spec["configs"][case["model"]]),
-                  case["mesh"])
+                  case["mesh"], case.get("microbatches", 0))
     if case["kind"] == "run":
         import dataclasses
 
@@ -6306,13 +6412,20 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
         return mhsa(q, *args, **kwargs)
 
     flash_attn.mhsa = counted
+    # a MoE case's experts, from the first rank of each (model, expert)
+    # group: the one-process steps replay them (routes_replayed)
+    routes = []
+    record = (routes_recorded(routes) if case.get("routes")
+              and dp.model_index == 0 and dp.expert_index == 0
+              else contextlib.nullcontext())
     reset_counts()
     losses, ms = [], []
     try:
-        for _ in range(case["steps"]):
-            t0 = time.perf_counter()
-            losses.append(step(params, gen, *arrays).item())  # synchronizes
-            ms.append((time.perf_counter() - t0) * 1e3)
+        with record:
+            for _ in range(case["steps"]):
+                t0 = time.perf_counter()
+                losses.append(step(params, gen, *arrays).item())  # syncs
+                ms.append((time.perf_counter() - t0) * 1e3)
     finally:
         flash_attn.mhsa = mhsa
     counts = all_counts()
@@ -6322,6 +6435,8 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
            "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
            "flash_heads": sorted(heads),
            "shapes": {k: tuple(v.shape) for k, v in params.items()}}
+    if routes:
+        res["routes"] = [t.cpu() for t in routes]
     if dp.fsdp_size > 1:  # the step's gather and its reduce-scatter alone
         res["all_gather_ms"] = time_ms(lambda: dp.unshard(params), 5)
         full = dp.unshard(params)
@@ -6351,6 +6466,34 @@ def shard_case(case: dict, spec: dict, dev) -> dict:
             res["model_sum_ms"] = time_ms(lambda: dp.group_sum(out, "model"),
                                           5)
             res["model_sum_mb"] = out.numel() * 4 / 1e6
+    tcfg = cfg.transformer
+    t_out = -(-(WAVE_SAMPLES // cfg.features.hop_length + 1)
+              // tcfg.subsample)
+    if dp.pipe_size > 1:
+        # one microbatch's activations passed one stage on (float32)
+        act = torch.ones(-(-res["rows"] // dp.microbatches), t_out,
+                         tcfg.d_model, device=dev)
+        s, last = dp.pipe_index, dp.pipe_size - 1
+
+        def hop():
+            sends = [dp.pipe_send(act, s + 1)] if s < last else []
+            if s > 0:
+                dp.pipe_recv(tuple(act.shape), act.dtype, s - 1)
+            dp.wait_all(sends)
+
+        res["send_recv_ms"] = time_ms(hop, 5)
+        res["send_recv_mb"] = act.numel() * 4 / 1e6
+    if dp.seq_size > 1:
+        # one block's keys gathered over the seq group, and the
+        # reduce-scatter of their gradient
+        S, h = dp.seq_size, tcfg.num_heads
+        whole = torch.ones(res["rows"], h, -(-t_out // S) * S,
+                           tcfg.d_model // h, device=dev)
+        part = whole[:, :, :whole.shape[2] // S].contiguous()
+        res["seq_gather_ms"] = time_ms(lambda: dp.seq_gather(part, 2), 5)
+        res["seq_reduce_scatter_ms"] = time_ms(
+            lambda: dp.seq_reduce_scatter(whole, 2), 5)
+        res["seq_gather_mb"] = whole.numel() * 4 / 1e6
     res["params"] = {k: v.cpu() for k, v in dp.unshard(params).items()}
     return res
 
@@ -6436,30 +6579,41 @@ def phase_shard(dev, corpus, alphabet, d):
         return [step(p, gen, *arrays)[0].item()
                 for _ in range(SHARD_STEPS_B)]
 
-    def reference(model: str) -> dict:
-        """SHARD_STEPS one-process steps: the losses, the first step's
-        gradients, the parameters after each step, the mask, the
-        resident bytes."""
+    def reference(model: str, n: int = SHARD_STEPS,
+                  routes: list | None = None) -> dict:
+        """n one-process steps (the experts of `routes` replayed, the
+        leads of the replayed experts' near-ties kept): the losses, the
+        first step's gradients, the parameters after each step, the mask,
+        the resident bytes."""
         cfg, params0 = specs[model]
         p = {k: v.to(dev, copy=True) for k, v in params0.items()}
         opt = AdamW(cfg, p)
-        out = {"losses": [], "after": [], "grads": None}
+        out = {"losses": [], "after": [], "grads": None, "leads": []}
         sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p.items()}
-        for _ in range(SHARD_STEPS):
-            loss, grads = loss_and_grads(p, arrays, cfg)
-            out["losses"].append(loss.item())
-            if out["grads"] is None:
-                out["grads"] = {k: g.cpu() for k, g in grads.items()}
-            sure = {k: sure[k] & (grads[k].abs() > max(
-                MESH_GRAD_FLOOR, SHARD_GRAD_REL * grads[k].abs().max().item()))
-                    for k in sure}
-            opt.update(p, grads)
-            out["after"].append({k: v.to("cpu", copy=True)
-                                 for k, v in p.items()})
-            out.setdefault("sure", []).append({k: v.to("cpu", copy=True)
-                                               for k, v in sure.items()})
+        replay = (routes_replayed(routes, out["leads"]) if routes is not None
+                  else contextlib.nullcontext())
+        with replay:
+            for _ in range(n):
+                loss, grads = loss_and_grads(p, arrays, cfg)
+                out["losses"].append(loss.item())
+                if out["grads"] is None:
+                    out["grads"] = {k: g.cpu() for k, g in grads.items()}
+                sure = {k: sure[k] & (grads[k].abs() > max(
+                    MESH_GRAD_FLOOR,
+                    SHARD_GRAD_REL * grads[k].abs().max().item()))
+                        for k in sure}
+                opt.update(p, grads)
+                out["after"].append({k: v.to("cpu", copy=True)
+                                     for k, v in p.items()})
+                out.setdefault("sure", []).append(
+                    {k: v.to("cpu", copy=True) for k, v in sure.items()})
         out["resident"] = _tree_bytes(p, opt.mu, opt.nu)
         return out
+
+    def outside(params: dict, want: dict, sure: dict) -> int:
+        """The checked elements of `params` outside the tolerance."""
+        return sum(int(((params[k] - v).abs() > MESH_ATOL + MESH_RTOL
+                        * v.abs())[sure[k]].sum()) for k, v in want.items())
 
     def plain_ms(model: str) -> float:
         cfg, params0 = specs[model]
@@ -6468,7 +6622,12 @@ def phase_shard(dev, corpus, alphabet, d):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return time_ms(lambda: step(p, gen, *arrays), SHARD_PLAIN_REPS)
 
-    refs = {m: reference(m) for m in ("moe", "ctc")}
+    # the MoE's steps on its own routing, printed beside the checks' (on
+    # the ranks' routing, after them)
+    own_routes = []
+    with routes_recorded(own_routes):
+        refs = {"moe": reference("moe")}
+    refs["ctc"] = reference("ctc")
     turns = {m: [plain_ms(m)] for m in ("moe", "ctc")}
     pg_losses = pg_reference()
 
@@ -6478,9 +6637,10 @@ def phase_shard(dev, corpus, alphabet, d):
     run_dir = os.path.join(d, "shard_fsdp2")
     cases = {
         "b": {"name": "b", "model": "moe", "mesh": "data=2,expert=2",
-              "kind": "steps", "steps": SHARD_STEPS_B},
+              "kind": "steps", "steps": SHARD_STEPS_B, "routes": True},
         "a": {"name": "a", "model": "moe", "mesh": "expert=2",
-              "kind": "steps", "steps": SHARD_STEPS, "done": marker},
+              "kind": "steps", "steps": SHARD_STEPS, "done": marker,
+              "routes": True},
         "c": {"name": "c", "model": "ctc", "mesh": "fsdp=2",
               "kind": "steps", "steps": SHARD_STEPS, "after": marker},
         "e": {"name": "e", "model": "ctc_mwer", "mesh": "fsdp=2",
@@ -6526,15 +6686,32 @@ def phase_shard(dev, corpus, alphabet, d):
                       weights_only=False) for r in range(4)]
     for m in turns:
         turns[m].append(plain_ms(m))
+    # the MoE cases' one-process steps on the experts their ranks took
+    replayed, own = {}, {}
+    for key, ranks in (("b", [0, 1, 2, 3]), ("a", [0, 1])):
+        cfg = _meshed(specs["moe"][0], cases[key]["mesh"])
+        plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes)
+        taken = ranks_routes(got, ranks, plan, key)
+        replayed[key] = reference("moe", cases[key]["steps"], taken)
+        n = cases[key]["steps"]
+        own[key] = {"tokens_differ": sum(
+            int((t != o.cpu()).sum()) for t, o in zip(taken, own_routes)),
+            "outliers": outside(got[ranks[0]][key]["params"],
+                                refs["moe"]["after"][n - 1],
+                                refs["moe"]["sure"][n - 1])}
 
     result, launches = {}, {}
     for key, ranks in (("b", [0, 1, 2, 3]), ("a", [0, 1]), ("c", [2, 3])):
         case = cases[key]
         cfg = _meshed(specs[case["model"]][0], case["mesh"])
         plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes)
-        ref = refs[case["model"]]
+        ref = replayed[key] if key in replayed else refs[case["model"]]
         n = case["steps"]
         worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+        leads = ref["leads"]
+        check(max(leads, default=0.0) <= ROUTE_TIE,
+              f"({key}) at {len(leads)} tokens one process's top-1 expert "
+              f"is not the ranks', its lead up to {max(leads, default=0):.3e}")
         for i, r in enumerate(ranks):
             rk = got[r][key]
             coords = plan.coords(i)
@@ -6608,6 +6785,9 @@ def phase_shard(dev, corpus, alphabet, d):
                        "losses": [got[r][key]["losses"] for r in ranks],
                        "one_process_losses": ref["losses"][:n],
                        "worst": worst, "left_out": left_out,
+                       "routes_differ": len(leads),
+                       "routes_lead": max(leads, default=0.0),
+                       "own_routing": own.get(key),
                        "step_ms": rank_ms,
                        "one_process_step_ms": turns[case["model"]],
                        "resident_bytes": resident,
@@ -6628,7 +6808,14 @@ def phase_shard(dev, corpus, alphabet, d):
               f"of {sum(v.numel() for v in sure.values())} left out, "
               f"{worst.get('outliers', 0)} outside the tolerance at most on "
               f"a rank); "
-              f"resident parameters + AdamW moments a rank "
+              + (f"one process on the ranks' experts (at {len(leads)} "
+                 f"tokens its own top-1 differs, leading by at most "
+                 f"{max(leads, default=0.0):.2e}; on its own routing, not "
+                 f"held: {own[key]['tokens_differ']} tokens of the ranks' "
+                 f"took another expert, {own[key]['outliers']} parameters "
+                 f"of rank {ranks[0]} outside the tolerance); "
+                 if key in replayed else "")
+              + f"resident parameters + AdamW moments a rank "
               f"{[round(b / 1e6, 2) for b in resident]} MB vs one process "
               f"{ref['resident'] / 1e6:.2f} MB; step ms a rank (steps "
               f"2-{n}, host clock) {[round(m, 2) for m in rank_ms]}, one "
@@ -6772,11 +6959,15 @@ def model_part(plan, k: str, v, coords: dict):
     return v
 
 
-def predicted_bytes(plan, params: dict) -> int:
+def predicted_bytes(plan, params: dict, coords: dict | None = None) -> int:
     """A rank's parameters and AdamW moments (three float32 copies of each
-    leaf's part), from the shapes and the plan's splits alone."""
+    leaf's part), from the shapes and the plan's splits alone; with the
+    rank's `coords`, only the leaves its pipeline stage holds."""
     total = 0
     for k, v in params.items():
+        if coords is not None and plan.stage(k) not in (None,
+                                                        coords["pipe"]):
+            continue
         n = v.numel()
         for axis, _ in plan.splits(k, tuple(v.shape)):
             n //= plan.sizes[axis]
@@ -6817,30 +7008,35 @@ def phase_tensor(dev, corpus, alphabet, d):
     _, res, bwd, per = route_counters()
     n = TENSOR_STEPS
 
-    def reference(model: str) -> dict:
-        """n one-process steps: the losses, the first step's gradients,
-        the parameters after, the mask, the resident and peak bytes, the
-        step ms (host clock, synchronized)."""
+    def reference(model: str, routes: list | None = None) -> dict:
+        """n one-process steps (the experts of `routes` replayed, the
+        leads of the replayed experts' near-ties kept): the losses, the
+        first step's gradients, the parameters after, the mask, the
+        resident and peak bytes, the step ms (host clock, synchronized)."""
         cfg, params0 = specs[model]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         p = {k: v.to(dev, copy=True) for k, v in params0.items()}
         opt = AdamW(cfg, p)
-        out = {"losses": [], "grads": None, "ms": []}
+        out = {"losses": [], "grads": None, "ms": [], "leads": []}
         sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p.items()}
-        for _ in range(n):
-            t0 = time.perf_counter()
-            loss, grads = loss_and_grads(p, arrays, cfg)
-            out["losses"].append(loss.item())
-            if out["grads"] is None:
-                out["grads"] = {k: g.cpu() for k, g in grads.items()}
-            sure = {k: sure[k] & (grads[k].abs() > max(
-                MESH_GRAD_FLOOR, SHARD_GRAD_REL * grads[k].abs().max().item()))
-                    for k in sure}
-            opt.update(p, grads)
-            torch.cuda.synchronize()
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        replay = (routes_replayed(routes, out["leads"]) if routes is not None
+                  else contextlib.nullcontext())
+        with replay:
+            for _ in range(n):
+                t0 = time.perf_counter()
+                loss, grads = loss_and_grads(p, arrays, cfg)
+                out["losses"].append(loss.item())
+                if out["grads"] is None:
+                    out["grads"] = {k: g.cpu() for k, g in grads.items()}
+                sure = {k: sure[k] & (grads[k].abs() > max(
+                    MESH_GRAD_FLOOR,
+                    SHARD_GRAD_REL * grads[k].abs().max().item()))
+                        for k in sure}
+                opt.update(p, grads)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["after"] = {k: v.cpu() for k, v in p.items()}
         out["sure"] = {k: v.cpu() for k, v in sure.items()}
         out["resident"] = _tree_bytes(p, opt.mu, opt.nu)
@@ -6869,7 +7065,7 @@ def phase_tensor(dev, corpus, alphabet, d):
     run_dir = os.path.join(d, "tensor_model2")
     cases = {
         "c": {"name": "c", "model": "moe", "mesh": "model=2,expert=2",
-              "kind": "steps", "steps": n},
+              "kind": "steps", "steps": n, "routes": True},
         "a": {"name": "a", "model": "conformer", "mesh": "model=2",
               "kind": "steps", "steps": n},
         "d": {"name": "d", "model": "transducer", "mesh": "model=2",
@@ -6920,6 +7116,12 @@ def phase_tensor(dev, corpus, alphabet, d):
         check(rc == 0, f"phase 20 rank {r}: rc {rc}\n{log[-3000:]}")
     got = [torch.load(os.path.join(d, f"shard_rank{r}.pt"),
                       weights_only=False) for r in range(4)]
+    # (c)'s one-process steps on the experts its ranks took (the checks'
+    # reference; refs["moe"] stays the timed one)
+    cfg = _meshed(specs["moe"][0], cases["c"]["mesh"])
+    replayed = {"c": reference("moe", ranks_routes(
+        got, [0, 1, 2, 3], ParallelPlan(cfg, cfg.train.mesh_shape,
+                                        cfg.train.mesh_axes), "c"))}
 
     # each case's launches a rank in its n steps: the conformer's flash
     # forward (residual form) and backward per block, the BiLSTM's rows 3r
@@ -6939,9 +7141,14 @@ def phase_tensor(dev, corpus, alphabet, d):
         case = cases[key]
         cfg = _meshed(specs[case["model"]][0], case["mesh"])
         plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes)
-        ref = refs[case["model"]]
+        timed_ref = refs[case["model"]]
+        ref = replayed.get(key, timed_ref)
         predicted = predicted_bytes(plan, specs[case["model"]][1])
         worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "outliers": 0}
+        leads = ref["leads"]
+        check(max(leads, default=0.0) <= ROUTE_TIE,
+              f"({key}) at {len(leads)} tokens one process's top-1 expert "
+              f"is not the ranks', its lead up to {max(leads, default=0):.3e}")
         for i, r in enumerate(ranks):
             rk = got[r][key]
             coords = plan.coords(i)
@@ -7006,12 +7213,14 @@ def phase_tensor(dev, corpus, alphabet, d):
                        "one_process_losses": ref["losses"],
                        "worst": worst, "left_out": left_out,
                        "step_ms": rank_ms,
-                       "one_process_step_ms": ref["ms"][1:],
+                       "routes_differ": len(leads),
+                       "routes_lead": max(leads, default=0.0),
+                       "one_process_step_ms": timed_ref["ms"][1:],
                        "resident_bytes": resident,
                        "predicted_resident_bytes": predicted,
-                       "one_process_resident_bytes": ref["resident"],
+                       "one_process_resident_bytes": timed_ref["resident"],
                        "peak_bytes": peak,
-                       "one_process_peak_bytes": ref["peak_bytes"],
+                       "one_process_peak_bytes": timed_ref["peak_bytes"],
                        "flash_heads": got[ranks[0]][key]["flash_heads"],
                        "launches": [got[r][key]["counts"] for r in ranks],
                        **extra}
@@ -7027,14 +7236,20 @@ def phase_tensor(dev, corpus, alphabet, d):
               f"{worst['param']:.2e} ({left_out} of "
               f"{sum(v.numel() for v in sure.values())} left out, "
               f"{worst['outliers']} outside the tolerance at most on a "
-              f"rank); resident parameters + AdamW moments a rank "
+              f"rank); "
+              + (f"one process on the ranks' experts (at {len(leads)} "
+                 f"tokens its own top-1 differs, leading by at most "
+                 f"{max(leads, default=0.0):.2e}); " if key in replayed
+                 else "")
+              + f"resident parameters + AdamW moments a rank "
               f"{[round(b / 1e6, 2) for b in resident]} MB (its splits "
               f"predict {predicted / 1e6:.2f}) vs one process "
-              f"{ref['resident'] / 1e6:.2f} MB; peak a rank "
+              f"{timed_ref['resident'] / 1e6:.2f} MB; peak a rank "
               f"{[round(b / 1e6, 1) for b in peak]} MB vs one process "
-              f"{ref['peak_bytes'] / 1e6:.1f} MB; step ms a rank (steps "
+              f"{timed_ref['peak_bytes'] / 1e6:.1f} MB; step ms a rank "
+              f"(steps "
               f"2-{n}, host clock) {[round(m, 2) for m in rank_ms]}, one "
-              f"process {[round(m, 2) for m in ref['ms'][1:]]}"
+              f"process {[round(m, 2) for m in timed_ref['ms'][1:]]}"
               + "".join(f"; {k} {[round(v, 3) for v in vs]}"
                         for k, vs in extra.items())
               + f"; flash heads a call {result[key]['flash_heads']}"
@@ -7108,6 +7323,335 @@ def phase_tensor(dev, corpus, alphabet, d):
     result["ranks_wall_s"] = wall_ranks
     result["wall_s"] = time.perf_counter() - t_phase
     print(f"[tensor] phase 20 in {result['wall_s']:.1f} s (the four rank "
+          f"processes {wall_ranks:.1f} s)")
+    result["launches"] = launches
+    return result
+
+
+PIPESEQ_STEPS = 2  # phase 21's steps a case
+# the steps' clip and rate: as the CPU tests, the clip engages at every step
+# and leaves every clipped gradient below AdamW's epsilon, where an update
+# is linear in the gradient. Unclipped, AdamW's first step moves each
+# element by the rate times the sign of its gradient, and where that
+# gradient lies within the runs' rounding apart the sign flips: the second
+# loss then differs by ~5e-6 relative at a rate of 1e-3 (the first run,
+# with the pipe=2 microbatches' sums in another order); linear, a
+# gradient's last bits move its update by as little. At this rate the
+# largest gradient's element moves by up to a hundredth.
+PIPESEQ_CLIP, PIPESEQ_LR = 1e-8, 0.02
+
+
+def pipeseq_specs(alphabet):
+    """Phase 21's model: the full-width transformer-CTC of Config() (6
+    blocks, d 256, 4 heads, FFN 1024), float32, dropout 0, its weights from
+    the seed on the host, with flash_attention (which the pipe and seq
+    steps do not take, as the JAX package's) and, for the one-process
+    reference, the same model without it (the dense attention the meshes
+    run); the steps' clip at PIPESEQ_CLIP and rate PIPESEQ_LR, the epoch's
+    phase 18's (a constant rate of 1e-3); and phase 18's global B=64 x 5 s
+    batch."""
+    import dataclasses
+
+    import torch
+
+    from pg_asr_tpu_torch.config import Config, fit_vocab
+    from pg_asr_tpu_torch.train import init_model_params
+
+    cfg_c, _, batch = mesh_spec(alphabet)
+    base = Config()
+    dense = fit_vocab(base.replace(
+        model=dataclasses.replace(base.model, family="transformer",
+                                  dropout=0.0),
+        transformer=dataclasses.replace(base.transformer, dropout=0.0,
+                                        flash_attention=False),
+        train=cfg_c.train), alphabet.size)
+    run = dense.replace(transformer=dataclasses.replace(
+        dense.transformer, flash_attention=True))
+    dense = dense.replace(train=dataclasses.replace(
+        dense.train, grad_clip=PIPESEQ_CLIP, learning_rate=PIPESEQ_LR))
+    flash = dense.replace(transformer=run.transformer)
+    params = init_model_params(dense, torch.Generator().manual_seed(SEED),
+                               "cpu")
+    return {"dense": (dense, params), "flash": (flash, params),
+            "flash_run": (run, params)}, batch
+
+
+def phase_pipeseq(dev, corpus, alphabet, d):
+    """21. The pipe and seq mesh axes, gloo rank processes on the one card
+    (`python3 chip_smoke.py --shard-worker ...`) against the one-process
+    steps on the same global B=64 x 5 s batch from the same weights, on
+    the full-width transformer-CTC with flash_attention (no flash launch
+    under either axis): (a) `pipe=2` at M=2, (b) at M=4, (c) `pipe=3` at
+    M=3 (three ranks), (d) `data=2,pipe=2` (M=2), (e) `pipe=2,model=2`
+    (M=2), (f) `seq=2`, (g) `seq=4` (T'=201 padded to 204), (h)
+    `data=2,seq=2`; (i) one epoch of train() under `data=2,pipe=2` with 2
+    microbatches in the four ranks (the CLI's launcher puts rank r on
+    cuda:r, so on one card the ranks run through the worker), whose
+    checkpoint `--mode predict` serves on one device and `--mode train`
+    resumes without a mesh. Each case prints its losses, the first step's
+    reduced gradients' largest difference relative to each tensor's
+    largest, the parameters', each rank's resident bytes of parameters and
+    AdamW moments (its stage's blocks under pipe: predicted from the
+    shapes) beside one process's, each rank's peak memory beside one
+    process's, the step ms beside one process's, one send / recv of a
+    microbatch's activations or one block's key gather and reduce-scatter
+    alone, and each rank's launches (none)."""
+    import numpy as np
+    import torch
+
+    from pg_asr_tpu_torch.checkpoint import load_checkpoint
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.parallel.driver import ParallelPlan
+    from pg_asr_tpu_torch.train import AdamW, loss_and_grads
+
+    t_phase = time.perf_counter()
+    specs, batch = pipeseq_specs(alphabet)
+    arrays = [torch.from_numpy(a).to(dev) for a in batch]
+    n = PIPESEQ_STEPS
+
+    # n one-process steps of the dense model: the losses, the first step's
+    # gradients, the parameters after, the mask, resident and peak bytes
+    cfg, params0 = specs["dense"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    p = {k: v.to(dev, copy=True) for k, v in params0.items()}
+    opt = AdamW(cfg, p)
+    ref = {"losses": [], "grads": None, "ms": []}
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p.items()}
+    for _ in range(n + 1):  # the last step only timed
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(p, arrays, cfg)
+        if len(ref["losses"]) < n:
+            ref["losses"].append(loss.item())
+            if ref["grads"] is None:
+                ref["grads"] = {k: g.cpu() for k, g in grads.items()}
+            sure = {k: sure[k] & (grads[k].abs() > max(
+                MESH_GRAD_FLOOR, SHARD_GRAD_REL * grads[k].abs().max().item()))
+                    for k in sure}
+            opt.update(p, grads)
+            ref["after"] = {k: v.cpu() for k, v in p.items()}
+        torch.cuda.synchronize()
+        ref["ms"].append((time.perf_counter() - t0) * 1e3)
+    ref["resident"] = _tree_bytes(p, opt.mu, opt.nu)
+    ref["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    blocks_bytes = 3 * sum(v.numel() * 4 for k, v in params0.items()
+                           if k.startswith("blocks."))
+    del p, opt, grads
+    torch.cuda.empty_cache()
+
+    run_dir = os.path.join(d, "pipeseq_d2p2")
+    cases = {
+        "d": dict(mesh="data=2,pipe=2", microbatches=2),
+        "e": dict(mesh="pipe=2,model=2", microbatches=2),
+        "g": dict(mesh="seq=4"), "h": dict(mesh="data=2,seq=2"),
+        "i": dict(mesh="data=2,pipe=2", microbatches=2, kind="run",
+                  model_dir=run_dir, model="flash_run"),
+        "c": dict(mesh="pipe=3", microbatches=3),
+        "a": dict(mesh="pipe=2", microbatches=2),
+        "b": dict(mesh="pipe=2", microbatches=4),
+        "f": dict(mesh="seq=2"),
+    }
+    for key, case in cases.items():
+        case.update(name=key, steps=n)
+        case.setdefault("kind", "steps")
+        case.setdefault("model", "flash")
+    spec_path = os.path.join(d, "pipeseq_spec.pt")
+    torch.save({"device": str(dev), "dir": d, "corpus": corpus,
+                "batch": batch,
+                "configs": {m: c.to_json() for m, (c, _) in specs.items()},
+                "params": {m: p for m, (_, p) in specs.items()},
+                "groups": [
+                    {"ranks": [0, 1, 2, 3], "port": mesh.free_port(),
+                     "cases": [cases[k] for k in "deghi"]},
+                    {"ranks": [0, 1, 2], "port": mesh.free_port(),
+                     "cases": [cases["c"]]},
+                    {"ranks": [0, 1], "port": mesh.free_port(),
+                     "cases": [cases[k] for k in "abf"]}]},
+               spec_path)
+    logs = [os.path.join(d, f"pipeseq_rank{r}.log") for r in range(4)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(4):
+        with open(logs[r], "w") as fo:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-worker",
+                 spec_path, str(r)], stdout=fo, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        rcs = [p.wait(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_ranks = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        with open(logs[r]) as fo:
+            log = fo.read()
+        check(rc == 0, f"phase 21 rank {r}: rc {rc}\n{log[-3000:]}")
+    got = [torch.load(os.path.join(d, f"shard_rank{r}.pt"),
+                      weights_only=False) for r in range(4)]
+
+    result, launches = {}, {}
+    for key in "abcdefgh":
+        case = cases[key]
+        cfg = _meshed(specs["flash"][0], case["mesh"],
+                      case.get("microbatches", 0))
+        plan = ParallelPlan(cfg, cfg.train.mesh_shape, cfg.train.mesh_axes,
+                            cfg.train.pipeline_microbatches)
+        ranks = list(range(plan.world))
+        worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "outliers": 0}
+        predicted, block_share = [], []
+        for i in ranks:
+            rk = got[i][key]
+            coords = plan.coords(i)
+            for a, b in zip(rk["losses"], ref["losses"]):
+                worst["loss"] = max(worst["loss"], abs(a - b) / abs(b))
+                check(abs(a - b) <= 1e-6 * abs(b),
+                      f"({key}) rank {i} losses {rk['losses']} vs "
+                      f"{ref['losses']}")
+            check(set(rk["grads"]) == {
+                k for k in ref["grads"]
+                if plan.stage(k) in (None, coords["pipe"])},
+                f"({key}) rank {i} holds {sorted(rk['grads'])}")
+            for k, g in rk["grads"].items():
+                g_ref = model_part(plan, k, ref["grads"][k], coords)
+                diff = (g - g_ref).abs()
+                top = g_ref.abs().max()
+                rel = (diff.max() / top).item()
+                if rel > worst["grad"]:
+                    worst["grad"], worst["grad_leaf"] = rel, k
+                check(rel <= TENSOR_GRAD_REL,
+                      f"({key}) rank {i} the reduced gradient of {k}: "
+                      f"max|diff| {diff.max().item():.3e}, max|g| "
+                      f"{top.item():.3e}")
+            outliers, checked, far = 0, 0, 0.0
+            for k, v in ref["after"].items():
+                diff = (rk["params"][k] - v).abs()
+                worst["param"] = max(worst["param"], (
+                    diff.max() / v.abs().max()).item())
+                bad = (diff > MESH_ATOL + MESH_RTOL * v.abs()) & sure[k].cpu()
+                checked += int(sure[k].sum())
+                if bad.any():
+                    far = max(far, diff[bad].max().item())
+                    outliers += int(bad.sum())
+            worst["outliers"] = max(worst["outliers"], outliers)
+            check(outliers <= SHARD_OUTLIERS * checked
+                  and far <= 2 * n * cfg.train.learning_rate,
+                  f"({key}) rank {i}: {outliers} of {checked} parameters "
+                  f"outside the tolerance, the farthest {far:.3e}")
+            predicted.append(predicted_bytes(plan, specs["flash"][1],
+                                             coords))
+            check(rk["resident"] == predicted[-1],
+                  f"({key}) rank {i} holds {rk['resident']} bytes, its "
+                  f"stage and splits give {predicted[-1]}")
+            held_blocks = predicted[-1] - (ref["resident"] - blocks_bytes)
+            block_share.append(held_blocks / blocks_bytes)
+            counts = {k: v for k, v in rk["counts"].items() if v}
+            check(counts == {} and rk["flash_heads"] == [],
+                  f"({key}) rank {i} launches {rk['counts']}, flash heads "
+                  f"{rk['flash_heads']}")
+            launches[f"pipeseq_{key}_r{i}_train"] = rk["counts"]
+        if plan.strategy == "pipe" and not plan.tp:
+            check(all(abs(b - 1 / plan.sizes["pipe"]) < 1e-12
+                      for b in block_share),
+                  f"({key}) block shares {block_share}")
+        same = all(torch.equal(got[0][key]["params"][k],
+                               got[i][key]["params"][k])
+                   for i in ranks[1:] for k in ref["grads"])
+        check(same, f"({key}) the ranks' gathered parameters differ")
+        rank_ms = [float(np.mean(got[i][key]["ms"][1:])) for i in ranks]
+        extra = {k: [got[i][key][k] for i in ranks]
+                 for k in ("send_recv_ms", "send_recv_mb", "seq_gather_ms",
+                           "seq_reduce_scatter_ms", "seq_gather_mb",
+                           "model_sum_ms", "model_sum_mb")
+                 if k in got[0][key]}
+        result[key] = {
+            "mesh": case["mesh"], "microbatches": plan.microbatches,
+            "rows": got[0][key]["rows"],
+            "losses": [got[i][key]["losses"] for i in ranks],
+            "one_process_losses": ref["losses"], "worst": worst,
+            "step_ms": rank_ms, "one_process_step_ms": ref["ms"][1:],
+            "resident_bytes": [got[i][key]["resident"] for i in ranks],
+            "predicted_resident_bytes": predicted,
+            "block_share": block_share,
+            "one_process_resident_bytes": ref["resident"],
+            "peak_bytes": [got[i][key]["peak_bytes"] for i in ranks],
+            "one_process_peak_bytes": ref["peak_bytes"], **extra}
+        print(f"[pipeseq] ({key}) --mesh {case['mesh']}"
+              + (f" --microbatches {plan.microbatches}"
+                 if plan.microbatches else "")
+              + f" on the transformer at B={MESH_BS} x 5 s, {plan.world} "
+              f"gloo ranks on cuda:0, {result[key]['rows']} rows each, {n} "
+              f"steps: losses {got[0][key]['losses']} vs one process "
+              f"{ref['losses']} (worst rel {worst['loss']:.2e}); the first "
+              f"step's reduced gradients, every element: worst max|diff| / "
+              f"max|g| {worst['grad']:.2e} ({worst.get('grad_leaf')}); "
+              f"parameters gathered, equal on every rank: worst max|diff| "
+              f"/ max|p| {worst['param']:.2e} ({worst['outliers']} outside "
+              f"the tolerance at most on a rank); resident parameters + "
+              f"AdamW moments a rank "
+              f"{[round(b / 1e6, 2) for b in result[key]['resident_bytes']]}"
+              f" MB (predicted {[round(b / 1e6, 2) for b in predicted]}; "
+              f"the blocks' share {[round(b, 4) for b in block_share]}) vs "
+              f"one process {ref['resident'] / 1e6:.2f} MB; peak a rank "
+              f"{[round(b / 1e6, 1) for b in result[key]['peak_bytes']]} MB"
+              f" vs one process {ref['peak_bytes'] / 1e6:.1f} MB; step ms a "
+              f"rank (steps 2-{n}, host clock) "
+              f"{[round(m, 2) for m in rank_ms]}, one process "
+              f"{[round(m, 2) for m in ref['ms'][1:]]}"
+              + "".join(f"; {k} {[round(v, 3) for v in vs]}"
+                        for k, vs in extra.items())
+              + f"; launches a rank {got[0][key]['counts']}")
+
+    # (i) the data=2,pipe=2 epoch's checkpoint: the one-device tree, served
+    # by predict on one device and resumed for an epoch without a mesh
+    last = load_checkpoint(os.path.join(run_dir, "model_last.pt"))
+    shapes = {k: v.shape for k, v in specs["flash"][1].items()}
+    check({k: v.shape for k, v in last["params"].items()} == shapes
+          and {k: v.shape for k, v in last["opt_state"]["mu"].items()}
+          == shapes, "(i) the checkpoint's tree is not one device's")
+    epoch = {k: np.load(os.path.join(run_dir, f"{k}.npy")).tolist()
+             for k in ("train_loss", "val_losses")}
+    i_counts = [got[r]["i"]["counts"] for r in range(4)]
+    check(all(not any(c.values()) for c in i_counts),
+          f"(i) launches {i_counts}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "predict", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev)])
+    predict_counts = all_counts()
+    check(rc == 0 and "CER:" in out and predict_counts["flash_attn"] > 0,
+          f"(i) predict: rc {rc}, launches {predict_counts}")
+    reset_counts()
+    rc, out = run_cli(["--mode", "train", "--corpus_path", corpus,
+                       "--model_path", run_dir, "--device", str(dev),
+                       "--num_epochs", "2", "--batch_size", str(MESH_BS)])
+    resume_counts = all_counts()
+    tl = np.load(os.path.join(run_dir, "train_loss.npy"))
+    check(rc == 0 and "resumed from epoch 1" in out and len(tl) == 2
+          and np.isfinite(tl).all() and tl[1] < tl[0],
+          f"(i) the resume: rc {rc}, {tl}")
+    check(resume_counts["flash_attn_residual"] > 0,
+          f"(i) resumed launches {resume_counts}")
+    for r in range(4):
+        launches[f"pipeseq_i_epoch_r{r}"] = i_counts[r]
+    launches["pipeseq_i_predict_one_device"] = predict_counts
+    launches["pipeseq_i_resume_no_mesh"] = resume_counts
+    print(f"[pipeseq] (i) one epoch of train() under --mesh data=2,pipe=2 "
+          f"--microbatches 2 (four ranks, {MESH_BS // 2} rows each, "
+          f"{[round(got[r]['i']['wall_s'], 1) for r in range(4)]} s): train "
+          f"/ val loss {epoch['train_loss']} / {epoch['val_losses']}; its "
+          f"checkpoint the one-device tree; launches a rank {i_counts[0]}; "
+          f"--mode predict on one device served it (launches "
+          f"{predict_counts}); --mode train resumed it for an epoch without "
+          f"a mesh (train losses {tl.tolist()}, launches {resume_counts})")
+    result["i"] = {"epoch": epoch,
+                   "wall_s": [got[r]["i"]["wall_s"] for r in range(4)],
+                   "resumed_train_losses": tl.tolist()}
+    result["ranks_wall_s"] = wall_ranks
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[pipeseq] phase 21 in {result['wall_s']:.1f} s (the four rank "
           f"processes {wall_ranks:.1f} s)")
     result["launches"] = launches
     return result
@@ -7461,6 +8005,8 @@ def main() -> int:
         shard_res = timed("19 shard", phase_shard, dev, corpus, alphabet, d)
         tensor_res = timed("20 tensor", phase_tensor, dev, corpus, alphabet,
                            d)
+        pipeseq_res = timed("21 pipe/seq", phase_pipeseq, dev, corpus,
+                            alphabet, d)
 
     import torch
 
@@ -7479,19 +8025,22 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"shard": shard_res}))
     print(json.dumps({"tensor": tensor_res}))
+    print(json.dumps({"pipeseq": pipeseq_res}))
     print(json.dumps({"phase_wall_s": walls}))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s")
     rows = kernels_line(cases, lib, predict_launches, train_counts, attention,
                         attention_train, tr, bi)
     for row in rows:  # the PG, recipe, corpus-tool, streaming, seq2seq,
         row["launches_by_path"].update(  # LM, export, MoE and mesh paths
-            # (the model axis's under model_*)
+            # (the model axis's under model_*, the pipe and seq axes' under
+            # pipeseq_*)
             {path: n[row["name"]] for path, n in
              {**pg["launches"], **recipe["launches"], **tools["launches"],
               **stream["launches"], **s2s["launches"],
               **lm["launches"], **export["launches"],
               **moe_res["launches"], **mesh_res["launches"],
-              **shard_res["launches"], **tensor_res["launches"]}.items()})
+              **shard_res["launches"], **tensor_res["launches"],
+              **pipeseq_res["launches"]}.items()})
         if row["name"] == "ctc_beam":
             row["cases_bpe_vocab"] = tools["beam_a256"]
         if row["name"] in ("lstm_fwd", "flash_attn"):

@@ -30,22 +30,22 @@ directories and neural LMs, read without flax or msgpack
 (``exporting.py``): the serving program of any ported family as one
 ``torch.export`` artifact, float32 or weight-only int8 (``ops/quant.py``),
 its kernels the registered ``pgasr`` operators (``ops/registry.py``);
-``--debug_nans`` (``utils/debug.py``); the ``data``, ``model``,
-``expert`` and ``fsdp`` mesh axes (``--mesh data=N``, ``model=T``,
-``expert=X``, ``fsdp=F``, ``data`` with one of the others, or
-``model=T,expert=X`` with or without ``data``, for train and finetune_pg:
+``--debug_nans`` (``utils/debug.py``); every mesh axis of the JAX CLI
+(``--mesh data=N``, ``model=T``, ``pipe=S`` with ``--microbatches``,
+``seq=Q``, ``expert=X``, ``fsdp=F``, ``data`` with one of the others,
+``model=T`` with ``expert=X`` or ``pipe=S``, for train and finetune_pg:
 a rank process a mesh position over torch.distributed,
 ``parallel/mesh.py``; Megatron tensor parallelism over ``model``,
-``parallel/tensor.py``; the switch-MoE's experts split over ``expert``,
+``parallel/tensor.py``; GPipe pipeline stages of the transformer-CTC's
+blocks over ``pipe``, ``parallel/pipeline.py``; its frames over ``seq``,
+``parallel/sequence.py``; the switch-MoE's experts split over ``expert``,
 the parameters and the AdamW state over ``fsdp``, ``parallel/moe.py``,
 ``parallel/fsdp.py``; the CLI starts the ranks, or the user does with
 ``PGASR_DISTRIBUTED=1``) and the elastic supervisor (``--max_restarts``,
-``--fault_step``, ``utils/elastic.py``). The ``seq`` and ``pipe`` axes
-and ``--microbatches`` are not ported yet (ROADMAP.md queue 1 item
-15b.3).
+``--fault_step``, ``utils/elastic.py``).
 Their CPU tests
 hold each against the JAX package (``tests/test_torch_*.py``);
-``chip_smoke.py`` phases 12, 13, 15, 16, 18, 19 and 20 run them on the
+``chip_smoke.py`` phases 12, 13, 15, 16 and 18-21 run them on the
 card. On CUDA tensors the LSTM recurrence runs in hand-written kernels
 (``csrc/lstm_fwd.cu``, forward in its inference and residual forms;
 ``csrc/lstm_bwd.cu``, its gradient; each launches one direction, as for

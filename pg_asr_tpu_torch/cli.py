@@ -13,8 +13,9 @@
         [--save_every_steps N] [--val_metric loss|cer] \\
         [--loader_threads N] [--cache_audio_mb MB] [--profile_steps N] \\
         [--init_from_torch model_best.pth [--trust_torch_pickle]] \\
-        [--mesh data=N|expert=X|fsdp=F|data=N,expert=X|data=N,fsdp=F] \\
-        [--max_restarts K [--fault_step S]] [--debug_nans]
+        [--mesh data=N|model=T|pipe=S|seq=Q|expert=X|fsdp=F|data=N,...] \\
+        [--microbatches M] [--max_restarts K [--fault_step S]] \\
+        [--debug_nans]
     python -m pg_asr_tpu_torch --mode predict --corpus_path C --model_path M \\
         [--decoder greedy|beam] [--beam_size K] [--beam_prune M] \\
         [--lm_order 2|3 [--lm_type ngram|neural] [--lm_pass fused|rescore] \\
@@ -47,10 +48,7 @@ The parser declares every flag of the JAX CLI, with its default, so that
 argparse resolves a flag, or a prefix of one, as the JAX CLI does;
 ``--device`` names a torch device and defaults to ``cuda`` (asking for it
 on a host without a GPU is an error, never a CPU fallback), and ``--seed``
-sets ``train.seed``. Options of the JAX CLI that are not ported yet exit
-with a message that says so and names their ROADMAP.md item: a live
-``seq`` or ``pipe`` mesh axis, alone or composed (``data x pipe x model``
-included), and ``--microbatches`` (item 15b.3).
+sets ``train.seed``.
 
 ``--mesh`` (train, finetune_pg) runs on one rank process per mesh position
 over torch.distributed (parallel/mesh.py; the plan, parallel/driver.py,
@@ -60,10 +58,16 @@ batch's rows over N ranks; ``expert=X`` splits each switch-MoE block's
 experts over X ranks that take the same rows; ``model=T`` runs each
 block's attention, FFNs and convolution module and the transducer's
 joint as Megatron pairs over T ranks that take the same rows, and stores
-every other split leaf split (parallel/tensor.py); ``fsdp=F`` splits the
-parameters and the AdamW state over F ranks that each take their own
-rows; ``data`` composes with any one of them, and ``model`` with
-``expert``. The CLI starts the ranks itself, on
+every other split leaf split (parallel/tensor.py); ``pipe=S`` splits the
+transformer-CTC's blocks into S pipeline stages that run a GPipe schedule
+over ``--microbatches`` M microbatches of the same rows (default S;
+parallel/pipeline.py); ``seq=Q`` splits its frames over Q ranks that take
+the same rows (parallel/sequence.py); ``fsdp=F`` splits the parameters
+and the AdamW state over F ranks that each take their own rows; ``data``
+composes with any one of them, and ``model`` with ``expert`` and with
+``pipe``. Under ``pipe`` or ``seq`` ``finetune_pg`` runs replicas of the
+``data`` step on their ranks, as the JAX package's replicated step. The
+CLI starts the ranks itself, on
 ``cuda:0`` .. ``cuda:W-1`` (W the product of the sizes; or W CPU processes
 under ``--device cpu``), returns nonzero if any fails, and forwards
 SIGTERM to them; a mesh of one position runs in this process, in a
@@ -223,10 +227,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train: torch.profiler trace of N steady-state "
                         "steps into <model_path>/trace")
     p.add_argument("--mesh", type=str, default=None,
-                   help="train/finetune_pg: data=N, expert=X, fsdp=F, or "
-                        "data with one of them: one rank process a mesh "
-                        "position (cuda:0..W-1, or the CPU under --device "
-                        "cpu); model, seq and pipe are not ported yet")
+                   help="train/finetune_pg: data=N, model=T, pipe=S, "
+                        "seq=Q, expert=X or fsdp=F, data with one of them, "
+                        "model with expert or pipe: one rank process a "
+                        "mesh position (cuda:0..W-1, or the CPU under "
+                        "--device cpu)")
     p.add_argument("--fault_step", type=int, default=None,
                    help="train: end the process with exit code 17 at this "
                         "global step, once per model dir (tests "
@@ -372,28 +377,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "step's loss or gradients, the dev loss or a "
                         "mode's log-probs (+-Inf passes); autograd's anomaly "
                         "mode names the backward op of a NaN")
-    # not ported: each non-default value exits with a message
-    # (_refuse_unported_flags)
     p.add_argument("--microbatches", type=int, default=None,
-                   help="pipeline microbatches (not ported)")
+                   help="train with a pipe axis: microbatches per batch "
+                        "(default: the pipe axis size)")
     return p
-
-
-# the JAX CLI's flags that are not ported -> what each belongs to
-_UNPORTED_FLAGS = {
-    "microbatches": "the pipeline mesh, item 15b.3",
-}
-
-
-def _refuse_unported_flags(parser: argparse.ArgumentParser, args) -> None:
-    """Exit through ``not_ported`` on any flag of the JAX CLI that is set
-    away from its default and not ported (naming its ROADMAP.md queue 1
-    item)."""
-    from . import not_ported
-
-    for flag, what in _UNPORTED_FLAGS.items():
-        if getattr(args, flag) != parser.get_default(flag):
-            raise not_ported(f"--{flag} ({what} of ROADMAP.md queue 1)")
 
 
 def _replace(section, **kw):
@@ -486,6 +473,10 @@ def train_config(args, cfg: Config | None = None) -> Config:
         tr["trust_torch_pickle"] = True
     if args.mesh:
         tr["mesh_shape"], tr["mesh_axes"] = _mesh_spec(args.mesh)
+    if args.microbatches is not None:
+        if args.microbatches < 1:
+            raise SystemExit("--microbatches must be >= 1")
+        tr["pipeline_microbatches"] = args.microbatches
     return cfg.replace(train=_replace(cfg.train, **tr))
 
 
@@ -524,9 +515,8 @@ def _mesh_world(args) -> int:
     """The rank processes of a train or finetune_pg run's mesh (1 without
     ``--mesh``, and for the other modes, which run on one device), from
     the plan of the config the run will take (parallel/driver.py), so
-    that a refused mesh exits before any rank starts: a live axis the port
-    does not run exits through ``not_ported``, a mesh the model cannot
-    take with the JAX package's message."""
+    that a mesh the model cannot take exits before any rank starts, with
+    the JAX package's message."""
     if not args.mesh or args.mode not in ("train", "finetune_pg"):
         return 1
     from .train import make_plan, resume_config
@@ -538,7 +528,7 @@ def _mesh_world(args) -> int:
     else:
         cfg = pg_config(args)
     try:
-        return make_plan(cfg).world
+        return make_plan(cfg, replicas=args.mode == "finetune_pg").world
     except ValueError as e:
         raise SystemExit(f"--mesh {args.mesh}: {e}") from None
 
@@ -723,11 +713,9 @@ def export(args, device) -> None:
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     try:
-        _refuse_unported_flags(parser, args)
         world = _mesh_world(args)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None

@@ -308,8 +308,8 @@ class TrainConfig:
     # stream straight from memory (data/dataset.BatchIterator)
     cache_audio_mb: float = 0.0
     # device mesh for the training step; the CLI surfaces this as
-    # --mesh data=2 (parallel/driver.py routes it: the port runs the data
-    # axis, one process a rank, parallel/mesh.py)
+    # --mesh data=2,pipe=2 (parallel/driver.py checks it and routes the
+    # step; every axis runs, one process a rank, parallel/mesh.py)
     mesh_shape: tuple[int, ...] = ()  # () -> one device (JAX: all on 'data')
     mesh_axes: tuple[str, ...] = ("data",)
     # pipeline parallelism: microbatches per global batch (0 -> the pipe

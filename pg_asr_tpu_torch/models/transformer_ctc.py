@@ -200,16 +200,23 @@ def stack_frames(x: torch.Tensor, frame_lens: torch.Tensor, subsample: int):
 def frontend(params: dict, feats: torch.Tensor, frame_mask: torch.Tensor,
              frame_lens: torch.Tensor, mcfg: ModelConfig,
              tcfg: TransformerConfig, pos_offset: int = 0,
-             pre_normalized: bool = False):
+             pre_normalized: bool = False, pad_to_multiple: int = 1):
     """Masked normalization -> frame stacking -> input projection +
     sinusoidal positions -> (x (B, T', d), out_mask (B, T') bool,
     out_lens (B,)). Streaming (serving.py) passes pre_normalized=True (it
     normalizes with running or fixed statistics) and the window's first
-    absolute subframe as pos_offset."""
+    absolute subframe as pos_offset. ``pad_to_multiple`` > 1 zero-pads the
+    stacked frames up to a multiple of it before the projection, as the
+    JAX package's frontend does for sequence parallelism (the padded
+    frames are masked)."""
     dtype = torch_dtype(mcfg.dtype)
     x = (feats.to(dtype) if pre_normalized
          else normalize_features(feats.to(dtype), frame_mask.to(dtype)))
     x, out_mask, out_lens = stack_frames(x, frame_lens, tcfg.subsample)
+    pad = -x.shape[1] % pad_to_multiple
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        out_mask = F.pad(out_mask, (0, pad))
     x = linear(params, "input_proj", x) + _posenc(
         x.shape[1], tcfg.d_model, dtype, x.device, pos_offset)
     return x, out_mask, out_lens

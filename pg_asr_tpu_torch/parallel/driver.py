@@ -9,29 +9,30 @@ ranks run: one rank process per mesh position (``world``, the product of
 the axis sizes), laid out row-major over the axes as given, as
 ``jax.sharding.Mesh`` lays out its devices (``coords``); each rank's rows
 of a batch (the batch splits over ``data``, and over ``data x fsdp`` under
-``fsdp``: ``batch_multiple``); and where each parameter leaf lives
+``fsdp``; ``batch_multiple`` counts the microbatches under ``pipe`` too);
+and where each parameter leaf lives
 (``placement``): whole on every rank, its experts split over ``expert``
 (parallel/moe.py), its largest divisible dimension over ``fsdp``
 (parallel/fsdp.py), or the dimension the Megatron rules name over
 ``model`` (parallel/tensor.py), an expert stack under ``model x expert``
-over both. The steps' collectives are parallel/mesh.py's.
+over both; under ``pipe`` a block's leaves live on the ranks of its
+pipeline stage only (``stage``), its Megatron pairs split over ``model``
+within it, and every other leaf is whole on every rank; under ``seq``
+every leaf is whole. The steps' collectives are parallel/mesh.py's, the
+pipeline's schedule parallel/pipeline.py's and the sequence-parallel
+encoder parallel/sequence.py's.
 
-The port runs ``data``, ``model``, ``expert`` and ``fsdp``, each of the
-last three with ``data``, and the JAX pair ``model x expert``; the ``seq``
-and ``pipe`` axes (``data x pipe x model`` with them) and pipeline
-microbatches are refused as not ported, naming their ROADMAP.md item.
+The port runs every axis of the JAX vocabulary: ``data``, ``model``,
+``pipe`` (with ``--microbatches``), ``seq``, ``expert`` and ``fsdp``, each
+of the others with ``data``, and the JAX pairs ``model x expert`` and
+``pipe x model`` (``data x pipe x model``).
 """
 
 from __future__ import annotations
 
 import math
 
-from .. import not_ported
-
 MESH_AXES = ("data", "model", "pipe", "seq", "expert", "fsdp")
-
-# the axes the port does not run yet -> their ROADMAP.md queue 1 item
-_UNPORTED_AXES = {"seq": "15b.3", "pipe": "15b.3"}
 
 
 def parse_mesh_spec(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -74,7 +75,8 @@ class ParallelPlan:
     rank 0 of 1."""
 
     def __init__(self, cfg, mesh_shape: tuple[int, ...] = (),
-                 mesh_axes: tuple[str, ...] = (), microbatches: int = 0):
+                 mesh_axes: tuple[str, ...] = (), microbatches: int = 0,
+                 replicas: bool = False):
         self.shape, self.axes = tuple(mesh_shape), tuple(mesh_axes)
         sizes = dict(zip(self.axes, self.shape))
         live = [a for a in ("model", "pipe", "seq", "expert", "fsdp")
@@ -86,25 +88,48 @@ class ParallelPlan:
                 "model/pipe/seq/expert/fsdp (plus the GSPMD pairs "
                 "model+expert and model+pipe); other compositions are "
                 "not supported")
-        for axis in live:
-            if axis in _UNPORTED_AXES:
-                raise not_ported(
-                    f"--mesh {axis}={sizes[axis]} (the {axis} axis, item "
-                    f"{_UNPORTED_AXES[axis]} of ROADMAP.md queue 1)")
-        if microbatches:
-            raise not_ported("--microbatches (the pipeline mesh, item 15b.3 "
-                             "of ROADMAP.md queue 1)")
+        # ``replicas`` (a policy-gradient step's plan): the JAX package's
+        # ``make_pg_step`` runs one GSPMD step on replicated parameters
+        # whatever the mesh, so the ranks of a pipe or seq group run copies
+        # of the data (and model) step on the same rows, for any family
+        self.copies = ("pipe", "seq") if replicas else ()
         # the strategy that owns the layout ('model' rides along with
-        # 'expert', as in the JAX package)
-        non_model = [a for a in live if a != "model"]
+        # 'expert' and 'pipe', as in the JAX package)
+        own = [a for a in live if a not in self.copies]
+        non_model = [a for a in own if a != "model"]
         self.strategy = (non_model[0] if non_model
-                         else live[0] if live else "data")
+                         else own[0] if own else "data")
         self.tp = "model" in live
-        self.sizes = {a: sizes.get(a, 1)
-                      for a in ("data", "model", "expert", "fsdp")}
+        self.sizes = {a: sizes.get(a, 1) for a in MESH_AXES}
         self.world = math.prod(self.shape)
         self._heads = _num_heads(cfg)
         self.fsdp_coverage = None
+        self.microbatches, self.layers = 0, 0
+        is_moe = (cfg.model.family == "transformer"
+                  and cfg.transformer.num_experts > 0)
+        if self.strategy in ("pipe", "seq"):
+            if cfg.model.family != "transformer" or is_moe:
+                raise ValueError(
+                    f"'{self.strategy}' axis requires the dense transformer "
+                    f"family (got family={cfg.model.family!r}, "
+                    f"num_experts={cfg.transformer.num_experts})")
+        if self.strategy == "pipe":
+            S = self.sizes["pipe"]
+            L = cfg.transformer.num_layers
+            if L % S != 0:
+                raise ValueError(
+                    f"transformer.num_layers={L} not divisible into "
+                    f"{S} pipeline stages")
+            self.microbatches = microbatches or S
+            self.layers = L
+            if self.tp:
+                t = self.sizes["model"]
+                if (cfg.transformer.num_heads % t
+                        or cfg.transformer.ffn_dim % t):
+                    raise ValueError(
+                        f"model axis size {t} must divide num_heads="
+                        f"{cfg.transformer.num_heads} and ffn_dim="
+                        f"{cfg.transformer.ffn_dim}")
         if self.strategy == "fsdp":
             from .fsdp import shardable_fraction
 
@@ -120,7 +145,7 @@ class ParallelPlan:
         if self.strategy == "expert":
             E = cfg.transformer.num_experts
             n = self.sizes["expert"]
-            if not (cfg.model.family == "transformer" and E > 0):
+            if not is_moe:
                 raise ValueError(
                     "'expert' axis needs a MoE model — set "
                     "--moe_experts N (transformer.num_experts)")
@@ -135,15 +160,17 @@ class ParallelPlan:
 
     @property
     def batch_multiple(self) -> int:
-        """The ranks that hold distinct rows of a batch: ``data``, times
-        ``fsdp`` under ``fsdp`` (the ranks of one expert or model group
-        hold the same rows)."""
-        return self.sizes["data"] * self.sizes["fsdp"]
+        """The JAX package's: a batch is zero-padded to a multiple of the
+        ranks that hold distinct rows (``data``, times ``fsdp`` under
+        ``fsdp``: the ranks of one model, expert, pipe or seq group hold the
+        same rows), times the microbatches under ``pipe``."""
+        n = self.sizes["data"] * self.sizes["fsdp"]
+        return n * self.microbatches if self.strategy == "pipe" else n
 
     def coords(self, rank: int) -> dict[str, int]:
         """The mesh position of rank `rank` (row-major over the axes as
         given); 0 on an axis the mesh does not name."""
-        out = dict.fromkeys(("data", "model", "expert", "fsdp"), 0)
+        out = dict.fromkeys(MESH_AXES, 0)
         for axis, n in reversed(tuple(zip(self.axes, self.shape))):
             out[axis] = rank % n
             rank //= n
@@ -153,7 +180,9 @@ class ParallelPlan:
         """Where a parameter leaf (and its optimizer state, accumulator and
         EMA) is split: None when every rank holds it whole, (axis,
         dimension) for one split, and a tuple of those pairs for a leaf
-        split over two axes (an expert stack under ``model x expert``)."""
+        split over two axes (an expert stack under ``model x expert``).
+        Under ``pipe`` this is the split within the leaf's stage
+        (``stage``)."""
         splits = self.splits(name, shape)
         if not splits:
             return None
@@ -176,7 +205,10 @@ class ParallelPlan:
             dim = fsdp_leaf_dim(tuple(shape), self.sizes["fsdp"])
             if dim is not None:
                 out.append(("fsdp", dim))
-        if self.tp:
+        if self.tp and (self.strategy != "pipe"
+                        or self.stage(name) is not None):
+            # under pipe x model only the stages' blocks split, as the JAX
+            # package's pipeline_stage_specs split them
             from .tensor import model_leaf_dim
 
             dim = model_leaf_dim(name, tuple(shape), self.sizes["model"],
@@ -184,6 +216,17 @@ class ParallelPlan:
             if dim is not None:
                 out.append(("model", dim))
         return tuple(out)
+
+    def stage(self, name: str) -> int | None:
+        """Under ``pipe``, the pipeline stage whose ranks alone hold leaf
+        `name`: block i's leaves on stage i // (L / S), as the JAX
+        package's ``stack_pipeline_params`` stacks them; None for a leaf
+        every rank holds (the frontend, ``ln_final``, ``ctc_head``) and on
+        any other mesh."""
+        parts = name.split(".")
+        if self.strategy != "pipe" or parts[0] != "blocks":
+            return None
+        return int(parts[1]) // (self.layers // self.sizes["pipe"])
 
 
 def _num_heads(cfg) -> int:

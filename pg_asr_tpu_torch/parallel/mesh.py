@@ -1,7 +1,7 @@
 """The mesh's rank processes over torch.distributed: the ``data``,
-``model``, ``expert`` and ``fsdp`` axes (counterpart of
-pg_asr_tpu/parallel/mesh.py and of the placements of parallel/moe.py and
-parallel/fsdp.py).
+``model``, ``pipe``, ``seq``, ``expert`` and ``fsdp`` axes (counterpart of
+pg_asr_tpu/parallel/mesh.py and of the placements of parallel/moe.py,
+parallel/fsdp.py and parallel/pipeline.py).
 
 The JAX package runs a mesh in one process over its devices (and over
 hosts with ``jax.distributed``). The port runs one process per mesh
@@ -9,7 +9,11 @@ position, PyTorch's way, each on its own device: ``data`` ranks take their
 own rows of the batch and sum the loss's denominators and the gradients,
 as the JAX package's ``shard_map`` step does with ``psum``; ``model``
 ranks take the same rows and run their parts of the Megatron pairs
-(parallel/tensor.py); ``expert`` ranks take the same rows and split each
+(parallel/tensor.py); ``pipe`` ranks take the same rows, each holds the
+blocks of its pipeline stage and passes activations on to the next stage
+and gradients back (parallel/pipeline.py); ``seq`` ranks take the same
+rows and each runs the blocks on its slice of the frames
+(parallel/sequence.py); ``expert`` ranks take the same rows and split each
 MoE block's experts (parallel/moe.py); ``fsdp`` ranks take their own rows
 and split the parameters and the optimizer state (parallel/fsdp.py).
 Ranks lie on the mesh row-major (``ParallelPlan.coords``), as
@@ -24,9 +28,12 @@ Ranks lie on the mesh row-major (``ParallelPlan.coords``), as
     (those holding distinct rows: ``data``, ``data x fsdp``) for the
     loss's denominators, the MoE's token counts and the gradients of
     whole leaves; the model group for the Megatron pairs' sums and the
-    gathers of the leaves the forward takes whole; the expert group for
-    the MoE's combine; the fsdp group for the gathers and reduce-scatters
-    of split leaves; every rank for the stop agreement and the broadcast.
+    gathers of the leaves the forward takes whole; the pipe group for the
+    point-to-point moves between stages and the gathers of the stages'
+    blocks; the seq group for the gathers of keys, values and final
+    states and their reduce-scatters; the expert group for the MoE's
+    combine; the fsdp group for the gathers and reduce-scatters of split
+    leaves; every rank for the stop agreement and the broadcast.
     ``ONE_DEVICE`` without a process group, every collective the
     identity; ``GroupRank`` in the joined group (without a plan: a data
     axis over the whole group).
@@ -178,8 +185,13 @@ class DataParallel:
     for any mesh."""
 
     rank, world, n_ranks, is_main = 0, 1, 1, True
+    # the strategy of the mesh's plan (parallel/driver.py) and the
+    # microbatches of a pipeline
+    strategy, microbatches = "data", 0
     expert_index, expert_size = 0, 1
     model_index, model_size = 0, 1
+    pipe_index, pipe_size = 0, 1
+    seq_index, seq_size = 0, 1
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of `t` over the ranks that hold distinct rows."""
@@ -247,12 +259,14 @@ class DataParallel:
                   ) -> dict[str, torch.Tensor]:
         """Per-leaf float32 sums of this rank's parts completed into the
         whole leaves' sums: summed over each split leaf's group, a whole
-        leaf counted once."""
+        leaf counted once; under ``pipe`` with the other stages' blocks'
+        sums added, in their leaves' dtype."""
         return sums
 
-    def group_sum(self, t: torch.Tensor, over: str) -> torch.Tensor:
+    def group_sum(self, t: torch.Tensor, over) -> torch.Tensor:
         """The sum of `t` over the named group of ranks (``"expert"``,
-        ``"model"``, or ``"model+expert"``: both), in float32, without
+        ``"model"``, or ``"model+expert"``: both; or a tuple of axes: those
+        that differ from this rank only along them), in float32, without
         gradient."""
         return t
 
@@ -273,10 +287,9 @@ ONE_DEVICE = DataParallel()
 # a set of ranks of one member: no collective
 _SELF = "self"
 
-# the mesh axes a rank has a place on (the port runs no ``pipe`` or ``seq``
-# axis), and the named sets of ranks of the collectives: those that differ
-# from this rank only along the axes named
-_AXES = ("data", "model", "expert", "fsdp")
+# the mesh axes a rank has a place on, and the named sets of ranks of the
+# collectives: those that differ from this rank only along the axes named
+_AXES = ("data", "model", "pipe", "seq", "expert", "fsdp")
 _GROUPS = {"batch": ("data", "fsdp"), "data": ("data",),
            "expert": ("expert",), "fsdp": ("fsdp",), "model": ("model",),
            "model+expert": ("model", "expert"), "world": _AXES}
@@ -305,10 +318,17 @@ class GroupRank(DataParallel):
 
     A leaf's placement (``ParallelPlan.splits``) names the axes that split
     it. Its gradient is summed over the ranks that differ from this one
-    along the other axes: the ``data`` ranks hold other rows, and the
+    along the other axes: the ``data`` ranks hold other rows, the ``pipe``
+    ranks of other stages (whose part of a whole leaf's gradient is zero
+    but for the frontend on the first stage and the head on the last) and
+    the ``seq`` ranks of other frames hold other parts of the sum, and the
     ``model`` and ``expert`` ranks that hold the same part compute copies
     of one gradient, which are averaged (on the card the copies differ in
-    their last bits, and the ranks of a group must keep equal weights)."""
+    their last bits, and the ranks of a group must keep equal weights), as
+    are a policy-gradient plan's ``pipe`` and ``seq`` replicas. Under
+    ``pipe`` a block's leaves live on its stage's ranks only: ``shard``
+    drops the other stages' blocks, ``unshard`` gathers them back from
+    their stages, and ``leaf_sums`` gives every stage's sums."""
 
     def __init__(self, device: torch.device | str, plan=None):
         import itertools
@@ -332,6 +352,20 @@ class GroupRank(DataParallel):
             coords = [plan.coords(r) for r in range(n)]
         me = coords[self.global_rank]
         F = sizes["fsdp"]
+        self.strategy = plan.strategy if plan is not None else "data"
+        self.microbatches = plan.microbatches if plan is not None else 0
+        self._copies = ("model", "expert") + (
+            plan.copies if plan is not None else ())
+        self.pipe_index, self.pipe_size = me["pipe"], sizes["pipe"]
+        self.seq_index, self.seq_size = me["seq"], sizes["seq"]
+        # the global ranks of this rank's pipe group, by stage (row-major:
+        # the rank rises with the pipe index within a group)
+        self._pipe_ranks = next(ranks for ranks in
+                                group_parts(coords, ("pipe",))
+                                if self.global_rank in ranks)
+        # gloo's send and recv take host tensors only
+        self._host_p2p = (self.device.type == "cuda"
+                          and dist.get_backend() == "gloo")
         self.rank = me["data"] * F + me["fsdp"]
         self.world = sizes["data"] * F
         self.expert_index, self.expert_size = me["expert"], sizes["expert"]
@@ -347,6 +381,11 @@ class GroupRank(DataParallel):
         # forward takes whole
         self._placed: dict[str, tuple[tuple[str, int], ...]] = {}
         self._gathered: set[str] = set()
+        # under pipe: every block leaf -> its stage; another stage's leaf
+        # -> (its whole shape, dtype); the whole tree's order
+        self._staged: dict[str, int] = {}
+        self._away: dict[str, tuple[tuple[int, ...], torch.dtype]] = {}
+        self._order: list[str] = []
 
     def _new_group(self, coords, along):
         """The ranks that differ from this one only along the axes
@@ -377,7 +416,8 @@ class GroupRank(DataParallel):
         ``_GROUPS``, or a tuple of axes)."""
         import torch.distributed as dist
 
-        group = self._groups[_GROUPS.get(over, over)]
+        axes = _GROUPS.get(over, over) if isinstance(over, str) else over
+        group = self._groups[tuple(a for a in _AXES if a in axes)]
         if group is not _SELF:
             dist.all_reduce(t, group=group)
 
@@ -424,6 +464,8 @@ class GroupRank(DataParallel):
         split = {}
         for k, g in grads.items():
             axes = {a for a, _ in self._placed.get(k, ())}
+            if k in self._staged:
+                axes.add("pipe")
             if "fsdp" in axes:
                 split[k] = g
                 continue
@@ -435,7 +477,7 @@ class GroupRank(DataParallel):
         out = {}
         for over, part in by_over.items():
             copies = math.prod(self._size[a] for a in over
-                               if a in ("model", "expert"))
+                               if a in self._copies)
             summed = self._sum_flat(part, over)
             out.update(summed if copies == 1 else
                        {k: g / copies for k, g in summed.items()})
@@ -516,11 +558,19 @@ class GroupRank(DataParallel):
     def shard(self, tree: dict[str, torch.Tensor]
               ) -> dict[str, torch.Tensor]:
         """A model axis's ``qkv`` and ``conv_in`` leaves are put in the run
-        layout (parallel/tensor.py ``to_run``) before their split."""
+        layout (parallel/tensor.py ``to_run``) before their split; under
+        ``pipe`` another stage's blocks are left out."""
         if self.plan is None:
             return tree
         out = {}
+        self._order = self._order or list(tree)
         for k, v in tree.items():
+            stage = self.plan.stage(k)
+            if stage is not None:
+                self._staged[k] = stage
+                if stage != self.pipe_index:
+                    self._away[k] = (tuple(v.shape), v.dtype)
+                    continue
             splits = self.plan.splits(k, tuple(v.shape))
             if splits:
                 self._placed[k] = splits
@@ -568,7 +618,8 @@ class GroupRank(DataParallel):
     def unshard(self, tree: dict[str, torch.Tensor], axis: str | None = None
                 ) -> dict[str, torch.Tensor]:
         """The model axis's parts first (back in the canonical layout),
-        then the expert axis's, then the fsdp axis's."""
+        then the expert axis's, then the fsdp axis's, then the other
+        pipeline stages' blocks (in the tree's order)."""
         for ax in ("model", "expert", "fsdp"):
             if axis not in (None, ax):
                 continue
@@ -578,7 +629,43 @@ class GroupRank(DataParallel):
                 tree = dict(tree, **{k: tensor.to_run(
                     k, tree[k], self.model_size, inverse=True)
                     for k in keys})
+        if axis in (None, "pipe") and self._away:
+            tree = self._gather_stages(tree)
         return tree
+
+    def _stage_keys(self) -> list[list[str]]:
+        """Each stage's block leaves, in the tree's order."""
+        out: list[list[str]] = [[] for _ in range(self.pipe_size)]
+        for k in self._order:
+            if k in self._staged:
+                out[self._staged[k]].append(k)
+        return out
+
+    def _gather_stages(self, tree: dict[str, torch.Tensor]
+                       ) -> dict[str, torch.Tensor]:
+        """`tree` with every stage's blocks, whole: each stage's leaves
+        broadcast from its rank in the pipe group, one broadcast a stage
+        and dtype."""
+        import torch.distributed as dist
+
+        got = dict(tree)
+        group = self._groups[("pipe",)]
+        for s, keys in enumerate(self._stage_keys()):
+            mine = s == self.pipe_index
+            meta = {k: (tuple(tree[k].shape), tree[k].dtype) if mine
+                    else self._away[k] for k in keys}
+            by_dtype: dict[torch.dtype, list[str]] = {}
+            for k in keys:
+                by_dtype.setdefault(meta[k][1], []).append(k)
+            for dt, ks in by_dtype.items():
+                sizes = [math.prod(meta[k][0]) for k in ks]
+                flat = (torch.cat([tree[k].reshape(-1) for k in ks]) if mine
+                        else torch.empty(sum(sizes), dtype=dt,
+                                         device=self.device))
+                dist.broadcast(flat, src=self._pipe_ranks[s], group=group)
+                for k, part in zip(ks, flat.split(sizes)):
+                    got[k] = part.view(meta[k][0])
+        return {k: got[k] for k in self._order if k in got}
 
     def forward_params(self, params: dict[str, torch.Tensor]
                        ) -> dict[str, torch.Tensor]:
@@ -609,23 +696,89 @@ class GroupRank(DataParallel):
             stacked = torch.stack([sums[k].float() for k in keys])
             self._all_reduce(stacked, axes)
             out.update(zip(keys, stacked.unbind()))
+        if self._away:
+            # the other stages' blocks, each stage's sums in one all-gather
+            # over the pipe group (every stage holds as many leaves), in
+            # their leaves' dtype
+            stages = self._stage_keys()
+            mine = torch.stack([out[k].float()
+                                for k in stages[self.pipe_index]])
+            every = self._axis_gather(mine, "pipe", 0).view(
+                self.pipe_size, -1)
+            for s, keys in enumerate(stages):
+                if s != self.pipe_index:
+                    out.update({k: every[s, j].to(self._away[k][1])
+                                for j, k in enumerate(keys)})
         return out
 
-    def group_sum(self, t: torch.Tensor, over: str) -> torch.Tensor:
+    def group_sum(self, t: torch.Tensor, over) -> torch.Tensor:
         out = t.detach().float().clone()
         self._all_reduce(out, over)
         return out.to(t.dtype)
 
-    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def _axis_gather(self, t: torch.Tensor, axis: str, dim: int
+                     ) -> torch.Tensor:
+        """The parts of `t` of the group along `axis` joined along `dim`
+        in the group's order, without gradient."""
         import torch.distributed as dist
 
         gather_single = getattr(dist, "all_gather_single",
                                 dist.all_gather_into_tensor)
         t = t.detach().contiguous()
-        n = self.model_size
+        n = self._size[axis]
         every = t.new_empty(n * t.numel())
-        gather_single(every, t.reshape(-1), group=self._groups[("model",)])
+        gather_single(every, t.reshape(-1), group=self._groups[(axis,)])
         return torch.cat(list(every.view(n, *t.shape)), dim=dim)
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._axis_gather(t, "model", dim)
+
+    def seq_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The seq group's parts of `t` (each rank's slice of the frames)
+        joined along `dim`, without gradient."""
+        return self._axis_gather(t, "seq", dim)
+
+    def seq_reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """`t`, whole along `dim` on every rank of the seq group, summed
+        over the group, this rank's part along `dim` kept (one
+        reduce-scatter), without gradient."""
+        import torch.distributed as dist
+
+        scatter_single = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
+        whole = t.detach().movedim(dim, 0).contiguous()
+        mine = whole.new_empty((whole.shape[0] // self.seq_size,)
+                               + tuple(whole.shape[1:]))
+        scatter_single(mine, whole, group=self._groups[("seq",)])
+        return mine.movedim(0, dim)
+
+    def pipe_send(self, t: torch.Tensor, stage: int, tag: int = 0):
+        """Start sending `t` to the rank of pipeline stage `stage` in this
+        rank's pipe group (the JAX pipeline's ``ppermute``); returns what
+        ``wait_all`` takes. Under gloo a CUDA tensor goes through a host
+        copy."""
+        import torch.distributed as dist
+
+        t = t.detach()
+        t = (t.cpu() if self._host_p2p else t).contiguous()
+        return dist.isend(t, dst=self._pipe_ranks[stage], tag=tag), t
+
+    def pipe_recv(self, shape: tuple[int, ...], dtype: torch.dtype,
+                  stage: int, tag: int = 0) -> torch.Tensor:
+        """The tensor the rank of stage `stage` sends with `tag`, on this
+        rank's device."""
+        import torch.distributed as dist
+
+        buf = torch.empty(shape, dtype=dtype, device=(
+            "cpu" if self._host_p2p else self.device))
+        dist.recv(buf, src=self._pipe_ranks[stage], tag=tag)
+        return buf.to(self.device)
+
+    @staticmethod
+    def wait_all(sends: list) -> None:
+        """Wait for the sends ``pipe_send`` started."""
+        for work, _ in sends:
+            work.wait()
 
     def model_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return shard_leaf(t, dim, self.model_index, self.model_size)

@@ -40,7 +40,12 @@ split over the ranks), ``model x expert``, or ``fsdp`` (the parameters and
 the AdamW state split, the tree gathered for each step), each with
 ``data``, the same ranks and layouts as training's; every mesh takes the
 global step, as the JAX package's pjit step does with its replicated
-parameters.
+parameters. The JAX package does not pipeline or time-split the PG step:
+under a ``pipe`` or ``seq`` mesh its GSPMD step runs on replicated
+parameters, so here the ranks of a pipe or seq group are replicas of the
+``data`` (or ``data x model``) step on the same rows, their gradients
+averaged (``finetune_pg`` joins the plan made with ``replicas=True``),
+for any family, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -505,8 +510,14 @@ def make_pg_step(cfg: Config, optimizer, dp: DataParallel = ONE_DEVICE,
     summed before the optimizer, the forward on ``dp.forward_params`` (the
     fsdp leaves gathered) as train.make_train_step; the loss is the global
     one and the metrics the ranks' mean. On one device (``ONE_DEVICE``)
-    every sum is the identity."""
+    every sum is the identity. Under a ``pipe`` or ``seq`` mesh ``dp`` is
+    a rank of the plan made with ``replicas=True``, as ``finetune_pg``
+    joins it."""
     from ..train import value_and_grad
+
+    if dp.strategy in ("pipe", "seq"):
+        raise ValueError("the policy-gradient step runs the replicas of a "
+                         f"{dp.strategy} mesh: ParallelPlan(replicas=True)")
 
     def pg_step(params, generator, wave, ns, labels, label_lens):
         gen = dp.step_generator(generator)
@@ -581,7 +592,9 @@ def finetune_pg(corpus_path: str, model_path: str, num_steps: int = 200,
     params, cfg = load_model(model_path, alphabet, cfg, which="best",
                              device=dev)
     # the mesh, checked against the model this run fine-tunes
-    dp = join_mesh(make_plan(cfg), dev)
+    # pipe and seq ranks run replicas of the data step (parallel/driver.py
+    # ``ParallelPlan(replicas=True)``)
+    dp = join_mesh(make_plan(cfg, replicas=True), dev)
     is_main, world = dp.is_main, dp.world
 
     # the word delimiter of WER-granularity rewards (neg_wer)

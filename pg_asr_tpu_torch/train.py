@@ -172,11 +172,12 @@ def global_norm(grads: dict[str, torch.Tensor],
     promoted dtype (bfloat16 until a float32 leaf joins), then the root in
     that dtype. ``dp``: a leaf split over a mesh axis sums its part's
     squares over that axis's group before the rounding back; a whole leaf
-    counts once."""
+    counts once; under ``pipe`` the other stages' blocks join with their
+    stages' sums, each leaf once."""
     sums = dp.leaf_sums({k: (g * g).float().sum() for k, g in grads.items()})
     total = None
-    for k in sorted(grads, key=tree_order):
-        s = sums[k].to(grads[k].dtype)
+    for k in sorted(sums, key=tree_order):
+        s = sums[k].to(grads[k].dtype) if k in grads else sums[k]
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -460,7 +461,18 @@ def make_train_step(cfg: Config, optimizer: AdamW,
     the step (``dp.forward_params``), the gradients come back as this
     rank's parts, and the gathered copies are freed. The draws come from
     ``dp.step_generator(generator)``. Returns the global loss. On one
-    device (``ONE_DEVICE``) every sum is the identity."""
+    device (``ONE_DEVICE``) every sum is the identity. Under ``pipe`` and
+    ``seq`` the step is parallel/pipeline.py's GPipe schedule and
+    parallel/sequence.py's time-split encoder, with this contract (the
+    JAX package's ``ParallelPlan.make_train_step`` routes them so)."""
+    if dp.strategy == "pipe":
+        from .parallel import pipeline
+
+        return pipeline.make_train_step(cfg, optimizer, dp)
+    if dp.strategy == "seq":
+        from .parallel import sequence
+
+        return sequence.make_train_step(cfg, optimizer, dp)
 
     def train_step(params, generator, *batch_arrays):
         gen = dp.step_generator(generator)
@@ -480,7 +492,17 @@ def make_train_step(cfg: Config, optimizer: AdamW,
 def make_eval_step(cfg: Config, dp: DataParallel = ONE_DEVICE) -> Callable:
     """step(params, wave, num_samples, labels, label_lens) -> the global
     batch's loss without dropout, reduced as the train step's (on the
-    parameters as this rank holds them: ``dp.forward_params``)."""
+    parameters as this rank holds them: ``dp.forward_params``); under
+    ``pipe`` and ``seq`` through their schedules."""
+    if dp.strategy == "pipe":
+        from .parallel import pipeline
+
+        return pipeline.make_eval_step(cfg, dp)
+    if dp.strategy == "seq":
+        from .parallel import sequence
+
+        return sequence.make_eval_step(cfg, dp)
+
     @torch.no_grad()
     def eval_step(params, *batch_arrays):
         num, den = loss_terms(dp.forward_params(params), *batch_arrays, cfg,
@@ -559,13 +581,15 @@ def rank_batches(n_rows: int, rank_bs: int, dp: DataParallel) -> int:
     return -(-(n_rows // dp.world) // rank_bs)
 
 
-def make_plan(cfg: Config) -> ParallelPlan:
+def make_plan(cfg: Config, replicas: bool = False) -> ParallelPlan:
     """The config's mesh validated against its model (parallel/driver.py):
-    refuses the family and mesh options that are not ported."""
+    refuses the family and mesh options that are not ported.
+    ``replicas``: a policy-gradient step's plan (pipe and seq ranks run
+    copies of the data step)."""
     t = cfg.train
     check_family(cfg.model.family)
     return ParallelPlan(cfg, t.mesh_shape, t.mesh_axes,
-                        t.pipeline_microbatches)
+                        t.pipeline_microbatches, replicas)
 
 
 def check_ported(cfg: Config) -> int:

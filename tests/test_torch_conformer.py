@@ -247,11 +247,14 @@ def test_cli_train_of_attention_families_exits_not_ported(tmp_path, model):
     # the switch-MoE transformer trains since it was ported
     # (tests/test_torch_moe.py), on an expert mesh since that was
     # (tests/test_torch_expert.py), on an expert x model mesh since the
-    # model axis was (tests/test_torch_tensor.py); a pipe x model mesh
-    # stays refused
+    # model axis was (tests/test_torch_tensor.py); a pipe x model mesh,
+    # ported since (tests/test_torch_pipeline.py), refuses it before any
+    # rank starts, with the JAX package's message
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", "--model", model, "--flash_attention",
                   "--mesh", "data=1,pipe=2,model=2",
                   "--corpus_path", str(tmp_path / "corpus"), "--model_path",
                   str(tmp_path / "model"), "--device", "cpu"])
-    assert "not yet ported" in str(e.value) and "15b" in str(e.value)
+    assert str(e.value) == (
+        "--mesh data=1,pipe=2,model=2: 'pipe' axis requires the dense "
+        "transformer family (got family='transformer', num_experts=4)")

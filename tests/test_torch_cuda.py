@@ -2557,3 +2557,122 @@ def test_two_rank_sharded_step_on_the_card_matches_one_process(
                                        atol=1e-5, err_msg=k)
     assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
                for k in p_ref)
+
+
+# one of two ranks of a pipe=2 or seq=2 mesh on the card over gloo (the
+# pipeline's activations and gradients staged through the host, the seq
+# group's gathers and reduce-scatters): the whole global batch, two steps;
+# losses, the flash launches and the gathered parameters into OUT
+_CUDA_PIPE_RANK = r"""
+import dataclasses, sys
+import torch
+from pg_asr_tpu_torch.config import Config
+from pg_asr_tpu_torch.ops import cuda_flash_attn
+from pg_asr_tpu_torch.parallel import mesh
+from pg_asr_tpu_torch.parallel.driver import parse_mesh_spec
+from pg_asr_tpu_torch.train import AdamW, make_plan, make_train_step
+
+spec_path, out, rank, port, spec_mesh = sys.argv[1:6]
+spec = torch.load(spec_path, weights_only=False)
+dev = torch.device("cuda", 0)
+mesh.init_distributed(f"127.0.0.1:{port}", 2, int(rank), backend="gloo",
+                      device=dev)
+cfg = Config.from_json(spec["config"])
+shape, axes = parse_mesh_spec(spec_mesh)
+cfg = cfg.replace(train=dataclasses.replace(cfg.train, mesh_shape=shape,
+                                            mesh_axes=axes))
+dp = mesh.GroupRank(dev, make_plan(cfg))
+params = dp.shard({k: v.to(dev) for k, v in spec["params"].items()})
+arrays = [torch.from_numpy(a).to(dev) for a in spec["batch"]]
+step = make_train_step(cfg, AdamW(cfg, params, dp=dp), dp)
+gen = torch.Generator().manual_seed(0)
+losses = [step(params, gen, *arrays).item() for _ in range(2)]
+torch.save({"losses": losses,
+            "launches": (cuda_flash_attn.LAUNCHES,
+                         cuda_flash_attn.RES_LAUNCHES,
+                         cuda_flash_attn.DKV_LAUNCHES,
+                         cuda_flash_attn.DQ_LAUNCHES),
+            "held": sorted(params),
+            "params": {k: v.cpu() for k, v in dp.unshard(params).items()}},
+           out)
+mesh.destroy_distributed()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_mesh", ["pipe=2", "seq=2"])
+def test_two_rank_pipe_and_seq_on_the_card_match_one_process(cuda, tmp_path,
+                                                             spec_mesh):
+    """pipe=2 (M=2) and seq=2 on a transformer of 2 blocks, d 64, 4 heads,
+    with flash_attention: two rank processes on cuda:0 over gloo (the
+    pipeline's sends staged through the host) against the one-process
+    steps (the flash kernels) on the same batch: the losses and the
+    gathered parameters after 2 steps within rtol 1e-4 / atol 1e-5 (where
+    every step's gradient exceeds 1e-6), the ranks equal; the mesh launches
+    no flash kernel (the dense attention, as the JAX package's pipe and
+    seq steps), and a pipe rank holds its stage's block only."""
+    import os
+    import subprocess
+    import sys
+
+    from pg_asr_tpu_torch.config import Config, TrainConfig, TransformerConfig
+    from pg_asr_tpu_torch.parallel import mesh
+    from pg_asr_tpu_torch.train import AdamW, init_model_params, loss_and_grads
+
+    _, _, batch = _mesh_case()
+    cfg = Config(model=ModelConfig(family="transformer", vocab_size=9,
+                                   input_dim=80, dropout=0.0),
+                 transformer=TransformerConfig(num_layers=2, d_model=64,
+                                               num_heads=4, ffn_dim=128,
+                                               dropout=0.0,
+                                               flash_attention=True),
+                 train=TrainConfig(warmup_steps=0, learning_rate=1e-3))
+    params = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    spec = str(tmp_path / "spec.pt")
+    torch.save({"config": cfg.to_json(), "params": params, "batch": batch},
+               spec)
+    script = str(tmp_path / "rank.py")
+    with open(script, "w") as fo:
+        fo.write(_CUDA_PIPE_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    port = str(mesh.free_port())
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, script, spec, outs[r], str(r),
+                               port, spec_mesh], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    p_ref = {k: v.to(cuda) for k, v in params.items()}
+    arrays = [torch.from_numpy(a).to(cuda) for a in batch]
+    opt, losses = AdamW(cfg, p_ref), []
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in p_ref.items()}
+    for _ in range(2):
+        loss, grads = loss_and_grads(p_ref, arrays, cfg)
+        losses.append(loss.item())
+        sure = {k: sure[k] & (grads[k].abs() > 1e-6) for k in sure}
+        opt.update(p_ref, grads)
+    for r, rk in enumerate(ranks):
+        np.testing.assert_allclose(rk["losses"], losses, rtol=1e-4,
+                                   atol=1e-5)
+        assert rk["launches"] == (0, 0, 0, 0)
+        blocks = {k.split(".")[1] for k in rk["held"]
+                  if k.startswith("blocks.")}
+        assert blocks == ({str(r)} if spec_mesh == "pipe=2" else {"0", "1"})
+        for k, v in p_ref.items():
+            m = sure[k].cpu()
+            np.testing.assert_allclose(rk["params"][k][m].numpy(),
+                                       v.cpu()[m].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    assert all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in p_ref)

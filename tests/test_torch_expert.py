@@ -115,15 +115,18 @@ def test_plan_matches_jax(spec, family):
 def test_model_with_expert_stays_refused():
     """JAX composes data x model x expert, and the port runs it since the
     model axis was ported (tests/test_torch_tensor.py): the expert stacks
-    split on both axes; with a pipe axis the port refuses it, naming its
-    item."""
+    split on both axes; a pipe axis, ported since (tests/
+    test_torch_pipeline.py), refuses the switch-MoE with the JAX package's
+    message."""
     cfg = Config.from_json(_moe().to_json())
     plan = driver.ParallelPlan(cfg, *driver.parse_mesh_spec(
         "data=1,model=2,expert=2"))
     assert plan.world == 4 and plan.strategy == "expert" and plan.tp
     assert plan.placement("blocks.0.w1", (E, 32, 64)) == (
         ("expert", 0), ("model", 2))
-    with pytest.raises(NotImplementedError, match="item 15b.3"):
+    with pytest.raises(ValueError, match="'pipe' axis requires the dense "
+                       r"transformer family \(got family='transformer', "
+                       f"num_experts={E}\\)"):
         driver.ParallelPlan(cfg, *driver.parse_mesh_spec(
             "data=1,pipe=2,model=2"))
 

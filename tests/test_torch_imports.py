@@ -67,6 +67,8 @@ def test_importing_every_module_of_the_port_loads_no_jax_package():
             "pg_asr_tpu_torch.parallel.mesh",
             "pg_asr_tpu_torch.parallel.fsdp",
             "pg_asr_tpu_torch.parallel.tensor",
+            "pg_asr_tpu_torch.parallel.pipeline",
+            "pg_asr_tpu_torch.parallel.sequence",
             "pg_asr_tpu_torch.utils.elastic",
             "pg_asr_tpu_torch.utils.debug"} <= set(modules)
     code = ("import importlib, sys\n"

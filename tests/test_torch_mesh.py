@@ -161,7 +161,10 @@ def test_local_rows_are_the_mesh_shards():
 def test_other_axes_are_refused_with_their_item():
     # the expert and fsdp axes run since they were ported
     # (tests/test_torch_expert.py, tests/test_torch_fsdp.py), the model
-    # axis alone, with data and with expert too (tests/test_torch_tensor.py)
+    # axis alone, with data and with expert too (tests/test_torch_tensor.py),
+    # the seq and pipe axes with --microbatches and data x pipe x model
+    # too (tests/test_torch_sequence.py, tests/test_torch_pipeline.py): a
+    # family they do not take is refused with the JAX package's message
     cfg = Config()
     assert driver.ParallelPlan(cfg, (), ()).world == 1
     assert driver.ParallelPlan(cfg, (4, 1), ("data", "model")).world == 4
@@ -173,12 +176,18 @@ def test_other_axes_are_refused_with_their_item():
                            ("model=2,expert=2", moe, 4)):
         plan = driver.ParallelPlan(c, *driver.parse_mesh_spec(spec))
         assert plan.world == world and plan.tp
-    for spec, item in (("seq=2", "15b.3"), ("pipe=2", "15b.3"),
-                       ("data=2,pipe=2,model=2", "15b.3")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    dense = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  family="transformer"))
+    for spec, axis, world in (("seq=2", "seq", 2), ("pipe=2", "pipe", 2),
+                              ("data=2,pipe=2,model=2", "pipe", 8)):
+        plan = driver.ParallelPlan(dense, *driver.parse_mesh_spec(spec))
+        assert plan.world == world and plan.strategy == axis
+        with pytest.raises(ValueError, match=f"'{axis}' axis requires the "
+                           "dense transformer family"):
             driver.ParallelPlan(cfg, *driver.parse_mesh_spec(spec))
-    with pytest.raises(NotImplementedError, match="microbatches.*15b.3"):
-        driver.ParallelPlan(cfg, (2,), ("data",), microbatches=2)
+    # microbatches without a pipe axis change nothing, as in the JAX package
+    plan = driver.ParallelPlan(cfg, (2,), ("data",), microbatches=2)
+    assert plan.world == 2 and plan.batch_multiple == 2
 
 
 # ------------------------------------------- the 2-rank steps vs the JAX mesh

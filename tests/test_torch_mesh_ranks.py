@@ -1,5 +1,7 @@
-"""Shared by the tests of the port's ``expert`` and ``fsdp`` mesh axes
-(tests/test_torch_expert.py, tests/test_torch_fsdp.py; no test of its
+"""Shared by the tests of the port's ``expert``, ``fsdp``, ``model``,
+``pipe`` and ``seq`` mesh axes (tests/test_torch_expert.py,
+tests/test_torch_fsdp.py, tests/test_torch_tensor.py,
+tests/test_torch_pipeline.py, tests/test_torch_sequence.py; no test of its
 own): four CPU rank processes over gloo that run every case of a test
 file, and the JAX package's ``ParallelPlan`` steps on the same mesh of
 forced host devices, on the same seeded numpy batches and weights
@@ -39,7 +41,6 @@ from pg_asr_tpu.parallel import driver as jax_driver
 from pg_asr_tpu.parallel import mesh as jax_mesh
 from pg_asr_tpu.rl import reinforce as jrl
 from pg_asr_tpu_torch.convert import params_from_jax
-from pg_asr_tpu_torch.parallel import mesh
 from tests.test_torch_mesh import _start, _wait
 
 TIMEOUT = 300  # seconds, the four processes of a file (under xdist)
@@ -48,7 +49,7 @@ RTOL, ATOL = 1e-4, 1e-5  # tests/test_torch_mesh.py's
 KEYS = ("wave", "ns", "labels", "label_lens")
 
 _WORKER = r"""
-import json, os, sys
+import json, os, sys, time
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -60,10 +61,25 @@ from pg_asr_tpu_torch.train import (AdamW, _copy, _ema_update, make_eval_step,
 
 d, rank = sys.argv[1], int(sys.argv[2])
 out = {}
-for group in json.load(open(os.path.join(d, "groups.json"))):
+for g, group in enumerate(json.load(open(os.path.join(d, "groups.json")))):
     if rank not in group["ranks"]:
         continue
-    mesh.init_distributed(f"127.0.0.1:{group['port']}", len(group["ranks"]),
+    # the group's first rank takes a free port just before it binds it and
+    # passes it on in a file: a port chosen when the processes start could
+    # be taken by another process's connection by the time a later group
+    # joins
+    port_file = os.path.join(d, f"group{g}.port")
+    if group["ranks"].index(rank) == 0:
+        with open(port_file + ".tmp", "w") as fo:
+            fo.write(str(mesh.free_port()))
+        os.replace(port_file + ".tmp", port_file)
+    end = time.monotonic() + 120
+    while not os.path.exists(port_file):
+        assert time.monotonic() < end, f"no {port_file}"
+        time.sleep(0.02)
+    with open(port_file) as fo:
+        port = int(fo.read())
+    mesh.init_distributed(f"127.0.0.1:{port}", len(group["ranks"]),
                           group["ranks"].index(rank), timeout_s=120)
     try:
         for name in group["cases"]:
@@ -73,7 +89,9 @@ for group in json.load(open(os.path.join(d, "groups.json"))):
             if case["kind"] == "run":
                 train(case["corpus"], case["model"], config=cfg, device="cpu")
                 continue
-            dp = mesh.GroupRank("cpu", make_plan(cfg))
+            # finetune_pg's ranks: a pipe or seq group's are replicas
+            dp = mesh.GroupRank("cpu", make_plan(
+                cfg, replicas=case["kind"] == "pg"))
             params = dp.shard(torch.load(os.path.join(d, name + ".pt")))
             npz = np.load(os.path.join(d, name + ".npz"))
             arrays = [torch.from_numpy(a) for a in mesh.local_rows(
@@ -154,9 +172,8 @@ def run_ranks(d: str, cases: dict, groups: list, meanwhile=None) -> dict:
         with open(os.path.join(d, name + ".case.json"), "w") as fo:
             json.dump(case, fo)
     with open(os.path.join(d, "groups.json"), "w") as fo:
-        json.dump([{"ranks": ranks, "cases": names,
-                    "port": mesh.free_port()} for ranks, names in groups],
-                  fo)
+        json.dump([{"ranks": ranks, "cases": names}
+                   for ranks, names in groups], fo)
     worker = os.path.join(d, "worker.py")
     with open(worker, "w") as fo:
         fo.write(_WORKER)
@@ -195,11 +212,13 @@ def jax_cases(cases: dict) -> dict:
 
 def jax_steps(jcfg, kind: str, tree: dict, steps: int, batch) -> dict:
     """The JAX package's steps on the config's mesh (its ParallelPlan:
-    placement, batch multiple, the GSPMD train steps and, for "train", the
+    placement, batch multiple, the train steps (GSPMD, or the pipeline's
+    and the sequence axis's shard_map programs) and, for "train", the
     eval step; for "pg"
     finetune_pg's optimizer, replicated weights and make_pg_step), with
     the EMA of every step when train.ema_decay > 0: {losses, eval, params,
-    ema}, the trees in the port's layout."""
+    ema}, the trees in the port's layout (a pipeline's canonical tree,
+    ``ParallelPlan.canonical_params``)."""
     t = jcfg.train
     m = jax_mesh.make_mesh(t.mesh_shape, t.mesh_axes,
                            devices=jax.devices()[:math.prod(t.mesh_shape)])
@@ -222,7 +241,9 @@ def jax_steps(jcfg, kind: str, tree: dict, steps: int, batch) -> dict:
         step = jrl.make_pg_step(jcfg, opt, m)
     ema = (jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), params)
            if t.ema_decay > 0 else None)
-    rng = jax.random.PRNGKey(0)
+    # placed as the step returns it, so that the second step reuses the
+    # first one's program
+    rng = jax_mesh.replicate(jax.random.PRNGKey(0), m)
     for _ in range(steps):
         params, opt_state, rng, loss, *_ = step(params, opt_state, rng,
                                                 *arrays)
@@ -231,6 +252,8 @@ def jax_steps(jcfg, kind: str, tree: dict, steps: int, batch) -> dict:
         out["losses"].append(float(loss))
 
     def port(tree):
+        if kind != "pg":  # a pipeline's stacked stages back to the blocks
+            tree = plan.canonical_params(tree)
         return params_from_jax(jax.tree_util.tree_map(np.asarray, tree))
 
     out["params"] = port(params)

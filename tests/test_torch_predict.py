@@ -136,7 +136,8 @@ def test_cli_predict_cpu(slice_setup, capsys):
 
 # the JAX CLI's flags that were not ported, each with a non-default value;
 # the export flags are ported since --mode export is, the MoE flags since
-# the switch-MoE transformer is and --debug_nans since its checks are:
+# the switch-MoE transformer is, --debug_nans since its checks are and
+# --microbatches since the pipe axis is:
 # --mode predict runs with them and ignores them (the model's config.json
 # decides), as the JAX CLI does
 UNPORTED_FLAGS = [
@@ -151,7 +152,7 @@ UNPORTED_FLAGS = [
 ]
 PORTED_FLAGS = ("export_batch", "export_seconds", "export_platforms",
                 "export_quantize", "moe_experts", "capacity_factor",
-                "debug_nans")
+                "debug_nans", "microbatches")
 
 
 @pytest.mark.parametrize("extra,message", UNPORTED_FLAGS)
@@ -331,13 +332,20 @@ def test_cli_other_modes_not_ported(tmp_path):
     # every mode is ported, the switch-MoE transformer's export too
     # (tests/test_torch_moe.py), its expert mesh too
     # (tests/test_torch_expert.py), its model x expert mesh too
-    # (tests/test_torch_tensor.py); what stays refused is a mode's device
-    # mesh with a pipe axis
+    # (tests/test_torch_tensor.py), and a pipe mesh too
+    # (tests/test_torch_pipeline.py): finetune_pg's ranks of a pipe group
+    # are replicas of the model axis's step, as the JAX package's
+    # replicated step, so the mesh takes the switch-MoE; training refuses it
+    # before any rank starts, with the JAX package's message
+    argv = ["--model", "moe", "--mesh", "pipe=2,model=2", "--corpus_path",
+            str(tmp_path / "corpus"), "--model_path", str(tmp_path),
+            "--device", "cpu"]
+    args = cli.build_parser().parse_args(["--mode", "finetune_pg", *argv])
+    assert cli._mesh_world(args) == 4
     with pytest.raises(SystemExit) as e:
-        cli.main(["--mode", "finetune_pg", "--model", "moe", "--mesh",
-                  "pipe=2,model=2", "--corpus_path", str(tmp_path / "corpus"),
-                  "--model_path", str(tmp_path), "--device", "cpu"])
-    assert "not yet ported" in str(e.value) and "item 15b" in str(e.value)
+        cli.main(["--mode", "train", *argv])
+    assert "'pipe' axis requires the dense transformer family" in str(
+        e.value)
 
 
 def _run(code_or_args, **kw):

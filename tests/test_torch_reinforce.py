@@ -444,14 +444,22 @@ def test_one_pg_step_matches_make_pg_step(monkeypatch, ctc_tree):
 
 def test_mesh_is_refused():
     # the data axis runs (tests/test_torch_mesh.py), the model axis too
-    # (tests/test_torch_tensor.py); the pipe axis is refused
-    from pg_asr_tpu_torch.train import check_ported
+    # (tests/test_torch_tensor.py), the pipe axis too
+    # (tests/test_torch_pipeline.py): for policy-gradient fine-tuning its
+    # ranks are replicas of the data step on any family, as the JAX
+    # package's replicated step; training refuses the BiLSTM-CTC there
+    from pg_asr_tpu_torch.train import check_ported, make_plan
 
     cfg = Config()
     assert check_ported(cfg.replace(train=dataclasses.replace(
         cfg.train, mesh_shape=(2,), mesh_axes=("data",)))) == 2
     assert check_ported(cfg.replace(train=dataclasses.replace(
         cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "model")))) == 2
-    with pytest.raises(NotImplementedError, match="not yet ported.*"):
-        check_ported(cfg.replace(train=dataclasses.replace(
-            cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "pipe"))))
+    piped = cfg.replace(train=dataclasses.replace(
+        cfg.train, mesh_shape=(1, 2), mesh_axes=("data", "pipe")))
+    plan = make_plan(piped, replicas=True)
+    assert (plan.world, plan.strategy, plan.copies) == (2, "data",
+                                                        ("pipe", "seq"))
+    with pytest.raises(ValueError, match="'pipe' axis requires the dense "
+                       "transformer family"):
+        check_ported(piped)

@@ -124,5 +124,5 @@ def test_parser_declares_every_jax_flag():
                       "lm_steps", "lm_pass", "length_bonus",
                       "export_batch", "export_seconds", "export_platforms",
                       "export_quantize", "moe_experts", "capacity_factor",
-                      "debug_nans", *cli._UNPORTED_FLAGS):
+                      "debug_nans", "microbatches"):
             assert a.default == jax_defaults[a.dest], a.dest

@@ -545,7 +545,8 @@ RUN_FLAGS = (["--mesh", "data=2"], ["--max_restarts", "1"],
     (["--max_restarts", "1"], "max_restarts"),
     (["--fault_step", "3"], "fault_step"),
     # the switch-MoE transformer trains since it was ported
-    # (tests/test_torch_moe.py); its pipeline microbatches stay refused
+    # (tests/test_torch_moe.py); --microbatches sets the config's pipeline
+    # microbatches since the pipe axis was (tests/test_torch_pipeline.py)
     (["--model", "moe", "--microbatches", "2"], "microbatches"),
     (["--mesh", "fsdp=8"], "mesh"),
     *UNPORTED_FLAGS,
@@ -560,14 +561,15 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
         # elastic supervisor are (--mesh data=2 sets the config's mesh; the
         # run options --max_restarts and --fault_step are no config
         # fields, tests/test_torch_mesh.py and test_torch_elastic.py run
-        # them), and since the fsdp axis is (--mesh fsdp=8 sets the mesh of
-        # 8 ranks, tests/test_torch_fsdp.py runs it); the others change
-        # nothing in a train run, as in the JAX CLI
+        # them), since the fsdp axis is (--mesh fsdp=8 sets the mesh of
+        # 8 ranks, tests/test_torch_fsdp.py runs it) and since the pipe
+        # axis is (--microbatches sets the pipeline's microbatches,
+        # tests/test_torch_pipeline.py runs it); the others change nothing
+        # in a train run, as in the JAX CLI
         base = ["--mode", "train", "--corpus_path", tiny_corpus,
                 "--model_path", str(tmp_path / "m")]
         parser = cli.build_parser()
         args = parser.parse_args(base + extra)
-        cli._refuse_unported_flags(parser, args)
         want_world = {"data=2": 2, "fsdp=8": 8}.get(args.mesh, 1)
         assert cli._mesh_world(args) == want_world
         cfg, want = cli.train_config(args), cli.train_config(
@@ -582,6 +584,11 @@ def test_cli_train_unported_options_exit_with_message(tiny_corpus, tmp_path,
             assert (cfg.train.mesh_shape, cfg.train.mesh_axes) == (
                 (want_world,), (args.mesh.split("=")[0],))
             want = want.replace(train=cfg.train)
+        if message == "microbatches":
+            assert cfg.train.pipeline_microbatches == 2
+            want = want.replace(model=cfg.model,
+                                transformer=cfg.transformer,
+                                train=cfg.train)
         assert cfg == want
         return
     with pytest.raises(SystemExit) as e:
@@ -602,5 +609,5 @@ def test_cli_train_takes_the_lm_flags_as_the_jax_cli(extra):
     base = ["--mode", "train", "--corpus_path", "c", "--model_path", "m"]
     parser = cli.build_parser()
     args = parser.parse_args(base + extra)
-    cli._refuse_unported_flags(parser, args)
+    assert cli._mesh_world(args) == 1
     assert cli.train_config(args) == cli.train_config(parser.parse_args(base))
